@@ -1,0 +1,15 @@
+"""PyTorch / CUDA port of the fleet simulation, beside the JAX reference
+in `repro`.
+
+It runs on one NVIDIA card by default (`device=None` means "cuda" and
+raises without one; pass `device="cpu"` for the plain PyTorch path). It
+imports `torch` and `numpy`, never `jax` and never the reference
+package: the reference's JAX-free modules it needs are copied here.
+
+Layout mirrors the reference: `flexibits/` (ISA, assembler, cycle model,
+FlexiLint analysis, the lane-vectorized simulator), `flexibench/` (the
+11 workloads), `kernels/` (the CUDA kernels, their wrappers and their nvcc build),
+`core/` (carbon model and core selection), `fleet/` (the packed resident
+engine, plans and the carbon report), `convert.py` (state carry-across
+with the reference) and `device.py` (the device policy).
+"""

@@ -1,0 +1,100 @@
+"""State carry-across between the reference and the port.
+
+The reference holds its simulator state as NamedTuples of JAX arrays
+(`ISSState`, `PackedState`, the resident loop's `ResidentAcc`); the port
+holds the same fields, in the same order and dtypes, as torch tensors.
+These functions move one into the other through numpy, so the reference
+and the port can be fed the same state and compared field by field. They
+take any NamedTuple with the right field names (numpy arrays, or
+anything `np.asarray` accepts) and never import the reference.
+
+The port's `ResidentAcc` keeps one extra discard row at the end of every
+per-item leaf (retire scatters of lanes that did not retire land there),
+and keeps `mix_g` without the reference's leading shard axis (the port
+runs one shard). `acc_to_torch`/`acc_to_numpy` add and drop both.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.fleet.engine import ResidentAcc
+from repro_torch.flexibits.iss import ISSState, PackedState
+
+_ACC_ITEM_LEAVES = ("n_instr", "n_two", "n_cycles", "halted", "out",
+                    "mems", "regs", "pc", "mix_items")
+
+
+def _t(x, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True)).to(dev)
+
+
+def _n(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def state_to_torch(st: NamedTuple, device: DeviceLike = None) -> ISSState:
+    """An `ISSState`-shaped tuple of arrays -> the port's `ISSState`."""
+    dev = resolve(device)
+    return ISSState(*(_t(getattr(st, f), dev) for f in ISSState._fields))
+
+
+def state_to_numpy(st: ISSState) -> ISSState:
+    """The port's `ISSState` -> the same tuple of numpy arrays."""
+    return ISSState(*(_n(x) for x in st))
+
+
+def packed_to_torch(ps: NamedTuple, device: DeviceLike = None
+                    ) -> PackedState:
+    """A `PackedState`-shaped tuple -> the port's `PackedState`."""
+    dev = resolve(device)
+    return PackedState(lanes=state_to_torch(ps.lanes, dev),
+                       prog_id=_t(ps.prog_id, dev),
+                       max_steps=_t(ps.max_steps, dev))
+
+
+def packed_to_numpy(ps: PackedState) -> PackedState:
+    """The port's `PackedState` -> numpy arrays."""
+    return PackedState(lanes=state_to_numpy(ps.lanes),
+                       prog_id=_n(ps.prog_id), max_steps=_n(ps.max_steps))
+
+
+def acc_to_torch(acc: NamedTuple, device: DeviceLike = None) -> ResidentAcc:
+    """A single-shard reference `ResidentAcc` -> the port's layout."""
+    dev = resolve(device)
+    out = {}
+    for f in ResidentAcc._fields:
+        v = getattr(acc, f)
+        if v is None:
+            out[f] = None
+            continue
+        v = np.asarray(v)
+        if f == "mix_g":
+            if v.shape[0] != 1:
+                raise ValueError("the port runs one shard; got mix_g of "
+                                 f"shape {v.shape}")
+            v = v[0]
+        elif f in _ACC_ITEM_LEAVES:
+            v = np.concatenate([v, np.zeros((1,) + v.shape[1:], v.dtype)])
+        out[f] = _t(v, dev)
+    return ResidentAcc(**out)
+
+
+def acc_to_numpy(acc: ResidentAcc) -> ResidentAcc:
+    """The port's `ResidentAcc` -> the reference's single-shard layout
+    (numpy arrays, discard row dropped, shard axis restored)."""
+    out = {}
+    for f in ResidentAcc._fields:
+        v = getattr(acc, f)
+        if v is None:
+            out[f] = None
+        elif f == "mix_g":
+            out[f] = _n(v)[None]
+        elif f in _ACC_ITEM_LEAVES:
+            out[f] = _n(v)[:-1]
+        else:
+            out[f] = _n(v)
+    return ResidentAcc(**out)

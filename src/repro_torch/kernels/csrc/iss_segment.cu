@@ -1,0 +1,129 @@
+// iss_segment_banked on Hopper: up to seg_steps RV32E steps for every lane
+// of a packed pool, each lane on its own bank program, in one launch.
+//
+// Replaces the TPU kernel src/repro/kernels/iss_stepper.py::
+// iss_segment_banked (body _segment_kernel / _step_tile), fault-free, with
+// the timing tally as a template parameter.
+//
+// Design. One thread per lane, blocks of 128 threads. A live lane loads its
+// 16 registers and 8 mix counters into shared memory ([index][lane], so
+// the 32 lanes of a warp hit 32 banks) and its pc and counters into
+// registers once, steps until it stops being live or the segment ends, and
+// writes everything back once. The per-lane step is rv32e_step.cuh, which
+// the CPU tests also compile with g++.
+//
+// What bounds it. Not bytes: the state is read and written once per
+// segment (at the main path's shapes, 16,384 lanes x 2,824 memory words,
+// ~370 MB both ways, ~0.1 ms at 3.35 TB/s) while a segment retires up to
+// 4,096 dependent steps per lane. Each step is a chain of dependent integer
+// work and up to two memory round trips (the fetch, and a load or store),
+// so the kernel is bound by latency and integer issue, and one warp's
+// lanes diverge when they run different programs.
+//
+// The memory row stays in device memory, indexed directly: at up to 2,824
+// words (11 KB) a lane, a useful tile's rows do not fit in the 227 KB of
+// shared memory a block can use. The bank is read through the read-only
+// path (__ldg). Nothing is allocated here; the state is updated in place.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "rv32e_step.cuh"
+
+namespace {
+
+constexpr int kBlock = 128;
+
+template <bool TIMING>
+__global__ void __launch_bounds__(kBlock) iss_segment_kernel(
+    const int32_t* __restrict__ bank, int32_t n_progs, int32_t bank_width,
+    const int32_t* __restrict__ code_len, const int32_t* __restrict__ mem_len,
+    const int32_t* __restrict__ cost, const int32_t* __restrict__ prog_id,
+    const int32_t* __restrict__ max_steps, int32_t* __restrict__ regs,
+    int32_t* __restrict__ pc, int32_t* __restrict__ mem, int32_t mem_words,
+    uint8_t* __restrict__ halted, int32_t* __restrict__ n_instr,
+    int32_t* __restrict__ n_two, int32_t* __restrict__ mix,
+    int32_t* __restrict__ n_cycles, int32_t n_lanes, int32_t seg_steps) {
+  __shared__ int32_t s_regs[16 * kBlock];
+  __shared__ int32_t s_mix[rv32e::N_MIX * kBlock];
+  const int t = threadIdx.x;
+  const int lane = blockIdx.x * kBlock + t;
+  if (lane >= n_lanes) return;
+
+  const int32_t budget = max_steps[lane];
+  rv32e::Lane s;
+  s.halted = halted[lane] != 0;
+  s.n_instr = n_instr[lane];
+  // a lane that is not live takes no step this segment: nothing changes
+  if (s.halted || s.n_instr >= budget) return;
+
+  const size_t row = static_cast<size_t>(lane);
+  for (int r = 0; r < 16; ++r) s_regs[r * kBlock + t] = regs[row * 16 + r];
+  for (int c = 0; c < rv32e::N_MIX; ++c)
+    s_mix[c * kBlock + t] = mix[row * rv32e::N_MIX + c];
+  s.regs = s_regs + t;
+  s.regs_stride = kBlock;
+  s.mix = s_mix + t;
+  s.mix_stride = kBlock;
+  s.pc = pc[lane];
+  s.n_two = n_two[lane];
+  s.n_cycles = n_cycles[lane];
+
+  // prog_id indexes the bank like a clamping gather would
+  const int32_t p = rv32e::clampi(prog_id[lane], 0, n_progs - 1);
+  rv32e::Program prog;
+  prog.code = bank + static_cast<size_t>(p) * bank_width;
+  prog.clen = code_len[p];
+  prog.mem = mem + row * mem_words;
+  prog.mlen = mem_len[p];
+  prog.cost = TIMING ? cost + static_cast<size_t>(p) * rv32e::N_COST : nullptr;
+
+  rv32e::run_lane<TIMING>(s, prog, budget, seg_steps);
+
+  for (int r = 0; r < 16; ++r) regs[row * 16 + r] = s_regs[r * kBlock + t];
+  for (int c = 0; c < rv32e::N_MIX; ++c)
+    mix[row * rv32e::N_MIX + c] = s_mix[c * kBlock + t];
+  pc[lane] = s.pc;
+  halted[lane] = s.halted ? 1 : 0;
+  n_instr[lane] = s.n_instr;
+  n_two[lane] = s.n_two;
+  n_cycles[lane] = s.n_cycles;
+}
+
+}  // namespace
+
+// Plain C entry for ctypes: every pointer is a device pointer, `stream` a
+// cudaStream_t. Returns cudaGetLastError() after the launch (0 = success).
+extern "C" int iss_segment_banked_launch(
+    const void* bank, int n_progs, int bank_width, const void* code_len,
+    const void* mem_len, const void* cost, int timing, const void* prog_id,
+    const void* max_steps, void* regs, void* pc, void* mem, int mem_words,
+    void* halted, void* n_instr, void* n_two, void* mix, void* n_cycles,
+    int n_lanes, int seg_steps, void* stream) {
+  if (n_lanes <= 0 || seg_steps <= 0) return 0;
+  const dim3 grid((n_lanes + kBlock - 1) / kBlock);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* b = static_cast<const int32_t*>(bank);
+  auto* cl = static_cast<const int32_t*>(code_len);
+  auto* ml = static_cast<const int32_t*>(mem_len);
+  auto* co = static_cast<const int32_t*>(cost);
+  auto* pid = static_cast<const int32_t*>(prog_id);
+  auto* ms = static_cast<const int32_t*>(max_steps);
+  auto* rg = static_cast<int32_t*>(regs);
+  auto* p = static_cast<int32_t*>(pc);
+  auto* m = static_cast<int32_t*>(mem);
+  auto* h = static_cast<uint8_t*>(halted);
+  auto* ni = static_cast<int32_t*>(n_instr);
+  auto* n2 = static_cast<int32_t*>(n_two);
+  auto* mx = static_cast<int32_t*>(mix);
+  auto* nc = static_cast<int32_t*>(n_cycles);
+  if (timing) {
+    iss_segment_kernel<true><<<grid, kBlock, 0, st>>>(
+        b, n_progs, bank_width, cl, ml, co, pid, ms, rg, p, m, mem_words, h,
+        ni, n2, mx, nc, n_lanes, seg_steps);
+  } else {
+    iss_segment_kernel<false><<<grid, kBlock, 0, st>>>(
+        b, n_progs, bank_width, cl, ml, co, pid, ms, rg, p, m, mem_words, h,
+        ni, n2, mx, nc, n_lanes, seg_steps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

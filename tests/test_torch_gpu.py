@@ -1,0 +1,111 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `gpu`: every test asks the `cuda` fixture for the device, which
+skips when there is no card, so here (CPU only) they all skip. Run them
+on a machine with a card:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+The plain versions are the port's `flexibits/iss.py`, which the CPU
+tests hold against the reference; no JAX is needed here.
+"""
+import numpy as np
+import pytest
+import torch
+
+import _torch_parity as tp
+from repro_torch import convert
+from repro_torch.fleet import engine
+from repro_torch.flexibits import iss
+from repro_torch.kernels import iss_stepper
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+def _t(x, dev):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+def _segments(dev, bank, clen, mlen, cost, state, seg_steps, n_segs,
+              subset=None):
+    a = convert.packed_to_torch(state, dev)
+    b = convert.packed_to_torch(state, dev)
+    bank, clen, mlen = _t(bank, dev), _t(clen, dev), _t(mlen, dev)
+    cost = None if cost is None else _t(cost, dev)
+    for k in range(n_segs):
+        a = iss_stepper.iss_segment_banked(bank, clen, a, seg_steps=seg_steps,
+                                           mem_len=mlen, cost=cost,
+                                           device=dev)
+        b = iss.run_segment_lanes_banked(bank, clen, b, seg_steps, subset,
+                                         mlen, cost)
+        torch.cuda.synchronize()
+        tp.assert_packed_equal(convert.packed_to_numpy(b),
+                               convert.packed_to_numpy(a), f"segment {k}")
+
+
+@pytest.mark.parametrize("timing", [False, True])
+def test_segment_kernel_matches_plain_on_workloads(cuda, timing):
+    bank, clen, mlen, cost, st = tp.workload_pool(77, seed=4)
+    _segments(cuda, bank, clen, mlen, cost if timing else None, st, 256, 3)
+
+
+@pytest.mark.parametrize("timing", [False, True])
+def test_segment_kernel_matches_plain_on_soups(cuda, timing):
+    rng = np.random.default_rng(55 + timing)
+    bank, clen = tp.soup_bank(rng, 7, 32, 64)
+    mlen = rng.integers(8, 65, 7).astype(np.int32)
+    cost = tp.soup_cost(rng, 7) if timing else None
+    _segments(cuda, bank, clen, mlen, cost, tp.soup_state(rng, 300, 64, 7),
+              64, 3)
+
+
+def test_refill_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(9)
+    st = tp.soup_state(rng, 200, 96, 5)
+    st = st._replace(lanes=st.lanes._replace(
+        n_instr=rng.integers(0, 50, 200).astype(np.int32),
+        mix=rng.integers(0, 9, (200, 8)).astype(np.int32)))
+    free = _t(rng.random(200) < 0.6, cuda)
+    for n_staged in (0, 37, 200):
+        take, src = iss.refill_take(
+            free, torch.tensor([n_staged], dtype=torch.int32, device=cuda))
+        staged = (_t(rng.integers(-99, 99, (150, 96)).astype(np.int32), cuda),
+                  _t(rng.integers(0, 5, 150).astype(np.int32), cuda),
+                  _t(rng.integers(1, 99, 150).astype(np.int32), cuda))
+        ps = convert.packed_to_torch(st, cuda)
+        want = iss.refill_lanes(ps, take, src, *staged)
+        got = iss_stepper.iss_refill(ps, take, src, *staged, device=cuda)
+        torch.cuda.synchronize()
+        tp.assert_packed_equal(convert.packed_to_numpy(want),
+                               convert.packed_to_numpy(got), f"{n_staged}")
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_run_packed_on_card_matches_cpu(cuda, adaptive):
+    kw = dict(chunk=16, seg_steps=64, keep_state=True, adaptive=adaptive)
+    iss_stepper.reset_counts()
+    gpu, sg = engine.run_packed(tp.skew_groups(engine), device=cuda, **kw)
+    assert iss_stepper.iss_segment_banked.launches > 0
+    assert iss_stepper.iss_refill.launches > 0
+    assert iss_stepper.iss_segment_banked.plain_calls == 0
+    cpu, sc = engine.run_packed(tp.skew_groups(engine), device="cpu", **kw)
+    tp.assert_results_equal(cpu, gpu, "card vs cpu")
+    assert (sg.lane_steps, sg.n_segments, sg.seg_schedule) == \
+        (sc.lane_steps, sc.n_segments, sc.seg_schedule)
+    assert sg.stepper == "cuda" and sc.stepper == "plain"
+
+
+def test_wrappers_check_their_tensors(cuda):
+    bank, clen, mlen, _, st = tp.workload_pool(11)
+    ps = convert.packed_to_torch(st, "cpu")
+    with pytest.raises(ValueError, match="expected cuda"):
+        iss_stepper.iss_segment_banked(_t(bank, cuda), _t(clen, cuda), ps,
+                                       seg_steps=4, mem_len=_t(mlen, cuda),
+                                       device=cuda)

@@ -1,0 +1,110 @@
+"""The port stands alone: it imports without JAX and without the
+reference package, its sources import neither, its entry points run on
+the card by default and raise without one, and the reference options it
+does not port yet raise NotImplementedError."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.fleet import engine, plan
+
+_ROOT = pathlib.Path(__file__).resolve().parent.parent
+_SRC = _ROOT / "src" / "repro_torch"
+
+_BLOCKED_IMPORT = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+mods = ["repro_torch"]
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+    mods.append(m.name)
+assert not any(k.split(".")[0] in ("jax", "repro") for k in sys.modules)
+print(len(mods))
+"""
+
+
+def test_port_imports_with_jax_and_the_reference_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(_ROOT / "src"),
+                                         env.get("PYTHONPATH", "")])
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    # every module of the package, subpackages included
+    n_files = len(list(_SRC.rglob("*.py")))
+    assert int(proc.stdout.strip().splitlines()[-1]) == n_files
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|"
+    r"import\s+repro(\.|\s|$)|from\s+repro(\.|\s))", re.MULTILINE)
+
+
+def test_sources_import_neither_jax_nor_the_reference():
+    offenders = []
+    for path in sorted(_SRC.rglob("*.py")):
+        for m in _FORBIDDEN.finditer(path.read_text()):
+            offenders.append(f"{path.relative_to(_ROOT)}: {m.group(0)}")
+    assert not offenders, offenders
+    assert len(list(_SRC.rglob("*.py"))) > 20
+
+
+def _tiny_plan(**kw):
+    return plan.FleetPlan(groups=(plan.FleetGroup(workload="WQ",
+                                                  n_items=4),),
+                          chunk=4, **kw)
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None runs on it")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        plan.run_plan(_tiny_plan())
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        engine.run_packed([])
+    from repro_torch.kernels import iss_stepper
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        iss_stepper.iss_refill(None, None, None, None, None, None)
+
+
+@pytest.mark.parametrize("what", ["refill_host", "packed_false", "mesh",
+                                  "faults", "dmr", "checkpoint",
+                                  "past_bounds"])
+def test_unported_options_raise_not_implemented(what):
+    plans = {
+        "refill_host": lambda: plan.run_plan(_tiny_plan(refill="host"),
+                                             device="cpu"),
+        "packed_false": lambda: plan.run_plan(_tiny_plan(packed=False),
+                                              device="cpu"),
+        "mesh": lambda: plan.run_plan(_tiny_plan(), mesh=object(),
+                                      device="cpu"),
+        "faults": lambda: plan.run_plan(_tiny_plan(faults=object()),
+                                        device="cpu"),
+        "dmr": lambda: plan.run_plan(_tiny_plan(redundancy="dmr"),
+                                     device="cpu"),
+        "checkpoint": lambda: plan.run_plan(_tiny_plan(),
+                                            checkpoint_dir="ckpt",
+                                            device="cpu"),
+        # 4 items x 2^30 steps could overflow the int32 mix counters:
+        # the reference falls back to its host loop here
+        "past_bounds": lambda: plan.run_plan(plan.FleetPlan(
+            groups=(plan.FleetGroup(workload="WQ", n_items=4,
+                                    max_steps=2**30),), chunk=4),
+            device="cpu"),
+    }
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        plans[what]()
