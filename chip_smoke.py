@@ -25,12 +25,30 @@ Phases (each prints its own lines; any failure exits non-zero):
    reference is a slow Python loop), and launch counts showing that both
    kernels, and never their plain versions, ran the path;
 6. profile: the main path once more under torch.profiler, for the
-   device's busy share and its time by kernel.
+   device's busy share and its time by kernel;
+7. sweep kernel: `sweep_tile` against its plain PyTorch version on the
+   card: three streamed tiles of 12 cells x 8 draws x 3 candidates (+inf
+   lifetimes, invalid cells, exact ties) in float32 and float64, then
+   the sweep's main tile (1,024 cells x 4,096 draws x 9 candidates,
+   float32), timed with CUDA events;
+8. small sweep: the reference test's mixture spec on the card and on the
+   CPU (the CPU fed the card's lifetimes), at four tile sizes on the card,
+   and the float64 point-mass spec against `total_grid`/`selection_map`;
+9. main sweep: all 11 workloads x 4 lifetime distributions x 5
+   frequencies x 4 intensities x 3 volumes x 3 timing models x 2 fault
+   rates (15,840 cells) x 4,096 draws, argmin over 3 cores x 3
+   redundancy modes, through `run_sweep` on the card in float32, with
+   launch counts showing that the kernel, and never its plain version,
+   ran every tile, every field bit-identical at a second tile size, and
+   once more under torch.profiler.
 
 It ends with a `kernels:` line of launch counts, a JSON line per kernel
 (times, bound, launches, error), the card's nvidia-smi line, and as the
-last line `{"ok": true, "device": {...}}`. Exact integer state is the
-tolerance throughout: every comparison is bit for bit (max_abs_err 0).
+last line `{"ok": true, "device": {...}}`. The fleet kernels' integer
+state is held bit for bit (max_abs_err 0). The sweep is held bit for bit
+but for its per-cell sums, which follow no fixed order (relative
+2 (N - 1) u), and for values at a log10 bin edge (counted; see
+`tests/_torch_parity.py`); its max_abs_err is over the exact fields.
 """
 import json
 import os
@@ -40,12 +58,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tests"))  # _torch_parity (no JAX)
 
 # H100 SXM peaks used for the bounds: HBM bandwidth (NVIDIA's data sheet)
 # and the int32 rate outside the tensor cores (132 SMs x 64 int32 lanes
 # per SM per clock x 1.98 GHz boost, from the Hopper architecture paper)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# float32 rate outside the tensor cores (NVIDIA's data sheet, H100 SXM)
+FP32_OPS_PER_S = 67e12
 # int32 operations per retired lane-step of rv32e_step.cuh: fetch clamp
 # and load address (5), field and immediate decode (40), register reads
 # (2), execute and next pc (8), classify (10), commit (5), and the live
@@ -56,6 +77,8 @@ SEG = ("iss_segment_banked", "src/repro_torch/kernels/csrc/iss_segment.cu",
        "src/repro/kernels/iss_stepper.py:246")
 REF = ("iss_refill", "src/repro_torch/kernels/csrc/iss_refill.cu",
        "src/repro/kernels/iss_stepper.py:418")
+SWEEP = ("carbon_sweep", "src/repro_torch/kernels/csrc/carbon_sweep.cu",
+         "src/repro/kernels/carbon_sweep.py:408")
 
 
 def log(*a):
@@ -361,18 +384,17 @@ def phase_main(dev):
     return counts
 
 
-def phase_profile(dev):
-    """The main path once more under torch.profiler: the device's busy
-    share (union of its activity intervals over the run's wall clock)
-    and device time by kernel. Runs after the launch counts were read."""
+def profiled(fn):
+    """Run fn() under torch.profiler: (its result, wall seconds, device
+    busy seconds (the union of the device's activity intervals), rows of
+    key_averages by device time), or busy None when the profiler saw no
+    device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.fleet import run_plan
-    plan = main_plan()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rep = run_plan(plan, device=dev)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -383,20 +405,273 @@ def phase_profile(dev):
         if b > end:
             busy += b - max(a, end)
             end = b
-    if not spans:
+    rows = sorted(prof.key_averages(),
+                  key=lambda r: r.self_device_time_total, reverse=True)
+    return out, wall, (busy / 1e6 if spans else None), rows
+
+
+def log_rows(tag, rows, n=10):
+    for r in rows[:n]:
+        if r.self_device_time_total <= 0:
+            break
+        log(f"[{tag}] {r.self_device_time_total / 1e3:10.2f} ms device "
+            f"{r.count:6d} calls  {r.key[:90]}")
+
+
+def phase_profile(dev):
+    """The main path once more under torch.profiler: the device's busy
+    share (union of its activity intervals over the run's wall clock)
+    and device time by kernel. Runs after the launch counts were read."""
+    from repro_torch.fleet import run_plan
+    plan = main_plan()
+    rep, wall, busy, rows = profiled(lambda: run_plan(plan, device=dev))
+    if busy is None:
         log("[profile] the profiler saw no device activity: device busy "
             "share not measured")
         return
     log(f"[profile] main path under torch.profiler: {wall:.2f}s wall "
         f"({rep.packed.wall_s:.2f}s inside run_packed), device busy "
-        f"{busy / 1e6:.3f}s = share {busy / 1e6 / wall:.4f} of the wall")
-    rows = sorted(prof.key_averages(),
-                  key=lambda r: r.self_device_time_total, reverse=True)
-    for r in rows[:10]:
-        if r.self_device_time_total <= 0:
-            break
-        log(f"[profile] {r.self_device_time_total / 1e3:10.2f} ms device "
-            f"{r.count:6d} calls  {r.key[:90]}")
+        f"{busy:.3f}s = share {busy / wall:.4f} of the wall")
+    log_rows("profile", rows)
+
+
+def phase_sweep_kernel(dev, rec):
+    """sweep_tile against its plain version: small streamed tiles in
+    float32 and float64, then the main path's tile, timed."""
+    import numpy as np
+    import torch
+    import _torch_parity as tp
+    from repro_torch import convert
+    from repro_torch.kernels import carbon_sweep as cs
+
+    worst = 0.0
+    for dtype in (np.float32, np.float64):
+        cases = tp.stream_cases(np.random.default_rng(7), dtype)
+        got = tp.port_stream(cases, dtype, dev)
+        torch.cuda.synchronize()
+        want = tp.port_stream(cases, dtype, dev, fn=cs.sweep_tile_plain)
+        w = tp.assert_streams_equal(cases, want, got, dtype,
+                                    np.dtype(dtype).name)
+        worst = max(worst, w)
+        log(f"[sweep kernel] 3 streamed tiles of 12 cells x 8 draws x 3-4 "
+            f"candidates, {np.dtype(dtype).name}: equal to the plain "
+            f"version (largest relative sum difference {w:.3g})")
+
+    # the main path's tile: 1,024 cells x 4,096 draws x 9 candidates
+    TC, N, C = 1024, 4096, 9
+    case = tp.tile_inputs(np.random.default_rng(8), TC, N, C, np.float32,
+                          inf_cells=2, invalid_frac=0.05)
+    args = [torch.from_numpy(case[k]).to(dev) for k in tp.TILE_ORDER]
+    fresh = lambda: cs.init_acc(64, 32, torch.float32, dev)  # noqa: E731
+    out, acc = cs.sweep_tile(*args, fresh(), device=dev, **tp.TILE_KW)
+    torch.cuda.synchronize()
+    pout, pacc = cs.sweep_tile_plain(*args, fresh(), **tp.TILE_KW)
+    np_out = lambda o: cs.TileOut(*(x.cpu().numpy() for x in o))  # noqa
+    want = ([np_out(pout)], [convert.sweep_acc_to_numpy(pacc)])
+    got = ([np_out(out)], [convert.sweep_acc_to_numpy(acc)])
+    w = tp.assert_streams_equal([case], want, got, np.float32, "main tile")
+    worst = max(worst, w)
+    # largest |kernel - plain| over the fields held exactly (equal
+    # infinities count as 0; a value at a bin edge would show here)
+    err = 0.0
+    exact = [(getattr(want[0][0], f), getattr(got[0][0], f))
+             for f in ("best_total", "best_core", "counts", "min_best",
+                       "max_best")] + list(zip(want[1][0], got[1][0]))
+    for a, b in exact:
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        with np.errstate(invalid="ignore"):         # inf - inf, masked
+            d = np.where(a == b, 0.0, np.abs(a - b))
+        err = max(err, float(d.max()) if d.size else 0.0)
+
+    def timed(fn, reps):
+        """Device time of `reps` back-to-back calls, from CUDA events; a
+        sleep queued first lets the host enqueue them all before the
+        device reaches the first, so host overhead stays out."""
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e8))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+    acc_t = fresh()
+    times = [timed(lambda: cs.sweep_tile(*args, acc_t, device=dev,
+                                         **tp.TILE_KW), 10)
+             for _ in range(3)]
+    plain = [timed(lambda: cs.sweep_tile_plain(*args, fresh(),
+                                               **tp.TILE_KW), 1)
+             for _ in range(3)]
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + 2 * sum(t.numel() * t.element_size() for t in acc) \
+        + sum(t.numel() * t.element_size() for t in out)
+    n_ops = 4 * TC * N * C          # 2 mul, 1 add, 1 compare per candidate
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = n_ops / FP32_OPS_PER_S * 1e3
+    ms, plain_ms = sorted(times)[1], sorted(plain)[1]
+    rec["carbon_sweep"] = dict(
+        ms=ms, plain_ms=plain_ms, max_abs_err=err,
+        bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations")
+    log(f"[sweep kernel] main tile {TC} cells x {N} draws x {C} candidates "
+        f"float32: equal to the plain version (largest relative sum "
+        f"difference {w:.3g}, bound {2 * (N - 1) * 2.0 ** -24:.3g}); kernel "
+        f"{ms:.4f} ms (runs {', '.join(f'{x:.4f}' for x in times)}), plain "
+        f"{plain_ms:.2f} ms; bound {max(b_bytes, b_ops):.4f} ms (bytes "
+        f"{nbytes} -> {b_bytes:.4f}, operations {n_ops} -> {b_ops:.4f})")
+    log(f"[sweep kernel] largest relative sum difference seen: {worst:.3g}")
+
+
+def phase_small_sweep(dev):
+    """The reference test's mixture spec on card and CPU; tile sizes on the
+    card; the float64 point-mass spec against the numpy oracles."""
+    import numpy as np
+    import _torch_parity as tp
+    from repro_torch.core import selection as sel
+    from repro_torch.core import sweep as sw
+
+    spec = tp.sweep_mixture_spec()
+    card, best, emb = tp.run_sweep_recorded(spec, tile_cells=48,
+                                            device=dev)
+    life_card = tp.sweep_life_days(spec, np.float32, dev, spec.n_cells)
+    life_cpu = tp.sweep_life_days(spec, np.float32, "cpu", spec.n_cells)
+    ulps = np.abs(life_card.view(np.int32).astype(np.int64)
+                  - life_cpu.view(np.int32).astype(np.int64))
+    if ulps.max() > 64:
+        raise AssertionError(f"card and CPU lifetimes differ by "
+                             f"{ulps.max()} ulps (> 64)")
+    cpu, _, _ = tp.run_sweep_recorded(spec, life_days=life_card,
+                                      tile_cells=48, device="cpu")
+    w = tp.assert_sweeps_equal(cpu, card, sw.build_tables(spec), best, emb,
+                               "mixture card vs CPU")
+    if card.frontier() != cpu.frontier():
+        raise AssertionError("mixture: frontier rows differ")
+    log(f"[small sweep] mixture spec ({spec.n_cells} cells x {spec.draws} "
+        f"draws): lifetimes card vs CPU within {ulps.max()} ulps "
+        f"({int((ulps > 0).sum())} of {ulps.size} differ); CPU fed the "
+        f"card's lifetimes equals the card's sweep (means within relative "
+        f"{w:.3g}), frontier rows equal")
+    runs = [sw.run_sweep(spec, tile_cells=t, device=dev)
+            for t in (3, 7, 48, spec.n_cells)]
+    for r in runs[1:]:
+        tp.assert_sweeps_identical(runs[0], r, "tile sizes")
+    log("[small sweep] tile sizes 3, 7, 48, all on the card: bit-identical")
+    spec, lifes = tp.sweep_point_spec()
+    res = sw.run_sweep(spec, tile_cells=5, dtype=np.float64, device=dev)
+    tg = sel.total_grid(list(spec.cores), spec.profiles[0],
+                        np.asarray(lifes), np.asarray(spec.execs_per_day))
+    smap = sel.selection_map(spec.profiles[0], np.asarray(lifes),
+                             np.asarray(spec.execs_per_day))
+    sq = np.s_[:, :, 0, 0, 0, 0, 0]
+    for f in ("p50", "min", "max"):
+        if not np.array_equal(getattr(res, f)[sq], tg.min(axis=0)):
+            raise AssertionError(f"point mass f64: {f} != total_grid min")
+    if not np.array_equal(res.best_core[sq], smap):
+        raise AssertionError("point mass f64: best_core != selection_map")
+    log("[small sweep] float64 point-mass spec on the card: min, p50, max "
+        "equal total_grid(...).min(0) and best_core equals selection_map, "
+        "bit for bit")
+
+
+def main_sweep_spec():
+    """The sweep's main path: the axes of benchmarks/fleet.py's planner
+    study plus the redundancy and fault-rate axes that
+    examples/carbon_planner.py exposes, at 4,096 draws."""
+    from repro_torch.core.sweep import LifetimeDist, workload_spec
+    day = 86_400.0
+    dists = (
+        LifetimeDist.point(30 * day),
+        LifetimeDist.lognormal(100 * day, 1.8),
+        LifetimeDist.weibull(300 * day, 1.5),
+        LifetimeDist.mixture(
+            [(LifetimeDist.point(10 * day), 0.5),
+             (LifetimeDist.lognormal(1000 * day, 0.8), 0.5)]),
+    )
+    return workload_spec(
+        dists=dists, execs_per_day=(1.0, 24.0, 96.0, 960.0, 8640.0),
+        intensities=(0.05, 0.233, 0.367, 0.7), volumes=(1e3, 1e6, 1e9),
+        timing=("base", "dynamic", "wcet"),
+        redundancies=("none", "dmr", "tmr"), fault_rates=(0.0, 1e-6),
+        draws=4096, seed=0)
+
+
+def phase_main_sweep(dev):
+    import numpy as np
+    import _torch_parity as tp
+    from repro_torch.core import sweep as sw
+    from repro_torch.kernels import carbon_sweep as cs
+
+    t0 = time.perf_counter()
+    spec = main_sweep_spec()
+    log(f"[main sweep] spec built on the host in "
+        f"{time.perf_counter() - t0:.1f}s: {spec.n_cells} cells x "
+        f"{spec.draws} draws = {spec.n_scenarios} scenarios, "
+        f"{spec.n_candidates} candidates")
+    n_tiles = -(-spec.n_cells // 1024)
+    cs.reset_counts()
+    res = sw.run_sweep(spec, tile_cells=1024, device=dev)
+    launches, plain = cs.sweep_tile.launches, cs.sweep_tile.plain_calls
+    if launches != n_tiles or plain:
+        raise AssertionError(f"main sweep: {launches} launches for "
+                             f"{n_tiles} tiles, {plain} plain calls")
+    if int(res.hist.sum()) != spec.n_scenarios:
+        raise AssertionError(f"main sweep: histogram holds "
+                             f"{int(res.hist.sum())} scenarios")
+    log(f"[main sweep] run_sweep tile 1024: {res.n_scenarios} scenarios in "
+        f"{res.wall_s:.3f}s wall = {res.scenarios_per_s:.4g} scenarios/s, "
+        f"{res.host_syncs} blocking host syncs, {launches} kernel launches "
+        f"({n_tiles} tiles), 0 plain calls, histogram total "
+        f"{int(res.hist.sum())}")
+    again = sw.run_sweep(spec, tile_cells=1024, device=dev)
+    wide = sw.run_sweep(spec, tile_cells=1536, device=dev)
+    tp.assert_sweeps_identical(res, again, "main sweep rerun")
+    tp.assert_sweeps_identical(res, wide, "main sweep tile 1536")
+    log(f"[main sweep] rerun at tile 1024: {again.wall_s:.3f}s = "
+        f"{again.scenarios_per_s:.4g} scenarios/s; tile 1536: "
+        f"{wide.wall_s:.3f}s = {wide.scenarios_per_s:.4g} scenarios/s; "
+        f"every field bit-identical across the three runs")
+    rows = res.frontier()
+    cores, n = np.unique(res.best_core, return_counts=True)
+    log(f"[main sweep] frontier: {len(rows)} points, embodied "
+        f"{rows[0]['embodied_kg']:.4g}..{rows[-1]['embodied_kg']:.4g} kg; "
+        f"least p50 total {res.p50.min():.4g} kg; cells by modal core "
+        + ", ".join(f"{spec.cores[c].name} {k}" for c, k in zip(cores, n)))
+    prof, wall, busy, krows = profiled(
+        lambda: sw.run_sweep(spec, tile_cells=1024, device=dev))
+    if busy is None:
+        log("[main sweep] the profiler saw no device activity: device busy "
+            "share not measured")
+        return launches
+    log(f"[main sweep] under torch.profiler: {wall:.3f}s wall "
+        f"({prof.wall_s:.3f}s inside run_sweep), device busy "
+        f"{busy:.4f}s = share {busy / wall:.4f} of the wall")
+    # device time by layer, over the device rows themselves (the aten::
+    # rows repeat their kernels' time); rows that are no kernel (launch
+    # queue full, event queries) get their own bucket
+    layers = {"carbon_sweep kernel": 0.0, "sort": 0.0, "copies": 0.0,
+              "draws, lifetimes, gathers (eager elementwise)": 0.0,
+              "no kernel (launch queue full, event queries)": 0.0}
+    kernels = [r for r in krows if r.self_device_time_total > 0
+               and not r.key.startswith("aten::")]
+    for r in kernels:
+        k = r.key
+        if "sweep_cells_kernel" in k or "sweep_pareto_kernel" in k:
+            g = "carbon_sweep kernel"
+        elif "ort" in k or "adix" in k:
+            g = "sort"
+        elif "emcpy" in k or "emset" in k:
+            g = "copies"
+        elif k.startswith("cuda") or k == "Command Buffer Full":
+            g = "no kernel (launch queue full, event queries)"
+        else:
+            g = "draws, lifetimes, gathers (eager elementwise)"
+        layers[g] += r.self_device_time_total / 1e3
+    total = sum(layers.values())
+    log("[main sweep] device time by layer: " + "; ".join(
+        f"{g} {ms:.2f} ms ({ms / total:.3f})" for g, ms in layers.items()))
+    log_rows("main sweep", kernels, 12)
+    return launches
 
 
 def main() -> int:
@@ -435,10 +710,19 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_profile(dev)
     log(f"[profile] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_sweep_kernel(dev, rec)
+    log(f"[sweep kernel] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_small_sweep(dev)
+    log(f"[small sweep] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    counts["carbon_sweep"] = phase_main_sweep(dev)
+    log(f"[main sweep] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []
-    for name_, src, replaces in (SEG, REF):
+    for name_, src, replaces in (SEG, REF, SWEEP):
         r = rec[name_]
         out.append({"name": name_, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name_],

@@ -12,17 +12,28 @@ The port's `ResidentAcc` keeps one extra discard row at the end of every
 per-item leaf (retire scatters of lanes that did not retire land there),
 and keeps `mix_g` without the reference's leading shard axis (the port
 runs one shard). `acc_to_torch`/`acc_to_numpy` add and drop both.
+
+For the carbon sweep, `sweep_spec_from` rebuilds a reference `SweepSpec`
+as the port's (profiles as the port's `DeviceProfile`, cores by name,
+distributions by their components), and `sweep_acc_to_torch` /
+`sweep_acc_to_numpy` carry the sweep's running accumulators.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.core.carbon import DeviceProfile
+from repro_torch.core.sweep import LifetimeDist, SweepSpec
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.fleet.engine import ResidentAcc
+from repro_torch.flexibits.cycles import CORES
 from repro_torch.flexibits.iss import ISSState, PackedState
+from repro_torch.kernels.carbon_sweep import SweepAcc
 
 _ACC_ITEM_LEAVES = ("n_instr", "n_two", "n_cycles", "halted", "out",
                     "mems", "regs", "pc", "mix_items")
@@ -98,3 +109,31 @@ def acc_to_numpy(acc: ResidentAcc) -> ResidentAcc:
         else:
             out[f] = _n(v)
     return ResidentAcc(**out)
+
+
+def sweep_spec_from(ref_spec) -> SweepSpec:
+    """A `SweepSpec`-shaped object (the reference's) -> the port's spec:
+    the same fields, with profiles, cores and distributions rebuilt from
+    the port's own classes (cores looked up by name)."""
+    prof_fields = [f.name for f in dataclasses.fields(DeviceProfile)]
+    fields = {f.name: getattr(ref_spec, f.name)
+              for f in dataclasses.fields(SweepSpec)}
+    fields["profiles"] = tuple(
+        DeviceProfile(**{k: getattr(p, k) for k in prof_fields})
+        for p in ref_spec.profiles)
+    fields["cores"] = tuple(CORES[c.name] for c in ref_spec.cores)
+    fields["dists"] = tuple(LifetimeDist(d.name, tuple(d.comps))
+                            for d in ref_spec.dists)
+    return SweepSpec(**fields)
+
+
+def sweep_acc_to_torch(acc: NamedTuple, device: DeviceLike = None
+                       ) -> SweepAcc:
+    """A `SweepAcc`-shaped tuple of arrays -> the port's `SweepAcc`."""
+    dev = resolve(device)
+    return SweepAcc(*(_t(getattr(acc, f), dev) for f in SweepAcc._fields))
+
+
+def sweep_acc_to_numpy(acc: SweepAcc) -> SweepAcc:
+    """The port's `SweepAcc` -> the same tuple of numpy arrays."""
+    return SweepAcc(*(_n(x) for x in acc))

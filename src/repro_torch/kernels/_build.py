@@ -3,7 +3,7 @@
 Each `csrc/*.cu` source is compiled on its own by `nvcc` for `sm_90a`
 into a shared library with a plain C interface, at first use, into the
 repository's git-ignored `build/kernels/`, and loaded with `ctypes`.
-A library's file name carries a hash of its source, the shared header and
+A library's file name carries a hash of its source, its own headers and
 the flags, so an edited source is never served a stale build. Missing
 libraries are built concurrently, one `nvcc` each. Nothing here runs at
 import time, so the CPU tests import the package without `nvcc`.
@@ -22,12 +22,15 @@ from typing import Dict, List
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-HEADERS = ("rv32e_step.cuh",)
+# library -> the csrc headers its source includes (hashed into its name)
+HEADERS = {"iss_segment": ("rv32e_step.cuh",), "iss_refill": (),
+           "carbon_sweep": ("carbon_sweep.cuh",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 # library -> (C symbol, argument types); every pointer and the stream are
 # c_void_p, so ctypes never narrows one to a 32-bit int
 SIGNATURES = {
@@ -37,6 +40,8 @@ SIGNATURES = {
     "iss_refill": ("iss_refill_launch",
                    [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                     _P, _P, _P, _I, _P]),
+    "carbon_sweep": ("carbon_sweep_launch",
+                     [_I] + [_P] * 25 + [_I] * 5 + [_D] * 4 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -57,7 +62,7 @@ def _nvcc() -> str:
 def lib_path(name: str) -> pathlib.Path:
     """Where library `name` is (or will be) built."""
     h = hashlib.sha256()
-    for f in (f"{name}.cu",) + HEADERS:
+    for f in (f"{name}.cu",) + HEADERS[name]:
         h.update((CSRC / f).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -251,3 +251,347 @@ def ref_segment(kind: str, bank, clen, state: PackedState, seg_steps: int,
     return PackedState(
         lanes=ISSState(*(np.asarray(x) for x in out.lanes)),
         prog_id=np.asarray(out.prog_id), max_steps=np.asarray(out.max_steps))
+
+
+# ------------------------------------------------------- carbon sweep
+# Tolerances of the sweep comparisons, each with its reason:
+# - everything but the per-cell sums is held bit for bit;
+# - a per-cell sum over N draws follows no fixed order (XLA's, torch's
+#   and the kernel's tree differ), and any two orders of N non-negative
+#   terms differ by a relative 2 (N - 1) u at most; a mean divides that
+#   sum by N and `fleet_mean` multiplies it by the volume, two more
+#   roundings of u / 2 on each side: 2 (N + 1) u;
+# - log10 differs by a few ulp between XLA, torch on the CPU and CUDA, so
+#   a value whose scaled log10 lies within EDGE of an interior bin edge
+#   may land in the neighbouring bin; the comparisons count such values
+#   and allow exactly those moves, and none where there are none.
+TILE_SUM_FIELDS = ("sum_best", "sum_emb", "sum_op")
+RESULT_SUM_FIELDS = ("mean", "mean_emb", "mean_op", "fleet_mean")
+RESULT_EXACT_FIELDS = ("p50", "p90", "p99", "min", "max", "counts")
+EDGE = 1e-4
+
+
+def unit_roundoff(dtype) -> float:
+    return 2.0 ** -53 if np.dtype(dtype) == np.float64 else 2.0 ** -24
+
+
+def assert_rel_close(a, b, rel: float, what: str) -> float:
+    """|a - b| <= rel * max(|a|, |b|) elementwise (equal infinities and
+    NaNs pass); returns the largest relative difference seen."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    same = (a == b) | (np.isnan(a) & np.isnan(b))
+    den = np.maximum(np.abs(a), np.abs(b))
+    with np.errstate(invalid="ignore", divide="ignore"):
+        r = np.where(same, 0.0, np.abs(a - b) / den)
+    worst = float(np.nanmax(r)) if r.size else 0.0
+    assert not np.isnan(r).any() and worst <= rel, \
+        f"{what}: relative difference {worst:.3g} > {rel:.3g}"
+    return worst
+
+
+def near_edges(x, lo: float, inv: float, n_bins: int, dtype):
+    """Interior bin edges (1..n_bins-1) that some finite value of `x`
+    lies within EDGE of, in the scaled log10 computed in float64 with
+    `lo`/`inv` rounded to the sweep's dtype as the kernel rounds them."""
+    x = np.asarray(x, np.float64).ravel()
+    x = x[np.isfinite(x) & (x > 0)]
+    lo, inv = float(np.asarray(lo, dtype)), float(np.asarray(inv, dtype))
+    s = (np.log10(x) - lo) * inv
+    e = np.rint(s)
+    hit = (np.abs(s - e) < EDGE) & (e >= 1) & (e <= n_bins - 1)
+    return e[hit].astype(np.int64)
+
+
+def assert_hist_equal(ha, hb, edges, what: str) -> None:
+    """Histograms equal, up to one move across an edge per value that
+    lies at one."""
+    diff = np.abs(np.asarray(ha, np.int64) - np.asarray(hb, np.int64))
+    assert diff.sum() <= 2 * len(edges), \
+        f"{what}: histograms differ by {diff.sum()} counts, " \
+        f"{len(edges)} values lie at a bin edge"
+    assert np.asarray(ha).sum() == np.asarray(hb).sum(), what
+
+
+def assert_pareto_equal(pa, pb, edges, what: str) -> None:
+    """The six per-bin Pareto fields equal, except in the two bins beside
+    an edge that some champion's embodied kg lies at. `pa`, `pb` map
+    field -> array (SweepResult.pareto) or are SweepAcc-ordered tuples."""
+    if not isinstance(pa, dict):
+        pa = dict(zip(PAR_FIELDS, list(pa)[1:]))
+        pb = dict(zip(PAR_FIELDS, list(pb)[1:]))
+    n = len(pa["op"])
+    free = np.zeros(n, bool)
+    for e in edges:
+        free[max(e - 1, 0):min(e + 1, n)] = True
+    for k in PAR_FIELDS:
+        np.testing.assert_array_equal(np.asarray(pa[k])[~free],
+                                      np.asarray(pb[k])[~free],
+                                      err_msg=f"{what}: pareto {k}")
+
+
+PAR_FIELDS = ("op", "emb", "life", "cell", "draw", "core")
+
+
+def tile_inputs(rng, n_cells: int, n_draws: int, n_cand: int, dtype,
+                *, inf_cells: int = 0, invalid_frac: float = 0.2,
+                ties: bool = False, cell0: int = 0):
+    """Numpy inputs of one sweep tile (the idiom of the reference's
+    `tests/test_sweep.py::test_pallas_row_tiles_bit_exact`): embodied kg,
+    intensity-1 operational anchors, intensities, frequencies and
+    lifetimes in days. `inf_cells` cells get some +inf lifetimes,
+    `ties` makes candidate pairs identical (exact argmin ties), and
+    `cell0` offsets the global cell indices."""
+    emb = rng.uniform(1e-4, 1e-2, (n_cells, n_cand))
+    kwh = rng.uniform(1e-9, 1e-6, (n_cells, n_cand))
+    if ties:
+        emb[:, 1::2] = emb[:, 0:n_cand - 1:2][:, :emb[:, 1::2].shape[1]]
+        kwh[:, 1::2] = kwh[:, 0:n_cand - 1:2][:, :kwh[:, 1::2].shape[1]]
+    life = rng.uniform(1, 4000, (n_cells, n_draws))
+    for c in range(min(inf_cells, n_cells)):
+        life[c, rng.random(n_draws) < 0.5] = np.inf
+    return dict(
+        emb=emb.astype(dtype), kwh=kwh.astype(dtype),
+        inten=rng.uniform(0.01, 1.1, n_cells).astype(dtype),
+        freq=rng.uniform(0.5, 100, n_cells).astype(dtype),
+        life_days=life.astype(dtype),
+        valid=rng.random(n_cells) >= invalid_frac,
+        cell_idx=np.arange(cell0, cell0 + n_cells, dtype=np.int32))
+
+
+TILE_KW = dict(hist_lo=-4.0, hist_inv=12.8, par_lo=-4.0, par_inv=6.4)
+
+
+def assert_tiles_equal(out_a, out_b, n_draws: int, dtype, what: str
+                       ) -> float:
+    """Two TileOuts (numpy): every field bit for bit but the sums, which
+    hold to 2 (N - 1) u. Returns the largest relative sum difference."""
+    worst = 0.0
+    for f in out_a._fields:
+        a, b = np.asarray(getattr(out_a, f)), np.asarray(getattr(out_b, f))
+        if f in TILE_SUM_FIELDS:
+            worst = max(worst, assert_rel_close(
+                a, b, 2 * (n_draws - 1) * unit_roundoff(dtype),
+                f"{what}: {f}"))
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f"{what}: {f}")
+    return worst
+
+
+def assert_sweeps_equal(ra, rb, tables, best_totals, embs, what: str
+                        ) -> float:
+    """Two SweepResults: the percentiles, min, max and counts bit for bit,
+    the means to 2 (N + 1) u, the histogram and the Pareto bins with the
+    bin-edge allowance of the best totals and candidate embodied kg that
+    the sweep's valid cells saw (`best_totals`, `embs`), binned by
+    `tables` (hist_lo/hist_inv/par_lo/par_inv). Returns the largest
+    relative difference of the means."""
+    dtype = ra.mean.dtype
+    n = ra.spec.draws
+    for f in RESULT_EXACT_FIELDS:
+        np.testing.assert_array_equal(getattr(ra, f), getattr(rb, f),
+                                      err_msg=f"{what}: {f}")
+    worst = 0.0
+    for f in RESULT_SUM_FIELDS:
+        worst = max(worst, assert_rel_close(
+            getattr(ra, f), getattr(rb, f),
+            2 * (n + 1) * unit_roundoff(dtype), f"{what}: {f}"))
+    assert_hist_equal(ra.hist, rb.hist, near_edges(
+        best_totals, tables.hist_lo, tables.hist_inv, len(ra.hist), dtype),
+        what)
+    assert_pareto_equal(ra.pareto, rb.pareto, near_edges(
+        embs, tables.par_lo, tables.par_inv, len(ra.pareto["op"]), dtype),
+        what)
+    return worst
+
+
+class TileRecorder:
+    """Wraps `repro_torch.kernels.carbon_sweep.sweep_tile` (install with
+    monkeypatch, or `install()`/`remove()`) and keeps the best totals and
+    candidate embodied kg of each tile's valid cells, for the bin-edge
+    allowance of `assert_sweeps_equal`."""
+
+    def __init__(self):
+        from repro_torch.kernels import carbon_sweep as csk
+        self.csk, self.orig = csk, csk.sweep_tile
+        self.best, self.emb = [], []
+
+    def __call__(self, emb, kwh, inten, freq, life_days, valid, cell_idx,
+                 acc, **kw):
+        out, acc = self.orig(emb, kwh, inten, freq, life_days, valid,
+                             cell_idx, acc, **kw)
+        v = valid.cpu().numpy()
+        self.best.append(out.best_total.cpu().numpy()[v].ravel())
+        self.emb.append(emb.cpu().numpy()[v].ravel())
+        return out, acc
+
+    # the wrapper counts through its module-level name, which is this
+    # recorder while it is installed: keep the counts on the wrapper
+    @property
+    def launches(self):
+        return self.orig.launches
+
+    @launches.setter
+    def launches(self, v):
+        self.orig.launches = v
+
+    @property
+    def plain_calls(self):
+        return self.orig.plain_calls
+
+    @plain_calls.setter
+    def plain_calls(self, v):
+        self.orig.plain_calls = v
+
+    def install(self):
+        self.csk.sweep_tile = self
+        return self
+
+    def remove(self):
+        self.csk.sweep_tile = self.orig
+
+    def arrays(self):
+        return np.concatenate(self.best), np.concatenate(self.emb)
+
+
+TILE_ORDER = ("emb", "kwh", "inten", "freq", "life_days", "valid",
+              "cell_idx")
+
+
+def stream_cases(rng, dtype, n_cells=12, n_draws=8, n_cand=3):
+    """Three tiles of the reference test's shape (12 cells x 8 draws x 3
+    candidates by default): plain, then +inf lifetimes and more invalid
+    cells, then exact candidate ties over one more candidate."""
+    return [tile_inputs(rng, n_cells, n_draws, n_cand, dtype),
+            tile_inputs(rng, n_cells, n_draws, n_cand, dtype, inf_cells=4,
+                        invalid_frac=0.5, cell0=n_cells),
+            tile_inputs(rng, n_cells, n_draws, n_cand + 1, dtype,
+                        ties=True, cell0=2 * n_cells)]
+
+
+def port_stream(cases, dtype, device="cpu", fn=None):
+    """The port's `sweep_tile` (or `fn`, e.g. `sweep_tile_plain`) over
+    the tiles on `device`, one accumulator set; numpy TileOuts and
+    accumulators after every tile."""
+    from repro_torch import convert
+    from repro_torch.kernels import carbon_sweep as pcs
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    acc = pcs.init_acc(64, 32, tdt, device)
+    outs, accs = [], []
+    for case in cases:
+        args = [torch.from_numpy(case[k]).to(device) for k in TILE_ORDER]
+        if fn is None:
+            out, acc = pcs.sweep_tile(*args, acc, device=device, **TILE_KW)
+        else:
+            out, acc = fn(*args, acc, **TILE_KW)
+        outs.append(pcs.TileOut(*(x.cpu().numpy() for x in out)))
+        accs.append(convert.sweep_acc_to_numpy(acc))
+    return outs, accs
+
+
+def stream_edges(cases, outs, dtype):
+    """The histogram and Pareto bin edges that some valid value of the
+    streamed tiles lies at (the allowance of the comparisons)."""
+    best = np.concatenate([o.best_total[c["valid"]].ravel()
+                           for c, o in zip(cases, outs)])
+    emb = np.concatenate([c["emb"][c["valid"]].ravel() for c in cases])
+    kw = TILE_KW
+    return (near_edges(best, kw["hist_lo"], kw["hist_inv"], 64, dtype),
+            near_edges(emb, kw["par_lo"], kw["par_inv"], 32, dtype))
+
+
+def assert_streams_equal(cases, ref, got, dtype, what) -> float:
+    """Two streams of (TileOuts, accumulators): tiles by
+    `assert_tiles_equal`, accumulators with the bin-edge allowance.
+    Returns the largest relative sum difference."""
+    (r_outs, r_accs), (g_outs, g_accs) = ref, got
+    n_draws = cases[0]["life_days"].shape[1]
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(r_outs, g_outs)):
+        worst = max(worst, assert_tiles_equal(a, b, n_draws, dtype,
+                                              f"{what} tile {k}"))
+    h_edges, p_edges = stream_edges(cases, r_outs, dtype)
+    for k, (a, b) in enumerate(zip(r_accs, g_accs)):
+        assert_hist_equal(a.hist, b.hist, h_edges, f"{what} acc {k}")
+        assert_pareto_equal(a, b, p_edges, f"{what} acc {k}")
+    return worst
+
+
+def sweep_mixture_spec(draws=32, seed=7):
+    """The reference test's `_mixture_spec` (`tests/test_sweep.py`), built
+    from the port's classes: 48 cells of a lognormal/Weibull mixture and
+    a point mass, over frequencies, intensities and volumes."""
+    from repro_torch.core.carbon import DeviceProfile
+    from repro_torch.core.sweep import LifetimeDist, SweepSpec
+    day = 86_400.0
+    prof = DeviceProfile(n_one_stage=600, n_two_stage=400, vm_kb=0.4,
+                         nvm_kb=1.0)
+    mix = LifetimeDist.mixture(
+        [(LifetimeDist.lognormal(day * 30, 1.8), 0.7),
+         (LifetimeDist.weibull(day * 300, 0.8), 0.3)])
+    return SweepSpec(
+        workloads=("w0", "w1"), profiles=(prof, prof),
+        dists=(mix, LifetimeDist.point(day * 100)),
+        execs_per_day=(1.0, 24.0, 96.0), intensities=(0.028, 0.367),
+        volumes=(1.0, 1e9), draws=draws, seed=seed)
+
+
+def sweep_point_spec(draws=8, seed=3):
+    """The reference test's `_point_spec`, from the port's classes: four
+    point-mass lifetimes (1 to 1,000 days) x three frequencies. Returns
+    (spec, lifetimes in seconds)."""
+    from repro_torch.core.carbon import DeviceProfile
+    from repro_torch.core.sweep import LifetimeDist, SweepSpec
+    day = 86_400.0
+    prof = DeviceProfile(n_one_stage=600, n_two_stage=400, vm_kb=0.4,
+                         nvm_kb=1.0)
+    lifes = [day * d for d in (1, 10, 100, 1000)]
+    return SweepSpec(
+        workloads=("w0",), profiles=(prof,),
+        dists=tuple(LifetimeDist.point(L) for L in lifes),
+        execs_per_day=(1.0, 24.0, 96.0), intensities=(0.367,),
+        volumes=(1e6,), draws=draws, seed=seed), lifes
+
+
+def sweep_life_days(spec, dtype, device, n_cells: int) -> np.ndarray:
+    """The port's lifetimes (days) of global cells 0..n_cells-1 of `spec`,
+    drawn on `device` (cells past the spec's take its last cell's
+    distribution, as a padded tile's do)."""
+    from repro_torch.core import sweep as ps
+    step = ps._Step(spec, n_cells, ps._torch_dtype(dtype), 64, 32,
+                    torch.device(device))
+    cell = torch.arange(n_cells, dtype=torch.int32, device=step.dev)
+    di = step.decode(cell)[1]
+    return step.life_days(cell, di).cpu().numpy()
+
+
+def run_sweep_recorded(spec, *, life_days=None, **kw):
+    """`run_sweep(spec, **kw)` of the port, recording each tile's valid
+    best totals and candidate embodied kg (the bin-edge allowance of
+    `assert_sweeps_equal`); with `life_days` (an array over global
+    cells), the sweep is fed those lifetimes instead of drawing its own.
+    Returns (result, best totals, embodied kg)."""
+    from repro_torch.core import sweep as ps
+    rec = TileRecorder().install()
+    orig = ps._Step.life_days
+    if life_days is not None:
+        def fed(self, cell, di):
+            return torch.from_numpy(
+                life_days[cell.cpu().numpy()].copy()).to(self.dev)
+        ps._Step.life_days = fed
+    try:
+        res = ps.run_sweep(spec, **kw)
+    finally:
+        ps._Step.life_days = orig
+        rec.remove()
+    return (res,) + rec.arrays()
+
+
+def assert_sweeps_identical(ra, rb, what: str) -> None:
+    """Two SweepResults of the port bit for bit in every field (tile
+    size and flush cadence must not change a sweep)."""
+    for f in RESULT_SUM_FIELDS + RESULT_EXACT_FIELDS + ("hist",):
+        np.testing.assert_array_equal(getattr(ra, f), getattr(rb, f),
+                                      err_msg=f"{what}: {f}")
+    for k in PAR_FIELDS:
+        np.testing.assert_array_equal(ra.pareto[k], rb.pareto[k],
+                                      err_msg=f"{what}: pareto {k}")

@@ -6,8 +6,11 @@ on a machine with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-The plain versions are the port's `flexibits/iss.py`, which the CPU
-tests hold against the reference; no JAX is needed here.
+The plain versions are the port's `flexibits/iss.py` and
+`kernels/carbon_sweep.py::sweep_tile_plain`, which the CPU tests hold
+against the reference; no JAX is needed here. The sweep comparisons use
+`_torch_parity`'s tolerances (bit for bit but the per-cell sums, and
+values at a bin edge).
 """
 import numpy as np
 import pytest
@@ -15,8 +18,11 @@ import torch
 
 import _torch_parity as tp
 from repro_torch import convert
+from repro_torch.core import selection as psel
+from repro_torch.core import sweep as psweep
 from repro_torch.fleet import engine
 from repro_torch.flexibits import iss
+from repro_torch.kernels import carbon_sweep as pcs
 from repro_torch.kernels import iss_stepper
 
 pytestmark = pytest.mark.gpu
@@ -109,3 +115,59 @@ def test_wrappers_check_their_tensors(cuda):
         iss_stepper.iss_segment_banked(_t(bank, cuda), _t(clen, cuda), ps,
                                        seg_steps=4, mem_len=_t(mlen, cuda),
                                        device=cuda)
+
+
+# ------------------------------------------------------ the carbon sweep
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_sweep_kernel_matches_plain_streamed(cuda, dt):
+    """Three tiles (12 cells x 8 draws x 3 candidates; +inf lifetimes,
+    invalid cells, exact ties) through one set of accumulators."""
+    dtype = np.float64 if dt == "f64" else np.float32
+    cases = tp.stream_cases(np.random.default_rng(31), dtype)
+    pcs.reset_counts()
+    got = tp.port_stream(cases, dtype, cuda)
+    torch.cuda.synchronize()
+    assert (pcs.sweep_tile.launches, pcs.sweep_tile.plain_calls) == (3, 0)
+    want = tp.port_stream(cases, dtype, cuda, fn=pcs.sweep_tile_plain)
+    tp.assert_streams_equal(cases, want, got, dtype, dt)
+
+
+def test_sweep_on_card_matches_cpu(cuda):
+    """The reference test's mixture spec on the card and on the CPU: the
+    lifetimes within the CPU tests' ulp bound, and the CPU sweep fed the
+    card's lifetimes equal to the card's sweep."""
+    spec = tp.sweep_mixture_spec()
+    card, best, emb = tp.run_sweep_recorded(spec, tile_cells=48,
+                                            device=cuda)
+    assert card.path == "cuda" and card.hist.sum() == spec.n_scenarios
+    life_card = tp.sweep_life_days(spec, np.float32, cuda, spec.n_cells)
+    life_cpu = tp.sweep_life_days(spec, np.float32, "cpu", spec.n_cells)
+    ulps = np.abs(life_card.view(np.int32).astype(np.int64)
+                  - life_cpu.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 64, ulps.max()
+    cpu, _, _ = tp.run_sweep_recorded(spec, life_days=life_card,
+                                      tile_cells=48, device="cpu")
+    tp.assert_sweeps_equal(cpu, card, psweep.build_tables(spec), best, emb,
+                           "card vs cpu")
+
+
+def test_sweep_on_card_tile_sizes_bit_identical(cuda):
+    spec = tp.sweep_mixture_spec()
+    runs = [psweep.run_sweep(spec, tile_cells=t, device=cuda)
+            for t in (3, 7, 48, spec.n_cells)]
+    for other in runs[1:]:
+        tp.assert_sweeps_identical(runs[0], other, "tile sizes")
+
+
+def test_point_mass_f64_on_card_equals_oracles(cuda):
+    spec, lifes = tp.sweep_point_spec()
+    res = psweep.run_sweep(spec, tile_cells=5, dtype=np.float64,
+                           device=cuda)
+    tg = psel.total_grid(list(spec.cores), spec.profiles[0],
+                         np.asarray(lifes), np.asarray(spec.execs_per_day))
+    smap = psel.selection_map(spec.profiles[0], np.asarray(lifes),
+                              np.asarray(spec.execs_per_day))
+    sq = np.s_[:, :, 0, 0, 0, 0, 0]
+    for f in ("p50", "min", "max"):
+        np.testing.assert_array_equal(getattr(res, f)[sq], tg.min(axis=0), f)
+    np.testing.assert_array_equal(res.best_core[sq], smap)

@@ -33,8 +33,17 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
     mods.append(m.name)
 assert not any(k.split(".")[0] in ("jax", "repro") for k in sys.modules)
+print(" ".join(mods))
 print(len(mods))
 """
+
+# the modules of each slice that must be among those imported
+_SLICE_MODULES = ("repro_torch.fleet.engine",
+                  "repro_torch.kernels.iss_stepper", "repro_torch.prng",
+                  "repro_torch.core.sweep",
+                  "repro_torch.kernels.carbon_sweep",
+                  "repro_torch.flexibits.pyiss",
+                  "repro_torch.flexibench.memory")
 
 
 def test_port_imports_with_jax_and_the_reference_blocked():
@@ -46,7 +55,9 @@ def test_port_imports_with_jax_and_the_reference_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     # every module of the package, subpackages included
     n_files = len(list(_SRC.rglob("*.py")))
-    assert int(proc.stdout.strip().splitlines()[-1]) == n_files
+    lines = proc.stdout.strip().splitlines()
+    assert int(lines[-1]) == n_files
+    assert set(_SLICE_MODULES) <= set(lines[-2].split())
 
 
 _FORBIDDEN = re.compile(
@@ -79,6 +90,23 @@ def test_entry_points_default_to_the_card():
     from repro_torch.kernels import iss_stepper
     with pytest.raises(RuntimeError, match="CUDA card"):
         iss_stepper.iss_refill(None, None, None, None, None, None)
+
+
+def test_sweep_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None runs on it")
+    from repro_torch.core import sweep
+    from repro_torch.kernels import carbon_sweep
+    spec = sweep.SweepSpec(workloads=("w",), profiles=(None,),
+                           dists=(sweep.LifetimeDist.point(1.0),),
+                           execs_per_day=(1.0,), intensities=(1.0,))
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        sweep.run_sweep(spec)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        carbon_sweep.sweep_tile(*[None] * 8, hist_lo=0.0, hist_inv=1.0,
+                                par_lo=0.0, par_inv=1.0)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        carbon_sweep.init_acc(64, 32, torch.float32)
 
 
 @pytest.mark.parametrize("what", ["refill_host", "packed_false", "mesh",
