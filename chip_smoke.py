@@ -40,16 +40,38 @@ Phases (each prints its own lines; any failure exits non-zero):
    redundancy modes, through `run_sweep` on the card in float32, with
    launch counts showing that the kernel, and never its plain version,
    ran every tile, every field bit-identical at a second tile size, and
-   once more under torch.profiler.
+   once more under torch.profiler;
+10. fault kernel: the `faults` variant of `iss_segment_banked` against
+   its plain version, full state bit for bit, on a 256-lane pool of 3
+   programs (two 256-step segments, timing off and on) under transients
+   on regs, mem and pc at rate 1e-2 and at rate 1.0, stuck-at at 0.5 and
+   dead lanes at 0.5, plus the one-program `iss_segment` wrapper; then at
+   the main path's shapes (16,384 lanes, 4,096 steps, timing on) timed
+   with CUDA events with faults off and with transients at 1e-5;
+11. small resilient plans: the three groups of phase 4 (64 items each,
+   FlexiLint-static budgets) with transients at 1e-4, unprotected and
+   under DMR, on the card and on the CPU: every per-item field, the DMR
+   counters and the schedule bit for bit;
+12. resilient main path: phase 5's plan three ways, (a) transients on
+   regs, mem and pc at 1e-5 unprotected (the items whose output,
+   retirement count or halt differ from phase 5's are counted), (b) the
+   same under DMR with max_retries 6 and (c) dead lanes at 1e-3 under DMR
+   with max_retries 1, where every item's output, retirement count and
+   halt must equal phase 5's (the tallies DMR's digest does not cover,
+   the two-stage count, ticks and mix, are counted); each run once more
+   under torch.profiler for the busy share, and the DMR boundary's
+   digest, snapshot and rollback timed at full shape.
 
 It ends with a `kernels:` line of launch counts, a JSON line per kernel
-(times, bound, launches, error), the card's nvidia-smi line, and as the
-last line `{"ok": true, "device": {...}}`. The fleet kernels' integer
+(times, bound, launches, error; the segment kernel's faults variant has
+its own entry, launched on phase 12's path), the card's nvidia-smi line,
+and as the last line `{"ok": true, "device": {...}}`. The fleet kernels' integer
 state is held bit for bit (max_abs_err 0). The sweep is held bit for bit
 but for its per-cell sums, which follow no fixed order (relative
 2 (N - 1) u), and for values at a log10 bin edge (counted; see
 `tests/_torch_parity.py`); its max_abs_err is over the exact fields.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -72,6 +94,12 @@ FP32_OPS_PER_S = 67e12
 # (2), execute and next pc (8), classify (10), commit (5), and the live
 # test (2), rounded down
 OPS_PER_STEP = 64
+# added per live step by flexifault.cuh's transient mode: the halt test
+# (1), k ^ n_instr (1), mix32 (2 shifts, 3 xors, 2 multiplies) and the
+# threshold compare (1); a step that fires adds two more mix32 and the
+# flip (about 25), counted per fire
+FAULT_OPS_PER_STEP = 10
+FAULT_OPS_PER_FIRE = 25
 
 SEG = ("iss_segment_banked", "src/repro_torch/kernels/csrc/iss_segment.cu",
        "src/repro/kernels/iss_stepper.py:246")
@@ -79,6 +107,9 @@ REF = ("iss_refill", "src/repro_torch/kernels/csrc/iss_refill.cu",
        "src/repro/kernels/iss_stepper.py:418")
 SWEEP = ("carbon_sweep", "src/repro_torch/kernels/csrc/carbon_sweep.cu",
          "src/repro/kernels/carbon_sweep.py:408")
+SEG_FAULTS = ("iss_segment_banked[faults]",
+              "src/repro_torch/kernels/csrc/iss_segment.cu",
+              "src/repro/kernels/iss_stepper.py:152")
 
 
 def log(*a):
@@ -112,9 +143,10 @@ def max_abs_err(a, b) -> int:
     return err
 
 
-def pool(n_lanes, seed, dev):
-    """An n_lanes pool of all 11 workloads (lane i on workload i % 11)
-    plus its bank, per-program bounds and dynamic cost rows."""
+def pool(n_lanes, seed, dev, keys=None):
+    """An n_lanes pool of all 11 workloads, or of those named by `keys`
+    (lane i on workload i % n), plus its bank, per-program bounds and
+    dynamic cost rows."""
     import numpy as np
     import torch
     from repro_torch.flexibench.base import all_workloads
@@ -122,6 +154,8 @@ def pool(n_lanes, seed, dev):
     from repro_torch.flexibits.iss import PackedState, fresh_lanes, \
         pack_programs
     ws = all_workloads()
+    if keys is not None:
+        ws = [w for w in ws if w.key in keys]
     bank, clen = pack_programs([w.program.code for w in ws])
     mlen = np.array([w.total_mem_words for w in ws], np.int32)
     cores = [CORES[c] for c in ("SERV", "QERV", "HERV")]
@@ -163,19 +197,25 @@ def events_ms(fn, reps=1):
 
 
 def check_segment(st, dev, bank, clen, mlen, cost, state, seg_steps,
-                  n_segs):
-    """Kernel vs plain version, segment after segment (bit for bit)."""
+                  n_segs, faults=None, epoch=None):
+    """Kernel vs plain version, segment after segment (bit for bit),
+    with `faults` the faults variant under per-lane `epoch`s. Returns the
+    retired instructions and the kernel's final state."""
     import torch
+    from repro_torch.flexibits import faults as pf
     from repro_torch.flexibits import iss
     a, b = state(), state()
+    fk = {} if faults is None else dict(
+        faults=faults, epoch=epoch,
+        lane_key=pf.lane_keys_tensor(faults.seed, a.lanes.pc.shape[0], dev))
     for _ in range(n_segs):
         a = st.iss_segment_banked(bank, clen, a, seg_steps=seg_steps,
-                                  mem_len=mlen, cost=cost, device=dev)
+                                  mem_len=mlen, cost=cost, device=dev, **fk)
         b = iss.run_segment_lanes_banked(bank, clen, b, seg_steps, None,
-                                         mlen, cost)
+                                         mlen, cost, **fk)
         torch.cuda.synchronize()
         max_abs_err(a, b)
-    return int(a.lanes.n_instr.sum())
+    return int(a.lanes.n_instr.sum()), a
 
 
 def phase_kernels(dev, rec):
@@ -187,8 +227,8 @@ def phase_kernels(dev, rec):
     # ---- small pool: all 11 workloads, timing off and on
     bank, clen, mlen, cost, state = pool(256, 1, dev)
     for timing in (False, True):
-        n = check_segment(st, dev, bank, clen, mlen,
-                          cost if timing else None, state, 256, 3)
+        n, _ = check_segment(st, dev, bank, clen, mlen,
+                             cost if timing else None, state, 256, 3)
         log(f"[kernels] iss_segment_banked 256 lanes x 3 x 256 steps, "
             f"timing {'on' if timing else 'off'}: bit-exact "
             f"({n} instructions retired)")
@@ -381,7 +421,7 @@ def phase_main(dev):
             f"{n_chk} outputs equal to the reference, mean "
             f"{r.n_instr.mean():.1f} instructions")
     log(rep.format())
-    return counts
+    return counts, rep
 
 
 def profiled(fn):
@@ -673,6 +713,322 @@ def phase_main_sweep(dev):
     log_rows("main sweep", kernels, 12)
     return launches
 
+FAULT_CASES = (
+    ("transient regs+mem+pc 1e-2",
+     dict(rate=1e-2, seed=3, targets=("regs", "mem", "pc"))),
+    ("transient regs+mem+pc 1.0",
+     dict(rate=1.0, seed=4, targets=("regs", "mem", "pc"))),
+    ("stuck 0.5", dict(rate=0.5, seed=5, mode="stuck")),
+    ("dead 0.5", dict(rate=0.5, seed=6, mode="dead")),
+)
+
+
+def phase_fault_kernel(dev, rec):
+    """The faults variant against its plain version on a small pool in
+    every mode; the one-program wrapper; then at full shape, timed with
+    faults off and with transients at 1e-5, and its bound."""
+    import numpy as np
+    import torch
+    from repro_torch.flexibits import faults as pf
+    from repro_torch.flexibits import iss
+    from repro_torch.kernels import iss_stepper as st
+
+    bank, clen, mlen, cost, state = pool(256, 7, dev,
+                                         keys=("MC", "WQ", "SI"))
+    epoch = torch.arange(256, dtype=torch.int32, device=dev) % 5
+    clean = state()
+    for _ in range(2):
+        st.iss_segment_banked(bank, clen, clean, seg_steps=256,
+                              mem_len=mlen, device=dev)
+    for label, kw in FAULT_CASES:
+        spec = pf.FaultSpec(**kw)
+        for timing in (False, True):
+            n, out = check_segment(st, dev, bank, clen, mlen,
+                                   cost if timing else None, state, 256, 2,
+                                   faults=spec, epoch=epoch)
+            if torch.equal(out.lanes.regs, clean.lanes.regs):
+                raise AssertionError(f"{label}: no fault fired")
+            log(f"[fault kernel] {label}, 256 lanes x 3 programs x 2 x 256 "
+                f"steps, timing {'on' if timing else 'off'}: bit-exact "
+                f"({n} instructions retired)")
+
+    # the one-program wrapper: a skewed counting loop, transients
+    import _torch_parity as tp
+    prog = tp.skew_program()
+    mems = torch.from_numpy(tp.skew_mems(prog, 512, 8, 300, 0.3, 5)).to(dev)
+    code = torch.from_numpy(
+        np.asarray(prog.code, np.uint32).view(np.int32)).to(dev)
+    spec = pf.FaultSpec(**FAULT_CASES[0][1])
+    key = pf.lane_keys_tensor(spec.seed, 512, dev)
+    ep = torch.zeros(512, dtype=torch.int32, device=dev)
+    # fresh_lanes keeps an int32 image as the lanes' memory, and the
+    # kernel updates it in place: each run gets its own copy
+    a = st.iss_segment(code, iss.fresh_lanes(mems.clone()), seg_steps=700,
+                       max_steps=650, faults=spec, lane_key=key, epoch=ep,
+                       device=dev)
+    z = torch.zeros(512, dtype=torch.int32, device=dev)
+    b = iss.run_segment_lanes_banked(
+        code[None, :].contiguous(),
+        torch.full((1,), code.shape[0], dtype=torch.int32, device=dev),
+        iss.PackedState(iss.fresh_lanes(mems.clone()), z, z + 650), 700,
+        None, None, None, faults=spec, lane_key=key, epoch=ep).lanes
+    torch.cuda.synchronize()
+    max_abs_err(iss.PackedState(a, z, z), iss.PackedState(b, z, z))
+    log("[fault kernel] iss_segment (one program, 512 lanes, transients "
+        "1e-2): bit-exact with the plain version")
+
+    # ---- full shape: 16,384 lanes x 4,096 steps, timing on
+    L, SEGSTEPS = 16384, 4096
+    bank, clen, mlen, cost, state = pool(L, 2, dev)
+    s0 = state()
+    spec = pf.FaultSpec(rate=1e-5, seed=5, targets=("regs", "mem", "pc"))
+    key = pf.lane_keys_tensor(spec.seed, L, dev)
+    ep = torch.zeros(L, dtype=torch.int32, device=dev)
+    kw = dict(mem_len=mlen, cost=cost, device=dev)
+    plain = [None]
+
+    def run_plain():
+        plain[0] = iss.run_segment_lanes_banked(
+            bank, clen, clone(s0), SEGSTEPS, None, mlen, cost, faults=spec,
+            lane_key=key, epoch=ep)
+    plain_ms = events_ms(run_plain)
+    t_off, t_on = [], []
+    out = [None]
+    for _ in range(3):
+        for faults, times in ((None, t_off), (spec, t_on)):
+            s = clone(s0)
+            torch.cuda.synchronize()
+            times.append(events_ms(lambda: out.__setitem__(
+                0, st.iss_segment_banked(bank, clen, s, seg_steps=SEGSTEPS,
+                                         faults=faults, lane_key=key,
+                                         epoch=ep, **kw))))
+            if faults is not None:
+                err = max_abs_err(out[0], plain[0])
+    steps = int((plain[0].lanes.n_instr - s0.lanes.n_instr).sum())
+    fires = count_fires(spec, key, ep, s0, plain[0])
+    nbytes = 2 * sum(x.numel() * x.element_size() for x in s0.lanes) + sum(
+        x.numel() * x.element_size()
+        for x in (s0.prog_id, s0.max_steps, bank, clen, mlen, cost, key, ep))
+    n_ops = steps * (OPS_PER_STEP + FAULT_OPS_PER_STEP) \
+        + fires * FAULT_OPS_PER_FIRE
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = n_ops / INT32_OPS_PER_S * 1e3
+    ms_off, ms_on = sorted(t_off)[1], sorted(t_on)[1]
+    rec[SEG_FAULTS[0]] = dict(
+        ms=ms_on, plain_ms=plain_ms, max_abs_err=err,
+        bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations")
+    log(f"[fault kernel] full shape {L} lanes x {SEGSTEPS} steps (timing "
+        f"on): faults off {ms_off:.3f} ms (runs "
+        f"{', '.join(f'{x:.3f}' for x in t_off)}); transients 1e-5 "
+        f"{ms_on:.3f} ms (runs {', '.join(f'{x:.3f}' for x in t_on)}), "
+        f"{ms_on / ms_off:.3f}x; bit-exact with the plain version "
+        f"({plain_ms:.1f} ms); {steps} retired lane-steps, {fires} fires; "
+        f"bound {max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f}, "
+        f"operations {n_ops} -> {b_ops:.4f})")
+
+
+def count_fires(spec, key, epoch, before, after) -> int:
+    """Transient fires of a segment: for each lane, the post-commit
+    counts n in (before, after] whose draw mix32(k ^ n) is under the
+    threshold (the halting step's draw is counted too: an upper bound)."""
+    import torch
+    from repro_torch import _u32
+    from repro_torch.flexibits import faults as pf
+    k = pf.mix32(key ^ pf.mix32(epoch))
+    lo, hi = before.lanes.n_instr, after.lanes.n_instr
+    fires = torch.zeros((), dtype=torch.int64, device=k.device)
+    for n in range(int(lo.min()) + 1, int(hi.max()) + 1):
+        hit = (_u32.as_u32(pf.mix32(k ^ n)) < spec.threshold) \
+            & (n > lo) & (n <= hi)
+        fires += hit.sum()
+    return int(fires)
+
+
+def small_resilient_plan(**kw):
+    from repro_torch.fleet import FleetGroup, FleetPlan
+    return FleetPlan(groups=(
+        FleetGroup(workload="MC", core="SERV", n_items=64, seed=0,
+                   max_steps="static"),
+        FleetGroup(workload="WQ", core="QERV", n_items=64, seed=1,
+                   max_steps="static"),
+        FleetGroup(workload="SI", core="HERV", n_items=64, seed=2,
+                   max_steps="static"),
+    ), chunk=128, seg_steps=1024, **kw)
+
+
+def phase_small_resilient(dev):
+    """Phase 4's groups with transients, unprotected and under DMR, on
+    card and CPU: every per-item field, counters and schedule equal."""
+    import numpy as np
+    import torch
+    from repro_torch.fleet import run_plan
+    from repro_torch.flexibits.faults import FaultSpec
+    spec = FaultSpec(rate=1e-4, seed=5, targets=("regs", "mem", "pc"))
+    for label, kw in (("unprotected", dict(faults=spec)),
+                      ("dmr", dict(faults=spec, redundancy="dmr",
+                                   max_retries=6))):
+        plan = small_resilient_plan(**kw)
+        t0 = time.perf_counter()
+        gpu = run_plan(plan, keep_state=True, device=dev)
+        t1 = time.perf_counter()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            cpu = run_plan(plan, keep_state=True, device="cpu", power_w=0.0)
+        finally:
+            torch.set_num_threads(threads)
+        t2 = time.perf_counter()
+        for a, b in zip(gpu.groups, cpu.groups):
+            for f in ("n_instr", "n_two_stage", "halted", "out", "mix",
+                      "mems", "regs", "pc", "mix_items"):
+                if not np.array_equal(getattr(a.result, f),
+                                      getattr(b.result, f)):
+                    raise AssertionError(f"small {label} plan: card and CPU "
+                                         f"differ in {a.workload.key}.{f}")
+        p, q = gpu.packed, cpu.packed
+        for f in ("lane_steps", "n_segments", "seg_schedule", "detected",
+                  "corrected", "quarantined"):
+            if getattr(p, f) != getattr(q, f):
+                raise AssertionError(f"small {label} plan: {f} differs "
+                                     f"({getattr(p, f)} vs {getattr(q, f)})")
+        if label == "dmr" and p.detected == 0:
+            raise AssertionError("small dmr plan: nothing detected")
+        log(f"[small resilient] {label}: 3 groups x 64 items, chunk "
+            f"{p.chunk}: card {t1 - t0:.2f}s, CPU {t2 - t1:.2f}s; every "
+            f"per-item field, the final state, {p.n_segments} segments, "
+            f"{p.lane_steps} lane-steps and detected/corrected/quarantined "
+            f"{p.detected}/{p.corrected}/{p.quarantined} bit-exact")
+
+
+def dmr_boundary_ms(dev):
+    """Device time of one DMR boundary's digest, snapshot copy and
+    rollback at the main path's pool shape (16,384 lanes x 2,824 words;
+    random contents, which these costs do not depend on), from CUDA
+    events (mean of 5; the rollback selects every field)."""
+    import torch
+    from repro_torch.flexibits import faults as pf
+    from repro_torch.flexibits import iss
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=g,
+                             dtype=torch.int32, device=dev)
+    L = 16384
+    lanes = iss.ISSState(r(L, 16), r(L), r(L, 2824), r(L) > 0, r(L), r(L),
+                         r(L, 8), r(L))
+    snap = iss.ISSState(*(x.clone() for x in lanes))
+    rb = r(L) > 2**30                      # a quarter of the lanes
+    digest = events_ms(lambda: pf.arch_digest(
+        lanes.regs, lanes.pc, lanes.mem, lanes.halted, lanes.n_instr), 5)
+
+    def copy():
+        for x, y in zip(snap, lanes):
+            x.copy_(y)
+
+    def rollback():
+        for x, y in zip(lanes, snap):
+            torch.where(rb.view((-1,) + (1,) * (x.dim() - 1)), y, x, out=x)
+    return digest, events_ms(copy, 5), events_ms(rollback, 5)
+
+
+def phase_main_resilient(dev, main_rep):
+    """Phase 5's plan (a) with unprotected transients, (b) the same under
+    DMR, (c) dead lanes under DMR; launch counts per run, items against
+    phase 5's, and each run once more under torch.profiler."""
+    import numpy as np
+    from repro_torch.fleet import run_plan
+    from repro_torch.flexibits.faults import FaultSpec
+    from repro_torch.kernels import iss_stepper as st
+    base = main_plan()
+    transient = FaultSpec(rate=1e-5, seed=5, targets=("regs", "mem", "pc"))
+    runs = (
+        ("a", "transients 1e-5, unprotected", dict(faults=transient)),
+        ("b", "transients 1e-5, DMR, max_retries 6",
+         dict(faults=transient, redundancy="dmr", max_retries=6)),
+        ("c", "dead lanes 1e-3, DMR, max_retries 1",
+         dict(faults=FaultSpec(rate=1e-3, seed=5, mode="dead"),
+              redundancy="dmr", max_retries=1)),
+    )
+    total_launches = 0
+    for tag, label, kw in runs:
+        plan = dataclasses.replace(base, **kw)
+        st.reset_counts()
+        rep = run_plan(plan, device=dev)
+        launches = st.iss_segment_banked.fault_launches
+        if launches <= 0 or st.iss_segment_banked.launches \
+                or st.iss_refill.launches <= 0 \
+                or st.iss_segment_banked.plain_calls \
+                or st.iss_refill.plain_calls:
+            raise AssertionError(
+                f"({tag}) launches: faults {launches}, fault-free "
+                f"{st.iss_segment_banked.launches}, refill "
+                f"{st.iss_refill.launches}, plain calls "
+                f"{st.iss_segment_banked.plain_calls}")
+        total_launches += launches
+        p = rep.packed
+        # architectural results (output, retirements, halt) of every item
+        # against phase 5's; DMR's digest covers the architectural state
+        # only, so its recovery is held to those, and the tallies it does
+        # not cover (two-stage count, ticks, mix) are counted
+        differ = tallies = 0
+        mix_diff = {}
+        for g, g0 in zip(rep.groups, main_rep.groups):
+            a, b = g.result, g0.result
+            bad = (a.out != b.out) | (a.n_instr != b.n_instr) \
+                | (a.halted != b.halted)
+            differ += int(bad.sum())
+            tallies += int(((a.n_two_stage != b.n_two_stage)
+                            | (a.n_cycles != b.n_cycles)).sum())
+            if not np.array_equal(a.mix, b.mix):
+                mix_diff[g.workload.key] = (a.mix - b.mix).tolist()
+        if tag != "a" and differ:
+            raise AssertionError(f"({tag}) {differ} items' output, "
+                                 f"retirement count or halt differ from "
+                                 f"the fault-free run")
+        if tag == "b" and not (p.detected > 0
+                               and p.corrected <= p.detected):
+            raise AssertionError(f"(b) detected {p.detected}, corrected "
+                                 f"{p.corrected}")
+        if tag == "c" and p.quarantined <= 0:
+            raise AssertionError("(c) nothing quarantined")
+        log(f"[resilient main] ({tag}) {label}: {rep.n_items} items in "
+            f"{p.wall_s:.2f}s wall = {rep.n_items / p.wall_s:.1f} items/s "
+            f"(fault-free {main_rep.packed.wall_s:.2f}s, "
+            f"{p.wall_s / main_rep.packed.wall_s:.2f}x), chunk {p.chunk}, "
+            f"{p.n_segments} segments, {p.host_syncs} blocking host syncs, "
+            f"{launches} faults-variant launches, "
+            f"{st.iss_refill.launches} refill launches; detected "
+            f"{p.detected}, corrected {p.corrected}, quarantined "
+            f"{p.quarantined}; items whose output, retirement count or "
+            f"halt differ from the fault-free run: {differ}; items whose "
+            f"two-stage count or ticks differ: {tallies}; groups whose "
+            f"instruction mix differs (this run minus the fault-free one, "
+            f"by class): {mix_diff or 'none'}")
+        if tag == "a":
+            log(f"[resilient main] (a) unprotected SDC count (output, "
+                f"retirement count or halt differ): {differ} of "
+                f"{rep.n_items} items")
+        prep, wall, busy, rows = profiled(lambda: run_plan(plan, device=dev))
+        if busy is None:
+            log(f"[resilient main] ({tag}) the profiler saw no device "
+                f"activity: busy share not measured")
+        else:
+            log(f"[resilient main] ({tag}) under torch.profiler: "
+                f"{wall:.2f}s wall ({prep.packed.wall_s:.2f}s inside "
+                f"run_packed), device busy {busy:.3f}s = share "
+                f"{busy / wall:.4f}")
+            log_rows(f"resilient main ({tag})", rows, 8)
+        if tag == "b":
+            d, c, r = dmr_boundary_ms(dev)
+            n = p.n_segments
+            log(f"[resilient main] (b) one DMR boundary at full shape: "
+                f"digest {d:.3f} ms, snapshot copy {c:.3f} ms, rollback "
+                f"{r:.3f} ms (CUDA events); x {n} boundaries = digest "
+                f"{d * n:.1f} ms, snapshot {c * n:.1f} ms, rollback "
+                f"{r * n:.1f} ms of device time")
+    return total_launches
+
 
 def main() -> int:
     import torch
@@ -705,7 +1061,7 @@ def main() -> int:
     phase_small_plan(dev)
     log(f"[small plan] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    counts = phase_main(dev)
+    counts, main_rep = phase_main(dev)
     log(f"[main] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_profile(dev)
@@ -719,10 +1075,19 @@ def main() -> int:
     t0 = time.perf_counter()
     counts["carbon_sweep"] = phase_main_sweep(dev)
     log(f"[main sweep] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_fault_kernel(dev, rec)
+    log(f"[fault kernel] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_small_resilient(dev)
+    log(f"[small resilient] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    counts[SEG_FAULTS[0]] = phase_main_resilient(dev, main_rep)
+    log(f"[resilient main] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []
-    for name_, src, replaces in (SEG, REF, SWEEP):
+    for name_, src, replaces in (SEG, REF, SWEEP, SEG_FAULTS):
         r = rec[name_]
         out.append({"name": name_, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name_],

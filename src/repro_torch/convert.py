@@ -13,10 +13,12 @@ per-item leaf (retire scatters of lanes that did not retire land there),
 and keeps `mix_g` without the reference's leading shard axis (the port
 runs one shard). `acc_to_torch`/`acc_to_numpy` add and drop both.
 
-For the carbon sweep, `sweep_spec_from` rebuilds a reference `SweepSpec`
-as the port's (profiles as the port's `DeviceProfile`, cores by name,
-distributions by their components), and `sweep_acc_to_torch` /
-`sweep_acc_to_numpy` carry the sweep's running accumulators.
+`fault_spec_from` rebuilds a reference `FaultSpec` as the port's, so
+both packages run the same fault schedule. For the carbon sweep,
+`sweep_spec_from` rebuilds a reference `SweepSpec` as the port's
+(profiles as the port's `DeviceProfile`, cores by name, distributions by
+their components), and `sweep_acc_to_torch` / `sweep_acc_to_numpy` carry
+the sweep's running accumulators.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.core.carbon import DeviceProfile
 from repro_torch.core.sweep import LifetimeDist, SweepSpec
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.fleet.engine import ResidentAcc
+from repro_torch.flexibits.faults import FaultSpec
 from repro_torch.flexibits.cycles import CORES
 from repro_torch.flexibits.iss import ISSState, PackedState
 from repro_torch.kernels.carbon_sweep import SweepAcc
@@ -109,6 +112,13 @@ def acc_to_numpy(acc: ResidentAcc) -> ResidentAcc:
         else:
             out[f] = _n(v)
     return ResidentAcc(**out)
+
+
+def fault_spec_from(ref_spec) -> FaultSpec:
+    """A `FaultSpec`-shaped object (the reference's) -> the port's spec,
+    field by field."""
+    return FaultSpec(rate=ref_spec.rate, seed=ref_spec.seed,
+                     targets=tuple(ref_spec.targets), mode=ref_spec.mode)
 
 
 def sweep_spec_from(ref_spec) -> SweepSpec:

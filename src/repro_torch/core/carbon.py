@@ -17,16 +17,8 @@ from typing import Dict, Optional, Tuple
 from repro_torch.flexibits.cycles import (Core, event_cycles,
                                           sram_area_mm2, sram_power_mw,
                                           system_area_mm2, system_power_mw)
+from repro_torch.flexibits.faults import width_scaled_rate
 
-
-def width_scaled_rate(rate: float, width: int) -> float:
-    """Per-retired-instruction transient rate for a `width`-bit serial
-    core: a narrower datapath holds each instruction in flight for more
-    cycles (cycles/instr ~ 32/width, cycles.py), so its exposure window
-    per retirement is proportionally longer. (A copy of the reference's
-    `flexibits/faults.py::width_scaled_rate`; the fault schedules
-    themselves are not ported yet.)"""
-    return min(1.0, rate * (32.0 / float(width)))
 
 # ---- energy sources, kg CO2e / kWh ([109] EIA 2023, [118] Wind Vision)
 ENERGY_SOURCES: Dict[str, float] = {

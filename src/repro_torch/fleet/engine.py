@@ -22,15 +22,25 @@ on the device for the whole run. Per iteration, in stream order:
 The staged batch is uploaded from pinned memory with `non_blocking=True`
 before the next refill. Per-item results are read once, at the end.
 
+FlexiFault (DESIGN.md §9.14): with `faults` every lane runs the segment
+kernel's `faults` variant under its own key (`faults.lane_keys`) and an
+epoch it bumps when it takes a fresh item. `redundancy="dmr"` pairs
+lanes (2p, 2p+1) on one item image, compares their architectural
+digests at every refill boundary, rolls a mismatching pair back to the
+boundary snapshot (kept in preallocated lane buffers, since the kernel
+updates the pool in place) and quarantines a pair after `max_retries`
+consecutive mismatches, requeueing its item ahead of fresh admissions.
+
 Not ported yet, and raising `NotImplementedError` (see ROADMAP.md,
 queue 1): the host-refill loop (`refill="host"`, and the reference's
-fallback to it past the resident safety bounds), `mesh=`, `faults=`,
-`redundancy="dmr"` and `checkpoint_dir=`.
+fallback to it past the resident safety bounds), `mesh=` and
+`checkpoint_dir=`.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import threading
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -39,6 +49,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.flexibench.base import Workload
+from repro_torch.flexibits import faults as flexifault
 from repro_torch.flexibits import iss
 from repro_torch.flexibits.cycles import MIX_CLASSES, N_COST
 from repro_torch.kernels import iss_stepper
@@ -281,7 +292,10 @@ class PackedStats:
     restock intervals during which the segment had already finished),
     and `seg_schedule` the step bound of each segment. `stepper` says
     what ran the segments: "cuda" (the kernel) or "plain" (the plain
-    version on the CPU); `device` names the device."""
+    version on the CPU); `device` names the device. The resilience
+    counters (DMR runs): `detected` digest mismatches, `corrected` pair
+    rollbacks that re-executed a segment, `quarantined` pairs retired
+    from the pool."""
     n_groups: int
     n_progs: int
     bank_width: int
@@ -300,6 +314,10 @@ class PackedStats:
     device_busy_frac: float = 1.0
     seg_schedule: tuple = ()
     device: str = ""
+    redundancy: str = "none"
+    detected: int = 0
+    corrected: int = 0
+    quarantined: int = 0
 
 
 class _SyncClock:
@@ -505,12 +523,109 @@ def retire_refill(state: iss.PackedState, item_slot: torch.Tensor,
     return state, new_slot, acc._replace(prev_instr=prev), stats
 
 
+def retire_refill_dmr(state: iss.PackedState, item_slot: torch.Tensor,
+                      epoch: torch.Tensor, retries: torch.Tensor,
+                      quar: torch.Tensor, snap: iss.ISSState,
+                      acc: ResidentAcc, staged_mems: torch.Tensor,
+                      staged_prog: torch.Tensor, staged_ms: torch.Tensor,
+                      staged_slot: torch.Tensor, n_staged: torch.Tensor,
+                      out_addr: torch.Tensor, n_groups: int,
+                      max_retries: int, device: DeviceLike = None):
+    """The DMR retire/refill op (the reference's `refill_dmr` at one
+    shard).
+
+    Lanes pair up as (2p primary, 2p+1 shadow) on the same item image;
+    only the primary carries the item's accumulator row (the shadow's
+    `item_slot` is -1). At the boundary the pair's `arch_digest`s are
+    compared: a mismatching pair rolls back to `snap`, its state at the
+    previous boundary, with a bumped epoch (fresh transient draws; a
+    stuck or dead defect recurs), or, after `max_retries` consecutive
+    mismatches, is quarantined: parked for good, its item row reported in
+    the stats for the host to requeue (at most one pair per boundary).
+    Matching finished pairs retire and refill as in `retire_refill`, at
+    pair granularity, through the `iss_refill` kernel with `take`/`src`
+    repeated per pair. A clean boundary resets a pair's mismatch count.
+
+    Returns (state, item_slot, epoch, retries, quar, acc, stats) with
+    stats the int32 vector [retired, taken, max step delta, mismatches,
+    rollbacks, quarantined item row or -1, active lanes per group...].
+    The pool is rolled back and refilled in place on the card; the caller
+    copies the returned lanes into `snap` before the next segment.
+    """
+    dev = resolve(device)
+    lanes = state.lanes
+    active = item_slot >= 0                  # primaries only
+    d2 = flexifault.arch_digest(lanes.regs, lanes.pc, lanes.mem,
+                                lanes.halted, lanes.n_instr).view(-1, 2)
+    pair_active = active.view(-1, 2)[:, 0]
+    mismatch = pair_active & (d2[:, 0] != d2[:, 1])
+    done_l = lanes.halted | (lanes.n_instr >= state.max_steps)
+    pair_retire = pair_active & done_l.view(-1, 2)[:, 0] & ~mismatch
+    wants_q = mismatch & (retries >= max_retries)
+    new_q = wants_q & (torch.cumsum(wants_q.to(I32), 0, dtype=I32) == 1)
+    rollback = mismatch & ~new_q
+    q_slot = torch.where(new_q, item_slot.view(-1, 2)[:, 0], -1).max()
+
+    # ---- accounting of the segment that just ran
+    delta = torch.clamp((lanes.n_instr - acc.prev_instr).max(), min=0)
+    act_g = torch.zeros(n_groups, dtype=I32, device=dev).index_add_(
+        0, state.prog_id.long(), active.to(I32))
+
+    # ---- retire matching finished pairs (primary rows scatter)
+    retired = iss.retire_mask(state, item_slot) \
+        & pair_retire.repeat_interleave(2)
+    acc = _scatter_retired(state, item_slot, acc, out_addr, retired)
+
+    # ---- roll mismatching pairs back to the last boundary, park the
+    # quarantined pair (in place: everything above read the old lanes)
+    rb_l = rollback.repeat_interleave(2)
+    q_l = new_q.repeat_interleave(2)
+    for x, y in zip(lanes, snap):
+        torch.where(rb_l.view((-1,) + (1,) * (x.dim() - 1)), y, x, out=x)
+    lanes.halted.masked_fill_(q_l, True)
+
+    # ---- refill freed pairs: both lanes get the item image
+    free_p = (pair_retire | ~pair_active) & ~(quar | new_q)
+    take_p, src_p = iss.refill_take(free_p, n_staged)
+    take_l = take_p.repeat_interleave(2)
+    src_l = src_p.repeat_interleave(2)
+    is_primary = (torch.arange(item_slot.shape[0], device=dev) % 2) == 0
+    srow = torch.clamp(src_l, 0, staged_slot.shape[0] - 1).long()
+    new_slot = torch.where(take_l & is_primary, staged_slot[srow],
+                           torch.where(retired | q_l, -1, item_slot))
+    new_epoch = torch.where(take_l | rb_l, epoch + 1, epoch)
+    # consecutive-mismatch count: any clean boundary resets it
+    new_retries = torch.where(rollback, retries + 1,
+                              torch.where(new_q, retries, 0))
+    stats = torch.cat([torch.stack([
+        pair_retire.sum(dtype=I32), take_p.sum(dtype=I32), delta.to(I32),
+        mismatch.sum(dtype=I32), rollback.sum(dtype=I32), q_slot.to(I32)]),
+        act_g])
+    state = iss_stepper.iss_refill(state, take_l, src_l, staged_mems,
+                                   staged_prog, staged_ms, device=dev)
+    acc = acc._replace(prev_instr=state.lanes.n_instr.clone())
+    return state, new_slot, new_epoch, new_retries, quar | new_q, acc, stats
+
+
+def _locked(source: Source) -> Source:
+    """`source` behind a lock: a DMR requeue reads an item on the main
+    thread while the group's prefetcher may be reading the same source
+    (`workload_source`'s block cache is not thread-safe) on its worker."""
+    lock = threading.Lock()
+
+    def src(start: int, count: int) -> np.ndarray:
+        with lock:
+            return source(start, count)
+
+    return src
+
+
 def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
                keep_state: bool = False, mesh=None,
                subset: Optional[frozenset] = None,
                prefetch: bool = True, refill: str = "device",
                adaptive: bool = False, checkpoint_dir: Optional[str] = None,
-               faults=None, redundancy: str = "none",
+               faults=None, redundancy: str = "none", max_retries: int = 2,
                device: DeviceLike = None):
     """Execute every `PackedGroup` through ONE packed, resident stream.
 
@@ -524,10 +639,18 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
 
     `adaptive` turns on the superstep controller. `subset` pins the
     opcode subset the plain version is specialised to (default: the
-    union of the groups' text subsets). The options the reference has
-    beyond these (`refill="host"`, `mesh`, `faults`, `redundancy="dmr"`,
+    union of the groups' text subsets). `faults` (a `faults.FaultSpec`;
+    rate 0 is the fault-free run) injects faults; `redundancy="dmr"`
+    runs every item on a lane pair and recovers by rollback, quarantining
+    a pair after `max_retries` consecutive mismatches. Unprotected faulty
+    results depend on the lane and epoch each item lands on, so they
+    match the reference's only at equal `chunk`, `seg_steps` and
+    `adaptive`; DMR results equal the fault-free ones at any chunk. The
+    options the reference has beyond these (`refill="host"`, `mesh`,
     `checkpoint_dir`, and plans past the resident safety bounds, where
-    the reference falls back to its host loop) raise NotImplementedError.
+    the reference falls back to its host loop) raise
+    NotImplementedError, except that a resilient plan raises the
+    reference's ValueError where the reference does.
     """
     dev = resolve(device)
     groups = list(groups)
@@ -540,17 +663,29 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
     if refill not in REFILLS:
         raise ValueError(f"refill must be one of {REFILLS}")
     if redundancy not in REDUNDANCY:
-        raise ValueError(f"redundancy must be one of {REDUNDANCY}, got "
-                         f"{redundancy!r}")
+        raise ValueError(f"redundancy must be one of {REDUNDANCY} "
+                         f"(tmr is priced by the carbon planner but "
+                         f"not executed), got {redundancy!r}")
+    if faults is not None and faults.off:
+        faults = None              # rate 0 is the fault-free run
+    dmr = redundancy == "dmr"
+    resilient = faults is not None or dmr
+    if resilient:
+        if refill != "device":
+            raise ValueError(
+                "fault injection / DMR needs the resident loop: the "
+                "fault epoch and rollback snapshots live on device "
+                "(pass refill='device')")
+        if checkpoint_dir is not None:
+            raise ValueError(
+                "fault injection / DMR is incompatible with "
+                "checkpoint_dir: epoch/retry/snapshot state is not "
+                "part of the durable checkpoint schema")
     if refill == "host":
         raise _not_ported("refill='host' (the host-refill loop)", "item 4")
     if mesh is not None:
         raise _not_ported("mesh= (shard-local multi-GPU streaming)",
                           "item 9")
-    if faults is not None:
-        raise _not_ported("faults= (FlexiFault schedules)", "items 3 and 8")
-    if redundancy == "dmr":
-        raise _not_ported("redundancy='dmr'", "item 8")
     if checkpoint_dir is not None:
         raise _not_ported("checkpoint_dir= (durable resident streams)",
                           "item 7")
@@ -563,6 +698,13 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
                               + N_MIX) if keep_state else 0
     if mix_bound > _RESIDENT_MIX_LIMIT \
             or ks_words > _RESIDENT_KEEP_STATE_WORDS:
+        if resilient:
+            raise ValueError(
+                "plan exceeds the resident-runtime safety bounds "
+                "(int32 mix counters / keep_state device rows) and "
+                "fault injection / DMR cannot fall back to the "
+                "host-refill loop — shrink the plan or drop the "
+                "fault/redundancy knobs")
         raise _not_ported(
             "a plan past the resident safety bounds (int32 mix counters, "
             "keep_state device rows), which the reference runs on its "
@@ -583,7 +725,7 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
             n_groups=n_groups, n_progs=n_groups, bank_width=0,
             lane_steps=0, n_segments=0, chunk=0, seg_steps=seg_steps,
             wall_s=0.0, stepper=stepper, n_devices=1, adaptive=adaptive,
-            device=dev_name)
+            device=dev_name, redundancy=redundancy)
 
     mem_words = max(g.mem_words for g in groups)
     bank_np, code_len_np = iss.pack_programs([g.code for g in groups])
@@ -607,7 +749,10 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
         "out_addr": torch.tensor(
             [-1 if g.out_addr is None else g.out_addr for g in groups],
             dtype=I32, device=dev)}
-    chunk = min(chunk, total_items)
+    # a DMR pair takes two lanes per item: the pool rounds up to even
+    chunk = min(chunk, total_items * (2 if dmr else 1))
+    if dmr:
+        chunk += chunk % 2
     ms_of = np.array([g.max_steps for g in groups], np.int64)
 
     clock = _SyncClock()
@@ -615,7 +760,8 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
     t0 = time.perf_counter()
     out = _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
                            keep_state, subset, mem_words, timing,
-                           controller, clock, dev)
+                           controller, clock, dev, faults=faults, dmr=dmr,
+                           max_retries=max_retries)
     wall_s = time.perf_counter() - t0
 
     busy = np.array([r.sum() for r in out["r_instr"]], np.float64)
@@ -644,8 +790,36 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
         refill_wall_s=clock.refill_wall_s,
         device_busy_frac=clock.busy_frac(wall_s),
         seg_schedule=tuple(controller.schedule[:out["n_segments"]]),
-        device=dev_name)
+        device=dev_name, redundancy=redundancy, detected=out["detected"],
+        corrected=out["corrected"], quarantined=out["quarantined"])
     return results, stats
+
+
+def run_stream(code: np.ndarray, source: Source, *, n_items: int,
+               mem_words: int, max_steps: int, chunk: int = 256,
+               seg_steps: int = 4096, out_addr: Optional[int] = None,
+               keep_state: bool = False, mesh=None,
+               subset: Optional[frozenset] = None, prefetch: bool = True,
+               refill: str = "device", adaptive: bool = False,
+               cost: Optional[np.ndarray] = None, faults=None,
+               redundancy: str = "none", max_retries: int = 2,
+               device: DeviceLike = None) -> FleetResult:
+    """Stream `n_items` memory images of one program from `source`
+    through `chunk` lanes: the single-group case of `run_packed`, with
+    the run's whole-pool accounting (lane-step slots, segments, wall
+    clock) folded into the returned `FleetResult`."""
+    results, stats = run_packed(
+        [PackedGroup(code=code, source=source, n_items=n_items,
+                     max_steps=max_steps, mem_words=mem_words,
+                     out_addr=out_addr, cost=cost)],
+        chunk=chunk, seg_steps=seg_steps, keep_state=keep_state,
+        mesh=mesh, subset=subset, prefetch=prefetch, refill=refill,
+        adaptive=adaptive, faults=faults, redundancy=redundancy,
+        max_retries=max_retries, device=device)
+    return dataclasses.replace(
+        results[0], lane_steps=stats.lane_steps,
+        n_segments=stats.n_segments, chunk=stats.chunk,
+        wall_s=stats.wall_s)
 
 
 def _host_buffer(shape, dtype, dev: torch.device) -> torch.Tensor:
@@ -657,7 +831,8 @@ def _host_buffer(shape, dtype, dev: torch.device) -> torch.Tensor:
 def _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
                      keep_state, subset, mem_words, timing,
                      controller: _SuperstepController, clock: _SyncClock,
-                     dev: torch.device):
+                     dev: torch.device, faults=None, dmr: bool = False,
+                     max_retries: int = 2):
     """The resident stream loop (see the module docstring) at one shard.
     The loop exits after the refill that retires the last item; the
     segment queued behind it finds every lane parked and takes no step.
@@ -668,10 +843,11 @@ def _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
     np.cumsum(counts[:-1], out=slot_base[1:])
     cuda = dev.type == "cuda"
 
-    prefs = [_Prefetcher(g.source, int(counts[i]),
+    sources = [_locked(g.source) for g in groups]
+    prefs = [_Prefetcher(sources[i], int(counts[i]),
                          block=max(1, min(chunk, int(counts[i]))),
                          background=prefetch)
-             for i, g in enumerate(groups)]
+             for i in range(n_groups)]
 
     # ---- staged batch: a host mirror in (pinned) tensors, FIFO, plus
     # its device copy; the mirror is written only after the refill that
@@ -683,8 +859,20 @@ def _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
     st_dev = [torch.empty_like(t, device=dev) for t in st_host]
     staged_cursor = np.zeros(n_groups, np.int64)
     dirty = [True]
+    # a quarantined pair's item comes back here (group, index, row) and is
+    # staged again, under its own row, ahead of fresh admissions
+    requeue = []
 
     def restock():
+        while requeue and int(st_n[0]) < chunk:
+            g, local, row = requeue.pop(0)
+            off = int(st_n[0])
+            st_mems[off] = 0
+            st_mems[off, :groups[g].mem_words] = np.asarray(
+                sources[g](local, 1), np.int32)[0]
+            st_prog[off], st_ms[off], st_slot[off] = g, ms_of[g], row
+            st_n[0] = off + 1
+            dirty[0] = True
         free = chunk - int(st_n[0])
         remaining = counts - staged_cursor
         if free <= 0 or int(remaining.sum()) == 0:
@@ -729,20 +917,48 @@ def _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
         max_steps=torch.zeros(chunk, dtype=I32, device=dev))
     item_slot = torch.full((chunk,), -1, dtype=I32, device=dev)
     acc = _fresh_acc(total, chunk, n_groups, mem_words, keep_state, dev)
-    stats_host = _host_buffer(3 + n_groups, I32, dev)
+    # resilience state: per-lane fault keys and epochs; per-pair mismatch
+    # counts and quarantine flags; the rollback snapshot of the lanes
+    lane_key = None if faults is None else flexifault.lane_keys_tensor(
+        faults.seed, chunk, dev)
+    epoch = torch.zeros(chunk, dtype=I32, device=dev) \
+        if faults is not None or dmr else None
+    retries = torch.zeros(chunk // 2, dtype=I32, device=dev) if dmr else None
+    quar = torch.zeros(chunk // 2, dtype=torch.bool, device=dev) \
+        if dmr else None
+    snap = iss.ISSState(*(x.clone() for x in state.lanes)) if dmr else None
+    n_head = 6 if dmr else 3
+    stats_host = _host_buffer(n_head + n_groups, I32, dev)
     stats_ev = torch.cuda.Event() if cuda else None
     seg_ev = torch.cuda.Event() if cuda else None
 
     g_lane_steps = np.zeros(n_groups, np.int64)
     g_segments = np.zeros(n_groups, np.int64)
     lane_steps = n_segments = prev_seg = retired = 0
+    detected = corrected = quarantined = 0
     try:
         restock()
         while retired < total:
             upload()
-            state, item_slot, acc, stats = retire_refill(
-                state, item_slot, acc, *st_dev[:4], st_dev[4],
-                consts["out_addr"], n_groups, device=dev)
+            if dmr:
+                (state, item_slot, epoch, retries, quar, acc,
+                 stats) = retire_refill_dmr(
+                    state, item_slot, epoch, retries, quar, snap, acc,
+                    *st_dev[:4], st_dev[4], consts["out_addr"], n_groups,
+                    max_retries, device=dev)
+                # the refreshed boundary state is the next rollback point
+                for x, y in zip(snap, state.lanes):
+                    x.copy_(y)
+            else:
+                old_slot = item_slot
+                state, item_slot, acc, stats = retire_refill(
+                    state, item_slot, acc, *st_dev[:4], st_dev[4],
+                    consts["out_addr"], n_groups, device=dev)
+                if epoch is not None:
+                    # a lane that takes a fresh item draws a fresh
+                    # schedule (draws key on (lane, epoch, n_instr))
+                    epoch += ((item_slot != old_slot)
+                              & (item_slot >= 0)).to(I32)
             # the stats copy is queued right behind the refill, ahead of
             # the segment, so waiting for it does not wait for the segment
             stats_host.copy_(stats, non_blocking=True)
@@ -752,12 +968,29 @@ def _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
             state = iss_stepper.iss_segment_banked(
                 consts["bank"], consts["code_len"], state,
                 seg_steps=seg_steps, subset=subset,
-                mem_len=consts["mem_len"], cost=consts["cost"], device=dev)
+                mem_len=consts["mem_len"], cost=consts["cost"],
+                faults=faults, lane_key=lane_key, epoch=epoch, device=dev)
             if cuda:
                 seg_ev.record()
             clock.wait(stats_ev)
             sv = stats_host.numpy().astype(np.int64)
-            n_ret, delta, act_g = int(sv[0]), int(sv[2]), sv[3:]
+            n_ret, delta, act_g = int(sv[0]), int(sv[2]), sv[n_head:]
+            if dmr:
+                detected += int(sv[3])
+                corrected += int(sv[4])
+                if sv[5] >= 0:
+                    # quarantined pair: hand its item back to restock
+                    row = int(sv[5])
+                    g = int(np.searchsorted(slot_base, row,
+                                            side="right") - 1)
+                    requeue.append((g, row - int(slot_base[g]), row))
+                    quarantined += 1
+                    if quarantined >= chunk // 2:
+                        raise RuntimeError(
+                            f"DMR pool starved: all {chunk // 2} lane "
+                            f"pair(s) of shard 0 are quarantined with "
+                            f"items still pending — raise chunk, raise "
+                            f"max_retries, or fix the fault rate")
             if act_g.sum() > 0:
                 n_segments += 1
                 g_segments += act_g > 0
@@ -807,6 +1040,8 @@ def _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
             res["r_pc"].append(accv["pc"][sl])
             res["r_mix_items"].append(accv["mix_items"][sl])
     res.update(g_lane_steps=g_lane_steps, g_segments=g_segments,
-               lane_steps=lane_steps, n_segments=n_segments)
+               lane_steps=lane_steps, n_segments=n_segments,
+               detected=detected, corrected=corrected,
+               quarantined=quarantined)
     return res
 

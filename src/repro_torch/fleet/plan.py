@@ -6,7 +6,9 @@ shortest path to HALT rejects budgets that cannot reach the ecall with a
 `BudgetError`; `max_steps="static"` derives a budget from the WCET;
 `subset_source="static"` takes the reachable-only opcode subset), runs
 every group through ONE packed, resident stream (`engine.run_packed`),
-and prices the per-group tallies in a `FleetReport`.
+and prices the per-group tallies in a `FleetReport`, under the plan's
+fault schedule and redundancy (FlexiFault, DESIGN.md §9.14) when it has
+them.
 
 The port runs the packed path only; `packed=False` (the sequential A/B
 baseline) raises `NotImplementedError`, as do the engine options it
@@ -22,6 +24,7 @@ from repro_torch.flexibench import base as fb
 from repro_torch.flexibits import analyze
 from repro_torch.flexibits.cycles import (CORES, TICKS_PER_CYCLE, Core,
                                           cost_row)
+from repro_torch.flexibits.faults import FaultSpec
 from repro_torch.fleet import engine
 from repro_torch.fleet.report import FleetReport, build_group_report
 
@@ -92,8 +95,12 @@ class FleetPlan:
     prices from measured mean cycles. `validate_budgets` runs the
     FlexiLint budget gate; `subset_source` picks the plain stepper's
     opcode subset ("text" or the analyzer's reachable-only "static").
-    `packed=False`, `refill="host"`, `faults` and `redundancy="dmr"` are
-    the reference's options that the port does not run yet."""
+    `faults` (a `faults.FaultSpec`) injects faults into every lane;
+    `redundancy="dmr"` runs every item on a lane pair with rollback
+    recovery, quarantining a pair after `max_retries` consecutive
+    mismatches; the report prices the plan's redundancy and fault rate.
+    `packed=False` and `refill="host"` are the reference's options that
+    the port does not run yet."""
     groups: Sequence[FleetGroup]
     chunk: int = 256
     seg_steps: int = 4096
@@ -106,8 +113,9 @@ class FleetPlan:
     timing: Optional[str] = None          # None | "base" | "dynamic"
     validate_budgets: bool = True         # FlexiLint min-steps gate
     subset_source: str = "text"           # "text" | "static"
-    faults: Optional[object] = None       # FlexiFault schedule
+    faults: Optional[FaultSpec] = None    # FlexiFault schedule
     redundancy: str = "none"              # "none" | "dmr"
+    max_retries: int = 2                  # DMR rollbacks before quarantine
 
     @property
     def n_items(self) -> int:
@@ -187,13 +195,15 @@ def run_plan(plan: FleetPlan, mesh=None, keep_state: bool = False,
         keep_state=keep_state, mesh=mesh, prefetch=plan.prefetch,
         refill=plan.refill, adaptive=plan.adaptive,
         checkpoint_dir=checkpoint_dir, faults=plan.faults,
-        redundancy=plan.redundancy, device=dev)
+        redundancy=plan.redundancy, max_retries=plan.max_retries,
+        device=dev)
     group_reports = [
         build_group_report(
             group=g, workload=w, core=core, result=res,
             lifetime_s=lifetime_s, execs_per_day=execs_per_day,
             intensity=plan.intensity, clock_hz=plan.clock_hz,
-            wcet_cycles=wcet_cycles)
+            wcet_cycles=wcet_cycles, redundancy=plan.redundancy,
+            fault_rate=0.0 if plan.faults is None else plan.faults.rate)
         for g, (w, core, lifetime_s, execs_per_day, wcet_cycles), res
         in zip(plan.groups, resolved, results)]
     return FleetReport(groups=group_reports, intensity=plan.intensity,

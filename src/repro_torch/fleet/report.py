@@ -68,11 +68,13 @@ def build_group_report(*, group: Any, workload: Workload, core: Core,
                        result: FleetResult, lifetime_s: float,
                        execs_per_day: float, intensity: float,
                        clock_hz: float,
-                       wcet_cycles: Optional[float] = None
-                       ) -> GroupReport:
-    """Price one group's tallies. Unprotected pricing: the reference's
-    redundancy-aware factors are exactly 1.0 without redundancy and at
-    fault rate 0, the only mode the port runs yet."""
+                       wcet_cycles: Optional[float] = None,
+                       redundancy: str = "none",
+                       fault_rate: float = 0.0) -> GroupReport:
+    """Price one group's tallies under its `redundancy` mode and
+    `fault_rate`: spare-copy embodied carbon, re-execution energy and
+    SDC derating (`carbon.redundant_*`, `carbon.sdc_derating`), whose
+    factors are exactly 1.0 unprotected at rate 0."""
     n = max(result.n_items, 1)
     mean_one = float((result.n_instr - result.n_two_stage).sum()) / n
     mean_two = float(result.n_two_stage.sum()) / n
@@ -84,21 +86,31 @@ def build_group_report(*, group: Any, workload: Workload, core: Core,
     if result.n_cycles is not None:
         cycles = float(result.n_cycles.sum()) / n / TICKS_PER_CYCLE
     e_exec = carbon.energy_per_exec_j(core, prof, clock_hz, cycles)
-    op_kg = carbon.operational_kg(
+    derate = carbon.sdc_derating(
+        redundancy, fault_rate=fault_rate,
+        n_instr=mean_one + mean_two, width=core.width)
+    op_kg = carbon.redundant_operational_kg(
         core, prof, lifetime_s=lifetime_s, execs_per_day=execs_per_day,
+        redundancy=redundancy, fault_rate=fault_rate,
         intensity=intensity, clock_hz=clock_hz,
-        cycles=cycles) * result.n_items
-    emb_kg = carbon.soc_embodied_kg(core, prof) * result.n_items
+        cycles=cycles) * derate * result.n_items
+    emb_kg = carbon.redundant_embodied_kg(core, prof, redundancy) \
+        * derate * result.n_items
     best, _ = optimal_core(prof, lifetime_s=lifetime_s,
                            execs_per_day=execs_per_day, intensity=intensity)
     cert_e = cert_op = None
     if wcet_cycles is not None:
+        # the certificate dominates under the same provisioning: scale it
+        # by the measured figure's redundancy and derating factors
+        res_mult = carbon.redundancy_energy_factor(
+            redundancy, fault_rate=fault_rate,
+            n_instr=mean_one + mean_two, width=core.width) * derate
         cert_e = carbon.certified_energy_j(core, prof, clock_hz,
-                                           wcet_cycles)
+                                           wcet_cycles) * res_mult
         cert_op = carbon.certified_operational_kg(
             core, prof, lifetime_s=lifetime_s, execs_per_day=execs_per_day,
             intensity=intensity, clock_hz=clock_hz,
-            wcet_cycles=wcet_cycles) * result.n_items
+            wcet_cycles=wcet_cycles) * res_mult * result.n_items
     return GroupReport(
         group=group, workload=workload, core=core, result=result,
         lifetime_s=lifetime_s, execs_per_day=execs_per_day, profile=prof,
@@ -227,4 +239,10 @@ class FleetReport:
                 f"syncs ({p.sync_wait_s:.3f}s waited), refill host work "
                 f"{p.refill_wall_s:.3f}s, device busy "
                 f"{100.0 * p.device_busy_frac:.1f}%")
+            if p.redundancy != "none" or p.detected or p.quarantined:
+                lines.append(
+                    f"resilience (FlexiFault §9.14, {p.redundancy}): "
+                    f"{p.detected} divergences detected, {p.corrected} "
+                    f"corrected by segment re-execution, "
+                    f"{p.quarantined} lane pairs quarantined")
         return "\n".join(lines)

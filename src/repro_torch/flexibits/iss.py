@@ -8,6 +8,10 @@ is the plain version of the two CUDA kernels in
 `iss_segment_banked`, `refill_lanes` for `iss_refill`), which the tests
 hold against the reference and the kernels are held against on the card.
 
+With a `faults.FaultSpec`, each step ends in the post-commit fault
+transform (`faults.apply_faults`, DESIGN.md §9.14) under each lane's key
+and epoch: the plain version of the segment kernel's `faults` variant.
+
 The memory ports are an indexed gather and scatter (the reference's TPU
 kernel used one-hot reductions for the same thing): reads clamp the word
 index into `[0, mem_len - 1]` of the lane's OWN program, and a store
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch import _u32
+from repro_torch.flexibits import faults as flexifault
 from repro_torch.flexibits import isa
 from repro_torch.flexibits.cycles import (MIX_CLASSES, SHIFT_IDX,
                                           SUBWORD_IDX, TAKEN_IDX)
@@ -359,12 +364,16 @@ def step_lanes_banked(bank: torch.Tensor, code_len: torch.Tensor,
                       subset: frozenset = None,
                       active: Optional[torch.Tensor] = None,
                       mem_len: Optional[torch.Tensor] = None,
-                      cost: Optional[torch.Tensor] = None) -> ISSState:
+                      cost: Optional[torch.Tensor] = None, faults=None,
+                      lane_key: Optional[torch.Tensor] = None,
+                      epoch: Optional[torch.Tensor] = None) -> ISSState:
     """One branchless step of every lane, each on its own program.
 
     `active=False` freezes a lane; `mem_len` (per LANE) bounds the memory
     ports at the lane's own word count (None: the pool width); `cost`
-    (per-LANE (L, 19) rows) turns on the tick tally.
+    (per-LANE (L, 19) rows) turns on the tick tally; `faults` (with
+    per-lane int32 `lane_key` bits and `epoch`) applies the post-commit
+    fault transform to lanes that were live and did not halt.
     """
     n_lanes, mem_words = states.mem.shape
     live = torch.ones(n_lanes, dtype=torch.bool, device=states.pc.device) \
@@ -394,7 +403,7 @@ def step_lanes_banked(bank: torch.Tensor, code_len: torch.Tensor,
     rd = d.rd.long()[:, None]
     old_rd = states.regs.gather(1, rd)[:, 0]
     one = live.to(I32)
-    return ISSState(
+    out = ISSState(
         regs=states.regs.scatter(
             1, rd, torch.where(writes_rd, wr, old_rd)[:, None]),
         pc=torch.where(live, next_pc, states.pc),
@@ -405,19 +414,26 @@ def step_lanes_banked(bank: torch.Tensor, code_len: torch.Tensor,
         mix=states.mix.scatter_add(1, mix_idx.long()[:, None], one[:, None]),
         n_cycles=states.n_cycles if ticks is None
         else _u32.wadd(states.n_cycles, ticks * one))
+    return flexifault.apply_faults(faults, lane_key, epoch, out, live=live,
+                                   mem_len=mlen)
 
 
 def run_segment_lanes_banked(bank: torch.Tensor, code_len: torch.Tensor,
                              ps: PackedState, seg_steps: int,
                              subset: frozenset = None,
                              mem_len: Optional[torch.Tensor] = None,
-                             cost: Optional[torch.Tensor] = None
+                             cost: Optional[torch.Tensor] = None,
+                             faults=None,
+                             lane_key: Optional[torch.Tensor] = None,
+                             epoch: Optional[torch.Tensor] = None
                              ) -> PackedState:
     """Up to `seg_steps` banked steps for every lane (the plain version
     of the `iss_segment_banked` kernel).
 
     A lane steps while it is live: not halted and under its own budget.
-    `mem_len` and `cost` are per-PROGRAM, like `code_len`. The pool loop
+    `mem_len` and `cost` are per-PROGRAM, like `code_len`; `faults` (with
+    per-LANE `lane_key`/`epoch`: schedules belong to the physical lane)
+    turns on the post-commit fault transform. The pool loop
     stops early once no lane is live (one host read per step), which
     changes nothing: a lane that is not live stays so.
     """
@@ -430,7 +446,8 @@ def run_segment_lanes_banked(bank: torch.Tensor, code_len: torch.Tensor,
         if not bool(act.any()):
             break
         st = step_lanes_banked(bank, code_len, st, ps.prog_id, subset,
-                               active=act, mem_len=lane_mlen, cost=lane_cost)
+                               active=act, mem_len=lane_mlen, cost=lane_cost,
+                               faults=faults, lane_key=lane_key, epoch=epoch)
     return PackedState(lanes=st, prog_id=ps.prog_id, max_steps=ps.max_steps)
 
 

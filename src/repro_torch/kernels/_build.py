@@ -23,7 +23,8 @@ from typing import Dict, List
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 # library -> the csrc headers its source includes (hashed into its name)
-HEADERS = {"iss_segment": ("rv32e_step.cuh",), "iss_refill": (),
+HEADERS = {"iss_segment": ("rv32e_step.cuh", "flexifault.cuh"),
+           "iss_refill": (),
            "carbon_sweep": ("carbon_sweep.cuh",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -31,12 +32,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_U = ctypes.c_uint32
 # library -> (C symbol, argument types); every pointer and the stream are
 # c_void_p, so ctypes never narrows one to a 32-bit int
 SIGNATURES = {
     "iss_segment": ("iss_segment_banked_launch",
                     [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                     _P, _P, _P, _P, _P, _I, _I, _P]),
+                     _P, _P, _P, _P, _P, _I, _I,
+                     _I, _P, _P, _U, _I, _I, _I, _I, _I, _P]),
     "iss_refill": ("iss_refill_launch",
                    [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                     _P, _P, _P, _I, _P]),

@@ -2,8 +2,12 @@
 // of a packed pool, each lane on its own bank program, in one launch.
 //
 // Replaces the TPU kernel src/repro/kernels/iss_stepper.py::
-// iss_segment_banked (body _segment_kernel / _step_tile), fault-free, with
-// the timing tally as a template parameter.
+// iss_segment_banked (body _segment_kernel / _step_tile), with the timing
+// tally and the fault mode (none, transient, stuck, dead) as template
+// parameters. The `faults` variant (iss_stepper.py:152-160 and :306-318)
+// takes two more per-lane inputs, the lane's fault key (uint32 bits) and
+// its retry epoch, and the schedule (threshold, always, the enabled
+// targets) as launch arguments; the per-lane transform is flexifault.cuh.
 //
 // Design. One thread per lane, blocks of 128 threads. A live lane loads its
 // 16 registers and 8 mix counters into shared memory ([index][lane], so
@@ -20,6 +24,12 @@
 // so the kernel is bound by latency and integer issue, and one warp's
 // lanes diverge when they run different programs.
 //
+// The faults variant adds, per live step, one hash of the lane's constant
+// key and n_instr and a compare; only a step that fires hashes twice more
+// and flips a bit: in the shared-memory register row, in the pc, or as one
+// read-modify-write of the drawn word in the lane's memory row. The
+// per-lane constants are hashed once, before the loop.
+//
 // The memory row stays in device memory, indexed directly: at up to 2,824
 // words (11 KB) a lane, a useful tile's rows do not fit in the 227 KB of
 // shared memory a block can use. The bank is read through the read-only
@@ -27,13 +37,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flexifault.cuh"
 #include "rv32e_step.cuh"
 
 namespace {
 
 constexpr int kBlock = 128;
 
-template <bool TIMING>
+template <bool TIMING, int FAULT>
 __global__ void __launch_bounds__(kBlock) iss_segment_kernel(
     const int32_t* __restrict__ bank, int32_t n_progs, int32_t bank_width,
     const int32_t* __restrict__ code_len, const int32_t* __restrict__ mem_len,
@@ -42,7 +55,9 @@ __global__ void __launch_bounds__(kBlock) iss_segment_kernel(
     int32_t* __restrict__ pc, int32_t* __restrict__ mem, int32_t mem_words,
     uint8_t* __restrict__ halted, int32_t* __restrict__ n_instr,
     int32_t* __restrict__ n_two, int32_t* __restrict__ mix,
-    int32_t* __restrict__ n_cycles, int32_t n_lanes, int32_t seg_steps) {
+    int32_t* __restrict__ n_cycles, int32_t n_lanes, int32_t seg_steps,
+    const uint32_t* __restrict__ lane_key, const int32_t* __restrict__ epoch,
+    flexifault::Spec fspec) {
   __shared__ int32_t s_regs[16 * kBlock];
   __shared__ int32_t s_mix[rv32e::N_MIX * kBlock];
   const int t = threadIdx.x;
@@ -77,7 +92,10 @@ __global__ void __launch_bounds__(kBlock) iss_segment_kernel(
   prog.mlen = mem_len[p];
   prog.cost = TIMING ? cost + static_cast<size_t>(p) * rv32e::N_COST : nullptr;
 
-  rv32e::run_lane<TIMING>(s, prog, budget, seg_steps);
+  flexifault::LaneConsts fc{};
+  if constexpr (FAULT != flexifault::NONE)
+    fc = flexifault::lane_consts<FAULT>(fspec, lane_key[lane], epoch[lane]);
+  rv32e::run_lane<TIMING, FAULT>(s, prog, budget, seg_steps, fspec, fc);
 
   for (int r = 0; r < 16; ++r) regs[row * 16 + r] = s_regs[r * kBlock + t];
   for (int c = 0; c < rv32e::N_MIX; ++c)
@@ -92,38 +110,66 @@ __global__ void __launch_bounds__(kBlock) iss_segment_kernel(
 }  // namespace
 
 // Plain C entry for ctypes: every pointer is a device pointer, `stream` a
-// cudaStream_t. Returns cudaGetLastError() after the launch (0 = success).
+// cudaStream_t. `fault_mode` is flexifault::NONE (0; `lane_key` and
+// `epoch` unused and may be null), TRANSIENT (1), STUCK (2) or DEAD (3);
+// target0..2 are the first `n_targets` enabled transient targets
+// (flexifault::REGS, MEM, PC). Returns cudaGetLastError() after the
+// launch (0 = success), or cudaErrorInvalidValue (1) for a fault mode or
+// target count out of range.
 extern "C" int iss_segment_banked_launch(
     const void* bank, int n_progs, int bank_width, const void* code_len,
     const void* mem_len, const void* cost, int timing, const void* prog_id,
     const void* max_steps, void* regs, void* pc, void* mem, int mem_words,
     void* halted, void* n_instr, void* n_two, void* mix, void* n_cycles,
-    int n_lanes, int seg_steps, void* stream) {
+    int n_lanes, int seg_steps, int fault_mode, const void* lane_key,
+    const void* epoch, unsigned int threshold, int always, int n_targets,
+    int target0, int target1, int target2, void* stream) {
+  if (fault_mode < flexifault::NONE || fault_mode > flexifault::DEAD ||
+      (fault_mode == flexifault::TRANSIENT &&
+       (n_targets < 1 || n_targets > 3)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_lanes <= 0 || seg_steps <= 0) return 0;
   const dim3 grid((n_lanes + kBlock - 1) / kBlock);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* b = static_cast<const int32_t*>(bank);
-  auto* cl = static_cast<const int32_t*>(code_len);
-  auto* ml = static_cast<const int32_t*>(mem_len);
-  auto* co = static_cast<const int32_t*>(cost);
-  auto* pid = static_cast<const int32_t*>(prog_id);
-  auto* ms = static_cast<const int32_t*>(max_steps);
-  auto* rg = static_cast<int32_t*>(regs);
-  auto* p = static_cast<int32_t*>(pc);
-  auto* m = static_cast<int32_t*>(mem);
-  auto* h = static_cast<uint8_t*>(halted);
-  auto* ni = static_cast<int32_t*>(n_instr);
-  auto* n2 = static_cast<int32_t*>(n_two);
-  auto* mx = static_cast<int32_t*>(mix);
-  auto* nc = static_cast<int32_t*>(n_cycles);
-  if (timing) {
-    iss_segment_kernel<true><<<grid, kBlock, 0, st>>>(
-        b, n_progs, bank_width, cl, ml, co, pid, ms, rg, p, m, mem_words, h,
-        ni, n2, mx, nc, n_lanes, seg_steps);
-  } else {
-    iss_segment_kernel<false><<<grid, kBlock, 0, st>>>(
-        b, n_progs, bank_width, cl, ml, co, pid, ms, rg, p, m, mem_words, h,
-        ni, n2, mx, nc, n_lanes, seg_steps);
-  }
+  const flexifault::Spec fs{threshold, always, n_targets,
+                            {target0, target1, target2}};
+  // one instantiation per (timing, fault mode)
+  auto go = [&](auto timing_c, auto fault_c) {
+    iss_segment_kernel<decltype(timing_c)::value, decltype(fault_c)::value>
+        <<<grid, kBlock, 0, st>>>(
+            static_cast<const int32_t*>(bank), n_progs, bank_width,
+            static_cast<const int32_t*>(code_len),
+            static_cast<const int32_t*>(mem_len),
+            static_cast<const int32_t*>(cost),
+            static_cast<const int32_t*>(prog_id),
+            static_cast<const int32_t*>(max_steps),
+            static_cast<int32_t*>(regs), static_cast<int32_t*>(pc),
+            static_cast<int32_t*>(mem), mem_words,
+            static_cast<uint8_t*>(halted), static_cast<int32_t*>(n_instr),
+            static_cast<int32_t*>(n_two), static_cast<int32_t*>(mix),
+            static_cast<int32_t*>(n_cycles), n_lanes, seg_steps,
+            static_cast<const uint32_t*>(lane_key),
+            static_cast<const int32_t*>(epoch), fs);
+  };
+  auto by_mode = [&](auto timing_c) {
+    switch (fault_mode) {
+      case flexifault::TRANSIENT:
+        go(timing_c, std::integral_constant<int, flexifault::TRANSIENT>{});
+        break;
+      case flexifault::STUCK:
+        go(timing_c, std::integral_constant<int, flexifault::STUCK>{});
+        break;
+      case flexifault::DEAD:
+        go(timing_c, std::integral_constant<int, flexifault::DEAD>{});
+        break;
+      default:
+        go(timing_c, std::integral_constant<int, flexifault::NONE>{});
+        break;
+    }
+  };
+  if (timing)
+    by_mode(std::true_type{});
+  else
+    by_mode(std::false_type{});
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,10 +30,16 @@
 //  5. Counters. The caller steps a lane only while it is live (not halted,
 //     under its budget), so every counter here is the live-masked one;
 //     n_cycles is int32 and wraps.
+//  6. Faults. run_lane's FAULT mode (flexifault.cuh) applies the
+//     post-commit fault transform after every step that leaves the lane
+//     not halted, with n_instr already counting the step, as the
+//     reference's _step_tile does; FAULT = NONE compiles it out.
 #pragma once
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include "flexifault.cuh"
 
 #ifdef __CUDACC__
 #define RV_HD __host__ __device__ __forceinline__
@@ -288,12 +294,21 @@ RV_HD void step(Lane& s, const Program& p) {
 // Up to seg_steps steps while the lane is live (not halted, under its own
 // budget). A lane that stops being live stays so within a segment, so
 // breaking out per lane is exact with the reference's pool-wide loop.
-template <bool TIMING>
+// With a FAULT mode, `fs` is the schedule and `fc` the lane's constants.
+template <bool TIMING, int FAULT = flexifault::NONE>
 RV_HD void run_lane(Lane& s, const Program& p, int32_t max_steps,
-                    int32_t seg_steps) {
+                    int32_t seg_steps,
+                    const flexifault::Spec& fs = flexifault::Spec{},
+                    const flexifault::LaneConsts& fc =
+                        flexifault::LaneConsts{}) {
   for (int32_t k = 0; k < seg_steps; ++k) {
     if (s.halted || s.n_instr >= max_steps) break;
     step<TIMING>(s, p);
+    if constexpr (FAULT != flexifault::NONE) {
+      if (!s.halted)
+        flexifault::apply<FAULT>(fs, fc, s.regs, s.regs_stride, p.mem,
+                                 p.mlen, s.pc, s.n_instr);
+    }
   }
 }
 

@@ -213,27 +213,34 @@ def assert_packed_equal(a, b, ctx: str = "") -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_segment_fn(kind: str, seg_steps: int, subset, timing: bool):
+def _ref_segment_fn(kind: str, seg_steps: int, subset, timing: bool,
+                    faults=None):
     import jax
     from repro.flexibits import iss as riss
     from repro.kernels.iss_stepper import iss_segment_banked
 
-    def seg(bank, clen, ps, mem_len, cost):
+    def seg(bank, clen, ps, mem_len, cost, lane_key, epoch):
         cost = cost if timing else None
+        kw = {} if faults is None else dict(faults=faults, lane_key=lane_key,
+                                            epoch=epoch)
         if kind == "xla":
             return riss.run_segment_lanes_banked(bank, clen, ps, seg_steps,
-                                                 subset, mem_len, cost)
+                                                 subset, mem_len, cost, **kw)
         return iss_segment_banked(bank, clen, ps, seg_steps=seg_steps,
-                                  subset=subset, mem_len=mem_len, cost=cost)
+                                  subset=subset, mem_len=mem_len, cost=cost,
+                                  **kw)
     return jax.jit(seg)
 
 
 def ref_segment(kind: str, bank, clen, state: PackedState, seg_steps: int,
-                mem_len, cost=None, subset=None) -> PackedState:
+                mem_len, cost=None, subset=None, faults=None, lane_key=None,
+                epoch=None) -> PackedState:
     """One segment of the reference: its XLA stepper
     (`iss.run_segment_lanes_banked`, kind="xla") or its Pallas kernel in
     interpret mode (`iss_stepper.iss_segment_banked`, kind="pallas").
-    numpy in, numpy out; `cost=None` turns the tick tally off."""
+    numpy in, numpy out; `cost=None` turns the tick tally off; `faults`
+    is a reference `FaultSpec`, with per-lane uint32 `lane_key` and int32
+    `epoch` arrays."""
     import jax.numpy as jnp
     from repro.flexibits import iss as riss
 
@@ -243,11 +250,16 @@ def ref_segment(kind: str, bank, clen, state: PackedState, seg_steps: int,
         max_steps=jnp.asarray(state.max_steps))
     timing = cost is not None
     co = jnp.asarray(cost if timing else np.zeros((len(clen), 19), np.int32))
+    n = len(state.prog_id)
+    key = jnp.asarray(np.zeros(n, np.uint32) if lane_key is None
+                      else np.asarray(lane_key).view(np.uint32))
+    ep = jnp.asarray(np.zeros(n, np.int32) if epoch is None
+                     else np.asarray(epoch, np.int32))
     fn = _ref_segment_fn(kind, seg_steps,
                          None if subset is None else frozenset(subset),
-                         timing)
+                         timing, faults)
     out = fn(jnp.asarray(bank), jnp.asarray(clen), ps, jnp.asarray(mem_len),
-             co)
+             co, key, ep)
     return PackedState(
         lanes=ISSState(*(np.asarray(x) for x in out.lanes)),
         prog_id=np.asarray(out.prog_id), max_steps=np.asarray(out.max_steps))

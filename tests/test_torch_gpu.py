@@ -6,7 +6,8 @@ on a machine with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-The plain versions are the port's `flexibits/iss.py` and
+The plain versions are the port's `flexibits/iss.py` (with the
+FlexiFault transform of `flexibits/faults.py`) and
 `kernels/carbon_sweep.py::sweep_tile_plain`, which the CPU tests hold
 against the reference; no JAX is needed here. The sweep comparisons use
 `_torch_parity`'s tolerances (bit for bit but the per-cell sums, and
@@ -21,6 +22,7 @@ from repro_torch import convert
 from repro_torch.core import selection as psel
 from repro_torch.core import sweep as psweep
 from repro_torch.fleet import engine
+from repro_torch.flexibits import faults as pf
 from repro_torch.flexibits import iss
 from repro_torch.kernels import carbon_sweep as pcs
 from repro_torch.kernels import iss_stepper
@@ -40,17 +42,21 @@ def _t(x, dev):
 
 
 def _segments(dev, bank, clen, mlen, cost, state, seg_steps, n_segs,
-              subset=None):
+              subset=None, faults=None, epoch=None):
     a = convert.packed_to_torch(state, dev)
     b = convert.packed_to_torch(state, dev)
     bank, clen, mlen = _t(bank, dev), _t(clen, dev), _t(mlen, dev)
     cost = None if cost is None else _t(cost, dev)
+    n = len(state.prog_id)
+    fk = {} if faults is None else dict(
+        faults=faults, lane_key=pf.lane_keys_tensor(faults.seed, n, dev),
+        epoch=_t(epoch, dev))
     for k in range(n_segs):
         a = iss_stepper.iss_segment_banked(bank, clen, a, seg_steps=seg_steps,
                                            mem_len=mlen, cost=cost,
-                                           device=dev)
+                                           device=dev, **fk)
         b = iss.run_segment_lanes_banked(bank, clen, b, seg_steps, subset,
-                                         mlen, cost)
+                                         mlen, cost, **fk)
         torch.cuda.synchronize()
         tp.assert_packed_equal(convert.packed_to_numpy(b),
                                convert.packed_to_numpy(a), f"segment {k}")
@@ -70,6 +76,80 @@ def test_segment_kernel_matches_plain_on_soups(cuda, timing):
     cost = tp.soup_cost(rng, 7) if timing else None
     _segments(cuda, bank, clen, mlen, cost, tp.soup_state(rng, 300, 64, 7),
               64, 3)
+
+
+_FAULT_SPECS = {
+    "transient": pf.FaultSpec(rate=1e-2, seed=3,
+                              targets=("regs", "mem", "pc")),
+    "always": pf.FaultSpec(rate=1.0, seed=4, targets=("regs", "mem", "pc")),
+    "stuck": pf.FaultSpec(rate=0.5, seed=5, mode="stuck"),
+    "dead": pf.FaultSpec(rate=0.5, seed=6, mode="dead"),
+}
+
+
+@pytest.mark.parametrize("timing", [False, True])
+@pytest.mark.parametrize("mode", sorted(_FAULT_SPECS))
+def test_fault_kernel_matches_plain(cuda, mode, timing):
+    """The faults variant against the plain faulty stepper: soups (wild
+    addresses, mixed memory bounds, nonzero epochs) and the 11
+    workloads, full state bit for bit after every segment."""
+    rng = np.random.default_rng(70 + timing)
+    spec = _FAULT_SPECS[mode]
+    bank, clen = tp.soup_bank(rng, 7, 32, 64)
+    mlen = rng.integers(8, 65, 7).astype(np.int32)
+    cost = tp.soup_cost(rng, 7) if timing else None
+    iss_stepper.reset_counts()
+    _segments(cuda, bank, clen, mlen, cost, tp.soup_state(rng, 300, 64, 7),
+              64, 3, faults=spec, epoch=rng.integers(0, 9, 300)
+              .astype(np.int32))
+    assert iss_stepper.iss_segment_banked.fault_launches == 3
+    assert iss_stepper.iss_segment_banked.launches == 0
+    bank, clen, mlen, cost, st = tp.workload_pool(77, seed=5)
+    _segments(cuda, bank, clen, mlen, cost if timing else None, st, 256, 2,
+              faults=spec, epoch=np.arange(77, dtype=np.int32) % 5)
+
+
+def test_iss_segment_wrapper_on_card_matches_plain(cuda):
+    prog = tp.skew_program()
+    mems = tp.skew_mems(prog, 64, 8, 300, 0.3, 5)
+    code = torch.from_numpy(np.asarray(prog.code, np.uint32).view(np.int32))
+    spec = _FAULT_SPECS["transient"]
+    out = []
+    for dev in (cuda, "cpu"):
+        out.append(iss_stepper.iss_segment(
+            code.to(dev), iss.fresh_lanes(_t(mems, dev)), seg_steps=700,
+            max_steps=650, faults=spec,
+            lane_key=pf.lane_keys_tensor(spec.seed, 64, dev),
+            epoch=torch.zeros(64, dtype=torch.int32, device=dev),
+            device=dev))
+    torch.cuda.synchronize()
+    for f, a, b in zip(iss.ISSState._fields, *out):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy(), err_msg=f)
+
+
+@pytest.mark.parametrize("redundancy", ["none", "dmr"])
+def test_resilient_run_packed_on_card_matches_cpu(cuda, redundancy):
+    """Unprotected transients and DMR on the skew groups: per-item
+    results, final state, schedule and DMR counters equal on card and
+    CPU; DMR's items equal the fault-free run."""
+    spec = pf.FaultSpec(rate=2e-3, seed=5, targets=("regs", "mem", "pc"))
+    kw = dict(chunk=16, seg_steps=64, keep_state=True, faults=spec,
+              redundancy=redundancy, max_retries=6)
+    iss_stepper.reset_counts()
+    gpu, sg = engine.run_packed(tp.skew_groups(engine), device=cuda, **kw)
+    assert iss_stepper.iss_segment_banked.fault_launches > 0
+    assert iss_stepper.iss_refill.launches > 0
+    assert iss_stepper.iss_segment_banked.plain_calls == 0
+    cpu, sc = engine.run_packed(tp.skew_groups(engine), device="cpu", **kw)
+    tp.assert_results_equal(cpu, gpu, "card vs cpu")
+    for f in ("lane_steps", "n_segments", "seg_schedule", "detected",
+              "corrected", "quarantined"):
+        assert getattr(sg, f) == getattr(sc, f), f
+    if redundancy == "dmr":
+        assert sg.detected > 0
+        gold, _ = engine.run_packed(tp.skew_groups(engine), device=cuda,
+                                    chunk=16, seg_steps=64, keep_state=True)
+        tp.assert_results_equal(gold, gpu, "dmr vs fault-free")
 
 
 def test_refill_kernel_matches_plain(cuda):

@@ -1,7 +1,8 @@
 """The port stands alone: it imports without JAX and without the
 reference package, its sources import neither, its entry points run on
-the card by default and raise without one, and the reference options it
-does not port yet raise NotImplementedError."""
+the card by default and raise without one, the reference options it
+does not port yet raise NotImplementedError, and a resilient plan raises
+the reference's ValueErrors where the reference does."""
 import os
 import pathlib
 import re
@@ -43,7 +44,8 @@ _SLICE_MODULES = ("repro_torch.fleet.engine",
                   "repro_torch.core.sweep",
                   "repro_torch.kernels.carbon_sweep",
                   "repro_torch.flexibits.pyiss",
-                  "repro_torch.flexibench.memory")
+                  "repro_torch.flexibench.memory",
+                  "repro_torch.flexibits.faults")
 
 
 def test_port_imports_with_jax_and_the_reference_blocked():
@@ -109,9 +111,61 @@ def test_sweep_entry_points_default_to_the_card():
         carbon_sweep.init_acc(64, 32, torch.float32)
 
 
-@pytest.mark.parametrize("what", ["refill_host", "packed_false", "mesh",
-                                  "faults", "dmr", "checkpoint",
+def test_resilient_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None runs on it")
+    from repro_torch.flexibits import faults, iss
+    from repro_torch.kernels import iss_stepper
+    spec = faults.FaultSpec(rate=1e-3, targets=("regs", "mem", "pc"))
+    for kw in (dict(faults=spec), dict(redundancy="dmr"),
+               dict(faults=spec, redundancy="dmr")):
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            plan.run_plan(_tiny_plan(**kw))
+    lanes = iss.fresh_lanes(torch.zeros((2, 4), dtype=torch.int32))
+    key = faults.lane_keys_tensor(0, 2)
+    ep = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        iss_stepper.iss_segment(torch.zeros(3, dtype=torch.int32), lanes,
+                                seg_steps=1, max_steps=1, faults=spec,
+                                lane_key=key, epoch=ep)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        iss_stepper.iss_segment_banked(
+            torch.zeros((1, 3), dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32),
+            iss.PackedState(lanes, torch.zeros(2, dtype=torch.int32),
+                            torch.ones(2, dtype=torch.int32)),
+            seg_steps=1, faults=spec, lane_key=key, epoch=ep)
+
+
+@pytest.mark.parametrize("what", ["refill_host", "checkpoint",
                                   "past_bounds"])
+def test_resilient_plans_raise_the_references_errors(what):
+    """Fault injection and DMR need the resident loop, keep no durable
+    checkpoint and cannot fall back past the resident safety bounds: the
+    reference's ValueErrors, word for word, where the port would
+    otherwise raise NotImplementedError."""
+    from repro_torch.flexibits import faults
+    spec = faults.FaultSpec(rate=1e-3)
+    runs = {
+        "refill_host": lambda: plan.run_plan(
+            _tiny_plan(refill="host", faults=spec), device="cpu"),
+        "checkpoint": lambda: plan.run_plan(
+            _tiny_plan(redundancy="dmr"), checkpoint_dir="ckpt",
+            device="cpu"),
+        "past_bounds": lambda: plan.run_plan(plan.FleetPlan(
+            groups=(plan.FleetGroup(workload="WQ", n_items=4,
+                                    max_steps=2**30),), chunk=4,
+            faults=spec, redundancy="dmr"), device="cpu"),
+    }
+    match = {"refill_host": "needs the resident loop",
+             "checkpoint": "incompatible with checkpoint_dir",
+             "past_bounds": "cannot fall back to the host-refill loop"}
+    with pytest.raises(ValueError, match=match[what]):
+        runs[what]()
+
+
+@pytest.mark.parametrize("what", ["refill_host", "packed_false", "mesh",
+                                  "checkpoint", "past_bounds"])
 def test_unported_options_raise_not_implemented(what):
     plans = {
         "refill_host": lambda: plan.run_plan(_tiny_plan(refill="host"),
@@ -120,10 +174,6 @@ def test_unported_options_raise_not_implemented(what):
                                               device="cpu"),
         "mesh": lambda: plan.run_plan(_tiny_plan(), mesh=object(),
                                       device="cpu"),
-        "faults": lambda: plan.run_plan(_tiny_plan(faults=object()),
-                                        device="cpu"),
-        "dmr": lambda: plan.run_plan(_tiny_plan(redundancy="dmr"),
-                                     device="cpu"),
         "checkpoint": lambda: plan.run_plan(_tiny_plan(),
                                             checkpoint_dir="ckpt",
                                             device="cpu"),
