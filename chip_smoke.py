@@ -6,7 +6,7 @@
 Phases (each prints its own lines; any failure exits non-zero):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: both CUDA kernels from `src/repro_torch/kernels/csrc`, in
+2. build: every CUDA library from `src/repro_torch/kernels/csrc`, in
    parallel, with the compiler's register and spill report;
 3. kernels: `iss_segment_banked` and `iss_refill` against their plain
    PyTorch versions on the card, bit for bit over the full state: first
@@ -60,16 +60,43 @@ Phases (each prints its own lines; any failure exits non-zero):
    halt must equal phase 5's (the tallies DMR's digest does not cover,
    the two-stage count, ticks and mix, are counted); each run once more
    under torch.profiler for the busy share, and the DMR boundary's
-   digest, snapshot and rollback timed at full shape.
+   digest, snapshot and rollback timed at full shape;
+13. LM kernels: `flash_attention`, `ssd_scan` and `bitplane_matmul`
+   against their plain versions in float32 and bfloat16 on small and
+   ragged shapes (L 11 and 200 causal and full with equal and unequal
+   tiles; SSD scans of two and three chunks with odd head counts and
+   groups; bit planes at 1, 4 and 8 bits, ragged M through
+   `quantized_linear`), then at the main serve's shapes in bfloat16,
+   timed with CUDA events beside the plain version and a library call
+   (SDPA for attention, `torch.matmul` on the dequantised weight for
+   bit planes, none for the scan);
+14. small serve: the Zamba2 smoke config in float32 and bfloat16 with
+   the same parameters on the card (kernels) and on the CPU (plain
+   versions): prefill and first decode logits within the stated
+   tolerance, greedy tokens equal wherever the CPU's top-2 margin clears
+   twice it, and `generate` equal to the greedy loop on both;
+15. main serve: Zamba2-7B at full width and depth (6.957e9 parameters,
+   bfloat16, random from a seed) through `generate` on the card, 8
+   requests x prompt 512, 32 tokens: 81 `ssd_scan` and 13
+   `flash_attention` launches per prefill and no plain call; prefill
+   and decode rates and peak memory; the kernels against their plain
+   versions on the tensors this prefill feeds the first Mamba layer and
+   the first shared block; that block's FFN input through
+   `quantized_linear` at 4 and 8 bits (the bit-plane kernel's path);
+   and the serve once more under torch.profiler.
 
-It ends with a `kernels:` line of launch counts, a JSON line per kernel
-(times, bound, launches, error; the segment kernel's faults variant has
-its own entry, launched on phase 12's path), the card's nvidia-smi line,
-and as the last line `{"ok": true, "device": {...}}`. The fleet kernels' integer
-state is held bit for bit (max_abs_err 0). The sweep is held bit for bit
-but for its per-cell sums, which follow no fixed order (relative
-2 (N - 1) u), and for values at a log10 bin edge (counted; see
+It ends with a `kernels:` line of launch counts, one JSON line
+`{"kernels": [...]}` with an entry per kernel (times, bound, launches,
+error; the segment kernel's faults variant has its own entry, launched
+on phase 12's path; the bit-plane kernel's launches are phase 15's
+quantized path), the card's nvidia-smi line, and as the last line
+`{"ok": true, "device": {...}}`. The fleet kernels' integer state is
+held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
+its per-cell sums, which follow no fixed order (relative 2 (N - 1) u),
+and for values at a log10 bin edge (counted; see
 `tests/_torch_parity.py`); its max_abs_err is over the exact fields.
+The LM kernels multiply in float32 in another order than their plain
+versions and are held to `LM_TOL` times the output's largest magnitude.
 """
 import dataclasses
 import json
@@ -424,15 +451,16 @@ def phase_main(dev):
     return counts, rep
 
 
-def profiled(fn):
+def profiled(fn, cpu=True):
     """Run fn() under torch.profiler: (its result, wall seconds, device
     busy seconds (the union of the device's activity intervals), rows of
     key_averages by device time), or busy None when the profiler saw no
-    device activity."""
+    device activity. `cpu=False` records the device's activity only (a
+    run of many small launches makes the host's events slow to read)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -1030,6 +1058,519 @@ def phase_main_resilient(dev, main_rep):
     return total_launches
 
 
+# ------------------------------------------------------------------ LM
+# bfloat16 dense rate of the tensor cores (NVIDIA's data sheet, H100
+# SXM): the least time for a product of bfloat16 inputs
+BF16_OPS_PER_S = 989e12
+# kernel against plain version on the same inputs: largest |difference|
+# over the output's largest magnitude (at least 1). The kernels multiply
+# in float32 like their plain versions, in another order: 1e-4 for
+# float32 outputs, one bfloat16 step (2^-7) for bfloat16 ones
+LM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+FLASH = ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:61")
+SSD = ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+       "src/repro/kernels/ssd_scan.py:67")
+BITPLANE = ("bitplane_matmul",
+            "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
+            "src/repro/kernels/bitplane_matmul.py:56")
+# the main serve: Zamba2-7B, 8 requests, prompt 512, 32 generated tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
+SERVE_PARAMS = 6.957e9          # count_params_abstract of the reference
+PROFILE_GEN = 8
+
+
+def lm_err(got, want, what, tol=None):
+    """Largest |got - want|; raises past the stated tolerance."""
+    dt = str(got.dtype).replace("torch.", "")
+    tol = LM_TOL[dt] if tol is None else tol
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: kernel and plain version differ by "
+                             f"{err:.3g} (tolerance {tol} x {scale:.3g})")
+    return err
+
+
+def timed(fn, reps):
+    fn()                                            # warm-up
+    return events_ms(fn, reps)
+
+
+def flash_bound(q, tq, tk, causal):
+    """Bytes (q, k, v read once, o written once) and operations (two
+    products over the (query, key) pairs the function uses) over the
+    card's peaks, ms."""
+    bh, l, d = q.shape
+    pairs = 0
+    for qp in range(l):
+        if causal:
+            up = min(max((qp // tq + 1) * tq // tk, 1), l // tk)
+            pairs += min(qp + 1, up * tk)
+        else:
+            pairs += l
+    nbytes = 4 * q.numel() * q.element_size()
+    ops = 4 * bh * d * pairs
+    rate = BF16_OPS_PER_S if q.dtype.itemsize == 2 else FP32_OPS_PER_S
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+
+
+def ssd_bound(a, x, dt, b, c, q):
+    """Bytes (inputs read once, y and the final state written once) and
+    operations (per chunk: C.B over the causal pairs, their weighted sum
+    of x, C.S and the state update) over the card's peaks, ms."""
+    bh, l, p = x.shape
+    n = b.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (a, x, dt, b, c)) \
+        + x.numel() * x.element_size() + bh * n * p * 4
+    pairs = q * (q + 1) // 2
+    ops = bh * (l // q) * (pairs * 2 * (n + p) + 4 * q * n * p)
+    rate = BF16_OPS_PER_S if x.dtype.itemsize == 2 else FP32_OPS_PER_S
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+
+
+def bitplane_bound(x, planes, scales, n):
+    m, k = x.shape
+    nbytes = sum(t.numel() * t.element_size() for t in (x, planes, scales)) \
+        + m * n * x.element_size()
+    rate = BF16_OPS_PER_S if x.dtype.itemsize == 2 else FP32_OPS_PER_S
+    return nbytes / HBM_BYTES_PER_S * 1e3, 2 * m * k * n / rate * 1e3
+
+
+def record(rec, name, ms, plain_ms, err, bounds, library_ms, detail):
+    b_bytes, b_ops = bounds
+    rec[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                     bound_ms=max(b_bytes, b_ops),
+                     bound_by="bytes" if b_bytes >= b_ops else "operations",
+                     library_ms=library_ms, detail=detail)
+    log(f"[lm kernels] {name} {detail}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, library "
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
+        f"bound {max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f}, "
+        f"operations {b_ops:.4f}); max |kernel - plain| {err:.3g}")
+
+
+def phase_lm_kernels(dev, rec):
+    """The three LM kernels against their plain versions: small and
+    ragged shapes in float32 and bfloat16, then the main path's shapes in
+    bfloat16, timed with CUDA events beside the plain version and, where
+    one PyTorch call computes the same function, that call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import bitplane_matmul as pbp
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as pss
+
+    # float32 products in full float32 on the card, stated and set (the
+    # plain versions and the library calls use cuBLAS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def rnd(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for bh, l, d, tq, tk in ((3, 11, 16, 11, 11), (2, 200, 112, 200, 200),
+                                 (2, 200, 64, 50, 100),
+                                 (2, 200, 64, 100, 50)):
+            for causal in (True, False):
+                q, k, v = (rnd((bh, l, d), dtype) for _ in range(3))
+                got = pfa.flash_attention(q, k, v, causal=causal, tq=tq,
+                                          tk=tk, device=dev)
+                torch.cuda.synchronize()
+                lm_err(got, pfa.flash_attention_plain(
+                    q, k, v, causal=causal, tq=tq, tk=tk),
+                    f"flash {dtype} {(bh, l, d, tq, tk, causal)}")
+                n_cases += 1
+        # two chunks and an odd head count; three chunks, three groups
+        for bt, h, l, p, n, q_, groups in ((1, 3, 22, 16, 8, 11, 1),
+                                           (2, 5, 96, 64, 64, 48, 5),
+                                           (2, 6, 300, 20, 40, 100, 3)):
+            x = rnd((bt * h, l, p), dtype)
+            dt = F.softplus(rnd((bt * h, l)))
+            a = -torch.exp(rnd((bt * h,), scale=0.3))
+            b = rnd((bt * groups, l, n), dtype, 0.5)
+            c = rnd((bt * groups, l, n), dtype, 0.5)
+            y, s = pss.ssd_scan(a, x, dt, b, c, q=q_, rep=h // groups,
+                                device=dev)
+            torch.cuda.synchronize()
+            yp, sp = pss.ssd_scan_plain(a, x, dt, b, c, q=q_,
+                                        rep=h // groups)
+            lm_err(y, yp, f"ssd y {dtype} {(bt, h, l, p, n, q_, groups)}")
+            lm_err(s, sp, "ssd state", LM_TOL[str(dtype)[6:]])
+            n_cases += 1
+        for bits in (1, 4, 8):
+            x = rnd((256, 128), dtype)
+            w = rnd((128, 384), scale=0.1)
+            planes, scales, _ = ref.quantize_weights(w, bits)
+            got = pbp.bitplane_matmul(x, planes, scales, bits=bits,
+                                      device=dev)
+            torch.cuda.synchronize()
+            lm_err(got, pbp.bitplane_matmul_plain(x, planes, scales,
+                                                  bits=bits),
+                   f"bitplane {dtype} bits {bits}")
+            xm = rnd((3, 50, 128), dtype)           # ragged M, padded
+            lm_err(ops.quantized_linear(xm, w, bits=bits, device=dev),
+                   ref.bitplane_matmul_ref(xm.reshape(-1, 128), planes,
+                                           scales, bits=bits
+                                           ).reshape(3, 50, 384),
+                   f"quantized_linear {dtype} bits {bits}")
+            n_cases += 2
+    log(f"[lm kernels] {n_cases} small and ragged cases in float32 and "
+        f"bfloat16 equal their plain versions within {LM_TOL} x max(1, "
+        f"largest |output|)")
+
+    # ---- the main path's shapes (the main serve's prefill), bfloat16
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.mamba import mamba_dims
+    cfg = get_config("zamba2-7b")
+    bf = torch.bfloat16
+    heads, d = cfg.n_heads, cfg.resolved_head_dim
+    bh, l, t = SERVE_BATCH * heads, SERVE_PROMPT, min(cfg.attn_chunk,
+                                                     SERVE_PROMPT)
+    q, k, v = (rnd((bh, l, d), bf) for _ in range(3))
+    got = pfa.flash_attention(q, k, v, causal=True, tq=t, tk=t, device=dev)
+    err = lm_err(got, pfa.flash_attention_plain(q, k, v, causal=True, tq=t,
+                                                tk=t), "flash main shape")
+    qs, ks, vs = q[None], k[None], v[None]
+    record(rec, FLASH[0],
+           timed(lambda: pfa.flash_attention(q, k, v, causal=True, tq=t,
+                                             tk=t, device=dev), 20),
+           timed(lambda: pfa.flash_attention_plain(q, k, v, causal=True,
+                                                   tq=t, tk=t), 5),
+           err, flash_bound(q, t, t, True),
+           timed(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                        is_causal=True), 20),
+           f"BH {bh} x L {l} x D {d} bfloat16, causal, tile {t}")
+    del q, k, v, qs, ks, vs, got
+
+    s_ = cfg.ssm
+    _, n_heads = mamba_dims(cfg.d_model, s_)
+    bh, p, n = SERVE_BATCH * n_heads, s_.head_dim, s_.d_state
+    q_, rep = min(s_.chunk, l), n_heads // s_.n_groups
+    x = rnd((bh, l, p), bf)
+    dt = F.softplus(rnd((bh, l)))
+    a = -torch.linspace(1.0, 16.0, n_heads, device=dev).repeat(SERVE_BATCH)
+    b = rnd((SERVE_BATCH * s_.n_groups, l, n), bf)
+    c = rnd((SERVE_BATCH * s_.n_groups, l, n), bf)
+    y, st = pss.ssd_scan(a, x, dt, b, c, q=q_, rep=rep, device=dev)
+    yp, sp = pss.ssd_scan_plain(a, x, dt, b, c, q=q_, rep=rep)
+    err = lm_err(y, yp, "ssd main shape")
+    lm_err(st, sp, "ssd main shape state", LM_TOL["bfloat16"])
+    record(rec, SSD[0],
+           timed(lambda: pss.ssd_scan(a, x, dt, b, c, q=q_, rep=rep,
+                                      device=dev), 20),
+           timed(lambda: pss.ssd_scan_plain(a, x, dt, b, c, q=q_, rep=rep),
+                 5),
+           err, ssd_bound(a, x, dt, b, c, q_), None,
+           f"BH {bh} x L {l}, P {p}, N {n}, chunk {q_}, B/C per group "
+           f"({rep} heads), bfloat16")
+    del x, y, yp, st, sp
+
+    m, kk, nn = SERVE_BATCH * SERVE_PROMPT, cfg.d_model, cfg.d_ff
+    x = rnd((m, kk), bf)
+    w = rnd((kk, nn), scale=kk ** -0.5)
+    for bits in (4, 8):
+        planes, scales, w_q = ref.quantize_weights(w, bits)
+        wd = (w_q.float() * scales).to(bf)          # dequantised
+        got = pbp.bitplane_matmul(x, planes, scales, bits=bits, device=dev)
+        err = lm_err(got, pbp.bitplane_matmul_plain(x, planes, scales,
+                                                    bits=bits),
+                     f"bitplane main shape bits {bits}")
+        name = BITPLANE[0] if bits == 8 else f"{BITPLANE[0]}[bits 4]"
+        record(rec, name,
+               timed(lambda: pbp.bitplane_matmul(x, planes, scales,
+                                                 bits=bits, device=dev), 5),
+               timed(lambda: pbp.bitplane_matmul_plain(x, planes, scales,
+                                                       bits=bits), 3),
+               err, bitplane_bound(x, planes, scales, nn),
+               timed(lambda: torch.matmul(x, wd), 10),
+               f"x {m} x {kk} bfloat16 @ {kk} x {nn}, {bits} bits")
+        del planes, w_q, wd, got
+    torch.cuda.empty_cache()
+
+
+def greedy(model, params, tokens, cap, steps):
+    """Prefill and `steps` greedy decode steps: the tokens and every
+    step's logits (float32, on the host)."""
+    import torch
+    v = model.cfg.vocab
+    with torch.inference_mode():
+        logits, cache = model.prefill_fn(params, {"tokens": tokens}, cap)
+        out, steps_logits = [], [logits[:, 0, :v].float().cpu()]
+        tok = torch.argmax(logits[..., :v], -1)
+        for i in range(steps):
+            out.append(tok.cpu())
+            logits, cache = model.decode_fn(params, cache, tok,
+                                            tokens.shape[1] + i)
+            steps_logits.append(logits[:, 0, :v].float().cpu())
+            tok = torch.argmax(logits[..., :v], -1)
+        out.append(tok.cpu())
+    return torch.cat(out, 1), steps_logits
+
+
+def phase_small_serve(dev):
+    """The Zamba2 smoke config with the same parameters on the card (the
+    kernels) and on the CPU (the plain versions), in float32 and
+    bfloat16: prefill and first decode logits within the stated
+    tolerance, and greedy tokens equal wherever the CPU's top-2 margin
+    exceeds twice it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ssd_scan as pss
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+
+    tols = {"float32": (1e-3, 1e-3), "bfloat16": (6e-2, 8e-2)}
+    for dtype, (rtol, atol) in tols.items():
+        cfg = get_smoke_config("zamba2-7b").replace(dtype=dtype)
+        model = build_model(cfg)
+        cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
+        card = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 dev)
+        card.load_state_dict(cpu.state_dict())
+        b, l, gen = 4, 64, 8
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab, (b, l)))
+        pfa.reset_counts()
+        pss.reset_counts()
+        tc, lc = greedy(model, card, toks.to(dev), l + gen, gen - 1)
+        counts = (pss.ssd_scan.launches, pfa.flash_attention.launches)
+        tp_, lp = greedy(model, cpu, toks, l + gen, gen - 1)
+        if counts != (cfg.n_layers, cfg.n_layers // cfg.shared_attn_period):
+            raise AssertionError(f"small serve {dtype}: launches {counts}")
+        for i, what in ((0, "prefill"), (1, "first decode")):
+            torch.testing.assert_close(lc[i], lp[i], rtol=rtol, atol=atol,
+                                       msg=f"small serve {dtype} {what}")
+        errs = [float((x - y).abs().max()) for x, y in zip(lc, lp)]
+        compared = 0
+        for i in range(gen):
+            top2 = torch.topk(lp[i], 2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            thresh = 2 * (atol + rtol * top2[:, 0].abs())
+            sure = margin > thresh
+            if not bool((tc[:, i] == tp_[:, i])[sure].all()):
+                raise AssertionError(f"small serve {dtype}: step {i} greedy "
+                                     f"tokens differ where the CPU's margin "
+                                     f"exceeds {thresh.tolist()}")
+            compared += int(sure.sum())
+            if not bool((tc[:, i] == tp_[:, i]).all()):
+                break                   # contexts differ from here on
+        for d_, params in ((dev, card), ("cpu", cpu)):
+            got, _ = serve.generate(cfg, batch=b, prompt_len=l, gen=gen,
+                                    seed=1, params=params, device=d_,
+                                    log=lambda *a: None)
+            want = (tc if d_ == dev else tp_).numpy()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"small serve {dtype}: generate on "
+                                     f"{d_} differs from the greedy loop")
+        log(f"[small serve] {dtype} smoke config, {b} x {l} prompt, {gen} "
+            f"tokens: card (kernels: {counts[0]} ssd_scan, {counts[1]} "
+            f"flash_attention launches) vs CPU (plain): logits max |diff| "
+            f"by step {', '.join(f'{e:.3g}' for e in errs)} (prefill and "
+            f"first decode within rtol {rtol}, atol {atol}); greedy tokens "
+            f"equal at {compared} of {b * gen} positions whose CPU margin "
+            f"clears twice the tolerance, {int((tc == tp_).sum())} of "
+            f"{b * gen} equal in all; generate() gives the loop's tokens on "
+            f"both")
+
+
+def phase_main_serve(dev, rec):
+    """Zamba2-7B at full width and depth in bfloat16 through `generate`
+    on the card: launch counts, rates and memory; the kernels against
+    their plain versions on the tensors this prefill feeds them; the
+    quantized path on its FFN input; and a profiled run."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import bitplane_matmul as pbp
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as pss
+    from repro_torch.launch import serve
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model, count_params
+
+    cfg = get_config("zamba2-7b")
+    period, n_groups, n_tail = HY.split_counts(cfg)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    log(f"[main serve] Zamba2-7B ({cfg.n_layers} Mamba2 layers, "
+        f"{n_groups} invocations of {cfg.n_shared_blocks} shared blocks, "
+        f"d_model {cfg.d_model}, {cfg.dtype}): {n_params} parameters "
+        f"({n_params / 1e9:.3f}e9) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    if abs(n_params - SERVE_PARAMS) > 0.0005e9:
+        raise AssertionError(f"{n_params} parameters, expected "
+                             f"{SERVE_PARAMS:.4g}")
+
+    # warm-up (the allocator's pool, cuBLAS's choices), not counted
+    serve.generate(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=2,
+                   params=params, device=dev, log=lambda *a: None)
+    for mod in (pfa, pss, pbp):
+        mod.reset_counts()
+    toks, stats = serve.generate(cfg, batch=SERVE_BATCH,
+                                 prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+                                 params=params, device=dev, log=log)
+    counts = {FLASH[0]: pfa.flash_attention.launches,
+              SSD[0]: pss.ssd_scan.launches}
+    plain = (pfa.flash_attention.plain_calls + pss.ssd_scan.plain_calls
+             + pbp.bitplane_matmul.plain_calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if counts != {FLASH[0]: n_groups, SSD[0]: cfg.n_layers} or plain:
+        raise AssertionError(f"main serve launches {counts}, plain calls "
+                             f"{plain}: expected {n_groups} flash_attention "
+                             f"and {cfg.n_layers} ssd_scan per prefill")
+    if toks.shape != (SERVE_BATCH, SERVE_GEN) or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"main serve tokens {toks.shape}")
+    n_dec = (SERVE_GEN - 1) * SERVE_BATCH
+    log(f"[main serve] {SERVE_BATCH} requests x prompt {SERVE_PROMPT}, "
+        f"{SERVE_GEN} tokens each: prefill {stats['prefill_s'] * 1e3:.1f} ms "
+        f"= {SERVE_BATCH * SERVE_PROMPT / stats['prefill_s']:.1f} prefill "
+        f"tokens/s; {SERVE_GEN - 1} decode steps {stats['decode_s']:.3f}s = "
+        f"{n_dec / stats['decode_s']:.1f} decode tokens/s "
+        f"({stats['decode_s'] / (SERVE_GEN - 1) * 1e3:.2f} ms a step); "
+        f"launches per prefill: {counts[SSD[0]]} ssd_scan, "
+        f"{counts[FLASH[0]]} flash_attention, 0 plain calls; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes)")
+
+    # the tensors this prefill feeds the kernels: the first Mamba layer's
+    # scan and the first shared block's attention and FFN input, recorded
+    # by wrapping the ops module's kernel entries for one more prefill
+    seen = {}
+
+    def keep(name, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            if name not in seen:
+                seen[name] = ([a.clone() if torch.is_tensor(a) else a
+                               for a in args], dict(kw), out)
+            return out
+        return wrapped
+
+    ffn = HY.ffn_block
+
+    def ffn_keep(p, cfg_, h):
+        if "ffn" not in seen:
+            seen["ffn"] = (L.rms_norm(h, p.ln2, cfg_.rms_eps),
+                           p.mlp["wi"])
+        return ffn(p, cfg_, h)
+
+    saved = (ops.ssd_scan, ops.flash_attention)
+    ops.ssd_scan = keep("ssd", ops.ssd_scan)
+    ops.flash_attention = keep("flash", ops.flash_attention)
+    HY.ffn_block = ffn_keep
+    try:
+        prompt = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+        with torch.inference_mode():
+            model.prefill_fn(params, {"tokens": prompt},
+                             SERVE_PROMPT + SERVE_GEN)
+    finally:
+        ops.ssd_scan, ops.flash_attention = saved
+        HY.ffn_block = ffn
+    (a, x, dt, b, c), kw, (y, s) = seen["ssd"]
+    yp, sp = pss.ssd_scan_plain(a, x, dt, b, c, q=kw["q"], rep=kw["rep"])
+    e_ssd = lm_err(y, yp, "main serve first Mamba layer")
+    lm_err(s, sp, "main serve first Mamba layer state", LM_TOL["bfloat16"])
+    (q, k, v), kw, o = seen["flash"]
+    op = pfa.flash_attention_plain(q, k, v, causal=kw["causal"],
+                                   tq=kw["tq"], tk=kw["tk"])
+    e_fa = lm_err(o, op, "main serve first shared block")
+    log(f"[main serve] the first Mamba layer's scan ({tuple(x.shape)}) "
+        f"and the first shared block's attention ({tuple(q.shape)}, tile "
+        f"{kw['tk']}) equal their "
+        f"plain versions on this prefill's tensors: max |diff| "
+        f"{e_ssd:.3g} and {e_fa:.3g}")
+    del seen["ssd"], seen["flash"], yp, sp, op
+
+    # the quantized path (ops.quantized_linear, the bit-plane kernel's
+    # entry point) on the first shared block's FFN input and its wi
+    xf, wi = seen.pop("ffn")
+    xm = xf.reshape(-1, cfg.d_model)
+    dense = (xm.float() @ wi.float())
+    pbp.reset_counts()
+    outs = {bits: ops.quantized_linear(xf, wi.float(), bits=bits,
+                                       device=dev) for bits in (4, 8)}
+    counts[BITPLANE[0]] = pbp.bitplane_matmul.launches
+    if counts[BITPLANE[0]] != 2 or pbp.bitplane_matmul.plain_calls:
+        raise AssertionError(f"quantized path: {counts[BITPLANE[0]]} "
+                             f"launches")
+    rel = {}
+    for bits, out in outs.items():
+        planes, scales, _ = ref.quantize_weights(wi.float(), bits)
+        lm_err(out.reshape(-1, wi.shape[1]), pbp.bitplane_matmul_plain(
+            xm, planes, scales, bits=bits), f"quantized FFN bits {bits}")
+        rel[bits] = float((out.reshape(dense.shape).float() - dense).norm()
+                          / dense.norm())
+        del planes
+    if not rel[8] < rel[4] < 0.5:
+        raise AssertionError(f"quantization error by bits {rel}")
+    log(f"[main serve] quantized path: the first shared block's FFN input "
+        f"{tuple(xf.shape)} through ops.quantized_linear with its wi "
+        f"{tuple(wi.shape)}: {counts[BITPLANE[0]]} bitplane_matmul launches "
+        f"(bits 4 and 8), each equal to its plain version; relative error "
+        f"against the bfloat16 weights' product {rel[4]:.4f} (4 bits), "
+        f"{rel[8]:.5f} (8 bits)")
+    del outs, dense, xf, xm
+    torch.cuda.empty_cache()
+
+    # profiled: the same requests with 8 generated tokens (prefill and 7
+    # decode steps; reading the events of all 31 steps takes minutes),
+    # device activity only
+    t0 = time.perf_counter()
+    run, wall, busy, rows = profiled(lambda: serve.generate(
+        cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=PROFILE_GEN,
+        params=params, device=dev, log=lambda *a: None), cpu=False)
+    if busy is None:
+        log("[main serve] the profiler saw no device activity: device busy "
+            "share not measured")
+    else:
+        log(f"[main serve] under torch.profiler ({PROFILE_GEN} tokens): "
+            f"{wall:.2f}s wall (prefill {run[1]['prefill_s']:.3f}s, "
+            f"{PROFILE_GEN - 1} decode steps {run[1]['decode_s']:.3f}s "
+            f"inside generate), device busy {busy:.3f}s = share "
+            f"{busy / wall:.4f} of the wall; reading the trace took "
+            f"{time.perf_counter() - t0 - wall:.1f}s")
+        kernels = [r for r in rows if r.self_device_time_total > 0
+                   and not r.key.startswith("aten::")]
+        groups = {"ssd_scan kernel": 0.0, "flash_attention kernel": 0.0,
+                  "matrix products (cuBLAS)": 0.0, "copies and casts": 0.0,
+                  "other elementwise and reductions": 0.0}
+        for r in kernels:
+            k = r.key
+            if "ssd_fwd" in k:
+                g = "ssd_scan kernel"
+            elif "flash_fwd" in k:
+                g = "flash_attention kernel"
+            elif "nvjet" in k or "gemm" in k.lower() or "cutlass" in k:
+                g = "matrix products (cuBLAS)"
+            elif "copy" in k or "emcpy" in k or "emset" in k:
+                g = "copies and casts"
+            else:
+                g = "other elementwise and reductions"
+            groups[g] += r.self_device_time_total / 1e3
+        total = sum(groups.values())
+        log("[main serve] device time by layer: " + "; ".join(
+            f"{g} {ms:.2f} ms ({ms / total:.3f})" for g, ms in groups.items()))
+        log_rows("main serve", kernels, 12)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1084,16 +1625,27 @@ def main() -> int:
     t0 = time.perf_counter()
     counts[SEG_FAULTS[0]] = phase_main_resilient(dev, main_rep)
     log(f"[resilient main] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_lm_kernels(dev, rec)
+    log(f"[lm kernels] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_small_serve(dev)
+    log(f"[small serve] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    counts.update(phase_main_serve(dev, rec))
+    log(f"[main serve] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []
-    for name_, src, replaces in (SEG, REF, SWEEP, SEG_FAULTS):
+    for name_, src, replaces in (SEG, REF, SWEEP, SEG_FAULTS, FLASH, SSD,
+                                 BITPLANE):
         r = rec[name_]
         out.append({"name": name_, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name_],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": None})
+                    "bound_by": r["bound_by"],
+                    "library_ms": r.get("library_ms")})
     log(json.dumps({"kernels": out}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""PyTorch / CUDA port of the fleet simulation, beside the JAX reference
-in `repro`.
+"""PyTorch / CUDA port of the fleet simulation, the carbon sweep and the
+hybrid LM's serving path, beside the JAX reference in `repro`.
 
 It runs on one NVIDIA card by default (`device=None` means "cuda" and
 raises without one; pass `device="cpu"` for the plain PyTorch path). It
@@ -8,8 +8,10 @@ package: the reference's JAX-free modules it needs are copied here.
 
 Layout mirrors the reference: `flexibits/` (ISA, assembler, cycle model,
 FlexiLint analysis, the lane-vectorized simulator), `flexibench/` (the
-11 workloads), `kernels/` (the CUDA kernels, their wrappers and their nvcc build),
-`core/` (carbon model and core selection), `fleet/` (the packed resident
-engine, plans and the carbon report), `convert.py` (state carry-across
-with the reference) and `device.py` (the device policy).
+11 workloads), `kernels/` (the CUDA kernels, their wrappers and their
+nvcc build), `core/` (carbon model, core selection, the sweep),
+`fleet/` (the packed resident engine, plans and the carbon report),
+`configs/`, `models/` and `launch/` (Zamba2 serving), `convert.py`
+(state and parameter carry-across with the reference) and `device.py`
+(the device policy).
 """

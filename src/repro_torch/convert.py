@@ -19,6 +19,17 @@ both packages run the same fault schedule. For the carbon sweep,
 (profiles as the port's `DeviceProfile`, cores by name, distributions by
 their components), and `sweep_acc_to_torch` / `sweep_acc_to_numpy` carry
 the sweep's running accumulators.
+
+For the hybrid LM (Zamba2), `hybrid_params_to_torch` turns the
+reference's parameter pytree, given as numpy, into the port's
+`HybridLM`: the stacked `mamba_groups` (n_groups, period, ...) and
+`mamba_tail` (n_tail, ...) become one Mamba layer each, in the order the
+model runs them, and the stacked `shared` (2, ...) one `DenseBlock`
+each. Give bfloat16 leaves as float32 numpy (cast on the JAX side): the
+cast back to the config's dtype is then exact. `hybrid_cache_to_numpy`
+and `hybrid_cache_to_torch` carry the decode cache between the port's
+per-layer stacks and the reference's `group_states` / `tail_states` /
+`attn_k` / `attn_v`.
 """
 from __future__ import annotations
 
@@ -37,6 +48,8 @@ from repro_torch.flexibits.faults import FaultSpec
 from repro_torch.flexibits.cycles import CORES
 from repro_torch.flexibits.iss import ISSState, PackedState
 from repro_torch.kernels.carbon_sweep import SweepAcc
+from repro_torch.models.hybrid import (F32_LEAVES, HybridLM, split_counts,
+                                       torch_dtype)
 
 _ACC_ITEM_LEAVES = ("n_instr", "n_two", "n_cycles", "halted", "out",
                     "mems", "regs", "pc", "mix_items")
@@ -147,3 +160,72 @@ def sweep_acc_to_torch(acc: NamedTuple, device: DeviceLike = None
 def sweep_acc_to_numpy(acc: SweepAcc) -> SweepAcc:
     """The port's `SweepAcc` -> the same tuple of numpy arrays."""
     return SweepAcc(*(_n(x) for x in acc))
+
+
+def hybrid_params_to_torch(params, cfg, device: DeviceLike = None
+                           ) -> HybridLM:
+    """The reference's hybrid parameter pytree (nested dicts of numpy
+    arrays) -> the port's `HybridLM` on `device`."""
+    dev = resolve(device)
+    dtype = torch_dtype(cfg)
+    period, n_groups, n_tail = split_counts(cfg)
+
+    def leaf(x, name):
+        dt = torch.float32 if name in F32_LEAVES else dtype
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, dt)
+
+    def conv(tree):
+        return {k: conv(v) if isinstance(v, dict) else leaf(v, k)
+                for k, v in tree.items()}
+
+    def take(tree, *idx):
+        return {k: take(v, *idx) if isinstance(v, dict) else
+                np.asarray(v)[idx] for k, v in tree.items()}
+
+    layers = [conv(take(params["mamba_groups"], gi, j))
+              for gi in range(n_groups) for j in range(period)]
+    layers += [conv(take(params["mamba_tail"], j)) for j in range(n_tail)]
+    return HybridLM({
+        "embed": leaf(params["embed"], "embed"),
+        "mamba": layers,
+        "shared": [conv(take(params["shared"], i))
+                   for i in range(cfg.n_shared_blocks)],
+        "final_norm": leaf(params["final_norm"], "final_norm"),
+        "lm_head": leaf(params["lm_head"], "lm_head")})
+
+
+_STATE_KEYS = ("ssm", "conv_x", "conv_B", "conv_C")
+
+
+def hybrid_cache_to_numpy(cache, cfg) -> dict:
+    """The port's hybrid cache -> the reference's layout, float32 numpy."""
+    period, n_groups, n_tail = split_counts(cfg)
+    f = lambda t: t.detach().cpu().float().numpy().copy()  # noqa: E731
+    n_g = n_groups * period
+    out = {"group_states": {k: f(cache[k][:n_g]).reshape(
+               (n_groups, period) + tuple(cache[k].shape[1:]))
+               for k in _STATE_KEYS},
+           "attn_k": f(cache["attn_k"]), "attn_v": f(cache["attn_v"])}
+    if n_tail:
+        out["tail_states"] = {k: f(cache[k][n_g:]) for k in _STATE_KEYS}
+    return out
+
+
+def hybrid_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
+    """A cache in the reference's layout (numpy; bfloat16 leaves as
+    float32) -> the port's, on `device`."""
+    dev = resolve(device)
+    dtype = torch_dtype(cfg)
+    period, n_groups, n_tail = split_counts(cfg)
+    out = {}
+    for k in _STATE_KEYS:
+        parts = [np.asarray(cache["group_states"][k], np.float32).reshape(
+            (n_groups * period,) + np.shape(cache["group_states"][k])[2:])]
+        if n_tail:
+            parts.append(np.asarray(cache["tail_states"][k], np.float32))
+        dt = torch.float32 if k == "ssm" else dtype
+        out[k] = torch.from_numpy(np.concatenate(parts)).to(dev, dt)
+    for k in ("attn_k", "attn_v"):
+        out[k] = torch.from_numpy(np.array(cache[k], np.float32)).to(
+            dev, dtype)
+    return out

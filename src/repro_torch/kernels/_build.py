@@ -25,7 +25,10 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 # library -> the csrc headers its source includes (hashed into its name)
 HEADERS = {"iss_segment": ("rv32e_step.cuh", "flexifault.cuh"),
            "iss_refill": (),
-           "carbon_sweep": ("carbon_sweep.cuh",)}
+           "carbon_sweep": ("carbon_sweep.cuh",),
+           "flash_attention": ("lm_tiles.cuh",),
+           "ssd_scan": ("lm_tiles.cuh",),
+           "bitplane_matmul": ("lm_tiles.cuh",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -33,6 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _U = ctypes.c_uint32
+_F = ctypes.c_float
 # library -> (C symbol, argument types); every pointer and the stream are
 # c_void_p, so ctypes never narrows one to a 32-bit int
 SIGNATURES = {
@@ -45,6 +49,11 @@ SIGNATURES = {
                     _P, _P, _P, _I, _P]),
     "carbon_sweep": ("carbon_sweep_launch",
                      [_I] + [_P] * 25 + [_I] * 5 + [_D] * 4 + [_P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_I, _P, _P, _P, _P] + [_I] * 6 + [_F, _P]),
+    "ssd_scan": ("ssd_scan_launch", [_I] + [_P] * 7 + [_I] * 6 + [_P]),
+    "bitplane_matmul": ("bitplane_matmul_launch",
+                        [_I] + [_P] * 4 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()

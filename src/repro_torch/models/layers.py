@@ -1,0 +1,140 @@
+"""Core layers: norms, RoPE, GQA attention (the chunked plain version for
+prefill, the cache version for decode) and the SwiGLU MLP.
+
+A port of the reference's `models/layers.py` for the hybrid's serving
+path. All attention math accumulates in float32; parameters and
+activations are in the config's dtype. Attention avoids materialising
+repeated KV heads by computing in the grouped layout (B, Lq, Hkv, G, D).
+The reference's `shard_act` is dropped: the port runs on one device.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+F32 = torch.float32
+
+
+def _neg_inf(t: torch.Tensor) -> torch.Tensor:
+    return torch.full((), NEG_INF, dtype=t.dtype, device=t.device)
+
+
+# ---------------------------------------------------------------- norms/rope
+
+def rms_norm(x, w, eps=1e-6):
+    dt = x.dtype
+    x = x.to(F32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.to(F32))).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=F32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., L, H, D); positions: (..., L) int. Rotates the two halves
+    of D (not interleaved pairs)."""
+    if theta <= 0:
+        return x
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)             # (d/2,)
+    ang = positions[..., None].to(F32) * freqs          # (..., L, d/2)
+    cos = torch.cos(ang)[..., None, :]                  # (..., L, 1, d/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- attention
+
+def _grouped(q, n_kv: int):
+    """(B, L, H, D) -> (B, L, Hkv, G, D)."""
+    b, l, h, d = q.shape
+    return q.reshape(b, l, n_kv, h // n_kv, d)
+
+
+def chunked_attention(q, k, v, *, causal=True, chunk=1024):
+    """Flash-style online-softmax attention over query and KV chunks with
+    a running (max, denom, acc): the plain version of the prefill
+    attention (the reference's global path: a masked scan over every KV
+    chunk). q: (B, Lq, H, D), k/v: (B, Lk, Hkv, D)."""
+    b, lq, h, d = q.shape
+    n_kv = k.shape[2]
+    lk = k.shape[1]
+    chunk = min(chunk, lq)
+    if lq % chunk or lk % chunk:     # the reference's assert, kept
+        raise AssertionError((lq, lk, chunk))
+    nq, nk = lq // chunk, lk // chunk
+    scale = d ** -0.5
+    g = h // n_kv
+    dev = q.device
+    qg = (_grouped(q, n_kv).to(F32) * scale).reshape(b, nq, chunk, n_kv, g,
+                                                     d)
+    outs = []
+    for qi in range(nq):
+        qc = qg[:, qi]                                   # (B,chunk,Hkv,G,D)
+        qpos = qi * chunk + torch.arange(chunk, device=dev)
+        m = torch.full((b, n_kv, g, chunk, 1), NEG_INF, dtype=F32,
+                       device=dev)
+        den = torch.zeros((b, n_kv, g, chunk, 1), dtype=F32, device=dev)
+        acc = torch.zeros((b, chunk, n_kv, g, d), dtype=F32, device=dev)
+        for ki in range(nk):
+            ks = k[:, ki * chunk:(ki + 1) * chunk].to(F32)
+            vs = v[:, ki * chunk:(ki + 1) * chunk].to(F32)
+            kpos = ki * chunk + torch.arange(chunk, device=dev)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qc, ks)
+            if causal:
+                s = s + torch.where(kpos[None, :] <= qpos[:, None],
+                                    0.0, NEG_INF)
+            m2 = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+            corr = torch.exp(m - m2)
+            p = torch.exp(s - m2)
+            den = den * corr + torch.sum(p, dim=-1, keepdim=True)
+            pv = torch.einsum("bhgqk,bkhd->bqhgd", p, vs)
+            acc = acc * torch.movedim(corr, (1, 2, 3), (2, 3, 1)) + pv
+            m = m2
+        den = torch.movedim(den, (1, 2, 3), (2, 3, 1))
+        outs.append((acc / torch.clamp_min(den, 1e-30)).to(q.dtype))
+    return torch.stack(outs, dim=1).reshape(b, lq, h, d)
+
+
+def decode_attention(q, k_cache, v_cache, pos: int):
+    """Single-token attention against a cache.
+
+    q: (B,1,H,D); caches: (B,S,Hkv,D); pos: index of the new token.
+    Entries at kpos > pos are masked out."""
+    b, _, h, d = q.shape
+    n_kv = k_cache.shape[2]
+    qg = _grouped(q, n_kv).to(F32) * (d ** -0.5)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.to(F32))
+    ok = torch.arange(k_cache.shape[1], device=q.device) <= pos
+    s = torch.where(ok, s, _neg_inf(s))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.to(F32))
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------- blocks
+
+def attn_qkv(p, x, positions, theta):
+    q = torch.einsum("bld,dhk->blhk", x, p["wq"])
+    k = torch.einsum("bld,dhk->blhk", x, p["wk"])
+    v = torch.einsum("bld,dhk->blhk", x, p["wv"])
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    return q, k, v
+
+
+def attn_out(p, o):
+    return torch.einsum("blhk,hkd->bld", o, p["wo"])
+
+
+def mlp(p, x):
+    h = torch.einsum("bld,df->blf", x, p["wi"])
+    g = torch.einsum("bld,df->blf", x, p["wg"])
+    h = F.silu(g.to(F32)).to(h.dtype) * h
+    return torch.einsum("blf,fd->bld", h, p["wo"])

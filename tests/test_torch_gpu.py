@@ -7,9 +7,10 @@ on a machine with a card:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 The plain versions are the port's `flexibits/iss.py` (with the
-FlexiFault transform of `flexibits/faults.py`) and
-`kernels/carbon_sweep.py::sweep_tile_plain`, which the CPU tests hold
-against the reference; no JAX is needed here. The sweep comparisons use
+FlexiFault transform of `flexibits/faults.py`),
+`kernels/carbon_sweep.py::sweep_tile_plain` and the LM kernels'
+`*_plain` functions, which the CPU tests hold against the reference; no
+JAX is needed here. The sweep comparisons use
 `_torch_parity`'s tolerances (bit for bit but the per-cell sums, and
 values at a bin edge).
 """
@@ -251,3 +252,110 @@ def test_point_mass_f64_on_card_equals_oracles(cuda):
     for f in ("p50", "min", "max"):
         np.testing.assert_array_equal(getattr(res, f)[sq], tg.min(axis=0), f)
     np.testing.assert_array_equal(res.best_core[sq], smap)
+
+
+# ---------------------------------------------------------- LM kernels
+# The LM kernels multiply in float32 in another order than their plain
+# versions: float32 outputs within 1e-4 (relative to the output's scale),
+# bfloat16 outputs within one bfloat16 step (2^-7 relative, 1e-2 here).
+_LM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _rand(gen, shape, dtype, dev, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def _lm_close(got, want, dtype):
+    tol = _LM_TOL[dtype] * max(1.0, float(want.float().abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(3, 11, 16, 11, 11), (2, 200, 112, 200, 200),
+                                   (2, 200, 64, 50, 100),
+                                   (2, 256, 128, 128, 64)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, shape):
+    from repro_torch.kernels import flash_attention as pfa
+    bh, l, d, tq, tk = shape
+    g = torch.Generator(device=cuda).manual_seed(l + d)
+    q, k, v = (_rand(g, (bh, l, d), dtype, cuda) for _ in range(3))
+    got = pfa.flash_attention(q, k, v, causal=causal, tq=tq, tk=tk,
+                              device=cuda)
+    torch.cuda.synchronize()
+    want = pfa.flash_attention_plain(q, k, v, causal=causal, tq=tq, tk=tk)
+    assert got.dtype == dtype and got.shape == q.shape
+    _lm_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 3, 22, 16, 8, 11, 1),
+                                   (2, 4, 128, 32, 16, 64, 1),
+                                   (2, 6, 300, 20, 40, 100, 3),
+                                   (1, 8, 512, 64, 64, 256, 1)])
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, shape):
+    from repro_torch.kernels import ssd_scan as pss
+    bt, h, l, p, n, q, groups = shape
+    g = torch.Generator(device=cuda).manual_seed(l + p)
+    x = _rand(g, (bt * h, l, p), dtype, cuda)
+    dt = torch.nn.functional.softplus(_rand(g, (bt * h, l), torch.float32,
+                                            cuda))
+    a = -torch.exp(_rand(g, (bt * h,), torch.float32, cuda, 0.3))
+    b = _rand(g, (bt * groups, l, n), dtype, cuda, 0.5)
+    c = _rand(g, (bt * groups, l, n), dtype, cuda, 0.5)
+    rep = h // groups
+    y, s = pss.ssd_scan(a, x, dt, b, c, q=q, rep=rep, device=cuda)
+    torch.cuda.synchronize()
+    yp, sp = pss.ssd_scan_plain(a, x, dt, b, c, q=q, rep=rep)
+    _lm_close(y, yp, dtype)
+    _lm_close(s, sp, torch.float32 if dtype == torch.float32
+              else torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+def test_bitplane_kernel_matches_plain(cuda, dtype, bits):
+    from repro_torch.kernels import bitplane_matmul as pbp
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    x = _rand(g, (256, 128), dtype, cuda)
+    w = _rand(g, (128, 384), torch.float32, cuda, 0.1)
+    planes, scales, _ = ref.quantize_weights(w, bits)
+    got = pbp.bitplane_matmul(x, planes, scales, bits=bits, device=cuda)
+    torch.cuda.synchronize()
+    _lm_close(got, pbp.bitplane_matmul_plain(x, planes, scales, bits=bits),
+              dtype)
+    # ragged M through the op's padding
+    xm = _rand(g, (3, 50, 128), dtype, cuda)
+    _lm_close(ops.quantized_linear(xm, w, bits=bits, device=cuda),
+              ref.bitplane_matmul_ref(xm.reshape(-1, 128), planes, scales,
+                                      bits=bits).reshape(3, 50, 384), dtype)
+
+
+def test_smoke_serve_on_card_matches_cpu(cuda):
+    """The Zamba2 smoke config in float32 with the same parameters on the
+    card (the kernels) and on the CPU (the plain versions)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ssd_scan as pss
+    from repro_torch.models.model import build_model
+    cfg = get_smoke_config("zamba2-7b").replace(dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    card = build_model(cfg).init_params(torch.Generator(
+        device=cuda).manual_seed(0), cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)))
+    pfa.reset_counts()
+    pss.reset_counts()
+    with torch.inference_mode():
+        lc, cc = model.prefill_fn(card, {"tokens": toks.to(cuda)}, 70)
+        lp, cp = model.prefill_fn(cpu, {"tokens": toks}, 70)
+        dc, _ = model.decode_fn(card, cc, toks[:, :1].to(cuda), 64)
+        dp, _ = model.decode_fn(cpu, cp, toks[:, :1], 64)
+    assert (pss.ssd_scan.launches, pfa.flash_attention.launches) == (
+        cfg.n_layers, cfg.n_layers // cfg.shared_attn_period)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(dc.cpu(), dp, rtol=1e-3, atol=1e-3)

@@ -45,7 +45,17 @@ _SLICE_MODULES = ("repro_torch.fleet.engine",
                   "repro_torch.kernels.carbon_sweep",
                   "repro_torch.flexibits.pyiss",
                   "repro_torch.flexibench.memory",
-                  "repro_torch.flexibits.faults")
+                  "repro_torch.flexibits.faults",
+                  "repro_torch.configs.registry",
+                  "repro_torch.configs.zamba2_7b",
+                  "repro_torch.kernels.ref", "repro_torch.kernels.ops",
+                  "repro_torch.kernels.flash_attention",
+                  "repro_torch.kernels.ssd_scan",
+                  "repro_torch.kernels.bitplane_matmul",
+                  "repro_torch.models.layers", "repro_torch.models.mamba",
+                  "repro_torch.models.transformer",
+                  "repro_torch.models.hybrid", "repro_torch.models.model",
+                  "repro_torch.launch.serve")
 
 
 def test_port_imports_with_jax_and_the_reference_blocked():
@@ -135,6 +145,38 @@ def test_resilient_entry_points_default_to_the_card():
             iss.PackedState(lanes, torch.zeros(2, dtype=torch.int32),
                             torch.ones(2, dtype=torch.int32)),
             seg_steps=1, faults=spec, lane_key=key, epoch=ep)
+
+
+def test_lm_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None runs on it")
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.kernels import bitplane_matmul as pbp
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as pss
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    cfg = get_smoke_config("zamba2-7b")
+    q = torch.zeros((1, 8, 16))
+    planes = torch.zeros((4, 128, 128), dtype=torch.int8)
+    calls = [
+        lambda: serve.generate(cfg, batch=1, prompt_len=4, gen=2),
+        lambda: build_model(cfg).init_params(),
+        lambda: build_model(cfg).init_cache(1, 8),
+        lambda: pfa.flash_attention(q, q, q, tq=8, tk=8),
+        lambda: pss.ssd_scan(torch.zeros(2), torch.zeros((2, 8, 4)),
+                             torch.zeros((2, 8)), torch.zeros((2, 8, 4)),
+                             torch.zeros((2, 8, 4)), q=8),
+        lambda: pbp.bitplane_matmul(torch.zeros((128, 128)), planes,
+                                    torch.ones(128), bits=4),
+        lambda: ops.gqa_flash_attention(q[None], q[None], q[None]),
+        lambda: ops.quantized_linear(torch.zeros((2, 128)),
+                                     torch.ones((128, 128)), bits=4),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            call()
 
 
 @pytest.mark.parametrize("what", ["refill_host", "checkpoint",
