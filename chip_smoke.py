@@ -7,7 +7,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every CUDA library from `src/repro_torch/kernels/csrc`, in
-   parallel, with the compiler's register and spill report;
+   parallel, with ptxas's registers, static shared memory and spills
+   for each kernel;
 3. kernels: `iss_segment_banked` and `iss_refill` against their plain
    PyTorch versions on the card, bit for bit over the full state: first
    on a 256-lane pool of all 11 FlexiBench workloads (timing off and on)
@@ -61,15 +62,20 @@ Phases (each prints its own lines; any failure exits non-zero):
    the two-stage count, ticks and mix, are counted); each run once more
    under torch.profiler for the busy share, and the DMR boundary's
    digest, snapshot and rollback timed at full shape;
-13. LM kernels: `flash_attention`, `ssd_scan` and `bitplane_matmul`
-   against their plain versions in float32 and bfloat16 on small and
-   ragged shapes (L 11 and 200 causal and full with equal and unequal
-   tiles; SSD scans of two and three chunks with odd head counts and
-   groups; bit planes at 1, 4 and 8 bits, ragged M through
-   `quantized_linear`), then at the main serve's shapes in bfloat16,
-   timed with CUDA events beside the plain version and a library call
-   (SDPA for attention, `torch.matmul` on the dequantised weight for
-   bit planes, none for the scan);
+13. LM kernels: the count of tensor-core instructions (HMMA, HGMMA) in
+   each LM kernel's SASS where the toolkit has `cuobjdump` (the
+   bfloat16 flash kernel and the bit planes' GEMM must have some);
+   `flash_attention`, `ssd_scan` and `bitplane_matmul` against their
+   plain versions in float32 and bfloat16 on small and ragged shapes (L
+   11 and 200 causal and full with equal and unequal tiles, D 40
+   zero-padded; SSD scans of two and three chunks with odd head counts
+   and groups; bit planes at 1, 4 and 8 bits, ragged M through
+   `quantized_linear`, M 384 x K 640 x N 384 against the GEMM's block
+   tile, and the bfloat16 repack bit for bit at 1-8 bits), then at the
+   main serve's shapes in bfloat16, timed with CUDA events beside the
+   plain version and a library call (SDPA for attention, `torch.matmul`
+   on the dequantised weight for bit planes, none for the scan), the bit
+   planes' repack and GEMM also timed alone;
 14. small serve: the Zamba2 smoke config in float32 and bfloat16 with
    the same parameters on the card (kernels) and on the CPU (plain
    versions): prefill and first decode logits within the stated
@@ -95,12 +101,15 @@ held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
 its per-cell sums, which follow no fixed order (relative 2 (N - 1) u),
 and for values at a log10 bin edge (counted; see
 `tests/_torch_parity.py`); its max_abs_err is over the exact fields.
-The LM kernels multiply in float32 in another order than their plain
-versions and are held to `LM_TOL` times the output's largest magnitude.
+The LM kernels sum in another order than their plain versions (the
+bfloat16 flash kernel also rounds P to bfloat16 for P v) and are held
+to `LM_TOL` times the output's largest magnitude.
 """
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1063,9 +1072,13 @@ def phase_main_resilient(dev, main_rep):
 # SXM): the least time for a product of bfloat16 inputs
 BF16_OPS_PER_S = 989e12
 # kernel against plain version on the same inputs: largest |difference|
-# over the output's largest magnitude (at least 1). The kernels multiply
-# in float32 like their plain versions, in another order: 1e-4 for
-# float32 outputs, one bfloat16 step (2^-7) for bfloat16 ones
+# over the output's largest magnitude (at least 1). The float32
+# instantiations multiply in float32 like their plain versions, in
+# another order: 1e-4 for float32 outputs. The bfloat16 ones multiply
+# bfloat16 operands on the tensor cores into float32 sums (the bit
+# planes' W_q and the flash kernel's q, k, v are exact in bfloat16), and
+# the flash kernel rounds P to bfloat16 for P v: one bfloat16 step
+# (2^-7) for bfloat16 outputs
 LM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FLASH = ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:61")
@@ -1095,6 +1108,87 @@ def lm_err(got, want, what, tol=None):
 def timed(fn, reps):
     fn()                                            # warm-up
     return events_ms(fn, reps)
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's own name and template argument from its mangled name
+    (_Z[N] <len><namespace>... <len><name> I<arg>E ...)."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    arg = re.match(r"I(?:Li(\d+)|(\w))E", mangled[i:])
+    return name + (f"<{arg.group(1) or arg.group(2)}>" if arg else "")
+
+
+def ptxas_report(log: str):
+    """[(kernel, registers, static shared bytes, spill stores, spill
+    loads)] from nvcc's -Xptxas=-v output."""
+    rows, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and fn:
+            rows.append((kernel_name(fn), int(m.group(1)),
+                         int(m.group(2) or 0), *spill))
+            fn = None
+    return rows
+
+
+def sass_mma_counts(lib: str):
+    """{kernel: (HMMA, HGMMA)}: the tensor-core instructions in the SASS
+    of a built library, or None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += bool(re.search(r"\bHMMA\.", line))
+            counts[fn][1] += bool(re.search(r"\bHGMMA\.", line))
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def check_tensor_cores():
+    """Counts each LM kernel's tensor-core instructions; fails if the
+    bfloat16 flash kernel or the bit planes' GEMM has none."""
+    libs = ("flash_attention", "ssd_scan", "bitplane_matmul")
+    counts = {lib: sass_mma_counts(lib) for lib in libs}
+    if counts[libs[0]] is None:
+        log("[lm kernels] no cuobjdump in the toolkit: tensor-core "
+            "instructions not counted")
+        return
+    for lib, c in counts.items():
+        log(f"[lm kernels] {lib} SASS: " + "; ".join(
+            f"{k} {h} HMMA, {g} HGMMA" for k, (h, g) in c.items()))
+    for lib, kernel in (("flash_attention", "flash_fwd_mma"),
+                        ("bitplane_matmul", "bitplane_gemm")):
+        hits = [sum(v) for k, v in counts[lib].items()
+                if k.startswith(kernel)]
+        if not hits or min(hits) == 0:
+            raise AssertionError(f"{kernel} ({lib}) has no HMMA or HGMMA "
+                                 f"instruction in its SASS: {counts[lib]}")
 
 
 def flash_bound(q, tq, tk, causal):
@@ -1172,11 +1266,14 @@ def phase_lm_kernels(dev, rec):
         return (torch.randn(shape, generator=g, device=dev)
                 * scale).to(dtype)
 
+    check_tensor_cores()
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for bh, l, d, tq, tk in ((3, 11, 16, 11, 11), (2, 200, 112, 200, 200),
                                  (2, 200, 64, 50, 100),
-                                 (2, 200, 64, 100, 50)):
+                                 (2, 200, 64, 100, 50),
+                                 (2, 200, 40, 200, 200),
+                                 (2, 200, 40, 50, 100)):
             for causal in (True, False):
                 q, k, v = (rnd((bh, l, d), dtype) for _ in range(3))
                 got = pfa.flash_attention(q, k, v, causal=causal, tq=tq,
@@ -1219,7 +1316,25 @@ def phase_lm_kernels(dev, rec):
                                            scales, bits=bits
                                            ).reshape(3, 50, 384),
                    f"quantized_linear {dtype} bits {bits}")
-            n_cases += 2
+            # ragged against the bfloat16 GEMM's 128 x 256 x 64 block tile
+            x = rnd((384, 640), dtype)
+            w = rnd((640, 384), scale=0.1)
+            planes, scales, _ = ref.quantize_weights(w, bits)
+            got = pbp.bitplane_matmul(x, planes, scales, bits=bits,
+                                      device=dev)
+            torch.cuda.synchronize()
+            lm_err(got, pbp.bitplane_matmul_plain(x, planes, scales,
+                                                  bits=bits),
+                   f"bitplane {dtype} bits {bits} M 384 K 640 N 384")
+            n_cases += 3
+    for bits in range(1, 9):
+        planes, _, w_q = ref.quantize_weights(rnd((640, 384), scale=0.1),
+                                              bits)
+        got = pbp.bitplane_repack(planes, bits=bits, device=dev)
+        if not (torch.equal(got, pbp.bitplane_repack_plain(planes, bits=bits))
+                and torch.equal(got.to(torch.int32), w_q)):
+            raise AssertionError(f"bitplane repack bits {bits}: not W_q")
+        n_cases += 1
     log(f"[lm kernels] {n_cases} small and ragged cases in float32 and "
         f"bfloat16 equal their plain versions within {LM_TOL} x max(1, "
         f"largest |output|)")
@@ -1239,7 +1354,7 @@ def phase_lm_kernels(dev, rec):
     qs, ks, vs = q[None], k[None], v[None]
     record(rec, FLASH[0],
            timed(lambda: pfa.flash_attention(q, k, v, causal=True, tq=t,
-                                             tk=t, device=dev), 20),
+                                             tk=t, device=dev), 50),
            timed(lambda: pfa.flash_attention_plain(q, k, v, causal=True,
                                                    tq=t, tk=t), 5),
            err, flash_bound(q, t, t, True),
@@ -1281,16 +1396,25 @@ def phase_lm_kernels(dev, rec):
         err = lm_err(got, pbp.bitplane_matmul_plain(x, planes, scales,
                                                     bits=bits),
                      f"bitplane main shape bits {bits}")
+        # the two phases alone: the repack, and the GEMM on its W_q
+        wq_b = pbp.bitplane_repack(planes, bits=bits, device=dev)
+        if not torch.equal(wq_b.to(torch.int32), w_q):
+            raise AssertionError(f"bitplane repack main shape bits {bits}")
+        repack_ms = timed(lambda: pbp.bitplane_repack(planes, bits=bits,
+                                                      device=dev), 20)
+        gemm_ms = timed(lambda: pbp.bitplane_gemm(x, wq_b, scales,
+                                                  device=dev), 20)
         name = BITPLANE[0] if bits == 8 else f"{BITPLANE[0]}[bits 4]"
         record(rec, name,
                timed(lambda: pbp.bitplane_matmul(x, planes, scales,
-                                                 bits=bits, device=dev), 5),
+                                                 bits=bits, device=dev), 20),
                timed(lambda: pbp.bitplane_matmul_plain(x, planes, scales,
                                                        bits=bits), 3),
                err, bitplane_bound(x, planes, scales, nn),
-               timed(lambda: torch.matmul(x, wd), 10),
-               f"x {m} x {kk} bfloat16 @ {kk} x {nn}, {bits} bits")
-        del planes, w_q, wd, got
+               timed(lambda: torch.matmul(x, wd), 20),
+               f"x {m} x {kk} bfloat16 @ {kk} x {nn}, {bits} bits; repack "
+               f"{repack_ms:.4f} ms, GEMM {gemm_ms:.4f} ms")
+        del planes, w_q, wd, got, wq_b
     torch.cuda.empty_cache()
 
 
@@ -1590,9 +1714,10 @@ def main() -> int:
     log(f"[build] {time.perf_counter() - t0:.1f}s wall "
         + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()))
     for n in secs:
-        for line in _build.build_log(n).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {n}: {line.strip()}")
+        for kern, regs, smem, st, ld in ptxas_report(_build.build_log(n)):
+            log(f"[build] {n}: {kern}: {regs} registers, {smem} bytes "
+                f"static shared memory, spill stores {st} / loads {ld} "
+                f"bytes")
 
     rec = {}
     t0 = time.perf_counter()

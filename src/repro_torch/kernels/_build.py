@@ -26,9 +26,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 HEADERS = {"iss_segment": ("rv32e_step.cuh", "flexifault.cuh"),
            "iss_refill": (),
            "carbon_sweep": ("carbon_sweep.cuh",),
-           "flash_attention": ("lm_tiles.cuh",),
+           "flash_attention": ("lm_mma.cuh", "lm_tiles.cuh"),
            "ssd_scan": ("lm_tiles.cuh",),
-           "bitplane_matmul": ("lm_tiles.cuh",)}
+           "bitplane_matmul": ("lm_mma.cuh", "lm_tiles.cuh")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -37,23 +37,25 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _U = ctypes.c_uint32
 _F = ctypes.c_float
-# library -> (C symbol, argument types); every pointer and the stream are
+# library -> {C symbol: argument types}; every pointer and the stream are
 # c_void_p, so ctypes never narrows one to a 32-bit int
 SIGNATURES = {
-    "iss_segment": ("iss_segment_banked_launch",
+    "iss_segment": {"iss_segment_banked_launch":
                     [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                      _P, _P, _P, _P, _P, _I, _I,
-                     _I, _P, _P, _U, _I, _I, _I, _I, _I, _P]),
-    "iss_refill": ("iss_refill_launch",
+                     _I, _P, _P, _U, _I, _I, _I, _I, _I, _P]},
+    "iss_refill": {"iss_refill_launch":
                    [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
-                    _P, _P, _P, _I, _P]),
-    "carbon_sweep": ("carbon_sweep_launch",
-                     [_I] + [_P] * 25 + [_I] * 5 + [_D] * 4 + [_P]),
-    "flash_attention": ("flash_attention_launch",
-                        [_I, _P, _P, _P, _P] + [_I] * 6 + [_F, _P]),
-    "ssd_scan": ("ssd_scan_launch", [_I] + [_P] * 7 + [_I] * 6 + [_P]),
-    "bitplane_matmul": ("bitplane_matmul_launch",
-                        [_I] + [_P] * 4 + [_I] * 4 + [_P]),
+                    _P, _P, _P, _I, _P]},
+    "carbon_sweep": {"carbon_sweep_launch":
+                     [_I] + [_P] * 25 + [_I] * 5 + [_D] * 4 + [_P]},
+    "flash_attention": {"flash_attention_launch":
+                        [_I, _P, _P, _P, _P] + [_I] * 6 + [_F, _P]},
+    "ssd_scan": {"ssd_scan_launch": [_I] + [_P] * 7 + [_I] * 6 + [_P]},
+    "bitplane_matmul": {
+        "bitplane_matmul_launch": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+        "bitplane_repack_launch": [_P, _P, _I, _I, _I, _P],
+        "bitplane_gemm_launch": [_P] * 4 + [_I] * 3 + [_P]},
 }
 
 _lock = threading.Lock()
@@ -127,9 +129,9 @@ def load(name: str) -> ctypes.CDLL:
             if not path.exists():
                 build_all([name])
             lib = ctypes.CDLL(str(path))
-            sym, argtypes = SIGNATURES[name]
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for sym, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _loaded[name] = lib
         return lib

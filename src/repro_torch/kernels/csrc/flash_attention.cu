@@ -12,31 +12,49 @@
 // the function (with tq < tk it can drop keys below the diagonal), so
 // each query row here gets its own key limit from the same formula:
 //   klim = min(qpos + 1, clamp((qpos / tq + 1) tq / tk, 1, L / tk) tk).
-//
-// Design. One block of 256 threads per (head, 64 query rows): the block
-// loads its rows of q, scaled, into shared memory as float32, then walks
-// 64-key tiles of k and v up to its largest key limit (the causal
-// triangle above it is never read). Per tile it forms the 64 x 64 score
-// tile in registers (a 4 x 4 micro-tile per thread), masks it, updates
-// each row's running max and denominator (four threads per row, warp
-// shuffles), rescales the 4 x D/16 output micro-tile it keeps in
-// registers and adds P v. The mask is applied by leaving masked keys
-// out of the softmax, which gives what the TPU kernel's exp(-1e30 - m)
-// gives: every row has key 0 in its first tile. Ragged edges (L not a
-// multiple of 64, D not a multiple of 16) are zero-padded in shared
-// memory and masked. D <= 128.
+// Both instantiations walk 64-key tiles up to the largest key limit of a
+// block's 64 query rows (the causal triangle above it is never read) and
+// leave masked keys out of the softmax, which gives what the TPU
+// kernel's exp(-1e30 - m) gives: every row has key 0 in its first tile.
 //
 // What bounds it. At the main path's shapes (BH = 8 x 32 = 256, L = 512,
 // D = 112, bfloat16, causal) it must read q, k, v and write o, 117 MB,
 // or 0.035 ms at 3.35 TB/s; the causal triangle's two products are
 // 1.5e10 operations, 0.015 ms at the bfloat16 tensor-core rate. So bytes
-// bound it. This first version multiplies in float32 on the CUDA cores
-// (67 TFLOP/s at most), so it runs above both bounds; moving the two
-// products to the tensor cores is later work.
+// bound it.
+//
+// bfloat16 (flash_fwd_mma, the main path's): FlashAttention-2 on the
+// tensor cores with mma.sync m16n8k16 (lm_mma.cuh). One block of 4 warps
+// per (head, 64 query rows), 16 rows a warp, three blocks an SM (61 KB
+// of shared memory and at most 168 registers a thread each at D = 112),
+// the heaviest causal query blocks launched first. Each warp loads its q rows once with ldmatrix
+// into registers (D zero-padded to a multiple of 16). K and V come in
+// 64-key bfloat16 tiles, double-buffered with cp.async (zero-filled past
+// L), in rows padded to D + 8 values so ldmatrix's eight row addresses
+// fall in distinct banks. Per tile: S = q k^T into float32 registers;
+// the scale (times log2 e, for exp2f) applied to the float32 S, never to
+// bfloat16 q (D^-1/2 is not a power of two, so that would add a rounding
+// the plain version lacks); the mask only on tiles that cross a row's key
+// limit; the running max and denominator in registers with quad
+// shuffles, the denominator summed from float32 P; P rounded to
+// bfloat16 in registers is the A fragment of P v, and v's B fragments
+// come from ldmatrix.trans; the output stays in float32 registers until
+// it is divided by max(l, 1e-30). Rounding P to bfloat16 for P v is the
+// only rounding the plain version lacks: one bfloat16 step at most.
+//
+// float32 (flash_fwd): on the CUDA cores, as first ported. The float32
+// tolerance (1e-4) rules out bfloat16 or TF32 products, and no main path
+// runs it. One block of 256 threads per (head, 64 query rows) keeps q,
+// scaled, k^T, v and P as float32 tiles in shared memory, forms the 64 x
+// 64 score tile in registers (a 4 x 4 micro-tile per thread), runs the
+// online softmax four threads a row and adds P v to a 4 x D/16 output
+// micro-tile. Ragged L and D are zero-padded in shared memory and
+// masked. D <= 128.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lm_mma.cuh"
 #include "lm_tiles.cuh"
 
 namespace {
@@ -188,19 +206,263 @@ __global__ void __launch_bounds__(lm::kThreads)
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int L, int D, int causal, int tq, int tk, float scale,
-           cudaStream_t stream) {
-  const int dd = (D + 15) / 16 * 16;
-  const size_t smem = smem_bytes(dd);
-  cudaError_t e = lm::allow_smem(flash_fwd<T>, smem);
+// ---------------------------------------------------------------- bf16
+using bf16 = __nv_bfloat16;
+constexpr int kMmaWarps = kRows / 16;  // 16 query rows a warp
+constexpr int kMmaThreads = 32 * kMmaWarps;
+// blocks an SM: caps a thread at 168 registers (the D = 112 and 128
+// builds would take 173, and fit two blocks an SM; three run faster)
+constexpr int kMmaBlocksPerSM = 3;
+
+// the TPU kernel's key limit of query row qp (0 past the last row)
+__device__ __forceinline__ int key_limit(int qp, int L, int causal, int tq,
+                                         int tk) {
+  if (qp >= L) return 0;
+  if (!causal) return L;
+  const int up = min(max((qp / tq + 1) * tq / tk, 1), L / tk);
+  return min(qp + 1, up * tk);
+}
+
+// rows [r0, r0 + 64) of a (L, D) matrix into a [64][ld] bfloat16 tile,
+// the first dd = 16 DK columns, zeros past L and D. 16-byte cp.async
+// chunks where rows are 16-byte aligned (D % 8 == 0), else plain loads.
+template <int DK>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          int r0, int L, int D) {
+  constexpr int dd = 16 * DK, ld = dd + 8, cpr = dd / 8;
+  if (D % 8 == 0) {
+    for (int idx = threadIdx.x; idx < kRows * cpr; idx += kMmaThreads) {
+      const int r = idx / cpr, c = idx % cpr * 8;
+      const bool ok = r0 + r < L && c < D;
+      lm::cp_async16(lm::smem_u32(dst + r * ld + c),
+                     ok ? src + static_cast<size_t>(r0 + r) * D + c : src,
+                     ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kRows * dd; idx += kMmaThreads) {
+      const int r = idx / dd, c = idx % dd;
+      dst[r * ld + c] = r0 + r < L && c < D
+                            ? src[static_cast<size_t>(r0 + r) * D + c]
+                            : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+template <int DK>
+constexpr size_t mma_smem_bytes() {  // K and V, two stages each
+  return sizeof(bf16) * 4 * kRows * (16 * DK + 8);
+}
+
+template <int DK>
+__global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
+    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o, int L,
+                  int D, int causal, int tq, int tk, float scale_log2) {
+  constexpr int dd = 16 * DK, ld = dd + 8, tile = kKeys * ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][kKeys][ld]
+  bf16* Vs = Ks + 2 * tile;                       // [2][kKeys][ld]
+  bf16* Qs = Ks + tile;  // q's rows, in K's second stage until read
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
+  const size_t base = static_cast<size_t>(blockIdx.x) * L * D;
+  const int row = q0 + warp * 16 + g;  // this thread's rows: row, row + 8
+  const int lim_lo = key_limit(row, L, causal, tq, tk);
+  const int lim_hi = key_limit(row + 8, L, causal, tq, tk);
+  // the key limit does not decrease with the row: the block's last row
+  // has the largest
+  const int kend = key_limit(min(q0 + kRows, L) - 1, L, causal, tq, tk);
+  const int n_tiles = (kend + kKeys - 1) / kKeys;
+
+  load_rows<DK>(Qs, q + base, q0, L, D);
+  load_rows<DK>(Ks, k + base, 0, L, D);
+  load_rows<DK>(Vs, v + base, 0, L, D);
+  lm::cp_async_commit();
+  lm::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[DK][4];
+#pragma unroll
+  for (int kk = 0; kk < DK; ++kk)
+    lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + (warp * 16 + (lane & 15)) * ld +
+                                         kk * 16 + (lane >> 4) * 8));
+  __syncthreads();  // Qs is K's second stage from here on
+
+  float acc[2 * DK][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {
+      load_rows<DK>(Ks + (st ^ 1) * tile, k + base, (it + 1) * kKeys, L, D);
+      load_rows<DK>(Vs + (st ^ 1) * tile, v + base, (it + 1) * kKeys, L, D);
+    }
+    lm::cp_async_commit();
+    lm::cp_async_wait<1>();  // tile `it` has landed
+    __syncthreads();
+    const bf16* Kt = Ks + st * tile;
+    const bf16* Vt = Vs + st * tile;
+
+    // S = q k^T over 8 n8 tiles of keys, unscaled, float32
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        lm::ldmatrix_x4(b, lm::smem_u32(
+                               Kt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * ld +
+                               kk * 16 + ((lane >> 3) & 1) * 8));
+        lm::mma_bf16_16816(s[2 * np], qf[kk], b[0], b[1]);
+        lm::mma_bf16_16816(s[2 * np + 1], qf[kk], b[2], b[3]);
+      }
+
+    const int k0 = it * kKeys;
+    if (k0 + kKeys > lim_lo) {  // a key of this tile is past a row's limit
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * t4 + e;
+          if (key >= lim_lo) s[j][e] = -INFINITY;
+          if (key >= lim_hi) s[j][2 + e] = -INFINITY;
+        }
+    }
+
+    // online softmax: rows g and g + 8 of the warp, over the quad
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    // exponent bases; a row with no key yet (past L) keeps 0
+    const float b_lo = mx_lo == -INFINITY ? 0.f : mx_lo * scale_log2;
+    const float b_hi = mx_hi == -INFINITY ? 0.f : mx_hi * scale_log2;
+    const float c_lo = exp2f(m_lo * scale_log2 - b_lo);
+    const float c_hi = exp2f(m_hi * scale_log2 - b_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    l_lo *= c_lo;
+    l_hi *= c_hi;
+#pragma unroll
+    for (int j = 0; j < 2 * DK; ++j) {
+      acc[j][0] *= c_lo;
+      acc[j][1] *= c_lo;
+      acc[j][2] *= c_hi;
+      acc[j][3] *= c_hi;
+    }
+    // P in float32 for the denominator, in bfloat16 as P v's A fragments
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = exp2f(fmaf(s[j][0], scale_log2, -b_lo));
+      const float p1 = exp2f(fmaf(s[j][1], scale_log2, -b_lo));
+      const float p2 = exp2f(fmaf(s[j][2], scale_log2, -b_hi));
+      const float p3 = exp2f(fmaf(s[j][3], scale_log2, -b_hi));
+      l_lo += p0 + p1;
+      l_hi += p2 + p3;
+      pa[j >> 1][2 * (j & 1)] = lm::pack_bf16x2(p0, p1);
+      pa[j >> 1][2 * (j & 1) + 1] = lm::pack_bf16x2(p2, p3);
+    }
+    // O += P v over 4 k16 steps of keys, 2 DK n8 tiles of D
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int dp = 0; dp < DK; ++dp) {
+        uint32_t b[4];
+        lm::ldmatrix_x4_trans(
+            b, lm::smem_u32(Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld +
+                            dp * 16 + (lane >> 4) * 8));
+        lm::mma_bf16_16816(acc[2 * dp], pa[kk], b[0], b[1]);
+        lm::mma_bf16_16816(acc[2 * dp + 1], pa[kk], b[2], b[3]);
+      }
+    __syncthreads();  // stage `st` is refilled next
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < 2 * DK; ++j) {
+    const int d = 8 * j + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      const float den = h ? den_hi : den_lo;
+      if (r >= L) continue;
+      bf16* dst = o + base + static_cast<size_t>(r) * D + d;
+      const float v0 = acc[j][2 * h] / den, v1 = acc[j][2 * h + 1] / den;
+      if (D % 2 == 0) {
+        if (d < D) *reinterpret_cast<uint32_t*>(dst) = lm::pack_bf16x2(v0, v1);
+      } else {
+        if (d < D) dst[0] = __float2bfloat16_rn(v0);
+        if (d + 1 < D) dst[1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+template <int DK>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
+               int L, int D, int causal, int tq, int tk, float scale,
+               cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<DK>();
+  cudaError_t e = lm::allow_smem(flash_fwd_mma<DK>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(bh, (L + kRows - 1) / kRows);
-  flash_fwd<T><<<grid, lm::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), L, D, dd, causal, tq,
-      tk, scale);
+  flash_fwd_mma<DK><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), L, D, causal, tq,
+      tk, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
+                int L, int D, int causal, int tq, int tk, float scale,
+                cudaStream_t s) {
+  switch ((D + 15) / 16) {
+    case 1: return launch_mma<1>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+    case 2: return launch_mma<2>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+    case 3: return launch_mma<3>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+    case 4: return launch_mma<4>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+    case 5: return launch_mma<5>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+    case 6: return launch_mma<6>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+    case 7: return launch_mma<7>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+    default: return launch_mma<8>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+  }
+}
+
+// ---------------------------------------------------------------- f32
+int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
+               int L, int D, int causal, int tq, int tk, float scale,
+               cudaStream_t stream) {
+  const int dd = (D + 15) / 16 * 16;
+  const size_t smem = smem_bytes(dd);
+  cudaError_t e = lm::allow_smem(flash_fwd<float>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(bh, (L + kRows - 1) / kRows);
+  flash_fwd<float><<<grid, lm::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), L, D, dd, causal,
+      tq, tk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -218,7 +480,6 @@ extern "C" int flash_attention_launch(int is_bf16, const void* q,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, bh, L, D, causal, tq, tk, scale,
-                                 s);
-  return launch<float>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+    return launch_bf16(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+  return launch_f32(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
 }

@@ -1,13 +1,16 @@
 // Helpers shared by the LM kernels (flash_attention.cu, ssd_scan.cu,
-// bitplane_matmul.cu): float32 <-> input type, and the tile product of
-// the first two.
+// bitplane_matmul.cu): float32 <-> input type, the float32 tile product
+// on the CUDA cores, and the launch's shared-memory limit.
 //
-// Those two run 256 threads as a 16 x 16 grid (ty, tx) and keep their
-// tiles in shared memory as float32, whatever the input type: the TPU
-// kernels they replace cast every operand to float32 before their dots,
-// and so do these. A thread owns the tile elements (ty + 16 i, tx + 16 j)
-// for i < rm, j < cm, so a warp reads a row of the right-hand operand at
+// The tile product serves the kernels that keep float32 tiles in shared
+// memory: ssd_scan in both types, and the float32 instantiations of
+// flash_attention and bitplane_matmul (whose 1e-4 tolerance rules out
+// bfloat16 or TF32 products). Those run 256 threads as a 16 x 16 grid
+// (ty, tx); a thread owns the tile elements (ty + 16 i, tx + 16 j) for
+// i < rm, j < cm, so a warp reads a row of the right-hand operand at
 // consecutive addresses and at most two addresses of the left-hand one.
+// The bfloat16 paths of flash_attention and bitplane_matmul run on the
+// tensor cores instead, through lm_mma.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

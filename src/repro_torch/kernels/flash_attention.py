@@ -7,7 +7,10 @@ online-softmax attention over heads flattened into the batch, q, k, v
 mask the TPU kernel reads, for query tile qi of tq rows, the KV tiles of
 tk keys below clamp((qi + 1) tq // tk, 1, L // tk), and inside them the
 keys kpos <= qpos: the kernel and the plain version keep that bound.
-The GQA grouping is done by `kernels/ops.py` before flattening.
+The GQA grouping is done by `kernels/ops.py` before flattening. For
+bfloat16 the kernel multiplies on the tensor cores, with float32 scores,
+softmax and accumulator, and rounds P to bfloat16 for the P v product:
+the one rounding the plain version lacks (within a bfloat16 step).
 
 `flash_attention_plain` is the TPU kernel's arithmetic tile by tile in
 eager torch (any device). The wrapper takes `device=None` (meaning

@@ -255,9 +255,10 @@ def test_point_mass_f64_on_card_equals_oracles(cuda):
 
 
 # ---------------------------------------------------------- LM kernels
-# The LM kernels multiply in float32 in another order than their plain
-# versions: float32 outputs within 1e-4 (relative to the output's scale),
-# bfloat16 outputs within one bfloat16 step (2^-7 relative, 1e-2 here).
+# The LM kernels sum in another order than their plain versions, and the
+# bfloat16 flash kernel rounds P to bfloat16 for P v: float32 outputs
+# within 1e-4 (relative to the output's scale), bfloat16 outputs within
+# one bfloat16 step (2^-7 relative, 1e-2 here).
 _LM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
@@ -275,7 +276,10 @@ def _lm_close(got, want, dtype):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(3, 11, 16, 11, 11), (2, 200, 112, 200, 200),
                                    (2, 200, 64, 50, 100),
-                                   (2, 256, 128, 128, 64)])
+                                   (2, 256, 128, 128, 64),
+                                   # D 40: zero-padded to 48 for the MMAs
+                                   (2, 200, 40, 200, 200),
+                                   (2, 200, 40, 50, 100)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, shape):
     from repro_torch.kernels import flash_attention as pfa
     bh, l, d, tq, tk = shape
@@ -331,6 +335,42 @@ def test_bitplane_kernel_matches_plain(cuda, dtype, bits):
     _lm_close(ops.quantized_linear(xm, w, bits=bits, device=cuda),
               ref.bitplane_matmul_ref(xm.reshape(-1, 128), planes, scales,
                                       bits=bits).reshape(3, 50, 384), dtype)
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_bitplane_repack_kernel_bit_for_bit(cuda, bits):
+    from repro_torch.kernels import bitplane_matmul as pbp
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    w = _rand(g, (640, 384), torch.float32, cuda, 0.1)
+    planes, _, w_q = ref.quantize_weights(w, bits)
+    got = pbp.bitplane_repack(planes, bits=bits, device=cuda)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (640, 384)
+    assert torch.equal(got, pbp.bitplane_repack_plain(planes, bits=bits))
+    assert torch.equal(got.to(torch.int32), w_q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+def test_bitplane_kernel_ragged_against_the_block_tile(cuda, dtype, bits):
+    """M 384 (3 x 128 rows), K 640 (10 x 64) and N 384 (1.5 x the 256
+    columns of the bfloat16 GEMM's block tile)."""
+    from repro_torch.kernels import bitplane_matmul as pbp
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=cuda).manual_seed(10 + bits)
+    x = _rand(g, (384, 640), dtype, cuda)
+    w = _rand(g, (640, 384), torch.float32, cuda, 0.1)
+    planes, scales, _ = ref.quantize_weights(w, bits)
+    got = pbp.bitplane_matmul(x, planes, scales, bits=bits, device=cuda)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (384, 384)
+    _lm_close(got, pbp.bitplane_matmul_plain(x, planes, scales, bits=bits),
+              dtype)
+    if dtype == torch.bfloat16:   # the two phases alone, the same kernels
+        w_q = pbp.bitplane_repack(planes, bits=bits, device=cuda)
+        assert torch.equal(pbp.bitplane_gemm(x, w_q, scales, device=cuda),
+                           got)
 
 
 def test_smoke_serve_on_card_matches_cpu(cuda):
