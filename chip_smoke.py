@@ -14,7 +14,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    on a 256-lane pool of all 11 FlexiBench workloads (timing off and on)
    and random refills, then at the main path's shapes (16,384 lanes,
    2,824 memory words, a bank of 11 programs of up to 2,006 words, one
-   4,096-step segment), where each is also timed with CUDA events;
+   4,096-step segment), where each is also timed with CUDA events, the
+   segment kernel beside its earlier time;
 4. small plan: the three-group plan of `examples/fleet_simulation.py` at
    256 items per group through `run_plan` on the card and on the CPU,
    every per-item field and the final state bit for bit;
@@ -26,7 +27,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    reference is a slow Python loop), and launch counts showing that both
    kernels, and never their plain versions, ran the path;
 6. profile: the main path once more under torch.profiler, for the
-   device's busy share and its time by kernel;
+   device's busy share, its time by kernel, and the segment kernel's
+   device time per launch on the path's own pool;
 7. sweep kernel: `sweep_tile` against its plain PyTorch version on the
    card: three streamed tiles of 12 cells x 8 draws x 3 candidates (+inf
    lifetimes, invalid cells, exact ties) in float32 and float64, then
@@ -48,7 +50,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    on regs, mem and pc at rate 1e-2 and at rate 1.0, stuck-at at 0.5 and
    dead lanes at 0.5, plus the one-program `iss_segment` wrapper; then at
    the main path's shapes (16,384 lanes, 4,096 steps, timing on) timed
-   with CUDA events with faults off and with transients at 1e-5;
+   with CUDA events with faults off and with transients at 1e-5, beside
+   the earlier kernel's times;
 11. small resilient plans: the three groups of phase 4 (64 items each,
    FlexiLint-static budgets) with transients at 1e-4, unprotected and
    under DMR, on the card and on the CPU: every per-item field, the DMR
@@ -60,16 +63,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    with max_retries 1, where every item's output, retirement count and
    halt must equal phase 5's (the tallies DMR's digest does not cover,
    the two-stage count, ticks and mix, are counted); each run once more
-   under torch.profiler for the busy share, and the DMR boundary's
-   digest, snapshot and rollback timed at full shape;
+   under torch.profiler for the busy share and the segment kernel's
+   device time per launch, and the DMR boundary's digest, snapshot and
+   rollback timed at full shape;
 13. LM kernels: the count of tensor-core instructions (HMMA, HGMMA) in
    each LM kernel's SASS where the toolkit has `cuobjdump` (the
-   bfloat16 flash kernel and the bit planes' GEMM must have some);
+   bfloat16 flash kernel, the bfloat16 scan kernel and the bit planes'
+   GEMM must have some);
    `flash_attention`, `ssd_scan` and `bitplane_matmul` against their
    plain versions in float32 and bfloat16 on small and ragged shapes (L
    11 and 200 causal and full with equal and unequal tiles, D 40
    zero-padded; SSD scans of two and three chunks with odd head counts
-   and groups; bit planes at 1, 4 and 8 bits, ragged M through
+   and groups, P = N = 128 and a 512-step chunk; bit planes at 1, 4
+   and 8 bits, ragged M through
    `quantized_linear`, M 384 x K 640 x N 384 against the GEMM's block
    tile, and the bfloat16 repack bit for bit at 1-8 bits), then at the
    main serve's shapes in bfloat16, timed with CUDA events beside the
@@ -87,9 +93,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    `flash_attention` launches per prefill and no plain call; prefill
    and decode rates and peak memory; the kernels against their plain
    versions on the tensors this prefill feeds the first Mamba layer and
-   the first shared block; that block's FFN input through
-   `quantized_linear` at 4 and 8 bits (the bit-plane kernel's path);
-   and the serve once more under torch.profiler.
+   the first shared block, and the scan timed on the first Mamba layer's
+   own tensors; that block's FFN input through `quantized_linear` at 4
+   and 8 bits (the bit-plane kernel's path); and the serve once more
+   under torch.profiler.
 
 It ends with a `kernels:` line of launch counts, one JSON line
 `{"kernels": [...]}` with an entry per kernel (times, bound, launches,
@@ -102,8 +109,9 @@ its per-cell sums, which follow no fixed order (relative 2 (N - 1) u),
 and for values at a log10 bin edge (counted; see
 `tests/_torch_parity.py`); its max_abs_err is over the exact fields.
 The LM kernels sum in another order than their plain versions (the
-bfloat16 flash kernel also rounds P to bfloat16 for P v) and are held
-to `LM_TOL` times the output's largest magnitude.
+bfloat16 flash kernel also rounds P to bfloat16 for P v, the bfloat16
+scan W, S and B w) and are held to `LM_TOL` times the output's largest
+magnitude.
 """
 import dataclasses
 import json
@@ -146,6 +154,9 @@ SWEEP = ("carbon_sweep", "src/repro_torch/kernels/csrc/carbon_sweep.cu",
 SEG_FAULTS = ("iss_segment_banked[faults]",
               "src/repro_torch/kernels/csrc/iss_segment.cu",
               "src/repro/kernels/iss_stepper.py:152")
+# the segment kernel's times at phase 3's and phase 10's full shape before
+# its redesign (measured on one NVIDIA H100 80GB HBM3, 700.00 W)
+EARLIER_SEG_MS = {"fault-free": 3.366, "faults": 3.635}
 
 
 def log(*a):
@@ -336,6 +347,7 @@ def phase_kernels(dev, rec):
         detail=f"{steps} lane-steps, {nbytes} bytes")
     log(f"[kernels] iss_segment_banked {L} lanes x {SEGSTEPS} steps "
         f"(timing on): bit-exact; kernel {sorted(times)[1]:.3f} ms "
+        f"(earlier kernel: {EARLIER_SEG_MS['fault-free']} ms) "
         f"(runs {', '.join(f'{x:.3f}' for x in times)}), plain "
         f"{plain_ms:.1f} ms; {steps} retired lane-steps; bound "
         f"{max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f}, "
@@ -495,6 +507,18 @@ def log_rows(tag, rows, n=10):
             f"{r.count:6d} calls  {r.key[:90]}")
 
 
+def log_per_launch(tag, rows):
+    """The segment kernel's device time per launch from torch.profiler's
+    rows (the run's own pool and segments)."""
+    hit = [r for r in rows if "iss_segment_kernel" in r.key
+           and not r.key.startswith("aten::")]
+    n = sum(r.count for r in hit)
+    ms = sum(r.self_device_time_total for r in hit) / 1e3
+    if n:
+        log(f"[{tag}] iss_segment_banked: {ms:.2f} ms device in {n} "
+            f"launches = {ms / n:.4f} ms a launch (torch.profiler)")
+
+
 def phase_profile(dev):
     """The main path once more under torch.profiler: the device's busy
     share (union of its activity intervals over the run's wall clock)
@@ -510,6 +534,7 @@ def phase_profile(dev):
         f"({rep.packed.wall_s:.2f}s inside run_packed), device busy "
         f"{busy:.3f}s = share {busy / wall:.4f} of the wall")
     log_rows("profile", rows)
+    log_per_launch("profile", rows)
 
 
 def phase_sweep_kernel(dev, rec):
@@ -856,7 +881,9 @@ def phase_fault_kernel(dev, rec):
         bound_ms=max(b_bytes, b_ops),
         bound_by="bytes" if b_bytes >= b_ops else "operations")
     log(f"[fault kernel] full shape {L} lanes x {SEGSTEPS} steps (timing "
-        f"on): faults off {ms_off:.3f} ms (runs "
+        f"on; earlier kernel: faults off {EARLIER_SEG_MS['fault-free']} ms, "
+        f"transients {EARLIER_SEG_MS['faults']} ms): faults off "
+        f"{ms_off:.3f} ms (runs "
         f"{', '.join(f'{x:.3f}' for x in t_off)}); transients 1e-5 "
         f"{ms_on:.3f} ms (runs {', '.join(f'{x:.3f}' for x in t_on)}), "
         f"{ms_on / ms_off:.3f}x; bit-exact with the plain version "
@@ -1056,6 +1083,7 @@ def phase_main_resilient(dev, main_rep):
                 f"run_packed), device busy {busy:.3f}s = share "
                 f"{busy / wall:.4f}")
             log_rows(f"resilient main ({tag})", rows, 8)
+            log_per_launch(f"resilient main ({tag})", rows)
         if tag == "b":
             d, c, r = dmr_boundary_ms(dev)
             n = p.n_segments
@@ -1077,8 +1105,9 @@ BF16_OPS_PER_S = 989e12
 # another order: 1e-4 for float32 outputs. The bfloat16 ones multiply
 # bfloat16 operands on the tensor cores into float32 sums (the bit
 # planes' W_q and the flash kernel's q, k, v are exact in bfloat16), and
-# the flash kernel rounds P to bfloat16 for P v: one bfloat16 step
-# (2^-7) for bfloat16 outputs
+# the flash kernel rounds P to bfloat16 for P v, the scan kernel W, S
+# and B w for their products: one bfloat16 step (2^-7) for bfloat16
+# outputs
 LM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FLASH = ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:61")
@@ -1087,6 +1116,9 @@ SSD = ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
 BITPLANE = ("bitplane_matmul",
             "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
             "src/repro/kernels/bitplane_matmul.py:56")
+# the scan kernel's time at the main shape before its bfloat16 path moved
+# to the tensor cores (measured on one NVIDIA H100 80GB HBM3, 700.00 W)
+EARLIER_SSD_MS = 2.880
 # the main serve: Zamba2-7B, 8 requests, prompt 512, 32 generated tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 SERVE_PARAMS = 6.957e9          # count_params_abstract of the reference
@@ -1172,7 +1204,8 @@ def sass_mma_counts(lib: str):
 
 def check_tensor_cores():
     """Counts each LM kernel's tensor-core instructions; fails if the
-    bfloat16 flash kernel or the bit planes' GEMM has none."""
+    bfloat16 flash kernel, the bfloat16 scan kernel or the bit planes'
+    GEMM has none."""
     libs = ("flash_attention", "ssd_scan", "bitplane_matmul")
     counts = {lib: sass_mma_counts(lib) for lib in libs}
     if counts[libs[0]] is None:
@@ -1183,6 +1216,7 @@ def check_tensor_cores():
         log(f"[lm kernels] {lib} SASS: " + "; ".join(
             f"{k} {h} HMMA, {g} HGMMA" for k, (h, g) in c.items()))
     for lib, kernel in (("flash_attention", "flash_fwd_mma"),
+                        ("ssd_scan", "ssd_fwd_mma"),
                         ("bitplane_matmul", "bitplane_gemm")):
         hits = [sum(v) for k, v in counts[lib].items()
                 if k.startswith(kernel)]
@@ -1283,10 +1317,14 @@ def phase_lm_kernels(dev, rec):
                     q, k, v, causal=causal, tq=tq, tk=tk),
                     f"flash {dtype} {(bh, l, d, tq, tk, causal)}")
                 n_cases += 1
-        # two chunks and an odd head count; three chunks, three groups
+        # two chunks and an odd head count; three chunks, three groups;
+        # P = N = 128 (the bfloat16 kernel's wide build); a chunk past one
+        # C B^T strip of the bfloat16 kernel (one head a block)
         for bt, h, l, p, n, q_, groups in ((1, 3, 22, 16, 8, 11, 1),
                                            (2, 5, 96, 64, 64, 48, 5),
-                                           (2, 6, 300, 20, 40, 100, 3)):
+                                           (2, 6, 300, 20, 40, 100, 3),
+                                           (1, 4, 512, 128, 128, 256, 1),
+                                           (1, 2, 1024, 64, 64, 512, 1)):
             x = rnd((bt * h, l, p), dtype)
             dt = F.softplus(rnd((bt * h, l)))
             a = -torch.exp(rnd((bt * h,), scale=0.3))
@@ -1376,14 +1414,16 @@ def phase_lm_kernels(dev, rec):
     yp, sp = pss.ssd_scan_plain(a, x, dt, b, c, q=q_, rep=rep)
     err = lm_err(y, yp, "ssd main shape")
     lm_err(st, sp, "ssd main shape state", LM_TOL["bfloat16"])
-    record(rec, SSD[0],
-           timed(lambda: pss.ssd_scan(a, x, dt, b, c, q=q_, rep=rep,
-                                      device=dev), 20),
+    runs = [timed(lambda: pss.ssd_scan(a, x, dt, b, c, q=q_, rep=rep,
+                                       device=dev), 20) for _ in range(5)]
+    record(rec, SSD[0], sorted(runs)[2],
            timed(lambda: pss.ssd_scan_plain(a, x, dt, b, c, q=q_, rep=rep),
                  5),
            err, ssd_bound(a, x, dt, b, c, q_), None,
            f"BH {bh} x L {l}, P {p}, N {n}, chunk {q_}, B/C per group "
-           f"({rep} heads), bfloat16")
+           f"({rep} heads), bfloat16; median of runs "
+           f"{', '.join(f'{r:.4f}' for r in runs)} (earlier kernel: "
+           f"{EARLIER_SSD_MS} ms)")
     del x, y, yp, st, sp
 
     m, kk, nn = SERVE_BATCH * SERVE_PROMPT, cfg.d_model, cfg.d_ff
@@ -1611,6 +1651,15 @@ def phase_main_serve(dev, rec):
     yp, sp = pss.ssd_scan_plain(a, x, dt, b, c, q=kw["q"], rep=kw["rep"])
     e_ssd = lm_err(y, yp, "main serve first Mamba layer")
     lm_err(s, sp, "main serve first Mamba layer state", LM_TOL["bfloat16"])
+    ssd_ms = timed(lambda: pss.ssd_scan(a, x, dt, b, c, q=kw["q"],
+                                        rep=kw["rep"], device=dev), 20)
+    ssd_plain_ms = timed(lambda: pss.ssd_scan_plain(
+        a, x, dt, b, c, q=kw["q"], rep=kw["rep"]), 3)
+    log(f"[main serve] ssd_scan on the first Mamba layer's own tensors "
+        f"({tuple(x.shape)}, chunk {kw['q']}, {kw['rep']} heads a group): "
+        f"kernel {ssd_ms:.4f} ms (earlier kernel at the main shape: "
+        f"{EARLIER_SSD_MS} ms), plain {ssd_plain_ms:.3f} ms, bound "
+        f"{max(ssd_bound(a, x, dt, b, c, kw['q'])):.4f} ms")
     (q, k, v), kw, o = seen["flash"]
     op = pfa.flash_attention_plain(q, k, v, causal=kw["causal"],
                                    tq=kw["tq"], tk=kw["tk"])

@@ -27,7 +27,7 @@ HEADERS = {"iss_segment": ("rv32e_step.cuh", "flexifault.cuh"),
            "iss_refill": (),
            "carbon_sweep": ("carbon_sweep.cuh",),
            "flash_attention": ("lm_mma.cuh", "lm_tiles.cuh"),
-           "ssd_scan": ("lm_tiles.cuh",),
+           "ssd_scan": ("lm_mma.cuh", "lm_tiles.cuh"),
            "bitplane_matmul": ("lm_mma.cuh", "lm_tiles.cuh")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

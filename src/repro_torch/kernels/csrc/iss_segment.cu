@@ -9,20 +9,26 @@
 // its retry epoch, and the schedule (threshold, always, the enabled
 // targets) as launch arguments; the per-lane transform is flexifault.cuh.
 //
-// Design. One thread per lane, blocks of 128 threads. A live lane loads its
-// 16 registers and 8 mix counters into shared memory ([index][lane], so
-// the 32 lanes of a warp hit 32 banks) and its pc and counters into
-// registers once, steps until it stops being live or the segment ends, and
-// writes everything back once. The per-lane step is rv32e_step.cuh, which
-// the CPU tests also compile with g++.
+// Design. Blocks of 128 threads, four warps. Thread l of warp w steps lane
+// w * kLanesPerWarp + l while l < kLanesPerWarp; the warp's other threads
+// exit at once. A warp's step takes as long as the distinct paths its
+// lanes take through the step's switch, and the lanes of a pool diverge
+// on their programs and their data, so a warp of 8 lanes retires the
+// pool faster than one of 32 (measured on one H100: PERF.md, with
+// scripts/segment_lanes.py); 16,384 lanes fill 512 blocks, about four an
+// SM on all 132. A live lane loads its 16 registers and 8 mix counters
+// into shared memory ([index][thread], so a warp's lanes hit distinct
+// banks) and its pc and counters into registers once, steps until it
+// stops being live or the segment ends, and writes everything back once.
+// The per-lane step is rv32e_step.cuh, which the CPU tests also compile
+// with g++.
 //
 // What bounds it. Not bytes: the state is read and written once per
 // segment (at the main path's shapes, 16,384 lanes x 2,824 memory words,
 // ~370 MB both ways, ~0.1 ms at 3.35 TB/s) while a segment retires up to
 // 4,096 dependent steps per lane. Each step is a chain of dependent integer
 // work and up to two memory round trips (the fetch, and a load or store),
-// so the kernel is bound by latency and integer issue, and one warp's
-// lanes diverge when they run different programs.
+// so the kernel is bound by latency, integer issue and divergence.
 //
 // The faults variant adds, per live step, one hash of the lane's constant
 // key and n_instr and a compare; only a step that fires hashes twice more
@@ -45,6 +51,15 @@
 namespace {
 
 constexpr int kBlock = 128;
+// lanes a warp steps; a compile-time constant (scripts/segment_lanes.py
+// builds other values to measure them)
+#ifndef ISS_LANES_PER_WARP
+#define ISS_LANES_PER_WARP 8
+#endif
+constexpr int kLanesPerWarp = ISS_LANES_PER_WARP;
+static_assert(kLanesPerWarp >= 1 && kLanesPerWarp <= 32,
+              "ISS_LANES_PER_WARP must be 1..32");
+constexpr int kBlockLanes = kBlock / 32 * kLanesPerWarp;
 
 template <bool TIMING, int FAULT>
 __global__ void __launch_bounds__(kBlock) iss_segment_kernel(
@@ -61,7 +76,8 @@ __global__ void __launch_bounds__(kBlock) iss_segment_kernel(
   __shared__ int32_t s_regs[16 * kBlock];
   __shared__ int32_t s_mix[rv32e::N_MIX * kBlock];
   const int t = threadIdx.x;
-  const int lane = blockIdx.x * kBlock + t;
+  if (t % 32 >= kLanesPerWarp) return;
+  const int lane = blockIdx.x * kBlockLanes + t / 32 * kLanesPerWarp + t % 32;
   if (lane >= n_lanes) return;
 
   const int32_t budget = max_steps[lane];
@@ -129,7 +145,7 @@ extern "C" int iss_segment_banked_launch(
        (n_targets < 1 || n_targets > 3)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_lanes <= 0 || seg_steps <= 0) return 0;
-  const dim3 grid((n_lanes + kBlock - 1) / kBlock);
+  const dim3 grid((n_lanes + kBlockLanes - 1) / kBlockLanes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const flexifault::Spec fs{threshold, always, n_targets,
                             {target0, target1, target2}};

@@ -1,9 +1,9 @@
 // PTX wrappers for the LM kernels' tensor-core paths on Hopper (sm_90a):
 // cp.async with commit and wait, ldmatrix (plain and .trans), mma.sync
 // m16n8k16 bfloat16 -> float32, and Hopper's mbarrier, TMA tile loads,
-// register reallocation and wgmma m64n256k16. flash_attention.cu's
-// bfloat16 kernel uses the first group, bitplane_matmul.cu's GEMM the
-// second.
+// register reallocation and wgmma m64n256k16. The bfloat16 kernels of
+// flash_attention.cu and ssd_scan.cu use the first group,
+// bitplane_matmul.cu's GEMM the second.
 //
 // Fragment layouts (lane = 4 g + t): an m16n8k16 A fragment holds
 // A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; a B

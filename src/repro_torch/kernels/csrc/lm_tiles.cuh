@@ -3,14 +3,13 @@
 // on the CUDA cores, and the launch's shared-memory limit.
 //
 // The tile product serves the kernels that keep float32 tiles in shared
-// memory: ssd_scan in both types, and the float32 instantiations of
-// flash_attention and bitplane_matmul (whose 1e-4 tolerance rules out
-// bfloat16 or TF32 products). Those run 256 threads as a 16 x 16 grid
-// (ty, tx); a thread owns the tile elements (ty + 16 i, tx + 16 j) for
-// i < rm, j < cm, so a warp reads a row of the right-hand operand at
-// consecutive addresses and at most two addresses of the left-hand one.
-// The bfloat16 paths of flash_attention and bitplane_matmul run on the
-// tensor cores instead, through lm_mma.cuh.
+// memory: the float32 instantiations of ssd_scan, flash_attention and
+// bitplane_matmul (whose 1e-4 tolerance rules out bfloat16 or TF32
+// products). Those run 256 threads as a 16 x 16 grid (ty, tx); a thread
+// owns the tile elements (ty + 16 i, tx + 16 j) for i < rm, j < cm, so a
+// warp reads a row of the right-hand operand at consecutive addresses
+// and at most two addresses of the left-hand one. The bfloat16 paths of
+// all three run on the tensor cores instead, through lm_mma.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -12,7 +12,40 @@
 // type. It also writes S after the last chunk (the TPU kernel's scratch
 // at its end), which prefill needs as the decode state.
 //
-// Design. The TPU grid's sequential chunk axis becomes a loop inside one
+// bfloat16 (ssd_fwd_mma, the main path's): on the tensor cores, with
+// mma.sync m16n8k16 (lm_mma.cuh), bfloat16 operands and float32 sums.
+// One block of 8 warps runs `nh` heads of one group (rows bh = g rep + r
+// of one B, C row g) through every chunk, as two head groups of 4 warps
+// (heads 0, 2, ... and 1, 3, ...), each with its own double-buffered ring
+// of tiles and its own barrier; the host picks nh so the grid fills the
+// SMs in the fewest waves (at the main shape, 7 heads a block, 128
+// blocks). Per chunk:
+//   - each head's dt A cumsum (a warp scan), once per chunk and head,
+//     kept times log2 e so each exponential is one exp2f;
+//   - per 64-row block of the chunk (16 rows a warp of each group): C's
+//     rows once into A fragments; the block's C B^T row strip (columns
+//     up to its last row, at most 256 at a time), formed ONCE for all the
+//     block's heads (each group forms half of every 64-column B tile) and
+//     kept in shared memory in float32, in the mma fragment layout of the
+//     rows' warps; then per head: y = exp(cum_i) (C S) + W x, with W =
+//     (C B^T) exp(cum_i - cum_j) dt_j (j <= i) computed in float32 from
+//     the strip and rounded to bfloat16 as W x's A fragment, and x in
+//     double-buffered 64-row tiles (cp.async);
+//   - the state update S <- S exp(cum_Q) + (B w)^T x, w_j = exp(cum_Q -
+//     cum_j) dt_j, with (B w) rounded to bfloat16 as the product's A
+//     fragment (ldmatrix.trans of B's tile, scaled in registers); S stays
+//     float32, in the output s_final (device memory, read and written once
+//     a chunk), and its bfloat16 copy in shared memory is C S's operand.
+// The roundings the plain version lacks: W, S and B w to bfloat16 as
+// operands (C, B and x are bfloat16 already), each one bfloat16 step of
+// its value. Sums are float32 in another order. Rows past the chunk and
+// columns past P, N are zero-filled. P, N <= 128; Q up to what shared
+// memory holds with dt read from device memory (about 40,000 at P = N =
+// 64, 23,000 at 128: above the float32 build's limits).
+//
+// float32 (ssd_fwd): on the CUDA cores, unchanged since first ported (the
+// float32 tolerance, 1e-4, rules out bfloat16 and TF32 products). The
+// TPU grid's sequential chunk axis becomes a loop inside one
 // block of 256 threads per bh, with S resident in shared memory. The
 // TPU kernel's (Q, Q) decay matrix is 256 KB at the model's Q = 256,
 // more than a block's 227 KB, so the intra-chunk term is tiled: for each
@@ -34,13 +67,15 @@
 // it reads 58.7 MB of x, 1.8 MB of dt and 1.0 MB of B and C and writes
 // 58.7 MB of y and 14.7 MB of state: 0.040 ms at 3.35 TB/s. Its products
 // over the causal half of each chunk are 2.3e10 operations, 0.023 ms at
-// the bfloat16 tensor-core rate, so bytes bound it. This first version
-// multiplies in float32 on the CUDA cores (67 TFLOP/s at most, 0.34 ms
-// for the same products); moving them to the tensor cores is later work.
+// the bfloat16 tensor-core rate, so bytes bound it. The float32 build
+// multiplies on the CUDA cores (67 TFLOP/s at most).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
+#include "lm_mma.cuh"
 #include "lm_tiles.cuh"
 
 namespace {
@@ -228,6 +263,498 @@ __global__ void __launch_bounds__(lm::kThreads)
     sf[idx] = S[(idx / P) * pp + idx % P];
 }
 
+// ---------------------------------------------------------------- bf16
+using bf16 = __nv_bfloat16;
+constexpr int kGroupWarps = 4;                 // a head group: 64 rows
+constexpr int kGroupThreads = 32 * kGroupWarps;
+constexpr int kMmaThreads = 2 * kGroupThreads;  // two head groups a block
+constexpr int kRowBlk = 16 * kGroupWarps;      // rows of a chunk a step
+constexpr int kTile = 64;                      // rows of a B or x tile
+constexpr int kStripMax = 256;                 // C B^T columns at a time
+constexpr float kLog2e = 1.4426950408889634f;
+
+// What a bfloat16 launch needs besides its arguments.
+struct MmaGeom {
+  int nh;    // heads a block (the last block of a group may have fewer)
+  int sets;  // blocks a group
+  int nk;    // N / 16, rounded up
+  int pk;    // P / 16, rounded up
+  int js;    // C B^T strip columns
+  int qp;    // Q rounded up to a tile
+  int dts;   // 1: each head's dt for the chunk in shared memory too
+};
+
+__host__ __device__ inline int ldn_of(const MmaGeom& g) { return 16 * g.nk + 8; }
+__host__ __device__ inline int ldp_of(const MmaGeom& g) { return 16 * g.pk + 8; }
+
+// a head group's ring: two stages of a B tile and an x tile
+__host__ __device__ inline int ring_elems(const MmaGeom& g) {
+  return 2 * kTile * (ldn_of(g) + ldp_of(g));
+}
+
+// head groups with heads: the second has none when a block runs one head
+__host__ __device__ inline int groups_of(const MmaGeom& g) {
+  return g.nh < 2 ? 1 : 2;
+}
+
+size_t mma_smem(const MmaGeom& g) {
+  return sizeof(float) * kRowBlk * g.js                  // C B^T strip
+         + sizeof(bf16) * (groups_of(g) * ring_elems(g)   // the rings
+                           + kRowBlk * ldn_of(g)          // C rows
+                           + g.nh * 16 * g.nk * ldp_of(g))  // S, bfloat16
+         + sizeof(float) * (1 + g.dts) * g.nh * g.qp;     // cum (, dt)
+}
+
+// a barrier of one head group's 128 threads (ids 1 and 2; 0 is
+// __syncthreads)
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "r"(kGroupThreads)
+               : "memory");
+}
+
+// rows [0, 64) of a (., W) bfloat16 matrix at src into a [64][ld] tile,
+// the first 16 wk columns, zeros at rows >= valid and columns >= W, by
+// `nt` threads (this one is `tid`). 16-byte cp.async where rows are
+// 16-byte aligned (W % 8 == 0), else plain loads.
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
+                                          int W, int wk, int valid, int tid,
+                                          int nt) {
+  const int wp = 16 * wk;
+  if (W % 8 == 0) {
+    const int cpr = wp / 8;
+    for (int idx = tid; idx < kTile * cpr; idx += nt) {
+      const int r = idx / cpr, c = idx % cpr * 8;
+      const bool ok = r < valid && c < W;
+      lm::cp_async16(lm::smem_u32(dst + r * ld + c),
+                     ok ? src + static_cast<size_t>(r) * W + c : src, ok);
+    }
+  } else {
+    for (int idx = tid; idx < kTile * wp; idx += nt) {
+      const int r = idx / wp, c = idx % wp;
+      dst[r * ld + c] = r < valid && c < W
+                            ? src[static_cast<size_t>(r) * W + c]
+                            : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// acc (16 rows x 16 pk) += A (16 x 16) * rows [16 kk, 16 kk + 16) of a
+// [.][ld] bfloat16 tile (k-major: row k, column p), ldmatrix.trans
+template <int PK>
+__device__ __forceinline__ void mma_rows(float (&acc)[2 * PK][4],
+                                         const uint32_t (&a)[4],
+                                         const bf16* tile, int ld, int kk,
+                                         int pk) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int dp = 0; dp < PK; ++dp) {
+    if (dp >= pk) break;
+    uint32_t b[4];
+    lm::ldmatrix_x4_trans(
+        b, lm::smem_u32(tile + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                   ld +
+                        dp * 16 + (lane >> 4) * 8));
+    lm::mma_bf16_16816(acc[2 * dp], a, b[0], b[1]);
+    lm::mma_bf16_16816(acc[2 * dp + 1], a, b[2], b[3]);
+  }
+}
+
+template <int MK>
+__global__ void __launch_bounds__(kMmaThreads)
+    ssd_fwd_mma(const float* __restrict__ a, const bf16* __restrict__ x,
+                const float* __restrict__ dt, const bf16* __restrict__ b,
+                const bf16* __restrict__ c, bf16* __restrict__ y,
+                float* __restrict__ s_final, int L, int P, int N, int Q,
+                int rep, MmaGeom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldn = ldn_of(g), ldp = ldp_of(g), nn = 16 * g.nk;
+  float* Gs = reinterpret_cast<float*>(smem_raw);  // [4][js/8][32] float4
+  bf16* rings = reinterpret_cast<bf16*>(Gs + kRowBlk * g.js);
+  bf16* Cs = rings + groups_of(g) * ring_elems(g);  // [64][ldn]
+  bf16* Sb = Cs + kRowBlk * ldn;                   // [nh][nn][ldp]
+  float* cum = reinterpret_cast<float*>(Sb + g.nh * nn * ldp);  // [nh][qp]
+  float* dtv = cum + g.nh * g.qp;  // [nh][qp] when g.dts
+
+  const int gb = blockIdx.x / g.sets, set = blockIdx.x % g.sets;
+  const int nh = min(g.nh, rep - set * g.nh);
+  const int bh0 = gb * rep + set * g.nh;  // the block's first head
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp / kGroupWarps, gw = warp % kGroupWarps;
+  const int gtid = threadIdx.x % kGroupThreads;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const bf16* bg = b + static_cast<size_t>(gb) * L * N;
+  const bf16* cg = c + static_cast<size_t>(gb) * L * N;
+  // this group's ring: stage s holds B at Bt + s kTile ldn, x at Xt + ...
+  bf16* Bt = rings + grp * ring_elems(g);
+  bf16* Xt = Bt + 2 * kTile * ldn;
+  // this warp's rows of the C B^T strip, in its mma fragment layout
+  float4* Gw = reinterpret_cast<float4*>(Gs) + gw * (g.js / 8) * 32;
+
+  for (int i = threadIdx.x; i < g.nh * nn * ldp; i += kMmaThreads)
+    Sb[i] = __float2bfloat16_rn(0.f);
+
+  for (int c0 = 0; c0 < L; c0 += Q) {
+    // ---- log2 e times the cumsum of dt A, a warp a head, and dt where
+    // shared memory holds it (else W and the state read it from dt)
+    for (int h = warp; h < nh; h += 2 * kGroupWarps) {
+      const float av = a[bh0 + h];
+      const float* dth = dt + static_cast<size_t>(bh0 + h) * L + c0;
+      float carry = 0.f;
+      for (int t0 = 0; t0 < g.qp; t0 += 32) {
+        const int t = t0 + lane;
+        const float d = t < Q ? dth[t] : 0.f;
+        float v = d * av;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float nb = __shfl_up_sync(0xffffffffu, v, off);
+          if (lane >= off) v += nb;
+        }
+        v += carry;
+        cum[h * g.qp + t] = t < Q ? v * kLog2e : 0.f;
+        if (g.dts) dtv[h * g.qp + t] = d;
+        carry = __shfl_sync(0xffffffffu, v, 31);
+      }
+    }
+    __syncthreads();
+
+    // ---- y, 64 rows of the chunk at a time
+    for (int i0 = 0; i0 < Q; i0 += kRowBlk) {
+      load_tile(Cs, ldn, cg + static_cast<size_t>(c0 + i0) * N, N, g.nk,
+                Q - i0, threadIdx.x, kMmaThreads);
+      lm::cp_async_commit();
+      lm::cp_async_wait<0>();
+      __syncthreads();
+      uint32_t cf[MK][4];
+#pragma unroll
+      for (int kk = 0; kk < MK; ++kk)
+        if (kk < g.nk)
+          lm::ldmatrix_x4(cf[kk],
+                          lm::smem_u32(Cs + (gw * 16 + (lane & 15)) * ldn +
+                                       kk * 16 + (lane >> 4) * 8));
+      const int row_lo = i0 + gw * 16 + gq, row_hi = row_lo + 8;
+      const int j_end = min(i0 + kRowBlk, Q);  // causal: j <= the last row
+      float acc[2 * MK][4];
+
+      for (int js0 = 0; js0 < j_end; js0 += g.js) {
+        const int n_jt = (min(g.js, j_end - js0) + kTile - 1) / kTile;
+        const bool last_strip = js0 + g.js >= j_end;
+        // C B^T for columns [js0, js0 + 64 n_jt), once for every head:
+        // group 0 forms the tile's first 32 columns, group 1 the rest
+        bf16* Bg = rings;  // group 0's ring, shared by both groups here
+        load_tile(Bg, ldn, bg + static_cast<size_t>(c0 + js0) * N, N, g.nk,
+                  Q - js0, threadIdx.x, kMmaThreads);
+        lm::cp_async_commit();
+        for (int jt = 0; jt < n_jt; ++jt) {
+          const int st = jt & 1;
+          if (jt + 1 < n_jt)
+            load_tile(Bg + (st ^ 1) * kTile * ldn, ldn,
+                      bg + static_cast<size_t>(c0 + js0 + (jt + 1) * kTile) * N,
+                      N, g.nk, Q - js0 - (jt + 1) * kTile, threadIdx.x,
+                      kMmaThreads);
+          lm::cp_async_commit();
+          lm::cp_async_wait<1>();
+          __syncthreads();
+          const bf16* Bs = Bg + st * kTile * ldn;
+          float s[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < MK; ++kk) {
+            if (kk >= g.nk) break;
+#pragma unroll
+            for (int np = 0; np < 2; ++np) {
+              uint32_t bb[4];
+              lm::ldmatrix_x4(
+                  bb, lm::smem_u32(Bs + ((2 * grp + np) * 16 +
+                                         (lane >> 4) * 8 + (lane & 7)) * ldn +
+                                   kk * 16 + ((lane >> 3) & 1) * 8));
+              lm::mma_bf16_16816(s[2 * np], cf[kk], bb[0], bb[1]);
+              lm::mma_bf16_16816(s[2 * np + 1], cf[kk], bb[2], bb[3]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            Gw[(jt * 8 + 4 * grp + j) * 32 + lane] =
+                make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+          __syncthreads();  // stage `st` is refilled next
+        }
+
+        // each group its heads (h = grp, grp + 2, ...): y rows += W x
+        const int my_heads = (nh - grp + 1) / 2;
+        const int n_it = my_heads * n_jt;
+        if (n_it > 0)
+          load_tile(Xt, ldp, x + (static_cast<size_t>(bh0 + grp) * L + c0 +
+                                  js0) * P,
+                    P, g.pk, Q - js0, gtid, kGroupThreads);
+        lm::cp_async_commit();
+        for (int it = 0; it < n_it; ++it) {
+          const int h = grp + 2 * (it / n_jt), jt = it % n_jt, st = it & 1;
+          if (it + 1 < n_it) {
+            const int h2 = grp + 2 * ((it + 1) / n_jt), jt2 = (it + 1) % n_jt;
+            load_tile(Xt + (st ^ 1) * kTile * ldp, ldp,
+                      x + (static_cast<size_t>(bh0 + h2) * L + c0 + js0 +
+                           jt2 * kTile) * P,
+                      P, g.pk, Q - js0 - jt2 * kTile, gtid, kGroupThreads);
+          }
+          lm::cp_async_commit();
+          const float* ch = cum + h * g.qp;
+          const float* dh =
+              g.dts ? dtv + h * g.qp : dt + static_cast<size_t>(bh0 + h) * L + c0;
+          if (jt == 0 && js0 == 0) {
+            // exp(cum_i) C_i . S (S from before this chunk; 0 at chunk 0)
+#pragma unroll
+            for (int j = 0; j < 2 * MK; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+            if (c0 > 0) {
+              const bf16* Sh = Sb + h * nn * ldp;
+#pragma unroll
+              for (int kk = 0; kk < MK; ++kk)
+                if (kk < g.nk) mma_rows<MK>(acc, cf[kk], Sh, ldp, kk, g.pk);
+              const float e_lo = row_lo < Q ? exp2f(ch[row_lo]) : 0.f;
+              const float e_hi = row_hi < Q ? exp2f(ch[row_hi]) : 0.f;
+#pragma unroll
+              for (int j = 0; j < 2 * MK; ++j) {
+                acc[j][0] *= e_lo;
+                acc[j][1] *= e_lo;
+                acc[j][2] *= e_hi;
+                acc[j][3] *= e_hi;
+              }
+            }
+          }
+          lm::cp_async_wait<1>();
+          group_sync(grp);
+          // W = (C B^T) exp(cum_i - cum_j) dt_j (j <= i), bfloat16 A
+          // fragments of W x
+          uint32_t pa[4][4];
+          const int jb = js0 + jt * kTile;
+          const float c_lo = row_lo < Q ? ch[row_lo] : 0.f;
+          const float c_hi = row_hi < Q ? ch[row_hi] : 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 gv = Gw[(jt * 8 + j) * 32 + lane];
+            const int j0 = jb + 8 * j + 2 * t4;
+            const float gg[4] = {gv.x, gv.y, gv.z, gv.w};
+            float w[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e < 2 ? row_lo : row_hi, jj = j0 + (e & 1);
+              w[e] = jj <= i && i < Q
+                         ? gg[e] * exp2f((e < 2 ? c_lo : c_hi) - ch[jj]) *
+                               dh[jj]
+                         : 0.f;
+            }
+            pa[j >> 1][2 * (j & 1)] = lm::pack_bf16x2(w[0], w[1]);
+            pa[j >> 1][2 * (j & 1) + 1] = lm::pack_bf16x2(w[2], w[3]);
+          }
+          const bf16* Xs = Xt + st * kTile * ldp;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            mma_rows<MK>(acc, pa[kk], Xs, ldp, kk, g.pk);
+          if (jt == n_jt - 1 && last_strip) {
+            bf16* yh = y + (static_cast<size_t>(bh0 + h) * L + c0) * P;
+#pragma unroll
+            for (int j = 0; j < 2 * MK; ++j) {
+              const int p = 8 * j + 2 * t4;
+              if (p >= P) continue;
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                const int r = hh ? row_hi : row_lo;
+                if (r >= Q) continue;
+                bf16* dst = yh + static_cast<size_t>(r) * P + p;
+                if (P % 2 == 0) {
+                  *reinterpret_cast<uint32_t*>(dst) =
+                      lm::pack_bf16x2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+                } else {
+                  dst[0] = __float2bfloat16_rn(acc[j][2 * hh]);
+                  if (p + 1 < P)
+                    dst[1] = __float2bfloat16_rn(acc[j][2 * hh + 1]);
+                }
+              }
+            }
+          }
+          group_sync(grp);  // stage `st` is refilled next
+        }
+        __syncthreads();  // the strip is read by both groups
+      }
+    }
+
+    // ---- the state: S <- S exp(cum_Q) + (B w)^T x, each group its
+    // heads, a warp a unit of 16 rows of N and 64 columns of P
+    const int pq = (g.pk + 3) / 4, units = g.nk * pq, nq = g.qp / kTile;
+    const int my_heads = (nh - grp + 1) / 2;
+    for (int u0 = 0; u0 < units; u0 += kGroupWarps) {
+      const int u = u0 + gw, ns = u / pq, pg = u % pq;
+      const bool mine = u < units;
+      const int n_it = my_heads * nq;
+      if (n_it > 0) {
+        load_tile(Bt, ldn, bg + static_cast<size_t>(c0) * N, N, g.nk, Q, gtid,
+                  kGroupThreads);
+        load_tile(Xt, ldp, x + (static_cast<size_t>(bh0 + grp) * L + c0) * P,
+                  P, g.pk, Q, gtid, kGroupThreads);
+      }
+      lm::cp_async_commit();
+      float accs[8][4];
+      for (int it = 0; it < n_it; ++it) {
+        const int h = grp + 2 * (it / nq), jt = it % nq, st = it & 1;
+        if (it + 1 < n_it) {
+          const int h2 = grp + 2 * ((it + 1) / nq), jt2 = (it + 1) % nq;
+          load_tile(Bt + (st ^ 1) * kTile * ldn, ldn,
+                    bg + static_cast<size_t>(c0 + jt2 * kTile) * N, N, g.nk,
+                    Q - jt2 * kTile, gtid, kGroupThreads);
+          load_tile(Xt + (st ^ 1) * kTile * ldp, ldp,
+                    x + (static_cast<size_t>(bh0 + h2) * L + c0 +
+                         jt2 * kTile) * P,
+                    P, g.pk, Q - jt2 * kTile, gtid, kGroupThreads);
+        }
+        lm::cp_async_commit();
+        lm::cp_async_wait<1>();
+        group_sync(grp);
+        const float* ch = cum + h * g.qp;
+        const float* dh =
+            g.dts ? dtv + h * g.qp : dt + static_cast<size_t>(bh0 + h) * L + c0;
+        const float cq = ch[Q - 1];
+        if (jt == 0) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) accs[j][e] = 0.f;
+        }
+        if (mine) {
+          const bf16* Bs = Bt + st * kTile * ldn;
+          const bf16* Xs = Xt + st * kTile * ldp;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            // (B w)^T's A fragment: B^T by ldmatrix.trans, each value
+            // times w_j and rounded to bfloat16
+            uint32_t af[4];
+            lm::ldmatrix_x4_trans(
+                af, lm::smem_u32(Bs + (kk * 16 + ((lane >> 4) & 1) * 8 +
+                                       (lane & 7)) * ldn +
+                                 ns * 16 + ((lane >> 3) & 1) * 8));
+            const int j0 = jt * kTile + kk * 16 + 2 * t4;
+            float wj[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int jj = j0 + (e & 1) + (e >> 1) * 8;
+              wj[e] = jj < Q ? exp2f(cq - ch[jj]) * dh[jj] : 0.f;
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float2 v = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&af[r]));
+              const int hi = r >> 1;  // a2, a3: j + 8
+              af[r] = lm::pack_bf16x2(v.x * wj[2 * hi], v.y * wj[2 * hi + 1]);
+            }
+#pragma unroll
+            for (int dq = 0; dq < 4; ++dq) {
+              const int dp = 4 * pg + dq;
+              if (dp >= g.pk) break;
+              uint32_t bb[4];
+              lm::ldmatrix_x4_trans(
+                  bb, lm::smem_u32(Xs + (kk * 16 + ((lane >> 3) & 1) * 8 +
+                                         (lane & 7)) * ldp +
+                                   dp * 16 + (lane >> 4) * 8));
+              lm::mma_bf16_16816(accs[2 * dq], af, bb[0], bb[1]);
+              lm::mma_bf16_16816(accs[2 * dq + 1], af, bb[2], bb[3]);
+            }
+          }
+          if (jt == nq - 1) {
+            // S (float32, in s_final) <- S exp(cum_Q) + accs; its
+            // bfloat16 copy for the next chunk's C S
+            const float e = exp2f(cq);
+            float* sf = s_final + static_cast<size_t>(bh0 + h) * N * P;
+            bf16* Sh = Sb + h * nn * ldp;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int p = 64 * pg + 8 * j + 2 * t4;
+#pragma unroll
+              for (int e2 = 0; e2 < 4; ++e2) {
+                const int n = ns * 16 + gq + (e2 >> 1) * 8, pe = p + (e2 & 1);
+                if (pe >= 16 * g.pk) continue;
+                float v = accs[j][e2];
+                const bool real = n < N && pe < P;
+                if (real) {
+                  float* dst = sf + static_cast<size_t>(n) * P + pe;
+                  if (c0 > 0) v += *dst * e;
+                  *dst = v;
+                }
+                Sh[n * ldp + pe] = __float2bfloat16_rn(real ? v : 0.f);
+              }
+            }
+          }
+        }
+        group_sync(grp);  // stage `st` is refilled next
+      }
+    }
+    __syncthreads();  // S's bfloat16 copy is complete
+  }
+}
+
+int launch_mma(const float* a, const void* x, const float* dt, const void* b,
+               const void* c, void* y, float* s_final, int bh, int L, int P,
+               int N, int Q, int rep, cudaStream_t stream) {
+  MmaGeom g{};
+  g.nk = (N + 15) / 16;
+  g.pk = (P + 15) / 16;
+  g.qp = (Q + kTile - 1) / kTile * kTile;
+  const int groups = bh / rep;
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // dt in shared memory where it fits; the widest C B^T strip that fits
+  // (256 columns, fewer at large P, N or Q); heads a block: one when a
+  // row strip takes more than one pass (a head's y sums stay in registers
+  // across the passes), else the count whose blocks fill the SMs in the
+  // fewest waves of head pairs, the most heads first
+  long best = -1;
+  for (int dts = 1; dts >= 0 && best < 0; --dts) {
+    for (int js = std::min(g.qp, kStripMax); js >= kTile && best < 0;
+         js -= kTile) {
+      const int h_top = g.qp > js ? 1 : std::min(rep, 16);
+      for (int h = h_top; h >= 1; --h) {
+        MmaGeom t = g;
+        t.dts = dts;
+        t.js = js;
+        t.sets = (rep + h - 1) / h;
+        t.nh = (rep + t.sets - 1) / t.sets;
+        const size_t smem = mma_smem(t);
+        if (smem > 227 * 1024) continue;
+        const long per_sm =
+            std::min(static_cast<long>(228 * 1024 / (smem + 1024)), 2L);
+        const long waves =
+            (static_cast<long>(groups) * t.sets + sms * per_sm - 1) /
+            (sms * per_sm);
+        const long cost = waves * ((t.nh + 1) / 2);
+        if (best < 0 || cost < best) {
+          best = cost;
+          g = t;
+        }
+      }
+    }
+  }
+  if (best < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = mma_smem(g);
+  const bool wide = g.nk > 4 || g.pk > 4;
+  cudaError_t e = wide ? lm::allow_smem(ssd_fwd_mma<8>, smem)
+                       : lm::allow_smem(ssd_fwd_mma<4>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(groups * g.sets);
+  auto go = [&](auto kern) {
+    kern<<<grid, kMmaThreads, smem, stream>>>(
+        a, static_cast<const bf16*>(x), dt, static_cast<const bf16*>(b),
+        static_cast<const bf16*>(c), static_cast<bf16*>(y), s_final, L, P, N,
+        Q, rep, g);
+  };
+  if (wide)
+    go(ssd_fwd_mma<8>);
+  else
+    go(ssd_fwd_mma<4>);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const float* a, const void* x, const float* dt, const void* b,
            const void* c, void* y, float* s_final, int bh, int L, int P,
@@ -261,7 +788,6 @@ extern "C" int ssd_scan_launch(int is_bf16, const void* a, const void* x,
   const float* dtf = static_cast<const float*>(dt);
   float* sf = static_cast<float*>(s_final);
   if (is_bf16)
-    return launch<__nv_bfloat16>(af, x, dtf, b, c, y, sf, bh, L, P, N, Q,
-                                 rep, s);
+    return launch_mma(af, x, dtf, b, c, y, sf, bh, L, P, N, Q, rep, s);
   return launch<float>(af, x, dtf, b, c, y, sf, bh, L, P, N, Q, rep, s);
 }

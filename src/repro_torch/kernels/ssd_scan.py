@@ -7,7 +7,10 @@ of q steps, the decay-masked intra-chunk `C B^T` term plus the
 contribution of the (N, P) state carried across the chunks in order,
 reset at chunk 0. Beside y it returns the carried state after the last
 chunk (the TPU kernel's scratch at its end), which prefill hands to
-decode. The D residual and the gating stay outside.
+decode. The D residual and the gating stay outside. With bfloat16
+inputs the kernel multiplies on the tensor cores, with C B^T formed once
+for the heads of a group that a block runs; with float32 inputs on the
+CUDA cores (see the source's header).
 
 Layout: a (BH,), x (BH, L, P), dt (BH, L), b, c (BH // rep, L, N): row
 bh reads B and C row bh // rep, so the heads of a group share their

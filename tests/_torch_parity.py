@@ -137,6 +137,61 @@ def workload_pool(n_lanes: int, seed: int = 0):
     return bank, clen, mlen, cost, state
 
 
+def edge_program(m: int):
+    """Loads and stores at word m - 1 (inside), at word m (a load clamps,
+    a store drops) and at negative word indices (a load reads word 0, a
+    store drops), in every width, then a halt. m <= 400 keeps every
+    address in a 12-bit immediate."""
+    e = isa.encode
+    words = [e("addi", rd=1, rs1=0, imm=4 * (m - 1)),
+             e("addi", rd=5, rs1=0, imm=-1234),
+             e("addi", rd=2, rs1=0, imm=-4),
+             e("sw", rs1=1, rs2=5, imm=0),          # word m - 1
+             e("lw", rd=6, rs1=1, imm=0),
+             e("sb", rs1=1, rs2=5, imm=4),          # word m: dropped
+             e("sh", rs1=1, rs2=5, imm=6),
+             e("lw", rd=7, rs1=1, imm=4),           # clamps to m - 1
+             e("lbu", rd=8, rs1=1, imm=7),
+             e("sw", rs1=2, rs2=5, imm=0),          # word -1: dropped
+             e("sb", rs1=2, rs2=6, imm=-5),
+             e("lh", rd=9, rs1=2, imm=2),           # word -1 -> word 0
+             e("lb", rd=10, rs1=0, imm=-3),
+             e("sh", rs1=1, rs2=9, imm=2),          # word m - 1, high half
+             e("lhu", rd=11, rs1=1, imm=2),
+             e("ecall")]
+    return np.array(words, np.uint32)
+
+
+def edge_soup(rng, n_lanes: int, mem_words: int):
+    """Random programs and the edge programs in one bank, with mixed
+    mem_len (one program at the pool's full width), random lanes, some
+    halted and some past their budget. Returns (bank, code_len, mem_len,
+    state)."""
+    soup = [np.asarray(c).view(np.uint32)
+            for c in (soup_bank(rng, 1, 24, mem_words)[0][0]
+                      for _ in range(4))]
+    mlen = np.concatenate([rng.integers(8, mem_words + 1, 4),
+                           [mem_words, 9, 33, 40, 1]]).astype(np.int32)
+    progs = soup + [edge_program(int(m)) for m in mlen[4:]]
+    bank, clen = pack_programs(progs)
+    st = soup_state(rng, n_lanes, mem_words, len(progs))
+    ms = rng.integers(0, 200, n_lanes).astype(np.int32)
+    ms[rng.random(n_lanes) < 0.5] = 1 << 30
+    return bank, clen, mlen, st._replace(max_steps=ms)
+
+
+def parked_workload_pool(n_lanes: int, seed: int):
+    """`workload_pool` with about a fifth of its lanes halted and a fifth
+    at a zero budget: lanes a segment must leave as they are."""
+    bank, clen, mlen, cost, st = workload_pool(n_lanes, seed=seed)
+    rng = np.random.default_rng(seed)
+    ln = st.lanes
+    st = st._replace(
+        lanes=ln._replace(halted=ln.halted | (rng.random(n_lanes) < 0.2)),
+        max_steps=np.where(rng.random(n_lanes) < 0.2, 0, st.max_steps))
+    return bank, clen, mlen, cost, st
+
+
 def skew_program():
     """Counting loop: iterates mem[0] times, stores the count at mem[1]
     (the program of `benchmarks/fleet.py::skew_program`, built with the

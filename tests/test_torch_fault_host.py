@@ -273,6 +273,29 @@ def test_host_faulty_segments_match_reference_on_soups(host_lib, mode):
         tp.assert_packed_equal(ref, got, f"{mode} segment {k}")
 
 
+def test_host_mem_transients_on_edge_soups_match_reference(host_lib):
+    """Transients on memory only at a high rate (the transform's word is
+    drawn modulo mem_len, so inside [0, mem_len)), on programs that load
+    and store at mem_len - 1, at mem_len and at negative word indices,
+    timing on, nonzero epochs: two segments equal the reference's Pallas
+    kernel under the same schedule, and memory changed."""
+    rng = np.random.default_rng(77)
+    bank, clen, mlen, st = tp.edge_soup(rng, 40, 48)
+    cost = tp.soup_cost(rng, len(clen))
+    kw = dict(rate=0.2, seed=9, targets=("mem",))
+    rspec = rf.FaultSpec(**kw)
+    keys = rf.lane_keys(rspec.seed, 40)
+    epoch = rng.integers(0, 9, 40).astype(np.int32)
+    ref = got = st
+    for k in range(2):
+        ref = tp.ref_segment("pallas", bank, clen, ref, 64, mlen, cost,
+                             faults=rspec, lane_key=keys, epoch=epoch)
+        got = host_segment(host_lib, pf.FaultSpec(**kw), keys, epoch, bank,
+                           clen, got, 64, mlen, cost)
+        tp.assert_packed_equal(ref, got, f"mem transients segment {k}")
+    assert not np.array_equal(got.lanes.mem, st.lanes.mem)
+
+
 @pytest.mark.parametrize("timing", [False, True])
 def test_host_faulty_workloads_match_oracle_to_completion(host_lib, timing):
     """All 11 FlexiBench workloads under a transient schedule over regs,

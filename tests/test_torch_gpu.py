@@ -110,6 +110,19 @@ def test_fault_kernel_matches_plain(cuda, mode, timing):
               faults=spec, epoch=np.arange(77, dtype=np.int32) % 5)
 
 
+@pytest.mark.parametrize("timing", [False, True])
+@pytest.mark.parametrize("mode", ["none"] + sorted(_FAULT_SPECS))
+def test_segment_kernel_mixed_pool_with_parked_lanes(cuda, mode, timing):
+    """The 11 workloads in one pool (memory rows of 64 to 2,824 words),
+    some lanes halted or past their budget, so that the warps' lanes mix
+    programs and parked lanes: every fault mode, full state bit for bit
+    after every segment."""
+    bank, clen, mlen, cost, st = tp.parked_workload_pool(300, seed=12)
+    spec = None if mode == "none" else _FAULT_SPECS[mode]
+    _segments(cuda, bank, clen, mlen, cost if timing else None, st, 256, 2,
+              faults=spec, epoch=np.arange(300, dtype=np.int32) % 3)
+
+
 def test_iss_segment_wrapper_on_card_matches_plain(cuda):
     prog = tp.skew_program()
     mems = tp.skew_mems(prog, 64, 8, 300, 0.3, 5)
@@ -255,10 +268,11 @@ def test_point_mass_f64_on_card_equals_oracles(cuda):
 
 
 # ---------------------------------------------------------- LM kernels
-# The LM kernels sum in another order than their plain versions, and the
-# bfloat16 flash kernel rounds P to bfloat16 for P v: float32 outputs
-# within 1e-4 (relative to the output's scale), bfloat16 outputs within
-# one bfloat16 step (2^-7 relative, 1e-2 here).
+# The LM kernels sum in another order than their plain versions, the
+# bfloat16 flash kernel rounds P to bfloat16 for P v, and the bfloat16
+# scan rounds W, S and B w for its products: float32 outputs within 1e-4
+# (relative to the output's scale), bfloat16 outputs within one bfloat16
+# step (2^-7 relative, 1e-2 here).
 _LM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
@@ -297,9 +311,59 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, shape):
 @pytest.mark.parametrize("shape", [(1, 3, 22, 16, 8, 11, 1),
                                    (2, 4, 128, 32, 16, 64, 1),
                                    (2, 6, 300, 20, 40, 100, 3),
-                                   (1, 8, 512, 64, 64, 256, 1)])
+                                   (1, 8, 512, 64, 64, 256, 1),
+                                   (1, 4, 512, 128, 128, 256, 1),
+                                   (1, 2, 1024, 64, 64, 512, 1)])
 def test_ssd_scan_kernel_matches_plain(cuda, dtype, shape):
+    """Small, ragged and odd head counts; P = N = 128 (the bfloat16
+    kernel's wide build); and a chunk past one C B^T strip (one head a
+    block, several strips a row block)."""
+    _ssd_case(cuda, dtype, shape)
+
+
+_LONG_CHUNK = (1, 1, 3072, 128, 128, 3072, 1)
+
+
+def test_ssd_scan_bf16_long_chunk(cuda):
+    """A 3,072-step chunk at P = N = 128: the bfloat16 kernel's C B^T
+    strips of one row block span twelve passes."""
+    _ssd_case(cuda, torch.bfloat16, _LONG_CHUNK)
+
+
+def test_ssd_scan_f32_long_chunk_against_float64(cuda):
+    """The float32 build at the same 3,072-step chunk, held with its plain
+    version to the scan evaluated in float64. Both take the chunk's
+    cumsum of dt A in float32: each entry is off by about u |cum| (u =
+    2^-24, |cum| in the thousands here), and exp turns the difference of
+    two entries into a relative error of each decay. Each float32 result
+    is within 4 u max|cum| of the exact one, of its scale (2e-4 on the
+    card: past 1e-4, so the two float32 results are more than 1e-4 apart
+    here; ROADMAP queue 3)."""
     from repro_torch.kernels import ssd_scan as pss
+    a, x, dt, b, c, q, rep = _ssd_inputs(cuda, torch.float32, _LONG_CHUNK)
+    y, s = pss.ssd_scan(a, x, dt, b, c, q=q, rep=rep, device=cuda)
+    torch.cuda.synchronize()
+    yp, sp = pss.ssd_scan_plain(a, x, dt, b, c, q=q, rep=rep)
+    # one chunk spans the sequence: every product in float64
+    x64, dt64, b64, c64 = (t.double() for t in (x, dt, b, c))
+    cum = torch.cumsum(dt64 * a.double()[:, None], -1)
+    causal = torch.ones(q, q, dtype=torch.bool, device=cuda).tril()
+    decay = torch.exp((cum[:, :, None] - cum[:, None, :])
+                      .masked_fill(~causal, float("-inf")))
+    y64 = ((c64 @ b64.transpose(1, 2)) * decay * dt64[:, None, :]) @ x64
+    s64 = (b64 * (torch.exp(cum[:, -1:] - cum) * dt64)[:, :, None]
+           ).transpose(1, 2) @ x64
+    tol = max(_LM_TOL[torch.float32], 4 * 2.0 ** -24
+              * float(cum.abs().max()))
+    for what, got, want in (("kernel y", y, y64), ("kernel state", s, s64),
+                            ("plain y", yp, y64), ("plain state", sp, s64)):
+        err = float((got.double() - want).abs().max())
+        assert err <= tol * max(1.0, float(want.abs().max())), (what, err)
+
+
+def _ssd_inputs(cuda, dtype, shape):
+    """(a, x, dt, b, c, q, rep) for shape (batch, heads, L, P, N, chunk,
+    groups), drawn on the card from a seed."""
     bt, h, l, p, n, q, groups = shape
     g = torch.Generator(device=cuda).manual_seed(l + p)
     x = _rand(g, (bt * h, l, p), dtype, cuda)
@@ -308,7 +372,12 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, shape):
     a = -torch.exp(_rand(g, (bt * h,), torch.float32, cuda, 0.3))
     b = _rand(g, (bt * groups, l, n), dtype, cuda, 0.5)
     c = _rand(g, (bt * groups, l, n), dtype, cuda, 0.5)
-    rep = h // groups
+    return a, x, dt, b, c, q, h // groups
+
+
+def _ssd_case(cuda, dtype, shape):
+    from repro_torch.kernels import ssd_scan as pss
+    a, x, dt, b, c, q, rep = _ssd_inputs(cuda, dtype, shape)
     y, s = pss.ssd_scan(a, x, dt, b, c, q=q, rep=rep, device=cuda)
     torch.cuda.synchronize()
     yp, sp = pss.ssd_scan_plain(a, x, dt, b, c, q=q, rep=rep)

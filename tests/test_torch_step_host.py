@@ -15,8 +15,11 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch
 
 import _torch_parity as tp
+from repro_torch import convert
+from repro_torch.flexibits import iss
 from repro_torch.flexibits.iss import ISSState, PackedState
 
 CSRC = (pathlib.Path(__file__).resolve().parent.parent / "src"
@@ -145,3 +148,51 @@ def test_host_step_matches_reference_on_workloads(host_lib, timing):
     st = host_segment(host_lib, bank, clen, st, 70_000, mlen, cost)
     assert st.lanes.halted.all()
     tp.assert_packed_equal(ref, st, "workloads to completion")
+
+
+def plain_segment(bank, clen, state, seg_steps, mem_len, cost=None):
+    """The port's plain stepper on the CPU, numpy in and out."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    out = iss.run_segment_lanes_banked(
+        t(bank), t(clen), convert.packed_to_torch(state, "cpu"), seg_steps,
+        None, t(mem_len), None if cost is None else t(cost))
+    return convert.packed_to_numpy(out)
+
+
+@pytest.mark.parametrize("timing", [False, True])
+def test_host_step_matches_reference_on_edge_soups(host_lib, timing):
+    """Random and edge programs with mixed mem_len (loads and stores at
+    mem_len - 1, at mem_len and at negative word indices), halted and
+    over-budget lanes: two 64-step segments equal the reference's Pallas kernel (interpret mode) and the port's
+    plain stepper over the full state."""
+    rng = np.random.default_rng(31 + timing)
+    bank, clen, mlen, st = tp.edge_soup(rng, 48, 48)
+    cost = tp.soup_cost(rng, len(clen)) if timing else None
+    ref = plain = got = st
+    for k in range(2):
+        ref = tp.ref_segment("pallas", bank, clen, ref, 64, mlen, cost)
+        plain = plain_segment(bank, clen, plain, 64, mlen, cost)
+        got = host_segment(host_lib, bank, clen, got, 64, mlen, cost)
+        tp.assert_packed_equal(ref, got, f"edge segment {k} vs reference")
+        tp.assert_packed_equal(plain, got, f"edge segment {k} vs plain")
+
+
+def test_host_step_workloads_with_parked_lanes_match_reference(host_lib):
+    """The 11 FlexiBench workloads (mem_len 64 to 2,824 words) with
+    halted and over-budget lanes mixed in: two segments equal the
+    reference's Pallas kernel and the plain stepper, and the parked lanes
+    are left as they were."""
+    bank, clen, mlen, cost, st = tp.parked_workload_pool(33, seed=8)
+    parked = st.lanes.halted | (st.lanes.n_instr >= st.max_steps)
+    assert 0 < parked.sum() < 33
+    ref = plain = got = st
+    for k in range(2):
+        ref = tp.ref_segment("pallas", bank, clen, ref, 96, mlen, cost)
+        plain = plain_segment(bank, clen, plain, 96, mlen, cost)
+        got = host_segment(host_lib, bank, clen, got, 96, mlen, cost)
+        tp.assert_packed_equal(ref, got, f"workload segment {k} vs ref")
+        tp.assert_packed_equal(plain, got, f"workload segment {k} vs plain")
+    np.testing.assert_array_equal(got.lanes.n_instr[parked],
+                                  st.lanes.n_instr[parked])
+    np.testing.assert_array_equal(got.lanes.mem[parked],
+                                  st.lanes.mem[parked])
