@@ -29,21 +29,27 @@ Phases (each prints its own lines; any failure exits non-zero):
 6. profile: the main path once more under torch.profiler, for the
    device's busy share, its time by kernel, and the segment kernel's
    device time per launch on the path's own pool;
-7. sweep kernel: `sweep_tile` against its plain PyTorch version on the
-   card: three streamed tiles of 12 cells x 8 draws x 3 candidates (+inf
-   lifetimes, invalid cells, exact ties) in float32 and float64, then
-   the sweep's main tile (1,024 cells x 4,096 draws x 9 candidates,
-   float32), timed with CUDA events;
+7. sweep kernel, both builds against their plain PyTorch versions on the
+   card: (a) `sweep_tile`, lifetimes read from memory, on three streamed
+   tiles of 12 cells x 8 draws x 3 candidates (+inf lifetimes, invalid
+   cells, exact ties); (b) `sweep_tile_drawn`, lifetimes drawn in the
+   kernel, on three streamed tiles of 12 cells x 40 draws, its lifetimes
+   within the CPU tests' ulp bound of the plain draws and every output
+   equal to the plain tile given them; each in float32 and float64, then
+   at the sweep's main tile (1,024 cells x 4,096 draws x 9 candidates,
+   float32), timed with CUDA events against its bound;
 8. small sweep: the reference test's mixture spec on the card and on the
-   CPU (the CPU fed the card's lifetimes), at four tile sizes on the card,
-   and the float64 point-mass spec against `total_grid`/`selection_map`;
+   CPU (the CPU fed the card kernel's own lifetimes), at four tile sizes
+   on the card, and the float64 point-mass spec against
+   `total_grid`/`selection_map`;
 9. main sweep: all 11 workloads x 4 lifetime distributions x 5
    frequencies x 4 intensities x 3 volumes x 3 timing models x 2 fault
    rates (15,840 cells) x 4,096 draws, argmin over 3 cores x 3
    redundancy modes, through `run_sweep` on the card in float32, with
-   launch counts showing that the kernel, and never its plain version,
-   ran every tile, every field bit-identical at a second tile size, and
-   once more under torch.profiler;
+   launch counts showing that the drawn kernel ran every tile and that
+   neither plain version, build (a) nor the eager draws ran, every field
+   bit-identical on a rerun and at a second tile size, and once more
+   under torch.profiler;
 10. fault kernel: the `faults` variant of `iss_segment_banked` against
    its plain version, full state bit for bit, on a 256-lane pool of 3
    programs (two 256-step segments, timing off and on) under transients
@@ -101,8 +107,9 @@ Phases (each prints its own lines; any failure exits non-zero):
 It ends with a `kernels:` line of launch counts, one JSON line
 `{"kernels": [...]}` with an entry per kernel (times, bound, launches,
 error; the segment kernel's faults variant has its own entry, launched
-on phase 12's path; the bit-plane kernel's launches are phase 15's
-quantized path), the card's nvidia-smi line, and as the last line
+on phase 12's path; the sweep kernel's two builds each have one, the
+drawn build launched on phase 9's path and build (a) on none; the
+bit-plane kernel's launches are phase 15's quantized path), the card's nvidia-smi line, and as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
 held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
 its per-cell sums, which follow no fixed order (relative 2 (N - 1) u),
@@ -144,6 +151,11 @@ OPS_PER_STEP = 64
 # flip (about 25), counted per fire
 FAULT_OPS_PER_STEP = 10
 FAULT_OPS_PER_FIRE = 25
+# int32 operations of one threefry2x32 hash in sweep_draws.cuh: 20 rounds
+# of an add, a funnel shift and a xor (60), 5 key injections of three adds
+# (15), the first key add (2) and the conversion to a float (xor, shift,
+# or, subtract: 4)
+OPS_PER_HASH = 81
 
 SEG = ("iss_segment_banked", "src/repro_torch/kernels/csrc/iss_segment.cu",
        "src/repro/kernels/iss_stepper.py:246")
@@ -151,6 +163,9 @@ REF = ("iss_refill", "src/repro_torch/kernels/csrc/iss_refill.cu",
        "src/repro/kernels/iss_stepper.py:418")
 SWEEP = ("carbon_sweep", "src/repro_torch/kernels/csrc/carbon_sweep.cu",
          "src/repro/kernels/carbon_sweep.py:408")
+SWEEP_DRAWN = ("carbon_sweep[drawn]",
+               "src/repro_torch/kernels/csrc/carbon_sweep.cu",
+               "src/repro/kernels/carbon_sweep.py:408")
 SEG_FAULTS = ("iss_segment_banked[faults]",
               "src/repro_torch/kernels/csrc/iss_segment.cu",
               "src/repro/kernels/iss_stepper.py:152")
@@ -537,9 +552,52 @@ def phase_profile(dev):
     log_per_launch("profile", rows)
 
 
+def queued_ms(fn, reps):
+    """Device time of `reps` back-to-back calls, from CUDA events; a sleep
+    queued first lets the host enqueue them all before the device reaches
+    the first, so host overhead stays out."""
+    import torch
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e8))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def exact_err(want, got):
+    """Largest |a - b| over the sweep fields held exactly (numpy TileOut
+    and accumulators of one tile; equal infinities count as 0, and a
+    value at a bin edge would show here)."""
+    import numpy as np
+    (w_out, w_acc), (g_out, g_acc) = want, got
+    err = 0.0
+    pairs = [(getattr(w_out, f), getattr(g_out, f))
+             for f in ("best_total", "best_core", "counts", "min_best",
+                       "max_best")] + list(zip(w_acc, g_acc))
+    for a, b in pairs:
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        with np.errstate(invalid="ignore"):         # inf - inf, masked
+            d = np.where(a == b, 0.0, np.abs(a - b))
+        err = max(err, float(d.max()) if d.size else 0.0)
+    return err
+
+
+def sweep_bound(nbytes, n_ops, ops_per_s):
+    """(bound ms, "bytes" or "operations", bytes ms, operations ms)."""
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = n_ops / ops_per_s * 1e3
+    return (max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops
+            else "operations", b_bytes, b_ops)
+
+
 def phase_sweep_kernel(dev, rec):
-    """sweep_tile against its plain version: small streamed tiles in
-    float32 and float64, then the main path's tile, timed."""
+    """Both builds of the sweep kernel against their plain versions: small
+    streamed tiles in float32 and float64, then the main path's tile,
+    timed against its bound."""
     import numpy as np
     import torch
     import _torch_parity as tp
@@ -548,80 +606,123 @@ def phase_sweep_kernel(dev, rec):
 
     worst = 0.0
     for dtype in (np.float32, np.float64):
+        name = np.dtype(dtype).name
         cases = tp.stream_cases(np.random.default_rng(7), dtype)
         got = tp.port_stream(cases, dtype, dev)
         torch.cuda.synchronize()
         want = tp.port_stream(cases, dtype, dev, fn=cs.sweep_tile_plain)
-        w = tp.assert_streams_equal(cases, want, got, dtype,
-                                    np.dtype(dtype).name)
+        w = tp.assert_streams_equal(cases, want, got, dtype, name)
         worst = max(worst, w)
-        log(f"[sweep kernel] 3 streamed tiles of 12 cells x 8 draws x 3-4 "
-            f"candidates, {np.dtype(dtype).name}: equal to the plain "
-            f"version (largest relative sum difference {w:.3g})")
+        log(f"[sweep kernel] (a) 3 streamed tiles of 12 cells x 8 draws x "
+            f"3-4 candidates, {name}: equal to the plain version (largest "
+            f"relative sum difference {w:.3g})")
+        cases = tp.drawn_stream_cases(np.random.default_rng(9), dtype,
+                                      n_draws=40)
+        outs, accs, lifes = tp.port_stream_drawn(cases, dtype, dev)
+        torch.cuda.synchronize()
+        _, _, plain = tp.port_stream_drawn(cases, dtype, dev,
+                                           fn=cs.sweep_tile_drawn_plain)
+        ulps = max(int(tp.ulps(a, b).max()) for a, b in zip(plain, lifes))
+        if ulps > tp.LIFE_ULPS[dtype]:
+            raise AssertionError(f"drawn {name}: lifetimes {ulps} ulps from "
+                                 f"the plain draws")
+        fed = tp.with_lifetimes(cases, lifes)
+        want = tp.port_stream(fed, dtype, dev, fn=cs.sweep_tile_plain)
+        w = tp.assert_streams_equal(fed, want, (outs, accs), dtype, name)
+        worst = max(worst, w)
+        log(f"[sweep kernel] (b) 3 streamed drawn tiles of 12 cells x 40 "
+            f"draws x 3-4 candidates, {name}: lifetimes within {ulps} ulps "
+            f"of the plain draws; given them, equal to the plain tile "
+            f"(largest relative sum difference {w:.3g})")
 
     # the main path's tile: 1,024 cells x 4,096 draws x 9 candidates
     TC, N, C = 1024, 4096, 9
+    np_out = lambda o: cs.TileOut(*(x.cpu().numpy() for x in o))  # noqa
+    fresh = lambda: cs.init_acc(64, 32, torch.float32, dev)  # noqa: E731
+    sum_tol = 2 * (N - 1) * 2.0 ** -24
+
+    # build (a): lifetimes read from device memory
     case = tp.tile_inputs(np.random.default_rng(8), TC, N, C, np.float32,
                           inf_cells=2, invalid_frac=0.05)
     args = [torch.from_numpy(case[k]).to(dev) for k in tp.TILE_ORDER]
-    fresh = lambda: cs.init_acc(64, 32, torch.float32, dev)  # noqa: E731
     out, acc = cs.sweep_tile(*args, fresh(), device=dev, **tp.TILE_KW)
     torch.cuda.synchronize()
     pout, pacc = cs.sweep_tile_plain(*args, fresh(), **tp.TILE_KW)
-    np_out = lambda o: cs.TileOut(*(x.cpu().numpy() for x in o))  # noqa
     want = ([np_out(pout)], [convert.sweep_acc_to_numpy(pacc)])
     got = ([np_out(out)], [convert.sweep_acc_to_numpy(acc)])
     w = tp.assert_streams_equal([case], want, got, np.float32, "main tile")
     worst = max(worst, w)
-    # largest |kernel - plain| over the fields held exactly (equal
-    # infinities count as 0; a value at a bin edge would show here)
-    err = 0.0
-    exact = [(getattr(want[0][0], f), getattr(got[0][0], f))
-             for f in ("best_total", "best_core", "counts", "min_best",
-                       "max_best")] + list(zip(want[1][0], got[1][0]))
-    for a, b in exact:
-        a, b = a.astype(np.float64), b.astype(np.float64)
-        with np.errstate(invalid="ignore"):         # inf - inf, masked
-            d = np.where(a == b, 0.0, np.abs(a - b))
-        err = max(err, float(d.max()) if d.size else 0.0)
-
-    def timed(fn, reps):
-        """Device time of `reps` back-to-back calls, from CUDA events; a
-        sleep queued first lets the host enqueue them all before the
-        device reaches the first, so host overhead stays out."""
-        a, b = torch.cuda.Event(enable_timing=True), \
-            torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(2e8))
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
+    err = exact_err((want[0][0], want[1][0]), (got[0][0], got[1][0]))
     acc_t = fresh()
-    times = [timed(lambda: cs.sweep_tile(*args, acc_t, device=dev,
-                                         **tp.TILE_KW), 10)
+    times = [queued_ms(lambda: cs.sweep_tile(*args, acc_t, device=dev,
+                                             **tp.TILE_KW), 10)
              for _ in range(3)]
-    plain = [timed(lambda: cs.sweep_tile_plain(*args, fresh(),
-                                               **tp.TILE_KW), 1)
+    plain = [queued_ms(lambda: cs.sweep_tile_plain(*args, fresh(),
+                                                   **tp.TILE_KW), 1)
              for _ in range(3)]
     nbytes = sum(t.numel() * t.element_size() for t in args) \
         + 2 * sum(t.numel() * t.element_size() for t in acc) \
         + sum(t.numel() * t.element_size() for t in out)
     n_ops = 4 * TC * N * C          # 2 mul, 1 add, 1 compare per candidate
-    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    b_ops = n_ops / FP32_OPS_PER_S * 1e3
+    bound, by, b_bytes, b_ops = sweep_bound(nbytes, n_ops, FP32_OPS_PER_S)
     ms, plain_ms = sorted(times)[1], sorted(plain)[1]
-    rec["carbon_sweep"] = dict(
-        ms=ms, plain_ms=plain_ms, max_abs_err=err,
-        bound_ms=max(b_bytes, b_ops),
-        bound_by="bytes" if b_bytes >= b_ops else "operations")
-    log(f"[sweep kernel] main tile {TC} cells x {N} draws x {C} candidates "
-        f"float32: equal to the plain version (largest relative sum "
-        f"difference {w:.3g}, bound {2 * (N - 1) * 2.0 ** -24:.3g}); kernel "
-        f"{ms:.4f} ms (runs {', '.join(f'{x:.4f}' for x in times)}), plain "
-        f"{plain_ms:.2f} ms; bound {max(b_bytes, b_ops):.4f} ms (bytes "
-        f"{nbytes} -> {b_bytes:.4f}, operations {n_ops} -> {b_ops:.4f})")
+    rec[SWEEP[0]] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                         bound_ms=bound, bound_by=by)
+    log(f"[sweep kernel] (a) main tile {TC} cells x {N} draws x {C} "
+        f"candidates float32: equal to the plain version (largest relative "
+        f"sum difference {w:.3g}, bound {sum_tol:.3g}); kernel {ms:.4f} ms "
+        f"(runs {', '.join(f'{x:.4f}' for x in times)}), plain "
+        f"{plain_ms:.2f} ms; bound {bound:.4f} ms (bytes {nbytes} -> "
+        f"{b_bytes:.4f}, operations {n_ops} -> {b_ops:.4f})")
+
+    # build (b): lifetimes drawn in the kernel, as the sweep runs it
+    case = tp.drawn_tile_inputs(np.random.default_rng(10), TC, N, C,
+                                np.float32, invalid_frac=0.05)
+    args = [torch.from_numpy(case[k]).to(dev) for k in tp.DRAWN_ORDER]
+    kw = dict(tp.TILE_KW, n_draws=N, day_s=tp.DAY_S)
+    key = case["key"]
+    life = torch.empty((TC, N), dtype=torch.float32, device=dev)
+    out, acc = cs.sweep_tile_drawn(key, *args, fresh(), life_out=life,
+                                   device=dev, **kw)
+    torch.cuda.synchronize()
+    plife = torch.empty_like(life)
+    cs.sweep_tile_drawn_plain(key, *args, fresh(), life_out=plife, **kw)
+    ulps = tp.ulps(plife.cpu().numpy(), life.cpu().numpy())
+    if ulps.max() > tp.LIFE_ULPS[np.float32]:
+        raise AssertionError(f"drawn main tile: lifetimes {ulps.max()} ulps "
+                             f"from the plain draws")
+    fed = tp.with_lifetimes([case], [life.cpu().numpy()])
+    fargs = [torch.from_numpy(fed[0][k]).to(dev) for k in tp.TILE_ORDER]
+    pout, pacc = cs.sweep_tile_plain(*fargs, fresh(), **tp.TILE_KW)
+    want = ([np_out(pout)], [convert.sweep_acc_to_numpy(pacc)])
+    got = ([np_out(out)], [convert.sweep_acc_to_numpy(acc)])
+    w = tp.assert_streams_equal(fed, want, got, np.float32, "drawn tile")
+    worst = max(worst, w)
+    err = exact_err((want[0][0], want[1][0]), (got[0][0], got[1][0]))
+    acc_t = fresh()
+    times = [queued_ms(lambda: cs.sweep_tile_drawn(
+        key, *args, acc_t, best_core=False, device=dev, **kw), 10)
+        for _ in range(3)]
+    plain = [queued_ms(lambda: cs.sweep_tile_drawn_plain(
+        key, *args, fresh(), **kw), 1) for _ in range(3)]
+    out_t, _ = cs.sweep_tile_drawn(key, *args, acc_t, best_core=False,
+                                   device=dev, **kw)
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + 2 * sum(t.numel() * t.element_size() for t in acc) \
+        + sum(t.numel() * t.element_size() for t in out_t if t is not None)
+    n_ops = OPS_PER_HASH * (2 * TC * N + TC)   # two uniforms a draw, fold_in
+    bound, by, b_bytes, b_ops = sweep_bound(nbytes, n_ops, INT32_OPS_PER_S)
+    ms, plain_ms = sorted(times)[1], sorted(plain)[1]
+    rec[SWEEP_DRAWN[0]] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                               bound_ms=bound, bound_by=by)
+    log(f"[sweep kernel] (b) main drawn tile {TC} cells x {N} draws x {C} "
+        f"candidates float32: lifetimes within {ulps.max()} ulps of the "
+        f"plain draws ({int((ulps > 0).sum())} of {ulps.size} differ); "
+        f"given them, equal to the plain tile (largest relative sum "
+        f"difference {w:.3g}); kernel without best_core {ms:.4f} ms (runs "
+        f"{', '.join(f'{x:.4f}' for x in times)}), plain {plain_ms:.2f} ms; "
+        f"bound {bound:.4f} ms (bytes {nbytes} -> {b_bytes:.4f}, int32 "
+        f"operations {n_ops} -> {b_ops:.4f})")
     log(f"[sweep kernel] largest relative sum difference seen: {worst:.3g}")
 
 
@@ -638,11 +739,10 @@ def phase_small_sweep(dev):
                                             device=dev)
     life_card = tp.sweep_life_days(spec, np.float32, dev, spec.n_cells)
     life_cpu = tp.sweep_life_days(spec, np.float32, "cpu", spec.n_cells)
-    ulps = np.abs(life_card.view(np.int32).astype(np.int64)
-                  - life_cpu.view(np.int32).astype(np.int64))
-    if ulps.max() > 64:
+    ulps = tp.ulps(life_card, life_cpu)
+    if ulps.max() > tp.LIFE_ULPS[np.float32]:
         raise AssertionError(f"card and CPU lifetimes differ by "
-                             f"{ulps.max()} ulps (> 64)")
+                             f"{ulps.max()} ulps")
     cpu, _, _ = tp.run_sweep_recorded(spec, life_days=life_card,
                                       tile_cells=48, device="cpu")
     w = tp.assert_sweeps_equal(cpu, card, sw.build_tables(spec), best, emb,
@@ -650,7 +750,8 @@ def phase_small_sweep(dev):
     if card.frontier() != cpu.frontier():
         raise AssertionError("mixture: frontier rows differ")
     log(f"[small sweep] mixture spec ({spec.n_cells} cells x {spec.draws} "
-        f"draws): lifetimes card vs CPU within {ulps.max()} ulps "
+        f"draws): the card kernel's lifetimes vs the CPU's within "
+        f"{ulps.max()} ulps "
         f"({int((ulps > 0).sum())} of {ulps.size} differ); CPU fed the "
         f"card's lifetimes equals the card's sweep (means within relative "
         f"{w:.3g}), frontier rows equal")
@@ -699,8 +800,13 @@ def main_sweep_spec():
 
 
 def phase_main_sweep(dev):
+    """The main sweep through `run_sweep` on the card: 16 drawn-kernel
+    launches and no eager draw, bit-identical on a rerun and at tile
+    1,536, then under torch.profiler. Returns the launches of both
+    builds on the main sweep's run."""
     import numpy as np
     import _torch_parity as tp
+    from repro_torch import prng
     from repro_torch.core import sweep as sw
     from repro_torch.kernels import carbon_sweep as cs
 
@@ -711,20 +817,39 @@ def phase_main_sweep(dev):
         f"{spec.draws} draws = {spec.n_scenarios} scenarios, "
         f"{spec.n_candidates} candidates")
     n_tiles = -(-spec.n_cells // 1024)
+    # count the eager draws too: the card's sweep must not call them
+    eager = {"_Step.life_days": 0, "prng.uniform": 0}
+
+    def counted(fn, name):
+        def call(*a, **k):
+            eager[name] += 1
+            return fn(*a, **k)
+        return call
+    life_days, uniform = sw._Step.life_days, prng.uniform
+    sw._Step.life_days = counted(life_days, "_Step.life_days")
+    prng.uniform = counted(uniform, "prng.uniform")
     cs.reset_counts()
-    res = sw.run_sweep(spec, tile_cells=1024, device=dev)
-    launches, plain = cs.sweep_tile.launches, cs.sweep_tile.plain_calls
-    if launches != n_tiles or plain:
-        raise AssertionError(f"main sweep: {launches} launches for "
-                             f"{n_tiles} tiles, {plain} plain calls")
+    try:
+        res = sw.run_sweep(spec, tile_cells=1024, device=dev)
+    finally:
+        sw._Step.life_days, prng.uniform = life_days, uniform
+    launches = cs.sweep_tile_drawn.launches
+    counts = {SWEEP[0]: cs.sweep_tile.launches, SWEEP_DRAWN[0]: launches}
+    other = (cs.sweep_tile_drawn.plain_calls, cs.sweep_tile.launches,
+             cs.sweep_tile.plain_calls)
+    if launches != n_tiles or any(other) or any(eager.values()):
+        raise AssertionError(
+            f"main sweep: {launches} drawn launches for {n_tiles} tiles; "
+            f"drawn plain calls, sweep_tile launches and plain calls "
+            f"{other}; eager draws {eager}")
     if int(res.hist.sum()) != spec.n_scenarios:
         raise AssertionError(f"main sweep: histogram holds "
                              f"{int(res.hist.sum())} scenarios")
     log(f"[main sweep] run_sweep tile 1024: {res.n_scenarios} scenarios in "
         f"{res.wall_s:.3f}s wall = {res.scenarios_per_s:.4g} scenarios/s, "
-        f"{res.host_syncs} blocking host syncs, {launches} kernel launches "
-        f"({n_tiles} tiles), 0 plain calls, histogram total "
-        f"{int(res.hist.sum())}")
+        f"{res.host_syncs} blocking host syncs, {launches} sweep_tile_drawn "
+        f"launches ({n_tiles} tiles), 0 plain calls, 0 sweep_tile launches, "
+        f"eager draws {eager}, histogram total {int(res.hist.sum())}")
     again = sw.run_sweep(spec, tile_cells=1024, device=dev)
     wide = sw.run_sweep(spec, tile_cells=1536, device=dev)
     tp.assert_sweeps_identical(res, again, "main sweep rerun")
@@ -744,22 +869,23 @@ def phase_main_sweep(dev):
     if busy is None:
         log("[main sweep] the profiler saw no device activity: device busy "
             "share not measured")
-        return launches
+        return counts
     log(f"[main sweep] under torch.profiler: {wall:.3f}s wall "
         f"({prof.wall_s:.3f}s inside run_sweep), device busy "
         f"{busy:.4f}s = share {busy / wall:.4f} of the wall")
     # device time by layer, over the device rows themselves (the aten::
     # rows repeat their kernels' time); rows that are no kernel (launch
     # queue full, event queries) get their own bucket
-    layers = {"carbon_sweep kernel": 0.0, "sort": 0.0, "copies": 0.0,
-              "draws, lifetimes, gathers (eager elementwise)": 0.0,
+    layers = {"carbon_sweep kernel (draws fused)": 0.0, "sort": 0.0,
+              "copies": 0.0,
+              "decode, gathers, statistics (eager elementwise)": 0.0,
               "no kernel (launch queue full, event queries)": 0.0}
     kernels = [r for r in krows if r.self_device_time_total > 0
                and not r.key.startswith("aten::")]
     for r in kernels:
         k = r.key
         if "sweep_cells_kernel" in k or "sweep_pareto_kernel" in k:
-            g = "carbon_sweep kernel"
+            g = "carbon_sweep kernel (draws fused)"
         elif "ort" in k or "adix" in k:
             g = "sort"
         elif "emcpy" in k or "emset" in k:
@@ -767,13 +893,13 @@ def phase_main_sweep(dev):
         elif k.startswith("cuda") or k == "Command Buffer Full":
             g = "no kernel (launch queue full, event queries)"
         else:
-            g = "draws, lifetimes, gathers (eager elementwise)"
+            g = "decode, gathers, statistics (eager elementwise)"
         layers[g] += r.self_device_time_total / 1e3
     total = sum(layers.values())
     log("[main sweep] device time by layer: " + "; ".join(
         f"{g} {ms:.2f} ms ({ms / total:.3f})" for g, ms in layers.items()))
     log_rows("main sweep", kernels, 12)
-    return launches
+    return counts
 
 FAULT_CASES = (
     ("transient regs+mem+pc 1e-2",
@@ -1788,7 +1914,7 @@ def main() -> int:
     phase_small_sweep(dev)
     log(f"[small sweep] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    counts["carbon_sweep"] = phase_main_sweep(dev)
+    counts.update(phase_main_sweep(dev))
     log(f"[main sweep] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_fault_kernel(dev, rec)
@@ -1811,8 +1937,8 @@ def main() -> int:
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []
-    for name_, src, replaces in (SEG, REF, SWEEP, SEG_FAULTS, FLASH, SSD,
-                                 BITPLANE):
+    for name_, src, replaces in (SEG, REF, SWEEP, SWEEP_DRAWN, SEG_FAULTS,
+                                 FLASH, SSD, BITPLANE):
         r = rec[name_]
         out.append({"name": name_, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name_],

@@ -10,16 +10,19 @@ with Monte Carlo lifetime draws (point / lognormal / Weibull mixtures),
 walked in fixed tiles of cells. Per tile:
 
 - **Counter-based draws.** Scenario (cell, draw) takes its uniforms from
-  `fold_in(key, global cell index)` (`prng.py`, JAX's threefry bits
-  exactly), so a sweep is bit-identical at any tile size, and equal in
-  its uniforms to the reference's. Inverse-CDF lifetimes follow in eager
-  torch (`torch.special.ndtri`, `exp`, `log1p`, `pow` in the reference's
-  op order; these differ from XLA's by a few ulp).
-- **One kernel per tile.** The candidate argmin, the per-cell draw
-  statistics, the log-binned histogram and the binned Pareto frontier
-  reduce in `kernels/carbon_sweep.py::sweep_tile` (CUDA on the card, its
-  plain version on the CPU); the percentiles come from `torch.sort` of
-  the tile's best totals.
+  `fold_in(key, global cell index)` (JAX's threefry bits exactly), so a
+  sweep is bit-identical at any tile size, and equal in its uniforms to
+  the reference's. Inverse-CDF lifetimes follow in the reference's op
+  order (`kernels/sweep_draws.py`; `ndtri`, `exp`, `log1p` and `pow`
+  differ from XLA's by a few ulp).
+- **One kernel per tile.** On the card,
+  `kernels/carbon_sweep.py::sweep_tile_drawn` draws the lifetimes in
+  registers and reduces them in one CUDA kernel: the candidate argmin,
+  the per-cell draw statistics, the log-binned histogram and the binned
+  Pareto frontier. On the CPU the draws run in eager torch
+  (`prng.py`, `sweep_draws.lifetimes`) and `sweep_tile` runs its plain
+  version. The percentiles come from `torch.sort` of the tile's best
+  totals.
 - **No host sync per tile.** Per-cell statistics are written into
   device-resident (cells,) buffers and copied to the host once at the
   end (the reference reads every tile back); the int32 histogram and the
@@ -50,11 +53,10 @@ from repro_torch.core.carbon import (REDUNDANCY_MODES, DeviceProfile,
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.flexibits.cycles import CLOCK_HZ, CORES, Core
 from repro_torch.kernels import carbon_sweep as csk
+from repro_torch.kernels import sweep_draws
+from repro_torch.kernels.sweep_draws import LOGNORMAL, POINT, WEIBULL
 
 I32 = torch.int32
-
-# lifetime-distribution component kinds
-POINT, LOGNORMAL, WEIBULL = 0, 1, 2
 TIMING_MODES = ("base", "dynamic", "wcet", "measured")
 
 DAY_S = 86_400.0
@@ -347,34 +349,8 @@ def build_tables(spec: SweepSpec, n_hist: int = 64,
 
 
 # ------------------------------------------------------- scenario draws
-def _uniforms(key: Tuple[int, int], cell: torch.Tensor, draws: int,
-              dtype: torch.dtype) -> torch.Tensor:
-    """(tile, draws, 2) uniforms: `fold_in(key, global cell index)`, then
-    a (draws, 2) draw per cell key — JAX's bits, a pure function of the
-    GLOBAL cell index, so any tiling replays the same scenarios."""
-    u = prng.uniform(prng.fold_in(key, cell), 2 * draws, dtype)
-    return u.reshape(cell.shape[0], draws, 2)
-
-
-def _lifetimes(kind, p1, p2, cum_prev, u) -> torch.Tensor:
-    """Inverse-CDF mixture draw: u[..., 1] picks the component against
-    the cumulative weights, u[..., 0] goes through the component's
-    quantile function. `kind`, `p1`, `p2` (tile, K) and `cum_prev`
-    (tile, K-1) are the cells' rows of the tables."""
-    dtype, dev = u.dtype, u.device
-    eps = 1e-12 if dtype == torch.float64 else 1e-6
-    lo = torch.full((), eps, dtype=dtype, device=dev)
-    hi = torch.full((), 1.0 - eps, dtype=dtype, device=dev)
-    uc = torch.minimum(torch.maximum(u[..., 0], lo), hi)
-    comp = torch.sum(u[..., 1][..., None] >= cum_prev[:, None, :], dim=-1)
-    k = torch.gather(kind, 1, comp)
-    a = torch.gather(p1, 1, comp)
-    b = torch.gather(p2, 1, comp)
-    z = torch.special.ndtri(uc)
-    lognorm = torch.exp(a + b * z)
-    weibull = a * torch.pow(-torch.log1p(-uc), torch.reciprocal(b))
-    return torch.where(k == POINT, a,
-                       torch.where(k == LOGNORMAL, lognorm, weibull))
+_uniforms = sweep_draws.uniforms
+_lifetimes = sweep_draws.lifetimes
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -403,7 +379,7 @@ class _Step:
         self.freq = t(np.asarray(spec.execs_per_day, np.float64))
         self.inten = t(np.asarray(spec.intensities, np.float64))
         self.vol = t(np.asarray(spec.volumes, np.float64))
-        self.kind = t(tb.kind, torch.int64)
+        self.kind = t(tb.kind, I32)
         self.p1, self.p2, self.cum = t(tb.p1), t(tb.p2), t(tb.cum_prev)
         # scalars live on the device: torch divides a CUDA tensor by a CPU
         # scalar as a multiply by its reciprocal, the reference divides
@@ -442,15 +418,30 @@ class _Step:
                           self.cum[di], u)
         return life / self.day_s
 
-    def __call__(self, acc: csk.SweepAcc, start: int):
+    def __call__(self, acc: csk.SweepAcc, start: int,
+                 life_out: Optional[torch.Tensor] = None):
+        """One tile from global cell `start`. On the card the kernel
+        draws the lifetimes itself; on the CPU they come from
+        `life_days`. `life_out` (tile, draws), if given, receives the
+        lifetimes in days that the tile used (for checks)."""
         tb = self.tables
         cell = start + torch.arange(self.tile, dtype=I32, device=self.dev)
         valid, di, fi, ii, vi, wi, ti, fri = self.decode(cell)
-        out, acc = csk.sweep_tile(
-            self.emb[fri, wi], self.kwh[ti, fri, wi], self.inten[ii],
-            self.freq[fi], self.life_days(cell, di), valid, cell, acc,
-            hist_lo=tb.hist_lo, hist_inv=tb.hist_inv, par_lo=tb.par_lo,
-            par_inv=tb.par_inv, device=self.dev)
+        rows = (self.emb[fri, wi], self.kwh[ti, fri, wi], self.inten[ii],
+                self.freq[fi])
+        bins = dict(hist_lo=tb.hist_lo, hist_inv=tb.hist_inv,
+                    par_lo=tb.par_lo, par_inv=tb.par_inv, device=self.dev)
+        if self.dev.type == "cuda":
+            out, acc = csk.sweep_tile_drawn(
+                self.key, self.kind[di], self.p1[di], self.p2[di],
+                self.cum[di], *rows, valid, cell, acc,
+                n_draws=self.spec.draws, day_s=DAY_S, life_out=life_out,
+                best_core=False, **bins)
+        else:
+            life = self.life_days(cell, di)
+            if life_out is not None:
+                life_out.copy_(life)
+            out, acc = csk.sweep_tile(*rows, life, valid, cell, acc, **bins)
         by_draw = torch.sort(out.best_total, dim=1).values
         mean = out.sum_best / self.n_draws
         q = self.qidx

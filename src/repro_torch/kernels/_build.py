@@ -25,7 +25,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 # library -> the csrc headers its source includes (hashed into its name)
 HEADERS = {"iss_segment": ("rv32e_step.cuh", "flexifault.cuh"),
            "iss_refill": (),
-           "carbon_sweep": ("carbon_sweep.cuh",),
+           "carbon_sweep": ("carbon_sweep.cuh", "sweep_draws.cuh"),
            "flash_attention": ("lm_mma.cuh", "lm_tiles.cuh"),
            "ssd_scan": ("lm_mma.cuh", "lm_tiles.cuh"),
            "bitplane_matmul": ("lm_mma.cuh", "lm_tiles.cuh")}
@@ -47,8 +47,10 @@ SIGNATURES = {
     "iss_refill": {"iss_refill_launch":
                    [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                     _P, _P, _P, _I, _P]},
-    "carbon_sweep": {"carbon_sweep_launch":
-                     [_I] + [_P] * 25 + [_I] * 5 + [_D] * 4 + [_P]},
+    "carbon_sweep": {
+        "carbon_sweep_launch": [_I] + [_P] * 26 + [_I] * 5 + [_D] * 4 + [_P],
+        "carbon_sweep_drawn_launch": [_I, _U, _U] + [_P] * 4 + [_I, _I, _D]
+        + [_P] * 26 + [_I] * 5 + [_D] * 4 + [_P]},
     "flash_attention": {"flash_attention_launch":
                         [_I, _P, _P, _P, _P] + [_I] * 6 + [_F, _P]},
     "ssd_scan": {"ssd_scan_launch": [_I] + [_P] * 7 + [_I] * 6 + [_P]},

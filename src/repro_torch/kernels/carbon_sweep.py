@@ -11,17 +11,29 @@ sweep it adds the tile's valid cells into a log10 histogram of best
 totals and merges a per-embodied-bin Pareto champion, lexicographic in
 (operational kg, cell, draw), into running accumulators (`SweepAcc`).
 
+`sweep_tile_drawn` is the same kernel body built to draw the lifetimes
+itself (csrc/sweep_draws.cuh): each cell's key is `fold_in(key,
+cell_idx)`, draw d takes its two uniforms from counters 2d and 2d + 1,
+and the cell's inverse-CDF mixture turns them into days in registers, so
+the sweep's uniforms and lifetimes never reach device memory. It can
+write the lifetimes it drew (`life_out`) and skip `best_core`.
+
 `sweep_tile_plain` is the reference's shared arithmetic (`_totals`,
 `_cell_reduce`, `_log_bin`, `_hist_contrib`, `_pareto_candidate`,
 `_pareto_merge`) op for op in eager torch; it returns new tensors.
+`sweep_tile_drawn_plain` draws with `sweep_draws.py` (prng.py's
+threefry bits, then `lifetimes`), divides by `day_s` and calls it.
 
-The wrapper takes `device=None` (meaning "cuda") and checks every tensor
-against it. On a CUDA device it launches the kernel on the current
-stream or raises, and updates the accumulators in place (the counterpart
-of the TPU kernel's `input_output_aliases`); only for CPU tensors does
-it run the plain version. It counts `.launches` (wrapper calls that
+The wrappers take `device=None` (meaning "cuda") and check every tensor
+against it. On a CUDA device they launch the kernel on the current
+stream or raise, and update the accumulators in place (the counterpart
+of the TPU kernel's `input_output_aliases`); only for CPU tensors do
+they run the plain version. Each counts `.launches` (wrapper calls that
 launched the kernel, whatever number of CUDA launches each makes) and
-`.plain_calls`; `reset_counts()` zeroes both.
+`.plain_calls`; `reset_counts()` zeroes them all. The kernel keeps a
+column of counts and champions per candidate for each thread in shared
+memory and narrows its blocks (down to one warp) until the columns fit,
+so it takes several hundred candidates; past that the launch raises.
 
 What is held exactly between the kernel, the plain version and the
 reference: totals, the argmin (first minimum wins), counts, min, max,
@@ -34,12 +46,12 @@ neighbouring bin.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, sweep_draws
 from repro_torch.kernels.iss_stepper import _check, _raise_on
 
 I32 = torch.int32
@@ -63,7 +75,7 @@ class SweepAcc(NamedTuple):
 class TileOut(NamedTuple):
     """Per-cell reductions for one tile of scenario cells."""
     best_total: torch.Tensor  # (Tc, N) chosen-candidate total kg per draw
-    best_core: torch.Tensor   # (Tc, N) int32 argmin candidate
+    best_core: Optional[torch.Tensor]  # (Tc, N) int32 argmin candidate
     counts: torch.Tensor      # (Tc, C) int32
     sum_best: torch.Tensor    # (Tc,)
     min_best: torch.Tensor    # (Tc,)
@@ -220,7 +232,87 @@ def sweep_tile_plain(emb, kwh, inten, freq, life_days, valid, cell_idx,
     return out, SweepAcc(acc.hist + hist, *par)
 
 
-# -------------------------------------------------------------- wrapper
+def sweep_tile_drawn_plain(key, kind, p1, p2, cum_prev, emb, kwh, inten,
+                           freq, valid, cell_idx, acc: SweepAcc, *,
+                           n_draws: int, day_s: float, hist_lo: float,
+                           hist_inv: float, par_lo: float, par_inv: float,
+                           life_out: Optional[torch.Tensor] = None
+                           ) -> Tuple[TileOut, SweepAcc]:
+    """The drawn tile in eager torch (any device): `sweep_draws`'
+    uniforms and lifetimes, one true division by `day_s` (a tensor on
+    the tile's device, as the sweep divides), then `sweep_tile_plain`.
+    `life_out`, if given, receives the lifetimes in days."""
+    dt, dev = emb.dtype, emb.device
+    u = sweep_draws.uniforms(key, cell_idx, n_draws, dt)
+    life = sweep_draws.lifetimes(kind, p1, p2, cum_prev, u) \
+        / torch.full((), day_s, dtype=dt, device=dev)
+    if life_out is not None:
+        life_out.copy_(life)
+    return sweep_tile_plain(emb, kwh, inten, freq, life, valid, cell_idx,
+                            acc, hist_lo=hist_lo, hist_inv=hist_inv,
+                            par_lo=par_lo, par_inv=par_inv)
+
+
+# ------------------------------------------------------------- wrappers
+def _on_cpu(tensors) -> bool:
+    for name, t in tensors:
+        if t.device.type != "cpu":
+            raise ValueError(f"{name} is on {t.device}, expected cpu")
+    return True
+
+
+def _check_tile(dev, emb, kwh, inten, freq, valid, cell_idx, acc,
+                n_draws: int, extra=()):
+    """Check the tensors both builds take (and `extra`'s (name, tensor,
+    dtype, shape) rows); returns (dtype, cells, candidates, bins, Pareto
+    bins)."""
+    dt = emb.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"emb has dtype {dt}: float32 or float64")
+    n_cells, n_cand = tuple(emb.shape) if emb.dim() == 2 else (0, 0)
+    n_hist, n_par = acc.hist.shape[0], acc.par_op.shape[0]
+    if n_cells < 1 or n_draws < 1 or n_cand < 1 or n_hist < 1 or n_par < 1:
+        raise ValueError("sweep_tile needs at least one cell, draw, "
+                         "candidate and bin")
+    for name, t, dtype, shape in (
+            ("emb", emb, dt, (n_cells, n_cand)),
+            ("kwh", kwh, dt, (n_cells, n_cand)),
+            ("inten", inten, dt, (n_cells,)),
+            ("freq", freq, dt, (n_cells,)),
+            ("valid", valid, torch.bool, (n_cells,)),
+            ("cell_idx", cell_idx, I32, (n_cells,)),
+            ("hist", acc.hist, I32, (n_hist,)),
+            ("par_op", acc.par_op, dt, (n_par,)),
+            ("par_emb", acc.par_emb, dt, (n_par,)),
+            ("par_life", acc.par_life, dt, (n_par,)),
+            ("par_cell", acc.par_cell, I32, (n_par,)),
+            ("par_draw", acc.par_draw, I32, (n_par,)),
+            ("par_core", acc.par_core, I32, (n_par,))) + tuple(extra):
+        _check(name, t, dev, dtype, shape)
+    return dt, n_cells, n_cand, n_hist, n_par
+
+
+def _outputs(dev, dt, n_cells, n_draws, n_cand, best_core=True):
+    """A TileOut to fill and the (cell, candidate) champion scratch
+    that the kernel's two passes share."""
+    def e(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    out = TileOut(best_total=e((n_cells, n_draws), dt),
+                  best_core=e((n_cells, n_draws), I32) if best_core
+                  else None,
+                  counts=e((n_cells, n_cand), I32),
+                  sum_best=e((n_cells,), dt), min_best=e((n_cells,), dt),
+                  max_best=e((n_cells,), dt), sum_emb=e((n_cells,), dt),
+                  sum_op=e((n_cells,), dt))
+    scratch = (e((n_cells, n_cand), dt), e((n_cells, n_cand), I32),
+               e((n_cells, n_cand), dt), e((n_cells, n_cand), I32))
+    return out, scratch
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def sweep_tile(emb, kwh, inten, freq, life_days, valid, cell_idx,
                acc: SweepAcc, *, hist_lo: float, hist_inv: float,
                par_lo: float, par_inv: float, device: DeviceLike = None
@@ -236,52 +328,19 @@ def sweep_tile(emb, kwh, inten, freq, life_days, valid, cell_idx,
     dtype, float32 or float64. Returns `(TileOut, SweepAcc)`.
     """
     dev = resolve(device)
-    if dev.type == "cpu":
-        for name, t in (("emb", emb), ("life_days", life_days),
-                        ("hist", acc.hist)):
-            if t.device.type != "cpu":
-                raise ValueError(f"{name} is on {t.device}, expected cpu")
+    if dev.type == "cpu" and _on_cpu((("emb", emb), ("life_days", life_days),
+                                      ("hist", acc.hist))):
         sweep_tile.plain_calls += 1
         return sweep_tile_plain(emb, kwh, inten, freq, life_days, valid,
                                 cell_idx, acc, hist_lo=hist_lo,
                                 hist_inv=hist_inv, par_lo=par_lo,
                                 par_inv=par_inv)
-    dt = life_days.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise ValueError(f"life_days has dtype {dt}: float32 or float64")
-    n_cells, n_draws = life_days.shape
-    n_cand = emb.shape[1] if emb.dim() == 2 else -1
-    n_hist, n_par = acc.hist.shape[0], acc.par_op.shape[0]
-    if n_cells < 1 or n_draws < 1 or n_cand < 1 or n_hist < 1 or n_par < 1:
-        raise ValueError("sweep_tile needs at least one cell, draw, "
-                         "candidate and bin")
-    for name, t, dtype, shape in (
-            ("emb", emb, dt, (n_cells, n_cand)),
-            ("kwh", kwh, dt, (n_cells, n_cand)),
-            ("inten", inten, dt, (n_cells,)),
-            ("freq", freq, dt, (n_cells,)),
-            ("life_days", life_days, dt, (n_cells, n_draws)),
-            ("valid", valid, torch.bool, (n_cells,)),
-            ("cell_idx", cell_idx, I32, (n_cells,)),
-            ("hist", acc.hist, I32, (n_hist,)),
-            ("par_op", acc.par_op, dt, (n_par,)),
-            ("par_emb", acc.par_emb, dt, (n_par,)),
-            ("par_life", acc.par_life, dt, (n_par,)),
-            ("par_cell", acc.par_cell, I32, (n_par,)),
-            ("par_draw", acc.par_draw, I32, (n_par,)),
-            ("par_core", acc.par_core, I32, (n_par,))):
-        _check(name, t, dev, dtype, shape)
-    e = lambda shape, dtype: torch.empty(shape, dtype=dtype,  # noqa: E731
-                                         device=dev)
-    out = TileOut(best_total=e((n_cells, n_draws), dt),
-                  best_core=e((n_cells, n_draws), I32),
-                  counts=e((n_cells, n_cand), I32),
-                  sum_best=e((n_cells,), dt), min_best=e((n_cells,), dt),
-                  max_best=e((n_cells,), dt), sum_emb=e((n_cells,), dt),
-                  sum_op=e((n_cells,), dt))
-    # per-(cell, candidate) champion scratch between the kernel's passes
-    ch_op, ch_life = e((n_cells, n_cand), dt), e((n_cells, n_cand), dt)
-    ch_draw = e((n_cells, n_cand), I32)
+    n_draws = life_days.shape[1] if life_days.dim() == 2 else 0
+    dt, n_cells, n_cand, n_hist, n_par = _check_tile(
+        dev, emb, kwh, inten, freq, valid, cell_idx, acc, n_draws,
+        extra=(("life_days", life_days, emb.dtype,
+                (emb.shape[0], n_draws)),))
+    out, scratch = _outputs(dev, dt, n_cells, n_draws, n_cand)
     fn = getattr(_build.load("carbon_sweep"), "carbon_sweep_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -289,7 +348,7 @@ def sweep_tile(emb, kwh, inten, freq, life_days, valid, cell_idx,
                 inten.data_ptr(), freq.data_ptr(), life_days.data_ptr(),
                 valid.data_ptr(), cell_idx.data_ptr(),
                 *(t.data_ptr() for t in out),
-                ch_op.data_ptr(), ch_draw.data_ptr(), ch_life.data_ptr(),
+                *(t.data_ptr() for t in scratch),
                 *(t.data_ptr() for t in acc),
                 n_cells, n_draws, n_cand, n_hist, n_par,
                 float(hist_lo), float(hist_inv), float(par_lo),
@@ -299,10 +358,74 @@ def sweep_tile(emb, kwh, inten, freq, life_days, valid, cell_idx,
     return out, acc
 
 
+def sweep_tile_drawn(key: Tuple[int, int], kind, p1, p2, cum_prev, emb, kwh,
+                     inten, freq, valid, cell_idx, acc: SweepAcc, *,
+                     n_draws: int, day_s: float, hist_lo: float,
+                     hist_inv: float, par_lo: float, par_inv: float,
+                     life_out: Optional[torch.Tensor] = None,
+                     best_core: bool = True, device: DeviceLike = None
+                     ) -> Tuple[TileOut, SweepAcc]:
+    """`sweep_tile` with the lifetimes drawn in the kernel.
+
+    `key` is the sweep's `prng.prng_key` (two uint32 words; the x64 key
+    for a float64 sweep); `kind` (Tc, K) int32, `p1`, `p2` (Tc, K) and
+    `cum_prev` (Tc, K') are the cells' rows of `build_tables`' mixture
+    tables; draw d of cell c is `lifetimes` of the uniforms at 2d and
+    2d + 1 under `fold_in(key, cell_idx[c])`, divided by `day_s`. The
+    other arguments are `sweep_tile`'s. `life_out` (Tc, n_draws), if
+    given, receives the lifetimes in days; with `best_core=False` the
+    tile's `best_core` is not written and is None.
+    """
+    dev = resolve(device)
+    kw = dict(n_draws=n_draws, day_s=day_s, hist_lo=hist_lo,
+              hist_inv=hist_inv, par_lo=par_lo, par_inv=par_inv)
+    if dev.type == "cpu" and _on_cpu((("emb", emb), ("kind", kind),
+                                      ("hist", acc.hist))):
+        sweep_tile_drawn.plain_calls += 1
+        out, acc = sweep_tile_drawn_plain(key, kind, p1, p2, cum_prev, emb,
+                                          kwh, inten, freq, valid, cell_idx,
+                                          acc, life_out=life_out, **kw)
+        return (out if best_core else out._replace(best_core=None)), acc
+    n_cells = emb.shape[0] if emb.dim() == 2 else 0
+    n_comp = kind.shape[1] if kind.dim() == 2 else 0
+    n_cum = cum_prev.shape[1] if cum_prev.dim() == 2 else 0
+    if n_comp < 1 or n_cum < 1:
+        raise ValueError("sweep_tile_drawn needs at least one component "
+                         "and one cumulative weight a cell")
+    dt = emb.dtype
+    extra = [("kind", kind, I32, (n_cells, n_comp)),
+             ("p1", p1, dt, (n_cells, n_comp)),
+             ("p2", p2, dt, (n_cells, n_comp)),
+             ("cum_prev", cum_prev, dt, (n_cells, n_cum))]
+    if life_out is not None:
+        extra.append(("life_out", life_out, dt, (n_cells, n_draws)))
+    dt, n_cells, n_cand, n_hist, n_par = _check_tile(
+        dev, emb, kwh, inten, freq, valid, cell_idx, acc, n_draws, extra)
+    out, scratch = _outputs(dev, dt, n_cells, n_draws, n_cand, best_core)
+    k0, k1 = (int(k) & 0xFFFFFFFF for k in key)
+    fn = getattr(_build.load("carbon_sweep"), "carbon_sweep_drawn_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(int(dt == torch.float64), k0, k1, kind.data_ptr(),
+                p1.data_ptr(), p2.data_ptr(), cum_prev.data_ptr(), n_comp,
+                n_cum, float(day_s), emb.data_ptr(), kwh.data_ptr(),
+                inten.data_ptr(), freq.data_ptr(), valid.data_ptr(),
+                cell_idx.data_ptr(), _ptr(life_out),
+                *(_ptr(t) for t in out), *(t.data_ptr() for t in scratch),
+                *(t.data_ptr() for t in acc),
+                n_cells, n_draws, n_cand, n_hist, n_par,
+                float(hist_lo), float(hist_inv), float(par_lo),
+                float(par_inv), stream)
+    _raise_on(rc, "carbon_sweep_drawn launch")
+    sweep_tile_drawn.launches += 1
+    return out, acc
+
+
 def reset_counts() -> None:
-    """Zero the wrapper's launch and plain-call counts."""
-    sweep_tile.launches = 0
-    sweep_tile.plain_calls = 0
+    """Zero the wrappers' launch and plain-call counts."""
+    for fn in (sweep_tile, sweep_tile_drawn):
+        fn.launches = 0
+        fn.plain_calls = 0
 
 
 reset_counts()

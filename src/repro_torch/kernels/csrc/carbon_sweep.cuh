@@ -104,9 +104,16 @@ CS_HD T op_kg(T base, T life, T freq) { return mul(mul(base, life), freq); }
 template <typename T>
 CS_HD T total_kg(T emb, T op) { return add(emb, fabs(op)); }
 
-// The chosen candidate of one draw: argmin over c = 0..C-1 of the totals,
-// the first minimum winning ties and the first NaN winning over numbers
-// (jnp.argmin). Writes the chosen total and operational kg.
+// Whether candidate total t replaces the best so far, bt, in a scan over
+// c = 0..C-1: the first minimum wins ties and the first NaN wins over
+// numbers (jnp.argmin).
+template <typename T>
+CS_HD bool argmin_takes(T t, T bt) {
+  return t < bt || (is_nan(t) && !is_nan(bt));
+}
+
+// The chosen candidate of one draw: argmin over c = 0..C-1 of the totals
+// (argmin_takes). Writes the chosen total and operational kg.
 template <typename T>
 CS_HD int32_t argmin_draw(const T* emb, const T* base, T life, T freq,
                           int n_cand, T* best_total, T* best_op) {
@@ -117,7 +124,7 @@ CS_HD int32_t argmin_draw(const T* emb, const T* base, T life, T freq,
   for (int c = 1; c < n_cand; ++c) {
     const T o = op_kg(base[c], life, freq);
     const T t = total_kg(emb[c], o);
-    if (t < bt || (is_nan(t) && !is_nan(bt))) {
+    if (argmin_takes(t, bt)) {
       bt = t;
       bo = o;
       bc = c;

@@ -471,28 +471,21 @@ def assert_sweeps_equal(ra, rb, tables, best_totals, embs, what: str
     return worst
 
 
-class TileRecorder:
-    """Wraps `repro_torch.kernels.carbon_sweep.sweep_tile` (install with
-    monkeypatch, or `install()`/`remove()`) and keeps the best totals and
-    candidate embodied kg of each tile's valid cells, for the bin-edge
-    allowance of `assert_sweeps_equal`."""
+class _Recording:
+    """One wrapper of `repro_torch.kernels.carbon_sweep` replaced by a
+    recording call; the counts stay on the wrapper (which counts through
+    its module-level name, this object while it is installed)."""
 
-    def __init__(self):
-        from repro_torch.kernels import carbon_sweep as csk
-        self.csk, self.orig = csk, csk.sweep_tile
-        self.best, self.emb = [], []
+    def __init__(self, rec, name):
+        self.rec, self.name = rec, name
+        self.orig = getattr(rec.csk, name)
 
-    def __call__(self, emb, kwh, inten, freq, life_days, valid, cell_idx,
-                 acc, **kw):
-        out, acc = self.orig(emb, kwh, inten, freq, life_days, valid,
-                             cell_idx, acc, **kw)
-        v = valid.cpu().numpy()
-        self.best.append(out.best_total.cpu().numpy()[v].ravel())
-        self.emb.append(emb.cpu().numpy()[v].ravel())
+    def __call__(self, *args, **kw):
+        out, acc = self.orig(*args, **kw)
+        self.rec.keep(out, args[self.rec.VALID[self.name]],
+                      args[self.rec.EMB[self.name]])
         return out, acc
 
-    # the wrapper counts through its module-level name, which is this
-    # recorder while it is installed: keep the counts on the wrapper
     @property
     def launches(self):
         return self.orig.launches
@@ -509,12 +502,35 @@ class TileRecorder:
     def plain_calls(self, v):
         self.orig.plain_calls = v
 
+
+class TileRecorder:
+    """Wraps `sweep_tile` and `sweep_tile_drawn` of
+    `repro_torch.kernels.carbon_sweep` (`install()`/`remove()`) and keeps
+    the best totals and candidate embodied kg of each tile's valid
+    cells, for the bin-edge allowance of `assert_sweeps_equal`."""
+    # positions of `valid` and `emb` in each wrapper's arguments
+    VALID = {"sweep_tile": 5, "sweep_tile_drawn": 9}
+    EMB = {"sweep_tile": 0, "sweep_tile_drawn": 5}
+
+    def __init__(self):
+        from repro_torch.kernels import carbon_sweep as csk
+        self.csk = csk
+        self.entries = [_Recording(self, n) for n in self.VALID]
+        self.best, self.emb = [], []
+
+    def keep(self, out, valid, emb):
+        v = valid.cpu().numpy()
+        self.best.append(out.best_total.cpu().numpy()[v].ravel())
+        self.emb.append(emb.cpu().numpy()[v].ravel())
+
     def install(self):
-        self.csk.sweep_tile = self
+        for e in self.entries:
+            setattr(self.csk, e.name, e)
         return self
 
     def remove(self):
-        self.csk.sweep_tile = self.orig
+        for e in self.entries:
+            setattr(self.csk, e.name, e.orig)
 
     def arrays(self):
         return np.concatenate(self.best), np.concatenate(self.emb)
@@ -583,6 +599,101 @@ def assert_streams_equal(cases, ref, got, dtype, what) -> float:
     return worst
 
 
+# lifetimes: the port's against the reference's and the card's against the
+# CPU's, in ulps (see tests/test_torch_sweep.py for their causes)
+LIFE_ULPS = {np.float32: 64, np.float64: 256}
+DRAWN_ORDER = ("kind", "p1", "p2", "cum_prev", "emb", "kwh", "inten",
+               "freq", "valid", "cell_idx")
+DAY_S = 86_400.0
+
+
+def drawn_dists(L=None):
+    """Lifetime distributions that reach every branch of the draws: a
+    lognormal/Weibull mixture, a point mass, a Weibull of shape 2.5 and
+    a point/lognormal mixture (the main sweep's fourth), built with the
+    `LifetimeDist` class `L` (the port's by default)."""
+    if L is None:
+        from repro_torch.core.sweep import LifetimeDist as L
+    return (L.mixture([(L.lognormal(DAY_S * 30, 1.8), 0.7),
+                       (L.weibull(DAY_S * 300, 0.8), 0.3)]),
+            L.point(DAY_S * 100), L.weibull(DAY_S * 30, 2.5),
+            L.mixture([(L.point(DAY_S * 10), 0.5),
+                       (L.lognormal(DAY_S * 1000, 0.8), 0.5)]))
+
+
+def drawn_tile_inputs(rng, n_cells: int, n_draws: int, n_cand: int, dtype,
+                      *, invalid_frac: float = 0.2, cell0: int = 0,
+                      seed: int = 5):
+    """Numpy inputs of one drawn sweep tile: `tile_inputs`' candidate
+    rows and masks (no lifetimes), each cell's mixture rows
+    (`build_tables` of `drawn_dists()`, picked at random) and the sweep
+    key of `seed` (the x64 key in float64)."""
+    import dataclasses
+    from repro_torch import prng
+    from repro_torch.core import sweep as ps
+    case = tile_inputs(rng, n_cells, n_draws, n_cand, dtype,
+                       invalid_frac=invalid_frac, cell0=cell0)
+    del case["life_days"]
+    tb = ps.build_tables(dataclasses.replace(sweep_mixture_spec(),
+                                             dists=drawn_dists()))
+    di = rng.integers(0, tb.kind.shape[0], n_cells)
+    case.update(kind=tb.kind[di].astype(np.int32),
+                p1=tb.p1[di].astype(dtype), p2=tb.p2[di].astype(dtype),
+                cum_prev=np.ascontiguousarray(tb.cum_prev[di], dtype),
+                key=prng.prng_key(seed, x64=dtype == np.float64),
+                n_draws=n_draws)
+    return case
+
+
+def drawn_stream_cases(rng, dtype, n_cells=12, n_draws=8, n_cand=3):
+    """Three drawn tiles of consecutive cells (the last one wider in its
+    candidates and with more invalid cells)."""
+    return [drawn_tile_inputs(rng, n_cells, n_draws, n_cand, dtype),
+            drawn_tile_inputs(rng, n_cells, n_draws, n_cand, dtype,
+                              invalid_frac=0.5, cell0=n_cells),
+            drawn_tile_inputs(rng, n_cells, n_draws, n_cand + 1, dtype,
+                              cell0=2 * n_cells)]
+
+
+def port_stream_drawn(cases, dtype, device="cpu", fn=None):
+    """The port's `sweep_tile_drawn` (or `fn`, e.g.
+    `sweep_tile_drawn_plain`) over the tiles on `device`, one
+    accumulator set: numpy TileOuts, accumulators after every tile, and
+    each tile's lifetimes (`life_out`)."""
+    from repro_torch import convert
+    from repro_torch.kernels import carbon_sweep as pcs
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    acc = pcs.init_acc(64, 32, tdt, device)
+    outs, accs, lifes = [], [], []
+    for case in cases:
+        args = [torch.from_numpy(case[k]).to(device) for k in DRAWN_ORDER]
+        life = torch.empty((case["emb"].shape[0], case["n_draws"]),
+                           dtype=tdt, device=device)
+        kw = dict(TILE_KW, n_draws=case["n_draws"], day_s=DAY_S,
+                  life_out=life)
+        if fn is None:
+            out, acc = pcs.sweep_tile_drawn(case["key"], *args, acc,
+                                            device=device, **kw)
+        else:
+            out, acc = fn(case["key"], *args, acc, **kw)
+        outs.append(pcs.TileOut(*(x.cpu().numpy() for x in out)))
+        accs.append(convert.sweep_acc_to_numpy(acc))
+        lifes.append(life.cpu().numpy())
+    return outs, accs, lifes
+
+
+def with_lifetimes(cases, lifes):
+    """The drawn tiles as `sweep_tile` inputs, fed `lifes`."""
+    return [dict({k: c[k] for k in TILE_ORDER if k != "life_days"},
+                 life_days=life) for c, life in zip(cases, lifes)]
+
+
+def ulps(a, b) -> np.ndarray:
+    """|a - b| in units in the last place, elementwise (float32 or 64)."""
+    it = np.int64 if a.dtype == np.float64 else np.int32
+    return np.abs(a.view(it).astype(np.int64) - b.view(it).astype(np.int64))
+
+
 def sweep_mixture_spec(draws=32, seed=7):
     """The reference test's `_mixture_spec` (`tests/test_sweep.py`), built
     from the port's classes: 48 cells of a lognormal/Weibull mixture and
@@ -620,15 +731,18 @@ def sweep_point_spec(draws=8, seed=3):
 
 
 def sweep_life_days(spec, dtype, device, n_cells: int) -> np.ndarray:
-    """The port's lifetimes (days) of global cells 0..n_cells-1 of `spec`,
-    drawn on `device` (cells past the spec's take its last cell's
-    distribution, as a padded tile's do)."""
+    """The lifetimes (days) that the port's sweep on `device` uses for
+    global cells 0..n_cells-1 of `spec` (cells past the spec's take its
+    last cell's distribution, as a padded tile's do): on the card the
+    sweep kernel's own draws (`life_out`), on the CPU the eager ones."""
     from repro_torch.core import sweep as ps
+    from repro_torch.kernels import carbon_sweep as csk
     step = ps._Step(spec, n_cells, ps._torch_dtype(dtype), 64, 32,
                     torch.device(device))
-    cell = torch.arange(n_cells, dtype=torch.int32, device=step.dev)
-    di = step.decode(cell)[1]
-    return step.life_days(cell, di).cpu().numpy()
+    life = torch.empty((n_cells, spec.draws), dtype=step.dtype,
+                       device=step.dev)
+    step(csk.init_acc(64, 32, step.dtype, step.dev), 0, life_out=life)
+    return life.cpu().numpy()
 
 
 def run_sweep_recorded(spec, *, life_days=None, **kw):
@@ -636,8 +750,12 @@ def run_sweep_recorded(spec, *, life_days=None, **kw):
     best totals and candidate embodied kg (the bin-edge allowance of
     `assert_sweeps_equal`); with `life_days` (an array over global
     cells), the sweep is fed those lifetimes instead of drawing its own.
-    Returns (result, best totals, embodied kg)."""
+    Returns (result, best totals, embodied kg). Only the CPU's sweep
+    reads `life_days` (the card's draws in its kernel)."""
     from repro_torch.core import sweep as ps
+    if life_days is not None and torch.device(kw.get("device") or "cuda"
+                                              ).type != "cpu":
+        raise ValueError("only the CPU's sweep can be fed lifetimes")
     rec = TileRecorder().install()
     orig = ps._Step.life_days
     if life_days is not None:

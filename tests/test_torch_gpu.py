@@ -8,7 +8,8 @@ on a machine with a card:
 
 The plain versions are the port's `flexibits/iss.py` (with the
 FlexiFault transform of `flexibits/faults.py`),
-`kernels/carbon_sweep.py::sweep_tile_plain` and the LM kernels'
+`kernels/carbon_sweep.py::sweep_tile_plain` (and
+`sweep_tile_drawn_plain`) and the LM kernels'
 `*_plain` functions, which the CPU tests hold against the reference; no
 JAX is needed here. The sweep comparisons use
 `_torch_parity`'s tolerances (bit for bit but the per-cell sums, and
@@ -226,19 +227,98 @@ def test_sweep_kernel_matches_plain_streamed(cuda, dt):
     tp.assert_streams_equal(cases, want, got, dtype, dt)
 
 
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_sweep_drawn_kernel_matches_plain_streamed(cuda, dt):
+    """Three drawn tiles (12 cells x 40 draws x 3-4 candidates, invalid
+    cells) through one set of accumulators: the kernel's lifetimes within
+    LIFE_ULPS of the plain draws, and every output equal to the plain
+    tile's given the kernel's lifetimes."""
+    dtype = np.float64 if dt == "f64" else np.float32
+    cases = tp.drawn_stream_cases(np.random.default_rng(37), dtype,
+                                  n_draws=40)
+    pcs.reset_counts()
+    outs, accs, lifes = tp.port_stream_drawn(cases, dtype, cuda)
+    torch.cuda.synchronize()
+    assert (pcs.sweep_tile_drawn.launches,
+            pcs.sweep_tile_drawn.plain_calls) == (3, 0)
+    _, _, plain_lifes = tp.port_stream_drawn(
+        cases, dtype, cuda, fn=pcs.sweep_tile_drawn_plain)
+    for a, b in zip(plain_lifes, lifes):
+        assert tp.ulps(a, b).max() <= tp.LIFE_ULPS[dtype]
+    fed = tp.with_lifetimes(cases, lifes)
+    want = tp.port_stream(fed, dtype, cuda, fn=pcs.sweep_tile_plain)
+    tp.assert_streams_equal(fed, want, (outs, accs), dtype, dt)
+
+
+def test_sweep_drawn_kernel_skips_best_core(cuda):
+    """With best_core=False the drawn kernel writes every other output
+    as with it."""
+    case = tp.drawn_tile_inputs(np.random.default_rng(3), 9, 300, 9,
+                                np.float32)
+    args = [_t(case[k], cuda) for k in tp.DRAWN_ORDER]
+    kw = dict(tp.TILE_KW, n_draws=300, day_s=tp.DAY_S, device=cuda)
+    fresh = lambda: pcs.init_acc(64, 32, torch.float32, cuda)  # noqa: E731
+    a, acc_a = pcs.sweep_tile_drawn(case["key"], *args, fresh(), **kw)
+    b, acc_b = pcs.sweep_tile_drawn(case["key"], *args, fresh(),
+                                    best_core=False, **kw)
+    assert b.best_core is None
+    for f in a._fields:
+        if f != "best_core":
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for x, y in zip(acc_a, acc_b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("n_cand", [64, 300])
+def test_sweep_kernels_many_candidates_match_plain(cuda, dt, n_cand):
+    """Candidate counts whose champion columns do not fit shared memory
+    at 256 threads a cell (the kernel narrows its blocks, down to one
+    warp at 300): both builds over three streamed tiles of 100 draws
+    against their plain versions."""
+    dtype = np.float64 if dt == "f64" else np.float32
+    cases = tp.stream_cases(np.random.default_rng(41), dtype, n_cells=5,
+                            n_draws=100, n_cand=n_cand)
+    want = tp.port_stream(cases, dtype, cuda, fn=pcs.sweep_tile_plain)
+    tp.assert_streams_equal(cases, want, tp.port_stream(cases, dtype, cuda),
+                            dtype, f"(a) {dt} C {n_cand}")
+    cases = tp.drawn_stream_cases(np.random.default_rng(43), dtype,
+                                  n_cells=5, n_draws=100, n_cand=n_cand)
+    outs, accs, lifes = tp.port_stream_drawn(cases, dtype, cuda)
+    _, _, plain_lifes = tp.port_stream_drawn(
+        cases, dtype, cuda, fn=pcs.sweep_tile_drawn_plain)
+    for a, b in zip(plain_lifes, lifes):
+        assert tp.ulps(a, b).max() <= tp.LIFE_ULPS[dtype]
+    fed = tp.with_lifetimes(cases, lifes)
+    want = tp.port_stream(fed, dtype, cuda, fn=pcs.sweep_tile_plain)
+    tp.assert_streams_equal(fed, want, (outs, accs), dtype,
+                            f"(b) {dt} C {n_cand}")
+
+
+def test_sweep_kernel_refuses_too_many_candidates(cuda):
+    """Past one warp's champion columns in shared memory the launch
+    raises."""
+    n = 1000
+    case = tp.tile_inputs(np.random.default_rng(4), 2, 8, n, np.float64)
+    args = [_t(case[k], cuda) for k in tp.TILE_ORDER]
+    with pytest.raises(RuntimeError, match="carbon_sweep launch"):
+        pcs.sweep_tile(*args, pcs.init_acc(64, 32, torch.float64, cuda),
+                       device=cuda, **tp.TILE_KW)
+
+
 def test_sweep_on_card_matches_cpu(cuda):
     """The reference test's mixture spec on the card and on the CPU: the
-    lifetimes within the CPU tests' ulp bound, and the CPU sweep fed the
-    card's lifetimes equal to the card's sweep."""
+    card kernel's lifetimes (`life_out`) within the CPU tests' ulp bound
+    of the CPU's, and the CPU sweep fed the card's lifetimes equal to
+    the card's sweep."""
     spec = tp.sweep_mixture_spec()
     card, best, emb = tp.run_sweep_recorded(spec, tile_cells=48,
                                             device=cuda)
     assert card.path == "cuda" and card.hist.sum() == spec.n_scenarios
     life_card = tp.sweep_life_days(spec, np.float32, cuda, spec.n_cells)
     life_cpu = tp.sweep_life_days(spec, np.float32, "cpu", spec.n_cells)
-    ulps = np.abs(life_card.view(np.int32).astype(np.int64)
-                  - life_cpu.view(np.int32).astype(np.int64))
-    assert ulps.max() <= 64, ulps.max()
+    ulps = tp.ulps(life_card, life_cpu)
+    assert ulps.max() <= tp.LIFE_ULPS[np.float32], ulps.max()
     cpu, _, _ = tp.run_sweep_recorded(spec, life_days=life_card,
                                       tile_cells=48, device="cpu")
     tp.assert_sweeps_equal(cpu, card, psweep.build_tables(spec), best, emb,
@@ -255,8 +335,11 @@ def test_sweep_on_card_tile_sizes_bit_identical(cuda):
 
 def test_point_mass_f64_on_card_equals_oracles(cuda):
     spec, lifes = tp.sweep_point_spec()
+    pcs.reset_counts()
     res = psweep.run_sweep(spec, tile_cells=5, dtype=np.float64,
                            device=cuda)
+    assert pcs.sweep_tile_drawn.launches == -(-spec.n_cells // 5)
+    assert pcs.sweep_tile.launches == 0
     tg = psel.total_grid(list(spec.cores), spec.profiles[0],
                          np.asarray(lifes), np.asarray(spec.execs_per_day))
     smap = psel.selection_map(spec.profiles[0], np.asarray(lifes),

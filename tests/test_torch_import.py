@@ -118,6 +118,10 @@ def test_sweep_entry_points_default_to_the_card():
         carbon_sweep.sweep_tile(*[None] * 8, hist_lo=0.0, hist_inv=1.0,
                                 par_lo=0.0, par_inv=1.0)
     with pytest.raises(RuntimeError, match="CUDA card"):
+        carbon_sweep.sweep_tile_drawn(*[None] * 12, n_draws=1, day_s=1.0,
+                                      hist_lo=0.0, hist_inv=1.0, par_lo=0.0,
+                                      par_inv=1.0)
+    with pytest.raises(RuntimeError, match="CUDA card"):
         carbon_sweep.init_acc(64, 32, torch.float32)
 
 

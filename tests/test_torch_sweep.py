@@ -41,7 +41,7 @@ from test_sweep import DAY, PROF, _mixture_spec, _point_spec
 
 # twice the largest differences seen on the reference test's mixture
 # spec while the port was written (see above for their causes)
-LIFE_ULPS = {np.float32: 64, np.float64: 256}
+LIFE_ULPS = tp.LIFE_ULPS
 DTYPES = {"f32": np.float32, "f64": np.float64}
 
 
