@@ -102,7 +102,29 @@ Phases (each prints its own lines; any failure exits non-zero):
    the first shared block, and the scan timed on the first Mamba layer's
    own tensors; that block's FFN input through `quantized_linear` at 4
    and 8 bits (the bit-plane kernel's path); and the serve once more
-   under torch.profiler.
+   under torch.profiler;
+16. host loop: phase 4's plan through `refill="host"` and through
+   `packed=False` on the card, every per-item field and the final state
+   equal to phase 4's resident run, and its MC and WQ groups the same on
+   the card and the CPU, bit for bit (SI's 7,715 steps would cost the
+   CPU's plain stepper ~40 s a run); phase 5's plan through
+   `refill="host"`: every per-item field equal to phase 5's, more host
+   syncs than phase 5's, its wall and items/s; then TT, PT, CT and AD at
+   28,000 items each on SERV with FlexiLint-static budgets, past the
+   int32 mix bound, which must fall back to the host loop
+   (`refill == "host"`) with every item halted and every output equal to
+   the workload's reference (TT on its first 1,024 items); each run with
+   the launch counts zeroed just before it: segment kernel launched, no
+   plain version, and no refill kernel on the host loop;
+17. checkpoints: phase 5's plan checkpointed every 8 segments into
+   `build/chip_smoke_ckpt/` (removed after), crashed by
+   `_crash_after_segments=20` and resumed through `run_plan`: every
+   per-item field, `n_segments` and the schedule equal to phase 5's (a
+   resume stages the unconsumed items again, so `lane_steps` may
+   differ); each save's write time and bytes on disk, the restore's
+   time and the resumed wall; then a 64-item stream checkpointed and
+   crashed on the card resumes on the CPU, and the other way round, bit
+   for bit with the card's uninterrupted run.
 
 It ends with a `kernels:` line of launch counts, one JSON line
 `{"kernels": [...]}` with an entry per kernel (times, bound, launches,
@@ -431,6 +453,7 @@ def phase_small_plan(dev):
     log(f"[small plan] 3 groups x 256 items: card {t1 - t0:.2f}s, CPU "
         f"{t2 - t1:.2f}s; every per-item field, final state and the "
         f"schedule bit-exact")
+    return gpu
 
 
 def main_plan():
@@ -1870,6 +1893,260 @@ def phase_main_serve(dev, rec):
     return counts
 
 
+RESULT_FIELDS = ("n_instr", "n_two_stage", "halted", "out", "mix", "mems",
+                 "regs", "pc", "mix_items", "n_cycles")
+
+
+def same_results(what, want, got, fields=RESULT_FIELDS):
+    """Every per-item field of two lists of FleetResults equal (a field
+    absent from one must be absent from the other)."""
+    import numpy as np
+    for g, (a, b) in enumerate(zip(want, got)):
+        for f in fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if (x is None) != (y is None) or (
+                    x is not None and not np.array_equal(x, y)):
+                raise AssertionError(f"{what}: group {g} differs in {f}")
+
+
+def counted_run(what, fn, refill_launches: bool):
+    """fn() with the fleet kernels' counts zeroed just before it and read
+    just after: the segment kernel must have launched, no plain version
+    run, and the refill kernel launched exactly when the resident loop
+    ran."""
+    from repro_torch.kernels import iss_stepper as st
+    st.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    seg, ref = st.iss_segment_banked.launches, st.iss_refill.launches
+    plain = st.iss_segment_banked.plain_calls + st.iss_refill.plain_calls
+    if seg <= 0 or plain or (ref > 0) != refill_launches:
+        raise AssertionError(f"{what}: iss_segment_banked {seg}, "
+                             f"iss_refill {ref} launches, {plain} plain "
+                             f"calls")
+    return out, wall, seg, ref
+
+
+def on_cpu(fn):
+    """fn() with torch on one thread (the plain path's small tensors)."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def past_bound_plan():
+    """TT, PT, CT and AD at 28,000 items each on SERV with FlexiLint-static
+    budgets: n_items x max_steps passes 2^31 - 1 in every group, so the
+    engine falls back to its host loop."""
+    from repro_torch.fleet import FleetGroup, FleetPlan
+    return FleetPlan(groups=tuple(
+        FleetGroup(workload=k, core="SERV", n_items=28_000, seed=20 + i,
+                   max_steps="static")
+        for i, k in enumerate(("TT", "PT", "CT", "AD"))),
+        chunk=16384, seg_steps=4096)
+
+
+def phase_host_loop(dev, small_rep, main_rep):
+    """Phase 16: the host-refill loop and the sequential plan on the card.
+    (a) phase 4's plan through refill="host" and packed=False on the card,
+    per item equal to phase 4's resident run; its MC and WQ groups the
+    same on the card and the CPU. (b) phase 5's plan through
+    refill="host": per item equal to phase 5, more host syncs. (c) a plan
+    past the int32 mix bound, which falls back to the host loop: every
+    item halted with the workload's reference output."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.fleet import run_plan
+    from repro_torch.fleet.engine import workload_source
+    small = three_group_plan(256)
+    want = [g.result for g in small_rep.groups]
+    for label, kw in (("refill=host", dict(refill="host")),
+                      ("packed=False", dict(packed=False))):
+        plan = dc.replace(small, **kw)
+        # packed=False drains each group through the resident loop
+        rep, wall, seg, _ = counted_run(
+            f"small plan {label}",
+            lambda: run_plan(plan, keep_state=True, device=dev),
+            label == "packed=False")
+        same_results(f"small plan {label} vs phase 4", want,
+                     [g.result for g in rep.groups])
+        two = dc.replace(plan, groups=plan.groups[:2])
+        gpu = run_plan(two, keep_state=True, device=dev)
+        t0 = time.perf_counter()
+        cpu = on_cpu(lambda: run_plan(two, keep_state=True, device="cpu",
+                                      power_w=0.0))
+        t_cpu = time.perf_counter() - t0
+        same_results(f"small plan {label} card vs CPU",
+                     [g.result for g in gpu.groups],
+                     [g.result for g in cpu.groups])
+        if (gpu.packed is None) != (label == "packed=False"):
+            raise AssertionError(f"small plan {label}: packed stats")
+        log(f"[host loop] small plan {label}: 3 groups x 256 items on the "
+            f"card in {wall:.2f}s ({seg} segment launches, no plain call), "
+            f"every per-item field and the final state equal to phase 4's "
+            f"resident run; MC and WQ on card and CPU ({t_cpu:.2f}s) bit "
+            f"for bit")
+
+    plan = dc.replace(main_plan(), refill="host")
+    rep, wall, seg, _ = counted_run(
+        "main plan refill=host", lambda: run_plan(plan, device=dev), False)
+    p, q = rep.packed, main_rep.packed
+    same_results("main plan refill=host vs phase 5",
+                 [g.result for g in main_rep.groups],
+                 [g.result for g in rep.groups])
+    if p.refill != "host" or p.host_syncs <= q.host_syncs:
+        raise AssertionError(f"main plan host loop: refill {p.refill}, "
+                             f"{p.host_syncs} host syncs vs phase 5's "
+                             f"{q.host_syncs}")
+    log(f"[host loop] main plan refill=host: {rep.n_items} items in "
+        f"{p.wall_s:.2f}s wall = {rep.n_items / p.wall_s:.1f} items/s "
+        f"(phase 5's resident loop {q.wall_s:.2f}s, "
+        f"{rep.n_items / q.wall_s:.1f}), {p.n_segments} segments, "
+        f"{p.host_syncs} blocking host syncs (phase 5: {q.host_syncs}), "
+        f"{p.sync_wait_s:.3f}s waited, harvest and rebuild "
+        f"{p.refill_wall_s:.3f}s, engine busy estimate "
+        f"{p.device_busy_frac:.4f}; {seg} segment launches, no plain "
+        f"call; every per-item field equal to phase 5")
+
+    plan = past_bound_plan()
+    rep, wall, seg, _ = counted_run(
+        "past the mix bound", lambda: run_plan(plan, device=dev), False)
+    p = rep.packed
+    if p.refill != "host":
+        raise AssertionError(f"past the mix bound: refill {p.refill}")
+    for g, grp in zip(rep.groups, plan.groups):
+        r, w = g.result, g.workload
+        if not r.halted.all():
+            raise AssertionError(f"past the bound: {w.key}: "
+                                 f"{int((~r.halted).sum())} items never "
+                                 f"halted")
+        n_chk = 1024 if w.key == "TT" else r.n_items
+        mems = workload_source(w, grp.seed)(0, n_chk)
+        ref = np.asarray(w.ref(mems[:, :w.n_inputs]), np.int32)
+        bad = int((r.out[:n_chk] != ref).sum())
+        if bad:
+            raise AssertionError(f"past the bound: {w.key}: {bad} of "
+                                 f"{n_chk} outputs differ")
+    log(f"[host loop] past the mix bound (TT, PT, CT, AD x 28,000 on SERV, "
+        f"static budgets): refill={p.refill}, {rep.n_items} items halted "
+        f"in {p.wall_s:.2f}s wall = {rep.n_items / p.wall_s:.1f} items/s, "
+        f"{p.n_segments} segments, {p.host_syncs} host syncs, {seg} "
+        f"segment launches, no plain call; every output equal to the "
+        f"workload's reference (TT on its first 1,024)")
+
+
+def phase_checkpoint(dev, main_rep):
+    """Phase 17: durable resident streams. Phase 5's plan checkpointed
+    every 8 segments, crashed after 20 and resumed: per-item results and
+    the schedule equal to phase 5's, each save's write time and bytes,
+    the resumed wall. Then a small stream crashed on the card resumes on
+    the CPU, and the other way round."""
+    import _torch_parity as tp
+    from repro_torch.distributed import checkpoint as dckpt
+    from repro_torch.fleet import InjectedFault, engine, run_plan
+    from repro_torch.fleet.plan import _packed_groups
+    cdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(cdir, ignore_errors=True)
+    writes, reads = [], []
+    save, restore = dckpt.save, dckpt.restore
+
+    def timed_save(ckpt_dir, step, tree, **kw):
+        t0 = time.perf_counter()
+        path = save(ckpt_dir, step, tree, **kw)
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        writes.append((step, time.perf_counter() - t0, nbytes))
+        return path
+
+    def timed_restore(*a, **kw):
+        t0 = time.perf_counter()
+        out = restore(*a, **kw)
+        reads.append((out[1], time.perf_counter() - t0))
+        return out
+
+    dckpt.save, dckpt.restore = timed_save, timed_restore
+    try:
+        plan = main_plan()
+        lowered, _ = _packed_groups(plan)
+
+        def crash():
+            try:
+                engine.run_packed(
+                    lowered, chunk=plan.chunk, seg_steps=plan.seg_steps,
+                    prefetch=plan.prefetch, adaptive=plan.adaptive,
+                    checkpoint_dir=cdir, checkpoint_every=8,
+                    _crash_after_segments=20, device=dev)
+            except InjectedFault:
+                return
+            raise AssertionError("the checkpointed main plan did not crash")
+        _, crash_wall, _, _ = counted_run("checkpointed crash", crash, True)
+        if sorted(dckpt.all_steps(cdir)) != [8, 16]:
+            raise AssertionError(f"checkpoints {dckpt.all_steps(cdir)}")
+        rep, wall, seg, ref = counted_run(
+            "resume", lambda: run_plan(plan, checkpoint_dir=cdir,
+                                       checkpoint_every=8, device=dev),
+            True)
+    finally:
+        dckpt.save, dckpt.restore = save, restore
+    p, q = rep.packed, main_rep.packed
+    same_results("resumed main plan vs phase 5",
+                 [g.result for g in main_rep.groups],
+                 [g.result for g in rep.groups])
+    # lane_steps may differ: a resume stages the unconsumed items again,
+    # so lanes can take other items than in the uninterrupted run
+    for f in ("n_segments", "seg_schedule"):
+        if getattr(p, f) != getattr(q, f):
+            raise AssertionError(f"resumed main plan: {f} differs")
+    for step, secs, nbytes in writes:
+        log(f"[checkpoint] main plan save at segment {step}: write "
+            f"{secs * 1e3:.1f} ms (serialise, CRC32, rename), {nbytes} "
+            f"bytes on disk")
+    for step, secs in reads:
+        log(f"[checkpoint] restore of segment {step}: {secs * 1e3:.1f} ms "
+            f"(read and CRC32-verify)")
+    log(f"[checkpoint] main plan crashed after 20 segments in "
+        f"{crash_wall:.2f}s (checkpoints at 8 and 16), resumed in "
+        f"{wall:.2f}s ({p.wall_s:.2f}s in run_packed; phase 5's whole run "
+        f"{q.wall_s:.2f}s): {p.n_segments} segments, {seg} segment and "
+        f"{ref} refill launches in the resumed run, no plain call; every "
+        f"per-item field, n_segments and the schedule equal to phase 5's "
+        f"({p.lane_steps} lane-step slots, phase 5 {q.lane_steps})")
+
+    kw = dict(chunk=16, seg_steps=64, keep_state=True)
+
+    def groups():
+        return tp.skew_groups(engine, max_steps_b=100_000)
+    gold, gs = engine.run_packed(groups(), device=dev, **kw)
+    for crash_dev, resume_dev in ((dev, "cpu"), ("cpu", dev)):
+        d = os.path.join(cdir, f"small_{crash_dev}")
+        try:
+            on_cpu(lambda: engine.run_packed(
+                groups(), checkpoint_dir=d, checkpoint_every=4,
+                _crash_after_segments=10, device=crash_dev, **kw))
+            raise AssertionError("the small stream did not crash")
+        except InjectedFault:
+            pass
+        res, rs = on_cpu(lambda: engine.run_packed(
+            groups(), checkpoint_dir=d, checkpoint_every=4,
+            device=resume_dev, **kw))
+        same_results(f"small stream crashed on {crash_dev}, resumed on "
+                     f"{resume_dev}", gold, res)
+        if (rs.n_segments, rs.seg_schedule) != (gs.n_segments,
+                                                gs.seg_schedule):
+            raise AssertionError("small stream: schedule differs")
+        log(f"[checkpoint] small stream (64 items) crashed on {crash_dev} "
+            f"at segment 10, resumed on {resume_dev} from its segment-8 "
+            f"checkpoint: every per-item field, the final state and "
+            f"{rs.n_segments} segments equal to the card's uninterrupted "
+            f"run")
+    shutil.rmtree(cdir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1899,7 +2176,7 @@ def main() -> int:
     phase_kernels(dev, rec)
     log(f"[kernels] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    phase_small_plan(dev)
+    small_rep = phase_small_plan(dev)
     log(f"[small plan] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     counts, main_rep = phase_main(dev)
@@ -1934,6 +2211,12 @@ def main() -> int:
     t0 = time.perf_counter()
     counts.update(phase_main_serve(dev, rec))
     log(f"[main serve] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_host_loop(dev, small_rep, main_rep)
+    log(f"[host loop] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_checkpoint(dev, main_rep)
+    log(f"[checkpoint] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []

@@ -31,10 +31,26 @@ boundary snapshot (kept in preallocated lane buffers, since the kernel
 updates the pool in place) and quarantines a pair after `max_retries`
 consecutive mismatches, requeueing its item ahead of fresh admissions.
 
+The host-refill loop (`refill="host"`, `_stream_host`) is the
+reference's A/B baseline: a blocking done-count read per segment, then,
+on a finishing segment, a host demux of the finished lanes and a
+rebuild of the pool, through the same segment kernel. A plan past the
+resident safety bounds (int32 mix counters, keep_state device rows)
+falls back to it, as the reference's does; `PackedStats.refill` says
+which loop ran.
+
+Durable streams (`checkpoint_dir=`, `checkpoint_every=`): at a refill
+boundary the resident loop writes the reference's canonical snapshot
+(`distributed/checkpoint.py`): per-item results so far, done mask,
+in-flight lanes, pending item spans and controller state. A run whose
+`checkpoint_dir` holds a checkpoint resumes from the newest intact one:
+per-item results bit-exact with an uninterrupted run, the schedule that
+of the reference's resume (which stages the unconsumed items again, so
+it may take other segments than the uninterrupted run); a checkpoint
+the reference wrote, under any mesh, resumes here at one shard.
+
 Not ported yet, and raising `NotImplementedError` (see ROADMAP.md,
-queue 1): the host-refill loop (`refill="host"`, and the reference's
-fallback to it past the resident safety bounds), `mesh=` and
-`checkpoint_dir=`.
+queue 1): `mesh=` (shard-local multi-GPU streaming).
 """
 from __future__ import annotations
 
@@ -48,6 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed import checkpoint as dckpt
 from repro_torch.flexibench.base import Workload
 from repro_torch.flexibits import faults as flexifault
 from repro_torch.flexibits import iss
@@ -60,7 +77,8 @@ I32 = torch.int32
 N_MIX = len(MIX_CLASSES)
 
 # resident-runtime safety bounds: the per-group mix counters are int32,
-# and keep_state scatters full final state into O(fleet) device rows
+# and keep_state scatters full final state into O(fleet) device rows;
+# past either, run_packed falls back to the host-refill loop
 _RESIDENT_MIX_LIMIT = 2**31 - 1
 _RESIDENT_KEEP_STATE_WORDS = 1 << 27   # ~512 MB of int32 device rows
 
@@ -331,8 +349,10 @@ class _SyncClock:
         self.idle_s = 0.0
 
     def fetch(self, x: torch.Tensor) -> np.ndarray:
+        """A host copy of `x` (never a view of a CPU tensor the run goes
+        on updating in place)."""
         t0 = time.perf_counter()
-        out = x.cpu().numpy()
+        out = x.to("cpu", copy=True).numpy()
         self.sync_wait_s += time.perf_counter() - t0
         self.host_syncs += 1
         return out
@@ -410,6 +430,164 @@ def _apportion(slots: int, remaining) -> np.ndarray:
         for g in np.argsort(-frac, kind="stable")[:left]:
             take[g] += 1
     return take
+
+
+# ---------------------------------------------------------------- host loop
+# The reference's PR-4 loop primitives as plain torch ops on the run's
+# device. Where the reference donates its buffers, these update the pool
+# in place.
+
+def _fresh_chunk(mems: np.ndarray, active: np.ndarray,
+                 dev: torch.device) -> iss.ISSState:
+    lanes = iss.fresh_lanes(torch.tensor(mems, dtype=I32, device=dev))
+    # padding lanes never step
+    return lanes._replace(halted=torch.tensor(~active, device=dev))
+
+
+def _refill(state: iss.ISSState, replace: torch.Tensor,
+            new_mems: torch.Tensor) -> iss.ISSState:
+    """Reset `replace` lanes to a fresh item (mem from new_mems), in
+    place."""
+    rep1 = replace[:, None]
+    state.regs.masked_fill_(rep1, 0)
+    state.pc.masked_fill_(replace, 0)
+    torch.where(rep1, new_mems, state.mem, out=state.mem)
+    state.halted.masked_fill_(replace, False)
+    for x in (state.n_instr, state.n_two_stage, state.n_cycles):
+        x.masked_fill_(replace, 0)
+    state.mix.masked_fill_(rep1, 0)
+    return state
+
+
+def _fresh_packed(mems: np.ndarray, active: np.ndarray, prog_id: np.ndarray,
+                  max_steps: np.ndarray,
+                  dev: torch.device) -> iss.PackedState:
+    return iss.PackedState(
+        lanes=_fresh_chunk(mems, active, dev),
+        prog_id=torch.tensor(prog_id, dtype=I32, device=dev),
+        max_steps=torch.tensor(max_steps, dtype=I32, device=dev))
+
+
+def _refill_packed(state: iss.PackedState, replace: torch.Tensor,
+                   new_mems: torch.Tensor, new_prog: torch.Tensor,
+                   new_ms: torch.Tensor) -> iss.PackedState:
+    """Reset `replace` lanes to a fresh item of (possibly) another group:
+    new memory image, bank row and step budget, in place."""
+    _refill(state.lanes, replace, new_mems)
+    torch.where(replace, new_prog, state.prog_id, out=state.prog_id)
+    torch.where(replace, new_ms, state.max_steps, out=state.max_steps)
+    return state
+
+
+def _done_count_packed(state: iss.PackedState) -> torch.Tensor:
+    """Scalar count of done lanes (halted or own step budget spent;
+    padding lanes carry budget 0 and count as done): the host loop's
+    one read per segment."""
+    return (state.lanes.halted
+            | (state.lanes.n_instr >= state.max_steps)).sum()
+
+
+# ------------------------------------------------------- durable streams
+
+class InjectedFault(RuntimeError):
+    """Raised by the resident loop's fault-injection knob
+    (`run_packed(..., _crash_after_segments=n)`): the stream dies at the
+    top of a loop iteration, so a test can kill a run at a segment
+    boundary and resume it from its last checkpoint."""
+
+
+def shard_partition(counts, n_shards: int):
+    """Static item->shard partition of the packed stream: `spans[g][s]`
+    is a list of `(lo, hi)` half-open item-index ranges of group g owned
+    by shard s, a contiguous balanced split (shard item counts differ by
+    at most one). At one shard it is the whole group, in order."""
+    spans = []
+    for c in np.asarray(counts, np.int64):
+        c = int(c)
+        base, rem = divmod(c, n_shards)
+        row, lo = [], 0
+        for s in range(n_shards):
+            k = base + (1 if s < rem else 0)
+            row.append([(lo, lo + k)] if k else [])
+            lo += k
+        spans.append(row)
+    return spans
+
+
+def _span_items(spans) -> np.ndarray:
+    """Flat item-index vector of a span list."""
+    if not spans:
+        return np.zeros(0, np.int64)
+    return np.concatenate([np.arange(lo, hi, dtype=np.int64)
+                           for lo, hi in spans])
+
+
+def _items_to_spans(items):
+    """Compress a sorted item-index vector back into (lo, hi) spans."""
+    items = np.asarray(items, np.int64)
+    if items.size == 0:
+        return []
+    brk = np.nonzero(np.diff(items) != 1)[0]
+    starts = np.concatenate([[0], brk + 1])
+    ends = np.concatenate([brk, [items.size - 1]])
+    return [(int(items[a]), int(items[b]) + 1)
+            for a, b in zip(starts, ends)]
+
+
+def _split_spans(spans, n_shards: int):
+    """Contiguous balanced split of a span list over `n_shards`: the
+    pending items of a restored stream, dealt to the resuming shards."""
+    items = _span_items(spans)
+    base, rem = divmod(items.size, n_shards)
+    out, lo = [], 0
+    for s in range(n_shards):
+        k = base + (1 if s < rem else 0)
+        out.append(_items_to_spans(items[lo:lo + k]))
+        lo += k
+    return out
+
+
+def _span_source(source: Source, spans) -> Source:
+    """View of `source` restricted to a span list: linear index i maps
+    to the i-th item of the concatenated spans, fetched from the
+    underlying source in contiguous runs."""
+    lens = np.array([hi - lo for lo, hi in spans], np.int64)
+    offs = np.concatenate([np.zeros(1, np.int64), np.cumsum(lens)])
+
+    def src(start: int, count: int) -> np.ndarray:
+        parts = []
+        i, end = int(start), int(start) + int(count)
+        while i < end:
+            k = int(np.searchsorted(offs, i, side="right")) - 1
+            take = min(end - i, int(offs[k + 1]) - i)
+            a = spans[k][0] + (i - int(offs[k]))
+            parts.append(np.asarray(source(a, take), np.int32))
+            i += take
+        if not parts:
+            return np.zeros((0, 0), np.int32)
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+    return src
+
+
+# the canonical resident checkpoint's leaves: merged per-item results
+# (`val_*`) and the in-flight lanes (`lane_*`), as the reference writes
+_CKPT_VALS = ("n_instr", "n_two", "n_cycles", "halted", "out")
+_CKPT_KEEP = ("mems", "regs", "pc", "mix_items")
+_CKPT_LANES = ("regs", "pc", "mem", "halted", "n_instr", "n_two",
+               "mix", "n_cycles", "prog", "ms")
+
+
+def _resident_ckpt_skeleton(n_groups: int, keep_state: bool) -> dict:
+    """Flat-dict skeleton of a resident checkpoint: `restore` needs only
+    the key set; shapes come from the stored arrays."""
+    keys = ["counts", "done_mask", "mix_g", "pending", "counters",
+            "ctrl", "sched", "g_lane_steps", "g_segments",
+            "lane_item", "lane_prev"]
+    keys += ["val_" + k for k in _CKPT_VALS]
+    if keep_state:
+        keys += ["val_" + k for k in _CKPT_KEEP]
+    keys += ["lane_" + k for k in _CKPT_LANES]
+    return {k: np.zeros(0, np.int64) for k in keys}
 
 
 class ResidentAcc(NamedTuple):
@@ -625,32 +803,47 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
                subset: Optional[frozenset] = None,
                prefetch: bool = True, refill: str = "device",
                adaptive: bool = False, checkpoint_dir: Optional[str] = None,
-               faults=None, redundancy: str = "none", max_retries: int = 2,
-               device: DeviceLike = None):
-    """Execute every `PackedGroup` through ONE packed, resident stream.
+               checkpoint_every: int = 0, faults=None,
+               redundancy: str = "none", max_retries: int = 2,
+               device: DeviceLike = None,
+               _crash_after_segments: Optional[int] = None):
+    """Execute every `PackedGroup` through ONE packed stream.
 
     Returns `(results, stats)`: `results[g]` is group g's `FleetResult`,
-    bit-exact with the reference's `run_packed(refill="device")` (per-item
-    tallies, final state with `keep_state`, and, at equal `chunk`,
-    `seg_steps` and `adaptive`, the schedule statistics), and `stats`
-    the whole-run `PackedStats`. The segments run on the
-    `iss_segment_banked` kernel on the card (`device=None` means
-    "cuda"), or on its plain version when `device="cpu"`.
+    bit-exact with the reference's `run_packed` (per-item tallies, final
+    state with `keep_state`, and, at equal `chunk`, `seg_steps` and
+    `adaptive`, the schedule statistics), and `stats` the whole-run
+    `PackedStats`. The segments run on the `iss_segment_banked` kernel
+    on the card (`device=None` means "cuda"), or on its plain version
+    when `device="cpu"`.
 
+    `refill` picks the loop: "device" (the resident loop) or "host" (the
+    reference's host-refill A/B loop, with its host syncs read for
+    read). A plan past the resident safety bounds runs on the host loop
+    whatever `refill` says, and `stats.refill` reports which ran.
     `adaptive` turns on the superstep controller. `subset` pins the
     opcode subset the plain version is specialised to (default: the
-    union of the groups' text subsets). `faults` (a `faults.FaultSpec`;
-    rate 0 is the fault-free run) injects faults; `redundancy="dmr"`
-    runs every item on a lane pair and recovers by rollback, quarantining
-    a pair after `max_retries` consecutive mismatches. Unprotected faulty
-    results depend on the lane and epoch each item lands on, so they
-    match the reference's only at equal `chunk`, `seg_steps` and
-    `adaptive`; DMR results equal the fault-free ones at any chunk. The
-    options the reference has beyond these (`refill="host"`, `mesh`,
-    `checkpoint_dir`, and plans past the resident safety bounds, where
-    the reference falls back to its host loop) raise
-    NotImplementedError, except that a resilient plan raises the
-    reference's ValueError where the reference does.
+    union of the groups' text subsets).
+
+    `checkpoint_dir` makes the resident stream durable: every
+    `checkpoint_every` segments it writes the reference's canonical
+    snapshot there, and a run whose `checkpoint_dir` already holds one
+    resumes from the newest intact checkpoint, its per-item results
+    bit-exact with an uninterrupted run and its schedule the reference's
+    resume's (a checkpoint the reference wrote under a mesh resumes here
+    at one shard). `_crash_after_segments` raises
+    `InjectedFault` at the top of the loop once that many segments have
+    run.
+
+    `faults` (a `faults.FaultSpec`; rate 0 is the fault-free run)
+    injects faults; `redundancy="dmr"` runs every item on a lane pair
+    and recovers by rollback, quarantining a pair after `max_retries`
+    consecutive mismatches. Unprotected faulty results depend on the
+    lane and epoch each item lands on, so they match the reference's
+    only at equal `chunk`, `seg_steps` and `adaptive`; DMR results equal
+    the fault-free ones at any chunk. A resilient plan needs the
+    resident loop and no checkpoint, and raises the reference's
+    ValueErrors otherwise. `mesh` raises NotImplementedError.
     """
     dev = resolve(device)
     groups = list(groups)
@@ -681,34 +874,34 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
                 "fault injection / DMR is incompatible with "
                 "checkpoint_dir: epoch/retry/snapshot state is not "
                 "part of the durable checkpoint schema")
-    if refill == "host":
-        raise _not_ported("refill='host' (the host-refill loop)", "item 4")
     if mesh is not None:
         raise _not_ported("mesh= (shard-local multi-GPU streaming)",
                           "item 9")
-    if checkpoint_dir is not None:
-        raise _not_ported("checkpoint_dir= (durable resident streams)",
-                          "item 7")
 
     n_groups = len(groups)
     counts = np.array([g.n_items for g in groups], np.int64)
     total_items = int(counts.sum())
-    mix_bound = max(int(g.n_items) * int(g.max_steps) for g in groups)
-    ks_words = total_items * (max(g.mem_words for g in groups) + 16 + 1
-                              + N_MIX) if keep_state else 0
-    if mix_bound > _RESIDENT_MIX_LIMIT \
-            or ks_words > _RESIDENT_KEEP_STATE_WORDS:
-        if resilient:
-            raise ValueError(
-                "plan exceeds the resident-runtime safety bounds "
-                "(int32 mix counters / keep_state device rows) and "
-                "fault injection / DMR cannot fall back to the "
-                "host-refill loop — shrink the plan or drop the "
-                "fault/redundancy knobs")
-        raise _not_ported(
-            "a plan past the resident safety bounds (int32 mix counters, "
-            "keep_state device rows), which the reference runs on its "
-            "host-refill loop,", "item 4")
+    if refill == "device":
+        # past the int32 mix counters' bound or the keep_state device-row
+        # budget the host loop (int64 collectors, host-RAM state) runs
+        mix_bound = max(int(g.n_items) * int(g.max_steps) for g in groups)
+        ks_words = total_items * (max(g.mem_words for g in groups) + 16 + 1
+                                  + N_MIX) if keep_state else 0
+        if mix_bound > _RESIDENT_MIX_LIMIT \
+                or ks_words > _RESIDENT_KEEP_STATE_WORDS:
+            if resilient:
+                raise ValueError(
+                    "plan exceeds the resident-runtime safety bounds "
+                    "(int32 mix counters / keep_state device rows) and "
+                    "fault injection / DMR cannot fall back to the "
+                    "host-refill loop — shrink the plan or drop the "
+                    "fault/redundancy knobs")
+            refill = "host"
+    if checkpoint_dir is not None and refill != "device":
+        raise ValueError(
+            "checkpoint_dir requires the resident loop: refill='device' "
+            "within the resident safety bounds (the host-refill loop "
+            "keeps no durable on-device state)")
     stepper = "cuda" if dev.type == "cuda" else "plain"
     dev_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
         else "cpu"
@@ -724,8 +917,8 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
         return empty, PackedStats(
             n_groups=n_groups, n_progs=n_groups, bank_width=0,
             lane_steps=0, n_segments=0, chunk=0, seg_steps=seg_steps,
-            wall_s=0.0, stepper=stepper, n_devices=1, adaptive=adaptive,
-            device=dev_name, redundancy=redundancy)
+            wall_s=0.0, stepper=stepper, n_devices=1, refill=refill,
+            adaptive=adaptive, device=dev_name, redundancy=redundancy)
 
     mem_words = max(g.mem_words for g in groups)
     bank_np, code_len_np = iss.pack_programs([g.code for g in groups])
@@ -758,10 +951,26 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
     clock = _SyncClock()
     controller = _SuperstepController(seg_steps, chunk, adaptive)
     t0 = time.perf_counter()
-    out = _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
-                           keep_state, subset, mem_words, timing,
-                           controller, clock, dev, faults=faults, dmr=dmr,
-                           max_retries=max_retries)
+    if refill == "device":
+        out = _stream_resident(groups, prefetch, counts, ms_of, consts,
+                               chunk, keep_state, subset, mem_words, timing,
+                               controller, clock, dev, faults=faults,
+                               dmr=dmr, max_retries=max_retries,
+                               checkpoint_dir=checkpoint_dir,
+                               checkpoint_every=checkpoint_every,
+                               crash_after=_crash_after_segments)
+    else:
+        prefs = [_Prefetcher(g.source, g.n_items,
+                             block=max(1, min(chunk, g.n_items)),
+                             background=prefetch)
+                 for g in groups]
+        try:
+            out = _stream_host(groups, prefs, counts, ms_of, consts, chunk,
+                               keep_state, subset, mem_words, timing,
+                               controller, clock, dev)
+        finally:
+            for p in prefs:
+                p.close()
     wall_s = time.perf_counter() - t0
 
     busy = np.array([r.sum() for r in out["r_instr"]], np.float64)
@@ -785,14 +994,171 @@ def run_packed(groups, *, chunk: int = 256, seg_steps: int = 4096,
         n_groups=n_groups, n_progs=bank_np.shape[0],
         bank_width=bank_np.shape[1], lane_steps=out["lane_steps"],
         n_segments=out["n_segments"], chunk=chunk, seg_steps=seg_steps,
-        wall_s=wall_s, stepper=stepper, n_devices=1, adaptive=adaptive,
-        host_syncs=clock.host_syncs, sync_wait_s=clock.sync_wait_s,
-        refill_wall_s=clock.refill_wall_s,
+        wall_s=wall_s, stepper=stepper, n_devices=1, refill=refill,
+        adaptive=adaptive, host_syncs=clock.host_syncs,
+        sync_wait_s=clock.sync_wait_s, refill_wall_s=clock.refill_wall_s,
         device_busy_frac=clock.busy_frac(wall_s),
         seg_schedule=tuple(controller.schedule[:out["n_segments"]]),
-        device=dev_name, redundancy=redundancy, detected=out["detected"],
-        corrected=out["corrected"], quarantined=out["quarantined"])
+        device=dev_name, redundancy=redundancy,
+        detected=out.get("detected", 0), corrected=out.get("corrected", 0),
+        quarantined=out.get("quarantined", 0))
     return results, stats
+
+
+def _stream_host(groups, prefs, counts, ms_of, consts, chunk, keep_state,
+                 subset, mem_words, timing,
+                 controller: _SuperstepController, clock: _SyncClock,
+                 dev: torch.device):
+    """The host-refill stream loop (the reference's `_stream_host`, read
+    for read): a blocking done-count read per segment; on a finishing
+    segment, pulls of the finished lanes' tallies, a host demux into
+    int64 collectors, and an admission that rebuilds the freed lanes."""
+    n_groups = len(groups)
+    r_instr = [np.zeros(n, np.int64) for n in counts]
+    r_two = [np.zeros(n, np.int64) for n in counts]
+    r_cycles = [np.zeros(n, np.int64) for n in counts]
+    r_halt = [np.zeros(n, bool) for n in counts]
+    r_out = [np.zeros(n, np.int32) for n in counts]
+    r_mix = [np.zeros(N_MIX, np.int64) for _ in groups]
+    g_lane_steps = np.zeros(n_groups, np.int64)
+    g_segments = np.zeros(n_groups, np.int64)
+    r_mem = r_regs = r_pc = r_mix_items = None
+    if keep_state:
+        r_mem = [np.zeros((n, g.mem_words), np.int32)
+                 for n, g in zip(counts, groups)]
+        r_regs = [np.zeros((n, 16), np.int32) for n in counts]
+        r_pc = [np.zeros(n, np.int32) for n in counts]
+        r_mix_items = [np.zeros((n, N_MIX), np.int32) for n in counts]
+
+    cursor = np.zeros(n_groups, np.int64)   # next item per group
+    ids = np.full(chunk, -1, np.int64)      # item index within group
+    lane_group = np.full(chunk, -1, np.int64)
+    lane_ms = np.zeros(chunk, np.int64)     # host copy of budgets
+
+    def admit(state, free_lanes):
+        """Backfill `free_lanes` with items from any pending group."""
+        take = _apportion(len(free_lanes), counts - cursor)
+        n_new = int(take.sum())
+        if n_new == 0:
+            return state, 0
+        new_mems = np.zeros((chunk, mem_words), np.int32)
+        new_prog = np.zeros(chunk, np.int32)
+        new_ms = np.zeros(chunk, np.int32)
+        replace = np.zeros(chunk, bool)
+        off = 0
+        for g in np.nonzero(take)[0]:
+            k = int(take[g])
+            lanes = free_lanes[off:off + k]
+            off += k
+            new_mems[lanes, :groups[g].mem_words] = prefs[g].take(k)
+            new_prog[lanes] = g
+            new_ms[lanes] = ms_of[g]
+            replace[lanes] = True
+            ids[lanes] = np.arange(cursor[g], cursor[g] + k)
+            lane_group[lanes] = g
+            lane_ms[lanes] = ms_of[g]
+            cursor[g] += k
+        if state is None:
+            return (new_mems, replace, new_prog, new_ms), n_new
+        return _refill_packed(
+            state, *(torch.from_numpy(x).to(dev)
+                     for x in (replace, new_mems, new_prog, new_ms))), n_new
+
+    # initial fill (padding lanes carry budget 0 and stay parked)
+    (first, active0, prog0, ms0), _ = admit(None, np.arange(chunk))
+    state = _fresh_packed(first, active0, prog0, ms0, dev)
+
+    prev_instr = np.zeros(chunk, np.int64)
+    lane_steps = 0
+    n_segments = 0
+    expected_done = chunk - int((ids >= 0).sum())
+    need_mem = keep_state or any(g.out_addr is not None for g in groups)
+
+    while (ids >= 0).any():
+        seg_steps = controller.next_seg()
+        state = iss_stepper.iss_segment_banked(
+            consts["bank"], consts["code_len"], state, seg_steps=seg_steps,
+            subset=subset, mem_len=consts["mem_len"], cost=consts["cost"],
+            device=dev)
+        n_segments += 1
+        active = ids >= 0
+        act_per_group = np.bincount(lane_group[active], minlength=n_groups)
+        g_segments += act_per_group > 0
+
+        # one scalar read: if no lane finished, every active lane ran
+        # exactly seg_steps
+        if int(clock.fetch(_done_count_packed(state))) == expected_done:
+            lane_steps += chunk * seg_steps
+            g_lane_steps += act_per_group * seg_steps
+            prev_instr[active] += seg_steps
+            controller.record(0, seg_steps)
+            continue
+
+        t_harvest = time.perf_counter()
+        wait_before = clock.sync_wait_s
+        halted = clock.fetch(state.lanes.halted)
+        n_instr = clock.fetch(state.lanes.n_instr).astype(np.int64)
+        delta = int((n_instr - prev_instr).max(initial=0))
+        lane_steps += chunk * delta
+        g_lane_steps += act_per_group * delta
+        prev_instr = n_instr
+
+        done = active & (halted | (n_instr >= lane_ms))
+        idx = np.nonzero(done)[0]
+        if idx.size:
+            tidx = torch.from_numpy(idx).to(dev)
+            two = clock.fetch(state.lanes.n_two_stage).astype(np.int64)
+            mix_rows = clock.fetch(state.lanes.mix[tidx]).astype(np.int64)
+            if timing:
+                cyc = clock.fetch(state.lanes.n_cycles).astype(np.int64)
+            # one O(done x mem_words) row gather serves every group's
+            # out word (and the keep_state memories)
+            if need_mem:
+                mem_rows = clock.fetch(state.lanes.mem[tidx])
+            if keep_state:
+                regs_rows = clock.fetch(state.lanes.regs[tidx])
+                pc_rows = clock.fetch(state.lanes.pc)[idx]
+            for g in np.unique(lane_group[idx]):
+                sel = lane_group[idx] == g
+                lg = idx[sel]
+                items = ids[lg]
+                r_instr[g][items] = n_instr[lg]
+                r_two[g][items] = two[lg]
+                if timing:
+                    r_cycles[g][items] = cyc[lg]
+                r_halt[g][items] = halted[lg]
+                r_mix[g] += mix_rows[sel].sum(0)
+                if groups[g].out_addr is not None:
+                    r_out[g][items] = mem_rows[sel][:, groups[g].out_addr]
+                if keep_state:
+                    r_mem[g][items] = mem_rows[sel][:, :groups[g].mem_words]
+                    r_regs[g][items] = regs_rows[sel]
+                    r_pc[g][items] = pc_rows[sel]
+                    r_mix_items[g][items] = mix_rows[sel]
+
+            # retire done lanes, then backfill from any pending group
+            ids[idx] = -1
+            lane_group[idx] = -1
+            lane_ms[idx] = 0
+            state, _ = admit(state, idx)
+            # refilled lanes restart at n_instr=0; retired-but-empty
+            # lanes keep their frozen counters
+            prev_instr[idx] = np.where(ids[idx] >= 0, 0, prev_instr[idx])
+        controller.record(int(idx.size), seg_steps)
+        # the harvest and rebuild run with the segment finished and
+        # nothing queued: device-idle host work, less the transfer time
+        # already booked as sync wait
+        dt = time.perf_counter() - t_harvest
+        clock.refill_wall_s += dt
+        clock.idle_s += max(0.0, dt - (clock.sync_wait_s - wait_before))
+        expected_done = chunk - int((ids >= 0).sum())
+
+    return {"r_instr": r_instr, "r_two": r_two, "r_halt": r_halt,
+            "r_out": r_out, "r_mix": r_mix, "r_mem": r_mem,
+            "r_regs": r_regs, "r_pc": r_pc, "r_mix_items": r_mix_items,
+            "r_cycles": r_cycles, "g_lane_steps": g_lane_steps,
+            "g_segments": g_segments, "lane_steps": lane_steps,
+            "n_segments": n_segments}
 
 
 def run_stream(code: np.ndarray, source: Source, *, n_items: int,
@@ -822,6 +1188,30 @@ def run_stream(code: np.ndarray, source: Source, *, n_items: int,
         wall_s=stats.wall_s)
 
 
+def run_workload_stream(w: Workload, n_items: int, *, seed: int = 0,
+                        chunk: int = 256, seg_steps: int = 4096,
+                        max_steps: Optional[int] = None,
+                        keep_state: bool = False, mesh=None,
+                        prefetch: bool = True, refill: str = "device",
+                        adaptive: bool = False,
+                        cost: Optional[np.ndarray] = None,
+                        subset: Optional[frozenset] = None, faults=None,
+                        redundancy: str = "none", max_retries: int = 2,
+                        device: DeviceLike = None) -> FleetResult:
+    """Stream one FlexiBench workload end to end (`run_stream` over its
+    `workload_source`); `subset` pins the plain version's opcode subset,
+    e.g. FlexiLint's reachable-only one."""
+    return run_stream(
+        w.program.code, workload_source(w, seed), n_items=n_items,
+        mem_words=w.total_mem_words,
+        max_steps=w.max_steps if max_steps is None else max_steps,
+        chunk=chunk, subset=subset, seg_steps=seg_steps,
+        out_addr=w.out_addr, keep_state=keep_state, mesh=mesh,
+        prefetch=prefetch, refill=refill, adaptive=adaptive, cost=cost,
+        faults=faults, redundancy=redundancy, max_retries=max_retries,
+        device=device)
+
+
 def _host_buffer(shape, dtype, dev: torch.device) -> torch.Tensor:
     """A host staging tensor: page-locked when the device is a card, so
     copies from it can run asynchronously."""
@@ -832,22 +1222,100 @@ def _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
                      keep_state, subset, mem_words, timing,
                      controller: _SuperstepController, clock: _SyncClock,
                      dev: torch.device, faults=None, dmr: bool = False,
-                     max_retries: int = 2):
+                     max_retries: int = 2, checkpoint_dir=None,
+                     checkpoint_every: int = 0, crash_after=None):
     """The resident stream loop (see the module docstring) at one shard.
     The loop exits after the refill that retires the last item; the
     segment queued behind it finds every lane parked and takes no step.
+
+    With `checkpoint_dir` the loop saves the reference's canonical
+    snapshot at the top of an iteration (before the refill) once
+    `checkpoint_every` segments have passed, and resumes from the newest
+    intact checkpoint there. Accumulator rows stay indexed by global item
+    row; items done before a resume keep their results in the host-side
+    `base` and are merged at the drain.
     """
     n_groups = len(groups)
     total = int(counts.sum())
     slot_base = np.zeros(n_groups, np.int64)
     np.cumsum(counts[:-1], out=slot_base[1:])
     cuda = dev.type == "cuda"
+    rows = slice(0, total)
+
+    # ---- host-side merged results: items finished before a resume
+    # live here and never get device rows again
+    done_mask = np.zeros(total, bool)
+    base = {"n_instr": np.zeros(total, np.int64),
+            "n_two": np.zeros(total, np.int64),
+            "n_cycles": np.zeros(total, np.int64),
+            "halted": np.zeros(total, bool),
+            "out": np.zeros(total, np.int32)}
+    if keep_state:
+        base.update(mems=np.zeros((total, mem_words), np.int32),
+                    regs=np.zeros((total, 16), np.int32),
+                    pc=np.zeros(total, np.int32),
+                    mix_items=np.zeros((total, N_MIX), np.int32))
+    mix_base = np.zeros((n_groups, N_MIX), np.int64)
+    g_lane_steps = np.zeros(n_groups, np.int64)
+    g_segments = np.zeros(n_groups, np.int64)
+    lane_steps = n_segments = prev_seg = 0
+    detected = corrected = quarantined = 0
+
+    # ---- resume? (the canonical checkpoint is independent of the mesh
+    # and chunk it was written under)
+    resume = None
+    if checkpoint_dir is not None \
+            and dckpt.latest_step(checkpoint_dir) is not None:
+        tree, _ = dckpt.restore(
+            checkpoint_dir, _resident_ckpt_skeleton(n_groups, keep_state))
+        resume = {k: np.asarray(v) for k, v in tree.items()}
+        if not np.array_equal(resume["counts"], counts):
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir} was written for group "
+                f"sizes {resume['counts'].tolist()}, plan has "
+                f"{counts.tolist()}")
+        if int(resume["lane_mem"].shape[1]) != mem_words:
+            raise ValueError("checkpoint lane memory width "
+                             f"{resume['lane_mem'].shape[1]} != plan "
+                             f"mem_words {mem_words}")
+        done_mask = resume["done_mask"].astype(bool).copy()
+        for k in base:
+            base[k] = resume["val_" + k].astype(base[k].dtype).copy()
+        mix_base = resume["mix_g"].astype(np.int64).copy()
+        lane_steps = int(resume["counters"][0])
+        n_segments = int(resume["counters"][1])
+        controller.rate = float(resume["ctrl"][0])
+        prev_seg = int(resume["ctrl"][1])
+        controller.schedule = [int(x) for x in resume["sched"]]
+        g_lane_steps = resume["g_lane_steps"].astype(np.int64).copy()
+        g_segments = resume["g_segments"].astype(np.int64).copy()
+    retired = int(done_mask.sum())
+
+    # ---- pending items per group (all of them on a fresh run), and the
+    # in-flight lanes a resume seats at lanes 0..k-1 in old lane order
+    if resume is None:
+        spans = [row[0] for row in shard_partition(counts, 1)]
+        live = np.zeros(0, np.int64)
+    else:
+        lane_item = resume["lane_item"].astype(np.int64)
+        live = np.nonzero(lane_item >= 0)[0]
+        if live.size > chunk:
+            raise ValueError(
+                f"cannot resume {live.size} in-flight lanes onto a "
+                f"{chunk}-lane pool (1 shards x {chunk})")
+        pend = resume["pending"].astype(np.int64).reshape(-1, 3)
+        spans = [_split_spans([(int(lo), int(hi))
+                               for g2, lo, hi in pend if g2 == g], 1)[0]
+                 for g in range(n_groups)]
+    pend_items = [_span_items(sp) for sp in spans]
+    pend_n = np.array([x.size for x in pend_items], np.int64)
 
     sources = [_locked(g.source) for g in groups]
-    prefs = [_Prefetcher(sources[i], int(counts[i]),
-                         block=max(1, min(chunk, int(counts[i]))),
+    prefs = [_Prefetcher(_span_source(sources[g], spans[g]),
+                         int(pend_n[g]),
+                         block=max(1, min(chunk, int(pend_n[g]))),
                          background=prefetch)
-             for i in range(n_groups)]
+             for g in range(n_groups)]
 
     # ---- staged batch: a host mirror in (pinned) tensors, FIFO, plus
     # its device copy; the mirror is written only after the refill that
@@ -874,19 +1342,19 @@ def _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
             st_n[0] = off + 1
             dirty[0] = True
         free = chunk - int(st_n[0])
-        remaining = counts - staged_cursor
+        remaining = pend_n - staged_cursor
         if free <= 0 or int(remaining.sum()) == 0:
             return
         take = _apportion(free, remaining)
         off = int(st_n[0])
         for g in np.nonzero(take)[0]:
             k = int(take[g])
+            c = int(staged_cursor[g])
             st_mems[off:off + k] = 0
             st_mems[off:off + k, :groups[g].mem_words] = prefs[g].take(k)
             st_prog[off:off + k] = g
             st_ms[off:off + k] = ms_of[g]
-            st_slot[off:off + k] = slot_base[g] + np.arange(
-                staged_cursor[g], staged_cursor[g] + k)
+            st_slot[off:off + k] = slot_base[g] + pend_items[g][c:c + k]
             staged_cursor[g] += k
             off += k
         if off != int(st_n[0]):
@@ -917,6 +1385,20 @@ def _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
         max_steps=torch.zeros(chunk, dtype=I32, device=dev))
     item_slot = torch.full((chunk,), -1, dtype=I32, device=dev)
     acc = _fresh_acc(total, chunk, n_groups, mem_words, keep_state, dev)
+    if live.size:
+        # a resumed lane keeps its global item row as its slot
+        k = live.size
+        ln = state.lanes
+        for t, key in ((ln.regs, "regs"), (ln.pc, "pc"), (ln.mem, "mem"),
+                       (ln.halted, "halted"), (ln.n_instr, "n_instr"),
+                       (ln.n_two_stage, "n_two"), (ln.mix, "mix"),
+                       (ln.n_cycles, "n_cycles"), (state.prog_id, "prog"),
+                       (state.max_steps, "ms")):
+            t[:k] = torch.as_tensor(resume["lane_" + key][live],
+                                    dtype=t.dtype).to(dev)
+        item_slot[:k] = torch.as_tensor(lane_item[live], dtype=I32).to(dev)
+        acc.prev_instr[:k] = torch.as_tensor(resume["lane_prev"][live],
+                                             dtype=I32).to(dev)
     # resilience state: per-lane fault keys and epochs; per-pair mismatch
     # counts and quarantine flags; the rollback snapshot of the lanes
     lane_key = None if faults is None else flexifault.lane_keys_tensor(
@@ -932,13 +1414,77 @@ def _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
     stats_ev = torch.cuda.Event() if cuda else None
     seg_ev = torch.cuda.Event() if cuda else None
 
-    g_lane_steps = np.zeros(n_groups, np.int64)
-    g_segments = np.zeros(n_groups, np.int64)
-    lane_steps = n_segments = prev_seg = retired = 0
-    detected = corrected = quarantined = 0
+    def merged_vals(accv):
+        """Per-item results: the host `base` where done before a resume,
+        else the item's accumulator row."""
+        out = {}
+        for k, b in base.items():
+            v = accv[k].astype(b.dtype)
+            mask = done_mask if b.ndim == 1 else done_mask[:, None]
+            out[k] = np.where(mask, b, v)
+        return out
+
+    def save_checkpoint():
+        """The canonical snapshot at a refill boundary: (state,
+        item_slot, acc) are the inputs the next refill would see, and
+        staged but unconsumed items go back into the pending spans
+        (never stepped, so staging them again after a resume is
+        bit-exact)."""
+        lanes = state.lanes
+        accv = {k: clock.fetch(getattr(acc, k)[rows]) for k in base}
+        lane_item = clock.fetch(item_slot).astype(np.int64)
+        prev_h = clock.fetch(acc.prev_instr)
+        mix_now = mix_base + clock.fetch(acc.mix_g).astype(np.int64)
+        merged = merged_vals(accv)
+        # pending = staged but unconsumed + not yet staged
+        pend_now = [[pend_items[g][int(staged_cursor[g]):]]
+                    for g in range(n_groups)]
+        k = int(st_n[0])
+        sitems = st_slot[:k].astype(np.int64)
+        for g in range(n_groups):
+            pend_now[g].append(sitems[st_prog[:k] == g] - slot_base[g])
+        prows = []
+        for g in range(n_groups):
+            items = np.sort(np.concatenate(pend_now[g]))
+            prows += [(g, lo, hi) for lo, hi in _items_to_spans(items)]
+        done_now = np.ones(total, bool)
+        done_now[lane_item[lane_item >= 0]] = False
+        for g, lo, hi in prows:
+            done_now[slot_base[g] + lo:slot_base[g] + hi] = False
+        tree = {"counts": counts.copy(), "done_mask": done_now,
+                "mix_g": mix_now, "lane_item": lane_item,
+                "lane_prev": prev_h,
+                "pending": np.asarray(prows, np.int64).reshape(-1, 3),
+                "counters": np.array([lane_steps, n_segments], np.int64),
+                "ctrl": np.array([controller.rate, prev_seg], np.float64),
+                "sched": np.array(controller.schedule, np.int64),
+                "g_lane_steps": g_lane_steps.copy(),
+                "g_segments": g_segments.copy()}
+        tree.update({"val_" + k: v for k, v in merged.items()})
+        tree.update(
+            lane_regs=clock.fetch(lanes.regs),
+            lane_pc=clock.fetch(lanes.pc),
+            lane_mem=clock.fetch(lanes.mem),
+            lane_halted=clock.fetch(lanes.halted),
+            lane_n_instr=clock.fetch(lanes.n_instr),
+            lane_n_two=clock.fetch(lanes.n_two_stage),
+            lane_mix=clock.fetch(lanes.mix),
+            lane_n_cycles=clock.fetch(lanes.n_cycles),
+            lane_prog=clock.fetch(state.prog_id),
+            lane_ms=clock.fetch(state.max_steps))
+        dckpt.save(checkpoint_dir, n_segments, tree)
+
+    last_saved = n_segments
     try:
         restock()
         while retired < total:
+            if crash_after is not None and n_segments >= crash_after:
+                raise InjectedFault(
+                    f"injected fault after segment {n_segments}")
+            if checkpoint_dir is not None and checkpoint_every > 0 \
+                    and n_segments - last_saved >= checkpoint_every:
+                save_checkpoint()
+                last_saved = n_segments
             upload()
             if dmr:
                 (state, item_slot, epoch, retries, quar, acc,
@@ -1010,35 +1556,36 @@ def _stream_resident(groups, prefetch, counts, ms_of, consts, chunk,
         for p in prefs:
             p.close()
 
-    # ---- drain: one read of each accumulator
-    rows = slice(0, total)
+    # ---- drain: one read of each accumulator, merged with the host
+    # base of the items done before a resume
     accv = {"n_instr": clock.fetch(acc.n_instr[rows]),
             "n_two": clock.fetch(acc.n_two[rows])}
     accv["n_cycles"] = clock.fetch(acc.n_cycles[rows]) if timing \
         else np.zeros(total, np.int64)
     accv["halted"] = clock.fetch(acc.halted[rows])
     accv["out"] = clock.fetch(acc.out[rows])
-    mix_g = clock.fetch(acc.mix_g).astype(np.int64)
+    mix_g = mix_base + clock.fetch(acc.mix_g).astype(np.int64)
     if keep_state:
         for k in ("mems", "regs", "pc", "mix_items"):
             accv[k] = clock.fetch(getattr(acc, k)[rows])
+    merged = merged_vals(accv)
 
     res = {k: [] for k in ("r_instr", "r_two", "r_cycles", "r_halt", "r_out",
                            "r_mix", "r_mem", "r_regs", "r_pc",
                            "r_mix_items")}
     for g, grp in enumerate(groups):
         sl = slice(int(slot_base[g]), int(slot_base[g] + counts[g]))
-        res["r_instr"].append(accv["n_instr"][sl].astype(np.int64))
-        res["r_two"].append(accv["n_two"][sl].astype(np.int64))
-        res["r_cycles"].append(accv["n_cycles"][sl].astype(np.int64))
-        res["r_halt"].append(accv["halted"][sl])
-        res["r_out"].append(accv["out"][sl])
+        res["r_instr"].append(merged["n_instr"][sl].astype(np.int64))
+        res["r_two"].append(merged["n_two"][sl].astype(np.int64))
+        res["r_cycles"].append(merged["n_cycles"][sl].astype(np.int64))
+        res["r_halt"].append(merged["halted"][sl])
+        res["r_out"].append(merged["out"][sl])
         res["r_mix"].append(mix_g[g])
         if keep_state:
-            res["r_mem"].append(accv["mems"][sl, :grp.mem_words].copy())
-            res["r_regs"].append(accv["regs"][sl])
-            res["r_pc"].append(accv["pc"][sl])
-            res["r_mix_items"].append(accv["mix_items"][sl])
+            res["r_mem"].append(merged["mems"][sl, :grp.mem_words].copy())
+            res["r_regs"].append(merged["regs"][sl])
+            res["r_pc"].append(merged["pc"][sl])
+            res["r_mix_items"].append(merged["mix_items"][sl])
     res.update(g_lane_steps=g_lane_steps, g_segments=g_segments,
                lane_steps=lane_steps, n_segments=n_segments,
                detected=detected, corrected=corrected,

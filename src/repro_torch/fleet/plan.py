@@ -8,11 +8,9 @@ shortest path to HALT rejects budgets that cannot reach the ecall with a
 every group through ONE packed, resident stream (`engine.run_packed`),
 and prices the per-group tallies in a `FleetReport`, under the plan's
 fault schedule and redundancy (FlexiFault, DESIGN.md §9.14) when it has
-them.
-
-The port runs the packed path only; `packed=False` (the sequential A/B
-baseline) raises `NotImplementedError`, as do the engine options it
-does not port yet.
+them. `packed=False` is the reference's sequential A/B baseline: the
+groups drain one after another, one stream each
+(`engine.run_workload_stream`).
 """
 from __future__ import annotations
 
@@ -99,8 +97,8 @@ class FleetPlan:
     `redundancy="dmr"` runs every item on a lane pair with rollback
     recovery, quarantining a pair after `max_retries` consecutive
     mismatches; the report prices the plan's redundancy and fault rate.
-    `packed=False` and `refill="host"` are the reference's options that
-    the port does not run yet."""
+    `packed=False` drains the groups one after another instead of in one
+    packed stream; `refill="host"` runs the host-refill A/B loop."""
     groups: Sequence[FleetGroup]
     chunk: int = 256
     seg_steps: int = 4096
@@ -171,9 +169,16 @@ def _packed_groups(plan: FleetPlan):
 
 def run_plan(plan: FleetPlan, mesh=None, keep_state: bool = False,
              checkpoint_dir: Optional[str] = None,
-             device: DeviceLike = None,
+             checkpoint_every: int = 0, device: DeviceLike = None,
              power_w: Optional[float] = None) -> FleetReport:
-    """Execute the plan as one packed, resident stream and price it.
+    """Execute the plan and price it through the carbon report.
+
+    With `plan.packed` (the default) every group runs in ONE packed
+    stream (`engine.run_packed`), and `checkpoint_dir`/`checkpoint_every`
+    make that stream durable (a checkpoint every `checkpoint_every`
+    segments, and a bit-exact resume from the newest intact one); with
+    `packed=False` the groups drain one after another, one stream each,
+    and the report carries no packed stats.
 
     Runs on the card by default (`device=None` means "cuda", and raises
     without one); `device="cpu"` runs the plain PyTorch path. `power_w`
@@ -181,30 +186,49 @@ def run_plan(plan: FleetPlan, mesh=None, keep_state: bool = False,
     None reads the card's from `nvidia-smi` (on the CPU it stays None
     and the footprint is reported as not measured).
     """
+    if checkpoint_dir is not None and not (plan.packed and plan.groups):
+        raise ValueError("checkpointing requires a packed plan")
     dev = resolve(device)
-    if not plan.packed:
-        raise engine._not_ported("packed=False (the sequential per-group "
-                                 "baseline)", "item 4")
     if not plan.groups:
         raise ValueError("a plan needs at least one group")
     if power_w is None and dev.type == "cuda":
         power_w = card_power_limit_w(dev.index)
-    lowered, resolved = _packed_groups(plan)
-    results, stats = engine.run_packed(
-        lowered, chunk=plan.chunk, seg_steps=plan.seg_steps,
-        keep_state=keep_state, mesh=mesh, prefetch=plan.prefetch,
-        refill=plan.refill, adaptive=plan.adaptive,
-        checkpoint_dir=checkpoint_dir, faults=plan.faults,
-        redundancy=plan.redundancy, max_retries=plan.max_retries,
-        device=dev)
-    group_reports = [
-        build_group_report(
+
+    def report(g, w, core, lifetime_s, execs_per_day, wcet_cycles, res):
+        return build_group_report(
             group=g, workload=w, core=core, result=res,
             lifetime_s=lifetime_s, execs_per_day=execs_per_day,
             intensity=plan.intensity, clock_hz=plan.clock_hz,
             wcet_cycles=wcet_cycles, redundancy=plan.redundancy,
             fault_rate=0.0 if plan.faults is None else plan.faults.rate)
-        for g, (w, core, lifetime_s, execs_per_day, wcet_cycles), res
-        in zip(plan.groups, resolved, results)]
+
+    if not plan.packed:
+        group_reports = []
+        for g in plan.groups:
+            w, core, lifetime_s, execs_per_day = g.resolve()
+            max_steps, subset, wcet_cycles = _static_pass(plan, g, w, core)
+            res = engine.run_workload_stream(
+                w, g.n_items, seed=g.seed, chunk=plan.chunk,
+                seg_steps=plan.seg_steps, max_steps=max_steps,
+                keep_state=keep_state, mesh=mesh, prefetch=plan.prefetch,
+                refill=plan.refill, adaptive=plan.adaptive,
+                cost=_group_cost(plan, core), subset=subset,
+                faults=plan.faults, redundancy=plan.redundancy,
+                max_retries=plan.max_retries, device=dev)
+            group_reports.append(report(g, w, core, lifetime_s,
+                                        execs_per_day, wcet_cycles, res))
+        return FleetReport(groups=group_reports, intensity=plan.intensity,
+                           power_w=power_w)
+
+    lowered, resolved = _packed_groups(plan)
+    results, stats = engine.run_packed(
+        lowered, chunk=plan.chunk, seg_steps=plan.seg_steps,
+        keep_state=keep_state, mesh=mesh, prefetch=plan.prefetch,
+        refill=plan.refill, adaptive=plan.adaptive,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        faults=plan.faults, redundancy=plan.redundancy,
+        max_retries=plan.max_retries, device=dev)
+    group_reports = [report(g, *r, res)
+                     for g, r, res in zip(plan.groups, resolved, results)]
     return FleetReport(groups=group_reports, intensity=plan.intensity,
                        packed=stats, power_w=power_w)

@@ -167,6 +167,95 @@ def test_resilient_run_packed_on_card_matches_cpu(cuda, redundancy):
         tp.assert_results_equal(gold, gpu, "dmr vs fault-free")
 
 
+def _launches():
+    return (iss_stepper.iss_segment_banked.launches,
+            iss_stepper.iss_refill.launches,
+            iss_stepper.iss_segment_banked.plain_calls
+            + iss_stepper.iss_refill.plain_calls)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_host_loop_on_card_matches_cpu(cuda, adaptive):
+    """The host-refill loop on the card: its segments run the kernel (no
+    refill kernel: the loop rebuilds lanes with torch ops), and its
+    per-item results, final state, schedule and host syncs equal the
+    CPU's."""
+    kw = dict(chunk=16, seg_steps=64, keep_state=True, refill="host",
+              adaptive=adaptive)
+    iss_stepper.reset_counts()
+    gpu, sg = engine.run_packed(tp.skew_groups(engine), device=cuda, **kw)
+    seg, ref, plain = _launches()
+    assert seg == sg.n_segments and ref == 0 and plain == 0
+    cpu, sc = engine.run_packed(tp.skew_groups(engine), device="cpu", **kw)
+    tp.assert_results_equal(cpu, gpu, "card vs cpu")
+    for f in ("lane_steps", "n_segments", "seg_schedule", "host_syncs",
+              "refill"):
+        assert getattr(sg, f) == getattr(sc, f), f
+
+
+def test_fallback_past_the_mix_bound_on_card(cuda):
+    """11,000 MC items at a 200,000-step budget fall back to the host loop
+    on the card too, equal to the CPU's run."""
+    from repro_torch.flexibench.base import get
+
+    def groups():
+        w = get("MC")
+        return [engine.PackedGroup(
+            code=w.program.code, source=engine.workload_source(w, seed=3),
+            n_items=11_000, max_steps=200_000, mem_words=w.total_mem_words,
+            out_addr=w.out_addr)]
+    iss_stepper.reset_counts()
+    gpu, sg = engine.run_packed(groups(), chunk=2048, seg_steps=64,
+                                device=cuda)
+    assert sg.refill == "host" and _launches()[0] > 0 and not _launches()[2]
+    cpu, sc = engine.run_packed(groups(), chunk=2048, seg_steps=64,
+                                device="cpu")
+    tp.assert_results_equal(cpu, gpu, "fallback")
+    assert gpu[0].halted.all() and sg.host_syncs == sc.host_syncs
+
+
+def test_sequential_plan_on_card_matches_cpu(cuda):
+    from repro_torch.fleet import FleetGroup, FleetPlan, run_plan
+    plan = FleetPlan(groups=(
+        FleetGroup(workload="MC", core="SERV", n_items=40, seed=0),
+        FleetGroup(workload="WQ", core="QERV", n_items=24, seed=1)),
+        chunk=16, seg_steps=64, packed=False, timing="dynamic")
+    gpu = run_plan(plan, keep_state=True, device=cuda)
+    cpu = run_plan(plan, keep_state=True, device="cpu")
+    assert gpu.packed is None and cpu.packed is None
+    tp.assert_results_equal([g.result for g in cpu.groups],
+                            [g.result for g in gpu.groups], "sequential")
+    assert [g.total_kg for g in gpu.groups] == \
+        [g.total_kg for g in cpu.groups]
+
+
+@pytest.mark.parametrize("crash_on", ["cuda", "cpu"])
+def test_checkpoint_crosses_card_and_cpu(cuda, crash_on, tmp_path):
+    """A stream checkpointed and crashed on one device resumes on the
+    other, bit for bit with an uninterrupted run and its schedule."""
+    kw = dict(chunk=16, seg_steps=64, keep_state=True)
+
+    def groups():
+        return tp.skew_groups(engine, max_steps_b=100_000)
+    gold, gs = engine.run_packed(groups(), device="cpu", **kw)
+    devs = {"cuda": cuda, "cpu": "cpu"}
+    resume_on = "cpu" if crash_on == "cuda" else "cuda"
+    cdir = str(tmp_path / "ck")
+    iss_stepper.reset_counts()
+    with pytest.raises(engine.InjectedFault):
+        engine.run_packed(groups(), checkpoint_dir=cdir, checkpoint_every=4,
+                          _crash_after_segments=10, device=devs[crash_on],
+                          **kw)
+    res, rs = engine.run_packed(groups(), checkpoint_dir=cdir,
+                                checkpoint_every=4, device=devs[resume_on],
+                                **kw)
+    seg, ref, _ = _launches()
+    assert seg > 0 and ref > 0
+    tp.assert_results_equal(gold, res, f"crashed on {crash_on}")
+    for f in ("lane_steps", "n_segments", "seg_schedule"):
+        assert getattr(gs, f) == getattr(rs, f), f
+
+
 def test_refill_kernel_matches_plain(cuda):
     rng = np.random.default_rng(9)
     st = tp.soup_state(rng, 200, 96, 5)

@@ -1,8 +1,9 @@
 """The port stands alone: it imports without JAX and without the
-reference package, its sources import neither, its entry points run on
-the card by default and raise without one, the reference options it
-does not port yet raise NotImplementedError, and a resilient plan raises
-the reference's ValueErrors where the reference does."""
+reference package (its checkpoint module also without ml_dtypes), its
+sources import neither, its entry points run on the card by default and
+raise without one, the one reference option it does not port yet
+(`mesh=`) raises NotImplementedError, and a resilient plan raises the
+reference's ValueErrors where the reference does."""
 import os
 import pathlib
 import re
@@ -55,7 +56,8 @@ _SLICE_MODULES = ("repro_torch.fleet.engine",
                   "repro_torch.models.layers", "repro_torch.models.mamba",
                   "repro_torch.models.transformer",
                   "repro_torch.models.hybrid", "repro_torch.models.model",
-                  "repro_torch.launch.serve")
+                  "repro_torch.launch.serve",
+                  "repro_torch.distributed.checkpoint")
 
 
 def test_port_imports_with_jax_and_the_reference_blocked():
@@ -75,6 +77,42 @@ def test_port_imports_with_jax_and_the_reference_blocked():
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|"
     r"import\s+repro(\.|\s|$)|from\s+repro(\.|\s))", re.MULTILINE)
+
+
+_CHECKPOINT_IMPORT = r"""
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+from repro_torch.distributed import checkpoint
+assert not any(k.split(".")[0] in ("jax", "ml_dtypes", "repro")
+               for k in sys.modules)
+d = sys.argv[1]
+checkpoint.save(d, 1, {"a": np.arange(3), "h": torch.ones(2).bfloat16()})
+tree, step = checkpoint.restore(d, {"a": None, "h": None})
+assert step == 1 and tree["h"].dtype == torch.bfloat16
+print("ok")
+"""
+
+
+def test_checkpoint_module_imports_no_jax_ml_dtypes_or_reference(tmp_path):
+    """The checkpoint module saves and restores bfloat16 leaves with jax,
+    ml_dtypes and the reference blocked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(_ROOT / "src"),
+                                         env.get("PYTHONPATH", "")])
+    proc = subprocess.run([sys.executable, "-c", _CHECKPOINT_IMPORT,
+                           str(tmp_path)], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_sources_import_neither_jax_nor_the_reference():
@@ -102,6 +140,23 @@ def test_entry_points_default_to_the_card():
     from repro_torch.kernels import iss_stepper
     with pytest.raises(RuntimeError, match="CUDA card"):
         iss_stepper.iss_refill(None, None, None, None, None, None)
+
+
+def test_host_loop_and_checkpoint_entry_points_default_to_the_card(
+        tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None runs on it")
+    cdir = str(tmp_path / "ck")
+    calls = [lambda: plan.run_plan(_tiny_plan(refill="host")),
+             lambda: plan.run_plan(_tiny_plan(packed=False)),
+             lambda: plan.run_plan(_tiny_plan(), checkpoint_dir=cdir,
+                                   checkpoint_every=1),
+             lambda: engine.run_workload_stream(
+                 plan.FleetGroup(workload="WQ").resolve()[0], 4)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            call()
+    assert not os.path.exists(cdir)
 
 
 def test_sweep_entry_points_default_to_the_card():
@@ -188,8 +243,7 @@ def test_lm_entry_points_default_to_the_card():
 def test_resilient_plans_raise_the_references_errors(what):
     """Fault injection and DMR need the resident loop, keep no durable
     checkpoint and cannot fall back past the resident safety bounds: the
-    reference's ValueErrors, word for word, where the port would
-    otherwise raise NotImplementedError."""
+    reference's ValueErrors, word for word."""
     from repro_torch.flexibits import faults
     spec = faults.FaultSpec(rate=1e-3)
     runs = {
@@ -210,25 +264,11 @@ def test_resilient_plans_raise_the_references_errors(what):
         runs[what]()
 
 
-@pytest.mark.parametrize("what", ["refill_host", "packed_false", "mesh",
-                                  "checkpoint", "past_bounds"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_unported_options_raise_not_implemented(what):
     plans = {
-        "refill_host": lambda: plan.run_plan(_tiny_plan(refill="host"),
-                                             device="cpu"),
-        "packed_false": lambda: plan.run_plan(_tiny_plan(packed=False),
-                                              device="cpu"),
         "mesh": lambda: plan.run_plan(_tiny_plan(), mesh=object(),
                                       device="cpu"),
-        "checkpoint": lambda: plan.run_plan(_tiny_plan(),
-                                            checkpoint_dir="ckpt",
-                                            device="cpu"),
-        # 4 items x 2^30 steps could overflow the int32 mix counters:
-        # the reference falls back to its host loop here
-        "past_bounds": lambda: plan.run_plan(plan.FleetPlan(
-            groups=(plan.FleetGroup(workload="WQ", n_items=4,
-                                    max_steps=2**30),), chunk=4),
-            device="cpu"),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         plans[what]()
