@@ -124,7 +124,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    differ); each save's write time and bytes on disk, the restore's
    time and the resumed wall; then a 64-item stream checkpointed and
    crashed on the card resumes on the CPU, and the other way round, bit
-   for bit with the card's uninterrupted run.
+   for bit with the card's uninterrupted run;
+18. shards and steppers: (a) phase 4's plan at `mesh=["cuda"] * 2` and
+   `* 4` (logical shards on the one card), every per-item field and the
+   final state equal to phase 4's, the 4-shard schedule and shard
+   statistics equal to the same plan's at `["cpu"] * 4`, host syncs not
+   multiplied by the shard count; (b) phase 5's plan at 4 shards, every
+   per-item field equal to phase 5's, its wall, items/s, host syncs,
+   retired items per shard and the segment kernel's launches and ms a
+   launch (CUDA events around each launch) beside a one-shard rerun in
+   the same call; (c) phase 5's plan checkpointed every 8 segments at 4
+   shards, crashed after 20 and resumed at one shard, equal to phase 5's
+   (checkpoints in the git-ignored `build/chip_smoke_ckpt_shards/`,
+   removed after); (d) phase 4's MC and WQ groups through
+   `stepper="branchless"` and `"switch"` (plain torch on the card: no
+   segment kernel launch), equal to the kernel route's and the CPU's,
+   and `run_fleet_sharded` on 256 MC items at 2 shards equal to
+   `iss.run_fleet` on the card; (e) phase 11's DMR plan at 2 shards,
+   every item's architectural result equal to the fault-free run; each
+   run of (a)-(e) with the launch counts zeroed just before it: both
+   kernels launched on the kernel route, no plain version.
 
 It ends with a `kernels:` line of launch counts, one JSON line
 `{"kernels": [...]}` with an entry per kernel (times, bound, launches,
@@ -1909,11 +1928,12 @@ def same_results(what, want, got, fields=RESULT_FIELDS):
                 raise AssertionError(f"{what}: group {g} differs in {f}")
 
 
-def counted_run(what, fn, refill_launches: bool):
+def counted_run(what, fn, refill_launches: bool,
+                segment_launches: bool = True):
     """fn() with the fleet kernels' counts zeroed just before it and read
-    just after: the segment kernel must have launched, no plain version
-    run, and the refill kernel launched exactly when the resident loop
-    ran."""
+    just after: the segment kernel must have launched (none when the
+    run's stepper is one of the plain baselines), no plain version run,
+    and the refill kernel launched exactly when the resident loop ran."""
     from repro_torch.kernels import iss_stepper as st
     st.reset_counts()
     t0 = time.perf_counter()
@@ -1921,7 +1941,8 @@ def counted_run(what, fn, refill_launches: bool):
     wall = time.perf_counter() - t0
     seg, ref = st.iss_segment_banked.launches, st.iss_refill.launches
     plain = st.iss_segment_banked.plain_calls + st.iss_refill.plain_calls
-    if seg <= 0 or plain or (ref > 0) != refill_launches:
+    if (seg > 0) != segment_launches or plain \
+            or (ref > 0) != refill_launches:
         raise AssertionError(f"{what}: iss_segment_banked {seg}, "
                              f"iss_refill {ref} launches, {plain} plain "
                              f"calls")
@@ -2147,6 +2168,239 @@ def phase_checkpoint(dev, main_rep):
     shutil.rmtree(cdir, ignore_errors=True)
 
 
+def launch_times(fn):
+    """fn() with every `iss_segment_banked` launch bracketed by CUDA
+    events on its stream: (fn's result, the device ms of each launch).
+    The wrapper itself still counts the launches: it adds to the counts
+    of whatever its module's name holds, so the shim carries them and
+    hands them back."""
+    import torch
+    from repro_torch.kernels import iss_stepper as st
+    real, evs = st.iss_segment_banked, []
+    counts = ("launches", "fault_launches", "plain_calls")
+
+    def shim(*a, **kw):
+        s = torch.cuda.current_stream(kw.get("device"))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record(s)
+        out = real(*a, **kw)
+        e1.record(s)
+        evs.append((e0, e1))
+        return out
+    for k in counts:
+        setattr(shim, k, getattr(real, k))
+    st.iss_segment_banked = shim
+    try:
+        out = fn()
+    finally:
+        st.iss_segment_banked = real
+        for k in counts:
+            setattr(real, k, getattr(shim, k))
+    torch.cuda.synchronize()
+    return out, [a.elapsed_time(b) for a, b in evs]
+
+
+SHARD_STATS = ("lane_steps", "n_segments", "seg_schedule", "shard_retired",
+               "shard_lane_steps", "host_syncs")
+ARCH_FIELDS = ("n_instr", "halted", "out", "mems", "regs", "pc")
+
+
+def phase_shards(dev, small_rep, main_rep):
+    """Phase 18: shard-local streaming (`mesh=`) and the reference's
+    baseline steppers on the card. (a) phase 4's plan at 2 and 4 logical
+    shards: per item equal to phase 4, the 4-shard schedule equal to the
+    CPU's at 4 shards, one host sync a segment; (b) phase 5's plan at 4
+    shards: per item equal to phase 5, its wall, syncs and segment
+    launches beside a one-shard rerun; (c) phase 5's plan checkpointed at
+    4 shards, crashed and resumed at one; (d) MC and WQ through the
+    "branchless" and "switch" steppers, and `run_fleet_sharded`; (e)
+    phase 11's DMR plan at 2 shards equal to the fault-free run."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.flexibench.base import get
+    from repro_torch.flexibits import fleet as pfleet
+    from repro_torch.flexibits import iss
+    from repro_torch.flexibits.faults import FaultSpec
+    from repro_torch.fleet import InjectedFault, engine, run_plan
+    from repro_torch.fleet.plan import _packed_groups
+    from repro_torch.kernels import iss_stepper as st
+
+    def cuda(n):
+        return [dev] * n
+
+    # ---- (a) shards, small plan
+    small = three_group_plan(256)
+    q = small_rep.packed
+    reps = {}
+    for n in (2, 4):
+        rep, wall, seg, ref = counted_run(
+            f"small plan at {n} shards",
+            lambda: run_plan(small, keep_state=True, mesh=cuda(n)), True)
+        same_results(f"small plan at {n} shards vs phase 4",
+                     [g.result for g in small_rep.groups],
+                     [g.result for g in rep.groups])
+        p = rep.packed
+        if (p.n_shards, p.n_devices) != (n, 1) \
+                or p.host_syncs - p.n_segments != q.host_syncs - q.n_segments:
+            raise AssertionError(f"small plan at {n} shards: {p.n_shards} "
+                                 f"shards on {p.n_devices} devices, "
+                                 f"{p.host_syncs} syncs in {p.n_segments} "
+                                 f"segments (phase 4: {q.host_syncs} in "
+                                 f"{q.n_segments})")
+        reps[n] = rep
+        log(f"[shards] small plan at {n} logical shards: {wall:.2f}s, "
+            f"{p.n_segments} segments (phase 4: {q.n_segments}), "
+            f"{p.host_syncs} host syncs (phase 4: {q.host_syncs}), "
+            f"retired/shard {list(p.shard_retired)}, {seg} segment and "
+            f"{ref} refill launches, no plain call; every per-item field "
+            f"and the final state equal to phase 4's")
+    t0 = time.perf_counter()
+    cpu = on_cpu(lambda: run_plan(small, keep_state=True, mesh=["cpu"] * 4,
+                                  power_w=0.0))
+    t_cpu = time.perf_counter() - t0
+    same_results("small plan at 4 shards, card vs CPU",
+                 [g.result for g in cpu.groups],
+                 [g.result for g in reps[4].groups])
+    for f in SHARD_STATS:
+        if getattr(reps[4].packed, f) != getattr(cpu.packed, f):
+            raise AssertionError(f"small plan at 4 shards: {f} differs "
+                                 f"between card and CPU")
+    log(f"[shards] small plan at 4 shards on the CPU ({t_cpu:.2f}s): "
+        f"lane_steps, n_segments, seg_schedule, shard_retired, "
+        f"shard_lane_steps and host syncs equal to the card's")
+
+    # ---- (b) shards, main plan
+    plan = main_plan()
+    (rep4, ms4), _, seg4, ref4 = counted_run(
+        "main plan at 4 shards",
+        lambda: launch_times(lambda: run_plan(plan, mesh=cuda(4))), True)
+    same_results("main plan at 4 shards vs phase 5",
+                 [g.result for g in main_rep.groups],
+                 [g.result for g in rep4.groups])
+    (rep1, ms1), _, seg1, _ = counted_run(
+        "main plan at one shard",
+        lambda: launch_times(lambda: run_plan(plan, device=dev)), True)
+    p4, p1, q5 = rep4.packed, rep1.packed, main_rep.packed
+    if p4.host_syncs - p4.n_segments != q5.host_syncs - q5.n_segments:
+        raise AssertionError(f"main plan at 4 shards: {p4.host_syncs} "
+                             f"syncs in {p4.n_segments} segments")
+    log(f"[shards] main plan at 4 logical shards: {rep4.n_items} items in "
+        f"{p4.wall_s:.2f}s = {rep4.n_items / p4.wall_s:.1f} items/s "
+        f"(phase 5: {q5.wall_s:.2f}s; one-shard rerun {p1.wall_s:.2f}s = "
+        f"{rep1.n_items / p1.wall_s:.1f} items/s), {p4.n_segments} segments "
+        f"(phase 5: {q5.n_segments}), {p4.host_syncs} host syncs (phase 5: "
+        f"{q5.host_syncs}), retired/shard {list(p4.shard_retired)}, "
+        f"restock {p4.refill_wall_s:.3f}s (rerun {p1.refill_wall_s:.3f}s); "
+        f"iss_segment_banked {seg4} launches, {np.mean(ms4):.4f} ms a "
+        f"launch (one-shard rerun {seg1}, {np.mean(ms1):.4f}; CUDA events), "
+        f"iss_refill {ref4} launches; every per-item field equal to "
+        f"phase 5's")
+
+    # ---- (c) elastic resume: checkpointed at 4 shards, resumed at one
+    cdir = os.path.join(ROOT, "build", "chip_smoke_ckpt_shards")
+    shutil.rmtree(cdir, ignore_errors=True)
+    lowered, _ = _packed_groups(plan)
+
+    def crash():
+        try:
+            engine.run_packed(
+                lowered, chunk=plan.chunk, seg_steps=plan.seg_steps,
+                prefetch=plan.prefetch, adaptive=plan.adaptive,
+                checkpoint_dir=cdir, checkpoint_every=8,
+                _crash_after_segments=20, mesh=cuda(4))
+        except InjectedFault:
+            return
+        raise AssertionError("the checkpointed 4-shard plan did not crash")
+    try:
+        _, crash_wall, _, _ = counted_run("crash at 4 shards", crash, True)
+        rep, wall, seg, ref = counted_run(
+            "resume at one shard",
+            lambda: run_plan(plan, checkpoint_dir=cdir, checkpoint_every=8,
+                             device=dev), True)
+    finally:
+        shutil.rmtree(cdir, ignore_errors=True)
+    same_results("main plan resumed at one shard vs phase 5",
+                 [g.result for g in main_rep.groups],
+                 [g.result for g in rep.groups])
+    log(f"[shards] main plan checkpointed every 8 segments at 4 shards, "
+        f"crashed after 20 ({crash_wall:.2f}s), resumed at one shard in "
+        f"{wall:.2f}s ({rep.packed.wall_s:.2f}s in run_packed, "
+        f"{rep.packed.n_segments} segments, {seg} segment and {ref} refill "
+        f"launches): every per-item field equal to phase 5's")
+
+    # ---- (d) the reference's baseline steppers on the card
+    two = dc.replace(small, groups=small.groups[:2])
+    kern, kwall, _, _ = counted_run(
+        "MC and WQ, kernel route",
+        lambda: run_plan(two, keep_state=True, device=dev), True)
+    for stepper in ("branchless", "switch"):
+        plan_s = dc.replace(two, stepper=stepper)
+        rep, wall, _, ref = counted_run(
+            f"MC and WQ, {stepper}",
+            lambda: run_plan(plan_s, keep_state=True, device=dev), True,
+            segment_launches=False)
+        t0 = time.perf_counter()
+        cpu = on_cpu(lambda: run_plan(plan_s, keep_state=True, device="cpu",
+                                      power_w=0.0))
+        t_cpu = time.perf_counter() - t0
+        same_results(f"{stepper} vs the kernel route",
+                     [g.result for g in kern.groups],
+                     [g.result for g in rep.groups])
+        same_results(f"{stepper} card vs CPU",
+                     [g.result for g in cpu.groups],
+                     [g.result for g in rep.groups])
+        if rep.packed.stepper != stepper:
+            raise AssertionError(f"{stepper}: stats say "
+                                 f"{rep.packed.stepper}")
+        log(f"[shards] MC and WQ (2 x 256 items) through stepper="
+            f"{stepper!r} on the card: {wall:.2f}s (kernel route "
+            f"{kwall:.2f}s; CPU {t_cpu:.2f}s), no segment kernel launch, "
+            f"{ref} refill launches; every per-item field and the final "
+            f"state equal to the kernel route's and the CPU's")
+    w = get("MC")
+    mems = pfleet.fleet_inputs(w, 256, seed=7)
+    t0 = time.perf_counter()
+    got = pfleet.run_fleet_sharded(w, mems, cuda(2))
+    t_sh = time.perf_counter() - t0
+    code = torch.from_numpy(w.program.code.view(np.int32)).to(dev)
+    t0 = time.perf_counter()
+    want = iss.run_fleet(code, torch.from_numpy(mems).to(dev), w.max_steps)
+    t_rf = time.perf_counter() - t0
+    for f in iss.ISSState._fields:
+        if not torch.equal(getattr(want, f), getattr(got, f)):
+            raise AssertionError(f"run_fleet_sharded differs in {f}")
+    log(f"[shards] run_fleet_sharded, 256 MC items at 2 shards "
+        f"({t_sh:.2f}s) equal to iss.run_fleet on the card ({t_rf:.2f}s), "
+        f"every field")
+
+    # ---- (e) DMR under shards
+    gold = run_plan(small_resilient_plan(), keep_state=True, device=dev)
+    spec = FaultSpec(rate=1e-4, seed=5, targets=("regs", "mem", "pc"))
+    st.reset_counts()
+    t0 = time.perf_counter()
+    rep = run_plan(small_resilient_plan(faults=spec, redundancy="dmr",
+                                        max_retries=6),
+                   keep_state=True, mesh=cuda(2))
+    wall = time.perf_counter() - t0
+    fl, rl = st.iss_segment_banked.fault_launches, st.iss_refill.launches
+    plain = st.iss_segment_banked.plain_calls + st.iss_refill.plain_calls
+    if fl <= 0 or rl <= 0 or plain:
+        raise AssertionError(f"DMR at 2 shards: {fl} faults-variant and "
+                             f"{rl} refill launches, {plain} plain calls")
+    same_results("phase 11's DMR plan at 2 shards vs fault-free",
+                 [g.result for g in gold.groups],
+                 [g.result for g in rep.groups], ARCH_FIELDS)
+    p = rep.packed
+    if p.detected == 0 or p.n_shards != 2:
+        raise AssertionError(f"DMR at 2 shards: detected {p.detected}")
+    log(f"[shards] phase 11's DMR plan at 2 shards: {wall:.2f}s, detected/"
+        f"corrected/quarantined {p.detected}/{p.corrected}/"
+        f"{p.quarantined}, {fl} faults-variant and {rl} refill launches; "
+        f"every item's architectural result equal to the fault-free run")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2217,6 +2471,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_checkpoint(dev, main_rep)
     log(f"[checkpoint] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_shards(dev, small_rep, main_rep)
+    log(f"[shards] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []

@@ -8,10 +8,11 @@ and the port can be fed the same state and compared field by field. They
 take any NamedTuple with the right field names (numpy arrays, or
 anything `np.asarray` accepts) and never import the reference.
 
-The port's `ResidentAcc` keeps one extra discard row at the end of every
-per-item leaf (retire scatters of lanes that did not retire land there),
-and keeps `mix_g` without the reference's leading shard axis (the port
-runs one shard). `acc_to_torch`/`acc_to_numpy` add and drop both.
+The port's `ResidentAcc` keeps one extra discard row at the end of each
+shard's block of every per-item leaf (retire scatters of the shard's
+lanes that did not retire land there); `mix_g` keeps the reference's
+leading shard axis. `acc_to_torch`/`acc_to_numpy` add and drop the
+discard rows.
 
 `fault_spec_from` rebuilds a reference `FaultSpec` as the port's, so
 both packages run the same fault schedule. For the carbon sweep,
@@ -90,8 +91,11 @@ def packed_to_numpy(ps: PackedState) -> PackedState:
 
 
 def acc_to_torch(acc: NamedTuple, device: DeviceLike = None) -> ResidentAcc:
-    """A single-shard reference `ResidentAcc` -> the port's layout."""
+    """A reference `ResidentAcc`, sharded or not (`mix_g` of shape
+    (n_shards, n_groups, 8), `n_shards * cap` item rows) -> the port's
+    layout for one device's pool of those shards."""
     dev = resolve(device)
+    n_sh = np.asarray(acc.mix_g).shape[0]
     out = {}
     for f in ResidentAcc._fields:
         v = getattr(acc, f)
@@ -99,29 +103,28 @@ def acc_to_torch(acc: NamedTuple, device: DeviceLike = None) -> ResidentAcc:
             out[f] = None
             continue
         v = np.asarray(v)
-        if f == "mix_g":
-            if v.shape[0] != 1:
-                raise ValueError("the port runs one shard; got mix_g of "
-                                 f"shape {v.shape}")
-            v = v[0]
-        elif f in _ACC_ITEM_LEAVES:
-            v = np.concatenate([v, np.zeros((1,) + v.shape[1:], v.dtype)])
+        if f in _ACC_ITEM_LEAVES:
+            v = v.reshape((n_sh, -1) + v.shape[1:])
+            v = np.concatenate(
+                [v, np.zeros((n_sh, 1) + v.shape[2:], v.dtype)], axis=1)
+            v = v.reshape((-1,) + v.shape[2:])
         out[f] = _t(v, dev)
     return ResidentAcc(**out)
 
 
 def acc_to_numpy(acc: ResidentAcc) -> ResidentAcc:
-    """The port's `ResidentAcc` -> the reference's single-shard layout
-    (numpy arrays, discard row dropped, shard axis restored)."""
+    """The port's `ResidentAcc` -> the reference's layout (numpy arrays,
+    each shard's discard row dropped)."""
+    n_sh = acc.mix_g.shape[0]
     out = {}
     for f in ResidentAcc._fields:
         v = getattr(acc, f)
         if v is None:
             out[f] = None
-        elif f == "mix_g":
-            out[f] = _n(v)[None]
         elif f in _ACC_ITEM_LEAVES:
-            out[f] = _n(v)[:-1]
+            v = _n(v)
+            v = v.reshape((n_sh, -1) + v.shape[1:])[:, :-1]
+            out[f] = v.reshape((-1,) + v.shape[2:])
         else:
             out[f] = _n(v)
     return ResidentAcc(**out)

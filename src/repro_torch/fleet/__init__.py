@@ -6,7 +6,9 @@
                         on-device retire/refill and one small async
                         stats read per segment (`refill="host"`: the
                         host-refill A/B loop); durable with
-                        `checkpoint_dir=`
+                        `checkpoint_dir=`; shard-local over a `mesh=` of
+                        devices; its segments run one of `STEPPERS`
+                        (default "pallas", the kernel route)
 - `engine.run_stream`, `engine.run_workload_stream` — one program or
                         one FlexiBench workload through the same runtime
 - `plan.FleetPlan`    — heterogeneous (workload, core) sub-fleets;
@@ -15,16 +17,18 @@
 - `report.FleetReport` — per-group tallies priced through core/carbon.py
                         and core/selection.py
 """
-from repro_torch.fleet.engine import (REFILLS, FleetResult, InjectedFault,
-                                      PackedGroup, PackedStats,
-                                      array_source, run_packed, run_stream,
-                                      run_workload_stream, workload_source)
+from repro_torch.fleet.engine import (REFILLS, STEPPERS, FleetResult,
+                                      InjectedFault, PackedGroup,
+                                      PackedStats, array_source, run_packed,
+                                      run_stream, run_workload_stream,
+                                      workload_source)
 from repro_torch.fleet.plan import (BudgetError, FleetGroup, FleetPlan,
                                     run_plan)
 from repro_torch.fleet.report import FleetReport, GroupReport
 
 __all__ = [
-    "REFILLS", "FleetResult", "InjectedFault", "PackedGroup", "PackedStats",
+    "REFILLS", "STEPPERS", "FleetResult", "InjectedFault", "PackedGroup",
+    "PackedStats",
     "array_source", "run_packed", "run_stream", "run_workload_stream",
     "workload_source", "BudgetError", "FleetGroup",
     "FleetPlan", "run_plan", "FleetReport", "GroupReport",

@@ -10,14 +10,16 @@ and prices the per-group tallies in a `FleetReport`, under the plan's
 fault schedule and redundancy (FlexiFault, DESIGN.md §9.14) when it has
 them. `packed=False` is the reference's sequential A/B baseline: the
 groups drain one after another, one stream each
-(`engine.run_workload_stream`).
+(`engine.run_workload_stream`). `FleetPlan.stepper` picks what runs the
+segments (`engine.STEPPERS`), and `run_plan(mesh=...)` streams
+shard-locally over a sequence of devices, packed or not.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
-from repro_torch.device import DeviceLike, card_power_limit_w, resolve
+from repro_torch.device import DeviceLike, card_power_limit_w
 from repro_torch.flexibench import base as fb
 from repro_torch.flexibits import analyze
 from repro_torch.flexibits.cycles import (CORES, TICKS_PER_CYCLE, Core,
@@ -87,6 +89,11 @@ class FleetPlan:
     `chunk` lanes run every group in one packed stream, in segments of
     up to `seg_steps` steps (`adaptive` sizes them from the observed halt
     cadence); `prefetch` overlaps input generation with the device.
+    `stepper` picks what runs a segment: "pallas" (the default: the
+    `iss_segment_banked` kernel on the card, its plain version on the
+    CPU), or the reference's baseline "branchless" or "switch" stepper,
+    plain torch on the run's device (the reference's default is
+    "branchless"; on FlexiBench workloads the two agree bit for bit).
     `timing` turns on the per-lane cycle layer: "base" prices the
     (stage, class) table only, "dynamic" adds taken-branch refetch,
     serial shift amount and subword read-modify-write; the report then
@@ -104,6 +111,7 @@ class FleetPlan:
     seg_steps: int = 4096
     intensity: float = 0.367              # kg CO2e/kWh (US grid)
     clock_hz: float = 10_000.0
+    stepper: str = "pallas"
     prefetch: bool = True
     packed: bool = True
     refill: str = "device"
@@ -178,7 +186,8 @@ def run_plan(plan: FleetPlan, mesh=None, keep_state: bool = False,
     make that stream durable (a checkpoint every `checkpoint_every`
     segments, and a bit-exact resume from the newest intact one); with
     `packed=False` the groups drain one after another, one stream each,
-    and the report carries no packed stats.
+    and the report carries no packed stats. `mesh` (a sequence of
+    devices, one per shard) streams shard-locally in either case.
 
     Runs on the card by default (`device=None` means "cuda", and raises
     without one); `device="cpu"` runs the plain PyTorch path. `power_w`
@@ -188,7 +197,8 @@ def run_plan(plan: FleetPlan, mesh=None, keep_state: bool = False,
     """
     if checkpoint_dir is not None and not (plan.packed and plan.groups):
         raise ValueError("checkpointing requires a packed plan")
-    dev = resolve(device)
+    dev = engine.mesh_devices(mesh, device)[0]
+    run_dev = None if mesh is not None else dev   # a mesh names its own
     if not plan.groups:
         raise ValueError("a plan needs at least one group")
     if power_w is None and dev.type == "cuda":
@@ -210,11 +220,12 @@ def run_plan(plan: FleetPlan, mesh=None, keep_state: bool = False,
             res = engine.run_workload_stream(
                 w, g.n_items, seed=g.seed, chunk=plan.chunk,
                 seg_steps=plan.seg_steps, max_steps=max_steps,
-                keep_state=keep_state, mesh=mesh, prefetch=plan.prefetch,
-                refill=plan.refill, adaptive=plan.adaptive,
-                cost=_group_cost(plan, core), subset=subset,
-                faults=plan.faults, redundancy=plan.redundancy,
-                max_retries=plan.max_retries, device=dev)
+                keep_state=keep_state, mesh=mesh, stepper=plan.stepper,
+                prefetch=plan.prefetch, refill=plan.refill,
+                adaptive=plan.adaptive, cost=_group_cost(plan, core),
+                subset=subset, faults=plan.faults,
+                redundancy=plan.redundancy, max_retries=plan.max_retries,
+                device=run_dev)
             group_reports.append(report(g, w, core, lifetime_s,
                                         execs_per_day, wcet_cycles, res))
         return FleetReport(groups=group_reports, intensity=plan.intensity,
@@ -223,11 +234,11 @@ def run_plan(plan: FleetPlan, mesh=None, keep_state: bool = False,
     lowered, resolved = _packed_groups(plan)
     results, stats = engine.run_packed(
         lowered, chunk=plan.chunk, seg_steps=plan.seg_steps,
-        keep_state=keep_state, mesh=mesh, prefetch=plan.prefetch,
-        refill=plan.refill, adaptive=plan.adaptive,
+        keep_state=keep_state, mesh=mesh, stepper=plan.stepper,
+        prefetch=plan.prefetch, refill=plan.refill, adaptive=plan.adaptive,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
         faults=plan.faults, redundancy=plan.redundancy,
-        max_retries=plan.max_retries, device=dev)
+        max_retries=plan.max_retries, device=run_dev)
     group_reports = [report(g, *r, res)
                      for g, r, res in zip(plan.groups, resolved, results)]
     return FleetReport(groups=group_reports, intensity=plan.intensity,

@@ -245,4 +245,11 @@ class FleetReport:
                     f"{p.detected} divergences detected, {p.corrected} "
                     f"corrected by segment re-execution, "
                     f"{p.quarantined} lane pairs quarantined")
+            if p.n_shards > 1 and p.shard_retired:
+                lines.append(
+                    f"shard-local (DESIGN.md §9.12): {p.n_shards} shards "
+                    f"on {p.n_devices} device(s), retired/shard "
+                    f"{list(p.shard_retired)}, lane-steps/shard "
+                    f"{list(p.shard_lane_steps)}: collective-free segment "
+                    f"loop, {p.host_syncs} host syncs total (not x shards)")
         return "\n".join(lines)

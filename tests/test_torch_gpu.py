@@ -292,6 +292,51 @@ def test_run_packed_on_card_matches_cpu(cuda, adaptive):
     assert sg.stepper == "cuda" and sc.stepper == "plain"
 
 
+@pytest.mark.parametrize("shards", [2, 4])
+def test_shards_on_card_match_cpu(cuda, shards):
+    """Logical shards on the one card: both kernels launch (the segment
+    kernel once a segment for all the shards) and no plain version runs;
+    per item, final state, schedule and shard statistics equal the CPU's
+    at the same shard count, per item equal the one-shard run, and the
+    host syncs are not multiplied by the shard count."""
+    kw = dict(chunk=16, seg_steps=64, keep_state=True, adaptive=True)
+    iss_stepper.reset_counts()
+    gpu, sg = engine.run_packed(tp.skew_groups(engine),
+                                mesh=["cuda"] * shards, **kw)
+    seg, ref, plain = _launches()
+    assert seg == sg.n_segments + 1 and ref > 0 and plain == 0
+    cpu, sc = engine.run_packed(tp.skew_groups(engine),
+                                mesh=["cpu"] * shards, **kw)
+    tp.assert_results_equal(cpu, gpu, "card vs cpu")
+    for f in ("lane_steps", "n_segments", "seg_schedule", "host_syncs",
+              "n_shards", "shard_retired", "shard_lane_steps"):
+        assert getattr(sg, f) == getattr(sc, f), f
+    one, s1 = engine.run_packed(tp.skew_groups(engine), device=cuda, **kw)
+    tp.assert_results_equal(one, gpu, "shards vs one shard")
+    assert sg.host_syncs - sg.n_segments == s1.host_syncs - s1.n_segments
+    assert (sg.n_shards, sg.n_devices, sg.stepper) == (shards, 1, "cuda")
+
+
+@pytest.mark.parametrize("stepper", ["branchless", "switch"])
+def test_plain_steppers_on_card_match_cpu(cuda, stepper):
+    """The reference's baseline steppers run as plain torch on the card
+    (no segment kernel launch; the refill kernel still swaps): per item,
+    final state and schedule equal the CPU's and the kernel route's."""
+    kw = dict(chunk=16, seg_steps=64, keep_state=True)
+    iss_stepper.reset_counts()
+    gpu, sg = engine.run_packed(tp.skew_groups(engine), stepper=stepper,
+                                device=cuda, **kw)
+    seg, ref, plain = _launches()
+    assert seg == 0 and ref > 0 and plain == 0 and sg.stepper == stepper
+    cpu, sc = engine.run_packed(tp.skew_groups(engine), stepper=stepper,
+                                device="cpu", **kw)
+    kernel, _ = engine.run_packed(tp.skew_groups(engine), device=cuda, **kw)
+    tp.assert_results_equal(cpu, gpu, "card vs cpu")
+    tp.assert_results_equal(kernel, gpu, "vs the kernel route")
+    for f in ("lane_steps", "n_segments", "seg_schedule", "host_syncs"):
+        assert getattr(sg, f) == getattr(sc, f), f
+
+
 def test_wrappers_check_their_tensors(cuda):
     bank, clen, mlen, _, st = tp.workload_pool(11)
     ps = convert.packed_to_torch(st, "cpu")

@@ -1,8 +1,8 @@
 """The port stands alone: it imports without JAX and without the
 reference package (its checkpoint module also without ml_dtypes), its
 sources import neither, its entry points run on the card by default and
-raise without one, the one reference option it does not port yet
-(`mesh=`) raises NotImplementedError, and a resilient plan raises the
+raise without one, no fleet option raises NotImplementedError any more
+(`mesh=`, the last one that did, runs), and a resilient plan raises the
 reference's ValueErrors where the reference does."""
 import os
 import pathlib
@@ -57,7 +57,8 @@ _SLICE_MODULES = ("repro_torch.fleet.engine",
                   "repro_torch.models.transformer",
                   "repro_torch.models.hybrid", "repro_torch.models.model",
                   "repro_torch.launch.serve",
-                  "repro_torch.distributed.checkpoint")
+                  "repro_torch.distributed.checkpoint",
+                  "repro_torch.flexibits.fleet")
 
 
 def test_port_imports_with_jax_and_the_reference_blocked():
@@ -266,9 +267,13 @@ def test_resilient_plans_raise_the_references_errors(what):
 
 @pytest.mark.parametrize("what", ["mesh"])
 def test_unported_options_raise_not_implemented(what):
+    """Nothing is left unported: the option that used to raise
+    NotImplementedError runs (`mesh=`, at two logical shards on the
+    CPU), and a malformed value raises a ValueError instead."""
     plans = {
-        "mesh": lambda: plan.run_plan(_tiny_plan(), mesh=object(),
-                                      device="cpu"),
+        "mesh": lambda mesh: plan.run_plan(_tiny_plan(), mesh=mesh),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        plans[what]()
+    rep = plans[what](["cpu"] * 2)
+    assert rep.packed.n_shards == 2 and rep.packed.n_devices == 1
+    with pytest.raises(ValueError, match="at least one device"):
+        plans[what]([])
