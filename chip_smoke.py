@@ -143,14 +143,40 @@ Phases (each prints its own lines; any failure exits non-zero):
    `iss.run_fleet` on the card; (e) phase 11's DMR plan at 2 shards,
    every item's architectural result equal to the fault-free run; each
    run of (a)-(e) with the launch counts zeroed just before it: both
-   kernels launched on the kernel route, no plain version.
+   kernels launched on the kernel route, no plain version;
+19. the paper's studies: (a) Fig. 6's six spoilage variants on the
+   4,000 held-out inputs of `gen_dataset(default_rng(99), 4000)` plus
+   the profile input, one pool per variant (KNN-Large: 4,001 lanes x
+   17,035 words), through `iss_segment` on the card until every lane
+   halts: every output equal to the variant's reference function, so
+   its accuracy equals the reference's; the profile input's counts equal
+   to PyISS and priced at the carbon-optimal core over a 1-year hourly
+   deployment, as `benchmarks/spoilage.py` prices them, and the
+   KNN-Large / LR carbon ratio beside the paper's 14.5; (b) the three
+   examples through `main(argv)` in this process on the card:
+   `torch_quickstart` and `torch_fleet_simulation` at their defaults,
+   the fleet example also at 8,192 items a group (every output equal to
+   the workload's reference), `torch_carbon_planner` at its defaults
+   with `--serving`; each with the counts zeroed just before it: the
+   segment kernel and `iss_refill` launched on the fleet example,
+   `sweep_tile_drawn` on the planner, no plain version anywhere, and
+   their launches added to the kernels line; (c) the float64 serving
+   planner `sweep.serving_plan` on the card bit for bit against the
+   numpy `plan_grid` on the example's grid and on 365 lifetimes x 1,000
+   QPS x 18 options (infeasible and tied cells), timed with CUDA events;
+   (d) Table 5 equal to its recomputation from the paper's inputs, and
+   `python -m repro_torch.tools.flexilint` over all 11 workloads exiting
+   0.
 
 It ends with a `kernels:` line of launch counts, one JSON line
 `{"kernels": [...]}` with an entry per kernel (times, bound, launches,
 error; the segment kernel's faults variant has its own entry, launched
 on phase 12's path; the sweep kernel's two builds each have one, the
 drawn build launched on phase 9's path and build (a) on none; the
-bit-plane kernel's launches are phase 15's quantized path), the card's nvidia-smi line, and as the last line
+bit-plane kernel's launches are phase 15's quantized path; phase 19's
+launches are added to the segment kernel's, the refill kernel's, the
+drawn sweep's, flash's and the scan's), the card's nvidia-smi line, and
+as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
 held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
 its per-cell sums, which follow no fixed order (relative 2 (N - 1) u),
@@ -2401,6 +2427,287 @@ def phase_shards(dev, small_rep, main_rep):
         f"every item's architectural result equal to the fault-free run")
 
 
+# ------------------------------------------------------------- phase 19
+# Fig. 6 (benchmarks/spoilage.py): 4,000 held-out inputs from
+# default_rng(99), the profile input from default_rng(3), each variant
+# priced over a 1-year deployment at one execution an hour
+FIG6_N, FIG6_SEED, FIG6_PROFILE_SEED = 4000, 99, 3
+FIG6_LIFETIME_S, FIG6_EXECS_PER_DAY = 365 * 86_400.0, 24.0
+FIG6_SEG_STEPS = 1 << 16
+PAPER_KNN_LR_RATIO = 14.5       # the paper's KNN-Large / LR carbon
+# the serving planner's chip in phase 19: an H100 SXM at the card's power
+# limit; its embodied carbon is a what-if input (the repo has no
+# life-cycle figure for an H100)
+WHAT_IF_EMBODIED_KG = 1500.0
+
+
+def phase_spoilage(dev, smi):
+    """19(a): the six Fig. 6 variants on the 4,000 held-out inputs (and
+    the profile input as lane 4,000) through `iss_segment` on the card,
+    segment after segment until every lane halts: every output equal to
+    the variant's reference function, the profile lane's counts equal to
+    PyISS, and each variant priced at its carbon-optimal core. Returns
+    the segment kernel's launches."""
+    import numpy as np
+    import torch
+    import _torch_parity as tp
+    from repro_torch.core.carbon import DeviceProfile
+    from repro_torch.core.selection import optimal_core
+    from repro_torch.flexibench import spoilage_algos as sa
+    from repro_torch.flexibits import iss
+    from repro_torch.flexibits.pyiss import PyISS
+    from repro_torch.kernels import iss_stepper as st
+
+    xte, yte = sa.gen_dataset(np.random.default_rng(FIG6_SEED), FIG6_N)
+    xp, _ = sa.gen_dataset(np.random.default_rng(FIG6_PROFILE_SEED), 1)
+    x = np.concatenate([xte, xp])
+    launches, rows = 0, {}
+    for algo in sa.all_algos():
+        mems = tp.spoilage_memory(algo, x)
+        code = torch.as_tensor(np.asarray(algo.program.code).view(np.int32),
+                               device=dev)
+        state = iss.fresh_lanes(torch.as_tensor(mems, device=dev))
+        st.reset_counts()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        while True:
+            state = st.iss_segment(code, state, seg_steps=FIG6_SEG_STEPS,
+                                   max_steps=algo.max_steps, device=dev)
+            if bool((state.halted | (state.n_instr >= algo.max_steps))
+                    .all()):
+                break
+        e1.record()
+        e1.synchronize()
+        wall = time.perf_counter() - t0
+        dev_ms = e0.elapsed_time(e1)
+        n = st.iss_segment_banked.launches
+        if n < 1 or st.iss_segment_banked.plain_calls:
+            raise AssertionError(f"{algo.name}: {n} segment launches, "
+                                 f"{st.iss_segment_banked.plain_calls} "
+                                 f"plain calls")
+        launches += n
+        if not bool(state.halted.all()):
+            raise AssertionError(f"{algo.name}: "
+                                 f"{int((~state.halted).sum())} lanes never "
+                                 f"halted within {algo.max_steps} steps")
+        out = state.mem[:, algo.out_addr].cpu().numpy()
+        n_instr = state.n_instr.cpu().numpy().astype(np.int64)
+        n_two = state.n_two_stage.cpu().numpy()
+        want = algo.ref(xte)
+        bad = int((out[:FIG6_N] != want).sum())
+        if bad or out[FIG6_N] != algo.ref(xp)[0]:
+            raise AssertionError(f"{algo.name}: {bad} of {FIG6_N} outputs "
+                                 f"differ from the reference function")
+        acc = float((out[:FIG6_N] == yte).mean())
+        ref_acc = float((want == yte).mean())
+        if acc != ref_acc:
+            raise AssertionError(f"{algo.name}: accuracy {acc} != {ref_acc}")
+        sim = PyISS(algo.program.code, mems.shape[1],
+                    mems[FIG6_N].copy()).run(algo.max_steps)
+        got = (int(n_instr[FIG6_N]), int(n_two[FIG6_N]))
+        if not sim.halted or got != (sim.n_instr, sim.n_two_stage):
+            raise AssertionError(f"{algo.name}: profile counts {got} on "
+                                 f"the card, PyISS {sim.n_instr}, "
+                                 f"{sim.n_two_stage}")
+
+        def price(n1, n2):
+            prof = DeviceProfile(n1 - n2, n2, algo.vm_reserved_bytes / 1024.0,
+                                 algo.program.nvm_bytes / 1024.0)
+            core, totals = optimal_core(prof, lifetime_s=FIG6_LIFETIME_S,
+                                        execs_per_day=FIG6_EXECS_PER_DAY)
+            return float(min(totals.values())), core.name
+        kg, core = price(*got)
+        if (kg, core) != price(sim.n_instr, sim.n_two_stage):
+            raise AssertionError(f"{algo.name}: carbon differs")
+        lane_steps = int(n_instr.sum())
+        rows[algo.name] = (acc, kg, core)
+        log(f"[fig6] {algo.name}: {mems.shape[0]} lanes x {mems.shape[1]} "
+            f"words ({mems.nbytes / 1e6:.1f} MB), {n} launches of "
+            f"{FIG6_SEG_STEPS} steps, {wall:.3f}s wall ({dev_ms:.1f} ms "
+            f"between CUDA events), {lane_steps} retired lane-steps = "
+            f"{lane_steps / wall:.4g} lane-steps/s; every output equal to "
+            f"the reference function; accuracy {acc:.4f}; profile input "
+            f"{got[0]} instructions, {got[1]} two-stage (PyISS equal); "
+            f"{kg:.6g} kg CO2e on {core} over 1 year hourly ({smi})")
+    ratio = rows["KNN-Large"][1] / rows["LR"][1]
+    log(f"[fig6] KNN-Large / LR carbon {ratio:.4f}x (paper "
+        f"{PAPER_KNN_LR_RATIO}x) at accuracy {rows['KNN-Large'][0]:.4f} vs "
+        f"{rows['LR'][0]:.4f}; all {6 * FIG6_N} held-out outputs equal to "
+        f"the reference functions")
+    return launches
+
+
+def run_example(name, argv):
+    """examples/<name>.py's main(argv) in this process with every
+    kernel's counts zeroed just before it: (its result, wall seconds,
+    launches by kernel). No plain version may run."""
+    import _torch_parity as tp
+    from repro_torch.kernels import carbon_sweep as cs
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import iss_stepper as st
+    from repro_torch.kernels import ssd_scan as pss
+    mod = tp.load_example(name)
+    for m in (st, cs, pfa, pss):
+        m.reset_counts()
+    t0 = time.perf_counter()
+    out = mod.main(argv)
+    wall = time.perf_counter() - t0
+    fns = {SEG[0]: st.iss_segment_banked, REF[0]: st.iss_refill,
+           SWEEP[0]: cs.sweep_tile, SWEEP_DRAWN[0]: cs.sweep_tile_drawn,
+           FLASH[0]: pfa.flash_attention, SSD[0]: pss.ssd_scan}
+    plain = {k: f.plain_calls for k, f in fns.items() if f.plain_calls}
+    if plain:
+        raise AssertionError(f"{name} {argv}: plain calls {plain}")
+    return out, wall, {k: f.launches for k, f in fns.items()}
+
+
+def phase_examples(dev):
+    """19(b): the three examples through main(argv) on the card, at their
+    defaults (the fleet example also at 8,192 items a group, the planner
+    with --serving). Returns their launches by kernel."""
+    import numpy as np
+    from repro_torch.fleet.engine import workload_source
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    rc, wall, n = run_example("torch_quickstart", [])
+    if rc != 0:
+        raise AssertionError(f"torch_quickstart returned {rc}")
+    add(n)
+    log(f"[examples] torch_quickstart: {wall:.2f}s, launches {n}")
+    for argv in ([], ["--items", "8192"]):
+        rep, wall, n = run_example("torch_fleet_simulation", argv)
+        if min(n[SEG[0]], n[REF[0]]) < 1:
+            raise AssertionError(f"fleet example {argv}: launches {n}")
+        for g in rep.groups:
+            r, w = g.result, g.workload
+            mems = workload_source(w, g.group.seed)(0, r.n_items)
+            want = np.asarray(w.ref(mems[:, :w.n_inputs]), np.int32)
+            if not r.halted.all() or (r.out != want).any():
+                raise AssertionError(f"fleet example {argv}: {w.key} "
+                                     f"outputs differ from the reference")
+        add(n)
+        log(f"[examples] torch_fleet_simulation {argv}: {rep.n_items} "
+            f"items in {wall:.2f}s ({rep.packed.wall_s:.2f}s in "
+            f"run_packed = {rep.n_items / rep.packed.wall_s:.1f} items/s), "
+            f"{rep.packed.n_segments} segments, every output equal to the "
+            f"workload's reference; launches {n}")
+    (res, ok), wall, n = run_example(
+        "torch_carbon_planner",
+        ["--serving", "--embodied-kg", str(WHAT_IF_EMBODIED_KG)])
+    if n[SWEEP_DRAWN[0]] < 1 or ok is not True or res.path != "cuda":
+        raise AssertionError(f"planner example: launches {n}, serving "
+                             f"{ok}, path {res.path}")
+    add(n)
+    log(f"[examples] torch_carbon_planner --serving: {wall:.2f}s, "
+        f"{res.n_scenarios} scenarios in {res.wall_s * 1e3:.1f} ms, "
+        f"serving planner equal to plan_grid; launches {n}")
+    return total
+
+
+def serving_grids():
+    """The example's grid (8e9 parameters, 3 lifetimes x 9 QPS) and a
+    dense one: 365 lifetimes x 1,000 QPS (inf, NaN and 0 among them,
+    and demands past every option) x 18 options, two of them tied."""
+    import numpy as np
+    kv = 32 * 8 * 128 * 2 * 2
+    example = dict(n_params=8e9, kv_bytes_per_token=kv,
+                   lifetimes_days=np.array([7.0, 90.0, 3 * 365.0]),
+                   qps_grid=np.logspace(2, 6, 9))
+    dense = dict(n_params=8e9, kv_bytes_per_token=kv,
+                 lifetimes_days=np.arange(1.0, 366.0),
+                 qps_grid=np.concatenate([np.logspace(0, 8, 997),
+                                          [0.0, np.inf, np.nan]]),
+                 chips_options=(8, 16, 32, 32, 64, 256))
+    return {"example": example, "dense": dense}
+
+
+def phase_serving_plan(dev, smi):
+    """19(c): the float64 serving planner on the card bit for bit against
+    the numpy `plan_grid`, on the example's grid and a dense one."""
+    import numpy as np
+    import torch
+    from repro_torch.core import planner
+    from repro_torch.core import sweep as sw
+    chip = planner.h100_sxm(WHAT_IF_EMBODIED_KG)
+    for name, kw in serving_grids().items():
+        t0 = time.perf_counter()
+        want = planner.plan_grid(chip=chip, **kw)
+        np_s = time.perf_counter() - t0
+        sw.serving_plan(chip=chip, device=dev, **kw)      # warm-up
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        got = sw.serving_plan(chip=chip, device=dev, **kw)
+        e1.record()
+        e1.synchronize()
+        wall = time.perf_counter() - t0
+        for k in ("variant_idx", "chips", "total_kg"):
+            g = got[k].cpu().numpy()
+            if g.dtype != want[k].dtype or g.shape != want[k].shape or \
+                    g.tobytes() != want[k].tobytes():
+                raise AssertionError(f"serving plan {name}: {k} differs "
+                                     f"from plan_grid")
+        vi = want["variant_idx"]
+        cells = vi.size * len(want["variants"]) * len(
+            kw.get("chips_options", (8, 16, 32, 64, 128, 256)))
+        log(f"[serving plan] {name} grid {vi.shape} x "
+            f"{cells // vi.size} options ({cells} cells): variant_idx, "
+            f"chips and total_kg bit for bit equal to plan_grid "
+            f"({int((vi < 0).sum())} infeasible cells, "
+            f"{int(np.isinf(want['total_kg']).sum())} +inf); on the card "
+            f"{e0.elapsed_time(e1):.3f} ms between CUDA events, "
+            f"{wall * 1e3:.3f} ms wall; numpy {np_s * 1e3:.1f} ms "
+            f"({chip.hbm_bw:.3g} B/s, {chip.power_w:g} W, "
+            f"{chip.embodied_kg:g} kg what-if; {smi})")
+
+
+def phase_tables():
+    """19(d): Table 5 against the paper's inputs, recomputed here, and
+    the FlexiLint CLI over all 11 workloads."""
+    from repro_torch.core import scale
+    beef_kg = 26.19e9 * (1 / 2.20462)
+    want = {}
+    for name, fp in (("flexible", 0.01086), ("hybrid", 0.12829),
+                     ("silicon", 2.66)):
+        def kg(e, fp=fp):
+            return e * 0.31 * beef_kg * 14.5 - beef_kg * fp
+        es = (1.0, 0.1, 0.01, 0.001)
+        want[name] = {"device_kg": fp,
+                      "savings_kg": {e: kg(e) for e in es},
+                      "savings_cars": {e: kg(e) / 4_600.0 for e in es},
+                      "breakeven": fp / (0.31 * 14.5)}
+    got = scale.table5()
+    if got != want:
+        raise AssertionError(f"Table 5 differs: {got} != {want}")
+    log("[table5] " + "; ".join(
+        f"{k}: break-even 1 in {1 / v['breakeven']:.0f}, "
+        f"{v['savings_cars'][1.0]:.4g} cars at full effectiveness"
+        for k, v in got.items()) + "; equal to the paper's inputs")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.tools.flexilint"],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() \
+        else ""
+    if proc.returncode != 0 or last != "flexilint: 11 program(s) " \
+                                       "analyzed, ok":
+        raise AssertionError(f"flexilint exit {proc.returncode}: {last!r} "
+                             f"{proc.stderr[-2000:]}")
+    log(f"[flexilint] python -m repro_torch.tools.flexilint: exit 0, "
+        f"{last!r}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2474,6 +2781,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_shards(dev, small_rep, main_rep)
     log(f"[shards] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    counts[SEG[0]] += phase_spoilage(dev, smi)
+    log(f"[fig6] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for k, v in phase_examples(dev).items():
+        counts[k] += v
+    log(f"[examples] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_serving_plan(dev, smi)
+    phase_tables()
+    log(f"[serving plan, tables] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import planner
 from repro_torch.core.carbon import (REDUNDANCY_MODES, DeviceProfile,
                                      operational_kg,
                                      redundancy_energy_factor,
@@ -713,3 +714,55 @@ def workload_spec(keys: Optional[Sequence[str]] = None, *,
         draws=draws, seed=seed,
         wcet_cycles=tuple(wcet_rows) if wcet_rows else None,
         measured_cycles=meas)
+
+
+# ------------------------------------------ serving-planner torch mirror
+def serving_plan(*, chip: planner.ServeChip, n_params: float,
+                 kv_bytes_per_token: float, lifetimes_days, qps_grid,
+                 chips_options: Sequence[int] = (8, 16, 32, 64, 128, 256),
+                 intensity: float = 0.367,
+                 variants: Optional[Sequence[planner.ServeVariant]] = None,
+                 device: DeviceLike = None) -> Dict:
+    """float64 torch mirror of `planner.plan_grid` on the card
+    (`device=None`) or, on request, the CPU: the same option vectors,
+    the same op order and the same first-minimum tie-break, so every
+    cell (`variant_idx`, `chips`, `total_kg`, its +inf included) equals
+    the numpy oracle bit for bit. Returns the three maps as tensors on
+    the device.
+
+    Eager torch runs one kernel per op, so no product is contracted into
+    an add. A division by a Python scalar on CUDA multiplies by its
+    reciprocal (ATen's `div_true_kernel_cuda` takes that path for a CPU
+    scalar divisor), which can differ from numpy's quotient by one ulp,
+    so every divisor here is a float64 tensor on the device."""
+    if variants is None:
+        variants = planner.serve_variants(chip)
+    opt_vi, opt_chips, opt_tps, opt_prep = planner.plan_options(
+        chip, n_params, kv_bytes_per_token, chips_options, variants)
+    dev = resolve(device)
+    f64 = torch.float64
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float64), device=dev)
+    opt_chips, opt_tps, opt_prep = t(opt_chips), t(opt_tps), t(opt_prep)
+    opt_vi = torch.as_tensor(opt_vi, device=dev)
+    days, qps = t(lifetimes_days), t(qps_grid)
+    chip_life_days, one, per_kilo = t(3 * 365.0), t(1.0), t(1000.0)
+
+    feasible = opt_tps[None, None, :] >= qps[None, :, None]
+    emb = (opt_chips[None, None, :] * chip.embodied_kg
+           * torch.minimum(days / chip_life_days, one)[:, None, None])
+    util = torch.where(feasible, qps[None, :, None] / opt_tps[None, None, :],
+                       torch.zeros((), dtype=f64, device=dev))
+    kwh = (opt_chips[None, None, :] * chip.power_w * planner.PUE * util
+           * days[:, None, None] * 24.0 / per_kilo)
+    total = opt_prep[None, None, :] + emb + kwh * intensity
+    total = torch.where(feasible, total,
+                        torch.full((), math.inf, dtype=f64, device=dev))
+    k = torch.argmin(total, dim=2)                  # first min wins
+    best_kg = torch.gather(total, 2, k[..., None])[..., 0]
+    met = torch.isfinite(best_kg)
+    best = torch.where(met, opt_vi[k], -1).to(I32)
+    best_chips = torch.where(met, opt_chips[k], 0.0).to(I32)
+    return {"variant_idx": best, "chips": best_chips, "total_kg": best_kg,
+            "variants": [v.name for v in variants]}

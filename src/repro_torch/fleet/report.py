@@ -14,12 +14,11 @@ import dataclasses
 from typing import Any, List, Optional
 
 from repro_torch.core import carbon
+from repro_torch.core.planner import PUE
 from repro_torch.core.selection import optimal_core
 from repro_torch.flexibench.base import Workload
 from repro_torch.flexibits.cycles import TICKS_PER_CYCLE, Core
 from repro_torch.fleet.engine import FleetResult, PackedStats
-
-PUE = 1.1     # datacenter power usage effectiveness
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,6 +11,8 @@ States are `PackedState`s of numpy arrays in the reference's layout;
 from __future__ import annotations
 
 import functools
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -22,6 +24,28 @@ from repro_torch.flexibits.cycles import CORES, MIX_CLASSES, cost_row
 from repro_torch.flexibits.iss import ISSState, PackedState, pack_programs
 
 N_MIX = len(MIX_CLASSES)
+EXAMPLES = pathlib.Path(__file__).resolve().parent.parent / "examples"
+
+
+def spoilage_memory(algo, x) -> np.ndarray:
+    """(n, words) memory images of a Fig. 6 spoilage variant: its ROM
+    under `mem_words` of RAM, one input of `x` at word 0 of each, as
+    benchmarks/spoilage.py lays them."""
+    p = algo.program
+    words = p.ro_base // 4 + len(p.ro_words) + max(algo.mem_words, 64)
+    mems = np.repeat(p.initial_memory(words)[None], len(x), 0)
+    mems[:, :x.shape[1]] = x
+    return mems
+
+
+def load_example(name: str):
+    """`examples/<name>.py` as a module (the examples are scripts, not a
+    package), so a test or chip_smoke.py can call its `main(argv)`."""
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 _OPCODES = (isa.OP_LUI, isa.OP_AUIPC, isa.OP_JAL, isa.OP_JALR,
             isa.OP_BRANCH, isa.OP_LOAD, isa.OP_STORE, isa.OP_IMM,
             isa.OP_REG, isa.OP_SYSTEM)

@@ -685,3 +685,57 @@ def test_smoke_serve_on_card_matches_cpu(cuda):
         cfg.n_layers, cfg.n_layers // cfg.shared_attn_period)
     torch.testing.assert_close(lc.cpu(), lp, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(dc.cpu(), dp, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("grid", ["example", "dense"])
+def test_serving_plan_on_card_equals_plan_grid(cuda, grid):
+    """The float64 serving planner on the card bit for bit against the
+    numpy oracle: CUDA divides by a float64 tensor (never by a Python
+    scalar, whose reciprocal ATen multiplies by), argmin takes the first
+    of tied options, infeasible cells stay +inf."""
+    from repro_torch.core import planner
+    chip = planner.h100_sxm(1500.0, power_w=700.0)
+    rng = np.random.default_rng(1)
+    kw = dict(chip=chip, n_params=8e9, kv_bytes_per_token=32 * 8 * 128 * 4)
+    if grid == "example":
+        kw.update(lifetimes_days=np.array([7.0, 90.0, 3 * 365.0]),
+                  qps_grid=np.logspace(2, 6, 9))
+    else:
+        kw.update(lifetimes_days=np.concatenate(
+            [np.arange(1.0, 366.0), rng.uniform(0.1, 4000.0, 35)]),
+            qps_grid=np.concatenate([np.logspace(0, 8, 397),
+                                     [0.0, np.inf, np.nan]]),
+            chips_options=(8, 16, 16, 64, 128, 256))
+    want = planner.plan_grid(**kw)
+    got = psweep.serving_plan(device=cuda, **kw)
+    for k in ("variant_idx", "chips", "total_kg"):
+        assert got[k].device.type == "cuda"
+        g = got[k].cpu().numpy()
+        assert g.dtype == want[k].dtype and g.shape == want[k].shape
+        assert g.tobytes() == want[k].tobytes(), k
+    assert (want["variant_idx"] == -1).any() or grid == "example"
+
+
+def test_spoilage_variant_through_the_kernel_equals_ref(cuda):
+    """DT-Large on 512 held-out inputs through `iss_segment` on the card:
+    every output equals the variant's reference function, and the state
+    equals the plain version's on the card."""
+    from repro_torch.flexibench import spoilage_algos as sa
+    algo = {a.name: a for a in sa.all_algos()}["DT-Large"]
+    x, _ = sa.gen_dataset(np.random.default_rng(99), 512)
+    mems = tp.spoilage_memory(algo, x)
+    code = _t(np.asarray(algo.program.code).view(np.int32), cuda)
+    a = iss.fresh_lanes(_t(mems, cuda))
+    b = iss.fresh_lanes(_t(mems, cuda))
+    iss_stepper.reset_counts()
+    for _ in range(4):
+        a = iss_stepper.iss_segment(code, a, seg_steps=64,
+                                    max_steps=algo.max_steps, device=cuda)
+        b = iss.run_segment_lanes(code, b, 64, algo.max_steps)
+    torch.cuda.synchronize()
+    assert iss_stepper.iss_segment_banked.launches == 4
+    assert bool(a.halted.all())
+    for f, u, v in zip(iss.ISSState._fields, a, b):
+        assert torch.equal(u, v), f
+    np.testing.assert_array_equal(a.mem[:, algo.out_addr].cpu().numpy(),
+                                  algo.ref(x))

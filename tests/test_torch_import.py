@@ -58,7 +58,10 @@ _SLICE_MODULES = ("repro_torch.fleet.engine",
                   "repro_torch.models.hybrid", "repro_torch.models.model",
                   "repro_torch.launch.serve",
                   "repro_torch.distributed.checkpoint",
-                  "repro_torch.flexibits.fleet")
+                  "repro_torch.flexibits.fleet",
+                  "repro_torch.core.planner", "repro_torch.core.scale",
+                  "repro_torch.flexibench.spoilage_algos",
+                  "repro_torch.tools.flexilint")
 
 
 def test_port_imports_with_jax_and_the_reference_blocked():
@@ -125,6 +128,17 @@ def test_sources_import_neither_jax_nor_the_reference():
     assert len(list(_SRC.rglob("*.py"))) > 20
 
 
+def test_torch_examples_and_chip_smoke_import_neither():
+    """The port's examples and chip_smoke.py run where JAX is absent."""
+    paths = sorted((_ROOT / "examples").glob("torch_*.py"))
+    assert len(paths) == 3
+    offenders = []
+    for path in paths + [_ROOT / "chip_smoke.py"]:
+        for m in _FORBIDDEN.finditer(path.read_text()):
+            offenders.append(f"{path.relative_to(_ROOT)}: {m.group(0)}")
+    assert not offenders, offenders
+
+
 def _tiny_plan(**kw):
     return plan.FleetPlan(groups=(plan.FleetGroup(workload="WQ",
                                                   n_items=4),),
@@ -179,6 +193,11 @@ def test_sweep_entry_points_default_to_the_card():
                                       par_inv=1.0)
     with pytest.raises(RuntimeError, match="CUDA card"):
         carbon_sweep.init_acc(64, 32, torch.float32)
+    from repro_torch.core import planner
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        sweep.serving_plan(chip=planner.h100_sxm(1.0, power_w=700.0),
+                           n_params=8e9, kv_bytes_per_token=1.0,
+                           lifetimes_days=[7.0], qps_grid=[1.0])
 
 
 def test_resilient_entry_points_default_to_the_card():
