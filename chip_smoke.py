@@ -91,8 +91,10 @@ Phases (each prints its own lines; any failure exits non-zero):
 14. small serve: the Zamba2 smoke config in float32 and bfloat16 with
    the same parameters on the card (kernels) and on the CPU (plain
    versions): prefill and first decode logits within the stated
-   tolerance, greedy tokens equal wherever the CPU's top-2 margin clears
-   twice it, and `generate` equal to the greedy loop on both;
+   tolerance (the card's first decode fed the CPU's first token),
+   greedy tokens equal wherever the CPU's top-2 margin clears twice it,
+   one launch a layer and no plain call on the card, and `generate`
+   equal to the greedy loop on both;
 15. main serve: Zamba2-7B at full width and depth (6.957e9 parameters,
    bfloat16, random from a seed) through `generate` on the card, 8
    requests x prompt 512, 32 tokens: 81 `ssd_scan` and 13
@@ -166,7 +168,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    QPS x 18 options (infeasible and tied cells), timed with CUDA events;
    (d) Table 5 equal to its recomputation from the paper's inputs, and
    `python -m repro_torch.tools.flexilint` over all 11 workloads exiting
-   0.
+   0;
+20. dense and SSM serving: (a) the Qwen2-1.5B, Qwen2.5-14B, Minitron-8B
+   and Mamba2-1.3B smoke configs as phase 14 runs Zamba2's (card against
+   CPU, float32 and bfloat16, one `flash_attention` launch a dense layer
+   and one `ssd_scan` a Mamba2 layer, no plain call on the card); (b)
+   Qwen2.5-14B (14,770,033,664 bfloat16 parameters), (c) Mamba2-1.3B and
+   (d) Qwen2-1.5B and Minitron-8B at full width and depth through
+   `generate` on the card, cut as phase 15: 8 requests x prompt 512, 32
+   tokens; for each, launches, prefill and decode rates and peak memory,
+   the first layer's kernel against its plain version on its own
+   tensors (timed beside the plain version, SDPA for attention, and the
+   bound); (b) and (c) once more under torch.profiler (the prefill and 8
+   decode steps); and the cache path (prefill and 32 decode steps)
+   against the full forward over the same 544 tokens, in float32 (the
+   same bfloat16-valued parameters cast in place) within 1e-3 at every
+   step, and in bfloat16 by its relative error against the float32
+   forward, at most 1.25x the bfloat16 forward's own (at 28-48 layers
+   both bfloat16 paths drift from float32 past the smoke configs'
+   elementwise tolerance, as the reference's own bfloat16 run does).
+   Each model is freed before the next.
 
 It ends with a `kernels:` line of launch counts, one JSON line
 `{"kernels": [...]}` with an entry per kernel (times, bound, launches,
@@ -175,7 +196,8 @@ on phase 12's path; the sweep kernel's two builds each have one, the
 drawn build launched on phase 9's path and build (a) on none; the
 bit-plane kernel's launches are phase 15's quantized path; phase 19's
 launches are added to the segment kernel's, the refill kernel's, the
-drawn sweep's, flash's and the scan's), the card's nvidia-smi line, and
+drawn sweep's, flash's and the scan's, and phase 20's full serves' to
+flash's and the scan's), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
 held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
@@ -1652,9 +1674,10 @@ def phase_lm_kernels(dev, rec):
     torch.cuda.empty_cache()
 
 
-def greedy(model, params, tokens, cap, steps):
+def greedy(model, params, tokens, cap, steps, forced=None):
     """Prefill and `steps` greedy decode steps: the tokens and every
-    step's logits (float32, on the host)."""
+    step's logits (float32, on the host). With `forced` (B, steps), step
+    i is fed forced[:, i] in place of the previous step's argmax."""
     import torch
     v = model.cfg.vocab
     with torch.inference_mode():
@@ -1662,6 +1685,8 @@ def greedy(model, params, tokens, cap, steps):
         out, steps_logits = [], [logits[:, 0, :v].float().cpu()]
         tok = torch.argmax(logits[..., :v], -1)
         for i in range(steps):
+            if forced is not None:
+                tok = forced[:, i:i + 1].to(tokens.device)
             out.append(tok.cpu())
             logits, cache = model.decode_fn(params, cache, tok,
                                             tokens.shape[1] + i)
@@ -1671,12 +1696,25 @@ def greedy(model, params, tokens, cap, steps):
     return torch.cat(out, 1), steps_logits
 
 
-def phase_small_serve(dev):
-    """The Zamba2 smoke config with the same parameters on the card (the
-    kernels) and on the CPU (the plain versions), in float32 and
-    bfloat16: prefill and first decode logits within the stated
-    tolerance, and greedy tokens equal wherever the CPU's top-2 margin
-    exceeds twice it."""
+def expected_launches(cfg):
+    """(ssd_scan, flash_attention) launches of one prefill: one scan a
+    Mamba2 layer, one attention a dense layer or shared-block
+    invocation."""
+    if cfg.family == "dense":
+        return 0, cfg.n_layers
+    if cfg.family == "ssm":
+        return cfg.n_layers, 0
+    return cfg.n_layers, cfg.n_layers // cfg.shared_attn_period
+
+
+def small_serve(dev, arch, dtype, tag):
+    """`arch`'s smoke config with the same parameters on the card (the
+    kernels) and on the CPU (the plain versions): prefill and first
+    decode logits within the stated tolerance (the card's first decode
+    fed the CPU's first token: where the prefill's top two tie, the two
+    argmaxes may differ), greedy tokens equal wherever the CPU's top-2
+    margin exceeds twice it, one launch a layer and no plain call on the
+    card, and `generate` equal to the greedy loop on both."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_smoke_config
@@ -1685,58 +1723,103 @@ def phase_small_serve(dev):
     from repro_torch.launch import serve
     from repro_torch.models.model import build_model
 
-    tols = {"float32": (1e-3, 1e-3), "bfloat16": (6e-2, 8e-2)}
-    for dtype, (rtol, atol) in tols.items():
-        cfg = get_smoke_config("zamba2-7b").replace(dtype=dtype)
-        model = build_model(cfg)
-        cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
-        card = model.init_params(torch.Generator(device=dev).manual_seed(0),
-                                 dev)
-        card.load_state_dict(cpu.state_dict())
-        b, l, gen = 4, 64, 8
-        toks = torch.as_tensor(np.random.default_rng(1).integers(
-            0, cfg.vocab, (b, l)))
-        pfa.reset_counts()
-        pss.reset_counts()
-        tc, lc = greedy(model, card, toks.to(dev), l + gen, gen - 1)
-        counts = (pss.ssd_scan.launches, pfa.flash_attention.launches)
-        tp_, lp = greedy(model, cpu, toks, l + gen, gen - 1)
-        if counts != (cfg.n_layers, cfg.n_layers // cfg.shared_attn_period):
-            raise AssertionError(f"small serve {dtype}: launches {counts}")
-        for i, what in ((0, "prefill"), (1, "first decode")):
-            torch.testing.assert_close(lc[i], lp[i], rtol=rtol, atol=atol,
-                                       msg=f"small serve {dtype} {what}")
-        errs = [float((x - y).abs().max()) for x, y in zip(lc, lp)]
-        compared = 0
-        for i in range(gen):
-            top2 = torch.topk(lp[i], 2, dim=-1).values
-            margin = top2[:, 0] - top2[:, 1]
-            thresh = 2 * (atol + rtol * top2[:, 0].abs())
-            sure = margin > thresh
-            if not bool((tc[:, i] == tp_[:, i])[sure].all()):
-                raise AssertionError(f"small serve {dtype}: step {i} greedy "
-                                     f"tokens differ where the CPU's margin "
-                                     f"exceeds {thresh.tolist()}")
-            compared += int(sure.sum())
-            if not bool((tc[:, i] == tp_[:, i]).all()):
-                break                   # contexts differ from here on
-        for d_, params in ((dev, card), ("cpu", cpu)):
-            got, _ = serve.generate(cfg, batch=b, prompt_len=l, gen=gen,
-                                    seed=1, params=params, device=d_,
-                                    log=lambda *a: None)
-            want = (tc if d_ == dev else tp_).numpy()
-            if not np.array_equal(got, want):
-                raise AssertionError(f"small serve {dtype}: generate on "
-                                     f"{d_} differs from the greedy loop")
-        log(f"[small serve] {dtype} smoke config, {b} x {l} prompt, {gen} "
-            f"tokens: card (kernels: {counts[0]} ssd_scan, {counts[1]} "
-            f"flash_attention launches) vs CPU (plain): logits max |diff| "
-            f"by step {', '.join(f'{e:.3g}' for e in errs)} (prefill and "
-            f"first decode within rtol {rtol}, atol {atol}); greedy tokens "
-            f"equal at {compared} of {b * gen} positions whose CPU margin "
-            f"clears twice the tolerance, {int((tc == tp_).sum())} of "
-            f"{b * gen} equal in all; generate() gives the loop's tokens on "
-            f"both")
+    rtol, atol = SMALL_SERVE_TOL[dtype]
+    cfg = get_smoke_config(arch).replace(dtype=dtype)
+    model = build_model(cfg)
+    cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    card = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    card.load_state_dict(cpu.state_dict())
+    b, l, gen = 4, 64, 8
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (b, l)))
+    pfa.reset_counts()
+    pss.reset_counts()
+    tc, lc = greedy(model, card, toks.to(dev), l + gen, gen - 1)
+    counts = (pss.ssd_scan.launches, pfa.flash_attention.launches)
+    plain = pss.ssd_scan.plain_calls + pfa.flash_attention.plain_calls
+    tp_, lp = greedy(model, cpu, toks, l + gen, gen - 1)
+    if counts != expected_launches(cfg) or plain:
+        raise AssertionError(f"{tag} {arch} {dtype}: launches {counts}, "
+                             f"{plain} plain calls on the card")
+    _, lf = greedy(model, card, toks.to(dev), l + gen, 1, forced=tp_)
+    for i, what in ((0, "prefill"), (1, "first decode")):
+        torch.testing.assert_close(
+            lf[i], lp[i], rtol=rtol, atol=atol,
+            msg=lambda m: f"{tag} {arch} {dtype} {what}: {m}")
+    errs = [float((x - y).abs().max()) for x, y in zip(lc, lp)]
+    forced_errs = [float((x - y).abs().max()) for x, y in zip(lf, lp)]
+    compared = 0
+    for i in range(gen):
+        top2 = torch.topk(lp[i], 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        thresh = 2 * (atol + rtol * top2[:, 0].abs())
+        sure = margin > thresh
+        if not bool((tc[:, i] == tp_[:, i])[sure].all()):
+            raise AssertionError(f"{tag} {arch} {dtype}: step {i} greedy "
+                                 f"tokens differ where the CPU's margin "
+                                 f"exceeds {thresh.tolist()}")
+        compared += int(sure.sum())
+        if not bool((tc[:, i] == tp_[:, i]).all()):
+            break                   # contexts differ from here on
+    for d_, params in ((dev, card), ("cpu", cpu)):
+        got, _ = serve.generate(cfg, batch=b, prompt_len=l, gen=gen,
+                                seed=1, params=params, device=d_,
+                                log=lambda *a: None)
+        want = (tc if d_ == dev else tp_).numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{tag} {arch} {dtype}: generate on {d_} "
+                                 f"differs from the greedy loop")
+    log(f"[{tag}] {arch} {dtype} smoke config, {b} x {l} prompt, {gen} "
+        f"tokens: card (kernels: {counts[0]} ssd_scan, {counts[1]} "
+        f"flash_attention launches, 0 plain calls) vs CPU (plain): prefill "
+        f"and first decode on the CPU's first token within rtol {rtol}, "
+        f"atol {atol} (max |diff| {forced_errs[0]:.3g}, "
+        f"{forced_errs[1]:.3g}); each free-running step's logits max |diff| "
+        f"{', '.join(f'{e:.3g}' for e in errs)}; greedy tokens "
+        f"equal at {compared} of {b * gen} positions whose CPU margin "
+        f"clears twice the tolerance, {int((tc == tp_).sum())} of "
+        f"{b * gen} equal in all; generate() gives the loop's tokens on "
+        f"both")
+
+
+# phase 14's card-against-CPU tolerances: float32 (the kernels sum in
+# another order) and the reference's bfloat16 cross-path tolerance
+SMALL_SERVE_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (6e-2, 8e-2)}
+
+
+def phase_small_serve(dev):
+    """The Zamba2 smoke config in float32 and bfloat16 (`small_serve`)."""
+    for dtype in SMALL_SERVE_TOL:
+        small_serve(dev, "zamba2-7b", dtype, "small serve")
+
+
+def device_time_by_layer(tag, rows):
+    """Log the profiled device time of an LM serve by layer; returns the
+    rows that are kernels (not aten:: ops, which repeat their kernels'
+    time)."""
+    kernels = [r for r in rows if r.self_device_time_total > 0
+               and not r.key.startswith("aten::")]
+    groups = {"ssd_scan kernel": 0.0, "flash_attention kernel": 0.0,
+              "matrix products (cuBLAS)": 0.0, "copies and casts": 0.0,
+              "other elementwise and reductions": 0.0}
+    for r in kernels:
+        k = r.key
+        if "ssd_fwd" in k:
+            g = "ssd_scan kernel"
+        elif "flash_fwd" in k:
+            g = "flash_attention kernel"
+        elif "nvjet" in k or "gemm" in k.lower() or "cutlass" in k:
+            g = "matrix products (cuBLAS)"
+        elif "copy" in k or "emcpy" in k or "emset" in k:
+            g = "copies and casts"
+        else:
+            g = "other elementwise and reductions"
+        groups[g] += r.self_device_time_total / 1e3
+    total = sum(groups.values())
+    log(f"[{tag}] device time by layer: " + "; ".join(
+        f"{g} {ms:.2f} ms ({ms / total:.3f})" for g, ms in groups.items()))
+    return kernels
 
 
 def phase_main_serve(dev, rec):
@@ -1808,38 +1891,22 @@ def phase_main_serve(dev, rec):
 
     # the tensors this prefill feeds the kernels: the first Mamba layer's
     # scan and the first shared block's attention and FFN input, recorded
-    # by wrapping the ops module's kernel entries for one more prefill
-    seen = {}
-
-    def keep(name, fn):
-        def wrapped(*args, **kw):
-            out = fn(*args, **kw)
-            if name not in seen:
-                seen[name] = ([a.clone() if torch.is_tensor(a) else a
-                               for a in args], dict(kw), out)
-            return out
-        return wrapped
-
-    ffn = HY.ffn_block
+    # by wrapping the ops module's kernel entries and the FFN block for
+    # one more prefill
+    ffn, ffn_in = HY.ffn_block, []
 
     def ffn_keep(p, cfg_, h):
-        if "ffn" not in seen:
-            seen["ffn"] = (L.rms_norm(h, p.ln2, cfg_.rms_eps),
-                           p.mlp["wi"])
+        if not ffn_in:
+            ffn_in.append((L.rms_norm(h, p.ln2, cfg_.rms_eps), p.mlp["wi"]))
         return ffn(p, cfg_, h)
 
-    saved = (ops.ssd_scan, ops.flash_attention)
-    ops.ssd_scan = keep("ssd", ops.ssd_scan)
-    ops.flash_attention = keep("flash", ops.flash_attention)
     HY.ffn_block = ffn_keep
     try:
         prompt = torch.as_tensor(np.random.default_rng(0).integers(
             0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
-        with torch.inference_mode():
-            model.prefill_fn(params, {"tokens": prompt},
-                             SERVE_PROMPT + SERVE_GEN)
+        seen = capture_first_kernels(model, params, prompt,
+                                     SERVE_PROMPT + SERVE_GEN)
     finally:
-        ops.ssd_scan, ops.flash_attention = saved
         HY.ffn_block = ffn
     (a, x, dt, b, c), kw, (y, s) = seen["ssd"]
     yp, sp = pss.ssd_scan_plain(a, x, dt, b, c, q=kw["q"], rep=kw["rep"])
@@ -1863,11 +1930,11 @@ def phase_main_serve(dev, rec):
         f"{kw['tk']}) equal their "
         f"plain versions on this prefill's tensors: max |diff| "
         f"{e_ssd:.3g} and {e_fa:.3g}")
-    del seen["ssd"], seen["flash"], yp, sp, op
+    del seen, yp, sp, op
 
     # the quantized path (ops.quantized_linear, the bit-plane kernel's
     # entry point) on the first shared block's FFN input and its wi
-    xf, wi = seen.pop("ffn")
+    xf, wi = ffn_in.pop()
     xm = xf.reshape(-1, cfg.d_model)
     dense = (xm.float() @ wi.float())
     pbp.reset_counts()
@@ -1913,27 +1980,7 @@ def phase_main_serve(dev, rec):
             f"inside generate), device busy {busy:.3f}s = share "
             f"{busy / wall:.4f} of the wall; reading the trace took "
             f"{time.perf_counter() - t0 - wall:.1f}s")
-        kernels = [r for r in rows if r.self_device_time_total > 0
-                   and not r.key.startswith("aten::")]
-        groups = {"ssd_scan kernel": 0.0, "flash_attention kernel": 0.0,
-                  "matrix products (cuBLAS)": 0.0, "copies and casts": 0.0,
-                  "other elementwise and reductions": 0.0}
-        for r in kernels:
-            k = r.key
-            if "ssd_fwd" in k:
-                g = "ssd_scan kernel"
-            elif "flash_fwd" in k:
-                g = "flash_attention kernel"
-            elif "nvjet" in k or "gemm" in k.lower() or "cutlass" in k:
-                g = "matrix products (cuBLAS)"
-            elif "copy" in k or "emcpy" in k or "emset" in k:
-                g = "copies and casts"
-            else:
-                g = "other elementwise and reductions"
-            groups[g] += r.self_device_time_total / 1e3
-        total = sum(groups.values())
-        log("[main serve] device time by layer: " + "; ".join(
-            f"{g} {ms:.2f} ms ({ms / total:.3f})" for g, ms in groups.items()))
+        kernels = device_time_by_layer("main serve", rows)
         log_rows("main serve", kernels, 12)
     return counts
 
@@ -2708,6 +2755,297 @@ def phase_tables():
         f"{last!r}")
 
 
+# ------------------------------------------------------------- phase 20
+# the dense and SSM serves at full width and depth, cut as the main serve
+# (phase 15): 8 requests, prompt 512, 32 generated tokens, greedy,
+# bfloat16 parameters from a seed. Parameter counts: the reference's
+# count_params_abstract of each config
+FULL_PARAMS = {"qwen2.5-14b": 14_770_033_664, "mamba2-1.3b": 1_344_052_224,
+               "qwen2-1.5b": 1_543_910_912, "minitron-8b": 9_882_046_464}
+# (arch, profiled): Qwen2.5-14B and Mamba2-1.3B are also profiled
+FULL_SERVES = (("qwen2.5-14b", True), ("mamba2-1.3b", True),
+               ("qwen2-1.5b", False), ("minitron-8b", False))
+# a profiled serve: the prefill and 8 decode steps
+FULL_PROFILE_GEN = 9
+# the bfloat16 cache path's relative error against the float32 forward,
+# at most this times the bfloat16 forward's own
+CACHE_DRIFT = 1.25
+
+
+def capture_first_kernels(model, params, prompt, cap):
+    """{"flash" | "ssd": (args, kwargs, result)} of the first
+    flash_attention and ssd_scan call of one more prefill, recorded by
+    wrapping the ops module's kernel entries."""
+    import torch
+    from repro_torch.kernels import ops
+    seen = {}
+
+    def keep(name, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            if name not in seen:
+                seen[name] = ([a.clone() if torch.is_tensor(a) else a
+                               for a in args], dict(kw), out)
+            return out
+        return wrapped
+
+    saved = (ops.ssd_scan, ops.flash_attention)
+    ops.ssd_scan = keep("ssd", ops.ssd_scan)
+    ops.flash_attention = keep("flash", ops.flash_attention)
+    try:
+        with torch.inference_mode():
+            model.prefill_fn(params, {"tokens": prompt}, cap)
+    finally:
+        ops.ssd_scan, ops.flash_attention = saved
+    return seen
+
+
+def check_first_kernels(tag, seen):
+    """The first layer's kernel against its plain version on this
+    prefill's own tensors, timed with CUDA events beside the plain
+    version, SDPA (attention) and the bound. Returns {kernel: row}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ssd_scan as pss
+    rows = {}
+    if "flash" in seen:
+        (q, k, v), kw, o = seen["flash"]
+        c, tq, tk = kw["causal"], kw["tq"], kw["tk"]
+        err = lm_err(o, pfa.flash_attention_plain(q, k, v, causal=c, tq=tq,
+                                                  tk=tk),
+                     f"{tag} first layer's attention")
+        rows[FLASH[0]] = dict(
+            ms=timed(lambda: pfa.flash_attention(q, k, v, causal=c, tq=tq,
+                                                 tk=tk, device=q.device), 20),
+            plain_ms=timed(lambda: pfa.flash_attention_plain(
+                q, k, v, causal=c, tq=tq, tk=tk), 3),
+            library_ms=timed(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=c), 20),
+            bounds=flash_bound(q, tq, tk, c), err=err,
+            shape=f"BH {q.shape[0]} x L {q.shape[1]} x D {q.shape[2]}, "
+                  f"tile {tq}, {q.dtype}")
+    if "ssd" in seen:
+        (a, x, dt, b, c_), kw, (y, st) = seen["ssd"]
+        q_, rep = kw["q"], kw["rep"]
+        yp, sp = pss.ssd_scan_plain(a, x, dt, b, c_, q=q_, rep=rep)
+        err = lm_err(y, yp, f"{tag} first layer's scan")
+        lm_err(st, sp, f"{tag} first layer's scan state", LM_TOL["bfloat16"])
+        rows[SSD[0]] = dict(
+            ms=timed(lambda: pss.ssd_scan(a, x, dt, b, c_, q=q_, rep=rep,
+                                          device=x.device), 20),
+            plain_ms=timed(lambda: pss.ssd_scan_plain(a, x, dt, b, c_, q=q_,
+                                                      rep=rep), 3),
+            library_ms=None, bounds=ssd_bound(a, x, dt, b, c_, q_), err=err,
+            shape=f"BH {x.shape[0]} x L {x.shape[1]}, P {x.shape[2]}, N "
+                  f"{b.shape[-1]}, chunk {q_}, {rep} heads a group, "
+                  f"{x.dtype}")
+    for name, r in rows.items():
+        lib = r["library_ms"]
+        log(f"[{tag}] {name} on the first layer's own tensors "
+            f"({r['shape']}): "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{max(r['bounds']):.4f} ms (bytes {r['bounds'][0]:.4f}, "
+            f"operations {r['bounds'][1]:.4f}); max |kernel - plain| "
+            f"{r['err']:.3g}")
+    return rows
+
+
+def full_logits(params, cfg, seq, pl, gen):
+    """The full forward's logits at positions pl - 1 .. pl + gen - 1 of
+    `seq`, (B, gen + 1, vocab) float32 on the host. The SSM's forward
+    runs over a whole number of chunks: the causal pad after the last
+    token reaches none of those positions."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import ssm as SM
+    from repro_torch.models import transformer as TF
+    with torch.inference_mode():
+        if cfg.family == "ssm":
+            pad = (-seq.shape[1]) % cfg.ssm.chunk
+            h = SM.ssm_forward(params, cfg, F.pad(seq, (0, pad)))
+        else:
+            h, _ = TF.decoder_forward(params, cfg, seq)
+        return TF.logits_fn(params, cfg, h[:, pl - 1:pl + gen])[
+            ..., :cfg.vocab].float().cpu()
+
+
+def check_cache_path(tag, cache_bf, full_bf, cache32, full32):
+    """The cache path's logits (B, steps, V) against the full forward's.
+    float32: within SMALL_SERVE_TOL["float32"] at every step: the cache
+    path computes the forward. bfloat16: both paths round, and at 28-48
+    layers of random weights both drift from the float32 answer by far
+    more than the smoke configs' elementwise tolerance (so does the
+    reference's own bfloat16 run: tests/test_torch_*_serve.py's drift
+    test); the cache path may add at most a quarter to the forward's own
+    relative error against the float32 answer (CACHE_DRIFT)."""
+    import torch
+    rtol, atol = SMALL_SERVE_TOL["float32"]
+    for i in range(cache32.shape[1]):
+        torch.testing.assert_close(
+            cache32[:, i], full32[:, i], rtol=rtol, atol=atol,
+            msg=lambda m: f"{tag}: float32 cache path step {i} against the "
+                          f"full forward: {m}")
+    d32 = float((cache32 - full32).abs().max())
+
+    def rel(a):
+        return float((a - full32).norm() / full32.norm())
+    r_cache, r_fwd = rel(cache_bf), rel(full_bf)
+    brtol, batol = SMALL_SERVE_TOL["bfloat16"]
+    over = int(((cache_bf - full_bf).abs()
+                > batol + brtol * full_bf.abs()).sum())
+    log(f"[{tag}] cache path (prefill + {cache32.shape[1] - 1} decode "
+        f"steps) against the full forward over the same tokens: float32 "
+        f"max |diff| {d32:.3g} (within rtol {rtol}, atol {atol} at every "
+        f"step); bfloat16, relative L2 error against the float32 forward: "
+        f"cache path {r_cache:.5f}, forward {r_fwd:.5f} (ratio "
+        f"{r_cache / r_fwd:.3f}, at most {CACHE_DRIFT}); bfloat16 cache "
+        f"path against bfloat16 forward: max |diff| "
+        f"{float((cache_bf - full_bf).abs().max()):.4f}, {over} of "
+        f"{cache_bf.numel()} logits past rtol {brtol}, atol {batol}")
+    if not r_cache <= CACHE_DRIFT * r_fwd:
+        raise AssertionError(f"{tag}: the bfloat16 cache path's relative "
+                             f"error {r_cache:.5f} exceeds {CACHE_DRIFT} x "
+                             f"the forward's {r_fwd:.5f}")
+
+
+def serve_full(dev, arch, profile):
+    """`arch` at full width and depth in bfloat16 through `generate` on
+    the card: launches (one kernel a layer a prefill, no plain call),
+    rates and peak memory; the first layer's kernel against its plain
+    version; with `profile`, the prefill and 8 decode steps under
+    torch.profiler; then the cache path (prefill and 32 decode steps)
+    against the full forward over the same 544 tokens
+    (`check_cache_path`), the parameters cast to float32 in place for
+    its float32 half. Frees the model after. Returns the generate run's
+    launches by kernel."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ssd_scan as pss
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model, count_params
+
+    tag = f"serve {arch}"
+    b, pl, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    log(f"[{tag}] {cfg.family}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.dtype}: {n_params} parameters initialised on "
+        f"the card in {time.perf_counter() - t0:.1f}s; "
+        f"memory_allocated {torch.cuda.memory_allocated(dev) / 2**30:.2f} "
+        f"GiB")
+    if n_params != FULL_PARAMS[arch]:
+        raise AssertionError(f"{tag}: {n_params} parameters, the reference "
+                             f"counts {FULL_PARAMS[arch]}")
+
+    # warm-up (the allocator's pool, cuBLAS's choices), not counted
+    serve.generate(cfg, batch=b, prompt_len=pl, gen=2, params=params,
+                   device=dev, log=lambda *a: None)
+    pfa.reset_counts()
+    pss.reset_counts()
+    toks, stats = serve.generate(cfg, batch=b, prompt_len=pl, gen=gen,
+                                 params=params, device=dev, log=log)
+    counts = {SSD[0]: pss.ssd_scan.launches,
+              FLASH[0]: pfa.flash_attention.launches}
+    plain = pfa.flash_attention.plain_calls + pss.ssd_scan.plain_calls
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(counts.values()) != expected_launches(cfg) or plain:
+        raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
+                             f"calls; expected {expected_launches(cfg)} "
+                             f"(ssd_scan, flash_attention) per prefill")
+    if toks.shape != (b, gen) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{tag}: tokens {toks.shape}")
+    n_dec = (gen - 1) * b
+    log(f"[{tag}] {b} requests x prompt {pl}, {gen} tokens each: prefill "
+        f"{stats['prefill_s'] * 1e3:.1f} ms = "
+        f"{b * pl / stats['prefill_s']:.1f} prefill tokens/s; {gen - 1} "
+        f"decode steps {stats['decode_s']:.3f}s = "
+        f"{n_dec / stats['decode_s']:.1f} decode tokens/s "
+        f"({stats['decode_s'] / (gen - 1) * 1e3:.2f} ms a step); launches "
+        f"per prefill: {counts[SSD[0]]} ssd_scan, {counts[FLASH[0]]} "
+        f"flash_attention, 0 plain calls; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes)")
+
+    # the same prompt as generate's (default_rng(0))
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, pl)), device=dev)
+    seen = capture_first_kernels(model, params, prompt, pl + gen)
+    check_first_kernels(tag, seen)
+    del seen
+
+    if profile:
+        t0 = time.perf_counter()
+        run, wall, busy, rows = profiled(lambda: serve.generate(
+            cfg, batch=b, prompt_len=pl, gen=FULL_PROFILE_GEN, params=params,
+            device=dev, log=lambda *a: None), cpu=False)
+        if busy is None:
+            log(f"[{tag}] the profiler saw no device activity: device busy "
+                f"share not measured")
+        else:
+            log(f"[{tag}] under torch.profiler (prefill and "
+                f"{FULL_PROFILE_GEN - 1} decode steps): {wall:.2f}s wall "
+                f"(prefill {run[1]['prefill_s']:.3f}s, decode "
+                f"{run[1]['decode_s']:.3f}s inside generate), device busy "
+                f"{busy:.3f}s = share {busy / wall:.4f} of the wall; reading "
+                f"the trace took {time.perf_counter() - t0 - wall:.1f}s")
+            log_rows(tag, device_time_by_layer(tag, rows), 8)
+
+    # the cache path (prefill, then 32 decode steps) against the full
+    # forward over the same 544 tokens, in bfloat16 and, with the same
+    # (bfloat16-valued) parameters cast in place, in float32
+    gt, cache_bf = greedy(model, params, prompt, pl + gen, gen)
+    if not np.array_equal(gt[:, :gen].numpy(), toks):
+        raise AssertionError(f"{tag}: the greedy loop's tokens differ from "
+                             f"generate's")
+    seq = torch.cat([prompt, gt[:, :gen].to(dev)], 1)
+    full_bf = full_logits(params, cfg, seq, pl, gen)
+    for p in params.parameters():
+        p.data = p.data.float()
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    full32 = full_logits(params, cfg32, seq, pl, gen)
+    _, cache32 = greedy(build_model(cfg32), params, prompt, pl + gen, gen,
+                        forced=gt[:, :gen])
+    check_cache_path(tag, torch.stack(cache_bf, 1), full_bf,
+                     torch.stack(cache32, 1), full32)
+    del cache_bf, cache32, full_bf, full32, gt
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_dense_ssm(dev):
+    """20: (a) the four smoke configs in float32 and bfloat16, card
+    against CPU (`small_serve`); (b)-(d) each at full width and depth
+    (`serve_full`). Returns the full serves' launches by kernel."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, _ in FULL_SERVES:
+        for dtype in SMALL_SERVE_TOL:
+            small_serve(dev, arch, dtype, "dense/ssm small")
+    total = {FLASH[0]: 0, SSD[0]: 0}
+    for arch, prof in FULL_SERVES:
+        for k, v in serve_full(dev, arch, prof).items():
+            total[k] += v
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2792,6 +3130,10 @@ def main() -> int:
     phase_serving_plan(dev, smi)
     phase_tables()
     log(f"[serving plan, tables] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for k, v in phase_dense_ssm(dev).items():
+        counts[k] += v
+    log(f"[dense/ssm serve] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []

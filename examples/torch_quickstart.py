@@ -7,11 +7,10 @@ script, with no JAX.
 2. FlexiBench on the ISS — run the food-spoilage workload bit-exactly on
    the port's RV32E simulator (`flexibits.iss.run`) and compare with the
    functional reference.
-3. LM stack — decode a few tokens from the Zamba2-7B smoke config with
-   random parameters (`launch.serve.generate`). The reference's
-   quickstart trains a reduced qwen2-1.5b first; neither training nor
-   that family is ported yet (ROADMAP.md, open item 1.13), so this part
-   serves only.
+3. LM stack — decode a few tokens from the qwen2-1.5b smoke config with
+   random parameters (`launch.serve.generate`), as the reference's part
+   3 decodes it. The reference first trains it five steps; training is
+   not ported yet (ROADMAP.md, open item 13b), so this part serves only.
 
 Runs on the card by default; `--device cpu` runs the plain PyTorch path.
 
@@ -71,12 +70,13 @@ def main(argv=None) -> int:
           f"mix={dict(zip(iss.MIX_CLASSES, mix))}")
 
     # ---------------------------------------------------------------- 3. LM
-    cfg = get_smoke_config("zamba2-7b")
+    cfg = get_smoke_config("qwen2-1.5b")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     toks, stats = generate(cfg, batch=2, prompt_len=8, gen=8, device=dev,
                            generator=gen, log=lambda *a: None)
-    print(f"[lm] zamba2-7b smoke config, random parameters: generated "
+    print(f"[lm] qwen2-1.5b smoke config, random parameters (the "
+          f"reference's 5 train steps wait for open item 13b): generated "
           f"{toks.shape} tokens ({stats['decode_s'] * 1e3:.0f}ms decode)")
     print("quickstart OK")
     return 0

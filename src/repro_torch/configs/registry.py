@@ -2,8 +2,10 @@
 their smoke variants.
 
 A copy of the reference's registry that resolves only the families the
-port has: `hybrid` (Zamba2). The reference's other architectures are
-known by name and raise NotImplementedError until they are ported.
+port has: `hybrid` (Zamba2), `dense` (Qwen2, Qwen2.5, Minitron) and
+`ssm` (Mamba2). The reference's other architectures are known by name
+and raise NotImplementedError, naming the open item that ports them,
+until they are ported.
 """
 from __future__ import annotations
 
@@ -12,13 +14,18 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "minitron-8b": "repro_torch.configs.minitron_8b",
+    "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
 }
 
-# the reference's other architectures, still to port
-_UNPORTED = ("minitron-8b", "qwen2-1.5b", "qwen2.5-14b", "gemma3-12b",
-             "qwen2-moe-a2.7b", "deepseek-v3-671b", "llava-next-34b",
-             "mamba2-1.3b", "whisper-tiny")
+# the reference's other architectures, still to port, and the open item
+# of ROADMAP.md that ports each
+_UNPORTED = {"gemma3-12b": "13c", "qwen2-moe-a2.7b": "13d",
+             "deepseek-v3-671b": "13d", "llava-next-34b": "13e",
+             "whisper-tiny": "13e"}
 
 ARCH_IDS = tuple(_MODULES)
 
@@ -27,10 +34,10 @@ def _module(arch: str):
     if arch in _UNPORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet: the port serves "
-            f"{list(ARCH_IDS)} (ROADMAP.md, open item 1.13)")
+            f"{list(ARCH_IDS)} (ROADMAP.md, open item {_UNPORTED[arch]})")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: "
-                       f"{sorted(ARCH_IDS + _UNPORTED)}")
+                       f"{sorted(ARCH_IDS + tuple(_UNPORTED))}")
     return importlib.import_module(_MODULES[arch])
 
 

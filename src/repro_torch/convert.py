@@ -31,6 +31,15 @@ cast back to the config's dtype is then exact. `hybrid_cache_to_numpy`
 and `hybrid_cache_to_torch` carry the decode cache between the port's
 per-layer stacks and the reference's `group_states` / `tail_states` /
 `attn_k` / `attn_v`.
+
+For the dense decoder and the Mamba2 LM, `decoder_params_to_torch` and
+`ssm_params_to_torch` unstack the reference's `dense_layers` and
+`layers` (n_layers, ...) into one block each (the QKV bias and, where
+the embedding is tied, no `lm_head` included), under the same bfloat16
+rule. `decoder_cache_to_numpy/_to_torch` carry the K/V cache between the
+port's `{"k", "v"}` and the reference's `{"dense": {"k", "v"}}`, and
+`ssm_cache_to_numpy/_to_torch` the state between the port's stacked
+leaves and the reference's `{"states": {...}}`.
 """
 from __future__ import annotations
 
@@ -49,8 +58,9 @@ from repro_torch.flexibits.faults import FaultSpec
 from repro_torch.flexibits.cycles import CORES
 from repro_torch.flexibits.iss import ISSState, PackedState
 from repro_torch.kernels.carbon_sweep import SweepAcc
-from repro_torch.models.hybrid import (F32_LEAVES, HybridLM, split_counts,
-                                       torch_dtype)
+from repro_torch.models.hybrid import F32_LEAVES, HybridLM, split_counts
+from repro_torch.models.ssm import SSMLM
+from repro_torch.models.transformer import DecoderLM, torch_dtype
 
 _ACC_ITEM_LEAVES = ("n_instr", "n_two", "n_cycles", "halted", "out",
                     "mems", "regs", "pc", "mix_items")
@@ -165,14 +175,9 @@ def sweep_acc_to_numpy(acc: SweepAcc) -> SweepAcc:
     return SweepAcc(*(_n(x) for x in acc))
 
 
-def hybrid_params_to_torch(params, cfg, device: DeviceLike = None
-                           ) -> HybridLM:
-    """The reference's hybrid parameter pytree (nested dicts of numpy
-    arrays) -> the port's `HybridLM` on `device`."""
-    dev = resolve(device)
-    dtype = torch_dtype(cfg)
-    period, n_groups, n_tail = split_counts(cfg)
-
+def _params_to_torch(dev, dtype):
+    """Functions carrying a parameter subtree (nested dicts of numpy)
+    to torch, and taking index `idx` of every leaf of a stacked one."""
     def leaf(x, name):
         dt = torch.float32 if name in F32_LEAVES else dtype
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, dt)
@@ -184,7 +189,24 @@ def hybrid_params_to_torch(params, cfg, device: DeviceLike = None
     def take(tree, *idx):
         return {k: take(v, *idx) if isinstance(v, dict) else
                 np.asarray(v)[idx] for k, v in tree.items()}
+    return leaf, conv, take
 
+
+def _lm_params(params, layers, leaf) -> dict:
+    """The embedding, final norm and (untied) head around `layers`."""
+    out = {"embed": leaf(params["embed"], "embed"), "layers": layers,
+           "final_norm": leaf(params["final_norm"], "final_norm")}
+    if "lm_head" in params:
+        out["lm_head"] = leaf(params["lm_head"], "lm_head")
+    return out
+
+
+def hybrid_params_to_torch(params, cfg, device: DeviceLike = None
+                           ) -> HybridLM:
+    """The reference's hybrid parameter pytree (nested dicts of numpy
+    arrays) -> the port's `HybridLM` on `device`."""
+    leaf, conv, take = _params_to_torch(resolve(device), torch_dtype(cfg))
+    period, n_groups, n_tail = split_counts(cfg)
     layers = [conv(take(params["mamba_groups"], gi, j))
               for gi in range(n_groups) for j in range(period)]
     layers += [conv(take(params["mamba_tail"], j)) for j in range(n_tail)]
@@ -197,20 +219,45 @@ def hybrid_params_to_torch(params, cfg, device: DeviceLike = None
         "lm_head": leaf(params["lm_head"], "lm_head")})
 
 
+def decoder_params_to_torch(params, cfg, device: DeviceLike = None
+                            ) -> DecoderLM:
+    """The reference's dense decoder parameters (`init_decoder`'s pytree,
+    numpy) -> the port's `DecoderLM` on `device`."""
+    leaf, conv, take = _params_to_torch(resolve(device), torch_dtype(cfg))
+    layers = [conv(take(params["dense_layers"], i))
+              for i in range(cfg.n_layers)]
+    return DecoderLM(_lm_params(params, layers, leaf))
+
+
+def ssm_params_to_torch(params, cfg, device: DeviceLike = None) -> SSMLM:
+    """The reference's Mamba2 LM parameters (`init_ssm_lm`'s pytree,
+    numpy) -> the port's `SSMLM` on `device`."""
+    leaf, conv, take = _params_to_torch(resolve(device), torch_dtype(cfg))
+    layers = [conv(take(params["layers"], i)) for i in range(cfg.n_layers)]
+    return SSMLM(_lm_params(params, layers, leaf))
+
+
 _STATE_KEYS = ("ssm", "conv_x", "conv_B", "conv_C")
+
+
+def _f32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().float().numpy().copy()
+
+
+def _from_f32(x, dev, dt) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32)).to(dev, dt)
 
 
 def hybrid_cache_to_numpy(cache, cfg) -> dict:
     """The port's hybrid cache -> the reference's layout, float32 numpy."""
     period, n_groups, n_tail = split_counts(cfg)
-    f = lambda t: t.detach().cpu().float().numpy().copy()  # noqa: E731
     n_g = n_groups * period
-    out = {"group_states": {k: f(cache[k][:n_g]).reshape(
+    out = {"group_states": {k: _f32(cache[k][:n_g]).reshape(
                (n_groups, period) + tuple(cache[k].shape[1:]))
                for k in _STATE_KEYS},
-           "attn_k": f(cache["attn_k"]), "attn_v": f(cache["attn_v"])}
+           "attn_k": _f32(cache["attn_k"]), "attn_v": _f32(cache["attn_v"])}
     if n_tail:
-        out["tail_states"] = {k: f(cache[k][n_g:]) for k in _STATE_KEYS}
+        out["tail_states"] = {k: _f32(cache[k][n_g:]) for k in _STATE_KEYS}
     return out
 
 
@@ -229,6 +276,32 @@ def hybrid_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
         dt = torch.float32 if k == "ssm" else dtype
         out[k] = torch.from_numpy(np.concatenate(parts)).to(dev, dt)
     for k in ("attn_k", "attn_v"):
-        out[k] = torch.from_numpy(np.array(cache[k], np.float32)).to(
-            dev, dtype)
+        out[k] = _from_f32(cache[k], dev, dtype)
     return out
+
+
+def decoder_cache_to_numpy(cache, cfg) -> dict:
+    """The port's dense K/V cache -> the reference's layout, float32."""
+    return {"dense": {k: _f32(cache[k]) for k in ("k", "v")}}
+
+
+def decoder_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
+    """A dense cache in the reference's layout (numpy; bfloat16 leaves as
+    float32) -> the port's, on `device`."""
+    dev, dtype = resolve(device), torch_dtype(cfg)
+    return {k: _from_f32(cache["dense"][k], dev, dtype) for k in ("k", "v")}
+
+
+def ssm_cache_to_numpy(cache, cfg) -> dict:
+    """The port's Mamba2 LM state -> the reference's layout, float32."""
+    return {"states": {k: _f32(cache[k]) for k in _STATE_KEYS}}
+
+
+def ssm_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
+    """A Mamba2 LM state in the reference's layout (numpy; bfloat16
+    leaves as float32) -> the port's, on `device`: `ssm` float32, the
+    conv windows in the config's dtype."""
+    dev, dtype = resolve(device), torch_dtype(cfg)
+    return {k: _from_f32(cache["states"][k], dev,
+                         torch.float32 if k == "ssm" else dtype)
+            for k in _STATE_KEYS}

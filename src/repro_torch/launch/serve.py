@@ -1,8 +1,11 @@
 """Batched serving loop: prefill + decode with a KV cache, greedy sampling
 (a port of the reference's `launch/serve.py`).
 
-Usage (on the card; `--device cpu` runs the kernels' plain versions):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+Serves the dense (qwen2-1.5b, qwen2.5-14b, minitron-8b), hybrid
+(zamba2-7b) and ssm (mamba2-1.3b) architectures, with random parameters
+from a seed. Usage (on the card; `--device cpu` runs the kernels' plain
+versions):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --smoke --batch 4 --prompt-len 16 --gen 16
 """
 from __future__ import annotations
@@ -73,7 +76,7 @@ def generate(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-7b")
+    ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -25,15 +25,12 @@ from repro_torch.models import mamba as M
 from repro_torch.models.transformer import (DenseBlock, attn_block,
                                             embed_tokens, ffn_block, frozen,
                                             init_dense_layer, logits_fn,
-                                            padded_vocab, _gqa_layer_decode)
+                                            padded_vocab, torch_dtype,
+                                            _gqa_layer_decode)
 
 F32 = torch.float32
 # Mamba leaves the reference keeps in float32 whatever the model's dtype
 F32_LEAVES = ("A_log", "dt_bias", "D")
-
-
-def torch_dtype(cfg: ModelConfig) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
 def split_counts(cfg: ModelConfig):

@@ -1,11 +1,12 @@
-"""Core layers: norms, RoPE, GQA attention (the chunked plain version for
-prefill, the cache version for decode) and the SwiGLU MLP.
+"""Core layers: norms, RoPE, GQA attention (the plain and chunked plain
+versions for prefill, the cache version for decode), the QKV projection
+with its optional bias, and the SwiGLU MLP.
 
-A port of the reference's `models/layers.py` for the hybrid's serving
-path. All attention math accumulates in float32; parameters and
-activations are in the config's dtype. Attention avoids materialising
-repeated KV heads by computing in the grouped layout (B, Lq, Hkv, G, D).
-The reference's `shard_act` is dropped: the port runs on one device.
+A port of the reference's `models/layers.py` for the serving paths. All
+attention math accumulates in float32; parameters and activations are
+in the config's dtype. Attention avoids materialising repeated KV heads
+by computing in the grouped layout (B, Lq, Hkv, G, D). The reference's
+`shard_act` is dropped: the port runs on one device.
 """
 from __future__ import annotations
 
@@ -57,6 +58,34 @@ def _grouped(q, n_kv: int):
     return q.reshape(b, l, n_kv, h // n_kv, d)
 
 
+def attention_scores_mask(qpos, kpos, window: int, causal: bool):
+    """(Lq, Lk) additive float32 mask."""
+    ok = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                    device=qpos.device)
+    if causal:
+        ok &= kpos[None, :] <= qpos[:, None]
+    if window:
+        ok &= qpos[:, None] - kpos[None, :] < window
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def plain_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                    bidirectional=False):
+    """The reference's plain attention: every score at once, in float32.
+    q: (B, Lq, H, D), k/v: (B, Lk, Hkv, D)."""
+    b, lq, h, d = q.shape
+    n_kv = k.shape[2]
+    qg = _grouped(q, n_kv).to(F32)
+    scores = torch.einsum("blhgd,bmhd->bhglm", qg * d ** -0.5, k.to(F32))
+    if not bidirectional:
+        qpos = q_offset + torch.arange(lq, device=q.device)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        scores = scores + attention_scores_mask(qpos, kpos, window, True)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhglm,bmhd->blhgd", p, v.to(F32))
+    return out.reshape(b, lq, h, d).to(q.dtype)
+
+
 def chunked_attention(q, k, v, *, causal=True, chunk=1024):
     """Flash-style online-softmax attention over query and KV chunks with
     a running (max, denom, acc): the plain version of the prefill
@@ -102,16 +131,20 @@ def chunked_attention(q, k, v, *, causal=True, chunk=1024):
     return torch.stack(outs, dim=1).reshape(b, lq, h, d)
 
 
-def decode_attention(q, k_cache, v_cache, pos: int):
+def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
     """Single-token attention against a cache.
 
     q: (B,1,H,D); caches: (B,S,Hkv,D); pos: index of the new token.
-    Entries at kpos > pos are masked out."""
+    Entries at kpos > pos, and with a `window` those at kpos <= pos -
+    window, are masked out."""
     b, _, h, d = q.shape
     n_kv = k_cache.shape[2]
     qg = _grouped(q, n_kv).to(F32) * (d ** -0.5)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.to(F32))
-    ok = torch.arange(k_cache.shape[1], device=q.device) <= pos
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    ok = kpos <= pos
+    if window:
+        ok &= kpos > pos - window
     s = torch.where(ok, s, _neg_inf(s))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.to(F32))
@@ -121,9 +154,16 @@ def decode_attention(q, k_cache, v_cache, pos: int):
 # ---------------------------------------------------------------- blocks
 
 def attn_qkv(p, x, positions, theta):
+    """q, k, v (B, L, H or Hkv, D), q and k rotated. The QKV bias (Qwen2),
+    where `p` has one, is added after the products in the activations'
+    dtype, as the reference adds it."""
     q = torch.einsum("bld,dhk->blhk", x, p["wq"])
     k = torch.einsum("bld,dhk->blhk", x, p["wk"])
     v = torch.einsum("bld,dhk->blhk", x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
     return q, k, v

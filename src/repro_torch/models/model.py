@@ -1,7 +1,9 @@
 """Serving API of the port's models: build_model(config) -> Model with
 init/cache/prefill/decode functions, as the reference's `build_model`
-lays them out. The port serves the `hybrid` family (Zamba2); the
-reference's other families raise NotImplementedError."""
+lays them out. The port serves the `dense` (Qwen2, Qwen2.5, Minitron),
+`hybrid` (Zamba2) and `ssm` (Mamba2) families; the reference's `moe`,
+`vlm` and `audio` families raise NotImplementedError, naming the open
+item of ROADMAP.md that ports each."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,6 +11,10 @@ from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid as HY
+from repro_torch.models import ssm as SM
+from repro_torch.models import transformer as TF
+
+_UNPORTED = {"moe": "13d", "vlm": "13e", "audio": "13e"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,22 +32,56 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "hybrid":
+    fam = cfg.family
+    if fam in _UNPORTED:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the port serves the "
-            f"hybrid family (ROADMAP.md, open item 1.13)")
+            f"family {fam!r} is not ported yet: the port serves the dense, "
+            f"hybrid and ssm families (ROADMAP.md, open item "
+            f"{_UNPORTED[fam]})")
+    if fam == "dense":
+        TF.check_served(cfg)
 
-    def init_params(generator=None, device=None):
-        return HY.init_hybrid(cfg, generator, device)
+        def init_params(generator=None, device=None):
+            return TF.init_decoder(cfg, generator, device)
 
-    def init_cache(batch, seq_len, device=None):
-        return HY.hybrid_init_cache(cfg, batch, seq_len, device)
+        def init_cache(batch, seq_len, device=None):
+            return TF.init_cache(cfg, batch, seq_len, device)
 
-    def prefill_fn(params, batch, seq_len):
-        return HY.hybrid_prefill(params, cfg, batch["tokens"], seq_len)
+        def prefill_fn(params, batch, seq_len):
+            return TF.prefill(params, cfg, batch["tokens"], seq_len,
+                              patches=batch.get("patches"))
 
-    def decode_fn(params, cache, tokens, pos):
-        return HY.hybrid_decode_step(params, cfg, cache, tokens, pos)
+        def decode_fn(params, cache, tokens, pos):
+            return TF.decode_step(params, cfg, cache, tokens, pos)
+
+    elif fam == "hybrid":
+        def init_params(generator=None, device=None):
+            return HY.init_hybrid(cfg, generator, device)
+
+        def init_cache(batch, seq_len, device=None):
+            return HY.hybrid_init_cache(cfg, batch, seq_len, device)
+
+        def prefill_fn(params, batch, seq_len):
+            return HY.hybrid_prefill(params, cfg, batch["tokens"], seq_len)
+
+        def decode_fn(params, cache, tokens, pos):
+            return HY.hybrid_decode_step(params, cfg, cache, tokens, pos)
+
+    elif fam == "ssm":
+        def init_params(generator=None, device=None):
+            return SM.init_ssm_lm(cfg, generator, device)
+
+        def init_cache(batch, seq_len, device=None):
+            return SM.ssm_init_cache(cfg, batch, seq_len, device)
+
+        def prefill_fn(params, batch, seq_len):
+            return SM.ssm_prefill(params, cfg, batch["tokens"], seq_len)
+
+        def decode_fn(params, cache, tokens, pos):
+            return SM.ssm_decode_step(params, cfg, cache, tokens, pos)
+
+    else:
+        raise KeyError(f"unknown family {fam!r}")
 
     return Model(cfg, init_params, init_cache, prefill_fn, decode_fn)
 

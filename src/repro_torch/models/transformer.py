@@ -1,23 +1,40 @@
-"""What the hybrid's shared attention blocks need of the reference's
-decoder (`models/transformer.py`): the padded vocabulary, dense-layer
-init (GQA attention and SwiGLU MLP; no MLA, no MoE), embedding, logits,
-the attention and FFN blocks, and the one-token GQA layer for decode.
+"""Decoder-only LM, the dense family (Qwen2, Qwen2.5, Minitron): a port
+of the reference's `models/transformer.py` for serving, and the blocks
+the hybrid's shared attention reuses.
 
-The hybrid's configs have no QKV bias and untied embeddings, so neither
-is ported. A block's parameters are a `DenseBlock` module; its prefill
-attention runs through `kernels/ops.gqa_flash_attention` (the
-`flash_attention` kernel on the card, its plain version on the CPU) at
-the tile the reference's chunked attention uses, `min(cfg.attn_chunk,
-L)`.
+The model is a `DecoderLM` module: `embed`, `layers` (one `DenseBlock`
+per layer: the reference's `dense_layers` stacked on a leading layer
+axis, unstacked), `final_norm`, and `lm_head` only when the embedding is
+not tied (tied: the logits use `embed.T`). The cache keeps every layer's
+K and V stacked on a leading layer axis, (n_layers, B, S, Hkv, D), as the
+reference's does; prefill fills a preallocated cache and decode updates
+it in place. Layers run in a Python loop (`scan_layers_carry` has the
+reference's `unroll=True` semantics; torch has no scan).
+
+Prefill attention runs through `kernels/ops.gqa_flash_attention`: the
+`flash_attention` kernel on the card, its plain version on the CPU, at
+the tile of the reference's chunked attention, `min(cfg.attn_chunk, L)`.
+`cfg.attn_impl` and `cfg.prefill_triangle_skip` pick among the
+reference's jnp forms of that one function (plain, chunked over every KV
+tile, chunked up to the diagonal); on the card every one of them runs
+the kernel, which stops at the diagonal as the reference's Pallas kernel
+does. On the CPU `attn_impl="plain"` runs `layers.plain_attention`, the
+rest the kernel's plain version. Decode is plain torch, as in the
+reference.
+
+Not served yet, each raising NotImplementedError with its open item of
+ROADMAP.md: local:global windows (`window`, `global_every` > 1: 13c),
+MoE, MLA and multi-token prediction (13d), prepended patches (13e).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -29,6 +46,10 @@ def padded_vocab(v: int) -> int:
     return -(-v // VOCAB_PAD) * VOCAB_PAD
 
 
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+
+
 def frozen(params: Dict[str, torch.Tensor]) -> nn.ParameterDict:
     """A ParameterDict of inference-only parameters."""
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
@@ -36,9 +57,9 @@ def frozen(params: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class DenseBlock(nn.Module):
-    """One attention + MLP block: `ln1`, `attn` {wq, wk, wv, wo}, `ln2`,
-    `mlp` {wi, wg, wo}, as the reference's `init_dense_layer` lays them
-    out."""
+    """One attention + MLP block: `ln1`, `attn` {wq, wk, wv, wo, and
+    bq, bk, bv with a QKV bias}, `ln2`, `mlp` {wi, wg, wo}, as the
+    reference's `init_dense_layer` lays them out."""
 
     def __init__(self, params: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
@@ -48,10 +69,47 @@ class DenseBlock(nn.Module):
         self.mlp = frozen(params["mlp"])
 
 
+class DecoderLM(nn.Module):
+    """The dense decoder's parameters (inference only)."""
+
+    def __init__(self, params: Dict):
+        super().__init__()
+        self.embed = nn.Parameter(params["embed"], requires_grad=False)
+        self.layers = nn.ModuleList(DenseBlock(p) for p in params["layers"])
+        self.final_norm = nn.Parameter(params["final_norm"],
+                                       requires_grad=False)
+        if "lm_head" in params:
+            self.lm_head = nn.Parameter(params["lm_head"],
+                                        requires_grad=False)
+
+
+def check_served(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for what the dense decoder does not
+    serve yet, naming the open item of ROADMAP.md that ports it."""
+    if cfg.window or (cfg.global_every or 1) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: local:global attention (window {cfg.window}, "
+            f"global_every {cfg.global_every}) is not ported yet: the "
+            f"chunked window path (ROADMAP.md, open item 13c)")
+    for what in ("moe", "mla", "use_mtp"):
+        if getattr(cfg, what):
+            raise NotImplementedError(
+                f"{cfg.name}: {what} is not ported yet (ROADMAP.md, open "
+                f"item 13d)")
+
+
+def _no_patches(patches) -> None:
+    if patches is not None:
+        raise NotImplementedError("prepended patches (the VLM family) are "
+                                  "not ported yet (ROADMAP.md, open item "
+                                  "13e)")
+
+
 def init_dense_layer(cfg: ModelConfig, dtype, generator, device
                      ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Random parameters at the reference's scales (its `init_attn` and
-    `init_mlp`), drawn from `generator` on `device`."""
+    """Random parameters at the reference's scales (its `init_attn`, with
+    the QKV bias's zeros where `cfg.qkv_bias`, and `init_mlp`), drawn
+    from `generator` on `device`."""
     d, h, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd, ff = cfg.resolved_head_dim, cfg.d_ff
 
@@ -66,18 +124,51 @@ def init_dense_layer(cfg: ModelConfig, dtype, generator, device
             "wk": mat((d, hkv, hd), d ** -0.5),
             "wv": mat((d, hkv, hd), d ** -0.5),
             "wo": mat((h, hd, d), d ** -0.5)}
+    if cfg.qkv_bias:
+        attn.update(bq=zeros(h, hd), bk=zeros(hkv, hd), bv=zeros(hkv, hd))
     return {"ln1": zeros(d), "attn": attn, "ln2": zeros(d),
             "mlp": {"wi": mat((d, ff), d ** -0.5),
                     "wg": mat((d, ff), d ** -0.5),
                     "wo": mat((ff, d), ff ** -0.5)}}
 
 
+def init_decoder(cfg: ModelConfig,
+                 generator: Optional[torch.Generator] = None,
+                 device: DeviceLike = None) -> DecoderLM:
+    """Random parameters at the reference's scales, drawn on the device
+    from `generator` (a fresh one seeded 0 when None). Each matrix is
+    drawn in float32 and cast, so the largest transient is the float32
+    embedding."""
+    check_served(cfg)
+    dev = resolve(device)
+    g = generator if generator is not None else \
+        torch.Generator(device=dev).manual_seed(0)
+    dtype = torch_dtype(cfg)
+    vp = padded_vocab(cfg.vocab)
+
+    def mat(shape, scale):
+        return (torch.randn(shape, generator=g, device=dev, dtype=F32)
+                * scale).to(dtype)
+
+    params = {"embed": mat((vp, cfg.d_model), cfg.d_model ** -0.5),
+              "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
+                                        device=dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = mat((cfg.d_model, vp), cfg.d_model ** -0.5)
+    params["layers"] = [init_dense_layer(cfg, dtype, g, dev)
+                        for _ in range(cfg.n_layers)]
+    return DecoderLM(params)
+
+
+# ------------------------------------------------------------------ blocks
+
 def embed_tokens(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens]
 
 
 def logits_fn(model: nn.Module, cfg: ModelConfig, h: torch.Tensor):
-    logits = torch.einsum("bld,dv->blv", h, model.lm_head)
+    w = model.embed.T if cfg.tie_embeddings else model.lm_head
+    logits = torch.einsum("bld,dv->blv", h, w)
     vp = padded_vocab(cfg.vocab)
     if vp != cfg.vocab:
         mask = torch.arange(vp, device=h.device) < cfg.vocab
@@ -85,12 +176,33 @@ def logits_fn(model: nn.Module, cfg: ModelConfig, h: torch.Tensor):
     return logits
 
 
-def attn_block(p: DenseBlock, cfg: ModelConfig, h, *, positions):
+def _window_for(cfg: ModelConfig, idx_in_group: int) -> int:
+    """gemma3 pattern: positions 0..g-2 local, g-1 global."""
+    g = cfg.global_every or 1
+    if g == 1 or cfg.window == 0:
+        return 0
+    return cfg.window if idx_in_group < g - 1 else 0
+
+
+def _self_attention(p: DenseBlock, cfg: ModelConfig, h, positions,
+                    window: int = 0):
+    """The attention half of a block: (h + attention, k, v), k rotated
+    as the cache keeps it."""
+    if window:
+        raise NotImplementedError("windowed prefill attention is not "
+                                  "ported yet (ROADMAP.md, open item 13c)")
     x = L.rms_norm(h, p.ln1, cfg.rms_eps)
     q, k, v = L.attn_qkv(p.attn, x, positions, cfg.rope_theta)
-    o = ops.gqa_flash_attention(q, k, v, causal=True, tq=cfg.attn_chunk,
-                                tk=cfg.attn_chunk, device=h.device)
-    return h + L.attn_out(p.attn, o)
+    if cfg.attn_impl == "plain" and h.device.type == "cpu":
+        o = L.plain_attention(q, k, v, causal=True)
+    else:
+        o = ops.gqa_flash_attention(q, k, v, causal=True, tq=cfg.attn_chunk,
+                                    tk=cfg.attn_chunk, device=h.device)
+    return h + L.attn_out(p.attn, o), k, v
+
+
+def attn_block(p: DenseBlock, cfg: ModelConfig, h, *, positions):
+    return _self_attention(p, cfg, h, positions)[0]
 
 
 def ffn_block(p: DenseBlock, cfg: ModelConfig, h):
@@ -98,8 +210,42 @@ def ffn_block(p: DenseBlock, cfg: ModelConfig, h):
     return h + L.mlp(p.mlp, x)
 
 
+# ----------------------------------------------------------------- forward
+
+def decoder_hidden(model: DecoderLM, cfg: ModelConfig, h, positions):
+    """Run all layers over h: (B, L, D). Returns (h, aux loss sum): the
+    aux loss is the MoE router's, 0.0 for the dense family."""
+    g = cfg.global_every or 1
+    for i, p in enumerate(model.layers):
+        h = _self_attention(p, cfg, h, positions, _window_for(cfg, i % g))[0]
+        h = ffn_block(p, cfg, h)
+    return h, 0.0
+
+
+def decoder_forward(model: DecoderLM, cfg: ModelConfig, tokens,
+                    patches=None):
+    """The full forward (no cache): (final-normed hidden states, aux)."""
+    _no_patches(patches)
+    h = embed_tokens(model, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    h, aux = decoder_hidden(model, cfg, h, positions)
+    return L.rms_norm(h, model.final_norm, cfg.rms_eps), aux
+
+
+# ------------------------------------------------------------------ decode
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Zero K and V caches, (n_layers, B, seq_len, Hkv, D) each."""
+    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    dev = resolve(device)
+    return {k: torch.zeros(shape, dtype=torch_dtype(cfg), device=dev)
+            for k in ("k", "v")}
+
+
 def _gqa_layer_decode(p: DenseBlock, cfg: ModelConfig, h, k_cache,
-                      v_cache, pos: int):
+                      v_cache, pos: int, window: int = 0):
     """One token through an attention + MLP block. Writes the token's K
     and V into `k_cache`/`v_cache` (B, S, Hkv, D) at `pos` in place."""
     x = L.rms_norm(h, p.ln1, cfg.rms_eps)
@@ -107,6 +253,56 @@ def _gqa_layer_decode(p: DenseBlock, cfg: ModelConfig, h, k_cache,
     q, k, v = L.attn_qkv(p.attn, x, positions, cfg.rope_theta)
     k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
-    o = L.decode_attention(q, k_cache, v_cache, pos)
+    o = L.decode_attention(q, k_cache, v_cache, pos, window=window)
     h = h + L.attn_out(p.attn, o)
     return ffn_block(p, cfg, h)
+
+
+def scan_layers_carry(body, h, layers, state: Dict[str, torch.Tensor]):
+    """Iterate layers with the decode state carried: `state` holds each
+    leaf stacked on a leading layer axis, and body(h, layer, state_l) ->
+    (h, new_state_l) gets layer li's views. A leaf the body returns as
+    the view it was given was updated in place; any other is written
+    into its layer's slot, cast to the leaf's dtype."""
+    for li, p in enumerate(layers):
+        state_l = {k: s[li] for k, s in state.items()}
+        h, new_l = body(h, p, state_l)
+        for k, s in new_l.items():
+            if s is not state_l[k]:
+                state[k][li] = s
+    return h, state
+
+
+def decode_step(model: DecoderLM, cfg: ModelConfig, cache, tokens,
+                pos: int):
+    """tokens: (B, 1) at position `pos`. Updates `cache` in place and
+    returns (logits (B, 1, V), cache)."""
+    h = embed_tokens(model, tokens)
+
+    def body(h, p, c):
+        return _gqa_layer_decode(p, cfg, h, c["k"], c["v"], pos), c
+
+    h, cache = scan_layers_carry(body, h, model.layers, cache)
+    h = L.rms_norm(h, model.final_norm, cfg.rms_eps)
+    return logits_fn(model, cfg, h), cache
+
+
+def prefill(model: DecoderLM, cfg: ModelConfig, tokens, seq_len: int,
+            patches=None):
+    """Forward the prompt into a preallocated cache of capacity
+    `seq_len`, each layer writing the K and V its attention used.
+    Returns (last-position logits (B, 1, V), cache)."""
+    _no_patches(patches)
+    h = embed_tokens(model, tokens)
+    b, l, _ = h.shape
+    positions = torch.arange(l, device=h.device)[None, :]
+    cache = init_cache(cfg, b, seq_len, h.device)
+    g = cfg.global_every or 1
+    for i, p in enumerate(model.layers):
+        h, k, v = _self_attention(p, cfg, h, positions,
+                                  _window_for(cfg, i % g))
+        cache["k"][i, :, :l] = k
+        cache["v"][i, :, :l] = v
+        h = ffn_block(p, cfg, h)
+    h = L.rms_norm(h, model.final_norm, cfg.rms_eps)
+    return logits_fn(model, cfg, h[:, -1:]), cache

@@ -32,7 +32,7 @@ def test_quickstart_runs_on_the_cpu(capsys):
     want = int(fs.ref(x[None])[0])
     assert out[2].startswith(f"[iss] spoilage class={want} (ref={want}) "
                              f"in {sim.n_instr} instrs on cpu")
-    assert out[3].startswith("[lm] zamba2-7b smoke config")
+    assert out[3].startswith("[lm] qwen2-1.5b smoke config")
 
 
 def test_carbon_planner_runs_on_the_cpu(capsys):

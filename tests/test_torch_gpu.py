@@ -539,6 +539,39 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, shape):
 
 
 _LONG_CHUNK = (1, 1, 3072, 128, 128, 3072, 1)
+# Mamba2-1.3B's prefill of 8 x 512 tokens: 64 heads of P 64 sharing one
+# group's B and C of N 128, chunk 256
+_MAMBA2_SHAPE = (8, 64, 512, 64, 128, 256, 1)
+
+
+def test_ssd_scan_bf16_mamba2_shape(cuda):
+    """The bfloat16 kernel at N 128 with 64 heads a group: C B^T and the
+    (N, P) state tiles twice Zamba2's N 64."""
+    _ssd_case(cuda, torch.bfloat16, _MAMBA2_SHAPE)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gqa_flash_attention_d128_group5(cuda, dtype):
+    """`ops.gqa_flash_attention` at D 128 with 5 query heads a KV head
+    (Qwen2.5-14B's grouping; 10 heads here), one 512-row tile, against
+    the plain version on the repeated heads."""
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ops
+    b, l, h, hkv, d = 2, 512, 10, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(128)
+    q = _rand(g, (b, l, h, d), dtype, cuda)
+    k, v = (_rand(g, (b, l, hkv, d), dtype, cuda) for _ in range(2))
+    got = ops.gqa_flash_attention(q, k, v, causal=True, tq=l, tk=l,
+                                  device=cuda)
+    torch.cuda.synchronize()
+
+    def flat(t):
+        return t.repeat_interleave(h // t.shape[2], dim=2).transpose(
+            1, 2).reshape(b * h, l, d)
+    want = pfa.flash_attention_plain(flat(q), flat(k), flat(v), causal=True,
+                                     tq=l, tk=l)
+    assert got.dtype == dtype and got.shape == q.shape
+    _lm_close(got.transpose(1, 2).reshape(b * h, l, d), want, dtype)
 
 
 def test_ssd_scan_bf16_long_chunk(cuda):
@@ -657,6 +690,41 @@ def test_bitplane_kernel_ragged_against_the_block_tile(cuda, dtype, bits):
         w_q = pbp.bitplane_repack(planes, bits=bits, device=cuda)
         assert torch.equal(pbp.bitplane_gemm(x, w_q, scales, device=cuda),
                            got)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen2.5-14b", "minitron-8b",
+                                  "mamba2-1.3b"])
+def test_dense_and_ssm_smoke_serve_on_card_match_cpu(cuda, arch):
+    """The dense and Mamba2 smoke configs in float32 with the same
+    parameters on the card (the kernels) and on the CPU (the plain
+    versions): one flash_attention launch per dense layer, one ssd_scan
+    per Mamba2 layer, no plain call on the card."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ssd_scan as pss
+    from repro_torch.models.model import build_model
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    card = model.init_params(torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)))
+    pfa.reset_counts()
+    pss.reset_counts()
+    with torch.inference_mode():
+        lc, cc = model.prefill_fn(card, {"tokens": toks.to(cuda)}, 70)
+        dc, _ = model.decode_fn(card, cc, toks[:, :1].to(cuda), 64)
+    on_card = (pfa.flash_attention.launches, pss.ssd_scan.launches,
+               pfa.flash_attention.plain_calls, pss.ssd_scan.plain_calls)
+    with torch.inference_mode():
+        lp, cp = model.prefill_fn(cpu, {"tokens": toks}, 70)
+        dp, _ = model.decode_fn(cpu, cp, toks[:, :1], 64)
+    n = cfg.n_layers
+    assert on_card == ((0, n) if cfg.family == "ssm" else (n, 0)) + (0, 0)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(dc.cpu(), dp, rtol=1e-3, atol=1e-3)
 
 
 def test_smoke_serve_on_card_matches_cpu(cuda):

@@ -61,7 +61,12 @@ _SLICE_MODULES = ("repro_torch.fleet.engine",
                   "repro_torch.flexibits.fleet",
                   "repro_torch.core.planner", "repro_torch.core.scale",
                   "repro_torch.flexibench.spoilage_algos",
-                  "repro_torch.tools.flexilint")
+                  "repro_torch.tools.flexilint",
+                  "repro_torch.configs.qwen2_1_5b",
+                  "repro_torch.configs.qwen2_5_14b",
+                  "repro_torch.configs.minitron_8b",
+                  "repro_torch.configs.mamba2_1_3b",
+                  "repro_torch.models.ssm")
 
 
 def test_port_imports_with_jax_and_the_reference_blocked():
@@ -237,10 +242,15 @@ def test_lm_entry_points_default_to_the_card():
     from repro_torch.launch import serve
     from repro_torch.models.model import build_model
     cfg = get_smoke_config("zamba2-7b")
+    dense, ssm = (get_smoke_config(a) for a in ("qwen2-1.5b", "mamba2-1.3b"))
     q = torch.zeros((1, 8, 16))
     planes = torch.zeros((4, 128, 128), dtype=torch.int8)
     calls = [
         lambda: serve.generate(cfg, batch=1, prompt_len=4, gen=2),
+        lambda: serve.generate(dense, batch=1, prompt_len=4, gen=2),
+        lambda: serve.generate(ssm, batch=1, prompt_len=4, gen=2),
+        lambda: build_model(dense).init_cache(1, 8),
+        lambda: build_model(ssm).init_params(),
         lambda: build_model(cfg).init_params(),
         lambda: build_model(cfg).init_cache(1, 8),
         lambda: pfa.flash_attention(q, q, q, tq=8, tk=8),
@@ -256,6 +266,31 @@ def test_lm_entry_points_default_to_the_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA card"):
             call()
+
+
+_SERVED = ("qwen2-1.5b", "qwen2.5-14b", "minitron-8b", "mamba2-1.3b",
+           "zamba2-7b")
+_STILL_UNPORTED = {"gemma3-12b": "13c", "qwen2-moe-a2.7b": "13d",
+                   "deepseek-v3-671b": "13d", "llava-next-34b": "13e",
+                   "whisper-tiny": "13e"}
+
+
+@pytest.mark.parametrize("arch", _SERVED + tuple(_STILL_UNPORTED))
+def test_arch_ids_resolve_or_name_their_item(arch):
+    """The five served ids resolve to the reference's full and smoke
+    configs (the port's copies); the other five raise
+    NotImplementedError naming their open item."""
+    from repro_torch.configs import registry
+    if arch in _STILL_UNPORTED:
+        for fn in (registry.get_config, registry.get_smoke_config):
+            with pytest.raises(NotImplementedError,
+                               match=f"open item {_STILL_UNPORTED[arch]}"):
+                fn(arch)
+        return
+    cfg = registry.get_config(arch)
+    assert cfg.name == arch and cfg.family in ("dense", "ssm", "hybrid")
+    assert registry.get_smoke_config(arch).name == arch
+    assert arch in registry.ARCH_IDS
 
 
 @pytest.mark.parametrize("what", ["refill_host", "checkpoint",

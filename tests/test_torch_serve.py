@@ -2,16 +2,16 @@
 `launch/serve.py`) against the reference on the Zamba2 smoke config,
 with the reference's parameters carried across by `convert`.
 
-Tolerances: float32 (the algorithm; the port and the reference differ
-only in the order of sums and in the chunking of the SSD scan and the
-attention) 1e-4. bfloat16 at the reference's own cross-path tolerance,
-rtol 6e-2 and atol 8e-2 (`tests/test_consistency.py`), against the
-reference's float32 answer on the same bfloat16-valued parameters: the
-port and the reference round in different places, and each side's
-rounding alone moves the smoke model's logits by about 0.1 (the
-reference's own bfloat16 run breaks that tolerance against its float32
-answer at one of 512 logits), so the two bfloat16 runs are held to
-twice it of each other.
+Tolerances (`_torch_lm_ref`): float32 (the algorithm; the port and the
+reference differ only in the order of sums and in the chunking of the
+SSD scan and the attention) 1e-4. bfloat16 at the reference's own
+cross-path tolerance, rtol 6e-2 and atol 8e-2 (`tests/test_consistency.py`),
+against the reference's float32 answer on the same bfloat16-valued
+parameters: the port and the reference round in different places, and
+each side's rounding alone moves the smoke model's logits by about 0.1
+(the reference's own bfloat16 run breaks that tolerance against its
+float32 answer at one of 512 logits), so the two bfloat16 runs are held
+to twice it of each other.
 """
 import json
 import os
@@ -20,15 +20,16 @@ import subprocess
 import sys
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import AxisType
 
+from _torch_lm_ref import (TOL, auto_mesh, check as _check,
+                           check_tree as _check_tree,
+                           ref_params as _ref_params, ref_run as _ref_run,
+                           to_np as _np)
 from repro.configs.registry import get_smoke_config as ref_smoke_config
 from repro.launch import serve as rserve
-from repro.models.model import build_model as ref_build_model
 from repro_torch import convert
 from repro_torch.configs import registry
 from repro_torch.kernels import flash_attention as pfa
@@ -39,8 +40,6 @@ from repro_torch.models.model import build_model, count_params
 from repro_torch.models.transformer import logits_fn
 
 _ROOT = pathlib.Path(__file__).resolve().parent.parent
-TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
-       "bfloat16": dict(rtol=6e-2, atol=8e-2)}
 # the smoke config (9 layers: 3 groups of 3, no tail) and one with a
 # one-layer Mamba tail after its groups, as the full model's 81 = 13 x 6
 # + 3
@@ -51,87 +50,6 @@ def _configs(dtype, which):
     kw = dict(dtype=dtype, remat=False, **CONFIGS[which])
     return (ref_smoke_config("zamba2-7b").replace(**kw),
             registry.get_smoke_config("zamba2-7b").replace(**kw))
-
-
-def _np(x):
-    if isinstance(x, torch.Tensor):
-        return x.detach().float().numpy()
-    return np.asarray(jnp.asarray(x).astype(jnp.float32))
-
-
-def _ref_params(rcfg, seed=0):
-    params = ref_build_model(rcfg).init_params(jax.random.key(seed))
-    return params, jax.tree.map(_np, params)
-
-
-def _ref_run(rcfg, pnp, toks, l, cap, steps, cache=None):
-    """The reference's prefill on toks[:, :l] (or `cache`, in the
-    reference's layout as numpy) and `steps` decode steps after it, with
-    the parameters `pnp` (numpy) cast to rcfg's dtype. Returns the
-    prefill logits, each decode step's logits and the caches after
-    prefill and after the last step, as float32 numpy."""
-    rm = ref_build_model(rcfg)
-    dt = jnp.dtype(rcfg.dtype)
-    params = _with_f32_leaves(
-        jax.tree.map(lambda x: jnp.asarray(x).astype(dt), pnp), pnp)
-    lp = None
-    if cache is None:
-        lp, cache = rm.prefill_fn(params, {"tokens": jnp.asarray(
-            toks[:, :l], jnp.int32)}, cap)
-        lp = _np(lp)
-    else:
-        cache = jax.tree.map(lambda x: jnp.asarray(x).astype(dt), cache)
-        cache = _with_f32_ssm(cache)
-    cache0 = jax.tree.map(_np, cache)
-    lds = []
-    for i in range(steps):
-        pos = l + i
-        ld, cache = rm.decode_fn(params, cache, jnp.asarray(
-            toks[:, pos:pos + 1], jnp.int32), jnp.int32(pos))
-        lds.append(_np(ld))
-    return lp, lds, cache0, jax.tree.map(_np, cache)
-
-
-def _with_f32_leaves(params, pnp):
-    """The Mamba leaves the reference keeps in float32 whatever the
-    model's dtype (A_log, dt_bias, D)."""
-    def fix(tree, ref):
-        return {k: fix(v, ref[k]) if isinstance(v, dict) else
-                (jnp.asarray(ref[k], jnp.float32) if k in HY.F32_LEAVES
-                 else v) for k, v in tree.items()}
-    return fix(params, pnp)
-
-
-def _with_f32_ssm(cache):
-    def fix(tree):
-        return {k: fix(v) if isinstance(v, dict) else
-                (v.astype(jnp.float32) if k == "ssm" else v)
-                for k, v in tree.items()}
-    return fix(cache)
-
-
-def _check(port, ref_same, ref_f32, dtype):
-    """float32: the port against the reference, tight. bfloat16: the
-    port against the reference's float32 answer on the same
-    (bfloat16-valued) parameters, at the reference's tolerance; and
-    against the reference's own bfloat16 run, which rounds in other
-    places, at twice it (each side within the tolerance of the float32
-    answer puts them within twice it of each other)."""
-    if dtype == "float32":
-        np.testing.assert_allclose(port, ref_same, **TOL[dtype])
-        return
-    tol = TOL[dtype]
-    np.testing.assert_allclose(port, ref_f32, **tol)
-    np.testing.assert_allclose(port, ref_same, rtol=2 * tol["rtol"],
-                               atol=2 * tol["atol"])
-
-
-def _check_tree(port, ref_same, ref_f32, dtype):
-    for k in ref_same:
-        if isinstance(ref_same[k], dict):
-            _check_tree(port[k], ref_same[k], ref_f32[k], dtype)
-        else:
-            _check(port[k], ref_same[k], ref_f32[k], dtype)
 
 
 @pytest.mark.parametrize("which", sorted(CONFIGS))
@@ -190,9 +108,8 @@ def test_generate_matches_reference():
     under JAX 0.9, which its `shard_act` refuses)."""
     rcfg, cfg = _configs("float32", "smoke")
     params, pnp = _ref_params(rcfg)
-    mesh = jax.make_mesh((1, 1), ("data", "model"),
-                         axis_types=(AxisType.Auto,) * 2)
-    want, _ = rserve.generate(rcfg, batch=2, prompt_len=32, gen=6, mesh=mesh,
+    want, _ = rserve.generate(rcfg, batch=2, prompt_len=32, gen=6,
+                              mesh=auto_mesh(),
                               params=params, log=lambda *a: None)
     got, stats = serve.generate(
         cfg, batch=2, prompt_len=32, gen=6, device="cpu",
@@ -271,16 +188,20 @@ def test_init_has_the_reference_layout_and_scales():
 
 
 def test_unported_archs_and_families_raise():
+    """The archs and families still to port raise, naming their open
+    item; the dense and SSM archs this slice ports resolve."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_config("qwen2-1.5b")
+        registry.get_config("gemma3-12b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_smoke_config("mamba2-1.3b")
+        registry.get_smoke_config("whisper-tiny")
     with pytest.raises(KeyError):
         registry.get_config("no-such-arch")
     cfg = registry.get_smoke_config("zamba2-7b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg.replace(family="dense"))
+        build_model(cfg.replace(family="moe"))
     assert registry.get_config("zamba2-7b").n_layers == 81
+    assert registry.get_config("qwen2-1.5b").family == "dense"
+    assert registry.get_smoke_config("mamba2-1.3b").family == "ssm"
 
 
 def test_serve_cli_on_the_cpu():
