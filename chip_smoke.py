@@ -188,6 +188,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    both bfloat16 paths drift from float32 past the smoke configs'
    elementwise tolerance, as the reference's own bfloat16 run does).
    Each model is freed before the next.
+21. training: (a) the `flash_attention_bwd` kernel (and the forward's
+   log-sum-exp) against its plain version at Qwen2-1.5B's training
+   shape (BH 8 x 12 = 96, L 512, D 128, tile 512), causal, in float32
+   and bfloat16, and at tq != tk both ways and causal=False, every
+   gradient within `LM_TOL`; the bfloat16 causal case timed beside the
+   plain version, SDPA's backward ((forward + backward) - forward) and
+   the bound; (b) Qwen2-1.5B at full width and depth (1,543,910,912
+   bfloat16 parameters from a seed, remat on), five `train_loop` steps
+   with AdamW at 8 x 512 tokens from `data/pipeline.py` (cut: the step
+   count): finite losses, the median step of steps 2-5, train tokens/s,
+   6 N tokens over the step time against the bfloat16 peak, peak memory,
+   56 flash forwards (with the remat recompute) and 28 backwards a step
+   and no plain call; then one more step under torch.profiler; (c) the
+   smoke config in float32 from the same parameters, card against CPU, 3
+   steps at grad_accum 1 and 2 (losses and gnorms within 1e-4 relative,
+   parameters within 2 x the summed learning rates), and 11 card steps
+   whose loss at step 10 is below step 0's; (d) the smoke config 6 steps
+   uninterrupted against 3 steps, a checkpoint (into the git-ignored
+   `build/chip_smoke_train_ckpt/`, removed after) and a resumed
+   `train_loop` to 6: losses, parameters, m and v bit for bit.
 
 It ends with a `kernels:` line of launch counts, one JSON line
 `{"kernels": [...]}` with an entry per kernel (times, bound, launches,
@@ -197,7 +217,8 @@ drawn build launched on phase 9's path and build (a) on none; the
 bit-plane kernel's launches are phase 15's quantized path; phase 19's
 launches are added to the segment kernel's, the refill kernel's, the
 drawn sweep's, flash's and the scan's, and phase 20's full serves' to
-flash's and the scan's), the card's nvidia-smi line, and
+flash's and the scan's; `flash_attention_bwd`'s are phase 21(b)'s five
+steps plus the quickstart's), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
 held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
@@ -1795,12 +1816,13 @@ def phase_small_serve(dev):
 
 
 def device_time_by_layer(tag, rows):
-    """Log the profiled device time of an LM serve by layer; returns the
-    rows that are kernels (not aten:: ops, which repeat their kernels'
-    time)."""
+    """Log the profiled device time of an LM serve or train step by
+    layer; returns the rows that are kernels (not aten:: ops, which
+    repeat their kernels' time)."""
     kernels = [r for r in rows if r.self_device_time_total > 0
                and not r.key.startswith("aten::")]
     groups = {"ssd_scan kernel": 0.0, "flash_attention kernel": 0.0,
+              "flash_attention_bwd kernels": 0.0,
               "matrix products (cuBLAS)": 0.0, "copies and casts": 0.0,
               "other elementwise and reductions": 0.0}
     for r in kernels:
@@ -1809,6 +1831,8 @@ def device_time_by_layer(tag, rows):
             g = "ssd_scan kernel"
         elif "flash_fwd" in k:
             g = "flash_attention kernel"
+        elif "flash_bwd" in k:
+            g = "flash_attention_bwd kernels"
         elif "nvjet" in k or "gemm" in k.lower() or "cutlass" in k:
             g = "matrix products (cuBLAS)"
         elif "copy" in k or "emcpy" in k or "emset" in k:
@@ -2606,9 +2630,13 @@ def run_example(name, argv):
            SWEEP[0]: cs.sweep_tile, SWEEP_DRAWN[0]: cs.sweep_tile_drawn,
            FLASH[0]: pfa.flash_attention, SSD[0]: pss.ssd_scan}
     plain = {k: f.plain_calls for k, f in fns.items() if f.plain_calls}
+    if pfa.flash_attention.bwd_plain_calls:
+        plain[FLASH_BWD[0]] = pfa.flash_attention.bwd_plain_calls
     if plain:
         raise AssertionError(f"{name} {argv}: plain calls {plain}")
-    return out, wall, {k: f.launches for k, f in fns.items()}
+    launches = {k: f.launches for k, f in fns.items()}
+    launches[FLASH_BWD[0]] = pfa.flash_attention.bwd_launches
+    return out, wall, launches
 
 
 def phase_examples(dev):
@@ -3046,6 +3074,285 @@ def phase_dense_ssm(dev):
     return total
 
 
+# ------------------------------------------------------------- phase 21
+FLASH_BWD = ("flash_attention_bwd",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:61")
+# the training cell: Qwen2-1.5B at full width and depth, 5 AdamW steps
+# of 8 x 512 tokens from data/pipeline.py, remat on (the config's)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen2-1.5b", 8, 512, 5
+# 21(c): the smoke config card against CPU: steps, and the steps of the
+# card's run whose loss must fall
+SMOKE_TRAIN_STEPS, SMOKE_FALL_STEPS = 3, 10
+SMOKE_TRAIN_LR = {"warmup": 1}
+
+
+def flash_bwd_bound(q, tq, tk, causal):
+    """Bytes (q, k, v, o, dO and lse read once, dq, dk, dv written once)
+    and operations (five products, S, dP, dV, dQ, dK, over the (query,
+    key) pairs the forward uses) over the card's peaks, ms."""
+    bh, l, d = q.shape
+    _, fwd_ms = flash_bound(q, tq, tk, causal)           # two products
+    nbytes = 8 * q.numel() * q.element_size() + bh * l * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, fwd_ms * 5 / 2
+
+
+def phase_flash_bwd(dev, rec):
+    """21(a): the backward kernel against its plain version at the
+    training shape (Qwen2-1.5B: B 8 x 12 heads, L 512, D 128, tile 512),
+    causal, in float32 and bfloat16, and at tq != tk and causal=False;
+    every gradient within LM_TOL; the bfloat16 causal case timed beside
+    the plain version, SDPA's backward and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as pfa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    bh, l, d = TRAIN_BATCH * cfg.n_heads, TRAIN_SEQ, cfg.resolved_head_dim
+    t = min(cfg.attn_chunk, l)
+    g = torch.Generator(device=dev).manual_seed(21)
+    cases = [(torch.float32, True, t, t), (torch.bfloat16, True, t, t),
+             (torch.bfloat16, True, 128, 256), (torch.bfloat16, True, 256, 64),
+             (torch.bfloat16, False, t, t), (torch.float32, False, 128, 256)]
+    for dtype, causal, tq, tk in cases:
+        q, k, v, do = ((torch.randn((bh, l, d), generator=g, device=dev))
+                       .to(dtype) for _ in range(4))
+        o, lse = pfa._forward(q, k, v, causal, tq, tk, dev, True)
+        po, plse = pfa.flash_attention_plain(q, k, v, causal=causal, tq=tq,
+                                             tk=tk, return_lse=True)
+        what = f"BH {bh} x L {l} x D {d} {dtype}, causal {causal}, tq {tq}, " \
+               f"tk {tk}"
+        lm_err(o, po, f"flash forward {what}")
+        lm_err(lse, plse, f"flash log-sum-exp {what}", LM_TOL["float32"])
+        got = pfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                      tq=tq, tk=tk, device=dev)
+        torch.cuda.synchronize()
+        want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                             causal=causal, tq=tq, tk=tk)
+        errs = [lm_err(a, b, f"flash backward d{n} {what}")
+                for n, a, b in zip("qkv", got, want)]
+        log(f"[train] flash_attention_bwd {what}: max |kernel - plain| dq "
+            f"{errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g} (within "
+            f"{LM_TOL[str(dtype)[6:]]} x max(1, largest |gradient|))")
+        if (dtype, causal, tq, tk) != (torch.bfloat16, True, t, t):
+            continue
+        qs, ks, vs = (x[None].detach().requires_grad_() for x in (q, k, v))
+        do4 = do[None]
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            torch.autograd.grad(out, (qs, ks, vs), do4)
+        lib = timed(sdpa_fwd_bwd, 20) - timed(sdpa_fwd, 20)
+        record(rec, FLASH_BWD[0],
+               timed(lambda: pfa.flash_attention_bwd(
+                   q, k, v, o, do, lse, causal=True, tq=t, tk=t,
+                   device=dev), 20),
+               timed(lambda: pfa.flash_attention_bwd_plain(
+                   q, k, v, o, do, lse, causal=True, tq=t, tk=t), 3),
+               max(errs), flash_bwd_bound(q, t, t, True), lib,
+               f"BH {bh} x L {l} x D {d} bfloat16, causal, tile {t} "
+               f"(library: SDPA's forward + backward minus its forward)")
+    torch.cuda.empty_cache()
+
+
+def phase_train_full(dev):
+    """21(b): Qwen2-1.5B at full width and depth, five `train_loop` steps
+    with AdamW at 8 x 512 (parameters and data from a seed; cut: the step
+    count); the median step of steps 2-5, tokens/s, the share of the
+    bfloat16 dense peak, peak memory and launches a step; then one more
+    step under torch.profiler. Returns the five steps' launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.launch import steps as psteps
+    from repro_torch.launch.train import to_device, train_loop
+    from repro_torch.models.model import build_model, count_params
+
+    tag = f"train {TRAIN_ARCH}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pfa.reset_counts()
+    t0 = time.perf_counter()
+    out = train_loop(cfg=cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, ckpt_dir="", device=dev, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {FLASH[0]: pfa.flash_attention.launches,
+              FLASH_BWD[0]: pfa.flash_attention.bwd_launches}
+    plain = (pfa.flash_attention.plain_calls
+             + pfa.flash_attention.bwd_plain_calls)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = count_params(out["params"])
+    if n != FULL_PARAMS[TRAIN_ARCH]:
+        raise AssertionError(f"{tag}: {n} parameters, the reference counts "
+                             f"{FULL_PARAMS[TRAIN_ARCH]}")
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
+    want = (2 * cfg.n_layers * TRAIN_STEPS, cfg.n_layers * TRAIN_STEPS)
+    if (counts[FLASH[0]], counts[FLASH_BWD[0]]) != want or plain:
+        raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
+                             f"calls; expected {want} (forward with its "
+                             f"remat recompute, backward)")
+    step_s = float(np.median(out["dts"][1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6.0 * n * tokens
+    log(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.dtype}, remat {cfg.remat}, {cfg.optimizer}: {n} parameters; "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} in {wall:.1f}s "
+        f"(init included); losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"step times {', '.join(f'{x * 1e3:.1f}' for x in out['dts'])} ms; "
+        f"median of steps 2-{TRAIN_STEPS} {step_s * 1e3:.2f} ms = "
+        f"{tokens / step_s:.1f} train tokens/s; 6 N tokens = {flops:.4g} "
+        f"operations = {flops / step_s / BF16_OPS_PER_S:.4f} of the "
+        f"bfloat16 dense peak; launches a step: "
+        f"{counts[FLASH[0]] // TRAIN_STEPS} flash_attention (forward and "
+        f"remat recompute), {counts[FLASH_BWD[0]] // TRAIN_STEPS} "
+        f"flash_attention_bwd, 0 plain calls; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes)")
+
+    # one more step under torch.profiler, device activity only
+    model = build_model(cfg)
+    _, step_fn = psteps.make_train_step(model)
+    bt = to_device(host_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH),
+                              TRAIN_STEPS), dev)
+    params, opt_state = out["params"], out["opt_state"]
+    t0 = time.perf_counter()
+    run, pwall, busy, rows = profiled(lambda: step_fn(
+        params, opt_state, bt, TRAIN_STEPS), cpu=False)
+    if busy is None:
+        log(f"[{tag}] the profiler saw no device activity: device busy "
+            f"share not measured")
+    else:
+        log(f"[{tag}] one step under torch.profiler: {pwall * 1e3:.1f} ms "
+            f"wall, device busy {busy * 1e3:.1f} ms = share "
+            f"{busy / pwall:.4f}; reading the trace took "
+            f"{time.perf_counter() - t0 - pwall:.1f}s")
+        log_rows(tag, device_time_by_layer(tag, rows), 10)
+    del out, params, opt_state, run, bt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_small(dev):
+    """21(c): the qwen2-1.5b smoke config in float32 from the same
+    parameters on the card and the CPU, SMOKE_TRAIN_STEPS steps at
+    grad_accum 1 and 2; then SMOKE_FALL_STEPS card steps of `train_loop`
+    whose loss must fall. 21(d): the smoke config (its own bfloat16) 6
+    steps uninterrupted, against 3 steps, a checkpoint, and a resumed
+    `train_loop` to 6: losses, parameters and optimizer state equal bit
+    for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.launch import steps as psteps
+    from repro_torch.launch.train import to_device, train_loop
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import cosine_schedule
+
+    cpu = torch.device("cpu")
+    cfg = get_smoke_config(TRAIN_ARCH).replace(dtype="float32")
+    model = build_model(cfg)
+    # Adam's first moves are sign(g) lr: a gradient at rounding level may
+    # differ in sign between the card and the CPU, so a parameter may
+    # differ by up to 2 lr a step
+    atol = 2 * sum(float(cosine_schedule(s, **SMOKE_TRAIN_LR))
+                   for s in range(SMOKE_TRAIN_STEPS))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    for ga in (1, 2):
+        opt_init, step_fn = psteps.make_train_step(model, grad_accum=ga,
+                                                   lr_kwargs=SMOKE_TRAIN_LR)
+        p_cpu = model.init_params(torch.Generator().manual_seed(0), cpu,
+                                  trainable=True)
+        p_card = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                                   dev, trainable=True)
+        with torch.no_grad():
+            for a, b in zip(p_card.parameters(), p_cpu.parameters()):
+                a.copy_(b)
+        s_cpu, s_card = opt_init(p_cpu), opt_init(p_card)
+        pfa.reset_counts()
+        rel = 0.0
+        for step in range(SMOKE_TRAIN_STEPS):
+            bt = host_batch(dcfg, step)
+            p_card, s_card, mc = step_fn(p_card, s_card, to_device(bt, dev),
+                                         step)
+            p_cpu, s_cpu, mp = step_fn(p_cpu, s_cpu, to_device(bt, cpu), step)
+            for k in ("loss", "gnorm"):
+                a, b = float(mc[k]), float(mp[k])
+                rel = max(rel, abs(a - b) / abs(b))
+                if not abs(a - b) <= 1e-4 * abs(b):
+                    raise AssertionError(f"[train small] grad_accum {ga} "
+                                         f"step {step} {k}: card {a}, CPU "
+                                         f"{b}")
+        dmax = max(float((a.detach().cpu() - b.detach()).abs().max())
+                   for a, b in zip(p_card.parameters(), p_cpu.parameters()))
+        if not dmax <= atol:
+            raise AssertionError(f"[train small] grad_accum {ga}: "
+                                 f"parameters differ by {dmax:.3g}, past "
+                                 f"{atol:.3g}")
+        if pfa.flash_attention.bwd_launches != pfa.flash_attention.\
+                bwd_plain_calls or pfa.flash_attention.bwd_launches == 0:
+            raise AssertionError("[train small] backward launches "
+                                 f"{pfa.flash_attention.bwd_launches}, CPU "
+                                 f"{pfa.flash_attention.bwd_plain_calls}")
+        log(f"[train small] qwen2-1.5b smoke config, float32, grad_accum "
+            f"{ga}, {SMOKE_TRAIN_STEPS} steps, card against CPU: losses and "
+            f"gnorms within {rel:.3g} relative (limit 1e-4); parameters "
+            f"within {dmax:.3g} (limit {atol:.3g} = 2 x the summed "
+            f"learning rates)")
+    out = train_loop(cfg=cfg, steps=SMOKE_FALL_STEPS + 1, batch=4, seq=64,
+                     ckpt_dir="", lr_kwargs=SMOKE_TRAIN_LR, device=dev,
+                     log=lambda *a: None)
+    losses = out["losses"]
+    if not losses[SMOKE_FALL_STEPS] < losses[0]:
+        raise AssertionError(f"[train small] the loss did not fall: "
+                             f"{losses}")
+    log(f"[train small] {SMOKE_FALL_STEPS + 1} card steps: loss "
+        f"{losses[0]:.4f} at step 0 -> {losses[SMOKE_FALL_STEPS]:.4f} at "
+        f"step {SMOKE_FALL_STEPS}")
+
+    # 21(d) resume
+    cfg = get_smoke_config(TRAIN_ARCH)
+    d = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(cfg=cfg, steps=6, batch=4, seq=64, lr_kwargs=SMOKE_TRAIN_LR,
+              device=dev, log=lambda *a: None)
+    try:
+        full = train_loop(ckpt_dir="", **kw)
+        train_loop(ckpt_dir=d, **dict(kw, steps=3))
+        resumed = train_loop(ckpt_dir=d, **kw)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    same = resumed["losses"] == full["losses"][3:] and all(
+        torch.equal(a, b) for a, b in zip(full["params"].parameters(),
+                                          resumed["params"].parameters()))
+    for part in ("m", "v"):
+        same &= all(torch.equal(a, resumed["opt_state"][part][k])
+                    for k, a in full["opt_state"][part].items())
+    if not same:
+        raise AssertionError(f"[train resume] resumed run differs: losses "
+                             f"{resumed['losses']} vs {full['losses'][3:]}")
+    log(f"[train resume] smoke config ({cfg.dtype}) on the card: 6 steps "
+        f"uninterrupted against 3, a checkpoint and a resumed train_loop "
+        f"to 6: losses {', '.join(f'{x:.6f}' for x in full['losses'][3:])} "
+        f"and every parameter, m and v equal bit for bit")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3124,7 +3431,7 @@ def main() -> int:
     log(f"[fig6] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     for k, v in phase_examples(dev).items():
-        counts[k] += v
+        counts[k] = counts.get(k, 0) + v
     log(f"[examples] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_serving_plan(dev, smi)
@@ -3134,11 +3441,17 @@ def main() -> int:
     for k, v in phase_dense_ssm(dev).items():
         counts[k] += v
     log(f"[dense/ssm serve] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_flash_bwd(dev, rec)
+    for k, v in phase_train_full(dev).items():
+        counts[k] = counts.get(k, 0) + v
+    phase_train_small(dev)
+    log(f"[train] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []
     for name_, src, replaces in (SEG, REF, SWEEP, SWEEP_DRAWN, SEG_FAULTS,
-                                 FLASH, SSD, BITPLANE):
+                                 FLASH, SSD, BITPLANE, FLASH_BWD):
         r = rec[name_]
         out.append({"name": name_, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name_],

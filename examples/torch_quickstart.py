@@ -7,10 +7,9 @@ script, with no JAX.
 2. FlexiBench on the ISS — run the food-spoilage workload bit-exactly on
    the port's RV32E simulator (`flexibits.iss.run`) and compare with the
    functional reference.
-3. LM stack — decode a few tokens from the qwen2-1.5b smoke config with
-   random parameters (`launch.serve.generate`), as the reference's part
-   3 decodes it. The reference first trains it five steps; training is
-   not ported yet (ROADMAP.md, open item 13b), so this part serves only.
+3. LM stack — train the qwen2-1.5b smoke config five steps from random
+   parameters (`launch.train.train_loop`), then decode a few tokens with
+   them (`launch.serve.generate`), as the reference's part 3 does.
 
 Runs on the card by default; `--device cpu` runs the plain PyTorch path.
 
@@ -29,6 +28,7 @@ from repro_torch.flexibench.base import MONTH_S, WEEK_S, get
 from repro_torch.flexibits import iss
 from repro_torch.flexibits.pyiss import PyISS
 from repro_torch.launch.serve import generate
+from repro_torch.launch.train import train_loop
 
 
 def main(argv=None) -> int:
@@ -71,13 +71,15 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 3. LM
     cfg = get_smoke_config("qwen2-1.5b")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    toks, stats = generate(cfg, batch=2, prompt_len=8, gen=8, device=dev,
-                           generator=gen, log=lambda *a: None)
-    print(f"[lm] qwen2-1.5b smoke config, random parameters (the "
-          f"reference's 5 train steps wait for open item 13b): generated "
-          f"{toks.shape} tokens ({stats['decode_s'] * 1e3:.0f}ms decode)")
+    out = train_loop(cfg=cfg, steps=5, batch=4, seq=64, ckpt_dir="",
+                     device=dev, log=lambda *a: None)
+    print(f"[lm] qwen2-1.5b smoke config, 5 train steps: loss "
+          f"{out['losses'][0]:.3f} -> {out['losses'][-1]:.3f}")
+    toks, stats = generate(cfg, batch=2, prompt_len=8, gen=8,
+                           params=out["params"], device=dev,
+                           log=lambda *a: None)
+    print(f"[lm] generated {toks.shape} tokens "
+          f"({stats['decode_s'] * 1e3:.0f}ms decode)")
     print("quickstart OK")
     return 0
 

@@ -1,5 +1,6 @@
 """PyTorch / CUDA port of the fleet simulation, the carbon sweep and the
-hybrid LM's serving path, beside the JAX reference in `repro`.
+LM stack's serving and training paths, beside the JAX reference in
+`repro`.
 
 It runs on one NVIDIA card by default (`device=None` means "cuda" and
 raises without one; pass `device="cpu"` for the plain PyTorch path). It
@@ -11,7 +12,8 @@ FlexiLint analysis, the lane-vectorized simulator), `flexibench/` (the
 11 workloads), `kernels/` (the CUDA kernels, their wrappers and their
 nvcc build), `core/` (carbon model, core selection, the sweep),
 `fleet/` (the packed resident engine, plans and the carbon report),
-`configs/`, `models/` and `launch/` (Zamba2 serving), `convert.py`
+`configs/`, `models/`, `optim/`, `data/` and `launch/` (LM serving and
+training), `convert.py`
 (state and parameter carry-across with the reference) and `device.py`
 (the device policy).
 """

@@ -40,6 +40,18 @@ rule. `decoder_cache_to_numpy/_to_torch` carry the K/V cache between the
 port's `{"k", "v"}` and the reference's `{"dense": {"k", "v"}}`, and
 `ssm_cache_to_numpy/_to_torch` the state between the port's stacked
 leaves and the reference's `{"states": {...}}`.
+
+For training, `lm_params_to_numpy` is the inverse of the three
+parameter converters: a `{port name: tensor}` dict (a module's
+`named_parameters()`, or optimizer state under those names) as the
+reference's stacked tree of float32 numpy. `adamw_state_to_torch` /
+`adamw_state_to_numpy` carry AdamW's state between the reference's
+`{"step", "m", "v"}` pytrees (in its parameter layout) and the port's
+dicts under the port's names. Adafactor factors each leaf it is given,
+and the reference's model leaves are stacked where the port's are not
+(`optim/optimizers.py`), so `adafactor_state_to_torch` /
+`adafactor_state_to_numpy` carry the state of a flat `{name: array}`
+dict of leaves, the same names on both sides.
 """
 from __future__ import annotations
 
@@ -305,3 +317,98 @@ def ssm_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
     return {k: _from_f32(cache["states"][k], dev,
                          torch.float32 if k == "ssm" else dtype)
             for k in _STATE_KEYS}
+
+
+# --------------------------------------------------------------- training
+
+_PARAMS_TO_TORCH = {"dense": decoder_params_to_torch,
+                    "hybrid": hybrid_params_to_torch,
+                    "ssm": ssm_params_to_torch}
+
+
+def lm_named_to_torch(tree, cfg, device: DeviceLike = None) -> dict:
+    """A tree in the reference's parameter layout (numpy) -> {port name:
+    float32 tensor} on `device`, the names of the port's module."""
+    mod = _PARAMS_TO_TORCH[cfg.family](tree, cfg.replace(dtype="float32"),
+                                       device)
+    return {k: p.detach() for k, p in mod.named_parameters()}
+
+
+def _stack(trees):
+    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+            else np.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def lm_params_to_numpy(named: dict, cfg) -> dict:
+    """{port name: tensor} -> the reference's parameter tree (stacked
+    layers), float32 numpy."""
+    nested: dict = {}
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        d = nested
+        for part in path:
+            d = d.setdefault(part, {})
+        d[leaf] = _f32(t)
+
+    def layers(key):
+        return [nested[key][str(i)] for i in range(len(nested[key]))]
+
+    out = {k: nested[k] for k in ("embed", "final_norm", "lm_head")
+           if k in nested}
+    if cfg.family == "dense":
+        out["dense_layers"] = _stack(layers("layers"))
+    elif cfg.family == "ssm":
+        out["layers"] = _stack(layers("layers"))
+    elif cfg.family == "hybrid":
+        period, n_groups, n_tail = split_counts(cfg)
+        mamba = layers("mamba")
+        n_g = n_groups * period
+        out["mamba_groups"] = _map(
+            lambda v: v.reshape((n_groups, period) + v.shape[1:]),
+            _stack(mamba[:n_g]))
+        if n_tail:
+            out["mamba_tail"] = _stack(mamba[n_g:])
+        out["shared"] = _stack(layers("shared"))
+    else:
+        raise KeyError(f"family {cfg.family!r} has no port")
+    return out
+
+
+def adamw_state_to_torch(state, cfg, device: DeviceLike = None) -> dict:
+    """The reference's AdamW state (numpy; m and v in its parameter
+    layout) -> the port's, on `device`."""
+    dev = resolve(device)
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev),
+            "m": lm_named_to_torch(state["m"], cfg, dev),
+            "v": lm_named_to_torch(state["v"], cfg, dev)}
+
+
+def adamw_state_to_numpy(state, cfg) -> dict:
+    """The port's AdamW state -> the reference's layout, numpy."""
+    return {"step": np.int32(int(state["step"])),
+            "m": lm_params_to_numpy(state["m"], cfg),
+            "v": lm_params_to_numpy(state["v"], cfg)}
+
+
+def adafactor_state_to_torch(state, device: DeviceLike = None) -> dict:
+    """The reference's Adafactor state of a flat {name: array} dict
+    (numpy) -> the port's, on `device`."""
+    dev = resolve(device)
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev),
+            "vs": {k: {kk: _t(np.asarray(vv, np.float32), dev)
+                       for kk, vv in v.items()}
+                   for k, v in state["vs"].items()}}
+
+
+def adafactor_state_to_numpy(state) -> dict:
+    """The port's Adafactor state -> the reference's layout, numpy."""
+    return {"step": np.int32(int(state["step"])),
+            "vs": {k: {kk: _f32(vv) for kk, vv in v.items()}
+                   for k, v in state["vs"].items()}}

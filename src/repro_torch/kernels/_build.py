@@ -51,8 +51,10 @@ SIGNATURES = {
         "carbon_sweep_launch": [_I] + [_P] * 26 + [_I] * 5 + [_D] * 4 + [_P],
         "carbon_sweep_drawn_launch": [_I, _U, _U] + [_P] * 4 + [_I, _I, _D]
         + [_P] * 26 + [_I] * 5 + [_D] * 4 + [_P]},
-    "flash_attention": {"flash_attention_launch":
-                        [_I, _P, _P, _P, _P] + [_I] * 6 + [_F, _P]},
+    "flash_attention": {
+        "flash_attention_launch": [_I] + [_P] * 5 + [_I] * 6 + [_F, _P],
+        "flash_attention_bwd_launch": [_I] + [_P] * 10 + [_I] * 6
+        + [_F, _P]},
     "ssd_scan": {"ssd_scan_launch": [_I] + [_P] * 7 + [_I] * 6 + [_P]},
     "bitplane_matmul": {
         "bitplane_matmul_launch": [_I] + [_P] * 5 + [_I] * 4 + [_P],

@@ -20,8 +20,11 @@ on the CUDA cores.
 `*_plain` run in eager torch (any device). Each wrapper takes
 `device=None` (meaning "cuda"): on a CUDA device it launches its kernel
 on the current stream or raises; only for CPU tensors does it run the
-plain version. Each counts `.launches` and `.plain_calls`;
-`reset_counts()` zeroes them all.
+plain version. The plain versions are differentiable; on the card a
+`bitplane_matmul` launch whose x or scales need a gradient goes through
+`_grad.NoBackward`, so a backward through it raises NotImplementedError
+(no model trains through the bit planes). Each counts `.launches` and
+`.plain_calls`; `reset_counts()` zeroes them all.
 """
 from __future__ import annotations
 
@@ -29,10 +32,13 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import _build
-from repro_torch.kernels.iss_stepper import _check, _raise_on
+from repro_torch.kernels._grad import NoBackward, needs_grad
+from repro_torch.kernels.iss_stepper import _check, _on_cpu, _raise_on
 from repro_torch.kernels.ref import bitplane_matmul_ref
 
 F32 = torch.float32
+NO_BACKWARD = ("bitplane_matmul has no backward kernel: the bit planes "
+               "serve quantized weights and no model trains through them")
 _DTYPES = (F32, torch.bfloat16)
 
 bitplane_matmul_plain = bitplane_matmul_ref
@@ -49,12 +55,6 @@ def bitplane_repack_plain(planes, *, bits: int) -> torch.Tensor:
 def bitplane_gemm_plain(x, w_q, scales) -> torch.Tensor:
     """(x @ W_q) * s in float32, rounded to x's type."""
     return ((x.to(F32) @ w_q.to(F32)) * scales[None, :]).to(x.dtype)
-
-
-def _on_cpu(**tensors) -> None:
-    for name, t in tensors.items():
-        if t.device.type != "cpu":
-            raise ValueError(f"{name} is on {t.device}, expected cpu")
 
 
 def _check_bits(bits: int) -> None:
@@ -153,15 +153,21 @@ def bitplane_matmul(x, planes, scales, *, bits: int, tm: int = 128,
                                         (bits, k, n)),
             ("scales", scales, F32, (n,))):
         _check(name, t, dev, dtype, shape)
-    out = torch.empty((m, n), dtype=x.dtype, device=dev)
-    # the repacked weight, scratch of the bfloat16 path's two phases
-    w_q = torch.empty((k, n) if bf16 else (0,), dtype=torch.bfloat16,
-                      device=dev)
-    _launch("bitplane_matmul_launch", dev, int(bf16), x.data_ptr(),
-            planes.data_ptr(), scales.data_ptr(), w_q.data_ptr(),
-            out.data_ptr(), m, k, n, bits)
-    bitplane_matmul.launches += 1
-    return out
+
+    def launch(x, scales):
+        out = torch.empty((m, n), dtype=x.dtype, device=dev)
+        # the repacked weight, scratch of the bfloat16 path's two phases
+        w_q = torch.empty((k, n) if bf16 else (0,), dtype=torch.bfloat16,
+                          device=dev)
+        _launch("bitplane_matmul_launch", dev, int(bf16), x.data_ptr(),
+                planes.data_ptr(), scales.data_ptr(), w_q.data_ptr(),
+                out.data_ptr(), m, k, n, bits)
+        bitplane_matmul.launches += 1
+        return out
+
+    if needs_grad(x, scales):
+        return NoBackward.apply(NO_BACKWARD, launch, x, scales)
+    return launch(x, scales)
 
 
 def reset_counts() -> None:

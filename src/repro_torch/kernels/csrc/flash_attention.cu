@@ -42,6 +42,9 @@
 // it is divided by max(l, 1e-30). Rounding P to bfloat16 for P v is the
 // only rounding the plain version lacks: one bfloat16 step at most.
 //
+// Both builds write each row's log-sum-exp of its scaled scores, m +
+// log(den), when given an lse pointer (training; serving passes null).
+//
 // float32 (flash_fwd): on the CUDA cores, as first ported. The float32
 // tolerance (1e-4) rules out bfloat16 or TF32 products, and no main path
 // runs it. One block of 256 threads per (head, 64 query rows) keeps q,
@@ -50,6 +53,20 @@
 // online softmax four threads a row and adds P v to a 4 x D/16 output
 // micro-tile. Ragged L and D are zero-padded in shared memory and
 // masked. D <= 128.
+// Backward (flash_bwd_dq, flash_bwd_dkdv; the TPU kernel has none: the
+// reference trains through jnp attention and autodiff). Given q, k, v, o,
+// dO and the forward's lse it recomputes P = exp(scale q k^T - lse) tile
+// by tile under the forward's key limits, and forms D = rowsum(dO o),
+// dV = P^T dO, dS = P (dO v^T - D), dQ = scale dS k, dK = scale dS^T q.
+// One pass per 64 query rows forms dQ (and writes D), then one per 64 keys
+// dK and dV, over exactly the query tiles whose key limit reaches them:
+// no atomics, the gradients deterministic. float32 tiles and sums on the
+// CUDA cores for both types (a first, simple build; tensor cores later),
+// outputs in q's type. At Qwen2-1.5B's training shape (BH 96, L 512, D
+// 128, causal, bfloat16) it must read q, k, v, o, dO and lse and write
+// dq, dk, dv, about 101 MB or 0.030 ms at 3.35 TB/s, and its five causal
+// products are about 1.6e10 operations, 0.016 ms at the bfloat16
+// tensor-core rate: bytes bound it; on the CUDA cores the products do.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,8 +91,9 @@ size_t smem_bytes(int dd) {
 template <typename T>
 __global__ void __launch_bounds__(lm::kThreads)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int L, int D,
-              int dd, int causal, int tq, int tk, float scale) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int L, int D, int dd, int causal,
+              int tq, int tk, float scale) {
   extern __shared__ __align__(16) float sm[];
   const int lq = dd + 1, lp = kKeys + 1;
   float* Qs = sm;                    // [kRows][lq], scaled
@@ -191,6 +209,9 @@ __global__ void __launch_bounds__(lm::kThreads)
     __syncthreads();
   }
 
+  if (lse != nullptr && tid < kRows && q0 + tid < L)
+    lse[static_cast<size_t>(bh) * L + q0 + tid] =
+        mrow[tid] + logf(fmaxf(lrow[tid], 1e-30f));
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -213,6 +234,7 @@ constexpr int kMmaThreads = 32 * kMmaWarps;
 // blocks an SM: caps a thread at 168 registers (the D = 112 and 128
 // builds would take 173, and fit two blocks an SM; three run faster)
 constexpr int kMmaBlocksPerSM = 3;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // the TPU kernel's key limit of query row qp (0 past the last row)
 __device__ __forceinline__ int key_limit(int qp, int L, int causal, int tq,
@@ -256,8 +278,9 @@ constexpr size_t mma_smem_bytes() {  // K and V, two stages each
 template <int DK>
 __global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
     flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int L,
-                  int D, int causal, int tq, int tk, float scale_log2) {
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int L, int D, int causal, int tq,
+                  int tk, float scale_log2) {
   constexpr int dd = 16 * DK, ld = dd + 8, tile = kKeys * ld;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][kKeys][ld]
@@ -400,6 +423,15 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
   const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+  // log-sum-exp of the scaled scores, natural log: the exponents are
+  // base 2 with the base m * scale * log2 e
+  if (lse != nullptr && t4 == 0) {
+    const size_t row0 = static_cast<size_t>(blockIdx.x) * L;
+    if (row < L)
+      lse[row0 + row] = (m_lo * scale_log2 + log2f(den_lo)) * kLn2;
+    if (row + 8 < L)
+      lse[row0 + row + 8] = (m_hi * scale_log2 + log2f(den_hi)) * kLn2;
+  }
 #pragma unroll
   for (int j = 0; j < 2 * DK; ++j) {
     const int d = 8 * j + 2 * t4;
@@ -421,39 +453,39 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
 }
 
 template <int DK>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
-               int L, int D, int causal, int tq, int tk, float scale,
-               cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int L, int D, int causal, int tq, int tk,
+               float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<DK>();
   cudaError_t e = lm::allow_smem(flash_fwd_mma<DK>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(bh, (L + kRows - 1) / kRows);
   flash_fwd_mma<DK><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), L, D, causal, tq,
-      tk, scale * 1.4426950408889634f);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, L, D, causal,
+      tq, tk, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
-                int L, int D, int causal, int tq, int tk, float scale,
-                cudaStream_t s) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int L, int D, int causal, int tq, int tk,
+                float scale, cudaStream_t s) {
   switch ((D + 15) / 16) {
-    case 1: return launch_mma<1>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
-    case 2: return launch_mma<2>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
-    case 3: return launch_mma<3>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
-    case 4: return launch_mma<4>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
-    case 5: return launch_mma<5>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
-    case 6: return launch_mma<6>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
-    case 7: return launch_mma<7>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
-    default: return launch_mma<8>(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+    case 1: return launch_mma<1>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
+    case 2: return launch_mma<2>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
+    case 3: return launch_mma<3>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
+    case 4: return launch_mma<4>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
+    case 5: return launch_mma<5>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
+    case 6: return launch_mma<6>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
+    case 7: return launch_mma<7>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
+    default: return launch_mma<8>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
   }
 }
 
 // ---------------------------------------------------------------- f32
-int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-               int L, int D, int causal, int tq, int tk, float scale,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int L, int D, int causal, int tq, int tk,
+               float scale, cudaStream_t stream) {
   const int dd = (D + 15) / 16 * 16;
   const size_t smem = smem_bytes(dd);
   cudaError_t e = lm::allow_smem(flash_fwd<float>, smem);
@@ -461,25 +493,313 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid(bh, (L + kRows - 1) / kRows);
   flash_fwd<float><<<grid, lm::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), L, D, dd, causal,
-      tq, tk, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, L, D, dd,
+      causal, tq, tk, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- backward
+// flash_bwd_dq and flash_bwd_dkdv, float32 arithmetic on the CUDA cores
+// for both input types. Blocks of 256 threads as a 16 x 16 grid (ty, tx);
+// a thread owns the score elements (ty + 16 i, tx + 16 j), i, j < 4, and
+// the output elements (ty + 16 i, tx + 16 j), j < dd / 16. Tiles are
+// float32 in shared memory in rows of dd + 1 (odd: a warp's column reads
+// fall in distinct banks).
+constexpr int kTile = 64;        // query rows or keys a block, keys a tile
+constexpr int kPad = kTile + 1;  // the score tiles' row stride
+
+// acc[i][j] += sum_k A[(ty + 16 i) a_r + k a_k] B[k b_k + (tx + 16 j) b_n]
+// over k < kdim, for j < cm.
+template <int RM, int CM>
+__device__ __forceinline__ void mm_strided(float (&acc)[RM][CM],
+                                           const float* A, int a_r, int a_k,
+                                           const float* B, int b_k, int b_n,
+                                           int kdim, int cm, int ty, int tx) {
+  for (int kk = 0; kk < kdim; ++kk) {
+    float a[RM], b[CM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) a[i] = A[(ty + 16 * i) * a_r + kk * a_k];
+#pragma unroll
+    for (int j = 0; j < CM; ++j)
+      b[j] = j < cm ? B[kk * b_k + (tx + 16 * j) * b_n] : 0.f;
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// rows [r0, r0 + 64) of a (L, D) matrix into a float32 [64][dd + 1] tile,
+// zeros past L and D
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
+                                          int L, int D, int dd) {
+  for (int idx = threadIdx.x; idx < kTile * dd; idx += lm::kThreads) {
+    const int r = idx / dd, d = idx % dd;
+    dst[r * (dd + 1) + d] =
+        r0 + r < L && d < D
+            ? lm::to_f32(src[static_cast<size_t>(r0 + r) * D + d])
+            : 0.f;
+  }
+}
+
+size_t bwd_smem_bytes(int dd, int score_tiles) {
+  return sizeof(float) * (4 * static_cast<size_t>(kTile) * (dd + 1) +
+                          static_cast<size_t>(score_tiles) * kTile * kPad +
+                          2 * kTile) +
+         sizeof(int) * kTile;
+}
+
+// dQ of 64 query rows: walks the KV tiles below the block's largest key
+// limit; also writes D = rowsum(dO o) of its rows for flash_bwd_dkdv.
+template <typename T>
+__global__ void __launch_bounds__(lm::kThreads)
+    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ o,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 T* __restrict__ dq, float* __restrict__ dsum, int L, int D,
+                 int dd, int causal, int tq, int tk, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int ld = dd + 1;
+  float* Qs = sm;               // [kTile][ld]
+  float* dOs = Qs + kTile * ld;
+  float* Ks = dOs + kTile * ld;
+  float* Vs = Ks + kTile * ld;
+  float* Ss = Vs + kTile * ld;  // dS, [kTile][kPad]
+  float* lse_s = Ss + kTile * kPad;
+  float* D_s = lse_s + kTile;
+  int* klim = reinterpret_cast<int*>(D_s + kTile);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t base = static_cast<size_t>(bh) * L * D;
+  const size_t row0 = static_cast<size_t>(bh) * L;
+
+  load_tile(Qs, q + base, q0, L, D, dd);
+  load_tile(dOs, dout + base, q0, L, D, dd);
+  {  // D = rowsum(dO o), four threads a row
+    const int r = tid >> 2, part = tid & 3, qp = q0 + r;
+    float acc = 0.f;
+    if (qp < L)
+      for (int d = part; d < D; d += 4) {
+        const size_t off = base + static_cast<size_t>(qp) * D + d;
+        acc = fmaf(lm::to_f32(dout[off]), lm::to_f32(o[off]), acc);
+      }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) {
+      D_s[r] = acc;
+      if (qp < L) dsum[row0 + qp] = acc;
+    }
+  }
+  if (tid < kTile) {
+    const int qp = q0 + tid;
+    klim[tid] = key_limit(qp, L, causal, tq, tk);
+    lse_s[tid] = qp < L ? lse[row0 + qp] : 0.f;
+  }
+  __syncthreads();
+  const int kend = klim[min(kTile, L - q0) - 1];
+  const int cm = dd / 16;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < kend; k0 += kTile) {
+    load_tile(Ks, k + base, k0, L, D, dd);
+    load_tile(Vs, v + base, k0, L, D, dd);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    mm_strided<4, 4>(s, Qs, ld, 1, Ks, 1, ld, dd, 4, ty, tx);   // q k^T
+    mm_strided<4, 4>(dp, dOs, ld, 1, Vs, 1, ld, dd, 4, ty, tx); // dO v^T
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty + 16 * i, c = tx + 16 * j;
+        const float p =
+            k0 + c < klim[r] ? expf(fmaf(s[i][j], scale, -lse_s[r])) : 0.f;
+        Ss[r * kPad + c] = p * (dp[i][j] - D_s[r]);
+      }
+    __syncthreads();
+    mm_strided<4, 8>(acc, Ss, kPad, 1, Ks, ld, 1, kTile, cm, ty, tx);
+    __syncthreads();  // Ks, Vs and Ss are refilled next
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (q0 + r >= L) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = tx + 16 * j;
+      if (j < cm && d < D)
+        dq[base + static_cast<size_t>(q0 + r) * D + d] =
+            lm::from_f32<T>(acc[i][j] * scale);
+    }
+  }
+}
+
+// dK and dV of 64 keys: walks exactly the query tiles some row of which
+// reads one of these keys (the key limit does not decrease with the row,
+// so a tile whose last row's limit is at most k0 reads none of them).
+template <typename T>
+__global__ void __launch_bounds__(lm::kThreads)
+    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ dsum, T* __restrict__ dk,
+                   T* __restrict__ dv, int L, int D, int dd, int causal,
+                   int tq, int tk, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int ld = dd + 1;
+  float* Ks = sm;               // [kTile][ld]: this block's keys
+  float* Vs = Ks + kTile * ld;
+  float* Qs = Vs + kTile * ld;  // a query tile
+  float* dOs = Qs + kTile * ld;
+  float* Ps = dOs + kTile * ld;  // P^T, [kTile keys][kPad]
+  float* Ss = Ps + kTile * kPad;  // dS^T
+  float* lse_s = Ss + kTile * kPad;
+  float* D_s = lse_s + kTile;
+  int* klim = reinterpret_cast<int*>(D_s + kTile);
+
+  const int bh = blockIdx.x, k0 = blockIdx.y * kTile;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t base = static_cast<size_t>(bh) * L * D;
+  const size_t row0 = static_cast<size_t>(bh) * L;
+  const int cm = dd / 16;
+
+  load_tile(Ks, k + base, k0, L, D, dd);
+  load_tile(Vs, v + base, k0, L, D, dd);
+
+  float acc_k[4][8], acc_v[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+
+  for (int i0 = 0; i0 < L; i0 += kTile) {
+    if (key_limit(min(i0 + kTile, L) - 1, L, causal, tq, tk) <= k0) continue;
+    load_tile(Qs, q + base, i0, L, D, dd);
+    load_tile(dOs, dout + base, i0, L, D, dd);
+    if (tid < kTile) {
+      const int qp = i0 + tid;
+      klim[tid] = key_limit(qp, L, causal, tq, tk);
+      lse_s[tid] = qp < L ? lse[row0 + qp] : 0.f;
+      D_s[tid] = qp < L ? dsum[row0 + qp] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
+    mm_strided<4, 4>(s, Ks, ld, 1, Qs, 1, ld, dd, 4, ty, tx);   // k q^T
+    mm_strided<4, 4>(dp, Vs, ld, 1, dOs, 1, ld, dd, 4, ty, tx); // v dO^T
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = ty + 16 * a, i = tx + 16 * b;
+        const float p =
+            k0 + j < klim[i] ? expf(fmaf(s[a][b], scale, -lse_s[i])) : 0.f;
+        Ps[j * kPad + i] = p;
+        Ss[j * kPad + i] = p * (dp[a][b] - D_s[i]);
+      }
+    __syncthreads();
+    mm_strided<4, 8>(acc_v, Ps, kPad, 1, dOs, ld, 1, kTile, cm, ty, tx);
+    mm_strided<4, 8>(acc_k, Ss, kPad, 1, Qs, ld, 1, kTile, cm, ty, tx);
+    __syncthreads();  // the query tile and the score tiles are refilled next
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int j = ty + 16 * a;
+    if (k0 + j >= L) continue;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int d = tx + 16 * c;
+      if (c < cm && d < D) {
+        const size_t off = base + static_cast<size_t>(k0 + j) * D + d;
+        dk[off] = lm::from_f32<T>(acc_k[a][c] * scale);
+        dv[off] = lm::from_f32<T>(acc_v[a][c]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, void* dq, void* dk,
+               void* dv, float* dsum, int bh, int L, int D, int causal,
+               int tq, int tk, float scale, cudaStream_t stream) {
+  const int dd = (D + 15) / 16 * 16;
+  const size_t smem_dq = bwd_smem_bytes(dd, 1);
+  const size_t smem_dkdv = bwd_smem_bytes(dd, 2);
+  cudaError_t e = lm::allow_smem(flash_bwd_dq<T>, smem_dq);
+  if (e == cudaSuccess) e = lm::allow_smem(flash_bwd_dkdv<T>, smem_dkdv);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(bh, (L + kTile - 1) / kTile);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  flash_bwd_dq<T><<<grid, lm::kThreads, smem_dq, stream>>>(
+      qt, kt, vt, static_cast<const T*>(o), dot, lse, static_cast<T*>(dq),
+      dsum, L, D, dd, causal, tq, tk, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkdv<T><<<grid, lm::kThreads, smem_dkdv, stream>>>(
+      qt, kt, vt, dot, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
+      L, D, dd, causal, tq, tk, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int bh, int L, int D, int tq, int tk) {
+  return bh < 1 || L < 1 || D < 1 || D > 128 || tq < 1 || tk < 1 ||
+         L % tq || L % tk || (L + kRows - 1) / kRows > 65535;
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, L, D) contiguous, float32 (is_bf16 = 0) or bfloat16.
+// q, k, v, o: (bh, L, D) contiguous, float32 (is_bf16 = 0) or bfloat16;
+// lse: (bh, L) float32, each row's log-sum-exp written when not null.
 // Needs 1 <= D <= 128, L % tq == 0, L % tk == 0, (L + 63) / 64 <= 65535.
 extern "C" int flash_attention_launch(int is_bf16, const void* q,
                                       const void* k, const void* v, void* o,
-                                      int bh, int L, int D, int causal,
-                                      int tq, int tk, float scale,
-                                      void* stream) {
-  if (bh < 1 || L < 1 || D < 1 || D > 128 || tq < 1 || tk < 1 ||
-      L % tq || L % tk || (L + kRows - 1) / kRows > 65535)
+                                      float* lse, int bh, int L, int D,
+                                      int causal, int tq, int tk,
+                                      float scale, void* stream) {
+  if (bad_shape(bh, L, D, tq, tk))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_bf16(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
-  return launch_f32(q, k, v, o, bh, L, D, causal, tq, tk, scale, s);
+    return launch_bf16(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
+  return launch_f32(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
+}
+
+// The backward of flash_attention_launch at output o, its gradient dout
+// and the forward's lse (all as there): dq, dk, dv (bh, L, D) in the
+// inputs' type; dsum (bh, L) float32 scratch (D = rowsum(dO o)). Two
+// kernels, dq (and D) then dk and dv, on `stream`; no atomics.
+extern "C" int flash_attention_bwd_launch(
+    int is_bf16, const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, void* dq, void* dk, void* dv,
+    float* dsum, int bh, int L, int D, int causal, int tq, int tk,
+    float scale, void* stream) {
+  if (bad_shape(bh, L, D, tq, tk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_bwd<bf16>(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, L,
+                            D, causal, tq, tk, scale, s);
+  return launch_bwd<float>(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, L, D,
+                           causal, tq, tk, scale, s);
 }

@@ -1,4 +1,5 @@
-"""Flash attention: the CUDA kernel, its wrapper and its plain version.
+"""Flash attention: the CUDA kernels, their wrappers, their plain versions
+and the autograd Function that joins the forward and the backward.
 
 `flash_attention` (csrc/flash_attention.cu) replaces the TPU kernel
 `repro/kernels/flash_attention.py::flash_attention`: causal or full
@@ -6,17 +7,35 @@ online-softmax attention over heads flattened into the batch, q, k, v
 (BH, L, D), float32 arithmetic, the output in q's type. For a causal
 mask the TPU kernel reads, for query tile qi of tq rows, the KV tiles of
 tk keys below clamp((qi + 1) tq // tk, 1, L // tk), and inside them the
-keys kpos <= qpos: the kernel and the plain version keep that bound.
+keys kpos <= qpos: the kernels and the plain versions keep that bound.
 The GQA grouping is done by `kernels/ops.py` before flattening. For
-bfloat16 the kernel multiplies on the tensor cores, with float32 scores,
-softmax and accumulator, and rounds P to bfloat16 for the P v product:
-the one rounding the plain version lacks (within a bfloat16 step).
+bfloat16 the forward kernel multiplies on the tensor cores, with float32
+scores, softmax and accumulator, and rounds P to bfloat16 for the P v
+product: the one rounding the plain version lacks (within a bfloat16
+step).
 
-`flash_attention_plain` is the TPU kernel's arithmetic tile by tile in
-eager torch (any device). The wrapper takes `device=None` (meaning
-"cuda"): on a CUDA device it launches the kernel on the current stream
-or raises; only for CPU tensors does it run the plain version. It
-counts `.launches` and `.plain_calls`; `reset_counts()` zeroes both.
+The TPU kernel has no backward: the reference trains through its jnp
+chunked attention and autodiff. The port trains through the kernel, so
+`flash_attention_bwd` (the `flash_bwd_*` kernels of the same source) is
+the gradient of the function the forward computes, bound included. The
+forward saves each row's log-sum-exp `lse = m + log(den)` (float32, BH x
+L), and the backward recomputes P = exp(scale q k^T - lse) tile by tile:
+D_i = rowsum(dO o), dV = P^T dO, dS = P (dO v^T - D), dQ = scale dS k,
+dK = scale dS^T q, in float32, the outputs in q's type.
+`FlashAttention` is the autograd Function: on the card the forward
+kernel then the backward kernel, on the CPU the plain forward then
+`flash_attention_bwd_plain`, so the CPU tests run the formula the
+backward kernel is held to.
+
+`flash_attention_plain` and `flash_attention_bwd_plain` are the
+arithmetic tile by tile in eager torch (any device). The wrappers take
+`device=None` (meaning "cuda"): on a CUDA device they launch the kernel
+on the current stream or raise; only for CPU tensors do they run the
+plain version. `flash_attention` computes the log-sum-exp only when
+autograd records and an input needs a gradient, so serving launches the
+forward as before. Counts on `flash_attention`: `.launches` and
+`.plain_calls` (forward), `.bwd_launches` and `.bwd_plain_calls`;
+`reset_counts()` zeroes them.
 """
 from __future__ import annotations
 
@@ -24,17 +43,36 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import _build
-from repro_torch.kernels.iss_stepper import _check, _raise_on
+from repro_torch.kernels._grad import needs_grad
+from repro_torch.kernels.iss_stepper import _check, _on_cpu, _raise_on
 
 NEG_INF = -1e30
 F32 = torch.float32
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _kv_upper(qi: int, tq: int, tk: int, n_kv: int, causal: bool) -> int:
+    """The KV tiles query tile qi reads: the TPU kernel's bound."""
+    return min(max((qi + 1) * tq // tk, 1), n_kv) if causal else n_kv
+
+
+def _scores(qt, kt, qi, ki, tq, tk, causal):
+    """Scaled scores of query tile qi against KV tile ki, masked keys at
+    NEG_INF."""
+    s = qt @ kt.transpose(1, 2)
+    if causal:
+        dev = qt.device
+        qpos = qi * tq + torch.arange(tq, device=dev)[:, None]
+        kpos = ki * tk + torch.arange(tk, device=dev)[None, :]
+        s = torch.where(kpos <= qpos, s, torch.full((), NEG_INF, device=dev))
+    return s
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, tq: int = 128,
-                          tk: int = 128) -> torch.Tensor:
+                          tk: int = 128, return_lse: bool = False):
     """The TPU kernel's tiles, running max, denominator and accumulator,
-    tile by tile, batched over BH."""
+    tile by tile, batched over BH. With `return_lse` also each row's
+    log-sum-exp of its scaled scores, (BH, L) float32."""
     bh, l, d = q.shape
     scale = d ** -0.5
     qf = q.to(F32) * scale
@@ -42,30 +80,149 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, tq: int = 128,
     n_kv = l // tk
     dev = q.device
     out = torch.empty((bh, l, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((bh, l), dtype=F32, device=dev)
     for qi in range(l // tq):
         qt = qf[:, qi * tq:(qi + 1) * tq]
         m = torch.full((bh, tq, 1), NEG_INF, dtype=F32, device=dev)
         den = torch.zeros((bh, tq, 1), dtype=F32, device=dev)
         acc = torch.zeros((bh, tq, d), dtype=F32, device=dev)
-        upper = min(max((qi + 1) * tq // tk, 1), n_kv) if causal else n_kv
-        for ki in range(upper):
+        for ki in range(_kv_upper(qi, tq, tk, n_kv, causal)):
             kt = kf[:, ki * tk:(ki + 1) * tk]
             vt = vf[:, ki * tk:(ki + 1) * tk]
-            s = qt @ kt.transpose(1, 2)
-            if causal:
-                qpos = qi * tq + torch.arange(tq, device=dev)[:, None]
-                kpos = ki * tk + torch.arange(tk, device=dev)[None, :]
-                s = torch.where(kpos <= qpos, s,
-                                torch.full((), NEG_INF, device=dev))
+            s = _scores(qt, kt, qi, ki, tq, tk, causal)
             m2 = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
             corr = torch.exp(m - m2)
             p = torch.exp(s - m2)
             den = den * corr + torch.sum(p, dim=-1, keepdim=True)
             acc = acc * corr + p @ vt
             m = m2
-        out[:, qi * tq:(qi + 1) * tq] = (
-            acc / torch.clamp_min(den, 1e-30)).to(q.dtype)
-    return out
+        den = torch.clamp_min(den, 1e-30)
+        out[:, qi * tq:(qi + 1) * tq] = (acc / den).to(q.dtype)
+        lse[:, qi * tq:(qi + 1) * tq] = (m + torch.log(den))[..., 0]
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
+                              tq: int = 128, tk: int = 128):
+    """dQ, dK, dV of `flash_attention_plain` at output o and its gradient
+    dO, from the forward's log-sum-exp: P recomputed tile by tile over
+    the forward's tiles and bound, float32 sums, outputs in q's type."""
+    bh, l, d = q.shape
+    scale = d ** -0.5
+    qf = q.to(F32) * scale
+    kf, vf, dof = k.to(F32), v.to(F32), do.to(F32)
+    dsum = torch.sum(dof * o.to(F32), dim=-1)           # D, (BH, L)
+    n_kv = l // tk
+    dq = torch.zeros((bh, l, d), dtype=F32, device=q.device)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    for qi in range(l // tq):
+        rows = slice(qi * tq, (qi + 1) * tq)
+        qt, dot = qf[:, rows], dof[:, rows]
+        for ki in range(_kv_upper(qi, tq, tk, n_kv, causal)):
+            keys = slice(ki * tk, (ki + 1) * tk)
+            s = _scores(qt, kf[:, keys], qi, ki, tq, tk, causal)
+            p = torch.exp(s - lse[:, rows, None])
+            dv[:, keys] += p.transpose(1, 2) @ dot
+            ds = p * (dot @ vf[:, keys].transpose(1, 2)
+                      - dsum[:, rows, None])
+            dq[:, rows] += ds @ kf[:, keys]
+            dk[:, keys] += ds.transpose(1, 2) @ qt
+    return (dq * scale).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _check_shape(l: int, tq: int, tk: int) -> None:
+    if l % tq or l % tk:
+        raise ValueError(f"L = {l} must divide by tq = {tq} and tk = {tk}")
+
+
+def _check_card(q) -> None:
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q has dtype {q.dtype}: float32 or bfloat16")
+    if not 1 <= q.shape[2] <= 128:
+        raise ValueError(f"head dim {q.shape[2]}: the kernel takes 1 to 128")
+
+
+def _forward(q, k, v, causal, tq, tk, dev, with_lse):
+    """(o, lse or None): the kernel on the card, the plain version on the
+    CPU."""
+    bh, l, d = q.shape
+    _check_shape(l, tq, tk)
+    if dev.type == "cpu":
+        _on_cpu(q=q, k=k, v=v)
+        flash_attention.plain_calls += 1
+        out = flash_attention_plain(q, k, v, causal=causal, tq=tq, tk=tk,
+                                    return_lse=with_lse)
+        return out if with_lse else (out, None)
+    _check_card(q)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, dev, q.dtype, (bh, l, d))
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, l), dtype=F32, device=dev) if with_lse else None
+    fn = getattr(_build.load("flash_attention"), "flash_attention_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(),
+                0 if lse is None else lse.data_ptr(), bh, l, d, int(causal),
+                tq, tk, d ** -0.5, stream)
+    _raise_on(rc, "flash_attention launch")
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        tq: int = 128, tk: int = 128,
+                        device: DeviceLike = None):
+    """(dq, dk, dv) in q's dtype, from the forward's inputs, its output o,
+    the output's gradient do (all (BH, L, D)) and its log-sum-exp lse
+    ((BH, L) float32)."""
+    dev = resolve(device)
+    bh, l, d = q.shape
+    _check_shape(l, tq, tk)
+    if dev.type == "cpu":
+        _on_cpu(q=q, k=k, v=v, o=o, do=do, lse=lse)
+        flash_attention.bwd_plain_calls += 1
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         tq=tq, tk=tk)
+    _check_card(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _check(name, t, dev, q.dtype, (bh, l, d))
+    _check("lse", lse, dev, F32, (bh, l))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dsum = torch.empty((bh, l), dtype=F32, device=dev)     # D, scratch
+    fn = getattr(_build.load("flash_attention"), "flash_attention_bwd_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
+                bh, l, d, int(causal), tq, tk, d ** -0.5, stream)
+    _raise_on(rc, "flash_attention_bwd launch")
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """`FlashAttention.apply(q, k, v, causal, tq, tk, device)`: the
+    forward saving its log-sum-exp, and `flash_attention_bwd` as its
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, tq, tk, dev):
+        o, lse = _forward(q, k, v, causal, tq, tk, dev, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, tq, tk, dev)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, tq, tk, dev = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
+                                         causal=causal, tq=tq, tk=tk,
+                                         device=dev)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, tq: int = 128,
@@ -73,39 +230,20 @@ def flash_attention(q, k, v, *, causal: bool = True, tq: int = 128,
                     ) -> torch.Tensor:
     """q, k, v: (BH, L, D), heads pre-flattened into the batch dim.
 
-    Returns (BH, L, D) in q's dtype. L must divide by tq and tk."""
+    Returns (BH, L, D) in q's dtype, differentiable in q, k and v. L must
+    divide by tq and tk."""
     dev = resolve(device)
-    bh, l, d = q.shape
-    if l % tq or l % tk:
-        raise ValueError(f"L = {l} must divide by tq = {tq} and tk = {tk}")
-    if dev.type == "cpu":
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.device.type != "cpu":
-                raise ValueError(f"{name} is on {t.device}, expected cpu")
-        flash_attention.plain_calls += 1
-        return flash_attention_plain(q, k, v, causal=causal, tq=tq, tk=tk)
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"q has dtype {q.dtype}: float32 or bfloat16")
-    if not 1 <= d <= 128:
-        raise ValueError(f"head dim {d}: the kernel takes 1 to 128")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, dev, q.dtype, (bh, l, d))
-    o = torch.empty_like(q)
-    fn = getattr(_build.load("flash_attention"), "flash_attention_launch")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), bh, l, d, int(causal), tq, tk,
-                d ** -0.5, stream)
-    _raise_on(rc, "flash_attention launch")
-    flash_attention.launches += 1
-    return o
+    if needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, tq, tk, dev)
+    return _forward(q, k, v, causal, tq, tk, dev, False)[0]
 
 
 def reset_counts() -> None:
-    """Zero the wrapper's launch and plain-call counts."""
+    """Zero the wrappers' launch and plain-call counts."""
     flash_attention.launches = 0
     flash_attention.plain_calls = 0
+    flash_attention.bwd_launches = 0
+    flash_attention.bwd_plain_calls = 0
 
 
 reset_counts()

@@ -59,6 +59,12 @@ def _check(name: str, t: torch.Tensor, dev: torch.device, dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _on_cpu(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.device.type != "cpu":
+            raise ValueError(f"{name} is on {t.device}, expected cpu")
+
+
 def _check_state(ps: PackedState, dev: torch.device) -> "tuple[int, int]":
     n_lanes, mem_words = ps.lanes.mem.shape
     ln = ps.lanes

@@ -19,7 +19,11 @@ group's rows (with rep = 1 this is the TPU kernel's per-head layout).
 `ssd_scan_plain` is the TPU kernel's per-chunk arithmetic in eager torch
 (any device). The wrapper takes `device=None` (meaning "cuda"): on a
 CUDA device it launches the kernel on the current stream or raises;
-only for CPU tensors does it run the plain version. It counts
+only for CPU tensors does it run the plain version. The plain version is
+differentiable; on the card a launch whose inputs need a gradient goes
+through `_grad.NoBackward`, so a backward through it raises
+NotImplementedError (no backward kernel yet, open item 13b-ii) instead
+of leaving the parameters upstream without a gradient. It counts
 `.launches` and `.plain_calls`; `reset_counts()` zeroes both.
 """
 from __future__ import annotations
@@ -30,10 +34,13 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import NoBackward, needs_grad
 from repro_torch.kernels.iss_stepper import _check, _raise_on
 
 F32 = torch.float32
 _DTYPES = (torch.float32, torch.bfloat16)
+NO_BACKWARD = ("ssd_scan has no backward kernel yet: a loss through the "
+               "scan trains on the CPU only (ROADMAP.md, open item 13b-ii)")
 
 
 def ssd_scan_plain(a, x, dt, b, c, *, q: int = 64, rep: int = 1
@@ -98,17 +105,24 @@ def ssd_scan(a, x, dt, b, c, *, q: int = 64, rep: int = 1,
             ("dt", dt, F32, (bh, l)), ("b", b, x.dtype, (bh // rep, l, n)),
             ("c", c, x.dtype, (bh // rep, l, n))):
         _check(name, t, dev, dtype, shape)
-    y = torch.empty_like(x)
-    s_final = torch.empty((bh, n, p), dtype=F32, device=dev)
-    fn = getattr(_build.load("ssd_scan"), "ssd_scan_launch")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(int(x.dtype == torch.bfloat16), a.data_ptr(), x.data_ptr(),
-                dt.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                s_final.data_ptr(), bh, l, p, n, q, rep, stream)
-    _raise_on(rc, "ssd_scan launch")
-    ssd_scan.launches += 1
-    return y, s_final
+
+    def launch(a, x, dt, b, c):
+        y = torch.empty_like(x)
+        s_final = torch.empty((bh, n, p), dtype=F32, device=dev)
+        fn = getattr(_build.load("ssd_scan"), "ssd_scan_launch")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(int(x.dtype == torch.bfloat16), a.data_ptr(),
+                    x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
+                    y.data_ptr(), s_final.data_ptr(), bh, l, p, n, q, rep,
+                    stream)
+        _raise_on(rc, "ssd_scan launch")
+        ssd_scan.launches += 1
+        return y, s_final
+
+    if needs_grad(a, x, dt, b, c):
+        return NoBackward.apply(NO_BACKWARD, launch, a, x, dt, b, c)
+    return launch(a, x, dt, b, c)
 
 
 def reset_counts() -> None:

@@ -1,0 +1,86 @@
+"""Train, prefill and decode step builders shared by train.py and serve.py
+(a port of the reference's `launch/steps.py`).
+
+The reference's steps are pure functions for `jax.jit`; these run
+eagerly. `train_step` takes the model's parameters module and updates it,
+and the optimizer state, in place (`optim/optimizers.py`), returning both
+as the reference returns its new ones. Gradients come from
+`torch.autograd.grad` over the module's parameters in
+`named_parameters()` order; a parameter the loss does not reach gets
+zeros, as `jax.grad` gives it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.model import Model
+from repro_torch.optim import clip_by_norm, cosine_schedule, make_optimizer
+
+F32 = torch.float32
+
+
+def _grads(loss, named):
+    gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return {k: torch.zeros_like(p) if g is None else g
+            for (k, p), g in zip(named.items(), gs)}
+
+
+def make_train_step(model: Model, *, grad_accum: int = 1,
+                    max_grad_norm: float = 1.0, lr_kwargs=None):
+    """Returns (init_opt_state, train_step).
+
+    init_opt_state(params) -> the optimizer's state for the module;
+    train_step(params, opt_state, batch, step) -> (params, opt_state,
+    metrics) with metrics {"xent", "loss", "gnorm", "lr"} as 0-d tensors.
+    With `grad_accum` > 1 the batch's leading axis splits into that many
+    micro-batches in order; their float32 gradients and losses are summed
+    each divided by `grad_accum`, as the reference's scan sums them."""
+    cfg = model.cfg
+    opt_init, opt_update = make_optimizer(cfg.optimizer)
+    lr_kwargs = lr_kwargs or {}
+
+    def init_opt_state(params):
+        return opt_init(dict(params.named_parameters()))
+
+    def train_step(params, opt_state, batch, step):
+        named = dict(params.named_parameters())
+        if grad_accum > 1:
+            b = next(iter(batch.values())).shape[0]
+            if b % grad_accum:
+                raise ValueError(f"batch {b} does not split into "
+                                 f"grad_accum = {grad_accum} micro-batches")
+            per = b // grad_accum
+            grads = {k: torch.zeros(p.shape, dtype=F32, device=p.device)
+                     for k, p in named.items()}
+            loss_sum = 0.0
+            for i in range(grad_accum):
+                mb = {k: x[i * per:(i + 1) * per] for k, x in batch.items()}
+                loss, _ = model.loss_fn(params, mb)
+                for k, g in _grads(loss, named).items():
+                    grads[k] += g.to(F32) / grad_accum
+                loss_sum = loss_sum + loss.detach() / grad_accum
+            metrics = {"xent": loss_sum}
+        else:
+            loss, metrics = model.loss_fn(params, batch)
+            grads = _grads(loss, named)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        grads, gnorm = clip_by_norm(grads, max_grad_norm)
+        lr = cosine_schedule(step, **lr_kwargs)
+        _, opt_state = opt_update(named, grads, opt_state, lr)
+        metrics = dict(metrics, gnorm=gnorm, lr=lr,
+                       loss=metrics.get("xent", 0.0))
+        return params, opt_state, metrics
+
+    return init_opt_state, train_step
+
+
+def make_prefill_step(model: Model, seq_len: int):
+    def prefill_step(params, batch):
+        return model.prefill_fn(params, batch, seq_len)
+    return prefill_step
+
+
+def make_decode_step(model: Model):
+    def decode_step(params, cache, tokens, pos):
+        return model.decode_fn(params, cache, tokens, pos)
+    return decode_step

@@ -1,0 +1,170 @@
+"""Train loop: auto-resume, atomic checkpoints, straggler watchdog,
+optional gradient accumulation (a port of the reference's
+`launch/train.py`). Runs on one card (`device=None` means "cuda" and
+raises without one) or, on request, on the CPU.
+
+Parameters are drawn from a `torch.Generator` seeded `seed` on the
+device (the reference's `jax.random.key(0)` has no torch counterpart;
+the tests carry the reference's parameters across by `convert`), and
+the batches are `data/pipeline.host_batch`'s. A checkpoint is one flat
+dict, `params/<name>`, `opt/<key>[/<name>...]` and `step`, through
+`distributed/checkpoint.py`; a run resumes from the newest intact one.
+A step's `dt` is the wall time from the step's start to the loss's
+`.item()`, as the reference measures it up to `float(loss)`.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+      --smoke --steps 20 --ckpt-dir /tmp/ckpt [--batch 8 --seq 128] \
+      [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.data.pipeline import DataConfig, host_batch
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models.model import build_model
+
+
+class StragglerWatchdog:
+    """Flags steps slower than `factor` x the running median. On real pods
+    this feeds the rescheduling hook; here it logs (and is unit-tested)."""
+
+    def __init__(self, factor: float = 2.0, warmup: int = 3):
+        self.times = []
+        self.factor = factor
+        self.warmup = warmup
+        self.flagged = []
+
+    def observe(self, step: int, dt: float) -> bool:
+        slow = (len(self.times) >= self.warmup
+                and dt > self.factor * float(np.median(self.times)))
+        self.times.append(dt)
+        if slow:
+            self.flagged.append((step, dt))
+        return slow
+
+
+def flat_state(params, opt_state, step: int) -> dict:
+    """The checkpoint tree: `params/<name>`, the optimizer state's leaves
+    under `opt/` joined by "/", and `step`."""
+    out = {f"params/{k}": p.detach() for k, p in params.named_parameters()}
+
+    def walk(prefix, tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(f"{prefix}{k}/", v)
+            else:
+                out[f"{prefix}{k}"] = v
+    walk("opt/", opt_state)
+    out["step"] = np.int64(step)
+    return out
+
+
+def load_state(flat: dict, params, opt_state) -> None:
+    """Copy a restored `flat_state` tree into the parameters and the
+    optimizer state, in place."""
+    with torch.no_grad():
+        for k, p in params.named_parameters():
+            p.copy_(torch.as_tensor(flat[f"params/{k}"]))
+
+        def walk(prefix, tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(f"{prefix}{k}/", v)
+                else:
+                    v.copy_(torch.as_tensor(flat[f"{prefix}{k}"]))
+        walk("opt/", opt_state)
+
+
+def to_device(batch: dict, dev: torch.device) -> dict:
+    """A host batch on the device: token ids as int64, the mask float32."""
+    return {k: torch.as_tensor(v).to(dev, torch.int64 if k != "mask"
+                                     else torch.float32)
+            for k, v in batch.items()}
+
+
+def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt_dir: str,
+               ckpt_every: int = 10, grad_accum: int = 1, lr_kwargs=None,
+               log=print, device: DeviceLike = None, seed: int = 0):
+    """Train `cfg` from step 0, or from the newest checkpoint in
+    `ckpt_dir`, to `steps`, saving every `ckpt_every` steps and at the
+    end. Returns {"losses", "flagged", "params", "opt_state", "dts"}."""
+    dev = resolve(device)
+    model = build_model(cfg)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    opt_init, train_step = make_train_step(model, grad_accum=grad_accum,
+                                           lr_kwargs=lr_kwargs)
+    params = model.init_params(
+        generator=torch.Generator(device=dev).manual_seed(seed), device=dev,
+        trainable=True)
+    opt_state = opt_init(params)
+    start_step = 0
+    if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        restored, start_step = ckpt.restore(
+            ckpt_dir, flat_state(params, opt_state, 0))
+        load_state(restored, params, opt_state)
+        log(f"[train] resumed from step {start_step}")
+
+    watchdog = StragglerWatchdog()
+    losses, dts = [], []
+    for step in range(start_step, steps):
+        bt = to_device(host_batch(dcfg, step), dev)
+        t0 = time.perf_counter()
+        params, opt_state, metrics = train_step(params, opt_state, bt, step)
+        loss = float(metrics["loss"].item())
+        dt = time.perf_counter() - t0
+        slow = watchdog.observe(step, dt)
+        losses.append(loss)
+        dts.append(dt)
+        log(f"[train] step={step} loss={loss:.4f} dt={dt * 1e3:.0f}ms"
+            + (" SLOW" if slow else ""))
+        if ckpt_dir and (step + 1) % ckpt_every == 0:
+            ckpt.save(ckpt_dir, step + 1,
+                      flat_state(params, opt_state, step + 1))
+    if ckpt_dir:
+        ckpt.save(ckpt_dir, steps, flat_state(params, opt_state, steps))
+    return {"losses": losses, "flagged": watchdog.flagged, "params": params,
+            "opt_state": opt_state, "dts": dts}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    if args.production_mesh:
+        raise NotImplementedError(
+            "--production-mesh: the port runs on one device; the LM's "
+            "distributed modules are not ported yet (ROADMAP.md, open item "
+            "13f)")
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(
+        args.arch)
+    out = train_loop(cfg=cfg, steps=args.steps, batch=args.batch,
+                     seq=args.seq, ckpt_dir=args.ckpt_dir,
+                     grad_accum=args.grad_accum, device=args.device)
+    print(json.dumps({"first_loss": out["losses"][0],
+                      "last_loss": out["losses"][-1],
+                      "n_flagged": len(out["flagged"])}))
+
+
+if __name__ == "__main__":
+    main()

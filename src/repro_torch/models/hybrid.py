@@ -1,6 +1,10 @@
 """Zamba2-style hybrid: a Mamba2 backbone with alternating *shared*
 attention blocks applied after every `shared_attn_period` Mamba layers
-(a port of the reference's `models/hybrid.py` for serving).
+(a port of the reference's `models/hybrid.py` for serving, and its loss
+`hybrid_loss`: the full forward, each Mamba layer and each shared-block
+call under `transformer.remat`; on the card its backward raises
+NotImplementedError until the scan has a backward kernel, open item
+13b-ii).
 
 Layer layout for n_layers=81, period=6:
   13 groups of (6 Mamba layers + shared block[i % 2]) + 3 tail Mamba
@@ -23,9 +27,11 @@ from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models.transformer import (DenseBlock, attn_block,
-                                            embed_tokens, ffn_block, frozen,
+                                            batch_mask, embed_tokens,
+                                            ffn_block, frozen,
                                             init_dense_layer, logits_fn,
-                                            padded_vocab, torch_dtype,
+                                            padded_vocab, remat,
+                                            softmax_xent, torch_dtype,
                                             _gqa_layer_decode)
 
 F32 = torch.float32
@@ -63,9 +69,11 @@ class HybridLM(nn.Module):
 
 
 def init_hybrid(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> HybridLM:
+                device: DeviceLike = None, trainable: bool = False
+                ) -> HybridLM:
     """Random parameters at the reference's scales, drawn on the device
-    from `generator` (a fresh one seeded 0 when None)."""
+    from `generator` (a fresh one seeded 0 when None), frozen unless
+    `trainable`."""
     dev = resolve(device)
     g = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
@@ -87,7 +95,7 @@ def init_hybrid(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
         "lm_head": mat((cfg.d_model, vp), cfg.d_model ** -0.5),
     }
-    return HybridLM(params)
+    return HybridLM(params).requires_grad_(trainable)
 
 
 def _mamba_layer(p: MambaLayer, cfg, h, *, return_state=False):
@@ -121,10 +129,21 @@ def hybrid_forward(model: HybridLM, cfg: ModelConfig, tokens):
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for step in _layout(cfg):
         if step[0] == "mamba":
-            h = _mamba_layer(model.mamba[step[1]], cfg, h)
+            h = remat(cfg, lambda p, h: _mamba_layer(p, cfg, h),
+                      model.mamba[step[1]], h)
         else:
-            h = _shared_block_fwd(model.shared[step[2]], cfg, h, positions)
+            h = remat(cfg, lambda p, h: _shared_block_fwd(p, cfg, h,
+                                                          positions),
+                      model.shared[step[2]], h)
     return L.rms_norm(h, model.final_norm, cfg.rms_eps)
+
+
+def hybrid_loss(model: HybridLM, cfg: ModelConfig, batch):
+    """(loss, {"xent": loss}) of {"tokens", "targets"[, "mask"]}."""
+    h = hybrid_forward(model, cfg, batch["tokens"])
+    loss = softmax_xent(logits_fn(model, cfg, h), batch["targets"],
+                        batch_mask(batch))
+    return loss, {"xent": loss}
 
 
 # --------------------------------------------------------------- serving

@@ -1,6 +1,6 @@
-"""Serving API of the port's models: build_model(config) -> Model with
-init/cache/prefill/decode functions, as the reference's `build_model`
-lays them out. The port serves the `dense` (Qwen2, Qwen2.5, Minitron),
+"""API of the port's models: build_model(config) -> Model with
+init/loss/cache/prefill/decode functions, as the reference's
+`build_model` lays them out. The port serves the `dense` (Qwen2, Qwen2.5, Minitron),
 `hybrid` (Zamba2) and `ssm` (Mamba2) families; the reference's `moe`,
 `vlm` and `audio` families raise NotImplementedError, naming the open
 item of ROADMAP.md that ports each."""
@@ -19,13 +19,17 @@ _UNPORTED = {"moe": "13d", "vlm": "13e", "audio": "13e"}
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """`init_params(generator=None, device=None)` -> parameters module;
+    """`init_params(generator=None, device=None, trainable=False)` ->
+    parameters module (frozen unless `trainable`);
+    `loss_fn(params, {"tokens", "targets"[, "mask"]})` -> (loss,
+    {"xent": loss});
     `init_cache(batch, seq_len, device=None)`;
     `prefill_fn(params, {"tokens": (B, L)}, seq_len)` -> (logits, cache);
     `decode_fn(params, cache, tokens (B, 1), pos)` -> (logits, cache),
     the cache updated in place."""
     cfg: ModelConfig
     init_params: Callable
+    loss_fn: Callable
     init_cache: Callable
     prefill_fn: Callable
     decode_fn: Callable
@@ -41,8 +45,11 @@ def build_model(cfg: ModelConfig) -> Model:
     if fam == "dense":
         TF.check_served(cfg)
 
-        def init_params(generator=None, device=None):
-            return TF.init_decoder(cfg, generator, device)
+        def init_params(generator=None, device=None, trainable=False):
+            return TF.init_decoder(cfg, generator, device, trainable)
+
+        def loss_fn(params, batch):
+            return TF.decoder_loss(params, cfg, batch)
 
         def init_cache(batch, seq_len, device=None):
             return TF.init_cache(cfg, batch, seq_len, device)
@@ -55,8 +62,11 @@ def build_model(cfg: ModelConfig) -> Model:
             return TF.decode_step(params, cfg, cache, tokens, pos)
 
     elif fam == "hybrid":
-        def init_params(generator=None, device=None):
-            return HY.init_hybrid(cfg, generator, device)
+        def init_params(generator=None, device=None, trainable=False):
+            return HY.init_hybrid(cfg, generator, device, trainable)
+
+        def loss_fn(params, batch):
+            return HY.hybrid_loss(params, cfg, batch)
 
         def init_cache(batch, seq_len, device=None):
             return HY.hybrid_init_cache(cfg, batch, seq_len, device)
@@ -68,8 +78,11 @@ def build_model(cfg: ModelConfig) -> Model:
             return HY.hybrid_decode_step(params, cfg, cache, tokens, pos)
 
     elif fam == "ssm":
-        def init_params(generator=None, device=None):
-            return SM.init_ssm_lm(cfg, generator, device)
+        def init_params(generator=None, device=None, trainable=False):
+            return SM.init_ssm_lm(cfg, generator, device, trainable)
+
+        def loss_fn(params, batch):
+            return SM.ssm_loss(params, cfg, batch)
 
         def init_cache(batch, seq_len, device=None):
             return SM.ssm_init_cache(cfg, batch, seq_len, device)
@@ -83,7 +96,8 @@ def build_model(cfg: ModelConfig) -> Model:
     else:
         raise KeyError(f"unknown family {fam!r}")
 
-    return Model(cfg, init_params, init_cache, prefill_fn, decode_fn)
+    return Model(cfg, init_params, loss_fn, init_cache, prefill_fn,
+                 decode_fn)
 
 
 def count_params(params) -> int:

@@ -1,5 +1,5 @@
 """Pure Mamba2 LM (attention-free, Mamba2-1.3B): a port of the
-reference's `models/ssm.py` for serving.
+reference's `models/ssm.py` for serving, and its loss (`ssm_loss`).
 
 The model is an `SSMLM` module: `embed`, `layers` (one pre-norm
 `MambaLayer` per layer: the reference's stacked `layers`, unstacked),
@@ -10,7 +10,10 @@ recurrence in plain torch. The cache is every layer's
 `mamba_init_state` stacked on a leading layer axis: `ssm` (n_layers, B,
 H, N, P) float32 and the conv windows `conv_x/B/C` (n_layers, B,
 d_conv-1, C); its size does not grow with the sequence. Prefill fills a
-preallocated cache and decode updates it in place.
+preallocated cache and decode updates it in place. The loss runs the
+full forward, each layer under `transformer.remat`; it differentiates
+on the CPU, and on the card its backward raises NotImplementedError
+until the scan has a backward kernel (open item 13b-ii).
 """
 from __future__ import annotations
 
@@ -25,8 +28,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models.hybrid import (MambaLayer, _mamba_layer,
                                        _mamba_layer_decode)
-from repro_torch.models.transformer import (embed_tokens, logits_fn,
-                                            padded_vocab, scan_layers_carry,
+from repro_torch.models.transformer import (batch_mask, embed_tokens,
+                                            logits_fn, padded_vocab, remat,
+                                            scan_layers_carry, softmax_xent,
                                             torch_dtype)
 
 F32 = torch.float32
@@ -47,9 +51,10 @@ class SSMLM(nn.Module):
 
 
 def init_ssm_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> SSMLM:
+                device: DeviceLike = None, trainable: bool = False) -> SSMLM:
     """Random parameters at the reference's scales, drawn on the device
-    from `generator` (a fresh one seeded 0 when None)."""
+    from `generator` (a fresh one seeded 0 when None), frozen unless
+    `trainable`."""
     dev = resolve(device)
     g = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
@@ -70,15 +75,23 @@ def init_ssm_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                                         device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = mat((cfg.d_model, vp), cfg.d_model ** -0.5)
-    return SSMLM(params)
+    return SSMLM(params).requires_grad_(trainable)
 
 
 def ssm_forward(model: SSMLM, cfg: ModelConfig, tokens):
     """The full forward (no cache): final-normed hidden states."""
     h = embed_tokens(model, tokens)
     for p in model.layers:
-        h = _mamba_layer(p, cfg, h)
+        h = remat(cfg, lambda p, h: _mamba_layer(p, cfg, h), p, h)
     return L.rms_norm(h, model.final_norm, cfg.rms_eps)
+
+
+def ssm_loss(model: SSMLM, cfg: ModelConfig, batch):
+    """(loss, {"xent": loss}) of {"tokens", "targets"[, "mask"]}."""
+    h = ssm_forward(model, cfg, batch["tokens"])
+    loss = softmax_xent(logits_fn(model, cfg, h), batch["targets"],
+                        batch_mask(batch))
+    return loss, {"xent": loss}
 
 
 def ssm_init_cache(cfg: ModelConfig, batch: int, seq_len: int,

@@ -1,6 +1,7 @@
 """Decoder-only LM, the dense family (Qwen2, Qwen2.5, Minitron): a port
-of the reference's `models/transformer.py` for serving, and the blocks
-the hybrid's shared attention reuses.
+of the reference's `models/transformer.py` for serving and training
+(`decoder_loss`, `softmax_xent`), and the blocks the hybrid's shared
+attention reuses.
 
 The model is a `DecoderLM` module: `embed`, `layers` (one `DenseBlock`
 per layer: the reference's `dense_layers` stacked on a leading layer
@@ -22,6 +23,14 @@ does. On the CPU `attn_impl="plain"` runs `layers.plain_attention`, the
 rest the kernel's plain version. Decode is plain torch, as in the
 reference.
 
+Training: parameters are built frozen for serving; `trainable=True` (or
+`requires_grad_()` on the module) makes them trainable. The loss runs
+the same forward; its attention's backward is the `flash_attention_bwd`
+kernel on the card (`kernels/flash_attention.py::FlashAttention`). With
+`cfg.remat` and autograd recording, each layer runs under
+`torch.utils.checkpoint` (`remat`), as the reference's `jax.checkpoint`
+wraps each layer: its activations are recomputed in the backward.
+
 Not served yet, each raising NotImplementedError with its open item of
 ROADMAP.md: local:global windows (`window`, `global_every` > 1: 13c),
 MoE, MLA and multi-token prediction (13d), prepended patches (13e).
@@ -32,6 +41,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
@@ -134,11 +144,12 @@ def init_dense_layer(cfg: ModelConfig, dtype, generator, device
 
 def init_decoder(cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None,
-                 device: DeviceLike = None) -> DecoderLM:
+                 device: DeviceLike = None,
+                 trainable: bool = False) -> DecoderLM:
     """Random parameters at the reference's scales, drawn on the device
-    from `generator` (a fresh one seeded 0 when None). Each matrix is
-    drawn in float32 and cast, so the largest transient is the float32
-    embedding."""
+    from `generator` (a fresh one seeded 0 when None), frozen unless
+    `trainable`. Each matrix is drawn in float32 and cast, so the largest
+    transient is the float32 embedding."""
     check_served(cfg)
     dev = resolve(device)
     g = generator if generator is not None else \
@@ -157,10 +168,18 @@ def init_decoder(cfg: ModelConfig,
         params["lm_head"] = mat((cfg.d_model, vp), cfg.d_model ** -0.5)
     params["layers"] = [init_dense_layer(cfg, dtype, g, dev)
                         for _ in range(cfg.n_layers)]
-    return DecoderLM(params)
+    return DecoderLM(params).requires_grad_(trainable)
 
 
 # ------------------------------------------------------------------ blocks
+
+def remat(cfg: ModelConfig, fn, *args):
+    """fn(*args), under torch.utils.checkpoint when `cfg.remat` and
+    autograd records (the reference's per-layer `jax.checkpoint`)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
 
 def embed_tokens(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens]
@@ -216,9 +235,13 @@ def decoder_hidden(model: DecoderLM, cfg: ModelConfig, h, positions):
     """Run all layers over h: (B, L, D). Returns (h, aux loss sum): the
     aux loss is the MoE router's, 0.0 for the dense family."""
     g = cfg.global_every or 1
+
+    def layer(p, h, window):
+        h = _self_attention(p, cfg, h, positions, window)[0]
+        return ffn_block(p, cfg, h)
+
     for i, p in enumerate(model.layers):
-        h = _self_attention(p, cfg, h, positions, _window_for(cfg, i % g))[0]
-        h = ffn_block(p, cfg, h)
+        h = remat(cfg, layer, p, h, _window_for(cfg, i % g))
     return h, 0.0
 
 
@@ -230,6 +253,36 @@ def decoder_forward(model: DecoderLM, cfg: ModelConfig, tokens,
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, aux = decoder_hidden(model, cfg, h, positions)
     return L.rms_norm(h, model.final_norm, cfg.rms_eps), aux
+
+
+def softmax_xent(logits, targets, mask):
+    """Mean token cross-entropy: logits (B, L, V) in float32 (log-sum-exp
+    over the padded vocabulary, whose pad `logits_fn` masks), targets
+    (B, L) ints, mask (B, L) weights."""
+    logits = logits.to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def batch_mask(batch) -> torch.Tensor:
+    """The batch's "mask", or ones over its targets."""
+    mask = batch.get("mask")
+    if mask is None:
+        t = batch["targets"]
+        mask = torch.ones(t.shape, dtype=F32, device=t.device)
+    return mask
+
+
+def decoder_loss(model: DecoderLM, cfg: ModelConfig, batch):
+    """(loss, {"xent": loss}) of {"tokens", "targets"[, "mask"]} (B, L).
+    MoE aux losses and multi-token prediction are refused with the rest
+    of 13d by `check_served`."""
+    h, _ = decoder_forward(model, cfg, batch["tokens"], batch.get("patches"))
+    loss = softmax_xent(logits_fn(model, cfg, h), batch["targets"],
+                        batch_mask(batch))
+    return loss, {"xent": loss}
 
 
 # ------------------------------------------------------------------ decode

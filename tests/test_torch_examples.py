@@ -1,9 +1,13 @@
 """The port's examples on the CPU (`--device cpu`, the kernels' plain
-versions) at a small size: `torch_quickstart.py` end to end, and
+versions) at a small size: `torch_quickstart.py` end to end (its part 3
+trains five steps before it decodes), `torch_train_100m.py` at a few
+short steps with a resume, and
 `torch_carbon_planner.py`'s sweep, tables and serving planner (its
 torch mirror equal to `plan_grid` bit for bit). The fleet example is in
 tests/test_torch_fleet_example.py; chip_smoke.py phase 19(b) runs all
 three on the card."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -33,6 +37,29 @@ def test_quickstart_runs_on_the_cpu(capsys):
     assert out[2].startswith(f"[iss] spoilage class={want} (ref={want}) "
                              f"in {sim.n_instr} instrs on cpu")
     assert out[3].startswith("[lm] qwen2-1.5b smoke config")
+    # part 3 trains five steps, as the reference's does, then decodes
+    assert out[3].startswith("[lm] qwen2-1.5b smoke config, 5 train steps: "
+                             "loss ")
+    assert out[4].startswith("[lm] generated (2, 8) tokens")
+
+
+def test_train_100m_runs_and_resumes_on_the_cpu(tmp_path, capsys):
+    """The reference's CFG_100M through the port's train loop, cut to a
+    few short steps: 2 steps and a checkpoint, then a second run that
+    resumes there to step 3."""
+    mod = load_example("torch_train_100m")
+    ref = load_example("train_100m")
+    assert dataclasses.asdict(mod.CFG_100M) == \
+        dataclasses.asdict(ref.CFG_100M)
+    argv = ["--device", "cpu", "--batch", "2", "--seq", "16", "--ckpt-dir",
+            str(tmp_path)]
+    first = mod.main(argv + ["--steps", "2"])
+    second = mod.main(argv + ["--steps", "3"])
+    out = capsys.readouterr().out.splitlines()
+    assert len(first["losses"]) == 2 and len(second["losses"]) == 1
+    assert np.all(np.isfinite(first["losses"] + second["losses"]))
+    assert "[train] resumed from step 2" in out
+    assert out[-1].startswith("[100m] 46.8M params; loss ")
 
 
 def test_carbon_planner_runs_on_the_cpu(capsys):

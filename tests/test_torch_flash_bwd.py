@@ -1,0 +1,143 @@
+"""The backward of the port's flash attention on the CPU: its plain
+version `flash_attention_bwd_plain` (the formula the `flash_attention_bwd`
+kernel is held to on the card) and the `FlashAttention` autograd Function
+through `flash_attention` and `ops.gqa_flash_attention`.
+
+Witnesses: torch.autograd through `flash_attention_plain` (the forward
+the kernel computes, its key bound included), and `jax.vjp` of the
+reference's `kernels/ref.py::attention_ref`, whose plain causal mask is
+the forward's function wherever the bound keeps every key below the
+diagonal: tq = tk, and tq a multiple of tk. With tq < tk the bound drops
+keys below the diagonal, and only autograd through the forward witnesses.
+The reference's Pallas kernel has no VJP rule. Tolerance: float32 1e-4
+(the sums run in another order); the forward's log-sum-exp 1e-5.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import one_torch_thread  # noqa: F401
+from repro.kernels import ref as rref
+from repro_torch.kernels import flash_attention as pfa
+from repro_torch.kernels import ops
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+# (BH, L, D, tq, tk)
+SHAPES = [(3, 16, 8, 16, 16), (2, 24, 12, 8, 8), (2, 24, 8, 8, 4),
+          (2, 24, 8, 12, 4), (2, 24, 8, 4, 8), (2, 24, 8, 4, 12)]
+
+
+def _inputs(bh, l, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(bh, l, d)).astype(np.float32)
+            for _ in range(4)]
+
+
+def _t(x, grad=False):
+    return torch.from_numpy(x.copy()).requires_grad_(grad)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_plain_equals_autograd_of_the_forward(shape, causal):
+    bh, l, d, tq, tk = shape
+    q, k, v, do = _inputs(bh, l, d)
+    tq_, tk_, tv = _t(q, True), _t(k, True), _t(v, True)
+    o, lse = pfa.flash_attention_plain(tq_, tk_, tv, causal=causal, tq=tq,
+                                       tk=tk, return_lse=True)
+    want = torch.autograd.grad(o, (tq_, tk_, tv), _t(do))
+    o, lse = o.detach(), lse.detach()
+    got = pfa.flash_attention_bwd_plain(_t(q), _t(k), _t(v), o, _t(do), lse,
+                                        causal=causal, tq=tq, tk=tk)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+    # the log-sum-exp is the scaled scores' over each row's keys
+    s = (q @ k.transpose(0, 2, 1)) * d ** -0.5
+    keep = np.ones((l, l), bool)
+    if causal:
+        qp = np.arange(l)[:, None]
+        up = np.minimum(np.maximum((qp // tq + 1) * tq // tk, 1), l // tk)
+        keep = np.arange(l)[None, :] < np.minimum(qp + 1, up * tk)
+    want_lse = np.log(np.sum(np.where(keep, np.exp(s), 0.0), -1))
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[3] % s[4] == 0])
+def test_bwd_plain_equals_jax_vjp_of_attention_ref(shape, causal):
+    bh, l, d, tq, tk = shape
+    q, k, v, do = _inputs(bh, l, d, seed=1)
+    o_ref, vjp = jax.vjp(lambda q, k, v: rref.attention_ref(
+        q[None], k[None], v[None], causal=causal)[0], *map(jnp.asarray,
+                                                           (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    o, lse = pfa.flash_attention_plain(_t(q), _t(k), _t(v), causal=causal,
+                                       tq=tq, tk=tk, return_lse=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), **TOL)
+    got = pfa.flash_attention_bwd_plain(_t(q), _t(k), _t(v), o, _t(do), lse,
+                                        causal=causal, tq=tq, tk=tk)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_function_runs_the_plain_backward(causal):
+    """On the CPU `flash_attention` with inputs that need a gradient goes
+    through `FlashAttention`: the plain forward, then the plain backward,
+    one call each; without a gradient it stays the serving forward."""
+    bh, l, d, tq, tk = 2, 24, 8, 4, 8
+    q, k, v, do = _inputs(bh, l, d, seed=2)
+    pfa.reset_counts()
+    tq_, tk_, tv = _t(q, True), _t(k, True), _t(v, True)
+    o = pfa.flash_attention(tq_, tk_, tv, causal=causal, tq=tq, tk=tk,
+                            device="cpu")
+    got = torch.autograd.grad(o, (tq_, tk_, tv), _t(do))
+    assert (pfa.flash_attention.plain_calls,
+            pfa.flash_attention.bwd_plain_calls) == (1, 1)
+    assert (pfa.flash_attention.launches,
+            pfa.flash_attention.bwd_launches) == (0, 0)
+    x = [_t(a, True) for a in (q, k, v)]
+    want = torch.autograd.grad(pfa.flash_attention_plain(
+        *x, causal=causal, tq=tq, tk=tk), x, _t(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+    with torch.no_grad():
+        o2 = pfa.flash_attention(tq_, tk_, tv, causal=causal, tq=tq, tk=tk,
+                                 device="cpu")
+    assert o2.grad_fn is None and torch.equal(o2, o.detach())
+    assert pfa.flash_attention.bwd_plain_calls == 1
+
+
+def test_gqa_backward_sums_the_group():
+    """`ops.gqa_flash_attention` repeats K and V outside the Function, so
+    autograd sums their gradients over each group: equal to autograd
+    through the reference layout's plain attention."""
+    from repro_torch.models import layers as players
+    rng = np.random.default_rng(3)
+    b, l, h, hkv, d = 2, 16, 6, 2, 8
+    q, do = (rng.normal(size=(b, l, h, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(size=(b, l, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    xs = [_t(a, True) for a in (q, k, v)]
+    got = torch.autograd.grad(ops.gqa_flash_attention(
+        *xs, causal=True, tq=8, tk=8, device="cpu"), xs, _t(do))
+    ys = [_t(a, True) for a in (q, k, v)]
+    want = torch.autograd.grad(players.plain_attention(*ys, causal=True),
+                               ys, _t(do))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+
+
+def test_bwd_wrapper_checks_its_inputs():
+    q = torch.zeros(1, 8, 4)
+    lse = torch.zeros(1, 8)
+    with pytest.raises(ValueError, match="divide"):
+        pfa.flash_attention_bwd(q, q, q, q, q, lse, tq=3, tk=8,
+                                device="cpu")
+    if not torch.cuda.is_available():      # device=None means the card
+        with pytest.raises(RuntimeError, match="cuda"):
+            pfa.flash_attention_bwd(q, q, q, q, q, lse, tq=8, tk=8)

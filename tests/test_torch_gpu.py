@@ -807,3 +807,149 @@ def test_spoilage_variant_through_the_kernel_equals_ref(cuda):
         assert torch.equal(u, v), f
     np.testing.assert_array_equal(a.mem[:, algo.out_addr].cpu().numpy(),
                                   algo.ref(x))
+
+
+# ------------------------------------------------------------- training
+
+_BWD_SHAPES = [(3, 11, 16, 11, 11), (2, 200, 112, 200, 200),
+               (2, 200, 64, 50, 100), (2, 200, 64, 100, 50),
+               (2, 13, 5, 13, 13), (2, 200, 40, 50, 100),
+               (1, 130, 128, 130, 130), (96, 512, 128, 512, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", _BWD_SHAPES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, causal,
+                                                  shape):
+    """The forward's log-sum-exp and the backward kernel's dq, dk, dv
+    against the plain versions on the same inputs: odd and ragged L and
+    D, tq < tk and tq > tk (the forward's key bound), Qwen2-1.5B's
+    training shape."""
+    from repro_torch.kernels import flash_attention as pfa
+    bh, l, d, tq, tk = shape
+    g = torch.Generator(device=cuda).manual_seed(l + d + 7)
+    q, k, v, do = (_rand(g, (bh, l, d), dtype, cuda) for _ in range(4))
+    o, lse = pfa._forward(q, k, v, causal, tq, tk, q.device, True)
+    po, plse = pfa.flash_attention_plain(q, k, v, causal=causal, tq=tq,
+                                         tk=tk, return_lse=True)
+    _lm_close(o, po, dtype)
+    _lm_close(lse, plse, torch.float32)
+    pfa.reset_counts()
+    got = pfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                  tq=tq, tk=tk, device=cuda)
+    torch.cuda.synchronize()
+    assert pfa.flash_attention.bwd_launches == 1
+    want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         tq=tq, tk=tk)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == q.shape
+        _lm_close(a, b, dtype)
+
+
+def test_flash_attention_autograd_launches_both_kernels(cuda):
+    """A loss through `ops.gqa_flash_attention` on the card: one forward
+    and one backward launch, no plain call, the gradients equal to
+    autograd through the plain forward on the CPU."""
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ops
+    b, l, h, hkv, d = 2, 128, 6, 2, 32
+    g = torch.Generator().manual_seed(3)
+    xs = [torch.randn((b, l, n, d), generator=g) for n in (h, hkv, hkv)]
+    do = torch.randn((b, l, h, d), generator=g)
+    card = [x.to(cuda).requires_grad_() for x in xs]
+    pfa.reset_counts()
+    got = torch.autograd.grad(ops.gqa_flash_attention(
+        *card, causal=True, tq=64, tk=64, device=cuda), card, do.to(cuda))
+    torch.cuda.synchronize()
+    assert (pfa.flash_attention.launches, pfa.flash_attention.bwd_launches,
+            pfa.flash_attention.plain_calls,
+            pfa.flash_attention.bwd_plain_calls) == (1, 1, 0, 0)
+    cpu = [x.clone().requires_grad_() for x in xs]
+    want = torch.autograd.grad(ops.gqa_flash_attention(
+        *cpu, causal=True, tq=64, tk=64, device="cpu"), cpu, do)
+    for a, w in zip(got, want):
+        _lm_close(a.cpu(), w, torch.float32)
+
+
+def test_scan_and_bit_planes_refuse_a_backward_on_the_card(cuda):
+    """No silent missing gradient: a backward through `ssd_scan` or
+    `bitplane_matmul` on the card raises NotImplementedError, and
+    without a gradient both run as before."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = _rand(g, (1, 2, 64, 16), torch.float32, cuda).requires_grad_()
+    dt = torch.nn.functional.softplus(_rand(g, (1, 2, 64), torch.float32,
+                                            cuda))
+    a = -torch.ones(2, device=cuda)
+    bm, cm = (_rand(g, (1, 1, 64, 8), torch.float32, cuda) for _ in range(2))
+    y = ops.ssd(x, dt, a, bm, cm, q=32, device=cuda)
+    with pytest.raises(NotImplementedError, match="13b-ii"):
+        y.sum().backward()
+    w = _rand(g, (128, 128), torch.float32, cuda, 0.1).requires_grad_()
+    xq = _rand(g, (4, 128), torch.float32, cuda).requires_grad_()
+    out = ops.quantized_linear(xq, w, bits=8, device=cuda)
+    with pytest.raises(NotImplementedError, match="bit planes"):
+        out.sum().backward()
+    with torch.no_grad():
+        assert ops.ssd(x, dt, a, bm, cm, q=32, device=cuda).grad_fn is None
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.model import build_model
+    for arch in ("mamba2-1.3b", "zamba2-7b"):
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        model = build_model(cfg)
+        params = model.init_params(torch.Generator(device=cuda).manual_seed(
+            0), cuda, trainable=True)
+        toks = torch.randint(0, cfg.vocab, (2, 65), device=cuda)
+        loss, _ = model.loss_fn(params, {"tokens": toks[:, :-1],
+                                         "targets": toks[:, 1:]})
+        assert torch.isfinite(loss)
+        with pytest.raises(NotImplementedError, match="13b-ii"):
+            loss.backward()
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_smoke_train_steps_on_card_match_cpu(cuda, grad_accum):
+    """Three `train_loop` steps of the qwen2-1.5b smoke config in float32
+    on the card (the flash kernels) and on the CPU (their plain versions)
+    from the same parameters: losses and gnorms within 1e-4 relative; the
+    parameters within 2 x the summed learning rates, the most a sign flip
+    of Adam's normalised update can move them (a gradient at rounding
+    level differs in sign between the two)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.launch import steps as psteps
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import cosine_schedule
+    cfg = get_smoke_config("qwen2-1.5b").replace(dtype="float32")
+    model = build_model(cfg)
+    lr_kwargs = {"warmup": 1}
+    opt_init, step_fn = psteps.make_train_step(model, grad_accum=grad_accum,
+                                               lr_kwargs=lr_kwargs)
+    cpu = model.init_params(torch.Generator().manual_seed(0), "cpu",
+                            trainable=True)
+    card = model.init_params(torch.Generator(device=cuda).manual_seed(0),
+                             cuda, trainable=True)
+    with torch.no_grad():
+        for a, b in zip(card.parameters(), cpu.parameters()):
+            a.copy_(b)
+    sc, sp = opt_init(card), opt_init(cpu)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    pfa.reset_counts()
+    for step in range(3):
+        bt = host_batch(dcfg, step)
+        card, sc, mc = step_fn(card, sc, to_device(bt, cuda), step)
+        cpu, sp, mp = step_fn(cpu, sp, to_device(bt, torch.device("cpu")),
+                              step)
+        for k in ("loss", "gnorm"):
+            np.testing.assert_allclose(float(mc[k]), float(mp[k]),
+                                       rtol=1e-4)
+    n_fwd = pfa.flash_attention.launches
+    assert n_fwd > 0 and pfa.flash_attention.bwd_launches > 0
+    assert pfa.flash_attention.plain_calls == n_fwd       # the CPU's
+    atol = 2 * sum(float(cosine_schedule(s, **lr_kwargs)) for s in range(3))
+    for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=atol, msg=name)
