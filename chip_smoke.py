@@ -74,8 +74,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    rollback timed at full shape;
 13. LM kernels: the count of tensor-core instructions (HMMA, HGMMA) in
    each LM kernel's SASS where the toolkit has `cuobjdump` (the
-   bfloat16 flash kernel, the bfloat16 scan kernel and the bit planes'
-   GEMM must have some);
+   bfloat16 flash kernel, its two bfloat16 backward kernels, the
+   bfloat16 scan kernel and the bit planes' GEMM must have some);
    `flash_attention`, `ssd_scan` and `bitplane_matmul` against their
    plain versions in float32 and bfloat16 on small and ragged shapes (L
    11 and 200 causal and full with equal and unequal tiles, D 40
@@ -192,9 +192,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    log-sum-exp) against its plain version at Qwen2-1.5B's training
    shape (BH 8 x 12 = 96, L 512, D 128, tile 512), causal, in float32
    and bfloat16, and at tq != tk both ways and causal=False, every
-   gradient within `LM_TOL`; the bfloat16 causal case timed beside the
-   plain version, SDPA's backward ((forward + backward) - forward) and
-   the bound; (b) Qwen2-1.5B at full width and depth (1,543,910,912
+   gradient within `LM_TOL`; the bfloat16 causal case launched twice
+   for the same bits, and timed beside the plain version, SDPA's
+   backward ((forward + backward) - forward) and the bound, each
+   backward's kernels also by their device time (torch.profiler), with
+   the bfloat16 backward kernels' registers and spills (none allowed);
+   (b) Qwen2-1.5B at full width and depth (1,543,910,912
    bfloat16 parameters from a seed, remat on), five `train_loop` steps
    with AdamW at 8 x 512 tokens from `data/pipeline.py` (cut: the step
    count): finite losses, the median step of steps 2-5, train tokens/s,
@@ -226,9 +229,9 @@ its per-cell sums, which follow no fixed order (relative 2 (N - 1) u),
 and for values at a log10 bin edge (counted; see
 `tests/_torch_parity.py`); its max_abs_err is over the exact fields.
 The LM kernels sum in another order than their plain versions (the
-bfloat16 flash kernel also rounds P to bfloat16 for P v, the bfloat16
-scan W, S and B w) and are held to `LM_TOL` times the output's largest
-magnitude.
+bfloat16 flash kernel also rounds P to bfloat16 for P v, its backward P
+and dS for their products, the bfloat16 scan W, S and B w) and are held
+to `LM_TOL` times the output's largest magnitude.
 """
 import dataclasses
 import json
@@ -1441,8 +1444,8 @@ def sass_mma_counts(lib: str):
 
 def check_tensor_cores():
     """Counts each LM kernel's tensor-core instructions; fails if the
-    bfloat16 flash kernel, the bfloat16 scan kernel or the bit planes'
-    GEMM has none."""
+    bfloat16 flash kernel, either bfloat16 backward kernel, the bfloat16
+    scan kernel or the bit planes' GEMM has none."""
     libs = ("flash_attention", "ssd_scan", "bitplane_matmul")
     counts = {lib: sass_mma_counts(lib) for lib in libs}
     if counts[libs[0]] is None:
@@ -1453,6 +1456,8 @@ def check_tensor_cores():
         log(f"[lm kernels] {lib} SASS: " + "; ".join(
             f"{k} {h} HMMA, {g} HGMMA" for k, (h, g) in c.items()))
     for lib, kernel in (("flash_attention", "flash_fwd_mma"),
+                        ("flash_attention", "flash_bwd_dq_mma"),
+                        ("flash_attention", "flash_bwd_dkdv_mma"),
                         ("ssd_scan", "ssd_fwd_mma"),
                         ("bitplane_matmul", "bitplane_gemm")):
         hits = [sum(v) for k, v in counts[lib].items()
@@ -3097,16 +3102,59 @@ def flash_bwd_bound(q, tq, tk, causal):
     return nbytes / HBM_BYTES_PER_S * 1e3, fwd_ms * 5 / 2
 
 
+def bwd_mma_registers():
+    """ptxas's report for the bfloat16 backward kernels, one entry per
+    head-dim build: '<kernel>: <registers> registers, spills <st>/<ld>
+    bytes'; raises on a spill. Empty where this process found the
+    library built."""
+    from repro_torch.kernels import _build
+    rows = [r for r in ptxas_report(_build.build_log("flash_attention"))
+            if r[0].startswith(("flash_bwd_dq_mma", "flash_bwd_dkdv_mma"))]
+    spilled = [r for r in rows if r[3] or r[4]]
+    if spilled:
+        raise AssertionError(f"bfloat16 backward kernels spill: {spilled}")
+    return [f"{k}: {regs} registers, spills {st}/{ld} bytes"
+            for k, regs, _, st, ld in rows]
+
+
+def kernel_device_ms(fn, reps):
+    """{kernel: (device ms, launches) a call of fn()} over `reps` calls
+    under torch.profiler (device activity only), after one call to warm
+    up. A session can lose most of its kernel records (phase 21(a)'s
+    first one did, in two runs), so a kernel's count of records must be
+    a multiple of `reps`: else a second session, then None."""
+    fn()
+    for _ in range(2):
+        _, _, _, rows = profiled(lambda: [fn() for _ in range(reps)],
+                                 cpu=False)
+        rows = [r for r in rows if r.self_device_time_total > 0
+                and not r.key.startswith("aten::")]
+        if rows and not any(r.count % reps for r in rows):
+            break
+    else:
+        return None
+    out = {}
+    for r in rows:
+        name = r.key.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.strip().removeprefix("void ").split("::")[-1][:60]
+        ms, n = out.get(name, (0.0, 0))
+        out[name] = (ms + r.self_device_time_total / 1e3 / reps,
+                     n + r.count // reps)
+    return out
+
+
 def phase_flash_bwd(dev, rec):
     """21(a): the backward kernel against its plain version at the
     training shape (Qwen2-1.5B: B 8 x 12 heads, L 512, D 128, tile 512),
     causal, in float32 and bfloat16, and at tq != tk and causal=False;
-    every gradient within LM_TOL; the bfloat16 causal case timed beside
-    the plain version, SDPA's backward and the bound."""
+    every gradient within LM_TOL; the bfloat16 causal case launched
+    twice for the same bits, then timed beside the plain version, SDPA's
+    backward and the bound, with the bfloat16 kernels' registers."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as pfa
+    regs = bwd_mma_registers()
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(TRAIN_ARCH)
     bh, l, d = TRAIN_BATCH * cfg.n_heads, TRAIN_SEQ, cfg.resolved_head_dim
@@ -3137,6 +3185,11 @@ def phase_flash_bwd(dev, rec):
             f"{LM_TOL[str(dtype)[6:]]} x max(1, largest |gradient|))")
         if (dtype, causal, tq, tk) != (torch.bfloat16, True, t, t):
             continue
+        again = pfa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                        tq=t, tk=t, device=dev)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash backward {what}: two launches on "
+                                 f"the same inputs differ")
         qs, ks, vs = (x[None].detach().requires_grad_() for x in (q, k, v))
         do4 = do[None]
 
@@ -3148,6 +3201,20 @@ def phase_flash_bwd(dev, rec):
             out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
             torch.autograd.grad(out, (qs, ks, vs), do4)
         lib = timed(sdpa_fwd_bwd, 20) - timed(sdpa_fwd, 20)
+        # the same two backwards by their kernels' device time alone
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        ours = kernel_device_ms(lambda: pfa.flash_attention_bwd(
+            q, k, v, o, do, lse, causal=True, tq=t, tk=t, device=dev), 20)
+        sdpa = kernel_device_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do4, retain_graph=True), 20)
+        log("[train] device time a call (torch.profiler): " + "; ".join(
+            f"{what} " + ("not measured (records lost)" if ms is None else
+                          f"{sum(v for v, _ in ms.values()):.4f} ms ("
+                          + ", ".join(f"{k} {v:.4f} in {n}"
+                                      for k, (v, n) in ms.items()) + ")")
+            for what, ms in (("flash_attention_bwd", ours),
+                             ("SDPA's backward", sdpa))))
+        del out
         record(rec, FLASH_BWD[0],
                timed(lambda: pfa.flash_attention_bwd(
                    q, k, v, o, do, lse, causal=True, tq=t, tk=t,
@@ -3157,6 +3224,9 @@ def phase_flash_bwd(dev, rec):
                max(errs), flash_bwd_bound(q, t, t, True), lib,
                f"BH {bh} x L {l} x D {d} bfloat16, causal, tile {t} "
                f"(library: SDPA's forward + backward minus its forward)")
+        log(f"[train] flash_attention_bwd bfloat16: two launches give the "
+            f"same bits; ptxas: " + ("; ".join(regs) if regs else
+                                     "not reported (library found built)"))
     torch.cuda.empty_cache()
 
 

@@ -53,20 +53,49 @@
 // online softmax four threads a row and adds P v to a 4 x D/16 output
 // micro-tile. Ragged L and D are zero-padded in shared memory and
 // masked. D <= 128.
-// Backward (flash_bwd_dq, flash_bwd_dkdv; the TPU kernel has none: the
-// reference trains through jnp attention and autodiff). Given q, k, v, o,
-// dO and the forward's lse it recomputes P = exp(scale q k^T - lse) tile
-// by tile under the forward's key limits, and forms D = rowsum(dO o),
+// Backward (no TPU kernel: the reference trains through jnp attention
+// and autodiff, so this is the gradient of src/repro/kernels/
+// flash_attention.py:61's function, its key bound included). Given q, k,
+// v, o, dO and the forward's lse it recomputes P = exp(scale q k^T - lse)
+// tile by tile under the forward's key limits, and forms D = rowsum(dO o),
 // dV = P^T dO, dS = P (dO v^T - D), dQ = scale dS k, dK = scale dS^T q.
 // One pass per 64 query rows forms dQ (and writes D), then one per 64 keys
 // dK and dV, over exactly the query tiles whose key limit reaches them:
-// no atomics, the gradients deterministic. float32 tiles and sums on the
-// CUDA cores for both types (a first, simple build; tensor cores later),
-// outputs in q's type. At Qwen2-1.5B's training shape (BH 96, L 512, D
-// 128, causal, bfloat16) it must read q, k, v, o, dO and lse and write
-// dq, dk, dv, about 101 MB or 0.030 ms at 3.35 TB/s, and its five causal
-// products are about 1.6e10 operations, 0.016 ms at the bfloat16
-// tensor-core rate: bytes bound it; on the CUDA cores the products do.
+// no atomics, the gradients deterministic. Outputs in q's type.
+//
+// What bounds it. At Qwen2-1.5B's training shape (BH 96, L 512, D 128,
+// causal, bfloat16) it must read q, k, v, o, dO and lse and write dq, dk,
+// dv, about 101 MB or 0.030 ms at 3.35 TB/s; its five causal products are
+// about 1.6e10 operations, 0.016 ms at the bfloat16 tensor-core rate. So
+// bytes bound it. The two passes recompute S and dP, seven products in
+// all, about 2.3e10 operations.
+//
+// bfloat16 (flash_bwd_dq_mma, flash_bwd_dkdv_mma): mma.sync m16n8k16 with
+// float32 sums, 4 warps a block, cp.async double buffering and rows
+// padded to D + 8 as in flash_fwd_mma. The dQ pass: a warp owns 16 query
+// rows; q and dO come once into registers as A fragments; K and V arrive
+// in 64-key tiles, each walked in two halves of 32 keys: S = q k^T and
+// dP = dO v^T, P = exp2(S scale log2 e - lse log2 e) in float32, dS = P
+// (dP - D) rounded to bfloat16 straight from the C fragments into the A
+// fragments of dQ += dS k (k's B fragments by ldmatrix.trans). The dK/dV
+// pass works in the transposed frame: a warp owns 16 keys, takes its k
+// and v rows as A fragments from shared memory, and walks the query
+// tiles (q, dO, lse, D double-buffered) in halves of 32 queries: S^T = k
+// q^T and dP^T = v dO^T, so P^T and dS^T, rounded to bfloat16 in
+// registers, are the A fragments of dV += P^T dO and dK += dS^T q. The
+// scale is applied to the float32 S inside exp2 and to dQ and dK in the
+// epilogue, never to bfloat16 q (D^-1/2 is not a power of two). The mask
+// is applied only on tiles that cross a limit; keys past L and query rows
+// past L (whose lse is undefined: read as 0) get P = 0 explicitly. The
+// halves keep each thread under 255 registers without spills (2 x 16 x
+// 128 float32 dK and dV sums a warp at D = 128 are 128 a thread); 104 KB
+// of shared memory a block at D = 128, two blocks an SM. Rounding P to
+// bfloat16 before P^T dO and dS before dS k and dS^T q are the two
+// roundings the plain version lacks: one bfloat16 step each at most.
+//
+// float32 (flash_bwd_dq, flash_bwd_dkdv): float32 tiles and sums on the
+// CUDA cores, as first ported; the float32 tolerance (1e-4) rules out
+// bfloat16 or TF32 products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -499,8 +528,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------- backward
-// flash_bwd_dq and flash_bwd_dkdv, float32 arithmetic on the CUDA cores
-// for both input types. Blocks of 256 threads as a 16 x 16 grid (ty, tx);
+// float32: flash_bwd_dq and flash_bwd_dkdv on the CUDA cores. Blocks of
+// 256 threads as a 16 x 16 grid (ty, tx);
 // a thread owns the score elements (ty + 16 i, tx + 16 j), i, j < 4, and
 // the output elements (ty + 16 i, tx + 16 j), j < dd / 16. Tiles are
 // float32 in shared memory in rows of dd + 1 (odd: a warp's column reads
@@ -762,6 +791,445 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------- backward, bf16
+constexpr int kBwdBlocksPerSM = 2;  // 255 registers a thread at most
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 4 bytes global -> shared; with `valid` false it reads nothing and
+// writes zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// acc (16 x 16 DK over the warp, float32, scaled) into rows r, r + 8 and
+// columns 8 j + 2 t of a (L, D) bfloat16 matrix, nothing past L or D
+template <int DK>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[2 * DK][4],
+                                           int r, int t4, int L, int D,
+                                           float scale) {
+#pragma unroll
+  for (int j = 0; j < 2 * DK; ++j) {
+    const int d = 8 * j + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = r + 8 * h;
+      if (rr >= L) continue;
+      bf16* p = dst + static_cast<size_t>(rr) * D + d;
+      const float v0 = acc[j][2 * h] * scale, v1 = acc[j][2 * h + 1] * scale;
+      if (D % 2 == 0) {
+        if (d < D) *reinterpret_cast<uint32_t*>(p) = lm::pack_bf16x2(v0, v1);
+      } else {
+        if (d < D) p[0] = __float2bfloat16_rn(v0);
+        if (d + 1 < D) p[1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+// A lane's ldmatrix_x4 address, in elements, in a bfloat16 tile of row
+// stride ld: the A fragment of rows r0.. r0 + 15 and columns 16 kk..; the
+// B fragments of two n8 tiles, rows n0.. n0 + 15, over columns 16 kk..;
+// and, with ldmatrix_x4_trans, the B fragments of two n8 tiles, columns
+// 16 n2.., over rows k0.. k0 + 15
+__device__ __forceinline__ int a_frag(int ld, int r0, int kk) {
+  const int lane = threadIdx.x & 31;
+  return (r0 + (lane & 15)) * ld + kk * 16 + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int b_frag(int ld, int n0, int kk) {
+  const int lane = threadIdx.x & 31;
+  return (n0 + (lane >> 4) * 8 + (lane & 7)) * ld + kk * 16 +
+         ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int bt_frag(int ld, int k0, int n2) {
+  const int lane = threadIdx.x & 31;
+  return (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + n2 * 16 +
+         (lane >> 4) * 8;
+}
+
+template <int DK>
+constexpr size_t bwd_mma_smem_bytes() {  // six [64][16 DK + 8] tiles
+  return sizeof(bf16) * 6 * kRows * (16 * DK + 8) +
+         3 * 2 * kRows * sizeof(float);  // dkdv: lse, D, key limits x 2
+}
+
+// dQ of 64 query rows, and D = rowsum(dO o) of them for the dK/dV pass.
+template <int DK>
+__global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
+    flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ o,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, bf16* __restrict__ dq,
+                     float* __restrict__ dsum, int L, int D, int causal,
+                     int tq, int tk, float scale_log2, float scale) {
+  constexpr int dd = 16 * DK, ld = dd + 8, tile = kKeys * ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][ld]
+  bf16* dOs = Qs + tile;                          // [kRows][ld]
+  bf16* Ks = dOs + tile;                          // [2][kKeys][ld]
+  bf16* Vs = Ks + 2 * tile;                       // [2][kKeys][ld]
+  float* Ds = reinterpret_cast<float*>(Vs + 2 * tile);  // [kRows]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
+  const size_t base = static_cast<size_t>(blockIdx.x) * L * D;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * L;
+  const int row = q0 + warp * 16 + g;  // this thread's rows: row, row + 8
+  const int lim_lo = key_limit(row, L, causal, tq, tk);
+  const int lim_hi = key_limit(row + 8, L, causal, tq, tk);
+  const int kend = key_limit(min(q0 + kRows, L) - 1, L, causal, tq, tk);
+  const int n_tiles = (kend + kKeys - 1) / kKeys;
+
+  load_rows<DK>(Qs, q + base, q0, L, D);
+  load_rows<DK>(dOs, dout + base, q0, L, D);
+  load_rows<DK>(Ks, k + base, 0, L, D);
+  load_rows<DK>(Vs, v + base, 0, L, D);
+  load_rows<DK>(Vs + tile, o + base, q0, L, D);  // V's second stage, for now
+  lm::cp_async_commit();
+  // lse of a row past L is undefined: its P is masked to 0 below
+  const float ls_lo = row < L ? lse[row0 + row] * kLog2e : 0.f;
+  const float ls_hi = row + 8 < L ? lse[row0 + row + 8] * kLog2e : 0.f;
+  lm::cp_async_wait<0>();
+  __syncthreads();
+  {  // D = rowsum(dO o), two threads a row (zeros past L and D)
+    const int r = threadIdx.x >> 1, part = threadIdx.x & 1, qp = q0 + r;
+    const bf16* Os = Vs + tile;
+    float acc = 0.f;
+    for (int d = 2 * part; d < dd; d += 4) {
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(dOs + r * ld + d));
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(Os + r * ld + d));
+      acc = fmaf(a.y, b.y, fmaf(a.x, b.x, acc));
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (part == 0) {
+      Ds[r] = acc;
+      if (qp < L) dsum[row0 + qp] = acc;
+    }
+  }
+  uint32_t qf[DK][4], df[DK][4];
+#pragma unroll
+  for (int kk = 0; kk < DK; ++kk) {
+    lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
+    lm::ldmatrix_x4(df[kk], lm::smem_u32(dOs + a_frag(ld, warp * 16, kk)));
+  }
+  __syncthreads();  // V's second stage is refilled next
+  const float D_lo = Ds[warp * 16 + g], D_hi = Ds[warp * 16 + g + 8];
+
+  float acc[2 * DK][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {
+      load_rows<DK>(Ks + (st ^ 1) * tile, k + base, (it + 1) * kKeys, L, D);
+      load_rows<DK>(Vs + (st ^ 1) * tile, v + base, (it + 1) * kKeys, L, D);
+    }
+    lm::cp_async_commit();
+    lm::cp_async_wait<1>();  // tile `it` has landed
+    __syncthreads();
+    const bf16* Kt = Ks + st * tile;
+    const bf16* Vt = Vs + st * tile;
+
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {  // 32 keys at a time
+      const int kh = h * 32;
+      // S = q k^T, then dP = dO v^T (P's exponentials can run beside its
+      // products), over 4 n8 tiles of keys, float32
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t b[4];
+          lm::ldmatrix_x4(b, lm::smem_u32(Kt + b_frag(ld, kh + np * 16, kk)));
+          lm::mma_bf16_16816(s[2 * np], qf[kk], b[0], b[1]);
+          lm::mma_bf16_16816(s[2 * np + 1], qf[kk], b[2], b[3]);
+        }
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t b[4];
+          lm::ldmatrix_x4(b, lm::smem_u32(Vt + b_frag(ld, kh + np * 16, kk)));
+          lm::mma_bf16_16816(dp[2 * np], df[kk], b[0], b[1]);
+          lm::mma_bf16_16816(dp[2 * np + 1], df[kk], b[2], b[3]);
+        }
+      // P in float32, masked past each row's key limit (and past L); dS
+      // rounded to bfloat16 as the A fragments of dS k
+      const int k0 = it * kKeys + kh;
+      const bool cross = k0 + 32 > lim_lo;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[j][e] = exp2f(fmaf(s[j][e], scale_log2, -ls_lo));
+          s[j][2 + e] = exp2f(fmaf(s[j][2 + e], scale_log2, -ls_hi));
+          if (cross) {
+            const int key = k0 + 8 * j + 2 * t4 + e;
+            if (key >= lim_lo) s[j][e] = 0.f;
+            if (key >= lim_hi) s[j][2 + e] = 0.f;
+          }
+        }
+      uint32_t da[2][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          ds[e] = s[j][e] * (dp[j][e] - D_lo);
+          ds[2 + e] = s[j][2 + e] * (dp[j][2 + e] - D_hi);
+        }
+        da[j >> 1][2 * (j & 1)] = lm::pack_bf16x2(ds[0], ds[1]);
+        da[j >> 1][2 * (j & 1) + 1] = lm::pack_bf16x2(ds[2], ds[3]);
+      }
+      // dQ += dS k over 2 k16 steps of keys, 2 DK n8 tiles of D
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int dp2 = 0; dp2 < DK; ++dp2) {
+          uint32_t b[4];
+          lm::ldmatrix_x4_trans(b, lm::smem_u32(Kt + bt_frag(ld, kh + kk * 16, dp2)));
+          lm::mma_bf16_16816(acc[2 * dp2], da[kk], b[0], b[1]);
+          lm::mma_bf16_16816(acc[2 * dp2 + 1], da[kk], b[2], b[3]);
+        }
+    }
+    __syncthreads();  // stage `st` is refilled next
+  }
+  store_rows<DK>(dq + base, acc, row, t4, L, D, scale);
+}
+
+// dK and dV of 64 keys: walks exactly the query tiles some row of which
+// reads one of these keys (the key limit does not decrease with the row,
+// so the tiles from the first whose last row's limit passes k0 on).
+template <int DK>
+__global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
+    flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dsum, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int L, int D, int causal, int tq,
+                       int tk, float scale_log2, float scale) {
+  constexpr int dd = 16 * DK, ld = dd + 8, tile = kRows * ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kKeys][ld]: the block's
+  bf16* Vs = Ks + tile;                           // keys and values
+  bf16* Qs = Vs + tile;                           // [2][kRows][ld]
+  bf16* dOs = Qs + 2 * tile;                      // [2][kRows][ld]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * tile);  // [2][kRows]
+  float* D_s = lse_s + 2 * kRows;                           // [2][kRows]
+  int* klim_s = reinterpret_cast<int*>(D_s + 2 * kRows);    // [2][kRows]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.y * kKeys;  // the causal heavy blocks first
+  const size_t base = static_cast<size_t>(blockIdx.x) * L * D;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * L;
+  const int key = k0 + warp * 16 + g;  // this thread's keys: key, key + 8
+  const int n_qt = (L + kRows - 1) / kRows;
+  int first = 0;
+  while (first < n_qt &&
+         key_limit(min((first + 1) * kRows, L) - 1, L, causal, tq, tk) <= k0)
+    ++first;
+  const int n_tiles = n_qt - first;
+
+  // query tile i0's rows, lse, D and key limits into stage st
+  auto load_queries = [&](int i0, int st) {
+    load_rows<DK>(Qs + st * tile, q + base, i0, L, D);
+    load_rows<DK>(dOs + st * tile, dout + base, i0, L, D);
+    const int i = threadIdx.x & (kRows - 1), qp = i0 + i;
+    const bool ok = qp < L;
+    const size_t off = row0 + (ok ? qp : 0);
+    if (threadIdx.x < kRows)
+      cp_async4(lm::smem_u32(lse_s + st * kRows + i), lse + off, ok);
+    else
+      cp_async4(lm::smem_u32(D_s + st * kRows + i), dsum + off, ok);
+    if (threadIdx.x < kRows)
+      klim_s[st * kRows + i] = key_limit(qp, L, causal, tq, tk);
+  };
+  load_rows<DK>(Ks, k + base, k0, L, D);
+  load_rows<DK>(Vs, v + base, k0, L, D);
+  if (n_tiles > 0) load_queries(first * kRows, 0);
+  lm::cp_async_commit();
+
+  float acc_k[2 * DK][4], acc_v[2 * DK][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, i0 = (first + it) * kRows;
+    if (it + 1 < n_tiles) load_queries(i0 + kRows, st ^ 1);
+    lm::cp_async_commit();
+    lm::cp_async_wait<1>();  // tile `it` has landed
+    __syncthreads();
+    const bf16* Qt = Qs + st * tile;
+    const bf16* dOt = dOs + st * tile;
+    const float* lse_t = lse_s + st * kRows;
+    const float* D_t = D_s + st * kRows;
+    const int* klim_t = klim_s + st * kRows;
+    // a row of this tile stops short of this block's last key, or lies
+    // past L
+    const bool cross = i0 + kRows > L ||
+                       key_limit(i0, L, causal, tq, tk) < k0 + kKeys;
+
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {  // 32 queries at a time
+      const int qh = h * 32;
+      // S^T = k q^T, then dP^T = v dO^T (P^T's exponentials can run beside
+      // its products), over 4 n8 tiles of queries
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t a[4];
+        lm::ldmatrix_x4(a, lm::smem_u32(Ks + a_frag(ld, warp * 16, kk)));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t b[4];
+          lm::ldmatrix_x4(b, lm::smem_u32(Qt + b_frag(ld, qh + np * 16, kk)));
+          lm::mma_bf16_16816(s[2 * np], a, b[0], b[1]);
+          lm::mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t a[4];
+        lm::ldmatrix_x4(a, lm::smem_u32(Vs + a_frag(ld, warp * 16, kk)));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t b[4];
+          lm::ldmatrix_x4(b, lm::smem_u32(dOt + b_frag(ld, qh + np * 16, kk)));
+          lm::mma_bf16_16816(dp[2 * np], a, b[0], b[1]);
+          lm::mma_bf16_16816(dp[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+      // P^T (keys as rows), masked past each query's key limit (and past
+      // L), rounded to bfloat16 as the A fragments of P^T dO
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qi = qh + 8 * j + 2 * t4;  // queries qi, qi + 1
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ls = lse_t[qi + e] * kLog2e;
+          s[j][e] = exp2f(fmaf(s[j][e], scale_log2, -ls));
+          s[j][2 + e] = exp2f(fmaf(s[j][2 + e], scale_log2, -ls));
+          if (cross) {
+            const int lim = klim_t[qi + e];
+            if (key >= lim) s[j][e] = 0.f;
+            if (key + 8 >= lim) s[j][2 + e] = 0.f;
+          }
+        }
+        pa[j >> 1][2 * (j & 1)] = lm::pack_bf16x2(s[j][0], s[j][1]);
+        pa[j >> 1][2 * (j & 1) + 1] = lm::pack_bf16x2(s[j][2], s[j][3]);
+      }
+      // dV += P^T dO over 2 k16 steps of queries (dS^T can run beside it)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int dp2 = 0; dp2 < DK; ++dp2) {
+          uint32_t b[4];
+          lm::ldmatrix_x4_trans(b, lm::smem_u32(dOt + bt_frag(ld, qh + kk * 16, dp2)));
+          lm::mma_bf16_16816(acc_v[2 * dp2], pa[kk], b[0], b[1]);
+          lm::mma_bf16_16816(acc_v[2 * dp2 + 1], pa[kk], b[2], b[3]);
+        }
+      // dS^T = P^T (dP^T - D), rounded to bfloat16 as the A fragments of
+      // dS^T q; then dK += dS^T q
+      uint32_t da[2][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qi = qh + 8 * j + 2 * t4;
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dsum_q = D_t[qi + e];
+          ds[e] = s[j][e] * (dp[j][e] - dsum_q);
+          ds[2 + e] = s[j][2 + e] * (dp[j][2 + e] - dsum_q);
+        }
+        da[j >> 1][2 * (j & 1)] = lm::pack_bf16x2(ds[0], ds[1]);
+        da[j >> 1][2 * (j & 1) + 1] = lm::pack_bf16x2(ds[2], ds[3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int dp2 = 0; dp2 < DK; ++dp2) {
+          uint32_t b[4];
+          lm::ldmatrix_x4_trans(b, lm::smem_u32(Qt + bt_frag(ld, qh + kk * 16, dp2)));
+          lm::mma_bf16_16816(acc_k[2 * dp2], da[kk], b[0], b[1]);
+          lm::mma_bf16_16816(acc_k[2 * dp2 + 1], da[kk], b[2], b[3]);
+        }
+    }
+    __syncthreads();  // stage `st` is refilled next
+  }
+  store_rows<DK>(dk + base, acc_k, key, t4, L, D, scale);
+  store_rows<DK>(dv + base, acc_v, key, t4, L, D, 1.f);
+}
+
+template <int DK>
+int launch_bwd_mma(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   void* dq, void* dk, void* dv, float* dsum, int bh, int L,
+                   int D, int causal, int tq, int tk, float scale,
+                   cudaStream_t stream) {
+  constexpr size_t smem = bwd_mma_smem_bytes<DK>();
+  cudaError_t e = lm::allow_smem(flash_bwd_dq_mma<DK>, smem);
+  if (e == cudaSuccess) e = lm::allow_smem(flash_bwd_dkdv_mma<DK>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(bh, (L + kRows - 1) / kRows);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* dob = static_cast<const bf16*>(dout);
+  const float scale_log2 = scale * kLog2e;
+  flash_bwd_dq_mma<DK><<<grid, kMmaThreads, smem, stream>>>(
+      qb, kb, vb, static_cast<const bf16*>(o), dob, lse,
+      static_cast<bf16*>(dq), dsum, L, D, causal, tq, tk, scale_log2, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkdv_mma<DK><<<grid, kMmaThreads, smem, stream>>>(
+      qb, kb, vb, dob, lse, dsum, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), L, D, causal, tq, tk, scale_log2, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const float* lse,
+                    void* dq, void* dk, void* dv, float* dsum, int bh, int L,
+                    int D, int causal, int tq, int tk, float scale,
+                    cudaStream_t s) {
+#define BWD_MMA(DK)                                                         \
+  return launch_bwd_mma<DK>(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, L, \
+                            D, causal, tq, tk, scale, s)
+  switch ((D + 15) / 16) {
+    case 1: BWD_MMA(1);
+    case 2: BWD_MMA(2);
+    case 3: BWD_MMA(3);
+    case 4: BWD_MMA(4);
+    case 5: BWD_MMA(5);
+    case 6: BWD_MMA(6);
+    case 7: BWD_MMA(7);
+    default: BWD_MMA(8);
+  }
+#undef BWD_MMA
+}
+
 bool bad_shape(int bh, int L, int D, int tq, int tk) {
   return bh < 1 || L < 1 || D < 1 || D > 128 || tq < 1 || tk < 1 ||
          L % tq || L % tk || (L + kRows - 1) / kRows > 65535;
@@ -798,8 +1266,8 @@ extern "C" int flash_attention_bwd_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_bwd<bf16>(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, L,
-                            D, causal, tq, tk, scale, s);
+    return launch_bwd_bf16(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, L, D,
+                           causal, tq, tk, scale, s);
   return launch_bwd<float>(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, L, D,
                            causal, tq, tk, scale, s);
 }

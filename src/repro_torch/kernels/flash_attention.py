@@ -21,7 +21,10 @@ the gradient of the function the forward computes, bound included. The
 forward saves each row's log-sum-exp `lse = m + log(den)` (float32, BH x
 L), and the backward recomputes P = exp(scale q k^T - lse) tile by tile:
 D_i = rowsum(dO o), dV = P^T dO, dS = P (dO v^T - D), dQ = scale dS k,
-dK = scale dS^T q, in float32, the outputs in q's type.
+dK = scale dS^T q, with float32 sums, the outputs in q's type. For
+bfloat16 the two backward kernels multiply on the tensor cores and round
+P to bfloat16 for P^T dO and dS for dS k and dS^T q: the two roundings
+the plain version lacks (within a bfloat16 step each).
 `FlashAttention` is the autograd Function: on the card the forward
 kernel then the backward kernel, on the CPU the plain forward then
 `flash_attention_bwd_plain`, so the CPU tests run the formula the

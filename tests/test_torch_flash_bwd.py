@@ -11,6 +11,15 @@ diagonal: tq = tk, and tq a multiple of tk. With tq < tk the bound drops
 keys below the diagonal, and only autograd through the forward witnesses.
 The reference's Pallas kernel has no VJP rule. Tolerance: float32 1e-4
 (the sums run in another order); the forward's log-sum-exp 1e-5.
+
+The bfloat16 kernel's rounding model (`flash_bwd_mma_emulation`, written
+out here in eager torch): S and dP from the bfloat16 inputs with float32
+sums; P = exp2(S scale log2 e - lse log2 e) in float32, 0 past each row's
+key limit; P and dS = P (dP - D) rounded to bfloat16 before P^T dO, dS k
+and dS^T q; the scale applied to the float32 dQ and dK. It is held to
+`flash_attention_bwd_plain` within the card's bfloat16 tolerance,
+1e-2 x max(1, largest |gradient|) (`chip_smoke.py`'s `LM_TOL`), which
+shows on the CPU that the tolerance admits the kernel's two roundings.
 """
 import jax
 import jax.numpy as jnp
@@ -141,3 +150,71 @@ def test_bwd_wrapper_checks_its_inputs():
     if not torch.cuda.is_available():      # device=None means the card
         with pytest.raises(RuntimeError, match="cuda"):
             pfa.flash_attention_bwd(q, q, q, q, q, lse, tq=8, tk=8)
+
+
+# ------------------------------------------ the bfloat16 kernel's rounding
+
+BF16 = torch.bfloat16
+LM_TOL_BF16 = 1e-2
+LOG2E = 1.4426950408889634
+
+
+def _key_limits(l, causal, tq, tk):
+    qp = torch.arange(l)
+    if not causal:
+        return torch.full((l,), l)
+    up = torch.clamp((qp // tq + 1) * tq // tk, 1, l // tk)
+    return torch.minimum(qp + 1, up * tk)
+
+
+def flash_bwd_mma_emulation(q, k, v, o, do, lse, *, causal, tq, tk):
+    """dq, dk, dv as `flash_bwd_dq_mma` and `flash_bwd_dkdv_mma` round:
+    float32 S and dP from bfloat16 operands, P in float32 through exp2
+    and masked past each row's key limit, P and dS rounded to bfloat16
+    before their products, float32 sums, the scale in the epilogue."""
+    bh, l, d = q.shape
+    scale = d ** -0.5
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    dsum = (dof * o.float()).sum(-1, keepdim=True)
+    s = qf @ kf.transpose(1, 2)
+    p = torch.exp2(s * (scale * LOG2E) - lse[..., None] * LOG2E)
+    keep = torch.arange(l)[None, :] < _key_limits(l, causal, tq, tk)[:, None]
+    p = torch.where(keep, p, torch.zeros(()))
+    ds = p * (dof @ vf.transpose(1, 2) - dsum)
+    pb, dsb = p.to(BF16).float(), ds.to(BF16).float()
+    dq = (dsb @ kf) * scale
+    dk = (dsb.transpose(1, 2) @ qf) * scale
+    dv = pb.transpose(1, 2) @ dof
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _bf16_inputs(bh, l, d, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(bh, l, d)).astype(np.float32))
+            .to(BF16) for _ in range(4)]
+
+
+# (BH, L, D, tq, tk): Qwen2-1.5B's per-head training shape (D 128, tile
+# 512) for a few heads, tq != tk both ways, ragged L and D
+BF16_SHAPES = [(3, 512, 128, 512, 512), (2, 200, 64, 50, 100),
+               (2, 200, 64, 100, 50), (2, 13, 5, 13, 13),
+               (2, 130, 40, 130, 130), (2, 200, 112, 200, 200)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bf16_kernel_rounding_within_the_card_tolerance(shape, causal):
+    bh, l, d, tq, tk = shape
+    q, k, v, do = _bf16_inputs(bh, l, d, [l, d, tq, tk])
+    o, lse = pfa.flash_attention_plain(q, k, v, causal=causal, tq=tq, tk=tk,
+                                       return_lse=True)
+    want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         tq=tq, tk=tk)
+    got = flash_bwd_mma_emulation(q, k, v, o, do, lse, causal=causal, tq=tq,
+                                  tk=tk)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == BF16 and g.shape == q.shape
+        assert torch.isfinite(g.float()).all()
+        err = float((g.float() - w.float()).abs().max())
+        tol = LM_TOL_BF16 * max(1.0, float(w.float().abs().max()))
+        assert err <= tol, (f"d{name}", err, tol)

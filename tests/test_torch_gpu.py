@@ -814,7 +814,8 @@ def test_spoilage_variant_through_the_kernel_equals_ref(cuda):
 _BWD_SHAPES = [(3, 11, 16, 11, 11), (2, 200, 112, 200, 200),
                (2, 200, 64, 50, 100), (2, 200, 64, 100, 50),
                (2, 13, 5, 13, 13), (2, 200, 40, 50, 100),
-               (1, 130, 128, 130, 130), (96, 512, 128, 512, 512)]
+               (1, 130, 128, 130, 130), (96, 512, 128, 512, 512),
+               (16, 512, 12, 512, 512)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -825,7 +826,7 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, causal,
     """The forward's log-sum-exp and the backward kernel's dq, dk, dv
     against the plain versions on the same inputs: odd and ragged L and
     D, tq < tk and tq > tk (the forward's key bound), Qwen2-1.5B's
-    training shape."""
+    training shape and its smoke config's (D 12) at L 512."""
     from repro_torch.kernels import flash_attention as pfa
     bh, l, d, tq, tk = shape
     g = torch.Generator(device=cuda).manual_seed(l + d + 7)
@@ -845,6 +846,24 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, causal,
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == q.shape
         _lm_close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(96, 512, 128, 512, 512),
+                                   (2, 200, 40, 50, 100)])
+def test_flash_attention_bwd_kernel_is_deterministic(cuda, dtype, shape):
+    """Two launches on the same inputs give the same bits (no atomics):
+    a resumed training run repeats its gradients."""
+    from repro_torch.kernels import flash_attention as pfa
+    bh, l, d, tq, tk = shape
+    g = torch.Generator(device=cuda).manual_seed(l + d)
+    q, k, v, do = (_rand(g, (bh, l, d), dtype, cuda) for _ in range(4))
+    o, lse = pfa._forward(q, k, v, True, tq, tk, q.device, True)
+    a, b = (pfa.flash_attention_bwd(q, k, v, o, do, lse, tq=tq, tk=tk,
+                                    device=cuda) for _ in range(2))
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_flash_attention_autograd_launches_both_kernels(cuda):
