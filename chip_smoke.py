@@ -211,6 +211,24 @@ Phases (each prints its own lines; any failure exits non-zero):
    uninterrupted against 3 steps, a checkpoint (into the git-ignored
    `build/chip_smoke_train_ckpt/`, removed after) and a resumed
    `train_loop` to 6: losses, parameters, m and v bit for bit.
+22. SSM and hybrid training: (a) the `ssd_scan_bwd` kernel against its
+   plain version at Mamba2-1.3B's training shape (BH 8 x 64 = 512, L
+   512, P 64, N 128, chunk 256, 64 heads a group) and Zamba2-7B's (BH 8
+   x 112 = 896, N 64, 112 heads a group), in float32 and bfloat16, on
+   the forward kernel's own saved chunk-entry states (held to the plain
+   forward's): every gradient within `LM_TOL`, two launches the same
+   bits, timed beside the plain version and the bound (the Mamba2
+   bfloat16 case also by its device time), with ptxas's registers and
+   spills; (b) Mamba2-1.3B at full width and depth (1,344,052,224
+   bfloat16 parameters from a seed), five `train_loop` AdamW steps of
+   8 x 512 as 21(b): 96 `ssd_scan` launches (with the remat recompute)
+   and 48 `ssd_scan_bwd` a step, no plain call, then one profiled step;
+   (c) Zamba2-7B at full width with its depth cut to 27 layers (4 groups
+   of 6 Mamba layers and their shared-block calls, then the 3-layer
+   tail; 81 layers need about 83.5 GB for AdamW), 3 steps: 54 scans
+   and 27 scan backwards, 8 flash forwards and 4 backwards a step, then
+   one profiled step; (d) the Mamba2 and Zamba2 smoke configs in float32
+   card against CPU as 21(c) at grad_accum 1, and 11 card steps each.
 
 It ends with a `kernels:` line of launch counts, one JSON line
 `{"kernels": [...]}` with an entry per kernel (times, bound, launches,
@@ -221,7 +239,9 @@ bit-plane kernel's launches are phase 15's quantized path; phase 19's
 launches are added to the segment kernel's, the refill kernel's, the
 drawn sweep's, flash's and the scan's, and phase 20's full serves' to
 flash's and the scan's; `flash_attention_bwd`'s are phase 21(b)'s five
-steps plus the quickstart's), the card's nvidia-smi line, and
+steps plus the quickstart's; phase 22(b) and (c)'s are added to the
+scan's and to flash's, forward and backward, and `ssd_scan_bwd`'s are
+theirs alone), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
 held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
@@ -230,8 +250,9 @@ and for values at a log10 bin edge (counted; see
 `tests/_torch_parity.py`); its max_abs_err is over the exact fields.
 The LM kernels sum in another order than their plain versions (the
 bfloat16 flash kernel also rounds P to bfloat16 for P v, its backward P
-and dS for their products, the bfloat16 scan W, S and B w) and are held
-to `LM_TOL` times the output's largest magnitude.
+and dS for their products, the bfloat16 scan W, S and B w; the scan's
+backward is float32 for both types and rounds only its bfloat16 dx, dB
+and dC) and are held to `LM_TOL` times the output's largest magnitude.
 """
 import dataclasses
 import json
@@ -1826,7 +1847,8 @@ def device_time_by_layer(tag, rows):
     repeat their kernels' time)."""
     kernels = [r for r in rows if r.self_device_time_total > 0
                and not r.key.startswith("aten::")]
-    groups = {"ssd_scan kernel": 0.0, "flash_attention kernel": 0.0,
+    groups = {"ssd_scan kernel": 0.0, "ssd_scan_bwd kernel": 0.0,
+              "flash_attention kernel": 0.0,
               "flash_attention_bwd kernels": 0.0,
               "matrix products (cuBLAS)": 0.0, "copies and casts": 0.0,
               "other elementwise and reductions": 0.0}
@@ -1834,6 +1856,8 @@ def device_time_by_layer(tag, rows):
         k = r.key
         if "ssd_fwd" in k:
             g = "ssd_scan kernel"
+        elif "ssd_bwd" in k:
+            g = "ssd_scan_bwd kernel"
         elif "flash_fwd" in k:
             g = "flash_attention kernel"
         elif "flash_bwd" in k:
@@ -3230,78 +3254,92 @@ def phase_flash_bwd(dev, rec):
     torch.cuda.empty_cache()
 
 
-def phase_train_full(dev):
-    """21(b): Qwen2-1.5B at full width and depth, five `train_loop` steps
-    with AdamW at 8 x 512 (parameters and data from a seed; cut: the step
-    count); the median step of steps 2-5, tokens/s, the share of the
-    bfloat16 dense peak, peak memory and launches a step; then one more
-    step under torch.profiler. Returns the five steps' launches."""
+def lm_counts():
+    """({kernel: launches} of the four LM kernels on the train path, the
+    plain versions' calls in all)."""
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ssd_scan as pss
+    fa, ss = pfa.flash_attention, pss.ssd_scan
+    return ({FLASH[0]: fa.launches, FLASH_BWD[0]: fa.bwd_launches,
+             SSD[0]: ss.launches, SSD_BWD[0]: ss.bwd_launches},
+            fa.plain_calls + fa.bwd_plain_calls + ss.plain_calls
+            + ss.bwd_plain_calls)
+
+
+def reset_lm_counts():
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ssd_scan as pss
+    pfa.reset_counts()
+    pss.reset_counts()
+
+
+def train_full(dev, cfg, steps, per_step, n_params=None, what=""):
+    """`steps` `train_loop` steps with AdamW at TRAIN_BATCH x TRAIN_SEQ
+    (parameters and data from a seed): finite losses, the parameter count
+    (against `n_params` where given), the median step of steps 2 on,
+    tokens/s, the share of the bfloat16 dense peak, peak memory, and the
+    LM kernels' launches, exactly `per_step` ({kernel: launches}) a step
+    and no plain call; then one more step under torch.profiler. Returns
+    the run's launches."""
     import gc
 
     import numpy as np
     import torch
-    from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, host_batch
-    from repro_torch.kernels import flash_attention as pfa
     from repro_torch.launch import steps as psteps
     from repro_torch.launch.train import to_device, train_loop
     from repro_torch.models.model import build_model, count_params
 
-    tag = f"train {TRAIN_ARCH}"
+    tag = f"train {cfg.name}"
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(TRAIN_ARCH)
     torch.cuda.reset_peak_memory_stats(dev)
-    pfa.reset_counts()
+    reset_lm_counts()
     t0 = time.perf_counter()
-    out = train_loop(cfg=cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+    out = train_loop(cfg=cfg, steps=steps, batch=TRAIN_BATCH,
                      seq=TRAIN_SEQ, ckpt_dir="", device=dev, log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {FLASH[0]: pfa.flash_attention.launches,
-              FLASH_BWD[0]: pfa.flash_attention.bwd_launches}
-    plain = (pfa.flash_attention.plain_calls
-             + pfa.flash_attention.bwd_plain_calls)
+    counts, plain = lm_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     n = count_params(out["params"])
-    if n != FULL_PARAMS[TRAIN_ARCH]:
+    if n_params is not None and n != n_params:
         raise AssertionError(f"{tag}: {n} parameters, the reference counts "
-                             f"{FULL_PARAMS[TRAIN_ARCH]}")
+                             f"{n_params}")
     losses = out["losses"]
-    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: losses {losses}")
-    want = (2 * cfg.n_layers * TRAIN_STEPS, cfg.n_layers * TRAIN_STEPS)
-    if (counts[FLASH[0]], counts[FLASH_BWD[0]]) != want or plain:
+    want = {k: v * steps for k, v in per_step.items()}
+    if {k: counts[k] for k in want} != want or plain:
         raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
-                             f"calls; expected {want} (forward with its "
-                             f"remat recompute, backward)")
+                             f"calls; expected {want} (forwards with their "
+                             f"remat recompute, backwards)")
     step_s = float(np.median(out["dts"][1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = 6.0 * n * tokens
-    log(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"[{tag}] {cfg.n_layers} layers{what}, d_model {cfg.d_model}, "
         f"{cfg.dtype}, remat {cfg.remat}, {cfg.optimizer}: {n} parameters; "
-        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} in {wall:.1f}s "
+        f"{steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} in {wall:.1f}s "
         f"(init included); losses {', '.join(f'{x:.4f}' for x in losses)}; "
         f"step times {', '.join(f'{x * 1e3:.1f}' for x in out['dts'])} ms; "
-        f"median of steps 2-{TRAIN_STEPS} {step_s * 1e3:.2f} ms = "
+        f"median of steps 2-{steps} {step_s * 1e3:.2f} ms = "
         f"{tokens / step_s:.1f} train tokens/s; 6 N tokens = {flops:.4g} "
         f"operations = {flops / step_s / BF16_OPS_PER_S:.4f} of the "
         f"bfloat16 dense peak; launches a step: "
-        f"{counts[FLASH[0]] // TRAIN_STEPS} flash_attention (forward and "
-        f"remat recompute), {counts[FLASH_BWD[0]] // TRAIN_STEPS} "
-        f"flash_attention_bwd, 0 plain calls; max_memory_allocated "
-        f"{peak / 2**30:.2f} GiB ({peak} bytes)")
+        + ", ".join(f"{v} {k}" for k, v in per_step.items())
+        + f" (forwards with their remat recompute), 0 plain calls; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes)")
 
     # one more step under torch.profiler, device activity only
     model = build_model(cfg)
     _, step_fn = psteps.make_train_step(model)
     bt = to_device(host_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                          global_batch=TRAIN_BATCH),
-                              TRAIN_STEPS), dev)
+                              steps), dev)
     params, opt_state = out["params"], out["opt_state"]
     t0 = time.perf_counter()
     run, pwall, busy, rows = profiled(lambda: step_fn(
-        params, opt_state, bt, TRAIN_STEPS), cpu=False)
+        params, opt_state, bt, steps), cpu=False)
     if busy is None:
         log(f"[{tag}] the profiler saw no device activity: device busy "
             f"share not measured")
@@ -3317,26 +3355,38 @@ def phase_train_full(dev):
     return counts
 
 
-def phase_train_small(dev):
-    """21(c): the qwen2-1.5b smoke config in float32 from the same
-    parameters on the card and the CPU, SMOKE_TRAIN_STEPS steps at
-    grad_accum 1 and 2; then SMOKE_FALL_STEPS card steps of `train_loop`
-    whose loss must fall. 21(d): the smoke config (its own bfloat16) 6
-    steps uninterrupted, against 3 steps, a checkpoint, and a resumed
-    `train_loop` to 6: losses, parameters and optimizer state equal bit
-    for bit."""
-    import numpy as np
+def phase_train_full(dev):
+    """21(b): Qwen2-1.5B at full width and depth, five `train_loop` steps
+    with AdamW at 8 x 512 (cut: the step count); 56 flash forwards (with
+    the remat recompute) and 28 backwards a step. Returns the five
+    steps' launches."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(TRAIN_ARCH)
+    layers = cfg.n_layers
+    return train_full(dev, cfg, TRAIN_STEPS,
+                      {FLASH[0]: 2 * layers, FLASH_BWD[0]: layers,
+                       SSD[0]: 0, SSD_BWD[0]: 0}, FULL_PARAMS[TRAIN_ARCH])
+
+
+def smoke_train(dev, arch, grad_accums):
+    """A smoke config in float32 from the same parameters on the card and
+    the CPU, SMOKE_TRAIN_STEPS steps at each grad_accum: losses and
+    gnorms within 1e-4 relative, parameters within 2 x the summed
+    learning rates, and every LM kernel the card launched (forward and
+    backward) matched one for one by the CPU's plain calls; then
+    SMOKE_FALL_STEPS card steps of `train_loop` whose loss must fall."""
     import torch
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.data.pipeline import DataConfig, host_batch
     from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ssd_scan as pss
     from repro_torch.launch import steps as psteps
     from repro_torch.launch.train import to_device, train_loop
     from repro_torch.models.model import build_model
     from repro_torch.optim import cosine_schedule
 
     cpu = torch.device("cpu")
-    cfg = get_smoke_config(TRAIN_ARCH).replace(dtype="float32")
+    cfg = get_smoke_config(arch).replace(dtype="float32")
     model = build_model(cfg)
     # Adam's first moves are sign(g) lr: a gradient at rounding level may
     # differ in sign between the card and the CPU, so a parameter may
@@ -3344,7 +3394,7 @@ def phase_train_small(dev):
     atol = 2 * sum(float(cosine_schedule(s, **SMOKE_TRAIN_LR))
                    for s in range(SMOKE_TRAIN_STEPS))
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
-    for ga in (1, 2):
+    for ga in grad_accums:
         opt_init, step_fn = psteps.make_train_step(model, grad_accum=ga,
                                                    lr_kwargs=SMOKE_TRAIN_LR)
         p_cpu = model.init_params(torch.Generator().manual_seed(0), cpu,
@@ -3355,7 +3405,7 @@ def phase_train_small(dev):
             for a, b in zip(p_card.parameters(), p_cpu.parameters()):
                 a.copy_(b)
         s_cpu, s_card = opt_init(p_cpu), opt_init(p_card)
-        pfa.reset_counts()
+        reset_lm_counts()
         rel = 0.0
         for step in range(SMOKE_TRAIN_STEPS):
             bt = host_batch(dcfg, step)
@@ -3366,35 +3416,66 @@ def phase_train_small(dev):
                 a, b = float(mc[k]), float(mp[k])
                 rel = max(rel, abs(a - b) / abs(b))
                 if not abs(a - b) <= 1e-4 * abs(b):
-                    raise AssertionError(f"[train small] grad_accum {ga} "
-                                         f"step {step} {k}: card {a}, CPU "
-                                         f"{b}")
+                    raise AssertionError(f"[train small] {arch} grad_accum "
+                                         f"{ga} step {step} {k}: card {a}, "
+                                         f"CPU {b}")
         dmax = max(float((a.detach().cpu() - b.detach()).abs().max())
                    for a, b in zip(p_card.parameters(), p_cpu.parameters()))
         if not dmax <= atol:
-            raise AssertionError(f"[train small] grad_accum {ga}: "
+            raise AssertionError(f"[train small] {arch} grad_accum {ga}: "
                                  f"parameters differ by {dmax:.3g}, past "
                                  f"{atol:.3g}")
-        if pfa.flash_attention.bwd_launches != pfa.flash_attention.\
-                bwd_plain_calls or pfa.flash_attention.bwd_launches == 0:
-            raise AssertionError("[train small] backward launches "
-                                 f"{pfa.flash_attention.bwd_launches}, CPU "
-                                 f"{pfa.flash_attention.bwd_plain_calls}")
-        log(f"[train small] qwen2-1.5b smoke config, float32, grad_accum "
+        # each kernel the family runs, forward and backward, on the card
+        # (and no other); the plain versions' calls are the CPU's, one for
+        # one
+        family = {"qwen2-1.5b": (pfa.flash_attention,),
+                  "mamba2-1.3b": (pss.ssd_scan,),
+                  "zamba2-7b": (pfa.flash_attention, pss.ssd_scan)}[arch]
+        launched = []
+        for k in (pfa.flash_attention, pss.ssd_scan):
+            pairs = ((k.launches, k.plain_calls),
+                     (k.bwd_launches, k.bwd_plain_calls))
+            if any(n != m for n, m in pairs):
+                raise AssertionError(f"[train small] {arch}: card launches "
+                                     f"and CPU plain calls differ: {pairs}")
+            ran = (k.launches, k.bwd_launches)
+            if not all(ran) if k in family else any(ran):
+                raise AssertionError(f"[train small] {arch}: {k.__name__} "
+                                     f"launched {k.launches} + backward "
+                                     f"{k.bwd_launches}")
+            if k in family:
+                launched.append(f"{k.__name__} {k.launches} + backward "
+                                f"{k.bwd_launches}")
+        log(f"[train small] {arch} smoke config, float32, grad_accum "
             f"{ga}, {SMOKE_TRAIN_STEPS} steps, card against CPU: losses and "
             f"gnorms within {rel:.3g} relative (limit 1e-4); parameters "
             f"within {dmax:.3g} (limit {atol:.3g} = 2 x the summed "
-            f"learning rates)")
+            f"learning rates); on the card {'; '.join(launched)}")
     out = train_loop(cfg=cfg, steps=SMOKE_FALL_STEPS + 1, batch=4, seq=64,
                      ckpt_dir="", lr_kwargs=SMOKE_TRAIN_LR, device=dev,
                      log=lambda *a: None)
     losses = out["losses"]
     if not losses[SMOKE_FALL_STEPS] < losses[0]:
-        raise AssertionError(f"[train small] the loss did not fall: "
-                             f"{losses}")
-    log(f"[train small] {SMOKE_FALL_STEPS + 1} card steps: loss "
+        raise AssertionError(f"[train small] {arch}: the loss did not "
+                             f"fall: {losses}")
+    log(f"[train small] {arch}: {SMOKE_FALL_STEPS + 1} card steps: loss "
         f"{losses[0]:.4f} at step 0 -> {losses[SMOKE_FALL_STEPS]:.4f} at "
         f"step {SMOKE_FALL_STEPS}")
+
+
+def phase_train_small(dev):
+    """21(c): the qwen2-1.5b smoke config in float32 from the same
+    parameters on the card and the CPU, SMOKE_TRAIN_STEPS steps at
+    grad_accum 1 and 2; then SMOKE_FALL_STEPS card steps of `train_loop`
+    whose loss must fall. 21(d): the smoke config (its own bfloat16) 6
+    steps uninterrupted, against 3 steps, a checkpoint, and a resumed
+    `train_loop` to 6: losses, parameters and optimizer state equal bit
+    for bit."""
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.train import train_loop
+
+    smoke_train(dev, TRAIN_ARCH, (1, 2))
 
     # 21(d) resume
     cfg = get_smoke_config(TRAIN_ARCH)
@@ -3421,6 +3502,162 @@ def phase_train_small(dev):
         f"uninterrupted against 3, a checkpoint and a resumed train_loop "
         f"to 6: losses {', '.join(f'{x:.6f}' for x in full['losses'][3:])} "
         f"and every parameter, m and v equal bit for bit")
+
+
+# ------------------------------------------------------------- phase 22
+SSD_BWD = ("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "src/repro/kernels/ssd_scan.py:67")
+# the SSM and hybrid training cells: Mamba2-1.3B at full width and depth
+# for TRAIN_STEPS steps; Zamba2-7B at full width, its depth cut to 27
+# layers (4 groups of 6 Mamba layers with their shared-block calls, then
+# the 3-layer tail: at 81 layers its bfloat16 parameters with float32
+# AdamW m and v need about 6.96e9 x 12 B = 83.5 GB, past the card's 80 GB)
+SSM_TRAIN_ARCH, HYBRID_TRAIN_ARCH = "mamba2-1.3b", "zamba2-7b"
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_STEPS = 27, 3
+
+
+def ssd_train_shape(arch):
+    """(BH, L, P, N, chunk, rep) of a family's training scans at
+    TRAIN_BATCH x TRAIN_SEQ."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.mamba import mamba_dims
+    cfg = get_config(arch)
+    _, heads = mamba_dims(cfg.d_model, cfg.ssm)
+    s = cfg.ssm
+    return (TRAIN_BATCH * heads, TRAIN_SEQ, s.head_dim, s.d_state,
+            min(s.chunk, TRAIN_SEQ), heads // s.n_groups)
+
+
+def ssd_bwd_bound(a, x, dt, b, c, dy, states, ds, q):
+    """Bytes (a, x, dt, B, C, dy, the saved states and d(s_final) read
+    once; da, dx, ddt, dB, dC, the inputs' shapes and types, written
+    once) and operations over the card's peaks, ms. Operations per chunk:
+    over the causal (i, j) pairs, dy.x and W^T dy for each head, and C.B,
+    dG B and dG^T C for each group (B and C are a group's, and dB, dC are
+    summed over its heads, so the heads' dG can be summed first); two of
+    Q N P per head, B dS and x dS^T; and two more, dy S_c^T and C^T dy,
+    in every chunk but the first (its state is zero and the initial
+    state's gradient is no output)."""
+    bh, l, p = x.shape
+    groups, _, n = b.shape
+    nc = l // q
+    nbytes = sum(t.numel() * t.element_size() for t in (a, x, dt, b, c)) \
+        * 2 + sum(t.numel() * t.element_size() for t in (dy, states, ds))
+    pairs = q * (q + 1) // 2
+    qnp = 2 * q * n * p
+    ops = (nc * pairs * 2 * (bh * 2 * p + groups * 3 * n)
+           + bh * (nc * 2 + (nc - 1) * 2) * qnp)
+    rate = BF16_OPS_PER_S if x.dtype.itemsize == 2 else FP32_OPS_PER_S
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+
+
+def phase_ssd_bwd(dev, rec):
+    """22(a): the `ssd_scan_bwd` kernel against its plain version at
+    Mamba2-1.3B's and Zamba2-7B's training shapes (8 x 512 tokens), in
+    float32 and bfloat16, on the forward kernel's own saved states (held
+    to the plain forward's first): every gradient within LM_TOL, two
+    launches the same bits; timed beside the plain version and the
+    bound, with ptxas's registers and spills."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as pss
+    rows = [r for r in ptxas_report(_build.build_log("ssd_scan"))
+            if r[0].startswith("ssd_bwd")]
+    log("[ssd bwd] ptxas: " + ("; ".join(
+        f"{k}: {regs} registers, spills {st}/{ld} bytes"
+        for k, regs, _, st, ld in rows) if rows else
+        "not reported (library found built)"))
+    g = torch.Generator(device=dev).manual_seed(22)
+    for arch in (SSM_TRAIN_ARCH, HYBRID_TRAIN_ARCH):
+        bh, l, p, n, q, rep = ssd_train_shape(arch)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((bh, l, p), generator=g, device=dev).to(dtype)
+            dt = torch.nn.functional.softplus(
+                torch.randn((bh, l), generator=g, device=dev))
+            a = -torch.exp(torch.randn((bh,), generator=g, device=dev) * 0.3)
+            b, c = ((torch.randn((bh // rep, l, n), generator=g, device=dev)
+                     * 0.5).to(dtype) for _ in range(2))
+            dy = torch.randn((bh, l, p), generator=g, device=dev).to(dtype)
+            ds = torch.randn((bh, n, p), generator=g, device=dev)
+            what = (f"{arch} BH {bh} x L {l}, P {p}, N {n}, chunk {q}, rep "
+                    f"{rep}, {str(dtype)[6:]}")
+            _, _, st = pss._forward(a, x, dt, b, c, q, rep, dev, True)
+            _, _, pst = pss.ssd_scan_plain(a, x, dt, b, c, q=q, rep=rep,
+                                           return_states=True)
+            es = lm_err(st, pst, f"ssd saved states {what}",
+                        LM_TOL[str(dtype)[6:]])
+
+            def kern():
+                return pss.ssd_scan_bwd(a, x, dt, b, c, dy, st, ds, q=q,
+                                        rep=rep, device=dev)
+
+            def plain():
+                return pss.ssd_scan_bwd_plain(a, x, dt, b, c, dy, st, ds,
+                                              q=q, rep=rep)
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            errs = [lm_err(u, v, f"ssd backward {name} {what}")
+                    for name, u, v in zip(("da", "dx", "ddt", "dB", "dC"),
+                                          got, want)]
+            again = kern()
+            torch.cuda.synchronize()
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"ssd backward {what}: two launches "
+                                     f"on the same inputs differ")
+            ms, plain_ms = timed(kern, 10), timed(plain, 3)
+            b_bytes, b_ops = ssd_bwd_bound(a, x, dt, b, c, dy, st, ds,
+                                           q)
+            log(f"[ssd bwd] {what}: saved states within {es:.3g}; max "
+                f"|kernel - plain| da {errs[0]:.3g}, dx {errs[1]:.3g}, ddt "
+                f"{errs[2]:.3g}, dB {errs[3]:.3g}, dC {errs[4]:.3g} (within "
+                f"{LM_TOL[str(dtype)[6:]]} x max(1, largest |gradient|)); "
+                f"two launches the same bits; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {max(b_bytes, b_ops):.4f} ms "
+                f"(bytes {b_bytes:.4f}, operations {b_ops:.4f})")
+            if dtype == torch.bfloat16 and arch == SSM_TRAIN_ARCH:
+                dev_ms = kernel_device_ms(kern, 10)
+                log("[ssd bwd] device time a call (torch.profiler): "
+                    + ("not measured (records lost)" if dev_ms is None else
+                       "; ".join(f"{k} {v:.4f} ms in {m}"
+                                 for k, (v, m) in dev_ms.items())))
+                record(rec, SSD_BWD[0], ms, plain_ms, max(errs),
+                       (b_bytes, b_ops), None,
+                       f"{what} (the Mamba2-1.3B training path's)")
+            del x, dt, a, b, c, dy, ds, st, pst, got, want, again
+    torch.cuda.empty_cache()
+
+
+def phase_train_ssm(dev):
+    """22(b): Mamba2-1.3B at full width and depth, TRAIN_STEPS
+    `train_loop` steps with AdamW at 8 x 512 (cut: the step count): 96
+    `ssd_scan` launches a step (the forward and its remat recompute), 48
+    `ssd_scan_bwd`, no plain call. 22(c): Zamba2-7B at full width, 27
+    layers (cut: the depth, for AdamW's memory; and the step count),
+    HYBRID_TRAIN_STEPS steps: the scan's and flash's forwards and
+    backwards a step. 22(d): both smoke configs card against CPU.
+    Returns the full runs' launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.hybrid import split_counts
+    cfg = get_config(SSM_TRAIN_ARCH)
+    layers = cfg.n_layers
+    counts = train_full(dev, cfg, TRAIN_STEPS,
+                        {SSD[0]: 2 * layers, SSD_BWD[0]: layers,
+                         FLASH[0]: 0, FLASH_BWD[0]: 0},
+                        FULL_PARAMS[SSM_TRAIN_ARCH])
+    cfg = get_config(HYBRID_TRAIN_ARCH).replace(
+        n_layers=HYBRID_TRAIN_LAYERS)
+    calls = split_counts(cfg)[1]
+    for k, v in train_full(dev, cfg, HYBRID_TRAIN_STEPS,
+                           {SSD[0]: 2 * cfg.n_layers,
+                            SSD_BWD[0]: cfg.n_layers, FLASH[0]: 2 * calls,
+                            FLASH_BWD[0]: calls},
+                           what=f" (of 81: cut for AdamW's memory), "
+                                f"{calls} shared-block calls").items():
+        counts[k] += v
+    for arch in (SSM_TRAIN_ARCH, HYBRID_TRAIN_ARCH):
+        smoke_train(dev, arch, (1,))
+    return counts
 
 
 def main() -> int:
@@ -3517,11 +3754,17 @@ def main() -> int:
         counts[k] = counts.get(k, 0) + v
     phase_train_small(dev)
     log(f"[train] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_ssd_bwd(dev, rec)
+    for k, v in phase_train_ssm(dev).items():
+        counts[k] = counts.get(k, 0) + v
+    log(f"[ssm/hybrid train] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []
     for name_, src, replaces in (SEG, REF, SWEEP, SWEEP_DRAWN, SEG_FAULTS,
-                                 FLASH, SSD, BITPLANE, FLASH_BWD):
+                                 FLASH, SSD, BITPLANE, FLASH_BWD,
+                                 SSD_BWD):
         r = rec[name_]
         out.append({"name": name_, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name_],

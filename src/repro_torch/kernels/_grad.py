@@ -1,11 +1,13 @@
 """Autograd around the card kernels that have no backward kernel.
 
-`ssd_scan` and `bitplane_matmul` launch through a raw pointer, so their
-outputs on the card carry no autograd graph: a loss through them would
-leave every parameter upstream without a gradient, and raise nothing.
-Their wrappers route a launch whose inputs need a gradient through
-`NoBackward`, whose backward raises NotImplementedError with the reason.
-On the CPU the plain versions are differentiable and need none of this.
+A kernel launches through a raw pointer, so its outputs on the card
+carry no autograd graph: a loss through it would leave every parameter
+upstream without a gradient, and raise nothing. `flash_attention` and
+`ssd_scan` have backward kernels, joined to their forwards by their own
+autograd Functions. `bitplane_matmul` has none: its wrapper routes a
+launch whose inputs need a gradient through `NoBackward`, whose backward
+raises NotImplementedError with the reason. On the CPU its plain
+version is differentiable and needs none of this.
 """
 from __future__ import annotations
 

@@ -5,11 +5,12 @@
 // The tile product serves the kernels that keep float32 tiles in shared
 // memory: the float32 instantiations of ssd_scan, flash_attention and
 // bitplane_matmul (whose 1e-4 tolerance rules out bfloat16 or TF32
-// products). Those run 256 threads as a 16 x 16 grid (ty, tx); a thread
-// owns the tile elements (ty + 16 i, tx + 16 j) for i < rm, j < cm, so a
-// warp reads a row of the right-hand operand at consecutive addresses
-// and at most two addresses of the left-hand one. The bfloat16 paths of
-// all three run on the tensor cores instead, through lm_mma.cuh.
+// products), and ssd_scan's backward for both types. Those run 256
+// threads as a 16 x 16 grid (ty, tx); a thread owns the tile elements
+// (ty + 16 i, tx + 16 j) for i < rm, j < cm, so a warp reads a row of the
+// right-hand operand at consecutive addresses and at most two addresses
+// of the left-hand one. Their other bfloat16 paths run on the tensor
+// cores instead, through lm_mma.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,6 +35,33 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// acc[i][j] += sum_k A(ty + 16 i, k) * ks[k] * B(k, tx + 16 j) over
+// k < kdim, for i < rm <= RM and j < cm <= CM; ks may be null (1). A(r, k)
+// = A[r * sar + k * sak] and B(k, c) = B[k * sbk + c * sbc], so either
+// operand is read as it lies or transposed (with an odd leading
+// dimension a transposed read still hits 16 banks).
+template <int RM, int CM>
+__device__ __forceinline__ void mm_acc_strided(
+    float (&acc)[RM][CM], const float* A, int sar, int sak, const float* B,
+    int sbk, int sbc, int kdim, int rm, int cm, int ty, int tx,
+    const float* ks = nullptr) {
+  for (int k = 0; k < kdim; ++k) {
+    const float s = ks ? ks[k] : 1.f;
+    float a[RM], b[CM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      a[i] = i < rm ? A[(ty + 16 * i) * sar + k * sak] * s : 0.f;
+#pragma unroll
+    for (int j = 0; j < CM; ++j)
+      b[j] = j < cm ? B[k * sbk + (tx + 16 * j) * sbc] : 0.f;
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CM; ++j)
+        if (i < rm && j < cm) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
 // acc[i][j] += sum_k A[(ty + 16 i) * lda + k] * ks[k] * B[k * ldb + tx + 16 j]
 // over k < kdim, for i < rm <= RM and j < cm <= CM; ks may be null (1).
 template <int RM, int CM>
@@ -41,21 +69,7 @@ __device__ __forceinline__ void mm_acc(float (&acc)[RM][CM], const float* A,
                                        int lda, const float* B, int ldb,
                                        int kdim, int rm, int cm, int ty,
                                        int tx, const float* ks = nullptr) {
-  for (int k = 0; k < kdim; ++k) {
-    const float s = ks ? ks[k] : 1.f;
-    float a[RM], b[CM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-      a[i] = i < rm ? A[(ty + 16 * i) * lda + k] * s : 0.f;
-#pragma unroll
-    for (int j = 0; j < CM; ++j)
-      b[j] = j < cm ? B[k * ldb + tx + 16 * j] : 0.f;
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CM; ++j)
-        if (i < rm && j < cm) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
+  mm_acc_strided(acc, A, lda, 1, B, ldb, 1, kdim, rm, cm, ty, tx, ks);
 }
 
 // Launch configuration for a kernel with `smem` bytes of dynamic shared

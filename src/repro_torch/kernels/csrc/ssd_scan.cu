@@ -69,6 +69,54 @@
 // over the causal half of each chunk are 2.3e10 operations, 0.023 ms at
 // the bfloat16 tensor-core rate, so bytes bound it. The float32 build
 // multiplies on the CUDA cores (67 TFLOP/s at most).
+//
+// Both forward builds take an optional `states` buffer (bh, L / Q - 1, N,
+// P) float32 and write into it S_c, the float32 state before each chunk c
+// >= 1, for the backward (as flash's forward saves its log-sum-exp);
+// serving passes none.
+//
+// Backward (ssd_bwd; the TPU has none: the reference differentiates its
+// jnp ssd_chunked, src/repro/models/mamba.py:70). From dy and an optional
+// d(s_final) it computes dx, ddt, da (d of each row's A) and dB, dC. Per
+// row bh the chunks are walked from the last to the first, carrying dS,
+// the float32 gradient of the state after the chunk (d(s_final), or
+// zero), in shared memory. Per chunk, with cum the inclusive cumsum of dt
+// a, L_ij = exp(cum_i - cum_j) (j <= i only: never formed above the
+// diagonal, where the exponent is positive), G = C B^T, W = G L dt_j and
+// w_j = exp(cum_Q - cum_j) dt_j:
+//   intra: dx += W^T dy; dW = dy x^T, dG = dW L dt_j; dC += dG B,
+//          dB += dG^T C; ddt_j += sum_i dW G L; dcum_i += sum_j dW W,
+//          dcum_j -= sum_i dW W;
+//   inter: dC_i += exp(cum_i) S_c dy_i, dcum_i += exp(cum_i) (C_i S_c).dy_i,
+//          d(S_c) gains sum_i exp(cum_i) C_i^T dy_i;
+//   state: dB_j += w_j dS x_j, dx_j += w_j dS^T B_j, dw_j = B_j^T dS x_j:
+//          ddt_j += exp(cum_Q - cum_j) dw_j, dcum_j -= w_j dw_j, dcum_Q +=
+//          sum_j w_j dw_j + exp(cum_Q) <S_c, dS>;
+//   then dS <- exp(cum_Q) dS + the inter part, and the cumsum's backward:
+//   d(da)_k = sum_{i >= k} dcum_i (a reverse warp scan), ddt_k += a
+//   d(da)_k, da += sum_k dt_k d(da)_k.
+// A block of 256 threads runs hb heads of one group in turn (hb divides
+// rep; the host picks it so the grid fills the SMs in the fewest waves).
+// Per chunk it walks the column tiles j of 64 rows (32 where shared
+// memory cannot hold 64 at P, N = 128) with dx_j and dB_j in registers
+// (the state terms, then the intra-chunk terms over the row tiles i >= j),
+// then the row tiles i with dC_i in registers (the inter-chunk terms, then
+// the intra-chunk terms over the column tiles j <= i), recomputing G and
+// dW in each walk. Every product is float32 on the CUDA cores for both
+// input types (lm::mm_acc_strided); dx is written in x's type, ddt and
+// da in float32.
+// dB and dC are summed over a group's heads without float atomics: each
+// block adds its heads' rows, in order, into its own float32 partial
+// (bh / hb, L, N), and the wrapper sums a group's rep / hb partials (the
+// gradient of the reference's jnp.repeat of B and C over the heads). Every
+// sum runs in a fixed order, so two launches give the same bits. Shared
+// memory bounds Q: at P = 64 up to 5,171 (N = 128) and 7,654 (N = 64); at
+// P = N = 128 up to 1,075 (the forward takes more). At Mamba2-1.3B's
+// training shape (BH 512, L 512, P 64, N 128, Q 256, rep 64) the least
+// work is about 2.2e10 operations (C B^T, dG B and dG^T C once a group,
+// not a head) against 140 MB of traffic, so at the tensor cores' bfloat16
+// peak the bytes bound it (0.042 ms); on the CUDA cores (67 TFLOP/s at
+// most) the operations would. The tensor cores are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -118,8 +166,8 @@ __global__ void __launch_bounds__(lm::kThreads)
     ssd_fwd(const float* __restrict__ a, const T* __restrict__ x,
             const float* __restrict__ dt, const T* __restrict__ b,
             const T* __restrict__ c, T* __restrict__ y,
-            float* __restrict__ s_final, int L, int P, int N, int pp, int nn,
-            int Q, int rep) {
+            float* __restrict__ s_final, float* __restrict__ states, int L,
+            int P, int N, int pp, int nn, int Q, int rep) {
   extern __shared__ __align__(16) float sm[];
   const int lc = nn + 1, lb = kBlk + 1, lw = kBlk + 1;
   float* S = sm;                  // [nn][pp]
@@ -247,13 +295,21 @@ __global__ void __launch_bounds__(lm::kThreads)
       __syncthreads();
     }
     const float e = expf(seg_end);
+    // the state before the next chunk, saved for the backward
+    float* st = states != nullptr && c0 + Q < L
+                    ? states + (static_cast<size_t>(bh) * (L / Q - 1) +
+                                c0 / Q) * N * P
+                    : nullptr;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         if (i < rmn && j < cmp) {
-          const int idx = (ty + 16 * i) * pp + tx + 16 * j;
+          const int n = ty + 16 * i, p = tx + 16 * j;
+          const int idx = n * pp + p;
           S[idx] = S[idx] * e + accs[i][j];
+          if (st != nullptr && n < N && p < P)
+            st[static_cast<size_t>(n) * P + p] = S[idx];
         }
     __syncthreads();
   }
@@ -364,8 +420,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     ssd_fwd_mma(const float* __restrict__ a, const bf16* __restrict__ x,
                 const float* __restrict__ dt, const bf16* __restrict__ b,
                 const bf16* __restrict__ c, bf16* __restrict__ y,
-                float* __restrict__ s_final, int L, int P, int N, int Q,
-                int rep, MmaGeom g) {
+                float* __restrict__ s_final, float* __restrict__ states,
+                int L, int P, int N, int Q, int rep, MmaGeom g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldn = ldn_of(g), ldp = ldp_of(g), nn = 16 * g.nk;
   float* Gs = reinterpret_cast<float*>(smem_raw);  // [4][js/8][32] float4
@@ -666,6 +722,11 @@ __global__ void __launch_bounds__(kMmaThreads)
             // bfloat16 copy for the next chunk's C S
             const float e = exp2f(cq);
             float* sf = s_final + static_cast<size_t>(bh0 + h) * N * P;
+            // the state before the next chunk, saved for the backward
+            float* st = states != nullptr && c0 + Q < L
+                            ? states + (static_cast<size_t>(bh0 + h) *
+                                            (L / Q - 1) + c0 / Q) * N * P
+                            : nullptr;
             bf16* Sh = Sb + h * nn * ldp;
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
@@ -680,6 +741,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                   float* dst = sf + static_cast<size_t>(n) * P + pe;
                   if (c0 > 0) v += *dst * e;
                   *dst = v;
+                  if (st != nullptr) st[static_cast<size_t>(n) * P + pe] = v;
                 }
                 Sh[n * ldp + pe] = __float2bfloat16_rn(real ? v : 0.f);
               }
@@ -694,8 +756,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 int launch_mma(const float* a, const void* x, const float* dt, const void* b,
-               const void* c, void* y, float* s_final, int bh, int L, int P,
-               int N, int Q, int rep, cudaStream_t stream) {
+               const void* c, void* y, float* s_final, float* states, int bh,
+               int L, int P, int N, int Q, int rep, cudaStream_t stream) {
   MmaGeom g{};
   g.nk = (N + 15) / 16;
   g.pk = (P + 15) / 16;
@@ -745,8 +807,8 @@ int launch_mma(const float* a, const void* x, const float* dt, const void* b,
   auto go = [&](auto kern) {
     kern<<<grid, kMmaThreads, smem, stream>>>(
         a, static_cast<const bf16*>(x), dt, static_cast<const bf16*>(b),
-        static_cast<const bf16*>(c), static_cast<bf16*>(y), s_final, L, P, N,
-        Q, rep, g);
+        static_cast<const bf16*>(c), static_cast<bf16*>(y), s_final, states,
+        L, P, N, Q, rep, g);
   };
   if (wide)
     go(ssd_fwd_mma<8>);
@@ -757,29 +819,497 @@ int launch_mma(const float* a, const void* x, const float* dt, const void* b,
 
 template <typename T>
 int launch(const float* a, const void* x, const float* dt, const void* b,
-           const void* c, void* y, float* s_final, int bh, int L, int P,
-           int N, int Q, int rep, cudaStream_t stream) {
+           const void* c, void* y, float* s_final, float* states, int bh,
+           int L, int P, int N, int Q, int rep, cudaStream_t stream) {
   const int pp = (P + 15) / 16 * 16, nn = (N + 15) / 16 * 16;
   const size_t smem = sizeof(float) * smem_floats(nn, pp, Q);
   cudaError_t e = lm::allow_smem(ssd_fwd<T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   ssd_fwd<T><<<bh, lm::kThreads, smem, stream>>>(
       a, static_cast<const T*>(x), dt, static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y), s_final, L, P, N, pp, nn,
-      Q, rep);
+      static_cast<const T*>(c), static_cast<T*>(y), s_final, states, L, P, N,
+      pp, nn, Q, rep);
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// ------------------------------------------------------------ backward
+// ssd_bwd: see the header. One block of 256 threads (a 16 x 16 grid
+// (ty, tx), as the float32 forward) runs `hb` heads of one group in turn,
+// each through its chunks from the last to the first, every tile float32
+// in shared memory, every product on the CUDA cores
+// (lm::mm_acc_strided).
+constexpr int kMaxRt = kBlk / 16;  // row groups of a tile of 64 rows
+
+// Shared memory of the backward, in floats, for tiles of `tr` rows.
+size_t bwd_smem_floats(int nn, int pp, int tr, int q) {
+  const size_t ldn = nn + 1, ldp = pp + 1, ldt = tr + 1;
+  return 2 * nn * ldp              // dS, S_c
+         + 2 * tr * (ldn + ldp)    // B_j, x_j, C_i, dy_i
+         + 2 * tr * ldt            // W, dG
+         + 2 * 16 * tr             // column sums, 16 partials a column
+         + 5 * static_cast<size_t>(q)  // cum, dt, dcum, ddt, w_j dw_j
+         + 2 * tr;                 // exp(cum_i), w_j of a tile
+}
+
+// rows [0, tr) of a (., W) matrix at src into a [tr][ld] float32 tile, the
+// first wp columns, zeros at rows >= valid and columns >= W
+template <typename T>
+__device__ __forceinline__ void bwd_load(float* dst, int ld, const T* src,
+                                         int valid, int W, int wp, int tr) {
+  for (int idx = threadIdx.x; idx < tr * wp; idx += lm::kThreads) {
+    const int r = idx / wp, c = idx % wp;
+    dst[r * ld + c] =
+        r < valid && c < W ? lm::to_f32(src[static_cast<size_t>(r) * W + c])
+                           : 0.f;
+  }
+}
+
+template <int RM, int CM>
+__device__ __forceinline__ void bwd_zero(float (&acc)[RM][CM]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < CM; ++j) acc[i][j] = 0.f;
+}
+
+// the sum over the 16 threads of one ty (a half warp); every lane gets
+// the same bits
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int off = 8; off >= 1; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// NM, PM: N and P in groups of 16 at most (4 or 8)
+template <typename T, int NM, int PM>
+__global__ void __launch_bounds__(lm::kThreads)
+    ssd_bwd(const float* __restrict__ a, const T* __restrict__ x,
+            const float* __restrict__ dt, const T* __restrict__ b,
+            const T* __restrict__ c, const T* __restrict__ dy,
+            const float* __restrict__ states,
+            const float* __restrict__ ds_final, T* __restrict__ dx,
+            float* __restrict__ ddt, float* __restrict__ da,
+            float* __restrict__ db_part, float* __restrict__ dc_part, int L,
+            int P, int N, int Q, int rep, int hb, int tr) {
+  extern __shared__ __align__(16) float sm[];
+  const int nn = (N + 15) / 16 * 16, pp = (P + 15) / 16 * 16;
+  const int ldn = nn + 1, ldp = pp + 1, ldt = tr + 1;
+  float* dS = sm;               // [nn][ldp] d(state after the chunk)
+  float* Sc = dS + nn * ldp;    // [nn][ldp] the state before the chunk
+  float* Bj = Sc + nn * ldp;    // [tr][ldn]
+  float* Xj = Bj + tr * ldn;    // [tr][ldp]
+  float* Ci = Xj + tr * ldp;    // [tr][ldn]
+  float* DYi = Ci + tr * ldn;   // [tr][ldp]
+  float* Ws = DYi + tr * ldp;   // [tr][ldt] W (i, j)
+  float* dGs = Ws + tr * ldt;   // [tr][ldt] dG (i, j)
+  float* cs1 = dGs + tr * ldt;  // [16][tr]
+  float* cs2 = cs1 + 16 * tr;   // [16][tr]
+  float* cum = cs2 + 16 * tr;   // [Q]
+  float* dts = cum + Q;         // [Q]
+  float* dcum = dts + Q;        // [Q] d(cum)
+  float* dd = dcum + Q;         // [Q] d(dt) but the cumsum's share
+  float* wdw = dd + Q;          // [Q] w_j dw_j
+  float* er = wdw + Q;          // [tr] exp(cum_i) of a row tile
+  float* wst = er + tr;         // [tr] w_j of a column tile
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15,
+            lane = tid & 31;
+  const int rt = tr / 16, nm = nn / 16, pm = pp / 16, nc = L / Q;
+  const int grp = blockIdx.x * hb / rep;
+  const T* bg = b + static_cast<size_t>(grp) * L * N;
+  const T* cg = c + static_cast<size_t>(grp) * L * N;
+  float* dbb = db_part + static_cast<size_t>(blockIdx.x) * L * N;
+  float* dcb = dc_part + static_cast<size_t>(blockIdx.x) * L * N;
+
+  for (int hh = 0; hh < hb; ++hh) {
+    const int bh = blockIdx.x * hb + hh;
+    const float av = a[bh];
+    const T* xb = x + static_cast<size_t>(bh) * L * P;
+    const T* dyb = dy + static_cast<size_t>(bh) * L * P;
+    const float* dtb = dt + static_cast<size_t>(bh) * L;
+    float da_acc = 0.f;  // warp 0
+    __syncthreads();     // the previous head's last reads of dS are done
+    for (int idx = tid; idx < nn * ldp; idx += lm::kThreads) {
+      const int n = idx / ldp, p = idx % ldp;
+      dS[idx] = ds_final != nullptr && n < N && p < P
+                    ? ds_final[(static_cast<size_t>(bh) * N + n) * P + p]
+                    : 0.f;
+    }
+
+    for (int ci = nc - 1; ci >= 0; --ci) {
+      const int c0 = ci * Q;
+      __syncthreads();
+      for (int t = tid; t < Q; t += lm::kThreads) {
+        dts[t] = dtb[c0 + t];
+        dcum[t] = 0.f;
+        dd[t] = 0.f;
+      }
+      __syncthreads();
+      if (tid < 32) {  // inclusive cumsum of dt A, as the forward's
+        float carry = 0.f;
+        for (int t0 = 0; t0 < Q; t0 += 32) {
+          const int t = t0 + lane;
+          float v = t < Q ? dts[t] * av : 0.f;
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const float nb = __shfl_up_sync(0xffffffffu, v, off);
+            if (lane >= off) v += nb;
+          }
+          v += carry;
+          if (t < Q) cum[t] = v;
+          carry = __shfl_sync(0xffffffffu, v, 31);
+        }
+      }
+      __syncthreads();
+      const float cq = cum[Q - 1];
+
+      // ---- column tiles j: dx_j and dB_j (state update and intra-chunk
+      // terms), the column sums of ddt and dcum
+      for (int j0 = 0; j0 < Q; j0 += tr) {
+        const int ncol = min(tr, Q - j0);
+        bwd_load(Bj, ldn, bg + static_cast<size_t>(c0 + j0) * N, ncol, N, nn,
+                 tr);
+        bwd_load(Xj, ldp, xb + static_cast<size_t>(c0 + j0) * P, ncol, P, pp,
+                 tr);
+        if (tid < tr)
+          wst[tid] = tid < ncol ? expf(cq - cum[j0 + tid]) * dts[j0 + tid]
+                                : 0.f;
+        __syncthreads();
+        float ax[kMaxRt][PM], ab[kMaxRt][NM];
+        bwd_zero(ax);
+        bwd_zero(ab);
+        // state update S' = e S + sum_j w_j B_j x_j^T: U = B_j dS, V = x_j
+        // dS^T; dx_j = w_j U_j, dB_j = w_j V_j, dw_j = U_j . x_j
+        lm::mm_acc_strided(ax, Bj, ldn, 1, dS, ldp, 1, nn, rt, pm, ty,
+                           tx);
+        lm::mm_acc_strided(ab, Xj, ldp, 1, dS, 1, ldp, pp, rt, nm, ty,
+                           tx);
+#pragma unroll
+        for (int i = 0; i < kMaxRt; ++i) {
+          if (i >= rt) break;
+          const int r = ty + 16 * i;
+          float s = 0.f;
+#pragma unroll
+          for (int j = 0; j < PM; ++j)
+            if (j < pm) s = fmaf(ax[i][j], Xj[r * ldp + tx + 16 * j], s);
+          s = half_warp_sum(s);
+          const float w = wst[r];
+          if (tx == 0 && r < ncol) {
+            const int jj = j0 + r;
+            dd[jj] += expf(cq - cum[jj]) * s;
+            dcum[jj] -= w * s;
+            wdw[jj] = w * s;
+          }
+#pragma unroll
+          for (int j = 0; j < PM; ++j) ax[i][j] *= w;
+#pragma unroll
+          for (int j = 0; j < NM; ++j) ab[i][j] *= w;
+        }
+        // intra-chunk, row tiles from the diagonal down
+        for (int i0 = j0; i0 < Q; i0 += tr) {
+          const int nr = min(tr, Q - i0);
+          bwd_load(Ci, ldn, cg + static_cast<size_t>(c0 + i0) * N, nr, N, nn,
+                   tr);
+          bwd_load(DYi, ldp, dyb + static_cast<size_t>(c0 + i0) * P, nr, P,
+                   pp, tr);
+          __syncthreads();
+          float gm[kMaxRt][kMaxRt], dw[kMaxRt][kMaxRt];
+          bwd_zero(gm);
+          bwd_zero(dw);
+          // C_i . B_j and dy_i . x_j
+          lm::mm_acc_strided(gm, Ci, ldn, 1, Bj, 1, ldn, nn, rt, rt, ty,
+                             tx);
+          lm::mm_acc_strided(dw, DYi, ldp, 1, Xj, 1, ldp, pp, rt, rt, ty,
+                             tx);
+          float p1[kMaxRt], p2[kMaxRt];
+#pragma unroll
+          for (int j = 0; j < kMaxRt; ++j) p1[j] = p2[j] = 0.f;
+#pragma unroll
+          for (int i = 0; i < kMaxRt; ++i)
+#pragma unroll
+            for (int j = 0; j < kMaxRt; ++j) {
+              if (i >= rt || j >= rt) continue;
+              const int r = ty + 16 * i, cc = tx + 16 * j;
+              const int ii = i0 + r, jj = j0 + cc;
+              // never form L for j > i: its exponent is positive
+              const bool ok = r < nr && cc < ncol && jj <= ii;
+              const float l = ok ? expf(cum[ii] - cum[jj]) : 0.f;
+              const float d = ok ? dts[jj] : 0.f;
+              const float w = gm[i][j] * l * d;
+              Ws[r * ldt + cc] = w;
+              dGs[r * ldt + cc] = dw[i][j] * l * d;
+              p1[j] = fmaf(dw[i][j] * gm[i][j], l, p1[j]);  // dW G L
+              p2[j] = fmaf(dw[i][j], w, p2[j]);             // dW W
+            }
+#pragma unroll
+          for (int j = 0; j < kMaxRt; ++j)
+            if (j < rt) {
+              cs1[ty * tr + tx + 16 * j] = p1[j];
+              cs2[ty * tr + tx + 16 * j] = p2[j];
+            }
+          __syncthreads();
+          // W^T dy and dG^T C
+          lm::mm_acc_strided(ax, Ws, 1, ldt, DYi, ldp, 1, tr, rt, pm, ty,
+                             tx);
+          lm::mm_acc_strided(ab, dGs, 1, ldt, Ci, ldn, 1, tr, rt, nm, ty,
+                             tx);
+          if (tid < ncol) {
+            float s1 = 0.f, s2 = 0.f;
+            for (int t = 0; t < 16; ++t) {
+              s1 += cs1[t * tr + tid];
+              s2 += cs2[t * tr + tid];
+            }
+            dd[j0 + tid] += s1;
+            dcum[j0 + tid] -= s2;
+          }
+          __syncthreads();
+        }
+        // dx rows; dB rows into this block's partial (first head writes)
+#pragma unroll
+        for (int i = 0; i < kMaxRt; ++i) {
+          const int r = ty + 16 * i;
+          if (i >= rt || r >= ncol) continue;
+          const size_t row = c0 + j0 + r;
+#pragma unroll
+          for (int j = 0; j < PM; ++j) {
+            const int p = tx + 16 * j;
+            if (j < pm && p < P)
+              dx[(static_cast<size_t>(bh) * L + row) * P + p] =
+                  lm::from_f32<T>(ax[i][j]);
+          }
+#pragma unroll
+          for (int j = 0; j < NM; ++j) {
+            const int n = tx + 16 * j;
+            if (j < nm && n < N) {
+              float* o = dbb + row * N + n;
+              *o = hh ? *o + ab[i][j] : ab[i][j];
+            }
+          }
+        }
+        __syncthreads();  // B_j, x_j and w_j are reloaded next
+      }
+
+      // ---- S_c into shared memory, and <S_c, dS> for d(cum_Q)
+      float dot = 0.f;
+      if (ci > 0) {
+        const float* sc =
+            states + (static_cast<size_t>(bh) * (nc - 1) + ci - 1) * N * P;
+        for (int idx = tid; idx < nn * ldp; idx += lm::kThreads) {
+          const int n = idx / ldp, p = idx % ldp;
+          const float v =
+              n < N && p < P ? sc[static_cast<size_t>(n) * P + p] : 0.f;
+          Sc[idx] = v;
+          dot = fmaf(v, dS[idx], dot);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane == 0) cs1[tid >> 5] = dot;
+      __syncthreads();
+      float extra = 0.f;  // thread 0: exp(cum_Q) <S_c, dS>
+      if (tid == 0) {
+        float s = 0.f;
+        for (int w = 0; w < lm::kThreads / 32; ++w) s += cs1[w];
+        extra = expf(cq) * s;
+      }
+
+      // ---- row tiles i: dC_i (inter- and intra-chunk terms), the row sums
+      // of dcum, and the inter-chunk part of d(S_c)
+      float aS[NM][PM];
+      bwd_zero(aS);
+      for (int i0 = 0; i0 < Q; i0 += tr) {
+        const int nr = min(tr, Q - i0);
+        bwd_load(Ci, ldn, cg + static_cast<size_t>(c0 + i0) * N, nr, N, nn,
+                 tr);
+        bwd_load(DYi, ldp, dyb + static_cast<size_t>(c0 + i0) * P, nr, P, pp,
+                 tr);
+        if (tid < tr) er[tid] = tid < nr ? expf(cum[i0 + tid]) : 0.f;
+        __syncthreads();
+        float ac[kMaxRt][NM];
+        bwd_zero(ac);
+        if (ci > 0) {
+          // T = dy_i S_c^T; dC_i = exp(cum_i) T_i, dcum_i += exp(cum_i)
+          // C_i . T_i
+          lm::mm_acc_strided(ac, DYi, ldp, 1, Sc, 1, ldp, pp, rt, nm, ty,
+                             tx);
+#pragma unroll
+          for (int i = 0; i < kMaxRt; ++i) {
+            if (i >= rt) break;
+            const int r = ty + 16 * i;
+            float s = 0.f;
+#pragma unroll
+            for (int j = 0; j < NM; ++j)
+              if (j < nm) s = fmaf(ac[i][j], Ci[r * ldn + tx + 16 * j], s);
+            s = half_warp_sum(s);
+            if (tx == 0 && r < nr) dcum[i0 + r] += er[r] * s;
+#pragma unroll
+            for (int j = 0; j < NM; ++j) ac[i][j] *= er[r];
+          }
+        }
+        // d(S_c) gains sum_i exp(cum_i) C_i^T dy_i (none for chunk 0: the
+        // initial state is zero and its gradient is no output)
+        if (ci > 0)
+          lm::mm_acc_strided(aS, Ci, 1, ldn, DYi, ldp, 1, tr, nm, pm, ty, tx,
+                             er);
+        for (int j0 = 0; j0 <= i0; j0 += tr) {
+          const int ncol = min(tr, Q - j0);
+          __syncthreads();  // B_j and dG of the last tile are read
+          bwd_load(Bj, ldn, bg + static_cast<size_t>(c0 + j0) * N, ncol, N,
+                   nn, tr);
+          bwd_load(Xj, ldp, xb + static_cast<size_t>(c0 + j0) * P, ncol, P,
+                   pp, tr);
+          __syncthreads();
+          float gm[kMaxRt][kMaxRt], dw[kMaxRt][kMaxRt];
+          bwd_zero(gm);
+          bwd_zero(dw);
+          lm::mm_acc_strided(gm, Ci, ldn, 1, Bj, 1, ldn, nn, rt, rt, ty,
+                             tx);
+          lm::mm_acc_strided(dw, DYi, ldp, 1, Xj, 1, ldp, pp, rt, rt, ty,
+                             tx);
+#pragma unroll
+          for (int i = 0; i < kMaxRt; ++i) {
+            if (i >= rt) break;
+            const int r = ty + 16 * i, ii = i0 + r;
+            float pr = 0.f;
+#pragma unroll
+            for (int j = 0; j < kMaxRt; ++j) {
+              if (j >= rt) continue;
+              const int cc = tx + 16 * j, jj = j0 + cc;
+              const bool ok = r < nr && cc < ncol && jj <= ii;
+              const float l = ok ? expf(cum[ii] - cum[jj]) : 0.f;
+              const float d = ok ? dts[jj] : 0.f;
+              dGs[r * ldt + cc] = dw[i][j] * l * d;
+              pr = fmaf(dw[i][j], gm[i][j] * l * d, pr);  // dW W
+            }
+            pr = half_warp_sum(pr);
+            if (tx == 0 && r < nr) dcum[ii] += pr;
+          }
+          __syncthreads();
+          // dG B
+          lm::mm_acc_strided(ac, dGs, ldt, 1, Bj, ldn, 1, tr, rt, nm, ty,
+                             tx);
+        }
+        // dC rows into this block's partial (first head writes)
+#pragma unroll
+        for (int i = 0; i < kMaxRt; ++i) {
+          const int r = ty + 16 * i;
+          if (i >= rt || r >= nr) continue;
+          const size_t row = c0 + i0 + r;
+#pragma unroll
+          for (int j = 0; j < NM; ++j) {
+            const int n = tx + 16 * j;
+            if (j < nm && n < N) {
+              float* o = dcb + row * N + n;
+              *o = hh ? *o + ac[i][j] : ac[i][j];
+            }
+          }
+        }
+        __syncthreads();  // C_i, dy_i and exp(cum_i) are reloaded next
+      }
+
+      // ---- dS <- exp(cum_Q) dS + sum_i exp(cum_i) C_i^T dy_i, for the
+      // chunk before (none before chunk 0)
+      const float eq = expf(cq);
+#pragma unroll
+      for (int i = 0; i < NM; ++i)
+#pragma unroll
+        for (int j = 0; j < PM; ++j)
+          if (ci > 0 && i < nm && j < pm) {
+            const int idx = (ty + 16 * i) * ldp + tx + 16 * j;
+            dS[idx] = eq * dS[idx] + aS[i][j];
+          }
+
+      // ---- the cumsum: d(da)_k = sum_{i >= k} dcum_i; ddt_k += a d(da)_k,
+      // da += sum_k dt_k d(da)_k
+      if (tid < 32) {
+        if (tid == 0) {  // d(cum_Q): w_j's share and exp(cum_Q)'s
+          float s = 0.f;
+          for (int t = 0; t < Q; ++t) s += wdw[t];
+          dcum[Q - 1] += s + extra;
+        }
+        __syncwarp();
+        float carry = 0.f, part = 0.f;
+        for (int t1 = Q; t1 > 0; t1 -= 32) {
+          const int t = t1 - 32 + lane;
+          float v = t >= 0 ? dcum[t] : 0.f;
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const float nb = __shfl_down_sync(0xffffffffu, v, off);
+            if (lane + off < 32) v += nb;
+          }
+          v += carry;
+          carry = __shfl_sync(0xffffffffu, v, 0);
+          if (t >= 0) {
+            ddt[static_cast<size_t>(bh) * L + c0 + t] = dd[t] + av * v;
+            part = fmaf(dts[t], v, part);
+          }
+        }
+#pragma unroll
+        for (int off = 16; off >= 1; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        da_acc += part;
+      }
+    }
+    if (tid == 0) da[bh] = da_acc;
+  }
+}
+
+template <typename T, int NM, int PM>
+int launch_bwd_t(const float* a, const void* x, const float* dt,
+                 const void* b, const void* c, const void* dy,
+                 const float* states, const float* ds_final, void* dx,
+                 float* ddt, float* da, float* db_part, float* dc_part,
+                 int bh, int L, int P, int N, int Q, int rep, int hb, int tr,
+                 size_t smem, cudaStream_t stream) {
+  cudaError_t e = lm::allow_smem(ssd_bwd<T, NM, PM>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_bwd<T, NM, PM><<<bh / hb, lm::kThreads, smem, stream>>>(
+      a, static_cast<const T*>(x), dt, static_cast<const T*>(b),
+      static_cast<const T*>(c), static_cast<const T*>(dy), states, ds_final,
+      static_cast<T*>(dx), ddt, da, db_part, dc_part, L, P, N, Q, rep, hb,
+      tr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const float* a, const void* x, const float* dt, const void* b,
+               const void* c, const void* dy, const float* states,
+               const float* ds_final, void* dx, float* ddt, float* da,
+               float* db_part, float* dc_part, int bh, int L, int P, int N,
+               int Q, int rep, int hb, cudaStream_t stream) {
+  const int nn = (N + 15) / 16 * 16, pp = (P + 15) / 16 * 16;
+  // tiles of 64 rows where shared memory holds them, else of 32
+  int tr = kBlk;
+  size_t smem = sizeof(float) * bwd_smem_floats(nn, pp, tr, Q);
+  if (smem > 227 * 1024) {
+    tr = 32;
+    smem = sizeof(float) * bwd_smem_floats(nn, pp, tr, Q);
+  }
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+#define SSD_BWD(NM, PM)                                                     \
+  launch_bwd_t<T, NM, PM>(a, x, dt, b, c, dy, states, ds_final, dx, ddt, da, \
+                          db_part, dc_part, bh, L, P, N, Q, rep, hb, tr,     \
+                          smem, stream)
+  if (nn > 64) return pp > 64 ? SSD_BWD(8, 8) : SSD_BWD(8, 4);
+  return pp > 64 ? SSD_BWD(4, 8) : SSD_BWD(4, 4);
+#undef SSD_BWD
 }
 
 }  // namespace
 
 // a (bh,) float32; x (bh, L, P); dt (bh, L) float32; b, c (bh / rep, L, N);
 // y (bh, L, P); s_final (bh, N, P) float32; x, b, c, y all float32
-// (is_bf16 = 0) or all bfloat16. Needs L % Q == 0, bh % rep == 0,
-// 1 <= P, N <= 128.
+// (is_bf16 = 0) or all bfloat16; states null, or (bh, L / Q - 1, N, P)
+// float32 for the state before each chunk but the first. Needs L % Q == 0,
+// bh % rep == 0, 1 <= P, N <= 128.
 extern "C" int ssd_scan_launch(int is_bf16, const void* a, const void* x,
                                const void* dt, const void* b, const void* c,
-                               void* y, void* s_final, int bh, int L, int P,
-                               int N, int Q, int rep, void* stream) {
+                               void* y, void* s_final, void* states, int bh,
+                               int L, int P, int N, int Q, int rep,
+                               void* stream) {
   if (bh < 1 || L < 1 || Q < 1 || L % Q || rep < 1 || bh % rep || P < 1 ||
       P > 128 || N < 1 || N > 128)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -787,7 +1317,42 @@ extern "C" int ssd_scan_launch(int is_bf16, const void* a, const void* x,
   const float* af = static_cast<const float*>(a);
   const float* dtf = static_cast<const float*>(dt);
   float* sf = static_cast<float*>(s_final);
+  float* st = static_cast<float*>(states);
   if (is_bf16)
-    return launch_mma(af, x, dtf, b, c, y, sf, bh, L, P, N, Q, rep, s);
-  return launch<float>(af, x, dtf, b, c, y, sf, bh, L, P, N, Q, rep, s);
+    return launch_mma(af, x, dtf, b, c, y, sf, st, bh, L, P, N, Q, rep, s);
+  return launch<float>(af, x, dtf, b, c, y, sf, st, bh, L, P, N, Q, rep, s);
+}
+
+// The backward of ssd_scan_launch at the same a, x, dt, b, c (and Q, rep):
+// dy (bh, L, P) in x's type; states (bh, L / Q - 1, N, P) float32 from the
+// forward (null when L == Q); ds_final (bh, N, P) float32 or null (zero).
+// Writes dx (bh, L, P) in x's type, ddt (bh, L) and da (bh,) float32, and
+// dB, dC as float32 partial sums (bh / hb, L, N), one a block of hb heads
+// (hb divides rep): the caller sums each group's rep / hb partials.
+extern "C" int ssd_scan_bwd_launch(int is_bf16, const void* a, const void* x,
+                                   const void* dt, const void* b,
+                                   const void* c, const void* dy,
+                                   const void* states, const void* ds_final,
+                                   void* dx, void* ddt, void* da,
+                                   void* db_part, void* dc_part, int bh,
+                                   int L, int P, int N, int Q, int rep,
+                                   int hb, void* stream) {
+  if (bh < 1 || L < 1 || Q < 1 || L % Q || rep < 1 || bh % rep || P < 1 ||
+      P > 128 || N < 1 || N > 128 || hb < 1 || rep % hb ||
+      (L > Q && states == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(a);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* st = static_cast<const float*>(states);
+  const float* dsf = static_cast<const float*>(ds_final);
+  float* ddtf = static_cast<float*>(ddt);
+  float* daf = static_cast<float*>(da);
+  float* dbp = static_cast<float*>(db_part);
+  float* dcp = static_cast<float*>(dc_part);
+  if (is_bf16)
+    return launch_bwd<bf16>(af, x, dtf, b, c, dy, st, dsf, dx, ddtf, daf, dbp,
+                            dcp, bh, L, P, N, Q, rep, hb, s);
+  return launch_bwd<float>(af, x, dtf, b, c, dy, st, dsf, dx, ddtf, daf, dbp,
+                           dcp, bh, L, P, N, Q, rep, hb, s);
 }

@@ -1,5 +1,6 @@
-"""Mamba2 SSD chunked scan: the CUDA kernel, its wrapper and its plain
-version.
+"""Mamba2 SSD chunked scan: the CUDA kernels, their wrappers, their plain
+versions and the autograd Function that joins the forward and the
+backward.
 
 `ssd_scan` (csrc/ssd_scan.cu) replaces the TPU kernel
 `repro/kernels/ssd_scan.py::ssd_scan`: per (batch, head) row and chunk
@@ -16,15 +17,24 @@ Layout: a (BH,), x (BH, L, P), dt (BH, L), b, c (BH // rep, L, N): row
 bh reads B and C row bh // rep, so the heads of a group share their
 group's rows (with rep = 1 this is the TPU kernel's per-head layout).
 
-`ssd_scan_plain` is the TPU kernel's per-chunk arithmetic in eager torch
-(any device). The wrapper takes `device=None` (meaning "cuda"): on a
-CUDA device it launches the kernel on the current stream or raises;
-only for CPU tensors does it run the plain version. The plain version is
-differentiable; on the card a launch whose inputs need a gradient goes
-through `_grad.NoBackward`, so a backward through it raises
-NotImplementedError (no backward kernel yet, open item 13b-ii) instead
-of leaving the parameters upstream without a gradient. It counts
-`.launches` and `.plain_calls`; `reset_counts()` zeroes both.
+The TPU kernel has no backward: the reference trains through its jnp
+`ssd_chunked` and autodiff. The port trains through the kernel, so
+`ssd_scan_bwd` (the `ssd_bwd` kernel of the same source, float32 on the
+CUDA cores for both input types) is the gradient of the function the
+forward computes. When a gradient is needed the forward also saves S_c,
+the float32 state before each chunk c >= 1, (BH, L // q - 1, N, P), and
+the backward walks the chunks in reverse from them (undoing the
+recurrence would divide by exp(cum_Q)). `SSDScan` is the autograd
+Function: on the card the forward kernel then the backward kernel, on
+the CPU the plain forward then `ssd_scan_bwd_plain`, so the CPU tests run
+the formula the backward kernel is held to.
+
+`ssd_scan_plain` and `ssd_scan_bwd_plain` are the arithmetic chunk by
+chunk in eager torch (any device). The wrappers take `device=None`
+(meaning "cuda"): on a CUDA device they launch the kernel on the current
+stream or raise; only for CPU tensors do they run the plain version.
+Counts on `ssd_scan`: `.launches` and `.plain_calls` (forward),
+`.bwd_launches` and `.bwd_plain_calls`; `reset_counts()` zeroes them.
 """
 from __future__ import annotations
 
@@ -34,71 +44,146 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import _build
-from repro_torch.kernels._grad import NoBackward, needs_grad
-from repro_torch.kernels.iss_stepper import _check, _raise_on
+from repro_torch.kernels._grad import needs_grad
+from repro_torch.kernels.iss_stepper import _check, _on_cpu, _raise_on
 
 F32 = torch.float32
 _DTYPES = (torch.float32, torch.bfloat16)
-NO_BACKWARD = ("ssd_scan has no backward kernel yet: a loss through the "
-               "scan trains on the CPU only (ROADMAP.md, open item 13b-ii)")
 
 
-def ssd_scan_plain(a, x, dt, b, c, *, q: int = 64, rep: int = 1
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _chunk_inputs(a, x, dt, b, c, sl, rep):
+    """Chunk `sl` of every input in float32, B and C repeated per head,
+    and the chunk's inclusive cumsum of dt a."""
+    bf = b[:, sl].repeat_interleave(rep, dim=0) if rep > 1 else b[:, sl]
+    cf = c[:, sl].repeat_interleave(rep, dim=0) if rep > 1 else c[:, sl]
+    dts = dt[:, sl].to(F32)
+    cum = torch.cumsum(dts * a.to(F32)[:, None], dim=-1)
+    return x[:, sl].to(F32), dts, bf.to(F32), cf.to(F32), cum
+
+
+def _decay(cum, causal):
+    """L_ij = exp(cum_i - cum_j) for j <= i, 0 above the diagonal (the
+    exponent masked before exp: it is positive there)."""
+    decay = cum[:, :, None] - cum[:, None, :]
+    neg_inf = torch.full((), float("-inf"), device=cum.device)
+    return torch.exp(torch.where(causal, decay, neg_inf))
+
+
+def ssd_scan_plain(a, x, dt, b, c, *, q: int = 64, rep: int = 1,
+                   return_states: bool = False):
     """The TPU kernel's chunk step, batched over BH, chunk by chunk.
-    Returns (y (BH, L, P) in x's dtype, state (BH, N, P) float32)."""
+    Returns (y (BH, L, P) in x's dtype, state (BH, N, P) float32), and
+    with `return_states` also the state before each chunk but the first,
+    (BH, L // q - 1, N, P) float32."""
     bh, l, p = x.shape
     n = b.shape[-1]
     dev = x.device
-    bf = b.repeat_interleave(rep, dim=0) if rep > 1 else b
-    cf = c.repeat_interleave(rep, dim=0) if rep > 1 else c
     causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
-    neg_inf = torch.full((), float("-inf"), device=dev)
     state = torch.zeros((bh, n, p), dtype=F32, device=dev)
-    av = a.to(F32)[:, None]
-    ys = []
+    ys, states = [], []
     for ci in range(l // q):
-        sl = slice(ci * q, (ci + 1) * q)
-        xs = x[:, sl].to(F32)                             # (BH, Q, P)
-        dts = dt[:, sl].to(F32)                           # (BH, Q)
-        bm = bf[:, sl].to(F32)                            # (BH, Q, N)
-        cm = cf[:, sl].to(F32)
-        cum = torch.cumsum(dts * av, dim=-1)              # (BH, Q)
+        if ci:
+            states.append(state)
+        xs, dts, bm, cm, cum = _chunk_inputs(a, x, dt, b, c,
+                                             slice(ci * q, (ci + 1) * q), rep)
         seg_end = cum[:, -1:]
-        decay = cum[:, :, None] - cum[:, None, :]         # (BH, Q, Q)
-        lmat = torch.exp(torch.where(causal, decay, neg_inf))
-        w = (cm @ bm.transpose(1, 2)) * lmat * dts[:, None, :]
+        w = (cm @ bm.transpose(1, 2)) * _decay(cum, causal) * dts[:, None, :]
         y = w @ xs
         y = y + torch.exp(cum)[:, :, None] * (cm @ state)
         wstate = torch.exp(seg_end - cum) * dts           # (BH, Q)
         s_new = (bm * wstate[:, :, None]).transpose(1, 2) @ xs
         state = state * torch.exp(seg_end)[:, :, None] + s_new
         ys.append(y.to(x.dtype))
-    return torch.cat(ys, dim=1), state
+    y = torch.cat(ys, dim=1)
+    if not return_states:
+        return y, state
+    saved = (torch.stack(states, dim=1) if states else
+             torch.zeros((bh, 0, n, p), dtype=F32, device=dev))
+    return y, state, saved
 
 
-def ssd_scan(a, x, dt, b, c, *, q: int = 64, rep: int = 1,
-             device: DeviceLike = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a: (BH,) per-head A; x: (BH, L, P); dt: (BH, L); b, c:
-    (BH // rep, L, N). Returns (y (BH, L, P) in x's dtype, final state
-    (BH, N, P) float32). L must divide by q."""
-    dev = resolve(device)
+def ssd_scan_bwd_plain(a, x, dt, b, c, dy, states, ds_final=None, *,
+                       q: int = 64, rep: int = 1):
+    """(da, dx, ddt, db, dc), the gradients of `ssd_scan_plain`'s inputs
+    (a, x, dt, b, c), from the output's gradient dy (BH, L, P), the
+    forward's saved states and the final state's gradient ds_final
+    ((BH, N, P) float32, or None for zero): the chunks in reverse with
+    dS, the gradient of the state after the chunk, carried. float32 sums;
+    dx, db, dc in the inputs' dtypes, ddt and da float32."""
     bh, l, p = x.shape
     n = b.shape[-1]
+    dev = x.device
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
+    ds = (torch.zeros((bh, n, p), dtype=F32, device=dev) if ds_final is None
+          else ds_final.to(F32))
+    dx = torch.empty((bh, l, p), dtype=F32, device=dev)
+    ddt = torch.empty((bh, l), dtype=F32, device=dev)
+    db = torch.empty((bh, l, n), dtype=F32, device=dev)
+    dc = torch.empty((bh, l, n), dtype=F32, device=dev)
+    da = torch.zeros((bh,), dtype=F32, device=dev)
+    av = a.to(F32)[:, None]
+    for ci in reversed(range(l // q)):
+        sl = slice(ci * q, (ci + 1) * q)
+        xs, dts, bm, cm, cum = _chunk_inputs(a, x, dt, b, c, sl, rep)
+        dys = dy[:, sl].to(F32)
+        cq = cum[:, -1:]                                   # (BH, 1)
+        lmat = _decay(cum, causal)
+        g = cm @ bm.transpose(1, 2)                        # C_i . B_j
+        w = g * lmat * dts[:, None, :]
+        s_c = (states[:, ci - 1] if ci else
+               torch.zeros((bh, n, p), dtype=F32, device=dev))
+        ecum = torch.exp(cum)
+        wst = torch.exp(cq - cum) * dts                    # w_j
+        # intra-chunk: y_i += sum_{j <= i} W_ij x_j
+        dwm = dys @ xs.transpose(1, 2)                     # dW = dy x^T
+        dxc = w.transpose(1, 2) @ dys
+        dg = dwm * lmat * dts[:, None, :]
+        dcc = dg @ bm
+        dbc = dg.transpose(1, 2) @ cm
+        ww = dwm * w
+        dcum = ww.sum(-1) - ww.sum(-2)
+        ddtc = (dwm * g * lmat).sum(-2)
+        # inter-chunk: y_i += exp(cum_i) C_i S_c
+        t = dys @ s_c.transpose(1, 2)                      # (BH, Q, N)
+        dcc = dcc + ecum[:, :, None] * t
+        dcum = dcum + ecum * (cm * t).sum(-1)
+        # state update: S' = exp(cum_Q) S_c + sum_j w_j B_j x_j^T
+        u = bm @ ds                                        # (BH, Q, P)
+        dxc = dxc + wst[:, :, None] * u
+        dbc = dbc + wst[:, :, None] * (xs @ ds.transpose(1, 2))
+        dw = (u * xs).sum(-1)
+        ddtc = ddtc + torch.exp(cq - cum) * dw
+        dcum = dcum - wst * dw
+        dcum[:, -1] += ((wst * dw).sum(-1)
+                        + torch.exp(cq[:, 0]) * (s_c * ds).sum((1, 2)))
+        ds = torch.exp(cq)[:, :, None] * ds \
+            + (ecum[:, :, None] * cm).transpose(1, 2) @ dys
+        # the cumsum: d(da)_k = sum_{i >= k} dcum_i
+        dda = torch.flip(torch.cumsum(torch.flip(dcum, (1,)), 1), (1,))
+        ddt[:, sl] = ddtc + av * dda
+        da = da + (dts * dda).sum(-1)
+        dx[:, sl], db[:, sl], dc[:, sl] = dxc, dbc, dcc
+    if rep > 1:
+        db = db.reshape(bh // rep, rep, l, n).sum(1)
+        dc = dc.reshape(bh // rep, rep, l, n).sum(1)
+    return da, dx.to(x.dtype), ddt, db.to(b.dtype), dc.to(c.dtype)
+
+
+def _check_shape(bh: int, l: int, q: int, rep: int) -> None:
     if l % q:
         raise ValueError(f"L = {l} must divide by q = {q}")
     if rep < 1 or bh % rep:
         raise ValueError(f"BH = {bh} must divide by rep = {rep}")
-    if dev.type == "cpu":
-        for name, t in (("a", a), ("x", x), ("dt", dt), ("b", b), ("c", c)):
-            if t.device.type != "cpu":
-                raise ValueError(f"{name} is on {t.device}, expected cpu")
-        ssd_scan.plain_calls += 1
-        return ssd_scan_plain(a, x, dt, b, c, q=q, rep=rep)
+
+
+def _check_inputs(a, x, dt, b, c, dev, rep):
+    """The types, shapes and devices the kernels take; the P, N limit on
+    the card only."""
+    bh, l, p = x.shape
+    n = b.shape[-1]
     if x.dtype not in _DTYPES:
         raise ValueError(f"x has dtype {x.dtype}: float32 or bfloat16")
-    if not (1 <= p <= 128 and 1 <= n <= 128):
+    if dev.type == "cuda" and not (1 <= p <= 128 and 1 <= n <= 128):
         raise ValueError(f"P = {p}, N = {n}: the kernel takes 1 to 128")
     for name, t, dtype, shape in (
             ("a", a, F32, (bh,)), ("x", x, x.dtype, (bh, l, p)),
@@ -106,29 +191,141 @@ def ssd_scan(a, x, dt, b, c, *, q: int = 64, rep: int = 1,
             ("c", c, x.dtype, (bh // rep, l, n))):
         _check(name, t, dev, dtype, shape)
 
-    def launch(a, x, dt, b, c):
-        y = torch.empty_like(x)
-        s_final = torch.empty((bh, n, p), dtype=F32, device=dev)
-        fn = getattr(_build.load("ssd_scan"), "ssd_scan_launch")
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(int(x.dtype == torch.bfloat16), a.data_ptr(),
-                    x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
-                    y.data_ptr(), s_final.data_ptr(), bh, l, p, n, q, rep,
-                    stream)
-        _raise_on(rc, "ssd_scan launch")
-        ssd_scan.launches += 1
+
+def _forward(a, x, dt, b, c, q, rep, dev, with_states):
+    """(y, s_final, states or None): the kernel on the card, the plain
+    version on the CPU."""
+    bh, l, p = x.shape
+    n = b.shape[-1]
+    _check_shape(bh, l, q, rep)
+    if dev.type == "cpu":
+        _on_cpu(a=a, x=x, dt=dt, b=b, c=c)
+        ssd_scan.plain_calls += 1
+        out = ssd_scan_plain(a, x, dt, b, c, q=q, rep=rep,
+                             return_states=with_states)
+        return out if with_states else (*out, None)
+    _check_inputs(a, x, dt, b, c, dev, rep)
+    y = torch.empty_like(x)
+    s_final = torch.empty((bh, n, p), dtype=F32, device=dev)
+    states = (torch.empty((bh, l // q - 1, n, p), dtype=F32, device=dev)
+              if with_states else None)
+    fn = getattr(_build.load("ssd_scan"), "ssd_scan_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(int(x.dtype == torch.bfloat16), a.data_ptr(), x.data_ptr(),
+                dt.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+                s_final.data_ptr(),
+                states.data_ptr() if with_states and l > q else None,
+                bh, l, p, n, q, rep, stream)
+    _raise_on(rc, "ssd_scan launch")
+    ssd_scan.launches += 1
+    return y, s_final, states
+
+
+def heads_a_block(bh: int, rep: int, sms: int) -> int:
+    """The backward's heads a block: the divisor of rep whose grid of
+    bh / hb blocks (one an SM) fills the SMs in the fewest waves of the
+    fewest heads, the most heads on a tie (the fewest partial sums)."""
+    best = None
+    for hb in range(1, rep + 1):
+        if rep % hb:
+            continue
+        cost = -(-(bh // hb) // sms) * hb
+        if best is None or cost <= best[0]:
+            best = (cost, hb)
+    return best[1]
+
+
+def ssd_scan_bwd(a, x, dt, b, c, dy, states, ds_final=None, *, q: int = 64,
+                 rep: int = 1, device: DeviceLike = None):
+    """(da, dx, ddt, db, dc), the gradients of (a, x, dt, b, c), from
+    the forward's inputs, the output's gradient dy ((BH, L, P), x's
+    dtype), the forward's saved states ((BH, L // q - 1, N, P) float32)
+    and the final state's gradient ds_final ((BH, N, P) float32, or None
+    for zero)."""
+    dev = resolve(device)
+    bh, l, p = x.shape
+    n = b.shape[-1]
+    _check_shape(bh, l, q, rep)
+    _check_inputs(a, x, dt, b, c, dev, rep)
+    _check("dy", dy, dev, x.dtype, (bh, l, p))
+    _check("states", states, dev, F32, (bh, l // q - 1, n, p))
+    if ds_final is not None:
+        _check("ds_final", ds_final, dev, F32, (bh, n, p))
+    if dev.type == "cpu":
+        ssd_scan.bwd_plain_calls += 1
+        return ssd_scan_bwd_plain(a, x, dt, b, c, dy, states, ds_final, q=q,
+                                  rep=rep)
+    hb = heads_a_block(bh, rep,
+                       torch.cuda.get_device_properties(dev)
+                       .multi_processor_count)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((bh, l), dtype=F32, device=dev)
+    da = torch.empty((bh,), dtype=F32, device=dev)
+    db_part, dc_part = (torch.empty((bh // hb, l, n), dtype=F32, device=dev)
+                        for _ in range(2))
+    fn = getattr(_build.load("ssd_scan"), "ssd_scan_bwd_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(int(x.dtype == torch.bfloat16), a.data_ptr(), x.data_ptr(),
+                dt.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
+                states.data_ptr() if l > q else None,
+                None if ds_final is None else ds_final.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
+                db_part.data_ptr(), dc_part.data_ptr(), bh, l, p, n, q, rep,
+                hb, stream)
+    _raise_on(rc, "ssd_scan_bwd launch")
+    ssd_scan.bwd_launches += 1
+    # a group's partials summed in a fixed order: the gradient of the
+    # repeat of B and C over the group's heads
+    db, dc = (t.reshape(bh // rep, rep // hb, l, n).sum(1).to(b.dtype)
+              for t in (db_part, dc_part))
+    return da, dx, ddt, db, dc
+
+
+class SSDScan(torch.autograd.Function):
+    """`SSDScan.apply(a, x, dt, b, c, q, rep, device)`: the forward saving
+    its chunk-entry states, and `ssd_scan_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, a, x, dt, b, c, q, rep, dev):
+        ctx.set_materialize_grads(False)
+        y, s_final, states = _forward(a, x, dt, b, c, q, rep, dev, True)
+        ctx.save_for_backward(a, x, dt, b, c, states)
+        ctx.args = (q, rep, dev)
         return y, s_final
 
+    @staticmethod
+    def backward(ctx, dy, ds_final):
+        a, x, dt, b, c, states = ctx.saved_tensors
+        q, rep, dev = ctx.args
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if ds_final is not None:
+            ds_final = ds_final.contiguous()
+        grads = ssd_scan_bwd(a, x, dt, b, c, dy, states, ds_final, q=q,
+                             rep=rep, device=dev)
+        return (*grads, None, None, None)
+
+
+def ssd_scan(a, x, dt, b, c, *, q: int = 64, rep: int = 1,
+             device: DeviceLike = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a: (BH,) per-head A; x: (BH, L, P); dt: (BH, L); b, c:
+    (BH // rep, L, N). Returns (y (BH, L, P) in x's dtype, final state
+    (BH, N, P) float32), differentiable in every input. L must divide by
+    q."""
+    dev = resolve(device)
     if needs_grad(a, x, dt, b, c):
-        return NoBackward.apply(NO_BACKWARD, launch, a, x, dt, b, c)
-    return launch(a, x, dt, b, c)
+        return SSDScan.apply(a, x, dt, b, c, q, rep, dev)
+    return _forward(a, x, dt, b, c, q, rep, dev, False)[:2]
 
 
 def reset_counts() -> None:
-    """Zero the wrapper's launch and plain-call counts."""
+    """Zero the wrappers' launch and plain-call counts."""
     ssd_scan.launches = 0
     ssd_scan.plain_calls = 0
+    ssd_scan.bwd_launches = 0
+    ssd_scan.bwd_plain_calls = 0
 
 
 reset_counts()

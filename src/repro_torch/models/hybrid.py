@@ -2,9 +2,8 @@
 attention blocks applied after every `shared_attn_period` Mamba layers
 (a port of the reference's `models/hybrid.py` for serving, and its loss
 `hybrid_loss`: the full forward, each Mamba layer and each shared-block
-call under `transformer.remat`; on the card its backward raises
-NotImplementedError until the scan has a backward kernel, open item
-13b-ii).
+call under `transformer.remat`, differentiated on the card through the
+scan's and the attention's backward kernels).
 
 Layer layout for n_layers=81, period=6:
   13 groups of (6 Mamba layers + shared block[i % 2]) + 3 tail Mamba

@@ -12,8 +12,9 @@ H, N, P) float32 and the conv windows `conv_x/B/C` (n_layers, B,
 d_conv-1, C); its size does not grow with the sequence. Prefill fills a
 preallocated cache and decode updates it in place. The loss runs the
 full forward, each layer under `transformer.remat`; it differentiates
-on the CPU, and on the card its backward raises NotImplementedError
-until the scan has a backward kernel (open item 13b-ii).
+on the card through the scan's autograd Function (the forward kernel,
+recomputed under remat, then `ssd_scan_bwd`) and on the CPU through its
+plain versions.
 """
 from __future__ import annotations
 

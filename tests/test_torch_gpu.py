@@ -891,27 +891,52 @@ def test_flash_attention_autograd_launches_both_kernels(cuda):
         _lm_close(a.cpu(), w, torch.float32)
 
 
-def test_scan_and_bit_planes_refuse_a_backward_on_the_card(cuda):
-    """No silent missing gradient: a backward through `ssd_scan` or
-    `bitplane_matmul` on the card raises NotImplementedError, and
-    without a gradient both run as before."""
+def test_bit_planes_refuse_a_backward_on_the_card(cuda):
+    """No silent missing gradient: a backward through `bitplane_matmul`
+    on the card raises NotImplementedError, and without a gradient it
+    runs as before."""
     from repro_torch.kernels import ops
     g = torch.Generator(device=cuda).manual_seed(5)
-    x = _rand(g, (1, 2, 64, 16), torch.float32, cuda).requires_grad_()
-    dt = torch.nn.functional.softplus(_rand(g, (1, 2, 64), torch.float32,
-                                            cuda))
-    a = -torch.ones(2, device=cuda)
-    bm, cm = (_rand(g, (1, 1, 64, 8), torch.float32, cuda) for _ in range(2))
-    y = ops.ssd(x, dt, a, bm, cm, q=32, device=cuda)
-    with pytest.raises(NotImplementedError, match="13b-ii"):
-        y.sum().backward()
     w = _rand(g, (128, 128), torch.float32, cuda, 0.1).requires_grad_()
     xq = _rand(g, (4, 128), torch.float32, cuda).requires_grad_()
     out = ops.quantized_linear(xq, w, bits=8, device=cuda)
     with pytest.raises(NotImplementedError, match="bit planes"):
         out.sum().backward()
     with torch.no_grad():
-        assert ops.ssd(x, dt, a, bm, cm, q=32, device=cuda).grad_fn is None
+        assert ops.quantized_linear(xq, w, bits=8,
+                                    device=cuda).grad_fn is None
+
+
+def test_scan_gradients_on_card_equal_cpu(cuda):
+    """A loss through `ops.ssd` on the card (the forward kernel saving
+    its states, then `ssd_scan_bwd`): one launch of each, no plain call,
+    every gradient equal to the CPU's (`SSDScan`'s plain forward and
+    backward) within 1e-4; and `.backward()` through the Mamba2 and
+    Zamba2 smoke losses on the card raises nothing and reaches every
+    parameter."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as pss
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 4, 96, 16), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((2, 4, 96), generator=g))
+    a = -torch.exp(torch.randn((4,), generator=g) * 0.3)
+    bm, cm = (torch.randn((2, 2, 96, 8), generator=g) * 0.5
+              for _ in range(2))
+    dy = torch.randn((2, 4, 96, 16), generator=g)
+    ds = torch.randn((2, 4, 8, 16), generator=g)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        ins = [t.to(dev).requires_grad_() for t in (x, dt, a, bm, cm)]
+        pss.reset_counts()
+        y, s = ops.ssd(*ins, q=32, return_state=True, device=dev)
+        grads.append(torch.autograd.grad((y, s), ins,
+                                         (dy.to(dev), ds.to(dev))))
+        counts = (pss.ssd_scan.launches, pss.ssd_scan.bwd_launches,
+                  pss.ssd_scan.plain_calls, pss.ssd_scan.bwd_plain_calls)
+        assert counts == ((1, 1, 0, 0) if dev.type == "cuda"
+                          else (0, 0, 1, 1))
+    for got, want in zip(*grads):
+        _lm_close(got.cpu(), want, torch.float32)
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models.model import build_model
     for arch in ("mamba2-1.3b", "zamba2-7b"):
@@ -922,27 +947,105 @@ def test_scan_and_bit_planes_refuse_a_backward_on_the_card(cuda):
         toks = torch.randint(0, cfg.vocab, (2, 65), device=cuda)
         loss, _ = model.loss_fn(params, {"tokens": toks[:, :-1],
                                          "targets": toks[:, 1:]})
-        assert torch.isfinite(loss)
-        with pytest.raises(NotImplementedError, match="13b-ii"):
-            loss.backward()
+        pss.reset_counts()
+        loss.backward()
+        torch.cuda.synchronize()
+        assert pss.ssd_scan.bwd_launches > 0
+        assert pss.ssd_scan.plain_calls == pss.ssd_scan.bwd_plain_calls == 0
+        assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                   for p in params.parameters())
 
 
-@pytest.mark.parametrize("grad_accum", [1, 2])
-def test_smoke_train_steps_on_card_match_cpu(cuda, grad_accum):
-    """Three `train_loop` steps of the qwen2-1.5b smoke config in float32
-    on the card (the flash kernels) and on the CPU (their plain versions)
-    from the same parameters: losses and gnorms within 1e-4 relative; the
-    parameters within 2 x the summed learning rates, the most a sign flip
-    of Adam's normalised update can move them (a gradient at rounding
-    level differs in sign between the two)."""
+# (batch, heads, L, P, N, chunk, groups)
+_BWD_SSD_SHAPES = [(1, 3, 22, 16, 8, 11, 1), (2, 6, 96, 11, 13, 32, 2),
+                   (2, 4, 100, 16, 16, 25, 1), (1, 4, 128, 128, 128, 64, 2),
+                   (1, 8, 512, 64, 128, 256, 1), (1, 2, 300, 64, 128, 150, 1),
+                   (2, 4, 64, 16, 8, 64, 1)]
+
+
+def _ssd_bwd_case(cuda, dtype, shape, with_ds=True):
+    """(kernel gradients, plain gradients, inputs) on the forward kernel's
+    own saved states."""
+    from repro_torch.device import resolve
+    from repro_torch.kernels import ssd_scan as pss
+    a, x, dt, b, c, q, rep = _ssd_inputs(cuda, dtype, shape)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dy = _rand(g, x.shape, dtype, cuda)
+    ds = (_rand(g, (x.shape[0], b.shape[-1], x.shape[-1]), torch.float32,
+                cuda) if with_ds else None)
+    _, _, states = pss._forward(a, x, dt, b, c, q, rep, resolve(cuda), True)
+    _, _, want_states = pss.ssd_scan_plain(a, x, dt, b, c, q=q, rep=rep,
+                                           return_states=True)
+    if states.numel():
+        _lm_close(states, want_states, torch.float32 if dtype == torch.float32
+                  else torch.bfloat16)
+    got = pss.ssd_scan_bwd(a, x, dt, b, c, dy, states, ds, q=q, rep=rep,
+                           device=cuda)
+    torch.cuda.synchronize()
+    want = pss.ssd_scan_bwd_plain(a, x, dt, b, c, dy, states, ds, q=q,
+                                  rep=rep)
+    return got, want, (a, x, dt, b, c, dy, states, ds, q, rep)
+
+
+@pytest.mark.parametrize("with_ds", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _BWD_SSD_SHAPES)
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, dtype, shape, with_ds):
+    """Ragged chunks and odd P, N; rep > 1; P = N = 128 (32-row tiles);
+    Mamba2's N 128 at chunk 256; one chunk (no saved state). The kernel's
+    float32 arithmetic against the plain version on the same saved
+    states: dx, dB, dC in the input's dtype within its tolerance, ddt and
+    da within the float32 one."""
+    got, want, ins = _ssd_bwd_case(cuda, dtype, shape, with_ds)
+    for name, gt, w, inp in zip(("da", "dx", "ddt", "db", "dc"), got, want,
+                                ins[:5]):
+        assert gt.dtype == inp.dtype and gt.shape == inp.shape, name
+        _lm_close(gt, w, gt.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 64, 512, 64, 128, 256, 1),
+                                   (2, 112, 512, 64, 64, 256, 1)])
+def test_ssd_scan_bwd_kernel_is_deterministic(cuda, dtype, shape):
+    """No float atomics: two launches give the same bits, the groups'
+    partial sums of dB and dC included (Mamba2-1.3B's training shape;
+    Zamba2-7B's heads, 112 a group, at batch 2)."""
+    from repro_torch.kernels import ssd_scan as pss
+    got, want, (a, x, dt, b, c, dy, states, ds, q, rep) = _ssd_bwd_case(
+        cuda, dtype, shape)
+    for gt, w in zip(got, want):
+        _lm_close(gt, w, gt.dtype)
+    again = pss.ssd_scan_bwd(a, x, dt, b, c, dy, states, ds, q=q, rep=rep,
+                             device=cuda)
+    torch.cuda.synchronize()
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+
+
+_TRAIN_CASES = [(1, "qwen2-1.5b"), (2, "qwen2-1.5b"), (1, "mamba2-1.3b"),
+                (2, "mamba2-1.3b"), (1, "zamba2-7b"), (2, "zamba2-7b")]
+
+
+@pytest.mark.parametrize(
+    "grad_accum,arch", _TRAIN_CASES,
+    ids=[str(ga) if arch == "qwen2-1.5b" else f"{arch}-{ga}"
+         for ga, arch in _TRAIN_CASES])
+def test_smoke_train_steps_on_card_match_cpu(cuda, grad_accum, arch):
+    """Three `train_loop` steps of a smoke config in float32 on the card
+    (the flash and scan kernels, forward and backward) and on the CPU
+    (their plain versions) from the same parameters: losses and gnorms
+    within 1e-4 relative; the parameters within 2 x the summed learning
+    rates, the most a sign flip of Adam's normalised update can move them
+    (a gradient at rounding level differs in sign between the two)."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.data.pipeline import DataConfig, host_batch
     from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.kernels import ssd_scan as pss
     from repro_torch.launch import steps as psteps
     from repro_torch.launch.train import to_device
     from repro_torch.models.model import build_model
     from repro_torch.optim import cosine_schedule
-    cfg = get_smoke_config("qwen2-1.5b").replace(dtype="float32")
+    cfg = get_smoke_config(arch).replace(dtype="float32")
     model = build_model(cfg)
     lr_kwargs = {"warmup": 1}
     opt_init, step_fn = psteps.make_train_step(model, grad_accum=grad_accum,
@@ -957,6 +1060,7 @@ def test_smoke_train_steps_on_card_match_cpu(cuda, grad_accum):
     sc, sp = opt_init(card), opt_init(cpu)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
     pfa.reset_counts()
+    pss.reset_counts()
     for step in range(3):
         bt = host_batch(dcfg, step)
         card, sc, mc = step_fn(card, sc, to_device(bt, cuda), step)
@@ -965,9 +1069,15 @@ def test_smoke_train_steps_on_card_match_cpu(cuda, grad_accum):
         for k in ("loss", "gnorm"):
             np.testing.assert_allclose(float(mc[k]), float(mp[k]),
                                        rtol=1e-4)
-    n_fwd = pfa.flash_attention.launches
-    assert n_fwd > 0 and pfa.flash_attention.bwd_launches > 0
-    assert pfa.flash_attention.plain_calls == n_fwd       # the CPU's
+    # each kernel the family runs, forward and backward, on the card; the
+    # plain versions' calls are the CPU's, one for one
+    kernels = {"qwen2-1.5b": (pfa.flash_attention,),
+               "mamba2-1.3b": (pss.ssd_scan,),
+               "zamba2-7b": (pfa.flash_attention, pss.ssd_scan)}[arch]
+    for k in kernels:
+        assert k.launches > 0 and k.bwd_launches > 0
+        assert (k.plain_calls, k.bwd_plain_calls) == (k.launches,
+                                                      k.bwd_launches)
     atol = 2 * sum(float(cosine_schedule(s, **lr_kwargs)) for s in range(3))
     for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,

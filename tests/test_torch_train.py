@@ -271,11 +271,21 @@ def test_parameters_are_frozen_unless_trainable():
 
 # ------------------------------------------------------------ train step
 
-@pytest.mark.parametrize("grad_accum", [1, 2])
-def test_train_step_equals_the_reference(grad_accum):
+# (grad_accum, arch, sequence length): the SSM families' smoke chunk is
+# 32, so 64 steps run two chunks of the scan
+STEP_CASES = [(1, "qwen2-1.5b", 16), (2, "qwen2-1.5b", 16),
+              (1, "mamba2-1.3b", 64), (2, "mamba2-1.3b", 64),
+              (1, "zamba2-7b", 64), (2, "zamba2-7b", 64)]
+
+
+@pytest.mark.parametrize(
+    "grad_accum,arch,seq", STEP_CASES,
+    ids=[str(ga) if arch == "qwen2-1.5b" else f"{arch}-{ga}"
+         for ga, arch, _ in STEP_CASES])
+def test_train_step_equals_the_reference(grad_accum, arch, seq):
     """One step from a nonzero AdamW state (carried by the converters):
     parameters, m, v and the metrics."""
-    rcfg, cfg = _configs("qwen2-1.5b")
+    rcfg, cfg = _configs(arch)
     params, pnp = ref_params(rcfg, perturb=True)
     rng = np.random.default_rng(5)
     m = jax.tree.map(lambda x: rng.normal(size=x.shape).astype(np.float32)
@@ -284,7 +294,7 @@ def test_train_step_equals_the_reference(grad_accum):
                      * 1e-4, pnp)
     rstate = {"step": jnp.int32(3), "m": jax.tree.map(jnp.asarray, m),
               "v": jax.tree.map(jnp.asarray, v)}
-    bt = _batch(cfg.vocab, 4, 16, seed=1)
+    bt = _batch(cfg.vocab, 4, seq, seed=1)
     lr_kwargs = {"warmup": 2, "total": 20, "peak_lr": 1e-2}
     step = 4
     rm = ref_build_model(rcfg)
