@@ -75,7 +75,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 13. LM kernels: the count of tensor-core instructions (HMMA, HGMMA) in
    each LM kernel's SASS where the toolkit has `cuobjdump` (the
    bfloat16 flash kernel, its two bfloat16 backward kernels, the
-   bfloat16 scan kernel and the bit planes' GEMM must have some);
+   bfloat16 scan kernel and its backward `ssd_bwd_mma`, and the bit
+   planes' GEMM must have some);
    `flash_attention`, `ssd_scan` and `bitplane_matmul` against their
    plain versions in float32 and bfloat16 on small and ragged shapes (L
    11 and 200 causal and full with equal and unequal tiles, D 40
@@ -219,7 +220,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    forward's): every gradient within `LM_TOL`, two launches the same
    bits, timed beside the plain version and the bound (the Mamba2
    bfloat16 case also by its device time), with ptxas's registers and
-   spills; (b) Mamba2-1.3B at full width and depth (1,344,052,224
+   spills; the bfloat16 build is `ssd_bwd_mma` on the tensor cores
+   (the float32 build stays `ssd_bwd` on the CUDA cores),
+   logged with its heads a block, blocks, resident blocks an SM
+   (`ssd_scan_bwd_mma_info`, its shared memory held to the host's
+   `bwd_mma_smem`) and its time beside the CUDA-core build's 10.5844
+   and 12.0281 ms; (b) Mamba2-1.3B at full width and depth (1,344,052,224
    bfloat16 parameters from a seed), five `train_loop` AdamW steps of
    8 x 512 as 21(b): 96 `ssd_scan` launches (with the remat recompute)
    and 48 `ssd_scan_bwd` a step, no plain call, then one profiled step;
@@ -1404,8 +1410,9 @@ def timed(fn, reps):
 
 
 def kernel_name(mangled: str) -> str:
-    """A kernel's own name and template argument from its mangled name
-    (_Z[N] <len><namespace>... <len><name> I<arg>E ...)."""
+    """A kernel's own name and template arguments from its mangled name
+    (_Z[N] <len><namespace>... <len><name> I<args>E ...): integers
+    (Li<n>E), builtin types (f: float) and named types (<len><name>)."""
     if not mangled.startswith("_Z"):
         return mangled
     i = 3 if mangled.startswith("_ZN") else 2
@@ -1415,8 +1422,23 @@ def kernel_name(mangled: str) -> str:
         while mangled[j].isdigit():
             j += 1
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
-    arg = re.match(r"I(?:Li(\d+)|(\w))E", mangled[i:])
-    return name + (f"<{arg.group(1) or arg.group(2)}>" if arg else "")
+    args = []
+    if mangled[i:i + 1] == "I":
+        i += 1
+        while i < len(mangled) and mangled[i] != "E":
+            m = re.match(r"Li(\d+)E|(\d+)|([a-z])", mangled[i:])
+            if m is None:
+                break
+            if m.group(1):
+                args.append(m.group(1))
+            elif m.group(2):
+                k = i + len(m.group(2))
+                args.append(mangled[k:k + int(m.group(2))])
+                i = k + int(m.group(2)) - m.end()
+            else:
+                args.append({"f": "float"}.get(m.group(3), m.group(3)))
+            i += m.end()
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def ptxas_report(log: str):
@@ -1465,8 +1487,9 @@ def sass_mma_counts(lib: str):
 
 def check_tensor_cores():
     """Counts each LM kernel's tensor-core instructions; fails if the
-    bfloat16 flash kernel, either bfloat16 backward kernel, the bfloat16
-    scan kernel or the bit planes' GEMM has none."""
+    bfloat16 flash kernel, either bfloat16 flash backward kernel, the
+    bfloat16 scan kernel or its backward, or the bit planes' GEMM has
+    none."""
     libs = ("flash_attention", "ssd_scan", "bitplane_matmul")
     counts = {lib: sass_mma_counts(lib) for lib in libs}
     if counts[libs[0]] is None:
@@ -1480,6 +1503,7 @@ def check_tensor_cores():
                         ("flash_attention", "flash_bwd_dq_mma"),
                         ("flash_attention", "flash_bwd_dkdv_mma"),
                         ("ssd_scan", "ssd_fwd_mma"),
+                        ("ssd_scan", "ssd_bwd_mma"),
                         ("bitplane_matmul", "bitplane_gemm")):
         hits = [sum(v) for k, v in counts[lib].items()
                 if k.startswith(kernel)]
@@ -3514,6 +3538,9 @@ SSD_BWD = ("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
 # AdamW m and v need about 6.96e9 x 12 B = 83.5 GB, past the card's 80 GB)
 SSM_TRAIN_ARCH, HYBRID_TRAIN_ARCH = "mamba2-1.3b", "zamba2-7b"
 HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_STEPS = 27, 3
+# the bfloat16 backward's times before its tensor-core build (the
+# CUDA-core kernel's, ms a launch, PERF.md section 6 row 7)
+BWD_CUDA_CORE_MS = {SSM_TRAIN_ARCH: 10.5844, HYBRID_TRAIN_ARCH: 12.0281}
 
 
 def ssd_train_shape(arch):
@@ -3551,16 +3578,41 @@ def ssd_bwd_bound(a, x, dt, b, c, dy, states, ds, q):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
 
 
+def bwd_mma_launch(p, n, q, rep, hb):
+    """The bfloat16 backward's launch as its library reports it
+    (`ssd_scan_bwd_mma_info`): shared memory bytes, resident blocks an
+    SM, registers and local (spilled) bytes a thread, heads a block,
+    blocks a group; raises if the host's model of its shared memory
+    (`bwd_mma_smem`) disagrees."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as pss
+    out = (ctypes.c_int * 6)()
+    rc = _build.load("ssd_scan").ssd_scan_bwd_mma_info(
+        p, n, q, rep, hb, ctypes.addressof(out))
+    if rc:
+        raise AssertionError(f"ssd_scan_bwd_mma_info: CUDA error {rc}")
+    info = dict(zip(("smem", "blocks_per_sm", "registers", "local_bytes",
+                     "heads", "sets"), out))
+    if info["smem"] != pss.bwd_mma_smem(n, p, q, hb) or info["heads"] != hb:
+        raise AssertionError(f"bwd_mma_smem or heads disagree with the "
+                             f"library: {info}")
+    return info
+
+
 def phase_ssd_bwd(dev, rec):
     """22(a): the `ssd_scan_bwd` kernel against its plain version at
     Mamba2-1.3B's and Zamba2-7B's training shapes (8 x 512 tokens), in
     float32 and bfloat16, on the forward kernel's own saved states (held
     to the plain forward's first): every gradient within LM_TOL, two
     launches the same bits; timed beside the plain version and the
-    bound, with ptxas's registers and spills."""
+    bound, with ptxas's registers and spills; the bfloat16 build
+    (`ssd_bwd_mma`) also with its heads a block, blocks, resident blocks
+    an SM and its time beside the CUDA-core build's."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as pss
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = [r for r in ptxas_report(_build.build_log("ssd_scan"))
             if r[0].startswith("ssd_bwd")]
     log("[ssd bwd] ptxas: " + ("; ".join(
@@ -3608,6 +3660,19 @@ def phase_ssd_bwd(dev, rec):
             ms, plain_ms = timed(kern, 10), timed(plain, 3)
             b_bytes, b_ops = ssd_bwd_bound(a, x, dt, b, c, dy, st, ds,
                                            q)
+            if dtype == torch.bfloat16:
+                hb = pss.bwd_mma_heads(bh, rep, p, n, q, sms)
+                info = bwd_mma_launch(p, n, q, rep, hb)
+                was = BWD_CUDA_CORE_MS[arch]
+                log(f"[ssd bwd] {what}: ssd_bwd_mma, {hb} heads a block, "
+                    f"{bh // rep * info['sets']} blocks, "
+                    f"{info['blocks_per_sm']} resident an SM "
+                    f"({8 * info['blocks_per_sm']} warps), "
+                    f"{info['registers']} registers and "
+                    f"{info['local_bytes']} local bytes a thread, "
+                    f"{info['smem']} bytes of shared memory; {ms:.4f} ms "
+                    f"against the CUDA-core build's {was}: "
+                    f"{was / ms:.2f}x")
             log(f"[ssd bwd] {what}: saved states within {es:.3g}; max "
                 f"|kernel - plain| da {errs[0]:.3g}, dx {errs[1]:.3g}, ddt "
                 f"{errs[2]:.3g}, dB {errs[3]:.3g}, dC {errs[4]:.3g} (within "

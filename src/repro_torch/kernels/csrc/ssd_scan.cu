@@ -75,15 +75,17 @@
 // >= 1, for the backward (as flash's forward saves its log-sum-exp);
 // serving passes none.
 //
-// Backward (ssd_bwd; the TPU has none: the reference differentiates its
-// jnp ssd_chunked, src/repro/models/mamba.py:70). From dy and an optional
+// Backward (ssd_bwd_mma for bfloat16, ssd_bwd for float32). It replaces
+// no TPU kernel: the TPU has none, and the reference differentiates its
+// jnp ssd_chunked (src/repro/models/mamba.py:70); the port trains through
+// the forward kernel, so it needs this one. From dy and an optional
 // d(s_final) it computes dx, ddt, da (d of each row's A) and dB, dC. Per
 // row bh the chunks are walked from the last to the first, carrying dS,
 // the float32 gradient of the state after the chunk (d(s_final), or
-// zero), in shared memory. Per chunk, with cum the inclusive cumsum of dt
-// a, L_ij = exp(cum_i - cum_j) (j <= i only: never formed above the
-// diagonal, where the exponent is positive), G = C B^T, W = G L dt_j and
-// w_j = exp(cum_Q - cum_j) dt_j:
+// zero). Per chunk, with cum the inclusive cumsum of dt a, L_ij =
+// exp(cum_i - cum_j) (j <= i only: never formed above the diagonal, where
+// the exponent is positive), G = C B^T, W = G L dt_j and w_j = exp(cum_Q -
+// cum_j) dt_j:
 //   intra: dx += W^T dy; dW = dy x^T, dG = dW L dt_j; dC += dG B,
 //          dB += dG^T C; ddt_j += sum_i dW G L; dcum_i += sum_j dW W,
 //          dcum_j -= sum_i dW W;
@@ -95,28 +97,74 @@
 //   then dS <- exp(cum_Q) dS + the inter part, and the cumsum's backward:
 //   d(da)_k = sum_{i >= k} dcum_i (a reverse warp scan), ddt_k += a
 //   d(da)_k, da += sum_k dt_k d(da)_k.
-// A block of 256 threads runs hb heads of one group in turn (hb divides
-// rep; the host picks it so the grid fills the SMs in the fewest waves).
-// Per chunk it walks the column tiles j of 64 rows (32 where shared
-// memory cannot hold 64 at P, N = 128) with dx_j and dB_j in registers
-// (the state terms, then the intra-chunk terms over the row tiles i >= j),
-// then the row tiles i with dC_i in registers (the inter-chunk terms, then
-// the intra-chunk terms over the column tiles j <= i), recomputing G and
-// dW in each walk. Every product is float32 on the CUDA cores for both
-// input types (lm::mm_acc_strided); dx is written in x's type, ddt and
-// da in float32.
 // dB and dC are summed over a group's heads without float atomics: each
-// block adds its heads' rows, in order, into its own float32 partial
-// (bh / hb, L, N), and the wrapper sums a group's rep / hb partials (the
-// gradient of the reference's jnp.repeat of B and C over the heads). Every
-// sum runs in a fixed order, so two launches give the same bits. Shared
+// block adds its heads' rows, in order, into its own float32 partial (L,
+// N), and the wrapper sums a group's partials in order (the gradient of
+// the reference's jnp.repeat of B and C over the heads). Every sum runs
+// in a fixed order, so two launches give the same bits. The inter-chunk
+// products are skipped at chunk 0 (its state is zero and the initial
+// state's gradient is no output).
+//
+// bfloat16 (ssd_bwd_mma, the training path's): on the tensor cores, with
+// mma.sync m16n8k16 (lm_mma.cuh), bfloat16 operands and float32 sums. One
+// block of 8 warps runs `nh` heads of one group (the host's
+// ssd_scan.py::bwd_mma_heads picks nh, at most 2 at P <= 64 and 1 above,
+// where each head's dx_j sums stay in registers; ceil(rep / nh) blocks a
+// group, the last with the rest; one block an SM, its 255 registers a
+// thread). Warp w owns 16 rows (w % 4) of a 64-row tile and half w / 4 of
+// the tile's columns. Per chunk:
+//   - each head's cumsum, times log2 e (every exponential one exp2f);
+//   - the column walk, per 64-row tile j: B_j and each head's x_j into
+//     shared memory (cp.async); the state terms (U = B_j dS, over this
+//     half of N; V = x_j dS^T over this half's columns n, times w_j and
+//     summed over the heads into dB_j); then every tile pair (j, i >= j),
+//     C_i and the heads' dy_i in a double-buffered cp.async ring: G^T =
+//     B_j C_i^T ONCE for the block's heads, per head dW^T = x_j dy_i^T,
+//     then in float32 registers L, W, dG and the row (over i) and column
+//     (over j, warp reductions, then four row blocks in order) sums, W^T
+//     packed to bfloat16 as the A fragments of dx_j += W^T dy_i (dx_j in
+//     registers over the walk); the heads' dG summed in float32, rounded
+//     once to a bfloat16 [j][i] tile, then ONE dB_j += dG^T C_i (dB_j in
+//     registers) and ONE dC_i = dG B_j (ldmatrix.trans), stored into the
+//     block's partial at j = 0 and added after (each element by one
+//     thread); at the tile's end the two halves' dx_j and row sums meet
+//     in shared memory and dx_j, dB_j and ddt_j's share are written;
+//   - the row walk (chunks > 0), per 64-row tile i: dy_i S_c^T per head
+//     (S_c float32 from `states`), into dC_i and dcum_i; dS +=
+//     (exp(cum_i) C_i)^T dy_i in place (dS float32 in shared memory);
+//   - the cumsum's backward, a warp a head (warp reductions, fixed order).
+// The roundings the plain version lacks, each at most one bfloat16 step of
+// its value: W as the operand of W^T dy; the block's summed dG for dG B
+// and dG^T C; dS for x dS^T (dB alone). The products that reach ddt and
+// da, float32 outputs held to the float32 tolerance, take their float32
+// operand as two bfloat16 terms hi + lo (about 2^-16 of its value, two
+// mma.sync each): dS for B dS, S_c for dy S_c^T, exp(cum_i) C_i for
+// (exp(cum_i) C_i)^T dy. Rows past the chunk and columns past P, N are
+// zero-filled. P, N <= 128; Q up to what shared memory holds (bwd_mma_smem:
+// 7,360 at P 64, N 128; 10,816 at P = N = 64; 1,216 at P = N = 128).
+//
+// What bounds it. At Mamba2-1.3B's training shape (BH 512, L 512, P 64,
+// N 128, Q 256, rep 64; chip_smoke.py::ssd_bwd_bound) the least work is
+// 2.2e10 operations (C B^T, dG B and dG^T C once a group, not a head;
+// 0.0222 ms at the bfloat16 peak) against 140 MB of traffic (0.0419 ms
+// at 3.35 TB/s): bytes bound it. At Zamba2-7B's (BH 896, N 64, rep 112)
+// 0.0631 ms, bytes (operations 0.0269). This design does 4.8e10 a launch
+// at Mamba2's shape (5.2e10 at Zamba2's): the group's products once a
+// block of 2 heads, not a group of 64 or 112; whole 64 x 64 tiles on the
+// diagonal; the split operands' second products.
+//
+// float32 (ssd_bwd): on the CUDA cores (the float32 tolerance, 1e-4,
+// rules out bfloat16 and TF32 products). A block of 256 threads runs hb
+// heads of one group in turn (hb divides rep; the host picks it so the
+// grid fills the SMs in the fewest waves). Per chunk it walks the column
+// tiles j of 64 rows (32 where shared memory cannot hold 64 at P, N =
+// 128) with dx_j and dB_j in registers (the state terms, then the
+// intra-chunk terms over the row tiles i >= j), then the row tiles i with
+// dC_i in registers (the inter-chunk terms, then the intra-chunk terms
+// over the column tiles j <= i), recomputing G and dW in each walk, every
+// tile float32 in shared memory, every product lm::mm_acc_strided. Shared
 // memory bounds Q: at P = 64 up to 5,171 (N = 128) and 7,654 (N = 64); at
-// P = N = 128 up to 1,075 (the forward takes more). At Mamba2-1.3B's
-// training shape (BH 512, L 512, P 64, N 128, Q 256, rep 64) the least
-// work is about 2.2e10 operations (C B^T, dG B and dG^T C once a group,
-// not a head) against 140 MB of traffic, so at the tensor cores' bfloat16
-// peak the bytes bound it (0.042 ms); on the CUDA cores (67 TFLOP/s at
-// most) the operations would. The tensor cores are later work.
+// P = N = 128 up to 1,075 (the forward takes more).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1298,6 +1346,869 @@ int launch_bwd(const float* a, const void* x, const float* dt, const void* b,
 #undef SSD_BWD
 }
 
+// ---------------------------------------------------- backward, bf16
+// ssd_bwd_mma: see the header. One block of 8 warps runs `nh` heads of
+// one group through the chunks from the last to the first. Warp w owns
+// rows 16 (w % 4) of a 64-row tile and half w / 4 of its columns: of the
+// 64 columns i of a (j, i) tile pair, or of N's 16-wide blocks.
+constexpr int kBwdThreads = 256;
+constexpr int kDgLd = kTile + 8;  // a row of the summed dG tile, bfloat16
+
+// What a bfloat16 backward launch needs besides its arguments.
+struct BwdGeom {
+  int nh;    // heads a block (the last block of a group may have fewer)
+  int sets;  // blocks a group
+  int nk;    // N / 16, rounded up
+  int pk;    // P / 16, rounded up
+  int qp;    // Q rounded up to a tile
+};
+
+__host__ __device__ inline int bwd_ldn(const BwdGeom& g) { return 16 * g.nk + 8; }
+__host__ __device__ inline int bwd_ldp(const BwdGeom& g) { return 16 * g.pk + 8; }
+// a row of a head's float32 dS (N rows of P): +4 keeps the k-pair reads
+// of B dS's fragments on 32 distinct banks
+__host__ __device__ inline int bwd_lds(const BwdGeom& g) { return 16 * g.pk + 4; }
+// a ring stage, bfloat16: C_i, then each head's dy_i
+__host__ __device__ inline int bwd_stage(const BwdGeom& g) {
+  return kTile * bwd_ldn(g) + g.nh * kTile * bwd_ldp(g);
+}
+// bytes of the region the column walk (B_j, each head's x_j, the summed
+// dG tile, the other half's dx) and the row walk (each head's S_c as
+// bfloat16 hi and lo) take in turn
+__host__ __device__ inline int bwd_union_bytes(const BwdGeom& g) {
+  const int cols = 2 * (kTile * bwd_ldn(g) + g.nh * kTile * bwd_ldp(g) +
+                        kTile * kDgLd) +
+                   4 * kTile * bwd_lds(g);
+  const int rows = 4 * g.nh * 16 * g.nk * bwd_ldp(g);
+  return cols > rows ? cols : rows;
+}
+// floats a head: cum, dcum and w_j dw_j over the chunk; the column sums
+// of four row blocks; the row sums of two halves, three quantities; the
+// dot's eight warp partials and its sum
+__host__ __device__ inline int bwd_small_floats(const BwdGeom& g) {
+  return g.nh * (3 * g.qp + 4 * kTile + 6 * kTile + 9);
+}
+size_t bwd_mma_smem(const BwdGeom& g) {
+  return sizeof(float) * g.nh * 16 * g.nk * bwd_lds(g)  // dS, float32
+         + sizeof(bf16) * 2 * bwd_stage(g)               // the ring
+         + bwd_union_bytes(g) + sizeof(float) * bwd_small_floats(g);
+}
+
+// Two floats as bfloat16 pairs hi + lo: hi their rounding, lo the
+// rounding of what hi leaves (together about 16 bits of each value).
+__device__ __forceinline__ void split_bf16x2(float v0, float v1,
+                                             uint32_t& hi, uint32_t& lo) {
+  hi = lm::pack_bf16x2(v0, v1);
+  const float2 h =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  lo = lm::pack_bf16x2(v0 - h.x, v1 - h.y);
+}
+
+// The sum over the four lanes of a row of an mma fragment (t = lane % 4).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+// The sum over the eight rows g = lane / 4 of a fragment's column.
+__device__ __forceinline__ float col_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// The 16 x 16 A fragment at (m0, k0) of a row-major [m][ld] tile.
+__device__ __forceinline__ void frag_a(uint32_t (&af)[4], const bf16* t,
+                                       int ld, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  lm::ldmatrix_x4(af, lm::smem_u32(t + (m0 + (lane & 15)) * ld + k0 +
+                                   (lane >> 4) * 8));
+}
+// The same from a [k][ld] tile (the A matrix transposed in memory).
+__device__ __forceinline__ void frag_a_t(uint32_t (&af)[4], const bf16* t,
+                                         int ld, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  lm::ldmatrix_x4_trans(
+      af, lm::smem_u32(t + (k0 + ((lane >> 4) & 1) * 8 + (lane & 7)) * ld +
+                       m0 + ((lane >> 3) & 1) * 8));
+}
+// acc[0], acc[1] (columns n0 .. n0 + 16) += a * B, B (k0 .. k0 + 16 by
+// n) read from an [n][ld] tile (k along a row)
+__device__ __forceinline__ void mma_nk(float (&a0)[4], float (&a1)[4],
+                                       const uint32_t (&af)[4],
+                                       const bf16* t, int ld, int n0,
+                                       int k0) {
+  const int lane = threadIdx.x & 31;
+  uint32_t bb[4];
+  lm::ldmatrix_x4(bb, lm::smem_u32(t + (n0 + (lane >> 4) * 8 + (lane & 7)) *
+                                           ld +
+                                   k0 + ((lane >> 3) & 1) * 8));
+  lm::mma_bf16_16816(a0, af, bb[0], bb[1]);
+  lm::mma_bf16_16816(a1, af, bb[2], bb[3]);
+}
+// the same with B read from a [k][ld] tile (n along a row)
+__device__ __forceinline__ void mma_kn(float (&a0)[4], float (&a1)[4],
+                                       const uint32_t (&af)[4],
+                                       const bf16* t, int ld, int n0,
+                                       int k0) {
+  const int lane = threadIdx.x & 31;
+  uint32_t bb[4];
+  lm::ldmatrix_x4_trans(
+      bb, lm::smem_u32(t + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld +
+                       n0 + (lane >> 4) * 8));
+  lm::mma_bf16_16816(a0, af, bb[0], bb[1]);
+  lm::mma_bf16_16816(a1, af, bb[2], bb[3]);
+}
+
+// rows row0 + g (+ 8) and columns n0 + 2 t (+ 1) of an n8 block of
+// an mma fragment, v, into a float32 (., N) matrix at dst (rows < rows)
+__device__ __forceinline__ void put_rows(float* dst, const float (&v)[4],
+                                         int row0, int n0, int rows, int N) {
+  const int lane = threadIdx.x & 31;
+  const int n = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + (lane >> 2) + 8 * hh;
+    if (row >= rows || n >= N) continue;
+    float* o = dst + static_cast<size_t>(row) * N + n;
+    if (N % 2 == 0) {
+      *reinterpret_cast<float2*>(o) = make_float2(v[2 * hh], v[2 * hh + 1]);
+    } else {
+      o[0] = v[2 * hh];
+      if (n + 1 < N) o[1] = v[2 * hh + 1];
+    }
+  }
+}
+// the same block read from src into v (zeros at rows >= rows, n >= N)
+__device__ __forceinline__ void get_rows(const float* src, float (&v)[4],
+                                         int row0, int n0, int rows, int N) {
+  const int lane = threadIdx.x & 31;
+  const int n = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + (lane >> 2) + 8 * hh;
+    v[2 * hh] = v[2 * hh + 1] = 0.f;
+    if (row >= rows || n >= N) continue;
+    const float* o = src + static_cast<size_t>(row) * N + n;
+    if (N % 2 == 0) {
+      const float2 u = *reinterpret_cast<const float2*>(o);
+      v[2 * hh] = u.x;
+      v[2 * hh + 1] = u.y;
+    } else {
+      v[2 * hh] = o[0];
+      if (n + 1 < N) v[2 * hh + 1] = o[1];
+    }
+  }
+}
+
+// NKH: N's 16-wide blocks in half of N at most (2 or 4); PKM: P's (4 or
+// 8); HM: heads a block at most (2 or 1: each head's dx_j sums stay in
+// registers over the column walk)
+template <int NKH, int PKM, int HM>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ssd_bwd_mma(const float* __restrict__ a, const bf16* __restrict__ x,
+                const float* __restrict__ dt, const bf16* __restrict__ b,
+                const bf16* __restrict__ c, const bf16* __restrict__ dy,
+                const float* __restrict__ states,
+                const float* __restrict__ ds_final, bf16* __restrict__ dx,
+                float* __restrict__ ddt, float* __restrict__ da,
+                float* __restrict__ db_part, float* __restrict__ dc_part,
+                int L, int P, int N, int Q, int rep, BwdGeom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldn = bwd_ldn(g), ldp = bwd_ldp(g), lds = bwd_lds(g);
+  const int nn = 16 * g.nk, pp = 16 * g.pk, nc = L / Q, qp = g.qp;
+  const int stage = bwd_stage(g);
+  float* dS = reinterpret_cast<float*>(smem_raw);              // [nh][nn][lds]
+  bf16* ring = reinterpret_cast<bf16*>(dS + g.nh * nn * lds);  // [2][stage]
+  unsigned char* uni = reinterpret_cast<unsigned char*>(ring + 2 * stage);
+  bf16* Bj = reinterpret_cast<bf16*>(uni);                  // [64][ldn]
+  bf16* Xj = Bj + kTile * ldn;                              // [nh][64][ldp]
+  bf16* Dg = Xj + g.nh * kTile * ldp;                       // [64][kDgLd]
+  float* dxo = reinterpret_cast<float*>(Dg + kTile * kDgLd);  // [64][lds]
+  bf16* Sc = reinterpret_cast<bf16*>(uni);  // [nh][2 (hi, lo)][nn][ldp]
+  float* cum = reinterpret_cast<float*>(uni + bwd_union_bytes(g));  // [nh][qp]
+  float* dcum = cum + g.nh * qp;                            // [nh][qp]
+  float* wdw = dcum + g.nh * qp;                            // [nh][qp]
+  float* colsum = wdw + g.nh * qp;                          // [nh][4][64]
+  float* rowsum = colsum + g.nh * 4 * kTile;                // [nh][2][3][64]
+  float* red = rowsum + g.nh * 6 * kTile;                   // [nh][8]
+  float* dotv = red + g.nh * 8;                             // [nh]
+
+  const int gb = blockIdx.x / g.sets, set = blockIdx.x % g.sets;
+  const int nh = min(g.nh, rep - set * g.nh);
+  const int bh0 = gb * rep + set * g.nh;  // the block's first head
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r = warp & 3, hc = warp >> 2;  // rows 16 r, half hc
+  const int gq = lane >> 2, t4 = lane & 3;
+  // this half's 16-wide blocks of N: [nb0, nb0 + nbn)
+  const int nkh = (g.nk + 1) / 2, nb0 = hc * nkh;
+  const int nbn = max(0, min(g.nk, nb0 + nkh) - nb0);
+  const bf16* bg = b + static_cast<size_t>(gb) * L * N;
+  const bf16* cg = c + static_cast<size_t>(gb) * L * N;
+  float* dbb = db_part + static_cast<size_t>(blockIdx.x) * L * N;
+  float* dcb = dc_part + static_cast<size_t>(blockIdx.x) * L * N;
+
+  for (int h = 0; h < nh; ++h) {
+    const float* src = ds_final + static_cast<size_t>(bh0 + h) * N * P;
+#pragma unroll 8
+    for (int idx = tid; idx < nn * pp; idx += kBwdThreads) {
+      const int n = idx / pp, p = idx % pp;
+      dS[(h * nn + n) * lds + p] =
+          ds_final != nullptr && n < N && p < P ? src[n * P + p] : 0.f;
+    }
+  }
+  float da_acc = 0.f;  // warp h's head h
+
+  for (int ci = nc - 1; ci >= 0; --ci) {
+    const int c0 = ci * Q;
+    // a ring stage: C_i and the heads' dy_i for rows [i0, i0 + 64)
+    auto load_stage = [&](int s, int i0) {
+      bf16* st = ring + s * stage;
+      load_tile(st, ldn, cg + static_cast<size_t>(c0 + i0) * N, N, g.nk,
+                Q - i0, tid, kBwdThreads);
+      for (int h = 0; h < nh; ++h)
+        load_tile(st + kTile * ldn + h * kTile * ldp, ldp,
+                  dy + (static_cast<size_t>(bh0 + h) * L + c0 + i0) * P, P,
+                  g.pk, Q - i0, tid, kBwdThreads);
+    };
+    __syncthreads();  // the last chunk's epilogue has read cum and dcum
+    // ---- log2 e times the cumsum of dt a, a warp a head
+    if (warp < nh) {
+      const int h = warp;
+      const float av = a[bh0 + h];
+      const float* dth = dt + static_cast<size_t>(bh0 + h) * L + c0;
+      float carry = 0.f;
+#pragma unroll 4
+      for (int t0 = 0; t0 < qp; t0 += 32) {
+        const int t = t0 + lane;
+        float v = t < Q ? dth[t] * av : 0.f;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float nb = __shfl_up_sync(0xffffffffu, v, off);
+          if (lane >= off) v += nb;
+        }
+        v += carry;
+        cum[h * qp + t] = t < Q ? v * kLog2e : 0.f;
+        dcum[h * qp + t] = 0.f;
+        wdw[h * qp + t] = 0.f;
+        carry = __shfl_sync(0xffffffffu, v, 31);
+      }
+    }
+    // B_j, the heads' x_j and the first pair's stage of column tile j0
+    auto load_cols = [&](int j0) {
+      const int nj = min(kTile, Q - j0);
+      load_tile(Bj, ldn, bg + static_cast<size_t>(c0 + j0) * N, N, g.nk, nj,
+                tid, kBwdThreads);
+      for (int h = 0; h < nh; ++h)
+        load_tile(Xj + h * kTile * ldp, ldp,
+                  x + (static_cast<size_t>(bh0 + h) * L + c0 + j0) * P, P,
+                  g.pk, nj, tid, kBwdThreads);
+      load_stage(0, j0);
+      lm::cp_async_commit();
+    };
+    load_cols(0);
+    __syncthreads();
+
+    // ---- column tiles j: dx_j, dB_j and the pairs (j, i >= j)
+    for (int j0 = 0; j0 < Q; j0 += kTile) {
+      // this thread's rows j (jlo, jlo + 8): cum (log2), dt
+      const int jlo = j0 + 16 * r + gq;
+      float cj[HM][2], dtj[HM][2];
+      // row sums over i: ddt_j (dW G L), dcum_j (- dW W)
+      float rs[HM][2][2];
+      float dxa[HM][2 * PKM][4];
+      float dba[2 * NKH][4];
+#pragma unroll
+      for (int h = 0; h < HM; ++h)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int jj = jlo + 8 * hh;
+          const bool ok = h < nh && jj < Q;
+          cj[h][hh] = ok ? cum[h * qp + jj] : 0.f;
+          dtj[h][hh] =
+              ok ? dt[static_cast<size_t>(bh0 + h) * L + c0 + jj] : 0.f;
+          rs[h][0][hh] = rs[h][1][hh] = 0.f;
+        }
+#pragma unroll
+      for (int f = 0; f < 2 * NKH; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dba[f][e] = 0.f;
+      lm::cp_async_wait<0>();
+      __syncthreads();
+
+      // the state terms: U = B_j dS (this half's share of K = N), dx_j =
+      // w_j U, dw_j = U . x_j; dB_j = sum over heads of w_j x_j dS^T
+#pragma unroll
+      for (int h = 0; h < HM; ++h) {
+        if (h >= nh) break;
+        const float* dSh = dS + h * nn * lds;
+        const bf16* Xh = Xj + h * kTile * ldp;
+        float w[2], ej[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const bool ok = jlo + 8 * hh < Q;
+          ej[hh] = ok ? exp2f(cum[h * qp + Q - 1] - cj[h][hh]) : 0.f;
+          w[hh] = ej[hh] * dtj[h][hh];
+        }
+#pragma unroll
+        for (int f = 0; f < 2 * PKM; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dxa[h][f][e] = 0.f;
+        for (int kb = 0; kb < nbn; ++kb) {
+          const int k0 = 16 * (nb0 + kb);
+          uint32_t af[4];
+          frag_a(af, Bj, ldn, 16 * r, k0);
+          const float* s0 = dSh + (k0 + 2 * t4) * lds + gq;
+#pragma unroll
+          for (int f = 0; f < 2 * PKM; ++f) {
+            if (f >= 2 * g.pk) break;
+            const float* s = s0 + 8 * f;
+            uint32_t b0, b1, l0, l1;  // dS as hi + lo: dw_j feeds ddt, da
+            split_bf16x2(s[0], s[lds], b0, l0);
+            split_bf16x2(s[8 * lds], s[9 * lds], b1, l1);
+            lm::mma_bf16_16816(dxa[h][f], af, b0, b1);
+            lm::mma_bf16_16816(dxa[h][f], af, l0, l1);
+          }
+        }
+        float dwp[2] = {0.f, 0.f};
+#pragma unroll
+        for (int f = 0; f < 2 * PKM; ++f) {
+          if (f >= 2 * g.pk) break;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float2 xv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    Xh + (16 * r + gq + 8 * hh) * ldp + 8 * f + 2 * t4));
+            dwp[hh] = fmaf(dxa[h][f][2 * hh], xv.x, dwp[hh]);
+            dwp[hh] = fmaf(dxa[h][f][2 * hh + 1], xv.y, dwp[hh]);
+          }
+        }
+        // this lane's share of the row dot (the quads are summed at the
+        // tile's end); w_j dw_j is final now, into its row sum slot
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          rs[h][0][hh] = ej[hh] * dwp[hh];
+          rs[h][1][hh] = -w[hh] * dwp[hh];
+          const float v = quad_sum(w[hh] * dwp[hh]);
+          if (t4 == 0)
+            rowsum[((h * 2 + hc) * 3 + 2) * kTile + 16 * r + gq + 8 * hh] = v;
+        }
+#pragma unroll
+        for (int f = 0; f < 2 * PKM; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dxa[h][f][e] *= w[e >> 1];
+        // V = x_j dS^T over this half's columns n, times w_j, into dB_j
+        float va[2 * NKH][4];
+#pragma unroll
+        for (int f = 0; f < 2 * NKH; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) va[f][e] = 0.f;
+        for (int kk = 0; kk < g.pk; ++kk) {
+          uint32_t af[4];
+          frag_a(af, Xh, ldp, 16 * r, 16 * kk);
+#pragma unroll
+          for (int nb = 0; nb < NKH; ++nb) {
+            if (nb >= nbn) break;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const float* s =
+                  dSh + (16 * (nb0 + nb) + 8 * half + gq) * lds + 16 * kk +
+                  2 * t4;
+              const float2 v0 = *reinterpret_cast<const float2*>(s);
+              const float2 v1 = *reinterpret_cast<const float2*>(s + 8);
+              lm::mma_bf16_16816(va[2 * nb + half], af,
+                                 lm::pack_bf16x2(v0.x, v0.y),
+                                 lm::pack_bf16x2(v1.x, v1.y));
+            }
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < 2 * NKH; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dba[f][e] = fmaf(w[e >> 1], va[f][e], dba[f][e]);
+      }
+
+      // ---- the pairs (j, i), i from the diagonal down, C_i and dy_i in
+      // a double-buffered ring. A pair's leading barrier is the last
+      // one's end: the next stage is loaded after it (the stage it
+      // overwrites was read by the pair before), and the Dg tile and the
+      // column sums are written after it.
+      const int npair = (Q - j0 + kTile - 1) / kTile;
+      for (int k = 0; k < npair; ++k) {
+        const int i0 = j0 + k * kTile, s = k & 1;
+        lm::cp_async_wait<0>();
+        __syncthreads();
+        if (k + 1 < npair) load_stage(s ^ 1, i0 + kTile);
+        lm::cp_async_commit();
+        const bf16* Ci = ring + s * stage;
+        const bf16* Dyi = Ci + kTile * ldn;
+        // G^T = B_j C_i^T: rows j, this half's 32 columns i; once for
+        // every head of the block
+        float gt[4][4], dgs[4][4];
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gt[f][e] = dgs[f][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 2 * NKH; ++kk) {
+          if (kk >= g.nk) break;
+          uint32_t af[4];
+          frag_a(af, Bj, ldn, 16 * r, 16 * kk);
+          mma_nk(gt[0], gt[1], af, Ci, ldn, 32 * hc, 16 * kk);
+          mma_nk(gt[2], gt[3], af, Ci, ldn, 32 * hc + 16, 16 * kk);
+        }
+#pragma unroll
+        for (int h = 0; h < HM; ++h) {
+          if (h >= nh) break;
+          const bf16* Dyh = Dyi + h * kTile * ldp;
+          // dW^T = x_j dy_i^T
+          float dw[4][4];
+#pragma unroll
+          for (int f = 0; f < 4; ++f)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dw[f][e] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < PKM; ++kk) {
+            if (kk >= g.pk) break;
+            uint32_t af[4];
+            frag_a(af, Xj + h * kTile * ldp, ldp, 16 * r, 16 * kk);
+            mma_nk(dw[0], dw[1], af, Dyh, ldp, 32 * hc, 16 * kk);
+            mma_nk(dw[2], dw[3], af, Dyh, ldp, 32 * hc + 16, 16 * kk);
+          }
+          // L = exp(cum_i - cum_j) (i >= j only), W = G L dt_j (to
+          // bfloat16 as W^T dy's A fragments), dG = dW L dt_j (summed
+          // over the heads), and the row and column sums
+          const float* ch = cum + h * qp;
+          uint32_t wa[2][4];
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            const int ib = i0 + 32 * hc + 8 * f + 2 * t4;
+            const float2 ci2 = *reinterpret_cast<const float2*>(ch + ib);
+            float wv[4], cs[2] = {0.f, 0.f};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int hh = e >> 1, ii = ib + (e & 1);
+              const bool ok = ii < Q && ii >= jlo + 8 * hh;
+              const float l =
+                  ok ? exp2f((e & 1 ? ci2.y : ci2.x) - cj[h][hh]) : 0.f;
+              const float gl = gt[f][e] * l, d = dw[f][e];
+              wv[e] = gl * dtj[h][hh];
+              dgs[f][e] = fmaf(d * l, dtj[h][hh], dgs[f][e]);
+              rs[h][0][hh] = fmaf(d, gl, rs[h][0][hh]);
+              const float ww = d * wv[e];
+              rs[h][1][hh] -= ww;
+              cs[e & 1] += ww;
+            }
+            wa[f >> 1][2 * (f & 1)] = lm::pack_bf16x2(wv[0], wv[1]);
+            wa[f >> 1][2 * (f & 1) + 1] = lm::pack_bf16x2(wv[2], wv[3]);
+            // dcum_i: the column sums over the warp's 16 rows
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1) {
+              const float v = col_sum(cs[e1]);
+              if (gq == 0)
+                colsum[(h * 4 + r) * kTile + 32 * hc + 8 * f + 2 * t4 + e1] =
+                    v;
+            }
+          }
+          // dx_j += W^T dy_i over this half's 32 rows i
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+            mma_rows<PKM>(dxa[h], wa[kk], Dyh + 32 * hc * ldp, ldp, kk,
+                          g.pk);
+        }
+        // the heads' summed dG, rounded once, into Dg [j][i]
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<uint32_t*>(
+                Dg + (16 * r + gq + 8 * hh) * kDgLd + 32 * hc + 8 * f +
+                2 * t4) = lm::pack_bf16x2(dgs[f][2 * hh], dgs[f][2 * hh + 1]);
+        __syncthreads();
+        if (tid < nh * kTile) {
+          const int h = tid / kTile, col = tid % kTile, ii = i0 + col;
+          const float* cs = colsum + h * 4 * kTile + col;
+          if (ii < Q)
+            dcum[h * qp + ii] +=
+                ((cs[0] + cs[kTile]) + cs[2 * kTile]) + cs[3 * kTile];
+        }
+        // dC_i's sums so far (none at the first column tile), loaded
+        // under dB's products
+        float dca[2 * NKH][4];
+#pragma unroll
+        for (int f = 0; f < 2 * NKH; ++f)
+          get_rows(dcb + static_cast<size_t>(c0) * N, dca[f], i0 + 16 * r,
+                   16 * nb0 + 8 * f, f < 2 * nbn && j0 > 0 ? Q : 0, N);
+        // dB_j += dG^T C_i (rows j, this half's n; K = i)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t af[4];
+          frag_a(af, Dg, kDgLd, 16 * r, 16 * kk);
+#pragma unroll
+          for (int nb = 0; nb < NKH; ++nb) {
+            if (nb >= nbn) break;
+            mma_kn(dba[2 * nb], dba[2 * nb + 1], af, Ci, ldn,
+                   16 * (nb0 + nb), 16 * kk);
+          }
+        }
+        // dC_i (rows i, this half's n) += dG B_j (K = j)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t af[4];
+          frag_a_t(af, Dg, kDgLd, 16 * r, 16 * kk);
+#pragma unroll
+          for (int nb = 0; nb < NKH; ++nb) {
+            if (nb >= nbn) break;
+            mma_kn(dca[2 * nb], dca[2 * nb + 1], af, Bj, ldn,
+                   16 * (nb0 + nb), 16 * kk);
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < 2 * NKH; ++f)
+          if (f < 2 * nbn)
+            put_rows(dcb + static_cast<size_t>(c0) * N, dca[f],
+                     i0 + 16 * r, 16 * nb0 + 8 * f, Q, N);
+      }
+      __syncthreads();  // the last pair has read B_j and the ring
+      // the next tile's loads run under this one's results
+      if (j0 + kTile < Q) load_cols(j0 + kTile);
+
+      // ---- the column tile's results: row sums (two halves), dB_j, dx_j
+#pragma unroll
+      for (int h = 0; h < HM; ++h) {
+        if (h >= nh) break;
+#pragma unroll
+        for (int qn = 0; qn < 2; ++qn)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float v = quad_sum(rs[h][qn][hh]);
+            if (t4 == 0)
+              rowsum[((h * 2 + hc) * 3 + qn) * kTile + 16 * r + gq + 8 * hh] =
+                  v;
+          }
+      }
+#pragma unroll
+      for (int f = 0; f < 2 * NKH; ++f)
+        if (f < 2 * nbn)
+          put_rows(dbb + static_cast<size_t>(c0) * N, dba[f], j0 + 16 * r,
+                   16 * nb0 + 8 * f, Q, N);
+#pragma unroll
+      for (int h = 0; h < HM; ++h) {
+        if (h >= nh) break;
+        if (hc == 1) {
+#pragma unroll
+          for (int f = 0; f < 2 * PKM; ++f) {
+            if (f >= 2 * g.pk) break;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              *reinterpret_cast<float2*>(
+                  dxo + (16 * r + gq + 8 * hh) * lds + 8 * f + 2 * t4) =
+                  make_float2(dxa[h][f][2 * hh], dxa[h][f][2 * hh + 1]);
+          }
+        }
+        __syncthreads();
+        if (hc == 0) {
+          bf16* dxh = dx + (static_cast<size_t>(bh0 + h) * L + c0) * P;
+#pragma unroll
+          for (int f = 0; f < 2 * PKM; ++f) {
+            if (f >= 2 * g.pk) break;
+            const int p = 8 * f + 2 * t4;
+            if (p >= P) continue;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int row = 16 * r + gq + 8 * hh, jj = j0 + row;
+              if (jj >= Q) continue;
+              const float2 o =
+                  *reinterpret_cast<const float2*>(dxo + row * lds + p);
+              const float v0 = dxa[h][f][2 * hh] + o.x;
+              const float v1 = dxa[h][f][2 * hh + 1] + o.y;
+              bf16* dst = dxh + static_cast<size_t>(jj) * P + p;
+              if (P % 2 == 0) {
+                *reinterpret_cast<uint32_t*>(dst) = lm::pack_bf16x2(v0, v1);
+              } else {
+                dst[0] = __float2bfloat16_rn(v0);
+                if (p + 1 < P) dst[1] = __float2bfloat16_rn(v1);
+              }
+            }
+          }
+        }
+        if (h == 0 && tid < nh * kTile) {
+          // ddt_j's share but the cumsum's (final: its rows are done),
+          // dcum_j, w_j dw_j
+          const int hr = tid / kTile, row = tid % kTile, jj = j0 + row;
+          const float* rsh = rowsum + hr * 6 * kTile + row;
+          if (jj < Q) {
+            ddt[static_cast<size_t>(bh0 + hr) * L + c0 + jj] =
+                rsh[0] + rsh[3 * kTile];
+            dcum[hr * qp + jj] += rsh[kTile] + rsh[4 * kTile];
+            wdw[hr * qp + jj] = rsh[2 * kTile] + rsh[5 * kTile];
+          }
+        }
+        __syncthreads();  // dxo and rowsum are rewritten next
+      }
+    }
+
+    // ---- the row walk (not at chunk 0: its entry state is zero): dC_i
+    // += exp(cum_i) dy_i S_c^T, dcum_i += exp(cum_i) C_i . (dy_i S_c^T),
+    // and dS <- exp(cum_Q) dS + sum_i (exp(cum_i) C_i)^T dy_i
+    if (ci > 0) {
+      for (int h = 0; h < nh; ++h) {
+        const float* sch =
+            states + (static_cast<size_t>(bh0 + h) * (nc - 1) + ci - 1) * N * P;
+        const float eq = exp2f(cum[h * qp + Q - 1]);
+        bf16* Sh = Sc + 2 * h * nn * ldp;
+        float* dSh = dS + h * nn * lds;
+        float part = 0.f;
+#pragma unroll 8
+        for (int idx = tid; idx < nn * pp; idx += kBwdThreads) {
+          const int n = idx / pp, p = idx % pp;
+          const float v = n < N && p < P ? sch[static_cast<size_t>(n) * P + p]
+                                         : 0.f;
+          const bf16 hi = __float2bfloat16_rn(v);
+          Sh[n * ldp + p] = hi;
+          Sh[(nn + n) * ldp + p] = __float2bfloat16_rn(v - __bfloat162float(hi));
+          float* d = dSh + n * lds + p;
+          part = fmaf(v, *d, part);
+          *d *= eq;
+        }
+#pragma unroll
+        for (int off = 16; off >= 1; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (lane == 0) red[h * 8 + warp] = part;
+      }
+      load_stage(0, 0);
+      lm::cp_async_commit();
+      __syncthreads();
+      if (tid < nh) {
+        float s = 0.f;
+        for (int w = 0; w < 8; ++w) s += red[tid * 8 + w];
+        dotv[tid] = s;  // <S_c, dS>, read by the epilogue
+      }
+      const int nt = (Q + kTile - 1) / kTile, pu = (g.pk + 1) / 2;
+      for (int k = 0; k < nt; ++k) {
+        const int i0 = k * kTile, s = k & 1;
+        lm::cp_async_wait<0>();
+        __syncthreads();  // as the column walk's pairs
+        if (k + 1 < nt) load_stage(s ^ 1, i0 + kTile);
+        lm::cp_async_commit();
+        const bf16* Ci = ring + s * stage;
+        const bf16* Dyi = Ci + kTile * ldn;
+        float dca[2 * NKH][4];  // dC_i's sums so far
+#pragma unroll
+        for (int f = 0; f < 2 * NKH; ++f)
+          get_rows(dcb + static_cast<size_t>(c0) * N, dca[f], i0 + 16 * r,
+                   16 * nb0 + 8 * f, f < 2 * nbn ? Q : 0, N);
+#pragma unroll
+        for (int h = 0; h < HM; ++h) {
+          if (h >= nh) break;
+          const bf16* Dyh = Dyi + h * kTile * ldp;
+          const bf16* Sh = Sc + 2 * h * nn * ldp;  // hi, then lo
+          float tt[2 * NKH][4];
+#pragma unroll
+          for (int f = 0; f < 2 * NKH; ++f)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) tt[f][e] = 0.f;
+          for (int kk = 0; kk < g.pk; ++kk) {
+            uint32_t af[4];
+            frag_a(af, Dyh, ldp, 16 * r, 16 * kk);
+#pragma unroll
+            for (int nb = 0; nb < NKH; ++nb) {
+              if (nb >= nbn) break;
+              mma_nk(tt[2 * nb], tt[2 * nb + 1], af, Sh, ldp,
+                     16 * (nb0 + nb), 16 * kk);
+              mma_nk(tt[2 * nb], tt[2 * nb + 1], af, Sh + nn * ldp, ldp,
+                     16 * (nb0 + nb), 16 * kk);
+            }
+          }
+          float ei[2], rd[2] = {0.f, 0.f};
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int ii = i0 + 16 * r + gq + 8 * hh;
+            ei[hh] = ii < Q ? exp2f(cum[h * qp + ii]) : 0.f;
+          }
+#pragma unroll
+          for (int f = 0; f < 2 * NKH; ++f) {
+            if (f >= 2 * nbn) break;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float2 cv = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(
+                      Ci + (16 * r + gq + 8 * hh) * ldn + 16 * nb0 + 8 * f +
+                      2 * t4));
+              rd[hh] = fmaf(cv.x, tt[f][2 * hh], rd[hh]);
+              rd[hh] = fmaf(cv.y, tt[f][2 * hh + 1], rd[hh]);
+              dca[f][2 * hh] = fmaf(ei[hh], tt[f][2 * hh], dca[f][2 * hh]);
+              dca[f][2 * hh + 1] =
+                  fmaf(ei[hh], tt[f][2 * hh + 1], dca[f][2 * hh + 1]);
+            }
+          }
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float v = quad_sum(rd[hh]);
+            if (t4 == 0)
+              rowsum[(h * 2 + hc) * 3 * kTile + 16 * r + gq + 8 * hh] =
+                  ei[hh] * v;
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < 2 * NKH; ++f)
+          if (f < 2 * nbn)
+            put_rows(dcb + static_cast<size_t>(c0) * N, dca[f], i0 + 16 * r,
+                     16 * nb0 + 8 * f, Q, N);
+        // dS += (exp(cum_i) C_i)^T dy_i: units of 16 rows n by 32
+        // columns p, a warp a unit
+        for (int u = warp; u < g.nk * pu; u += kBwdThreads / 32) {
+          const int nu = u / pu, pv = u % pu;
+          const int nq = min(2, g.pk - 2 * pv);  // 16-wide blocks of p
+          for (int h = 0; h < nh; ++h) {
+            float* dSh = dS + h * nn * lds;
+            const float* ch = cum + h * qp;
+            float sa[4][4];
+#pragma unroll
+            for (int f = 0; f < 4; ++f)
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                float2 v = make_float2(0.f, 0.f);
+                if (f < 2 * nq)
+                  v = *reinterpret_cast<const float2*>(
+                      dSh + (16 * nu + gq + 8 * hh) * lds + 32 * pv + 8 * f +
+                      2 * t4);
+                sa[f][2 * hh] = v.x;
+                sa[f][2 * hh + 1] = v.y;
+              }
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              uint32_t af[4];
+              frag_a_t(af, Ci, ldn, 16 * nu, 16 * kk);
+              float ek[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int ii = i0 + 16 * kk + 2 * t4 + (e & 1) + (e >> 1) * 8;
+                ek[e] = ii < Q ? exp2f(ch[ii]) : 0.f;
+              }
+              uint32_t al[4];  // exp(cum_i) C_i as hi + lo: dS feeds
+                               // the chunk before's ddt, da
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float2 v = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(&af[q]));
+                const int hi = q >> 1;  // a2, a3: k + 8
+                split_bf16x2(v.x * ek[2 * hi], v.y * ek[2 * hi + 1], af[q],
+                             al[q]);
+              }
+              const bf16* Dyh = Dyi + h * kTile * ldp;
+              mma_kn(sa[0], sa[1], af, Dyh, ldp, 32 * pv, 16 * kk);
+              mma_kn(sa[0], sa[1], al, Dyh, ldp, 32 * pv, 16 * kk);
+              if (nq > 1) {
+                mma_kn(sa[2], sa[3], af, Dyh, ldp, 32 * pv + 16, 16 * kk);
+                mma_kn(sa[2], sa[3], al, Dyh, ldp, 32 * pv + 16, 16 * kk);
+              }
+            }
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              if (f >= 2 * nq) break;
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh)
+                *reinterpret_cast<float2*>(
+                    dSh + (16 * nu + gq + 8 * hh) * lds + 32 * pv + 8 * f +
+                    2 * t4) = make_float2(sa[f][2 * hh], sa[f][2 * hh + 1]);
+            }
+          }
+        }
+        __syncthreads();
+        if (tid < nh * kTile) {
+          const int h = tid / kTile, row = tid % kTile, ii = i0 + row;
+          const float* rsh = rowsum + h * 6 * kTile + row;
+          if (ii < Q) dcum[h * qp + ii] += rsh[0] + rsh[3 * kTile];
+        }
+      }
+    }
+
+    // ---- the cumsum: d(cum_Q) gains sum_j w_j dw_j and exp(cum_Q) <S_c,
+    // dS>; d(da)_k = sum_{i >= k} dcum_i; ddt_k += a d(da)_k, da +=
+    // sum_k dt_k d(da)_k
+    __syncthreads();
+    if (warp < nh) {
+      const int h = warp, bh = bh0 + h;
+      const float av = a[bh];
+      float* dch = dcum + h * qp;
+      float s = 0.f;
+      for (int t = lane; t < Q; t += 32) s += wdw[h * qp + t];
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0)
+        dch[Q - 1] += s + (ci > 0 ? exp2f(cum[h * qp + Q - 1]) * dotv[h] : 0.f);
+      __syncwarp();
+      float carry = 0.f, part = 0.f;
+#pragma unroll 4
+      for (int t1 = Q; t1 > 0; t1 -= 32) {
+        const int t = t1 - 32 + lane;
+        float v = t >= 0 ? dch[t] : 0.f;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float nb = __shfl_down_sync(0xffffffffu, v, off);
+          if (lane + off < 32) v += nb;
+        }
+        v += carry;
+        carry = __shfl_sync(0xffffffffu, v, 0);
+        if (t >= 0) {
+          float* o = ddt + static_cast<size_t>(bh) * L + c0 + t;
+          *o += av * v;
+          part = fmaf(dt[static_cast<size_t>(bh) * L + c0 + t], v, part);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
+      da_acc += part;
+    }
+  }
+  if (warp < nh && lane == 0) da[bh0 + warp] = da_acc;
+}
+
+// The bfloat16 backward's geometry for `hb` heads a block (sets =
+// ceil(rep / hb) blocks a group, as the forward's); nh = 0 where the
+// kernel takes no such launch (P past 64 with two heads, or shared memory).
+BwdGeom bwd_geom(int P, int N, int Q, int rep, int hb) {
+  BwdGeom g{};
+  g.nk = (N + 15) / 16;
+  g.pk = (P + 15) / 16;
+  g.qp = (Q + kTile - 1) / kTile * kTile;
+  if (hb < 1 || hb > rep) return g;
+  g.sets = (rep + hb - 1) / hb;
+  g.nh = (rep + g.sets - 1) / g.sets;
+  if (g.nh > (g.pk > 4 ? 1 : 2) || bwd_mma_smem(g) > 227 * 1024) g.nh = 0;
+  return g;
+}
+
+// the build for (P, N): P past 64 keeps one head's dx_j in registers
+using BwdMmaKernel = decltype(&ssd_bwd_mma<2, 4, 2>);
+BwdMmaKernel bwd_mma_kernel(int P, int N) {
+  if (P > 64) return N > 64 ? ssd_bwd_mma<4, 8, 1> : ssd_bwd_mma<2, 8, 1>;
+  return N > 64 ? ssd_bwd_mma<4, 4, 2> : ssd_bwd_mma<2, 4, 2>;
+}
+
+int launch_bwd_mma(const float* a, const void* x, const float* dt,
+                   const void* b, const void* c, const void* dy,
+                   const float* states, const float* ds_final, void* dx,
+                   float* ddt, float* da, float* db_part, float* dc_part,
+                   int bh, int L, int P, int N, int Q, int rep, int hb,
+                   cudaStream_t stream) {
+  const BwdGeom g = bwd_geom(P, N, Q, rep, hb);
+  if (g.nh == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdMmaKernel kern = bwd_mma_kernel(P, N);
+  const size_t smem = bwd_mma_smem(g);
+  cudaError_t e = lm::allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<bh / rep * g.sets, kBwdThreads, smem, stream>>>(
+      a, static_cast<const bf16*>(x), dt, static_cast<const bf16*>(b),
+      static_cast<const bf16*>(c), static_cast<const bf16*>(dy), states,
+      ds_final, static_cast<bf16*>(dx), ddt, da, db_part, dc_part, L, P, N,
+      Q, rep, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // a (bh,) float32; x (bh, L, P); dt (bh, L) float32; b, c (bh / rep, L, N);
@@ -1327,8 +2238,10 @@ extern "C" int ssd_scan_launch(int is_bf16, const void* a, const void* x,
 // dy (bh, L, P) in x's type; states (bh, L / Q - 1, N, P) float32 from the
 // forward (null when L == Q); ds_final (bh, N, P) float32 or null (zero).
 // Writes dx (bh, L, P) in x's type, ddt (bh, L) and da (bh,) float32, and
-// dB, dC as float32 partial sums (bh / hb, L, N), one a block of hb heads
-// (hb divides rep): the caller sums each group's rep / hb partials.
+// dB, dC as float32 partial sums (bh / rep * sets, L, N), one a block of
+// hb heads: float32, hb divides rep and sets = rep / hb; bfloat16, 1 <= hb
+// <= rep and sets = ceil(rep / hb) (the last block of a group may run
+// fewer). The caller sums each group's `sets` partials.
 extern "C" int ssd_scan_bwd_launch(int is_bf16, const void* a, const void* x,
                                    const void* dt, const void* b,
                                    const void* c, const void* dy,
@@ -1338,8 +2251,8 @@ extern "C" int ssd_scan_bwd_launch(int is_bf16, const void* a, const void* x,
                                    int L, int P, int N, int Q, int rep,
                                    int hb, void* stream) {
   if (bh < 1 || L < 1 || Q < 1 || L % Q || rep < 1 || bh % rep || P < 1 ||
-      P > 128 || N < 1 || N > 128 || hb < 1 || rep % hb ||
-      (L > Q && states == nullptr))
+      P > 128 || N < 1 || N > 128 || hb < 1 || hb > rep ||
+      (!is_bf16 && rep % hb) || (L > Q && states == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
@@ -1351,8 +2264,37 @@ extern "C" int ssd_scan_bwd_launch(int is_bf16, const void* a, const void* x,
   float* dbp = static_cast<float*>(db_part);
   float* dcp = static_cast<float*>(dc_part);
   if (is_bf16)
-    return launch_bwd<bf16>(af, x, dtf, b, c, dy, st, dsf, dx, ddtf, daf, dbp,
-                            dcp, bh, L, P, N, Q, rep, hb, s);
+    return launch_bwd_mma(af, x, dtf, b, c, dy, st, dsf, dx, ddtf, daf, dbp,
+                          dcp, bh, L, P, N, Q, rep, hb, s);
   return launch_bwd<float>(af, x, dtf, b, c, dy, st, dsf, dx, ddtf, daf, dbp,
                            dcp, bh, L, P, N, Q, rep, hb, s);
+}
+
+// The bfloat16 backward's launch at (P, N, Q, rep, hb), into out[0..5]:
+// shared memory bytes, resident blocks an SM, registers a thread, local
+// (spilled) bytes a thread, heads a block, blocks a group. Launches
+// nothing; cudaErrorInvalidValue where the kernel takes no such launch.
+extern "C" int ssd_scan_bwd_mma_info(int P, int N, int Q, int rep, int hb,
+                                     void* out) {
+  const BwdGeom g = bwd_geom(P, N, Q, rep, hb);
+  if (P < 1 || P > 128 || N < 1 || N > 128 || Q < 1 || g.nh == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdMmaKernel kern = bwd_mma_kernel(P, N);
+  const size_t smem = bwd_mma_smem(g);
+  cudaError_t e = lm::allow_smem(kern, smem);
+  cudaFuncAttributes at{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&at, kern);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                      kBwdThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int* o = static_cast<int*>(out);
+  o[0] = static_cast<int>(smem);
+  o[1] = blocks;
+  o[2] = at.numRegs;
+  o[3] = static_cast<int>(at.localSizeBytes);
+  o[4] = g.nh;
+  o[5] = g.sets;
+  return 0;
 }

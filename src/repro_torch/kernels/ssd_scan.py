@@ -19,15 +19,19 @@ group's rows (with rep = 1 this is the TPU kernel's per-head layout).
 
 The TPU kernel has no backward: the reference trains through its jnp
 `ssd_chunked` and autodiff. The port trains through the kernel, so
-`ssd_scan_bwd` (the `ssd_bwd` kernel of the same source, float32 on the
-CUDA cores for both input types) is the gradient of the function the
-forward computes. When a gradient is needed the forward also saves S_c,
-the float32 state before each chunk c >= 1, (BH, L // q - 1, N, P), and
-the backward walks the chunks in reverse from them (undoing the
-recurrence would divide by exp(cum_Q)). `SSDScan` is the autograd
-Function: on the card the forward kernel then the backward kernel, on
-the CPU the plain forward then `ssd_scan_bwd_plain`, so the CPU tests run
-the formula the backward kernel is held to.
+`ssd_scan_bwd` is the gradient of the function the forward computes, in
+two builds of the same source: for bfloat16 inputs `ssd_bwd_mma`, every
+product on the tensor cores with C B^T, dG B and dG^T C formed once for
+a block of a group's heads (`bwd_mma_heads` picks how many, on a model
+of its shared memory, `bwd_mma_smem`); for float32 inputs `ssd_bwd`, on
+the CUDA cores (`heads_a_block`). When a gradient is needed the forward
+also saves S_c, the float32 state before each chunk c >= 1,
+(BH, L // q - 1, N, P), and the backward walks the chunks in reverse
+from them (undoing the recurrence would divide by exp(cum_Q)).
+`SSDScan` is the autograd Function: on the card the forward kernel then
+the backward kernel, on the CPU the plain forward then
+`ssd_scan_bwd_plain`, so the CPU tests run the formula the backward
+kernel is held to.
 
 `ssd_scan_plain` and `ssd_scan_bwd_plain` are the arithmetic chunk by
 chunk in eager torch (any device). The wrappers take `device=None`
@@ -223,9 +227,10 @@ def _forward(a, x, dt, b, c, q, rep, dev, with_states):
 
 
 def heads_a_block(bh: int, rep: int, sms: int) -> int:
-    """The backward's heads a block: the divisor of rep whose grid of
-    bh / hb blocks (one an SM) fills the SMs in the fewest waves of the
-    fewest heads, the most heads on a tie (the fewest partial sums)."""
+    """The float32 backward's heads a block: the divisor of rep whose
+    grid of bh / hb blocks (one an SM) fills the SMs in the fewest waves
+    of the fewest heads, the most heads on a tie (the fewest partial
+    sums)."""
     best = None
     for hb in range(1, rep + 1):
         if rep % hb:
@@ -233,6 +238,55 @@ def heads_a_block(bh: int, rep: int, sms: int) -> int:
         cost = -(-(bh // hb) // sms) * hb
         if best is None or cost <= best[0]:
             best = (cost, hb)
+    return best[1]
+
+
+# the bfloat16 backward kernel (`ssd_bwd_mma`): rows of a tile, shared
+# memory a block may take
+_TILE = 64
+_SMEM_LIMIT = 227 * 1024
+
+
+def bwd_mma_smem(n: int, p: int, q: int, nh: int) -> int:
+    """Shared-memory bytes of a bfloat16 backward block of `nh` heads at
+    N = n, P = p, chunk q: the same sum as `bwd_mma_smem` in
+    csrc/ssd_scan.cu (each head's float32 dS, the two-stage ring of C_i
+    and the heads' dy_i, the region the column and row walks share (the
+    latter's S_c as bfloat16 hi and lo), and the per-head float32 rows of
+    the chunk)."""
+    nk, pk, qp = -(-n // 16), -(-p // 16), -(-q // _TILE) * _TILE
+    ldn, ldp, lds = 16 * nk + 8, 16 * pk + 8, 16 * pk + 4
+    stage = _TILE * ldn + nh * _TILE * ldp
+    cols = 2 * (_TILE * ldn + nh * _TILE * ldp + _TILE * (_TILE + 8)) \
+        + 4 * _TILE * lds
+    rows = 4 * nh * 16 * nk * ldp
+    small = nh * (3 * qp + 10 * _TILE + 9)
+    return 4 * nh * 16 * nk * lds + 4 * stage + max(cols, rows) + 4 * small
+
+
+def bwd_mma_heads(bh: int, rep: int, p: int, n: int, q: int,
+                  sms: int) -> int:
+    """The bfloat16 backward's heads a block: of the counts its registers
+    take (two at P <= 64, else one) and its shared memory holds, the one
+    whose grid (one block an SM, ceil(rep / heads) blocks a group) takes
+    the fewest waves times a block's products (C B^T, dG B and dG^T C
+    once a block; dy x^T, W^T dy and the four state products once a
+    head), the most heads on a tie. Raises ValueError where none fits."""
+    nn, pp, qp = 16 * -(-n // 16), 16 * -(-p // 16), -(-q // _TILE) * _TILE
+    pairs = (qp // _TILE) * (qp // _TILE + 1) // 2
+    best = None
+    for hb in range(1, min(1 if p > 64 else 2, rep) + 1):
+        sets = -(-rep // hb)
+        if -(-rep // sets) != hb or bwd_mma_smem(n, p, q, hb) > _SMEM_LIMIT:
+            continue
+        ops = pairs * _TILE * _TILE * (3 * nn + 2 * pp * hb) \
+            + hb * 4 * qp * nn * pp
+        cost = -(-(bh // rep * sets) // sms) * ops
+        if best is None or cost <= best[0]:
+            best = (cost, hb)
+    if best is None:
+        raise ValueError(f"chunk q = {q} at P = {p}, N = {n}: past what the "
+                         f"bfloat16 backward's shared memory holds")
     return best[1]
 
 
@@ -256,30 +310,30 @@ def ssd_scan_bwd(a, x, dt, b, c, dy, states, ds_final=None, *, q: int = 64,
         ssd_scan.bwd_plain_calls += 1
         return ssd_scan_bwd_plain(a, x, dt, b, c, dy, states, ds_final, q=q,
                                   rep=rep)
-    hb = heads_a_block(bh, rep,
-                       torch.cuda.get_device_properties(dev)
-                       .multi_processor_count)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = x.dtype == torch.bfloat16
+    hb = (bwd_mma_heads(bh, rep, p, n, q, sms) if bf16
+          else heads_a_block(bh, rep, sms))
+    sets = -(-rep // hb)    # blocks, and partials, a group
     dx = torch.empty_like(x)
     ddt = torch.empty((bh, l), dtype=F32, device=dev)
     da = torch.empty((bh,), dtype=F32, device=dev)
-    db_part, dc_part = (torch.empty((bh // hb, l, n), dtype=F32, device=dev)
-                        for _ in range(2))
+    parts = torch.empty((2, bh // rep * sets, l, n), dtype=F32, device=dev)
     fn = getattr(_build.load("ssd_scan"), "ssd_scan_bwd_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(int(x.dtype == torch.bfloat16), a.data_ptr(), x.data_ptr(),
+        rc = fn(int(bf16), a.data_ptr(), x.data_ptr(),
                 dt.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
                 states.data_ptr() if l > q else None,
                 None if ds_final is None else ds_final.data_ptr(),
                 dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
-                db_part.data_ptr(), dc_part.data_ptr(), bh, l, p, n, q, rep,
-                hb, stream)
+                parts[0].data_ptr(), parts[1].data_ptr(), bh, l, p, n, q,
+                rep, hb, stream)
     _raise_on(rc, "ssd_scan_bwd launch")
     ssd_scan.bwd_launches += 1
-    # a group's partials summed in a fixed order: the gradient of the
-    # repeat of B and C over the group's heads
-    db, dc = (t.reshape(bh // rep, rep // hb, l, n).sum(1).to(b.dtype)
-              for t in (db_part, dc_part))
+    # a group's partials of dB and dC summed in a fixed order: the
+    # gradient of the repeat of B and C over the group's heads
+    db, dc = parts.view(2, bh // rep, sets, l, n).sum(2).to(b.dtype)
     return da, dx, ddt, db, dc
 
 

@@ -1022,6 +1022,42 @@ def test_ssd_scan_bwd_kernel_is_deterministic(cuda, dtype, shape):
         assert torch.equal(u, v)
 
 
+def test_ssd_scan_bwd_bf16_kernel_matches_its_rounding_model(cuda):
+    """The bfloat16 kernel (`ssd_bwd_mma`) against
+    `_torch_ssd_bwd_mma.ssd_bwd_mma_emulation`, the rounding model the
+    CPU tests hold to the plain version and to the reference, at its
+    heads a block, on the same saved states: Mamba2-1.3B's training shape
+    at batch 1 (64 heads a group, L 512, P 64, N 128, chunk 256)."""
+    from _torch_ssd_bwd_mma import ssd_bwd_mma_emulation
+    from repro_torch.kernels import ssd_scan as pss
+    got, _, (a, x, dt, b, c, dy, states, ds, q, rep) = _ssd_bwd_case(
+        cuda, torch.bfloat16, (1, 64, 512, 64, 128, 256, 1))
+    hb = pss.bwd_mma_heads(x.shape[0], rep, x.shape[2], b.shape[2], q,
+                           torch.cuda.get_device_properties(cuda)
+                           .multi_processor_count)
+    want = ssd_bwd_mma_emulation(a, x, dt, b, c, dy, states, ds, q, rep, hb)
+    for gt, w in zip(got, want):
+        assert gt.dtype == w.dtype and gt.shape == w.shape
+        _lm_close(gt, w, gt.dtype)
+
+
+@pytest.mark.parametrize("shape", [s for s in _BWD_SSD_SHAPES if s[3] <= 64])
+def test_ssd_scan_bwd_bf16_two_heads_a_block(cuda, shape, monkeypatch):
+    """The bfloat16 kernel at two heads a block where the host would pick
+    one (small grids): ragged P, N and chunks, one chunk, and groups of 3
+    heads, whose last block runs one; against the plain version and the
+    rounding model at two heads a block."""
+    from _torch_ssd_bwd_mma import ssd_bwd_mma_emulation
+    from repro_torch.kernels import ssd_scan as pss
+    monkeypatch.setattr(pss, "bwd_mma_heads", lambda *args: 2)
+    got, want, (a, x, dt, b, c, dy, states, ds, q, rep) = _ssd_bwd_case(
+        cuda, torch.bfloat16, shape)
+    model = ssd_bwd_mma_emulation(a, x, dt, b, c, dy, states, ds, q, rep, 2)
+    for gt, w, m in zip(got, want, model):
+        _lm_close(gt, w, gt.dtype)
+        _lm_close(gt, m, gt.dtype)
+
+
 _TRAIN_CASES = [(1, "qwen2-1.5b"), (2, "qwen2-1.5b"), (1, "mamba2-1.3b"),
                 (2, "mamba2-1.3b"), (1, "zamba2-7b"), (2, "zamba2-7b")]
 
