@@ -235,6 +235,31 @@ Phases (each prints its own lines; any failure exits non-zero):
    and 27 scan backwards, 8 flash forwards and 4 backwards a step, then
    one profiled step; (d) the Mamba2 and Zamba2 smoke configs in float32
    card against CPU as 21(c) at grad_accum 1, and 11 card steps each.
+23. Gemma3-12B (5:1 local:global attention, window 1,024, head dim
+   256): (a) `flash_attention` and its backward against their plain
+   versions at its serve shape (BH 8 x 16 = 128, L 4,096, tile 1,024) and
+   training shape (BH 2 x 16 = 32, L 2,048), each with window 1,024 and
+   without, and at window 1,000 with tile 512, in float32 and bfloat16:
+   every output, log-sum-exp and gradient within `LM_TOL`, the bfloat16
+   kernels twice for the same bits, timed beside the plain version, the
+   bound (window counted) and SDPA (causal, or a band mask on the backend
+   named), the training shape's backwards also by device time; ptxas's
+   registers for the D 192 and 256 builds, no spill in any flash build;
+   (b) Gemma3-12B at full width and depth (11,765,395,200 bfloat16
+   parameters from a seed) through `generate`, 8 requests x prompt 4,096
+   (longer than the window), 32 tokens: 48 `flash_attention` launches a
+   prefill, no plain call, rates and peak memory, the first (local)
+   layer's kernel on its own tensors, then under torch.profiler; (c) the
+   cache path against the full forward over the same 4,128 tokens on the
+   first 2 requests (float32 parameters and caches for 8 would not fit),
+   the full forward at a tile of 32 (1,024 does not divide 4,128);
+   (d) training at full width, its depth cut to 6 layers (5 local, 1
+   global; 12 ran out of memory in AdamW), 5 `train_loop` AdamW steps of
+   2 x 2,048 tokens: 12 flash forwards and 6 backwards a step, no plain
+   call, then a profiled step; (e) the smoke config card against CPU:
+   `small_serve` in both dtypes, the prefill logits, 3 decode steps and
+   the K/V cache in float32, and `smoke_train` at grad_accum 1 with 11
+   card steps.
 
 It ends with a `kernels:` line of launch counts, one JSON line
 `{"kernels": [...]}` with an entry per kernel (times, bound, launches,
@@ -247,7 +272,8 @@ drawn sweep's, flash's and the scan's, and phase 20's full serves' to
 flash's and the scan's; `flash_attention_bwd`'s are phase 21(b)'s five
 steps plus the quickstart's; phase 22(b) and (c)'s are added to the
 scan's and to flash's, forward and backward, and `ssd_scan_bwd`'s are
-theirs alone), the card's nvidia-smi line, and
+theirs alone; phase 23(b)'s prefill and (d)'s steps are added to
+flash's, forward and backward), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
 held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
@@ -1512,16 +1538,19 @@ def check_tensor_cores():
                                  f"instruction in its SASS: {counts[lib]}")
 
 
-def flash_bound(q, tq, tk, causal):
+def flash_bound(q, tq, tk, causal, window=0):
     """Bytes (q, k, v read once, o written once) and operations (two
-    products over the (query, key) pairs the function uses) over the
+    products over the (query, key) pairs the function uses: below each
+    row's key limit and, with a window, from its lower limit) over the
     card's peaks, ms."""
     bh, l, d = q.shape
     pairs = 0
     for qp in range(l):
         if causal:
             up = min(max((qp // tq + 1) * tq // tk, 1), l // tk)
-            pairs += min(qp + 1, up * tk)
+            lo = max(qp - window + 1, max(qp // tq - window // tk, 0) * tk) \
+                if window else 0
+            pairs += min(qp + 1, up * tk) - lo
         else:
             pairs += l
     nbytes = 4 * q.numel() * q.element_size()
@@ -2881,30 +2910,64 @@ def capture_first_kernels(model, params, prompt, cap):
     return seen
 
 
+def sdpa_call(q, k, v, causal, window=0):
+    """(a no-argument SDPA call computing flash's function on q, k, v
+    (BH, L, D), the backend it runs on). Without a window: `is_causal`,
+    PyTorch's own choice of backend; with one: a boolean band `attn_mask`
+    (0 <= qpos - kpos < window), flash's function where the reference's
+    tile bound drops no key (window % tile <= 1), on the first of
+    memory-efficient, flash, cuDNN and math attention that takes it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q4, k4, v4 = q[None], k[None], v[None]
+    if not window:
+        return (lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal)), "PyTorch's choice"
+    pos = torch.arange(q.shape[1], device=q.device)
+    diff = pos[:, None] - pos[None, :]
+    kw = {"attn_mask": (diff >= 0) & (diff < window)}
+    names = ("EFFICIENT_ATTENTION", "FLASH_ATTENTION", "CUDNN_ATTENTION",
+             "MATH")
+    for backend in (getattr(SDPBackend, n) for n in names
+                    if hasattr(SDPBackend, n)):
+        def call(b=backend):
+            with sdpa_kernel([b]):
+                return F.scaled_dot_product_attention(q4, k4, v4, **kw)
+        try:
+            call()
+        except RuntimeError:
+            continue
+        return call, backend.name
+    raise AssertionError("no SDPA backend takes the call")
+
+
 def check_first_kernels(tag, seen):
     """The first layer's kernel against its plain version on this
     prefill's own tensors, timed with CUDA events beside the plain
     version, SDPA (attention) and the bound. Returns {kernel: row}."""
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as pfa
     from repro_torch.kernels import ssd_scan as pss
     rows = {}
     if "flash" in seen:
         (q, k, v), kw, o = seen["flash"]
         c, tq, tk = kw["causal"], kw["tq"], kw["tk"]
+        w = kw.get("window", 0)
         err = lm_err(o, pfa.flash_attention_plain(q, k, v, causal=c, tq=tq,
-                                                  tk=tk),
+                                                  tk=tk, window=w),
                      f"{tag} first layer's attention")
+        sdpa, backend = sdpa_call(q, k, v, c, w)
         rows[FLASH[0]] = dict(
             ms=timed(lambda: pfa.flash_attention(q, k, v, causal=c, tq=tq,
-                                                 tk=tk, device=q.device), 20),
+                                                 tk=tk, window=w,
+                                                 device=q.device), 20),
             plain_ms=timed(lambda: pfa.flash_attention_plain(
-                q, k, v, causal=c, tq=tq, tk=tk), 3),
-            library_ms=timed(lambda: F.scaled_dot_product_attention(
-                q[None], k[None], v[None], is_causal=c), 20),
-            bounds=flash_bound(q, tq, tk, c), err=err,
+                q, k, v, causal=c, tq=tq, tk=tk, window=w), 3),
+            library_ms=timed(sdpa, 20),
+            bounds=flash_bound(q, tq, tk, c, w), err=err,
             shape=f"BH {q.shape[0]} x L {q.shape[1]} x D {q.shape[2]}, "
-                  f"tile {tq}, {q.dtype}")
+                  f"tile {tq}, {q.dtype}"
+                  + (f", window {w}; library: SDPA ({backend})" if w else ""))
     if "ssd" in seen:
         (a, x, dt, b, c_), kw, (y, st) = seen["ssd"]
         q_, rep = kw["q"], kw["rep"]
@@ -3140,12 +3203,12 @@ SMOKE_TRAIN_STEPS, SMOKE_FALL_STEPS = 3, 10
 SMOKE_TRAIN_LR = {"warmup": 1}
 
 
-def flash_bwd_bound(q, tq, tk, causal):
+def flash_bwd_bound(q, tq, tk, causal, window=0):
     """Bytes (q, k, v, o, dO and lse read once, dq, dk, dv written once)
     and operations (five products, S, dP, dV, dQ, dK, over the (query,
     key) pairs the forward uses) over the card's peaks, ms."""
     bh, l, d = q.shape
-    _, fwd_ms = flash_bound(q, tq, tk, causal)           # two products
+    _, fwd_ms = flash_bound(q, tq, tk, causal, window)   # two products
     nbytes = 8 * q.numel() * q.element_size() + bh * l * 4
     return nbytes / HBM_BYTES_PER_S * 1e3, fwd_ms * 5 / 2
 
@@ -3214,7 +3277,7 @@ def phase_flash_bwd(dev, rec):
     for dtype, causal, tq, tk in cases:
         q, k, v, do = ((torch.randn((bh, l, d), generator=g, device=dev))
                        .to(dtype) for _ in range(4))
-        o, lse = pfa._forward(q, k, v, causal, tq, tk, dev, True)
+        o, lse = pfa._forward(q, k, v, causal, tq, tk, 0, dev, True)
         po, plse = pfa.flash_attention_plain(q, k, v, causal=causal, tq=tq,
                                              tk=tk, return_lse=True)
         what = f"BH {bh} x L {l} x D {d} {dtype}, causal {causal}, tq {tq}, " \
@@ -3297,8 +3360,9 @@ def reset_lm_counts():
     pss.reset_counts()
 
 
-def train_full(dev, cfg, steps, per_step, n_params=None, what=""):
-    """`steps` `train_loop` steps with AdamW at TRAIN_BATCH x TRAIN_SEQ
+def train_full(dev, cfg, steps, per_step, n_params=None, what="",
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """`steps` `train_loop` steps with AdamW at batch x seq tokens
     (parameters and data from a seed): finite losses, the parameter count
     (against `n_params` where given), the median step of steps 2 on,
     tokens/s, the share of the bfloat16 dense peak, peak memory, and the
@@ -3320,8 +3384,8 @@ def train_full(dev, cfg, steps, per_step, n_params=None, what=""):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_lm_counts()
     t0 = time.perf_counter()
-    out = train_loop(cfg=cfg, steps=steps, batch=TRAIN_BATCH,
-                     seq=TRAIN_SEQ, ckpt_dir="", device=dev, log=log)
+    out = train_loop(cfg=cfg, steps=steps, batch=batch, seq=seq,
+                     ckpt_dir="", device=dev, log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, plain = lm_counts()
@@ -3339,11 +3403,11 @@ def train_full(dev, cfg, steps, per_step, n_params=None, what=""):
                              f"calls; expected {want} (forwards with their "
                              f"remat recompute, backwards)")
     step_s = float(np.median(out["dts"][1:]))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * seq
     flops = 6.0 * n * tokens
     log(f"[{tag}] {cfg.n_layers} layers{what}, d_model {cfg.d_model}, "
         f"{cfg.dtype}, remat {cfg.remat}, {cfg.optimizer}: {n} parameters; "
-        f"{steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} in {wall:.1f}s "
+        f"{steps} steps of {batch} x {seq} in {wall:.1f}s "
         f"(init included); losses {', '.join(f'{x:.4f}' for x in losses)}; "
         f"step times {', '.join(f'{x * 1e3:.1f}' for x in out['dts'])} ms; "
         f"median of steps 2-{steps} {step_s * 1e3:.2f} ms = "
@@ -3357,9 +3421,8 @@ def train_full(dev, cfg, steps, per_step, n_params=None, what=""):
     # one more step under torch.profiler, device activity only
     model = build_model(cfg)
     _, step_fn = psteps.make_train_step(model)
-    bt = to_device(host_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                         global_batch=TRAIN_BATCH),
-                              steps), dev)
+    bt = to_device(host_batch(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                         global_batch=batch), steps), dev)
     params, opt_state = out["params"], out["opt_state"]
     t0 = time.perf_counter()
     run, pwall, busy, rows = profiled(lambda: step_fn(
@@ -3453,6 +3516,7 @@ def smoke_train(dev, arch, grad_accums):
         # (and no other); the plain versions' calls are the CPU's, one for
         # one
         family = {"qwen2-1.5b": (pfa.flash_attention,),
+                  "gemma3-12b": (pfa.flash_attention,),
                   "mamba2-1.3b": (pss.ssd_scan,),
                   "zamba2-7b": (pfa.flash_attention, pss.ssd_scan)}[arch]
         launched = []
@@ -3725,6 +3789,338 @@ def phase_train_ssm(dev):
     return counts
 
 
+# ------------------------------------------------------------- phase 23
+# Gemma3-12B: the dense decoder with 5:1 local:global attention (window
+# 1,024 on 40 of its 48 layers) and head dim 256. Its serve: 8 requests x
+# prompt 4,096 (longer than the window, so every local layer's window
+# bites), 32 tokens, greedy, at full width and depth (the reference's
+# count_params_abstract: 11,765,395,200). Its training: full width, the
+# depth cut to 6 layers (one group: 5 local, 1 global; AdamW's m and v for
+# 48 layers need about 11.77e9 x 12 B = 141 GB, and at 12 layers the
+# step ran out of the card's 80 GB in AdamW's update of the 1.0e9-value
+# embedding), 2 x 2,048 tokens a step, as many as phase 21(b)'s 8 x 512.
+GEMMA_ARCH = "gemma3-12b"
+GEMMA_PARAMS, GEMMA_TRAIN_PARAMS = 11_765_395_200, 2_351_481_600
+GEMMA_BATCH, GEMMA_PROMPT, GEMMA_GEN = 8, 4096, 32
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ = 6, 2, 2048
+# the cache path's check runs on the first 2 requests: at 8, the float32
+# parameters (47 GB) and K/V caches (26 GB) with the forward's activations
+# would not fit 80 GB
+GEMMA_CACHE_BATCH = 2
+# the full forward over the 4,128 prompt and generated tokens runs at a
+# tile of 32, which divides 4,128 (1,024, the config's, does not) and the
+# window, so its tile bound drops no key: the exact causal mask and
+# windows that the prefill's tile of 1,024 (= the window) and decode's
+# masks give
+GEMMA_FULL_TILE = 32
+
+
+def wide_flash_registers():
+    """ptxas's report for the flash kernels' D 192 and 256 builds (and
+    the float32 backward, one build for every D), one entry each; raises
+    if any flash kernel, of any head dim, spills. Empty where this
+    process found the library built."""
+    from repro_torch.kernels import _build
+    every = ptxas_report(_build.build_log("flash_attention"))
+    spilled = [r for r in every if r[3] or r[4]]
+    if spilled:
+        raise AssertionError(f"flash kernels spill: {spilled}")
+    rows = [r for r in every if re.search(r"<(12|16|float, 16)[,>]", r[0])
+            or r[0].startswith(("flash_bwd_dq<", "flash_bwd_dkdv<"))]
+    return [f"{k}: {regs} registers, {smem} bytes static shared memory, "
+            f"spills {st}/{ld} bytes" for k, regs, smem, st, ld in rows]
+
+
+def phase_gemma_kernels(dev):
+    """23(a): `flash_attention` and its backward at Gemma3-12B's head dim
+    (256): the serve shape (BH 8 x 16 = 128, L 4,096, tile 1,024) and the
+    training shape (BH 2 x 16 = 32, L 2,048, tile 1,024), each with the
+    local layers' window (1,024) and without (the global layers'), and
+    at window 1,000 with tile 512 (a multiple of neither 64 nor the
+    tile); float32 and bfloat16. Every output, log-sum-exp and gradient
+    within LM_TOL of the plain version; the bfloat16 kernels twice, the
+    same bits. The bfloat16 cases timed (CUDA events) beside the plain
+    version, the bound and SDPA (causal, or a band mask on the backend
+    named); at the training shape the backwards also by device time."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as pfa
+    regs = wide_flash_registers()
+    log("[gemma3 kernels] ptxas: " + ("; ".join(regs) if regs else
+                                      "not reported (library found built)"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(GEMMA_ARCH)
+    h, d, w, t = (cfg.n_heads, cfg.resolved_head_dim, cfg.window,
+                  cfg.attn_chunk)
+    serve = (GEMMA_BATCH * h, GEMMA_PROMPT)
+    train = (GEMMA_TRAIN_BATCH * h, GEMMA_TRAIN_SEQ)
+    cases = [("serve", *serve, t, w), ("serve", *serve, t, 0),
+             ("train", *train, t, w), ("train", *train, t, 0),
+             ("train", *train, 512, 1000)]
+    g = torch.Generator(device=dev).manual_seed(23)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, bh, l, tile, win in cases:
+            q, k, v, do = (torch.randn((bh, l, d), generator=g, device=dev)
+                           .to(dtype) for _ in range(4))
+            what = (f"{shape} BH {bh} x L {l} x D {d} {str(dtype)[6:]}, "
+                    f"tile {tile}, window {win}")
+
+            def fwd():
+                return pfa._forward(q, k, v, True, tile, tile, win, dev,
+                                    True)
+
+            def bwd(o, lse):
+                return pfa.flash_attention_bwd(q, k, v, o, do, lse, tq=tile,
+                                               tk=tile, window=win,
+                                               device=dev)
+            o, lse = fwd()
+            got = bwd(o, lse)
+            torch.cuda.synchronize()
+            po, plse = pfa.flash_attention_plain(q, k, v, tq=tile, tk=tile,
+                                                 window=win, return_lse=True)
+            e_o = lm_err(o, po, f"flash forward {what}")
+            lm_err(lse, plse, f"flash log-sum-exp {what}", LM_TOL["float32"])
+            del po, plse
+            want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                 tq=tile, tk=tile,
+                                                 window=win)
+            errs = [lm_err(a, b, f"flash backward d{n} {what}")
+                    for n, a, b in zip("qkv", got, want)]
+            del want
+            line = (f"[gemma3 kernels] {what}: max |kernel - plain| o "
+                    f"{e_o:.3g}, dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv "
+                    f"{errs[2]:.3g} (within {LM_TOL[str(dtype)[6:]]} x "
+                    f"max(1, largest |value|))")
+            if dtype == torch.bfloat16:
+                o2, lse2 = fwd()
+                again = bwd(o, lse)
+                torch.cuda.synchronize()
+                if not (torch.equal(o, o2) and torch.equal(lse, lse2) and all(
+                        torch.equal(a, b) for a, b in zip(got, again))):
+                    raise AssertionError(f"flash {what}: two launches on the "
+                                         f"same inputs differ")
+                del o2, lse2, again
+                sdpa, backend = sdpa_call(q, k, v, True, win)
+                f_ms = timed(lambda: pfa.flash_attention(
+                    q, k, v, tq=tile, tk=tile, window=win, device=dev), 10)
+                f_plain = timed(lambda: pfa.flash_attention_plain(
+                    q, k, v, tq=tile, tk=tile, window=win), 2)
+                f_lib = timed(sdpa, 10)
+                fb, fo = flash_bound(q, tile, tile, True, win)
+                b_ms = timed(lambda: bwd(o, lse), 10)
+                b_plain = timed(lambda: pfa.flash_attention_bwd_plain(
+                    q, k, v, o, do, lse, tq=tile, tk=tile, window=win), 2)
+                bb, bo = flash_bwd_bound(q, tile, tile, True, win)
+                line += (f"; two launches the same bits. Forward: kernel "
+                         f"{f_ms:.4f} ms, plain {f_plain:.3f} ms, SDPA "
+                         f"({backend}) {f_lib:.4f} ms, bound "
+                         f"{max(fb, fo):.4f} ms (bytes {fb:.4f}, operations "
+                         f"{fo:.4f}); backward: kernel {b_ms:.4f} ms, plain "
+                         f"{b_plain:.3f} ms, bound {max(bb, bo):.4f} ms "
+                         f"(bytes {bb:.4f}, operations {bo:.4f})")
+                if shape == "train" and tile == t:
+                    qs, ks, vs = (x.detach().requires_grad_()
+                                  for x in (q, k, v))
+                    with torch.enable_grad():
+                        out = sdpa_call(qs, ks, vs, True, win)[0]()
+                    ours = kernel_device_ms(lambda: bwd(o, lse), 10)
+                    theirs = kernel_device_ms(lambda: torch.autograd.grad(
+                        out, (qs, ks, vs), do[None], retain_graph=True), 10)
+                    line += "; backward device time a call " \
+                        "(torch.profiler): " + "; ".join(
+                            f"{who} " + device_total(ms)
+                            for who, ms in (("flash_attention_bwd", ours),
+                                            (f"SDPA's ({backend})", theirs)))
+                    del out, qs, ks, vs
+            log(line)
+            del q, k, v, do, o, lse, got
+            torch.cuda.empty_cache()
+
+
+def device_total(ms):
+    """A `kernel_device_ms` result as its total ms a call."""
+    if ms is None:
+        return "not measured (records lost)"
+    return f"{sum(x for x, _ in ms.values()):.4f} ms"
+
+
+def phase_gemma_serve(dev):
+    """23(b): Gemma3-12B at full width and depth in bfloat16 through
+    `generate` on the card, 8 requests x prompt 4,096, 32 tokens: 48
+    `flash_attention` launches a prefill and no plain call, the prefill
+    and decode rates and peak memory, the first (local) layer's kernel on
+    its own tensors, the serve once more under torch.profiler. (c): the
+    cache path (prefill and 32 decode steps) against the full forward
+    over the same 4,128 tokens on the first GEMMA_CACHE_BATCH requests:
+    float32 within 1e-3 at every step, the bfloat16 drift at most
+    CACHE_DRIFT x the forward's. Returns the generate run's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model, count_params
+
+    tag = f"serve {GEMMA_ARCH}"
+    b, pl, gen = GEMMA_BATCH, GEMMA_PROMPT, GEMMA_GEN
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(GEMMA_ARCH)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    log(f"[{tag}] {cfg.n_layers} layers (window {cfg.window} on all but "
+        f"every {cfg.global_every}th), d_model {cfg.d_model}, head dim "
+        f"{cfg.resolved_head_dim}, {cfg.dtype}: {n_params} parameters "
+        f"initialised on the card in {time.perf_counter() - t0:.1f}s")
+    if n_params != GEMMA_PARAMS:
+        raise AssertionError(f"{tag}: {n_params} parameters, the reference "
+                             f"counts {GEMMA_PARAMS}")
+    serve.generate(cfg, batch=b, prompt_len=pl, gen=2, params=params,
+                   device=dev, log=lambda *a: None)       # warm-up
+    pfa.reset_counts()
+    toks, stats = serve.generate(cfg, batch=b, prompt_len=pl, gen=gen,
+                                 params=params, device=dev, log=log)
+    counts = {FLASH[0]: pfa.flash_attention.launches}
+    plain = pfa.flash_attention.plain_calls
+    peak = torch.cuda.max_memory_allocated(dev)
+    if counts[FLASH[0]] != cfg.n_layers or plain:
+        raise AssertionError(f"{tag}: {counts} launches, {plain} plain "
+                             f"calls; expected {cfg.n_layers} a prefill")
+    if toks.shape != (b, gen) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{tag}: tokens {toks.shape}")
+    log(f"[{tag}] {b} requests x prompt {pl}, {gen} tokens each: prefill "
+        f"{stats['prefill_s'] * 1e3:.1f} ms = "
+        f"{b * pl / stats['prefill_s']:.1f} prefill tokens/s; {gen - 1} "
+        f"decode steps {stats['decode_s']:.3f}s = "
+        f"{(gen - 1) * b / stats['decode_s']:.1f} decode tokens/s "
+        f"({stats['decode_s'] / (gen - 1) * 1e3:.2f} ms a step); "
+        f"{counts[FLASH[0]]} flash_attention launches a prefill, 0 plain "
+        f"calls; max_memory_allocated {peak / 2**30:.2f} GiB ({peak} "
+        f"bytes)")
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, pl)), device=dev)
+    check_first_kernels(tag, capture_first_kernels(model, params, prompt,
+                                                   pl + gen))
+    t0 = time.perf_counter()
+    run, wall, busy, rows = profiled(lambda: serve.generate(
+        cfg, batch=b, prompt_len=pl, gen=FULL_PROFILE_GEN, params=params,
+        device=dev, log=lambda *a: None), cpu=False)
+    if busy is None:
+        log(f"[{tag}] the profiler saw no device activity: device busy "
+            f"share not measured")
+    else:
+        log(f"[{tag}] under torch.profiler (prefill and "
+            f"{FULL_PROFILE_GEN - 1} decode steps): {wall:.2f}s wall "
+            f"(prefill {run[1]['prefill_s']:.3f}s, decode "
+            f"{run[1]['decode_s']:.3f}s inside generate), device busy "
+            f"{busy:.3f}s = share {busy / wall:.4f} of the wall; reading "
+            f"the trace took {time.perf_counter() - t0 - wall:.1f}s")
+        log_rows(tag, device_time_by_layer(tag, rows), 8)
+    del run, rows
+
+    # (c) the cache path against the full forward, first 2 requests
+    cb = GEMMA_CACHE_BATCH
+    p2 = prompt[:cb]
+    gt, cache_bf = greedy(model, params, p2, pl + gen, gen)
+    seq = torch.cat([p2, gt[:, :gen].to(dev)], 1)
+    full_cfg = cfg.replace(attn_chunk=GEMMA_FULL_TILE)
+    full_bf = full_logits(params, full_cfg, seq, pl, gen)
+    for p in params.parameters():
+        p.data = p.data.float()
+    torch.cuda.empty_cache()
+    full32 = full_logits(params, full_cfg.replace(dtype="float32"), seq, pl,
+                         gen)
+    _, cache32 = greedy(build_model(cfg.replace(dtype="float32")), params,
+                        p2, pl + gen, gen, forced=gt[:, :gen])
+    check_cache_path(f"{tag}, first {cb} requests, full forward at tile "
+                     f"{GEMMA_FULL_TILE}", torch.stack(cache_bf, 1), full_bf,
+                     torch.stack(cache32, 1), full32)
+    del cache_bf, cache32, full_bf, full32, gt, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gemma_small_cache(dev):
+    """23(e): the Gemma3 smoke config in float32, card against CPU from
+    the same parameters: the prefill logits of a 64-token prompt (longer
+    than the window, 16), 3 decode steps fed the same tokens and the K/V
+    cache after them, within phase 14's float32 tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.model import build_model
+    cfg = get_smoke_config(GEMMA_ARCH).replace(dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    card = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    card.load_state_dict(cpu.state_dict())
+    l, steps = 64, 3
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (4, l + steps)))
+    out = []
+    with torch.inference_mode():
+        for d_, params in ((dev, card), ("cpu", cpu)):
+            lg, cache = model.prefill_fn(params, {"tokens": toks[:, :l].to(
+                d_)}, l + steps)
+            logits = [lg.float().cpu()]
+            for i in range(steps):
+                lg, cache = model.decode_fn(params, cache, toks[
+                    :, l + i:l + i + 1].to(d_), l + i)
+                logits.append(lg.float().cpu())
+            out.append((logits, {k: c.float().cpu() for k, c in
+                                 cache.items()}))
+    rtol, atol = SMALL_SERVE_TOL["float32"]
+    (lc, cc), (lp, cp) = out
+    for i, (a, b_) in enumerate(zip(lc, lp)):
+        torch.testing.assert_close(a, b_, rtol=rtol, atol=atol, msg=lambda m:
+                                   f"[gemma3 small] step {i} logits: {m}")
+    for k in cc:
+        torch.testing.assert_close(cc[k], cp[k], rtol=rtol, atol=atol,
+                                   msg=lambda m: f"[gemma3 small] cache {k}: "
+                                                 f"{m}")
+    log(f"[gemma3 small] smoke config float32, card against CPU: prefill "
+        f"of {l} tokens (window {cfg.window}) and {steps} decode steps, "
+        f"logits max |diff| "
+        + ", ".join(f"{float((a - b_).abs().max()):.3g}"
+                    for a, b_ in zip(lc, lp))
+        + "; the K/V cache max |diff| "
+        + ", ".join(f"{k} {float((cc[k] - cp[k]).abs().max()):.3g}"
+                    for k in cc)
+        + f" (within rtol {rtol}, atol {atol})")
+
+
+def phase_gemma_train(dev):
+    """23(d): Gemma3-12B at full width, GEMMA_TRAIN_LAYERS layers,
+    TRAIN_STEPS `train_loop` AdamW steps of 2 x 2,048 (`train_full`): 12
+    flash forwards (with the remat recompute) and 6 backwards a step, no
+    plain call, then a profiled step. (e) the smoke config card against
+    CPU, serving (`small_serve` in both dtypes, `gemma_small_cache`) and
+    training (`smoke_train`). Returns (d)'s launches."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(GEMMA_ARCH).replace(n_layers=GEMMA_TRAIN_LAYERS)
+    n = cfg.n_layers
+    counts = train_full(dev, cfg, TRAIN_STEPS,
+                        {FLASH[0]: 2 * n, FLASH_BWD[0]: n, SSD[0]: 0,
+                         SSD_BWD[0]: 0}, GEMMA_TRAIN_PARAMS,
+                        what=" (of 48: cut for AdamW's memory; 5 local, 1 "
+                             "global)", batch=GEMMA_TRAIN_BATCH,
+                        seq=GEMMA_TRAIN_SEQ)
+    for dtype in SMALL_SERVE_TOL:
+        small_serve(dev, GEMMA_ARCH, dtype, "gemma3 small")
+    gemma_small_cache(dev)
+    smoke_train(dev, GEMMA_ARCH, (1,))
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3824,6 +4220,12 @@ def main() -> int:
     for k, v in phase_train_ssm(dev).items():
         counts[k] = counts.get(k, 0) + v
     log(f"[ssm/hybrid train] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_gemma_kernels(dev)
+    for part in (phase_gemma_serve, phase_gemma_train):
+        for k, v in part(dev).items():
+            counts[k] = counts.get(k, 0) + v
+    log(f"[gemma3] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []

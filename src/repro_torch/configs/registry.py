@@ -3,7 +3,8 @@ their smoke variants.
 
 A copy of the reference's registry that resolves only the families the
 port has: `hybrid` (Zamba2), `dense` (Qwen2, Qwen2.5, Minitron) and
-`ssm` (Mamba2). The reference's other architectures are known by name
+`ssm` (Mamba2); Gemma3 is the dense family with 5:1 local:global
+attention. The reference's other architectures are known by name
 and raise NotImplementedError, naming the open item that ports them,
 until they are ported.
 """
@@ -14,6 +15,7 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
@@ -23,7 +25,7 @@ _MODULES = {
 
 # the reference's other architectures, still to port, and the open item
 # of ROADMAP.md that ports each
-_UNPORTED = {"gemma3-12b": "13c", "qwen2-moe-a2.7b": "13d",
+_UNPORTED = {"qwen2-moe-a2.7b": "13d",
              "deepseek-v3-671b": "13d", "llava-next-34b": "13e",
              "whisper-tiny": "13e"}
 

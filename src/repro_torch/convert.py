@@ -36,8 +36,11 @@ For the dense decoder and the Mamba2 LM, `decoder_params_to_torch` and
 `ssm_params_to_torch` unstack the reference's `dense_layers` and
 `layers` (n_layers, ...) into one block each (the QKV bias and, where
 the embedding is tied, no `lm_head` included), under the same bfloat16
-rule. `decoder_cache_to_numpy/_to_torch` carry the K/V cache between the
-port's `{"k", "v"}` and the reference's `{"dense": {"k", "v"}}`, and
+rule. With local:global attention (`global_every` g > 1, Gemma3) the
+reference stacks `dense_layers`, and its cache, on (n_groups, g, ...)
+axes: layer i is [i // g, i % g]. `decoder_cache_to_numpy/_to_torch`
+carry the K/V cache between the port's `{"k", "v"}`, (n_layers, ...),
+and the reference's `{"dense": {"k", "v"}}`, and
 `ssm_cache_to_numpy/_to_torch` the state between the port's stacked
 leaves and the reference's `{"states": {...}}`.
 
@@ -231,12 +234,19 @@ def hybrid_params_to_torch(params, cfg, device: DeviceLike = None
         "lm_head": leaf(params["lm_head"], "lm_head")})
 
 
+def _group(cfg) -> int:
+    """The reference's dense layers a group (`global_every`, or 1)."""
+    return cfg.global_every or 1
+
+
 def decoder_params_to_torch(params, cfg, device: DeviceLike = None
                             ) -> DecoderLM:
     """The reference's dense decoder parameters (`init_decoder`'s pytree,
     numpy) -> the port's `DecoderLM` on `device`."""
     leaf, conv, take = _params_to_torch(resolve(device), torch_dtype(cfg))
-    layers = [conv(take(params["dense_layers"], i))
+    g = _group(cfg)
+    layers = [conv(take(params["dense_layers"],
+                        *(divmod(i, g) if g > 1 else (i,))))
               for i in range(cfg.n_layers)]
     return DecoderLM(_lm_params(params, layers, leaf))
 
@@ -294,14 +304,23 @@ def hybrid_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
 
 def decoder_cache_to_numpy(cache, cfg) -> dict:
     """The port's dense K/V cache -> the reference's layout, float32."""
-    return {"dense": {k: _f32(cache[k]) for k in ("k", "v")}}
+    g = _group(cfg)
+
+    def grouped(x):
+        return x.reshape((-1, g) + x.shape[1:]) if g > 1 else x
+    return {"dense": {k: grouped(_f32(cache[k])) for k in ("k", "v")}}
 
 
 def decoder_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
     """A dense cache in the reference's layout (numpy; bfloat16 leaves as
     float32) -> the port's, on `device`."""
     dev, dtype = resolve(device), torch_dtype(cfg)
-    return {k: _from_f32(cache["dense"][k], dev, dtype) for k in ("k", "v")}
+
+    def flat(x):
+        x = np.asarray(x, np.float32)
+        return x.reshape((-1,) + x.shape[2:]) if _group(cfg) > 1 else x
+    return {k: _from_f32(flat(cache["dense"][k]), dev, dtype)
+            for k in ("k", "v")}
 
 
 def ssm_cache_to_numpy(cache, cfg) -> dict:
@@ -361,7 +380,12 @@ def lm_params_to_numpy(named: dict, cfg) -> dict:
     out = {k: nested[k] for k in ("embed", "final_norm", "lm_head")
            if k in nested}
     if cfg.family == "dense":
+        g = _group(cfg)
         out["dense_layers"] = _stack(layers("layers"))
+        if g > 1:
+            out["dense_layers"] = _map(
+                lambda v: v.reshape((-1, g) + v.shape[1:]),
+                out["dense_layers"])
     elif cfg.family == "ssm":
         out["layers"] = _stack(layers("layers"))
     elif cfg.family == "hybrid":

@@ -52,8 +52,8 @@ SIGNATURES = {
         "carbon_sweep_drawn_launch": [_I, _U, _U] + [_P] * 4 + [_I, _I, _D]
         + [_P] * 26 + [_I] * 5 + [_D] * 4 + [_P]},
     "flash_attention": {
-        "flash_attention_launch": [_I] + [_P] * 5 + [_I] * 6 + [_F, _P],
-        "flash_attention_bwd_launch": [_I] + [_P] * 10 + [_I] * 6
+        "flash_attention_launch": [_I] + [_P] * 5 + [_I] * 7 + [_F, _P],
+        "flash_attention_bwd_launch": [_I] + [_P] * 10 + [_I] * 7
         + [_F, _P]},
     "ssd_scan": {"ssd_scan_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
                  "ssd_scan_bwd_launch": [_I] + [_P] * 13 + [_I] * 7 + [_P],

@@ -17,11 +17,31 @@
 // leave masked keys out of the softmax, which gives what the TPU
 // kernel's exp(-1e30 - m) gives: every row has key 0 in its first tile.
 //
+// Sliding window (Gemma3's local layers; causal, tq == tk). The
+// reference's windowed chunked attention reads, for query tile qi, the
+// KV tiles from max(qi - window / tk, 0) on, under the mask qpos - kpos <
+// window; that tile bound drops keys inside the window when window % tk
+// > 1, so it is part of the function. Each row gets a lower key limit
+// beside its upper one:
+//   klo = max(qpos - window + 1, max(qpos / tq - window / tk, 0) tk)
+// (key_lower), at most qpos, so no row's softmax is empty, and like klim
+// not decreasing with the row. Every pass starts its key walk at the
+// 64-key tile holding its first row's klo and masks only the tiles that
+// cross either limit; the dK/dV passes walk exactly the query tiles from
+// the first whose last row's klim passes the block's first key to the
+// last whose first row's klo is below its last.
+//
+// Head dims 1 to 256: D is zero-padded to 16 DK columns, DK 1-8, then 12
+// (D <= 192) and 16 (D <= 256) only, to keep the build short.
+//
 // What bounds it. At the main path's shapes (BH = 8 x 32 = 256, L = 512,
 // D = 112, bfloat16, causal) it must read q, k, v and write o, 117 MB,
 // or 0.035 ms at 3.35 TB/s; the causal triangle's two products are
 // 1.5e10 operations, 0.015 ms at the bfloat16 tensor-core rate. So bytes
-// bound it.
+// bound it. At Gemma3-12B's serve shape (BH 8 x 16 = 128, L 4,096, D
+// 256, tile 1,024) operations do: 0.49 ms for a local layer's window of
+// 1,024 (4.8e11 operations; the bytes 0.32 ms), 1.11 ms for a global
+// layer's causal triangle.
 //
 // bfloat16 (flash_fwd_mma, the main path's): FlashAttention-2 on the
 // tensor cores with mma.sync m16n8k16 (lm_mma.cuh). One block of 4 warps
@@ -31,13 +51,15 @@
 // into registers (D zero-padded to a multiple of 16). K and V come in
 // 64-key bfloat16 tiles, double-buffered with cp.async (zero-filled past
 // L), in rows padded to D + 8 values so ldmatrix's eight row addresses
-// fall in distinct banks. Per tile: S = q k^T into float32 registers;
+// fall in distinct banks. Per tile (the narrow builds: per 32-key half
+// of it): S = q k^T into float32 registers;
 // the scale (times log2 e, for exp2f) applied to the float32 S, never to
 // bfloat16 q (D^-1/2 is not a power of two, so that would add a rounding
 // the plain version lacks); the mask only on tiles that cross a row's key
 // limit; the running max and denominator in registers with quad
 // shuffles, the denominator summed from float32 P; P rounded to
-// bfloat16 in registers is the A fragment of P v, and v's B fragments
+// bfloat16 in registers, one k16 step of keys at a time, is the A
+// fragment of P v, and v's B fragments
 // come from ldmatrix.trans; the output stays in float32 registers until
 // it is divided by max(l, 1e-30). Rounding P to bfloat16 for P v is the
 // only rounding the plain version lacks: one bfloat16 step at most.
@@ -45,14 +67,23 @@
 // Both builds write each row's log-sum-exp of its scaled scores, m +
 // log(den), when given an lse pointer (training; serving passes null).
 //
+// The wide bfloat16 builds (DK 12, 16) keep q in shared memory and read
+// its A fragments at each k-step (in registers they would pass 255 beside
+// the 16 x 256 float32 accumulator), one block an SM (169 KB of shared
+// memory at DK 16). The narrow builds walk each 64-key tile in two
+// softmax steps of 32 keys and pack P one k16 step at a time, which
+// keeps S and P beside q's fragments under the 168-register cap of three
+// blocks an SM with no spill (one 64-key step spilled at D 96-128).
+//
 // float32 (flash_fwd): on the CUDA cores, as first ported. The float32
 // tolerance (1e-4) rules out bfloat16 or TF32 products, and no main path
 // runs it. One block of 256 threads per (head, 64 query rows) keeps q,
 // scaled, k^T, v and P as float32 tiles in shared memory, forms the 64 x
 // 64 score tile in registers (a 4 x 4 micro-tile per thread), runs the
 // online softmax four threads a row and adds P v to a 4 x D/16 output
-// micro-tile. Ragged L and D are zero-padded in shared memory and
-// masked. D <= 128.
+// micro-tile (CM = 8 columns a thread to D 128, 16 to D 256: 214 KB of
+// shared memory at D 256). Ragged L and D are zero-padded in shared
+// memory and masked.
 // Backward (no TPU kernel: the reference trains through jnp attention
 // and autodiff, so this is the gradient of src/repro/kernels/
 // flash_attention.py:61's function, its key bound included). Given q, k,
@@ -91,11 +122,19 @@
 // 128 float32 dK and dV sums a warp at D = 128 are 128 a thread); 104 KB
 // of shared memory a block at D = 128, two blocks an SM. Rounding P to
 // bfloat16 before P^T dO and dS before dS k and dS^T q are the two
-// roundings the plain version lacks: one bfloat16 step each at most.
+// roundings the plain version lacks: one bfloat16 step each at most. The
+// wide builds (D > 128) run one block an SM (204 KB of shared memory at
+// DK 16); their dQ pass reads q's and dO's fragments from shared memory,
+// and their dK/dV pass splits D between two blocks (grid z), each
+// recomputing S^T and dP^T, since both 16 x 256 sums would take 256
+// registers a thread. At Gemma3's training shape (BH 2 x 16 = 32, L
+// 2,048, D 256) operations bound it: 0.13 ms with the window, 0.17 ms
+// causal (the bytes 0.08 ms).
 //
 // float32 (flash_bwd_dq, flash_bwd_dkdv): float32 tiles and sums on the
 // CUDA cores, as first ported; the float32 tolerance (1e-4) rules out
-// bfloat16 or TF32 products.
+// bfloat16 or TF32 products. Past D = 128 the tiles walk D in chunks of
+// 128 columns (see kChunk).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -108,21 +147,42 @@ namespace {
 constexpr int kRows = 64;  // query rows per block
 constexpr int kKeys = 64;  // keys per tile
 
+// the TPU kernel's key limit of query row qp (0 past the last row)
+__device__ __forceinline__ int key_limit(int qp, int L, int causal, int tq,
+                                         int tk) {
+  if (qp >= L) return 0;
+  if (!causal) return L;
+  const int up = min(max((qp / tq + 1) * tq / tk, 1), L / tk);
+  return min(qp + 1, up * tk);
+}
+
+// the lower key limit of query row qp under a sliding window (0 without
+// one): the window's own, qp - window + 1, and the reference's chunk
+// bound, which reads KV tiles from max(qp / tq - window / tk, 0) on (tq
+// == tk). Like key_limit it does not decrease with the row, and it is at
+// most qp, so every row keeps its own key.
+__device__ __forceinline__ int key_lower(int qp, int window, int tq, int tk) {
+  if (window <= 0) return 0;
+  return max(qp - window + 1, max(qp / tq - window / tk, 0) * tk);
+}
+
 size_t smem_bytes(int dd) {
   return sizeof(float) * (static_cast<size_t>(kRows) * (dd + 1)  // Qs
                           + static_cast<size_t>(dd) * kKeys      // Ks^T
                           + static_cast<size_t>(kKeys) * dd      // Vs
                           + kRows * (kKeys + 1)                  // Ps
                           + 3 * kRows)                           // m, l, c
-         + sizeof(int) * kRows;                                  // klim
+         + sizeof(int) * 2 * kRows;                              // klo, klim
 }
 
-template <typename T>
+// CM: the output columns a thread owns, 16 apart (8 for D <= 128, 16 for
+// D <= 256)
+template <typename T, int CM>
 __global__ void __launch_bounds__(lm::kThreads)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
               float* __restrict__ lse, int L, int D, int dd, int causal,
-              int tq, int tk, float scale) {
+              int tq, int tk, int window, float scale) {
   extern __shared__ __align__(16) float sm[];
   const int lq = dd + 1, lp = kKeys + 1;
   float* Qs = sm;                    // [kRows][lq], scaled
@@ -133,6 +193,7 @@ __global__ void __launch_bounds__(lm::kThreads)
   float* lrow = mrow + kRows;
   float* crow = lrow + kRows;
   int* klim = reinterpret_cast<int*>(crow + kRows);
+  int* klo = klim + kRows;
 
   const int bh = blockIdx.x, q0 = blockIdx.y * kRows;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -147,33 +208,25 @@ __global__ void __launch_bounds__(lm::kThreads)
   }
   if (tid < kRows) {
     const int qp = q0 + tid;
-    int lim = 0;
-    if (qp < L) {
-      if (causal) {
-        int up = (qp / tq + 1) * tq / tk;
-        up = min(max(up, 1), L / tk);
-        lim = min(qp + 1, up * tk);
-      } else {
-        lim = L;
-      }
-    }
-    klim[tid] = lim;
+    klim[tid] = key_limit(qp, L, causal, tq, tk);
+    klo[tid] = key_lower(qp, window, tq, tk);
     mrow[tid] = -INFINITY;
     lrow[tid] = 0.f;
   }
   __syncthreads();
-  // the key limit does not decrease with the row: the block's last row
-  // has the largest
+  // neither key limit decreases with the row: the block's last row has the
+  // largest upper one, its first row the smallest lower one
   const int kend = klim[min(kRows, L - q0) - 1];
+  const int kbeg = klo[0] / kKeys * kKeys;
   const int cm = dd / 16;
 
-  float acc[4][8];
+  float acc[4][CM];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < CM; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < kend; k0 += kKeys) {
+  for (int k0 = kbeg; k0 < kend; k0 += kKeys) {
     for (int idx = tid; idx < kKeys * dd; idx += lm::kThreads) {
       const int j = idx / dd, d = idx % dd;
       float kv = 0.f, vv = 0.f;
@@ -198,7 +251,8 @@ __global__ void __launch_bounds__(lm::kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        Ps[r * lp + c] = k0 + c < klim[r] ? s[i][j] : -INFINITY;
+        Ps[r * lp + c] =
+            k0 + c < klim[r] && k0 + c >= klo[r] ? s[i][j] : -INFINITY;
       }
     __syncthreads();
 
@@ -232,9 +286,9 @@ __global__ void __launch_bounds__(lm::kThreads)
     for (int i = 0; i < 4; ++i) {
       const float c = crow[ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= c;
+      for (int j = 0; j < CM; ++j) acc[i][j] *= c;
     }
-    lm::mm_acc<4, 8>(acc, Ps, lp, Vs, dd, kKeys, 4, cm, ty, tx);
+    lm::mm_acc<4, CM>(acc, Ps, lp, Vs, dd, kKeys, 4, cm, ty, tx);
     __syncthreads();
   }
 
@@ -247,7 +301,7 @@ __global__ void __launch_bounds__(lm::kThreads)
     if (q0 + r >= L) continue;
     const float den = fmaxf(lrow[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < CM; ++j) {
       const int d = tx + 16 * j;
       if (j < cm && d < D)
         o[base + static_cast<size_t>(q0 + r) * D + d] =
@@ -260,19 +314,11 @@ __global__ void __launch_bounds__(lm::kThreads)
 using bf16 = __nv_bfloat16;
 constexpr int kMmaWarps = kRows / 16;  // 16 query rows a warp
 constexpr int kMmaThreads = 32 * kMmaWarps;
-// blocks an SM: caps a thread at 168 registers (the D = 112 and 128
-// builds would take 173, and fit two blocks an SM; three run faster)
+// blocks an SM of the narrow builds: caps a thread at 168 registers,
+// which they meet without a spill by their 32-key softmax steps (two
+// blocks an SM, with more registers, ran slower at D = 128)
 constexpr int kMmaBlocksPerSM = 3;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// the TPU kernel's key limit of query row qp (0 past the last row)
-__device__ __forceinline__ int key_limit(int qp, int L, int causal, int tq,
-                                         int tk) {
-  if (qp >= L) return 0;
-  if (!causal) return L;
-  const int up = min(max((qp / tq + 1) * tq / tk, 1), L / tk);
-  return min(qp + 1, up * tk);
-}
 
 // rows [r0, r0 + 64) of a (L, D) matrix into a [64][ld] bfloat16 tile,
 // the first dd = 16 DK columns, zeros past L and D. 16-byte cp.async
@@ -299,22 +345,55 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
+// A lane's ldmatrix_x4 address, in elements, in a bfloat16 tile of row
+// stride ld: the A fragment of rows r0.. r0 + 15 and columns 16 kk..; the
+// B fragments of two n8 tiles, rows n0.. n0 + 15, over columns 16 kk..;
+// and, with ldmatrix_x4_trans, the B fragments of two n8 tiles, columns
+// 16 n2.., over rows k0.. k0 + 15
+__device__ __forceinline__ int a_frag(int ld, int r0, int kk) {
+  const int lane = threadIdx.x & 31;
+  return (r0 + (lane & 15)) * ld + kk * 16 + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int b_frag(int ld, int n0, int kk) {
+  const int lane = threadIdx.x & 31;
+  return (n0 + (lane >> 4) * 8 + (lane & 7)) * ld + kk * 16 +
+         ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int bt_frag(int ld, int k0, int n2) {
+  const int lane = threadIdx.x & 31;
+  return (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + n2 * 16 +
+         (lane >> 4) * 8;
+}
+
+// The wide builds (D > 128: DK 12 and 16) keep q in shared memory and
+// read its A fragments at each k-step, since q in registers (64 a thread
+// at DK 16) beside the 16 x 256 float32 accumulator (128) and S (32)
+// would pass 255; one block an SM (169 KB of shared memory at DK 16).
 template <int DK>
-constexpr size_t mma_smem_bytes() {  // K and V, two stages each
-  return sizeof(bf16) * 4 * kRows * (16 * DK + 8);
+__host__ __device__ constexpr bool wide() { return DK > 8; }
+
+
+template <int DK>
+constexpr size_t mma_smem_bytes() {  // K and V, two stages each; wide: q
+  return sizeof(bf16) * (wide<DK>() ? 5 : 4) * kRows * (16 * DK + 8);
 }
 
 template <int DK>
-__global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
+__global__ void __launch_bounds__(kMmaThreads,
+                                  wide<DK>() ? 1 : kMmaBlocksPerSM)
     flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
                   float* __restrict__ lse, int L, int D, int causal, int tq,
-                  int tk, float scale_log2) {
+                  int tk, int window, float scale_log2) {
   constexpr int dd = 16 * DK, ld = dd + 8, tile = kKeys * ld;
+  // keys a softmax step: the narrow builds walk a tile in halves, so that
+  // S and P fit beside q's fragments under the 168-register cap
+  constexpr int kStep = wide<DK>() ? kKeys : kKeys / 2, NJ = kStep / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][kKeys][ld]
   bf16* Vs = Ks + 2 * tile;                       // [2][kKeys][ld]
-  bf16* Qs = Ks + tile;  // q's rows, in K's second stage until read
+  // q's rows: narrow, in K's second stage until read into registers
+  bf16* Qs = wide<DK>() ? Vs + 2 * tile : Ks + tile;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -323,23 +402,27 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
   const int row = q0 + warp * 16 + g;  // this thread's rows: row, row + 8
   const int lim_lo = key_limit(row, L, causal, tq, tk);
   const int lim_hi = key_limit(row + 8, L, causal, tq, tk);
-  // the key limit does not decrease with the row: the block's last row
-  // has the largest
+  const int lo_lo = key_lower(row, window, tq, tk);
+  const int lo_hi = key_lower(row + 8, window, tq, tk);
+  // neither key limit decreases with the row: the block's last row has
+  // the largest upper one, its first row the smallest lower one
   const int kend = key_limit(min(q0 + kRows, L) - 1, L, causal, tq, tk);
-  const int n_tiles = (kend + kKeys - 1) / kKeys;
+  const int kbeg = key_lower(q0, window, tq, tk) / kKeys * kKeys;
+  const int n_tiles = (kend - kbeg + kKeys - 1) / kKeys;
 
   load_rows<DK>(Qs, q + base, q0, L, D);
-  load_rows<DK>(Ks, k + base, 0, L, D);
-  load_rows<DK>(Vs, v + base, 0, L, D);
+  load_rows<DK>(Ks, k + base, kbeg, L, D);
+  load_rows<DK>(Vs, v + base, kbeg, L, D);
   lm::cp_async_commit();
   lm::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[DK][4];
+  uint32_t qf[wide<DK>() ? 1 : DK][4];
+  if constexpr (!wide<DK>()) {
 #pragma unroll
-  for (int kk = 0; kk < DK; ++kk)
-    lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + (warp * 16 + (lane & 15)) * ld +
-                                         kk * 16 + (lane >> 4) * 8));
-  __syncthreads();  // Qs is K's second stage from here on
+    for (int kk = 0; kk < DK; ++kk)
+      lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
+    __syncthreads();  // Qs is K's second stage from here on
+  }
 
   float acc[2 * DK][4];
 #pragma unroll
@@ -349,10 +432,10 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1;
+    const int st = it & 1, k0 = kbeg + it * kKeys;
     if (it + 1 < n_tiles) {
-      load_rows<DK>(Ks + (st ^ 1) * tile, k + base, (it + 1) * kKeys, L, D);
-      load_rows<DK>(Vs + (st ^ 1) * tile, v + base, (it + 1) * kKeys, L, D);
+      load_rows<DK>(Ks + (st ^ 1) * tile, k + base, k0 + kKeys, L, D);
+      load_rows<DK>(Vs + (st ^ 1) * tile, v + base, k0 + kKeys, L, D);
     }
     lm::cp_async_commit();
     lm::cp_async_wait<1>();  // tile `it` has landed
@@ -360,89 +443,99 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
     const bf16* Kt = Ks + st * tile;
     const bf16* Vt = Vs + st * tile;
 
-    // S = q k^T over 8 n8 tiles of keys, unscaled, float32
-    float s[8][4];
+#pragma unroll 1
+    for (int kh = 0; kh < kKeys; kh += kStep) {
+      const int kb = k0 + kh;
+      // S = q k^T over NJ n8 tiles of keys, unscaled, float32
+      float s[NJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk)
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t a[4];
+        if constexpr (wide<DK>()) {
+          lm::ldmatrix_x4(a, lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
+        } else {
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        lm::ldmatrix_x4(b, lm::smem_u32(
-                               Kt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * ld +
-                               kk * 16 + ((lane >> 3) & 1) * 8));
-        lm::mma_bf16_16816(s[2 * np], qf[kk], b[0], b[1]);
-        lm::mma_bf16_16816(s[2 * np + 1], qf[kk], b[2], b[3]);
-      }
-
-    const int k0 = it * kKeys;
-    if (k0 + kKeys > lim_lo) {  // a key of this tile is past a row's limit
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + 8 * j + 2 * t4 + e;
-          if (key >= lim_lo) s[j][e] = -INFINITY;
-          if (key >= lim_hi) s[j][2 + e] = -INFINITY;
+          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
         }
-    }
-
-    // online softmax: rows g and g + 8 of the warp, over the quad
-    float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    // exponent bases; a row with no key yet (past L) keeps 0
-    const float b_lo = mx_lo == -INFINITY ? 0.f : mx_lo * scale_log2;
-    const float b_hi = mx_hi == -INFINITY ? 0.f : mx_hi * scale_log2;
-    const float c_lo = exp2f(m_lo * scale_log2 - b_lo);
-    const float c_hi = exp2f(m_hi * scale_log2 - b_hi);
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-    l_lo *= c_lo;
-    l_hi *= c_hi;
-#pragma unroll
-    for (int j = 0; j < 2 * DK; ++j) {
-      acc[j][0] *= c_lo;
-      acc[j][1] *= c_lo;
-      acc[j][2] *= c_hi;
-      acc[j][3] *= c_hi;
-    }
-    // P in float32 for the denominator, in bfloat16 as P v's A fragments
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = exp2f(fmaf(s[j][0], scale_log2, -b_lo));
-      const float p1 = exp2f(fmaf(s[j][1], scale_log2, -b_lo));
-      const float p2 = exp2f(fmaf(s[j][2], scale_log2, -b_hi));
-      const float p3 = exp2f(fmaf(s[j][3], scale_log2, -b_hi));
-      l_lo += p0 + p1;
-      l_hi += p2 + p3;
-      pa[j >> 1][2 * (j & 1)] = lm::pack_bf16x2(p0, p1);
-      pa[j >> 1][2 * (j & 1) + 1] = lm::pack_bf16x2(p2, p3);
-    }
-    // O += P v over 4 k16 steps of keys, 2 DK n8 tiles of D
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int dp = 0; dp < DK; ++dp) {
-        uint32_t b[4];
-        lm::ldmatrix_x4_trans(
-            b, lm::smem_u32(Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld +
-                            dp * 16 + (lane >> 4) * 8));
-        lm::mma_bf16_16816(acc[2 * dp], pa[kk], b[0], b[1]);
-        lm::mma_bf16_16816(acc[2 * dp + 1], pa[kk], b[2], b[3]);
+        for (int np = 0; np < NJ / 2; ++np) {
+          uint32_t b[4];
+          lm::ldmatrix_x4(b, lm::smem_u32(Kt + b_frag(ld, kh + np * 16, kk)));
+          lm::mma_bf16_16816(s[2 * np], a, b[0], b[1]);
+          lm::mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
+        }
       }
+
+      // a key of this step is past a row's upper limit or below its lower
+      if (kb + kStep > lim_lo || kb < lo_hi) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = kb + 8 * j + 2 * t4 + e;
+            if (key >= lim_lo || key < lo_lo) s[j][e] = -INFINITY;
+            if (key >= lim_hi || key < lo_hi) s[j][2 + e] = -INFINITY;
+          }
+      }
+
+      // online softmax: rows g and g + 8 of the warp, over the quad
+      float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      // exponent bases; a row with no key yet (past L) keeps 0
+      const float b_lo = mx_lo == -INFINITY ? 0.f : mx_lo * scale_log2;
+      const float b_hi = mx_hi == -INFINITY ? 0.f : mx_hi * scale_log2;
+      const float c_lo = exp2f(m_lo * scale_log2 - b_lo);
+      const float c_hi = exp2f(m_hi * scale_log2 - b_hi);
+      m_lo = mx_lo;
+      m_hi = mx_hi;
+      l_lo *= c_lo;
+      l_hi *= c_hi;
+#pragma unroll
+      for (int j = 0; j < 2 * DK; ++j) {
+        acc[j][0] *= c_lo;
+        acc[j][1] *= c_lo;
+        acc[j][2] *= c_hi;
+        acc[j][3] *= c_hi;
+      }
+      // O += P v over NJ / 2 k16 steps of keys, 2 DK n8 tiles of D; P in
+      // float32 for the denominator, in bfloat16 as the step's A fragment
+#pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk) {
+        uint32_t pa[4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * kk + jj;
+          const float p0 = exp2f(fmaf(s[j][0], scale_log2, -b_lo));
+          const float p1 = exp2f(fmaf(s[j][1], scale_log2, -b_lo));
+          const float p2 = exp2f(fmaf(s[j][2], scale_log2, -b_hi));
+          const float p3 = exp2f(fmaf(s[j][3], scale_log2, -b_hi));
+          l_lo += p0 + p1;
+          l_hi += p2 + p3;
+          pa[2 * jj] = lm::pack_bf16x2(p0, p1);
+          pa[2 * jj + 1] = lm::pack_bf16x2(p2, p3);
+        }
+#pragma unroll
+        for (int dp = 0; dp < DK; ++dp) {
+          uint32_t b[4];
+          lm::ldmatrix_x4_trans(b, lm::smem_u32(Vt + bt_frag(ld, kh + kk * 16, dp)));
+          lm::mma_bf16_16816(acc[2 * dp], pa, b[0], b[1]);
+          lm::mma_bf16_16816(acc[2 * dp + 1], pa, b[2], b[3]);
+        }
+      }
+    }
     __syncthreads();  // stage `st` is refilled next
   }
 
@@ -484,7 +577,7 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
 template <int DK>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int L, int D, int causal, int tq, int tk,
-               float scale, cudaStream_t stream) {
+               int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<DK>();
   cudaError_t e = lm::allow_smem(flash_fwd_mma<DK>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -492,39 +585,58 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   flash_fwd_mma<DK><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, L, D, causal,
-      tq, tk, scale * 1.4426950408889634f);
+      tq, tk, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
+// D padded up with zero columns to 16 DK: every multiple of 16 to 128,
+// then 192 and 256 only (fewer instantiations, shorter builds)
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int L, int D, int causal, int tq, int tk,
-                float scale, cudaStream_t s) {
+                int window, float scale, cudaStream_t s) {
+#define FWD_MMA(DK)                                                        \
+  return launch_mma<DK>(q, k, v, o, lse, bh, L, D, causal, tq, tk, window, \
+                        scale, s)
   switch ((D + 15) / 16) {
-    case 1: return launch_mma<1>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
-    case 2: return launch_mma<2>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
-    case 3: return launch_mma<3>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
-    case 4: return launch_mma<4>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
-    case 5: return launch_mma<5>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
-    case 6: return launch_mma<6>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
-    case 7: return launch_mma<7>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
-    default: return launch_mma<8>(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
+    case 1: FWD_MMA(1);
+    case 2: FWD_MMA(2);
+    case 3: FWD_MMA(3);
+    case 4: FWD_MMA(4);
+    case 5: FWD_MMA(5);
+    case 6: FWD_MMA(6);
+    case 7: FWD_MMA(7);
+    case 8: FWD_MMA(8);
+    case 9: case 10: case 11: case 12: FWD_MMA(12);
+    default: FWD_MMA(16);
   }
+#undef FWD_MMA
 }
 
 // ---------------------------------------------------------------- f32
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int bh, int L, int D, int causal, int tq, int tk,
-               float scale, cudaStream_t stream) {
+template <int CM>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int bh, int L, int D, int causal, int tq,
+                   int tk, int window, float scale, cudaStream_t stream) {
   const int dd = (D + 15) / 16 * 16;
-  const size_t smem = smem_bytes(dd);
-  cudaError_t e = lm::allow_smem(flash_fwd<float>, smem);
+  const size_t smem = smem_bytes(dd);  // 214 KB at D = 256
+  cudaError_t e = lm::allow_smem(flash_fwd<float, CM>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(bh, (L + kRows - 1) / kRows);
-  flash_fwd<float><<<grid, lm::kThreads, smem, stream>>>(
+  flash_fwd<float, CM><<<grid, lm::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, L, D, dd,
-      causal, tq, tk, scale);
+      causal, tq, tk, window, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int L, int D, int causal, int tq, int tk,
+               int window, float scale, cudaStream_t s) {
+  if (D <= 128)
+    return launch_fwd_f32<8>(q, k, v, o, lse, bh, L, D, causal, tq, tk,
+                             window, scale, s);
+  return launch_fwd_f32<16>(q, k, v, o, lse, bh, L, D, causal, tq, tk,
+                            window, scale, s);
 }
 
 // ---------------------------------------------------------------- backward
@@ -558,38 +670,53 @@ __device__ __forceinline__ void mm_strided(float (&acc)[RM][CM],
   }
 }
 
-// rows [r0, r0 + 64) of a (L, D) matrix into a float32 [64][dd + 1] tile,
-// zeros past L and D
+constexpr int kChunk = 128;       // D columns a float32 tile holds
+
+// rows [r0, r0 + 64) and columns [c0, c0 + wc) of a (L, D) matrix into a
+// float32 [64][ld] tile, zeros past L and D
 template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int L, int D, int dd) {
-  for (int idx = threadIdx.x; idx < kTile * dd; idx += lm::kThreads) {
-    const int r = idx / dd, d = idx % dd;
-    dst[r * (dd + 1) + d] =
-        r0 + r < L && d < D
-            ? lm::to_f32(src[static_cast<size_t>(r0 + r) * D + d])
+__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+                                          int r0, int L, int D, int c0,
+                                          int wc) {
+  for (int idx = threadIdx.x; idx < kTile * wc; idx += lm::kThreads) {
+    const int r = idx / wc, d = idx % wc;
+    dst[r * ld + d] =
+        r0 + r < L && c0 + d < D
+            ? lm::to_f32(src[static_cast<size_t>(r0 + r) * D + c0 + d])
             : 0.f;
   }
 }
 
-size_t bwd_smem_bytes(int dd, int score_tiles) {
-  return sizeof(float) * (4 * static_cast<size_t>(kTile) * (dd + 1) +
+// four [64][dc + 1] operand tiles, the score tiles, lse, D and the key
+// limits (dc = min(dd, kChunk): 166 KB for the dK/dV pass at D >= 128)
+size_t bwd_smem_bytes(int dc, int score_tiles) {
+  return sizeof(float) * (4 * static_cast<size_t>(kTile) * (dc + 1) +
                           static_cast<size_t>(score_tiles) * kTile * kPad +
                           2 * kTile) +
-         sizeof(int) * kTile;
+         sizeof(int) * 2 * kTile;
 }
 
-// dQ of 64 query rows: walks the KV tiles below the block's largest key
-// limit; also writes D = rowsum(dO o) of its rows for flash_bwd_dkdv.
+// Past D = 128 the operand tiles of a float32 backward block do not fit
+// in shared memory whole, so both passes walk D in chunks of kChunk
+// columns: the scores S and dP sum over every chunk, in the column order
+// of a single walk (the same float32 sums), and block z of the grid's
+// third dimension forms only the output columns of chunk z (recomputing
+// S and dP, which every chunk needs). With D <= 128 there is one chunk,
+// loaded once.
+
+// dQ of 64 query rows (the columns of chunk blockIdx.z): walks the KV
+// tiles between the block's smallest lower and largest upper key limit;
+// block z = 0 also writes D = rowsum(dO o) of its rows for flash_bwd_dkdv.
 template <typename T>
 __global__ void __launch_bounds__(lm::kThreads)
     flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ o,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  T* __restrict__ dq, float* __restrict__ dsum, int L, int D,
-                 int dd, int causal, int tq, int tk, float scale) {
+                 int dd, int causal, int tq, int tk, int window,
+                 float scale) {
   extern __shared__ __align__(16) float sm[];
-  const int ld = dd + 1;
+  const int dc = min(dd, kChunk), ld = dc + 1, nch = (dd + dc - 1) / dc;
   float* Qs = sm;               // [kTile][ld]
   float* dOs = Qs + kTile * ld;
   float* Ks = dOs + kTile * ld;
@@ -598,15 +725,19 @@ __global__ void __launch_bounds__(lm::kThreads)
   float* lse_s = Ss + kTile * kPad;
   float* D_s = lse_s + kTile;
   int* klim = reinterpret_cast<int*>(D_s + kTile);
+  int* klo = klim + kTile;
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x, z = blockIdx.z;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const size_t base = static_cast<size_t>(bh) * L * D;
   const size_t row0 = static_cast<size_t>(bh) * L;
+  auto width = [&](int c) { return min(dd - c * dc, dc); };
 
-  load_tile(Qs, q + base, q0, L, D, dd);
-  load_tile(dOs, dout + base, q0, L, D, dd);
+  if (nch == 1) {
+    load_tile(Qs, ld, q + base, q0, L, D, 0, dc);
+    load_tile(dOs, ld, dout + base, q0, L, D, 0, dc);
+  }
   {  // D = rowsum(dO o), four threads a row
     const int r = tid >> 2, part = tid & 3, qp = q0 + r;
     float acc = 0.f;
@@ -619,17 +750,19 @@ __global__ void __launch_bounds__(lm::kThreads)
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     if (part == 0) {
       D_s[r] = acc;
-      if (qp < L) dsum[row0 + qp] = acc;
+      if (qp < L && z == 0) dsum[row0 + qp] = acc;
     }
   }
   if (tid < kTile) {
     const int qp = q0 + tid;
     klim[tid] = key_limit(qp, L, causal, tq, tk);
+    klo[tid] = key_lower(qp, window, tq, tk);
     lse_s[tid] = qp < L ? lse[row0 + qp] : 0.f;
   }
   __syncthreads();
   const int kend = klim[min(kTile, L - q0) - 1];
-  const int cm = dd / 16;
+  const int kbeg = klo[0] / kTile * kTile;
+  const int cm = width(z) / 16;
 
   float acc[4][8];
 #pragma unroll
@@ -637,27 +770,40 @@ __global__ void __launch_bounds__(lm::kThreads)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    load_tile(Ks, k + base, k0, L, D, dd);
-    load_tile(Vs, v + base, k0, L, D, dd);
-    __syncthreads();
+  for (int k0 = kbeg; k0 < kend; k0 += kTile) {
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    mm_strided<4, 4>(s, Qs, ld, 1, Ks, 1, ld, dd, 4, ty, tx);   // q k^T
-    mm_strided<4, 4>(dp, dOs, ld, 1, Vs, 1, ld, dd, 4, ty, tx); // dO v^T
+    for (int c = 0; c < nch; ++c) {
+      const int wc = width(c);
+      if (nch > 1) {
+        load_tile(Qs, ld, q + base, q0, L, D, c * dc, wc);
+        load_tile(dOs, ld, dout + base, q0, L, D, c * dc, wc);
+      }
+      load_tile(Ks, ld, k + base, k0, L, D, c * dc, wc);
+      load_tile(Vs, ld, v + base, k0, L, D, c * dc, wc);
+      __syncthreads();
+      mm_strided<4, 4>(s, Qs, ld, 1, Ks, 1, ld, wc, 4, ty, tx);   // q k^T
+      mm_strided<4, 4>(dp, dOs, ld, 1, Vs, 1, ld, wc, 4, ty, tx); // dO v^T
+      if (c + 1 < nch) __syncthreads();  // the chunk's tiles are refilled
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        const float p =
-            k0 + c < klim[r] ? expf(fmaf(s[i][j], scale, -lse_s[r])) : 0.f;
+        const float p = k0 + c < klim[r] && k0 + c >= klo[r]
+                            ? expf(fmaf(s[i][j], scale, -lse_s[r]))
+                            : 0.f;
         Ss[r * kPad + c] = p * (dp[i][j] - D_s[r]);
       }
     __syncthreads();
+    if (z != nch - 1) {  // Ks holds the last chunk: reload chunk z
+      load_tile(Ks, ld, k + base, k0, L, D, z * dc, width(z));
+      __syncthreads();
+    }
     mm_strided<4, 8>(acc, Ss, kPad, 1, Ks, ld, 1, kTile, cm, ty, tx);
     __syncthreads();  // Ks, Vs and Ss are refilled next
   }
@@ -668,7 +814,7 @@ __global__ void __launch_bounds__(lm::kThreads)
     if (q0 + r >= L) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int d = tx + 16 * j;
+      const int d = z * dc + tx + 16 * j;
       if (j < cm && d < D)
         dq[base + static_cast<size_t>(q0 + r) * D + d] =
             lm::from_f32<T>(acc[i][j] * scale);
@@ -676,9 +822,11 @@ __global__ void __launch_bounds__(lm::kThreads)
   }
 }
 
-// dK and dV of 64 keys: walks exactly the query tiles some row of which
-// reads one of these keys (the key limit does not decrease with the row,
-// so a tile whose last row's limit is at most k0 reads none of them).
+// dK and dV of 64 keys (the columns of chunk blockIdx.z): walks exactly
+// the query tiles some row of which reads one of these keys (neither key
+// limit decreases with the row, so the tiles from the first whose last
+// row's upper limit passes k0 to the last whose first row's lower limit
+// is below k0 + 64).
 template <typename T>
 __global__ void __launch_bounds__(lm::kThreads)
     flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
@@ -686,9 +834,9 @@ __global__ void __launch_bounds__(lm::kThreads)
                    const float* __restrict__ lse,
                    const float* __restrict__ dsum, T* __restrict__ dk,
                    T* __restrict__ dv, int L, int D, int dd, int causal,
-                   int tq, int tk, float scale) {
+                   int tq, int tk, int window, float scale) {
   extern __shared__ __align__(16) float sm[];
-  const int ld = dd + 1;
+  const int dc = min(dd, kChunk), ld = dc + 1, nch = (dd + dc - 1) / dc;
   float* Ks = sm;               // [kTile][ld]: this block's keys
   float* Vs = Ks + kTile * ld;
   float* Qs = Vs + kTile * ld;  // a query tile
@@ -698,15 +846,27 @@ __global__ void __launch_bounds__(lm::kThreads)
   float* lse_s = Ss + kTile * kPad;
   float* D_s = lse_s + kTile;
   int* klim = reinterpret_cast<int*>(D_s + kTile);
+  int* klo = klim + kTile;
 
-  const int bh = blockIdx.x, k0 = blockIdx.y * kTile;
+  const int bh = blockIdx.x, k0 = blockIdx.y * kTile, z = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const size_t base = static_cast<size_t>(bh) * L * D;
   const size_t row0 = static_cast<size_t>(bh) * L;
-  const int cm = dd / 16;
+  auto width = [&](int c) { return min(dd - c * dc, dc); };
+  const int cm = width(z) / 16;
 
-  load_tile(Ks, k + base, k0, L, D, dd);
-  load_tile(Vs, v + base, k0, L, D, dd);
+  if (nch == 1) {
+    load_tile(Ks, ld, k + base, k0, L, D, 0, dc);
+    load_tile(Vs, ld, v + base, k0, L, D, 0, dc);
+  }
+  const int n_qt = (L + kTile - 1) / kTile;
+  int first = 0, last = n_qt - 1;
+  while (first < n_qt &&
+         key_limit(min((first + 1) * kTile, L) - 1, L, causal, tq, tk) <= k0)
+    ++first;
+  while (last >= first &&
+         key_lower(last * kTile, window, tq, tk) >= k0 + kTile)
+    --last;
 
   float acc_k[4][8], acc_v[4][8];
 #pragma unroll
@@ -714,35 +874,50 @@ __global__ void __launch_bounds__(lm::kThreads)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
-  for (int i0 = 0; i0 < L; i0 += kTile) {
-    if (key_limit(min(i0 + kTile, L) - 1, L, causal, tq, tk) <= k0) continue;
-    load_tile(Qs, q + base, i0, L, D, dd);
-    load_tile(dOs, dout + base, i0, L, D, dd);
+  for (int t = first; t <= last; ++t) {
+    const int i0 = t * kTile;
     if (tid < kTile) {
       const int qp = i0 + tid;
       klim[tid] = key_limit(qp, L, causal, tq, tk);
+      klo[tid] = key_lower(qp, window, tq, tk);
       lse_s[tid] = qp < L ? lse[row0 + qp] : 0.f;
       D_s[tid] = qp < L ? dsum[row0 + qp] : 0.f;
     }
-    __syncthreads();
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
-    mm_strided<4, 4>(s, Ks, ld, 1, Qs, 1, ld, dd, 4, ty, tx);   // k q^T
-    mm_strided<4, 4>(dp, Vs, ld, 1, dOs, 1, ld, dd, 4, ty, tx); // v dO^T
+    for (int c = 0; c < nch; ++c) {
+      const int wc = width(c);
+      if (nch > 1) {
+        load_tile(Ks, ld, k + base, k0, L, D, c * dc, wc);
+        load_tile(Vs, ld, v + base, k0, L, D, c * dc, wc);
+      }
+      load_tile(Qs, ld, q + base, i0, L, D, c * dc, wc);
+      load_tile(dOs, ld, dout + base, i0, L, D, c * dc, wc);
+      __syncthreads();
+      mm_strided<4, 4>(s, Ks, ld, 1, Qs, 1, ld, wc, 4, ty, tx);   // k q^T
+      mm_strided<4, 4>(dp, Vs, ld, 1, dOs, 1, ld, wc, 4, ty, tx); // v dO^T
+      if (c + 1 < nch) __syncthreads();  // the chunk's tiles are refilled
+    }
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         const int j = ty + 16 * a, i = tx + 16 * b;
-        const float p =
-            k0 + j < klim[i] ? expf(fmaf(s[a][b], scale, -lse_s[i])) : 0.f;
+        const float p = k0 + j < klim[i] && k0 + j >= klo[i]
+                            ? expf(fmaf(s[a][b], scale, -lse_s[i]))
+                            : 0.f;
         Ps[j * kPad + i] = p;
         Ss[j * kPad + i] = p * (dp[a][b] - D_s[i]);
       }
     __syncthreads();
+    if (z != nch - 1) {  // Qs, dOs hold the last chunk: reload chunk z
+      load_tile(Qs, ld, q + base, i0, L, D, z * dc, width(z));
+      load_tile(dOs, ld, dout + base, i0, L, D, z * dc, width(z));
+      __syncthreads();
+    }
     mm_strided<4, 8>(acc_v, Ps, kPad, 1, dOs, ld, 1, kTile, cm, ty, tx);
     mm_strided<4, 8>(acc_k, Ss, kPad, 1, Qs, ld, 1, kTile, cm, ty, tx);
     __syncthreads();  // the query tile and the score tiles are refilled next
@@ -754,7 +929,7 @@ __global__ void __launch_bounds__(lm::kThreads)
     if (k0 + j >= L) continue;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      const int d = tx + 16 * c;
+      const int d = z * dc + tx + 16 * c;
       if (c < cm && d < D) {
         const size_t off = base + static_cast<size_t>(k0 + j) * D + d;
         dk[off] = lm::from_f32<T>(acc_k[a][c] * scale);
@@ -768,26 +943,27 @@ template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, void* dq, void* dk,
                void* dv, float* dsum, int bh, int L, int D, int causal,
-               int tq, int tk, float scale, cudaStream_t stream) {
-  const int dd = (D + 15) / 16 * 16;
-  const size_t smem_dq = bwd_smem_bytes(dd, 1);
-  const size_t smem_dkdv = bwd_smem_bytes(dd, 2);
+               int tq, int tk, int window, float scale,
+               cudaStream_t stream) {
+  const int dd = (D + 15) / 16 * 16, dc = dd < kChunk ? dd : kChunk;
+  const size_t smem_dq = bwd_smem_bytes(dc, 1);
+  const size_t smem_dkdv = bwd_smem_bytes(dc, 2);
   cudaError_t e = lm::allow_smem(flash_bwd_dq<T>, smem_dq);
   if (e == cudaSuccess) e = lm::allow_smem(flash_bwd_dkdv<T>, smem_dkdv);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(bh, (L + kTile - 1) / kTile);
+  const dim3 grid(bh, (L + kTile - 1) / kTile, (dd + dc - 1) / dc);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
   flash_bwd_dq<T><<<grid, lm::kThreads, smem_dq, stream>>>(
       qt, kt, vt, static_cast<const T*>(o), dot, lse, static_cast<T*>(dq),
-      dsum, L, D, dd, causal, tq, tk, scale);
+      dsum, L, D, dd, causal, tq, tk, window, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_bwd_dkdv<T><<<grid, lm::kThreads, smem_dkdv, stream>>>(
       qt, kt, vt, dot, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
-      L, D, dd, causal, tq, tk, scale);
+      L, D, dd, causal, tq, tk, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -805,14 +981,14 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
 }
 
 // acc (16 x 16 DK over the warp, float32, scaled) into rows r, r + 8 and
-// columns 8 j + 2 t of a (L, D) bfloat16 matrix, nothing past L or D
+// columns c0 + 8 j + 2 t of a (L, D) bfloat16 matrix, nothing past L or D
 template <int DK>
 __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[2 * DK][4],
                                            int r, int t4, int L, int D,
-                                           float scale) {
+                                           float scale, int c0 = 0) {
 #pragma unroll
   for (int j = 0; j < 2 * DK; ++j) {
-    const int d = 8 * j + 2 * t4;
+    const int d = c0 + 8 * j + 2 * t4;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int rr = r + 8 * h;
@@ -829,41 +1005,33 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[2 * DK]
   }
 }
 
-// A lane's ldmatrix_x4 address, in elements, in a bfloat16 tile of row
-// stride ld: the A fragment of rows r0.. r0 + 15 and columns 16 kk..; the
-// B fragments of two n8 tiles, rows n0.. n0 + 15, over columns 16 kk..;
-// and, with ldmatrix_x4_trans, the B fragments of two n8 tiles, columns
-// 16 n2.., over rows k0.. k0 + 15
-__device__ __forceinline__ int a_frag(int ld, int r0, int kk) {
-  const int lane = threadIdx.x & 31;
-  return (r0 + (lane & 15)) * ld + kk * 16 + (lane >> 4) * 8;
-}
-__device__ __forceinline__ int b_frag(int ld, int n0, int kk) {
-  const int lane = threadIdx.x & 31;
-  return (n0 + (lane >> 4) * 8 + (lane & 7)) * ld + kk * 16 +
-         ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ int bt_frag(int ld, int k0, int n2) {
-  const int lane = threadIdx.x & 31;
-  return (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + n2 * 16 +
-         (lane >> 4) * 8;
-}
-
 template <int DK>
 constexpr size_t bwd_mma_smem_bytes() {  // six [64][16 DK + 8] tiles
   return sizeof(bf16) * 6 * kRows * (16 * DK + 8) +
-         3 * 2 * kRows * sizeof(float);  // dkdv: lse, D, key limits x 2
+         4 * 2 * kRows * sizeof(float);  // dkdv: lse, D, 2 key limits x 2
 }
+
+// The wide builds (D > 128) take one block an SM (204 KB of shared memory
+// at DK 16). The dQ pass reads q's and dO's A fragments from shared memory
+// at each k-step (in registers they would take 128 a thread beside the
+// 16 x 256 float32 dQ sum); the dK/dV pass splits D: block z of the
+// grid's third dimension forms the 8 DK columns from 8 DK z of dK and dV
+// (both in registers would take 256 a thread), each recomputing S^T and
+// dP^T over the whole of D.
+template <int DK>
+__host__ __device__ constexpr int dkdv_split() { return wide<DK>() ? 2 : 1; }
 
 // dQ of 64 query rows, and D = rowsum(dO o) of them for the dK/dV pass.
 template <int DK>
-__global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
+__global__ void __launch_bounds__(kMmaThreads,
+                                  wide<DK>() ? 1 : kBwdBlocksPerSM)
     flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ o,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse, bf16* __restrict__ dq,
                      float* __restrict__ dsum, int L, int D, int causal,
-                     int tq, int tk, float scale_log2, float scale) {
+                     int tq, int tk, int window, float scale_log2,
+                     float scale) {
   constexpr int dd = 16 * DK, ld = dd + 8, tile = kKeys * ld;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][ld]
@@ -880,13 +1048,16 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
   const int row = q0 + warp * 16 + g;  // this thread's rows: row, row + 8
   const int lim_lo = key_limit(row, L, causal, tq, tk);
   const int lim_hi = key_limit(row + 8, L, causal, tq, tk);
+  const int lo_lo = key_lower(row, window, tq, tk);
+  const int lo_hi = key_lower(row + 8, window, tq, tk);
   const int kend = key_limit(min(q0 + kRows, L) - 1, L, causal, tq, tk);
-  const int n_tiles = (kend + kKeys - 1) / kKeys;
+  const int kbeg = key_lower(q0, window, tq, tk) / kKeys * kKeys;
+  const int n_tiles = (kend - kbeg + kKeys - 1) / kKeys;
 
   load_rows<DK>(Qs, q + base, q0, L, D);
   load_rows<DK>(dOs, dout + base, q0, L, D);
-  load_rows<DK>(Ks, k + base, 0, L, D);
-  load_rows<DK>(Vs, v + base, 0, L, D);
+  load_rows<DK>(Ks, k + base, kbeg, L, D);
+  load_rows<DK>(Vs, v + base, kbeg, L, D);
   load_rows<DK>(Vs + tile, o + base, q0, L, D);  // V's second stage, for now
   lm::cp_async_commit();
   // lse of a row past L is undefined: its P is masked to 0 below
@@ -911,11 +1082,14 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
       if (qp < L) dsum[row0 + qp] = acc;
     }
   }
-  uint32_t qf[DK][4], df[DK][4];
+  constexpr int nf = wide<DK>() ? 1 : DK;
+  uint32_t qf[nf][4], df[nf][4];
+  if constexpr (!wide<DK>()) {
 #pragma unroll
-  for (int kk = 0; kk < DK; ++kk) {
-    lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
-    lm::ldmatrix_x4(df[kk], lm::smem_u32(dOs + a_frag(ld, warp * 16, kk)));
+    for (int kk = 0; kk < DK; ++kk) {
+      lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
+      lm::ldmatrix_x4(df[kk], lm::smem_u32(dOs + a_frag(ld, warp * 16, kk)));
+    }
   }
   __syncthreads();  // V's second stage is refilled next
   const float D_lo = Ds[warp * 16 + g], D_hi = Ds[warp * 16 + g + 8];
@@ -927,10 +1101,10 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1;
+    const int st = it & 1, kt0 = kbeg + it * kKeys;
     if (it + 1 < n_tiles) {
-      load_rows<DK>(Ks + (st ^ 1) * tile, k + base, (it + 1) * kKeys, L, D);
-      load_rows<DK>(Vs + (st ^ 1) * tile, v + base, (it + 1) * kKeys, L, D);
+      load_rows<DK>(Ks + (st ^ 1) * tile, k + base, kt0 + kKeys, L, D);
+      load_rows<DK>(Vs + (st ^ 1) * tile, v + base, kt0 + kKeys, L, D);
     }
     lm::cp_async_commit();
     lm::cp_async_wait<1>();  // tile `it` has landed
@@ -949,27 +1123,43 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < DK; ++kk)
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t a[4];
+        if constexpr (wide<DK>()) {
+          lm::ldmatrix_x4(a, lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+        }
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           uint32_t b[4];
           lm::ldmatrix_x4(b, lm::smem_u32(Kt + b_frag(ld, kh + np * 16, kk)));
-          lm::mma_bf16_16816(s[2 * np], qf[kk], b[0], b[1]);
-          lm::mma_bf16_16816(s[2 * np + 1], qf[kk], b[2], b[3]);
+          lm::mma_bf16_16816(s[2 * np], a, b[0], b[1]);
+          lm::mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
         }
+      }
 #pragma unroll
-      for (int kk = 0; kk < DK; ++kk)
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t a[4];
+        if constexpr (wide<DK>()) {
+          lm::ldmatrix_x4(a, lm::smem_u32(dOs + a_frag(ld, warp * 16, kk)));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = df[kk][e];
+        }
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           uint32_t b[4];
           lm::ldmatrix_x4(b, lm::smem_u32(Vt + b_frag(ld, kh + np * 16, kk)));
-          lm::mma_bf16_16816(dp[2 * np], df[kk], b[0], b[1]);
-          lm::mma_bf16_16816(dp[2 * np + 1], df[kk], b[2], b[3]);
+          lm::mma_bf16_16816(dp[2 * np], a, b[0], b[1]);
+          lm::mma_bf16_16816(dp[2 * np + 1], a, b[2], b[3]);
         }
-      // P in float32, masked past each row's key limit (and past L); dS
-      // rounded to bfloat16 as the A fragments of dS k
-      const int k0 = it * kKeys + kh;
-      const bool cross = k0 + 32 > lim_lo;
+      }
+      // P in float32, masked outside each row's key limits (and past L);
+      // dS rounded to bfloat16 as the A fragments of dS k
+      const int k0 = kt0 + kh;
+      const bool cross = k0 + 32 > lim_lo || k0 < lo_hi;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -978,8 +1168,8 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
           s[j][2 + e] = exp2f(fmaf(s[j][2 + e], scale_log2, -ls_hi));
           if (cross) {
             const int key = k0 + 8 * j + 2 * t4 + e;
-            if (key >= lim_lo) s[j][e] = 0.f;
-            if (key >= lim_hi) s[j][2 + e] = 0.f;
+            if (key >= lim_lo || key < lo_lo) s[j][e] = 0.f;
+            if (key >= lim_hi || key < lo_hi) s[j][2 + e] = 0.f;
           }
         }
       uint32_t da[2][4];
@@ -1010,19 +1200,24 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
   store_rows<DK>(dq + base, acc, row, t4, L, D, scale);
 }
 
-// dK and dV of 64 keys: walks exactly the query tiles some row of which
-// reads one of these keys (the key limit does not decrease with the row,
-// so the tiles from the first whose last row's limit passes k0 on).
+// dK and dV of 64 keys (wide: half of their columns): walks exactly the
+// query tiles some row of which reads one of these keys (neither key
+// limit decreases with the row, so the tiles from the first whose last
+// row's upper limit passes k0 to the last whose first row's lower limit
+// is below k0 + 64).
 template <int DK>
-__global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
+__global__ void __launch_bounds__(kMmaThreads,
+                                  wide<DK>() ? 1 : kBwdBlocksPerSM)
     flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
                        const bf16* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ dsum, bf16* __restrict__ dk,
                        bf16* __restrict__ dv, int L, int D, int causal, int tq,
-                       int tk, float scale_log2, float scale) {
+                       int tk, int window, float scale_log2, float scale) {
   constexpr int dd = 16 * DK, ld = dd + 8, tile = kRows * ld;
+  constexpr int DO = DK / dkdv_split<DK>();  // k16 steps of output columns
+  const int dz = blockIdx.z * DO;             // the first of them
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kKeys][ld]: the block's
   bf16* Vs = Ks + tile;                           // keys and values
@@ -1031,6 +1226,7 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
   float* lse_s = reinterpret_cast<float*>(dOs + 2 * tile);  // [2][kRows]
   float* D_s = lse_s + 2 * kRows;                           // [2][kRows]
   int* klim_s = reinterpret_cast<int*>(D_s + 2 * kRows);    // [2][kRows]
+  int* klo_s = klim_s + 2 * kRows;                          // [2][kRows]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -1039,11 +1235,14 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
   const size_t row0 = static_cast<size_t>(blockIdx.x) * L;
   const int key = k0 + warp * 16 + g;  // this thread's keys: key, key + 8
   const int n_qt = (L + kRows - 1) / kRows;
-  int first = 0;
+  int first = 0, last = n_qt - 1;
   while (first < n_qt &&
          key_limit(min((first + 1) * kRows, L) - 1, L, causal, tq, tk) <= k0)
     ++first;
-  const int n_tiles = n_qt - first;
+  while (last >= first &&
+         key_lower(last * kRows, window, tq, tk) >= k0 + kKeys)
+    --last;
+  const int n_tiles = last - first + 1;
 
   // query tile i0's rows, lse, D and key limits into stage st
   auto load_queries = [&](int i0, int st) {
@@ -1058,15 +1257,17 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
       cp_async4(lm::smem_u32(D_s + st * kRows + i), dsum + off, ok);
     if (threadIdx.x < kRows)
       klim_s[st * kRows + i] = key_limit(qp, L, causal, tq, tk);
+    else
+      klo_s[st * kRows + i] = key_lower(qp, window, tq, tk);
   };
   load_rows<DK>(Ks, k + base, k0, L, D);
   load_rows<DK>(Vs, v + base, k0, L, D);
   if (n_tiles > 0) load_queries(first * kRows, 0);
   lm::cp_async_commit();
 
-  float acc_k[2 * DK][4], acc_v[2 * DK][4];
+  float acc_k[2 * DO][4], acc_v[2 * DO][4];
 #pragma unroll
-  for (int j = 0; j < 2 * DK; ++j)
+  for (int j = 0; j < 2 * DO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
 
@@ -1081,10 +1282,12 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
     const float* lse_t = lse_s + st * kRows;
     const float* D_t = D_s + st * kRows;
     const int* klim_t = klim_s + st * kRows;
-    // a row of this tile stops short of this block's last key, or lies
-    // past L
-    const bool cross = i0 + kRows > L ||
-                       key_limit(i0, L, causal, tq, tk) < k0 + kKeys;
+    const int* klo_t = klo_s + st * kRows;
+    // a row of this tile stops short of this block's last key, starts
+    // past its first, or lies past L
+    const bool cross =
+        i0 + kRows > L || key_limit(i0, L, causal, tq, tk) < k0 + kKeys ||
+        key_lower(i0 + kRows - 1, window, tq, tk) > k0;
 
 #pragma unroll 1
     for (int h = 0; h < 2; ++h) {  // 32 queries at a time
@@ -1132,9 +1335,9 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
           s[j][e] = exp2f(fmaf(s[j][e], scale_log2, -ls));
           s[j][2 + e] = exp2f(fmaf(s[j][2 + e], scale_log2, -ls));
           if (cross) {
-            const int lim = klim_t[qi + e];
-            if (key >= lim) s[j][e] = 0.f;
-            if (key + 8 >= lim) s[j][2 + e] = 0.f;
+            const int lim = klim_t[qi + e], lo = klo_t[qi + e];
+            if (key >= lim || key < lo) s[j][e] = 0.f;
+            if (key + 8 >= lim || key + 8 < lo) s[j][2 + e] = 0.f;
           }
         }
         pa[j >> 1][2 * (j & 1)] = lm::pack_bf16x2(s[j][0], s[j][1]);
@@ -1144,9 +1347,10 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-        for (int dp2 = 0; dp2 < DK; ++dp2) {
+        for (int dp2 = 0; dp2 < DO; ++dp2) {
           uint32_t b[4];
-          lm::ldmatrix_x4_trans(b, lm::smem_u32(dOt + bt_frag(ld, qh + kk * 16, dp2)));
+          lm::ldmatrix_x4_trans(
+              b, lm::smem_u32(dOt + bt_frag(ld, qh + kk * 16, dz + dp2)));
           lm::mma_bf16_16816(acc_v[2 * dp2], pa[kk], b[0], b[1]);
           lm::mma_bf16_16816(acc_v[2 * dp2 + 1], pa[kk], b[2], b[3]);
         }
@@ -1169,30 +1373,32 @@ __global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-        for (int dp2 = 0; dp2 < DK; ++dp2) {
+        for (int dp2 = 0; dp2 < DO; ++dp2) {
           uint32_t b[4];
-          lm::ldmatrix_x4_trans(b, lm::smem_u32(Qt + bt_frag(ld, qh + kk * 16, dp2)));
+          lm::ldmatrix_x4_trans(
+              b, lm::smem_u32(Qt + bt_frag(ld, qh + kk * 16, dz + dp2)));
           lm::mma_bf16_16816(acc_k[2 * dp2], da[kk], b[0], b[1]);
           lm::mma_bf16_16816(acc_k[2 * dp2 + 1], da[kk], b[2], b[3]);
         }
     }
     __syncthreads();  // stage `st` is refilled next
   }
-  store_rows<DK>(dk + base, acc_k, key, t4, L, D, scale);
-  store_rows<DK>(dv + base, acc_v, key, t4, L, D, 1.f);
+  store_rows<DO>(dk + base, acc_k, key, t4, L, D, scale, 16 * dz);
+  store_rows<DO>(dv + base, acc_v, key, t4, L, D, 1.f, 16 * dz);
 }
 
 template <int DK>
 int launch_bwd_mma(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    void* dq, void* dk, void* dv, float* dsum, int bh, int L,
-                   int D, int causal, int tq, int tk, float scale,
-                   cudaStream_t stream) {
+                   int D, int causal, int tq, int tk, int window,
+                   float scale, cudaStream_t stream) {
   constexpr size_t smem = bwd_mma_smem_bytes<DK>();
   cudaError_t e = lm::allow_smem(flash_bwd_dq_mma<DK>, smem);
   if (e == cudaSuccess) e = lm::allow_smem(flash_bwd_dkdv_mma<DK>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(bh, (L + kRows - 1) / kRows);
+  const dim3 grid_kv(bh, (L + kRows - 1) / kRows, dkdv_split<DK>());
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
@@ -1200,23 +1406,25 @@ int launch_bwd_mma(const void* q, const void* k, const void* v,
   const float scale_log2 = scale * kLog2e;
   flash_bwd_dq_mma<DK><<<grid, kMmaThreads, smem, stream>>>(
       qb, kb, vb, static_cast<const bf16*>(o), dob, lse,
-      static_cast<bf16*>(dq), dsum, L, D, causal, tq, tk, scale_log2, scale);
+      static_cast<bf16*>(dq), dsum, L, D, causal, tq, tk, window, scale_log2,
+      scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkdv_mma<DK><<<grid, kMmaThreads, smem, stream>>>(
+  flash_bwd_dkdv_mma<DK><<<grid_kv, kMmaThreads, smem, stream>>>(
       qb, kb, vb, dob, lse, dsum, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), L, D, causal, tq, tk, scale_log2, scale);
+      static_cast<bf16*>(dv), L, D, causal, tq, tk, window, scale_log2,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     void* dq, void* dk, void* dv, float* dsum, int bh, int L,
-                    int D, int causal, int tq, int tk, float scale,
-                    cudaStream_t s) {
+                    int D, int causal, int tq, int tk, int window,
+                    float scale, cudaStream_t s) {
 #define BWD_MMA(DK)                                                         \
   return launch_bwd_mma<DK>(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, L, \
-                            D, causal, tq, tk, scale, s)
+                            D, causal, tq, tk, window, scale, s)
   switch ((D + 15) / 16) {
     case 1: BWD_MMA(1);
     case 2: BWD_MMA(2);
@@ -1225,32 +1433,41 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
     case 5: BWD_MMA(5);
     case 6: BWD_MMA(6);
     case 7: BWD_MMA(7);
-    default: BWD_MMA(8);
+    case 8: BWD_MMA(8);
+    case 9: case 10: case 11: case 12: BWD_MMA(12);
+    default: BWD_MMA(16);
   }
 #undef BWD_MMA
 }
 
-bool bad_shape(int bh, int L, int D, int tq, int tk) {
-  return bh < 1 || L < 1 || D < 1 || D > 128 || tq < 1 || tk < 1 ||
-         L % tq || L % tk || (L + kRows - 1) / kRows > 65535;
+// a window needs causal attention and tq == tk: the reference defines
+// the windowed function over one chunk size only
+bool bad_shape(int bh, int L, int D, int causal, int tq, int tk,
+               int window) {
+  return bh < 1 || L < 1 || D < 1 || D > 256 || tq < 1 || tk < 1 ||
+         L % tq || L % tk || (L + kRows - 1) / kRows > 65535 || window < 0 ||
+         (window > 0 && (!causal || tq != tk));
 }
 
 }  // namespace
 
 // q, k, v, o: (bh, L, D) contiguous, float32 (is_bf16 = 0) or bfloat16;
-// lse: (bh, L) float32, each row's log-sum-exp written when not null.
-// Needs 1 <= D <= 128, L % tq == 0, L % tk == 0, (L + 63) / 64 <= 65535.
+// lse: (bh, L) float32, each row's log-sum-exp written when not null;
+// window: 0, or the sliding window's width (causal, tq == tk). Needs
+// 1 <= D <= 256, L % tq == 0, L % tk == 0, (L + 63) / 64 <= 65535.
 extern "C" int flash_attention_launch(int is_bf16, const void* q,
                                       const void* k, const void* v, void* o,
                                       float* lse, int bh, int L, int D,
-                                      int causal, int tq, int tk,
+                                      int causal, int tq, int tk, int window,
                                       float scale, void* stream) {
-  if (bad_shape(bh, L, D, tq, tk))
+  if (bad_shape(bh, L, D, causal, tq, tk, window))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_bf16(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
-  return launch_f32(q, k, v, o, lse, bh, L, D, causal, tq, tk, scale, s);
+    return launch_bf16(q, k, v, o, lse, bh, L, D, causal, tq, tk, window,
+                       scale, s);
+  return launch_f32(q, k, v, o, lse, bh, L, D, causal, tq, tk, window, scale,
+                    s);
 }
 
 // The backward of flash_attention_launch at output o, its gradient dout
@@ -1261,13 +1478,13 @@ extern "C" int flash_attention_bwd_launch(
     int is_bf16, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, void* dq, void* dk, void* dv,
     float* dsum, int bh, int L, int D, int causal, int tq, int tk,
-    float scale, void* stream) {
-  if (bad_shape(bh, L, D, tq, tk))
+    int window, float scale, void* stream) {
+  if (bad_shape(bh, L, D, causal, tq, tk, window))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch_bwd_bf16(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, L, D,
-                           causal, tq, tk, scale, s);
+                           causal, tq, tk, window, scale, s);
   return launch_bwd<float>(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, L, D,
-                           causal, tq, tk, scale, s);
+                           causal, tq, tk, window, scale, s);
 }

@@ -8,6 +8,13 @@ online-softmax attention over heads flattened into the batch, q, k, v
 mask the TPU kernel reads, for query tile qi of tq rows, the KV tiles of
 tk keys below clamp((qi + 1) tq // tk, 1, L // tk), and inside them the
 keys kpos <= qpos: the kernels and the plain versions keep that bound.
+With a sliding `window` (causal, tq == tk) each query tile reads the KV
+tiles from max(qi - window // tk, 0) on, and inside them the keys with
+qpos - kpos < window: the reference's windowed `chunked_attention`,
+whose tile bound drops keys inside the window when window % tk > 1. The
+kernels take it as a lower key limit beside the upper one,
+max(qpos - window + 1, max(qpos // tq - window // tk, 0) tk), and skip
+the 64-key tiles below a block's rows. Head dims 1 to 256.
 The GQA grouping is done by `kernels/ops.py` before flattening. For
 bfloat16 the forward kernel multiplies on the tensor cores, with float32
 scores, softmax and accumulator, and rounds P to bfloat16 for the P v
@@ -54,12 +61,15 @@ F32 = torch.float32
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _kv_upper(qi: int, tq: int, tk: int, n_kv: int, causal: bool) -> int:
-    """The KV tiles query tile qi reads: the TPU kernel's bound."""
-    return min(max((qi + 1) * tq // tk, 1), n_kv) if causal else n_kv
+def _kv_tiles(qi: int, tq: int, tk: int, n_kv: int, causal: bool,
+              window: int) -> range:
+    """The KV tiles query tile qi reads: below the TPU kernel's bound,
+    and with a window from the reference's windowed chunk bound on."""
+    upper = min(max((qi + 1) * tq // tk, 1), n_kv) if causal else n_kv
+    return range(max(qi - window // tk, 0) if window else 0, upper)
 
 
-def _scores(qt, kt, qi, ki, tq, tk, causal):
+def _scores(qt, kt, qi, ki, tq, tk, causal, window):
     """Scaled scores of query tile qi against KV tile ki, masked keys at
     NEG_INF."""
     s = qt @ kt.transpose(1, 2)
@@ -67,15 +77,30 @@ def _scores(qt, kt, qi, ki, tq, tk, causal):
         dev = qt.device
         qpos = qi * tq + torch.arange(tq, device=dev)[:, None]
         kpos = ki * tk + torch.arange(tk, device=dev)[None, :]
-        s = torch.where(kpos <= qpos, s, torch.full((), NEG_INF, device=dev))
+        ok = kpos <= qpos
+        if window:
+            ok &= qpos - kpos < window
+        s = torch.where(ok, s, torch.full((), NEG_INF, device=dev))
     return s
 
 
+def _check_window(window: int, causal: bool, tq: int, tk: int) -> None:
+    if window < 0:
+        raise ValueError(f"window {window} must be >= 0")
+    if window and (not causal or tq != tk):
+        raise ValueError(f"a window ({window}) needs causal attention and "
+                         f"tq == tk (here causal={causal}, tq={tq}, "
+                         f"tk={tk}): the reference defines the windowed "
+                         f"function over one chunk size")
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, tq: int = 128,
-                          tk: int = 128, return_lse: bool = False):
+                          tk: int = 128, window: int = 0,
+                          return_lse: bool = False):
     """The TPU kernel's tiles, running max, denominator and accumulator,
     tile by tile, batched over BH. With `return_lse` also each row's
     log-sum-exp of its scaled scores, (BH, L) float32."""
+    _check_window(window, causal, tq, tk)
     bh, l, d = q.shape
     scale = d ** -0.5
     qf = q.to(F32) * scale
@@ -89,10 +114,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, tq: int = 128,
         m = torch.full((bh, tq, 1), NEG_INF, dtype=F32, device=dev)
         den = torch.zeros((bh, tq, 1), dtype=F32, device=dev)
         acc = torch.zeros((bh, tq, d), dtype=F32, device=dev)
-        for ki in range(_kv_upper(qi, tq, tk, n_kv, causal)):
+        for ki in _kv_tiles(qi, tq, tk, n_kv, causal, window):
             kt = kf[:, ki * tk:(ki + 1) * tk]
             vt = vf[:, ki * tk:(ki + 1) * tk]
-            s = _scores(qt, kt, qi, ki, tq, tk, causal)
+            s = _scores(qt, kt, qi, ki, tq, tk, causal, window)
             m2 = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
             corr = torch.exp(m - m2)
             p = torch.exp(s - m2)
@@ -106,10 +131,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, tq: int = 128,
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
-                              tq: int = 128, tk: int = 128):
+                              tq: int = 128, tk: int = 128, window: int = 0):
     """dQ, dK, dV of `flash_attention_plain` at output o and its gradient
     dO, from the forward's log-sum-exp: P recomputed tile by tile over
-    the forward's tiles and bound, float32 sums, outputs in q's type."""
+    the forward's tiles and bounds, float32 sums, outputs in q's type."""
+    _check_window(window, causal, tq, tk)
     bh, l, d = q.shape
     scale = d ** -0.5
     qf = q.to(F32) * scale
@@ -122,9 +148,9 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
     for qi in range(l // tq):
         rows = slice(qi * tq, (qi + 1) * tq)
         qt, dot = qf[:, rows], dof[:, rows]
-        for ki in range(_kv_upper(qi, tq, tk, n_kv, causal)):
+        for ki in _kv_tiles(qi, tq, tk, n_kv, causal, window):
             keys = slice(ki * tk, (ki + 1) * tk)
-            s = _scores(qt, kf[:, keys], qi, ki, tq, tk, causal)
+            s = _scores(qt, kf[:, keys], qi, ki, tq, tk, causal, window)
             p = torch.exp(s - lse[:, rows, None])
             dv[:, keys] += p.transpose(1, 2) @ dot
             ds = p * (dot @ vf[:, keys].transpose(1, 2)
@@ -134,28 +160,30 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
     return (dq * scale).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _check_shape(l: int, tq: int, tk: int) -> None:
+def _check_shape(l: int, tq: int, tk: int, causal: bool,
+                 window: int) -> None:
     if l % tq or l % tk:
         raise ValueError(f"L = {l} must divide by tq = {tq} and tk = {tk}")
+    _check_window(window, causal, tq, tk)
 
 
 def _check_card(q) -> None:
     if q.dtype not in _DTYPES:
         raise ValueError(f"q has dtype {q.dtype}: float32 or bfloat16")
-    if not 1 <= q.shape[2] <= 128:
-        raise ValueError(f"head dim {q.shape[2]}: the kernel takes 1 to 128")
+    if not 1 <= q.shape[2] <= 256:
+        raise ValueError(f"head dim {q.shape[2]}: the kernel takes 1 to 256")
 
 
-def _forward(q, k, v, causal, tq, tk, dev, with_lse):
+def _forward(q, k, v, causal, tq, tk, window, dev, with_lse):
     """(o, lse or None): the kernel on the card, the plain version on the
     CPU."""
     bh, l, d = q.shape
-    _check_shape(l, tq, tk)
+    _check_shape(l, tq, tk, causal, window)
     if dev.type == "cpu":
         _on_cpu(q=q, k=k, v=v)
         flash_attention.plain_calls += 1
         out = flash_attention_plain(q, k, v, causal=causal, tq=tq, tk=tk,
-                                    return_lse=with_lse)
+                                    window=window, return_lse=with_lse)
         return out if with_lse else (out, None)
     _check_card(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -168,26 +196,26 @@ def _forward(q, k, v, causal, tq, tk, dev, with_lse):
         rc = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(),
                 0 if lse is None else lse.data_ptr(), bh, l, d, int(causal),
-                tq, tk, d ** -0.5, stream)
+                tq, tk, window, d ** -0.5, stream)
     _raise_on(rc, "flash_attention launch")
     flash_attention.launches += 1
     return o, lse
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
-                        tq: int = 128, tk: int = 128,
+                        tq: int = 128, tk: int = 128, window: int = 0,
                         device: DeviceLike = None):
     """(dq, dk, dv) in q's dtype, from the forward's inputs, its output o,
     the output's gradient do (all (BH, L, D)) and its log-sum-exp lse
     ((BH, L) float32)."""
     dev = resolve(device)
     bh, l, d = q.shape
-    _check_shape(l, tq, tk)
+    _check_shape(l, tq, tk, causal, window)
     if dev.type == "cpu":
         _on_cpu(q=q, k=k, v=v, o=o, do=do, lse=lse)
         flash_attention.bwd_plain_calls += 1
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
-                                         tq=tq, tk=tk)
+                                         tq=tq, tk=tk, window=window)
     _check_card(q)
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check(name, t, dev, q.dtype, (bh, l, d))
@@ -200,45 +228,45 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         rc = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
-                bh, l, d, int(causal), tq, tk, d ** -0.5, stream)
+                bh, l, d, int(causal), tq, tk, window, d ** -0.5, stream)
     _raise_on(rc, "flash_attention_bwd launch")
     flash_attention.bwd_launches += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """`FlashAttention.apply(q, k, v, causal, tq, tk, device)`: the
-    forward saving its log-sum-exp, and `flash_attention_bwd` as its
+    """`FlashAttention.apply(q, k, v, causal, tq, tk, window, device)`:
+    the forward saving its log-sum-exp, and `flash_attention_bwd` as its
     backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, tq, tk, dev):
-        o, lse = _forward(q, k, v, causal, tq, tk, dev, True)
+    def forward(ctx, q, k, v, causal, tq, tk, window, dev):
+        o, lse = _forward(q, k, v, causal, tq, tk, window, dev, True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (causal, tq, tk, dev)
+        ctx.args = (causal, tq, tk, window, dev)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, tq, tk, dev = ctx.args
+        causal, tq, tk, window, dev = ctx.args
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
                                          causal=causal, tq=tq, tk=tk,
-                                         device=dev)
-        return dq, dk, dv, None, None, None, None
+                                         window=window, device=dev)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, tq: int = 128,
-                    tk: int = 128, device: DeviceLike = None
+                    tk: int = 128, window: int = 0, device: DeviceLike = None
                     ) -> torch.Tensor:
     """q, k, v: (BH, L, D), heads pre-flattened into the batch dim.
 
     Returns (BH, L, D) in q's dtype, differentiable in q, k and v. L must
-    divide by tq and tk."""
+    divide by tq and tk; a `window` needs causal attention and tq == tk."""
     dev = resolve(device)
     if needs_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, tq, tk, dev)
-    return _forward(q, k, v, causal, tq, tk, dev, False)[0]
+        return FlashAttention.apply(q, k, v, causal, tq, tk, window, dev)
+    return _forward(q, k, v, causal, tq, tk, window, dev, False)[0]
 
 
 def reset_counts() -> None:

@@ -31,8 +31,10 @@ def quantized_linear(x, w, *, bits: int = 8, tm: int = 128, tn: int = 128,
 
 
 def gqa_flash_attention(q, k, v, *, causal: bool = True, tq: int = 128,
-                        tk: int = 128, device: DeviceLike = None):
-    """q: (B, L, H, D); k/v: (B, L, Hkv, D) -> (B, L, H, D)."""
+                        tk: int = 128, window: int = 0,
+                        device: DeviceLike = None):
+    """q: (B, L, H, D); k/v: (B, L, Hkv, D) -> (B, L, H, D); `window`: the
+    sliding window of a local layer (0: none)."""
     b, l, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv
@@ -43,7 +45,7 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True, tq: int = 128,
     kf = k.transpose(1, 2).reshape(b * h, l, d).contiguous()
     vf = v.transpose(1, 2).reshape(b * h, l, d).contiguous()
     o = flash_attention(qf, kf, vf, causal=causal, tq=min(tq, l),
-                        tk=min(tk, l), device=device)
+                        tk=min(tk, l), window=window, device=device)
     return o.reshape(b, h, l, d).transpose(1, 2)
 
 

@@ -86,11 +86,17 @@ def plain_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     return out.reshape(b, lq, h, d).to(q.dtype)
 
 
-def chunked_attention(q, k, v, *, causal=True, chunk=1024):
+def chunked_attention(q, k, v, *, causal=True, window=0, chunk=1024):
     """Flash-style online-softmax attention over query and KV chunks with
     a running (max, denom, acc): the plain version of the prefill
     attention (the reference's global path: a masked scan over every KV
-    chunk). q: (B, Lq, H, D), k/v: (B, Lk, Hkv, D)."""
+    chunk). q: (B, Lq, H, D), k/v: (B, Lk, Hkv, D).
+
+    With a `window` (local attention) each query chunk qi reads only the
+    KV chunks from first = max(qi - window // chunk, 0), at most
+    window // chunk + 1 of them, under the mask q - k < window (and
+    causality), as the reference's window path does: when window % chunk
+    > 1 that tile bound drops keys inside the window."""
     b, lq, h, d = q.shape
     n_kv = k.shape[2]
     lk = k.shape[1]
@@ -107,6 +113,19 @@ def chunked_attention(q, k, v, *, causal=True, chunk=1024):
     for qi in range(nq):
         qc = qg[:, qi]                                   # (B,chunk,Hkv,G,D)
         qpos = qi * chunk + torch.arange(chunk, device=dev)
+        if window:
+            nwin = min(nk, window // chunk + 1)
+            first = max(qi - (nwin - 1), 0)
+            keys = slice(first * chunk, (first + nwin) * chunk)
+            kpos = first * chunk + torch.arange(nwin * chunk, device=dev)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qc, k[:, keys].to(F32))
+            s = s + attention_scores_mask(qpos, kpos, window, causal)
+            p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+            den = torch.sum(p, dim=-1, keepdim=True)
+            outs.append(torch.einsum(
+                "bhgqk,bkhd->bqhgd", p / torch.clamp_min(den, 1e-30),
+                v[:, keys].to(F32)).to(q.dtype))
+            continue
         m = torch.full((b, n_kv, g, chunk, 1), NEG_INF, dtype=F32,
                        device=dev)
         den = torch.zeros((b, n_kv, g, chunk, 1), dtype=F32, device=dev)

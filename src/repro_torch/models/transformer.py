@@ -1,16 +1,23 @@
-"""Decoder-only LM, the dense family (Qwen2, Qwen2.5, Minitron): a port
+"""Decoder-only LM, the dense family (Qwen2, Qwen2.5, Minitron, and
+Gemma3 with its 5:1 local:global attention): a port
 of the reference's `models/transformer.py` for serving and training
 (`decoder_loss`, `softmax_xent`), and the blocks the hybrid's shared
 attention reuses.
 
 The model is a `DecoderLM` module: `embed`, `layers` (one `DenseBlock`
 per layer: the reference's `dense_layers` stacked on a leading layer
-axis, unstacked), `final_norm`, and `lm_head` only when the embedding is
-not tied (tied: the logits use `embed.T`). The cache keeps every layer's
-K and V stacked on a leading layer axis, (n_layers, B, S, Hkv, D), as the
-reference's does; prefill fills a preallocated cache and decode updates
-it in place. Layers run in a Python loop (`scan_layers_carry` has the
-reference's `unroll=True` semantics; torch has no scan).
+axis, or on (n_groups, global_every) axes with local:global attention,
+unstacked), `final_norm`, and `lm_head` only when the embedding is not
+tied (tied: the logits use `embed.T`). The cache keeps every layer's K
+and V stacked on a leading layer axis, (n_layers, B, S, Hkv, D) (the
+reference groups it as the parameters; `convert.py` maps the layouts);
+prefill fills a preallocated cache and decode updates it in place. With
+`global_every` g > 1 and a `window`, layer i is local, attending to the
+last `window` positions, unless i % g == g - 1 (`layer_windows`, the
+reference's pattern); like the reference's, the cache holds every
+position of a local layer too. Layers run in a Python loop
+(`scan_layers_carry` has the reference's `unroll=True` semantics; torch
+has no scan).
 
 Prefill attention runs through `kernels/ops.gqa_flash_attention`: the
 `flash_attention` kernel on the card, its plain version on the CPU, at
@@ -20,8 +27,12 @@ reference's jnp forms of that one function (plain, chunked over every KV
 tile, chunked up to the diagonal); on the card every one of them runs
 the kernel, which stops at the diagonal as the reference's Pallas kernel
 does. On the CPU `attn_impl="plain"` runs `layers.plain_attention`, the
-rest the kernel's plain version. Decode is plain torch, as in the
-reference.
+rest the kernel's plain version. A local layer passes its window to the
+kernel, which then also reads no key below the reference's windowed
+chunk bound (`kernels/flash_attention.py`); `attn_impl="plain"` has an
+exact window with no tile bound, which the kernel gives at a tile of 1
+on the card. Decode is plain torch, as in the reference, each layer
+masked by its own window.
 
 Training: parameters are built frozen for serving; `trainable=True` (or
 `requires_grad_()` on the module) makes them trainable. The loss runs
@@ -32,8 +43,8 @@ kernel on the card (`kernels/flash_attention.py::FlashAttention`). With
 wraps each layer: its activations are recomputed in the backward.
 
 Not served yet, each raising NotImplementedError with its open item of
-ROADMAP.md: local:global windows (`window`, `global_every` > 1: 13c),
-MoE, MLA and multi-token prediction (13d), prepended patches (13e).
+ROADMAP.md: MoE, MLA and multi-token prediction (13d), prepended patches
+(13e).
 """
 from __future__ import annotations
 
@@ -96,11 +107,6 @@ class DecoderLM(nn.Module):
 def check_served(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the dense decoder does not
     serve yet, naming the open item of ROADMAP.md that ports it."""
-    if cfg.window or (cfg.global_every or 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: local:global attention (window {cfg.window}, "
-            f"global_every {cfg.global_every}) is not ported yet: the "
-            f"chunked window path (ROADMAP.md, open item 13c)")
     for what in ("moe", "mla", "use_mtp"):
         if getattr(cfg, what):
             raise NotImplementedError(
@@ -195,28 +201,31 @@ def logits_fn(model: nn.Module, cfg: ModelConfig, h: torch.Tensor):
     return logits
 
 
-def _window_for(cfg: ModelConfig, idx_in_group: int) -> int:
-    """gemma3 pattern: positions 0..g-2 local, g-1 global."""
+def layer_windows(cfg: ModelConfig) -> list:
+    """Each layer's sliding window, 0 for a global layer: the reference's
+    `_window_for`, gemma3's pattern (positions 0..g-2 of each group of
+    g = `global_every` local, g-1 global; with g <= 1 all global)."""
     g = cfg.global_every or 1
     if g == 1 or cfg.window == 0:
-        return 0
-    return cfg.window if idx_in_group < g - 1 else 0
+        return [0] * cfg.n_layers
+    return [cfg.window if i % g < g - 1 else 0 for i in range(cfg.n_layers)]
 
 
 def _self_attention(p: DenseBlock, cfg: ModelConfig, h, positions,
                     window: int = 0):
     """The attention half of a block: (h + attention, k, v), k rotated
-    as the cache keeps it."""
-    if window:
-        raise NotImplementedError("windowed prefill attention is not "
-                                  "ported yet (ROADMAP.md, open item 13c)")
+    as the cache keeps it. `window`: the layer's sliding window (0:
+    global)."""
     x = L.rms_norm(h, p.ln1, cfg.rms_eps)
     q, k, v = L.attn_qkv(p.attn, x, positions, cfg.rope_theta)
     if cfg.attn_impl == "plain" and h.device.type == "cpu":
-        o = L.plain_attention(q, k, v, causal=True)
+        o = L.plain_attention(q, k, v, causal=True, window=window)
     else:
-        o = ops.gqa_flash_attention(q, k, v, causal=True, tq=cfg.attn_chunk,
-                                    tk=cfg.attn_chunk, device=h.device)
+        # the plain form's window is exact: a tile of one key bounds
+        # nothing
+        t = 1 if window and cfg.attn_impl == "plain" else cfg.attn_chunk
+        o = ops.gqa_flash_attention(q, k, v, causal=True, tq=t, tk=t,
+                                    window=window, device=h.device)
     return h + L.attn_out(p.attn, o), k, v
 
 
@@ -234,14 +243,12 @@ def ffn_block(p: DenseBlock, cfg: ModelConfig, h):
 def decoder_hidden(model: DecoderLM, cfg: ModelConfig, h, positions):
     """Run all layers over h: (B, L, D). Returns (h, aux loss sum): the
     aux loss is the MoE router's, 0.0 for the dense family."""
-    g = cfg.global_every or 1
-
     def layer(p, h, window):
         h = _self_attention(p, cfg, h, positions, window)[0]
         return ffn_block(p, cfg, h)
 
-    for i, p in enumerate(model.layers):
-        h = remat(cfg, layer, p, h, _window_for(cfg, i % g))
+    for p, window in zip(model.layers, layer_windows(cfg)):
+        h = remat(cfg, layer, p, h, window)
     return h, 0.0
 
 
@@ -331,11 +338,13 @@ def decode_step(model: DecoderLM, cfg: ModelConfig, cache, tokens,
     """tokens: (B, 1) at position `pos`. Updates `cache` in place and
     returns (logits (B, 1, V), cache)."""
     h = embed_tokens(model, tokens)
+    layers = list(zip(model.layers, layer_windows(cfg)))
 
-    def body(h, p, c):
-        return _gqa_layer_decode(p, cfg, h, c["k"], c["v"], pos), c
+    def body(h, layer, c):
+        p, window = layer
+        return _gqa_layer_decode(p, cfg, h, c["k"], c["v"], pos, window), c
 
-    h, cache = scan_layers_carry(body, h, model.layers, cache)
+    h, cache = scan_layers_carry(body, h, layers, cache)
     h = L.rms_norm(h, model.final_norm, cfg.rms_eps)
     return logits_fn(model, cfg, h), cache
 
@@ -350,10 +359,8 @@ def prefill(model: DecoderLM, cfg: ModelConfig, tokens, seq_len: int,
     b, l, _ = h.shape
     positions = torch.arange(l, device=h.device)[None, :]
     cache = init_cache(cfg, b, seq_len, h.device)
-    g = cfg.global_every or 1
-    for i, p in enumerate(model.layers):
-        h, k, v = _self_attention(p, cfg, h, positions,
-                                  _window_for(cfg, i % g))
+    for i, (p, window) in enumerate(zip(model.layers, layer_windows(cfg))):
+        h, k, v = _self_attention(p, cfg, h, positions, window)
         cache["k"][i, :, :l] = k
         cache["v"][i, :, :l] = v
         h = ffn_block(p, cfg, h)

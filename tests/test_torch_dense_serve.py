@@ -173,9 +173,41 @@ def test_cache_path_matches_forward(dtype):
                                    **TOL[dtype])
 
 
+# local:global attention, served since Gemma3: a window on the local
+# layer of each pair, and a window with global_every 0 (every layer
+# global, as the reference's `_window_for` makes it)
+_WINDOWED = {"window": {"window": 16, "global_every": 2},
+             "window_only": {"window": 16}}
+
+
+@pytest.mark.parametrize("what", sorted(_WINDOWED))
+def test_windowed_configs_serve_against_the_reference(what):
+    """The configs that pinned windows as unported now serve: prefill
+    logits and cache, then two decode steps, against the reference, from
+    a 24-token prompt (longer than the window)."""
+    kw = _WINDOWED[what]
+    rcfg, cfg = (c.replace(**kw) for c in _configs("qwen2-1.5b", "float32"))
+    _, pnp = ref_params(rcfg, perturb=True)
+    model, tp = build_model(cfg), _port(pnp, cfg)
+    b, l, cap, steps = 2, 24, 28, 2
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (b, l + steps))
+    want = ref_run(rcfg, pnp, toks, l, cap, steps)
+    with torch.inference_mode():
+        lp, cache = model.prefill_fn(tp, {"tokens": torch.as_tensor(
+            toks[:, :l])}, cap)
+        c0 = convert.decoder_cache_to_numpy(cache, cfg)
+        lds = []
+        for i in range(steps):
+            ld, cache = model.decode_fn(tp, cache, torch.as_tensor(
+                toks[:, l + i:l + i + 1]), l + i)
+            lds.append(to_np(ld))
+    check(to_np(lp), want[0], want[0], "float32")
+    for got, w in zip(lds, want[1]):
+        check(got, w, w, "float32")
+    check_tree(c0, want[2], want[2], "float32")
+
+
 _UNSERVED = {
-    "window": ({"window": 16, "global_every": 2}, "13c"),
-    "window_only": ({"window": 16}, "13c"),
     "moe": ({"moe": MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)}, "13d"),
     "mla": ({"mla": MLAConfig(q_lora_rank=16, kv_lora_rank=8,
                               qk_nope_head_dim=8, qk_rope_head_dim=8,

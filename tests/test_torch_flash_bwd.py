@@ -29,6 +29,7 @@ import torch
 
 from _torch_parity import one_torch_thread  # noqa: F401
 from repro.kernels import ref as rref
+from repro.models import layers as rlayers
 from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import ops
 
@@ -141,6 +142,80 @@ def test_gqa_backward_sums_the_group():
         np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
 
 
+# (window, tile): windows below, at and above the tile, and window % tile
+# > 1, where the reference's tile bound drops keys inside the window
+WINDOWS = [(5, 4), (8, 8), (12, 8), (16, 8), (20, 4)]
+
+
+@pytest.mark.parametrize("window,t", WINDOWS)
+def test_windowed_bwd_plain_equals_autograd_of_the_forward(window, t):
+    q, k, v, do = _inputs(2, 24, 8, seed=4)
+    x = [_t(a, True) for a in (q, k, v)]
+    o, lse = pfa.flash_attention_plain(*x, tq=t, tk=t, window=window,
+                                       return_lse=True)
+    want = torch.autograd.grad(o, x, _t(do))
+    got = pfa.flash_attention_bwd_plain(_t(q), _t(k), _t(v), o.detach(),
+                                        _t(do), lse.detach(), tq=t, tk=t,
+                                        window=window)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("window,t", WINDOWS)
+def test_windowed_bwd_plain_equals_jax_vjp_of_chunked_attention(window, t):
+    """The reference trains local layers through its windowed
+    `chunked_attention` and autodiff: the plain backward under the window
+    and the reference's tile bound is its VJP."""
+    q, k, v, do = _inputs(2, 24, 8, seed=5)
+
+    def ref(q, k, v):      # (BH, L, D) as (1, L, BH, D): one KV head each
+        return rlayers.chunked_attention(
+            *(x.transpose(1, 0, 2)[None] for x in (q, k, v)), causal=True,
+            window=window, chunk=t)[0].transpose(1, 0, 2)
+    o_ref, vjp = jax.vjp(ref, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    o, lse = pfa.flash_attention_plain(_t(q), _t(k), _t(v), tq=t, tk=t,
+                                       window=window, return_lse=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), **TOL)
+    got = pfa.flash_attention_bwd_plain(_t(q), _t(k), _t(v), o, _t(do), lse,
+                                        tq=t, tk=t, window=window)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def test_windowed_function_runs_the_plain_backward():
+    """`flash_attention` with a window and inputs that need a gradient:
+    the plain forward and backward on the CPU, one call each."""
+    q, k, v, do = _inputs(2, 24, 8, seed=6)
+    pfa.reset_counts()
+    x = [_t(a, True) for a in (q, k, v)]
+    got = torch.autograd.grad(pfa.flash_attention(
+        *x, tq=8, tk=8, window=12, device="cpu"), x, _t(do))
+    assert (pfa.flash_attention.plain_calls,
+            pfa.flash_attention.bwd_plain_calls) == (1, 1)
+    y = [_t(a, True) for a in (q, k, v)]
+    want = torch.autograd.grad(pfa.flash_attention_plain(
+        *y, tq=8, tk=8, window=12), y, _t(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("what", ["tq_ne_tk", "not_causal", "negative"])
+def test_window_needs_equal_tiles_and_causality(what):
+    """The reference defines the windowed function over one chunk size,
+    with the causal mask: anything else raises ValueError, forward and
+    backward, before any work."""
+    q = torch.zeros(1, 16, 4)
+    lse = torch.zeros(1, 16)
+    kw = {"tq_ne_tk": dict(tq=4, tk=8, window=8),
+          "not_causal": dict(tq=8, tk=8, window=8, causal=False),
+          "negative": dict(tq=8, tk=8, window=-1)}[what]
+    with pytest.raises(ValueError, match="window"):
+        pfa.flash_attention(q, q, q, device="cpu", **kw)
+    with pytest.raises(ValueError, match="window"):
+        pfa.flash_attention_bwd(q, q, q, q, q, lse, device="cpu", **kw)
+
+
 def test_bwd_wrapper_checks_its_inputs():
     q = torch.zeros(1, 8, 4)
     lse = torch.zeros(1, 8)
@@ -167,18 +242,31 @@ def _key_limits(l, causal, tq, tk):
     return torch.minimum(qp + 1, up * tk)
 
 
-def flash_bwd_mma_emulation(q, k, v, o, do, lse, *, causal, tq, tk):
+def _key_lower(l, tq, tk, window):
+    """The kernels' lower key limit (`key_lower` in the source)."""
+    qp = torch.arange(l)
+    if not window:
+        return torch.zeros(l, dtype=torch.long)
+    return torch.maximum(qp - window + 1,
+                         torch.clamp(qp // tq - window // tk, min=0) * tk)
+
+
+def flash_bwd_mma_emulation(q, k, v, o, do, lse, *, causal, tq, tk,
+                            window=0):
     """dq, dk, dv as `flash_bwd_dq_mma` and `flash_bwd_dkdv_mma` round:
     float32 S and dP from bfloat16 operands, P in float32 through exp2
-    and masked past each row's key limit, P and dS rounded to bfloat16
-    before their products, float32 sums, the scale in the epilogue."""
+    and masked outside each row's key limits, P and dS rounded to
+    bfloat16 before their products, float32 sums, the scale in the
+    epilogue."""
     bh, l, d = q.shape
     scale = d ** -0.5
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     dsum = (dof * o.float()).sum(-1, keepdim=True)
     s = qf @ kf.transpose(1, 2)
     p = torch.exp2(s * (scale * LOG2E) - lse[..., None] * LOG2E)
-    keep = torch.arange(l)[None, :] < _key_limits(l, causal, tq, tk)[:, None]
+    kpos = torch.arange(l)[None, :]
+    keep = ((kpos < _key_limits(l, causal, tq, tk)[:, None])
+            & (kpos >= _key_lower(l, tq, tk, window)[:, None]))
     p = torch.where(keep, p, torch.zeros(()))
     ds = p * (dof @ vf.transpose(1, 2) - dsum)
     pb, dsb = p.to(BF16).float(), ds.to(BF16).float()
@@ -217,4 +305,28 @@ def test_bf16_kernel_rounding_within_the_card_tolerance(shape, causal):
         assert torch.isfinite(g.float()).all()
         err = float((g.float() - w.float()).abs().max())
         tol = LM_TOL_BF16 * max(1.0, float(w.float().abs().max()))
+        assert err <= tol, (f"d{name}", err, tol)
+
+
+# (BH, L, D, tile, window): Gemma3's head dim, 256, with and without a
+# window, windows that are and are not multiples of 64 and of the tile;
+# and the D 192 build
+WIDE_BF16_SHAPES = [(2, 256, 256, 128, 0), (2, 256, 256, 128, 100),
+                    (2, 256, 256, 64, 64), (1, 256, 192, 32, 50)]
+
+
+@pytest.mark.parametrize("shape", WIDE_BF16_SHAPES)
+def test_bf16_kernel_rounding_at_wide_heads_and_windows(shape):
+    bh, l, d, t, w = shape
+    q, k, v, do = _bf16_inputs(bh, l, d, [l, d, t, w])
+    o, lse = pfa.flash_attention_plain(q, k, v, tq=t, tk=t, window=w,
+                                       return_lse=True)
+    want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, tq=t, tk=t,
+                                         window=w)
+    got = flash_bwd_mma_emulation(q, k, v, o, do, lse, causal=True, tq=t,
+                                  tk=t, window=w)
+    for name, g, w_ in zip("qkv", got, want):
+        assert torch.isfinite(g.float()).all()
+        err = float((g.float() - w_.float()).abs().max())
+        tol = LM_TOL_BF16 * max(1.0, float(w_.float().abs().max()))
         assert err <= tol, (f"d{name}", err, tol)

@@ -693,12 +693,13 @@ def test_bitplane_kernel_ragged_against_the_block_tile(cuda, dtype, bits):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen2.5-14b", "minitron-8b",
-                                  "mamba2-1.3b"])
+                                  "mamba2-1.3b", "gemma3-12b"])
 def test_dense_and_ssm_smoke_serve_on_card_match_cpu(cuda, arch):
     """The dense and Mamba2 smoke configs in float32 with the same
     parameters on the card (the kernels) and on the CPU (the plain
     versions): one flash_attention launch per dense layer, one ssd_scan
-    per Mamba2 layer, no plain call on the card."""
+    per Mamba2 layer, no plain call on the card. Gemma3's 64-token prompt
+    is longer than its local layers' window (16)."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.kernels import flash_attention as pfa
     from repro_torch.kernels import ssd_scan as pss
@@ -831,7 +832,7 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, causal,
     bh, l, d, tq, tk = shape
     g = torch.Generator(device=cuda).manual_seed(l + d + 7)
     q, k, v, do = (_rand(g, (bh, l, d), dtype, cuda) for _ in range(4))
-    o, lse = pfa._forward(q, k, v, causal, tq, tk, q.device, True)
+    o, lse = pfa._forward(q, k, v, causal, tq, tk, 0, q.device, True)
     po, plse = pfa.flash_attention_plain(q, k, v, causal=causal, tq=tq,
                                          tk=tk, return_lse=True)
     _lm_close(o, po, dtype)
@@ -858,7 +859,7 @@ def test_flash_attention_bwd_kernel_is_deterministic(cuda, dtype, shape):
     bh, l, d, tq, tk = shape
     g = torch.Generator(device=cuda).manual_seed(l + d)
     q, k, v, do = (_rand(g, (bh, l, d), dtype, cuda) for _ in range(4))
-    o, lse = pfa._forward(q, k, v, True, tq, tk, q.device, True)
+    o, lse = pfa._forward(q, k, v, True, tq, tk, 0, q.device, True)
     a, b = (pfa.flash_attention_bwd(q, k, v, o, do, lse, tq=tq, tk=tk,
                                     device=cuda) for _ in range(2))
     torch.cuda.synchronize()
@@ -889,6 +890,73 @@ def test_flash_attention_autograd_launches_both_kernels(cuda):
         *cpu, causal=True, tq=64, tk=64, device="cpu"), cpu, do)
     for a, w in zip(got, want):
         _lm_close(a.cpu(), w, torch.float32)
+
+
+# (bh, L, D, tile, window): the wide builds (D 130 -> 192, D 200 and 256
+# -> 256), without a window and with windows that are and are not
+# multiples of 64 and of the tile, wider than the tile (window // tk > 0)
+# and than L, ragged L; and windows on the narrow builds.
+_WIDE_SHAPES = [(2, 512, 256, 128, 0), (2, 512, 256, 128, 128),
+                (2, 512, 256, 128, 100), (1, 1024, 256, 512, 1000),
+                (2, 384, 192, 64, 64), (2, 256, 256, 64, 1000),
+                (3, 200, 256, 40, 50), (2, 200, 200, 100, 0),
+                (2, 192, 130, 64, 70), (2, 512, 64, 128, 100),
+                (2, 300, 16, 100, 37), (2, 256, 128, 32, 12)]
+
+
+def _wide_id(shape):
+    return "x".join(map(str, shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _WIDE_SHAPES, ids=_wide_id)
+def test_flash_attention_wide_and_windowed_match_plain(cuda, dtype, shape):
+    """The forward (output and log-sum-exp) and the backward at head dims
+    past 128 and with a sliding window, against the plain versions on the
+    same inputs; the bfloat16 kernels twice, for the same bits."""
+    from repro_torch.kernels import flash_attention as pfa
+    bh, l, d, t, w = shape
+    g = torch.Generator(device=cuda).manual_seed(l + d + w)
+    q, k, v, do = (_rand(g, (bh, l, d), dtype, cuda) for _ in range(4))
+    pfa.reset_counts()
+    o, lse = pfa._forward(q, k, v, True, t, t, w, q.device, True)
+    grads = pfa.flash_attention_bwd(q, k, v, o, do, lse, tq=t, tk=t,
+                                    window=w, device=cuda)
+    torch.cuda.synchronize()
+    assert (pfa.flash_attention.launches,
+            pfa.flash_attention.bwd_launches) == (1, 1)
+    po, plse = pfa.flash_attention_plain(q, k, v, tq=t, tk=t, window=w,
+                                         return_lse=True)
+    _lm_close(o, po, dtype)
+    _lm_close(lse, plse, torch.float32)
+    want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, tq=t, tk=t,
+                                         window=w)
+    for a, b in zip(grads, want):
+        assert a.dtype == dtype and a.shape == q.shape
+        _lm_close(a, b, dtype)
+    if dtype == torch.bfloat16:
+        o2, lse2 = pfa._forward(q, k, v, True, t, t, w, q.device, True)
+        again = pfa.flash_attention_bwd(q, k, v, o, do, lse, tq=t, tk=t,
+                                        window=w, device=cuda)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        for a, b in zip(grads, again):
+            assert torch.equal(a, b)
+
+
+def test_flash_attention_refuses_past_d256_and_bad_windows(cuda):
+    """Head dims above 256, and a window with tq != tk or without the
+    causal mask, raise ValueError on the card: no fallback."""
+    from repro_torch.kernels import flash_attention as pfa
+    x = torch.zeros((1, 64, 272), device=cuda)
+    with pytest.raises(ValueError, match="head dim 272"):
+        pfa.flash_attention(x, x, x, tq=64, tk=64, device=cuda)
+    y = torch.zeros((1, 64, 16), device=cuda)
+    with pytest.raises(ValueError, match="tq == tk"):
+        pfa.flash_attention(y, y, y, tq=32, tk=64, window=8, device=cuda)
+    with pytest.raises(ValueError, match="tq == tk"):
+        pfa.flash_attention(y, y, y, causal=False, tq=64, tk=64, window=8,
+                            device=cuda)
 
 
 def test_bit_planes_refuse_a_backward_on_the_card(cuda):
@@ -1059,7 +1127,8 @@ def test_ssd_scan_bwd_bf16_two_heads_a_block(cuda, shape, monkeypatch):
 
 
 _TRAIN_CASES = [(1, "qwen2-1.5b"), (2, "qwen2-1.5b"), (1, "mamba2-1.3b"),
-                (2, "mamba2-1.3b"), (1, "zamba2-7b"), (2, "zamba2-7b")]
+                (2, "mamba2-1.3b"), (1, "zamba2-7b"), (2, "zamba2-7b"),
+                (1, "gemma3-12b")]
 
 
 @pytest.mark.parametrize(
@@ -1108,6 +1177,7 @@ def test_smoke_train_steps_on_card_match_cpu(cuda, grad_accum, arch):
     # each kernel the family runs, forward and backward, on the card; the
     # plain versions' calls are the CPU's, one for one
     kernels = {"qwen2-1.5b": (pfa.flash_attention,),
+               "gemma3-12b": (pfa.flash_attention,),
                "mamba2-1.3b": (pss.ssd_scan,),
                "zamba2-7b": (pfa.flash_attention, pss.ssd_scan)}[arch]
     for k in kernels:

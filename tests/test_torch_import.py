@@ -272,16 +272,16 @@ def test_lm_entry_points_default_to_the_card():
 
 
 _SERVED = ("qwen2-1.5b", "qwen2.5-14b", "minitron-8b", "mamba2-1.3b",
-           "zamba2-7b")
-_STILL_UNPORTED = {"gemma3-12b": "13c", "qwen2-moe-a2.7b": "13d",
+           "zamba2-7b", "gemma3-12b")
+_STILL_UNPORTED = {"qwen2-moe-a2.7b": "13d",
                    "deepseek-v3-671b": "13d", "llava-next-34b": "13e",
                    "whisper-tiny": "13e"}
 
 
 @pytest.mark.parametrize("arch", _SERVED + tuple(_STILL_UNPORTED))
 def test_arch_ids_resolve_or_name_their_item(arch):
-    """The five served ids resolve to the reference's full and smoke
-    configs (the port's copies); the other five raise
+    """The six served ids resolve to the reference's full and smoke
+    configs (the port's copies); the other four raise
     NotImplementedError naming their open item."""
     from repro_torch.configs import registry
     if arch in _STILL_UNPORTED:

@@ -158,6 +158,59 @@ def test_flash_plain_keeps_the_causal_tile_bound(tiles):
     _close(got, want)
 
 
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_plain_wide_heads_match_reference_kernel(d, dtype):
+    """Head dims past 128 (the kernels' D 192 and 256 builds; Gemma3's
+    256) against the reference's Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(d)
+    (jq, tq_), (jk, tk_), (jv, tv) = (_pair(rng.normal(size=(2, 128, d)),
+                                            dtype) for _ in range(3))
+    want = r_flash(jq, jk, jv, causal=True, tq=64, tk=64, interpret=True)
+    got = pfa.flash_attention(tq_, tk_, tv, causal=True, tq=64, tk=64,
+                              device="cpu")
+    _close(got, want, dtype)
+
+
+# (window, tile): below, at and above the tile, window % tile > 1 (the
+# reference's tile bound drops keys inside the window), wider than L
+_WINDOWS = [(5, 4), (8, 8), (12, 8), (16, 8), (20, 4), (100, 16)]
+
+
+@pytest.mark.parametrize("window,t", _WINDOWS)
+def test_windowed_flash_plain_matches_reference_chunked(window, t):
+    """The windowed plain forward, through `ops.gqa_flash_attention`'s
+    grouping, and the port's windowed `chunked_attention`, against the
+    reference's `chunked_attention(window=...)`."""
+    b, l, h, hkv, d = 2, 48, 4, 2, 16
+    rng = np.random.default_rng([window, t])
+    jq, tq_ = _pair(rng.normal(size=(b, l, h, d)))
+    jk, tk_ = _pair(rng.normal(size=(b, l, hkv, d)))
+    jv, tv = _pair(rng.normal(size=(b, l, hkv, d)))
+    want = rlayers.chunked_attention(jq, jk, jv, causal=True, window=window,
+                                     chunk=t)
+    got = ops.gqa_flash_attention(tq_, tk_, tv, causal=True, tq=t, tk=t,
+                                  window=window, device="cpu")
+    _close(got, want)
+    _close(players.chunked_attention(tq_, tk_, tv, causal=True,
+                                     window=window, chunk=t), want)
+
+
+def test_flash_tile_of_one_is_the_exact_window():
+    """At a tile of one key the tile bound bounds nothing: the plain
+    version is the reference's exact `plain_attention` window, what
+    `attn_impl="plain"` runs on the card."""
+    b, l, h, hkv, d = 2, 40, 4, 2, 16
+    rng = np.random.default_rng(11)
+    jq, tq_ = _pair(rng.normal(size=(b, l, h, d)))
+    jk, tk_ = _pair(rng.normal(size=(b, l, hkv, d)))
+    jv, tv = _pair(rng.normal(size=(b, l, hkv, d)))
+    want = rlayers.plain_attention(jq, jk, jv, causal=True, window=12)
+    got = ops.gqa_flash_attention(tq_, tk_, tv, causal=True, tq=1, tk=1,
+                                  window=12, device="cpu")
+    _close(got, want)
+
+
 def test_flash_checks_the_tiles():
     q = torch.zeros((1, 200, 16))
     with pytest.raises(ValueError, match="divide"):

@@ -191,7 +191,7 @@ def test_unported_archs_and_families_raise():
     """The archs and families still to port raise, naming their open
     item; the dense and SSM archs this slice ports resolve."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_config("gemma3-12b")
+        registry.get_config("qwen2-moe-a2.7b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         registry.get_smoke_config("whisper-tiny")
     with pytest.raises(KeyError):
