@@ -260,6 +260,36 @@ Phases (each prints its own lines; any failure exits non-zero):
    `small_serve` in both dtypes, the prefill logits, 3 decode steps and
    the K/V cache in float32, and `smoke_train` at grad_accum 1 with 11
    card steps.
+24. the MoE family: (a) the Qwen2-MoE and DeepSeek-V3 smoke configs and
+   Qwen2-MoE's padded (6 experts of 8), hierarchical variant in float32,
+   card against CPU from the same parameters: a prefill of 4 x 64 and 8
+   decode steps, every step's logits and the cache (K/V, or MLA's
+   latents) within `LM_TOL`, every router call's routes equal (so its
+   drops; the padded variant's prefill must drop slots), one flash
+   launch a layer and no plain call on the card; DeepSeek-V3's loss,
+   its xent, aux and mtp terms within 1e-4 relative and every
+   parameter's gradient within `LM_TOL`, the card's flash launches
+   matched by the CPU's plain calls; (b) Qwen2-MoE-A2.7B at full width
+   and depth (15,146,928,128 bfloat16 parameters from a seed) and (c)
+   DeepSeek-V3 at full width, its depth cut to 4 layers (3 dense, 1 MoE,
+   and the MTP head: 15,797,352,448), each through `generate`, 8
+   requests x prompt 4,096, 32 tokens: one flash launch a layer a
+   prefill (D 128; MLA's at D 192 with V zero-padded) and no plain call,
+   rates, peak memory, the slots each MoE layer dropped, the first
+   layer's flash kernel on its own tensors beside its plain version,
+   SDPA and the bound, the first MoE layer's expert products timed on
+   its own buffer and scaled to the prefill, then the prefill and 8
+   decode steps under torch.profiler; (d) Qwen2-MoE-A2.7B at full width,
+   its depth cut to 6 layers, 5 `train_loop` AdamW steps of 2 x 2,048:
+   12 flash forwards and 6 backwards a step, no plain call, each step's
+   xent, aux and loss finite, then a profiled step; DeepSeek-V3's train
+   step (Adafactor) raises NotImplementedError (ROADMAP.md, 13d-ii).
+
+The CPU halves of phases 4, 11 and 18(a) (small plans on the plain
+path, single-threaded, the largest host work of the run) run in four
+spawned worker processes, started after the build, beside the card's
+phases; each phase collects its result where it compares it with the
+card's run, and the pool is shut down before the script exits.
 
 It ends with a `kernels:` line of launch counts, one JSON line
 `{"kernels": [...]}` with an entry per kernel (times, bound, launches,
@@ -272,8 +302,9 @@ drawn sweep's, flash's and the scan's, and phase 20's full serves' to
 flash's and the scan's; `flash_attention_bwd`'s are phase 21(b)'s five
 steps plus the quickstart's; phase 22(b) and (c)'s are added to the
 scan's and to flash's, forward and backward, and `ssd_scan_bwd`'s are
-theirs alone; phase 23(b)'s prefill and (d)'s steps are added to
-flash's, forward and backward), the card's nvidia-smi line, and
+theirs alone; phase 23(b)'s prefill and (d)'s steps, and phase
+24(b)-(c)'s prefills and (d)'s steps, are added to flash's, forward and
+backward), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
 held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
@@ -566,21 +597,14 @@ def three_group_plan(n_items):
     ), chunk=128, seg_steps=1024)
 
 
-def phase_small_plan(dev):
+def phase_small_plan(dev, cpu_runs):
     import numpy as np
-    import torch
     from repro_torch.fleet import run_plan
     plan = three_group_plan(256)
     t0 = time.perf_counter()
     gpu = run_plan(plan, keep_state=True, device=dev)
     t1 = time.perf_counter()
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)        # small tensors: one thread is fastest
-    try:
-        cpu = run_plan(plan, keep_state=True, device="cpu", power_w=0.0)
-    finally:
-        torch.set_num_threads(threads)
-    t2 = time.perf_counter()
+    cpu, t_cpu = cpu_runs["small"].result()
     fields = ("n_instr", "n_two_stage", "halted", "out", "mix", "mems",
               "regs", "pc", "mix_items")
     for a, b in zip(gpu.groups, cpu.groups):
@@ -595,8 +619,8 @@ def phase_small_plan(dev):
         if getattr(gpu.packed, f) != getattr(cpu.packed, f):
             raise AssertionError(f"small plan: schedule differs in {f}")
     log(f"[small plan] 3 groups x 256 items: card {t1 - t0:.2f}s, CPU "
-        f"{t2 - t1:.2f}s; every per-item field, final state and the "
-        f"schedule bit-exact")
+        f"{t_cpu:.2f}s (a worker process); every per-item field, final "
+        f"state and the schedule bit-exact")
     return gpu
 
 
@@ -1214,28 +1238,25 @@ def small_resilient_plan(**kw):
     ), chunk=128, seg_steps=1024, **kw)
 
 
-def phase_small_resilient(dev):
+def resilient_plans():
+    """Phase 11's plans by label: unprotected and under DMR."""
+    from repro_torch.flexibits.faults import FaultSpec
+    spec = FaultSpec(rate=1e-4, seed=5, targets=("regs", "mem", "pc"))
+    return {"unprotected": small_resilient_plan(faults=spec),
+            "dmr": small_resilient_plan(faults=spec, redundancy="dmr",
+                                        max_retries=6)}
+
+
+def phase_small_resilient(dev, cpu_runs):
     """Phase 4's groups with transients, unprotected and under DMR, on
     card and CPU: every per-item field, counters and schedule equal."""
     import numpy as np
-    import torch
     from repro_torch.fleet import run_plan
-    from repro_torch.flexibits.faults import FaultSpec
-    spec = FaultSpec(rate=1e-4, seed=5, targets=("regs", "mem", "pc"))
-    for label, kw in (("unprotected", dict(faults=spec)),
-                      ("dmr", dict(faults=spec, redundancy="dmr",
-                                   max_retries=6))):
-        plan = small_resilient_plan(**kw)
+    for label, plan in resilient_plans().items():
         t0 = time.perf_counter()
         gpu = run_plan(plan, keep_state=True, device=dev)
         t1 = time.perf_counter()
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        try:
-            cpu = run_plan(plan, keep_state=True, device="cpu", power_w=0.0)
-        finally:
-            torch.set_num_threads(threads)
-        t2 = time.perf_counter()
+        cpu, t_cpu = cpu_runs[f"resilient {label}"].result()
         for a, b in zip(gpu.groups, cpu.groups):
             for f in ("n_instr", "n_two_stage", "halted", "out", "mix",
                       "mems", "regs", "pc", "mix_items"):
@@ -1252,7 +1273,8 @@ def phase_small_resilient(dev):
         if label == "dmr" and p.detected == 0:
             raise AssertionError("small dmr plan: nothing detected")
         log(f"[small resilient] {label}: 3 groups x 64 items, chunk "
-            f"{p.chunk}: card {t1 - t0:.2f}s, CPU {t2 - t1:.2f}s; every "
+            f"{p.chunk}: card {t1 - t0:.2f}s, CPU {t_cpu:.2f}s (a worker "
+            f"process); every "
             f"per-item field, the final state, {p.n_segments} segments, "
             f"{p.lane_steps} lane-steps and detected/corrected/quarantined "
             f"{p.detected}/{p.corrected}/{p.quarantined} bit-exact")
@@ -2385,7 +2407,7 @@ SHARD_STATS = ("lane_steps", "n_segments", "seg_schedule", "shard_retired",
 ARCH_FIELDS = ("n_instr", "halted", "out", "mems", "regs", "pc")
 
 
-def phase_shards(dev, small_rep, main_rep):
+def phase_shards(dev, small_rep, main_rep, cpu_runs):
     """Phase 18: shard-local streaming (`mesh=`) and the reference's
     baseline steppers on the card. (a) phase 4's plan at 2 and 4 logical
     shards: per item equal to phase 4, the 4-shard schedule equal to the
@@ -2435,10 +2457,7 @@ def phase_shards(dev, small_rep, main_rep):
             f"retired/shard {list(p.shard_retired)}, {seg} segment and "
             f"{ref} refill launches, no plain call; every per-item field "
             f"and the final state equal to phase 4's")
-    t0 = time.perf_counter()
-    cpu = on_cpu(lambda: run_plan(small, keep_state=True, mesh=["cpu"] * 4,
-                                  power_w=0.0))
-    t_cpu = time.perf_counter() - t0
+    cpu, t_cpu = cpu_runs["small at 4 shards"].result()
     same_results("small plan at 4 shards, card vs CPU",
                  [g.result for g in cpu.groups],
                  [g.result for g in reps[4].groups])
@@ -2446,7 +2465,8 @@ def phase_shards(dev, small_rep, main_rep):
         if getattr(reps[4].packed, f) != getattr(cpu.packed, f):
             raise AssertionError(f"small plan at 4 shards: {f} differs "
                                  f"between card and CPU")
-    log(f"[shards] small plan at 4 shards on the CPU ({t_cpu:.2f}s): "
+    log(f"[shards] small plan at 4 shards on the CPU ({t_cpu:.2f}s, a "
+        f"worker process): "
         f"lane_steps, n_segments, seg_schedule, shard_retired, "
         f"shard_lane_steps and host syncs equal to the card's")
 
@@ -2883,30 +2903,34 @@ CACHE_DRIFT = 1.25
 
 
 def capture_first_kernels(model, params, prompt, cap):
-    """{"flash" | "ssd": (args, kwargs, result)} of the first
-    flash_attention and ssd_scan call of one more prefill, recorded by
-    wrapping the ops module's kernel entries."""
+    """{"flash" | "ssd" | "experts": (args, kwargs, result)} of the first
+    flash_attention and ssd_scan call, and the first MoE layer's expert
+    products, of one more prefill, recorded by wrapping the ops module's
+    kernel entries and `models/moe.py::experts`."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
     seen = {}
 
-    def keep(name, fn):
+    def keep(name, fn, result=True):
         def wrapped(*args, **kw):
             out = fn(*args, **kw)
             if name not in seen:
                 seen[name] = ([a.clone() if torch.is_tensor(a) else a
-                               for a in args], dict(kw), out)
+                               for a in args], dict(kw),
+                              out if result else None)
             return out
         return wrapped
 
-    saved = (ops.ssd_scan, ops.flash_attention)
+    saved = (ops.ssd_scan, ops.flash_attention, moe.experts)
     ops.ssd_scan = keep("ssd", ops.ssd_scan)
     ops.flash_attention = keep("flash", ops.flash_attention)
+    moe.experts = keep("experts", moe.experts, result=False)
     try:
         with torch.inference_mode():
             model.prefill_fn(params, {"tokens": prompt}, cap)
     finally:
-        ops.ssd_scan, ops.flash_attention = saved
+        ops.ssd_scan, ops.flash_attention, moe.experts = saved
     return seen
 
 
@@ -3417,6 +3441,14 @@ def train_full(dev, cfg, steps, per_step, n_params=None, what="",
         + ", ".join(f"{v} {k}" for k, v in per_step.items())
         + f" (forwards with their remat recompute), 0 plain calls; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes)")
+    terms = out["metrics"]
+    if not all(np.isfinite(v) for t in terms for v in t.values()):
+        raise AssertionError(f"{tag}: loss terms {terms}")
+    if any(len(t) > 1 for t in terms):
+        log(f"[{tag}] each step's loss terms: " + "; ".join(
+            f"step {i}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+            + f", loss {x:.4f}" for i, (t, x) in enumerate(zip(terms,
+                                                              losses))))
 
     # one more step under torch.profiler, device activity only
     model = build_model(cfg)
@@ -4121,6 +4153,404 @@ def phase_gemma_train(dev):
     return counts
 
 
+# ------------------------------------------------------------- phase 24
+# The MoE family. Qwen2-MoE-A2.7B serves at full width and depth (the
+# reference's count_params_abstract: 15,146,928,128; 60 experts padded to
+# 64, top 4, 4 shared) and DeepSeek-V3 at full width with its depth cut
+# to 4 layers (its 3 dense layers and 1 MoE layer, and the MTP head:
+# 15,797,352,448 parameters; all 61 layers are 671.7e9, and a second MoE
+# layer's 11.5e9 beside the prefill's ~20 GB of dispatch buffers would
+# not fit 80 GB), each through `generate`, 8 requests x prompt 4,096, 32
+# tokens, as Gemma3's. Qwen2-MoE trains with AdamW at full width, its
+# depth cut to MOE_TRAIN_LAYERS (4,253,874,176 parameters; 6 layers
+# peaked at 58.05 GiB, 8 would need about 71 GiB, 24 about 182 GB), 5
+# steps of 2 x 2,048 tokens, as many as phase 21(b)'s; DeepSeek-V3's step
+# (Adafactor) is refused until ROADMAP.md's open item 13d-ii.
+MOE_ARCH, MLA_ARCH = "qwen2-moe-a2.7b", "deepseek-v3-671b"
+MOE_PARAMS = 15_146_928_128
+MLA_LAYERS, MLA_PARAMS = 4, 15_797_352_448
+MOE_TRAIN_LAYERS, MOE_TRAIN_PARAMS = 6, 4_253_874_176
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 8, 4096, 32
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 2048
+# 24(a): the smoke configs card against CPU, float32: requests, prompt
+# and decode steps
+MOE_SMALL_BATCH, MOE_SMALL_PROMPT, MOE_SMALL_STEPS = 4, 64, 8
+# the full Qwen2-MoE's dispatch at smoke size: 6 experts padded to 8,
+# `hierarchical` (the flat form on one device); 256 prompt tokens x 2
+# choices overflow the 80 places of some of the 6 experts
+MOE_PADDED = dict(n_experts=6, top_k=2, n_shared=1, d_ff_expert=64,
+                  n_experts_padded=8, dispatch="hierarchical")
+
+
+def drops_of(idx, mcfg):
+    """The slots dropped by each recorded call, at its own capacity."""
+    from repro_torch.models import moe
+    return [int(moe.dropped(i, mcfg.e_padded,
+                            moe.capacity(i.shape[0], mcfg)).sum())
+            for i in idx]
+
+
+def close_f32(got, want, what):
+    """Largest |got - want| of float32 results; raises past LM_TOL times
+    max(1, largest |want|)."""
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    if not err <= LM_TOL["float32"] * scale:
+        raise AssertionError(f"{what}: card and CPU differ by {err:.3g} "
+                             f"(tolerance {LM_TOL['float32']} x "
+                             f"{scale:.3g})")
+    return err
+
+
+def moe_small_serve(dev, arch, variant=""):
+    """24(a): `arch`'s smoke config (with `variant` "padded": MOE_PADDED)
+    in float32, card against CPU from the same parameters: a prefill and
+    MOE_SMALL_STEPS decode steps fed the same tokens, every step's
+    logits and the cache after them within LM_TOL, every router call's
+    routes equal (so its drops), one flash launch a layer in the prefill
+    and no plain call on the card."""
+    import numpy as np
+    import torch
+    import _torch_parity as tp
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+
+    tag = f"moe small {arch}{' ' + variant if variant else ''}"
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    if variant:
+        cfg = cfg.replace(moe=MoEConfig(**MOE_PADDED))
+    model = build_model(cfg)
+    cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    card = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    card.load_state_dict(cpu.state_dict())
+    b, l, steps = MOE_SMALL_BATCH, MOE_SMALL_PROMPT, MOE_SMALL_STEPS
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (b, l + steps)))
+    out = []
+    for d_, params in ((dev, card), ("cpu", cpu)):
+        reset_lm_counts()
+        with torch.inference_mode(), tp.RoutesRecorded() as r:
+            lg, cache = model.prefill_fn(params, {"tokens": toks[:, :l].to(
+                d_)}, l + steps)
+            logits = [lg.float().cpu()]
+            for i in range(steps):
+                lg, cache = model.decode_fn(params, cache, toks[
+                    :, l + i:l + i + 1].to(d_), l + i)
+                logits.append(lg.float().cpu())
+        out.append((logits, {k: c.float().cpu() for k, c in cache.items()},
+                    [i.cpu() for i in r.idx], lm_counts()))
+    (lc, cc, rc, (kc, pc)), (lp, cp, rp, _) = out
+    if kc[FLASH[0]] != cfg.n_layers or pc or kc[FLASH_BWD[0]]:
+        raise AssertionError(f"[{tag}] launches {kc}, {pc} plain calls on "
+                             f"the card; expected {cfg.n_layers} flash "
+                             f"forwards")
+    errs = [close_f32(a, b_, f"[{tag}] step {i} logits")
+            for i, (a, b_) in enumerate(zip(lc, lp))]
+    cerrs = {k: close_f32(cc[k], cp[k], f"[{tag}] cache {k}") for k in cc}
+    if len(rc) != len(rp) or not all(torch.equal(a, b_)
+                                     for a, b_ in zip(rc, rp)):
+        raise AssertionError(f"[{tag}] the card's routes differ from the "
+                             f"CPU's")
+    n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+    drops = drops_of(rc, cfg.moe)
+    log(f"[{tag}] smoke config float32, {cfg.moe.e_padded} experts "
+        f"({cfg.moe.n_experts} real), top {cfg.moe.top_k}, "
+        f"{'MLA, ' if cfg.mla else ''}{n_moe} MoE of {cfg.n_layers} "
+        f"layers, card against CPU: prefill of {b} x {l} and {steps} "
+        f"decode steps, logits max |diff| "
+        + ", ".join(f"{e:.3g}" for e in errs) + "; cache "
+        + ", ".join(f"{k} {e:.3g}" for k, e in cerrs.items())
+        + f" (within {LM_TOL['float32']} x max(1, largest |value|)); "
+        f"routes equal at all {len(rc)} router calls; slots dropped a "
+        f"layer in the prefill {drops[:n_moe]} of {b * l * cfg.moe.top_k} "
+        f"(capacity {moe.capacity(b * l, cfg.moe)}), in decode "
+        f"{sum(drops[n_moe:])}; {kc[FLASH[0]]} flash_attention launches, "
+        f"0 plain calls on the card")
+    return sum(drops[:n_moe])
+
+
+def moe_small_grads(dev, arch):
+    """24(a): `arch`'s smoke config in float32, card against CPU from the
+    same parameters: the loss, its terms ({"xent", "aux", "mtp"}) within
+    1e-4 relative, every parameter's gradient within LM_TOL, the routes
+    equal, and the card's flash launches (forward with the remat
+    recompute, backward) matched one for one by the CPU's plain calls."""
+    import torch
+    import _torch_parity as tp
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import flash_attention as pfa
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.model import build_model
+
+    tag = f"moe small {arch} loss"
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    model = build_model(cfg)
+    bt = host_batch(DataConfig(vocab=cfg.vocab, seq_len=64,
+                               global_batch=4), 0)
+    cpu = model.init_params(torch.Generator().manual_seed(0), "cpu",
+                            trainable=True)
+    card = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                             dev, trainable=True)
+    with torch.no_grad():
+        for a, b_ in zip(card.parameters(), cpu.parameters()):
+            a.copy_(b_)
+    res = []
+    for d_, params in ((dev, card), ("cpu", cpu)):
+        reset_lm_counts()
+        with tp.RoutesRecorded() as r:
+            loss, met = model.loss_fn(params, to_device(bt, d_))
+        named = dict(params.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        res.append(({"loss": float(loss.detach()),
+                     **{k: float(v.detach()) for k, v in met.items()}},
+                    [g.float().cpu() for g in grads],
+                    [i.cpu() for i in r.idx], lm_counts(), list(named)))
+    (mc, gc_, rc, (kc, _), names), (mp, gp, rp, _, _) = res
+    for k in mp:
+        if not abs(mc[k] - mp[k]) <= 1e-4 * abs(mp[k]):
+            raise AssertionError(f"[{tag}] {k}: card {mc[k]}, CPU {mp[k]}")
+    gerr = max(close_f32(a, b_, f"[{tag}] gradient of {n}")
+               for a, b_, n in zip(gc_, gp, names))
+    if not all(torch.equal(a, b_) for a, b_ in zip(rc, rp)):
+        raise AssertionError(f"[{tag}] the card's routes differ from the "
+                             f"CPU's")
+    fa = pfa.flash_attention
+    want = (fa.plain_calls, fa.bwd_plain_calls)
+    got = (kc[FLASH[0]], kc[FLASH_BWD[0]])
+    if got != want or not all(got):
+        raise AssertionError(f"[{tag}] card flash launches {got} (forward, "
+                             f"backward), CPU plain calls {want}")
+    log(f"[{tag}] smoke config float32, 4 x 64 tokens, card against CPU: "
+        + ", ".join(f"{k} {mc[k]:.6f} (CPU {mp[k]:.6f})" for k in mp)
+        + f"; every one of {len(gc_)} parameters' gradients within "
+        f"{gerr:.3g} (limit {LM_TOL['float32']} x max(1, largest "
+        f"|value|)); routes equal at {len(rc)} router calls; flash "
+        f"launches {got[0]} forward (remat recompute included) and "
+        f"{got[1]} backward, as many as the CPU's plain calls")
+
+
+def phase_moe_small(dev):
+    """24(a): the two smoke configs and Qwen2-MoE's padded, hierarchical
+    variant served card against CPU (`moe_small_serve`), DeepSeek-V3's
+    loss and gradients (`moe_small_grads`); the padded variant's prefill
+    must drop slots."""
+    moe_small_serve(dev, MOE_ARCH)
+    if not moe_small_serve(dev, MOE_ARCH, "padded"):
+        raise AssertionError("[moe small] the padded variant's prefill "
+                             "dropped no slot")
+    moe_small_serve(dev, MLA_ARCH)
+    moe_small_grads(dev, MLA_ARCH)
+
+
+def experts_bound(p, buf, filled):
+    """Bytes (the three expert weight stacks and the buffer read once,
+    the output written once) and operations (three products over the
+    `filled` slots the tokens fill) over the card's peaks, ms."""
+    e, c, d = buf.shape
+    f = p["wi"].shape[-1]
+    nbytes = (3 * e * d * f + 2 * e * c * d) * buf.element_size()
+    ops = 3 * 2 * d * f * filled
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+
+
+def moe_serve_full(dev, cfg, n_params, what=""):
+    """24(b), (c): `cfg` in bfloat16 through `generate` on the card,
+    MOE_BATCH requests x prompt MOE_PROMPT, MOE_GEN tokens: one
+    `flash_attention` launch a layer a prefill and no plain call; the
+    prefill and decode rates, peak memory and the slots each MoE layer
+    dropped in the prefill; the first layer's flash kernel on its own
+    tensors (against plain, SDPA and the bound); the first MoE layer's
+    expert products on its own buffer, timed and scaled to the prefill's
+    MoE layers; then the prefill and 8 decode steps under torch.profiler
+    (flash's share of the device time). Returns the generate run's
+    launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    import _torch_parity as tp
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model, count_params
+    from repro_torch.models.transformer import layer_counts
+
+    tag = f"serve {cfg.name}"
+    b, pl, gen = MOE_BATCH, MOE_PROMPT, MOE_GEN
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    torch.cuda.synchronize()
+    n = count_params(params)
+    n_dense, n_moe = layer_counts(cfg)
+    m = cfg.moe
+    log(f"[{tag}] {cfg.n_layers} layers{what} ({n_dense} dense, {n_moe} "
+        f"MoE: {m.e_padded} experts ({m.n_experts} real), top {m.top_k}, "
+        f"{m.n_shared} shared of {m.d_ff_expert}), "
+        + (f"MLA (q·k {cfg.mla.qk_nope_head_dim} + "
+           f"{cfg.mla.qk_rope_head_dim}, v {cfg.mla.v_head_dim}), "
+           if cfg.mla else "GQA, ")
+        + f"{'MTP, ' if cfg.use_mtp else ''}d_model {cfg.d_model}, "
+        f"{cfg.dtype}: {n} parameters initialised on the card in "
+        f"{time.perf_counter() - t0:.1f}s; memory_allocated "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    if n != n_params:
+        raise AssertionError(f"{tag}: {n} parameters, the reference counts "
+                             f"{n_params}")
+    serve.generate(cfg, batch=b, prompt_len=pl, gen=2, params=params,
+                   device=dev, log=lambda *a: None)       # warm-up
+    reset_lm_counts()
+    with tp.RoutesRecorded() as r:
+        toks, stats = serve.generate(cfg, batch=b, prompt_len=pl, gen=gen,
+                                     params=params, device=dev, log=log)
+    counts, plain = lm_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if counts[FLASH[0]] != cfg.n_layers or plain or any(
+            v for k, v in counts.items() if k != FLASH[0]):
+        raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
+                             f"calls; expected {cfg.n_layers} flash "
+                             f"forwards a prefill")
+    if toks.shape != (b, gen) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{tag}: tokens {toks.shape}")
+    if len(r.idx) != n_moe * gen:
+        raise AssertionError(f"{tag}: {len(r.idx)} router calls, expected "
+                             f"{n_moe * gen}")
+    drops = drops_of(r.idx, m)
+    slots = b * pl * m.top_k
+    cap = moe.capacity(b * pl, m)
+    del r
+    log(f"[{tag}] {b} requests x prompt {pl}, {gen} tokens each: prefill "
+        f"{stats['prefill_s'] * 1e3:.1f} ms = "
+        f"{b * pl / stats['prefill_s']:.1f} prefill tokens/s; {gen - 1} "
+        f"decode steps {stats['decode_s']:.3f}s = "
+        f"{(gen - 1) * b / stats['decode_s']:.1f} decode tokens/s "
+        f"({stats['decode_s'] / (gen - 1) * 1e3:.2f} ms a step); "
+        f"{counts[FLASH[0]]} flash_attention launches a prefill, 0 plain "
+        f"calls; max_memory_allocated {peak / 2**30:.2f} GiB ({peak} "
+        f"bytes); slots dropped a MoE layer in the prefill, of {slots} "
+        f"({m.e_padded} experts x capacity {cap} places): "
+        f"{drops[:n_moe]} (share {sum(drops[:n_moe]) / (slots * n_moe):.5f}"
+        f"); in {gen - 1} decode steps {sum(drops[n_moe:])}")
+
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, pl)), device=dev)
+    seen = capture_first_kernels(model, params, prompt, pl + gen)
+    (p, buf), _, _ = seen.pop("experts")
+    check_first_kernels(tag, seen)
+    del seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    filled = slots - drops[0]
+    ms = timed(lambda: moe.experts(p, buf), 5)
+    bb, bo = experts_bound(p, buf, filled)
+    log(f"[{tag}] the first MoE layer's expert products (3 torch.bmm on "
+        f"its ({buf.shape[0]}, {buf.shape[1]}, {buf.shape[2]}) buffer, "
+        f"{filled} of its {buf.shape[0] * buf.shape[1]} places filled): "
+        f"{ms:.4f} ms, bound {max(bb, bo):.4f} ms (bytes {bb:.4f}, "
+        f"operations {bo:.4f} over the filled places); x {n_moe} MoE "
+        f"layers = {ms * n_moe:.1f} ms = share "
+        f"{ms * n_moe / (stats['prefill_s'] * 1e3):.3f} of the prefill's "
+        f"{stats['prefill_s'] * 1e3:.1f} ms")
+    del p, buf
+    t0 = time.perf_counter()
+    run, wall, busy, rows = profiled(lambda: serve.generate(
+        cfg, batch=b, prompt_len=pl, gen=FULL_PROFILE_GEN, params=params,
+        device=dev, log=lambda *a: None), cpu=False)
+    if busy is None:
+        log(f"[{tag}] the profiler saw no device activity: device busy "
+            f"share not measured")
+    else:
+        log(f"[{tag}] under torch.profiler (prefill and "
+            f"{FULL_PROFILE_GEN - 1} decode steps): {wall:.2f}s wall "
+            f"(prefill {run[1]['prefill_s']:.3f}s, decode "
+            f"{run[1]['decode_s']:.3f}s inside generate), device busy "
+            f"{busy:.3f}s = share {busy / wall:.4f} of the wall; reading "
+            f"the trace took {time.perf_counter() - t0 - wall:.1f}s")
+        log_rows(tag, device_time_by_layer(tag, rows), 8)
+    del run, rows, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_moe_serve(dev):
+    """24(b): Qwen2-MoE-A2.7B at full width and depth; (c): DeepSeek-V3
+    at full width, MLA_LAYERS layers (`moe_serve_full`). Returns both
+    generate runs' launches."""
+    from repro_torch.configs.registry import get_config
+    counts = moe_serve_full(dev, get_config(MOE_ARCH), MOE_PARAMS)
+    cfg = get_config(MLA_ARCH).replace(n_layers=MLA_LAYERS)
+    for k, v in moe_serve_full(dev, cfg, MLA_PARAMS,
+                               " (of 61: cut to fit one card)").items():
+        counts[k] += v
+    return counts
+
+
+def phase_moe_train(dev):
+    """24(d): Qwen2-MoE-A2.7B at full width, MOE_TRAIN_LAYERS layers,
+    TRAIN_STEPS `train_loop` AdamW steps of 2 x 2,048 (`train_full`):
+    2 flash forwards (with the remat recompute) and 1 backward a layer a
+    step, no plain call, each step's xent, aux and loss finite, then a
+    profiled step. DeepSeek-V3's train step raises NotImplementedError
+    (Adafactor, 13d-ii). Returns the steps' launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    try:
+        make_train_step(build_model(get_config(MLA_ARCH)))
+    except NotImplementedError as e:
+        log(f"[train {MLA_ARCH}] refused, as it must be: {e}")
+    else:
+        raise AssertionError(f"[train {MLA_ARCH}] Adafactor on the moe "
+                             f"family was not refused")
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    n = cfg.n_layers
+    return train_full(dev, cfg, TRAIN_STEPS,
+                      {FLASH[0]: 2 * n, FLASH_BWD[0]: n, SSD[0]: 0,
+                       SSD_BWD[0]: 0}, MOE_TRAIN_PARAMS,
+                      what=" (of 24: cut for AdamW's memory)",
+                      batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ)
+
+
+# ------------------------------------------------------- CPU halves aside
+# The CPU halves of phases 4, 11 and 18(a) are small plans on the plain
+# path: single-threaded eager torch, 45-70 s each (240 s in all on a slow
+# host), and independent of the card. They run in spawned worker
+# processes, started after the build, beside the card's phases; each
+# phase collects its result where it compares it with the card's run.
+CPU_HALVES = ("small", "resilient unprotected", "resilient dmr",
+              "small at 4 shards")
+
+
+def run_cpu_half(name):
+    """One of CPU_HALVES on the CPU, one thread (in a worker process):
+    (its groups' results and carbon and its PackedStats, wall seconds)."""
+    import types
+
+    import torch
+    from repro_torch.fleet import run_plan
+    torch.set_num_threads(1)        # small tensors: one thread is fastest
+    if name.startswith("resilient "):
+        plan, kw = resilient_plans()[name.split()[1]], {"device": "cpu"}
+    else:
+        plan = three_group_plan(256)
+        kw = ({"mesh": ["cpu"] * 4} if name == "small at 4 shards" else
+              {"device": "cpu"})
+    t0 = time.perf_counter()
+    rep = run_plan(plan, keep_state=True, power_w=0.0, **kw)
+    wall = time.perf_counter() - t0
+    return types.SimpleNamespace(
+        groups=[types.SimpleNamespace(result=g.result, total_kg=g.total_kg)
+                for g in rep.groups], packed=rep.packed), wall
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4145,12 +4575,27 @@ def main() -> int:
                 f"static shared memory, spill stores {st} / loads {ld} "
                 f"bytes")
 
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(len(CPU_HALVES), multiprocessing.get_context(
+            "spawn")) as pool:
+        try:
+            cpu_runs = {n: pool.submit(run_cpu_half, n) for n in CPU_HALVES}
+            return run_phases(dev, smi, cpu_runs)
+        finally:
+            pool.shutdown(cancel_futures=True)
+
+
+def run_phases(dev, smi, cpu_runs) -> int:
+    """Phases 3-24 and the closing lines; `cpu_runs`: CPU_HALVES' futures
+    by name."""
+    import torch
     rec = {}
     t0 = time.perf_counter()
     phase_kernels(dev, rec)
     log(f"[kernels] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    small_rep = phase_small_plan(dev)
+    small_rep = phase_small_plan(dev, cpu_runs)
     log(f"[small plan] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     counts, main_rep = phase_main(dev)
@@ -4171,7 +4616,7 @@ def main() -> int:
     phase_fault_kernel(dev, rec)
     log(f"[fault kernel] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    phase_small_resilient(dev)
+    phase_small_resilient(dev, cpu_runs)
     log(f"[small resilient] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     counts[SEG_FAULTS[0]] = phase_main_resilient(dev, main_rep)
@@ -4192,7 +4637,7 @@ def main() -> int:
     phase_checkpoint(dev, main_rep)
     log(f"[checkpoint] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    phase_shards(dev, small_rep, main_rep)
+    phase_shards(dev, small_rep, main_rep, cpu_runs)
     log(f"[shards] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     counts[SEG[0]] += phase_spoilage(dev, smi)
@@ -4226,6 +4671,12 @@ def main() -> int:
         for k, v in part(dev).items():
             counts[k] = counts.get(k, 0) + v
     log(f"[gemma3] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_moe_small(dev)
+    for part in (phase_moe_serve, phase_moe_train):
+        for k, v in part(dev).items():
+            counts[k] = counts.get(k, 0) + v
+    log(f"[moe] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []

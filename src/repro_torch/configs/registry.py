@@ -2,11 +2,12 @@
 their smoke variants.
 
 A copy of the reference's registry that resolves only the families the
-port has: `hybrid` (Zamba2), `dense` (Qwen2, Qwen2.5, Minitron) and
-`ssm` (Mamba2); Gemma3 is the dense family with 5:1 local:global
-attention. The reference's other architectures are known by name
-and raise NotImplementedError, naming the open item that ports them,
-until they are ported.
+port has: `hybrid` (Zamba2), `dense` (Qwen2, Qwen2.5, Minitron; Gemma3,
+the dense family with 5:1 local:global attention), `ssm` (Mamba2) and
+`moe` (Qwen2-MoE; DeepSeek-V3, with multi-head latent attention and
+multi-token prediction). The reference's other architectures (the VLM
+and audio families) are known by name and raise NotImplementedError,
+naming the open item that ports them, until they are ported.
 """
 from __future__ import annotations
 
@@ -21,13 +22,13 @@ _MODULES = {
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
 # the reference's other architectures, still to port, and the open item
 # of ROADMAP.md that ports each
-_UNPORTED = {"qwen2-moe-a2.7b": "13d",
-             "deepseek-v3-671b": "13d", "llava-next-34b": "13e",
-             "whisper-tiny": "13e"}
+_UNPORTED = {"llava-next-34b": "13e", "whisper-tiny": "13e"}
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -32,17 +32,21 @@ and `hybrid_cache_to_torch` carry the decode cache between the port's
 per-layer stacks and the reference's `group_states` / `tail_states` /
 `attn_k` / `attn_v`.
 
-For the dense decoder and the Mamba2 LM, `decoder_params_to_torch` and
-`ssm_params_to_torch` unstack the reference's `dense_layers` and
-`layers` (n_layers, ...) into one block each (the QKV bias and, where
-the embedding is tied, no `lm_head` included), under the same bfloat16
-rule. With local:global attention (`global_every` g > 1, Gemma3) the
-reference stacks `dense_layers`, and its cache, on (n_groups, g, ...)
-axes: layer i is [i // g, i % g]. `decoder_cache_to_numpy/_to_torch`
-carry the K/V cache between the port's `{"k", "v"}`, (n_layers, ...),
-and the reference's `{"dense": {"k", "v"}}`, and
-`ssm_cache_to_numpy/_to_torch` the state between the port's stacked
-leaves and the reference's `{"states": {...}}`.
+For the decoder (the dense and MoE families) and the Mamba2 LM,
+`decoder_params_to_torch` and `ssm_params_to_torch` unstack the
+reference's `dense_layers`, `moe_layers` and `layers` (n_layers, ...)
+into one block each, the dense layers first (the QKV bias, MoE's shared
+experts, the MTP head and, where the embedding is tied, no `lm_head`
+included), under the same bfloat16 rule; the MoE router stays float32
+whatever the model's dtype, as the Mamba leaves do (`F32_NAMES`). With
+local:global attention (`global_every` g > 1, Gemma3) the reference
+stacks `dense_layers`, and its cache, on (n_groups, g, ...) axes: layer
+i is [i // g, i % g]. `decoder_cache_to_numpy/_to_torch` carry the cache
+between the port's one stack a leaf, (n_layers, ...): `{"k", "v"}`, or
+MLA's `{"c_kv", "k_rope"}`, and the reference's `{"dense": ..., "moe":
+...}` of the same leaves; `ssm_cache_to_numpy/_to_torch` the state
+between the port's stacked leaves and the reference's `{"states":
+{...}}`.
 
 For training, `lm_params_to_numpy` is the inverse of the three
 parameter converters: a `{port name: tensor}` dict (a module's
@@ -73,9 +77,15 @@ from repro_torch.flexibits.faults import FaultSpec
 from repro_torch.flexibits.cycles import CORES
 from repro_torch.flexibits.iss import ISSState, PackedState
 from repro_torch.kernels.carbon_sweep import SweepAcc
+from repro_torch.models import moe
 from repro_torch.models.hybrid import F32_LEAVES, HybridLM, split_counts
 from repro_torch.models.ssm import SSMLM
-from repro_torch.models.transformer import DecoderLM, torch_dtype
+from repro_torch.models.transformer import (DecoderLM, layer_counts,
+                                            torch_dtype)
+
+# the leaves that stay float32 whatever the model's dtype: the Mamba
+# layers' and the MoE router
+F32_NAMES = F32_LEAVES + moe.F32_LEAVES
 
 _ACC_ITEM_LEAVES = ("n_instr", "n_two", "n_cycles", "halted", "out",
                     "mems", "regs", "pc", "mix_items")
@@ -194,7 +204,7 @@ def _params_to_torch(dev, dtype):
     """Functions carrying a parameter subtree (nested dicts of numpy)
     to torch, and taking index `idx` of every leaf of a stacked one."""
     def leaf(x, name):
-        dt = torch.float32 if name in F32_LEAVES else dtype
+        dt = torch.float32 if name in F32_NAMES else dtype
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, dt)
 
     def conv(tree):
@@ -241,14 +251,20 @@ def _group(cfg) -> int:
 
 def decoder_params_to_torch(params, cfg, device: DeviceLike = None
                             ) -> DecoderLM:
-    """The reference's dense decoder parameters (`init_decoder`'s pytree,
-    numpy) -> the port's `DecoderLM` on `device`."""
+    """The reference's decoder parameters (`init_decoder`'s pytree,
+    numpy: `dense_layers`, `moe_layers`, `mtp`) -> the port's
+    `DecoderLM` on `device`."""
     leaf, conv, take = _params_to_torch(resolve(device), torch_dtype(cfg))
     g = _group(cfg)
+    n_dense, n_moe = layer_counts(cfg)
     layers = [conv(take(params["dense_layers"],
                         *(divmod(i, g) if g > 1 else (i,))))
-              for i in range(cfg.n_layers)]
-    return DecoderLM(_lm_params(params, layers, leaf))
+              for i in range(n_dense)]
+    layers += [conv(take(params["moe_layers"], i)) for i in range(n_moe)]
+    out = _lm_params(params, layers, leaf)
+    if "mtp" in params:
+        out["mtp"] = conv(params["mtp"])
+    return DecoderLM(out)
 
 
 def ssm_params_to_torch(params, cfg, device: DeviceLike = None) -> SSMLM:
@@ -302,25 +318,43 @@ def hybrid_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
     return out
 
 
+def _cache_keys(cfg):
+    return ("c_kv", "k_rope") if cfg.mla else ("k", "v")
+
+
 def decoder_cache_to_numpy(cache, cfg) -> dict:
-    """The port's dense K/V cache -> the reference's layout, float32."""
+    """The port's decoder cache -> the reference's layout, float32: the
+    dense layers' part under "dense" (grouped as its parameters), the
+    MoE layers' under "moe"."""
     g = _group(cfg)
+    n_dense, n_moe = layer_counts(cfg)
 
     def grouped(x):
         return x.reshape((-1, g) + x.shape[1:]) if g > 1 else x
-    return {"dense": {k: grouped(_f32(cache[k])) for k in ("k", "v")}}
+    out = {}
+    if n_dense:
+        out["dense"] = {k: grouped(_f32(cache[k][:n_dense]))
+                        for k in _cache_keys(cfg)}
+    if n_moe:
+        out["moe"] = {k: _f32(cache[k][n_dense:]) for k in _cache_keys(cfg)}
+    return out
 
 
 def decoder_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
-    """A dense cache in the reference's layout (numpy; bfloat16 leaves as
-    float32) -> the port's, on `device`."""
+    """A decoder cache in the reference's layout (numpy; bfloat16 leaves
+    as float32) -> the port's, on `device`."""
     dev, dtype = resolve(device), torch_dtype(cfg)
 
     def flat(x):
         x = np.asarray(x, np.float32)
         return x.reshape((-1,) + x.shape[2:]) if _group(cfg) > 1 else x
-    return {k: _from_f32(flat(cache["dense"][k]), dev, dtype)
-            for k in ("k", "v")}
+    out = {}
+    for k in _cache_keys(cfg):
+        parts = [flat(cache["dense"][k])] if "dense" in cache else []
+        if "moe" in cache:
+            parts.append(np.asarray(cache["moe"][k], np.float32))
+        out[k] = _from_f32(np.concatenate(parts), dev, dtype)
+    return out
 
 
 def ssm_cache_to_numpy(cache, cfg) -> dict:
@@ -341,6 +375,7 @@ def ssm_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
 # --------------------------------------------------------------- training
 
 _PARAMS_TO_TORCH = {"dense": decoder_params_to_torch,
+                    "moe": decoder_params_to_torch,
                     "hybrid": hybrid_params_to_torch,
                     "ssm": ssm_params_to_torch}
 
@@ -377,15 +412,20 @@ def lm_params_to_numpy(named: dict, cfg) -> dict:
     def layers(key):
         return [nested[key][str(i)] for i in range(len(nested[key]))]
 
-    out = {k: nested[k] for k in ("embed", "final_norm", "lm_head")
+    out = {k: nested[k] for k in ("embed", "final_norm", "lm_head", "mtp")
            if k in nested}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         g = _group(cfg)
-        out["dense_layers"] = _stack(layers("layers"))
-        if g > 1:
-            out["dense_layers"] = _map(
-                lambda v: v.reshape((-1, g) + v.shape[1:]),
-                out["dense_layers"])
+        n_dense, n_moe = layer_counts(cfg)
+        blocks = layers("layers")
+        if n_dense:
+            out["dense_layers"] = _stack(blocks[:n_dense])
+            if g > 1:
+                out["dense_layers"] = _map(
+                    lambda v: v.reshape((-1, g) + v.shape[1:]),
+                    out["dense_layers"])
+        if n_moe:
+            out["moe_layers"] = _stack(blocks[n_dense:])
     elif cfg.family == "ssm":
         out["layers"] = _stack(layers("layers"))
     elif cfg.family == "hybrid":

@@ -1,10 +1,11 @@
 """Batched serving loop: prefill + decode with a KV cache, greedy sampling
 (a port of the reference's `launch/serve.py`).
 
-Serves the dense (qwen2-1.5b, qwen2.5-14b, minitron-8b), hybrid
-(zamba2-7b) and ssm (mamba2-1.3b) architectures, with random parameters
-from a seed. Usage (on the card; `--device cpu` runs the kernels' plain
-versions):
+Serves the dense (qwen2-1.5b, qwen2.5-14b, minitron-8b, gemma3-12b),
+moe (qwen2-moe-a2.7b, deepseek-v3-671b: its 61 layers do not fit one
+card, `--smoke`), hybrid (zamba2-7b) and ssm (mamba2-1.3b)
+architectures, with random parameters from a seed. Usage (on the card;
+`--device cpu` runs the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --smoke --batch 4 --prompt-len 16 --gen 16
 """

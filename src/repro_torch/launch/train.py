@@ -12,6 +12,10 @@ dict, `params/<name>`, `opt/<key>[/<name>...]` and `step`, through
 A step's `dt` is the wall time from the step's start to the loss's
 `.item()`, as the reference measures it up to `float(loss)`.
 
+Every served arch trains (`--arch qwen2-moe-a2.7b` among them) but
+DeepSeek-V3, whose Adafactor on the MoE family `launch/steps.py` refuses
+(ROADMAP.md, open item 13d-ii).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
       --smoke --steps 20 --ckpt-dir /tmp/ckpt [--batch 8 --seq 128] \
@@ -97,7 +101,9 @@ def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt_dir: str,
                log=print, device: DeviceLike = None, seed: int = 0):
     """Train `cfg` from step 0, or from the newest checkpoint in
     `ckpt_dir`, to `steps`, saving every `ckpt_every` steps and at the
-    end. Returns {"losses", "flagged", "params", "opt_state", "dts"}."""
+    end. Returns {"losses", "flagged", "params", "opt_state", "dts",
+    "metrics"}: "metrics" holds each step's loss terms ("xent", and
+    "aux", "mtp" where the model has them) as floats."""
     dev = resolve(device)
     model = build_model(cfg)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
@@ -115,7 +121,7 @@ def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt_dir: str,
         log(f"[train] resumed from step {start_step}")
 
     watchdog = StragglerWatchdog()
-    losses, dts = [], []
+    losses, dts, terms = [], [], []
     for step in range(start_step, steps):
         bt = to_device(host_batch(dcfg, step), dev)
         t0 = time.perf_counter()
@@ -125,6 +131,8 @@ def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt_dir: str,
         slow = watchdog.observe(step, dt)
         losses.append(loss)
         dts.append(dt)
+        terms.append({k: float(metrics[k]) for k in ("xent", "aux", "mtp")
+                      if k in metrics})
         log(f"[train] step={step} loss={loss:.4f} dt={dt * 1e3:.0f}ms"
             + (" SLOW" if slow else ""))
         if ckpt_dir and (step + 1) % ckpt_every == 0:
@@ -133,7 +141,7 @@ def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt_dir: str,
     if ckpt_dir:
         ckpt.save(ckpt_dir, steps, flat_state(params, opt_state, steps))
     return {"losses": losses, "flagged": watchdog.flagged, "params": params,
-            "opt_state": opt_state, "dts": dts}
+            "opt_state": opt_state, "dts": dts, "metrics": terms}
 
 
 def main(argv=None):

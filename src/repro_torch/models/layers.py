@@ -1,6 +1,6 @@
 """Core layers: norms, RoPE, GQA attention (the plain and chunked plain
 versions for prefill, the cache version for decode), the QKV projection
-with its optional bias, and the SwiGLU MLP.
+with its optional bias, and the SwiGLU MLP with its initialisation.
 
 A port of the reference's `models/layers.py` for the serving paths. All
 attention math accumulates in float32; parameters and activations are
@@ -190,6 +190,24 @@ def attn_qkv(p, x, positions, theta):
 
 def attn_out(p, o):
     return torch.einsum("blhk,hkd->bld", o, p["wo"])
+
+
+def randn(shape, scale, dtype, generator, device) -> torch.Tensor:
+    """N(0, scale^2) drawn in float32 from `generator` on `device`, cast
+    to `dtype`."""
+    return (torch.randn(shape, generator=generator, device=device,
+                        dtype=F32) * scale).to(dtype)
+
+
+def init_mlp(d_model: int, d_ff: int, dtype, generator, device):
+    """The reference's `init_mlp` scales: {wi, wg} (D, F) at D^-0.5, wo
+    (F, D) at F^-0.5."""
+    return {"wi": randn((d_model, d_ff), d_model ** -0.5, dtype, generator,
+                        device),
+            "wg": randn((d_model, d_ff), d_model ** -0.5, dtype, generator,
+                        device),
+            "wo": randn((d_ff, d_model), d_ff ** -0.5, dtype, generator,
+                        device)}
 
 
 def mlp(p, x):

@@ -1,9 +1,10 @@
 """API of the port's models: build_model(config) -> Model with
 init/loss/cache/prefill/decode functions, as the reference's
-`build_model` lays them out. The port serves the `dense` (Qwen2, Qwen2.5, Minitron),
-`hybrid` (Zamba2) and `ssm` (Mamba2) families; the reference's `moe`,
-`vlm` and `audio` families raise NotImplementedError, naming the open
-item of ROADMAP.md that ports each."""
+`build_model` lays them out. The port serves the `dense` (Qwen2,
+Qwen2.5, Minitron, Gemma3), `moe` (Qwen2-MoE, DeepSeek-V3), `hybrid`
+(Zamba2) and `ssm` (Mamba2) families; the reference's `vlm` and `audio`
+families raise NotImplementedError, naming the open item of ROADMAP.md
+that ports each."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,7 +15,7 @@ from repro_torch.models import hybrid as HY
 from repro_torch.models import ssm as SM
 from repro_torch.models import transformer as TF
 
-_UNPORTED = {"moe": "13d", "vlm": "13e", "audio": "13e"}
+_UNPORTED = {"vlm": "13e", "audio": "13e"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +23,8 @@ class Model:
     """`init_params(generator=None, device=None, trainable=False)` ->
     parameters module (frozen unless `trainable`);
     `loss_fn(params, {"tokens", "targets"[, "mask"]})` -> (loss,
-    {"xent": loss});
+    {"xent"[, "aux"][, "mtp"]}) (the MoE family's router aux loss and
+    multi-token prediction loss where its config has them);
     `init_cache(batch, seq_len, device=None)`;
     `prefill_fn(params, {"tokens": (B, L)}, seq_len)` -> (logits, cache);
     `decode_fn(params, cache, tokens (B, 1), pos)` -> (logits, cache),
@@ -40,11 +42,9 @@ def build_model(cfg: ModelConfig) -> Model:
     if fam in _UNPORTED:
         raise NotImplementedError(
             f"family {fam!r} is not ported yet: the port serves the dense, "
-            f"hybrid and ssm families (ROADMAP.md, open item "
+            f"moe, hybrid and ssm families (ROADMAP.md, open item "
             f"{_UNPORTED[fam]})")
-    if fam == "dense":
-        TF.check_served(cfg)
-
+    if fam in ("dense", "moe"):
         def init_params(generator=None, device=None, trainable=False):
             return TF.init_decoder(cfg, generator, device, trainable)
 

@@ -1,17 +1,25 @@
-"""Decoder-only LM, the dense family (Qwen2, Qwen2.5, Minitron, and
-Gemma3 with its 5:1 local:global attention): a port
-of the reference's `models/transformer.py` for serving and training
-(`decoder_loss`, `softmax_xent`), and the blocks the hybrid's shared
-attention reuses.
+"""Decoder-only LM, the dense and MoE families (Qwen2, Qwen2.5,
+Minitron, Gemma3 with its 5:1 local:global attention; Qwen2-MoE, and
+DeepSeek-V3 with multi-head latent attention and multi-token
+prediction): a port of the reference's `models/transformer.py` for
+serving and training (`decoder_loss`, `softmax_xent`), and the blocks
+the hybrid's shared attention reuses.
 
-The model is a `DecoderLM` module: `embed`, `layers` (one `DenseBlock`
-per layer: the reference's `dense_layers` stacked on a leading layer
-axis, or on (n_groups, global_every) axes with local:global attention,
-unstacked), `final_norm`, and `lm_head` only when the embedding is not
-tied (tied: the logits use `embed.T`). The cache keeps every layer's K
-and V stacked on a leading layer axis, (n_layers, B, S, Hkv, D) (the
-reference groups it as the parameters; `convert.py` maps the layouts);
-prefill fills a preallocated cache and decode updates it in place. With
+The model is a `DecoderLM` module: `embed`, `layers`, `final_norm`,
+`lm_head` only when the embedding is not tied (tied: the logits use
+`embed.T`), and `mtp` {`proj`, `layer`, `norm`} with multi-token
+prediction. `layers` holds the reference's `dense_layers` (stacked on a
+leading layer axis, or on (n_groups, global_every) axes with
+local:global attention) unstacked, one `DenseBlock` each, then its
+`moe_layers`, one `MoEBlock` each (`layer_counts`: an MoE config's
+`n_dense_layers` lead). A block's attention is GQA, or MLA where
+`cfg.mla` (`models/mla.py`); an `MoEBlock`'s FFN is `models/moe.py`'s,
+whose router aux losses `decoder_hidden` sums. The cache keeps every
+layer's entries stacked on a leading layer axis: K and V (n_layers, B,
+S, Hkv, D), or MLA's latents c_kv (n_layers, B, S, kv_lora_rank) and
+k_rope (n_layers, B, S, rope_dim) (the reference groups it as the
+parameters, `dense` and `moe`; `convert.py` maps the layouts); prefill
+fills a preallocated cache and decode updates it in place. With
 `global_every` g > 1 and a `window`, layer i is local, attending to the
 last `window` positions, unless i % g == g - 1 (`layer_windows`, the
 reference's pattern); like the reference's, the cache holds every
@@ -21,18 +29,20 @@ has no scan).
 
 Prefill attention runs through `kernels/ops.gqa_flash_attention`: the
 `flash_attention` kernel on the card, its plain version on the CPU, at
-the tile of the reference's chunked attention, `min(cfg.attn_chunk, L)`.
+the tile of the reference's chunked attention, `min(cfg.attn_chunk, L)`
+(MLA's at the q·k width with V zero-padded to it, 192 for DeepSeek-V3).
 `cfg.attn_impl` and `cfg.prefill_triangle_skip` pick among the
 reference's jnp forms of that one function (plain, chunked over every KV
 tile, chunked up to the diagonal); on the card every one of them runs
 the kernel, which stops at the diagonal as the reference's Pallas kernel
 does. On the CPU `attn_impl="plain"` runs `layers.plain_attention`, the
-rest the kernel's plain version. A local layer passes its window to the
-kernel, which then also reads no key below the reference's windowed
-chunk bound (`kernels/flash_attention.py`); `attn_impl="plain"` has an
-exact window with no tile bound, which the kernel gives at a tile of 1
-on the card. Decode is plain torch, as in the reference, each layer
-masked by its own window.
+rest the kernel's plain version (MLA ignores `attn_impl`, as the
+reference's does). A local layer passes its window to the kernel, which
+then also reads no key below the reference's windowed chunk bound
+(`kernels/flash_attention.py`); `attn_impl="plain"` has an exact window
+with no tile bound, which the kernel gives at a tile of 1 on the card.
+Decode is plain torch, as in the reference, each layer masked by its
+own window; MLA's is absorbed, in float32.
 
 Training: parameters are built frozen for serving; `trainable=True` (or
 `requires_grad_()` on the module) makes them trainable. The loss runs
@@ -41,10 +51,11 @@ kernel on the card (`kernels/flash_attention.py::FlashAttention`). With
 `cfg.remat` and autograd recording, each layer runs under
 `torch.utils.checkpoint` (`remat`), as the reference's `jax.checkpoint`
 wraps each layer: its activations are recomputed in the backward.
+`decoder_loss` adds the router aux loss (MoE) and the multi-token
+prediction loss (MTP) to the cross-entropy, as the reference's does.
 
-Not served yet, each raising NotImplementedError with its open item of
-ROADMAP.md: MoE, MLA and multi-token prediction (13d), prepended patches
-(13e).
+Not served yet: prepended patches (the VLM family), which raise
+NotImplementedError naming ROADMAP.md's open item 13e.
 """
 from __future__ import annotations
 
@@ -58,6 +69,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 
 VOCAB_PAD = 256
 F32 = torch.float32
@@ -78,9 +91,10 @@ def frozen(params: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class DenseBlock(nn.Module):
-    """One attention + MLP block: `ln1`, `attn` {wq, wk, wv, wo, and
-    bq, bk, bv with a QKV bias}, `ln2`, `mlp` {wi, wg, wo}, as the
-    reference's `init_dense_layer` lays them out."""
+    """One attention + MLP block: `ln1`, `attn` (GQA: {wq, wk, wv, wo,
+    and bq, bk, bv with a QKV bias}; MLA: `mla.init_mla`'s leaves),
+    `ln2`, `mlp` {wi, wg, wo}, as the reference's `init_dense_layer`
+    lays them out."""
 
     def __init__(self, params: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
@@ -90,28 +104,55 @@ class DenseBlock(nn.Module):
         self.mlp = frozen(params["mlp"])
 
 
+class MoEBlock(nn.Module):
+    """One attention + MoE block: `ln1`, `attn` (as `DenseBlock`'s),
+    `ln2`, `moe` (`moe.MoEParams`), as the reference's `init_moe_layer`
+    lays them out."""
+
+    def __init__(self, params: Dict):
+        super().__init__()
+        self.ln1 = nn.Parameter(params["ln1"], requires_grad=False)
+        self.attn = frozen(params["attn"])
+        self.ln2 = nn.Parameter(params["ln2"], requires_grad=False)
+        self.moe = MOE.MoEParams(params["moe"])
+
+
+class MTPHead(nn.Module):
+    """Depth-1 multi-token prediction: `proj` (2 D, D), `layer` (a dense
+    `DenseBlock`) and `norm`."""
+
+    def __init__(self, params: Dict):
+        super().__init__()
+        self.proj = nn.Parameter(params["proj"], requires_grad=False)
+        self.layer = DenseBlock(params["layer"])
+        self.norm = nn.Parameter(params["norm"], requires_grad=False)
+
+
 class DecoderLM(nn.Module):
-    """The dense decoder's parameters (inference only)."""
+    """The decoder's parameters (inference only): a block a layer, the
+    dense ones first, and the MTP head where the parameters have one."""
 
     def __init__(self, params: Dict):
         super().__init__()
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
-        self.layers = nn.ModuleList(DenseBlock(p) for p in params["layers"])
+        self.layers = nn.ModuleList(
+            MoEBlock(p) if "moe" in p else DenseBlock(p)
+            for p in params["layers"])
         self.final_norm = nn.Parameter(params["final_norm"],
                                        requires_grad=False)
         if "lm_head" in params:
             self.lm_head = nn.Parameter(params["lm_head"],
                                         requires_grad=False)
+        if "mtp" in params:
+            self.mtp = MTPHead(params["mtp"])
 
 
-def check_served(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the dense decoder does not
-    serve yet, naming the open item of ROADMAP.md that ports it."""
-    for what in ("moe", "mla", "use_mtp"):
-        if getattr(cfg, what):
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP.md, open "
-                f"item 13d)")
+def layer_counts(cfg: ModelConfig):
+    """(dense layers, MoE layers): an MoE config's `n_dense_layers` lead,
+    the rest are MoE; every layer of a config without MoE is dense."""
+    if cfg.moe is None:
+        return cfg.n_layers, 0
+    return cfg.moe.n_dense_layers, cfg.n_layers - cfg.moe.n_dense_layers
 
 
 def _no_patches(patches) -> None:
@@ -121,17 +162,18 @@ def _no_patches(patches) -> None:
                                   "13e)")
 
 
-def init_dense_layer(cfg: ModelConfig, dtype, generator, device
-                     ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Random parameters at the reference's scales (its `init_attn`, with
-    the QKV bias's zeros where `cfg.qkv_bias`, and `init_mlp`), drawn
-    from `generator` on `device`."""
+def init_attention(cfg: ModelConfig, dtype, generator, device
+                   ) -> Dict[str, torch.Tensor]:
+    """A block's attention at the reference's scales: MLA's (`init_mla`)
+    where `cfg.mla`, else GQA's (its `init_attn`, with the QKV bias's
+    zeros where `cfg.qkv_bias`)."""
     d, h, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    hd, ff = cfg.resolved_head_dim, cfg.d_ff
+    if cfg.mla:
+        return MLA.init_mla(d, h, cfg.mla, dtype, generator, device)
+    hd = cfg.resolved_head_dim
 
     def mat(shape, scale):
-        return (torch.randn(shape, generator=generator, device=device,
-                            dtype=F32) * scale).to(dtype)
+        return L.randn(shape, scale, dtype, generator, device)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -142,10 +184,24 @@ def init_dense_layer(cfg: ModelConfig, dtype, generator, device
             "wo": mat((h, hd, d), d ** -0.5)}
     if cfg.qkv_bias:
         attn.update(bq=zeros(h, hd), bk=zeros(hkv, hd), bv=zeros(hkv, hd))
-    return {"ln1": zeros(d), "attn": attn, "ln2": zeros(d),
-            "mlp": {"wi": mat((d, ff), d ** -0.5),
-                    "wg": mat((d, ff), d ** -0.5),
-                    "wo": mat((ff, d), ff ** -0.5)}}
+    return attn
+
+
+def init_dense_layer(cfg: ModelConfig, dtype, generator, device,
+                     moe: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A block's random parameters at the reference's scales
+    (`init_attention`, then its `init_mlp`, or with `moe` its `init_moe`,
+    the router float32), drawn from `generator` on `device`."""
+    zeros = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    p = {"ln1": zeros, "attn": init_attention(cfg, dtype, generator, device),
+         "ln2": zeros.clone()}
+    if moe:
+        p["moe"] = MOE.init_moe(cfg.d_model, cfg.moe, dtype, generator,
+                                device)
+    else:
+        p["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, dtype, generator,
+                              device)
+    return p
 
 
 def init_decoder(cfg: ModelConfig,
@@ -154,9 +210,9 @@ def init_decoder(cfg: ModelConfig,
                  trainable: bool = False) -> DecoderLM:
     """Random parameters at the reference's scales, drawn on the device
     from `generator` (a fresh one seeded 0 when None), frozen unless
-    `trainable`. Each matrix is drawn in float32 and cast, so the largest
-    transient is the float32 embedding."""
-    check_served(cfg)
+    `trainable`. Each matrix is drawn in float32 and cast (an expert
+    stack one expert at a time), so the largest transient is the float32
+    embedding."""
     dev = resolve(device)
     g = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
@@ -172,8 +228,15 @@ def init_decoder(cfg: ModelConfig,
                                         device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = mat((cfg.d_model, vp), cfg.d_model ** -0.5)
-    params["layers"] = [init_dense_layer(cfg, dtype, g, dev)
-                        for _ in range(cfg.n_layers)]
+    n_dense, n_moe = layer_counts(cfg)
+    params["layers"] = [init_dense_layer(cfg, dtype, g, dev, moe=i >= n_dense)
+                        for i in range(n_dense + n_moe)]
+    if cfg.use_mtp:
+        d = cfg.d_model
+        params["mtp"] = {"proj": mat((2 * d, d), (2 * d) ** -0.5),
+                         "layer": init_dense_layer(cfg.replace(moe=None),
+                                                   dtype, g, dev),
+                         "norm": torch.zeros((d,), dtype=dtype, device=dev)}
     return DecoderLM(params).requires_grad_(trainable)
 
 
@@ -211,12 +274,16 @@ def layer_windows(cfg: ModelConfig) -> list:
     return [cfg.window if i % g < g - 1 else 0 for i in range(cfg.n_layers)]
 
 
-def _self_attention(p: DenseBlock, cfg: ModelConfig, h, positions,
-                    window: int = 0):
-    """The attention half of a block: (h + attention, k, v), k rotated
-    as the cache keeps it. `window`: the layer's sliding window (0:
-    global)."""
+def _attention(p, cfg: ModelConfig, h, positions, window: int = 0):
+    """The attention half of a block: (h + attention, the entries the
+    cache keeps of it): GQA's {"k" (rotated), "v"}, or MLA's {"c_kv",
+    "k_rope"}. `window`: the layer's sliding window (0: global)."""
     x = L.rms_norm(h, p.ln1, cfg.rms_eps)
+    if cfg.mla:
+        o, (c_kv, k_rope) = MLA.mla_forward(p.attn, x, cfg.mla,
+                                            cfg.rope_theta,
+                                            chunk=cfg.attn_chunk)
+        return h + o, {"c_kv": c_kv, "k_rope": k_rope}
     q, k, v = L.attn_qkv(p.attn, x, positions, cfg.rope_theta)
     if cfg.attn_impl == "plain" and h.device.type == "cpu":
         o = L.plain_attention(q, k, v, causal=True, window=window)
@@ -226,30 +293,43 @@ def _self_attention(p: DenseBlock, cfg: ModelConfig, h, positions,
         t = 1 if window and cfg.attn_impl == "plain" else cfg.attn_chunk
         o = ops.gqa_flash_attention(q, k, v, causal=True, tq=t, tk=t,
                                     window=window, device=h.device)
-    return h + L.attn_out(p.attn, o), k, v
+    return h + L.attn_out(p.attn, o), {"k": k, "v": v}
 
 
-def attn_block(p: DenseBlock, cfg: ModelConfig, h, *, positions):
-    return _self_attention(p, cfg, h, positions)[0]
+def attn_block(p, cfg: ModelConfig, h, *, positions):
+    return _attention(p, cfg, h, positions)[0]
 
 
-def ffn_block(p: DenseBlock, cfg: ModelConfig, h):
+def ffn_aux(p, cfg: ModelConfig, h):
+    """The FFN half of a block: (h + FFN, the router's aux loss, None
+    for a dense block)."""
     x = L.rms_norm(h, p.ln2, cfg.rms_eps)
-    return h + L.mlp(p.mlp, x)
+    if isinstance(p, MoEBlock):
+        o, aux = MOE.moe_ffn(p.moe, x, cfg.moe)
+        return h + o, aux
+    return h + L.mlp(p.mlp, x), None
+
+
+def ffn_block(p, cfg: ModelConfig, h):
+    return ffn_aux(p, cfg, h)[0]
 
 
 # ----------------------------------------------------------------- forward
 
 def decoder_hidden(model: DecoderLM, cfg: ModelConfig, h, positions):
     """Run all layers over h: (B, L, D). Returns (h, aux loss sum): the
-    aux loss is the MoE router's, 0.0 for the dense family."""
+    MoE routers' aux losses summed over the MoE layers, 0.0 without
+    one."""
     def layer(p, h, window):
-        h = _self_attention(p, cfg, h, positions, window)[0]
-        return ffn_block(p, cfg, h)
+        h = _attention(p, cfg, h, positions, window)[0]
+        return ffn_aux(p, cfg, h)
 
+    aux = 0.0
     for p, window in zip(model.layers, layer_windows(cfg)):
-        h = remat(cfg, layer, p, h, window)
-    return h, 0.0
+        h, a = remat(cfg, layer, p, h, window)
+        if a is not None:
+            aux = aux + a
+    return h, aux
 
 
 def decoder_forward(model: DecoderLM, cfg: ModelConfig, tokens,
@@ -283,28 +363,61 @@ def batch_mask(batch) -> torch.Tensor:
 
 
 def decoder_loss(model: DecoderLM, cfg: ModelConfig, batch):
-    """(loss, {"xent": loss}) of {"tokens", "targets"[, "mask"]} (B, L).
-    MoE aux losses and multi-token prediction are refused with the rest
-    of 13d by `check_served`."""
-    h, _ = decoder_forward(model, cfg, batch["tokens"], batch.get("patches"))
-    loss = softmax_xent(logits_fn(model, cfg, h), batch["targets"],
-                        batch_mask(batch))
-    return loss, {"xent": loss}
+    """(loss, metrics) of {"tokens", "targets"[, "mask"]} (B, L): the
+    cross-entropy "xent", plus router_aux_weight x the routers' summed
+    aux loss "aux" with MoE, plus mtp_weight x the multi-token
+    prediction loss "mtp" with MTP; each metric only where the
+    reference's has it."""
+    targets = batch["targets"]
+    h, aux = decoder_forward(model, cfg, batch["tokens"],
+                             batch.get("patches"))
+    mask = batch_mask(batch)
+    xent = softmax_xent(logits_fn(model, cfg, h), targets, mask)
+    loss, metrics = xent, {"xent": xent}
+    if cfg.moe is not None:
+        aux = torch.as_tensor(aux, dtype=F32, device=h.device)
+        loss = loss + cfg.moe.router_aux_weight * aux
+        metrics["aux"] = aux
+    if cfg.use_mtp:
+        mtp = _mtp_loss(model, cfg, h, targets, mask)
+        loss = loss + cfg.mtp_weight * mtp
+        metrics["mtp"] = mtp
+    return loss, metrics
+
+
+def _mtp_loss(model: DecoderLM, cfg: ModelConfig, h, targets, mask):
+    """DeepSeek-style depth-1 multi-token prediction: predict token t + 2
+    from (h_t, the embedding of y_{t+1}) through one more dense layer;
+    the logits of positions 0 .. L - 2 against targets[:, 1:]."""
+    p = model.mtp
+    x = torch.cat([L.rms_norm(h, p.norm, cfg.rms_eps),
+                   embed_tokens(model, targets)], dim=-1)
+    x = torch.einsum("ble,ed->bld", x, p.proj)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    dense = cfg.replace(moe=None)
+    x = _attention(p.layer, dense, x, positions)[0]
+    x = ffn_block(p.layer, dense, x)
+    logits = logits_fn(model, cfg, x[:, :-1])
+    return softmax_xent(logits, targets[:, 1:], mask[:, 1:])
 
 
 # ------------------------------------------------------------------ decode
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Zero K and V caches, (n_layers, B, seq_len, Hkv, D) each."""
+    """Zero caches for every layer: K and V, (n_layers, B, seq_len, Hkv,
+    D) each, or MLA's latents (`mla.mla_init_cache`)."""
+    dev = resolve(device)
+    if cfg.mla:
+        return MLA.mla_init_cache(cfg.n_layers, batch, seq_len, cfg.mla,
+                                  torch_dtype(cfg), dev)
     shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
-    dev = resolve(device)
     return {k: torch.zeros(shape, dtype=torch_dtype(cfg), device=dev)
             for k in ("k", "v")}
 
 
-def _gqa_layer_decode(p: DenseBlock, cfg: ModelConfig, h, k_cache,
+def _gqa_layer_decode(p, cfg: ModelConfig, h, k_cache,
                       v_cache, pos: int, window: int = 0):
     """One token through an attention + MLP block. Writes the token's K
     and V into `k_cache`/`v_cache` (B, S, Hkv, D) at `pos` in place."""
@@ -342,6 +455,11 @@ def decode_step(model: DecoderLM, cfg: ModelConfig, cache, tokens,
 
     def body(h, layer, c):
         p, window = layer
+        if cfg.mla:
+            x = L.rms_norm(h, p.ln1, cfg.rms_eps)
+            o, c = MLA.mla_decode_step(p.attn, x, c, pos, cfg.mla,
+                                       cfg.rope_theta)
+            return ffn_block(p, cfg, h + o), c
         return _gqa_layer_decode(p, cfg, h, c["k"], c["v"], pos, window), c
 
     h, cache = scan_layers_carry(body, h, layers, cache)
@@ -352,17 +470,17 @@ def decode_step(model: DecoderLM, cfg: ModelConfig, cache, tokens,
 def prefill(model: DecoderLM, cfg: ModelConfig, tokens, seq_len: int,
             patches=None):
     """Forward the prompt into a preallocated cache of capacity
-    `seq_len`, each layer writing the K and V its attention used.
-    Returns (last-position logits (B, 1, V), cache)."""
+    `seq_len`, each layer writing the K and V (or MLA's latents) its
+    attention used. Returns (last-position logits (B, 1, V), cache)."""
     _no_patches(patches)
     h = embed_tokens(model, tokens)
     b, l, _ = h.shape
     positions = torch.arange(l, device=h.device)[None, :]
     cache = init_cache(cfg, b, seq_len, h.device)
     for i, (p, window) in enumerate(zip(model.layers, layer_windows(cfg))):
-        h, k, v = _self_attention(p, cfg, h, positions, window)
-        cache["k"][i, :, :l] = k
-        cache["v"][i, :, :l] = v
+        h, entries = _attention(p, cfg, h, positions, window)
+        for name, x in entries.items():
+            cache[name][i, :, :l] = x
         h = ffn_block(p, cfg, h)
     h = L.rms_norm(h, model.final_norm, cfg.rms_eps)
     return logits_fn(model, cfg, h[:, -1:]), cache

@@ -1,7 +1,7 @@
 """The JAX reference's side of the port's LM serving tests
 (`test_torch_serve.py`, `test_torch_dense_serve.py`,
-`test_torch_ssm_serve.py`): its parameters and runs as float32 numpy,
-and the stated tolerances.
+`test_torch_ssm_serve.py`, `test_torch_moe_lm.py`): its parameters and
+runs as float32 numpy, and the stated tolerances.
 
 Tolerances: float32 (the algorithm; the port and the reference differ
 only in the order of sums and in the chunking of the SSD scan and the
@@ -22,9 +22,9 @@ from repro.models.model import build_model as ref_build_model
 
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=6e-2, atol=8e-2)}
-# the Mamba leaves the reference keeps in float32 whatever the model's
-# dtype
-F32_LEAVES = ("A_log", "dt_bias", "D")
+# the leaves the reference keeps in float32 whatever the model's dtype:
+# the Mamba layers' and the MoE router
+F32_LEAVES = ("A_log", "dt_bias", "D", "router")
 
 
 def to_np(x):
@@ -41,13 +41,16 @@ def auto_mesh():
                          axis_types=(AxisType.Auto,) * 2)
 
 
-def ref_params(rcfg, seed=0, perturb=False):
+def ref_params(rcfg, seed=0, perturb=False, jit=False):
     """The reference's parameters for rcfg, and the same as float32 numpy
     (bfloat16-valued where rcfg is bfloat16). With `perturb`, every leaf
     the reference initialises to zeros (norms, biases) is drawn from
     N(0, 0.1^2) instead, rounded to rcfg's dtype, so that each one moves
-    the logits; both returns hold the perturbed values."""
-    params = ref_build_model(rcfg).init_params(jax.random.key(seed))
+    the logits; both returns hold the perturbed values. `jit` runs the
+    reference's init under `jax.jit` (one compile in place of one an
+    operation: faster for the deeper configs)."""
+    init = ref_build_model(rcfg).init_params
+    params = (jax.jit(init) if jit else init)(jax.random.key(seed))
     pnp = jax.tree.map(to_np, params)
     if perturb:
         rng = np.random.default_rng(seed)
@@ -115,18 +118,23 @@ def drift_at_depth(rcfg, cfg, to_torch, forward, ref_forward, toks):
             rel(out["bfloat16"][0]))
 
 
-def ref_run(rcfg, pnp, toks, l, cap, steps, cache=None):
+def ref_run(rcfg, pnp, toks, l, cap, steps, cache=None, jit=False):
     """The reference's prefill on toks[:, :l] (or `cache`, in the
     reference's layout as numpy) and `steps` decode steps after it, with
     the parameters `pnp` (numpy) cast to rcfg's dtype. Returns the
     prefill logits, each decode step's logits and the caches after
-    prefill and after the last step, as float32 numpy."""
+    prefill and after the last step, as float32 numpy. `jit` runs the
+    prefill and the decode step under `jax.jit`."""
     rm = ref_build_model(rcfg)
     dt = jnp.dtype(rcfg.dtype)
     params = cast_params(pnp, dt)
+    prefill_fn, decode_fn = rm.prefill_fn, rm.decode_fn
+    if jit:
+        prefill_fn = jax.jit(prefill_fn, static_argnums=2)
+        decode_fn = jax.jit(decode_fn)
     lp = None
     if cache is None:
-        lp, cache = rm.prefill_fn(params, {"tokens": jnp.asarray(
+        lp, cache = prefill_fn(params, {"tokens": jnp.asarray(
             toks[:, :l], jnp.int32)}, cap)
         lp = to_np(lp)
     else:
@@ -136,7 +144,7 @@ def ref_run(rcfg, pnp, toks, l, cap, steps, cache=None):
     lds = []
     for i in range(steps):
         pos = l + i
-        ld, cache = rm.decode_fn(params, cache, jnp.asarray(
+        ld, cache = decode_fn(params, cache, jnp.asarray(
             toks[:, pos:pos + 1], jnp.int32), jnp.int32(pos))
         lds.append(to_np(ld))
     return lp, lds, cache0, jax.tree.map(to_np, cache)

@@ -38,6 +38,26 @@ def spoilage_memory(algo, x) -> np.ndarray:
     return mems
 
 
+class RoutesRecorded:
+    """While entered, records every `repro_torch.models.moe.router_topk`
+    call's top-k indices (`idx`: (tokens, k) tensors, on their device):
+    the MoE routes of a run, which the port does not otherwise return."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.idx, self._moe, self._fn = [], moe, moe.router_topk
+
+        def keep(logits, mcfg):
+            out = self._fn(logits, mcfg)
+            self.idx.append(out[1])
+            return out
+        moe.router_topk = keep
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.router_topk = self._fn
+
+
 def load_example(name: str):
     """`examples/<name>.py` as a module (the examples are scripts, not a
     package), so a test or chip_smoke.py can call its `main(argv)`."""

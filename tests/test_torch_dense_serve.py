@@ -18,7 +18,6 @@ import torch
 
 from _torch_lm_ref import (TOL, auto_mesh, check, check_tree,
                            drift_at_depth, ref_params, ref_run, to_np)
-from repro.configs.base import MLAConfig, MoEConfig
 from repro.configs.registry import get_smoke_config as ref_smoke_config
 from repro.launch import serve as rserve
 from repro.models import layers as rlayers
@@ -207,13 +206,58 @@ def test_windowed_configs_serve_against_the_reference(what):
     check_tree(c0, want[2], want[2], "float32")
 
 
+# MoE, MLA and multi-token prediction, served since the MoE family: the
+# dense smoke config with each (a sub-config as (its class's name, its
+# fields), built from each package's `configs/base.py`), and the moe
+# family without an MoE config (every layer dense, as the reference
+# builds it)
+_MOE_MLA_MTP = {
+    "moe": {"moe": ("MoEConfig", dict(n_experts=4, top_k=2,
+                                      d_ff_expert=32))},
+    "mla": {"mla": ("MLAConfig", dict(q_lora_rank=16, kv_lora_rank=8,
+                                      qk_nope_head_dim=8, qk_rope_head_dim=8,
+                                      v_head_dim=8))},
+    "mtp": {"use_mtp": True},
+    "family_moe": {"family": "moe"},
+}
+
+
+@pytest.mark.parametrize("what", sorted(_MOE_MLA_MTP))
+def test_moe_mla_mtp_configs_serve_against_the_reference(what):
+    """The configs that pinned MoE, MLA and MTP as unported now serve:
+    prefill logits and cache, then two decode steps, against the
+    reference, float32."""
+    from repro.configs import base as rbase
+    from repro_torch.configs import base as pbase
+
+    def kw(pkg):
+        return {k: getattr(pkg, v[0])(**v[1])
+                if isinstance(v, tuple) else v
+                for k, v in _MOE_MLA_MTP[what].items()}
+    rcfg, cfg = _configs("qwen2-1.5b", "float32")
+    rcfg, cfg = rcfg.replace(**kw(rbase)), cfg.replace(**kw(pbase))
+    _, pnp = ref_params(rcfg, perturb=True)
+    model, tp = build_model(cfg), _port(pnp, cfg)
+    assert hasattr(tp, "mtp") == cfg.use_mtp
+    b, l, cap, steps = 2, 12, 16, 2
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (b, l + steps))
+    want = ref_run(rcfg, pnp, toks, l, cap, steps)
+    with torch.inference_mode():
+        lp, cache = model.prefill_fn(tp, {"tokens": torch.as_tensor(
+            toks[:, :l])}, cap)
+        c0 = convert.decoder_cache_to_numpy(cache, cfg)
+        lds = []
+        for i in range(steps):
+            ld, cache = model.decode_fn(tp, cache, torch.as_tensor(
+                toks[:, l + i:l + i + 1]), l + i)
+            lds.append(to_np(ld))
+    check(to_np(lp), want[0], want[0], "float32")
+    for got, w in zip(lds, want[1]):
+        check(got, w, w, "float32")
+    check_tree(c0, want[2], want[2], "float32")
+
+
 _UNSERVED = {
-    "moe": ({"moe": MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)}, "13d"),
-    "mla": ({"mla": MLAConfig(q_lora_rank=16, kv_lora_rank=8,
-                              qk_nope_head_dim=8, qk_rope_head_dim=8,
-                              v_head_dim=8)}, "13d"),
-    "mtp": ({"use_mtp": True}, "13d"),
-    "family_moe": ({"family": "moe"}, "13d"),
     "family_vlm": ({"family": "vlm"}, "13e"),
     "family_audio": ({"family": "audio"}, "13e"),
 }
@@ -221,9 +265,9 @@ _UNSERVED = {
 
 @pytest.mark.parametrize("what", sorted(_UNSERVED) + ["patches"])
 def test_unserved_configs_raise(what):
-    """What the dense decoder does not serve yet raises
-    NotImplementedError naming its open item: at build_model, at
-    init_decoder, and (patches) at prefill and decoder_forward."""
+    """What the decoder does not serve yet raises NotImplementedError
+    naming its open item: the VLM and audio families at build_model,
+    prepended patches at prefill and decoder_forward."""
     cfg = registry.get_smoke_config("qwen2-1.5b")
     if what == "patches":
         model = build_model(cfg)
@@ -236,12 +280,8 @@ def test_unserved_configs_raise(what):
             TF.decoder_forward(params, cfg, toks, patches)
         return
     kw, item = _UNSERVED[what]
-    bad = cfg.replace(**kw)
     with pytest.raises(NotImplementedError, match=f"open item {item}"):
-        build_model(bad)
-    if not what.startswith("family"):
-        with pytest.raises(NotImplementedError, match=f"open item {item}"):
-            TF.init_decoder(bad, torch.Generator().manual_seed(0), "cpu")
+        build_model(cfg.replace(**kw))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -272,16 +272,14 @@ def test_lm_entry_points_default_to_the_card():
 
 
 _SERVED = ("qwen2-1.5b", "qwen2.5-14b", "minitron-8b", "mamba2-1.3b",
-           "zamba2-7b", "gemma3-12b")
-_STILL_UNPORTED = {"qwen2-moe-a2.7b": "13d",
-                   "deepseek-v3-671b": "13d", "llava-next-34b": "13e",
-                   "whisper-tiny": "13e"}
+           "zamba2-7b", "gemma3-12b", "qwen2-moe-a2.7b", "deepseek-v3-671b")
+_STILL_UNPORTED = {"llava-next-34b": "13e", "whisper-tiny": "13e"}
 
 
 @pytest.mark.parametrize("arch", _SERVED + tuple(_STILL_UNPORTED))
 def test_arch_ids_resolve_or_name_their_item(arch):
-    """The six served ids resolve to the reference's full and smoke
-    configs (the port's copies); the other four raise
+    """The eight served ids resolve to the reference's full and smoke
+    configs (the port's copies); the other two raise
     NotImplementedError naming their open item."""
     from repro_torch.configs import registry
     if arch in _STILL_UNPORTED:
@@ -291,7 +289,8 @@ def test_arch_ids_resolve_or_name_their_item(arch):
                 fn(arch)
         return
     cfg = registry.get_config(arch)
-    assert cfg.name == arch and cfg.family in ("dense", "ssm", "hybrid")
+    assert cfg.name == arch and cfg.family in ("dense", "ssm", "hybrid",
+                                               "moe")
     assert registry.get_smoke_config(arch).name == arch
     assert arch in registry.ARCH_IDS
 

@@ -191,14 +191,14 @@ def test_unported_archs_and_families_raise():
     """The archs and families still to port raise, naming their open
     item; the dense and SSM archs this slice ports resolve."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_config("qwen2-moe-a2.7b")
+        registry.get_config("llava-next-34b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         registry.get_smoke_config("whisper-tiny")
     with pytest.raises(KeyError):
         registry.get_config("no-such-arch")
     cfg = registry.get_smoke_config("zamba2-7b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg.replace(family="moe"))
+        build_model(cfg.replace(family="vlm"))
     assert registry.get_config("zamba2-7b").n_layers == 81
     assert registry.get_config("qwen2-1.5b").family == "dense"
     assert registry.get_smoke_config("mamba2-1.3b").family == "ssm"
