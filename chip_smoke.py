@@ -282,8 +282,39 @@ Phases (each prints its own lines; any failure exits non-zero):
    decode steps under torch.profiler; (d) Qwen2-MoE-A2.7B at full width,
    its depth cut to 6 layers, 5 `train_loop` AdamW steps of 2 x 2,048:
    12 flash forwards and 6 backwards a step, no plain call, each step's
-   xent, aux and loss finite, then a profiled step; DeepSeek-V3's train
-   step (Adafactor) raises NotImplementedError (ROADMAP.md, 13d-ii).
+   xent, aux and loss finite, then a profiled step; DeepSeek-V3 with its
+   Adafactor over the reference's stacked leaves: the smoke config card
+   against CPU (`smoke_train`: 3 steps, losses and gnorms within 1e-4
+   relative, then 11 card steps whose loss falls), then at full width,
+   its depth cut to its 3 dense layers and the MTP head (4,290,066,432
+   parameters; a full-width MoE layer's weights and gradients alone are
+   45 GB), 5 `train_loop` steps of 2 x 2,048: 7 flash forwards and 4
+   backwards a step, then a profiled step; the D 192 backward alone at
+   that step's shape (BH 256 x 2,048, causal, tile 1,024) against plain,
+   SDPA's backward and the bound.
+25. the VLM family: (a) the LLaVA-NeXT smoke config card against CPU
+   from the same parameters and patches, a prefill of 4 x (8 patches +
+   16 tokens) and 3 decode steps in float32 (`LM_TOL`) and bfloat16
+   (phase 14's tolerance), logits and the K/V cache, and the float32
+   loss and every gradient; (b) LLaVA-NeXT-34B at full width and depth
+   (34,388,917,248 bfloat16 parameters from a seed) through `generate`,
+   8 requests x (576 patches + 1,472 tokens), 32 tokens: 60 flash
+   launches a prefill and no plain call, prefill positions/s (patches
+   counted), decode tokens/s, peak memory; the first layer's flash call
+   of one more prefill (BH 448 x 2,048 x 128, causal, tile 1,024) on its
+   own tensors, with the parameters freed, against plain, SDPA and the
+   bound.
+26. the audio family: (a) the Whisper smoke config (D 12) likewise,
+   frames in place of patches; (b) Whisper-tiny at full size
+   (61,153,536) through `generate`, 64 requests x 1,500 frames, a
+   4-token prompt, 60 tokens: 8 flash launches a prefill (4 encoder
+   layers without a causal mask, 4 decoder layers), encoder frames/s,
+   decode tokens/s, peak memory; the first encoder layer's flash call
+   (BH 384 x 1,500 x 64, non-causal, one tile of 1,500: a ragged last
+   64-row block and 64-key tile) against plain, SDPA and the bound, then
+   its backward alone; (c) 5 AdamW `make_train_step` steps of 16 x
+   (1,500 frames, 448 tokens): 16 flash forwards and 8 backwards a step,
+   finite losses, step ms, tokens/s, peak memory.
 
 The CPU halves of phases 4, 11 and 18(a) (small plans on the plain
 path, single-threaded, the largest host work of the run) run in four
@@ -302,8 +333,9 @@ drawn sweep's, flash's and the scan's, and phase 20's full serves' to
 flash's and the scan's; `flash_attention_bwd`'s are phase 21(b)'s five
 steps plus the quickstart's; phase 22(b) and (c)'s are added to the
 scan's and to flash's, forward and backward, and `ssd_scan_bwd`'s are
-theirs alone; phase 23(b)'s prefill and (d)'s steps, and phase
-24(b)-(c)'s prefills and (d)'s steps, are added to flash's, forward and
+theirs alone; phase 23(b)'s prefill and (d)'s steps, phase
+24(b)-(c)'s prefills and (d)'s steps, and phases 25(b)'s and 26(b)'s
+prefills and 26(c)'s steps, are added to flash's, forward and
 backward), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
@@ -2905,7 +2937,8 @@ CACHE_DRIFT = 1.25
 def capture_first_kernels(model, params, prompt, cap):
     """{"flash" | "ssd" | "experts": (args, kwargs, result)} of the first
     flash_attention and ssd_scan call, and the first MoE layer's expert
-    products, of one more prefill, recorded by wrapping the ops module's
+    products, of one more prefill of `prompt` (tokens, or a batch dict
+    with patches or frames), recorded by wrapping the ops module's
     kernel entries and `models/moe.py::experts`."""
     import torch
     from repro_torch.kernels import ops
@@ -2928,7 +2961,8 @@ def capture_first_kernels(model, params, prompt, cap):
     moe.experts = keep("experts", moe.experts, result=False)
     try:
         with torch.inference_mode():
-            model.prefill_fn(params, {"tokens": prompt}, cap)
+            model.prefill_fn(params, prompt if isinstance(prompt, dict)
+                             else {"tokens": prompt}, cap)
     finally:
         ops.ssd_scan, ops.flash_attention, moe.experts = saved
     return seen
@@ -3386,7 +3420,8 @@ def reset_lm_counts():
 
 def train_full(dev, cfg, steps, per_step, n_params=None, what="",
                batch=TRAIN_BATCH, seq=TRAIN_SEQ):
-    """`steps` `train_loop` steps with AdamW at batch x seq tokens
+    """`steps` `train_loop` steps with the config's optimizer (AdamW;
+    DeepSeek-V3's Adafactor) at batch x seq tokens
     (parameters and data from a seed): finite losses, the parameter count
     (against `n_params` where given), the median step of steps 2 on,
     tokens/s, the share of the bfloat16 dense peak, peak memory, and the
@@ -3550,7 +3585,8 @@ def smoke_train(dev, arch, grad_accums):
         family = {"qwen2-1.5b": (pfa.flash_attention,),
                   "gemma3-12b": (pfa.flash_attention,),
                   "mamba2-1.3b": (pss.ssd_scan,),
-                  "zamba2-7b": (pfa.flash_attention, pss.ssd_scan)}[arch]
+                  "zamba2-7b": (pfa.flash_attention, pss.ssd_scan),
+                  "deepseek-v3-671b": (pfa.flash_attention,)}[arch]
         launched = []
         for k in (pfa.flash_attention, pss.ssd_scan):
             pairs = ((k.launches, k.plain_calls),
@@ -3566,8 +3602,9 @@ def smoke_train(dev, arch, grad_accums):
             if k in family:
                 launched.append(f"{k.__name__} {k.launches} + backward "
                                 f"{k.bwd_launches}")
-        log(f"[train small] {arch} smoke config, float32, grad_accum "
-            f"{ga}, {SMOKE_TRAIN_STEPS} steps, card against CPU: losses and "
+        log(f"[train small] {arch} smoke config, float32, {cfg.optimizer}, "
+            f"grad_accum {ga}, {SMOKE_TRAIN_STEPS} steps, card against CPU: "
+            f"losses and "
             f"gnorms within {rel:.3g} relative (limit 1e-4); parameters "
             f"within {dmax:.3g} (limit {atol:.3g} = 2 x the summed "
             f"learning rates); on the card {'; '.join(launched)}")
@@ -4164,8 +4201,9 @@ def phase_gemma_train(dev):
 # tokens, as Gemma3's. Qwen2-MoE trains with AdamW at full width, its
 # depth cut to MOE_TRAIN_LAYERS (4,253,874,176 parameters; 6 layers
 # peaked at 58.05 GiB, 8 would need about 71 GiB, 24 about 182 GB), 5
-# steps of 2 x 2,048 tokens, as many as phase 21(b)'s; DeepSeek-V3's step
-# (Adafactor) is refused until ROADMAP.md's open item 13d-ii.
+# steps of 2 x 2,048 tokens, as many as phase 21(b)'s; DeepSeek-V3 trains
+# with its Adafactor at its 3 dense layers and the MTP head
+# (MLA_TRAIN_LAYERS).
 MOE_ARCH, MLA_ARCH = "qwen2-moe-a2.7b", "deepseek-v3-671b"
 MOE_PARAMS = 15_146_928_128
 MLA_LAYERS, MLA_PARAMS = 4, 15_797_352_448
@@ -4272,12 +4310,29 @@ def moe_small_serve(dev, arch, variant=""):
     return sum(drops[:n_moe])
 
 
-def moe_small_grads(dev, arch):
-    """24(a): `arch`'s smoke config in float32, card against CPU from the
-    same parameters: the loss, its terms ({"xent", "aux", "mtp"}) within
-    1e-4 relative, every parameter's gradient within LM_TOL, the routes
-    equal, and the card's flash launches (forward with the remat
-    recompute, backward) matched one for one by the CPU's plain calls."""
+def extra_inputs(cfg, b, seed=0):
+    """The VLM family's patches or the audio family's frames for `b`
+    requests ({} for the others): N(0, 1) bfloat16 on the host, as
+    `generate` draws them."""
+    import numpy as np
+    import torch
+    n = {"vlm": ("patches", cfg.n_patches),
+         "audio": ("frames", cfg.n_audio_frames)}.get(cfg.family)
+    if n is None:
+        return {}
+    x = np.random.default_rng(seed).normal(size=(b, n[1], cfg.d_model))
+    return {n[0]: torch.as_tensor(x, dtype=torch.float32).to(
+        torch.bfloat16)}
+
+
+def small_grads(dev, arch):
+    """24(a), 25(a), 26(a): `arch`'s smoke config in float32, card
+    against CPU from the same parameters: the loss, its terms ({"xent"},
+    and "aux", "mtp" for DeepSeek-V3) within 1e-4 relative, every
+    parameter's gradient within LM_TOL, the routes equal, and the card's
+    flash launches (forward with the remat recompute, backward) matched
+    one for one by the CPU's plain calls. The VLM's batch has patches,
+    the audio family's frames."""
     import torch
     import _torch_parity as tp
     from repro_torch.configs.registry import get_smoke_config
@@ -4286,11 +4341,12 @@ def moe_small_grads(dev, arch):
     from repro_torch.launch.train import to_device
     from repro_torch.models.model import build_model
 
-    tag = f"moe small {arch} loss"
+    tag = f"small {arch} loss"
     cfg = get_smoke_config(arch).replace(dtype="float32")
     model = build_model(cfg)
     bt = host_batch(DataConfig(vocab=cfg.vocab, seq_len=64,
                                global_batch=4), 0)
+    extra = extra_inputs(cfg, 4)
     cpu = model.init_params(torch.Generator().manual_seed(0), "cpu",
                             trainable=True)
     card = model.init_params(torch.Generator(device=dev).manual_seed(0),
@@ -4302,7 +4358,9 @@ def moe_small_grads(dev, arch):
     for d_, params in ((dev, card), ("cpu", cpu)):
         reset_lm_counts()
         with tp.RoutesRecorded() as r:
-            loss, met = model.loss_fn(params, to_device(bt, d_))
+            loss, met = model.loss_fn(params, dict(
+                to_device(bt, d_), **{k: x.to(d_)
+                                      for k, x in extra.items()}))
         named = dict(params.named_parameters())
         grads = torch.autograd.grad(loss, list(named.values()))
         res.append(({"loss": float(loss.detach()),
@@ -4324,7 +4382,9 @@ def moe_small_grads(dev, arch):
     if got != want or not all(got):
         raise AssertionError(f"[{tag}] card flash launches {got} (forward, "
                              f"backward), CPU plain calls {want}")
-    log(f"[{tag}] smoke config float32, 4 x 64 tokens, card against CPU: "
+    log(f"[{tag}] smoke config float32, 4 x 64 tokens"
+        + "".join(f" after {x.shape[1]} {k}" for k, x in extra.items())
+        + ", card against CPU: "
         + ", ".join(f"{k} {mc[k]:.6f} (CPU {mp[k]:.6f})" for k in mp)
         + f"; every one of {len(gc_)} parameters' gradients within "
         f"{gerr:.3g} (limit {LM_TOL['float32']} x max(1, largest "
@@ -4336,14 +4396,14 @@ def moe_small_grads(dev, arch):
 def phase_moe_small(dev):
     """24(a): the two smoke configs and Qwen2-MoE's padded, hierarchical
     variant served card against CPU (`moe_small_serve`), DeepSeek-V3's
-    loss and gradients (`moe_small_grads`); the padded variant's prefill
+    loss and gradients (`small_grads`); the padded variant's prefill
     must drop slots."""
     moe_small_serve(dev, MOE_ARCH)
     if not moe_small_serve(dev, MOE_ARCH, "padded"):
         raise AssertionError("[moe small] the padded variant's prefill "
                              "dropped no slot")
     moe_small_serve(dev, MLA_ARCH)
-    moe_small_grads(dev, MLA_ARCH)
+    small_grads(dev, MLA_ARCH)
 
 
 def experts_bound(p, buf, filled):
@@ -4493,30 +4553,411 @@ def phase_moe_serve(dev):
     return counts
 
 
+def flash_bwd_alone(tag, q, k, v, causal, t):
+    """flash_attention_bwd on q, k, v (BH, L, D) and a random dO: each
+    gradient and the forward within LM_TOL of the plain versions, two
+    launches the same bits, then timed with CUDA events beside the plain
+    version, SDPA's backward ((forward + backward) - forward, PyTorch's
+    choice of backend) and the bound, and both backwards by their
+    kernels' device time (torch.profiler). Returns the row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as pfa
+    dev = q.device
+    g = torch.Generator(device=dev).manual_seed(q.shape[1])
+    do = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+    o, lse = pfa._forward(q, k, v, causal, t, t, 0, dev, True)
+    what = (f"BH {q.shape[0]} x L {q.shape[1]} x D {q.shape[2]}, "
+            f"{'causal' if causal else 'non-causal'}, tile {t}, {q.dtype}")
+    lm_err(o, pfa.flash_attention_plain(q, k, v, causal=causal, tq=t, tk=t),
+           f"{tag} flash forward {what}")
+    got = pfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, tq=t,
+                                  tk=t, device=dev)
+    again = pfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                    tq=t, tk=t, device=dev)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{tag} flash backward {what}: two launches on "
+                             f"the same inputs differ")
+    want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         tq=t, tk=t)
+    errs = [lm_err(a, b, f"{tag} flash backward d{n} {what}")
+            for n, a, b in zip("qkv", got, want)]
+    del again, want
+    qs, ks, vs = (x[None].detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        torch.autograd.grad(out, (qs, ks, vs), do[None])
+    lib = timed(sdpa_fwd_bwd, 10) - timed(sdpa_fwd, 10)
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    ours = kernel_device_ms(lambda: pfa.flash_attention_bwd(
+        q, k, v, o, do, lse, causal=causal, tq=t, tk=t, device=dev), 10)
+    sdpa = kernel_device_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do[None], retain_graph=True), 10)
+    del out
+    row = dict(ms=timed(lambda: pfa.flash_attention_bwd(
+                   q, k, v, o, do, lse, causal=causal, tq=t, tk=t,
+                   device=dev), 10),
+               plain_ms=timed(lambda: pfa.flash_attention_bwd_plain(
+                   q, k, v, o, do, lse, causal=causal, tq=t, tk=t), 2),
+               library_ms=lib, bounds=flash_bwd_bound(q, t, t, causal),
+               err=max(errs))
+    dev_ms = "; ".join(
+        f"{n} " + ("not measured (records lost)" if ms is None else
+                   f"{sum(x for x, _ in ms.values()):.4f} ms")
+        for n, ms in (("flash_attention_bwd", ours), ("SDPA's", sdpa)))
+    log(f"[{tag}] flash_attention_bwd alone ({what}): kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, SDPA's "
+        f"backward {lib:.4f} ms ((forward + backward) - forward), bound "
+        f"{max(row['bounds']):.4f} ms (bytes {row['bounds'][0]:.4f}, "
+        f"operations {row['bounds'][1]:.4f}); device time a call: {dev_ms}; "
+        f"max |kernel - plain| dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv "
+        f"{errs[2]:.3g} (within {LM_TOL[str(q.dtype)[6:]]} x max(1, "
+        f"largest |gradient|)); two launches the same bits")
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_moe_train(dev):
     """24(d): Qwen2-MoE-A2.7B at full width, MOE_TRAIN_LAYERS layers,
     TRAIN_STEPS `train_loop` AdamW steps of 2 x 2,048 (`train_full`):
     2 flash forwards (with the remat recompute) and 1 backward a layer a
     step, no plain call, each step's xent, aux and loss finite, then a
-    profiled step. DeepSeek-V3's train step raises NotImplementedError
-    (Adafactor, 13d-ii). Returns the steps' launches."""
+    profiled step. DeepSeek-V3 with its Adafactor over the reference's
+    stacked leaves: the smoke config card against CPU (`smoke_train`),
+    then at full width, its 3 dense layers and the MTP head (MLA at D
+    192), TRAIN_STEPS `train_loop` steps of 2 x 2,048: 7 flash forwards
+    (3 layers with their remat recompute, the MTP layer's) and 4
+    backwards a step; then the D 192 backward alone at that step's
+    shape (`flash_bwd_alone`). Returns the steps' launches."""
+    import dataclasses as dc
+
+    import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.model import build_model
-    try:
-        make_train_step(build_model(get_config(MLA_ARCH)))
-    except NotImplementedError as e:
-        log(f"[train {MLA_ARCH}] refused, as it must be: {e}")
-    else:
-        raise AssertionError(f"[train {MLA_ARCH}] Adafactor on the moe "
-                             f"family was not refused")
     cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
     n = cfg.n_layers
-    return train_full(dev, cfg, TRAIN_STEPS,
-                      {FLASH[0]: 2 * n, FLASH_BWD[0]: n, SSD[0]: 0,
-                       SSD_BWD[0]: 0}, MOE_TRAIN_PARAMS,
-                      what=" (of 24: cut for AdamW's memory)",
-                      batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ)
+    counts = train_full(dev, cfg, TRAIN_STEPS,
+                        {FLASH[0]: 2 * n, FLASH_BWD[0]: n, SSD[0]: 0,
+                         SSD_BWD[0]: 0}, MOE_TRAIN_PARAMS,
+                        what=" (of 24: cut for AdamW's memory)",
+                        batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ)
+    smoke_train(dev, MLA_ARCH, (1,))
+    full = get_config(MLA_ARCH)
+    n = MLA_TRAIN_LAYERS
+    cfg = full.replace(n_layers=n, moe=dc.replace(full.moe,
+                                                  n_dense_layers=n))
+    for k, v in train_full(
+            dev, cfg, TRAIN_STEPS,
+            {FLASH[0]: 2 * n + 1, FLASH_BWD[0]: n + 1, SSD[0]: 0,
+             SSD_BWD[0]: 0}, MLA_TRAIN_PARAMS,
+            what=" (of 61: its 3 dense layers; a full-width MoE layer's "
+                 "weights and gradients alone are 45 GB)",
+            batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ).items():
+        counts[k] += v
+    g = torch.Generator(device=dev).manual_seed(24)
+    d = full.mla.qk_nope_head_dim + full.mla.qk_rope_head_dim
+    shape = (MOE_TRAIN_BATCH * full.n_heads, MOE_TRAIN_SEQ, d)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    flash_bwd_alone(f"train {MLA_ARCH}", q, k, v, True,
+                    min(full.attn_chunk, MOE_TRAIN_SEQ))
+    return counts
+
+
+# ------------------------------------------------------- phases 25, 26
+# 25: LLaVA-NeXT-34B at full width and depth (34,388,917,248 bfloat16
+# parameters, 64.06 GiB), 8 requests x (576 patches + 1,472 tokens =
+# 2,048 positions, tile 1,024), 32 tokens. 26: Whisper-tiny at full size
+# (61,153,536), 64 requests x 1,500 frames, a 4-token prompt, 60 tokens;
+# 5 AdamW steps of 16 x (1,500 frames, 448 tokens). Counts from the
+# reference's `count_params_abstract`.
+VLM_ARCH, VLM_PARAMS = "llava-next-34b", 34_388_917_248
+VLM_BATCH, VLM_PROMPT, VLM_GEN = 8, 1472, 32
+AUDIO_ARCH, AUDIO_PARAMS = "whisper-tiny", 61_153_536
+AUDIO_BATCH, AUDIO_PROMPT, AUDIO_GEN = 64, 4, 60
+AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ = 16, 448
+MLA_TRAIN_LAYERS, MLA_TRAIN_PARAMS = 3, 4_290_066_432
+SMALL_STEPS = 3
+
+
+def family_small_serve(dev, arch, dtype):
+    """25(a), 26(a): `arch`'s smoke config (`dtype`) on the card and the
+    CPU from the same parameters and the same patches or frames: a
+    prefill of 4 x 16 tokens and SMALL_STEPS decode steps fed the same
+    tokens, every step's logits and the cache within LM_TOL (float32) or
+    SMALL_SERVE_TOL (bfloat16), one flash launch a layer (the
+    encoder-decoder's: each encoder and decoder layer) and no plain call
+    on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.model import build_model
+
+    tag = f"{arch} small"
+    cfg = get_smoke_config(arch).replace(dtype=dtype)
+    model = build_model(cfg)
+    cpu = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    card = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    card.load_state_dict(cpu.state_dict())
+    b, l, steps = 4, 16, SMALL_STEPS
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (b, l + steps)))
+    extra = extra_inputs(cfg, b, seed=6)
+    pre = cfg.n_patches if cfg.family == "vlm" else 0
+    out = []
+    for d_, params in ((dev, card), ("cpu", cpu)):
+        reset_lm_counts()
+        with torch.inference_mode():
+            batch = dict({k: x.to(d_) for k, x in extra.items()},
+                         tokens=toks[:, :l].to(d_))
+            lg, cache = model.prefill_fn(params, batch, pre + l + steps)
+            logits = [lg.float().cpu()]
+            for i in range(steps):
+                lg, cache = model.decode_fn(params, cache, toks[
+                    :, l + i:l + i + 1].to(d_), pre + l + i)
+                logits.append(lg.float().cpu())
+        out.append((logits, {k: c.float().cpu() for k, c in cache.items()},
+                    lm_counts()))
+    (lc, cc, (kc, pc)), (lp, cp, _) = out
+    n_fl = cfg.n_layers + cfg.n_enc_layers
+    if kc[FLASH[0]] != n_fl or pc or kc[FLASH_BWD[0]]:
+        raise AssertionError(f"[{tag}] launches {kc}, {pc} plain calls on "
+                             f"the card; expected {n_fl} flash forwards")
+    pairs = [(f"step {i} logits", a, b_) for i, (a, b_) in
+             enumerate(zip(lc, lp))] + [(f"cache {k}", cc[k], cp[k])
+                                        for k in cc]
+    if dtype == "float32":
+        errs = [close_f32(a, b_, f"[{tag}] {w}") for w, a, b_ in pairs]
+        tol = f"{LM_TOL['float32']} x max(1, largest |value|)"
+    else:
+        rtol, atol = SMALL_SERVE_TOL[dtype]
+        for w, a, b_ in pairs:
+            torch.testing.assert_close(a, b_, rtol=rtol, atol=atol,
+                                       msg=lambda m: f"[{tag}] {w}: {m}")
+        errs = [float((a - b_).abs().max()) for _, a, b_ in pairs]
+        tol = f"rtol {rtol}, atol {atol}"
+    log(f"[{tag}] smoke config {dtype}, card against CPU: prefill of {b} "
+        f"x {l} tokens" + "".join(f" after {x.shape[1]} {k}"
+                                  for k, x in extra.items())
+        + f" and {steps} decode steps: max |diff| "
+        + ", ".join(f"{w} {e:.3g}" for (w, _, _), e in zip(pairs, errs))
+        + f" (within {tol}); {kc[FLASH[0]]} flash_attention launches, 0 "
+        f"plain calls on the card")
+
+
+def serve_family_full(dev, cfg, n_params, b, pl, gen):
+    """25(b), 26(b): `cfg` in bfloat16 through `generate` on the card
+    (random parameters from a seed; patches or frames drawn by
+    `generate`), b requests x prompt pl, gen tokens, after a one-request
+    warm-up: the flash launches of one prefill (a layer; the
+    encoder-decoder's every layer) and no plain call or other kernel,
+    the prefill and decode rates (the prefill's counting the patches;
+    the encoder's frames a second), peak memory; FULL_PROFILE_GEN - 1
+    decode steps after one more prefill under torch.profiler (the
+    device's busy share, its time by layer); then the first flash call
+    of one more prefill, captured, its tensors checked and timed with
+    the parameters freed (`check_first_kernels`). Returns (the generate
+    run's launches, the captured flash call, as tensors outside
+    inference mode)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model, count_params
+
+    tag = f"serve {cfg.name}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    torch.cuda.synchronize()
+    n = count_params(params)
+    log(f"[{tag}] {cfg.family}, {cfg.n_layers} layers"
+        + (f" ({cfg.n_enc_layers} encoder layers)" if cfg.n_enc_layers
+           else "") + f", d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} KV) of {cfg.resolved_head_dim}, {cfg.dtype}: "
+        f"{n} parameters initialised on the card in "
+        f"{time.perf_counter() - t0:.1f}s; memory_allocated "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    if n != n_params:
+        raise AssertionError(f"{tag}: {n} parameters, the reference counts "
+                             f"{n_params}")
+    serve.generate(cfg, batch=1, prompt_len=pl, gen=2, params=params,
+                   device=dev, log=lambda *a: None)       # warm-up
+    reset_lm_counts()
+    toks, stats = serve.generate(cfg, batch=b, prompt_len=pl, gen=gen,
+                                 params=params, device=dev, log=log)
+    counts, plain = lm_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_fl = cfg.n_layers + cfg.n_enc_layers
+    if counts[FLASH[0]] != n_fl or plain or any(
+            v for k, v in counts.items() if k != FLASH[0]):
+        raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
+                             f"calls; expected {n_fl} flash forwards a "
+                             f"prefill")
+    if toks.shape != (b, gen) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{tag}: tokens {toks.shape}")
+    pre = cfg.n_patches if cfg.family == "vlm" else 0
+    rates = (f"prefill {stats['prefill_s'] * 1e3:.1f} ms = "
+             f"{b * (pre + pl) / stats['prefill_s']:.1f} prefill "
+             f"positions/s ({pre} patches + {pl} tokens a request)"
+             if cfg.family == "vlm" else
+             f"prefill (encoder and prompt) {stats['prefill_s'] * 1e3:.1f} "
+             f"ms = {b * cfg.n_audio_frames / stats['prefill_s']:.1f} "
+             f"encoder frames/s")
+    log(f"[{tag}] {b} requests x prompt {pl}, {gen} tokens each: {rates}; "
+        f"{gen - 1} decode steps {stats['decode_s']:.3f}s = "
+        f"{(gen - 1) * b / stats['decode_s']:.1f} decode tokens/s "
+        f"({stats['decode_s'] / (gen - 1) * 1e3:.2f} ms a step); "
+        f"{counts[FLASH[0]]} flash_attention launches a prefill, 0 plain "
+        f"calls; max_memory_allocated {peak / 2**30:.2f} GiB ({peak} "
+        f"bytes)")
+    prompt = dict({k: x.to(dev) for k, x in extra_inputs(cfg, b).items()},
+                  tokens=torch.as_tensor(np.random.default_rng(0).integers(
+                      0, cfg.vocab, (b, pl)), device=dev))
+    with torch.inference_mode():
+        logits, cache = model.prefill_fn(params, prompt, pre + pl + gen)
+        tok = torch.argmax(logits[..., :cfg.vocab], -1)
+        del logits
+        n_dec = FULL_PROFILE_GEN - 1
+
+        def decode():
+            for i in range(n_dec):
+                model.decode_fn(params, cache, tok, pre + pl + i)
+        _, wall, busy, rows = profiled(decode, cpu=False)
+    del cache, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    if busy is None:
+        log(f"[{tag}] the profiler saw no device activity: device busy "
+            f"share not measured")
+    else:
+        log(f"[{tag}] {n_dec} decode steps under torch.profiler: "
+            f"{wall * 1e3:.1f} ms wall ({wall / n_dec * 1e3:.2f} ms a "
+            f"step), device busy {busy * 1e3:.1f} ms = share "
+            f"{busy / wall:.4f}")
+        log_rows(tag, device_time_by_layer(tag, rows), 6)
+    seen = capture_first_kernels(model, params, prompt, pre + pl + gen)
+    del params, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_first_kernels(tag, seen)
+    (q, k, v), kw, _ = seen["flash"]
+    return counts, ((q.clone(), k.clone(), v.clone()), kw)
+
+
+def phase_vlm(dev):
+    """25: (a) the LLaVA-NeXT smoke config card against CPU, served in
+    float32 and bfloat16 (`family_small_serve`), its loss and every
+    gradient in float32 (`small_grads`); (b) LLaVA-NeXT-34B at full width
+    and depth through `generate` (`serve_family_full`): 60 flash launches
+    a prefill, the first layer's (BH 448 x 2,048 x 128, causal, tile
+    1,024) against plain, SDPA and the bound. Returns the launches."""
+    from repro_torch.configs.registry import get_config
+    for dtype in ("float32", "bfloat16"):
+        family_small_serve(dev, VLM_ARCH, dtype)
+    small_grads(dev, VLM_ARCH)
+    counts, _ = serve_family_full(dev, get_config(VLM_ARCH), VLM_PARAMS,
+                                  VLM_BATCH, VLM_PROMPT, VLM_GEN)
+    return counts
+
+
+def audio_train(dev, cfg, steps):
+    """26(c): `steps` `make_train_step` steps (the config's AdamW) of
+    AUDIO_TRAIN_BATCH x (1,500 frames, 448 tokens) from a seed: finite
+    losses, 2 flash forwards (with the remat recompute) and 1 backward
+    an encoder or decoder layer a step, no plain call; the median step
+    of steps 2 on, target tokens/s, peak memory. Returns the launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.launch import steps as psteps
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.model import build_model
+
+    tag = f"train {cfg.name}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg)
+    opt_init, step_fn = psteps.make_train_step(model)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev, trainable=True)
+    state = opt_init(params)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=AUDIO_TRAIN_SEQ,
+                      global_batch=AUDIO_TRAIN_BATCH)
+    reset_lm_counts()
+    losses, dts = [], []
+    for step in range(steps):
+        bt = dict(to_device(host_batch(dcfg, step), dev),
+                  **{k: x.to(dev) for k, x in extra_inputs(
+                      cfg, AUDIO_TRAIN_BATCH, seed=step).items()})
+        t0 = time.perf_counter()
+        params, state, met = step_fn(params, state, bt, step)
+        losses.append(float(met["loss"].item()))
+        dts.append(time.perf_counter() - t0)
+    counts, plain = lm_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_fl = cfg.n_layers + cfg.n_enc_layers
+    want = {FLASH[0]: 2 * n_fl * steps, FLASH_BWD[0]: n_fl * steps}
+    if {k: counts[k] for k in want} != want or plain:
+        raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
+                             f"calls; expected {want}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
+    step_s = float(np.median(dts[1:]))
+    tokens = AUDIO_TRAIN_BATCH * AUDIO_TRAIN_SEQ
+    log(f"[{tag}] {cfg.optimizer}, remat {cfg.remat}, {cfg.dtype}: "
+        f"{steps} steps of {AUDIO_TRAIN_BATCH} x ({cfg.n_audio_frames} "
+        f"frames, {AUDIO_TRAIN_SEQ} tokens); losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; step times "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in dts)} ms; median of steps "
+        f"2-{steps} {step_s * 1e3:.2f} ms = {tokens / step_s:.1f} target "
+        f"tokens/s ({AUDIO_TRAIN_BATCH * cfg.n_audio_frames / step_s:.1f} "
+        f"frames/s); launches a step: {2 * n_fl} flash_attention (with "
+        f"the remat recompute), {n_fl} flash_attention_bwd, 0 plain calls; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes)")
+    del params, state, bt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_audio(dev):
+    """26: (a) the Whisper smoke config (D 12) card against CPU, served in
+    float32 and bfloat16, its loss and every gradient in float32; (b)
+    Whisper-tiny at full size through `generate` (`serve_family_full`):
+    8 flash launches a prefill, the first encoder layer's (BH 384 x 1,500
+    x 64, non-causal, one tile of 1,500: past the kernel's 64-row blocks
+    a ragged last block) against plain, SDPA and the bound, then its
+    backward alone on those tensors (`flash_bwd_alone`); (c) 5 AdamW
+    steps (`audio_train`). Returns the launches."""
+    from repro_torch.configs.registry import get_config
+    for dtype in ("float32", "bfloat16"):
+        family_small_serve(dev, AUDIO_ARCH, dtype)
+    small_grads(dev, AUDIO_ARCH)
+    cfg = get_config(AUDIO_ARCH)
+    counts, ((q, k, v), kw) = serve_family_full(
+        dev, cfg, AUDIO_PARAMS, AUDIO_BATCH, AUDIO_PROMPT, AUDIO_GEN)
+    if kw["causal"] or kw["tq"] != cfg.n_audio_frames:
+        raise AssertionError(f"[serve {cfg.name}] the first flash call is "
+                             f"not the encoder's: {kw}")
+    flash_bwd_alone(f"serve {cfg.name}", q, k, v, False, kw["tq"])
+    del q, k, v
+    for k_, v_ in audio_train(dev, cfg, TRAIN_STEPS).items():
+        counts[k_] += v_
+    return counts
 
 
 # ------------------------------------------------------- CPU halves aside
@@ -4587,7 +5028,7 @@ def main() -> int:
 
 
 def run_phases(dev, smi, cpu_runs) -> int:
-    """Phases 3-24 and the closing lines; `cpu_runs`: CPU_HALVES' futures
+    """Phases 3-26 and the closing lines; `cpu_runs`: CPU_HALVES' futures
     by name."""
     import torch
     rec = {}
@@ -4677,6 +5118,11 @@ def run_phases(dev, smi, cpu_runs) -> int:
         for k, v in part(dev).items():
             counts[k] = counts.get(k, 0) + v
     log(f"[moe] phase {time.perf_counter() - t0:.1f}s")
+    for name_, part in (("vlm", phase_vlm), ("audio", phase_audio)):
+        t0 = time.perf_counter()
+        for k, v in part(dev).items():
+            counts[k] = counts.get(k, 0) + v
+        log(f"[{name_}] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []

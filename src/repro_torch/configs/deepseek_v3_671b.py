@@ -1,8 +1,7 @@
 """deepseek-v3-671b: MLA + 1 shared + 256 routed top-8 MoE + MTP [arXiv:2412.19437].
 
 The config selects adafactor (factored second moment), as the
-reference's does; the port's train step refuses it for this family until
-ROADMAP.md's open item 13d-ii decides how it factors stacked layers.
+reference's does.
 """
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 

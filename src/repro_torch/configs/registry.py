@@ -1,13 +1,12 @@
 """Registry of the architectures the port serves (``--arch <id>``) and
 their smoke variants.
 
-A copy of the reference's registry that resolves only the families the
-port has: `hybrid` (Zamba2), `dense` (Qwen2, Qwen2.5, Minitron; Gemma3,
-the dense family with 5:1 local:global attention), `ssm` (Mamba2) and
-`moe` (Qwen2-MoE; DeepSeek-V3, with multi-head latent attention and
-multi-token prediction). The reference's other architectures (the VLM
-and audio families) are known by name and raise NotImplementedError,
-naming the open item that ports them, until they are ported.
+A copy of the reference's registry, every family of it: `hybrid`
+(Zamba2), `dense` (Qwen2, Qwen2.5, Minitron; Gemma3, the dense family
+with 5:1 local:global attention), `ssm` (Mamba2), `moe` (Qwen2-MoE;
+DeepSeek-V3, with multi-head latent attention and multi-token
+prediction), `vlm` (LLaVA-NeXT, image patches prepended to the tokens)
+and `audio` (Whisper, the encoder-decoder).
 """
 from __future__ import annotations
 
@@ -24,23 +23,16 @@ _MODULES = {
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "llava-next-34b": "repro_torch.configs.llava_next_34b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
-
-# the reference's other architectures, still to port, and the open item
-# of ROADMAP.md that ports each
-_UNPORTED = {"llava-next-34b": "13e", "whisper-tiny": "13e"}
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def _module(arch: str):
-    if arch in _UNPORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: the port serves "
-            f"{list(ARCH_IDS)} (ROADMAP.md, open item {_UNPORTED[arch]})")
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: "
-                       f"{sorted(ARCH_IDS + tuple(_UNPORTED))}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_IDS)}")
     return importlib.import_module(_MODULES[arch])
 
 

@@ -48,17 +48,26 @@ MLA's `{"c_kv", "k_rope"}`, and the reference's `{"dense": ..., "moe":
 between the port's stacked leaves and the reference's `{"states":
 {...}}`.
 
-For training, `lm_params_to_numpy` is the inverse of the three
+For the encoder-decoder (Whisper), `encdec_params_to_torch` unstacks
+the reference's `enc_layers` and `dec_layers` into one block each, and
+`encdec_cache_to_numpy` / `encdec_cache_to_torch` carry its cache
+(`self_k`, `self_v`, `cross_k`, `cross_v`, stacked on a leading layer
+axis on both sides).
+
+For training, `lm_params_to_numpy` is the inverse of the four
 parameter converters: a `{port name: tensor}` dict (a module's
 `named_parameters()`, or optimizer state under those names) as the
-reference's stacked tree of float32 numpy. `adamw_state_to_torch` /
+reference's stacked tree of float32 numpy. `reference_leaves` runs it on
+the parameters' indices to tell which port names make up each of the
+reference's leaves, and in what stacked shape: the grouping Adafactor
+factors over (`optim/optimizers.py`). `adamw_state_to_torch` /
 `adamw_state_to_numpy` carry AdamW's state between the reference's
 `{"step", "m", "v"}` pytrees (in its parameter layout) and the port's
-dicts under the port's names. Adafactor factors each leaf it is given,
-and the reference's model leaves are stacked where the port's are not
-(`optim/optimizers.py`), so `adafactor_state_to_torch` /
-`adafactor_state_to_numpy` carry the state of a flat `{name: array}`
-dict of leaves, the same names on both sides.
+dicts under the port's names. The port keeps Adafactor's state in the
+reference's layout already (its `vs` tree, stacked, under the
+reference's paths, or under each name without `leaves`), so
+`adafactor_state_to_torch` / `adafactor_state_to_numpy` map that tree
+leaf for leaf.
 """
 from __future__ import annotations
 
@@ -78,6 +87,7 @@ from repro_torch.flexibits.cycles import CORES
 from repro_torch.flexibits.iss import ISSState, PackedState
 from repro_torch.kernels.carbon_sweep import SweepAcc
 from repro_torch.models import moe
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import F32_LEAVES, HybridLM, split_counts
 from repro_torch.models.ssm import SSMLM
 from repro_torch.models.transformer import (DecoderLM, layer_counts,
@@ -267,6 +277,21 @@ def decoder_params_to_torch(params, cfg, device: DeviceLike = None
     return DecoderLM(out)
 
 
+def encdec_params_to_torch(params, cfg, device: DeviceLike = None
+                           ) -> EncDecLM:
+    """The reference's encoder-decoder parameters (`init_encdec`'s
+    pytree, numpy: stacked `enc_layers` and `dec_layers`) -> the port's
+    `EncDecLM` on `device`."""
+    leaf, conv, take = _params_to_torch(resolve(device), torch_dtype(cfg))
+    return EncDecLM({
+        **{k: leaf(params[k], k) for k in ("embed", "enc_norm", "final_norm",
+                                           "lm_head")},
+        "enc_layers": [conv(take(params["enc_layers"], i))
+                       for i in range(cfg.n_enc_layers)],
+        "dec_layers": [conv(take(params["dec_layers"], i))
+                       for i in range(cfg.n_layers)]})
+
+
 def ssm_params_to_torch(params, cfg, device: DeviceLike = None) -> SSMLM:
     """The reference's Mamba2 LM parameters (`init_ssm_lm`'s pytree,
     numpy) -> the port's `SSMLM` on `device`."""
@@ -357,6 +382,21 @@ def decoder_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
     return out
 
 
+_ENCDEC_CACHE = ("self_k", "self_v", "cross_k", "cross_v")
+
+
+def encdec_cache_to_numpy(cache, cfg) -> dict:
+    """The port's encoder-decoder cache -> the reference's, float32."""
+    return {k: _f32(cache[k]) for k in _ENCDEC_CACHE}
+
+
+def encdec_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
+    """An encoder-decoder cache in the reference's layout (numpy;
+    bfloat16 leaves as float32) -> the port's, on `device`."""
+    dev, dtype = resolve(device), torch_dtype(cfg)
+    return {k: _from_f32(cache[k], dev, dtype) for k in _ENCDEC_CACHE}
+
+
 def ssm_cache_to_numpy(cache, cfg) -> dict:
     """The port's Mamba2 LM state -> the reference's layout, float32."""
     return {"states": {k: _f32(cache[k]) for k in _STATE_KEYS}}
@@ -376,8 +416,10 @@ def ssm_cache_to_torch(cache, cfg, device: DeviceLike = None) -> dict:
 
 _PARAMS_TO_TORCH = {"dense": decoder_params_to_torch,
                     "moe": decoder_params_to_torch,
+                    "vlm": decoder_params_to_torch,
                     "hybrid": hybrid_params_to_torch,
-                    "ssm": ssm_params_to_torch}
+                    "ssm": ssm_params_to_torch,
+                    "audio": encdec_params_to_torch}
 
 
 def lm_named_to_torch(tree, cfg, device: DeviceLike = None) -> dict:
@@ -412,9 +454,9 @@ def lm_params_to_numpy(named: dict, cfg) -> dict:
     def layers(key):
         return [nested[key][str(i)] for i in range(len(nested[key]))]
 
-    out = {k: nested[k] for k in ("embed", "final_norm", "lm_head", "mtp")
-           if k in nested}
-    if cfg.family in ("dense", "moe"):
+    out = {k: nested[k] for k in ("embed", "final_norm", "lm_head", "mtp",
+                                  "enc_norm") if k in nested}
+    if cfg.family in ("dense", "moe", "vlm"):
         g = _group(cfg)
         n_dense, n_moe = layer_counts(cfg)
         blocks = layers("layers")
@@ -438,6 +480,9 @@ def lm_params_to_numpy(named: dict, cfg) -> dict:
         if n_tail:
             out["mamba_tail"] = _stack(mamba[n_g:])
         out["shared"] = _stack(layers("shared"))
+    elif cfg.family == "audio":
+        out["enc_layers"] = _stack(layers("enc_layers"))
+        out["dec_layers"] = _stack(layers("dec_layers"))
     else:
         raise KeyError(f"family {cfg.family!r} has no port")
     return out
@@ -460,19 +505,38 @@ def adamw_state_to_numpy(state, cfg) -> dict:
             "v": lm_params_to_numpy(state["v"], cfg)}
 
 
+def reference_leaves(named: dict, cfg) -> dict:
+    """{path of one of the reference's parameter leaves (a tuple of
+    keys): (the port's names that make it up, in the C order of its
+    stacked layer axes; those axes' shape, () for a leaf the reference
+    does not stack)}, for the port's parameter names `named` (a dict or
+    a list): `lm_params_to_numpy` run on each name's index."""
+    names = list(named)
+    index = {k: torch.tensor(float(i)) for i, k in enumerate(names)}
+    out = {}
+
+    def walk(path, tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(path + (k,), v)
+            else:
+                out[path + (k,)] = (tuple(names[int(i)] for i in
+                                          v.reshape(-1)), v.shape)
+    walk((), lm_params_to_numpy(index, cfg))
+    return out
+
+
 def adafactor_state_to_torch(state, device: DeviceLike = None) -> dict:
-    """The reference's Adafactor state of a flat {name: array} dict
-    (numpy) -> the port's, on `device`."""
+    """The reference's Adafactor state (numpy; `vs` in its parameter
+    layout, or a flat {name: ...} dict's) -> the port's, on `device`."""
     dev = resolve(device)
     return {"step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32, device=dev),
-            "vs": {k: {kk: _t(np.asarray(vv, np.float32), dev)
-                       for kk, vv in v.items()}
-                   for k, v in state["vs"].items()}}
+            "vs": _map(lambda x: _t(np.asarray(x, np.float32), dev),
+                       state["vs"])}
 
 
 def adafactor_state_to_numpy(state) -> dict:
     """The port's Adafactor state -> the reference's layout, numpy."""
     return {"step": np.int32(int(state["step"])),
-            "vs": {k: {kk: _f32(vv) for kk, vv in v.items()}
-                   for k, v in state["vs"].items()}}
+            "vs": _map(_f32, state["vs"])}

@@ -7,17 +7,15 @@ and the optimizer state, in place (`optim/optimizers.py`), returning both
 as the reference returns its new ones. Gradients come from
 `torch.autograd.grad` over the module's parameters in
 `named_parameters()` order; a parameter the loss does not reach gets
-zeros, as `jax.grad` gives it.
-
-The MoE family with Adafactor (DeepSeek-V3's config) is refused: the
-reference's Adafactor factors its stacked layers (n_layers, ...) as one
-leaf, the port's each layer alone, so their steps would differ
-(ROADMAP.md, open item 13d-ii).
+zeros, as `jax.grad` gives it. Adafactor (DeepSeek-V3's config) is given
+the reference's leaves (`convert.reference_leaves`), so it factors and
+clips each of the reference's stacked leaves as the reference does.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.convert import reference_leaves
 from repro_torch.models.model import Model
 from repro_torch.optim import clip_by_norm, cosine_schedule, make_optimizer
 
@@ -41,16 +39,17 @@ def make_train_step(model: Model, *, grad_accum: int = 1,
     micro-batches in order; their float32 gradients and losses are summed
     each divided by `grad_accum`, as the reference's scan sums them."""
     cfg = model.cfg
-    if cfg.family == "moe" and cfg.optimizer == "adafactor":
-        raise NotImplementedError(
-            f"{cfg.name}: Adafactor on the moe family is not ported yet: "
-            f"the reference factors each stack of layers as one leaf, the "
-            f"port each layer alone (ROADMAP.md, open item 13d-ii)")
     opt_init, opt_update = make_optimizer(cfg.optimizer)
     lr_kwargs = lr_kwargs or {}
 
+    def leaves(named):
+        if cfg.optimizer != "adafactor":
+            return {}
+        return {"leaves": reference_leaves(named, cfg)}
+
     def init_opt_state(params):
-        return opt_init(dict(params.named_parameters()))
+        named = dict(params.named_parameters())
+        return opt_init(named, **leaves(named))
 
     def train_step(params, opt_state, batch, step):
         named = dict(params.named_parameters())
@@ -76,7 +75,8 @@ def make_train_step(model: Model, *, grad_accum: int = 1,
             metrics = {k: v.detach() for k, v in metrics.items()}
         grads, gnorm = clip_by_norm(grads, max_grad_norm)
         lr = cosine_schedule(step, **lr_kwargs)
-        _, opt_state = opt_update(named, grads, opt_state, lr)
+        _, opt_state = opt_update(named, grads, opt_state, lr,
+                                  **leaves(named))
         metrics = dict(metrics, gnorm=gnorm, lr=lr,
                        loss=metrics.get("xent", 0.0))
         return params, opt_state, metrics

@@ -12,9 +12,11 @@ dict, `params/<name>`, `opt/<key>[/<name>...]` and `step`, through
 A step's `dt` is the wall time from the step's start to the loss's
 `.item()`, as the reference measures it up to `float(loss)`.
 
-Every served arch trains (`--arch qwen2-moe-a2.7b` among them) but
-DeepSeek-V3, whose Adafactor on the MoE family `launch/steps.py` refuses
-(ROADMAP.md, open item 13d-ii).
+Every decoder, hybrid and SSM arch trains here (`--arch
+qwen2-moe-a2.7b` among them; `--arch deepseek-v3-671b` with the
+reference's Adafactor); the VLM and audio families need patches or
+frames in the batch, which the reference's loop does not draw either:
+they train through `launch/steps.py::make_train_step`.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \

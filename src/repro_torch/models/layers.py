@@ -1,6 +1,7 @@
-"""Core layers: norms, RoPE, GQA attention (the plain and chunked plain
-versions for prefill, the cache version for decode), the QKV projection
-with its optional bias, and the SwiGLU MLP with its initialisation.
+"""Core layers: norms, RoPE, sinusoidal positions, GQA attention (the
+plain and chunked plain versions for prefill, the cache version for
+decode), the QKV projection with its optional bias, and the SwiGLU MLP
+with its initialisation.
 
 A port of the reference's `models/layers.py` for the serving paths. All
 attention math accumulates in float32; parameters and activations are
@@ -48,6 +49,15 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None):
+    """(length, dim) float32: sin of each position over 10000^(2i/dim)
+    in the first dim/2 columns, cos in the rest (Whisper's)."""
+    pos = torch.arange(length, dtype=F32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=F32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * i / dim))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------- attention

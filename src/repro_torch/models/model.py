@@ -1,22 +1,19 @@
 """API of the port's models: build_model(config) -> Model with
 init/loss/cache/prefill/decode functions, as the reference's
-`build_model` lays them out. The port serves the `dense` (Qwen2,
-Qwen2.5, Minitron, Gemma3), `moe` (Qwen2-MoE, DeepSeek-V3), `hybrid`
-(Zamba2) and `ssm` (Mamba2) families; the reference's `vlm` and `audio`
-families raise NotImplementedError, naming the open item of ROADMAP.md
-that ports each."""
+`build_model` lays them out, for every family of the reference: `dense`
+(Qwen2, Qwen2.5, Minitron, Gemma3), `moe` (Qwen2-MoE, DeepSeek-V3) and
+`vlm` (LLaVA-NeXT) on the decoder, `hybrid` (Zamba2), `ssm` (Mamba2)
+and `audio` (Whisper, the encoder-decoder)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import ssm as SM
 from repro_torch.models import transformer as TF
-
-_UNPORTED = {"vlm": "13e", "audio": "13e"}
-
 
 @dataclasses.dataclass(frozen=True)
 class Model:
@@ -24,9 +21,12 @@ class Model:
     parameters module (frozen unless `trainable`);
     `loss_fn(params, {"tokens", "targets"[, "mask"]})` -> (loss,
     {"xent"[, "aux"][, "mtp"]}) (the MoE family's router aux loss and
-    multi-token prediction loss where its config has them);
+    multi-token prediction loss where its config has them; the batch
+    also holds "patches" (B, P, D) for the VLM family, "frames" (B, T,
+    D) for the audio family);
     `init_cache(batch, seq_len, device=None)`;
-    `prefill_fn(params, {"tokens": (B, L)}, seq_len)` -> (logits, cache);
+    `prefill_fn(params, {"tokens": (B, L)[, "patches"][, "frames"]},
+    seq_len)` -> (logits, cache);
     `decode_fn(params, cache, tokens (B, 1), pos)` -> (logits, cache),
     the cache updated in place."""
     cfg: ModelConfig
@@ -39,12 +39,7 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam in _UNPORTED:
-        raise NotImplementedError(
-            f"family {fam!r} is not ported yet: the port serves the dense, "
-            f"moe, hybrid and ssm families (ROADMAP.md, open item "
-            f"{_UNPORTED[fam]})")
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "moe", "vlm"):
         def init_params(generator=None, device=None, trainable=False):
             return TF.init_decoder(cfg, generator, device, trainable)
 
@@ -92,6 +87,23 @@ def build_model(cfg: ModelConfig) -> Model:
 
         def decode_fn(params, cache, tokens, pos):
             return SM.ssm_decode_step(params, cfg, cache, tokens, pos)
+
+    elif fam == "audio":
+        def init_params(generator=None, device=None, trainable=False):
+            return ED.init_encdec(cfg, generator, device, trainable)
+
+        def loss_fn(params, batch):
+            return ED.encdec_loss(params, cfg, batch)
+
+        def init_cache(batch, seq_len, device=None):
+            return ED.encdec_init_cache(cfg, batch, seq_len, device)
+
+        def prefill_fn(params, batch, seq_len):
+            return ED.encdec_prefill(params, cfg, batch["frames"],
+                                     batch["tokens"], seq_len)
+
+        def decode_fn(params, cache, tokens, pos):
+            return ED.encdec_decode_step(params, cfg, cache, tokens, pos)
 
     else:
         raise KeyError(f"unknown family {fam!r}")

@@ -1,9 +1,10 @@
-"""Decoder-only LM, the dense and MoE families (Qwen2, Qwen2.5,
+"""Decoder-only LM, the dense, MoE and VLM families (Qwen2, Qwen2.5,
 Minitron, Gemma3 with its 5:1 local:global attention; Qwen2-MoE, and
 DeepSeek-V3 with multi-head latent attention and multi-token
-prediction): a port of the reference's `models/transformer.py` for
-serving and training (`decoder_loss`, `softmax_xent`), and the blocks
-the hybrid's shared attention reuses.
+prediction; LLaVA-NeXT, image patches prepended): a port of the
+reference's `models/transformer.py` for serving and training
+(`decoder_loss`, `softmax_xent`), and the blocks the hybrid's shared
+attention reuses.
 
 The model is a `DecoderLM` module: `embed`, `layers`, `final_norm`,
 `lm_head` only when the embedding is not tied (tied: the logits use
@@ -54,8 +55,11 @@ wraps each layer: its activations are recomputed in the backward.
 `decoder_loss` adds the router aux loss (MoE) and the multi-token
 prediction loss (MTP) to the cross-entropy, as the reference's does.
 
-Not served yet: prepended patches (the VLM family), which raise
-NotImplementedError naming ROADMAP.md's open item 13e.
+The VLM family's frontend is a stub, as in the reference: precomputed
+patch embeddings (B, P, D) are prepended to the token embeddings, in
+`decoder_forward` and `prefill`, and take positions 0 .. P - 1; the
+loss reads only the text positions. The cache then holds P + L
+positions after the prefill, and decode's positions count the patches.
 """
 from __future__ import annotations
 
@@ -153,13 +157,6 @@ def layer_counts(cfg: ModelConfig):
     if cfg.moe is None:
         return cfg.n_layers, 0
     return cfg.moe.n_dense_layers, cfg.n_layers - cfg.moe.n_dense_layers
-
-
-def _no_patches(patches) -> None:
-    if patches is not None:
-        raise NotImplementedError("prepended patches (the VLM family) are "
-                                  "not ported yet (ROADMAP.md, open item "
-                                  "13e)")
 
 
 def init_attention(cfg: ModelConfig, dtype, generator, device
@@ -332,11 +329,19 @@ def decoder_hidden(model: DecoderLM, cfg: ModelConfig, h, positions):
     return h, aux
 
 
+def embed_inputs(model: nn.Module, tokens, patches=None):
+    """The token embeddings, with `patches` (B, P, D) ahead of them."""
+    h = embed_tokens(model, tokens)
+    if patches is not None:
+        h = torch.cat([patches.to(h.dtype), h], dim=1)
+    return h
+
+
 def decoder_forward(model: DecoderLM, cfg: ModelConfig, tokens,
                     patches=None):
-    """The full forward (no cache): (final-normed hidden states, aux)."""
-    _no_patches(patches)
-    h = embed_tokens(model, tokens)
+    """The full forward (no cache): (final-normed hidden states, aux);
+    with `patches`, over the patches' positions too."""
+    h = embed_inputs(model, tokens, patches)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, aux = decoder_hidden(model, cfg, h, positions)
     return L.rms_norm(h, model.final_norm, cfg.rms_eps), aux
@@ -367,10 +372,13 @@ def decoder_loss(model: DecoderLM, cfg: ModelConfig, batch):
     cross-entropy "xent", plus router_aux_weight x the routers' summed
     aux loss "aux" with MoE, plus mtp_weight x the multi-token
     prediction loss "mtp" with MTP; each metric only where the
-    reference's has it."""
+    reference's has it. With "patches" (B, P, D), only the text
+    positions are scored."""
     targets = batch["targets"]
-    h, aux = decoder_forward(model, cfg, batch["tokens"],
-                             batch.get("patches"))
+    patches = batch.get("patches")
+    h, aux = decoder_forward(model, cfg, batch["tokens"], patches)
+    if patches is not None:
+        h = h[:, patches.shape[1]:]
     mask = batch_mask(batch)
     xent = softmax_xent(logits_fn(model, cfg, h), targets, mask)
     loss, metrics = xent, {"xent": xent}
@@ -471,9 +479,10 @@ def prefill(model: DecoderLM, cfg: ModelConfig, tokens, seq_len: int,
             patches=None):
     """Forward the prompt into a preallocated cache of capacity
     `seq_len`, each layer writing the K and V (or MLA's latents) its
-    attention used. Returns (last-position logits (B, 1, V), cache)."""
-    _no_patches(patches)
-    h = embed_tokens(model, tokens)
+    attention used; `patches` (B, P, D) go ahead of the tokens and take
+    the cache's first P positions. Returns (last-position logits (B, 1,
+    V), cache)."""
+    h = embed_inputs(model, tokens, patches)
     b, l, _ = h.shape
     positions = torch.arange(l, device=h.device)[None, :]
     cache = init_cache(cfg, b, seq_len, h.device)

@@ -15,13 +15,25 @@ directly from its own value in float32; `b1 ** t` with t float32.
 "master", as the reference's does; the reference's `adamw_update` neither
 reads nor returns it, and neither does this one (ROADMAP.md, queue 3).
 
-Adafactor factors each leaf it is given. The reference factors its
-model's stacked leaves (n_layers, ...), where the port has one tensor a
-layer: on the same arrays the two agree, on a model's update they do not
-(ROADMAP.md, queue 3); no ported config trains with Adafactor.
+Adafactor computes the reference's update on the reference's leaves.
+The reference stacks a model's layers on leading axes (n_layers, ...),
+or (n_groups, g, ...), and factors each stacked leaf as one tensor; the
+port holds one tensor a layer. `leaves` ({reference path: (the port's
+names in the stack's C order, the stack's shape)}, from
+`convert.reference_leaves`) joins them: the state is kept in the
+reference's stacked layout, under its path. Where a layer's leaf is a
+matrix or more, the stacked leaf is factored over the same last two
+axes, so each layer's r and c are its own (views into the stacked
+state), and only the RMS clip spans the stack: the layers' sums of u·u
+are added first, then each layer's u is formed again and applied, so
+no stacked copy of a parameter, gradient or update is made. A layer's
+vector (or scalar) is stacked: the (n, d) leaf is factored, r (n,)
+against c (d,), which couples the layers. Without `leaves` each
+parameter is its own leaf, under its name.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict
 
 import torch
@@ -86,44 +98,102 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
-def adafactor_init(params: Tensors) -> dict:
-    def one(p):
-        if _factored(p.shape):
-            return {"r": _zeros_f32(p, p.shape[:-1]),                # row
-                    "c": _zeros_f32(p, p.shape[:-2] + p.shape[-1:])}  # col
-        return {"v": _zeros_f32(p)}
+def _own_leaves(params: Tensors) -> dict:
+    """Each parameter its own leaf, under its name."""
+    return {(k,): ((k,), ()) for k in params}
+
+
+def _node(tree: dict, path) -> dict:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    return tree
+
+
+def adafactor_init(params: Tensors, leaves=None) -> dict:
+    """Zero state {"step", "vs"}: `vs` holds each leaf's {"r", "c"}
+    (factored) or {"v"} in the leaf's stacked shape, under its path."""
+    def one(p, shape):
+        if _factored(shape):
+            return {"r": _zeros_f32(p, shape[:-1]),                # row
+                    "c": _zeros_f32(p, shape[:-2] + shape[-1:])}   # col
+        return {"v": _zeros_f32(p, shape)}
+    vs: dict = {}
+    for path, (names, stack) in (leaves or _own_leaves(params)).items():
+        p = params[names[0]]
+        _node(vs, path)[path[-1]] = one(p, tuple(stack) + tuple(p.shape))
     dev = next(iter(params.values())).device
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
-            "vs": {k: one(p) for k, p in params.items()}}
+            "vs": vs}
+
+
+def _vhat(v: Tensors, eps) -> torch.Tensor:
+    """The second-moment estimate the state v gives."""
+    if "r" not in v:
+        return v["v"]
+    r = v["r"]
+    rmean = torch.mean(r, dim=-1, keepdim=True)
+    return (r / torch.clamp_min(rmean, eps))[..., None] * v["c"][..., None, :]
+
+
+def _moment_step(v: Tensors, g, beta, eps) -> torch.Tensor:
+    """Update the state v (in place) from the gradient g; the update's
+    unclipped direction u = g / sqrt(vhat)."""
+    g2 = g * g + eps
+    if "r" in v:
+        v["r"].copy_(beta * v["r"] + (1 - beta) * torch.mean(g2, dim=-1))
+        v["c"].copy_(beta * v["c"] + (1 - beta) * torch.mean(g2, dim=-2))
+    else:
+        v["v"].copy_(beta * v["v"] + (1 - beta) * g2)
+    return g * torch.rsqrt(torch.clamp_min(_vhat(v, eps), eps))
+
+
+def _apply(p, u, mean_uu, lr, eps, clip_thresh, wd) -> None:
+    """The RMS clip (Adafactor's update clipping) and the step."""
+    rms = torch.sqrt(mean_uu + eps)
+    u = u / torch.clamp_min(rms / clip_thresh, 1.0)
+    pf = p.to(F32)
+    p.copy_((pf - lr * (u + wd * pf)).to(p.dtype))
 
 
 @torch.no_grad()
 def adafactor_update(params: Tensors, grads: Tensors, state: dict, lr, *,
-                     decay=0.8, eps=1e-30, clip_thresh=1.0, wd=0.0):
+                     decay=0.8, eps=1e-30, clip_thresh=1.0, wd=0.0,
+                     leaves=None):
     step = state["step"] + 1
     t = step.to(F32)
     beta = 1.0 - t ** -decay
-    for k, p in params.items():
-        g = grads[k].to(F32)
-        v = state["vs"][k]
-        g2 = g * g + eps
-        if _factored(p.shape):
-            r = beta * v["r"] + (1 - beta) * torch.mean(g2, dim=-1)
-            c = beta * v["c"] + (1 - beta) * torch.mean(g2, dim=-2)
-            rmean = torch.mean(r, dim=-1, keepdim=True)
-            vhat = (r / torch.clamp_min(rmean, eps))[..., None] \
-                * c[..., None, :]
-            v["r"].copy_(r)
-            v["c"].copy_(c)
-        else:
-            vhat = beta * v["v"] + (1 - beta) * g2
-            v["v"].copy_(vhat)
-        u = g * torch.rsqrt(torch.clamp_min(vhat, eps))
-        # update clipping (Adafactor's RMS clip)
-        rms = torch.sqrt(torch.mean(u * u) + eps)
-        u = u / torch.clamp_min(rms / clip_thresh, 1.0)
-        pf = p.to(F32)
-        p.copy_((pf - lr * (u + wd * pf)).to(p.dtype))
+    clip = dict(lr=lr, eps=eps, clip_thresh=clip_thresh, wd=wd)
+    for path, (names, stack) in (leaves or _own_leaves(params)).items():
+        v = _node(state["vs"], path)[path[-1]]
+        shape = params[names[0]].shape
+        if not stack:
+            p = params[names[0]]
+            u = _moment_step(v, grads[names[0]].to(F32), beta, eps)
+            _apply(p, u, torch.mean(u * u), **clip)
+            continue
+        if len(shape) < 2:
+            # a vector (or scalar) a layer: the stacked leaf, one tensor
+            p = torch.stack([params[k] for k in names]).reshape(
+                tuple(stack) + tuple(shape))
+            g = torch.stack([grads[k].to(F32) for k in names]).reshape(
+                p.shape)
+            u = _moment_step(v, g, beta, eps)
+            _apply(p, u, torch.mean(u * u), **clip)
+            for k, pk in zip(names, p.reshape((len(names),) + shape)):
+                params[k].copy_(pk)
+            continue
+        # a matrix a layer: each layer's own r and c (views of the
+        # stacked state); the clip's mean spans the stack
+        views = [{kk: s[idx] for kk, s in v.items()}
+                 for idx in itertools.product(*map(range, stack))]
+        uu = sum(torch.sum(torch.square(_moment_step(vk, grads[k].to(F32),
+                                                      beta, eps)))
+                 for k, vk in zip(names, views))
+        mean_uu = uu / (len(names) * params[names[0]].numel())
+        for k, vk in zip(names, views):
+            g = grads[k].to(F32)
+            u = g * torch.rsqrt(torch.clamp_min(_vhat(vk, eps), eps))
+            _apply(params[k], u, mean_uu, **clip)
     return params, {"step": step, "vs": state["vs"]}
 
 

@@ -257,33 +257,6 @@ def test_moe_mla_mtp_configs_serve_against_the_reference(what):
     check_tree(c0, want[2], want[2], "float32")
 
 
-_UNSERVED = {
-    "family_vlm": ({"family": "vlm"}, "13e"),
-    "family_audio": ({"family": "audio"}, "13e"),
-}
-
-
-@pytest.mark.parametrize("what", sorted(_UNSERVED) + ["patches"])
-def test_unserved_configs_raise(what):
-    """What the decoder does not serve yet raises NotImplementedError
-    naming its open item: the VLM and audio families at build_model,
-    prepended patches at prefill and decoder_forward."""
-    cfg = registry.get_smoke_config("qwen2-1.5b")
-    if what == "patches":
-        model = build_model(cfg)
-        params = model.init_params(torch.Generator().manual_seed(0), "cpu")
-        toks = torch.zeros((1, 4), dtype=torch.int64)
-        patches = torch.zeros((1, 2, cfg.d_model))
-        with pytest.raises(NotImplementedError, match="open item 13e"):
-            model.prefill_fn(params, {"tokens": toks, "patches": patches}, 8)
-        with pytest.raises(NotImplementedError, match="open item 13e"):
-            TF.decoder_forward(params, cfg, toks, patches)
-        return
-    kw, item = _UNSERVED[what]
-    with pytest.raises(NotImplementedError, match=f"open item {item}"):
-        build_model(cfg.replace(**kw))
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_has_the_reference_layout_and_scales(arch):
     rcfg, cfg = _configs(arch, "bfloat16")

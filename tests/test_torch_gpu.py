@@ -1188,3 +1188,106 @@ def test_smoke_train_steps_on_card_match_cpu(cuda, grad_accum, arch):
     for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
                                    atol=atol, msg=name)
+
+
+# the Whisper encoder's attention: non-causal over 1,500 frames (one tile
+# of every frame, or 500), which is no multiple of the kernels' 64-row
+# blocks and 64-key tiles; its smoke config's D 12; a small ragged L
+_RAGGED_SHAPES = [(24, 1500, 64, 1500), (8, 1500, 64, 500),
+                  (6, 1500, 12, 1500), (4, 150, 64, 150), (4, 150, 12, 150),
+                  (3, 77, 64, 77)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _RAGGED_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_ragged_non_causal_matches_plain(cuda, dtype,
+                                                         shape):
+    """The forward, its log-sum-exp and the backward without a causal
+    mask at a ragged L, against the plain versions."""
+    from repro_torch.kernels import flash_attention as pfa
+    bh, l, d, t = shape
+    g = torch.Generator(device=cuda).manual_seed(l + d + 3)
+    q, k, v, do = (_rand(g, (bh, l, d), dtype, cuda) for _ in range(4))
+    o, lse = pfa._forward(q, k, v, False, t, t, 0, q.device, True)
+    po, plse = pfa.flash_attention_plain(q, k, v, causal=False, tq=t, tk=t,
+                                         return_lse=True)
+    _lm_close(o, po, dtype)
+    _lm_close(lse, plse, torch.float32)
+    got = pfa.flash_attention_bwd(q, k, v, o, do, lse, causal=False, tq=t,
+                                  tk=t, device=cuda)
+    torch.cuda.synchronize()
+    want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=False,
+                                         tq=t, tk=t)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == q.shape
+        _lm_close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_d192_matches_plain(cuda, dtype):
+    """The D 192 backward (MLA's q·k width, DeepSeek-V3's training) at a
+    small shape, causal, tile 128, against the plain version."""
+    from repro_torch.kernels import flash_attention as pfa
+    g = torch.Generator(device=cuda).manual_seed(192)
+    q, k, v, do = (_rand(g, (4, 256, 192), dtype, cuda) for _ in range(4))
+    o, lse = pfa._forward(q, k, v, True, 128, 128, 0, q.device, True)
+    _lm_close(o, pfa.flash_attention_plain(q, k, v, tq=128, tk=128), dtype)
+    got = pfa.flash_attention_bwd(q, k, v, o, do, lse, tq=128, tk=128,
+                                  device=cuda)
+    torch.cuda.synchronize()
+    want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, tq=128,
+                                         tk=128)
+    for a, b in zip(got, want):
+        _lm_close(a, b, dtype)
+
+
+def test_stacked_adafactor_step_on_card_matches_cpu(cuda):
+    """One `make_train_step` step of DeepSeek-V3's smoke config with its
+    Adafactor over the reference's stacked leaves, float32, on the card
+    and the CPU from the same parameters: loss and gnorm within 1e-4
+    relative, every parameter within 2 x the learning rate (the most a
+    sign flip of a unit update moves it) and every state leaf within
+    1e-3 relative."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.launch import steps as psteps
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import cosine_schedule
+    cfg = get_smoke_config("deepseek-v3-671b").replace(dtype="float32")
+    assert cfg.optimizer == "adafactor"
+    model = build_model(cfg)
+    lr_kwargs = {"warmup": 1}
+    opt_init, step_fn = psteps.make_train_step(model, lr_kwargs=lr_kwargs)
+    cpu = model.init_params(torch.Generator().manual_seed(0), "cpu",
+                            trainable=True)
+    card = model.init_params(torch.Generator(device=cuda).manual_seed(0),
+                             cuda, trainable=True)
+    with torch.no_grad():
+        for a, b in zip(card.parameters(), cpu.parameters()):
+            a.copy_(b)
+    bt = host_batch(DataConfig(vocab=cfg.vocab, seq_len=64,
+                               global_batch=4), 0)
+    card, sc, mc = step_fn(card, opt_init(card), to_device(bt, cuda), 0)
+    cpu, sp, mp = step_fn(cpu, opt_init(cpu),
+                          to_device(bt, torch.device("cpu")), 0)
+    for k in ("loss", "gnorm"):
+        np.testing.assert_allclose(float(mc[k]), float(mp[k]), rtol=1e-4)
+    atol = 2 * float(cosine_schedule(0, **lr_kwargs))
+    for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=atol, msg=name)
+    got = convert.adafactor_state_to_numpy(sc)
+    want = convert.adafactor_state_to_numpy(sp)
+    assert int(got["step"]) == int(want["step"]) == 1
+
+    def close(a, b):
+        for k in b:
+            if isinstance(b[k], dict):
+                close(a[k], b[k])
+            else:
+                np.testing.assert_allclose(
+                    a[k], b[k], rtol=1e-3,
+                    atol=1e-6 * max(1.0, float(np.abs(b[k]).max())))
+    close(got["vs"], want["vs"])

@@ -69,7 +69,11 @@ _SLICE_MODULES = ("repro_torch.fleet.engine",
                   "repro_torch.models.ssm", "repro_torch.data.pipeline",
                   "repro_torch.optim.optimizers",
                   "repro_torch.optim.schedule", "repro_torch.launch.steps",
-                  "repro_torch.launch.train", "repro_torch.kernels._grad")
+                  "repro_torch.launch.train", "repro_torch.kernels._grad",
+                  "repro_torch.models.encdec",
+                  "repro_torch.configs.llava_next_34b",
+                  "repro_torch.configs.whisper_tiny",
+                  "repro_torch.configs.flexic")
 
 
 def test_port_imports_with_jax_and_the_reference_blocked():
@@ -273,26 +277,38 @@ def test_lm_entry_points_default_to_the_card():
 
 _SERVED = ("qwen2-1.5b", "qwen2.5-14b", "minitron-8b", "mamba2-1.3b",
            "zamba2-7b", "gemma3-12b", "qwen2-moe-a2.7b", "deepseek-v3-671b")
-_STILL_UNPORTED = {"llava-next-34b": "13e", "whisper-tiny": "13e"}
+_VLM_AUDIO = {"llava-next-34b": "vlm", "whisper-tiny": "audio"}
 
 
-@pytest.mark.parametrize("arch", _SERVED + tuple(_STILL_UNPORTED))
+@pytest.mark.parametrize("arch", _SERVED + tuple(_VLM_AUDIO))
 def test_arch_ids_resolve_or_name_their_item(arch):
-    """The eight served ids resolve to the reference's full and smoke
-    configs (the port's copies); the other two raise
-    NotImplementedError naming their open item."""
+    """Every one of the reference's ten ids resolves to its full and
+    smoke configs (the port's copies) and builds a model: none is left
+    unported, so none raises NotImplementedError."""
     from repro_torch.configs import registry
-    if arch in _STILL_UNPORTED:
-        for fn in (registry.get_config, registry.get_smoke_config):
-            with pytest.raises(NotImplementedError,
-                               match=f"open item {_STILL_UNPORTED[arch]}"):
-                fn(arch)
-        return
+    from repro_torch.models.model import build_model
     cfg = registry.get_config(arch)
     assert cfg.name == arch and cfg.family in ("dense", "ssm", "hybrid",
-                                               "moe")
+                                               "moe", "vlm", "audio")
+    if arch in _VLM_AUDIO:
+        assert cfg.family == _VLM_AUDIO[arch]
     assert registry.get_smoke_config(arch).name == arch
     assert arch in registry.ARCH_IDS
+    assert build_model(registry.get_smoke_config(arch)).cfg.name == arch
+
+
+def test_flexic_config_equals_the_reference():
+    """`configs/flexic.py` is the reference's: every field, the cores by
+    name and value."""
+    from repro.configs import flexic as ref
+    from repro_torch.configs import flexic
+    for name in ("CLOCK_HZ", "TAPEOUT_HZ", "TESTED_HZ", "RED_STARS"):
+        assert getattr(flexic, name) == getattr(ref, name), name
+    assert sorted(flexic.CORES) == sorted(ref.CORES)
+    for k, core in flexic.CORES.items():
+        assert vars(core) == vars(ref.CORES[k]), k
+    for c in ("SERV", "QERV", "HERV"):
+        assert vars(getattr(flexic, c)) == vars(getattr(ref, c))
 
 
 @pytest.mark.parametrize("what", ["refill_host", "checkpoint",

@@ -2,8 +2,9 @@
 attention and multi-token prediction) on the CPU against the reference:
 prefill logits, the cache in the reference's layout and decode steps,
 `generate`, the loss with its "xent", "aux" and "mtp" terms and every
-parameter's gradient, three AdamW train steps, the Adafactor refusal,
-and the registry, `build_model` and the CLIs.
+parameter's gradient, three AdamW train steps, and the registry,
+`build_model` and the CLIs (DeepSeek-V3's Adafactor steps are in
+`test_torch_adafactor.py`).
 
 The smoke configs (Qwen2-MoE: 2 MoE layers of 8 experts, top 2, one
 shared expert, GQA with a QKV bias; DeepSeek-V3: 1 dense and 3 MoE
@@ -255,22 +256,6 @@ def test_train_steps_equal_the_reference(refs):
     got = convert.adamw_state_to_numpy(tstate, cfg)
     _close_tree(got["m"], rstate["m"])
     _close_tree(got["v"], rstate["v"])
-
-
-def test_adafactor_train_step_is_refused():
-    """DeepSeek-V3 trains with Adafactor, which the port factors a layer
-    at a time where the reference factors each stacked leaf: its train
-    step raises NotImplementedError naming item 13d-ii, from
-    `make_train_step` and from the train CLI; the same config with
-    AdamW builds a step."""
-    cfg = registry.get_smoke_config(DSV3)
-    assert cfg.optimizer == "adafactor"
-    with pytest.raises(NotImplementedError, match="13d-ii"):
-        psteps.make_train_step(build_model(cfg))
-    with pytest.raises(NotImplementedError, match="13d-ii"):
-        ptrain.main(["--arch", DSV3, "--smoke", "--device", "cpu",
-                     "--steps", "1", "--batch", "2", "--seq", "8"])
-    psteps.make_train_step(build_model(cfg.replace(optimizer="adamw")))
 
 
 @pytest.mark.parametrize("arch", [QWEN, DSV3])

@@ -188,17 +188,15 @@ def test_init_has_the_reference_layout_and_scales():
 
 
 def test_unported_archs_and_families_raise():
-    """The archs and families still to port raise, naming their open
-    item; the dense and SSM archs this slice ports resolve."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_config("llava-next-34b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_smoke_config("whisper-tiny")
+    """Every family of the reference is ported now: the VLM and audio
+    archs resolve and their families build; an unknown id raises
+    KeyError; the dense and SSM archs resolve."""
+    assert registry.get_config("llava-next-34b").family == "vlm"
+    assert registry.get_smoke_config("whisper-tiny").family == "audio"
     with pytest.raises(KeyError):
         registry.get_config("no-such-arch")
     cfg = registry.get_smoke_config("zamba2-7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg.replace(family="vlm"))
+    assert build_model(cfg.replace(family="vlm")).cfg.family == "vlm"
     assert registry.get_config("zamba2-7b").n_layers == 81
     assert registry.get_config("qwen2-1.5b").family == "dense"
     assert registry.get_smoke_config("mamba2-1.3b").family == "ssm"
