@@ -315,6 +315,23 @@ Phases (each prints its own lines; any failure exits non-zero):
    its backward alone; (c) 5 AdamW `make_train_step` steps of 16 x
    (1,500 frames, 448 tokens): 16 flash forwards and 8 backwards a step,
    finite losses, step ms, tokens/s, peak memory.
+27. the distributed modules: (a) `make_host_mesh()`, a (1, 1) NCCL mesh
+   over a one-rank group; (b) Qwen2-1.5B at full size, 3 AdamW steps of
+   8 x 512 without a mesh and 3 data-parallel on the mesh from the same
+   seed (`train_loop(mesh=)` for 2, checkpointed at step 2, the third
+   from (c)'s resume), losses and final parameters equal bit for bit
+   (a one-rank mean all-reduce is exact), both step times and the
+   gradient all-reduce's ms a step (CUDA events); (c) `resume_elastic`
+   of that checkpoint onto the mesh: parameters bit-equal to the mesh
+   run's at step 2; (d) `compressed_allreduce` over the one-rank NCCL
+   group on the gradients of `embed` and layer 0, two error-feedback
+   steps, bit-equal to the same call on the CPU, its ms and GB/s
+   against the bytes it must move; (e) `launch/dryrun.py::analyze_cell`
+   of (b)'s cell (8 x 512, train, one chip; traced on fake tensors in a
+   CPU worker beside the card's phases): the roofline's terms beside
+   (b)'s measured step, and the measured share of the ideal step. The
+   main serve's parameter count (phase 15) is `count_params_abstract` of
+   the port's config, checked against the reference's 6.957e9.
 
 The CPU halves of phases 4, 11 and 18(a) (small plans on the plain
 path, single-threaded, the largest host work of the run) run in four
@@ -334,9 +351,9 @@ flash's and the scan's; `flash_attention_bwd`'s are phase 21(b)'s five
 steps plus the quickstart's; phase 22(b) and (c)'s are added to the
 scan's and to flash's, forward and backward, and `ssd_scan_bwd`'s are
 theirs alone; phase 23(b)'s prefill and (d)'s steps, phase
-24(b)-(c)'s prefills and (d)'s steps, and phases 25(b)'s and 26(b)'s
-prefills and 26(c)'s steps, are added to flash's, forward and
-backward), the card's nvidia-smi line, and
+24(b)-(c)'s prefills and (d)'s steps, phases 25(b)'s and 26(b)'s
+prefills and 26(c)'s steps, and phase 27(b)'s six steps, are added to
+flash's, forward and backward), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
 held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
@@ -362,10 +379,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.join(ROOT, "tests"))  # _torch_parity (no JAX)
 
-# H100 SXM peaks used for the bounds: HBM bandwidth (NVIDIA's data sheet)
-# and the int32 rate outside the tensor cores (132 SMs x 64 int32 lanes
-# per SM per clock x 1.98 GHz boost, from the Hopper architecture paper)
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM peaks used for the bounds: HBM bandwidth and the bfloat16
+# dense rate of the tensor cores (the least time for a product of
+# bfloat16 inputs), NVIDIA's data sheet, kept in the port's roofline;
+# the int32 rate outside the tensor cores (132 SMs x 64 int32 lanes per
+# SM per clock x 1.98 GHz boost, from the Hopper architecture paper)
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_OPS_PER_S, HBM_BYTES_PER_S)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # float32 rate outside the tensor cores (NVIDIA's data sheet, H100 SXM)
 FP32_OPS_PER_S = 67e12
@@ -1443,9 +1463,6 @@ def phase_main_resilient(dev, main_rep):
 
 
 # ------------------------------------------------------------------ LM
-# bfloat16 dense rate of the tensor cores (NVIDIA's data sheet, H100
-# SXM): the least time for a product of bfloat16 inputs
-BF16_OPS_PER_S = 989e12
 # kernel against plain version on the same inputs: largest |difference|
 # over the output's largest magnitude (at least 1). The float32
 # instantiations multiply in float32 like their plain versions, in
@@ -1468,7 +1485,8 @@ BITPLANE = ("bitplane_matmul",
 EARLIER_SSD_MS = 2.880
 # the main serve: Zamba2-7B, 8 requests, prompt 512, 32 generated tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
-SERVE_PARAMS = 6.957e9          # count_params_abstract of the reference
+# the reference's count_params_abstract of Zamba2-7B, rounded
+REF_SERVE_PARAMS = 6.957e9
 PROFILE_GEN = 8
 
 
@@ -1998,7 +2016,8 @@ def phase_main_serve(dev, rec):
     from repro_torch.launch import serve
     from repro_torch.models import hybrid as HY
     from repro_torch.models import layers as L
-    from repro_torch.models.model import build_model, count_params
+    from repro_torch.models.model import (build_model, count_params,
+                                           count_params_abstract)
 
     cfg = get_config("zamba2-7b")
     period, n_groups, n_tail = HY.split_counts(cfg)
@@ -2014,9 +2033,10 @@ def phase_main_serve(dev, rec):
         f"d_model {cfg.d_model}, {cfg.dtype}): {n_params} parameters "
         f"({n_params / 1e9:.3f}e9) initialised on the card in "
         f"{time.perf_counter() - t0:.1f}s")
-    if abs(n_params - SERVE_PARAMS) > 0.0005e9:
-        raise AssertionError(f"{n_params} parameters, expected "
-                             f"{SERVE_PARAMS:.4g}")
+    want = count_params_abstract(model)
+    if n_params != want or abs(want - REF_SERVE_PARAMS) > 0.0005e9:
+        raise AssertionError(f"{n_params} parameters, count_params_abstract "
+                             f"{want}, the reference's {REF_SERVE_PARAMS:.4g}")
 
     # warm-up (the allocator's pool, cuBLAS's choices), not counted
     serve.generate(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=2,
@@ -4960,6 +4980,211 @@ def phase_audio(dev):
     return counts
 
 
+# ------------------------------------------------------------- phase 27
+# the data-parallel cell: phase 21(b)'s Qwen2-1.5B at 8 x 512, 3 steps
+MESH_STEPS = 3
+
+
+def roofline_cell():
+    """`launch/dryrun.py::analyze_cell` of phase 27's train cell on one
+    chip, traced on fake tensors (in a CPU worker process): the result
+    dict and the trace's wall seconds."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch.dryrun import analyze_cell
+    t0 = time.perf_counter()
+    res = analyze_cell(get_config(TRAIN_ARCH),
+                       ShapeConfig("train_8x512", TRAIN_SEQ, TRAIN_BATCH,
+                                   "train"),
+                       AbstractMesh(("data", "model"), (1, 1)))
+    return res, time.perf_counter() - t0
+
+
+def torch_equal(x, y) -> bool:
+    """Same dtype, shape and bits."""
+    import torch
+    return x.dtype == y.dtype and torch.equal(x, y)
+
+
+def same_bits(a, b) -> bool:
+    return len(a) == len(b) and all(map(torch_equal, a, b))
+
+
+def phase_mesh(dev, cpu_runs):
+    """27 (the module docstring's list): the host mesh, data-parallel
+    Qwen2-1.5B against the same steps without a mesh, elastic resume,
+    the compressed all-reduce against the CPU and the roofline beside
+    the measured step. Returns the launches of (b)'s six steps."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.distributed import compression, meshctx
+    from repro_torch.distributed.elastic import resume_elastic
+    from repro_torch.distributed.sharding import mesh_shape
+    from repro_torch.launch import steps as psteps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import to_device, train_loop
+    from repro_torch.models.model import build_model
+
+    # (a)
+    mesh = make_host_mesh()
+    shape = mesh_shape(mesh)
+    group = meshctx.batch_group(mesh)
+    if shape != {"data": 1, "model": 1} or dist.get_backend(group) != "nccl":
+        raise AssertionError(f"[mesh] host mesh {shape}, backend "
+                             f"{dist.get_backend(group)}")
+    log(f"[mesh] make_host_mesh(): {mesh}, axes {shape}, backend "
+        f"{dist.get_backend(group)}, world {dist.get_world_size()}")
+
+    # (b) 3 steps without a mesh, then on it
+    cfg = get_config(TRAIN_ARCH)
+    kw = dict(cfg=cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              log=lambda *a: None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_lm_counts()
+    plain = train_loop(steps=MESH_STEPS, ckpt_dir="", device=dev, **kw)
+    want = [p.detach().clone() for p in plain["params"].parameters()]
+    want_losses, want_dts = plain["losses"], plain["dts"]
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = os.path.join(ROOT, "build", "chip_smoke_mesh_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        run = train_loop(steps=MESH_STEPS - 1, ckpt_dir=d, mesh=mesh, **kw)
+        mesh_wall = time.perf_counter() - t0
+        at2 = [p.detach().clone() for p in run["params"].parameters()]
+        losses, dts = run["losses"], run["dts"]
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) resume the step-2 checkpoint onto the mesh, then step 3
+        model = build_model(cfg)
+        opt_init, step_fn = psteps.make_train_step(model, group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, step = resume_elastic(d, model, opt_init, mesh)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        ck_bytes = sum(os.path.getsize(os.path.join(r, f))
+                       for r, _, fs in os.walk(d) for f in fs)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if step != MESH_STEPS - 1 or not same_bits(list(params.parameters()),
+                                               at2):
+        raise AssertionError(f"[mesh] resume_elastic: step {step}, or the "
+                             f"parameters differ from the mesh run's")
+    del at2
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    bt = to_device(host_batch(dcfg, step), dev)
+    with meshctx.mesh_context(mesh):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, bt, step)
+        losses.append(float(m["loss"].item()))
+        dts.append(time.perf_counter() - t0)
+    counts, plain_calls = lm_counts()
+    per = {FLASH[0]: 2 * cfg.n_layers, FLASH_BWD[0]: cfg.n_layers}
+    if {k: counts[k] for k in per} != {
+            k: v * 2 * MESH_STEPS for k, v in per.items()} or plain_calls:
+        raise AssertionError(f"[mesh] launches {counts}, {plain_calls} plain "
+                             f"calls")
+    if losses != want_losses or not same_bits(list(params.parameters()),
+                                              want):
+        raise AssertionError(f"[mesh] data-parallel losses {losses} vs "
+                             f"{want_losses}, or the parameters differ")
+    del want
+    step_ms = float(np.median(dts[1:])) * 1e3
+    plain_ms = float(np.median(want_dts[1:])) * 1e3
+    named = {k: p.detach() for k, p in params.named_parameters()}
+    loss0 = torch.zeros((), device=dev)
+    psteps.mean_over(group, named, {"xent": loss0})       # warm
+    reduce_ms = events_ms(lambda: psteps.mean_over(
+        group, named, {"xent": loss0}), reps=3)
+    n_el = sum(p.numel() for p in named.values())
+    log(f"[mesh] (b) {cfg.name} at full size ({n_el} parameters), "
+        f"{MESH_STEPS} AdamW steps of {TRAIN_BATCH} x {TRAIN_SEQ} on the "
+        f"(1, 1) mesh against the same steps without one: losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)} and every parameter "
+        f"equal bit for bit; median step of steps 2-{MESH_STEPS} "
+        f"{step_ms:.2f} ms on the mesh, {plain_ms:.2f} ms without "
+        f"(steps {', '.join(f'{x * 1e3:.1f}' for x in dts)} and "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in want_dts)} ms); the "
+        f"gradient mean over the one-rank NCCL group (one float32 "
+        f"all-reduce of {n_el} values, packed and unpacked) "
+        f"{reduce_ms:.3f} ms a step (CUDA events); launches {counts}, no "
+        f"plain call")
+    log(f"[mesh] (c) resume_elastic of the step-{step} checkpoint "
+        f"({ck_bytes / 1e9:.2f} GB; the mesh run's init, {step} steps and "
+        f"save took {mesh_wall:.1f}s) onto the mesh in {resume_s:.1f}s: "
+        f"parameters bit-equal to the mesh run's at step {step}; step "
+        f"{step + 1}'s loss {losses[-1]:.6f} equal to the uninterrupted "
+        f"run's")
+
+    # (d) the compressed all-reduce on embed's and layer 0's gradients
+    names = ["embed"] + [k for k in named if k.startswith("layers.0.")]
+    loss, _ = model.loss_fn(params, bt)
+    grads = dict(zip(names, torch.autograd.grad(
+        loss, [dict(params.named_parameters())[k] for k in names])))
+    del loss, opt
+    cpu_g = {k: g.cpu() for k, g in grads.items()}
+    res, cpu_res = (compression.init_residuals(grads),
+                    compression.init_residuals(cpu_g))
+    for i in range(2):
+        mean, res = compression.compressed_allreduce(grads, res, group)
+        cmean, cpu_res = compression.compressed_allreduce(cpu_g, cpu_res)
+        for k in names:
+            if not (torch_equal(mean[k].cpu(), cmean[k])
+                    and torch_equal(res[k].cpu(), cpu_res[k])):
+                raise AssertionError(f"[mesh] compressed_allreduce step {i} "
+                                     f"{k}: card and CPU differ")
+    comp_ms = events_ms(lambda: compression.compressed_allreduce(
+        grads, res, group), reps=3)
+    n = sum(g.numel() for g in grads.values())
+    # each gradient (bfloat16) and residual (float32) read once, each mean
+    # (bfloat16) and residual written once
+    nbytes = sum(g.numel() * (2 * g.element_size() + 8)
+                 for g in grads.values())
+    log(f"[mesh] (d) compressed_allreduce over the one-rank NCCL group on "
+        f"{len(names)} gradients ({n} values: embed and layer 0), two "
+        f"error-feedback steps bit-equal to the same call on the CPU; "
+        f"{comp_ms:.3f} ms a call (CUDA events), {nbytes / 1e9:.3f} GB "
+        f"moved at least = {nbytes / comp_ms / 1e6:.1f} GB/s, bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+    del grads, mean, res, cpu_g, cmean, cpu_res, params, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # (e) the roofline of (b)'s cell beside its measured step
+    cell, trace_s = cpu_runs["roofline"].result()
+    rf = cell["roofline"]
+    log(f"[mesh] (e) analyze_cell of {cfg.name} train {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} on one chip (fake tensors, {trace_s:.1f}s in a CPU "
+        f"worker): {cell['hlo']['flops_per_device']:.4g} operations, "
+        f"{cell['hlo']['bytes_per_device']:.4g} bytes a step (eager "
+        f"ops' inputs and outputs); terms compute "
+        f"{rf['compute_s'] * 1e3:.2f} ms, memory {rf['memory_s'] * 1e3:.2f} "
+        f"ms, collective {rf['collective_s'] * 1e3:.2f} ms (bottleneck "
+        f"{rf['bottleneck']}); model FLOPs {rf['model_flops']:.4g}, ideal "
+        f"step {rf['ideal_step_s'] * 1e3:.2f} ms at "
+        f"{rf['card']['name']}'s {rf['card']['bf16_ops_per_s']:.4g}/s, "
+        f"{rf['card']['power_limit_w']:.0f} W; measured step "
+        f"{step_ms:.2f} ms: share of the ideal step "
+        f"{rf['ideal_step_s'] * 1e3 / step_ms:.4f}, of the bound step "
+        f"{rf['bound_step_s'] * 1e3 / step_ms:.4f}; per-device memory "
+        f"{cell['memory']['total_bytes'] / 2**30:.2f} GiB (parameters and "
+        f"AdamW state)")
+    return counts
+
+
 # ------------------------------------------------------- CPU halves aside
 # The CPU halves of phases 4, 11 and 18(a) are small plans on the plain
 # path: single-threaded eager torch, 45-70 s each (240 s in all on a slow
@@ -5022,14 +5247,15 @@ def main() -> int:
             "spawn")) as pool:
         try:
             cpu_runs = {n: pool.submit(run_cpu_half, n) for n in CPU_HALVES}
+            cpu_runs["roofline"] = pool.submit(roofline_cell)
             return run_phases(dev, smi, cpu_runs)
         finally:
             pool.shutdown(cancel_futures=True)
 
 
 def run_phases(dev, smi, cpu_runs) -> int:
-    """Phases 3-26 and the closing lines; `cpu_runs`: CPU_HALVES' futures
-    by name."""
+    """Phases 3-27 and the closing lines; `cpu_runs`: CPU_HALVES' futures
+    by name, and phase 27's roofline cell's."""
     import torch
     rec = {}
     t0 = time.perf_counter()
@@ -5123,6 +5349,10 @@ def run_phases(dev, smi, cpu_runs) -> int:
         for k, v in part(dev).items():
             counts[k] = counts.get(k, 0) + v
         log(f"[{name_}] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for k, v in phase_mesh(dev, cpu_runs).items():
+        counts[k] = counts.get(k, 0) + v
+    log(f"[mesh] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []

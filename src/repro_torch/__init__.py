@@ -13,7 +13,9 @@ FlexiLint analysis, the lane-vectorized simulator), `flexibench/` (the
 nvcc build), `core/` (carbon model, core selection, the sweep),
 `fleet/` (the packed resident engine, plans and the carbon report),
 `configs/`, `models/`, `optim/`, `data/` and `launch/` (LM serving and
-training), `convert.py`
+training, meshes, the dry run and its H100 roofline), `distributed/`
+(checkpoints, sharding rules, the mesh context, the int8 all-reduce,
+elastic resume), `convert.py`
 (state and parameter carry-across with the reference) and `device.py`
 (the device policy).
 """

@@ -60,7 +60,10 @@ parameter converters: a `{port name: tensor}` dict (a module's
 reference's stacked tree of float32 numpy. `reference_leaves` runs it on
 the parameters' indices to tell which port names make up each of the
 reference's leaves, and in what stacked shape: the grouping Adafactor
-factors over (`optim/optimizers.py`). `adamw_state_to_torch` /
+factors over (`optim/optimizers.py`) and the sharding rules read
+(`distributed/sharding.py`); `reference_cache_leaves` does the same for
+a decode cache, running the cache converters on each leaf's layer
+indices. `adamw_state_to_torch` /
 `adamw_state_to_numpy` carry AdamW's state between the reference's
 `{"step", "m", "v"}` pytrees (in its parameter layout) and the port's
 dicts under the port's names. The port keeps Adafactor's state in the
@@ -303,7 +306,9 @@ def ssm_params_to_torch(params, cfg, device: DeviceLike = None) -> SSMLM:
 _STATE_KEYS = ("ssm", "conv_x", "conv_B", "conv_C")
 
 
-def _f32(t: torch.Tensor) -> np.ndarray:
+def _f32(t) -> np.ndarray:
+    if isinstance(t, np.ndarray):
+        return t.astype(np.float32)
     return t.detach().cpu().float().numpy().copy()
 
 
@@ -441,8 +446,8 @@ def _map(fn, tree):
 
 
 def lm_params_to_numpy(named: dict, cfg) -> dict:
-    """{port name: tensor} -> the reference's parameter tree (stacked
-    layers), float32 numpy."""
+    """{port name: tensor (or numpy array)} -> the reference's parameter
+    tree (stacked layers), float32 numpy."""
     nested: dict = {}
     for name, t in named.items():
         *path, leaf = name.split(".")
@@ -512,7 +517,7 @@ def reference_leaves(named: dict, cfg) -> dict:
     does not stack)}, for the port's parameter names `named` (a dict or
     a list): `lm_params_to_numpy` run on each name's index."""
     names = list(named)
-    index = {k: torch.tensor(float(i)) for i, k in enumerate(names)}
+    index = {k: np.array(i, np.float32) for i, k in enumerate(names)}
     out = {}
 
     def walk(path, tree):
@@ -523,6 +528,38 @@ def reference_leaves(named: dict, cfg) -> dict:
                 out[path + (k,)] = (tuple(names[int(i)] for i in
                                           v.reshape(-1)), v.shape)
     walk((), lm_params_to_numpy(index, cfg))
+    return out
+
+
+_CACHE_TO_NUMPY = {"dense": decoder_cache_to_numpy,
+                   "moe": decoder_cache_to_numpy,
+                   "vlm": decoder_cache_to_numpy,
+                   "hybrid": hybrid_cache_to_numpy,
+                   "ssm": ssm_cache_to_numpy,
+                   "audio": encdec_cache_to_numpy}
+
+
+def reference_cache_leaves(cache: dict, cfg) -> dict:
+    """{path of one of the reference's cache leaves: (the port's cache
+    key it comes from, the first and one past the last of the port
+    leaf's layers (dim 0) it holds, its stacked layer axes' shape)}, for
+    a port cache (real, meta or fake tensors): the cache converters run
+    on each leaf's layer indices. A reference leaf keeps the port key's
+    name, and holds a run of its layers in order."""
+    index = {k: np.arange(v.shape[0], dtype=np.float32).reshape(
+        (-1,) + (1,) * (v.dim() - 1)) for k, v in cache.items()}
+    out = {}
+
+    def walk(path, tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(path + (k,), v)
+                continue
+            n_stack = v.ndim - (cache[k].dim() - 1)
+            layers = v.reshape(-1).astype(int)
+            out[path + (k,)] = (k, int(layers[0]), int(layers[-1]) + 1,
+                                v.shape[:n_stack])
+    walk((), _CACHE_TO_NUMPY[cfg.family](index, cfg))
     return out
 
 

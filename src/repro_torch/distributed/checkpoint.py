@@ -10,7 +10,8 @@ stored as a bit-identical unsigned integer view) and a CRC32 of every
 leaf's bytes. The format is the reference's: a checkpoint written by
 either package verifies and restores under the other.
 
-Integrity: `verify` recomputes every leaf's CRC32 and raises
+Integrity: `verify` recomputes every leaf's CRC32 (the leaves read and
+checked in threads) and raises
 `CheckpointCorrupt` naming the file and leaf on any mismatch (npz
 members are stored uncompressed, so a flipped bit loads cleanly and only
 the checksum catches it). Auto-resume (`restore(step=None)`) walks the
@@ -24,6 +25,7 @@ import re
 import shutil
 import tempfile
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -91,13 +93,23 @@ def _decode(arr: np.ndarray, key: str, dtypes: dict):
     return torch.from_numpy(bits.view(signed).copy()).view(tdtype)
 
 
+# leaves read and checksummed at once (zlib and file reads release the
+# interpreter lock; past 4, threads contend for memory bandwidth)
+_THREADS = min(4, os.cpu_count() or 1)
+
+
+def _crc32(arr: np.ndarray) -> int:
+    """CRC32 of an array's bytes in C order, read in place."""
+    return zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+
+
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
     """Atomic checkpoint save; prunes to the newest `keep` steps."""
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = _flatten(tree)
     arrays, dtypes = _encode(flat)
-    crcs = {k: zlib.crc32(np.ascontiguousarray(v).tobytes())
-            for k, v in arrays.items()}
+    with ThreadPoolExecutor(_THREADS) as pool:
+        crcs = dict(zip(arrays, pool.map(_crc32, arrays.values())))
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
@@ -153,28 +165,30 @@ def verify(ckpt_dir: str, step: int) -> Tuple[dict, dict]:
     except (OSError, ValueError) as e:
         raise CheckpointCorrupt(meta_path, detail=str(e)) from None
     try:
-        data = np.load(npz_path)
+        with np.load(npz_path) as data:
+            files = list(data.files)
     except Exception as e:       # zipfile/numpy errors on torn writes
         raise CheckpointCorrupt(npz_path, detail=str(e)) from None
-    arrays = {}
-    try:
-        for k in list(data.files):
-            try:                 # member by member: a zip-level CRC
-                arrays[k] = data[k]     # failure names its leaf
-            except Exception as e:
-                raise CheckpointCorrupt(npz_path, leaf=k,
-                                        detail=str(e)) from None
-    finally:
-        data.close()
-    for key, want in meta.get("crc32", {}).items():
-        if key not in arrays:
+    crcs = meta.get("crc32", {})
+    for key in crcs:
+        if key not in files:
             raise CheckpointCorrupt(npz_path, leaf=key,
                                     detail="leaf missing from archive")
-        got = zlib.crc32(np.ascontiguousarray(arrays[key]).tobytes())
-        if got != want:
+
+    def load(k):
+        try:                     # member by member: a zip-level CRC
+            with np.load(npz_path) as data:     # failure names its leaf
+                arr = data[k]
+        except Exception as e:
+            raise CheckpointCorrupt(npz_path, leaf=k, detail=str(e)) from None
+        if k in crcs and _crc32(arr) != crcs[k]:
             raise CheckpointCorrupt(
-                npz_path, leaf=key,
-                detail=f"crc32 {got:#010x} != recorded {want:#010x}")
+                npz_path, leaf=k,
+                detail=f"crc32 {_crc32(arr):#010x} != recorded "
+                       f"{crcs[k]:#010x}")
+        return arr
+    with ThreadPoolExecutor(_THREADS) as pool:
+        arrays = dict(zip(files, pool.map(load, files)))
     return arrays, meta.get("ext_dtypes", {})
 
 

@@ -28,8 +28,32 @@ def _grads(loss, named):
             for (k, p), g in zip(named.items(), gs)}
 
 
+def mean_over(group, grads: dict, metrics: dict):
+    """Gradients and loss terms averaged over the ranks of `group`, in
+    one float32 all-reduce (each rank's own batch slice in, the global
+    batch's mean out, in each tensor's dtype)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    items = list(grads.items()) + list(metrics.items())
+    flat = torch.empty(sum(v.numel() for _, v in items), dtype=F32,
+                       device=items[0][1].device)
+    off = 0
+    for _, v in items:
+        flat[off:off + v.numel()].copy_(v.reshape(-1))
+        off += v.numel()
+    dist.all_reduce(flat, group=group)
+    if n > 1:
+        flat /= n
+    out, off = {}, 0
+    for k, v in items:
+        out[k] = flat[off:off + v.numel()].view(v.shape).to(v.dtype)
+        off += v.numel()
+    return ({k: out[k] for k in grads},
+            {k: out[k] for k in metrics})
+
+
 def make_train_step(model: Model, *, grad_accum: int = 1,
-                    max_grad_norm: float = 1.0, lr_kwargs=None):
+                    max_grad_norm: float = 1.0, lr_kwargs=None, group=None):
     """Returns (init_opt_state, train_step).
 
     init_opt_state(params) -> the optimizer's state for the module;
@@ -37,7 +61,14 @@ def make_train_step(model: Model, *, grad_accum: int = 1,
     metrics) with metrics {"xent", "loss", "gnorm", "lr"} as 0-d tensors.
     With `grad_accum` > 1 the batch's leading axis splits into that many
     micro-batches in order; their float32 gradients and losses are summed
-    each divided by `grad_accum`, as the reference's scan sums them."""
+    each divided by `grad_accum`, as the reference's scan sums them.
+    With a process `group` (data parallelism: each rank's batch is its
+    slice of the global batch, every rank holds the same parameters and
+    state), the gradients and the per-rank loss terms are averaged over
+    the group before the clip (`mean_over`); the MoE `aux` is already the
+    global batch's (`models/moe.py`). The mean is the global batch's
+    where every rank's slice has the same mask total, as
+    `data/pipeline.host_batch`'s do."""
     cfg = model.cfg
     opt_init, opt_update = make_optimizer(cfg.optimizer)
     lr_kwargs = lr_kwargs or {}
@@ -73,6 +104,10 @@ def make_train_step(model: Model, *, grad_accum: int = 1,
             loss, metrics = model.loss_fn(params, batch)
             grads = _grads(loss, named)
             metrics = {k: v.detach() for k, v in metrics.items()}
+        if group is not None:
+            local = {k: v for k, v in metrics.items() if k != "aux"}
+            grads, local = mean_over(group, grads, local)
+            metrics = dict(metrics, **local)
         grads, gnorm = clip_by_norm(grads, max_grad_norm)
         lr = cosine_schedule(step, **lr_kwargs)
         _, opt_state = opt_update(named, grads, opt_state, lr,

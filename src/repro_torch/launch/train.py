@@ -1,7 +1,10 @@
 """Train loop: auto-resume, atomic checkpoints, straggler watchdog,
 optional gradient accumulation (a port of the reference's
 `launch/train.py`). Runs on one card (`device=None` means "cuda" and
-raises without one) or, on request, on the CPU.
+raises without one), on request on the CPU, or data-parallel over a
+`torch.distributed` mesh (`mesh=`, `launch/mesh.py`): one process a
+rank, each rank's card its own (`torchrun` starts them on several
+cards; on the CPU, gloo ranks).
 
 Parameters are drawn from a `torch.Generator` seeded `seed` on the
 device (the reference's `jax.random.key(0)` has no torch counterpart;
@@ -11,6 +14,16 @@ dict, `params/<name>`, `opt/<key>[/<name>...]` and `step`, through
 `distributed/checkpoint.py`; a run resumes from the newest intact one.
 A step's `dt` is the wall time from the step's start to the loss's
 `.item()`, as the reference measures it up to `float(loss)`.
+
+Under a mesh each rank draws the same parameters, takes its slice of
+each step's global batch over the batch axes (`host_batch(...,
+host_id=rank, n_hosts=ranks)`), and the step averages gradients and
+loss terms over the batch group in one all-reduce before the optimizer
+(`launch/steps.py`), so parameters and optimizer state stay replicated.
+Rank 0 alone writes checkpoints, and every rank waits for it. A model
+axis above 1 (tensor and expert parallelism) and ZeRO-1 (`cfg.zero1`)
+over more than one data rank raise NotImplementedError (ROADMAP.md item
+13g).
 
 Every decoder, hybrid and SSM arch trains here (`--arch
 qwen2-moe-a2.7b` among them; `--arch deepseek-v3-671b` with the
@@ -22,10 +35,13 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
       --smoke --steps 20 --ckpt-dir /tmp/ckpt [--batch 8 --seq 128] \
       [--device cpu]
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --data-parallel \
+      --arch qwen2-1.5b --steps 20 --batch 32 --seq 512
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -36,6 +52,10 @@ from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, host_batch
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed.meshctx import batch_group, mesh_context
+from repro_torch.distributed.sharding import AbstractMesh, mesh_shape
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     mesh_device)
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build_model
 
@@ -98,19 +118,56 @@ def to_device(batch: dict, dev: torch.device) -> dict:
             for k, v in batch.items()}
 
 
+def _check_mesh(mesh, cfg) -> None:
+    """Raise for what the port cannot run on `mesh`."""
+    import torch.distributed as dist
+    shape = mesh_shape(mesh)
+    why = []
+    if isinstance(mesh, AbstractMesh):
+        n = dist.get_world_size() if dist.is_initialized() else 1
+        why.append(f"it needs {mesh.size} ranks, one a card, and {n} "
+                   f"running (start them with torchrun)")
+    if shape["model"] > 1:
+        why.append(f"its model axis of {shape['model']} needs tensor and "
+                   f"expert parallelism, which are not ported")
+    if cfg.zero1 and shape["data"] * shape.get("pod", 1) > 1:
+        why.append("zero1 shards the optimizer state over the data ranks, "
+                   "which the port does not run")
+    if why:
+        raise NotImplementedError(f"the mesh {shape}: " + "; ".join(why)
+                                  + " (ROADMAP.md item 13g)")
+
+
 def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt_dir: str,
-               ckpt_every: int = 10, grad_accum: int = 1, lr_kwargs=None,
-               log=print, device: DeviceLike = None, seed: int = 0):
+               mesh=None, ckpt_every: int = 10, grad_accum: int = 1,
+               lr_kwargs=None, log=print, device: DeviceLike = None,
+               seed: int = 0):
     """Train `cfg` from step 0, or from the newest checkpoint in
     `ckpt_dir`, to `steps`, saving every `ckpt_every` steps and at the
-    end. Returns {"losses", "flagged", "params", "opt_state", "dts",
-    "metrics"}: "metrics" holds each step's loss terms ("xent", and
-    "aux", "mtp" where the model has them) as floats."""
-    dev = resolve(device)
+    end. With `mesh` (a DeviceMesh of (data, model), or (pod, data,
+    model), the model axis 1), data-parallel over its batch axes on the
+    mesh's device; `device` is then unused. Returns {"losses", "flagged",
+    "params", "opt_state", "dts", "metrics"}: "metrics" holds
+    each step's loss terms ("xent", and "aux", "mtp" where the model has
+    them) as floats, global-batch means under a mesh."""
+    import torch.distributed as dist
+    group, rank, ranks = None, 0, 1
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        _check_mesh(mesh, cfg)
+        dev = mesh_device(mesh)
+        group = batch_group(mesh)
+        rank, ranks = dist.get_rank(group), dist.get_world_size(group)
+        ctx = mesh_context(mesh)
+    else:
+        dev = resolve(device)
     model = build_model(cfg)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    if batch % ranks:
+        raise ValueError(f"global batch {batch} does not split over "
+                         f"{ranks} data-parallel ranks")
     opt_init, train_step = make_train_step(model, grad_accum=grad_accum,
-                                           lr_kwargs=lr_kwargs)
+                                           lr_kwargs=lr_kwargs, group=group)
     params = model.init_params(
         generator=torch.Generator(device=dev).manual_seed(seed), device=dev,
         trainable=True)
@@ -122,26 +179,35 @@ def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt_dir: str,
         load_state(restored, params, opt_state)
         log(f"[train] resumed from step {start_step}")
 
+    def save(step):
+        if rank == 0:
+            ckpt.save(ckpt_dir, step, flat_state(params, opt_state, step))
+        if group is not None:
+            dist.barrier(group)
+
     watchdog = StragglerWatchdog()
     losses, dts, terms = [], [], []
-    for step in range(start_step, steps):
-        bt = to_device(host_batch(dcfg, step), dev)
-        t0 = time.perf_counter()
-        params, opt_state, metrics = train_step(params, opt_state, bt, step)
-        loss = float(metrics["loss"].item())
-        dt = time.perf_counter() - t0
-        slow = watchdog.observe(step, dt)
-        losses.append(loss)
-        dts.append(dt)
-        terms.append({k: float(metrics[k]) for k in ("xent", "aux", "mtp")
-                      if k in metrics})
-        log(f"[train] step={step} loss={loss:.4f} dt={dt * 1e3:.0f}ms"
-            + (" SLOW" if slow else ""))
-        if ckpt_dir and (step + 1) % ckpt_every == 0:
-            ckpt.save(ckpt_dir, step + 1,
-                      flat_state(params, opt_state, step + 1))
+    with ctx:
+        for step in range(start_step, steps):
+            bt = to_device(host_batch(dcfg, step, host_id=rank,
+                                      n_hosts=ranks), dev)
+            t0 = time.perf_counter()
+            params, opt_state, metrics = train_step(params, opt_state, bt,
+                                                    step)
+            loss = float(metrics["loss"].item())
+            dt = time.perf_counter() - t0
+            slow = watchdog.observe(step, dt)
+            losses.append(loss)
+            dts.append(dt)
+            terms.append({k: float(metrics[k]) for k in ("xent", "aux",
+                                                         "mtp")
+                          if k in metrics})
+            log(f"[train] step={step} loss={loss:.4f} dt={dt * 1e3:.0f}ms"
+                + (" SLOW" if slow else ""))
+            if ckpt_dir and (step + 1) % ckpt_every == 0:
+                save(step + 1)
     if ckpt_dir:
-        ckpt.save(ckpt_dir, steps, flat_state(params, opt_state, steps))
+        save(steps)
     return {"losses": losses, "flagged": watchdog.flagged, "params": params,
             "opt_state": opt_state, "dts": dts, "metrics": terms}
 
@@ -156,20 +222,24 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--grad-accum", type=int, default=1)
-    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the (16, 16) mesh: 256 ranks")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="data-parallel over this process group's ranks, "
+                         "a (ranks, 1) mesh")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh: the port runs on one device; the LM's "
-            "distributed modules are not ported yet (ROADMAP.md, open item "
-            "13f)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
+    mesh = None
+    if args.production_mesh:
+        mesh = make_production_mesh(device=args.device)
+    elif args.data_parallel:
+        mesh = make_host_mesh(args.device, model=1)
     out = train_loop(cfg=cfg, steps=args.steps, batch=args.batch,
-                     seq=args.seq, ckpt_dir=args.ckpt_dir,
+                     seq=args.seq, ckpt_dir=args.ckpt_dir, mesh=mesh,
                      grad_accum=args.grad_accum, device=args.device)
     print(json.dumps({"first_loss": out["losses"][0],
                       "last_loss": out["losses"][-1],

@@ -3,13 +3,19 @@ init/loss/cache/prefill/decode functions, as the reference's
 `build_model` lays them out, for every family of the reference: `dense`
 (Qwen2, Qwen2.5, Minitron, Gemma3), `moe` (Qwen2-MoE, DeepSeek-V3) and
 `vlm` (LLaVA-NeXT) on the decoder, `hybrid` (Zamba2), `ssm` (Mamba2)
-and `audio` (Whisper, the encoder-decoder)."""
+and `audio` (Whisper, the encoder-decoder).
+
+`Model.abstract_params`, `input_specs` and the parameter and FLOP
+counts are the dry run's: shapes and dtypes with nothing allocated
+(fake tensors, and meta tensors for the inputs)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import ssm as SM
@@ -35,6 +41,18 @@ class Model:
     init_cache: Callable
     prefill_fn: Callable
     decode_fn: Callable
+
+    def abstract_params(self, seed: int = 0, fake_mode=None):
+        """The parameters module with fake tensors (shapes and dtypes,
+        nothing allocated), made under `fake_mode` (a new
+        `FakeTensorMode` by default): the counterpart of the reference's
+        `jax.eval_shape` of `init_params`. Trainable, so a step traced
+        under the same mode differentiates them."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with fake_mode or FakeTensorMode():
+            return self.init_params(
+                generator=torch.Generator().manual_seed(seed), device="cpu",
+                trainable=True)
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -114,3 +132,69 @@ def build_model(cfg: ModelConfig) -> Model:
 
 def count_params(params) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+# -------------------------------------------------------------- input specs
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of a dry-run cell.
+
+    train: token/target batch. prefill: prompt of seq_len. decode: one new
+    token + the positions scalar (cache specs come from init_cache)."""
+    b, l = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    dtype = TF.torch_dtype(cfg)
+
+    def sds(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+    if shape.kind == "train":
+        specs = {"tokens": sds((b, l), i32), "targets": sds((b, l), i32),
+                 "mask": sds((b, l), torch.float32)}
+        if cfg.family == "vlm":
+            lt = l - cfg.n_patches
+            specs["tokens"] = sds((b, lt), i32)
+            specs["targets"] = sds((b, lt), i32)
+            specs["mask"] = sds((b, lt), torch.float32)
+            specs["patches"] = sds((b, cfg.n_patches, cfg.d_model), dtype)
+        if cfg.family == "audio":
+            specs["frames"] = sds((b, cfg.n_audio_frames, cfg.d_model),
+                                  dtype)
+        return specs
+    if shape.kind == "prefill":
+        specs = {"tokens": sds((b, l), i32)}
+        if cfg.family == "vlm":
+            specs["tokens"] = sds((b, l - cfg.n_patches), i32)
+            specs["patches"] = sds((b, cfg.n_patches, cfg.d_model), dtype)
+        if cfg.family == "audio":
+            specs["frames"] = sds((b, cfg.n_audio_frames, cfg.d_model),
+                                  dtype)
+        return specs
+    # decode: one token against a cache of capacity seq_len
+    return {"tokens": sds((b, 1), i32), "pos": sds((), i32)}
+
+
+# -------------------------------------------------------- flops accounting
+
+def count_params_abstract(model: Model) -> int:
+    return count_params(model.abstract_params())
+
+
+def active_params(cfg: ModelConfig, n_total: int) -> int:
+    """Active params per token (MoE discounts inactive experts)."""
+    if cfg.moe is None:
+        return n_total
+    m = cfg.moe
+    n_moe_layers = cfg.n_layers - m.n_dense_layers
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
+    return n_total - inactive
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig, n_params: int) -> float:
+    """MODEL_FLOPS: 6*N*D (train) / 2*N*D (fwd) with N = active params."""
+    n_act = active_params(cfg, n_params)
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    mult = 6.0 if shape.kind == "train" else 2.0
+    return mult * n_act * tokens

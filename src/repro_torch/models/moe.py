@@ -13,10 +13,19 @@ slot outputs, weighted by their normalised probabilities, and sums them
 over k in float32: every token has exactly k slots, so the gather
 computes the reference's scatter-add in a fixed order, on every run.
 
-The reference's `hierarchical` dispatch sorts each data shard's tokens
-on its own; with one shard, and without a mesh, it is the flat form.
-The port runs on one device, so both `dispatch` values run the flat
-form.
+Without a mesh both `dispatch` values run the flat form, as the
+reference's do. Under a mesh (`distributed/meshctx.py`) `hierarchical`
+splits the tokens into s shards, s the batch axes' size, and each shard
+sorts and drops its own tokens at the capacity of its t / s tokens (the
+reference falls back to s = 1 where s divides neither B nor t). Under
+data parallelism each rank holds B / ranks of the global batch, so it
+takes s / ranks of those shards; the router's load-balancing statistics
+are summed over the batch group (differentiably), so `aux` is the
+global batch's, as the reference takes it before the split. A flat
+dispatch cannot be split by rank, since every token of the global batch
+competes for one capacity: with more than one batch rank it raises.
+Shard j's expert e is buffer row j * E_pad + e, so the shards share
+one sort, and the experts run on (E_pad, s x C, D).
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import meshctx
+from repro_torch.distributed.sharding import mesh_shape
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -81,7 +92,9 @@ def router_topk(logits, mcfg: MoEConfig):
     are masked before the softmax; idx[..., 0] is each token's most
     probable expert; probs are renormalised over the k choices. aux is
     the load-balancing loss: n_experts x sum over the E_pad experts of
-    (share of first choices) x (mean probability)."""
+    (share of first choices) x (mean probability), both over the tokens
+    of every rank of the installed mesh's batch group (`meshctx`)."""
+    group = meshctx.batch_group()
     e, ep = mcfg.n_experts, mcfg.e_padded
     if ep != e:
         real = torch.arange(ep, device=logits.device) < e
@@ -89,8 +102,15 @@ def router_topk(logits, mcfg: MoEConfig):
     probs_full = torch.softmax(logits, dim=-1)
     probs, idx = torch.topk(probs_full, mcfg.top_k, dim=-1, sorted=True)
     probs = probs / torch.clamp_min(probs.sum(-1, keepdim=True), 1e-9)
-    density = F.one_hot(idx[..., 0], ep).to(F32).reshape(-1, ep).mean(0)
-    mean_probs = probs_full.reshape(-1, ep).mean(0)
+    first = F.one_hot(idx[..., 0], ep).to(F32).reshape(-1, ep)
+    pf = probs_full.reshape(-1, ep)
+    if meshctx.group_size(group) == 1:
+        density, mean_probs = first.mean(0), pf.mean(0)
+    else:
+        sums = meshctx.all_reduce_sum(torch.cat([first.sum(0), pf.sum(0)]),
+                                      group)
+        n = first.shape[0] * meshctx.group_size(group)
+        density, mean_probs = sums[:ep] / n, sums[ep:] / n
     aux = e * torch.sum(density * mean_probs)
     return probs, idx, aux
 
@@ -160,19 +180,58 @@ def combine(out_buf, row, keep, probs, k: int):
     return (slot_out * w[:, None]).view(-1, k, d).to(F32).sum(1)
 
 
+def shards(b: int, t: int, mcfg: MoEConfig) -> int:
+    """Dispatch shards of this process's B x L = t tokens: 1 without a
+    mesh or with the flat dispatch; under `hierarchical`, the mesh's
+    batch-axes size over the ranks of the batch group, or 1 where that
+    divides neither b nor t."""
+    mesh = meshctx.current_mesh()
+    ranks = meshctx.group_size(meshctx.batch_group())
+    if ranks > 1 and mcfg.dispatch != "hierarchical":
+        raise NotImplementedError(
+            f"the {mcfg.dispatch!r} MoE dispatch routes the whole global "
+            f"batch against one capacity, which {ranks} data-parallel ranks "
+            f"cannot split: use dispatch='hierarchical'")
+    if mesh is None or mcfg.dispatch != "hierarchical":
+        return 1
+    shape = mesh_shape(mesh)
+    s = 1
+    for a in meshctx.batch_axes():
+        s *= shape[a]
+    s //= ranks
+    if t % s or b % s:
+        if ranks > 1:
+            raise ValueError(
+                f"{b} x {t // b} tokens a rank do not split into the "
+                f"{s} dispatch shards a rank of the mesh {shape}")
+        s = 1
+    return s
+
+
 def moe_ffn(p, x, mcfg: MoEConfig):
-    """x: (B, L, D) -> ((B, L, D), aux loss), at the `capacity` of this
-    call's B x L tokens. The shared experts' MLP is added after the cast
-    to x's dtype."""
+    """x: (B, L, D) -> ((B, L, D), aux loss), at the `capacity` of each
+    dispatch shard's tokens (`shards`; one shard of all B x L tokens
+    without a mesh). The shared experts' MLP is added after the cast to
+    x's dtype."""
     b, l, d = x.shape
     t = b * l
     e, k = mcfg.e_padded, mcfg.top_k
+    s = shards(b, t, mcfg)
     xf = x.reshape(t, d)
     logits = torch.einsum("td,de->te", xf.to(F32), p["router"])
     probs, idx, aux = router_topk(logits, mcfg)
-    c = capacity(t, mcfg)
-    row, keep = route_slots(idx, e, c)
-    out_buf = experts(p, dispatch(xf, row, k, e, c))
+    c = capacity(t // s, mcfg)
+    if s > 1:
+        idx_s = idx + e * torch.arange(s, device=idx.device).repeat_interleave(
+            t // s)[:, None]
+        row, keep = route_slots(idx_s, s * e, c)
+        buf = dispatch(xf, row, k, s * e, c).view(s, e, c, d)
+        buf = buf.transpose(0, 1).reshape(e, s * c, d)
+        out_buf = experts(p, buf).view(e, s, c, d).transpose(0, 1)
+        out_buf = out_buf.reshape(s * e, c, d)
+    else:
+        row, keep = route_slots(idx, e, c)
+        out_buf = experts(p, dispatch(xf, row, k, e, c))
     out = combine(out_buf, row, keep, probs, k).reshape(b, l, d).to(x.dtype)
     if mcfg.n_shared:
         out = out + L.mlp(p["shared"], x)

@@ -73,7 +73,14 @@ _SLICE_MODULES = ("repro_torch.fleet.engine",
                   "repro_torch.models.encdec",
                   "repro_torch.configs.llava_next_34b",
                   "repro_torch.configs.whisper_tiny",
-                  "repro_torch.configs.flexic")
+                  "repro_torch.configs.flexic",
+                  "repro_torch.distributed.sharding",
+                  "repro_torch.distributed.meshctx",
+                  "repro_torch.distributed.compression",
+                  "repro_torch.distributed.elastic",
+                  "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+                  "repro_torch.launch.op_analysis",
+                  "repro_torch.launch.dryrun")
 
 
 def test_port_imports_with_jax_and_the_reference_blocked():

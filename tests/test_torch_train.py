@@ -419,5 +419,9 @@ def test_straggler_watchdog_equals_the_reference():
 
 
 def test_train_cli_refuses_the_production_mesh():
-    with pytest.raises(NotImplementedError, match="13f"):
+    """Without 256 ranks, and with its model axis of 16, the production
+    mesh cannot train: the error says both and names ROADMAP.md item
+    13g."""
+    with pytest.raises(NotImplementedError,
+                       match="needs 256 ranks.*model axis of 16.*13g"):
         ptrain.main(["--production-mesh", "--smoke", "--device", "cpu"])
