@@ -245,17 +245,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    bound (window counted) and SDPA (causal, or a band mask on the backend
    named), the training shape's backwards also by device time; ptxas's
    registers for the D 192 and 256 builds, no spill in any flash build;
-   (b) Gemma3-12B at full width and depth (11,765,395,200 bfloat16
-   parameters from a seed) through `generate`, 8 requests x prompt 4,096
-   (longer than the window), 32 tokens: 48 `flash_attention` launches a
-   prefill, no plain call, rates and peak memory, the first (local)
+   before them, the bfloat16 forward past D 128 (`flash_fwd_wgmma`, its
+   own row of the `kernels` line, timed at the serve shape's causal
+   case) at 8 small cases (D 256, 192, 250 and 136 zero-padded; causal
+   with tq != tk, a window of 100 at tile 64, non-causal; ragged 128-row
+   blocks): output within `LM_TOL` of the plain version and of its
+   rounding model (`tests/_torch_flash_wgmma.py`), log-sum-exp within
+   1e-4, two launches the same bits, each counted, the backward given its
+   log-sum-exp within `LM_TOL`; (b) Gemma3-12B at full width and depth
+   (11,765,395,200 bfloat16 parameters from a seed) through `generate`,
+   8 requests x prompt 4,096 (longer than the window), 32 tokens: 48
+   `flash_attention` launches a prefill, all of them `flash_fwd_wgmma`,
+   no plain call, rates and peak memory, the first (local)
    layer's kernel on its own tensors, then under torch.profiler; (c) the
    cache path against the full forward over the same 4,128 tokens on the
    first 2 requests (float32 parameters and caches for 8 would not fit),
    the full forward at a tile of 32 (1,024 does not divide 4,128);
    (d) training at full width, its depth cut to 6 layers (5 local, 1
    global; 12 ran out of memory in AdamW), 5 `train_loop` AdamW steps of
-   2 x 2,048 tokens: 12 flash forwards and 6 backwards a step, no plain
+   2 x 2,048 tokens: 12 flash forwards (`flash_fwd_wgmma`) and 6
+   backwards a step, no plain
    call, then a profiled step; (e) the smoke config card against CPU:
    `small_serve` in both dtypes, the prefill logits, 3 decode steps and
    the K/V cache in float32, and `smoke_train` at grad_accum 1 with 11
@@ -274,7 +283,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    DeepSeek-V3 at full width, its depth cut to 4 layers (3 dense, 1 MoE,
    and the MTP head: 15,797,352,448), each through `generate`, 8
    requests x prompt 4,096, 32 tokens: one flash launch a layer a
-   prefill (D 128; MLA's at D 192 with V zero-padded) and no plain call,
+   prefill (D 128; MLA's at D 192 with V zero-padded, `flash_fwd_wgmma`)
+   and no plain call,
    rates, peak memory, the slots each MoE layer dropped, the first
    layer's flash kernel on its own tensors beside its plain version,
    SDPA and the bound, the first MoE layer's expert products timed on
@@ -288,8 +298,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    relative, then 11 card steps whose loss falls), then at full width,
    its depth cut to its 3 dense layers and the MTP head (4,290,066,432
    parameters; a full-width MoE layer's weights and gradients alone are
-   45 GB), 5 `train_loop` steps of 2 x 2,048: 7 flash forwards and 4
-   backwards a step, then a profiled step; the D 192 backward alone at
+   45 GB), 5 `train_loop` steps of 2 x 2,048: 7 flash forwards (all
+   `flash_fwd_wgmma`) and 4 backwards a step, then a profiled step; the
+   D 192 backward alone, given the new forward's log-sum-exp, at
    that step's shape (BH 256 x 2,048, causal, tile 1,024) against plain,
    SDPA's backward and the bound.
 25. the VLM family: (a) the LLaVA-NeXT smoke config card against CPU
@@ -353,7 +364,9 @@ scan's and to flash's, forward and backward, and `ssd_scan_bwd`'s are
 theirs alone; phase 23(b)'s prefill and (d)'s steps, phase
 24(b)-(c)'s prefills and (d)'s steps, phases 25(b)'s and 26(b)'s
 prefills and 26(c)'s steps, and phase 27(b)'s six steps, are added to
-flash's, forward and backward), the card's nvidia-smi line, and
+flash's, forward and backward; `flash_fwd_wgmma`'s are those of its
+head dims among them: 23(b)'s, 23(d)'s, 24(c)'s and 24(d)'s DeepSeek-V3
+steps), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
 held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
@@ -1475,6 +1488,13 @@ def phase_main_resilient(dev, main_rep):
 LM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FLASH = ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:61")
+# the same wrapper's bfloat16 forward at head dims above 128, a kernel of
+# its own (wgmma, TMA, warp-specialised warpgroups): its launches are
+# counted apart too (`flash_attention.wgmma_launches`), and are also
+# flash's
+FLASH_WGMMA = ("flash_fwd_wgmma",
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:61")
 SSD = ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
        "src/repro/kernels/ssd_scan.py:67")
 BITPLANE = ("bitplane_matmul",
@@ -1587,7 +1607,8 @@ def check_tensor_cores():
     """Counts each LM kernel's tensor-core instructions; fails if the
     bfloat16 flash kernel, either bfloat16 flash backward kernel, the
     bfloat16 scan kernel or its backward, or the bit planes' GEMM has
-    none."""
+    none, or if the wide forward (flash_fwd_wgmma) has no HGMMA or any
+    HMMA (Ampere's mma.sync)."""
     libs = ("flash_attention", "ssd_scan", "bitplane_matmul")
     counts = {lib: sass_mma_counts(lib) for lib in libs}
     if counts[libs[0]] is None:
@@ -1608,6 +1629,11 @@ def check_tensor_cores():
         if not hits or min(hits) == 0:
             raise AssertionError(f"{kernel} ({lib}) has no HMMA or HGMMA "
                                  f"instruction in its SASS: {counts[lib]}")
+    wg = [v for k, v in counts["flash_attention"].items()
+          if k.startswith(FLASH_WGMMA[0])]
+    if len(wg) != 2 or any(h or not g for h, g in wg):
+        raise AssertionError(f"{FLASH_WGMMA[0]}: its two builds need HGMMA "
+                             f"and no HMMA: {wg}")
 
 
 def flash_bound(q, tq, tk, causal, window=0):
@@ -3420,15 +3446,31 @@ def phase_flash_bwd(dev, rec):
 
 
 def lm_counts():
-    """({kernel: launches} of the four LM kernels on the train path, the
-    plain versions' calls in all)."""
+    """({kernel: launches} of the four LM kernels on the train path, and
+    of flash_fwd_wgmma among flash's; the plain versions' calls in
+    all)."""
     from repro_torch.kernels import flash_attention as pfa
     from repro_torch.kernels import ssd_scan as pss
     fa, ss = pfa.flash_attention, pss.ssd_scan
-    return ({FLASH[0]: fa.launches, FLASH_BWD[0]: fa.bwd_launches,
-             SSD[0]: ss.launches, SSD_BWD[0]: ss.bwd_launches},
+    return ({FLASH[0]: fa.launches, FLASH_WGMMA[0]: fa.wgmma_launches,
+             FLASH_BWD[0]: fa.bwd_launches, SSD[0]: ss.launches,
+             SSD_BWD[0]: ss.bwd_launches},
             fa.plain_calls + fa.bwd_plain_calls + ss.plain_calls
             + ss.bwd_plain_calls)
+
+
+# the wrapper's forward counts: flash's holds flash_fwd_wgmma's
+FLASH_FWD = (FLASH[0], FLASH_WGMMA[0])
+
+
+def wgmma_share(cfg, n):
+    """Of n flash forwards of `cfg`, those flash_fwd_wgmma runs: all
+    where its attention's head dim (MLA's q·k width) passes 128 in
+    bfloat16, else none."""
+    from repro_torch.kernels import flash_attention as pfa
+    d = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim if cfg.mla
+         else cfg.resolved_head_dim)
+    return n if cfg.dtype == "bfloat16" and d > pfa.WGMMA_ABOVE else 0
 
 
 def reset_lm_counts():
@@ -3905,8 +3947,9 @@ GEMMA_FULL_TILE = 32
 
 
 def wide_flash_registers():
-    """ptxas's report for the flash kernels' D 192 and 256 builds (and
-    the float32 backward, one build for every D), one entry each; raises
+    """ptxas's report for the flash kernels' D 192 and 256 builds (the
+    forward's flash_fwd_wgmma<192>, <256>; the float32 backward, one
+    build for every D), one entry each; raises
     if any flash kernel, of any head dim, spills. Empty where this
     process found the library built."""
     from repro_torch.kernels import _build
@@ -3915,12 +3958,74 @@ def wide_flash_registers():
     if spilled:
         raise AssertionError(f"flash kernels spill: {spilled}")
     rows = [r for r in every if re.search(r"<(12|16|float, 16)[,>]", r[0])
-            or r[0].startswith(("flash_bwd_dq<", "flash_bwd_dkdv<"))]
+            or r[0].startswith(("flash_bwd_dq<", "flash_bwd_dkdv<",
+                                FLASH_WGMMA[0]))]
     return [f"{k}: {regs} registers, {smem} bytes static shared memory, "
             f"spills {st}/{ld} bytes" for k, regs, smem, st, ld in rows]
 
 
-def phase_gemma_kernels(dev):
+# 23(a): flash_fwd_wgmma's small cases (BH, L, D, tq, tk, causal,
+# window): D 256, 192 and the padded 250 and 136; causal with tq != tk
+# both ways; a window of 100 at tile 64 (a multiple of neither);
+# non-causal; L 320 and 200 leave a ragged last 128-row block
+WGMMA_CASES = [(2, 256, 256, 64, 64, True, 0), (2, 256, 192, 64, 128, True, 0),
+               (2, 384, 192, 128, 64, True, 0), (2, 320, 250, 64, 64, True, 100),
+               (2, 256, 192, 64, 64, True, 100), (3, 320, 136, 64, 64, True, 0),
+               (2, 200, 256, 200, 200, False, 0), (4, 128, 192, 64, 64, False, 0)]
+
+
+def wgmma_cases(dev):
+    """flash_fwd_wgmma at WGMMA_CASES: the output within LM_TOL of the
+    plain version and of its rounding model (tests/_torch_flash_wgmma.py),
+    the log-sum-exp within the float32 tolerance, one count of
+    `wgmma_launches` a call, two launches the same bits, and the backward
+    kernel given its log-sum-exp within LM_TOL of the plain backward."""
+    import torch
+    from _torch_flash_wgmma import flash_wgmma_emulation
+    from repro_torch.kernels import flash_attention as pfa
+    g = torch.Generator(device=dev).manual_seed(30)
+    worst = [0.0] * 4
+    for bh, l, d, tq, tk, causal, w in WGMMA_CASES:
+        what = (f"{FLASH_WGMMA[0]} BH {bh} x L {l} x D {d}, tq {tq}, tk "
+                f"{tk}, {'causal' if causal else 'non-causal'}, window {w}")
+        q, k, v, do = (torch.randn((bh, l, d), generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        pfa.reset_counts()
+        o, lse = pfa._forward(q, k, v, causal, tq, tk, w, dev, True)
+        o2, lse2 = pfa._forward(q, k, v, causal, tq, tk, w, dev, True)
+        torch.cuda.synchronize()
+        if pfa.flash_attention.wgmma_launches != 2:
+            raise AssertionError(f"{what}: {pfa.flash_attention.wgmma_launches}"
+                                 f" launches counted, expected 2")
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"{what}: two launches differ")
+        po, plse = pfa.flash_attention_plain(q, k, v, causal=causal, tq=tq,
+                                             tk=tk, window=w,
+                                             return_lse=True)
+        errs = [lm_err(o, po, f"{what} against plain"),
+                lm_err(o, flash_wgmma_emulation(
+                    q, k, v, causal=causal, tq=tq, tk=tk, window=w),
+                    f"{what} against its rounding model"),
+                lm_err(lse, plse, f"{what} log-sum-exp", LM_TOL["float32"])]
+        got = pfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                      tq=tq, tk=tk, window=w, device=dev)
+        want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                             causal=causal, tq=tq, tk=tk,
+                                             window=w)
+        errs.append(max(lm_err(a, b, f"{what}: backward d{n} given its lse")
+                        for n, a, b in zip("qkv", got, want)))
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+    log(f"[gemma3 kernels] {FLASH_WGMMA[0]} at {len(WGMMA_CASES)} small "
+        f"cases (D 256, 192, 250 and 136 zero-padded to 256 and 136; causal "
+        f"with tq != tk, a window of 100 at tile 64, non-causal; ragged "
+        f"128-row blocks; with the log-sum-exp): max |kernel - plain| "
+        f"{worst[0]:.3g}, max |kernel - rounding model| {worst[1]:.3g}, "
+        f"log-sum-exp {worst[2]:.3g}, the backward given its lse "
+        f"{worst[3]:.3g} (within {LM_TOL['bfloat16']} x max(1, largest "
+        f"|value|)); two launches the same bits, each counted")
+
+
+def phase_gemma_kernels(dev, rec):
     """23(a): `flash_attention` and its backward at Gemma3-12B's head dim
     (256): the serve shape (BH 8 x 16 = 128, L 4,096, tile 1,024) and the
     training shape (BH 2 x 16 = 32, L 2,048, tile 1,024), each with the
@@ -3930,13 +4035,16 @@ def phase_gemma_kernels(dev):
     within LM_TOL of the plain version; the bfloat16 kernels twice, the
     same bits. The bfloat16 cases timed (CUDA events) beside the plain
     version, the bound and SDPA (causal, or a band mask on the backend
-    named); at the training shape the backwards also by device time."""
+    named); at the training shape the backwards also by device time.
+    The serve shape's causal bfloat16 forward is flash_fwd_wgmma's row of
+    the `kernels` line; `wgmma_cases` first."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as pfa
     regs = wide_flash_registers()
     log("[gemma3 kernels] ptxas: " + ("; ".join(regs) if regs else
                                       "not reported (library found built)"))
+    wgmma_cases(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(GEMMA_ARCH)
     h, d, w, t = (cfg.n_heads, cfg.resolved_head_dim, cfg.window,
@@ -4000,6 +4108,9 @@ def phase_gemma_kernels(dev):
                 b_plain = timed(lambda: pfa.flash_attention_bwd_plain(
                     q, k, v, o, do, lse, tq=tile, tk=tile, window=win), 2)
                 bb, bo = flash_bwd_bound(q, tile, tile, True, win)
+                if shape == "serve" and not win:
+                    record(rec, FLASH_WGMMA[0], f_ms, f_plain, e_o, (fb, fo),
+                           f_lib, f"{what}, causal")
                 line += (f"; two launches the same bits. Forward: kernel "
                          f"{f_ms:.4f} ms, plain {f_plain:.3f} ms, SDPA "
                          f"({backend}) {f_lib:.4f} ms, bound "
@@ -4076,12 +4187,14 @@ def phase_gemma_serve(dev):
     pfa.reset_counts()
     toks, stats = serve.generate(cfg, batch=b, prompt_len=pl, gen=gen,
                                  params=params, device=dev, log=log)
-    counts = {FLASH[0]: pfa.flash_attention.launches}
+    counts = {FLASH[0]: pfa.flash_attention.launches,
+              FLASH_WGMMA[0]: pfa.flash_attention.wgmma_launches}
     plain = pfa.flash_attention.plain_calls
     peak = torch.cuda.max_memory_allocated(dev)
-    if counts[FLASH[0]] != cfg.n_layers or plain:
+    if counts != dict.fromkeys(FLASH_FWD, cfg.n_layers) or plain:
         raise AssertionError(f"{tag}: {counts} launches, {plain} plain "
-                             f"calls; expected {cfg.n_layers} a prefill")
+                             f"calls; expected {cfg.n_layers} a prefill, "
+                             f"all of them {FLASH_WGMMA[0]}")
     if toks.shape != (b, gen) or not ((toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"{tag}: tokens {toks.shape}")
     log(f"[{tag}] {b} requests x prompt {pl}, {gen} tokens each: prefill "
@@ -4090,9 +4203,9 @@ def phase_gemma_serve(dev):
         f"decode steps {stats['decode_s']:.3f}s = "
         f"{(gen - 1) * b / stats['decode_s']:.1f} decode tokens/s "
         f"({stats['decode_s'] / (gen - 1) * 1e3:.2f} ms a step); "
-        f"{counts[FLASH[0]]} flash_attention launches a prefill, 0 plain "
-        f"calls; max_memory_allocated {peak / 2**30:.2f} GiB ({peak} "
-        f"bytes)")
+        f"{counts[FLASH[0]]} flash_attention launches a prefill (all "
+        f"{FLASH_WGMMA[0]}), 0 plain calls; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes)")
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (b, pl)), device=dev)
     check_first_kernels(tag, capture_first_kernels(model, params, prompt,
@@ -4198,8 +4311,9 @@ def phase_gemma_train(dev):
     cfg = get_config(GEMMA_ARCH).replace(n_layers=GEMMA_TRAIN_LAYERS)
     n = cfg.n_layers
     counts = train_full(dev, cfg, TRAIN_STEPS,
-                        {FLASH[0]: 2 * n, FLASH_BWD[0]: n, SSD[0]: 0,
-                         SSD_BWD[0]: 0}, GEMMA_TRAIN_PARAMS,
+                        {FLASH[0]: 2 * n, FLASH_WGMMA[0]: 2 * n,
+                         FLASH_BWD[0]: n, SSD[0]: 0, SSD_BWD[0]: 0},
+                        GEMMA_TRAIN_PARAMS,
                         what=" (of 48: cut for AdamW's memory; 5 local, 1 "
                              "global)", batch=GEMMA_TRAIN_BATCH,
                         seq=GEMMA_TRAIN_SEQ)
@@ -4493,10 +4607,13 @@ def moe_serve_full(dev, cfg, n_params, what=""):
     counts, plain = lm_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     if counts[FLASH[0]] != cfg.n_layers or plain or any(
-            v for k, v in counts.items() if k != FLASH[0]):
+            v for k, v in counts.items() if k not in FLASH_FWD) or \
+            counts[FLASH_WGMMA[0]] != wgmma_share(cfg, cfg.n_layers):
         raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
                              f"calls; expected {cfg.n_layers} flash "
-                             f"forwards a prefill")
+                             f"forwards a prefill, "
+                             f"{wgmma_share(cfg, cfg.n_layers)} of them "
+                             f"{FLASH_WGMMA[0]}")
     if toks.shape != (b, gen) or not ((toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"{tag}: tokens {toks.shape}")
     if len(r.idx) != n_moe * gen:
@@ -4661,8 +4778,9 @@ def phase_moe_train(dev):
     cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
     n = cfg.n_layers
     counts = train_full(dev, cfg, TRAIN_STEPS,
-                        {FLASH[0]: 2 * n, FLASH_BWD[0]: n, SSD[0]: 0,
-                         SSD_BWD[0]: 0}, MOE_TRAIN_PARAMS,
+                        {FLASH[0]: 2 * n, FLASH_WGMMA[0]: 0,
+                         FLASH_BWD[0]: n, SSD[0]: 0, SSD_BWD[0]: 0},
+                        MOE_TRAIN_PARAMS,
                         what=" (of 24: cut for AdamW's memory)",
                         batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ)
     smoke_train(dev, MLA_ARCH, (1,))
@@ -4672,8 +4790,9 @@ def phase_moe_train(dev):
                                                   n_dense_layers=n))
     for k, v in train_full(
             dev, cfg, TRAIN_STEPS,
-            {FLASH[0]: 2 * n + 1, FLASH_BWD[0]: n + 1, SSD[0]: 0,
-             SSD_BWD[0]: 0}, MLA_TRAIN_PARAMS,
+            {FLASH[0]: 2 * n + 1, FLASH_WGMMA[0]: 2 * n + 1,
+             FLASH_BWD[0]: n + 1, SSD[0]: 0, SSD_BWD[0]: 0},
+            MLA_TRAIN_PARAMS,
             what=" (of 61: its 3 dense layers; a full-width MoE layer's "
                  "weights and gradients alone are 45 GB)",
             batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ).items():
@@ -4820,7 +4939,8 @@ def serve_family_full(dev, cfg, n_params, b, pl, gen):
     peak = torch.cuda.max_memory_allocated(dev)
     n_fl = cfg.n_layers + cfg.n_enc_layers
     if counts[FLASH[0]] != n_fl or plain or any(
-            v for k, v in counts.items() if k != FLASH[0]):
+            v for k, v in counts.items() if k not in FLASH_FWD) or \
+            counts[FLASH_WGMMA[0]] != wgmma_share(cfg, n_fl):
         raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
                              f"calls; expected {n_fl} flash forwards a "
                              f"prefill")
@@ -5333,7 +5453,7 @@ def run_phases(dev, smi, cpu_runs) -> int:
         counts[k] = counts.get(k, 0) + v
     log(f"[ssm/hybrid train] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    phase_gemma_kernels(dev)
+    phase_gemma_kernels(dev, rec)
     for part in (phase_gemma_serve, phase_gemma_train):
         for k, v in part(dev).items():
             counts[k] = counts.get(k, 0) + v
@@ -5357,8 +5477,8 @@ def run_phases(dev, smi, cpu_runs) -> int:
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []
     for name_, src, replaces in (SEG, REF, SWEEP, SWEEP_DRAWN, SEG_FAULTS,
-                                 FLASH, SSD, BITPLANE, FLASH_BWD,
-                                 SSD_BWD):
+                                 FLASH, FLASH_WGMMA, SSD, BITPLANE,
+                                 FLASH_BWD, SSD_BWD):
         r = rec[name_]
         out.append({"name": name_, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name_],

@@ -8,13 +8,15 @@ turns (parent, change, change, parent) within one call:
 The package on PYTHONPATH builds its own `flash_attention` library into
 its checkout's git-ignored `build/kernels/`. The script prints the
 card's name and power limit, ptxas's registers and spills for the
-bfloat16 forward kernels (when this process built the library), and for
-each shape the forward's ms a call: CUDA events over 50 calls after a
+bfloat16 forward kernels (`flash_fwd_mma`, and `flash_fwd_wgmma` where
+the package has it; when this process built the library), and for each
+shape the forward's ms a call: CUDA events over 50 calls after a
 warm-up, the median of 5 rounds. Shapes: Zamba2-7B's serve (BH 8 x 32 =
 256, L 512, D 112, tile 512, causal), Qwen2.5-14B's and Qwen2-1.5B's
-first layers (BH 320 and 96, L 512, D 128), and Gemma3-12B's serve (BH
-8 x 16 = 128, L 4,096, D 256, tile 1,024, window 1,024 and causal)
-where the package takes D 256 and a window.
+first layers (BH 320 and 96, L 512, D 128), Gemma3-12B's serve (BH 8 x
+16 = 128, L 4,096, D 256, tile 1,024, window 1,024 and causal) where
+the package takes D 256 and a window, and DeepSeek-V3's first MLA layer
+(BH 8 x 128 = 1,024, L 4,096, D 192, tile 1,024, causal).
 """
 import os
 import statistics
@@ -37,7 +39,8 @@ SHAPES = [("zamba2-7b serve", 256, 512, 112, 512, 0),
           ("qwen2.5-14b layer 0", 320, 512, 128, 512, 0),
           ("qwen2-1.5b layer 0", 96, 512, 128, 512, 0),
           ("gemma3-12b serve, local", 128, 4096, 256, 1024, 1024),
-          ("gemma3-12b serve, global", 128, 4096, 256, 1024, 0)]
+          ("gemma3-12b serve, global", 128, 4096, 256, 1024, 0),
+          ("deepseek-v3 mla layer 0", 1024, 4096, 192, 1024, 0)]
 
 
 def ms_a_call(fn, calls=50, rounds=5):
@@ -68,7 +71,7 @@ def main() -> int:
     _build.build_all(["flash_attention"])
     for kern, regs, _, st, ld in cs.ptxas_report(
             _build.build_log("flash_attention")):
-        if kern.startswith("flash_fwd_mma"):
+        if kern.startswith(("flash_fwd_mma", "flash_fwd_wgmma")):
             print(f"[{tag}] {kern}: {regs} registers, spills {st}/{ld} "
                   f"bytes")
     dev = torch.device("cuda", 0)
@@ -85,6 +88,8 @@ def main() -> int:
             continue
         print(f"[{tag}] {name} (BH {bh} x L {l} x D {d}, tile {t}, window "
               f"{w}): {ms:.4f} ms a call")
+        del q, k, v
+        torch.cuda.empty_cache()
     return 0
 
 

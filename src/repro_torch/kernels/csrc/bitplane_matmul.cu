@@ -285,38 +285,11 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
-// library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a row-major (outer, inner) bfloat16 matrix read in (box_outer,
 // box_inner) boxes with the 128-byte swizzle
 bool make_map(CUtensorMap* map, const void* ptr, int inner, int outer,
               int box_inner, int box_outer) {
-  EncodeTiled fn = encode_tiled();
+  lm::EncodeTiled fn = lm::encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(outer)};

@@ -31,49 +31,91 @@
 // the first whose last row's klim passes the block's first key to the
 // last whose first row's klo is below its last.
 //
-// Head dims 1 to 256: D is zero-padded to 16 DK columns, DK 1-8, then 12
-// (D <= 192) and 16 (D <= 256) only, to keep the build short.
+// Head dims 1 to 256. In bfloat16, D 1-128 run flash_fwd_mma, D zero-
+// padded in the kernel to 16 DK columns (DK 1-8); D 129-256 run
+// flash_fwd_wgmma at 192 or 256 columns, whose input contract is a row
+// width Dr that is a multiple of 8 (TMA takes 16-byte row strides) and
+// 16-byte aligned bases: the wrapper zero-pads q, k and v to Dr and
+// slices o back, launching at the true D's scale D^-1/2 (exact: zero
+// columns add nothing to q k^T and give zero output columns); TMA
+// zero-fills the columns from Dr to 192 or 256. Neither path falls back
+// to the other or to the plain version: a failed build or launch raises.
 //
 // What bounds it. At the main path's shapes (BH = 8 x 32 = 256, L = 512,
 // D = 112, bfloat16, causal) it must read q, k, v and write o, 117 MB,
 // or 0.035 ms at 3.35 TB/s; the causal triangle's two products are
 // 1.5e10 operations, 0.015 ms at the bfloat16 tensor-core rate. So bytes
-// bound it. At Gemma3-12B's serve shape (BH 8 x 16 = 128, L 4,096, D
-// 256, tile 1,024) operations do: 0.49 ms for a local layer's window of
-// 1,024 (4.8e11 operations; the bytes 0.32 ms), 1.11 ms for a global
-// layer's causal triangle.
+// bound it. Past D 128 operations do: at Gemma3-12B's serve shape (BH 8
+// x 16 = 128, L 4,096, D 256, tile 1,024) 0.49 ms for a local layer's
+// window of 1,024 (4.8e11 operations; the bytes 0.32 ms), 1.11 ms for a
+// global layer's causal triangle; at DeepSeek-V3's first MLA layer (BH
+// 8 x 128 = 1,024, L 4,096, D 192, causal) 6.67 ms (bytes 1.92).
 //
-// bfloat16 (flash_fwd_mma, the main path's): FlashAttention-2 on the
-// tensor cores with mma.sync m16n8k16 (lm_mma.cuh). One block of 4 warps
-// per (head, 64 query rows), 16 rows a warp, three blocks an SM (61 KB
-// of shared memory and at most 168 registers a thread each at D = 112),
-// the heaviest causal query blocks launched first. Each warp loads its q rows once with ldmatrix
-// into registers (D zero-padded to a multiple of 16). K and V come in
-// 64-key bfloat16 tiles, double-buffered with cp.async (zero-filled past
-// L), in rows padded to D + 8 values so ldmatrix's eight row addresses
-// fall in distinct banks. Per tile (the narrow builds: per 32-key half
-// of it): S = q k^T into float32 registers;
-// the scale (times log2 e, for exp2f) applied to the float32 S, never to
-// bfloat16 q (D^-1/2 is not a power of two, so that would add a rounding
-// the plain version lacks); the mask only on tiles that cross a row's key
+// bfloat16, D <= 128 (flash_fwd_mma, the main path's): FlashAttention-2
+// on the tensor cores with mma.sync m16n8k16 (lm_mma.cuh). One block of
+// 4 warps per (head, 64 query rows), 16 rows a warp, three blocks an SM
+// (61 KB of shared memory and at most 168 registers a thread each at D =
+// 112), the heaviest causal query blocks launched first. Each warp loads
+// its q rows once with ldmatrix into registers (D zero-padded to a
+// multiple of 16). K and V come in 64-key bfloat16 tiles, double-
+// buffered with cp.async (zero-filled past L), in rows padded to D + 8
+// values so ldmatrix's eight row addresses fall in distinct banks. Per
+// 32-key half of a tile: S = q k^T into float32 registers; the scale
+// (times log2 e, for exp2f) applied to the float32 S, never to bfloat16
+// q (D^-1/2 is not a power of two, so that would add a rounding the
+// plain version lacks); the mask only on tiles that cross a row's key
 // limit; the running max and denominator in registers with quad
 // shuffles, the denominator summed from float32 P; P rounded to
 // bfloat16 in registers, one k16 step of keys at a time, is the A
-// fragment of P v, and v's B fragments
-// come from ldmatrix.trans; the output stays in float32 registers until
-// it is divided by max(l, 1e-30). Rounding P to bfloat16 for P v is the
-// only rounding the plain version lacks: one bfloat16 step at most.
+// fragment of P v, and v's B fragments come from ldmatrix.trans; the
+// output stays in float32 registers until it is divided by max(l,
+// 1e-30). Rounding P to bfloat16 for P v is the only rounding the plain
+// version lacks: one bfloat16 step at most. The 32-key halves keep S and
+// P beside q's fragments under the 168-register cap of three blocks an
+// SM with no spill (one 64-key step spilled at D 96-128).
 //
-// Both builds write each row's log-sum-exp of its scaled scores, m +
-// log(den), when given an lse pointer (training; serving passes null).
+// bfloat16, D > 128 (flash_fwd_wgmma<192 | 256>): the same arithmetic on
+// Hopper's wgmma and TMA. A block owns 128 query rows of a head, two
+// warpgroups of 64; the grid walks each head's query blocks heaviest
+// first, heads outermost, so the blocks in flight share a few heads' k
+// and v in L2. Thread 0 brings q once (128 x D) and the first 64-key
+// tiles of k and v, each in 64-column boxes with the 128-byte swizzle,
+// through 3-D tensor maps (Dr, L, BH) that zero-fill past each head's L
+// (a next head's rows could hold anything; a zero v row times P = 0 is
+// 0). k and v have rings of their own, 2 slots at D 256 (64 + 2 x 64
+// KB) and 3 at D 192 (48 + 3 x 48 KB), each slot's tile completing on a
+// full mbarrier; each warpgroup's leader counts its release of a slot in
+// shared memory, and the second to release it requests the tile two (or
+// three) on: k's slot after S, v's after P v, so a load is in flight for
+// more than a tile's products. Per 64-key tile a warpgroup issues S = q
+// k^T (16 or 12 wgmma m64n64k16, q and k K-major from shared memory,
+// S float32 in 32 registers a thread) beside P v of the tile before
+// (4 wgmma m64n256k16 or m64n192k16, P's bfloat16 A fragments in
+// registers, v as transposed B, O float32 in 128 or 96 registers); the
+// softmax of the tile (the mask on crossing tiles, quad shuffles, the
+// SFU's exp2 of the scaled float32 S, the denominator from float32 P,
+// maxima and sums as trees) runs while P v computes, then O takes the
+// correction and P is packed for the next product. The two warpgroups
+// take turns to issue (named barriers), so one's softmax runs under the
+// other's products. A descriptor's k-step offset is an immediate in the
+// wgmma's PTX, so descriptors take no registers; ptxas keeps the
+// warpgroups at about 215 (D 256) and 184 (D 192) registers with no
+// spill. 256 threads, not a warp-specialised
+// producer: ptxas gives a wgmma kernel's registers over whole
+// warpgroups, and a third warpgroup (or a ninth warp) held every thread
+// to 168 and spilled even under setmaxnreg 24 / 240. Both warpgroups
+// walk every tile from the one holding the block's first row's lower
+// key limit to its last row's upper one: a tile outside a row's limits
+// is masked, and skipping it per warpgroup measured no gain. What holds
+// it under its bound, largest first: the softmax between a warpgroup's
+// products, which the other warpgroup's products hide only in part;
+// the products themselves at N = 64 (S reads as many bytes of q as of k
+// from shared memory) and the turns; k and v read once per 128 rows
+// through L2, and TMA's writes beside the products' reads.
 //
-// The wide bfloat16 builds (DK 12, 16) keep q in shared memory and read
-// its A fragments at each k-step (in registers they would pass 255 beside
-// the 16 x 256 float32 accumulator), one block an SM (169 KB of shared
-// memory at DK 16). The narrow builds walk each 64-key tile in two
-// softmax steps of 32 keys and pack P one k16 step at a time, which
-// keeps S and P beside q's fragments under the 168-register cap of three
-// blocks an SM with no spill (one 64-key step spilled at D 96-128).
+// Both bfloat16 kernels write each row's log-sum-exp of its scaled
+// scores, m + log(den), when given an lse pointer (training; serving
+// passes null).
 //
 // float32 (flash_fwd): on the CUDA cores, as first ported. The float32
 // tolerance (1e-4) rules out bfloat16 or TF32 products, and no main path
@@ -135,9 +177,13 @@
 // CUDA cores, as first ported; the float32 tolerance (1e-4) rules out
 // bfloat16 or TF32 products. Past D = 128 the tiles walk D in chunks of
 // 128 columns (see kChunk).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "lm_mma.cuh"
 #include "lm_tiles.cuh"
@@ -365,35 +411,32 @@ __device__ __forceinline__ int bt_frag(int ld, int k0, int n2) {
          (lane >> 4) * 8;
 }
 
-// The wide builds (D > 128: DK 12 and 16) keep q in shared memory and
-// read its A fragments at each k-step, since q in registers (64 a thread
-// at DK 16) beside the 16 x 256 float32 accumulator (128) and S (32)
-// would pass 255; one block an SM (169 KB of shared memory at DK 16).
+// The backward's wide builds (D > 128: DK 12 and 16) read q's (and dO's)
+// A fragments from shared memory at each k-step; the forward's run
+// flash_fwd_wgmma (below).
 template <int DK>
 __host__ __device__ constexpr bool wide() { return DK > 8; }
 
-
 template <int DK>
-constexpr size_t mma_smem_bytes() {  // K and V, two stages each; wide: q
-  return sizeof(bf16) * (wide<DK>() ? 5 : 4) * kRows * (16 * DK + 8);
+constexpr size_t mma_smem_bytes() {  // K and V, two stages each
+  return sizeof(bf16) * 4 * kRows * (16 * DK + 8);
 }
 
 template <int DK>
-__global__ void __launch_bounds__(kMmaThreads,
-                                  wide<DK>() ? 1 : kMmaBlocksPerSM)
+__global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
     flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
                   float* __restrict__ lse, int L, int D, int causal, int tq,
                   int tk, int window, float scale_log2) {
+  static_assert(!wide<DK>(), "D > 128 runs flash_fwd_wgmma");
   constexpr int dd = 16 * DK, ld = dd + 8, tile = kKeys * ld;
-  // keys a softmax step: the narrow builds walk a tile in halves, so that
-  // S and P fit beside q's fragments under the 168-register cap
-  constexpr int kStep = wide<DK>() ? kKeys : kKeys / 2, NJ = kStep / 8;
+  // keys a softmax step: a tile in halves, so that S and P fit beside q's
+  // fragments under the 168-register cap
+  constexpr int kStep = kKeys / 2, NJ = kStep / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][kKeys][ld]
   bf16* Vs = Ks + 2 * tile;                       // [2][kKeys][ld]
-  // q's rows: narrow, in K's second stage until read into registers
-  bf16* Qs = wide<DK>() ? Vs + 2 * tile : Ks + tile;
+  bf16* Qs = Ks + tile;  // q's rows, in K's second stage until in registers
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -416,13 +459,11 @@ __global__ void __launch_bounds__(kMmaThreads,
   lm::cp_async_commit();
   lm::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[wide<DK>() ? 1 : DK][4];
-  if constexpr (!wide<DK>()) {
+  uint32_t qf[DK][4];
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk)
-      lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
-    __syncthreads();  // Qs is K's second stage from here on
-  }
+  for (int kk = 0; kk < DK; ++kk)
+    lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
+  __syncthreads();  // Qs is K's second stage from here on
 
   float acc[2 * DK][4];
 #pragma unroll
@@ -454,19 +495,12 @@ __global__ void __launch_bounds__(kMmaThreads,
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < DK; ++kk) {
-        uint32_t a[4];
-        if constexpr (wide<DK>()) {
-          lm::ldmatrix_x4(a, lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
-        }
 #pragma unroll
         for (int np = 0; np < NJ / 2; ++np) {
           uint32_t b[4];
           lm::ldmatrix_x4(b, lm::smem_u32(Kt + b_frag(ld, kh + np * 16, kk)));
-          lm::mma_bf16_16816(s[2 * np], a, b[0], b[1]);
-          lm::mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
+          lm::mma_bf16_16816(s[2 * np], qf[kk], b[0], b[1]);
+          lm::mma_bf16_16816(s[2 * np + 1], qf[kk], b[2], b[3]);
         }
       }
 
@@ -589,14 +623,398 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// D padded up with zero columns to 16 DK: every multiple of 16 to 128,
-// then 192 and 256 only (fewer instantiations, shorter builds)
+// ------------------------------------------------------ bf16, D > 128
+// 2^x by the SFU's approximation (subnormal results flush to 0: a P so
+// far below the row's largest, 1, adds nothing to its sums)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// f(std::integral_constant<int, I>()) for I = 0 .. N - 1, unrolled at
+// compile time (immediate operands need constant expressions)
+template <int N, int I = 0, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>());
+    static_for<N, I + 1>(f);
+  }
+}
+
+// flash_fwd_wgmma<D> (D 192, 256): 128 query rows a block, two
+// warpgroups of 64. q (128 x D, once) and 64-key tiles of k and v (two
+// rings of kStages) come by TMA in 64-column boxes with the 128-byte
+// swizzle, each tile completing on its slot's mbarrier; the warpgroup
+// that frees a slot second requests the tile kStages on into it. Each
+// warpgroup runs S = q k^T (wgmma m64n64k16, both operands from shared
+// memory) and O += P v (wgmma m64nDk16, P from registers, v transposed
+// B). See the header.
+constexpr int kWgRows = 128;     // query rows a block
+// Two warpgroups and no producer warp: ptxas gives a wgmma kernel's
+// threads 65,536 registers over whole warpgroups, so a third (a
+// producer warpgroup, or one producer warp) caps them at 168, and it
+// spilled there even with the producer's setmaxnreg 24 and the
+// consumers' 240. At 256 threads the 64 x D float32 sums, S and P take
+// about 215 registers (D 256) and 184 (D 192), no spill.
+constexpr int kWgThreads = 256;
+constexpr int kBox = 64;         // columns a TMA box: 128 bytes
+
+template <int D>
+struct WgmmaTiles {
+  static constexpr int kBoxes = D / kBox;
+  static constexpr uint32_t kQBox = kWgRows * kBox * 2;      // 16 KB
+  static constexpr uint32_t kQBytes = kBoxes * kQBox;
+  static constexpr uint32_t kKvBox = kKeys * kBox * 2;       // 8 KB
+  static constexpr uint32_t kTileBytes = kBoxes * kKvBox;    // k or v
+  // as deep as 227 KB allows: 2 at D 256, 3 at D 192
+  static constexpr int kStages =
+      (227 * 1024 - 1024 - kQBytes - 256) / (2 * kTileBytes);
+  // q's barrier, each slot's full barrier and its count of releases
+  static constexpr size_t kSmem =
+      1024 + kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 2 * kStages) +
+      4 * 2 * kStages;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    bf16* __restrict__ o, float* __restrict__ lse, int L,
+                    int Dr, int causal, int tq, int tk, int window,
+                    float scale_log2) {
+  using T = WgmmaTiles<D>;
+  constexpr int S = T::kStages, NB = T::kBoxes, NO = D / 2, KS = D / 16;
+  static_assert(S >= 2 && T::kSmem <= 227 * 1024, "the ring does not fit");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1,024 bytes: align the tiles to it
+  const uint32_t qs = (lm::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ks = qs + T::kQBytes;        // [S][NB][64 keys][64]
+  const uint32_t vs = ks + S * T::kTileBytes;  // [S][NB][64 keys][64]
+  const uint32_t q_full = vs + S * T::kTileBytes;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * S;
+  int* k_done = reinterpret_cast<int*>(
+      smem_raw + (v_full + 8 * S - lm::smem_u32(smem_raw)));  // [S]
+  int* v_done = k_done + S;                                 // [S]
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgRows;  // heaviest first
+  // neither key limit decreases with the row: the block's last row has
+  // the largest upper one, its first row the smallest lower one
+  const int kend = key_limit(min(q0 + kWgRows, L) - 1, L, causal, tq, tk);
+  const int kbeg = key_lower(q0, window, tq, tk) / kKeys * kKeys;
+  const int n_tiles = (kend - kbeg + kKeys - 1) / kKeys;
+  // tile j of k or v into its slot; rows and keys past L (and columns
+  // past Dr) come zero-filled, never the next head's
+  auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full,
+                  int j) {
+    const int s = j % S;
+    // after both warpgroups' wgmma reads of the slot (their waits, then
+    // the release counts) and before TMA's writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    lm::mbar_expect_tx(full + 8 * s, T::kTileBytes);
+    for (int b = 0; b < NB; ++b)
+      lm::tma_load_3d(ring + s * T::kTileBytes + b * T::kKvBox, map,
+                      full + 8 * s, b * kBox, kbeg + j * kKeys, bh);
+  };
+  if (threadIdx.x == 0) {
+    lm::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      lm::mbar_init(k_full + 8 * s, 1);
+      lm::mbar_init(v_full + 8 * s, 1);
+      k_done[s] = v_done[s] = 0;
+    }
+    lm::mbar_fence_init();
+    lm::mbar_expect_tx(q_full, T::kQBytes);
+    for (int b = 0; b < NB; ++b)
+      lm::tma_load_3d(qs + b * T::kQBox, &map_q, q_full, b * kBox, q0, bh);
+    for (int j = 0; j < min(S, n_tiles); ++j) {
+      load(&map_k, ks, k_full, j);
+      load(&map_v, vs, v_full, j);
+    }
+  }
+  __syncthreads();
+
+  const int c = threadIdx.x / 128;  // this warpgroup's rows: q0 + 64 c..
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row = q0 + 64 * c + warp * 16 + g;  // this thread's: row, + 8
+  const int lim_lo = key_limit(row, L, causal, tq, tk);
+  const int lim_hi = key_limit(row + 8, L, causal, tq, tk);
+  const int lo_lo = key_lower(row, window, tq, tk);
+  const int lo_hi = key_lower(row + 8, window, tq, tk);
+  const bool leader = threadIdx.x % 128 == 0;
+  // the warpgroup is done with tile j of k or v: its leader counts the
+  // release, and the second of a slot's two (an odd count before it)
+  // requests tile j + S into the slot (no slot is refilled under a
+  // transfer in flight: both waited for the tile)
+  auto release_k = [&](int j) {
+    if (leader && (atomicAdd(&k_done[j % S], 1) & 1) && j + S < n_tiles)
+      load(&map_k, ks, k_full, j + S);
+  };
+  auto release_v = [&](int j) {
+    if (leader && (atomicAdd(&v_done[j % S], 1) & 1) && j + S < n_tiles)
+      load(&map_v, vs, v_full, j + S);
+  };
+
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float sc[32];       // S, then P in float32: d[4 n + e], 8 n8 tiles
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  uint32_t pa[4][4];  // P in bfloat16, the A fragments of 4 k16 steps
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  float c_lo = 0.f, c_hi = 0.f;
+  // descriptors: q's 64 rows of this warpgroup in each box (K-major), k's
+  // tile (K-major, its 64 rows of keys as B's N), v's tile (N-major: LBO
+  // steps a 64-column box, SBO 8 keys); a k-step's offset is immediate
+  const uint32_t hi = lm::desc_hi_sw128(1024);
+  const uint32_t q_lo = lm::desc_lo(qs + c * 64 * 128, 16);
+  auto issue_s = [&](int j) {  // S = q k^T, D / 16 k-steps
+    const uint32_t k_lo = lm::desc_lo(ks + j % S * T::kTileBytes, 16);
+    static_for<KS>([&](auto step) {  // 32 bytes a k-step within a box
+      constexpr int kk = decltype(step)::value;
+      lm::wgmma_m64n64k16_ss<(kk / 4 * T::kQBox + kk % 4 * 32) / 16,
+                             (kk / 4 * T::kKvBox + kk % 4 * 32) / 16>(
+          sc, q_lo, k_lo, hi, kk > 0);
+    });
+    lm::wgmma_commit();
+  };
+  auto issue_pv = [&](int j) {  // O += P v, 4 k-steps of 16 keys
+    const uint32_t v_lo = lm::desc_lo(vs + j % S * T::kTileBytes, T::kKvBox);
+    static_for<4>([&](auto step) {  // 16 rows of 128 bytes a k-step
+      constexpr int kk = decltype(step)::value;
+      if constexpr (D == 256)
+        lm::wgmma_m64n256k16_rs_tb<kk * 2048 / 16>(acc, pa[kk], v_lo, hi);
+      else
+        lm::wgmma_m64n192k16_rs_tb<kk * 2048 / 16>(acc, pa[kk], v_lo, hi);
+    });
+    lm::wgmma_commit();
+  };
+  // the mask (only on a tile that crosses a row's limit), the running max
+  // and the corrections c; S becomes float32 P against the new max, and
+  // the denominators take its sums (maxima and sums as trees: short
+  // dependence chains between the products)
+  auto softmax = [&](int j) {
+    const int k0 = kbeg + j * kKeys;
+    if (k0 + kKeys > lim_lo || k0 < lo_hi) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * n + 2 * t4 + e;
+          if (key >= lim_lo || key < lo_lo) sc[4 * n + e] = -INFINITY;
+          if (key >= lim_hi || key < lo_hi) sc[4 * n + 2 + e] = -INFINITY;
+        }
+    }
+    float t_lo[8], t_hi[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      t_lo[n] = fmaxf(sc[4 * n], sc[4 * n + 1]);
+      t_hi[n] = fmaxf(sc[4 * n + 2], sc[4 * n + 3]);
+    }
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+      for (int n = 0; n < w; ++n) {
+        t_lo[n] = fmaxf(t_lo[n], t_lo[n + w]);
+        t_hi[n] = fmaxf(t_hi[n], t_hi[n + w]);
+      }
+    float mx_lo = fmaxf(m_lo, t_lo[0]), mx_hi = fmaxf(m_hi, t_hi[0]);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    // exponent bases; a row with no key yet (past L) keeps 0
+    const float b_lo = mx_lo == -INFINITY ? 0.f : mx_lo * scale_log2;
+    const float b_hi = mx_hi == -INFINITY ? 0.f : mx_hi * scale_log2;
+    c_lo = ex2(m_lo * scale_log2 - b_lo);
+    c_hi = ex2(m_hi * scale_log2 - b_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * n + e] = ex2(fmaf(sc[4 * n + e], scale_log2, -b_lo));
+        sc[4 * n + 2 + e] = ex2(fmaf(sc[4 * n + 2 + e], scale_log2, -b_hi));
+      }
+      t_lo[n] = sc[4 * n] + sc[4 * n + 1];
+      t_hi[n] = sc[4 * n + 2] + sc[4 * n + 3];
+    }
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+      for (int n = 0; n < w; ++n) {
+        t_lo[n] += t_lo[n + w];
+        t_hi[n] += t_hi[n + w];
+      }
+    l_lo = fmaf(l_lo, c_lo, t_lo[0]);
+    l_hi = fmaf(l_hi, c_hi, t_hi[0]);
+  };
+  auto pack = [&]() {  // k16 step kk: the n8 tiles 2 kk and 2 kk + 1
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        pa[kk][h] = lm::pack_bf16x2(sc[8 * kk + 2 * h],
+                                    sc[8 * kk + 2 * h + 1]);
+  };
+
+  // Both warpgroups walk every tile of the block (a row's keys outside
+  // its limits are masked; rows past L write nothing), and take turns to
+  // issue their products (named barriers 1 and 2, the first warpgroup
+  // first): one's softmax runs under the other's products. Within a
+  // warpgroup, S of tile j is issued beside P v of tile j - 1, and the
+  // softmax of tile j runs under the latter.
+  const int mine = 1 + c, other = 2 - c;
+  if (c == 1) lm::bar_arrive(other, 256);
+  lm::mbar_wait(q_full, 0);
+  lm::mbar_wait(k_full, 0);
+  lm::bar_sync(mine, 256);
+  lm::wgmma_fence();
+  issue_s(0);
+  lm::bar_arrive(other, 256);
+  lm::wgmma_wait<0>();
+  lm::fence_regs(sc);
+  release_k(0);
+  softmax(0);  // O is 0: nothing to correct
+  pack();
+  for (int j = 1; j < n_tiles; ++j) {
+    const int sp = (j - 1) % S;
+    lm::mbar_wait(k_full + 8 * (j % S), (j / S) & 1);
+    lm::mbar_wait(v_full + 8 * sp, ((j - 1) / S) & 1);
+    lm::fence_regs(acc);
+    lm::fence_regs(sc);
+    lm::fence_regs(pa);
+    lm::bar_sync(mine, 256);
+    lm::wgmma_fence();
+    issue_s(j);
+    issue_pv(j - 1);
+    lm::bar_arrive(other, 256);
+    lm::wgmma_wait<1>();  // S of tile j
+    lm::fence_regs(sc);
+    release_k(j);
+    softmax(j);
+    lm::wgmma_wait<0>();  // P v of tile j - 1
+    lm::fence_regs(acc);
+    lm::fence_regs(pa);
+    release_v(j - 1);
+#pragma unroll
+    for (int n = 0; n < NO / 4; ++n) {
+      acc[4 * n] *= c_lo;
+      acc[4 * n + 1] *= c_lo;
+      acc[4 * n + 2] *= c_hi;
+      acc[4 * n + 3] *= c_hi;
+    }
+    pack();
+  }
+  const int last = n_tiles - 1, sl = last % S;
+  lm::mbar_wait(v_full + 8 * sl, (last / S) & 1);
+  lm::fence_regs(acc);
+  lm::fence_regs(pa);
+  lm::bar_sync(mine, 256);
+  lm::wgmma_fence();
+  issue_pv(last);
+  if (c == 0) lm::bar_arrive(other, 256);  // the second's last turn
+  lm::wgmma_wait<0>();
+  lm::fence_regs(acc);
+  lm::fence_regs(pa);
+  release_v(last);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+  // log-sum-exp of the scaled scores, natural log: the exponents are base
+  // 2 with the base m * scale * log2 e
+  if (lse != nullptr && t4 == 0) {
+    const size_t row0 = static_cast<size_t>(bh) * L;
+    if (row < L)
+      lse[row0 + row] = (m_lo * scale_log2 + log2f(den_lo)) * kLn2;
+    if (row + 8 < L)
+      lse[row0 + row + 8] = (m_hi * scale_log2 + log2f(den_hi)) * kLn2;
+  }
+  bf16* ob = o + static_cast<size_t>(bh) * L * Dr;
+#pragma unroll
+  for (int n = 0; n < NO / 4; ++n) {
+    const int d = 8 * n + 2 * t4;  // Dr % 8 == 0: the pair is whole
+    if (d >= Dr) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      const float den = h ? den_hi : den_lo;
+      if (r < L)
+        *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r) * Dr +
+                                     d) =
+            lm::pack_bf16x2(acc[4 * n + 2 * h] / den,
+                            acc[4 * n + 2 * h + 1] / den);
+    }
+  }
+}
+
+// (Dr, L, bh) bfloat16, read in (64, rows, 1) boxes with the 128-byte
+// swizzle; TMA zero-fills what lies past Dr or L within a head
+bool make_head_map(CUtensorMap* map, const void* ptr, int Dr, int L, int bh,
+                   int rows) {
+  lm::EncodeTiled fn = lm::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Dr),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Dr) * 2,
+                                 static_cast<cuuint64_t>(L) * Dr * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBox),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Dr: q, k, v and o's row width, a multiple of 8 (TMA's 16-byte row
+// strides) and at most D; the wrapper zero-pads a head dim to it
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int bh, int L, int Dr, int causal, int tq,
+                 int tk, int window, float scale, cudaStream_t stream) {
+  if (Dr % 8 || Dr > D || bh > 65535 ||
+      reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(k) % 16 ||
+      reinterpret_cast<uintptr_t>(v) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_q, map_k, map_v;
+  if (!make_head_map(&map_q, q, Dr, L, bh, kWgRows) ||
+      !make_head_map(&map_k, k, Dr, L, bh, kKeys) ||
+      !make_head_map(&map_v, v, Dr, L, bh, kKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = WgmmaTiles<D>::kSmem;
+  cudaError_t e = lm::allow_smem(flash_fwd_wgmma<D>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((L + kWgRows - 1) / kWgRows, bh);
+  flash_fwd_wgmma<D><<<grid, kWgThreads, smem, stream>>>(
+      map_q, map_k, map_v, static_cast<bf16*>(o), lse, L, Dr, causal, tq,
+      tk, window, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D 1-128 padded up with zero columns to 16 DK in the kernel
+// (flash_fwd_mma); D 129-256, a multiple of 8, run flash_fwd_wgmma at 192
+// or 256 columns, TMA zero-filling the rest
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int L, int D, int causal, int tq, int tk,
                 int window, float scale, cudaStream_t s) {
 #define FWD_MMA(DK)                                                        \
   return launch_mma<DK>(q, k, v, o, lse, bh, L, D, causal, tq, tk, window, \
                         scale, s)
+#define FWD_WGMMA(DW)                                                     \
+  return launch_wgmma<DW>(q, k, v, o, lse, bh, L, D, causal, tq, tk,     \
+                          window, scale, s)
   switch ((D + 15) / 16) {
     case 1: FWD_MMA(1);
     case 2: FWD_MMA(2);
@@ -606,10 +1024,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     case 6: FWD_MMA(6);
     case 7: FWD_MMA(7);
     case 8: FWD_MMA(8);
-    case 9: case 10: case 11: case 12: FWD_MMA(12);
-    default: FWD_MMA(16);
+    case 9: case 10: case 11: case 12: FWD_WGMMA(192);
+    default: FWD_WGMMA(256);
   }
 #undef FWD_MMA
+#undef FWD_WGMMA
 }
 
 // ---------------------------------------------------------------- f32

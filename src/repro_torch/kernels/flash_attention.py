@@ -16,10 +16,19 @@ kernels take it as a lower key limit beside the upper one,
 max(qpos - window + 1, max(qpos // tq - window // tk, 0) tk), and skip
 the 64-key tiles below a block's rows. Head dims 1 to 256.
 The GQA grouping is done by `kernels/ops.py` before flattening. For
-bfloat16 the forward kernel multiplies on the tensor cores, with float32
-scores, softmax and accumulator, and rounds P to bfloat16 for the P v
+bfloat16 the forward kernels multiply on the tensor cores, with float32
+scores, softmax and accumulator, and round P to bfloat16 for the P v
 product: the one rounding the plain version lacks (within a bfloat16
-step).
+step). Head dims up to 128 run `flash_fwd_mma` (`mma.sync`, 64 query rows
+a block); above 128, `flash_fwd_wgmma` (Hopper's `wgmma` and TMA, 128 query
+rows a block in two warpgroups that take turns on the tensor cores, k and
+v in rings of 64-key tiles; the source's header has the design). Its
+input contract is TMA's: rows of a multiple of 8 values on 16-byte
+aligned bases, so the wrapper hands it `wgmma_operand(q)` etc. (zero
+columns up to `wgmma_width(D)`, or a fresh copy of a misaligned tensor),
+launches at the true D's scale D^-1/2, and slices the output back: exact,
+since zero columns add nothing to q k^T and give zero output columns.
+The padding is the contract, not a fallback: a failed launch raises.
 
 The TPU kernel has no backward: the reference trains through its jnp
 chunked attention and autodiff. The port trains through the kernel, so
@@ -45,7 +54,8 @@ plain version. `flash_attention` computes the log-sum-exp only when
 autograd records and an input needs a gradient, so serving launches the
 forward as before. Counts on `flash_attention`: `.launches` and
 `.plain_calls` (forward), `.bwd_launches` and `.bwd_plain_calls`;
-`reset_counts()` zeroes them.
+`.wgmma_launches` counts the forward launches that ran
+`flash_fwd_wgmma` (also in `.launches`); `reset_counts()` zeroes them.
 """
 from __future__ import annotations
 
@@ -59,6 +69,24 @@ from repro_torch.kernels.iss_stepper import _check, _on_cpu, _raise_on
 NEG_INF = -1e30
 F32 = torch.float32
 _DTYPES = (torch.float32, torch.bfloat16)
+# bfloat16 head dims above this run the forward kernel flash_fwd_wgmma
+WGMMA_ABOVE = 128
+
+
+def wgmma_width(d: int) -> int:
+    """The row width flash_fwd_wgmma reads head dim d at: d rounded up to
+    a multiple of 8, since TMA takes 16-byte row strides."""
+    return -(-d // 8) * 8
+
+
+def wgmma_operand(t: torch.Tensor) -> torch.Tensor:
+    """t (BH, L, d) as flash_fwd_wgmma takes it: zero columns up to
+    `wgmma_width(d)`, and a fresh copy where its data is not 16-byte
+    aligned (TMA's base addresses); else t itself."""
+    d8 = wgmma_width(t.shape[-1])
+    if d8 != t.shape[-1]:
+        return torch.nn.functional.pad(t, (0, d8 - t.shape[-1]))
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _kv_tiles(qi: int, tq: int, tk: int, n_kv: int, causal: bool,
@@ -188,6 +216,10 @@ def _forward(q, k, v, causal, tq, tk, window, dev, with_lse):
     _check_card(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, dev, q.dtype, (bh, l, d))
+    wgmma = q.dtype == torch.bfloat16 and d > WGMMA_ABOVE
+    if wgmma:   # the kernel's input contract, at the true D's scale
+        q, k, v = (wgmma_operand(t) for t in (q, k, v))
+    dr = q.shape[-1]
     o = torch.empty_like(q)
     lse = torch.empty((bh, l), dtype=F32, device=dev) if with_lse else None
     fn = getattr(_build.load("flash_attention"), "flash_attention_launch")
@@ -195,11 +227,12 @@ def _forward(q, k, v, causal, tq, tk, window, dev, with_lse):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(),
-                0 if lse is None else lse.data_ptr(), bh, l, d, int(causal),
-                tq, tk, window, d ** -0.5, stream)
+                0 if lse is None else lse.data_ptr(), bh, l, dr,
+                int(causal), tq, tk, window, d ** -0.5, stream)
     _raise_on(rc, "flash_attention launch")
     flash_attention.launches += 1
-    return o, lse
+    flash_attention.wgmma_launches += wgmma
+    return (o[..., :d].contiguous() if dr != d else o), lse
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
@@ -272,6 +305,7 @@ def flash_attention(q, k, v, *, causal: bool = True, tq: int = 128,
 def reset_counts() -> None:
     """Zero the wrappers' launch and plain-call counts."""
     flash_attention.launches = 0
+    flash_attention.wgmma_launches = 0
     flash_attention.plain_calls = 0
     flash_attention.bwd_launches = 0
     flash_attention.bwd_plain_calls = 0

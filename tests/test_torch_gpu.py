@@ -1291,3 +1291,75 @@ def test_stacked_adafactor_step_on_card_matches_cpu(cuda):
                     a[k], b[k], rtol=1e-3,
                     atol=1e-6 * max(1.0, float(np.abs(b[k]).max())))
     close(got["vs"], want["vs"])
+
+
+# (BH, L, D, tq, tk, causal, window) of `flash_fwd_wgmma`, the bfloat16
+# forward past D 128: the CPU design tests' cases (D 192, 256 and 250,
+# zero-padded to 256; causal with tq != tk; a window of 100 at tile 64;
+# non-causal; ragged last 128-row blocks) and D 136 (padded to 136, read
+# at the 192 build's width)
+_WGMMA_CASES = [(2, 256, 256, 64, 64, True, 0), (2, 256, 192, 128, 128, True, 0),
+                (3, 320, 250, 64, 64, True, 0), (2, 256, 192, 64, 128, True, 0),
+                (2, 256, 256, 128, 64, True, 0), (2, 320, 256, 64, 64, True, 100),
+                (2, 256, 192, 64, 64, True, 100), (2, 320, 250, 64, 64, True, 100),
+                (2, 200, 256, 200, 200, False, 0), (4, 128, 192, 64, 64, False, 0),
+                (3, 320, 136, 64, 64, True, 0), (2, 200, 136, 100, 100, False, 0)]
+
+
+@pytest.mark.parametrize("case", _WGMMA_CASES, ids=_wide_id)
+def test_flash_wgmma_kernel_matches_plain_and_its_model(cuda, case):
+    """The forward's output and log-sum-exp against the plain version and
+    the output against its rounding model (`_torch_flash_wgmma`); two
+    launches the same bits, each counted as a `flash_fwd_wgmma` launch;
+    the backward kernel, given that log-sum-exp, within the bfloat16
+    tolerance of the plain backward."""
+    from _torch_flash_wgmma import flash_wgmma_emulation
+    from repro_torch.kernels import flash_attention as pfa
+    bh, l, d, tq, tk, causal, w = case
+    g = torch.Generator(device=cuda).manual_seed(l + d + w + tq)
+    q, k, v, do = (_rand(g, (bh, l, d), torch.bfloat16, cuda)
+                   for _ in range(4))
+    pfa.reset_counts()
+    o, lse = pfa._forward(q, k, v, causal, tq, tk, w, q.device, True)
+    o2, lse2 = pfa._forward(q, k, v, causal, tq, tk, w, q.device, True)
+    torch.cuda.synchronize()
+    assert (pfa.flash_attention.launches,
+            pfa.flash_attention.wgmma_launches) == (2, 2)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    po, plse = pfa.flash_attention_plain(q, k, v, causal=causal, tq=tq,
+                                         tk=tk, window=w, return_lse=True)
+    _lm_close(o, po, torch.bfloat16)
+    _lm_close(lse, plse, torch.float32)
+    _lm_close(o, flash_wgmma_emulation(q, k, v, causal=causal, tq=tq, tk=tk,
+                                       window=w), torch.bfloat16)
+    got = pfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, tq=tq,
+                                  tk=tk, window=w, device=cuda)
+    want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         tq=tq, tk=tk, window=w)
+    for a, b in zip(got, want):
+        _lm_close(a, b, torch.bfloat16)
+
+
+def test_flash_wgmma_takes_a_misaligned_q(cuda):
+    """A q whose data is not 16-byte aligned (a view one value into its
+    storage) reaches the kernel through `wgmma_operand`'s copy; the
+    float32 and the narrow bfloat16 builds never count as
+    `flash_fwd_wgmma`."""
+    from repro_torch.kernels import flash_attention as pfa
+    g = torch.Generator(device=cuda).manual_seed(5)
+    flat = _rand(g, (2 * 128 * 200 + 1,), torch.bfloat16, cuda)
+    q = flat[1:].view(2, 128, 200)
+    k, v = (_rand(g, (2, 128, 200), torch.bfloat16, cuda) for _ in range(2))
+    assert q.data_ptr() % 16
+    pfa.reset_counts()
+    got = pfa.flash_attention(q, k, v, tq=64, tk=64, device=cuda)
+    _lm_close(got, pfa.flash_attention_plain(q, k, v, tq=64, tk=64),
+              torch.bfloat16)
+    pfa.flash_attention(q.float(), k.float(), v.float(), tq=64, tk=64,
+                        device=cuda)
+    pfa.flash_attention(q[..., :128].contiguous(), k[..., :128].contiguous(),
+                        v[..., :128].contiguous(), tq=64, tk=64, device=cuda)
+    torch.cuda.synchronize()
+    assert (pfa.flash_attention.launches,
+            pfa.flash_attention.wgmma_launches) == (3, 1)
