@@ -251,8 +251,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    with tq != tk, a window of 100 at tile 64, non-causal; ragged 128-row
    blocks): output within `LM_TOL` of the plain version and of its
    rounding model (`tests/_torch_flash_wgmma.py`), log-sum-exp within
-   1e-4, two launches the same bits, each counted, the backward given its
-   log-sum-exp within `LM_TOL`; (b) Gemma3-12B at full width and depth
+   1e-4, two launches the same bits, each counted; the backward past D
+   128 (`flash_bwd_dq_wgmma` then `flash_bwd_dkdv_wgmma`, counted as
+   `flash_bwd_wgmma`, its own row of the `kernels` line, timed at the
+   training shape's causal case beside SDPA's backward) at the same
+   cases, given the forward's log-sum-exp: within `LM_TOL` of the plain
+   backward and of its rounding model, two launches the same bits, each
+   counted; (b) Gemma3-12B at full width and depth
    (11,765,395,200 bfloat16 parameters from a seed) through `generate`,
    8 requests x prompt 4,096 (longer than the window), 32 tokens: 48
    `flash_attention` launches a prefill, all of them `flash_fwd_wgmma`,
@@ -264,7 +269,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    (d) training at full width, its depth cut to 6 layers (5 local, 1
    global; 12 ran out of memory in AdamW), 5 `train_loop` AdamW steps of
    2 x 2,048 tokens: 12 flash forwards (`flash_fwd_wgmma`) and 6
-   backwards a step, no plain
+   backwards (`flash_bwd_wgmma`) a step, no plain
    call, then a profiled step; (e) the smoke config card against CPU:
    `small_serve` in both dtypes, the prefill logits, 3 decode steps and
    the K/V cache in float32, and `smoke_train` at grad_accum 1 with 11
@@ -299,7 +304,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    its depth cut to its 3 dense layers and the MTP head (4,290,066,432
    parameters; a full-width MoE layer's weights and gradients alone are
    45 GB), 5 `train_loop` steps of 2 x 2,048: 7 flash forwards (all
-   `flash_fwd_wgmma`) and 4 backwards a step, then a profiled step; the
+   `flash_fwd_wgmma`) and 4 backwards (`flash_bwd_wgmma`) a step, then a
+   profiled step; the
    D 192 backward alone, given the new forward's log-sum-exp, at
    that step's shape (BH 256 x 2,048, causal, tile 1,024) against plain,
    SDPA's backward and the bound.
@@ -366,6 +372,7 @@ theirs alone; phase 23(b)'s prefill and (d)'s steps, phase
 prefills and 26(c)'s steps, and phase 27(b)'s six steps, are added to
 flash's, forward and backward; `flash_fwd_wgmma`'s are those of its
 head dims among them: 23(b)'s, 23(d)'s, 24(c)'s and 24(d)'s DeepSeek-V3
+steps; `flash_bwd_wgmma`'s likewise: 23(d)'s and 24(d)'s DeepSeek-V3
 steps), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
@@ -1607,8 +1614,9 @@ def check_tensor_cores():
     """Counts each LM kernel's tensor-core instructions; fails if the
     bfloat16 flash kernel, either bfloat16 flash backward kernel, the
     bfloat16 scan kernel or its backward, or the bit planes' GEMM has
-    none, or if the wide forward (flash_fwd_wgmma) has no HGMMA or any
-    HMMA (Ampere's mma.sync)."""
+    none, or if a build of the wide forward (flash_fwd_wgmma) or of the
+    wide backward's two kernels (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma)
+    has no HGMMA or any HMMA (Ampere's mma.sync)."""
     libs = ("flash_attention", "ssd_scan", "bitplane_matmul")
     counts = {lib: sass_mma_counts(lib) for lib in libs}
     if counts[libs[0]] is None:
@@ -1629,11 +1637,12 @@ def check_tensor_cores():
         if not hits or min(hits) == 0:
             raise AssertionError(f"{kernel} ({lib}) has no HMMA or HGMMA "
                                  f"instruction in its SASS: {counts[lib]}")
-    wg = [v for k, v in counts["flash_attention"].items()
-          if k.startswith(FLASH_WGMMA[0])]
-    if len(wg) != 2 or any(h or not g for h, g in wg):
-        raise AssertionError(f"{FLASH_WGMMA[0]}: its two builds need HGMMA "
-                             f"and no HMMA: {wg}")
+    for kernel in (FLASH_WGMMA[0],) + BWD_WGMMA_KERNELS:
+        wg = [v for k, v in counts["flash_attention"].items()
+              if k.startswith(kernel)]
+        if len(wg) != 2 or any(h or not g for h, g in wg):
+            raise AssertionError(f"{kernel}: its two builds need HGMMA and "
+                                 f"no HMMA: {wg}")
 
 
 def flash_bound(q, tq, tk, causal, window=0):
@@ -3298,6 +3307,15 @@ def phase_dense_ssm(dev):
 FLASH_BWD = ("flash_attention_bwd",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:61")
+# the same wrapper's bfloat16 backward at head dims above 128, a pair of
+# kernels of its own (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma: wgmma,
+# TMA, the dK/dV pass split by role): its launches are counted apart too
+# (`flash_attention.bwd_wgmma_launches`), and are also flash_attention_bwd's
+FLASH_BWD_WGMMA = ("flash_bwd_wgmma",
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:61")
+# its two kernels' names in the SASS and ptxas's report
+BWD_WGMMA_KERNELS = ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
 # the training cell: Qwen2-1.5B at full width and depth, 5 AdamW steps
 # of 8 x 512 tokens from data/pipeline.py, remat on (the config's)
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen2-1.5b", 8, 512, 5
@@ -3318,13 +3336,14 @@ def flash_bwd_bound(q, tq, tk, causal, window=0):
 
 
 def bwd_mma_registers():
-    """ptxas's report for the bfloat16 backward kernels, one entry per
-    head-dim build: '<kernel>: <registers> registers, spills <st>/<ld>
-    bytes'; raises on a spill. Empty where this process found the
-    library built."""
+    """ptxas's report for the bfloat16 backward kernels (`mma.sync` to D
+    128, `wgmma` past it), one entry per head-dim build: '<kernel>:
+    <registers> registers, spills <st>/<ld> bytes'; raises on a spill.
+    Empty where this process found the library built."""
     from repro_torch.kernels import _build
     rows = [r for r in ptxas_report(_build.build_log("flash_attention"))
-            if r[0].startswith(("flash_bwd_dq_mma", "flash_bwd_dkdv_mma"))]
+            if r[0].startswith(("flash_bwd_dq_mma", "flash_bwd_dkdv_mma")
+                               + BWD_WGMMA_KERNELS)]
     spilled = [r for r in rows if r[3] or r[4]]
     if spilled:
         raise AssertionError(f"bfloat16 backward kernels spill: {spilled}")
@@ -3447,13 +3466,14 @@ def phase_flash_bwd(dev, rec):
 
 def lm_counts():
     """({kernel: launches} of the four LM kernels on the train path, and
-    of flash_fwd_wgmma among flash's; the plain versions' calls in
-    all)."""
+    of flash_fwd_wgmma and flash_bwd_wgmma among flash's; the plain
+    versions' calls in all)."""
     from repro_torch.kernels import flash_attention as pfa
     from repro_torch.kernels import ssd_scan as pss
     fa, ss = pfa.flash_attention, pss.ssd_scan
     return ({FLASH[0]: fa.launches, FLASH_WGMMA[0]: fa.wgmma_launches,
-             FLASH_BWD[0]: fa.bwd_launches, SSD[0]: ss.launches,
+             FLASH_BWD[0]: fa.bwd_launches,
+             FLASH_BWD_WGMMA[0]: fa.bwd_wgmma_launches, SSD[0]: ss.launches,
              SSD_BWD[0]: ss.bwd_launches},
             fa.plain_calls + fa.bwd_plain_calls + ss.plain_calls
             + ss.bwd_plain_calls)
@@ -3948,8 +3968,9 @@ GEMMA_FULL_TILE = 32
 
 def wide_flash_registers():
     """ptxas's report for the flash kernels' D 192 and 256 builds (the
-    forward's flash_fwd_wgmma<192>, <256>; the float32 backward, one
-    build for every D), one entry each; raises
+    forward's flash_fwd_wgmma<192>, <256>, the backward's
+    flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma likewise; the float32
+    backward, one build for every D), one entry each; raises
     if any flash kernel, of any head dim, spills. Empty where this
     process found the library built."""
     from repro_torch.kernels import _build
@@ -3957,9 +3978,9 @@ def wide_flash_registers():
     spilled = [r for r in every if r[3] or r[4]]
     if spilled:
         raise AssertionError(f"flash kernels spill: {spilled}")
-    rows = [r for r in every if re.search(r"<(12|16|float, 16)[,>]", r[0])
+    rows = [r for r in every if re.search(r"<float, 16[,>]", r[0])
             or r[0].startswith(("flash_bwd_dq<", "flash_bwd_dkdv<",
-                                FLASH_WGMMA[0]))]
+                                FLASH_WGMMA[0]) + BWD_WGMMA_KERNELS)]
     return [f"{k}: {regs} registers, {smem} bytes static shared memory, "
             f"spills {st}/{ld} bytes" for k, regs, smem, st, ld in rows]
 
@@ -3978,13 +3999,16 @@ def wgmma_cases(dev):
     """flash_fwd_wgmma at WGMMA_CASES: the output within LM_TOL of the
     plain version and of its rounding model (tests/_torch_flash_wgmma.py),
     the log-sum-exp within the float32 tolerance, one count of
-    `wgmma_launches` a call, two launches the same bits, and the backward
-    kernel given its log-sum-exp within LM_TOL of the plain backward."""
+    `wgmma_launches` a call, two launches the same bits; and the backward
+    kernels (flash_bwd_wgmma) given that log-sum-exp: every gradient
+    within LM_TOL of the plain backward and of its rounding model, one
+    count of `bwd_wgmma_launches` a call, two launches the same bits."""
     import torch
-    from _torch_flash_wgmma import flash_wgmma_emulation
+    from _torch_flash_wgmma import (flash_bwd_wgmma_emulation,
+                                    flash_wgmma_emulation)
     from repro_torch.kernels import flash_attention as pfa
     g = torch.Generator(device=dev).manual_seed(30)
-    worst = [0.0] * 4
+    worst = [0.0] * 5
     for bh, l, d, tq, tk, causal, w in WGMMA_CASES:
         what = (f"{FLASH_WGMMA[0]} BH {bh} x L {l} x D {d}, tq {tq}, tk "
                 f"{tk}, {'causal' if causal else 'non-causal'}, window {w}")
@@ -4007,22 +4031,45 @@ def wgmma_cases(dev):
                     q, k, v, causal=causal, tq=tq, tk=tk, window=w),
                     f"{what} against its rounding model"),
                 lm_err(lse, plse, f"{what} log-sum-exp", LM_TOL["float32"])]
-        got = pfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
-                                      tq=tq, tk=tk, window=w, device=dev)
+        bwd = (f"{FLASH_BWD_WGMMA[0]} BH {bh} x L {l} x D {d}, tq {tq}, tk "
+               f"{tk}, {'causal' if causal else 'non-causal'}, window {w}")
+        got, again = (pfa.flash_attention_bwd(
+            q, k, v, o, do, lse, causal=causal, tq=tq, tk=tk, window=w,
+            device=dev) for _ in range(2))
+        torch.cuda.synchronize()
+        if (pfa.flash_attention.bwd_launches,
+                pfa.flash_attention.bwd_wgmma_launches,
+                pfa.flash_attention.bwd_plain_calls) != (2, 2, 0):
+            raise AssertionError(f"{bwd}: launches counted "
+                                 f"{pfa.flash_attention.bwd_launches}, of "
+                                 f"them wgmma "
+                                 f"{pfa.flash_attention.bwd_wgmma_launches}"
+                                 f"; expected 2 and 2, no plain call")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{bwd}: two launches differ")
         want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse,
                                              causal=causal, tq=tq, tk=tk,
                                              window=w)
-        errs.append(max(lm_err(a, b, f"{what}: backward d{n} given its lse")
+        model = flash_bwd_wgmma_emulation(q, k, v, o, do, lse,
+                                          causal=causal, tq=tq, tk=tk,
+                                          window=w)
+        errs.append(max(lm_err(a, b, f"{bwd}: d{n} against plain, given "
+                                     f"the forward's lse")
                         for n, a, b in zip("qkv", got, want)))
+        errs.append(max(lm_err(a, b, f"{bwd}: d{n} against its rounding "
+                                     f"model")
+                        for n, a, b in zip("qkv", got, model)))
         worst = [max(a, b) for a, b in zip(worst, errs)]
     log(f"[gemma3 kernels] {FLASH_WGMMA[0]} at {len(WGMMA_CASES)} small "
         f"cases (D 256, 192, 250 and 136 zero-padded to 256 and 136; causal "
         f"with tq != tk, a window of 100 at tile 64, non-causal; ragged "
         f"128-row blocks; with the log-sum-exp): max |kernel - plain| "
         f"{worst[0]:.3g}, max |kernel - rounding model| {worst[1]:.3g}, "
-        f"log-sum-exp {worst[2]:.3g}, the backward given its lse "
-        f"{worst[3]:.3g} (within {LM_TOL['bfloat16']} x max(1, largest "
-        f"|value|)); two launches the same bits, each counted")
+        f"log-sum-exp {worst[2]:.3g}; {FLASH_BWD_WGMMA[0]} given that lse: "
+        f"max |kernel - plain| {worst[3]:.3g}, max |kernel - rounding "
+        f"model| {worst[4]:.3g} (within {LM_TOL['bfloat16']} x max(1, "
+        f"largest |value|)); each kernel's two launches the same bits, "
+        f"each counted")
 
 
 def phase_gemma_kernels(dev, rec):
@@ -4037,7 +4084,9 @@ def phase_gemma_kernels(dev, rec):
     version, the bound and SDPA (causal, or a band mask on the backend
     named); at the training shape the backwards also by device time.
     The serve shape's causal bfloat16 forward is flash_fwd_wgmma's row of
-    the `kernels` line; `wgmma_cases` first."""
+    the `kernels` line, the training shape's causal bfloat16 backward
+    flash_bwd_wgmma's (beside SDPA's backward, CUDA events); `wgmma_cases`
+    first."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as pfa
@@ -4123,14 +4172,23 @@ def phase_gemma_kernels(dev, rec):
                                   for x in (q, k, v))
                     with torch.enable_grad():
                         out = sdpa_call(qs, ks, vs, True, win)[0]()
+
+                    def sdpa_bwd():
+                        torch.autograd.grad(out, (qs, ks, vs), do[None],
+                                            retain_graph=True)
+                    b_lib = timed(sdpa_bwd, 10)
                     ours = kernel_device_ms(lambda: bwd(o, lse), 10)
-                    theirs = kernel_device_ms(lambda: torch.autograd.grad(
-                        out, (qs, ks, vs), do[None], retain_graph=True), 10)
-                    line += "; backward device time a call " \
-                        "(torch.profiler): " + "; ".join(
+                    theirs = kernel_device_ms(sdpa_bwd, 10)
+                    line += (f"; SDPA's backward ({backend}) {b_lib:.4f} ms "
+                             f"(CUDA events); backward device time a call "
+                             f"(torch.profiler): ") + "; ".join(
                             f"{who} " + device_total(ms)
                             for who, ms in (("flash_attention_bwd", ours),
                                             (f"SDPA's ({backend})", theirs)))
+                    if not win:
+                        record(rec, FLASH_BWD_WGMMA[0], b_ms, b_plain,
+                               max(errs), (bb, bo), b_lib,
+                               f"{what}, causal (library: SDPA's backward)")
                     del out, qs, ks, vs
             log(line)
             del q, k, v, do, o, lse, got
@@ -4312,7 +4370,8 @@ def phase_gemma_train(dev):
     n = cfg.n_layers
     counts = train_full(dev, cfg, TRAIN_STEPS,
                         {FLASH[0]: 2 * n, FLASH_WGMMA[0]: 2 * n,
-                         FLASH_BWD[0]: n, SSD[0]: 0, SSD_BWD[0]: 0},
+                         FLASH_BWD[0]: n, FLASH_BWD_WGMMA[0]: n, SSD[0]: 0,
+                         SSD_BWD[0]: 0},
                         GEMMA_TRAIN_PARAMS,
                         what=" (of 48: cut for AdamW's memory; 5 local, 1 "
                              "global)", batch=GEMMA_TRAIN_BATCH,
@@ -4779,7 +4838,8 @@ def phase_moe_train(dev):
     n = cfg.n_layers
     counts = train_full(dev, cfg, TRAIN_STEPS,
                         {FLASH[0]: 2 * n, FLASH_WGMMA[0]: 0,
-                         FLASH_BWD[0]: n, SSD[0]: 0, SSD_BWD[0]: 0},
+                         FLASH_BWD[0]: n, FLASH_BWD_WGMMA[0]: 0, SSD[0]: 0,
+                         SSD_BWD[0]: 0},
                         MOE_TRAIN_PARAMS,
                         what=" (of 24: cut for AdamW's memory)",
                         batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ)
@@ -4791,7 +4851,8 @@ def phase_moe_train(dev):
     for k, v in train_full(
             dev, cfg, TRAIN_STEPS,
             {FLASH[0]: 2 * n + 1, FLASH_WGMMA[0]: 2 * n + 1,
-             FLASH_BWD[0]: n + 1, SSD[0]: 0, SSD_BWD[0]: 0},
+             FLASH_BWD[0]: n + 1, FLASH_BWD_WGMMA[0]: n + 1, SSD[0]: 0,
+             SSD_BWD[0]: 0},
             MLA_TRAIN_PARAMS,
             what=" (of 61: its 3 dense layers; a full-width MoE layer's "
                  "weights and gradients alone are 45 GB)",
@@ -5478,7 +5539,7 @@ def run_phases(dev, smi, cpu_runs) -> int:
     out = []
     for name_, src, replaces in (SEG, REF, SWEEP, SWEEP_DRAWN, SEG_FAULTS,
                                  FLASH, FLASH_WGMMA, SSD, BITPLANE,
-                                 FLASH_BWD, SSD_BWD):
+                                 FLASH_BWD, FLASH_BWD_WGMMA, SSD_BWD):
         r = rec[name_]
         out.append({"name": name_, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name_],

@@ -143,18 +143,18 @@
 // bytes bound it. The two passes recompute S and dP, seven products in
 // all, about 2.3e10 operations.
 //
-// bfloat16 (flash_bwd_dq_mma, flash_bwd_dkdv_mma): mma.sync m16n8k16 with
-// float32 sums, 4 warps a block, cp.async double buffering and rows
-// padded to D + 8 as in flash_fwd_mma. The dQ pass: a warp owns 16 query
-// rows; q and dO come once into registers as A fragments; K and V arrive
-// in 64-key tiles, each walked in two halves of 32 keys: S = q k^T and
-// dP = dO v^T, P = exp2(S scale log2 e - lse log2 e) in float32, dS = P
-// (dP - D) rounded to bfloat16 straight from the C fragments into the A
-// fragments of dQ += dS k (k's B fragments by ldmatrix.trans). The dK/dV
-// pass works in the transposed frame: a warp owns 16 keys, takes its k
-// and v rows as A fragments from shared memory, and walks the query
-// tiles (q, dO, lse, D double-buffered) in halves of 32 queries: S^T = k
-// q^T and dP^T = v dO^T, so P^T and dS^T, rounded to bfloat16 in
+// bfloat16, D <= 128 (flash_bwd_dq_mma, flash_bwd_dkdv_mma): mma.sync
+// m16n8k16 with float32 sums, 4 warps a block, cp.async double buffering
+// and rows padded to D + 8 as in flash_fwd_mma. The dQ pass: a warp owns
+// 16 query rows; q and dO come once into registers as A fragments; K and
+// V arrive in 64-key tiles, each walked in two halves of 32 keys: S = q
+// k^T and dP = dO v^T, P = exp2(S scale log2 e - lse log2 e) in float32,
+// dS = P (dP - D) rounded to bfloat16 straight from the C fragments into
+// the A fragments of dQ += dS k (k's B fragments by ldmatrix.trans). The
+// dK/dV pass works in the transposed frame: a warp owns 16 keys, takes
+// its k and v rows as A fragments from shared memory, and walks the
+// query tiles (q, dO, lse, D double-buffered) in halves of 32 queries:
+// S^T = k q^T and dP^T = v dO^T, so P^T and dS^T, rounded to bfloat16 in
 // registers, are the A fragments of dV += P^T dO and dK += dS^T q. The
 // scale is applied to the float32 S inside exp2 and to dQ and dK in the
 // epilogue, never to bfloat16 q (D^-1/2 is not a power of two). The mask
@@ -164,14 +164,64 @@
 // 128 float32 dK and dV sums a warp at D = 128 are 128 a thread); 104 KB
 // of shared memory a block at D = 128, two blocks an SM. Rounding P to
 // bfloat16 before P^T dO and dS before dS k and dS^T q are the two
-// roundings the plain version lacks: one bfloat16 step each at most. The
-// wide builds (D > 128) run one block an SM (204 KB of shared memory at
-// DK 16); their dQ pass reads q's and dO's fragments from shared memory,
-// and their dK/dV pass splits D between two blocks (grid z), each
-// recomputing S^T and dP^T, since both 16 x 256 sums would take 256
-// registers a thread. At Gemma3's training shape (BH 2 x 16 = 32, L
-// 2,048, D 256) operations bound it: 0.13 ms with the window, 0.17 ms
-// causal (the bytes 0.08 ms).
+// roundings the plain version lacks: one bfloat16 step each at most.
+//
+// bfloat16, D > 128 (flash_bwd_dq_wgmma<192 | 256>, then
+// flash_bwd_dkdv_wgmma<192 | 256>): the same function and roundings on
+// Hopper's wgmma and TMA, under the forward's input contract (the
+// wrapper zero-pads q, k, v, o and dO to Dr, a multiple of 8, launches at
+// the true D's scale and slices the gradients back: zero columns add
+// nothing to q k^T or dO v^T and get zero gradients). Both passes run
+// 256 threads, two warpgroups and no producer warp (as flash_fwd_wgmma:
+// a third warpgroup caps every thread at 168 registers), tiles
+// of 64 rows in 64-column boxes with the 128-byte swizzle through 3-D
+// tensor maps (Dr, L, BH) that zero-fill past each head's L, heads
+// outermost in the grid, and rings whose slot the second warpgroup to
+// release it refills. P = exp2 of the scaled float32 S by the SFU's
+// ex2.approx; the mask only on tiles that cross a limit; rows and keys
+// past L get P = 0.
+//   The dQ pass: a block owns 64 query rows; q and dO come once by TMA,
+// and D = rowsum(dO o) from plain 16-byte loads while they land; k and v
+// in rings of 64-key tiles (v 2 slots at D 256, 3 at D 192; k, held a
+// tile longer, one more). Warpgroup c takes keys 32 c.. of every tile: S
+// = q k^T and dP = dO v^T (wgmma m64n32k16, both from shared memory), P
+// and dS = P (dP - D) in float32 registers, dS rounded into the A
+// fragments of dQ_c += dS k (m64n256k16 or m64n192k16, k as transposed
+// B), issued beside the next tile's S and dP. Each warpgroup keeps its
+// own 64 x D float32 sum (128 or 96 registers a thread); the two are
+// added once at the end, through the free k ring, in a fixed order.
+// Splitting the keys and not the roles, no P or dS crosses between
+// warpgroups here, and no product starts inside a swizzle atom (D 192's
+// column halves would, at column 96). The pass also writes each row's lse
+// log2 e, D and key limits into the scratch in 64-row chunks for the
+// dK/dV pass.
+//   The dK/dV pass: a block owns 64 keys; k and v come once by TMA, q and
+// dO in a ring of 64-query tiles (2 slots at D 256, 3 at D 192) over
+// exactly the query tiles some row of which reads a key of the block,
+// heaviest (causal: first keys) first; each slot also takes its queries'
+// lse log2 e, D and key limits in four 256-byte bulk copies on the same
+// barrier (read per query from global memory, or its limits recomputed
+// with integer divisions, they cost more than the tile's products). The
+// warpgroups split by role. Warpgroup 0: S^T = k q^T (m64n64k16 from
+// shared memory), P^T under the limits, written as float32 to shared
+// memory in its register order (16 KB), then rounded into the A
+// fragments of dV += P^T dO (dO as transposed B). Warpgroup 1: dP^T = v
+// dO^T beside S^T; after P^T lands (named barriers: P^T written, P^T
+// read), dS^T = P^T (dP^T - D), rounded into the A fragments of dK +=
+// dS^T q. S^T and dP^T are formed once, and each warpgroup keeps one 64
+// x D float32 sum. Shared memory: 211.5 KB at D 256 (k, v
+// 64 KB; two stages of q, dO and the queries' values 129 KB; P^T 16
+// KB), 212.5 KB at D 192.
+//   What bounds it. At Gemma3's training shape (BH 2 x 16 = 32, L 2,048,
+// D 256, causal) operations: 0.17 ms (with the window of 1,024, 0.13;
+// the bytes 0.08 ms); at DeepSeek-V3's (BH 256, L 2,048, D 192) 1.04 ms
+// (bytes 0.48). The two passes do seven products of the five. What holds
+// the kernels under it (PERF.md, scripts/flash_bwd_ablate.py): each
+// warpgroup's chain of product, exponentials or dS, and product with no
+// other work beside it (the dK/dV pass's warpgroup 1 waits for P^T), the
+// dQ pass's N = 32 products (S and dP read q and dO from shared memory
+// once per 32 keys), and q and dO (k and v) read once per 64 keys (query
+// rows) through L2.
 //
 // float32 (flash_bwd_dq, flash_bwd_dkdv): float32 tiles and sums on the
 // CUDA cores, as first ported; the float32 tolerance (1e-4) rules out
@@ -411,12 +461,6 @@ __device__ __forceinline__ int bt_frag(int ld, int k0, int n2) {
          (lane >> 4) * 8;
 }
 
-// The backward's wide builds (D > 128: DK 12 and 16) read q's (and dO's)
-// A fragments from shared memory at each k-step; the forward's run
-// flash_fwd_wgmma (below).
-template <int DK>
-__host__ __device__ constexpr bool wide() { return DK > 8; }
-
 template <int DK>
 constexpr size_t mma_smem_bytes() {  // K and V, two stages each
   return sizeof(bf16) * 4 * kRows * (16 * DK + 8);
@@ -428,7 +472,7 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
                   const bf16* __restrict__ v, bf16* __restrict__ o,
                   float* __restrict__ lse, int L, int D, int causal, int tq,
                   int tk, int window, float scale_log2) {
-  static_assert(!wide<DK>(), "D > 128 runs flash_fwd_wgmma");
+  static_assert(DK <= 8, "D > 128 runs flash_fwd_wgmma");
   constexpr int dd = 16 * DK, ld = dd + 8, tile = kKeys * ld;
   // keys a softmax step: a tile in halves, so that S and P fit beside q's
   // fragments under the 168-register cap
@@ -958,11 +1002,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // (Dr, L, bh) bfloat16, read in (64, rows, 1) boxes with the 128-byte
-// swizzle; TMA zero-fills what lies past Dr or L within a head
+// swizzle; TMA zero-fills what lies past Dr or L within a head. The
+// encoder is a driver call and needs a current context, which a thread
+// that has made no runtime call yet lacks (autograd's backward thread,
+// its tensors all from the allocator's cache): ptr's device is made
+// current first.
 bool make_head_map(CUtensorMap* map, const void* ptr, int Dr, int L, int bh,
                    int rows) {
   lm::EncodeTiled fn = lm::encode_tiled();
-  if (fn == nullptr) return false;
+  cudaPointerAttributes at;
+  if (fn == nullptr || cudaPointerGetAttributes(&at, ptr) != cudaSuccess ||
+      cudaSetDevice(at.device) != cudaSuccess)
+    return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Dr),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(bh)};
@@ -1400,14 +1451,14 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
 }
 
 // acc (16 x 16 DK over the warp, float32, scaled) into rows r, r + 8 and
-// columns c0 + 8 j + 2 t of a (L, D) bfloat16 matrix, nothing past L or D
+// columns 8 j + 2 t of a (L, D) bfloat16 matrix, nothing past L or D
 template <int DK>
 __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[2 * DK][4],
                                            int r, int t4, int L, int D,
-                                           float scale, int c0 = 0) {
+                                           float scale) {
 #pragma unroll
   for (int j = 0; j < 2 * DK; ++j) {
-    const int d = c0 + 8 * j + 2 * t4;
+    const int d = 8 * j + 2 * t4;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int rr = r + 8 * h;
@@ -1430,20 +1481,9 @@ constexpr size_t bwd_mma_smem_bytes() {  // six [64][16 DK + 8] tiles
          4 * 2 * kRows * sizeof(float);  // dkdv: lse, D, 2 key limits x 2
 }
 
-// The wide builds (D > 128) take one block an SM (204 KB of shared memory
-// at DK 16). The dQ pass reads q's and dO's A fragments from shared memory
-// at each k-step (in registers they would take 128 a thread beside the
-// 16 x 256 float32 dQ sum); the dK/dV pass splits D: block z of the
-// grid's third dimension forms the 8 DK columns from 8 DK z of dK and dV
-// (both in registers would take 256 a thread), each recomputing S^T and
-// dP^T over the whole of D.
-template <int DK>
-__host__ __device__ constexpr int dkdv_split() { return wide<DK>() ? 2 : 1; }
-
 // dQ of 64 query rows, and D = rowsum(dO o) of them for the dK/dV pass.
 template <int DK>
-__global__ void __launch_bounds__(kMmaThreads,
-                                  wide<DK>() ? 1 : kBwdBlocksPerSM)
+__global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
     flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ o,
                      const bf16* __restrict__ dout,
@@ -1501,14 +1541,11 @@ __global__ void __launch_bounds__(kMmaThreads,
       if (qp < L) dsum[row0 + qp] = acc;
     }
   }
-  constexpr int nf = wide<DK>() ? 1 : DK;
-  uint32_t qf[nf][4], df[nf][4];
-  if constexpr (!wide<DK>()) {
+  uint32_t qf[DK][4], df[DK][4];
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-      lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
-      lm::ldmatrix_x4(df[kk], lm::smem_u32(dOs + a_frag(ld, warp * 16, kk)));
-    }
+  for (int kk = 0; kk < DK; ++kk) {
+    lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
+    lm::ldmatrix_x4(df[kk], lm::smem_u32(dOs + a_frag(ld, warp * 16, kk)));
   }
   __syncthreads();  // V's second stage is refilled next
   const float D_lo = Ds[warp * 16 + g], D_hi = Ds[warp * 16 + g + 8];
@@ -1543,36 +1580,22 @@ __global__ void __launch_bounds__(kMmaThreads,
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < DK; ++kk) {
-        uint32_t a[4];
-        if constexpr (wide<DK>()) {
-          lm::ldmatrix_x4(a, lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
-        }
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           uint32_t b[4];
           lm::ldmatrix_x4(b, lm::smem_u32(Kt + b_frag(ld, kh + np * 16, kk)));
-          lm::mma_bf16_16816(s[2 * np], a, b[0], b[1]);
-          lm::mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
+          lm::mma_bf16_16816(s[2 * np], qf[kk], b[0], b[1]);
+          lm::mma_bf16_16816(s[2 * np + 1], qf[kk], b[2], b[3]);
         }
       }
 #pragma unroll
       for (int kk = 0; kk < DK; ++kk) {
-        uint32_t a[4];
-        if constexpr (wide<DK>()) {
-          lm::ldmatrix_x4(a, lm::smem_u32(dOs + a_frag(ld, warp * 16, kk)));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a[e] = df[kk][e];
-        }
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           uint32_t b[4];
           lm::ldmatrix_x4(b, lm::smem_u32(Vt + b_frag(ld, kh + np * 16, kk)));
-          lm::mma_bf16_16816(dp[2 * np], a, b[0], b[1]);
-          lm::mma_bf16_16816(dp[2 * np + 1], a, b[2], b[3]);
+          lm::mma_bf16_16816(dp[2 * np], df[kk], b[0], b[1]);
+          lm::mma_bf16_16816(dp[2 * np + 1], df[kk], b[2], b[3]);
         }
       }
       // P in float32, masked outside each row's key limits (and past L);
@@ -1619,14 +1642,12 @@ __global__ void __launch_bounds__(kMmaThreads,
   store_rows<DK>(dq + base, acc, row, t4, L, D, scale);
 }
 
-// dK and dV of 64 keys (wide: half of their columns): walks exactly the
-// query tiles some row of which reads one of these keys (neither key
+// dK and dV of 64 keys: walks exactly the query tiles some row of which reads one of these keys (neither key
 // limit decreases with the row, so the tiles from the first whose last
 // row's upper limit passes k0 to the last whose first row's lower limit
 // is below k0 + 64).
 template <int DK>
-__global__ void __launch_bounds__(kMmaThreads,
-                                  wide<DK>() ? 1 : kBwdBlocksPerSM)
+__global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
     flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
                        const bf16* __restrict__ dout,
@@ -1635,8 +1656,6 @@ __global__ void __launch_bounds__(kMmaThreads,
                        bf16* __restrict__ dv, int L, int D, int causal, int tq,
                        int tk, int window, float scale_log2, float scale) {
   constexpr int dd = 16 * DK, ld = dd + 8, tile = kRows * ld;
-  constexpr int DO = DK / dkdv_split<DK>();  // k16 steps of output columns
-  const int dz = blockIdx.z * DO;             // the first of them
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kKeys][ld]: the block's
   bf16* Vs = Ks + tile;                           // keys and values
@@ -1684,9 +1703,9 @@ __global__ void __launch_bounds__(kMmaThreads,
   if (n_tiles > 0) load_queries(first * kRows, 0);
   lm::cp_async_commit();
 
-  float acc_k[2 * DO][4], acc_v[2 * DO][4];
+  float acc_k[2 * DK][4], acc_v[2 * DK][4];
 #pragma unroll
-  for (int j = 0; j < 2 * DO; ++j)
+  for (int j = 0; j < 2 * DK; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
 
@@ -1766,10 +1785,10 @@ __global__ void __launch_bounds__(kMmaThreads,
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-        for (int dp2 = 0; dp2 < DO; ++dp2) {
+        for (int dp2 = 0; dp2 < DK; ++dp2) {
           uint32_t b[4];
           lm::ldmatrix_x4_trans(
-              b, lm::smem_u32(dOt + bt_frag(ld, qh + kk * 16, dz + dp2)));
+              b, lm::smem_u32(dOt + bt_frag(ld, qh + kk * 16, dp2)));
           lm::mma_bf16_16816(acc_v[2 * dp2], pa[kk], b[0], b[1]);
           lm::mma_bf16_16816(acc_v[2 * dp2 + 1], pa[kk], b[2], b[3]);
         }
@@ -1792,18 +1811,18 @@ __global__ void __launch_bounds__(kMmaThreads,
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-        for (int dp2 = 0; dp2 < DO; ++dp2) {
+        for (int dp2 = 0; dp2 < DK; ++dp2) {
           uint32_t b[4];
           lm::ldmatrix_x4_trans(
-              b, lm::smem_u32(Qt + bt_frag(ld, qh + kk * 16, dz + dp2)));
+              b, lm::smem_u32(Qt + bt_frag(ld, qh + kk * 16, dp2)));
           lm::mma_bf16_16816(acc_k[2 * dp2], da[kk], b[0], b[1]);
           lm::mma_bf16_16816(acc_k[2 * dp2 + 1], da[kk], b[2], b[3]);
         }
     }
     __syncthreads();  // stage `st` is refilled next
   }
-  store_rows<DO>(dk + base, acc_k, key, t4, L, D, scale, 16 * dz);
-  store_rows<DO>(dv + base, acc_v, key, t4, L, D, 1.f, 16 * dz);
+  store_rows<DK>(dk + base, acc_k, key, t4, L, D, scale);
+  store_rows<DK>(dv + base, acc_v, key, t4, L, D, 1.f);
 }
 
 template <int DK>
@@ -1817,7 +1836,6 @@ int launch_bwd_mma(const void* q, const void* k, const void* v,
   if (e == cudaSuccess) e = lm::allow_smem(flash_bwd_dkdv_mma<DK>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(bh, (L + kRows - 1) / kRows);
-  const dim3 grid_kv(bh, (L + kRows - 1) / kRows, dkdv_split<DK>());
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
@@ -1829,9 +1847,595 @@ int launch_bwd_mma(const void* q, const void* k, const void* v,
       scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkdv_mma<DK><<<grid_kv, kMmaThreads, smem, stream>>>(
+  flash_bwd_dkdv_mma<DK><<<grid, kMmaThreads, smem, stream>>>(
       qb, kb, vb, dob, lse, dsum, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), L, D, causal, tq, tk, window, scale_log2,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------ backward, bf16, D > 128
+// flash_bwd_dq_wgmma<D> and flash_bwd_dkdv_wgmma<D> (D 192, 256): Hopper's
+// wgmma and TMA, two warpgroups a block, 64-row tiles in 64-column boxes
+// with the 128-byte swizzle through the forward's 3-D head maps. See the
+// header.
+template <int D>
+struct BwdTiles {
+  static constexpr int kBoxes = D / kBox;
+  static constexpr uint32_t kBoxBytes = kRows * kBox * 2;      // 8 KB
+  static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;   // 64 x D
+  static constexpr uint32_t kPBytes = kRows * kKeys * 4;       // P^T
+  // each query's lse log2 e, D and its two key limits
+  static constexpr uint32_t kColBytes = 4 * kRows * 4;
+  static constexpr size_t kBars = 512;  // barriers, counts, D of 64 rows
+  static constexpr size_t kMax = 227 * 1024 - 1024 - kBars;
+  // dQ: q and dO once, v in a ring of kDqV slots (2 at D 256, 3 at D 192)
+  // and k, held a tile longer (dS k runs beside the next tile's S), in
+  // one of kDqK (3 at D 256, 4 at D 192)
+  static constexpr int kDqV = (kMax - 2 * kTileBytes) / (2 * kTileBytes);
+  static constexpr int kDqK =
+      (kMax - 2 * kTileBytes - kDqV * kTileBytes) / kTileBytes;
+  static constexpr size_t kDqSmem =
+      1024 + (2 + kDqK + kDqV) * kTileBytes + kBars;
+  // dK/dV: k and v once, q, dO and the queries' lse, D and key limits in
+  // a ring of kKvStages (2 at D 256, 3 at D 192), P^T
+  static constexpr int kKvStages =
+      (kMax - 2 * kTileBytes - kPBytes) / (2 * kTileBytes + kColBytes);
+  static constexpr size_t kKvSmem = 1024 + 2 * kTileBytes +
+                                    kKvStages * (2 * kTileBytes + kColBytes) +
+                                    kPBytes + kBars;
+};
+
+// k-step kk (16 columns of D) of a K-major 64 x D tile in 64-column boxes:
+// its offset in 16-byte units, an immediate of the wgmma
+template <int D, int KK>
+__host__ __device__ constexpr int kstep_offset() {
+  return (KK / 4 * BwdTiles<D>::kBoxBytes + KK % 4 * 32) / 16;
+}
+
+// dQ of 64 query rows, and D = rowsum(dO o) of them for the dK/dV pass.
+// Warpgroup c takes keys 32 c .. 32 c + 31 of each 64-key tile: S = q
+// k^T and dP = dO v^T (wgmma m64n32k16, both operands from shared
+// memory), P and dS in float32 registers, dS rounded to bfloat16 as the
+// A fragments of dQ_c += dS k (m64nDk16, k as transposed B); the two
+// warpgroups' sums are added once, at the end, in a fixed order.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const bf16* __restrict__ o,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, bf16* __restrict__ dq,
+                       float* __restrict__ cols, int L, int Dr, int causal,
+                       int tq, int tk, int window, float scale_log2,
+                       float scale) {
+  using T = BwdTiles<D>;
+  constexpr int SK = T::kDqK, SV = T::kDqV, NB = T::kBoxes, NO = D / 2;
+  constexpr int KS = D / 16;
+  static_assert(SV >= 2 && SK > SV && T::kDqSmem <= 227 * 1024,
+                "the rings do not fit");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = lm::smem_u32(smem_raw);
+  const uint32_t qs = (base + 1023u) & ~1023u;  // the swizzle's period
+  const uint32_t dos = qs + T::kTileBytes;
+  const uint32_t ks = dos + T::kTileBytes;        // [SK][NB][64 keys][64]
+  const uint32_t vs = ks + SK * T::kTileBytes;    // [SV][NB][64 keys][64]
+  const uint32_t q_full = vs + SV * T::kTileBytes;  // q and dO
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * SK;
+  int* k_done = reinterpret_cast<int*>(smem_raw + (v_full + 8 * SV - base));
+  int* v_done = k_done + SK;
+  float* Ds = reinterpret_cast<float*>(v_done + SV);  // [64]
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
+  const size_t row0 = static_cast<size_t>(bh) * L;
+  // neither key limit decreases with the row: the block's last row has
+  // the largest upper one, its first row the smallest lower one
+  const int kend = key_limit(min(q0 + kRows, L) - 1, L, causal, tq, tk);
+  const int kbeg = key_lower(q0, window, tq, tk) / kKeys * kKeys;
+  const int n_tiles = (kend - kbeg + kKeys - 1) / kKeys;  // at least 1
+  // tile j of k or v into its slot of a ring of S; keys past L (and
+  // columns past Dr) come zero-filled, never the next head's
+  auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full,
+                  int S, int j) {
+    const int s = j % S;
+    // after both warpgroups' wgmma reads of the slot, before TMA's writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    lm::mbar_expect_tx(full + 8 * s, T::kTileBytes);
+    for (int b = 0; b < NB; ++b)
+      lm::tma_load_3d(ring + s * T::kTileBytes + b * T::kBoxBytes, map,
+                      full + 8 * s, b * kBox, kbeg + j * kKeys, bh);
+  };
+  if (threadIdx.x == 0) {
+    lm::mbar_init(q_full, 1);
+    for (int s = 0; s < SK; ++s) {
+      lm::mbar_init(k_full + 8 * s, 1);
+      k_done[s] = 0;
+    }
+    for (int s = 0; s < SV; ++s) {
+      lm::mbar_init(v_full + 8 * s, 1);
+      v_done[s] = 0;
+    }
+    lm::mbar_fence_init();
+    lm::mbar_expect_tx(q_full, 2 * T::kTileBytes);
+    for (int b = 0; b < NB; ++b) {
+      lm::tma_load_3d(qs + b * T::kBoxBytes, &map_q, q_full, b * kBox, q0,
+                      bh);
+      lm::tma_load_3d(dos + b * T::kBoxBytes, &map_do, q_full, b * kBox, q0,
+                      bh);
+    }
+    for (int j = 0; j < min(SK, n_tiles); ++j)
+      load(&map_k, ks, k_full, SK, j);
+    for (int j = 0; j < min(SV, n_tiles); ++j)
+      load(&map_v, vs, v_full, SV, j);
+  }
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r_lo = warp * 16 + g, row = q0 + r_lo;  // rows: row, row + 8
+  // lse of a row past L is undefined: read as 0, its P masked to 0 (read
+  // here, used after D's loop)
+  const float lse_lo = row < L ? lse[row0 + row] : 0.f;
+  const float lse_hi = row + 8 < L ? lse[row0 + row + 8] : 0.f;
+  {  // D = rowsum(dO o) while the tiles land: four threads a row, 16-byte
+     // loads (Dr % 8 == 0, 16-byte aligned rows), 0 past L
+    const int r = threadIdx.x >> 2, part = threadIdx.x & 3, qp = q0 + r;
+    float acc = 0.f;
+    if (qp < L) {
+      const uint4* a = reinterpret_cast<const uint4*>(dout + (row0 + qp) * Dr);
+      const uint4* b = reinterpret_cast<const uint4*>(o + (row0 + qp) * Dr);
+      for (int c = part; c < Dr / 8; c += 4) {
+        const uint4 x = a[c], y = b[c];
+        const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 u = __bfloat1622float2(xp[e]);
+          const float2 w = __bfloat1622float2(yp[e]);
+          acc = fmaf(u.y, w.y, fmaf(u.x, w.x, acc));
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) Ds[r] = acc;
+  }
+  __syncthreads();
+
+  const int c = threadIdx.x / 128;  // this warpgroup's keys: 32 c..
+  const int lim_lo = key_limit(row, L, causal, tq, tk);
+  const int lim_hi = key_limit(row + 8, L, causal, tq, tk);
+  const int lo_lo = key_lower(row, window, tq, tk);
+  const int lo_hi = key_lower(row + 8, window, tq, tk);
+  const float ls_lo = lse_lo * kLog2e, ls_hi = lse_hi * kLog2e;
+  const float D_lo = Ds[r_lo], D_hi = Ds[r_lo + 8];
+  // the rows' lse log2 e, D and key limits for the dK/dV pass, in 64-row
+  // chunks ([BH][4][Lp]; lse and D 0 past L, and the upper limit 0),
+  // which it brings in bulk copies
+  if (c == 0 && t4 == 0) {
+    const int lp = gridDim.x * kRows;
+    float* cb = cols + 4 * static_cast<size_t>(bh) * lp + q0 + r_lo;
+    cb[0] = ls_lo;
+    cb[8] = ls_hi;
+    cb[lp] = D_lo;
+    cb[lp + 8] = D_hi;
+    cb[2 * lp] = __int_as_float(lim_lo);
+    cb[2 * lp + 8] = __int_as_float(lim_hi);
+    cb[3 * lp] = __int_as_float(lo_lo);
+    cb[3 * lp + 8] = __int_as_float(lo_hi);
+  }
+  const bool leader = threadIdx.x % 128 == 0;
+  // the warpgroup is done with tile j of k or v: the second of a slot's
+  // two releases requests the tile a ring on into it
+  auto release_k = [&](int j) {
+    if (leader && (atomicAdd(&k_done[j % SK], 1) & 1) && j + SK < n_tiles)
+      load(&map_k, ks, k_full, SK, j + SK);
+  };
+  auto release_v = [&](int j) {
+    if (leader && (atomicAdd(&v_done[j % SV], 1) & 1) && j + SV < n_tiles)
+      load(&map_v, vs, v_full, SV, j + SV);
+  };
+
+  float acc[NO];  // dQ_c, 64 x D float32 over the warpgroup
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float s[16], dp[16];  // S, then dS; dP: d[4 n + e], 4 n8 tiles of keys
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+  uint32_t da[2][4];  // dS in bfloat16, the A fragments of 2 k16 steps
+  const uint32_t hi = lm::desc_hi_sw128(1024);
+  const uint32_t q_lo = lm::desc_lo(qs, 16), do_lo = lm::desc_lo(dos, 16);
+  auto issue_sdp = [&](int j) {  // S = q k^T, dP = dO v^T: D / 16 k-steps
+    const uint32_t k_lo =
+        lm::desc_lo(ks + j % SK * T::kTileBytes + c * 32 * 128, 16);
+    const uint32_t v_lo =
+        lm::desc_lo(vs + j % SV * T::kTileBytes + c * 32 * 128, 16);
+    static_for<KS>([&](auto step) {
+      constexpr int kk = decltype(step)::value;
+      constexpr int o16 = kstep_offset<D, kk>();
+      lm::wgmma_m64n32k16_ss<o16, o16>(s, q_lo, k_lo, hi, kk > 0);
+    });
+    static_for<KS>([&](auto step) {
+      constexpr int kk = decltype(step)::value;
+      constexpr int o16 = kstep_offset<D, kk>();
+      lm::wgmma_m64n32k16_ss<o16, o16>(dp, do_lo, v_lo, hi, kk > 0);
+    });
+    lm::wgmma_commit();
+  };
+  auto issue_dq = [&](int j) {  // dQ_c += dS k, 2 k-steps of 16 keys
+    const uint32_t k_lo = lm::desc_lo(
+        ks + j % SK * T::kTileBytes + c * 32 * 128, T::kBoxBytes);
+    static_for<2>([&](auto step) {
+      constexpr int kk = decltype(step)::value;
+      if constexpr (D == 256)
+        lm::wgmma_m64n256k16_rs_tb<kk * 2048 / 16>(acc, da[kk], k_lo, hi);
+      else
+        lm::wgmma_m64n192k16_rs_tb<kk * 2048 / 16>(acc, da[kk], k_lo, hi);
+    });
+    lm::wgmma_commit();
+  };
+  // P = exp2(S scale log2 e - lse log2 e) in float32, masked outside each
+  // row's key limits (only where the half crosses one), then dS = P (dP -
+  // D) in place of S
+  auto grads = [&](int j) {
+    const int kb = kbeg + j * kKeys + 32 * c;
+    const bool cross = kb + 32 > lim_lo || kb < lo_hi;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p_lo = ex2(fmaf(s[4 * n + e], scale_log2, -ls_lo));
+        float p_hi = ex2(fmaf(s[4 * n + 2 + e], scale_log2, -ls_hi));
+        if (cross) {
+          const int key = kb + 8 * n + 2 * t4 + e;
+          if (key >= lim_lo || key < lo_lo) p_lo = 0.f;
+          if (key >= lim_hi || key < lo_hi) p_hi = 0.f;
+        }
+        s[4 * n + e] = p_lo * (dp[4 * n + e] - D_lo);
+        s[4 * n + 2 + e] = p_hi * (dp[4 * n + 2 + e] - D_hi);
+      }
+  };
+  auto pack = [&]() {  // k16 step kk: the n8 tiles 2 kk and 2 kk + 1
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        da[kk][h] = lm::pack_bf16x2(s[8 * kk + 2 * h], s[8 * kk + 2 * h + 1]);
+  };
+
+  // S and dP of tile j are issued beside dQ of tile j - 1, and P and dS
+  // of tile j run under the latter
+  lm::mbar_wait(q_full, 0);
+  lm::mbar_wait(k_full, 0);
+  lm::mbar_wait(v_full, 0);
+  lm::wgmma_fence();
+  issue_sdp(0);
+  lm::wgmma_wait<0>();
+  lm::fence_regs(s);
+  lm::fence_regs(dp);
+  release_v(0);
+  grads(0);
+  pack();
+  for (int j = 1; j < n_tiles; ++j) {
+    lm::mbar_wait(k_full + 8 * (j % SK), (j / SK) & 1);
+    lm::mbar_wait(v_full + 8 * (j % SV), (j / SV) & 1);
+    lm::fence_regs(acc);
+    lm::fence_regs(s);
+    lm::fence_regs(dp);
+    lm::fence_regs(da);
+    lm::wgmma_fence();
+    issue_sdp(j);
+    issue_dq(j - 1);
+    lm::wgmma_wait<1>();  // S and dP of tile j
+    lm::fence_regs(s);
+    lm::fence_regs(dp);
+    release_v(j);
+    grads(j);
+    lm::wgmma_wait<0>();  // dQ of tile j - 1
+    lm::fence_regs(acc);
+    lm::fence_regs(da);
+    release_k(j - 1);
+    pack();
+  }
+  lm::fence_regs(acc);
+  lm::fence_regs(da);
+  lm::wgmma_fence();
+  issue_dq(n_tiles - 1);
+  lm::wgmma_wait<0>();
+  lm::fence_regs(acc);
+  lm::fence_regs(da);
+  release_k(n_tiles - 1);
+
+  // dQ = scale (dQ_0 + dQ_1): warpgroup 1's sum through k's ring, free
+  // once both warpgroups' products are done, in its register order
+  __syncthreads();
+  float4* red = reinterpret_cast<float4*>(smem_raw + (ks - base));
+  const int tw = threadIdx.x % 128;
+  if (c == 1) {
+#pragma unroll
+    for (int n = 0; n < NO / 4; ++n)
+      red[n * 128 + tw] = make_float4(acc[4 * n], acc[4 * n + 1],
+                                      acc[4 * n + 2], acc[4 * n + 3]);
+  }
+  __syncthreads();
+  if (c == 1) return;
+  bf16* dqb = dq + row0 * Dr;
+#pragma unroll
+  for (int n = 0; n < NO / 4; ++n) {
+    const float4 x = red[n * 128 + tw];
+    const int d = 8 * n + 2 * t4;  // Dr % 8 == 0: the pair is whole
+    if (d >= Dr) continue;
+    if (row < L)
+      *reinterpret_cast<uint32_t*>(dqb + static_cast<size_t>(row) * Dr + d) =
+          lm::pack_bf16x2((acc[4 * n] + x.x) * scale,
+                          (acc[4 * n + 1] + x.y) * scale);
+    if (row + 8 < L)
+      *reinterpret_cast<uint32_t*>(dqb + static_cast<size_t>(row + 8) * Dr +
+                                   d) =
+          lm::pack_bf16x2((acc[4 * n + 2] + x.z) * scale,
+                          (acc[4 * n + 3] + x.w) * scale);
+  }
+}
+
+// named barriers of flash_bwd_dkdv_wgmma: P^T written, P^T read
+constexpr int kPFull = 1, kPEmpty = 2;
+
+// dK and dV of 64 keys, split by role: warpgroup 0 forms S^T = k q^T,
+// P^T (float32, to shared memory for warpgroup 1) and dV += P^T dO;
+// warpgroup 1 forms dP^T = v dO^T beside S^T, then dS^T = P^T (dP^T - D)
+// and dK += dS^T q. The query tiles (q, dO) come in a ring, walked over
+// exactly the tiles some row of which reads one of these keys (as in
+// flash_bwd_dkdv_mma).
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const float* __restrict__ cols,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int L,
+                         int Dr, int causal, int tq, int tk, int window,
+                         float scale_log2, float scale) {
+  using T = BwdTiles<D>;
+  constexpr int S = T::kKvStages, NB = T::kBoxes, NO = D / 2, KS = D / 16;
+  static_assert(S >= 2 && T::kKvSmem <= 227 * 1024, "the ring does not fit");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = lm::smem_u32(smem_raw);
+  const uint32_t ks = (base + 1023u) & ~1023u;  // the swizzle's period
+  const uint32_t vs = ks + T::kTileBytes;
+  const uint32_t qs = vs + T::kTileBytes;       // [S][NB][64 queries][64]
+  const uint32_t dos = qs + S * T::kTileBytes;  // [S][NB][64 queries][64]
+  const uint32_t ps = dos + S * T::kTileBytes;  // P^T, float32
+  const uint32_t cs = ps + T::kPBytes;  // [S][lse log2 e, D, limits][64]
+  const uint32_t kv_full = cs + S * T::kColBytes, full = kv_full + 8;
+  int* done = reinterpret_cast<int*>(smem_raw + (full + 8 * S - base));
+  float4* P_s = reinterpret_cast<float4*>(smem_raw + (ps - base));
+  const float* C_s = reinterpret_cast<const float*>(smem_raw + (cs - base));
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kKeys;  // the causal heavy blocks first
+  const size_t row0 = static_cast<size_t>(bh) * L;
+  const int lp = gridDim.x * kRows;  // cols' rows a head: L to 64 rows
+  const float* colb = cols + 4 * static_cast<size_t>(bh) * lp;
+  // neither key limit decreases with the row: the tiles from the first
+  // whose last row's upper limit passes k0 to the last whose first row's
+  // lower limit is below k0 + 64
+  const int n_qt = (L + kRows - 1) / kRows;
+  int first = 0, last = n_qt - 1;
+  while (first < n_qt &&
+         key_limit(min((first + 1) * kRows, L) - 1, L, causal, tq, tk) <= k0)
+    ++first;
+  while (last >= first &&
+         key_lower(last * kRows, window, tq, tk) >= k0 + kKeys)
+    --last;
+  const int n_tiles = last - first + 1;  // 0: dK and dV are zero
+  // query tile j into its slot: q and dO (rows past L zero-filled), and
+  // the 64 queries' lse log2 e, D and key limits in four 256-byte bulk
+  // copies (as the dQ pass wrote them: past L, 0 and no key)
+  auto load = [&](int j) {
+    const int s = j % S, i0 = (first + j) * kRows;
+    // after both warpgroups' reads of the slot (wgmma's, and the threads'
+    // of lse, D and the limits), before the async proxy's writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    lm::mbar_expect_tx(full + 8 * s, 2 * T::kTileBytes + T::kColBytes);
+    for (int b = 0; b < NB; ++b) {
+      const uint32_t at = s * T::kTileBytes + b * T::kBoxBytes;
+      lm::tma_load_3d(qs + at, &map_q, full + 8 * s, b * kBox, i0, bh);
+      lm::tma_load_3d(dos + at, &map_do, full + 8 * s, b * kBox, i0, bh);
+    }
+    for (int h = 0; h < 4; ++h)
+      lm::bulk_load(cs + s * T::kColBytes + h * kRows * 4,
+                    colb + h * lp + i0, kRows * 4, full + 8 * s);
+  };
+  if (threadIdx.x == 0) {
+    lm::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      lm::mbar_init(full + 8 * s, 1);
+      done[s] = 0;
+    }
+    lm::mbar_fence_init();
+    if (n_tiles > 0) {
+      lm::mbar_expect_tx(kv_full, 2 * T::kTileBytes);
+      for (int b = 0; b < NB; ++b) {
+        lm::tma_load_3d(ks + b * T::kBoxBytes, &map_k, kv_full, b * kBox, k0,
+                        bh);
+        lm::tma_load_3d(vs + b * T::kBoxBytes, &map_v, kv_full, b * kBox, k0,
+                        bh);
+      }
+      for (int j = 0; j < min(S, n_tiles); ++j) load(j);
+    }
+  }
+  __syncthreads();
+
+  const int c = threadIdx.x / 128;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3, tw = threadIdx.x % 128;
+  const int key = k0 + warp * 16 + g;  // this thread's keys: key, key + 8
+  const bool leader = tw == 0;
+  // both warpgroups are done with query tile j: the second of the slot's
+  // two releases requests tile j + S into it
+  auto release = [&](int j) {
+    if (leader && (atomicAdd(&done[j % S], 1) & 1) && j + S < n_tiles)
+      load(j + S);
+  };
+
+  float acc[NO];  // dV (warpgroup 0) or dK (warpgroup 1), 64 x D float32
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float sc[32];  // S^T then P^T, or dP^T then dS^T: d[4 n + e], 8 n8 tiles
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  uint32_t pa[4][4];  // P^T or dS^T in bfloat16, A fragments of 4 k16 steps
+  const uint32_t hi = lm::desc_hi_sw128(1024);
+  const uint32_t a_lo = lm::desc_lo(c == 0 ? ks : vs, 16);
+  // S^T = k q^T or dP^T = v dO^T, D / 16 k-steps
+  auto issue_t = [&](int j) {
+    const uint32_t b_lo =
+        lm::desc_lo((c == 0 ? qs : dos) + j % S * T::kTileBytes, 16);
+    static_for<KS>([&](auto step) {
+      constexpr int kk = decltype(step)::value;
+      constexpr int o16 = kstep_offset<D, kk>();
+      lm::wgmma_m64n64k16_ss<o16, o16>(sc, a_lo, b_lo, hi, kk > 0);
+    });
+    lm::wgmma_commit();
+  };
+  // dV += P^T dO or dK += dS^T q, 4 k-steps of 16 queries
+  auto issue_acc = [&](int j) {
+    const uint32_t b_lo = lm::desc_lo(
+        (c == 0 ? dos : qs) + j % S * T::kTileBytes, T::kBoxBytes);
+    static_for<4>([&](auto step) {
+      constexpr int kk = decltype(step)::value;
+      if constexpr (D == 256)
+        lm::wgmma_m64n256k16_rs_tb<kk * 2048 / 16>(acc, pa[kk], b_lo, hi);
+      else
+        lm::wgmma_m64n192k16_rs_tb<kk * 2048 / 16>(acc, pa[kk], b_lo, hi);
+    });
+    lm::wgmma_commit();
+  };
+
+  if (n_tiles > 0) {
+    lm::mbar_wait(kv_full, 0);
+    if (c == 1) lm::bar_arrive(kPEmpty, 256);  // P^T's buffer starts free
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    lm::mbar_wait(full + 8 * (j % S), (j / S) & 1);
+    lm::fence_regs(sc);
+    lm::wgmma_fence();
+    issue_t(j);
+    // this tile's queries' lse log2 e, D, upper and lower key limits: a
+    // thread's are queries 8 n + 2 t and 8 n + 2 t + 1, pair 4 n + t
+    const float2* cv =
+        reinterpret_cast<const float2*>(C_s + (j % S) * 4 * kRows);
+    lm::wgmma_wait<0>();
+    lm::fence_regs(sc);
+    if (c == 0) {
+      const int2* lim = reinterpret_cast<const int2*>(cv + kRows);
+      const int2* lo = reinterpret_cast<const int2*>(cv + 3 * kRows / 2);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 ls = cv[4 * n + t4];
+        const int2 up = lim[4 * n + t4], dn = lo[4 * n + t4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float l2 = e ? ls.y : ls.x;
+          const int u = e ? up.y : up.x, w = e ? dn.y : dn.x;
+          const float p_lo = ex2(fmaf(sc[4 * n + e], scale_log2, -l2));
+          const float p_hi = ex2(fmaf(sc[4 * n + 2 + e], scale_log2, -l2));
+          sc[4 * n + e] = key < u && key >= w ? p_lo : 0.f;
+          sc[4 * n + 2 + e] = key + 8 < u && key + 8 >= w ? p_hi : 0.f;
+        }
+      }
+      lm::bar_sync(kPEmpty, 256);  // warpgroup 1 has read tile j - 1's
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        P_s[n * 128 + tw] = make_float4(sc[4 * n], sc[4 * n + 1],
+                                        sc[4 * n + 2], sc[4 * n + 3]);
+      lm::bar_arrive(kPFull, 256);
+    } else {
+      lm::bar_sync(kPFull, 256);
+      float4 p[8];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) p[n] = P_s[n * 128 + tw];
+      if (j + 1 < n_tiles) lm::bar_arrive(kPEmpty, 256);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 dd = cv[kRows / 2 + 4 * n + t4];
+        sc[4 * n] = p[n].x * (sc[4 * n] - dd.x);
+        sc[4 * n + 1] = p[n].y * (sc[4 * n + 1] - dd.y);
+        sc[4 * n + 2] = p[n].z * (sc[4 * n + 2] - dd.x);
+        sc[4 * n + 3] = p[n].w * (sc[4 * n + 3] - dd.y);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // k16 step kk: n8 tiles 2 kk, 2 kk + 1
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        pa[kk][h] = lm::pack_bf16x2(sc[8 * kk + 2 * h], sc[8 * kk + 2 * h + 1]);
+    lm::fence_regs(acc);
+    lm::fence_regs(pa);
+    lm::wgmma_fence();
+    issue_acc(j);
+    lm::wgmma_wait<0>();
+    lm::fence_regs(acc);
+    lm::fence_regs(pa);
+    release(j);
+  }
+
+  bf16* out = (c == 0 ? dv : dk) + row0 * Dr;
+  const float mul = c == 0 ? 1.f : scale;
+#pragma unroll
+  for (int n = 0; n < NO / 4; ++n) {
+    const int d = 8 * n + 2 * t4;  // Dr % 8 == 0: the pair is whole
+    if (d >= Dr) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = key + 8 * h;
+      if (r < L)
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r) * Dr + d) =
+            lm::pack_bf16x2(acc[4 * n + 2 * h] * mul,
+                            acc[4 * n + 2 * h + 1] * mul);
+    }
+  }
+}
+
+// Dr: the row width of q, k, v, o, dO and the gradients, a multiple of 8
+// (TMA's 16-byte row strides) and at most D; the wrapper zero-pads a head
+// dim to it
+template <int D>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     void* dq, void* dk, void* dv, float* dsum, int bh, int L,
+                     int Dr, int causal, int tq, int tk, int window,
+                     float scale, cudaStream_t stream) {
+  const void* bases[] = {q, k, v, o, dout, dsum};  // TMA's, 16-byte loads'
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (Dr % 8 || Dr > D || bh > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!make_head_map(&map_q, q, Dr, L, bh, kRows) ||
+      !make_head_map(&map_k, k, Dr, L, bh, kKeys) ||
+      !make_head_map(&map_v, v, Dr, L, bh, kKeys) ||
+      !make_head_map(&map_do, dout, Dr, L, bh, kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using T = BwdTiles<D>;
+  cudaError_t e = lm::allow_smem(flash_bwd_dq_wgmma<D>, T::kDqSmem);
+  if (e == cudaSuccess)
+    e = lm::allow_smem(flash_bwd_dkdv_wgmma<D>, T::kKvSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((L + kRows - 1) / kRows, bh);  // heads outermost
+  const float scale_log2 = scale * kLog2e;
+  flash_bwd_dq_wgmma<D><<<grid, kWgThreads, T::kDqSmem, stream>>>(
+      map_q, map_k, map_v, map_do, static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), dsum, L,
+      Dr, causal, tq, tk, window, scale_log2, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkdv_wgmma<D><<<grid, kWgThreads, T::kKvSmem, stream>>>(
+      map_q, map_k, map_v, map_do, dsum, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), L, Dr, causal, tq, tk, window, scale_log2,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1844,6 +2448,9 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
 #define BWD_MMA(DK)                                                         \
   return launch_bwd_mma<DK>(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, L, \
                             D, causal, tq, tk, window, scale, s)
+#define BWD_WGMMA(DW)                                                        \
+  return launch_bwd_wgmma<DW>(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, \
+                              L, D, causal, tq, tk, window, scale, s)
   switch ((D + 15) / 16) {
     case 1: BWD_MMA(1);
     case 2: BWD_MMA(2);
@@ -1853,10 +2460,11 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
     case 6: BWD_MMA(6);
     case 7: BWD_MMA(7);
     case 8: BWD_MMA(8);
-    case 9: case 10: case 11: case 12: BWD_MMA(12);
-    default: BWD_MMA(16);
+    case 9: case 10: case 11: case 12: BWD_WGMMA(192);
+    default: BWD_WGMMA(256);
   }
 #undef BWD_MMA
+#undef BWD_WGMMA
 }
 
 // a window needs causal attention and tq == tk: the reference defines
@@ -1891,8 +2499,11 @@ extern "C" int flash_attention_launch(int is_bf16, const void* q,
 
 // The backward of flash_attention_launch at output o, its gradient dout
 // and the forward's lse (all as there): dq, dk, dv (bh, L, D) in the
-// inputs' type; dsum (bh, L) float32 scratch (D = rowsum(dO o)). Two
-// kernels, dq (and D) then dk and dv, on `stream`; no atomics.
+// inputs' type; dsum float32 scratch of 4 bh ceil(L / 64) 64 values,
+// 16-byte aligned (D = rowsum(dO o): (bh, L) for the mma.sync and float32
+// kernels; for the wgmma pair each head's lse log2 e, D and key limits in
+// 64-row chunks). Two kernels, dq (and D) then dk and dv, on `stream`; no
+// atomics.
 extern "C" int flash_attention_bwd_launch(
     int is_bf16, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, void* dq, void* dk, void* dv,

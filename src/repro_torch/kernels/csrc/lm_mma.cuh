@@ -1,12 +1,13 @@
 // PTX wrappers for the LM kernels' tensor-core paths on Hopper (sm_90a):
 // cp.async with commit and wait, ldmatrix (plain and .trans), mma.sync
 // m16n8k16 bfloat16 -> float32, and Hopper's mbarrier, TMA tile loads
-// (2-D and 3-D, and the host's tensor-map encoder), register
+// (2-D and 3-D, and the host's tensor-map encoder), 1-D bulk copies, register
 // reallocation and wgmma: m64n256k16 with both operands in shared memory
-// (bitplane_matmul.cu's GEMM), m64n64k16 likewise, and m64n192k16 and
-// m64n256k16 with A from registers (flash_attention.cu's wide forward,
-// flash_fwd_wgmma). The other bfloat16 kernels of flash_attention.cu and
-// ssd_scan.cu use the first group.
+// (bitplane_matmul.cu's GEMM), m64n64k16 and m64n32k16 likewise, and
+// m64n192k16 and m64n256k16 with A from registers (flash_attention.cu's
+// wide forward and backward, flash_fwd_wgmma and flash_bwd_*_wgmma). The
+// other bfloat16 kernels of flash_attention.cu and ssd_scan.cu use the
+// first group.
 //
 // Fragment layouts (lane = 4 g + t): an m16n8k16 A fragment holds
 // A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; a B
@@ -160,6 +161,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global to shared memory in one bulk
+// copy, both addresses 16-byte aligned; completes on `bar` like a tile
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled (host), looked up through the CUDA runtime, so a
 // library needs no -lcuda; null where the driver lacks it
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
@@ -302,9 +314,10 @@ __device__ __forceinline__ void wgmma_m64n256k16_tb(float (&d)[128],
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// The products of flash_fwd_wgmma, each descriptor given as its low word
-// (start address, LBO) plus an immediate offset in 16-byte units (a
-// k-step within its tile) and the high word both share (SBO, swizzle):
+// The products of flash_fwd_wgmma and flash_bwd_*_wgmma, each
+// descriptor given as its low word (start address, LBO) plus an
+// immediate offset in 16-byte units (a k-step within its tile) and the
+// high word both share (SBO, swizzle):
 // a k-step's descriptor then takes no register of its own, which a
 // kernel that keeps S, P and a 64 x 256 accumulator in registers needs.
 
@@ -344,10 +357,41 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       : "r"(a_lo), "r"(b_lo), "r"(hi), "n"(OA), "n"(OB), "r"(accumulate));
 }
 
+// The same at N = 32 (16 float32 a thread): half of a 64-key tile, S =
+// q k^T and dP = dO v^T of flash_bwd_dq_wgmma's warpgroups.
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
+                                                   uint32_t a_lo,
+                                                   uint32_t b_lo,
+                                                   uint32_t hi,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b32 al, bl;\n"
+      ".reg .b64 da, db;\n"
+      "add.s32 al, %16, %19;\n"
+      "add.s32 bl, %17, %20;\n"
+      "mov.b64 da, {al, %18};\n"
+      "mov.b64 db, {bl, %18};\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "da, db, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a_lo), "r"(b_lo), "r"(hi), "n"(OA), "n"(OB), "r"(accumulate));
+}
+
 // d (64 x N float32 over the warpgroup) += A (64 x 16) * B (16 x N), A
 // from registers (the m16n8k16 A fragment of each warp's 16 rows), B
 // N-major in shared memory (transposed B, as bitplane_gemm's W_q tile):
-// N 192 and 256, P v with v's rows of D values.
+// N 192 and 256, P v with v's rows of D values (and the backward's P^T
+// dO, dS^T q and dS k).
 template <int OB>
 __device__ __forceinline__ void wgmma_m64n192k16_rs_tb(float (&d)[96],
                                                      const uint32_t (&a)[4],

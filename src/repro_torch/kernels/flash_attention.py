@@ -40,7 +40,18 @@ D_i = rowsum(dO o), dV = P^T dO, dS = P (dO v^T - D), dQ = scale dS k,
 dK = scale dS^T q, with float32 sums, the outputs in q's type. For
 bfloat16 the two backward kernels multiply on the tensor cores and round
 P to bfloat16 for P^T dO and dS for dS k and dS^T q: the two roundings
-the plain version lacks (within a bfloat16 step each).
+the plain version lacks (within a bfloat16 step each). Head dims up to
+128 run `flash_bwd_dq_mma` then `flash_bwd_dkdv_mma` (`mma.sync`); above
+128, `flash_bwd_dq_wgmma` then `flash_bwd_dkdv_wgmma` (`wgmma` and TMA,
+two warpgroups a block: the dQ pass's split a 64-key tile's keys, the
+dK/dV pass's split by role, one forming P^T and dV, the other dS^T and
+dK from the P^T it hands over; operations bound both, and each
+warpgroup's chain of products and the elementwise work between them
+holds them under it; the source's header has the design). They take the forward's contract: the wrapper
+hands them `wgmma_operand` of q, k, v, o and dO, launches at the true
+D's scale and slices dq, dk and dv back (exact: zero columns get zero
+gradients). No gradient falls back to another kernel or to the plain
+version: a failed launch raises.
 `FlashAttention` is the autograd Function: on the card the forward
 kernel then the backward kernel, on the CPU the plain forward then
 `flash_attention_bwd_plain`, so the CPU tests run the formula the
@@ -55,7 +66,9 @@ autograd records and an input needs a gradient, so serving launches the
 forward as before. Counts on `flash_attention`: `.launches` and
 `.plain_calls` (forward), `.bwd_launches` and `.bwd_plain_calls`;
 `.wgmma_launches` counts the forward launches that ran
-`flash_fwd_wgmma` (also in `.launches`); `reset_counts()` zeroes them.
+`flash_fwd_wgmma` (also in `.launches`), `.bwd_wgmma_launches` the
+backward launches that ran the wgmma pair (also in `.bwd_launches`);
+`reset_counts()` zeroes them.
 """
 from __future__ import annotations
 
@@ -69,18 +82,19 @@ from repro_torch.kernels.iss_stepper import _check, _on_cpu, _raise_on
 NEG_INF = -1e30
 F32 = torch.float32
 _DTYPES = (torch.float32, torch.bfloat16)
-# bfloat16 head dims above this run the forward kernel flash_fwd_wgmma
+# bfloat16 head dims above this run flash_fwd_wgmma and, backward,
+# flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma
 WGMMA_ABOVE = 128
 
 
 def wgmma_width(d: int) -> int:
-    """The row width flash_fwd_wgmma reads head dim d at: d rounded up to
-    a multiple of 8, since TMA takes 16-byte row strides."""
+    """The row width the wgmma kernels read head dim d at: d rounded up
+    to a multiple of 8, since TMA takes 16-byte row strides."""
     return -(-d // 8) * 8
 
 
 def wgmma_operand(t: torch.Tensor) -> torch.Tensor:
-    """t (BH, L, d) as flash_fwd_wgmma takes it: zero columns up to
+    """t (BH, L, d) as the wgmma kernels take it: zero columns up to
     `wgmma_width(d)`, and a fresh copy where its data is not 16-byte
     aligned (TMA's base addresses); else t itself."""
     d8 = wgmma_width(t.shape[-1])
@@ -253,17 +267,27 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check(name, t, dev, q.dtype, (bh, l, d))
     _check("lse", lse, dev, F32, (bh, l))
+    wgmma = q.dtype == torch.bfloat16 and d > WGMMA_ABOVE
+    if wgmma:   # the kernels' input contract, at the true D's scale
+        q, k, v, o, do = (wgmma_operand(t) for t in (q, k, v, o, do))
+    dr = q.shape[-1]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dsum = torch.empty((bh, l), dtype=F32, device=dev)     # D, scratch
+    # D = rowsum(dO o), scratch: (BH, L), or for the wgmma pair each
+    # head's lse log2 e, D and key limits in 64-row chunks, (BH, 4, L
+    # rounded up to 64)
+    dsum = torch.empty(4 * bh * -(-l // 64) * 64, dtype=F32, device=dev)
     fn = getattr(_build.load("flash_attention"), "flash_attention_bwd_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
-                bh, l, d, int(causal), tq, tk, window, d ** -0.5, stream)
+                bh, l, dr, int(causal), tq, tk, window, d ** -0.5, stream)
     _raise_on(rc, "flash_attention_bwd launch")
     flash_attention.bwd_launches += 1
+    flash_attention.bwd_wgmma_launches += wgmma
+    if dr != d:
+        return tuple(x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -308,6 +332,7 @@ def reset_counts() -> None:
     flash_attention.wgmma_launches = 0
     flash_attention.plain_calls = 0
     flash_attention.bwd_launches = 0
+    flash_attention.bwd_wgmma_launches = 0
     flash_attention.bwd_plain_calls = 0
 
 

@@ -1,8 +1,11 @@
-"""A rounding model of the bfloat16 flash forward kernel for head dims
-above 128 (`flash_fwd_wgmma` in csrc/flash_attention.cu), in eager torch
-on any device, with no JAX: `tests/test_torch_flash_wgmma.py` holds it
-to the plain version and to the reference on the CPU,
-`tests/test_torch_gpu.py` holds the kernel to it on the card.
+"""Rounding models of the bfloat16 flash kernels for head dims above 128
+(csrc/flash_attention.cu): the forward `flash_fwd_wgmma`
+(`flash_wgmma_emulation`) and the backward pair `flash_bwd_dq_wgmma`,
+`flash_bwd_dkdv_wgmma` (`flash_bwd_wgmma_emulation`), in eager torch on
+any device, with no JAX: `tests/test_torch_flash_wgmma.py` and
+`tests/test_torch_flash_bwd_wgmma.py` hold them to the plain versions
+and to the reference on the CPU, `tests/test_torch_gpu.py` and
+`chip_smoke.py` hold the kernels to them on the card.
 """
 from __future__ import annotations
 
@@ -80,3 +83,86 @@ def flash_wgmma_emulation(q, k, v, *, causal=True, tq=128, tk=128,
             lse[:, sl] = ((m * sl2 + torch.log2(den)) * math.log(2))[..., 0]
     out = out[..., :d]
     return (out, lse) if return_lse else out
+
+
+def _query_tiles(k0, l, causal, tq, tk, window):
+    """The 64-query tiles the dK/dV pass walks for keys k0.. k0 + 63:
+    from the first whose last row's upper key limit passes k0 to the
+    last whose first row's lower limit is below k0 + 64."""
+    n_qt = -(-l // KEYS)
+    first = 0
+    while first < n_qt and key_limit(min((first + 1) * KEYS, l) - 1, l,
+                                     causal, tq, tk) <= k0:
+        first += 1
+    last = n_qt - 1
+    while last >= first and key_lower(last * KEYS, window, tq,
+                                      tk) >= k0 + KEYS:
+        last -= 1
+    return range(first, last + 1)
+
+
+def flash_bwd_wgmma_emulation(q, k, v, o, do, lse, *, causal=True, tq=128,
+                              tk=128, window=0):
+    """dq, dk, dv as the kernels compute them: q, k, v, o and dO
+    zero-padded to a multiple of 8 columns by `wgmma_operand`, the scale
+    the true D's; D = rowsum(dO o) in float32. The dQ pass: blocks of 64
+    query rows walking 64-key tiles from the one holding the first row's
+    lower key limit to the last row's upper one, each tile in two halves
+    of 32 keys (the warpgroups), each half with its own float32 sum: S =
+    q k^T of the bfloat16 values, P = exp2(S scale log2 e - lse log2 e)
+    in float32, 0 outside each row's limits, dS = P (dP - D) rounded to
+    bfloat16 for dS k; dq = scale (sum_0 + sum_1). The dK/dV pass: blocks
+    of 64 keys walking exactly their query tiles; P^T in float32 (the one
+    warpgroup 0 hands to warpgroup 1), rounded to bfloat16 for dV += P^T
+    dO, and dS^T = P^T (dP^T - D) from it, rounded for dK += dS^T q; dk =
+    scale dK. Outputs in q's type, sliced back to D."""
+    bh, l, d = q.shape
+    dev = q.device
+    scale = d ** -0.5
+    sl2 = scale * LOG2E
+    qf, kf, vf, of, dof = (pfa.wgmma_operand(t).to(F32)
+                           for t in (q, k, v, o, do))
+    dsum = (dof * of).sum(-1)
+    ls = lse.to(F32) * LOG2E
+    lim = torch.tensor([key_limit(r, l, causal, tq, tk) for r in range(l)],
+                       device=dev)
+    lo = torch.tensor([key_lower(r, window, tq, tk) for r in range(l)],
+                      device=dev)
+    kpos = torch.arange(l, device=dev)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(qf)
+    dv = torch.zeros_like(qf)
+
+    def p_of(s, rows, keys):
+        """P of the (rows x keys) scores s, masked."""
+        p = torch.exp2(s * sl2 - ls[:, rows, None])
+        keep = ((kpos[None, keys] < lim[rows, None])
+                & (kpos[None, keys] >= lo[rows, None]))
+        return torch.where(keep, p, torch.zeros((), device=dev))
+
+    for q0 in range(0, l, KEYS):
+        rows = slice(q0, min(q0 + KEYS, l))
+        kend = key_limit(rows.stop - 1, l, causal, tq, tk)
+        sums = [torch.zeros_like(qf[:, rows]) for _ in range(2)]
+        for k0 in range(key_lower(q0, window, tq, tk) // KEYS * KEYS, kend,
+                        KEYS):
+            for c in range(2):
+                keys = slice(min(k0 + 32 * c, l), min(k0 + 32 * c + 32, l))
+                s = qf[:, rows] @ kf[:, keys].transpose(1, 2)
+                ds = p_of(s, rows, keys) * (
+                    dof[:, rows] @ vf[:, keys].transpose(1, 2)
+                    - dsum[:, rows, None])
+                sums[c] += ds.to(BF16).to(F32) @ kf[:, keys]
+        dq[:, rows] = (sums[0] + sums[1]) * scale
+    for k0 in range(0, l, KEYS):
+        keys = slice(k0, min(k0 + KEYS, l))
+        for t in _query_tiles(k0, l, causal, tq, tk, window):
+            rows = slice(t * KEYS, min((t + 1) * KEYS, l))
+            st = kf[:, keys] @ qf[:, rows].transpose(1, 2)
+            pt = p_of(st.transpose(1, 2), rows, keys).transpose(1, 2)
+            dst = pt * (vf[:, keys] @ dof[:, rows].transpose(1, 2)
+                        - dsum[:, None, rows])
+            dv[:, keys] += pt.to(BF16).to(F32) @ dof[:, rows]
+            dk[:, keys] += dst.to(BF16).to(F32) @ qf[:, rows]
+    dk = dk * scale
+    return tuple(x[..., :d].to(q.dtype) for x in (dq, dk, dv))

@@ -310,7 +310,8 @@ def test_bf16_kernel_rounding_within_the_card_tolerance(shape, causal):
 
 # (BH, L, D, tile, window): Gemma3's head dim, 256, with and without a
 # window, windows that are and are not multiples of 64 and of the tile;
-# and the D 192 build
+# and D 192 (the two roundings at wide heads; the kernels that run there,
+# the wgmma pair, have their own model in test_torch_flash_bwd_wgmma.py)
 WIDE_BF16_SHAPES = [(2, 256, 256, 128, 0), (2, 256, 256, 128, 100),
                     (2, 256, 256, 64, 64), (1, 256, 192, 32, 50)]
 

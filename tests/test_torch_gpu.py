@@ -1363,3 +1363,82 @@ def test_flash_wgmma_takes_a_misaligned_q(cuda):
     torch.cuda.synchronize()
     assert (pfa.flash_attention.launches,
             pfa.flash_attention.wgmma_launches) == (3, 1)
+
+
+# (BH, L, D, tq, tk, causal, window) of the bfloat16 backward past D 128
+# (`flash_bwd_dq_wgmma` then `flash_bwd_dkdv_wgmma`): the CPU design
+# tests' cases (D 256, 192 and the padded 250 and 136; causal with tq !=
+# tk both ways; a window of 100 at tile 64; non-causal; ragged L 200 and
+# 320, and L 13, less than one 64-row tile)
+_BWD_WGMMA_CASES = [(2, 256, 256, 64, 64, True, 0),
+                    (2, 256, 192, 128, 128, True, 0),
+                    (3, 320, 250, 64, 64, True, 0),
+                    (2, 256, 192, 64, 128, True, 0),
+                    (2, 256, 256, 128, 64, True, 0),
+                    (2, 320, 256, 64, 64, True, 100),
+                    (2, 256, 192, 64, 64, True, 100),
+                    (1, 320, 136, 64, 64, True, 100),
+                    (2, 200, 256, 200, 200, False, 0),
+                    (3, 128, 136, 64, 64, False, 0),
+                    (2, 200, 192, 40, 40, True, 0),
+                    (2, 13, 200, 13, 13, True, 0)]
+
+
+@pytest.mark.parametrize("case", _BWD_WGMMA_CASES, ids=_wide_id)
+def test_flash_bwd_wgmma_matches_plain_and_its_model(cuda, case):
+    """The wide backward, given the forward kernel's output and
+    log-sum-exp: every gradient within the bfloat16 tolerance of the
+    plain backward and of its rounding model (`_torch_flash_wgmma`); two
+    launches the same bits, each counted as a wgmma backward launch, no
+    plain call."""
+    from _torch_flash_wgmma import flash_bwd_wgmma_emulation
+    from repro_torch.kernels import flash_attention as pfa
+    bh, l, d, tq, tk, causal, w = case
+    g = torch.Generator(device=cuda).manual_seed(l + d + w + tq + 31)
+    q, k, v, do = (_rand(g, (bh, l, d), torch.bfloat16, cuda)
+                   for _ in range(4))
+    o, lse = pfa._forward(q, k, v, causal, tq, tk, w, q.device, True)
+    pfa.reset_counts()
+    got, again = (pfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                          tq=tq, tk=tk, window=w, device=cuda)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    assert (pfa.flash_attention.bwd_launches,
+            pfa.flash_attention.bwd_wgmma_launches,
+            pfa.flash_attention.bwd_plain_calls) == (2, 2, 0)
+    want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         tq=tq, tk=tk, window=w)
+    model = flash_bwd_wgmma_emulation(q, k, v, o, do, lse, causal=causal,
+                                      tq=tq, tk=tk, window=w)
+    for a, b, p, m in zip(got, again, want, model):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape
+        assert torch.equal(a, b)
+        _lm_close(a, p, torch.bfloat16)
+        _lm_close(a, m, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [256, 200])
+def test_flash_backward_through_autograd_reaches_the_wgmma_pair(cuda, d):
+    """`.backward()` through `flash_attention` at D 256 (and 200, padded
+    to 200 and read at the 256 build's width): one wgmma forward and one
+    wgmma backward launch, no plain call, the gradients within the
+    bfloat16 tolerance of the plain backward."""
+    from repro_torch.kernels import flash_attention as pfa
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = [_rand(g, (2, 256, d), torch.bfloat16, cuda).requires_grad_()
+         for _ in range(3)]
+    do = _rand(g, (2, 256, d), torch.bfloat16, cuda)
+    pfa.reset_counts()
+    out = pfa.flash_attention(*x, tq=64, tk=64, device=cuda)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (pfa.flash_attention.launches, pfa.flash_attention.wgmma_launches,
+            pfa.flash_attention.bwd_launches,
+            pfa.flash_attention.bwd_wgmma_launches,
+            pfa.flash_attention.plain_calls,
+            pfa.flash_attention.bwd_plain_calls) == (1, 1, 1, 1, 0, 0)
+    q, k, v = (t.detach() for t in x)
+    o, lse = pfa._forward(q, k, v, True, 64, 64, 0, q.device, True)
+    want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, tq=64, tk=64)
+    for t, w in zip(x, want):
+        _lm_close(t.grad, w, torch.bfloat16)
