@@ -73,10 +73,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    device time per launch, and the DMR boundary's digest, snapshot and
    rollback timed at full shape;
 13. LM kernels: the count of tensor-core instructions (HMMA, HGMMA) in
-   each LM kernel's SASS where the toolkit has `cuobjdump` (the
-   bfloat16 flash kernel, its two bfloat16 backward kernels, the
-   bfloat16 scan kernel and its backward `ssd_bwd_mma`, and the bit
-   planes' GEMM must have some);
+   each LM kernel's SASS where the toolkit has `cuobjdump` (the narrow
+   bfloat16 flash backward's two kernels, the bfloat16 scan kernel and
+   its backward `ssd_bwd_mma`, and the bit planes' GEMM must have some;
+   the bfloat16 forward's four `flash_fwd_wgmma` builds and the wide
+   backward's two kernels' two builds HGMMA and no HMMA);
    `flash_attention`, `ssd_scan` and `bitplane_matmul` against their
    plain versions in float32 and bfloat16 on small and ragged shapes (L
    11 and 200 causal and full with equal and unequal tiles, D 40
@@ -102,10 +103,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    `flash_attention` launches per prefill and no plain call; prefill
    and decode rates and peak memory; the kernels against their plain
    versions on the tensors this prefill feeds the first Mamba layer and
-   the first shared block, and the scan timed on the first Mamba layer's
-   own tensors; that block's FFN input through `quantized_linear` at 4
-   and 8 bits (the bit-plane kernel's path); and the serve once more
-   under torch.profiler;
+   the first shared block, the scan timed on the first Mamba layer's
+   own tensors and the attention (`flash_fwd_wgmma`) on the first
+   shared block's beside SDPA and the bound; that block's FFN input
+   through `quantized_linear` at 4 and 8 bits (the bit-plane kernel's
+   path); and the serve once more under torch.profiler;
 16. host loop: phase 4's plan through `refill="host"` and through
    `packed=False` on the card, every per-item field and the final state
    equal to phase 4's resident run, and its MC and WQ groups the same on
@@ -244,20 +246,23 @@ Phases (each prints its own lines; any failure exits non-zero):
    kernels twice for the same bits, timed beside the plain version, the
    bound (window counted) and SDPA (causal, or a band mask on the backend
    named), the training shape's backwards also by device time; ptxas's
-   registers for the D 192 and 256 builds, no spill in any flash build;
-   before them, the bfloat16 forward past D 128 (`flash_fwd_wgmma`, its
-   own row of the `kernels` line, timed at the serve shape's causal
-   case) at 8 small cases (D 256, 192, 250 and 136 zero-padded; causal
-   with tq != tk, a window of 100 at tile 64, non-causal; ragged 128-row
-   blocks): output within `LM_TOL` of the plain version and of its
-   rounding model (`tests/_torch_flash_wgmma.py`), log-sum-exp within
-   1e-4, two launches the same bits, each counted; the backward past D
-   128 (`flash_bwd_dq_wgmma` then `flash_bwd_dkdv_wgmma`, counted as
-   `flash_bwd_wgmma`, its own row of the `kernels` line, timed at the
-   training shape's causal case beside SDPA's backward) at the same
-   cases, given the forward's log-sum-exp: within `LM_TOL` of the plain
-   backward and of its rounding model, two launches the same bits, each
-   counted; (b) Gemma3-12B at full width and depth
+   registers for the forward's four builds and the wide backward's, no
+   spill in any flash build; before them, the bfloat16 forward
+   (`flash_fwd_wgmma`, every head dim; its own row of the `kernels`
+   line, timed at the serve shape's causal case) at 20 small cases (D
+   256, 192, 250 and 136 zero-padded; D 12 padded to 16, 64, 112 and
+   128; causal with tq != tk, windows, non-causal; ragged 128-row blocks
+   and key tiles, one non-causal tile of 300): output within `LM_TOL` of
+   the plain version and of its rounding model
+   (`tests/_torch_flash_wgmma.py`), log-sum-exp within 1e-4, two
+   launches the same bits, each counted; the backward at the same cases,
+   given the forward's log-sum-exp, past D 128 `flash_bwd_dq_wgmma` then
+   `flash_bwd_dkdv_wgmma` (counted as `flash_bwd_wgmma`, its own row of
+   the `kernels` line, timed at the training shape's causal case beside
+   SDPA's backward), within `LM_TOL` of the plain backward and of its
+   rounding model, up to D 128 the `mma.sync` pair within `LM_TOL` of the
+   plain backward; two launches the same bits, each counted; (b)
+   Gemma3-12B at full width and depth
    (11,765,395,200 bfloat16 parameters from a seed) through `generate`,
    8 requests x prompt 4,096 (longer than the window), 32 tokens: 48
    `flash_attention` launches a prefill, all of them `flash_fwd_wgmma`,
@@ -370,10 +375,11 @@ scan's and to flash's, forward and backward, and `ssd_scan_bwd`'s are
 theirs alone; phase 23(b)'s prefill and (d)'s steps, phase
 24(b)-(c)'s prefills and (d)'s steps, phases 25(b)'s and 26(b)'s
 prefills and 26(c)'s steps, and phase 27(b)'s six steps, are added to
-flash's, forward and backward; `flash_fwd_wgmma`'s are those of its
-head dims among them: 23(b)'s, 23(d)'s, 24(c)'s and 24(d)'s DeepSeek-V3
-steps; `flash_bwd_wgmma`'s likewise: 23(d)'s and 24(d)'s DeepSeek-V3
-steps), the card's nvidia-smi line, and
+flash's, forward and backward; `flash_fwd_wgmma`'s are every bfloat16
+forward among them (all of phases 15's, 20(b)-(d)'s, 21(b)'s, 22(c)'s
+and 23-27's; each phase checks that its bfloat16 forwards all ran it);
+`flash_bwd_wgmma`'s are the backwards past D 128: 23(d)'s and 24(d)'s
+DeepSeek-V3 steps), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
 held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
@@ -1495,10 +1501,10 @@ def phase_main_resilient(dev, main_rep):
 LM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FLASH = ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:61")
-# the same wrapper's bfloat16 forward at head dims above 128, a kernel of
-# its own (wgmma, TMA, warp-specialised warpgroups): its launches are
-# counted apart too (`flash_attention.wgmma_launches`), and are also
-# flash's
+# the same wrapper's bfloat16 forward, every head dim (1-256), a kernel
+# of its own (wgmma, TMA, warpgroups taking turns; builds of 64, 128, 192
+# and 256 columns): its launches are counted apart too
+# (`flash_attention.wgmma_launches`), and are also flash's
 FLASH_WGMMA = ("flash_fwd_wgmma",
                "src/repro_torch/kernels/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention.py:61")
@@ -1611,12 +1617,13 @@ def sass_mma_counts(lib: str):
 
 
 def check_tensor_cores():
-    """Counts each LM kernel's tensor-core instructions; fails if the
-    bfloat16 flash kernel, either bfloat16 flash backward kernel, the
-    bfloat16 scan kernel or its backward, or the bit planes' GEMM has
-    none, or if a build of the wide forward (flash_fwd_wgmma) or of the
-    wide backward's two kernels (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma)
-    has no HGMMA or any HMMA (Ampere's mma.sync)."""
+    """Counts each LM kernel's tensor-core instructions; fails if either
+    narrow bfloat16 flash backward kernel, the bfloat16 scan kernel or
+    its backward, or the bit planes' GEMM has none, or if one of the four
+    builds of the bfloat16 forward (flash_fwd_wgmma: 64, 128, 192 and 256
+    columns) or of the two builds of each of the wide backward's kernels
+    (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma) has no HGMMA or any HMMA
+    (Ampere's mma.sync)."""
     libs = ("flash_attention", "ssd_scan", "bitplane_matmul")
     counts = {lib: sass_mma_counts(lib) for lib in libs}
     if counts[libs[0]] is None:
@@ -1626,8 +1633,7 @@ def check_tensor_cores():
     for lib, c in counts.items():
         log(f"[lm kernels] {lib} SASS: " + "; ".join(
             f"{k} {h} HMMA, {g} HGMMA" for k, (h, g) in c.items()))
-    for lib, kernel in (("flash_attention", "flash_fwd_mma"),
-                        ("flash_attention", "flash_bwd_dq_mma"),
+    for lib, kernel in (("flash_attention", "flash_bwd_dq_mma"),
                         ("flash_attention", "flash_bwd_dkdv_mma"),
                         ("ssd_scan", "ssd_fwd_mma"),
                         ("ssd_scan", "ssd_bwd_mma"),
@@ -1637,12 +1643,13 @@ def check_tensor_cores():
         if not hits or min(hits) == 0:
             raise AssertionError(f"{kernel} ({lib}) has no HMMA or HGMMA "
                                  f"instruction in its SASS: {counts[lib]}")
-    for kernel in (FLASH_WGMMA[0],) + BWD_WGMMA_KERNELS:
+    for kernel, builds in ((FLASH_WGMMA[0], 4),) + tuple(
+            (k, 2) for k in BWD_WGMMA_KERNELS):
         wg = [v for k, v in counts["flash_attention"].items()
               if k.startswith(kernel)]
-        if len(wg) != 2 or any(h or not g for h, g in wg):
-            raise AssertionError(f"{kernel}: its two builds need HGMMA and "
-                                 f"no HMMA: {wg}")
+        if len(wg) != builds or any(h or not g for h, g in wg):
+            raise AssertionError(f"{kernel}: its {builds} builds need HGMMA "
+                                 f"and no HMMA: {wg}")
 
 
 def flash_bound(q, tq, tk, causal, window=0):
@@ -1949,6 +1956,9 @@ def small_serve(dev, arch, dtype, tag):
     if counts != expected_launches(cfg) or plain:
         raise AssertionError(f"{tag} {arch} {dtype}: launches {counts}, "
                              f"{plain} plain calls on the card")
+    check_wgmma_share(f"{tag} {arch} {dtype}", cfg, {
+        FLASH[0]: counts[1],
+        FLASH_WGMMA[0]: pfa.flash_attention.wgmma_launches})
     _, lf = greedy(model, card, toks.to(dev), l + gen, 1, forced=tp_)
     for i, what in ((0, "prefill"), (1, "first decode")):
         torch.testing.assert_close(
@@ -2090,6 +2100,8 @@ def phase_main_serve(dev, rec):
         raise AssertionError(f"main serve launches {counts}, plain calls "
                              f"{plain}: expected {n_groups} flash_attention "
                              f"and {cfg.n_layers} ssd_scan per prefill")
+    counts[FLASH_WGMMA[0]] = pfa.flash_attention.wgmma_launches
+    check_wgmma_share("main serve", cfg, counts)
     if toks.shape != (SERVE_BATCH, SERVE_GEN) or not (
             (toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"main serve tokens {toks.shape}")
@@ -2145,6 +2157,14 @@ def phase_main_serve(dev, rec):
         f"{kw['tk']}) equal their "
         f"plain versions on this prefill's tensors: max |diff| "
         f"{e_ssd:.3g} and {e_fa:.3g}")
+    fa_ms = timed(lambda: pfa.flash_attention(
+        q, k, v, causal=kw["causal"], tq=kw["tq"], tk=kw["tk"], device=dev),
+        20)
+    sdpa = sdpa_call(q, k, v, kw["causal"])[0]
+    log(f"[main serve] flash_attention ({FLASH_WGMMA[0]}) on the first "
+        f"shared block's own tensors: kernel {fa_ms:.4f} ms, SDPA "
+        f"{timed(sdpa, 20):.4f} ms, bound "
+        f"{max(flash_bound(q, kw['tq'], kw['tk'], kw['causal'])):.4f} ms")
     del seen, yp, sp, op
 
     # the quantized path (ops.quantized_linear, the bit-plane kernel's
@@ -2825,6 +2845,7 @@ def run_example(name, argv):
         raise AssertionError(f"{name} {argv}: plain calls {plain}")
     launches = {k: f.launches for k, f in fns.items()}
     launches[FLASH_BWD[0]] = pfa.flash_attention.bwd_launches
+    launches[FLASH_WGMMA[0]] = pfa.flash_attention.wgmma_launches
     return out, wall, launches
 
 
@@ -3222,6 +3243,8 @@ def serve_full(dev, arch, profile):
         raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
                              f"calls; expected {expected_launches(cfg)} "
                              f"(ssd_scan, flash_attention) per prefill")
+    counts[FLASH_WGMMA[0]] = pfa.flash_attention.wgmma_launches
+    check_wgmma_share(tag, cfg, counts)
     if toks.shape != (b, gen) or not ((toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"{tag}: tokens {toks.shape}")
     n_dec = (gen - 1) * b
@@ -3296,7 +3319,7 @@ def phase_dense_ssm(dev):
     for arch, _ in FULL_SERVES:
         for dtype in SMALL_SERVE_TOL:
             small_serve(dev, arch, dtype, "dense/ssm small")
-    total = {FLASH[0]: 0, SSD[0]: 0}
+    total = {FLASH[0]: 0, FLASH_WGMMA[0]: 0, SSD[0]: 0}
     for arch, prof in FULL_SERVES:
         for k, v in serve_full(dev, arch, prof).items():
             total[k] += v
@@ -3484,13 +3507,19 @@ FLASH_FWD = (FLASH[0], FLASH_WGMMA[0])
 
 
 def wgmma_share(cfg, n):
-    """Of n flash forwards of `cfg`, those flash_fwd_wgmma runs: all
-    where its attention's head dim (MLA's q·k width) passes 128 in
-    bfloat16, else none."""
-    from repro_torch.kernels import flash_attention as pfa
-    d = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim if cfg.mla
-         else cfg.resolved_head_dim)
-    return n if cfg.dtype == "bfloat16" and d > pfa.WGMMA_ABOVE else 0
+    """Of n flash forwards of `cfg`, those flash_fwd_wgmma runs: all in
+    bfloat16 (every head dim), none in float32."""
+    return n if cfg.dtype == "bfloat16" else 0
+
+
+def check_wgmma_share(tag, cfg, counts):
+    """Every bfloat16 flash forward of `cfg` ran flash_fwd_wgmma, and no
+    float32 one: counts[FLASH_WGMMA] is wgmma_share(cfg, counts[FLASH])."""
+    want = wgmma_share(cfg, counts[FLASH[0]])
+    if counts[FLASH_WGMMA[0]] != want:
+        raise AssertionError(f"{tag}: {counts[FLASH_WGMMA[0]]} of "
+                             f"{counts[FLASH[0]]} flash forwards ran "
+                             f"{FLASH_WGMMA[0]}, expected {want}")
 
 
 def reset_lm_counts():
@@ -3543,6 +3572,7 @@ def train_full(dev, cfg, steps, per_step, n_params=None, what="",
         raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
                              f"calls; expected {want} (forwards with their "
                              f"remat recompute, backwards)")
+    check_wgmma_share(tag, cfg, counts)
     step_s = float(np.median(out["dts"][1:]))
     tokens = batch * seq
     flops = 6.0 * n * tokens
@@ -3967,10 +3997,11 @@ GEMMA_FULL_TILE = 32
 
 
 def wide_flash_registers():
-    """ptxas's report for the flash kernels' D 192 and 256 builds (the
-    forward's flash_fwd_wgmma<192>, <256>, the backward's
-    flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma likewise; the float32
-    backward, one build for every D), one entry each; raises
+    """ptxas's report for the bfloat16 forward's four builds
+    (flash_fwd_wgmma at 64, 128, 192 and 256 columns), the wide
+    backward's (flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma at 192 and
+    256) and the float32 backward's (one build for every D), one entry
+    each; raises
     if any flash kernel, of any head dim, spills. Empty where this
     process found the library built."""
     from repro_torch.kernels import _build
@@ -3988,11 +4019,20 @@ def wide_flash_registers():
 # 23(a): flash_fwd_wgmma's small cases (BH, L, D, tq, tk, causal,
 # window): D 256, 192 and the padded 250 and 136; causal with tq != tk
 # both ways; a window of 100 at tile 64 (a multiple of neither);
-# non-causal; L 320 and 200 leave a ragged last 128-row block
+# non-causal; L 320 and 200 leave a ragged last 128-row block. The narrow
+# builds: D 12 (padded to 16, read at the 64 build's width), 64, 112 and
+# 128, causal and non-causal; one ragged non-causal tile of 300 like
+# Whisper's encoder's; tq != tk both ways at L 200; a window
 WGMMA_CASES = [(2, 256, 256, 64, 64, True, 0), (2, 256, 192, 64, 128, True, 0),
                (2, 384, 192, 128, 64, True, 0), (2, 320, 250, 64, 64, True, 100),
                (2, 256, 192, 64, 64, True, 100), (3, 320, 136, 64, 64, True, 0),
-               (2, 200, 256, 200, 200, False, 0), (4, 128, 192, 64, 64, False, 0)]
+               (2, 200, 256, 200, 200, False, 0), (4, 128, 192, 64, 64, False, 0),
+               (2, 256, 12, 64, 64, True, 0), (2, 200, 12, 100, 100, False, 0),
+               (2, 320, 64, 64, 64, True, 0), (2, 256, 64, 128, 128, False, 0),
+               (2, 256, 112, 128, 128, True, 0), (2, 200, 112, 200, 200, False, 0),
+               (2, 384, 128, 128, 128, True, 0), (3, 256, 128, 64, 64, False, 0),
+               (2, 300, 64, 300, 300, False, 0), (2, 200, 64, 50, 100, True, 0),
+               (2, 200, 64, 100, 50, True, 0), (2, 320, 128, 64, 64, True, 100)]
 
 
 def wgmma_cases(dev):
@@ -4000,15 +4040,17 @@ def wgmma_cases(dev):
     plain version and of its rounding model (tests/_torch_flash_wgmma.py),
     the log-sum-exp within the float32 tolerance, one count of
     `wgmma_launches` a call, two launches the same bits; and the backward
-    kernels (flash_bwd_wgmma) given that log-sum-exp: every gradient
-    within LM_TOL of the plain backward and of its rounding model, one
-    count of `bwd_wgmma_launches` a call, two launches the same bits."""
+    given that log-sum-exp, past D 128 the wide kernels (flash_bwd_wgmma)
+    and up to it the narrow `mma.sync` pair: every gradient within LM_TOL
+    of the plain backward (and, for the wide kernels, of their rounding
+    model), one count of `bwd_launches` a call (of `bwd_wgmma_launches`
+    past D 128), two launches the same bits."""
     import torch
     from _torch_flash_wgmma import (flash_bwd_wgmma_emulation,
                                     flash_wgmma_emulation)
     from repro_torch.kernels import flash_attention as pfa
     g = torch.Generator(device=dev).manual_seed(30)
-    worst = [0.0] * 5
+    worst = [0.0] * 6
     for bh, l, d, tq, tk, causal, w in WGMMA_CASES:
         what = (f"{FLASH_WGMMA[0]} BH {bh} x L {l} x D {d}, tq {tq}, tk "
                 f"{tk}, {'causal' if causal else 'non-causal'}, window {w}")
@@ -4031,45 +4073,54 @@ def wgmma_cases(dev):
                     q, k, v, causal=causal, tq=tq, tk=tk, window=w),
                     f"{what} against its rounding model"),
                 lm_err(lse, plse, f"{what} log-sum-exp", LM_TOL["float32"])]
-        bwd = (f"{FLASH_BWD_WGMMA[0]} BH {bh} x L {l} x D {d}, tq {tq}, tk "
-               f"{tk}, {'causal' if causal else 'non-causal'}, window {w}")
+        wide = d > pfa.BWD_WGMMA_ABOVE
+        bwd = (f"{FLASH_BWD_WGMMA[0] if wide else FLASH_BWD[0]} BH {bh} x L "
+               f"{l} x D {d}, tq {tq}, tk {tk}, "
+               f"{'causal' if causal else 'non-causal'}, window {w}")
         got, again = (pfa.flash_attention_bwd(
             q, k, v, o, do, lse, causal=causal, tq=tq, tk=tk, window=w,
             device=dev) for _ in range(2))
         torch.cuda.synchronize()
         if (pfa.flash_attention.bwd_launches,
                 pfa.flash_attention.bwd_wgmma_launches,
-                pfa.flash_attention.bwd_plain_calls) != (2, 2, 0):
+                pfa.flash_attention.bwd_plain_calls) != (2, 2 * wide, 0):
             raise AssertionError(f"{bwd}: launches counted "
                                  f"{pfa.flash_attention.bwd_launches}, of "
                                  f"them wgmma "
                                  f"{pfa.flash_attention.bwd_wgmma_launches}"
-                                 f"; expected 2 and 2, no plain call")
+                                 f"; expected 2 and {2 * wide}, no plain "
+                                 f"call")
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{bwd}: two launches differ")
         want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse,
                                              causal=causal, tq=tq, tk=tk,
                                              window=w)
-        model = flash_bwd_wgmma_emulation(q, k, v, o, do, lse,
-                                          causal=causal, tq=tq, tk=tk,
-                                          window=w)
-        errs.append(max(lm_err(a, b, f"{bwd}: d{n} against plain, given "
-                                     f"the forward's lse")
-                        for n, a, b in zip("qkv", got, want)))
-        errs.append(max(lm_err(a, b, f"{bwd}: d{n} against its rounding "
-                                     f"model")
-                        for n, a, b in zip("qkv", got, model)))
+        err = max(lm_err(a, b, f"{bwd}: d{n} against plain, given the "
+                               f"forward's lse")
+                  for n, a, b in zip("qkv", got, want))
+        if wide:
+            model = flash_bwd_wgmma_emulation(q, k, v, o, do, lse,
+                                              causal=causal, tq=tq, tk=tk,
+                                              window=w)
+            errs += [err, 0.0, max(
+                lm_err(a, b, f"{bwd}: d{n} against its rounding model")
+                for n, a, b in zip("qkv", got, model))]
+        else:
+            errs += [0.0, err, 0.0]
         worst = [max(a, b) for a, b in zip(worst, errs)]
+    n_wide = sum(c[2] > 128 for c in WGMMA_CASES)
     log(f"[gemma3 kernels] {FLASH_WGMMA[0]} at {len(WGMMA_CASES)} small "
-        f"cases (D 256, 192, 250 and 136 zero-padded to 256 and 136; causal "
-        f"with tq != tk, a window of 100 at tile 64, non-causal; ragged "
-        f"128-row blocks; with the log-sum-exp): max |kernel - plain| "
-        f"{worst[0]:.3g}, max |kernel - rounding model| {worst[1]:.3g}, "
-        f"log-sum-exp {worst[2]:.3g}; {FLASH_BWD_WGMMA[0]} given that lse: "
-        f"max |kernel - plain| {worst[3]:.3g}, max |kernel - rounding "
-        f"model| {worst[4]:.3g} (within {LM_TOL['bfloat16']} x max(1, "
-        f"largest |value|)); each kernel's two launches the same bits, "
-        f"each counted")
+        f"cases ({n_wide} wide: D 256, 192, 250 and 136 zero-padded to 256 "
+        f"and 136; {len(WGMMA_CASES) - n_wide} narrow: D 12 padded to 16, "
+        f"64, 112, 128; causal with tq != tk, windows, non-causal; ragged "
+        f"128-row blocks and key tiles; with the log-sum-exp): max |kernel "
+        f"- plain| {worst[0]:.3g}, max |kernel - rounding model| "
+        f"{worst[1]:.3g}, log-sum-exp {worst[2]:.3g}; given that lse, "
+        f"{FLASH_BWD_WGMMA[0]}: max |kernel - plain| {worst[3]:.3g}, max "
+        f"|kernel - rounding model| {worst[5]:.3g}; the narrow "
+        f"{FLASH_BWD[0]}: max |kernel - plain| {worst[4]:.3g} (within "
+        f"{LM_TOL['bfloat16']} x max(1, largest |value|)); each kernel's two "
+        f"launches the same bits, each counted")
 
 
 def phase_gemma_kernels(dev, rec):
@@ -4478,6 +4529,7 @@ def moe_small_serve(dev, arch, variant=""):
         raise AssertionError(f"[{tag}] launches {kc}, {pc} plain calls on "
                              f"the card; expected {cfg.n_layers} flash "
                              f"forwards")
+    check_wgmma_share(f"[{tag}]", cfg, kc)
     errs = [close_f32(a, b_, f"[{tag}] step {i} logits")
             for i, (a, b_) in enumerate(zip(lc, lp))]
     cerrs = {k: close_f32(cc[k], cp[k], f"[{tag}] cache {k}") for k in cc}
@@ -4837,7 +4889,7 @@ def phase_moe_train(dev):
     cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
     n = cfg.n_layers
     counts = train_full(dev, cfg, TRAIN_STEPS,
-                        {FLASH[0]: 2 * n, FLASH_WGMMA[0]: 0,
+                        {FLASH[0]: 2 * n, FLASH_WGMMA[0]: 2 * n,
                          FLASH_BWD[0]: n, FLASH_BWD_WGMMA[0]: 0, SSD[0]: 0,
                          SSD_BWD[0]: 0},
                         MOE_TRAIN_PARAMS,
@@ -4928,6 +4980,7 @@ def family_small_serve(dev, arch, dtype):
     if kc[FLASH[0]] != n_fl or pc or kc[FLASH_BWD[0]]:
         raise AssertionError(f"[{tag}] launches {kc}, {pc} plain calls on "
                              f"the card; expected {n_fl} flash forwards")
+    check_wgmma_share(f"[{tag}]", cfg, kc)
     pairs = [(f"step {i} logits", a, b_) for i, (a, b_) in
              enumerate(zip(lc, lp))] + [(f"cache {k}", cc[k], cp[k])
                                         for k in cc]
@@ -5115,6 +5168,7 @@ def audio_train(dev, cfg, steps):
     if {k: counts[k] for k in want} != want or plain:
         raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
                              f"calls; expected {want}")
+    check_wgmma_share(tag, cfg, counts)
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: losses {losses}")
     step_s = float(np.median(dts[1:]))
@@ -5277,6 +5331,7 @@ def phase_mesh(dev, cpu_runs):
             k: v * 2 * MESH_STEPS for k, v in per.items()} or plain_calls:
         raise AssertionError(f"[mesh] launches {counts}, {plain_calls} plain "
                              f"calls")
+    check_wgmma_share("[mesh]", cfg, counts)
     if losses != want_losses or not same_bits(list(params.parameters()),
                                               want):
         raise AssertionError(f"[mesh] data-parallel losses {losses} vs "

@@ -12,8 +12,8 @@
 // the function (with tq < tk it can drop keys below the diagonal), so
 // each query row here gets its own key limit from the same formula:
 //   klim = min(qpos + 1, clamp((qpos / tq + 1) tq / tk, 1, L / tk) tk).
-// Both instantiations walk 64-key tiles up to the largest key limit of a
-// block's 64 query rows (the causal triangle above it is never read) and
+// Every build walks 64-key tiles up to the largest key limit of its
+// block's query rows (the causal triangle above it is never read) and
 // leave masked keys out of the softmax, which gives what the TPU
 // kernel's exp(-1e30 - m) gives: every row has key 0 in its first tile.
 //
@@ -31,50 +31,37 @@
 // the first whose last row's klim passes the block's first key to the
 // last whose first row's klo is below its last.
 //
-// Head dims 1 to 256. In bfloat16, D 1-128 run flash_fwd_mma, D zero-
-// padded in the kernel to 16 DK columns (DK 1-8); D 129-256 run
-// flash_fwd_wgmma at 192 or 256 columns, whose input contract is a row
-// width Dr that is a multiple of 8 (TMA takes 16-byte row strides) and
-// 16-byte aligned bases: the wrapper zero-pads q, k and v to Dr and
-// slices o back, launching at the true D's scale D^-1/2 (exact: zero
-// columns add nothing to q k^T and give zero output columns); TMA
-// zero-fills the columns from Dr to 192 or 256. Neither path falls back
-// to the other or to the plain version: a failed build or launch raises.
+// Head dims 1 to 256. Every bfloat16 D runs flash_fwd_wgmma, at the
+// build of 64, 128, 192 or 256 columns that holds it, whose input
+// contract is a row width Dr that is a multiple of 8 (TMA takes 16-byte
+// row strides) and 16-byte aligned bases: the wrapper zero-pads q, k and
+// v to Dr and slices o back, launching at the true D's scale D^-1/2
+// (exact: zero columns add nothing to q k^T and give zero output
+// columns); TMA zero-fills the columns from Dr to the build's width, a
+// 64-column box wider than a row of Dr < 64 too (the smoke configs' D
+// 12-20). No bfloat16 forward falls back to another kernel or to the
+// plain version: a failed build or launch raises.
 //
 // What bounds it. At the main path's shapes (BH = 8 x 32 = 256, L = 512,
 // D = 112, bfloat16, causal) it must read q, k, v and write o, 117 MB,
 // or 0.035 ms at 3.35 TB/s; the causal triangle's two products are
 // 1.5e10 operations, 0.015 ms at the bfloat16 tensor-core rate. So bytes
-// bound it. Past D 128 operations do: at Gemma3-12B's serve shape (BH 8
-// x 16 = 128, L 4,096, D 256, tile 1,024) 0.49 ms for a local layer's
-// window of 1,024 (4.8e11 operations; the bytes 0.32 ms), 1.11 ms for a
-// global layer's causal triangle; at DeepSeek-V3's first MLA layer (BH
-// 8 x 128 = 1,024, L 4,096, D 192, causal) 6.67 ms (bytes 1.92).
+// bound it. At long L operations do: LLaVA-NeXT-34B's first layer (BH
+// 448, L 2,048, D 128, causal) 0.49 ms (bytes 0.28), Qwen2-MoE's (BH
+// 128, L 4,096, D 128) 0.56 ms, Whisper's encoder (BH 384, L 1,500, D
+// 64, non-causal) 0.22 ms (bytes 0.09); past D 128 at Gemma3-12B's serve
+// shape (BH 8 x 16 = 128, L 4,096, D 256, tile 1,024) 0.49 ms for a
+// local layer's window of 1,024 (4.8e11 operations; the bytes 0.32 ms),
+// 1.11 ms for a global layer's causal triangle; at DeepSeek-V3's first
+// MLA layer (BH 8 x 128 = 1,024, L 4,096, D 192, causal) 6.67 ms (bytes
+// 1.92). A second floor at D <= 128: the exponentials. The SFU's ex2
+// gives 16 results a clock an SM, about 3.9e12 a second on the card, so
+// Whisper's 8.6e8 scores take at least 0.22 ms of it (as much as its
+// products) and LLaVA's 9.4e8 0.24 ms (half its products'); only overlap
+// with the products (the other warpgroup's, and the warpgroup's own P v)
+// keeps the two floors from adding.
 //
-// bfloat16, D <= 128 (flash_fwd_mma, the main path's): FlashAttention-2
-// on the tensor cores with mma.sync m16n8k16 (lm_mma.cuh). One block of
-// 4 warps per (head, 64 query rows), 16 rows a warp, three blocks an SM
-// (61 KB of shared memory and at most 168 registers a thread each at D =
-// 112), the heaviest causal query blocks launched first. Each warp loads
-// its q rows once with ldmatrix into registers (D zero-padded to a
-// multiple of 16). K and V come in 64-key bfloat16 tiles, double-
-// buffered with cp.async (zero-filled past L), in rows padded to D + 8
-// values so ldmatrix's eight row addresses fall in distinct banks. Per
-// 32-key half of a tile: S = q k^T into float32 registers; the scale
-// (times log2 e, for exp2f) applied to the float32 S, never to bfloat16
-// q (D^-1/2 is not a power of two, so that would add a rounding the
-// plain version lacks); the mask only on tiles that cross a row's key
-// limit; the running max and denominator in registers with quad
-// shuffles, the denominator summed from float32 P; P rounded to
-// bfloat16 in registers, one k16 step of keys at a time, is the A
-// fragment of P v, and v's B fragments come from ldmatrix.trans; the
-// output stays in float32 registers until it is divided by max(l,
-// 1e-30). Rounding P to bfloat16 for P v is the only rounding the plain
-// version lacks: one bfloat16 step at most. The 32-key halves keep S and
-// P beside q's fragments under the 168-register cap of three blocks an
-// SM with no spill (one 64-key step spilled at D 96-128).
-//
-// bfloat16, D > 128 (flash_fwd_wgmma<192 | 256>): the same arithmetic on
+// bfloat16 (flash_fwd_wgmma<64 | 128 | 192 | 256>): FlashAttention on
 // Hopper's wgmma and TMA. A block owns 128 query rows of a head, two
 // warpgroups of 64; the grid walks each head's query blocks heaviest
 // first, heads outermost, so the blocks in flight share a few heads' k
@@ -82,40 +69,52 @@
 // tiles of k and v, each in 64-column boxes with the 128-byte swizzle,
 // through 3-D tensor maps (Dr, L, BH) that zero-fill past each head's L
 // (a next head's rows could hold anything; a zero v row times P = 0 is
-// 0). k and v have rings of their own, 2 slots at D 256 (64 + 2 x 64
-// KB) and 3 at D 192 (48 + 3 x 48 KB), each slot's tile completing on a
-// full mbarrier; each warpgroup's leader counts its release of a slot in
-// shared memory, and the second to release it requests the tile two (or
-// three) on: k's slot after S, v's after P v, so a load is in flight for
-// more than a tile's products. Per 64-key tile a warpgroup issues S = q
-// k^T (16 or 12 wgmma m64n64k16, q and k K-major from shared memory,
-// S float32 in 32 registers a thread) beside P v of the tile before
-// (4 wgmma m64n256k16 or m64n192k16, P's bfloat16 A fragments in
-// registers, v as transposed B, O float32 in 128 or 96 registers); the
+// 0). k and v have rings of their own, 2 slots at D <= 128 and D 256 (64
+// + 2 x 64 KB) and 3 at D 192 (48 + 3 x 48 KB), each slot's tile
+// completing on a full mbarrier; each warpgroup's leader counts its
+// release of a slot in shared memory, and the second to release it
+// requests the tile two (or three) on: k's slot after S, v's after P v,
+// so a load is in flight for more than a tile's products. Per 64-key
+// tile a warpgroup issues S = q k^T (D / 16 wgmma m64n64k16, q and k
+// K-major from shared memory, S float32 in 32 registers a thread) beside
+// P v of the tile before (4 wgmma m64nDk16, P's bfloat16 A fragments in
+// registers, v as transposed B, O float32 in D / 2 registers); the
 // softmax of the tile (the mask on crossing tiles, quad shuffles, the
-// SFU's exp2 of the scaled float32 S, the denominator from float32 P,
-// maxima and sums as trees) runs while P v computes, then O takes the
-// correction and P is packed for the next product. The two warpgroups
-// take turns to issue (named barriers), so one's softmax runs under the
-// other's products. A descriptor's k-step offset is an immediate in the
-// wgmma's PTX, so descriptors take no registers; ptxas keeps the
-// warpgroups at about 215 (D 256) and 184 (D 192) registers with no
-// spill. 256 threads, not a warp-specialised
-// producer: ptxas gives a wgmma kernel's registers over whole
-// warpgroups, and a third warpgroup (or a ninth warp) held every thread
-// to 168 and spilled even under setmaxnreg 24 / 240. Both warpgroups
-// walk every tile from the one holding the block's first row's lower
-// key limit to its last row's upper one: a tile outside a row's limits
-// is masked, and skipping it per warpgroup measured no gain. What holds
-// it under its bound, largest first: the softmax between a warpgroup's
-// products, which the other warpgroup's products hide only in part;
-// the products themselves at N = 64 (S reads as many bytes of q as of k
-// from shared memory) and the turns; k and v read once per 128 rows
-// through L2, and TMA's writes beside the products' reads.
+// SFU's exp2 of the scaled float32 S, never of bfloat16 q: D^-1/2 is not
+// a power of two; the denominator from float32 P, maxima and sums as
+// trees) runs while P v computes, then O takes the correction and P is
+// packed for the next product. Rounding P to bfloat16 for P v is the
+// only rounding the plain version lacks: one bfloat16 step at most.
+// Past D 128 the two warpgroups take turns to issue (named barriers), so
+// one's softmax runs under the other's products; at D <= 128, where a
+// tile's products are shorter beside the same softmax, the turns
+// measured slower (3-5% at D 128) and each warpgroup issues at will. A
+// descriptor's k-step offset is an immediate in the wgmma's PTX, so
+// descriptors take no registers; ptxas keeps the warpgroups at about 215
+// (D 256), 184 (D 192), 146 (D 128) and 108 (D 64) registers with no
+// spill. 256
+// threads, not a warp-specialised producer: ptxas gives a wgmma kernel's
+// registers over whole warpgroups, and a third warpgroup (or a ninth
+// warp) held every thread to 168 and spilled at D 256 even under
+// setmaxnreg 24 / 240; at D <= 128 the slot's second releaser already
+// keeps the loads ahead (loading k and v once, wrongly, saves under a
+// tenth). Both warpgroups walk every tile from the one holding the
+// block's first row's lower key limit to its last row's upper one: a
+// tile outside a row's limits is masked, and skipping it per warpgroup
+// measured no gain. At D <= 128 a 128-key tile (S in 64 registers a
+// thread, one row reduction a 128 keys) measured slower, the deepest
+// rings far slower at D 64 (a block's prologue then requests 13 tiles of
+// k and of v), and two blocks an SM or three warpgroups a block no
+// faster. What holds it under its bound, largest first: the softmax
+// between a warpgroup's products (a fifth of the time at D 128); the
+// products themselves, P v, then S at N = 64 (which reads as many bytes
+// of q as of k from shared memory); k and v read once per 128 rows
+// through L2, and TMA's writes beside the products' reads
+// (scripts/flash_wgmma_ablate.py, PERF.md).
 //
-// Both bfloat16 kernels write each row's log-sum-exp of its scaled
+// The bfloat16 kernel writes each row's log-sum-exp of its scaled
 // scores, m + log(den), when given an lse pointer (training; serving
-// passes null).
+// passes null); the narrow backward reads it as the wide one does.
 //
 // float32 (flash_fwd): on the CUDA cores, as first ported. The float32
 // tolerance (1e-4) rules out bfloat16 or TF32 products, and no main path
@@ -145,7 +144,8 @@
 //
 // bfloat16, D <= 128 (flash_bwd_dq_mma, flash_bwd_dkdv_mma): mma.sync
 // m16n8k16 with float32 sums, 4 warps a block, cp.async double buffering
-// and rows padded to D + 8 as in flash_fwd_mma. The dQ pass: a warp owns
+// (zero-filled past L) and rows padded to D + 8 values so ldmatrix's
+// eight row addresses fall in distinct banks. The dQ pass: a warp owns
 // 16 query rows; q and dO come once into registers as A fragments; K and
 // V arrive in 64-key tiles, each walked in two halves of 32 keys: S = q
 // k^T and dP = dO v^T, P = exp2(S scale log2 e - lse log2 e) in float32,
@@ -408,12 +408,9 @@ __global__ void __launch_bounds__(lm::kThreads)
 
 // ---------------------------------------------------------------- bf16
 using bf16 = __nv_bfloat16;
-constexpr int kMmaWarps = kRows / 16;  // 16 query rows a warp
+// the narrow backward's (flash_bwd_*_mma) warps: 16 query rows a warp
+constexpr int kMmaWarps = kRows / 16;
 constexpr int kMmaThreads = 32 * kMmaWarps;
-// blocks an SM of the narrow builds: caps a thread at 168 registers,
-// which they meet without a spill by their 32-key softmax steps (two
-// blocks an SM, with more registers, ran slower at D = 128)
-constexpr int kMmaBlocksPerSM = 3;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // rows [r0, r0 + 64) of a (L, D) matrix into a [64][ld] bfloat16 tile,
@@ -461,213 +458,6 @@ __device__ __forceinline__ int bt_frag(int ld, int k0, int n2) {
          (lane >> 4) * 8;
 }
 
-template <int DK>
-constexpr size_t mma_smem_bytes() {  // K and V, two stages each
-  return sizeof(bf16) * 4 * kRows * (16 * DK + 8);
-}
-
-template <int DK>
-__global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
-    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                  float* __restrict__ lse, int L, int D, int causal, int tq,
-                  int tk, int window, float scale_log2) {
-  static_assert(DK <= 8, "D > 128 runs flash_fwd_wgmma");
-  constexpr int dd = 16 * DK, ld = dd + 8, tile = kKeys * ld;
-  // keys a softmax step: a tile in halves, so that S and P fit beside q's
-  // fragments under the 168-register cap
-  constexpr int kStep = kKeys / 2, NJ = kStep / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][kKeys][ld]
-  bf16* Vs = Ks + 2 * tile;                       // [2][kKeys][ld]
-  bf16* Qs = Ks + tile;  // q's rows, in K's second stage until in registers
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
-  const size_t base = static_cast<size_t>(blockIdx.x) * L * D;
-  const int row = q0 + warp * 16 + g;  // this thread's rows: row, row + 8
-  const int lim_lo = key_limit(row, L, causal, tq, tk);
-  const int lim_hi = key_limit(row + 8, L, causal, tq, tk);
-  const int lo_lo = key_lower(row, window, tq, tk);
-  const int lo_hi = key_lower(row + 8, window, tq, tk);
-  // neither key limit decreases with the row: the block's last row has
-  // the largest upper one, its first row the smallest lower one
-  const int kend = key_limit(min(q0 + kRows, L) - 1, L, causal, tq, tk);
-  const int kbeg = key_lower(q0, window, tq, tk) / kKeys * kKeys;
-  const int n_tiles = (kend - kbeg + kKeys - 1) / kKeys;
-
-  load_rows<DK>(Qs, q + base, q0, L, D);
-  load_rows<DK>(Ks, k + base, kbeg, L, D);
-  load_rows<DK>(Vs, v + base, kbeg, L, D);
-  lm::cp_async_commit();
-  lm::cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[DK][4];
-#pragma unroll
-  for (int kk = 0; kk < DK; ++kk)
-    lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
-  __syncthreads();  // Qs is K's second stage from here on
-
-  float acc[2 * DK][4];
-#pragma unroll
-  for (int j = 0; j < 2 * DK; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1, k0 = kbeg + it * kKeys;
-    if (it + 1 < n_tiles) {
-      load_rows<DK>(Ks + (st ^ 1) * tile, k + base, k0 + kKeys, L, D);
-      load_rows<DK>(Vs + (st ^ 1) * tile, v + base, k0 + kKeys, L, D);
-    }
-    lm::cp_async_commit();
-    lm::cp_async_wait<1>();  // tile `it` has landed
-    __syncthreads();
-    const bf16* Kt = Ks + st * tile;
-    const bf16* Vt = Vs + st * tile;
-
-#pragma unroll 1
-    for (int kh = 0; kh < kKeys; kh += kStep) {
-      const int kb = k0 + kh;
-      // S = q k^T over NJ n8 tiles of keys, unscaled, float32
-      float s[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DK; ++kk) {
-#pragma unroll
-        for (int np = 0; np < NJ / 2; ++np) {
-          uint32_t b[4];
-          lm::ldmatrix_x4(b, lm::smem_u32(Kt + b_frag(ld, kh + np * 16, kk)));
-          lm::mma_bf16_16816(s[2 * np], qf[kk], b[0], b[1]);
-          lm::mma_bf16_16816(s[2 * np + 1], qf[kk], b[2], b[3]);
-        }
-      }
-
-      // a key of this step is past a row's upper limit or below its lower
-      if (kb + kStep > lim_lo || kb < lo_hi) {
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int key = kb + 8 * j + 2 * t4 + e;
-            if (key >= lim_lo || key < lo_lo) s[j][e] = -INFINITY;
-            if (key >= lim_hi || key < lo_hi) s[j][2 + e] = -INFINITY;
-          }
-      }
-
-      // online softmax: rows g and g + 8 of the warp, over the quad
-      float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-        mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-      }
-      // exponent bases; a row with no key yet (past L) keeps 0
-      const float b_lo = mx_lo == -INFINITY ? 0.f : mx_lo * scale_log2;
-      const float b_hi = mx_hi == -INFINITY ? 0.f : mx_hi * scale_log2;
-      const float c_lo = exp2f(m_lo * scale_log2 - b_lo);
-      const float c_hi = exp2f(m_hi * scale_log2 - b_hi);
-      m_lo = mx_lo;
-      m_hi = mx_hi;
-      l_lo *= c_lo;
-      l_hi *= c_hi;
-#pragma unroll
-      for (int j = 0; j < 2 * DK; ++j) {
-        acc[j][0] *= c_lo;
-        acc[j][1] *= c_lo;
-        acc[j][2] *= c_hi;
-        acc[j][3] *= c_hi;
-      }
-      // O += P v over NJ / 2 k16 steps of keys, 2 DK n8 tiles of D; P in
-      // float32 for the denominator, in bfloat16 as the step's A fragment
-#pragma unroll
-      for (int kk = 0; kk < NJ / 2; ++kk) {
-        uint32_t pa[4];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int j = 2 * kk + jj;
-          const float p0 = exp2f(fmaf(s[j][0], scale_log2, -b_lo));
-          const float p1 = exp2f(fmaf(s[j][1], scale_log2, -b_lo));
-          const float p2 = exp2f(fmaf(s[j][2], scale_log2, -b_hi));
-          const float p3 = exp2f(fmaf(s[j][3], scale_log2, -b_hi));
-          l_lo += p0 + p1;
-          l_hi += p2 + p3;
-          pa[2 * jj] = lm::pack_bf16x2(p0, p1);
-          pa[2 * jj + 1] = lm::pack_bf16x2(p2, p3);
-        }
-#pragma unroll
-        for (int dp = 0; dp < DK; ++dp) {
-          uint32_t b[4];
-          lm::ldmatrix_x4_trans(b, lm::smem_u32(Vt + bt_frag(ld, kh + kk * 16, dp)));
-          lm::mma_bf16_16816(acc[2 * dp], pa, b[0], b[1]);
-          lm::mma_bf16_16816(acc[2 * dp + 1], pa, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();  // stage `st` is refilled next
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
-  // log-sum-exp of the scaled scores, natural log: the exponents are
-  // base 2 with the base m * scale * log2 e
-  if (lse != nullptr && t4 == 0) {
-    const size_t row0 = static_cast<size_t>(blockIdx.x) * L;
-    if (row < L)
-      lse[row0 + row] = (m_lo * scale_log2 + log2f(den_lo)) * kLn2;
-    if (row + 8 < L)
-      lse[row0 + row + 8] = (m_hi * scale_log2 + log2f(den_hi)) * kLn2;
-  }
-#pragma unroll
-  for (int j = 0; j < 2 * DK; ++j) {
-    const int d = 8 * j + 2 * t4;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row + 8 * h;
-      const float den = h ? den_hi : den_lo;
-      if (r >= L) continue;
-      bf16* dst = o + base + static_cast<size_t>(r) * D + d;
-      const float v0 = acc[j][2 * h] / den, v1 = acc[j][2 * h + 1] / den;
-      if (D % 2 == 0) {
-        if (d < D) *reinterpret_cast<uint32_t*>(dst) = lm::pack_bf16x2(v0, v1);
-      } else {
-        if (d < D) dst[0] = __float2bfloat16_rn(v0);
-        if (d + 1 < D) dst[1] = __float2bfloat16_rn(v1);
-      }
-    }
-  }
-}
-
-template <int DK>
-int launch_mma(const void* q, const void* k, const void* v, void* o,
-               float* lse, int bh, int L, int D, int causal, int tq, int tk,
-               int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<DK>();
-  cudaError_t e = lm::allow_smem(flash_fwd_mma<DK>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(bh, (L + kRows - 1) / kRows);
-  flash_fwd_mma<DK><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, L, D, causal,
-      tq, tk, window, scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------------------ bf16, D > 128
 // 2^x by the SFU's approximation (subnormal results flush to 0: a P so
 // far below the row's largest, 1, adds nothing to its sums)
 __device__ __forceinline__ float ex2(float x) {
@@ -686,7 +476,7 @@ __device__ __forceinline__ void static_for(F&& f) {
   }
 }
 
-// flash_fwd_wgmma<D> (D 192, 256): 128 query rows a block, two
+// flash_fwd_wgmma<D> (D 64, 128, 192, 256): 128 query rows a block, two
 // warpgroups of 64. q (128 x D, once) and 64-key tiles of k and v (two
 // rings of kStages) come by TMA in 64-column boxes with the 128-byte
 // swizzle, each tile completing on its slot's mbarrier; the warpgroup
@@ -697,10 +487,12 @@ __device__ __forceinline__ void static_for(F&& f) {
 constexpr int kWgRows = 128;     // query rows a block
 // Two warpgroups and no producer warp: ptxas gives a wgmma kernel's
 // threads 65,536 registers over whole warpgroups, so a third (a
-// producer warpgroup, or one producer warp) caps them at 168, and it
-// spilled there even with the producer's setmaxnreg 24 and the
+// producer warpgroup, or one producer warp) caps them at 168, and at D
+// 256 it spilled there even with the producer's setmaxnreg 24 and the
 // consumers' 240. At 256 threads the 64 x D float32 sums, S and P take
-// about 215 registers (D 256) and 184 (D 192), no spill.
+// about 215 registers (D 256) and 184 (D 192), no spill. At D <= 128 a
+// third warpgroup fits under 168 but measured no faster (at D 64,
+// slower).
 constexpr int kWgThreads = 256;
 constexpr int kBox = 64;         // columns a TMA box: 128 bytes
 
@@ -711,9 +503,13 @@ struct WgmmaTiles {
   static constexpr uint32_t kQBytes = kBoxes * kQBox;
   static constexpr uint32_t kKvBox = kKeys * kBox * 2;       // 8 KB
   static constexpr uint32_t kTileBytes = kBoxes * kKvBox;    // k or v
-  // as deep as 227 KB allows: 2 at D 256, 3 at D 192
+  // 2 at D <= 128 (the deepest that fit, 13 slots at D 64 and 6 at 128,
+  // measured no faster at D 128 and far slower at D 64: a block's
+  // prologue requests every slot); above, as deep as 227 KB allows: 2 at
+  // D 256, 3 at D 192
   static constexpr int kStages =
-      (227 * 1024 - 1024 - kQBytes - 256) / (2 * kTileBytes);
+      D <= 128 ? 2
+               : (227 * 1024 - 1024 - kQBytes - 256) / (2 * kTileBytes);
   // q's barrier, each slot's full barrier and its count of releases
   static constexpr size_t kSmem =
       1024 + kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 2 * kStages) +
@@ -730,7 +526,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                     float scale_log2) {
   using T = WgmmaTiles<D>;
   constexpr int S = T::kStages, NB = T::kBoxes, NO = D / 2, KS = D / 16;
+  static_assert(D % kBox == 0, "no such build");
   static_assert(S >= 2 && T::kSmem <= 227 * 1024, "the ring does not fit");
+  // the turns between the warpgroups (past D 128; see below)
+  constexpr bool kTurns = D > 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1,024 bytes: align the tiles to it
   const uint32_t qs = (lm::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -830,10 +629,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const uint32_t v_lo = lm::desc_lo(vs + j % S * T::kTileBytes, T::kKvBox);
     static_for<4>([&](auto step) {  // 16 rows of 128 bytes a k-step
       constexpr int kk = decltype(step)::value;
+      constexpr int ob = kk * 2048 / 16;
       if constexpr (D == 256)
-        lm::wgmma_m64n256k16_rs_tb<kk * 2048 / 16>(acc, pa[kk], v_lo, hi);
+        lm::wgmma_m64n256k16_rs_tb<ob>(acc, pa[kk], v_lo, hi);
+      else if constexpr (D == 192)
+        lm::wgmma_m64n192k16_rs_tb<ob>(acc, pa[kk], v_lo, hi);
+      else if constexpr (D == 128)
+        lm::wgmma_m64n128k16_rs_tb<ob>(acc, pa[kk], v_lo, hi);
       else
-        lm::wgmma_m64n192k16_rs_tb<kk * 2048 / 16>(acc, pa[kk], v_lo, hi);
+        lm::wgmma_m64n64k16_rs_tb<ob>(acc, pa[kk], v_lo, hi);
     });
     lm::wgmma_commit();
   };
@@ -909,19 +713,21 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   };
 
   // Both warpgroups walk every tile of the block (a row's keys outside
-  // its limits are masked; rows past L write nothing), and take turns to
-  // issue their products (named barriers 1 and 2, the first warpgroup
-  // first): one's softmax runs under the other's products. Within a
+  // its limits are masked; rows past L write nothing). Past D 128 they
+  // take turns to issue their products (named barriers 1 and 2, the
+  // first warpgroup first): one's softmax runs under the other's
+  // products; at D <= 128, whose products are shorter beside the same
+  // softmax, the turns measured slower and they issue at will. Within a
   // warpgroup, S of tile j is issued beside P v of tile j - 1, and the
   // softmax of tile j runs under the latter.
   const int mine = 1 + c, other = 2 - c;
-  if (c == 1) lm::bar_arrive(other, 256);
+  if (kTurns && c == 1) lm::bar_arrive(other, 256);
   lm::mbar_wait(q_full, 0);
   lm::mbar_wait(k_full, 0);
-  lm::bar_sync(mine, 256);
+  if (kTurns) lm::bar_sync(mine, 256);
   lm::wgmma_fence();
   issue_s(0);
-  lm::bar_arrive(other, 256);
+  if (kTurns) lm::bar_arrive(other, 256);
   lm::wgmma_wait<0>();
   lm::fence_regs(sc);
   release_k(0);
@@ -934,11 +740,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     lm::fence_regs(acc);
     lm::fence_regs(sc);
     lm::fence_regs(pa);
-    lm::bar_sync(mine, 256);
+    if (kTurns) lm::bar_sync(mine, 256);
     lm::wgmma_fence();
     issue_s(j);
     issue_pv(j - 1);
-    lm::bar_arrive(other, 256);
+    if (kTurns) lm::bar_arrive(other, 256);
     lm::wgmma_wait<1>();  // S of tile j
     lm::fence_regs(sc);
     release_k(j);
@@ -960,10 +766,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   lm::mbar_wait(v_full + 8 * sl, (last / S) & 1);
   lm::fence_regs(acc);
   lm::fence_regs(pa);
-  lm::bar_sync(mine, 256);
+  if (kTurns) lm::bar_sync(mine, 256);
   lm::wgmma_fence();
   issue_pv(last);
-  if (c == 0) lm::bar_arrive(other, 256);  // the second's last turn
+  if (kTurns && c == 0) lm::bar_arrive(other, 256);  // the second's last turn
   lm::wgmma_wait<0>();
   lm::fence_regs(acc);
   lm::fence_regs(pa);
@@ -1002,11 +808,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // (Dr, L, bh) bfloat16, read in (64, rows, 1) boxes with the 128-byte
-// swizzle; TMA zero-fills what lies past Dr or L within a head. The
-// encoder is a driver call and needs a current context, which a thread
-// that has made no runtime call yet lacks (autograd's backward thread,
-// its tensors all from the allocator's cache): ptr's device is made
-// current first.
+// swizzle; TMA zero-fills what lies past Dr or L within a head (a box
+// wider than a row of Dr < 64 too). The encoder is a driver call and
+// needs a current context, which a thread that has made no runtime call
+// yet lacks (autograd's backward thread, its tensors all from the
+// allocator's cache): ptr's device is made current first.
 bool make_head_map(CUtensorMap* map, const void* ptr, int Dr, int L, int bh,
                    int rows) {
   lm::EncodeTiled fn = lm::encode_tiled();
@@ -1040,45 +846,33 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
       reinterpret_cast<uintptr_t>(v) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_q, map_k, map_v;
+  using T = WgmmaTiles<D>;
   if (!make_head_map(&map_q, q, Dr, L, bh, kWgRows) ||
       !make_head_map(&map_k, k, Dr, L, bh, kKeys) ||
       !make_head_map(&map_v, v, Dr, L, bh, kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t smem = WgmmaTiles<D>::kSmem;
-  cudaError_t e = lm::allow_smem(flash_fwd_wgmma<D>, smem);
+  cudaError_t e = lm::allow_smem(flash_fwd_wgmma<D>, T::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((L + kWgRows - 1) / kWgRows, bh);
-  flash_fwd_wgmma<D><<<grid, kWgThreads, smem, stream>>>(
+  flash_fwd_wgmma<D><<<grid, kWgThreads, T::kSmem, stream>>>(
       map_q, map_k, map_v, static_cast<bf16*>(o), lse, L, Dr, causal, tq,
       tk, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
-// D 1-128 padded up with zero columns to 16 DK in the kernel
-// (flash_fwd_mma); D 129-256, a multiple of 8, run flash_fwd_wgmma at 192
-// or 256 columns, TMA zero-filling the rest
+// every bfloat16 head dim runs flash_fwd_wgmma: the wrapper's row width
+// Dr (1-256, a multiple of 8) at the build of 64, 128, 192 or 256
+// columns that holds it, TMA zero-filling the rest
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int L, int D, int causal, int tq, int tk,
                 int window, float scale, cudaStream_t s) {
-#define FWD_MMA(DK)                                                        \
-  return launch_mma<DK>(q, k, v, o, lse, bh, L, D, causal, tq, tk, window, \
-                        scale, s)
 #define FWD_WGMMA(DW)                                                     \
   return launch_wgmma<DW>(q, k, v, o, lse, bh, L, D, causal, tq, tk,     \
                           window, scale, s)
-  switch ((D + 15) / 16) {
-    case 1: FWD_MMA(1);
-    case 2: FWD_MMA(2);
-    case 3: FWD_MMA(3);
-    case 4: FWD_MMA(4);
-    case 5: FWD_MMA(5);
-    case 6: FWD_MMA(6);
-    case 7: FWD_MMA(7);
-    case 8: FWD_MMA(8);
-    case 9: case 10: case 11: case 12: FWD_WGMMA(192);
-    default: FWD_WGMMA(256);
-  }
-#undef FWD_MMA
+  if (D <= 64) FWD_WGMMA(64);
+  if (D <= 128) FWD_WGMMA(128);
+  if (D <= 192) FWD_WGMMA(192);
+  FWD_WGMMA(256);
 #undef FWD_WGMMA
 }
 

@@ -4,10 +4,11 @@
 // (2-D and 3-D, and the host's tensor-map encoder), 1-D bulk copies, register
 // reallocation and wgmma: m64n256k16 with both operands in shared memory
 // (bitplane_matmul.cu's GEMM), m64n64k16 and m64n32k16 likewise, and
-// m64n192k16 and m64n256k16 with A from registers (flash_attention.cu's
-// wide forward and backward, flash_fwd_wgmma and flash_bwd_*_wgmma). The
-// other bfloat16 kernels of flash_attention.cu and ssd_scan.cu use the
-// first group.
+// m64n64k16, m64n128k16, m64n192k16 and m64n256k16 with A from registers
+// and B transposed (flash_attention.cu's forward, flash_fwd_wgmma, at
+// every head dim, and its wide backward, flash_bwd_*_wgmma). The narrow
+// backward of flash_attention.cu and ssd_scan.cu's kernels use the first
+// group.
 //
 // Fragment layouts (lane = 4 g + t): an m16n8k16 A fragment holds
 // A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; a B
@@ -390,8 +391,78 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
 // d (64 x N float32 over the warpgroup) += A (64 x 16) * B (16 x N), A
 // from registers (the m16n8k16 A fragment of each warp's 16 rows), B
 // N-major in shared memory (transposed B, as bitplane_gemm's W_q tile):
-// N 192 and 256, P v with v's rows of D values (and the backward's P^T
-// dO, dS^T q and dS k).
+// N 64, 128, 192 and 256, P v with v's rows of D values (and the
+// backward's P^T dO, dS^T q and dS k at 192 and 256).
+template <int OB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
+                                                     const uint32_t (&a)[4],
+                                                     uint32_t b_lo,
+                                                     uint32_t hi) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b32 bl;\n"
+      ".reg .b64 db;\n"
+      "add.s32 bl, %36, %38;\n"
+      "mov.b64 db, {bl, %37};\n"
+      "setp.ne.b32 p, %39, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b_lo), "r"(hi),
+        "n"(OB), "r"(1));
+}
+template <int OB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint32_t b_lo,
+                                                     uint32_t hi) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b32 bl;\n"
+      ".reg .b64 db;\n"
+      "add.s32 bl, %68, %70;\n"
+      "mov.b64 db, {bl, %69};\n"
+      "setp.ne.b32 p, %71, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, db, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b_lo), "r"(hi),
+        "n"(OB), "r"(1));
+}
 template <int OB>
 __device__ __forceinline__ void wgmma_m64n192k16_rs_tb(float (&d)[96],
                                                      const uint32_t (&a)[4],

@@ -14,21 +14,21 @@ qpos - kpos < window: the reference's windowed `chunked_attention`,
 whose tile bound drops keys inside the window when window % tk > 1. The
 kernels take it as a lower key limit beside the upper one,
 max(qpos - window + 1, max(qpos // tq - window // tk, 0) tk), and skip
-the 64-key tiles below a block's rows. Head dims 1 to 256.
+the key tiles below a block's rows. Head dims 1 to 256.
 The GQA grouping is done by `kernels/ops.py` before flattening. For
-bfloat16 the forward kernels multiply on the tensor cores, with float32
-scores, softmax and accumulator, and round P to bfloat16 for the P v
+bfloat16 the forward kernel multiplies on the tensor cores, with float32
+scores, softmax and accumulator, and rounds P to bfloat16 for the P v
 product: the one rounding the plain version lacks (within a bfloat16
-step). Head dims up to 128 run `flash_fwd_mma` (`mma.sync`, 64 query rows
-a block); above 128, `flash_fwd_wgmma` (Hopper's `wgmma` and TMA, 128 query
-rows a block in two warpgroups that take turns on the tensor cores, k and
-v in rings of 64-key tiles; the source's header has the design). Its
-input contract is TMA's: rows of a multiple of 8 values on 16-byte
-aligned bases, so the wrapper hands it `wgmma_operand(q)` etc. (zero
-columns up to `wgmma_width(D)`, or a fresh copy of a misaligned tensor),
-launches at the true D's scale D^-1/2, and slices the output back: exact,
-since zero columns add nothing to q k^T and give zero output columns.
-The padding is the contract, not a fallback: a failed launch raises.
+step). Every bfloat16 head dim runs `flash_fwd_wgmma` (Hopper's `wgmma`
+and TMA, 128 query rows a block in two warpgroups that take turns on the
+tensor cores, k and v in rings of 64-key tiles; builds of 64, 128, 192
+and 256 columns; the source's header has the design). Its input
+contract is TMA's: rows of a multiple of 8 values on 16-byte aligned
+bases, so the wrapper hands it `wgmma_operand(q)` etc. (zero columns up
+to `wgmma_width(D)`, or a fresh copy of a misaligned tensor), launches
+at the true D's scale D^-1/2, and slices the output back: exact, since
+zero columns add nothing to q k^T and give zero output columns. The
+padding is the contract, not a fallback: a failed launch raises.
 
 The TPU kernel has no backward: the reference trains through its jnp
 chunked attention and autodiff. The port trains through the kernel, so
@@ -41,7 +41,7 @@ dK = scale dS^T q, with float32 sums, the outputs in q's type. For
 bfloat16 the two backward kernels multiply on the tensor cores and round
 P to bfloat16 for P^T dO and dS for dS k and dS^T q: the two roundings
 the plain version lacks (within a bfloat16 step each). Head dims up to
-128 run `flash_bwd_dq_mma` then `flash_bwd_dkdv_mma` (`mma.sync`); above
+`BWD_WGMMA_ABOVE` (128) run `flash_bwd_dq_mma` then `flash_bwd_dkdv_mma` (`mma.sync`); above
 128, `flash_bwd_dq_wgmma` then `flash_bwd_dkdv_wgmma` (`wgmma` and TMA,
 two warpgroups a block: the dQ pass's split a 64-key tile's keys, the
 dK/dV pass's split by role, one forming P^T and dV, the other dS^T and
@@ -66,7 +66,7 @@ autograd records and an input needs a gradient, so serving launches the
 forward as before. Counts on `flash_attention`: `.launches` and
 `.plain_calls` (forward), `.bwd_launches` and `.bwd_plain_calls`;
 `.wgmma_launches` counts the forward launches that ran
-`flash_fwd_wgmma` (also in `.launches`), `.bwd_wgmma_launches` the
+`flash_fwd_wgmma` (also in `.launches`: every bfloat16 one), `.bwd_wgmma_launches` the
 backward launches that ran the wgmma pair (also in `.bwd_launches`);
 `reset_counts()` zeroes them.
 """
@@ -82,9 +82,10 @@ from repro_torch.kernels.iss_stepper import _check, _on_cpu, _raise_on
 NEG_INF = -1e30
 F32 = torch.float32
 _DTYPES = (torch.float32, torch.bfloat16)
-# bfloat16 head dims above this run flash_fwd_wgmma and, backward,
-# flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma
-WGMMA_ABOVE = 128
+# bfloat16 head dims above this run the backward's wgmma pair,
+# flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma (every bfloat16 forward runs
+# flash_fwd_wgmma)
+BWD_WGMMA_ABOVE = 128
 
 
 def wgmma_width(d: int) -> int:
@@ -230,7 +231,7 @@ def _forward(q, k, v, causal, tq, tk, window, dev, with_lse):
     _check_card(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, dev, q.dtype, (bh, l, d))
-    wgmma = q.dtype == torch.bfloat16 and d > WGMMA_ABOVE
+    wgmma = q.dtype == torch.bfloat16
     if wgmma:   # the kernel's input contract, at the true D's scale
         q, k, v = (wgmma_operand(t) for t in (q, k, v))
     dr = q.shape[-1]
@@ -267,7 +268,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check(name, t, dev, q.dtype, (bh, l, d))
     _check("lse", lse, dev, F32, (bh, l))
-    wgmma = q.dtype == torch.bfloat16 and d > WGMMA_ABOVE
+    wgmma = q.dtype == torch.bfloat16 and d > BWD_WGMMA_ABOVE
     if wgmma:   # the kernels' input contract, at the true D's scale
         q, k, v, o, do = (wgmma_operand(t) for t in (q, k, v, o, do))
     dr = q.shape[-1]

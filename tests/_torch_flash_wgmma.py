@@ -1,7 +1,8 @@
-"""Rounding models of the bfloat16 flash kernels for head dims above 128
-(csrc/flash_attention.cu): the forward `flash_fwd_wgmma`
-(`flash_wgmma_emulation`) and the backward pair `flash_bwd_dq_wgmma`,
-`flash_bwd_dkdv_wgmma` (`flash_bwd_wgmma_emulation`), in eager torch on
+"""Rounding models of the bfloat16 flash kernels on wgmma
+(csrc/flash_attention.cu): the forward `flash_fwd_wgmma`, every bfloat16
+head dim (`flash_wgmma_emulation`), and the backward pair for head dims
+above 128, `flash_bwd_dq_wgmma` and `flash_bwd_dkdv_wgmma`
+(`flash_bwd_wgmma_emulation`), in eager torch on
 any device, with no JAX: `tests/test_torch_flash_wgmma.py` and
 `tests/test_torch_flash_bwd_wgmma.py` hold them to the plain versions
 and to the reference on the CPU, `tests/test_torch_gpu.py` and

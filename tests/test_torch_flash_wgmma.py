@@ -1,6 +1,5 @@
-"""The design of the bfloat16 flash forward for head dims above 128
-(`flash_fwd_wgmma`), on the CPU (no card, no nvcc), on numpy-seeded
-inputs.
+"""The design of the bfloat16 flash forward (`flash_fwd_wgmma`, every
+head dim), on the CPU (no card, no nvcc), on numpy-seeded inputs.
 
 `tests/_torch_flash_wgmma.py::flash_wgmma_emulation` is its rounding
 model: 128-row blocks of two 64-row halves, 64-key softmax steps, the
@@ -61,7 +60,11 @@ def _reference(q, k, v, causal, tq, tk, window):
 # (BH, L, D, tq, tk, causal, window): D 192 and 256 and D 250 (padded to
 # 256), causal with tq != tk both ways, a window of 100 at tile 64 (a
 # multiple of neither), non-causal, and L 320 and 200, which leave a
-# ragged last 128-row block (one half of it past L at 320 - 256 = 64)
+# ragged last 128-row block (one half of it past L at 320 - 256 = 64);
+# the narrow builds: D 12 (padded to 16), 64, 112 and 128, causal and
+# non-causal; one ragged non-causal tile of 300 like Whisper's encoder's
+# (its last 64-key tile holds 44 keys); tq != tk both ways at L 200, D
+# 64; a window of 100 at tile 64 at D 64 and 128
 CASES = [(2, 256, 256, 64, 64, True, 0),
          (2, 256, 192, 128, 128, True, 0),
          (3, 320, 250, 64, 64, True, 0),
@@ -71,7 +74,20 @@ CASES = [(2, 256, 256, 64, 64, True, 0),
          (2, 256, 192, 64, 64, True, 100),
          (2, 320, 250, 64, 64, True, 100),
          (2, 200, 256, 200, 200, False, 0),
-         (4, 128, 192, 64, 64, False, 0)]
+         (4, 128, 192, 64, 64, False, 0),
+         (2, 256, 12, 64, 64, True, 0),
+         (2, 200, 12, 100, 100, False, 0),
+         (2, 320, 64, 64, 64, True, 0),
+         (2, 256, 64, 128, 128, False, 0),
+         (2, 256, 112, 128, 128, True, 0),
+         (2, 200, 112, 200, 200, False, 0),
+         (2, 384, 128, 128, 128, True, 0),
+         (3, 256, 128, 64, 64, False, 0),
+         (2, 300, 64, 300, 300, False, 0),
+         (2, 200, 64, 50, 100, True, 0),
+         (2, 200, 64, 100, 50, True, 0),
+         (2, 320, 64, 64, 64, True, 100),
+         (2, 320, 128, 64, 64, True, 100)]
 
 
 def _id(case):

@@ -508,17 +508,28 @@ def _lm_close(got, want, dtype):
 @pytest.mark.parametrize("shape", [(3, 11, 16, 11, 11), (2, 200, 112, 200, 200),
                                    (2, 200, 64, 50, 100),
                                    (2, 256, 128, 128, 64),
-                                   # D 40: zero-padded to 48 for the MMAs
+                                   # D 40 and 12 (12 zero-padded to 16):
+                                   # rows narrower than the 64 build's box
                                    (2, 200, 40, 200, 200),
-                                   (2, 200, 40, 50, 100)])
+                                   (2, 200, 40, 50, 100),
+                                   (2, 256, 12, 64, 64),
+                                   # one ragged tile, Whisper's encoder's
+                                   # shape cut to L 300
+                                   (2, 300, 64, 300, 300)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, shape):
+    """Every bfloat16 forward is a `flash_fwd_wgmma` launch; float32 runs
+    the CUDA-core kernel."""
     from repro_torch.kernels import flash_attention as pfa
     bh, l, d, tq, tk = shape
     g = torch.Generator(device=cuda).manual_seed(l + d)
     q, k, v = (_rand(g, (bh, l, d), dtype, cuda) for _ in range(3))
+    pfa.reset_counts()
     got = pfa.flash_attention(q, k, v, causal=causal, tq=tq, tk=tk,
                               device=cuda)
     torch.cuda.synchronize()
+    assert (pfa.flash_attention.launches,
+            pfa.flash_attention.wgmma_launches) == (
+                1, int(dtype == torch.bfloat16))
     want = pfa.flash_attention_plain(q, k, v, causal=causal, tq=tq, tk=tk)
     assert got.dtype == dtype and got.shape == q.shape
     _lm_close(got, want, dtype)
@@ -924,7 +935,9 @@ def test_flash_attention_wide_and_windowed_match_plain(cuda, dtype, shape):
                                     window=w, device=cuda)
     torch.cuda.synchronize()
     assert (pfa.flash_attention.launches,
-            pfa.flash_attention.bwd_launches) == (1, 1)
+            pfa.flash_attention.wgmma_launches,
+            pfa.flash_attention.bwd_launches) == (
+                1, int(dtype == torch.bfloat16), 1)
     po, plse = pfa.flash_attention_plain(q, k, v, tq=t, tk=t, window=w,
                                          return_lse=True)
     _lm_close(o, po, dtype)
@@ -1294,16 +1307,26 @@ def test_stacked_adafactor_step_on_card_matches_cpu(cuda):
 
 
 # (BH, L, D, tq, tk, causal, window) of `flash_fwd_wgmma`, the bfloat16
-# forward past D 128: the CPU design tests' cases (D 192, 256 and 250,
-# zero-padded to 256; causal with tq != tk; a window of 100 at tile 64;
-# non-causal; ragged last 128-row blocks) and D 136 (padded to 136, read
-# at the 192 build's width)
+# forward: the CPU design tests' cases (D 192, 256 and 250, zero-padded
+# to 256; causal with tq != tk; a window of 100 at tile 64; non-causal;
+# ragged last 128-row blocks) and D 136 (padded to 136, read at the 192
+# build's width); the narrow builds' (D 12, padded to 16 and read at the
+# 64 build's width, 64, 112 and 128, causal and non-causal; one ragged
+# non-causal tile of 300 like Whisper's encoder's; tq != tk both ways; a
+# window)
 _WGMMA_CASES = [(2, 256, 256, 64, 64, True, 0), (2, 256, 192, 128, 128, True, 0),
                 (3, 320, 250, 64, 64, True, 0), (2, 256, 192, 64, 128, True, 0),
                 (2, 256, 256, 128, 64, True, 0), (2, 320, 256, 64, 64, True, 100),
                 (2, 256, 192, 64, 64, True, 100), (2, 320, 250, 64, 64, True, 100),
                 (2, 200, 256, 200, 200, False, 0), (4, 128, 192, 64, 64, False, 0),
-                (3, 320, 136, 64, 64, True, 0), (2, 200, 136, 100, 100, False, 0)]
+                (3, 320, 136, 64, 64, True, 0), (2, 200, 136, 100, 100, False, 0),
+                (2, 256, 12, 64, 64, True, 0), (2, 200, 12, 100, 100, False, 0),
+                (2, 320, 64, 64, 64, True, 0), (2, 256, 64, 128, 128, False, 0),
+                (2, 256, 112, 128, 128, True, 0), (2, 200, 112, 200, 200, False, 0),
+                (2, 384, 128, 128, 128, True, 0), (3, 256, 128, 64, 64, False, 0),
+                (2, 300, 64, 300, 300, False, 0), (2, 200, 64, 50, 100, True, 0),
+                (2, 200, 64, 100, 50, True, 0), (2, 320, 128, 64, 64, True, 100),
+                (2, 256, 64, 64, 64, True, 100)]
 
 
 @pytest.mark.parametrize("case", _WGMMA_CASES, ids=_wide_id)
@@ -1344,8 +1367,8 @@ def test_flash_wgmma_kernel_matches_plain_and_its_model(cuda, case):
 def test_flash_wgmma_takes_a_misaligned_q(cuda):
     """A q whose data is not 16-byte aligned (a view one value into its
     storage) reaches the kernel through `wgmma_operand`'s copy; the
-    float32 and the narrow bfloat16 builds never count as
-    `flash_fwd_wgmma`."""
+    float32 kernel never counts as `flash_fwd_wgmma`, the narrow
+    bfloat16 build does."""
     from repro_torch.kernels import flash_attention as pfa
     g = torch.Generator(device=cuda).manual_seed(5)
     flat = _rand(g, (2 * 128 * 200 + 1,), torch.bfloat16, cuda)
@@ -1362,7 +1385,7 @@ def test_flash_wgmma_takes_a_misaligned_q(cuda):
                         v[..., :128].contiguous(), tq=64, tk=64, device=cuda)
     torch.cuda.synchronize()
     assert (pfa.flash_attention.launches,
-            pfa.flash_attention.wgmma_launches) == (3, 1)
+            pfa.flash_attention.wgmma_launches) == (3, 2)
 
 
 # (BH, L, D, tq, tk, causal, window) of the bfloat16 backward past D 128

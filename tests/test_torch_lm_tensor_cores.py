@@ -11,8 +11,10 @@ inputs.
   interpret mode at the reference's test tolerance (2e-2).
 - The flash kernel's bfloat16 design (float32 scores from bfloat16
   inputs, the scale applied to the float32 scores through exp2, P
-  rounded to bfloat16 for P v, the denominator summed from float32 P) is
-  emulated tile by tile here and held to `flash_attention_plain` and to
+  rounded to bfloat16 for P v, the denominator summed from float32 P),
+  as `flash_fwd_wgmma` runs it at the narrow builds' head dims (128-row
+  blocks in 64-row halves, 64-key tiles: `tests/_torch_flash_wgmma.py`'s
+  `flash_wgmma_emulation`), is held to `flash_attention_plain` and to
   the reference's TPU kernel in interpret mode within the card's
   tolerance for bfloat16 outputs, 1e-2 times max(1, largest |output|)
   (`chip_smoke.py`'s `LM_TOL`, `tests/test_torch_gpu.py`'s `_LM_TOL`):
@@ -29,7 +31,6 @@ inputs.
   library's name, and every C entry's argument count matches its ctypes
   signature.
 """
-import math
 import re
 
 import jax.numpy as jnp
@@ -37,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_flash_wgmma import flash_wgmma_emulation
 from repro.kernels import ref as rref
 from repro.kernels.bitplane_matmul import bitplane_matmul as r_bitplane
 from repro.kernels.flash_attention import flash_attention as r_flash
@@ -49,7 +51,6 @@ from repro_torch.kernels import ssd_scan as pss
 BF16 = torch.bfloat16
 F32 = torch.float32
 LM_TOL_BF16 = 1e-2
-ROWS = KEYS = 64  # the bfloat16 flash kernel's query block and key tile
 
 
 def _bf16_pair(a):
@@ -116,48 +117,6 @@ def test_gemm_on_the_repacked_weight_is_the_function(bits):
 
 # ------------------------------------------------------- flash attention
 
-def _key_limit(qp, l, causal, tq, tk):
-    if qp >= l:
-        return 0
-    if not causal:
-        return l
-    up = min(max((qp // tq + 1) * tq // tk, 1), l // tk)
-    return min(qp + 1, up * tk)
-
-
-def flash_mma_emulation(q, k, v, *, causal, tq, tk):
-    """The bfloat16 kernel's arithmetic: 64-row query blocks, 64-key
-    tiles up to the block's largest key limit, float32 S = q k^T from
-    bfloat16 inputs, the scale times log2 e applied to S inside exp2, P
-    rounded to bfloat16 for P v, the denominator from float32 P."""
-    bh, l, d = q.shape
-    sl2 = d ** -0.5 * math.log2(math.e)
-    qf, kf, vf = q.to(F32), k.to(F32), v.to(F32)
-    out = torch.zeros((bh, l, d), dtype=q.dtype)
-    for q0 in range(0, l, ROWS):
-        rows = min(ROWS, l - q0)
-        lim = torch.tensor([_key_limit(q0 + r, l, causal, tq, tk)
-                            for r in range(rows)])[:, None]
-        kend = int(lim.max())
-        m = torch.full((bh, rows, 1), -math.inf)
-        den = torch.zeros((bh, rows, 1))
-        acc = torch.zeros((bh, rows, d))
-        for k0 in range(0, kend, KEYS):
-            kt, vt = kf[:, k0:k0 + KEYS], vf[:, k0:k0 + KEYS]
-            s = qf[:, q0:q0 + rows] @ kt.transpose(1, 2)
-            keys = k0 + torch.arange(kt.shape[1])[None, :]
-            s = torch.where(keys < lim, s, torch.full((), -math.inf))
-            m2 = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            base = torch.where(m2 == -math.inf, 0.0, m2 * sl2)
-            corr = torch.exp2(m * sl2 - base)
-            p = torch.exp2(s * sl2 - base)
-            den = den * corr + p.sum(dim=-1, keepdim=True)
-            acc = acc * corr + p.to(BF16).to(F32) @ vt
-            m = m2
-        out[:, q0:q0 + rows] = (acc / den.clamp_min(1e-30)).to(q.dtype)
-    return out
-
-
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(2, 512, 112, 512, 512),
                                    (2, 200, 64, 50, 100),
@@ -167,7 +126,7 @@ def test_flash_bf16_design_within_the_card_tolerance(shape, causal):
     rng = np.random.default_rng([l, d, tq, tk])
     (jq, q), (jk, k), (jv, v) = (_bf16_pair(rng.normal(size=(bh, l, d)))
                                  for _ in range(3))
-    got = flash_mma_emulation(q, k, v, causal=causal, tq=tq, tk=tk)
+    got = flash_wgmma_emulation(q, k, v, causal=causal, tq=tq, tk=tk)
     assert got.dtype == BF16 and torch.isfinite(got.float()).all()
     err, tol = _lm_err(got, pfa.flash_attention_plain(
         q, k, v, causal=causal, tq=tq, tk=tk))
