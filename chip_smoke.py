@@ -256,12 +256,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    the plain version and of its rounding model
    (`tests/_torch_flash_wgmma.py`), log-sum-exp within 1e-4, two
    launches the same bits, each counted; the backward at the same cases,
-   given the forward's log-sum-exp, past D 128 `flash_bwd_dq_wgmma` then
-   `flash_bwd_dkdv_wgmma` (counted as `flash_bwd_wgmma`, its own row of
-   the `kernels` line, timed at the training shape's causal case beside
-   SDPA's backward), within `LM_TOL` of the plain backward and of its
-   rounding model, up to D 128 the `mma.sync` pair within `LM_TOL` of the
-   plain backward; two launches the same bits, each counted; (b)
+   given the forward's log-sum-exp, at every head dim `flash_bwd_dq_wgmma`
+   then `flash_bwd_dkdv_wgmma` (counted as `flash_bwd_wgmma`, its own row
+   of the `kernels` line, timed at the training shape's causal case
+   beside SDPA's backward), within `LM_TOL` of the plain backward and of
+   its rounding model; two launches the same bits, each counted; (b)
    Gemma3-12B at full width and depth
    (11,765,395,200 bfloat16 parameters from a seed) through `generate`,
    8 requests x prompt 4,096 (longer than the window), 32 tokens: 48
@@ -378,8 +377,9 @@ prefills and 26(c)'s steps, and phase 27(b)'s six steps, are added to
 flash's, forward and backward; `flash_fwd_wgmma`'s are every bfloat16
 forward among them (all of phases 15's, 20(b)-(d)'s, 21(b)'s, 22(c)'s
 and 23-27's; each phase checks that its bfloat16 forwards all ran it);
-`flash_bwd_wgmma`'s are the backwards past D 128: 23(d)'s and 24(d)'s
-DeepSeek-V3 steps), the card's nvidia-smi line, and
+`flash_bwd_wgmma`'s are every bfloat16 backward among them (all of
+21(b)'s, 22(c)'s and 23-27's; each phase checks that its bfloat16
+backwards all ran it)), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
 held bit for bit (max_abs_err 0). The sweep is held bit for bit but for
@@ -1617,13 +1617,12 @@ def sass_mma_counts(lib: str):
 
 
 def check_tensor_cores():
-    """Counts each LM kernel's tensor-core instructions; fails if either
-    narrow bfloat16 flash backward kernel, the bfloat16 scan kernel or
-    its backward, or the bit planes' GEMM has none, or if one of the four
-    builds of the bfloat16 forward (flash_fwd_wgmma: 64, 128, 192 and 256
-    columns) or of the two builds of each of the wide backward's kernels
-    (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma) has no HGMMA or any HMMA
-    (Ampere's mma.sync)."""
+    """Counts each LM kernel's tensor-core instructions; fails if the
+    bfloat16 scan kernel or its backward, or the bit planes' GEMM has
+    none, or if one of the four builds (64, 128, 192 and 256 columns) of
+    the bfloat16 forward (flash_fwd_wgmma) or of each of the backward's
+    kernels (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma) has no HGMMA or
+    any HMMA (Ampere's mma.sync)."""
     libs = ("flash_attention", "ssd_scan", "bitplane_matmul")
     counts = {lib: sass_mma_counts(lib) for lib in libs}
     if counts[libs[0]] is None:
@@ -1633,9 +1632,7 @@ def check_tensor_cores():
     for lib, c in counts.items():
         log(f"[lm kernels] {lib} SASS: " + "; ".join(
             f"{k} {h} HMMA, {g} HGMMA" for k, (h, g) in c.items()))
-    for lib, kernel in (("flash_attention", "flash_bwd_dq_mma"),
-                        ("flash_attention", "flash_bwd_dkdv_mma"),
-                        ("ssd_scan", "ssd_fwd_mma"),
+    for lib, kernel in (("ssd_scan", "ssd_fwd_mma"),
                         ("ssd_scan", "ssd_bwd_mma"),
                         ("bitplane_matmul", "bitplane_gemm")):
         hits = [sum(v) for k, v in counts[lib].items()
@@ -1643,13 +1640,12 @@ def check_tensor_cores():
         if not hits or min(hits) == 0:
             raise AssertionError(f"{kernel} ({lib}) has no HMMA or HGMMA "
                                  f"instruction in its SASS: {counts[lib]}")
-    for kernel, builds in ((FLASH_WGMMA[0], 4),) + tuple(
-            (k, 2) for k in BWD_WGMMA_KERNELS):
+    for kernel in (FLASH_WGMMA[0],) + BWD_WGMMA_KERNELS:
         wg = [v for k, v in counts["flash_attention"].items()
               if k.startswith(kernel)]
-        if len(wg) != builds or any(h or not g for h, g in wg):
-            raise AssertionError(f"{kernel}: its {builds} builds need HGMMA "
-                                 f"and no HMMA: {wg}")
+        if len(wg) != 4 or any(h or not g for h, g in wg):
+            raise AssertionError(f"{kernel}: its 4 builds need HGMMA and no "
+                                 f"HMMA: {wg}")
 
 
 def flash_bound(q, tq, tk, causal, window=0):
@@ -3330,9 +3326,9 @@ def phase_dense_ssm(dev):
 FLASH_BWD = ("flash_attention_bwd",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:61")
-# the same wrapper's bfloat16 backward at head dims above 128, a pair of
-# kernels of its own (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma: wgmma,
-# TMA, the dK/dV pass split by role): its launches are counted apart too
+# the same wrapper's bfloat16 backward, at every head dim a pair of
+# kernels of its own (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma: wgmma and
+# TMA): its launches are counted apart too
 # (`flash_attention.bwd_wgmma_launches`), and are also flash_attention_bwd's
 FLASH_BWD_WGMMA = ("flash_bwd_wgmma",
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3359,14 +3355,14 @@ def flash_bwd_bound(q, tq, tk, causal, window=0):
 
 
 def bwd_mma_registers():
-    """ptxas's report for the bfloat16 backward kernels (`mma.sync` to D
-    128, `wgmma` past it), one entry per head-dim build: '<kernel>:
-    <registers> registers, spills <st>/<ld> bytes'; raises on a spill.
-    Empty where this process found the library built."""
+    """ptxas's report for the bfloat16 backward kernels (the `wgmma` pair,
+    flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma), one entry per build of
+    64, 128, 192 and 256 columns: '<kernel>: <registers> registers,
+    spills <st>/<ld> bytes'; raises on a spill. Empty where this process
+    found the library built."""
     from repro_torch.kernels import _build
     rows = [r for r in ptxas_report(_build.build_log("flash_attention"))
-            if r[0].startswith(("flash_bwd_dq_mma", "flash_bwd_dkdv_mma")
-                               + BWD_WGMMA_KERNELS)]
+            if r[0].startswith(BWD_WGMMA_KERNELS)]
     spilled = [r for r in rows if r[3] or r[4]]
     if spilled:
         raise AssertionError(f"bfloat16 backward kernels spill: {spilled}")
@@ -3522,6 +3518,17 @@ def check_wgmma_share(tag, cfg, counts):
                              f"{FLASH_WGMMA[0]}, expected {want}")
 
 
+def check_bwd_wgmma_share(tag, cfg, counts):
+    """Every bfloat16 flash backward of `cfg` ran the wgmma pair
+    (flash_bwd_wgmma), and no float32 one: counts[FLASH_BWD_WGMMA] is
+    wgmma_share(cfg, counts[FLASH_BWD])."""
+    want = wgmma_share(cfg, counts[FLASH_BWD[0]])
+    if counts[FLASH_BWD_WGMMA[0]] != want:
+        raise AssertionError(f"{tag}: {counts[FLASH_BWD_WGMMA[0]]} of "
+                             f"{counts[FLASH_BWD[0]]} flash backwards ran "
+                             f"{FLASH_BWD_WGMMA[0]}, expected {want}")
+
+
 def reset_lm_counts():
     from repro_torch.kernels import flash_attention as pfa
     from repro_torch.kernels import ssd_scan as pss
@@ -3573,6 +3580,7 @@ def train_full(dev, cfg, steps, per_step, n_params=None, what="",
                              f"calls; expected {want} (forwards with their "
                              f"remat recompute, backwards)")
     check_wgmma_share(tag, cfg, counts)
+    check_bwd_wgmma_share(tag, cfg, counts)
     step_s = float(np.median(out["dts"][1:]))
     tokens = batch * seq
     flops = 6.0 * n * tokens
@@ -3998,10 +4006,9 @@ GEMMA_FULL_TILE = 32
 
 def wide_flash_registers():
     """ptxas's report for the bfloat16 forward's four builds
-    (flash_fwd_wgmma at 64, 128, 192 and 256 columns), the wide
-    backward's (flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma at 192 and
-    256) and the float32 backward's (one build for every D), one entry
-    each; raises
+    (flash_fwd_wgmma at 64, 128, 192 and 256 columns), the backward's
+    (flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma, likewise) and the
+    float32 backward's (one build for every D), one entry each; raises
     if any flash kernel, of any head dim, spills. Empty where this
     process found the library built."""
     from repro_torch.kernels import _build
@@ -4040,17 +4047,16 @@ def wgmma_cases(dev):
     plain version and of its rounding model (tests/_torch_flash_wgmma.py),
     the log-sum-exp within the float32 tolerance, one count of
     `wgmma_launches` a call, two launches the same bits; and the backward
-    given that log-sum-exp, past D 128 the wide kernels (flash_bwd_wgmma)
-    and up to it the narrow `mma.sync` pair: every gradient within LM_TOL
-    of the plain backward (and, for the wide kernels, of their rounding
-    model), one count of `bwd_launches` a call (of `bwd_wgmma_launches`
-    past D 128), two launches the same bits."""
+    given that log-sum-exp (flash_bwd_wgmma, at every head dim): every
+    gradient within LM_TOL of the plain backward and of its rounding
+    model, one count of `bwd_launches` and of `bwd_wgmma_launches` a
+    call, two launches the same bits."""
     import torch
     from _torch_flash_wgmma import (flash_bwd_wgmma_emulation,
                                     flash_wgmma_emulation)
     from repro_torch.kernels import flash_attention as pfa
     g = torch.Generator(device=dev).manual_seed(30)
-    worst = [0.0] * 6
+    worst = [0.0] * 5
     for bh, l, d, tq, tk, causal, w in WGMMA_CASES:
         what = (f"{FLASH_WGMMA[0]} BH {bh} x L {l} x D {d}, tq {tq}, tk "
                 f"{tk}, {'causal' if causal else 'non-causal'}, window {w}")
@@ -4073,40 +4079,32 @@ def wgmma_cases(dev):
                     q, k, v, causal=causal, tq=tq, tk=tk, window=w),
                     f"{what} against its rounding model"),
                 lm_err(lse, plse, f"{what} log-sum-exp", LM_TOL["float32"])]
-        wide = d > pfa.BWD_WGMMA_ABOVE
-        bwd = (f"{FLASH_BWD_WGMMA[0] if wide else FLASH_BWD[0]} BH {bh} x L "
-               f"{l} x D {d}, tq {tq}, tk {tk}, "
-               f"{'causal' if causal else 'non-causal'}, window {w}")
+        bwd = (f"{FLASH_BWD_WGMMA[0]} BH {bh} x L {l} x D {d}, tq {tq}, "
+               f"tk {tk}, {'causal' if causal else 'non-causal'}, window {w}")
         got, again = (pfa.flash_attention_bwd(
             q, k, v, o, do, lse, causal=causal, tq=tq, tk=tk, window=w,
             device=dev) for _ in range(2))
         torch.cuda.synchronize()
         if (pfa.flash_attention.bwd_launches,
                 pfa.flash_attention.bwd_wgmma_launches,
-                pfa.flash_attention.bwd_plain_calls) != (2, 2 * wide, 0):
+                pfa.flash_attention.bwd_plain_calls) != (2, 2, 0):
             raise AssertionError(f"{bwd}: launches counted "
                                  f"{pfa.flash_attention.bwd_launches}, of "
                                  f"them wgmma "
                                  f"{pfa.flash_attention.bwd_wgmma_launches}"
-                                 f"; expected 2 and {2 * wide}, no plain "
-                                 f"call")
+                                 f"; expected 2 and 2, no plain call")
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{bwd}: two launches differ")
         want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse,
                                              causal=causal, tq=tq, tk=tk,
                                              window=w)
-        err = max(lm_err(a, b, f"{bwd}: d{n} against plain, given the "
-                               f"forward's lse")
-                  for n, a, b in zip("qkv", got, want))
-        if wide:
-            model = flash_bwd_wgmma_emulation(q, k, v, o, do, lse,
-                                              causal=causal, tq=tq, tk=tk,
-                                              window=w)
-            errs += [err, 0.0, max(
-                lm_err(a, b, f"{bwd}: d{n} against its rounding model")
-                for n, a, b in zip("qkv", got, model))]
-        else:
-            errs += [0.0, err, 0.0]
+        model = flash_bwd_wgmma_emulation(q, k, v, o, do, lse, causal=causal,
+                                          tq=tq, tk=tk, window=w)
+        errs += [max(lm_err(a, b, f"{bwd}: d{n} against plain, given the "
+                                  f"forward's lse")
+                     for n, a, b in zip("qkv", got, want)),
+                 max(lm_err(a, b, f"{bwd}: d{n} against its rounding model")
+                     for n, a, b in zip("qkv", got, model))]
         worst = [max(a, b) for a, b in zip(worst, errs)]
     n_wide = sum(c[2] > 128 for c in WGMMA_CASES)
     log(f"[gemma3 kernels] {FLASH_WGMMA[0]} at {len(WGMMA_CASES)} small "
@@ -4116,10 +4114,10 @@ def wgmma_cases(dev):
         f"128-row blocks and key tiles; with the log-sum-exp): max |kernel "
         f"- plain| {worst[0]:.3g}, max |kernel - rounding model| "
         f"{worst[1]:.3g}, log-sum-exp {worst[2]:.3g}; given that lse, "
-        f"{FLASH_BWD_WGMMA[0]}: max |kernel - plain| {worst[3]:.3g}, max "
-        f"|kernel - rounding model| {worst[5]:.3g}; the narrow "
-        f"{FLASH_BWD[0]}: max |kernel - plain| {worst[4]:.3g} (within "
-        f"{LM_TOL['bfloat16']} x max(1, largest |value|)); each kernel's two "
+        f"{FLASH_BWD_WGMMA[0]} at every case: max |kernel - plain| "
+        f"{worst[3]:.3g}, max |kernel - rounding model| {worst[4]:.3g} "
+        f"(within {LM_TOL['bfloat16']} x max(1, largest |value|)); each "
+        f"kernel's two "
         f"launches the same bits, each counted")
 
 
@@ -4807,7 +4805,8 @@ def flash_bwd_alone(tag, q, k, v, causal, t):
     launches the same bits, then timed with CUDA events beside the plain
     version, SDPA's backward ((forward + backward) - forward, PyTorch's
     choice of backend) and the bound, and both backwards by their
-    kernels' device time (torch.profiler). Returns the row."""
+    kernels' device time (torch.profiler), logged by kernel. Returns the
+    row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as pfa
@@ -4856,7 +4855,9 @@ def flash_bwd_alone(tag, q, k, v, causal, t):
                err=max(errs))
     dev_ms = "; ".join(
         f"{n} " + ("not measured (records lost)" if ms is None else
-                   f"{sum(x for x, _ in ms.values()):.4f} ms")
+                   f"{sum(x for x, _ in ms.values()):.4f} ms ("
+                   + ", ".join(f"{k} {x:.4f}" for k, (x, _) in ms.items())
+                   + ")")
         for n, ms in (("flash_attention_bwd", ours), ("SDPA's", sdpa)))
     log(f"[{tag}] flash_attention_bwd alone ({what}): kernel "
         f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, SDPA's "
@@ -4890,7 +4891,7 @@ def phase_moe_train(dev):
     n = cfg.n_layers
     counts = train_full(dev, cfg, TRAIN_STEPS,
                         {FLASH[0]: 2 * n, FLASH_WGMMA[0]: 2 * n,
-                         FLASH_BWD[0]: n, FLASH_BWD_WGMMA[0]: 0, SSD[0]: 0,
+                         FLASH_BWD[0]: n, FLASH_BWD_WGMMA[0]: n, SSD[0]: 0,
                          SSD_BWD[0]: 0},
                         MOE_TRAIN_PARAMS,
                         what=" (of 24: cut for AdamW's memory)",
@@ -5169,6 +5170,7 @@ def audio_train(dev, cfg, steps):
         raise AssertionError(f"{tag}: launches {counts}, {plain} plain "
                              f"calls; expected {want}")
     check_wgmma_share(tag, cfg, counts)
+    check_bwd_wgmma_share(tag, cfg, counts)
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: losses {losses}")
     step_s = float(np.median(dts[1:]))
@@ -5332,6 +5334,7 @@ def phase_mesh(dev, cpu_runs):
         raise AssertionError(f"[mesh] launches {counts}, {plain_calls} plain "
                              f"calls")
     check_wgmma_share("[mesh]", cfg, counts)
+    check_bwd_wgmma_share("[mesh]", cfg, counts)
     if losses != want_losses or not same_bits(list(params.parameters()),
                                               want):
         raise AssertionError(f"[mesh] data-parallel losses {losses} vs "

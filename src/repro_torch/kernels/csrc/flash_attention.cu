@@ -114,7 +114,7 @@
 //
 // The bfloat16 kernel writes each row's log-sum-exp of its scaled
 // scores, m + log(den), when given an lse pointer (training; serving
-// passes null); the narrow backward reads it as the wide one does.
+// passes null); the backward reads it.
 //
 // float32 (flash_fwd): on the CUDA cores, as first ported. The float32
 // tolerance (1e-4) rules out bfloat16 or TF32 products, and no main path
@@ -131,97 +131,98 @@
 // v, o, dO and the forward's lse it recomputes P = exp(scale q k^T - lse)
 // tile by tile under the forward's key limits, and forms D = rowsum(dO o),
 // dV = P^T dO, dS = P (dO v^T - D), dQ = scale dS k, dK = scale dS^T q.
-// One pass per 64 query rows forms dQ (and writes D), then one per 64 keys
-// dK and dV, over exactly the query tiles whose key limit reaches them:
-// no atomics, the gradients deterministic. Outputs in q's type.
+// One pass over blocks of query rows forms dQ (and writes D), then one
+// over blocks of keys dK and dV, over exactly the query tiles whose key
+// limit reaches them: no atomics, the gradients deterministic. Outputs in
+// q's type.
 //
 // What bounds it. At Qwen2-1.5B's training shape (BH 96, L 512, D 128,
 // causal, bfloat16) it must read q, k, v, o, dO and lse and write dq, dk,
 // dv, about 101 MB or 0.030 ms at 3.35 TB/s; its five causal products are
 // about 1.6e10 operations, 0.016 ms at the bfloat16 tensor-core rate. So
-// bytes bound it. The two passes recompute S and dP, seven products in
-// all, about 2.3e10 operations.
+// bytes bound it. At Whisper's encoder (BH 384, L 1,500, D 64,
+// non-causal) operations do: 0.56 ms for the five products (the bytes
+// 0.18). The two passes recompute S and dP, seven products of the five,
+// and each takes the exponential of every score again: at D <= 128 the
+// exponentials (the SFU's 16 a clock an SM; Whisper's 1.7e9, 0.45 ms)
+// and the elementwise work around them rival the products.
 //
-// bfloat16, D <= 128 (flash_bwd_dq_mma, flash_bwd_dkdv_mma): mma.sync
-// m16n8k16 with float32 sums, 4 warps a block, cp.async double buffering
-// (zero-filled past L) and rows padded to D + 8 values so ldmatrix's
-// eight row addresses fall in distinct banks. The dQ pass: a warp owns
-// 16 query rows; q and dO come once into registers as A fragments; K and
-// V arrive in 64-key tiles, each walked in two halves of 32 keys: S = q
-// k^T and dP = dO v^T, P = exp2(S scale log2 e - lse log2 e) in float32,
-// dS = P (dP - D) rounded to bfloat16 straight from the C fragments into
-// the A fragments of dQ += dS k (k's B fragments by ldmatrix.trans). The
-// dK/dV pass works in the transposed frame: a warp owns 16 keys, takes
-// its k and v rows as A fragments from shared memory, and walks the
-// query tiles (q, dO, lse, D double-buffered) in halves of 32 queries:
-// S^T = k q^T and dP^T = v dO^T, so P^T and dS^T, rounded to bfloat16 in
-// registers, are the A fragments of dV += P^T dO and dK += dS^T q. The
-// scale is applied to the float32 S inside exp2 and to dQ and dK in the
-// epilogue, never to bfloat16 q (D^-1/2 is not a power of two). The mask
-// is applied only on tiles that cross a limit; keys past L and query rows
-// past L (whose lse is undefined: read as 0) get P = 0 explicitly. The
-// halves keep each thread under 255 registers without spills (2 x 16 x
-// 128 float32 dK and dV sums a warp at D = 128 are 128 a thread); 104 KB
-// of shared memory a block at D = 128, two blocks an SM. Rounding P to
-// bfloat16 before P^T dO and dS before dS k and dS^T q are the two
-// roundings the plain version lacks: one bfloat16 step each at most.
-//
-// bfloat16, D > 128 (flash_bwd_dq_wgmma<192 | 256>, then
-// flash_bwd_dkdv_wgmma<192 | 256>): the same function and roundings on
-// Hopper's wgmma and TMA, under the forward's input contract (the
-// wrapper zero-pads q, k, v, o and dO to Dr, a multiple of 8, launches at
-// the true D's scale and slices the gradients back: zero columns add
-// nothing to q k^T or dO v^T and get zero gradients). Both passes run
-// 256 threads, two warpgroups and no producer warp (as flash_fwd_wgmma:
-// a third warpgroup caps every thread at 168 registers), tiles
-// of 64 rows in 64-column boxes with the 128-byte swizzle through 3-D
-// tensor maps (Dr, L, BH) that zero-fill past each head's L, heads
-// outermost in the grid, and rings whose slot the second warpgroup to
-// release it refills. P = exp2 of the scaled float32 S by the SFU's
-// ex2.approx; the mask only on tiles that cross a limit; rows and keys
-// past L get P = 0.
-//   The dQ pass: a block owns 64 query rows; q and dO come once by TMA,
-// and D = rowsum(dO o) from plain 16-byte loads while they land; k and v
-// in rings of 64-key tiles (v 2 slots at D 256, 3 at D 192; k, held a
-// tile longer, one more). Warpgroup c takes keys 32 c.. of every tile: S
-// = q k^T and dP = dO v^T (wgmma m64n32k16, both from shared memory), P
-// and dS = P (dP - D) in float32 registers, dS rounded into the A
-// fragments of dQ_c += dS k (m64n256k16 or m64n192k16, k as transposed
-// B), issued beside the next tile's S and dP. Each warpgroup keeps its
-// own 64 x D float32 sum (128 or 96 registers a thread); the two are
-// added once at the end, through the free k ring, in a fixed order.
-// Splitting the keys and not the roles, no P or dS crosses between
-// warpgroups here, and no product starts inside a swizzle atom (D 192's
-// column halves would, at column 96). The pass also writes each row's lse
-// log2 e, D and key limits into the scratch in 64-row chunks for the
-// dK/dV pass.
-//   The dK/dV pass: a block owns 64 keys; k and v come once by TMA, q and
-// dO in a ring of 64-query tiles (2 slots at D 256, 3 at D 192) over
+// bfloat16 (flash_bwd_dq_wgmma<64 | 128 | 192 | 256>, then
+// flash_bwd_dkdv_wgmma<64 | 128 | 192 | 256>): Hopper's wgmma and TMA at
+// the build that holds the head dim, under the forward's input contract
+// (the wrapper zero-pads q, k, v, o and dO to Dr, a multiple of 8,
+// launches at the true D's scale and slices the gradients back: zero
+// columns add nothing to q k^T or dO v^T and get zero gradients). Both
+// passes run 256 threads, two warpgroups and no producer warp (as
+// flash_fwd_wgmma: a third warpgroup caps every thread at 168 registers),
+// tiles of 64 rows in 64-column boxes with the 128-byte swizzle through
+// 3-D tensor maps (Dr, L, BH) that zero-fill past each head's L, and
+// rings whose slot the second warpgroup to release it refills. The grid
+// runs heads outermost, so the blocks in flight share a few heads' tiles
+// in L2, or, where every head's k and v fit in L2 together (40 MB),
+// heads fastest, so the heaviest blocks of every head run first. P =
+// exp2 of the scaled float32 S by the SFU's ex2.approx (exp2f measured
+// 2-7% slower); the mask only on tiles that cross a limit; rows and keys
+// past L get P = 0. The scale is applied to the float32 S inside exp2
+// and to dQ and dK in the epilogue, never to bfloat16 q (D^-1/2 is not a
+// power of two). Rounding P to bfloat16 before P^T dO and dS before dS k
+// and dS^T q are the two roundings the plain version lacks: one bfloat16
+// step each at most.
+//   The dQ pass: q and dO come once by TMA, and D = rowsum(dO o) from
+// plain 16-byte loads while they land; k and v in rings of 64-key tiles
+// (v 2 slots at D <= 128 and D 256, 3 at D 192; k, held a tile longer,
+// one more) from the one holding the block's first row's lower key limit
+// to its last row's upper one. At D <= 128 a block owns 128 query rows
+// and warpgroup c rows 64 c..: S = q k^T and dP = dO v^T (wgmma
+// m64n64k16, both from shared memory), P and dS = P (dP - D) in float32
+// registers, dS rounded into the A fragments of dQ += dS k (m64nDk16, k
+// as transposed B), issued beside the next tile's S and dP; each
+// warpgroup keeps the one 64 x D float32 sum of its rows, and nothing
+// crosses between them. Past 128 the sums would not fit beside S and dP:
+// a block owns 64 rows, warpgroup c takes keys 32 c.. of every tile
+// (m64n32k16) into a sum of its own (128 or 96 registers a thread), and
+// the two are added once at the end, through the free k ring, in a fixed
+// order (no product starts inside a swizzle atom: D 192's column halves
+// would, at column 96). The pass also writes each row's lse log2 e, D
+// and key limits into the scratch in 64-row chunks for the dK/dV pass.
+//   The dK/dV pass: k and v come once by TMA, q and dO in a ring of
+// 64-query tiles (4 slots at D <= 128, 2 at D 256, 3 at D 192) over
 // exactly the query tiles some row of which reads a key of the block,
 // heaviest (causal: first keys) first; each slot also takes its queries'
 // lse log2 e, D and key limits in four 256-byte bulk copies on the same
 // barrier (read per query from global memory, or its limits recomputed
-// with integer divisions, they cost more than the tile's products). The
-// warpgroups split by role. Warpgroup 0: S^T = k q^T (m64n64k16 from
-// shared memory), P^T under the limits, written as float32 to shared
-// memory in its register order (16 KB), then rounded into the A
-// fragments of dV += P^T dO (dO as transposed B). Warpgroup 1: dP^T = v
-// dO^T beside S^T; after P^T lands (named barriers: P^T written, P^T
-// read), dS^T = P^T (dP^T - D), rounded into the A fragments of dK +=
-// dS^T q. S^T and dP^T are formed once, and each warpgroup keeps one 64
-// x D float32 sum. Shared memory: 211.5 KB at D 256 (k, v
-// 64 KB; two stages of q, dO and the queries' values 129 KB; P^T 16
-// KB), 212.5 KB at D 192.
-//   What bounds it. At Gemma3's training shape (BH 2 x 16 = 32, L 2,048,
-// D 256, causal) operations: 0.17 ms (with the window of 1,024, 0.13;
-// the bytes 0.08 ms); at DeepSeek-V3's (BH 256, L 2,048, D 192) 1.04 ms
-// (bytes 0.48). The two passes do seven products of the five. What holds
-// the kernels under it (PERF.md, scripts/flash_bwd_ablate.py): each
-// warpgroup's chain of product, exponentials or dS, and product with no
-// other work beside it (the dK/dV pass's warpgroup 1 waits for P^T), the
-// dQ pass's N = 32 products (S and dP read q and dO from shared memory
-// once per 32 keys), and q and dO (k and v) read once per 64 keys (query
-// rows) through L2.
+// with integer divisions, they cost more than the tile's products). At D
+// <= 128 a block owns 128 keys and warpgroup c keys 64 c.. and runs the
+// whole chain: S^T = k q^T and dP^T = v dO^T (m64n64k16 from shared
+// memory), P^T and dS^T = P^T (dP^T - D) in float32 registers, rounded
+// into the A fragments of dV += P^T dO and dK += dS^T q (m64nDk16, dO and
+// q as transposed B), issued beside the next tile's S^T and dP^T; dK and
+// dV take 2 x D / 2 registers beside S^T's and dP^T's 64 (254 a thread at
+// D 128, no spill), and nothing crosses between the warpgroups. Past 128
+// a block owns 64 keys and the warpgroups split by role. Warpgroup 0: S^T,
+// P^T under the limits, written as float32 to shared memory in its
+// register order (16 KB), then dV += P^T dO. Warpgroup 1: dP^T beside
+// S^T; after P^T lands (named barriers: P^T written, P^T read), dS^T and
+// dK += dS^T q. Shared memory: 211.5 KB at D 256, 212.5 KB at D 192.
+//   At D <= 128 both warpgroups walk every tile of the block (a row's or
+// key's scores outside its limits are masked: skipping the tiles outside
+// a warpgroup's own limits measured slower); one whose rows or keys all
+// lie past L (its q and dO, or k and v, not loaded) waits for each tile
+// and releases it unread. There a dK/dV slot is held from its tile's S^T
+// to the next tile's dK and dV, so 2 slots left a refill no time to land
+// (Whisper's backward 2.48 ms, 2.21 with 4). The wide builds' designs
+// measured slower at D <= 128 (the role split 2-12%, the key split
+// 5-19%); turns between the warpgroups' issues no faster, and two blocks
+// an SM at D 64 spill.
+//   What holds the kernels under their bound (PERF.md,
+// scripts/flash_bwd_ablate.py): at D <= 128 the elementwise work between
+// a warpgroup's products (exponentials, masks, dS; the conversions to
+// bfloat16 cost 1%), about a quarter of Whisper's time; the loads'
+// latency (an eighth of Whisper's dK/dV pass with q and dO loaded once);
+// past 128 each warpgroup's chain of product, exponentials or dS, and
+// product with no other work beside it (the dK/dV pass's warpgroup 1
+// waits for P^T), the dQ pass's N = 32 products, and q and dO (k and v)
+// read once per 64 keys (query rows) through L2.
 //
 // float32 (flash_bwd_dq, flash_bwd_dkdv): float32 tiles and sums on the
 // CUDA cores, as first ported; the float32 tolerance (1e-4) rules out
@@ -408,55 +409,7 @@ __global__ void __launch_bounds__(lm::kThreads)
 
 // ---------------------------------------------------------------- bf16
 using bf16 = __nv_bfloat16;
-// the narrow backward's (flash_bwd_*_mma) warps: 16 query rows a warp
-constexpr int kMmaWarps = kRows / 16;
-constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// rows [r0, r0 + 64) of a (L, D) matrix into a [64][ld] bfloat16 tile,
-// the first dd = 16 DK columns, zeros past L and D. 16-byte cp.async
-// chunks where rows are 16-byte aligned (D % 8 == 0), else plain loads.
-template <int DK>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int r0, int L, int D) {
-  constexpr int dd = 16 * DK, ld = dd + 8, cpr = dd / 8;
-  if (D % 8 == 0) {
-    for (int idx = threadIdx.x; idx < kRows * cpr; idx += kMmaThreads) {
-      const int r = idx / cpr, c = idx % cpr * 8;
-      const bool ok = r0 + r < L && c < D;
-      lm::cp_async16(lm::smem_u32(dst + r * ld + c),
-                     ok ? src + static_cast<size_t>(r0 + r) * D + c : src,
-                     ok);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < kRows * dd; idx += kMmaThreads) {
-      const int r = idx / dd, c = idx % dd;
-      dst[r * ld + c] = r0 + r < L && c < D
-                            ? src[static_cast<size_t>(r0 + r) * D + c]
-                            : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// A lane's ldmatrix_x4 address, in elements, in a bfloat16 tile of row
-// stride ld: the A fragment of rows r0.. r0 + 15 and columns 16 kk..; the
-// B fragments of two n8 tiles, rows n0.. n0 + 15, over columns 16 kk..;
-// and, with ldmatrix_x4_trans, the B fragments of two n8 tiles, columns
-// 16 n2.., over rows k0.. k0 + 15
-__device__ __forceinline__ int a_frag(int ld, int r0, int kk) {
-  const int lane = threadIdx.x & 31;
-  return (r0 + (lane & 15)) * ld + kk * 16 + (lane >> 4) * 8;
-}
-__device__ __forceinline__ int b_frag(int ld, int n0, int kk) {
-  const int lane = threadIdx.x & 31;
-  return (n0 + (lane >> 4) * 8 + (lane & 7)) * ld + kk * 16 +
-         ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ int bt_frag(int ld, int k0, int n2) {
-  const int lane = threadIdx.x & 31;
-  return (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + n2 * 16 +
-         (lane >> 4) * 8;
-}
 
 // 2^x by the SFU's approximation (subnormal results flush to 0: a P so
 // far below the row's largest, 1, adds nothing to its sums)
@@ -474,6 +427,22 @@ __device__ __forceinline__ void static_for(F&& f) {
     f(std::integral_constant<int, I>());
     static_for<N, I + 1>(f);
   }
+}
+
+// d (64 x D float32 over the warpgroup) += A (64 x 16, registers) B (16 x
+// D, N-major in shared memory: transposed B) at the build's width
+template <int D, int OB>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[D / 2],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b_lo, uint32_t hi) {
+  if constexpr (D == 256)
+    lm::wgmma_m64n256k16_rs_tb<OB>(d, a, b_lo, hi);
+  else if constexpr (D == 192)
+    lm::wgmma_m64n192k16_rs_tb<OB>(d, a, b_lo, hi);
+  else if constexpr (D == 128)
+    lm::wgmma_m64n128k16_rs_tb<OB>(d, a, b_lo, hi);
+  else
+    lm::wgmma_m64n64k16_rs_tb<OB>(d, a, b_lo, hi);
 }
 
 // flash_fwd_wgmma<D> (D 64, 128, 192, 256): 128 query rows a block, two
@@ -629,15 +598,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const uint32_t v_lo = lm::desc_lo(vs + j % S * T::kTileBytes, T::kKvBox);
     static_for<4>([&](auto step) {  // 16 rows of 128 bytes a k-step
       constexpr int kk = decltype(step)::value;
-      constexpr int ob = kk * 2048 / 16;
-      if constexpr (D == 256)
-        lm::wgmma_m64n256k16_rs_tb<ob>(acc, pa[kk], v_lo, hi);
-      else if constexpr (D == 192)
-        lm::wgmma_m64n192k16_rs_tb<ob>(acc, pa[kk], v_lo, hi);
-      else if constexpr (D == 128)
-        lm::wgmma_m64n128k16_rs_tb<ob>(acc, pa[kk], v_lo, hi);
-      else
-        lm::wgmma_m64n64k16_rs_tb<ob>(acc, pa[kk], v_lo, hi);
+      wgmma_rs_tb<D, kk * 2048 / 16>(acc, pa[kk], v_lo, hi);
     });
     lm::wgmma_commit();
   };
@@ -1232,450 +1193,54 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 }
 
 // ---------------------------------------------------------- backward, bf16
-constexpr int kBwdBlocksPerSM = 2;  // 255 registers a thread at most
+// flash_bwd_dq_wgmma<D> then flash_bwd_dkdv_wgmma<D> (D 64, 128, 192,
+// 256): Hopper's wgmma and TMA, two warpgroups a block, 64-row tiles in
+// 64-column boxes with the 128-byte swizzle through the forward's 3-D
+// head maps. See the header.
 constexpr float kLog2e = 1.4426950408889634f;
+// k and v of every head (bytes) up to which the grid runs heads fastest
+constexpr double kHeadsFastBytes = 40.0 * (1 << 20);
 
-// 4 bytes global -> shared; with `valid` false it reads nothing and
-// writes zeros
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-// acc (16 x 16 DK over the warp, float32, scaled) into rows r, r + 8 and
-// columns 8 j + 2 t of a (L, D) bfloat16 matrix, nothing past L or D
-template <int DK>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[2 * DK][4],
-                                           int r, int t4, int L, int D,
-                                           float scale) {
-#pragma unroll
-  for (int j = 0; j < 2 * DK; ++j) {
-    const int d = 8 * j + 2 * t4;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rr = r + 8 * h;
-      if (rr >= L) continue;
-      bf16* p = dst + static_cast<size_t>(rr) * D + d;
-      const float v0 = acc[j][2 * h] * scale, v1 = acc[j][2 * h + 1] * scale;
-      if (D % 2 == 0) {
-        if (d < D) *reinterpret_cast<uint32_t*>(p) = lm::pack_bf16x2(v0, v1);
-      } else {
-        if (d < D) p[0] = __float2bfloat16_rn(v0);
-        if (d + 1 < D) p[1] = __float2bfloat16_rn(v1);
-      }
-    }
-  }
-}
-
-template <int DK>
-constexpr size_t bwd_mma_smem_bytes() {  // six [64][16 DK + 8] tiles
-  return sizeof(bf16) * 6 * kRows * (16 * DK + 8) +
-         4 * 2 * kRows * sizeof(float);  // dkdv: lse, D, 2 key limits x 2
-}
-
-// dQ of 64 query rows, and D = rowsum(dO o) of them for the dK/dV pass.
-template <int DK>
-__global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
-    flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ o,
-                     const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, bf16* __restrict__ dq,
-                     float* __restrict__ dsum, int L, int D, int causal,
-                     int tq, int tk, int window, float scale_log2,
-                     float scale) {
-  constexpr int dd = 16 * DK, ld = dd + 8, tile = kKeys * ld;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][ld]
-  bf16* dOs = Qs + tile;                          // [kRows][ld]
-  bf16* Ks = dOs + tile;                          // [2][kKeys][ld]
-  bf16* Vs = Ks + 2 * tile;                       // [2][kKeys][ld]
-  float* Ds = reinterpret_cast<float*>(Vs + 2 * tile);  // [kRows]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
-  const size_t base = static_cast<size_t>(blockIdx.x) * L * D;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * L;
-  const int row = q0 + warp * 16 + g;  // this thread's rows: row, row + 8
-  const int lim_lo = key_limit(row, L, causal, tq, tk);
-  const int lim_hi = key_limit(row + 8, L, causal, tq, tk);
-  const int lo_lo = key_lower(row, window, tq, tk);
-  const int lo_hi = key_lower(row + 8, window, tq, tk);
-  const int kend = key_limit(min(q0 + kRows, L) - 1, L, causal, tq, tk);
-  const int kbeg = key_lower(q0, window, tq, tk) / kKeys * kKeys;
-  const int n_tiles = (kend - kbeg + kKeys - 1) / kKeys;
-
-  load_rows<DK>(Qs, q + base, q0, L, D);
-  load_rows<DK>(dOs, dout + base, q0, L, D);
-  load_rows<DK>(Ks, k + base, kbeg, L, D);
-  load_rows<DK>(Vs, v + base, kbeg, L, D);
-  load_rows<DK>(Vs + tile, o + base, q0, L, D);  // V's second stage, for now
-  lm::cp_async_commit();
-  // lse of a row past L is undefined: its P is masked to 0 below
-  const float ls_lo = row < L ? lse[row0 + row] * kLog2e : 0.f;
-  const float ls_hi = row + 8 < L ? lse[row0 + row + 8] * kLog2e : 0.f;
-  lm::cp_async_wait<0>();
-  __syncthreads();
-  {  // D = rowsum(dO o), two threads a row (zeros past L and D)
-    const int r = threadIdx.x >> 1, part = threadIdx.x & 1, qp = q0 + r;
-    const bf16* Os = Vs + tile;
-    float acc = 0.f;
-    for (int d = 2 * part; d < dd; d += 4) {
-      const float2 a = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(dOs + r * ld + d));
-      const float2 b = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(Os + r * ld + d));
-      acc = fmaf(a.y, b.y, fmaf(a.x, b.x, acc));
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (part == 0) {
-      Ds[r] = acc;
-      if (qp < L) dsum[row0 + qp] = acc;
-    }
-  }
-  uint32_t qf[DK][4], df[DK][4];
-#pragma unroll
-  for (int kk = 0; kk < DK; ++kk) {
-    lm::ldmatrix_x4(qf[kk], lm::smem_u32(Qs + a_frag(ld, warp * 16, kk)));
-    lm::ldmatrix_x4(df[kk], lm::smem_u32(dOs + a_frag(ld, warp * 16, kk)));
-  }
-  __syncthreads();  // V's second stage is refilled next
-  const float D_lo = Ds[warp * 16 + g], D_hi = Ds[warp * 16 + g + 8];
-
-  float acc[2 * DK][4];
-#pragma unroll
-  for (int j = 0; j < 2 * DK; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1, kt0 = kbeg + it * kKeys;
-    if (it + 1 < n_tiles) {
-      load_rows<DK>(Ks + (st ^ 1) * tile, k + base, kt0 + kKeys, L, D);
-      load_rows<DK>(Vs + (st ^ 1) * tile, v + base, kt0 + kKeys, L, D);
-    }
-    lm::cp_async_commit();
-    lm::cp_async_wait<1>();  // tile `it` has landed
-    __syncthreads();
-    const bf16* Kt = Ks + st * tile;
-    const bf16* Vt = Vs + st * tile;
-
-#pragma unroll 1
-    for (int h = 0; h < 2; ++h) {  // 32 keys at a time
-      const int kh = h * 32;
-      // S = q k^T, then dP = dO v^T (P's exponentials can run beside its
-      // products), over 4 n8 tiles of keys, float32
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DK; ++kk) {
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t b[4];
-          lm::ldmatrix_x4(b, lm::smem_u32(Kt + b_frag(ld, kh + np * 16, kk)));
-          lm::mma_bf16_16816(s[2 * np], qf[kk], b[0], b[1]);
-          lm::mma_bf16_16816(s[2 * np + 1], qf[kk], b[2], b[3]);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < DK; ++kk) {
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t b[4];
-          lm::ldmatrix_x4(b, lm::smem_u32(Vt + b_frag(ld, kh + np * 16, kk)));
-          lm::mma_bf16_16816(dp[2 * np], df[kk], b[0], b[1]);
-          lm::mma_bf16_16816(dp[2 * np + 1], df[kk], b[2], b[3]);
-        }
-      }
-      // P in float32, masked outside each row's key limits (and past L);
-      // dS rounded to bfloat16 as the A fragments of dS k
-      const int k0 = kt0 + kh;
-      const bool cross = k0 + 32 > lim_lo || k0 < lo_hi;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[j][e] = exp2f(fmaf(s[j][e], scale_log2, -ls_lo));
-          s[j][2 + e] = exp2f(fmaf(s[j][2 + e], scale_log2, -ls_hi));
-          if (cross) {
-            const int key = k0 + 8 * j + 2 * t4 + e;
-            if (key >= lim_lo || key < lo_lo) s[j][e] = 0.f;
-            if (key >= lim_hi || key < lo_hi) s[j][2 + e] = 0.f;
-          }
-        }
-      uint32_t da[2][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          ds[e] = s[j][e] * (dp[j][e] - D_lo);
-          ds[2 + e] = s[j][2 + e] * (dp[j][2 + e] - D_hi);
-        }
-        da[j >> 1][2 * (j & 1)] = lm::pack_bf16x2(ds[0], ds[1]);
-        da[j >> 1][2 * (j & 1) + 1] = lm::pack_bf16x2(ds[2], ds[3]);
-      }
-      // dQ += dS k over 2 k16 steps of keys, 2 DK n8 tiles of D
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-        for (int dp2 = 0; dp2 < DK; ++dp2) {
-          uint32_t b[4];
-          lm::ldmatrix_x4_trans(b, lm::smem_u32(Kt + bt_frag(ld, kh + kk * 16, dp2)));
-          lm::mma_bf16_16816(acc[2 * dp2], da[kk], b[0], b[1]);
-          lm::mma_bf16_16816(acc[2 * dp2 + 1], da[kk], b[2], b[3]);
-        }
-    }
-    __syncthreads();  // stage `st` is refilled next
-  }
-  store_rows<DK>(dq + base, acc, row, t4, L, D, scale);
-}
-
-// dK and dV of 64 keys: walks exactly the query tiles some row of which reads one of these keys (neither key
-// limit decreases with the row, so the tiles from the first whose last
-// row's upper limit passes k0 to the last whose first row's lower limit
-// is below k0 + 64).
-template <int DK>
-__global__ void __launch_bounds__(kMmaThreads, kBwdBlocksPerSM)
-    flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ dsum, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int L, int D, int causal, int tq,
-                       int tk, int window, float scale_log2, float scale) {
-  constexpr int dd = 16 * DK, ld = dd + 8, tile = kRows * ld;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kKeys][ld]: the block's
-  bf16* Vs = Ks + tile;                           // keys and values
-  bf16* Qs = Vs + tile;                           // [2][kRows][ld]
-  bf16* dOs = Qs + 2 * tile;                      // [2][kRows][ld]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * tile);  // [2][kRows]
-  float* D_s = lse_s + 2 * kRows;                           // [2][kRows]
-  int* klim_s = reinterpret_cast<int*>(D_s + 2 * kRows);    // [2][kRows]
-  int* klo_s = klim_s + 2 * kRows;                          // [2][kRows]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int k0 = blockIdx.y * kKeys;  // the causal heavy blocks first
-  const size_t base = static_cast<size_t>(blockIdx.x) * L * D;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * L;
-  const int key = k0 + warp * 16 + g;  // this thread's keys: key, key + 8
-  const int n_qt = (L + kRows - 1) / kRows;
-  int first = 0, last = n_qt - 1;
-  while (first < n_qt &&
-         key_limit(min((first + 1) * kRows, L) - 1, L, causal, tq, tk) <= k0)
-    ++first;
-  while (last >= first &&
-         key_lower(last * kRows, window, tq, tk) >= k0 + kKeys)
-    --last;
-  const int n_tiles = last - first + 1;
-
-  // query tile i0's rows, lse, D and key limits into stage st
-  auto load_queries = [&](int i0, int st) {
-    load_rows<DK>(Qs + st * tile, q + base, i0, L, D);
-    load_rows<DK>(dOs + st * tile, dout + base, i0, L, D);
-    const int i = threadIdx.x & (kRows - 1), qp = i0 + i;
-    const bool ok = qp < L;
-    const size_t off = row0 + (ok ? qp : 0);
-    if (threadIdx.x < kRows)
-      cp_async4(lm::smem_u32(lse_s + st * kRows + i), lse + off, ok);
-    else
-      cp_async4(lm::smem_u32(D_s + st * kRows + i), dsum + off, ok);
-    if (threadIdx.x < kRows)
-      klim_s[st * kRows + i] = key_limit(qp, L, causal, tq, tk);
-    else
-      klo_s[st * kRows + i] = key_lower(qp, window, tq, tk);
-  };
-  load_rows<DK>(Ks, k + base, k0, L, D);
-  load_rows<DK>(Vs, v + base, k0, L, D);
-  if (n_tiles > 0) load_queries(first * kRows, 0);
-  lm::cp_async_commit();
-
-  float acc_k[2 * DK][4], acc_v[2 * DK][4];
-#pragma unroll
-  for (int j = 0; j < 2 * DK; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1, i0 = (first + it) * kRows;
-    if (it + 1 < n_tiles) load_queries(i0 + kRows, st ^ 1);
-    lm::cp_async_commit();
-    lm::cp_async_wait<1>();  // tile `it` has landed
-    __syncthreads();
-    const bf16* Qt = Qs + st * tile;
-    const bf16* dOt = dOs + st * tile;
-    const float* lse_t = lse_s + st * kRows;
-    const float* D_t = D_s + st * kRows;
-    const int* klim_t = klim_s + st * kRows;
-    const int* klo_t = klo_s + st * kRows;
-    // a row of this tile stops short of this block's last key, starts
-    // past its first, or lies past L
-    const bool cross =
-        i0 + kRows > L || key_limit(i0, L, causal, tq, tk) < k0 + kKeys ||
-        key_lower(i0 + kRows - 1, window, tq, tk) > k0;
-
-#pragma unroll 1
-    for (int h = 0; h < 2; ++h) {  // 32 queries at a time
-      const int qh = h * 32;
-      // S^T = k q^T, then dP^T = v dO^T (P^T's exponentials can run beside
-      // its products), over 4 n8 tiles of queries
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DK; ++kk) {
-        uint32_t a[4];
-        lm::ldmatrix_x4(a, lm::smem_u32(Ks + a_frag(ld, warp * 16, kk)));
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t b[4];
-          lm::ldmatrix_x4(b, lm::smem_u32(Qt + b_frag(ld, qh + np * 16, kk)));
-          lm::mma_bf16_16816(s[2 * np], a, b[0], b[1]);
-          lm::mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < DK; ++kk) {
-        uint32_t a[4];
-        lm::ldmatrix_x4(a, lm::smem_u32(Vs + a_frag(ld, warp * 16, kk)));
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t b[4];
-          lm::ldmatrix_x4(b, lm::smem_u32(dOt + b_frag(ld, qh + np * 16, kk)));
-          lm::mma_bf16_16816(dp[2 * np], a, b[0], b[1]);
-          lm::mma_bf16_16816(dp[2 * np + 1], a, b[2], b[3]);
-        }
-      }
-      // P^T (keys as rows), masked past each query's key limit (and past
-      // L), rounded to bfloat16 as the A fragments of P^T dO
-      uint32_t pa[2][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = qh + 8 * j + 2 * t4;  // queries qi, qi + 1
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float ls = lse_t[qi + e] * kLog2e;
-          s[j][e] = exp2f(fmaf(s[j][e], scale_log2, -ls));
-          s[j][2 + e] = exp2f(fmaf(s[j][2 + e], scale_log2, -ls));
-          if (cross) {
-            const int lim = klim_t[qi + e], lo = klo_t[qi + e];
-            if (key >= lim || key < lo) s[j][e] = 0.f;
-            if (key + 8 >= lim || key + 8 < lo) s[j][2 + e] = 0.f;
-          }
-        }
-        pa[j >> 1][2 * (j & 1)] = lm::pack_bf16x2(s[j][0], s[j][1]);
-        pa[j >> 1][2 * (j & 1) + 1] = lm::pack_bf16x2(s[j][2], s[j][3]);
-      }
-      // dV += P^T dO over 2 k16 steps of queries (dS^T can run beside it)
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-        for (int dp2 = 0; dp2 < DK; ++dp2) {
-          uint32_t b[4];
-          lm::ldmatrix_x4_trans(
-              b, lm::smem_u32(dOt + bt_frag(ld, qh + kk * 16, dp2)));
-          lm::mma_bf16_16816(acc_v[2 * dp2], pa[kk], b[0], b[1]);
-          lm::mma_bf16_16816(acc_v[2 * dp2 + 1], pa[kk], b[2], b[3]);
-        }
-      // dS^T = P^T (dP^T - D), rounded to bfloat16 as the A fragments of
-      // dS^T q; then dK += dS^T q
-      uint32_t da[2][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = qh + 8 * j + 2 * t4;
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float dsum_q = D_t[qi + e];
-          ds[e] = s[j][e] * (dp[j][e] - dsum_q);
-          ds[2 + e] = s[j][2 + e] * (dp[j][2 + e] - dsum_q);
-        }
-        da[j >> 1][2 * (j & 1)] = lm::pack_bf16x2(ds[0], ds[1]);
-        da[j >> 1][2 * (j & 1) + 1] = lm::pack_bf16x2(ds[2], ds[3]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-        for (int dp2 = 0; dp2 < DK; ++dp2) {
-          uint32_t b[4];
-          lm::ldmatrix_x4_trans(
-              b, lm::smem_u32(Qt + bt_frag(ld, qh + kk * 16, dp2)));
-          lm::mma_bf16_16816(acc_k[2 * dp2], da[kk], b[0], b[1]);
-          lm::mma_bf16_16816(acc_k[2 * dp2 + 1], da[kk], b[2], b[3]);
-        }
-    }
-    __syncthreads();  // stage `st` is refilled next
-  }
-  store_rows<DK>(dk + base, acc_k, key, t4, L, D, scale);
-  store_rows<DK>(dv + base, acc_v, key, t4, L, D, 1.f);
-}
-
-template <int DK>
-int launch_bwd_mma(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, const float* lse,
-                   void* dq, void* dk, void* dv, float* dsum, int bh, int L,
-                   int D, int causal, int tq, int tk, int window,
-                   float scale, cudaStream_t stream) {
-  constexpr size_t smem = bwd_mma_smem_bytes<DK>();
-  cudaError_t e = lm::allow_smem(flash_bwd_dq_mma<DK>, smem);
-  if (e == cudaSuccess) e = lm::allow_smem(flash_bwd_dkdv_mma<DK>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(bh, (L + kRows - 1) / kRows);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* dob = static_cast<const bf16*>(dout);
-  const float scale_log2 = scale * kLog2e;
-  flash_bwd_dq_mma<DK><<<grid, kMmaThreads, smem, stream>>>(
-      qb, kb, vb, static_cast<const bf16*>(o), dob, lse,
-      static_cast<bf16*>(dq), dsum, L, D, causal, tq, tk, window, scale_log2,
-      scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkdv_mma<DK><<<grid, kMmaThreads, smem, stream>>>(
-      qb, kb, vb, dob, lse, dsum, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), L, D, causal, tq, tk, window, scale_log2,
-      scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------------ backward, bf16, D > 128
-// flash_bwd_dq_wgmma<D> and flash_bwd_dkdv_wgmma<D> (D 192, 256): Hopper's
-// wgmma and TMA, two warpgroups a block, 64-row tiles in 64-column boxes
-// with the 128-byte swizzle through the forward's 3-D head maps. See the
-// header.
 template <int D>
 struct BwdTiles {
+  // At D <= 128 each warpgroup owns 64 of a block's 128 query rows (dQ)
+  // or keys (dK/dV) and runs the whole chain on them. Past 128 the sums
+  // do not fit beside S and dP: a block owns 64, and its dQ pass's
+  // warpgroups split each tile's keys, its dK/dV pass's the roles.
+  static constexpr bool kNarrow = D <= 128;
+  static constexpr int kDqRows = kNarrow ? 128 : 64;  // query rows a block
+  static constexpr int kKvKeys = kNarrow ? 128 : 64;  // keys a block
   static constexpr int kBoxes = D / kBox;
   static constexpr uint32_t kBoxBytes = kRows * kBox * 2;      // 8 KB
   static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;   // 64 x D
-  static constexpr uint32_t kPBytes = kRows * kKeys * 4;       // P^T
+  static constexpr uint32_t kQBytes = kDqRows / 64 * kTileBytes;  // q, dO
+  static constexpr uint32_t kKBytes = kKvKeys / 64 * kTileBytes;  // k, v
+  // P^T, which the role split hands between its warpgroups
+  static constexpr uint32_t kPBytes = kKvKeys == 64 ? kRows * kKeys * 4 : 0;
   // each query's lse log2 e, D and its two key limits
   static constexpr uint32_t kColBytes = 4 * kRows * 4;
-  static constexpr size_t kBars = 512;  // barriers, counts, D of 64 rows
+  static constexpr size_t kBars = 1024;  // barriers, counts, D of the rows
   static constexpr size_t kMax = 227 * 1024 - 1024 - kBars;
-  // dQ: q and dO once, v in a ring of kDqV slots (2 at D 256, 3 at D 192)
-  // and k, held a tile longer (dS k runs beside the next tile's S), in
-  // one of kDqK (3 at D 256, 4 at D 192)
-  static constexpr int kDqV = (kMax - 2 * kTileBytes) / (2 * kTileBytes);
+  // dQ: q and dO once, v in a ring of kDqV slots (2 at D <= 128 and D
+  // 256, 3 at D 192) and k, held a tile longer (dS k runs beside the next
+  // tile's S), in one of kDqK (one more)
+  static constexpr int kDqV =
+      kNarrow ? 2 : (kMax - 2 * kQBytes) / (2 * kTileBytes);
   static constexpr int kDqK =
-      (kMax - 2 * kTileBytes - kDqV * kTileBytes) / kTileBytes;
+      kNarrow ? kDqV + 1
+              : (kMax - 2 * kQBytes - kDqV * kTileBytes) / kTileBytes;
   static constexpr size_t kDqSmem =
-      1024 + (2 + kDqK + kDqV) * kTileBytes + kBars;
+      1024 + 2 * kQBytes + (kDqK + kDqV) * kTileBytes + kBars;
   // dK/dV: k and v once, q, dO and the queries' lse, D and key limits in
-  // a ring of kKvStages (2 at D 256, 3 at D 192), P^T
+  // a ring of kKvStages (4 at D <= 128, 2 at D 256, 3 at D 192). At D <=
+  // 128 a slot is held from its tile's S^T to the next tile's dK and dV:
+  // with 2 its refill had no time to land (Whisper's backward 2.48 ms,
+  // 2.21 with 4; scripts/flash_bwd_ablate.py)
   static constexpr int kKvStages =
-      (kMax - 2 * kTileBytes - kPBytes) / (2 * kTileBytes + kColBytes);
-  static constexpr size_t kKvSmem = 1024 + 2 * kTileBytes +
+      kNarrow ? 4
+              : (kMax - 2 * kKBytes - kPBytes) /
+                    (2 * kTileBytes + kColBytes);
+  static constexpr size_t kKvSmem = 1024 + 2 * kKBytes +
                                     kKvStages * (2 * kTileBytes + kColBytes) +
                                     kPBytes + kBars;
 };
@@ -1687,12 +1252,15 @@ __host__ __device__ constexpr int kstep_offset() {
   return (KK / 4 * BwdTiles<D>::kBoxBytes + KK % 4 * 32) / 16;
 }
 
-// dQ of 64 query rows, and D = rowsum(dO o) of them for the dK/dV pass.
-// Warpgroup c takes keys 32 c .. 32 c + 31 of each 64-key tile: S = q
-// k^T and dP = dO v^T (wgmma m64n32k16, both operands from shared
-// memory), P and dS in float32 registers, dS rounded to bfloat16 as the
-// A fragments of dQ_c += dS k (m64nDk16, k as transposed B); the two
-// warpgroups' sums are added once, at the end, in a fixed order.
+// dQ of a block's query rows, and D = rowsum(dO o) of them for the dK/dV
+// pass. At D <= 128 the block owns 128 rows and warpgroup c rows 64 c..,
+// over every key of each 64-key tile the block reaches: S = q k^T and dP =
+// dO v^T (wgmma m64n64k16, both operands from shared memory). Past 128
+// the block owns 64 rows and warpgroup c keys 32 c.. of every tile
+// (m64n32k16), each with a sum of its own, the two added once at the end
+// in a fixed order. Either way P and dS are float32 registers, dS rounded
+// to bfloat16 as the A fragments of dQ += dS k (m64nDk16, k as
+// transposed B).
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
@@ -1703,31 +1271,36 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                        const bf16* __restrict__ dout,
                        const float* __restrict__ lse, bf16* __restrict__ dq,
                        float* __restrict__ cols, int L, int Dr, int causal,
-                       int tq, int tk, int window, float scale_log2,
-                       float scale) {
+                       int tq, int tk, int window, int heads_fast,
+                       float scale_log2, float scale) {
   using T = BwdTiles<D>;
-  constexpr int SK = T::kDqK, SV = T::kDqV, NB = T::kBoxes, NO = D / 2;
-  constexpr int KS = D / 16;
+  constexpr bool kN = T::kDqRows == 128;  // a warpgroup's own rows
+  constexpr int R = T::kDqRows, SK = T::kDqK, SV = T::kDqV;
+  constexpr int NB = T::kBoxes, NO = D / 2, KS = D / 16;
+  // a warpgroup's keys of a tile, S's (and dP's) registers, dS's k-steps
+  constexpr int KW = kN ? kKeys : kKeys / 2, NS = KW / 2, NK = KW / 16;
   static_assert(SV >= 2 && SK > SV && T::kDqSmem <= 227 * 1024,
                 "the rings do not fit");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = lm::smem_u32(smem_raw);
-  const uint32_t qs = (base + 1023u) & ~1023u;  // the swizzle's period
-  const uint32_t dos = qs + T::kTileBytes;
-  const uint32_t ks = dos + T::kTileBytes;        // [SK][NB][64 keys][64]
+  const uint32_t qs = (base + 1023u) & ~1023u;  // [R / 64][NB][64][64]
+  const uint32_t dos = qs + T::kQBytes;
+  const uint32_t ks = dos + T::kQBytes;           // [SK][NB][64 keys][64]
   const uint32_t vs = ks + SK * T::kTileBytes;    // [SV][NB][64 keys][64]
   const uint32_t q_full = vs + SV * T::kTileBytes;  // q and dO
   const uint32_t k_full = q_full + 8, v_full = k_full + 8 * SK;
   int* k_done = reinterpret_cast<int*>(smem_raw + (v_full + 8 * SV - base));
   int* v_done = k_done + SK;
-  float* Ds = reinterpret_cast<float*>(v_done + SV);  // [64]
+  float* Ds = reinterpret_cast<float*>(v_done + SV);  // [R]
 
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
+  const int bh = heads_fast ? blockIdx.x : blockIdx.y;
+  const int blk = heads_fast ? blockIdx.y : blockIdx.x;
+  const int n_blk = heads_fast ? gridDim.y : gridDim.x;
+  const int q0 = (n_blk - 1 - blk) * R;  // heaviest first
   const size_t row0 = static_cast<size_t>(bh) * L;
   // neither key limit decreases with the row: the block's last row has
   // the largest upper one, its first row the smallest lower one
-  const int kend = key_limit(min(q0 + kRows, L) - 1, L, causal, tq, tk);
+  const int kend = key_limit(min(q0 + R, L) - 1, L, causal, tq, tk);
   const int kbeg = key_lower(q0, window, tq, tk) / kKeys * kKeys;
   const int n_tiles = (kend - kbeg + kKeys - 1) / kKeys;  // at least 1
   // tile j of k or v into its slot of a ring of S; keys past L (and
@@ -1753,34 +1326,41 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       v_done[s] = 0;
     }
     lm::mbar_fence_init();
-    lm::mbar_expect_tx(q_full, 2 * T::kTileBytes);
-    for (int b = 0; b < NB; ++b) {
-      lm::tma_load_3d(qs + b * T::kBoxBytes, &map_q, q_full, b * kBox, q0,
-                      bh);
-      lm::tma_load_3d(dos + b * T::kBoxBytes, &map_do, q_full, b * kBox, q0,
-                      bh);
-    }
+    // the 64-row tiles of q and dO that hold a row below L
+    const int halves = R == kRows ? 1 : (min(R, L - q0) + kRows - 1) / kRows;
+    lm::mbar_expect_tx(q_full, 2 * halves * T::kTileBytes);
+    for (int h = 0; h < halves; ++h)
+      for (int b = 0; b < NB; ++b) {
+        const uint32_t at = h * T::kTileBytes + b * T::kBoxBytes;
+        lm::tma_load_3d(qs + at, &map_q, q_full, b * kBox, q0 + h * kRows,
+                        bh);
+        lm::tma_load_3d(dos + at, &map_do, q_full, b * kBox, q0 + h * kRows,
+                        bh);
+      }
     for (int j = 0; j < min(SK, n_tiles); ++j)
       load(&map_k, ks, k_full, SK, j);
     for (int j = 0; j < min(SV, n_tiles); ++j)
       load(&map_v, vs, v_full, SV, j);
   }
+  const int c = threadIdx.x / 128;  // rows 64 c.. (D <= 128), or keys 32 c..
   const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
-  const int r_lo = warp * 16 + g, row = q0 + r_lo;  // rows: row, row + 8
+  const int r_lo = (kN ? 64 * c : 0) + warp * 16 + g;  // rows r_lo, + 8
+  const int row = q0 + r_lo;
   // lse of a row past L is undefined: read as 0, its P masked to 0 (read
   // here, used after D's loop)
   const float lse_lo = row < L ? lse[row0 + row] : 0.f;
   const float lse_hi = row + 8 < L ? lse[row0 + row + 8] : 0.f;
-  {  // D = rowsum(dO o) while the tiles land: four threads a row, 16-byte
-     // loads (Dr % 8 == 0, 16-byte aligned rows), 0 past L
-    const int r = threadIdx.x >> 2, part = threadIdx.x & 3, qp = q0 + r;
+  {  // D = rowsum(dO o) while the tiles land: 256 / R threads a row,
+     // 16-byte loads (Dr % 8 == 0, 16-byte aligned rows), 0 past L
+    constexpr int TPR = kWgThreads / R;
+    const int r = threadIdx.x / TPR, part = threadIdx.x % TPR, qp = q0 + r;
     float acc = 0.f;
     if (qp < L) {
       const uint4* a = reinterpret_cast<const uint4*>(dout + (row0 + qp) * Dr);
       const uint4* b = reinterpret_cast<const uint4*>(o + (row0 + qp) * Dr);
-      for (int c = part; c < Dr / 8; c += 4) {
-        const uint4 x = a[c], y = b[c];
+      for (int i = part; i < Dr / 8; i += TPR) {
+        const uint4 x = a[i], y = b[i];
         const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
         const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
@@ -1791,13 +1371,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
       }
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+#pragma unroll
+    for (int off = 1; off < TPR; off <<= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (part == 0) Ds[r] = acc;
   }
   __syncthreads();
 
-  const int c = threadIdx.x / 128;  // this warpgroup's keys: 32 c..
   const int lim_lo = key_limit(row, L, causal, tq, tk);
   const int lim_hi = key_limit(row + 8, L, causal, tq, tk);
   const int lo_lo = key_lower(row, window, tq, tk);
@@ -1805,11 +1385,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const float ls_lo = lse_lo * kLog2e, ls_hi = lse_hi * kLog2e;
   const float D_lo = Ds[r_lo], D_hi = Ds[r_lo + 8];
   // the rows' lse log2 e, D and key limits for the dK/dV pass, in 64-row
-  // chunks ([BH][4][Lp]; lse and D 0 past L, and the upper limit 0),
-  // which it brings in bulk copies
-  if (c == 0 && t4 == 0) {
-    const int lp = gridDim.x * kRows;
-    float* cb = cols + 4 * static_cast<size_t>(bh) * lp + q0 + r_lo;
+  // chunks ([BH][4][Lp], Lp = L rounded up to 64; lse and D 0 past L, and
+  // the upper limit 0), which it brings in bulk copies
+  const int lp = (L + kRows - 1) / kRows * kRows;
+  if ((kN || c == 0) && t4 == 0 && row < lp) {  // row + 8 too: lp % 16 == 0
+    float* cb = cols + 4 * static_cast<size_t>(bh) * lp + row;
     cb[0] = ls_lo;
     cb[8] = ls_hi;
     cb[lp] = D_lo;
@@ -1830,53 +1410,55 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (leader && (atomicAdd(&v_done[j % SV], 1) & 1) && j + SV < n_tiles)
       load(&map_v, vs, v_full, SV, j + SV);
   };
-
-  float acc[NO];  // dQ_c, 64 x D float32 over the warpgroup
+  float acc[NO];  // dQ (of this warpgroup's keys past D 128), float32
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
-  float s[16], dp[16];  // S, then dS; dP: d[4 n + e], 4 n8 tiles of keys
+  float s[NS], dp[NS];  // S, then dS; dP: d[4 n + e], KW / 8 n8 tiles
 #pragma unroll
-  for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
-  uint32_t da[2][4];  // dS in bfloat16, the A fragments of 2 k16 steps
+  for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
+  uint32_t da[NK][4];  // dS in bfloat16, the A fragments of NK k16 steps
   const uint32_t hi = lm::desc_hi_sw128(1024);
-  const uint32_t q_lo = lm::desc_lo(qs, 16), do_lo = lm::desc_lo(dos, 16);
+  const uint32_t q_lo = lm::desc_lo(qs + (kN ? c * T::kTileBytes : 0), 16);
+  const uint32_t do_lo = lm::desc_lo(dos + (kN ? c * T::kTileBytes : 0), 16);
+  const uint32_t kc = kN ? 0 : c * 32 * 128;  // this warpgroup's keys
   auto issue_sdp = [&](int j) {  // S = q k^T, dP = dO v^T: D / 16 k-steps
-    const uint32_t k_lo =
-        lm::desc_lo(ks + j % SK * T::kTileBytes + c * 32 * 128, 16);
-    const uint32_t v_lo =
-        lm::desc_lo(vs + j % SV * T::kTileBytes + c * 32 * 128, 16);
+    const uint32_t k_lo = lm::desc_lo(ks + j % SK * T::kTileBytes + kc, 16);
+    const uint32_t v_lo = lm::desc_lo(vs + j % SV * T::kTileBytes + kc, 16);
     static_for<KS>([&](auto step) {
       constexpr int kk = decltype(step)::value;
       constexpr int o16 = kstep_offset<D, kk>();
-      lm::wgmma_m64n32k16_ss<o16, o16>(s, q_lo, k_lo, hi, kk > 0);
+      if constexpr (kN)
+        lm::wgmma_m64n64k16_ss<o16, o16>(s, q_lo, k_lo, hi, kk > 0);
+      else
+        lm::wgmma_m64n32k16_ss<o16, o16>(s, q_lo, k_lo, hi, kk > 0);
     });
     static_for<KS>([&](auto step) {
       constexpr int kk = decltype(step)::value;
       constexpr int o16 = kstep_offset<D, kk>();
-      lm::wgmma_m64n32k16_ss<o16, o16>(dp, do_lo, v_lo, hi, kk > 0);
+      if constexpr (kN)
+        lm::wgmma_m64n64k16_ss<o16, o16>(dp, do_lo, v_lo, hi, kk > 0);
+      else
+        lm::wgmma_m64n32k16_ss<o16, o16>(dp, do_lo, v_lo, hi, kk > 0);
     });
     lm::wgmma_commit();
   };
-  auto issue_dq = [&](int j) {  // dQ_c += dS k, 2 k-steps of 16 keys
-    const uint32_t k_lo = lm::desc_lo(
-        ks + j % SK * T::kTileBytes + c * 32 * 128, T::kBoxBytes);
-    static_for<2>([&](auto step) {
+  auto issue_dq = [&](int j) {  // dQ += dS k, NK k-steps of 16 keys
+    const uint32_t k_lo =
+        lm::desc_lo(ks + j % SK * T::kTileBytes + kc, T::kBoxBytes);
+    static_for<NK>([&](auto step) {
       constexpr int kk = decltype(step)::value;
-      if constexpr (D == 256)
-        lm::wgmma_m64n256k16_rs_tb<kk * 2048 / 16>(acc, da[kk], k_lo, hi);
-      else
-        lm::wgmma_m64n192k16_rs_tb<kk * 2048 / 16>(acc, da[kk], k_lo, hi);
+      wgmma_rs_tb<D, kk * 2048 / 16>(acc, da[kk], k_lo, hi);
     });
     lm::wgmma_commit();
   };
   // P = exp2(S scale log2 e - lse log2 e) in float32, masked outside each
-  // row's key limits (only where the half crosses one), then dS = P (dP -
+  // row's key limits (only where the keys cross one), then dS = P (dP -
   // D) in place of S
   auto grads = [&](int j) {
-    const int kb = kbeg + j * kKeys + 32 * c;
-    const bool cross = kb + 32 > lim_lo || kb < lo_hi;
+    const int kb = kbeg + j * kKeys + (kN ? 0 : 32 * c);
+    const bool cross = kb + KW > lim_lo || kb < lo_hi;
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < KW / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float p_lo = ex2(fmaf(s[4 * n + e], scale_log2, -ls_lo));
@@ -1892,95 +1474,121 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   };
   auto pack = [&]() {  // k16 step kk: the n8 tiles 2 kk and 2 kk + 1
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
+    for (int kk = 0; kk < NK; ++kk)
 #pragma unroll
       for (int h = 0; h < 4; ++h)
         da[kk][h] = lm::pack_bf16x2(s[8 * kk + 2 * h], s[8 * kk + 2 * h + 1]);
   };
 
   // S and dP of tile j are issued beside dQ of tile j - 1, and P and dS
-  // of tile j run under the latter
-  lm::mbar_wait(q_full, 0);
-  lm::mbar_wait(k_full, 0);
-  lm::mbar_wait(v_full, 0);
-  lm::wgmma_fence();
-  issue_sdp(0);
-  lm::wgmma_wait<0>();
-  lm::fence_regs(s);
-  lm::fence_regs(dp);
-  release_v(0);
-  grads(0);
-  pack();
-  for (int j = 1; j < n_tiles; ++j) {
-    lm::mbar_wait(k_full + 8 * (j % SK), (j / SK) & 1);
-    lm::mbar_wait(v_full + 8 * (j % SV), (j / SV) & 1);
-    lm::fence_regs(acc);
+  // of tile j run under the latter. Both warpgroups walk every tile of the
+  // block (a row's keys outside its limits are masked; skipping a tile
+  // outside a warpgroup's rows' limits measured slower), but at D <= 128
+  // one whose rows all lie past L, its q and dO not loaded, waits for each
+  // tile (a slot's barrier phases are read in order) and releases it
+  // unread.
+  if (kN && q0 + 64 * c >= L) {
+    for (int j = 0; j < n_tiles; ++j) {
+      lm::mbar_wait(k_full + 8 * (j % SK), (j / SK) & 1);
+      lm::mbar_wait(v_full + 8 * (j % SV), (j / SV) & 1);
+      release_k(j);
+      release_v(j);
+    }
+  } else {
+    lm::mbar_wait(q_full, 0);
+    lm::mbar_wait(k_full, 0);
+    lm::mbar_wait(v_full, 0);
+    lm::wgmma_fence();
+    issue_sdp(0);
+    lm::wgmma_wait<0>();
     lm::fence_regs(s);
     lm::fence_regs(dp);
+    release_v(0);
+    grads(0);
+    pack();
+    for (int j = 1; j < n_tiles; ++j) {
+      lm::mbar_wait(k_full + 8 * (j % SK), (j / SK) & 1);
+      lm::mbar_wait(v_full + 8 * (j % SV), (j / SV) & 1);
+      lm::fence_regs(acc);
+      lm::fence_regs(s);
+      lm::fence_regs(dp);
+      lm::fence_regs(da);
+      lm::wgmma_fence();
+      issue_sdp(j);
+      issue_dq(j - 1);
+      lm::wgmma_wait<1>();  // S and dP of tile j
+      lm::fence_regs(s);
+      lm::fence_regs(dp);
+      release_v(j);
+      grads(j);
+      lm::wgmma_wait<0>();  // dQ of tile j - 1
+      lm::fence_regs(acc);
+      lm::fence_regs(da);
+      release_k(j - 1);
+      pack();
+    }
+    lm::fence_regs(acc);
     lm::fence_regs(da);
     lm::wgmma_fence();
-    issue_sdp(j);
-    issue_dq(j - 1);
-    lm::wgmma_wait<1>();  // S and dP of tile j
-    lm::fence_regs(s);
-    lm::fence_regs(dp);
-    release_v(j);
-    grads(j);
-    lm::wgmma_wait<0>();  // dQ of tile j - 1
+    issue_dq(n_tiles - 1);
+    lm::wgmma_wait<0>();
     lm::fence_regs(acc);
     lm::fence_regs(da);
-    release_k(j - 1);
-    pack();
+    release_k(n_tiles - 1);
   }
-  lm::fence_regs(acc);
-  lm::fence_regs(da);
-  lm::wgmma_fence();
-  issue_dq(n_tiles - 1);
-  lm::wgmma_wait<0>();
-  lm::fence_regs(acc);
-  lm::fence_regs(da);
-  release_k(n_tiles - 1);
 
-  // dQ = scale (dQ_0 + dQ_1): warpgroup 1's sum through k's ring, free
-  // once both warpgroups' products are done, in its register order
-  __syncthreads();
-  float4* red = reinterpret_cast<float4*>(smem_raw + (ks - base));
-  const int tw = threadIdx.x % 128;
-  if (c == 1) {
+  if constexpr (!kN) {
+    // dQ = dQ_0 + dQ_1: warpgroup 1's sum through k's ring, free once
+    // both warpgroups' products are done, in its register order
+    __syncthreads();
+    float4* red = reinterpret_cast<float4*>(smem_raw + (ks - base));
+    const int tw = threadIdx.x % 128;
+    if (c == 1) {
 #pragma unroll
-    for (int n = 0; n < NO / 4; ++n)
-      red[n * 128 + tw] = make_float4(acc[4 * n], acc[4 * n + 1],
-                                      acc[4 * n + 2], acc[4 * n + 3]);
+      for (int n = 0; n < NO / 4; ++n)
+        red[n * 128 + tw] = make_float4(acc[4 * n], acc[4 * n + 1],
+                                        acc[4 * n + 2], acc[4 * n + 3]);
+    }
+    __syncthreads();
+    if (c == 1) return;
+#pragma unroll
+    for (int n = 0; n < NO / 4; ++n) {
+      const float4 x = red[n * 128 + tw];
+      acc[4 * n] += x.x;
+      acc[4 * n + 1] += x.y;
+      acc[4 * n + 2] += x.z;
+      acc[4 * n + 3] += x.w;
+    }
   }
-  __syncthreads();
-  if (c == 1) return;
   bf16* dqb = dq + row0 * Dr;
 #pragma unroll
   for (int n = 0; n < NO / 4; ++n) {
-    const float4 x = red[n * 128 + tw];
     const int d = 8 * n + 2 * t4;  // Dr % 8 == 0: the pair is whole
     if (d >= Dr) continue;
-    if (row < L)
-      *reinterpret_cast<uint32_t*>(dqb + static_cast<size_t>(row) * Dr + d) =
-          lm::pack_bf16x2((acc[4 * n] + x.x) * scale,
-                          (acc[4 * n + 1] + x.y) * scale);
-    if (row + 8 < L)
-      *reinterpret_cast<uint32_t*>(dqb + static_cast<size_t>(row + 8) * Dr +
-                                   d) =
-          lm::pack_bf16x2((acc[4 * n + 2] + x.z) * scale,
-                          (acc[4 * n + 3] + x.w) * scale);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row + 8 * h < L)
+        *reinterpret_cast<uint32_t*>(dqb +
+                                     static_cast<size_t>(row + 8 * h) * Dr +
+                                     d) =
+            lm::pack_bf16x2(acc[4 * n + 2 * h] * scale,
+                            acc[4 * n + 2 * h + 1] * scale);
   }
 }
 
-// named barriers of flash_bwd_dkdv_wgmma: P^T written, P^T read
+// named barriers of flash_bwd_dkdv_wgmma's role split: P^T written, read
 constexpr int kPFull = 1, kPEmpty = 2;
 
-// dK and dV of 64 keys, split by role: warpgroup 0 forms S^T = k q^T,
-// P^T (float32, to shared memory for warpgroup 1) and dV += P^T dO;
-// warpgroup 1 forms dP^T = v dO^T beside S^T, then dS^T = P^T (dP^T - D)
-// and dK += dS^T q. The query tiles (q, dO) come in a ring, walked over
-// exactly the tiles some row of which reads one of these keys (as in
-// flash_bwd_dkdv_mma).
+// dK and dV of a block's keys over exactly the 64-query tiles some row of
+// which reads one of them (q, dO and the queries' lse, D and key limits in
+// a ring). At D <= 128 the block owns 128 keys and warpgroup c keys 64
+// c.., each walking every tile of the block: S^T = k q^T and dP^T = v dO^T
+// (m64n64k16 from shared memory), P^T and dS^T = P^T (dP^T - D) in
+// float32 registers, rounded into the A fragments of dV += P^T dO and dK
+// += dS^T q (m64nDk16, dO and q as transposed B). Past 128 the block owns
+// 64 keys and the warpgroups split by role: warpgroup 0 forms S^T, P^T
+// (float32, to shared memory for warpgroup 1) and dV += P^T dO;
+// warpgroup 1 forms dP^T beside S^T, then dS^T and dK += dS^T q.
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap map_q,
@@ -1990,38 +1598,38 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                          const float* __restrict__ cols,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int L,
                          int Dr, int causal, int tq, int tk, int window,
-                         float scale_log2, float scale) {
+                         int heads_fast, float scale_log2, float scale) {
   using T = BwdTiles<D>;
-  constexpr int S = T::kKvStages, NB = T::kBoxes, NO = D / 2, KS = D / 16;
+  constexpr bool kN = T::kKvKeys == 128;  // a warpgroup's own keys
+  constexpr int KB = T::kKvKeys, S = T::kKvStages, NB = T::kBoxes;
+  constexpr int NO = D / 2, KS = D / 16;
   static_assert(S >= 2 && T::kKvSmem <= 227 * 1024, "the ring does not fit");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = lm::smem_u32(smem_raw);
-  const uint32_t ks = (base + 1023u) & ~1023u;  // the swizzle's period
-  const uint32_t vs = ks + T::kTileBytes;
-  const uint32_t qs = vs + T::kTileBytes;       // [S][NB][64 queries][64]
+  const uint32_t ks = (base + 1023u) & ~1023u;  // [KB / 64][NB][64][64]
+  const uint32_t vs = ks + T::kKBytes;
+  const uint32_t qs = vs + T::kKBytes;          // [S][NB][64 queries][64]
   const uint32_t dos = qs + S * T::kTileBytes;  // [S][NB][64 queries][64]
-  const uint32_t ps = dos + S * T::kTileBytes;  // P^T, float32
+  const uint32_t ps = dos + S * T::kTileBytes;  // P^T, float32 (past 128)
   const uint32_t cs = ps + T::kPBytes;  // [S][lse log2 e, D, limits][64]
   const uint32_t kv_full = cs + S * T::kColBytes, full = kv_full + 8;
   int* done = reinterpret_cast<int*>(smem_raw + (full + 8 * S - base));
-  float4* P_s = reinterpret_cast<float4*>(smem_raw + (ps - base));
   const float* C_s = reinterpret_cast<const float*>(smem_raw + (cs - base));
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kKeys;  // the causal heavy blocks first
+  const int bh = heads_fast ? blockIdx.x : blockIdx.y;
+  const int k0 = (heads_fast ? blockIdx.y : blockIdx.x) * KB;  // heavy first
   const size_t row0 = static_cast<size_t>(bh) * L;
-  const int lp = gridDim.x * kRows;  // cols' rows a head: L to 64 rows
+  const int lp = (L + kRows - 1) / kRows * kRows;  // cols' rows a head
   const float* colb = cols + 4 * static_cast<size_t>(bh) * lp;
   // neither key limit decreases with the row: the tiles from the first
   // whose last row's upper limit passes k0 to the last whose first row's
-  // lower limit is below k0 + 64
+  // lower limit is below k0 + KB
   const int n_qt = (L + kRows - 1) / kRows;
   int first = 0, last = n_qt - 1;
   while (first < n_qt &&
          key_limit(min((first + 1) * kRows, L) - 1, L, causal, tq, tk) <= k0)
     ++first;
-  while (last >= first &&
-         key_lower(last * kRows, window, tq, tk) >= k0 + kKeys)
+  while (last >= first && key_lower(last * kRows, window, tq, tk) >= k0 + KB)
     --last;
   const int n_tiles = last - first + 1;  // 0: dK and dV are zero
   // query tile j into its slot: q and dO (rows past L zero-filled), and
@@ -2050,22 +1658,29 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     lm::mbar_fence_init();
     if (n_tiles > 0) {
-      lm::mbar_expect_tx(kv_full, 2 * T::kTileBytes);
-      for (int b = 0; b < NB; ++b) {
-        lm::tma_load_3d(ks + b * T::kBoxBytes, &map_k, kv_full, b * kBox, k0,
-                        bh);
-        lm::tma_load_3d(vs + b * T::kBoxBytes, &map_v, kv_full, b * kBox, k0,
-                        bh);
-      }
+      // the 64-key tiles of k and v that hold a key below L
+      const int halves =
+          KB == kKeys ? 1 : (min(KB, L - k0) + kKeys - 1) / kKeys;
+      lm::mbar_expect_tx(kv_full, 2 * halves * T::kTileBytes);
+      for (int h = 0; h < halves; ++h)
+        for (int b = 0; b < NB; ++b) {
+          const uint32_t at = h * T::kTileBytes + b * T::kBoxBytes;
+          lm::tma_load_3d(ks + at, &map_k, kv_full, b * kBox,
+                          k0 + h * kKeys, bh);
+          lm::tma_load_3d(vs + at, &map_v, kv_full, b * kBox,
+                          k0 + h * kKeys, bh);
+        }
       for (int j = 0; j < min(S, n_tiles); ++j) load(j);
     }
   }
   __syncthreads();
 
-  const int c = threadIdx.x / 128;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  // warpgroup c: keys 64 c.. and the whole chain (D <= 128), or a role
+  const int c = threadIdx.x / 128;
   const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3, tw = threadIdx.x % 128;
-  const int key = k0 + warp * 16 + g;  // this thread's keys: key, key + 8
+  const int kw = k0 + (kN ? 64 * c : 0);  // this warpgroup's first key
+  const int key = kw + warp * 16 + g;     // this thread's: key, key + 8
   const bool leader = tw == 0;
   // both warpgroups are done with query tile j: the second of the slot's
   // two releases requests tile j + S into it
@@ -2073,122 +1688,285 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (leader && (atomicAdd(&done[j % S], 1) & 1) && j + S < n_tiles)
       load(j + S);
   };
-
-  float acc[NO];  // dV (warpgroup 0) or dK (warpgroup 1), 64 x D float32
-#pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
-  float sc[32];  // S^T then P^T, or dP^T then dS^T: d[4 n + e], 8 n8 tiles
-#pragma unroll
-  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-  uint32_t pa[4][4];  // P^T or dS^T in bfloat16, A fragments of 4 k16 steps
   const uint32_t hi = lm::desc_hi_sw128(1024);
-  const uint32_t a_lo = lm::desc_lo(c == 0 ? ks : vs, 16);
-  // S^T = k q^T or dP^T = v dO^T, D / 16 k-steps
-  auto issue_t = [&](int j) {
-    const uint32_t b_lo =
-        lm::desc_lo((c == 0 ? qs : dos) + j % S * T::kTileBytes, 16);
-    static_for<KS>([&](auto step) {
-      constexpr int kk = decltype(step)::value;
-      constexpr int o16 = kstep_offset<D, kk>();
-      lm::wgmma_m64n64k16_ss<o16, o16>(sc, a_lo, b_lo, hi, kk > 0);
-    });
-    lm::wgmma_commit();
-  };
-  // dV += P^T dO or dK += dS^T q, 4 k-steps of 16 queries
-  auto issue_acc = [&](int j) {
-    const uint32_t b_lo = lm::desc_lo(
-        (c == 0 ? dos : qs) + j % S * T::kTileBytes, T::kBoxBytes);
-    static_for<4>([&](auto step) {
-      constexpr int kk = decltype(step)::value;
-      if constexpr (D == 256)
-        lm::wgmma_m64n256k16_rs_tb<kk * 2048 / 16>(acc, pa[kk], b_lo, hi);
-      else
-        lm::wgmma_m64n192k16_rs_tb<kk * 2048 / 16>(acc, pa[kk], b_lo, hi);
-    });
-    lm::wgmma_commit();
-  };
+  bf16* dkb = dk + row0 * Dr;
+  bf16* dvb = dv + row0 * Dr;
 
-  if (n_tiles > 0) {
-    lm::mbar_wait(kv_full, 0);
-    if (c == 1) lm::bar_arrive(kPEmpty, 256);  // P^T's buffer starts free
-  }
-  for (int j = 0; j < n_tiles; ++j) {
-    lm::mbar_wait(full + 8 * (j % S), (j / S) & 1);
-    lm::fence_regs(sc);
-    lm::wgmma_fence();
-    issue_t(j);
-    // this tile's queries' lse log2 e, D, upper and lower key limits: a
-    // thread's are queries 8 n + 2 t and 8 n + 2 t + 1, pair 4 n + t
-    const float2* cv =
-        reinterpret_cast<const float2*>(C_s + (j % S) * 4 * kRows);
-    lm::wgmma_wait<0>();
-    lm::fence_regs(sc);
-    if (c == 0) {
+  if constexpr (kN) {
+    float acc_k[NO], acc_v[NO];  // dK, dV: 64 x D float32
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc_k[i] = acc_v[i] = 0.f;
+    float sc[32], dp[32];  // S^T then P^T, dP^T then dS^T: d[4 n + e]
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    uint32_t pa[4][4], da[4][4];  // P^T, dS^T: A fragments of 4 k16 steps
+    const uint32_t k_lo = lm::desc_lo(ks + c * T::kTileBytes, 16);
+    const uint32_t v_lo = lm::desc_lo(vs + c * T::kTileBytes, 16);
+    auto issue_t = [&](int j) {  // S^T = k q^T, dP^T = v dO^T
+      const uint32_t q_lo = lm::desc_lo(qs + j % S * T::kTileBytes, 16);
+      const uint32_t do_lo = lm::desc_lo(dos + j % S * T::kTileBytes, 16);
+      static_for<KS>([&](auto step) {
+        constexpr int kk = decltype(step)::value;
+        constexpr int o16 = kstep_offset<D, kk>();
+        lm::wgmma_m64n64k16_ss<o16, o16>(sc, k_lo, q_lo, hi, kk > 0);
+      });
+      static_for<KS>([&](auto step) {
+        constexpr int kk = decltype(step)::value;
+        constexpr int o16 = kstep_offset<D, kk>();
+        lm::wgmma_m64n64k16_ss<o16, o16>(dp, v_lo, do_lo, hi, kk > 0);
+      });
+      lm::wgmma_commit();
+    };
+    auto issue_acc = [&](int j) {  // dV += P^T dO, dK += dS^T q
+      const uint32_t do_b =
+          lm::desc_lo(dos + j % S * T::kTileBytes, T::kBoxBytes);
+      const uint32_t q_b = lm::desc_lo(qs + j % S * T::kTileBytes, T::kBoxBytes);
+      static_for<4>([&](auto step) {
+        constexpr int kk = decltype(step)::value;
+        wgmma_rs_tb<D, kk * 2048 / 16>(acc_v, pa[kk], do_b, hi);
+      });
+      static_for<4>([&](auto step) {
+        constexpr int kk = decltype(step)::value;
+        wgmma_rs_tb<D, kk * 2048 / 16>(acc_k, da[kk], q_b, hi);
+      });
+      lm::wgmma_commit();
+    };
+    // P^T of tile j in place of S^T, masked only where the tile crosses a
+    // limit of these keys (or holds rows past L), and dS^T in place of
+    // dP^T; a thread's queries are 8 n + 2 t and 8 n + 2 t + 1, pair 4 n
+    // + t of the slot's lse log2 e, D and limits
+    auto grads = [&](int j) {
+      const int i0 = (first + j) * kRows;
+      const float2* cv =
+          reinterpret_cast<const float2*>(C_s + (j % S) * 4 * kRows);
       const int2* lim = reinterpret_cast<const int2*>(cv + kRows);
       const int2* lo = reinterpret_cast<const int2*>(cv + 3 * kRows / 2);
+      const bool cross = i0 + kRows > L ||
+                         key_limit(i0, L, causal, tq, tk) < kw + 64 ||
+                         key_lower(i0 + kRows - 1, window, tq, tk) > kw;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const float2 ls = cv[4 * n + t4];
-        const int2 up = lim[4 * n + t4], dn = lo[4 * n + t4];
+        const float2 ls = cv[4 * n + t4], dd = cv[kRows / 2 + 4 * n + t4];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float l2 = e ? ls.y : ls.x;
-          const int u = e ? up.y : up.x, w = e ? dn.y : dn.x;
-          const float p_lo = ex2(fmaf(sc[4 * n + e], scale_log2, -l2));
-          const float p_hi = ex2(fmaf(sc[4 * n + 2 + e], scale_log2, -l2));
-          sc[4 * n + e] = key < u && key >= w ? p_lo : 0.f;
-          sc[4 * n + 2 + e] = key + 8 < u && key + 8 >= w ? p_hi : 0.f;
+          const float l2 = e ? ls.y : ls.x, de = e ? dd.y : dd.x;
+          float p_lo = ex2(fmaf(sc[4 * n + e], scale_log2, -l2));
+          float p_hi = ex2(fmaf(sc[4 * n + 2 + e], scale_log2, -l2));
+          if (cross) {
+            const int2 up = lim[4 * n + t4], dn = lo[4 * n + t4];
+            const int u = e ? up.y : up.x, w = e ? dn.y : dn.x;
+            if (key >= u || key < w) p_lo = 0.f;
+            if (key + 8 >= u || key + 8 < w) p_hi = 0.f;
+          }
+          sc[4 * n + e] = p_lo;
+          sc[4 * n + 2 + e] = p_hi;
+          dp[4 * n + e] = p_lo * (dp[4 * n + e] - de);
+          dp[4 * n + 2 + e] = p_hi * (dp[4 * n + 2 + e] - de);
         }
       }
-      lm::bar_sync(kPEmpty, 256);  // warpgroup 1 has read tile j - 1's
+    };
+    auto pack = [&]() {  // k16 step kk: the n8 tiles 2 kk and 2 kk + 1
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-        P_s[n * 128 + tw] = make_float4(sc[4 * n], sc[4 * n + 1],
-                                        sc[4 * n + 2], sc[4 * n + 3]);
-      lm::bar_arrive(kPFull, 256);
-    } else {
-      lm::bar_sync(kPFull, 256);
-      float4 p[8];
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int n = 0; n < 8; ++n) p[n] = P_s[n * 128 + tw];
-      if (j + 1 < n_tiles) lm::bar_arrive(kPEmpty, 256);
+        for (int h = 0; h < 4; ++h) {
+          pa[kk][h] = lm::pack_bf16x2(sc[8 * kk + 2 * h],
+                                      sc[8 * kk + 2 * h + 1]);
+          da[kk][h] = lm::pack_bf16x2(dp[8 * kk + 2 * h],
+                                      dp[8 * kk + 2 * h + 1]);
+        }
+    };
+
+    // S^T and dP^T of tile j are issued beside dV and dK of tile j - 1,
+    // and P^T and dS^T of tile j run under the latter. Both warpgroups
+    // walk every tile of the block (a query's keys outside its limits are
+    // masked; skipping a tile outside a warpgroup's keys' limits measured
+    // slower), but one whose keys all lie past L, its k and v not loaded,
+    // waits for each tile (a slot's barrier phases are read in order) and
+    // releases it unread.
+    if (kw >= L) {
+      for (int j = 0; j < n_tiles; ++j) {
+        lm::mbar_wait(full + 8 * (j % S), (j / S) & 1);
+        release(j);
+      }
+    } else if (n_tiles > 0) {
+      lm::mbar_wait(kv_full, 0);
+      lm::mbar_wait(full, 0);
+      lm::wgmma_fence();
+      issue_t(0);
+      lm::wgmma_wait<0>();
+      lm::fence_regs(sc);
+      lm::fence_regs(dp);
+      grads(0);
+      pack();
+      for (int j = 1; j < n_tiles; ++j) {
+        lm::mbar_wait(full + 8 * (j % S), (j / S) & 1);
+        lm::fence_regs(acc_k);
+        lm::fence_regs(acc_v);
+        lm::fence_regs(sc);
+        lm::fence_regs(dp);
+        lm::fence_regs(pa);
+        lm::fence_regs(da);
+        lm::wgmma_fence();
+        issue_t(j);
+        issue_acc(j - 1);
+        lm::wgmma_wait<1>();  // S^T and dP^T of tile j
+        lm::fence_regs(sc);
+        lm::fence_regs(dp);
+        grads(j);
+        lm::wgmma_wait<0>();  // dV and dK of tile j - 1
+        lm::fence_regs(acc_k);
+        lm::fence_regs(acc_v);
+        lm::fence_regs(pa);
+        lm::fence_regs(da);
+        release(j - 1);
+        pack();
+      }
+      lm::fence_regs(acc_k);
+      lm::fence_regs(acc_v);
+      lm::fence_regs(pa);
+      lm::fence_regs(da);
+      lm::wgmma_fence();
+      issue_acc(n_tiles - 1);
+      lm::wgmma_wait<0>();
+      lm::fence_regs(acc_k);
+      lm::fence_regs(acc_v);
+      lm::fence_regs(pa);
+      lm::fence_regs(da);
+      release(n_tiles - 1);
+    }
+
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 dd = cv[kRows / 2 + 4 * n + t4];
-        sc[4 * n] = p[n].x * (sc[4 * n] - dd.x);
-        sc[4 * n + 1] = p[n].y * (sc[4 * n + 1] - dd.y);
-        sc[4 * n + 2] = p[n].z * (sc[4 * n + 2] - dd.x);
-        sc[4 * n + 3] = p[n].w * (sc[4 * n + 3] - dd.y);
+    for (int n = 0; n < NO / 4; ++n) {
+      const int d = 8 * n + 2 * t4;  // Dr % 8 == 0: the pair is whole
+      if (d >= Dr) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = key + 8 * h;
+        if (r >= L) continue;
+        const size_t at = static_cast<size_t>(r) * Dr + d;
+        *reinterpret_cast<uint32_t*>(dkb + at) = lm::pack_bf16x2(
+            acc_k[4 * n + 2 * h] * scale, acc_k[4 * n + 2 * h + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dvb + at) = lm::pack_bf16x2(
+            acc_v[4 * n + 2 * h], acc_v[4 * n + 2 * h + 1]);
       }
     }
+  } else {
+    float4* P_s = reinterpret_cast<float4*>(smem_raw + (ps - base));
+    float acc[NO];  // dV (warpgroup 0) or dK (warpgroup 1), 64 x D float32
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // k16 step kk: n8 tiles 2 kk, 2 kk + 1
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+    float sc[32];  // S^T then P^T, or dP^T then dS^T: d[4 n + e], 8 n8 tiles
 #pragma unroll
-      for (int h = 0; h < 4; ++h)
-        pa[kk][h] = lm::pack_bf16x2(sc[8 * kk + 2 * h], sc[8 * kk + 2 * h + 1]);
-    lm::fence_regs(acc);
-    lm::fence_regs(pa);
-    lm::wgmma_fence();
-    issue_acc(j);
-    lm::wgmma_wait<0>();
-    lm::fence_regs(acc);
-    lm::fence_regs(pa);
-    release(j);
-  }
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    uint32_t pa[4][4];  // P^T or dS^T in bfloat16, A fragments of 4 k16 steps
+    const uint32_t a_lo = lm::desc_lo(c == 0 ? ks : vs, 16);
+    // S^T = k q^T or dP^T = v dO^T, D / 16 k-steps
+    auto issue_t = [&](int j) {
+      const uint32_t b_lo =
+          lm::desc_lo((c == 0 ? qs : dos) + j % S * T::kTileBytes, 16);
+      static_for<KS>([&](auto step) {
+        constexpr int kk = decltype(step)::value;
+        constexpr int o16 = kstep_offset<D, kk>();
+        lm::wgmma_m64n64k16_ss<o16, o16>(sc, a_lo, b_lo, hi, kk > 0);
+      });
+      lm::wgmma_commit();
+    };
+    // dV += P^T dO or dK += dS^T q, 4 k-steps of 16 queries
+    auto issue_acc = [&](int j) {
+      const uint32_t b_lo = lm::desc_lo(
+          (c == 0 ? dos : qs) + j % S * T::kTileBytes, T::kBoxBytes);
+      static_for<4>([&](auto step) {
+        constexpr int kk = decltype(step)::value;
+        wgmma_rs_tb<D, kk * 2048 / 16>(acc, pa[kk], b_lo, hi);
+      });
+      lm::wgmma_commit();
+    };
 
-  bf16* out = (c == 0 ? dv : dk) + row0 * Dr;
-  const float mul = c == 0 ? 1.f : scale;
+    if (n_tiles > 0) {
+      lm::mbar_wait(kv_full, 0);
+      if (c == 1) lm::bar_arrive(kPEmpty, 256);  // P^T's buffer starts free
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      lm::mbar_wait(full + 8 * (j % S), (j / S) & 1);
+      lm::fence_regs(sc);
+      lm::wgmma_fence();
+      issue_t(j);
+      // this tile's queries' lse log2 e, D, upper and lower key limits: a
+      // thread's are queries 8 n + 2 t and 8 n + 2 t + 1, pair 4 n + t
+      const float2* cv =
+          reinterpret_cast<const float2*>(C_s + (j % S) * 4 * kRows);
+      lm::wgmma_wait<0>();
+      lm::fence_regs(sc);
+      if (c == 0) {
+        const int2* lim = reinterpret_cast<const int2*>(cv + kRows);
+        const int2* lo = reinterpret_cast<const int2*>(cv + 3 * kRows / 2);
 #pragma unroll
-  for (int n = 0; n < NO / 4; ++n) {
-    const int d = 8 * n + 2 * t4;  // Dr % 8 == 0: the pair is whole
-    if (d >= Dr) continue;
+        for (int n = 0; n < 8; ++n) {
+          const float2 ls = cv[4 * n + t4];
+          const int2 up = lim[4 * n + t4], dn = lo[4 * n + t4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = key + 8 * h;
-      if (r < L)
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r) * Dr + d) =
-            lm::pack_bf16x2(acc[4 * n + 2 * h] * mul,
-                            acc[4 * n + 2 * h + 1] * mul);
+          for (int e = 0; e < 2; ++e) {
+            const float l2 = e ? ls.y : ls.x;
+            const int u = e ? up.y : up.x, w = e ? dn.y : dn.x;
+            const float p_lo = ex2(fmaf(sc[4 * n + e], scale_log2, -l2));
+            const float p_hi = ex2(fmaf(sc[4 * n + 2 + e], scale_log2, -l2));
+            sc[4 * n + e] = key < u && key >= w ? p_lo : 0.f;
+            sc[4 * n + 2 + e] = key + 8 < u && key + 8 >= w ? p_hi : 0.f;
+          }
+        }
+        lm::bar_sync(kPEmpty, 256);  // warpgroup 1 has read tile j - 1's
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          P_s[n * 128 + tw] = make_float4(sc[4 * n], sc[4 * n + 1],
+                                          sc[4 * n + 2], sc[4 * n + 3]);
+        lm::bar_arrive(kPFull, 256);
+      } else {
+        lm::bar_sync(kPFull, 256);
+        float4 p[8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) p[n] = P_s[n * 128 + tw];
+        if (j + 1 < n_tiles) lm::bar_arrive(kPEmpty, 256);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 dd = cv[kRows / 2 + 4 * n + t4];
+          sc[4 * n] = p[n].x * (sc[4 * n] - dd.x);
+          sc[4 * n + 1] = p[n].y * (sc[4 * n + 1] - dd.y);
+          sc[4 * n + 2] = p[n].z * (sc[4 * n + 2] - dd.x);
+          sc[4 * n + 3] = p[n].w * (sc[4 * n + 3] - dd.y);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // k16 step kk: n8 tiles 2 kk, 2 kk + 1
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          pa[kk][h] =
+              lm::pack_bf16x2(sc[8 * kk + 2 * h], sc[8 * kk + 2 * h + 1]);
+      lm::fence_regs(acc);
+      lm::fence_regs(pa);
+      lm::wgmma_fence();
+      issue_acc(j);
+      lm::wgmma_wait<0>();
+      lm::fence_regs(acc);
+      lm::fence_regs(pa);
+      release(j);
+    }
+
+    bf16* out = c == 0 ? dvb : dkb;
+    const float mul = c == 0 ? 1.f : scale;
+#pragma unroll
+    for (int n = 0; n < NO / 4; ++n) {
+      const int d = 8 * n + 2 * t4;  // Dr % 8 == 0: the pair is whole
+      if (d >= Dr) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = key + 8 * h;
+        if (r < L)
+          *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r) * Dr +
+                                       d) =
+              lm::pack_bf16x2(acc[4 * n + 2 * h] * mul,
+                              acc[4 * n + 2 * h + 1] * mul);
+      }
     }
   }
 }
@@ -2219,45 +1997,46 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   if (e == cudaSuccess)
     e = lm::allow_smem(flash_bwd_dkdv_wgmma<D>, T::kKvSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((L + kRows - 1) / kRows, bh);  // heads outermost
+  // Heads outermost in the grid: the blocks in flight share a few heads'
+  // tiles in L2. Where every head's k and v fit in L2 together (a 50 MB
+  // cache), heads fastest instead: the heaviest blocks of every head run
+  // first (Qwen2-MoE's training shape, BH 32 x 2,048 x 128, causal: 15%
+  // less time; Zamba2's, 59 MB, 12% more; scripts/flash_bwd_ablate.py)
+  const int heads_fast =
+      4.0 * bh * L * Dr <= kHeadsFastBytes ? 1 : 0;
+  const int n_dq = (L + T::kDqRows - 1) / T::kDqRows;
+  const int n_kv = (L + T::kKvKeys - 1) / T::kKvKeys;
+  const dim3 grid_dq = heads_fast ? dim3(bh, n_dq) : dim3(n_dq, bh);
+  const dim3 grid_kv = heads_fast ? dim3(bh, n_kv) : dim3(n_kv, bh);
   const float scale_log2 = scale * kLog2e;
-  flash_bwd_dq_wgmma<D><<<grid, kWgThreads, T::kDqSmem, stream>>>(
+  flash_bwd_dq_wgmma<D><<<grid_dq, kWgThreads, T::kDqSmem, stream>>>(
       map_q, map_k, map_v, map_do, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), dsum, L,
-      Dr, causal, tq, tk, window, scale_log2, scale);
+      Dr, causal, tq, tk, window, heads_fast, scale_log2, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkdv_wgmma<D><<<grid, kWgThreads, T::kKvSmem, stream>>>(
+  flash_bwd_dkdv_wgmma<D><<<grid_kv, kWgThreads, T::kKvSmem, stream>>>(
       map_q, map_k, map_v, map_do, dsum, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), L, Dr, causal, tq, tk, window, scale_log2,
-      scale);
+      static_cast<bf16*>(dv), L, Dr, causal, tq, tk, window, heads_fast,
+      scale_log2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// every bfloat16 head dim runs the wgmma pair: the wrapper's row width Dr
+// (1-256, a multiple of 8) at the build of 64, 128, 192 or 256 columns
+// that holds it, TMA zero-filling the rest
 int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     void* dq, void* dk, void* dv, float* dsum, int bh, int L,
                     int D, int causal, int tq, int tk, int window,
                     float scale, cudaStream_t s) {
-#define BWD_MMA(DK)                                                         \
-  return launch_bwd_mma<DK>(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, L, \
-                            D, causal, tq, tk, window, scale, s)
 #define BWD_WGMMA(DW)                                                        \
   return launch_bwd_wgmma<DW>(q, k, v, o, dout, lse, dq, dk, dv, dsum, bh, \
                               L, D, causal, tq, tk, window, scale, s)
-  switch ((D + 15) / 16) {
-    case 1: BWD_MMA(1);
-    case 2: BWD_MMA(2);
-    case 3: BWD_MMA(3);
-    case 4: BWD_MMA(4);
-    case 5: BWD_MMA(5);
-    case 6: BWD_MMA(6);
-    case 7: BWD_MMA(7);
-    case 8: BWD_MMA(8);
-    case 9: case 10: case 11: case 12: BWD_WGMMA(192);
-    default: BWD_WGMMA(256);
-  }
-#undef BWD_MMA
+  if (D <= 64) BWD_WGMMA(64);
+  if (D <= 128) BWD_WGMMA(128);
+  if (D <= 192) BWD_WGMMA(192);
+  BWD_WGMMA(256);
 #undef BWD_WGMMA
 }
 
@@ -2294,8 +2073,8 @@ extern "C" int flash_attention_launch(int is_bf16, const void* q,
 // The backward of flash_attention_launch at output o, its gradient dout
 // and the forward's lse (all as there): dq, dk, dv (bh, L, D) in the
 // inputs' type; dsum float32 scratch of 4 bh ceil(L / 64) 64 values,
-// 16-byte aligned (D = rowsum(dO o): (bh, L) for the mma.sync and float32
-// kernels; for the wgmma pair each head's lse log2 e, D and key limits in
+// 16-byte aligned (D = rowsum(dO o): (bh, L) for the float32 kernels;
+// for the bfloat16 wgmma pair each head's lse log2 e, D and key limits in
 // 64-row chunks). Two kernels, dq (and D) then dk and dv, on `stream`; no
 // atomics.
 extern "C" int flash_attention_bwd_launch(

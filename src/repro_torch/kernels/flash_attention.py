@@ -40,18 +40,18 @@ D_i = rowsum(dO o), dV = P^T dO, dS = P (dO v^T - D), dQ = scale dS k,
 dK = scale dS^T q, with float32 sums, the outputs in q's type. For
 bfloat16 the two backward kernels multiply on the tensor cores and round
 P to bfloat16 for P^T dO and dS for dS k and dS^T q: the two roundings
-the plain version lacks (within a bfloat16 step each). Head dims up to
-`BWD_WGMMA_ABOVE` (128) run `flash_bwd_dq_mma` then `flash_bwd_dkdv_mma` (`mma.sync`); above
-128, `flash_bwd_dq_wgmma` then `flash_bwd_dkdv_wgmma` (`wgmma` and TMA,
-two warpgroups a block: the dQ pass's split a 64-key tile's keys, the
-dK/dV pass's split by role, one forming P^T and dV, the other dS^T and
-dK from the P^T it hands over; operations bound both, and each
-warpgroup's chain of products and the elementwise work between them
-holds them under it; the source's header has the design). They take the forward's contract: the wrapper
-hands them `wgmma_operand` of q, k, v, o and dO, launches at the true
-D's scale and slices dq, dk and dv back (exact: zero columns get zero
-gradients). No gradient falls back to another kernel or to the plain
-version: a failed launch raises.
+the plain version lacks (within a bfloat16 step each). Every bfloat16
+head dim runs `flash_bwd_dq_wgmma` then `flash_bwd_dkdv_wgmma` (`wgmma`
+and TMA, two warpgroups a block, builds of 64, 128, 192 and 256 columns:
+to D 128 each warpgroup owns 64 of a block's 128 query rows, or keys,
+and runs the whole chain on them; past it the dQ pass's warpgroups split
+a 64-key tile's keys and the dK/dV pass's split by role, one forming P^T
+and dV, the other dS^T and dK from the P^T it hands over; the source's
+header has the design and what bounds it). They take the forward's
+contract: the wrapper hands them `wgmma_operand` of q, k, v, o and dO,
+launches at the true D's scale and slices dq, dk and dv back (exact:
+zero columns get zero gradients). No gradient falls back to another
+kernel or to the plain version: a failed launch raises.
 `FlashAttention` is the autograd Function: on the card the forward
 kernel then the backward kernel, on the CPU the plain forward then
 `flash_attention_bwd_plain`, so the CPU tests run the formula the
@@ -66,9 +66,10 @@ autograd records and an input needs a gradient, so serving launches the
 forward as before. Counts on `flash_attention`: `.launches` and
 `.plain_calls` (forward), `.bwd_launches` and `.bwd_plain_calls`;
 `.wgmma_launches` counts the forward launches that ran
-`flash_fwd_wgmma` (also in `.launches`: every bfloat16 one), `.bwd_wgmma_launches` the
-backward launches that ran the wgmma pair (also in `.bwd_launches`);
-`reset_counts()` zeroes them.
+`flash_fwd_wgmma` (also in `.launches`: every bfloat16 one),
+`.bwd_wgmma_launches` the backward launches that ran the wgmma pair
+(also in `.bwd_launches`: every bfloat16 one); `reset_counts()` zeroes
+them.
 """
 from __future__ import annotations
 
@@ -82,10 +83,6 @@ from repro_torch.kernels.iss_stepper import _check, _on_cpu, _raise_on
 NEG_INF = -1e30
 F32 = torch.float32
 _DTYPES = (torch.float32, torch.bfloat16)
-# bfloat16 head dims above this run the backward's wgmma pair,
-# flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma (every bfloat16 forward runs
-# flash_fwd_wgmma)
-BWD_WGMMA_ABOVE = 128
 
 
 def wgmma_width(d: int) -> int:
@@ -268,14 +265,14 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check(name, t, dev, q.dtype, (bh, l, d))
     _check("lse", lse, dev, F32, (bh, l))
-    wgmma = q.dtype == torch.bfloat16 and d > BWD_WGMMA_ABOVE
+    wgmma = q.dtype == torch.bfloat16
     if wgmma:   # the kernels' input contract, at the true D's scale
         q, k, v, o, do = (wgmma_operand(t) for t in (q, k, v, o, do))
     dr = q.shape[-1]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # D = rowsum(dO o), scratch: (BH, L), or for the wgmma pair each
-    # head's lse log2 e, D and key limits in 64-row chunks, (BH, 4, L
-    # rounded up to 64)
+    # scratch: D = rowsum(dO o), (BH, L), for the float32 kernels; for the
+    # wgmma pair each head's lse log2 e, D and key limits in 64-row
+    # chunks, (BH, 4, L rounded up to 64)
     dsum = torch.empty(4 * bh * -(-l // 64) * 64, dtype=F32, device=dev)
     fn = getattr(_build.load("flash_attention"), "flash_attention_bwd_launch")
     with torch.cuda.device(dev):

@@ -1,11 +1,11 @@
 """Rounding models of the bfloat16 flash kernels on wgmma
-(csrc/flash_attention.cu): the forward `flash_fwd_wgmma`, every bfloat16
-head dim (`flash_wgmma_emulation`), and the backward pair for head dims
-above 128, `flash_bwd_dq_wgmma` and `flash_bwd_dkdv_wgmma`
-(`flash_bwd_wgmma_emulation`), in eager torch on
-any device, with no JAX: `tests/test_torch_flash_wgmma.py` and
-`tests/test_torch_flash_bwd_wgmma.py` hold them to the plain versions
-and to the reference on the CPU, `tests/test_torch_gpu.py` and
+(csrc/flash_attention.cu): the forward `flash_fwd_wgmma`
+(`flash_wgmma_emulation`) and the backward pair `flash_bwd_dq_wgmma` and
+`flash_bwd_dkdv_wgmma` (`flash_bwd_wgmma_emulation`), every bfloat16
+head dim, in eager torch on any device, with no JAX:
+`tests/test_torch_flash_wgmma.py`, `tests/test_torch_flash_bwd_wgmma.py`
+and `tests/test_torch_flash_bwd.py` hold them to the plain versions and
+to the reference on the CPU, `tests/test_torch_gpu.py` and
 `chip_smoke.py` hold the kernels to them on the card.
 """
 from __future__ import annotations
@@ -106,23 +106,30 @@ def flash_bwd_wgmma_emulation(q, k, v, o, do, lse, *, causal=True, tq=128,
                               tk=128, window=0):
     """dq, dk, dv as the kernels compute them: q, k, v, o and dO
     zero-padded to a multiple of 8 columns by `wgmma_operand`, the scale
-    the true D's; D = rowsum(dO o) in float32. The dQ pass: blocks of 64
-    query rows walking 64-key tiles from the one holding the first row's
-    lower key limit to the last row's upper one, each tile in two halves
-    of 32 keys (the warpgroups), each half with its own float32 sum: S =
-    q k^T of the bfloat16 values, P = exp2(S scale log2 e - lse log2 e)
-    in float32, 0 outside each row's limits, dS = P (dP - D) rounded to
-    bfloat16 for dS k; dq = scale (sum_0 + sum_1). The dK/dV pass: blocks
-    of 64 keys walking exactly their query tiles; P^T in float32 (the one
-    warpgroup 0 hands to warpgroup 1), rounded to bfloat16 for dV += P^T
-    dO, and dS^T = P^T (dP^T - D) from it, rounded for dK += dS^T q; dk =
-    scale dK. Outputs in q's type, sliced back to D."""
+    the true D's; D = rowsum(dO o) in float32. Per 64-key tile, float32
+    S = q k^T of the bfloat16 values, P = exp2(S scale log2 e - lse log2
+    e) in float32, 0 outside each row's limits, dS = P (dP - D) rounded
+    to bfloat16 for dS k. The dQ pass at D <= 128 (the builds of 64 and
+    128 columns): blocks of 128 query rows, each warpgroup's 64 summing
+    every key of the block's 64-key tiles into one float32 sum; dq =
+    scale sum. Past 128: blocks of 64 rows walking the block's tiles,
+    each tile in two halves of 32 keys (the warpgroups), each half with
+    its own float32 sum; dq = scale (sum_0 + sum_1). The dK/dV pass:
+    each 64 keys (a warpgroup's of a 128-key block at D <= 128, a 64-key
+    block past it) over their 64-query tiles; P^T in float32 (in the
+    warpgroup's registers, or the one warpgroup 0 hands to warpgroup 1),
+    rounded to bfloat16 for dV += P^T dO, and dS^T = P^T (dP^T - D) from
+    it, rounded for dK += dS^T q; dk = scale dK. A tile outside every
+    limit of a warpgroup's rows or keys adds zeros, so the model walks
+    only the tiles each 64 rows or keys reach. Outputs in q's type,
+    sliced back to D."""
     bh, l, d = q.shape
     dev = q.device
     scale = d ** -0.5
     sl2 = scale * LOG2E
     qf, kf, vf, of, dof = (pfa.wgmma_operand(t).to(F32)
                            for t in (q, k, v, o, do))
+    narrow = qf.shape[-1] <= 128
     dsum = (dof * of).sum(-1)
     ls = lse.to(F32) * LOG2E
     lim = torch.tensor([key_limit(r, l, causal, tq, tk) for r in range(l)],
@@ -141,20 +148,31 @@ def flash_bwd_wgmma_emulation(q, k, v, o, do, lse, *, causal=True, tq=128,
                 & (kpos[None, keys] >= lo[rows, None]))
         return torch.where(keep, p, torch.zeros((), device=dev))
 
-    for q0 in range(0, l, KEYS):
-        rows = slice(q0, min(q0 + KEYS, l))
+    def ds_k(rows, keys):
+        """dS k of the rows against the keys, dS rounded to bfloat16."""
+        s = qf[:, rows] @ kf[:, keys].transpose(1, 2)
+        ds = p_of(s, rows, keys) * (dof[:, rows] @ vf[:, keys].transpose(1, 2)
+                                    - dsum[:, rows, None])
+        return ds.to(BF16).to(F32) @ kf[:, keys]
+
+    for q0 in range(0, l, HALF):
+        # a warpgroup's 64 rows (D <= 128) or a 64-row block
+        rows = slice(q0, min(q0 + HALF, l))
         kend = key_limit(rows.stop - 1, l, causal, tq, tk)
-        sums = [torch.zeros_like(qf[:, rows]) for _ in range(2)]
-        for k0 in range(key_lower(q0, window, tq, tk) // KEYS * KEYS, kend,
-                        KEYS):
-            for c in range(2):
-                keys = slice(min(k0 + 32 * c, l), min(k0 + 32 * c + 32, l))
-                s = qf[:, rows] @ kf[:, keys].transpose(1, 2)
-                ds = p_of(s, rows, keys) * (
-                    dof[:, rows] @ vf[:, keys].transpose(1, 2)
-                    - dsum[:, rows, None])
-                sums[c] += ds.to(BF16).to(F32) @ kf[:, keys]
-        dq[:, rows] = (sums[0] + sums[1]) * scale
+        tiles = range(key_lower(q0, window, tq, tk) // KEYS * KEYS, kend,
+                      KEYS)
+        if narrow:
+            acc = torch.zeros_like(qf[:, rows])
+            for k0 in tiles:
+                acc += ds_k(rows, slice(k0, min(k0 + KEYS, l)))
+        else:
+            sums = [torch.zeros_like(qf[:, rows]) for _ in range(2)]
+            for k0 in tiles:
+                for c in range(2):
+                    sums[c] += ds_k(rows, slice(min(k0 + 32 * c, l),
+                                                min(k0 + 32 * c + 32, l)))
+            acc = sums[0] + sums[1]
+        dq[:, rows] = acc * scale
     for k0 in range(0, l, KEYS):
         keys = slice(k0, min(k0 + KEYS, l))
         for t in _query_tiles(k0, l, causal, tq, tk, window):

@@ -12,14 +12,16 @@ keys below the diagonal, and only autograd through the forward witnesses.
 The reference's Pallas kernel has no VJP rule. Tolerance: float32 1e-4
 (the sums run in another order); the forward's log-sum-exp 1e-5.
 
-The bfloat16 kernel's rounding model (`flash_bwd_mma_emulation`, written
-out here in eager torch): S and dP from the bfloat16 inputs with float32
-sums; P = exp2(S scale log2 e - lse log2 e) in float32, 0 past each row's
-key limit; P and dS = P (dP - D) rounded to bfloat16 before P^T dO, dS k
+The bfloat16 kernels' rounding model
+(`_torch_flash_wgmma.flash_bwd_wgmma_emulation`, the blocks and sum
+order of `flash_bwd_dq_wgmma` and `flash_bwd_dkdv_wgmma` at every head
+dim): S and dP from the bfloat16 inputs with float32 sums; P =
+exp2(S scale log2 e - lse log2 e) in float32, 0 outside each row's key
+limits; P and dS = P (dP - D) rounded to bfloat16 before P^T dO, dS k
 and dS^T q; the scale applied to the float32 dQ and dK. It is held to
 `flash_attention_bwd_plain` within the card's bfloat16 tolerance,
 1e-2 x max(1, largest |gradient|) (`chip_smoke.py`'s `LM_TOL`), which
-shows on the CPU that the tolerance admits the kernel's two roundings.
+shows on the CPU that the tolerance admits the kernels' two roundings.
 """
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_flash_wgmma import flash_bwd_wgmma_emulation
 from _torch_parity import one_torch_thread  # noqa: F401
 from repro.kernels import ref as rref
 from repro.models import layers as rlayers
@@ -231,49 +234,6 @@ def test_bwd_wrapper_checks_its_inputs():
 
 BF16 = torch.bfloat16
 LM_TOL_BF16 = 1e-2
-LOG2E = 1.4426950408889634
-
-
-def _key_limits(l, causal, tq, tk):
-    qp = torch.arange(l)
-    if not causal:
-        return torch.full((l,), l)
-    up = torch.clamp((qp // tq + 1) * tq // tk, 1, l // tk)
-    return torch.minimum(qp + 1, up * tk)
-
-
-def _key_lower(l, tq, tk, window):
-    """The kernels' lower key limit (`key_lower` in the source)."""
-    qp = torch.arange(l)
-    if not window:
-        return torch.zeros(l, dtype=torch.long)
-    return torch.maximum(qp - window + 1,
-                         torch.clamp(qp // tq - window // tk, min=0) * tk)
-
-
-def flash_bwd_mma_emulation(q, k, v, o, do, lse, *, causal, tq, tk,
-                            window=0):
-    """dq, dk, dv as `flash_bwd_dq_mma` and `flash_bwd_dkdv_mma` round:
-    float32 S and dP from bfloat16 operands, P in float32 through exp2
-    and masked outside each row's key limits, P and dS rounded to
-    bfloat16 before their products, float32 sums, the scale in the
-    epilogue."""
-    bh, l, d = q.shape
-    scale = d ** -0.5
-    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-    dsum = (dof * o.float()).sum(-1, keepdim=True)
-    s = qf @ kf.transpose(1, 2)
-    p = torch.exp2(s * (scale * LOG2E) - lse[..., None] * LOG2E)
-    kpos = torch.arange(l)[None, :]
-    keep = ((kpos < _key_limits(l, causal, tq, tk)[:, None])
-            & (kpos >= _key_lower(l, tq, tk, window)[:, None]))
-    p = torch.where(keep, p, torch.zeros(()))
-    ds = p * (dof @ vf.transpose(1, 2) - dsum)
-    pb, dsb = p.to(BF16).float(), ds.to(BF16).float()
-    dq = (dsb @ kf) * scale
-    dk = (dsb.transpose(1, 2) @ qf) * scale
-    dv = pb.transpose(1, 2) @ dof
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _bf16_inputs(bh, l, d, seed):
@@ -298,8 +258,8 @@ def test_bf16_kernel_rounding_within_the_card_tolerance(shape, causal):
                                        return_lse=True)
     want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                          tq=tq, tk=tk)
-    got = flash_bwd_mma_emulation(q, k, v, o, do, lse, causal=causal, tq=tq,
-                                  tk=tk)
+    got = flash_bwd_wgmma_emulation(q, k, v, o, do, lse, causal=causal,
+                                    tq=tq, tk=tk)
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == BF16 and g.shape == q.shape
         assert torch.isfinite(g.float()).all()
@@ -310,8 +270,8 @@ def test_bf16_kernel_rounding_within_the_card_tolerance(shape, causal):
 
 # (BH, L, D, tile, window): Gemma3's head dim, 256, with and without a
 # window, windows that are and are not multiples of 64 and of the tile;
-# and D 192 (the two roundings at wide heads; the kernels that run there,
-# the wgmma pair, have their own model in test_torch_flash_bwd_wgmma.py)
+# and D 192 (the two roundings at wide heads; the model's own cases are
+# in test_torch_flash_bwd_wgmma.py)
 WIDE_BF16_SHAPES = [(2, 256, 256, 128, 0), (2, 256, 256, 128, 100),
                     (2, 256, 256, 64, 64), (1, 256, 192, 32, 50)]
 
@@ -324,8 +284,8 @@ def test_bf16_kernel_rounding_at_wide_heads_and_windows(shape):
                                        return_lse=True)
     want = pfa.flash_attention_bwd_plain(q, k, v, o, do, lse, tq=t, tk=t,
                                          window=w)
-    got = flash_bwd_mma_emulation(q, k, v, o, do, lse, causal=True, tq=t,
-                                  tk=t, window=w)
+    got = flash_bwd_wgmma_emulation(q, k, v, o, do, lse, causal=True,
+                                    tq=t, tk=t, window=w)
     for name, g, w_ in zip("qkv", got, want):
         assert torch.isfinite(g.float()).all()
         err = float((g.float() - w_.float()).abs().max())

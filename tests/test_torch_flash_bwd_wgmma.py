@@ -1,13 +1,16 @@
-"""The design of the bfloat16 flash backward for head dims above 128
-(`flash_bwd_dq_wgmma`, `flash_bwd_dkdv_wgmma`), on the CPU (no card, no
+"""The design of the bfloat16 flash backward (`flash_bwd_dq_wgmma`,
+`flash_bwd_dkdv_wgmma`) at every head dim, on the CPU (no card, no
 nvcc), on numpy-seeded inputs.
 
 `tests/_torch_flash_wgmma.py::flash_bwd_wgmma_emulation` is its rounding
-model: 64-row query blocks whose two warpgroups each take 32 keys of a
-64-key tile with sums of their own, added once; 64-key blocks walking
-exactly their 64-query tiles, with P^T in float32 shared between the
-roles; P and dS rounded to bfloat16 for their products; the wrapper's
-zero columns up to a multiple of 8. It is held to
+model: at D <= 128, 128-row query blocks whose warpgroups each sum
+every key of the block's 64-key tiles for their own 64 rows into one
+sum, and 128-key blocks whose warpgroups each take 64 of the keys;
+past 128, 64-row query blocks whose two warpgroups each take 32 keys of
+a 64-key tile with sums of their own, added once, and 64-key blocks
+walking exactly their 64-query tiles, with P^T in float32 shared between
+the roles; P and dS rounded to bfloat16 for their products; the
+wrapper's zero columns up to a multiple of 8. It is held to
 `flash_attention_bwd_plain` and to the reference's gradients (`jax.vjp`
 of `kernels/ref.py::attention_ref` where the forward's key bound keeps
 every key below the diagonal: tq = tk or tq a multiple of tk; with a
@@ -36,7 +39,11 @@ LM_TOL_BF16 = 1e-2
 # (BH, L, D, tq, tk, causal, window): D 256, 192 and the padded 250 and
 # 136; causal with tq != tk both ways; a window of 100 at tile 64 (a
 # multiple of neither); non-causal; L 200 and 320, which leave ragged
-# 64-row and 64-key tiles, and L 13, less than one
+# 64-row and 64-key tiles, and L 13, less than one. The narrow builds':
+# D 128, 112, 64, 40, 12 and 5 (the last two padded to 16 and 8 and
+# read at the 64 build's width), tq != tk both ways, a non-causal single
+# tile of a ragged L 300 (Whisper's encoder's form), a window at D 128,
+# and L 13
 CASES = [(2, 256, 256, 64, 64, True, 0),
          (2, 256, 192, 128, 128, True, 0),
          (3, 320, 250, 64, 64, True, 0),
@@ -48,8 +55,15 @@ CASES = [(2, 256, 256, 64, 64, True, 0),
          (2, 200, 256, 200, 200, False, 0),
          (3, 128, 136, 64, 64, False, 0),
          (2, 200, 192, 40, 40, True, 0),
-         (2, 13, 200, 13, 13, True, 0)]
-
+         (2, 13, 200, 13, 13, True, 0),
+         (2, 256, 128, 128, 128, True, 0),
+         (2, 200, 112, 200, 200, True, 0),
+         (2, 320, 64, 64, 64, True, 0),
+         (2, 200, 40, 50, 100, True, 0),
+         (2, 200, 12, 100, 50, True, 0),
+         (2, 300, 64, 300, 300, False, 0),
+         (2, 320, 128, 64, 64, True, 100),
+         (2, 13, 5, 13, 13, True, 0)]
 
 def _id(case):
     bh, l, d, tq, tk, causal, w = case
@@ -131,7 +145,7 @@ def test_bwd_wgmma_design_against_the_reference_vjp(case):
     _check(got, want, "against the reference's VJP")
 
 
-@pytest.mark.parametrize("d", [130, 250, 255])
+@pytest.mark.parametrize("d", [130, 250, 255, 5, 12, 100])
 @pytest.mark.parametrize("window", [0, 100])
 def test_bwd_zero_padding_keeps_the_gradients(d, window):
     """`wgmma_operand`'s zero columns at the true D's scale: the plain

@@ -1388,11 +1388,13 @@ def test_flash_wgmma_takes_a_misaligned_q(cuda):
             pfa.flash_attention.wgmma_launches) == (3, 2)
 
 
-# (BH, L, D, tq, tk, causal, window) of the bfloat16 backward past D 128
+# (BH, L, D, tq, tk, causal, window) of the bfloat16 backward
 # (`flash_bwd_dq_wgmma` then `flash_bwd_dkdv_wgmma`): the CPU design
 # tests' cases (D 256, 192 and the padded 250 and 136; causal with tq !=
 # tk both ways; a window of 100 at tile 64; non-causal; ragged L 200 and
-# 320, and L 13, less than one 64-row tile)
+# 320, and L 13, less than one 64-row tile; the narrow builds' D 128,
+# 112, 64, 40, 12 and 5, tq != tk both ways, a non-causal single tile of
+# a ragged L 300, a window at D 128)
 _BWD_WGMMA_CASES = [(2, 256, 256, 64, 64, True, 0),
                     (2, 256, 192, 128, 128, True, 0),
                     (3, 320, 250, 64, 64, True, 0),
@@ -1404,12 +1406,19 @@ _BWD_WGMMA_CASES = [(2, 256, 256, 64, 64, True, 0),
                     (2, 200, 256, 200, 200, False, 0),
                     (3, 128, 136, 64, 64, False, 0),
                     (2, 200, 192, 40, 40, True, 0),
-                    (2, 13, 200, 13, 13, True, 0)]
-
+                    (2, 13, 200, 13, 13, True, 0),
+                    (2, 256, 128, 128, 128, True, 0),
+                    (2, 200, 112, 200, 200, True, 0),
+                    (2, 320, 64, 64, 64, True, 0),
+                    (2, 200, 40, 50, 100, True, 0),
+                    (2, 200, 12, 100, 50, True, 0),
+                    (2, 300, 64, 300, 300, False, 0),
+                    (2, 320, 128, 64, 64, True, 100),
+                    (2, 13, 5, 13, 13, True, 0)]
 
 @pytest.mark.parametrize("case", _BWD_WGMMA_CASES, ids=_wide_id)
 def test_flash_bwd_wgmma_matches_plain_and_its_model(cuda, case):
-    """The wide backward, given the forward kernel's output and
+    """The backward, given the forward kernel's output and
     log-sum-exp: every gradient within the bfloat16 tolerance of the
     plain backward and of its rounding model (`_torch_flash_wgmma`); two
     launches the same bits, each counted as a wgmma backward launch, no
@@ -1440,12 +1449,13 @@ def test_flash_bwd_wgmma_matches_plain_and_its_model(cuda, case):
         _lm_close(a, m, torch.bfloat16)
 
 
-@pytest.mark.parametrize("d", [256, 200])
+@pytest.mark.parametrize("d", [256, 200, 128, 64])
 def test_flash_backward_through_autograd_reaches_the_wgmma_pair(cuda, d):
     """`.backward()` through `flash_attention` at D 256 (and 200, padded
-    to 200 and read at the 256 build's width): one wgmma forward and one
-    wgmma backward launch, no plain call, the gradients within the
-    bfloat16 tolerance of the plain backward."""
+    to 200 and read at the 256 build's width), 128 and 64 (the narrow
+    builds): one wgmma forward and one wgmma backward launch, no plain
+    call, the gradients within the bfloat16 tolerance of the plain
+    backward."""
     from repro_torch.kernels import flash_attention as pfa
     g = torch.Generator(device=cuda).manual_seed(d)
     x = [_rand(g, (2, 256, d), torch.bfloat16, cuda).requires_grad_()
