@@ -73,11 +73,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    device time per launch, and the DMR boundary's digest, snapshot and
    rollback timed at full shape;
 13. LM kernels: the count of tensor-core instructions (HMMA, HGMMA) in
-   each LM kernel's SASS where the toolkit has `cuobjdump` (the narrow
-   bfloat16 flash backward's two kernels, the bfloat16 scan kernel and
-   its backward `ssd_bwd_mma`, and the bit planes' GEMM must have some;
-   the bfloat16 forward's four `flash_fwd_wgmma` builds and the wide
-   backward's two kernels' two builds HGMMA and no HMMA);
+   each LM kernel's SASS where the toolkit has `cuobjdump` (the scan's
+   backward `ssd_bwd_mma` and the bit planes' GEMM must have some; the
+   bfloat16 flash forward's four `flash_fwd_wgmma` builds, the flash
+   backward's two kernels' four builds and the bfloat16 scan forward's
+   two `ssd_fwd_wgmma` builds HGMMA and no HMMA; ptxas's registers and
+   spills of `ssd_fwd_wgmma`, none spilled);
    `flash_attention`, `ssd_scan` and `bitplane_matmul` against their
    plain versions in float32 and bfloat16 on small and ragged shapes (L
    11 and 200 causal and full with equal and unequal tiles, D 40
@@ -99,8 +100,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    equal to the greedy loop on both;
 15. main serve: Zamba2-7B at full width and depth (6.957e9 parameters,
    bfloat16, random from a seed) through `generate` on the card, 8
-   requests x prompt 512, 32 tokens: 81 `ssd_scan` and 13
-   `flash_attention` launches per prefill and no plain call; prefill
+   requests x prompt 512, 32 tokens: 81 `ssd_scan` (all
+   `ssd_fwd_wgmma`) and 13 `flash_attention` launches per prefill and no
+   plain call; prefill
    and decode rates and peak memory; the kernels against their plain
    versions on the tensors this prefill feeds the first Mamba layer and
    the first shared block, the scan timed on the first Mamba layer's
@@ -1513,9 +1515,14 @@ SSD = ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
 BITPLANE = ("bitplane_matmul",
             "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
             "src/repro/kernels/bitplane_matmul.py:56")
-# the scan kernel's time at the main shape before its bfloat16 path moved
-# to the tensor cores (measured on one NVIDIA H100 80GB HBM3, 700.00 W)
-EARLIER_SSD_MS = 2.880
+# the scan kernel's time at the main shape before its bfloat16 forward
+# moved to wgmma and TMA (the mma.sync build, measured on one NVIDIA H100
+# 80GB HBM3, 700.00 W)
+EARLIER_SSD_MS = 0.4014
+# the scan's bfloat16 forward kernel (wgmma and TMA; builds of N <= 64
+# and N <= 128): its launches are counted apart
+# (`ssd_scan.wgmma_launches`), and are also ssd_scan's
+SSD_WGMMA = "ssd_fwd_wgmma"
 # the main serve: Zamba2-7B, 8 requests, prompt 512, 32 generated tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 # the reference's count_params_abstract of Zamba2-7B, rounded
@@ -1618,11 +1625,12 @@ def sass_mma_counts(lib: str):
 
 def check_tensor_cores():
     """Counts each LM kernel's tensor-core instructions; fails if the
-    bfloat16 scan kernel or its backward, or the bit planes' GEMM has
-    none, or if one of the four builds (64, 128, 192 and 256 columns) of
-    the bfloat16 forward (flash_fwd_wgmma) or of each of the backward's
-    kernels (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma) has no HGMMA or
-    any HMMA (Ampere's mma.sync)."""
+    scan's bfloat16 backward or the bit planes' GEMM has none, if one of
+    the four builds (64, 128, 192 and 256 columns) of the bfloat16 flash
+    forward (flash_fwd_wgmma) or of each of the backward's kernels
+    (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma) has no HGMMA or any HMMA
+    (Ampere's mma.sync), or if one of the two builds (N <= 64, N <= 128)
+    of the bfloat16 scan forward (ssd_fwd_wgmma) does."""
     libs = ("flash_attention", "ssd_scan", "bitplane_matmul")
     counts = {lib: sass_mma_counts(lib) for lib in libs}
     if counts[libs[0]] is None:
@@ -1632,8 +1640,7 @@ def check_tensor_cores():
     for lib, c in counts.items():
         log(f"[lm kernels] {lib} SASS: " + "; ".join(
             f"{k} {h} HMMA, {g} HGMMA" for k, (h, g) in c.items()))
-    for lib, kernel in (("ssd_scan", "ssd_fwd_mma"),
-                        ("ssd_scan", "ssd_bwd_mma"),
+    for lib, kernel in (("ssd_scan", "ssd_bwd_mma"),
                         ("bitplane_matmul", "bitplane_gemm")):
         hits = [sum(v) for k, v in counts[lib].items()
                 if k.startswith(kernel)]
@@ -1646,6 +1653,38 @@ def check_tensor_cores():
         if len(wg) != 4 or any(h or not g for h, g in wg):
             raise AssertionError(f"{kernel}: its 4 builds need HGMMA and no "
                                  f"HMMA: {wg}")
+    wg = [v for k, v in counts["ssd_scan"].items()
+          if k.startswith(SSD_WGMMA)]
+    if len(wg) != 2 or any(h or not g for h, g in wg):
+        raise AssertionError(f"{SSD_WGMMA}: its 2 builds need HGMMA and no "
+                             f"HMMA: {wg}")
+
+
+def ssd_wgmma_registers():
+    """ptxas's report for the bfloat16 scan forward's two builds
+    (ssd_fwd_wgmma<1 | 2>): '<kernel>: <registers> registers, spills
+    <st>/<ld> bytes'; raises on a spill. Empty where this process found
+    the library built."""
+    from repro_torch.kernels import _build
+    rows = [r for r in ptxas_report(_build.build_log("ssd_scan"))
+            if r[0].startswith(SSD_WGMMA)]
+    spilled = [r for r in rows if r[3] or r[4]]
+    if spilled:
+        raise AssertionError(f"{SSD_WGMMA} spills: {spilled}")
+    return [f"{k}: {regs} registers, spills {st}/{ld} bytes"
+            for k, regs, _, st, ld in rows]
+
+
+def check_ssd_wgmma_share(tag, cfg, launches):
+    """Every bfloat16 scan forward of `cfg` since the counts were zeroed
+    ran ssd_fwd_wgmma, and no float32 one: `ssd_scan.wgmma_launches` is
+    wgmma_share(cfg, launches), `launches` the scan forwards counted."""
+    from repro_torch.kernels import ssd_scan as pss
+    want = wgmma_share(cfg, launches)
+    if pss.ssd_scan.wgmma_launches != want:
+        raise AssertionError(f"{tag}: {pss.ssd_scan.wgmma_launches} of "
+                             f"{launches} scan forwards ran {SSD_WGMMA}, "
+                             f"expected {want}")
 
 
 def flash_bound(q, tq, tk, causal, window=0):
@@ -1727,6 +1766,8 @@ def phase_lm_kernels(dev, rec):
                 * scale).to(dtype)
 
     check_tensor_cores()
+    log("[lm kernels] ptxas: " + ("; ".join(ssd_wgmma_registers())
+                                  or "ssd_scan found built"))
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for bh, l, d, tq, tk in ((3, 11, 16, 11, 11), (2, 200, 112, 200, 200),
@@ -1836,7 +1877,10 @@ def phase_lm_kernels(dev, rec):
     a = -torch.linspace(1.0, 16.0, n_heads, device=dev).repeat(SERVE_BATCH)
     b = rnd((SERVE_BATCH * s_.n_groups, l, n), bf)
     c = rnd((SERVE_BATCH * s_.n_groups, l, n), bf)
+    pss.reset_counts()
     y, st = pss.ssd_scan(a, x, dt, b, c, q=q_, rep=rep, device=dev)
+    if pss.ssd_scan.wgmma_launches != 1:
+        raise AssertionError(f"ssd main shape: not an {SSD_WGMMA} launch")
     yp, sp = pss.ssd_scan_plain(a, x, dt, b, c, q=q_, rep=rep)
     err = lm_err(y, yp, "ssd main shape")
     lm_err(st, sp, "ssd main shape state", LM_TOL["bfloat16"])
@@ -1847,9 +1891,9 @@ def phase_lm_kernels(dev, rec):
                  5),
            err, ssd_bound(a, x, dt, b, c, q_), None,
            f"BH {bh} x L {l}, P {p}, N {n}, chunk {q_}, B/C per group "
-           f"({rep} heads), bfloat16; median of runs "
-           f"{', '.join(f'{r:.4f}' for r in runs)} (earlier kernel: "
-           f"{EARLIER_SSD_MS} ms)")
+           f"({rep} heads), bfloat16, {SSD_WGMMA}; median of runs "
+           f"{', '.join(f'{r:.4f}' for r in runs)} (earlier kernel, "
+           f"mma.sync: {EARLIER_SSD_MS} ms)")
     del x, y, yp, st, sp
 
     m, kk, nn = SERVE_BATCH * SERVE_PROMPT, cfg.d_model, cfg.d_ff
@@ -1955,6 +1999,7 @@ def small_serve(dev, arch, dtype, tag):
     check_wgmma_share(f"{tag} {arch} {dtype}", cfg, {
         FLASH[0]: counts[1],
         FLASH_WGMMA[0]: pfa.flash_attention.wgmma_launches})
+    check_ssd_wgmma_share(f"{tag} {arch} {dtype}", cfg, counts[0])
     _, lf = greedy(model, card, toks.to(dev), l + gen, 1, forced=tp_)
     for i, what in ((0, "prefill"), (1, "first decode")):
         torch.testing.assert_close(
@@ -2098,6 +2143,7 @@ def phase_main_serve(dev, rec):
                              f"and {cfg.n_layers} ssd_scan per prefill")
     counts[FLASH_WGMMA[0]] = pfa.flash_attention.wgmma_launches
     check_wgmma_share("main serve", cfg, counts)
+    check_ssd_wgmma_share("main serve", cfg, counts[SSD[0]])
     if toks.shape != (SERVE_BATCH, SERVE_GEN) or not (
             (toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"main serve tokens {toks.shape}")
@@ -2108,8 +2154,8 @@ def phase_main_serve(dev, rec):
         f"tokens/s; {SERVE_GEN - 1} decode steps {stats['decode_s']:.3f}s = "
         f"{n_dec / stats['decode_s']:.1f} decode tokens/s "
         f"({stats['decode_s'] / (SERVE_GEN - 1) * 1e3:.2f} ms a step); "
-        f"launches per prefill: {counts[SSD[0]]} ssd_scan, "
-        f"{counts[FLASH[0]]} flash_attention, 0 plain calls; "
+        f"launches per prefill: {counts[SSD[0]]} ssd_scan (all "
+        f"{SSD_WGMMA}), {counts[FLASH[0]]} flash_attention, 0 plain calls; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak} bytes)")
 
     # the tensors this prefill feeds the kernels: the first Mamba layer's
@@ -2141,8 +2187,9 @@ def phase_main_serve(dev, rec):
         a, x, dt, b, c, q=kw["q"], rep=kw["rep"]), 3)
     log(f"[main serve] ssd_scan on the first Mamba layer's own tensors "
         f"({tuple(x.shape)}, chunk {kw['q']}, {kw['rep']} heads a group): "
-        f"kernel {ssd_ms:.4f} ms (earlier kernel at the main shape: "
-        f"{EARLIER_SSD_MS} ms), plain {ssd_plain_ms:.3f} ms, bound "
+        f"{SSD_WGMMA} {ssd_ms:.4f} ms (earlier kernel, mma.sync, at the "
+        f"main shape: {EARLIER_SSD_MS} ms), plain {ssd_plain_ms:.3f} ms, "
+        f"bound "
         f"{max(ssd_bound(a, x, dt, b, c, kw['q'])):.4f} ms")
     (q, k, v), kw, o = seen["flash"]
     op = pfa.flash_attention_plain(q, k, v, causal=kw["causal"],
@@ -3241,6 +3288,7 @@ def serve_full(dev, arch, profile):
                              f"(ssd_scan, flash_attention) per prefill")
     counts[FLASH_WGMMA[0]] = pfa.flash_attention.wgmma_launches
     check_wgmma_share(tag, cfg, counts)
+    check_ssd_wgmma_share(tag, cfg, counts[SSD[0]])
     if toks.shape != (b, gen) or not ((toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"{tag}: tokens {toks.shape}")
     n_dec = (gen - 1) * b
@@ -3250,7 +3298,8 @@ def serve_full(dev, arch, profile):
         f"decode steps {stats['decode_s']:.3f}s = "
         f"{n_dec / stats['decode_s']:.1f} decode tokens/s "
         f"({stats['decode_s'] / (gen - 1) * 1e3:.2f} ms a step); launches "
-        f"per prefill: {counts[SSD[0]]} ssd_scan, {counts[FLASH[0]]} "
+        f"per prefill: {counts[SSD[0]]} ssd_scan "
+        f"({pss.ssd_scan.wgmma_launches} {SSD_WGMMA}), {counts[FLASH[0]]} "
         f"flash_attention, 0 plain calls; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB ({peak} bytes)")
 
@@ -3581,6 +3630,7 @@ def train_full(dev, cfg, steps, per_step, n_params=None, what="",
                              f"remat recompute, backwards)")
     check_wgmma_share(tag, cfg, counts)
     check_bwd_wgmma_share(tag, cfg, counts)
+    check_ssd_wgmma_share(tag, cfg, counts[SSD[0]])
     step_s = float(np.median(out["dts"][1:]))
     tokens = batch * seq
     flops = 6.0 * n * tokens
@@ -5171,6 +5221,7 @@ def audio_train(dev, cfg, steps):
                              f"calls; expected {want}")
     check_wgmma_share(tag, cfg, counts)
     check_bwd_wgmma_share(tag, cfg, counts)
+    check_ssd_wgmma_share(tag, cfg, counts[SSD[0]])
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: losses {losses}")
     step_s = float(np.median(dts[1:]))

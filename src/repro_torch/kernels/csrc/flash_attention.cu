@@ -411,23 +411,11 @@ __global__ void __launch_bounds__(lm::kThreads)
 using bf16 = __nv_bfloat16;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// 2^x by the SFU's approximation (subnormal results flush to 0: a P so
-// far below the row's largest, 1, adds nothing to its sums)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// f(std::integral_constant<int, I>()) for I = 0 .. N - 1, unrolled at
-// compile time (immediate operands need constant expressions)
-template <int N, int I = 0, typename F>
-__device__ __forceinline__ void static_for(F&& f) {
-  if constexpr (I < N) {
-    f(std::integral_constant<int, I>());
-    static_for<N, I + 1>(f);
-  }
-}
+// 2^x by the SFU's approximation (lm_mma.cuh; subnormal results flush to
+// 0: a P so far below the row's largest, 1, adds nothing to its sums),
+// and the compile-time loop that keeps k-step offsets immediate
+using lm::ex2;
+using lm::static_for;
 
 // d (64 x D float32 over the warpgroup) += A (64 x 16, registers) B (16 x
 // D, N-major in shared memory: transposed B) at the build's width
@@ -768,33 +756,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// (Dr, L, bh) bfloat16, read in (64, rows, 1) boxes with the 128-byte
-// swizzle; TMA zero-fills what lies past Dr or L within a head (a box
-// wider than a row of Dr < 64 too). The encoder is a driver call and
-// needs a current context, which a thread that has made no runtime call
-// yet lacks (autograd's backward thread, its tensors all from the
-// allocator's cache): ptr's device is made current first.
-bool make_head_map(CUtensorMap* map, const void* ptr, int Dr, int L, int bh,
-                   int rows) {
-  lm::EncodeTiled fn = lm::encode_tiled();
-  cudaPointerAttributes at;
-  if (fn == nullptr || cudaPointerGetAttributes(&at, ptr) != cudaSuccess ||
-      cudaSetDevice(at.device) != cudaSuccess)
-    return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Dr),
-                              static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Dr) * 2,
-                                 static_cast<cuuint64_t>(L) * Dr * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBox),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Dr: q, k, v and o's row width, a multiple of 8 (TMA's 16-byte row
 // strides) and at most D; the wrapper zero-pads a head dim to it
 template <int D>
@@ -808,9 +769,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_q, map_k, map_v;
   using T = WgmmaTiles<D>;
-  if (!make_head_map(&map_q, q, Dr, L, bh, kWgRows) ||
-      !make_head_map(&map_k, k, Dr, L, bh, kKeys) ||
-      !make_head_map(&map_v, v, Dr, L, bh, kKeys))
+  if (!lm::make_head_map(&map_q, q, Dr, L, bh, kWgRows) ||
+      !lm::make_head_map(&map_k, k, Dr, L, bh, kKeys) ||
+      !lm::make_head_map(&map_v, v, Dr, L, bh, kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = lm::allow_smem(flash_fwd_wgmma<D>, T::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1987,10 +1948,10 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   if (Dr % 8 || Dr > D || bh > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_q, map_k, map_v, map_do;
-  if (!make_head_map(&map_q, q, Dr, L, bh, kRows) ||
-      !make_head_map(&map_k, k, Dr, L, bh, kKeys) ||
-      !make_head_map(&map_v, v, Dr, L, bh, kKeys) ||
-      !make_head_map(&map_do, dout, Dr, L, bh, kRows))
+  if (!lm::make_head_map(&map_q, q, Dr, L, bh, kRows) ||
+      !lm::make_head_map(&map_k, k, Dr, L, bh, kKeys) ||
+      !lm::make_head_map(&map_v, v, Dr, L, bh, kKeys) ||
+      !lm::make_head_map(&map_do, dout, Dr, L, bh, kRows))
     return static_cast<int>(cudaErrorInvalidValue);
   using T = BwdTiles<D>;
   cudaError_t e = lm::allow_smem(flash_bwd_dq_wgmma<D>, T::kDqSmem);

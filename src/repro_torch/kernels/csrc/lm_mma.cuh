@@ -1,14 +1,18 @@
 // PTX wrappers for the LM kernels' tensor-core paths on Hopper (sm_90a):
 // cp.async with commit and wait, ldmatrix (plain and .trans), mma.sync
 // m16n8k16 bfloat16 -> float32, and Hopper's mbarrier, TMA tile loads
-// (2-D and 3-D, and the host's tensor-map encoder), 1-D bulk copies, register
-// reallocation and wgmma: m64n256k16 with both operands in shared memory
-// (bitplane_matmul.cu's GEMM), m64n64k16 and m64n32k16 likewise, and
-// m64n64k16, m64n128k16, m64n192k16 and m64n256k16 with A from registers
-// and B transposed (flash_attention.cu's forward, flash_fwd_wgmma, at
-// every head dim, and its wide backward, flash_bwd_*_wgmma). The narrow
-// backward of flash_attention.cu and ssd_scan.cu's kernels use the first
-// group.
+// (2-D and 3-D, the host's tensor-map encoder and the per-head 3-D map
+// both wgmma libraries read their tiles through), 1-D bulk copies,
+// register reallocation and wgmma: m64n256k16 with both operands in
+// shared memory (bitplane_matmul.cu's GEMM), m64n64k16 and m64n32k16
+// likewise, m64n64k16 with a transposed B in shared memory (ssd_scan.cu's
+// C S, over N 64 or 128 in k-steps), and m64n64k16, m64n128k16,
+// m64n192k16 and m64n256k16 with A from registers and B transposed
+// (flash_attention.cu's forward, flash_fwd_wgmma, at every head dim, and
+// its wide backward, flash_bwd_*_wgmma; ssd_scan.cu's forward,
+// ssd_fwd_wgmma, W x and the state update, each m64 half of N 128 a
+// product of its own). The narrow backward of flash_attention.cu and
+// ssd_scan.cu's backward use the first group.
 //
 // Fragment layouts (lane = 4 g + t): an m16n8k16 A fragment holds
 // A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; a B
@@ -26,6 +30,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace lm {
 
@@ -198,6 +204,52 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// (W, L, heads) bfloat16, read in (64, rows, 1) boxes with the 128-byte
+// swizzle: TMA zero-fills what lies past W or L within a head (a box
+// wider than a row of W < 64 too), never the next head's. W is a
+// multiple of 8 (16-byte row strides) and the base 16-byte aligned. The
+// encoder is a driver call and needs a current context, which a thread
+// that has made no runtime call yet lacks (autograd's backward thread,
+// its tensors all from the allocator's cache): ptr's device is made
+// current first.
+inline bool make_head_map(CUtensorMap* map, const void* ptr, int W, int L,
+                          int heads, int rows) {
+  EncodeTiled fn = encode_tiled();
+  cudaPointerAttributes at;
+  if (fn == nullptr || cudaPointerGetAttributes(&at, ptr) != cudaSuccess ||
+      cudaSetDevice(at.device) != cudaSuccess)
+    return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(W) * 2,
+                                 static_cast<cuuint64_t>(L) * W * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ------------------------------------------------------------ helpers
+// 2^x by the SFU's approximation (subnormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// f(std::integral_constant<int, I>()) for I = 0 .. N - 1, unrolled at
+// compile time (immediate operands need constant expressions)
+template <int N, int I = 0, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>());
+    static_for<N, I + 1>(f);
+  }
 }
 
 // ------------------------------------------------------------ registers
@@ -388,11 +440,49 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
       : "r"(a_lo), "r"(b_lo), "r"(hi), "n"(OA), "n"(OB), "r"(accumulate));
 }
 
+// d (64 x 64 float32) = A (64 x 16, K-major) * B (16 x 64, N-major:
+// transposed B), both in shared memory, plus d where `accumulate` is not
+// 0: ssd_scan.cu's C S, C's rows against S's rows of N (each 64 values
+// of P), the swizzled layout TMA gives v in flash.
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss_tb(float (&d)[32],
+                                                      uint32_t a_lo,
+                                                      uint32_t b_lo,
+                                                      uint32_t hi,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b32 al, bl;\n"
+      ".reg .b64 da, db;\n"
+      "add.s32 al, %32, %35;\n"
+      "add.s32 bl, %33, %36;\n"
+      "mov.b64 da, {al, %34};\n"
+      "mov.b64 db, {bl, %34};\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a_lo), "r"(b_lo), "r"(hi), "n"(OA), "n"(OB), "r"(accumulate));
+}
+
 // d (64 x N float32 over the warpgroup) += A (64 x 16) * B (16 x N), A
 // from registers (the m16n8k16 A fragment of each warp's 16 rows), B
 // N-major in shared memory (transposed B, as bitplane_gemm's W_q tile):
 // N 64, 128, 192 and 256, P v with v's rows of D values (and the
-// backward's P^T dO, dS^T q and dS k at 192 and 256).
+// backward's P^T dO, dS^T q and dS k at 192 and 256); at 64 also the
+// scan's W x and (B w)^T x, x's rows of 64 values of P.
 template <int OB>
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
                                                      const uint32_t (&a)[4],

@@ -12,36 +12,46 @@
 // type. It also writes S after the last chunk (the TPU kernel's scratch
 // at its end), which prefill needs as the decode state.
 //
-// bfloat16 (ssd_fwd_mma, the main path's): on the tensor cores, with
-// mma.sync m16n8k16 (lm_mma.cuh), bfloat16 operands and float32 sums.
-// One block of 8 warps runs `nh` heads of one group (rows bh = g rep + r
-// of one B, C row g) through every chunk, as two head groups of 4 warps
-// (heads 0, 2, ... and 1, 3, ...), each with its own double-buffered ring
-// of tiles and its own barrier; the host picks nh so the grid fills the
-// SMs in the fewest waves (at the main shape, 7 heads a block, 128
-// blocks). Per chunk:
-//   - each head's dt A cumsum (a warp scan), once per chunk and head,
-//     kept times log2 e so each exponential is one exp2f;
-//   - per 64-row block of the chunk (16 rows a warp of each group): C's
-//     rows once into A fragments; the block's C B^T row strip (columns
-//     up to its last row, at most 256 at a time), formed ONCE for all the
-//     block's heads (each group forms half of every 64-column B tile) and
-//     kept in shared memory in float32, in the mma fragment layout of the
-//     rows' warps; then per head: y = exp(cum_i) (C S) + W x, with W =
-//     (C B^T) exp(cum_i - cum_j) dt_j (j <= i) computed in float32 from
-//     the strip and rounded to bfloat16 as W x's A fragment, and x in
-//     double-buffered 64-row tiles (cp.async);
-//   - the state update S <- S exp(cum_Q) + (B w)^T x, w_j = exp(cum_Q -
-//     cum_j) dt_j, with (B w) rounded to bfloat16 as the product's A
-//     fragment (ldmatrix.trans of B's tile, scaled in registers); S stays
-//     float32, in the output s_final (device memory, read and written once
-//     a chunk), and its bfloat16 copy in shared memory is C S's operand.
-// The roundings the plain version lacks: W, S and B w to bfloat16 as
-// operands (C, B and x are bfloat16 already), each one bfloat16 step of
-// its value. Sums are float32 in another order. Rows past the chunk and
-// columns past P, N are zero-filled. P, N <= 128; Q up to what shared
-// memory holds with dt read from device memory (about 40,000 at P = N =
-// 64, 23,000 at 128: above the float32 build's limits).
+// bfloat16 (ssd_fwd_wgmma, the main path's): Hopper's wgmma and TMA, the
+// chain of flash_attention.cu's flash_fwd_wgmma with G = C B^T for q k^T,
+// W = G 2^(cum_i - cum_j) dt_j (j <= i) for P, W x for P v. One
+// warpgroup of 128 threads a block runs one head bh (and one 64-column
+// slice of P: P past 64 is two independent slices, each its own block,
+// W formed in both) through its chunks in order. The grid's blocks of a
+// group's heads are neighbours, so its B and C come from L2. Builds of
+// N <= 64 and N <= 128 (one or two 64-column TMA boxes; three blocks an
+// SM and two, by registers and shared memory). Per chunk:
+//   - dt and log2 e times the cumsum of dt A (four warp scans and their
+//     carries), and w_t = 2^(cum_Q - cum_t) dt_t, in shared memory;
+//   - per 64-row tile i: C_i (a TMA ring of two); y = 2^cum_i C_i S
+//     (wgmma from shared memory, S's bfloat16 copy as a transposed B);
+//     then for each 64-row tile j <= i, B_j and x_j (a TMA ring of two
+//     slots, 3-D maps that zero-fill past L and the row width): G = C_i
+//     B_j^T (wgmma m64n64k16, both operands from shared memory), W in
+//     float32 registers (masked to j <= i on the diagonal tile, every
+//     weight of a row past the chunk 2^-inf = 0), rounded to bfloat16 A
+//     fragments, y += W x_j (wgmma with A from registers, x transposed
+//     B); y through shared memory to 16-byte stores (rows past the chunk
+//     are not stored);
+//   - the state, S <- 2^cum_Q S + (B w)^T x_j over the tiles j, in the
+//     last row tile, which reads every (B, x) tile of the chunk: beside
+//     its W x_j, (B w)^T by ldmatrix.trans of B's swizzled tile, times
+//     w_j and rounded to bfloat16 in registers, an A fragment of wgmma
+//     against x_j. S stays float32 in the warpgroup's accumulator
+//     registers over the chunks (N 128: two m64 halves) and is written
+//     from there, never read back: into `states` (before chunk c >= 1),
+//     s_final (after the last), and its bfloat16 copy in shared memory
+//     for the next chunk.
+// The leader thread requests every tile in the order the warpgroup reads
+// it; a slot is refilled after a block barrier that follows the wgmma
+// waits of its last reader. Every sum runs in a fixed order (no atomics):
+// two launches give the same bits. The roundings the plain version
+// lacks: W, S and B w to bfloat16 as operands (C, B and x are bfloat16
+// already), each one bfloat16 step of its value; exponentials by ex2.approx
+// (2 ulp). Sums are float32 in another order. The wrapper zero-pads x, B
+// and C to a multiple of 8 columns (TMA's 16-byte row strides); P, N <=
+// 128; Q up to what shared memory holds (fwd_wgmma_smem: 10,368 at N
+// 128, 13,760 at N 64).
 //
 // float32 (ssd_fwd): on the CUDA cores, unchanged since first ported (the
 // float32 tolerance, 1e-4, rules out bfloat16 and TF32 products). The
@@ -67,8 +77,17 @@
 // it reads 58.7 MB of x, 1.8 MB of dt and 1.0 MB of B and C and writes
 // 58.7 MB of y and 14.7 MB of state: 0.040 ms at 3.35 TB/s. Its products
 // over the causal half of each chunk are 2.3e10 operations, 0.023 ms at
-// the bfloat16 tensor-core rate, so bytes bound it. The float32 build
-// multiplies on the CUDA cores (67 TFLOP/s at most).
+// the bfloat16 tensor-core rate, so bytes bound it. The bfloat16 kernel
+// forms G on whole 64 x 64 tiles, at or below the diagonal, and one
+// exponential for each of their elements: 896 heads x 2 chunks x 10 tile
+// pairs x 4,096 = 7.3e7 ex2 at this shape, 0.019 ms at the SFU's 3.9e12
+// a second, half the bytes bound (Mamba2-1.3B's, BH 512: 4.2e7, 0.011
+// ms). Its grid is 896 blocks, three an SM (168 registers a thread):
+// 2.26 waves of 396 (Mamba2's 512 blocks, two an SM: 1.94 waves of 264).
+// Each block's chain of dependent products and waits, not the bytes, the
+// products or the exponentials, sets its time (scripts/ssd_fwd_ablate.py:
+// no variant that drops one of them saves a third of it). The float32
+// build multiplies on the CUDA cores (67 TFLOP/s at most).
 //
 // Both forward builds take an optional `states` buffer (bh, L / Q - 1, N,
 // P) float32 and write into it S_c, the float32 state before each chunk c
@@ -369,52 +388,10 @@ __global__ void __launch_bounds__(lm::kThreads)
 
 // ---------------------------------------------------------------- bf16
 using bf16 = __nv_bfloat16;
-constexpr int kGroupWarps = 4;                 // a head group: 64 rows
-constexpr int kGroupThreads = 32 * kGroupWarps;
-constexpr int kMmaThreads = 2 * kGroupThreads;  // two head groups a block
-constexpr int kRowBlk = 16 * kGroupWarps;      // rows of a chunk a step
-constexpr int kTile = 64;                      // rows of a B or x tile
-constexpr int kStripMax = 256;                 // C B^T columns at a time
+using lm::ex2;
+using lm::static_for;
+constexpr int kTile = 64;  // rows of a chunk's tile; 64 columns a TMA box
 constexpr float kLog2e = 1.4426950408889634f;
-
-// What a bfloat16 launch needs besides its arguments.
-struct MmaGeom {
-  int nh;    // heads a block (the last block of a group may have fewer)
-  int sets;  // blocks a group
-  int nk;    // N / 16, rounded up
-  int pk;    // P / 16, rounded up
-  int js;    // C B^T strip columns
-  int qp;    // Q rounded up to a tile
-  int dts;   // 1: each head's dt for the chunk in shared memory too
-};
-
-__host__ __device__ inline int ldn_of(const MmaGeom& g) { return 16 * g.nk + 8; }
-__host__ __device__ inline int ldp_of(const MmaGeom& g) { return 16 * g.pk + 8; }
-
-// a head group's ring: two stages of a B tile and an x tile
-__host__ __device__ inline int ring_elems(const MmaGeom& g) {
-  return 2 * kTile * (ldn_of(g) + ldp_of(g));
-}
-
-// head groups with heads: the second has none when a block runs one head
-__host__ __device__ inline int groups_of(const MmaGeom& g) {
-  return g.nh < 2 ? 1 : 2;
-}
-
-size_t mma_smem(const MmaGeom& g) {
-  return sizeof(float) * kRowBlk * g.js                  // C B^T strip
-         + sizeof(bf16) * (groups_of(g) * ring_elems(g)   // the rings
-                           + kRowBlk * ldn_of(g)          // C rows
-                           + g.nh * 16 * g.nk * ldp_of(g))  // S, bfloat16
-         + sizeof(float) * (1 + g.dts) * g.nh * g.qp;     // cum (, dt)
-}
-
-// a barrier of one head group's 128 threads (ids 1 and 2; 0 is
-// __syncthreads)
-__device__ __forceinline__ void group_sync(int grp) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "r"(kGroupThreads)
-               : "memory");
-}
 
 // rows [0, 64) of a (., W) bfloat16 matrix at src into a [64][ld] tile,
 // the first 16 wk columns, zeros at rows >= valid and columns >= W, by
@@ -463,405 +440,406 @@ __device__ __forceinline__ void mma_rows(float (&acc)[2 * PK][4],
   }
 }
 
-template <int MK>
-__global__ void __launch_bounds__(kMmaThreads)
-    ssd_fwd_mma(const float* __restrict__ a, const bf16* __restrict__ x,
-                const float* __restrict__ dt, const bf16* __restrict__ b,
-                const bf16* __restrict__ c, bf16* __restrict__ y,
-                float* __restrict__ s_final, float* __restrict__ states,
-                int L, int P, int N, int Q, int rep, MmaGeom g) {
+// ssd_fwd_wgmma<NB>: the bfloat16 forward, one warpgroup a block, N in
+// NB boxes of 64 columns (1: N <= 64, 2: N <= 128), one 64-column slice
+// of P a block (see the header).
+constexpr int kFwdThreads = 128;
+constexpr uint32_t kBoxBytes = kTile * kTile * 2;  // 64 rows of 128 bytes
+constexpr int kFwdStages = 2;                      // (B, x) ring slots
+constexpr int kCSlots = 2;                         // C ring slots
+
+template <int NB>
+struct FwdTiles {
+  static constexpr uint32_t kNBytes = NB * kBoxBytes;     // a C or B tile
+  static constexpr uint32_t kSlot = kNBytes + kBoxBytes;  // B, then x
+  // the C ring, the (B, x) ring, S in bfloat16 (NB * 64 rows of 64), y's
+  // tile on its way out
+  static constexpr uint32_t kTiles =
+      kCSlots * kNBytes + kFwdStages * kSlot + kNBytes + kBoxBytes;
+};
+
+// Shared memory of a launch at chunk q: per chunk row t, log2 e times
+// the cumsum, dt and w_t = 2^(cum_Q - cum_t) dt_t (float32), the warps'
+// four partial sums and the barriers, then (aligned to the swizzle's
+// 1,024 bytes) the tiles
+size_t fwd_wgmma_smem(int nb, int q) {
+  const size_t qp = (q + kTile - 1) / kTile * kTile;
+  const size_t head = 4 * (3 * qp + 4) + 8 * (kCSlots + kFwdStages);
+  return head + 1024 + (nb == 1 ? FwdTiles<1>::kTiles : FwdTiles<2>::kTiles);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kFwdThreads, NB == 1 ? 3 : 2)
+    ssd_fwd_wgmma(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_b,
+                  const __grid_constant__ CUtensorMap map_c,
+                  const float* __restrict__ a, const float* __restrict__ dt,
+                  bf16* __restrict__ y, float* __restrict__ s_final,
+                  float* __restrict__ states, int L, int P, int N, int Q,
+                  int rep, int slices) {
+  using T = FwdTiles<NB>;
+  constexpr int S = kFwdStages, KN = 4 * NB;  // k-steps of 16 over N
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldn = ldn_of(g), ldp = ldp_of(g), nn = 16 * g.nk;
-  float* Gs = reinterpret_cast<float*>(smem_raw);  // [4][js/8][32] float4
-  bf16* rings = reinterpret_cast<bf16*>(Gs + kRowBlk * g.js);
-  bf16* Cs = rings + groups_of(g) * ring_elems(g);  // [64][ldn]
-  bf16* Sb = Cs + kRowBlk * ldn;                   // [nh][nn][ldp]
-  float* cum = reinterpret_cast<float*>(Sb + g.nh * nn * ldp);  // [nh][qp]
-  float* dtv = cum + g.nh * g.qp;  // [nh][qp] when g.dts
+  const int qp = (Q + kTile - 1) / kTile * kTile, nt = qp / kTile;
+  float* cum = reinterpret_cast<float*>(smem_raw);  // [qp] log2 e cumsum
+  float* dts = cum + qp;                            // [qp] dt
+  float* wst = dts + qp;                            // [qp] w_t
+  float* tot = wst + qp;                            // [4] the warps' sums
+  const uint32_t base = lm::smem_u32(smem_raw);
+  const uint32_t c_full = base + 4 * (3 * qp + 4);  // [kCSlots] C tiles
+  const uint32_t x_full = c_full + 8 * kCSlots;      // [S] (B, x) slots
+  // the 128-byte swizzle repeats every 1,024 bytes: align the tiles to it
+  const uint32_t cs = (x_full + 8 * S + 1023u) & ~1023u;  // [.][NB][64][64]
+  const uint32_t ring = cs + kCSlots * T::kNBytes;  // [S] B [NB][64][64], x
+  const uint32_t sb = ring + S * T::kSlot;    // [NB * 64][64] S, bfloat16
+  unsigned char* ys = smem_raw + (sb + T::kNBytes - base);  // [64][64] y
 
-  const int gb = blockIdx.x / g.sets, set = blockIdx.x % g.sets;
-  const int nh = min(g.nh, rep - set * g.nh);
-  const int bh0 = gb * rep + set * g.nh;  // the block's first head
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = warp / kGroupWarps, gw = warp % kGroupWarps;
-  const int gtid = threadIdx.x % kGroupThreads;
-  const int gq = lane >> 2, t4 = lane & 3;
-  const bf16* bg = b + static_cast<size_t>(gb) * L * N;
-  const bf16* cg = c + static_cast<size_t>(gb) * L * N;
-  // this group's ring: stage s holds B at Bt + s kTile ldn, x at Xt + ...
-  bf16* Bt = rings + grp * ring_elems(g);
-  bf16* Xt = Bt + 2 * kTile * ldn;
-  // this warp's rows of the C B^T strip, in its mma fragment layout
-  float4* Gw = reinterpret_cast<float4*>(Gs) + gw * (g.js / 8) * 32;
+  const int bh = blockIdx.x / slices, ps = blockIdx.x % slices;
+  const int grp = bh / rep, chunks = L / Q;
+  const int per_chunk = nt * (nt + 1) / 2;  // tile pairs j <= i
+  const int n_c = chunks * nt, n_bx = chunks * per_chunk;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const bool leader = tid == 0;
+  // The leader requests every tile, in the order the warpgroup reads
+  // them: C tile (chunk, it) for each row tile of each chunk into a ring
+  // of kCSlots; per chunk the (B, x) tiles j = 0..it of each row tile it,
+  // into a ring of S. The i-th of either goes to slot i % ring and
+  // completes that slot's phase i / ring.
+  int c_next = 0, bx_next = 0;
+  auto request_c = [&]() {
+    if (c_next >= n_c) return;
+    const int s = c_next % kCSlots;
+    const int row = c_next / nt * Q + c_next % nt * kTile;
+    // after the wgmma reads of the slot (waited, then a block barrier)
+    // and before TMA's writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    lm::mbar_expect_tx(c_full + 8 * s, T::kNBytes);
+    for (int b = 0; b < NB; ++b)
+      lm::tma_load_3d(cs + s * T::kNBytes + b * kBoxBytes, &map_c,
+                      c_full + 8 * s, b * kTile, row, grp);
+    ++c_next;
+  };
+  auto request_bx = [&]() {
+    if (bx_next >= n_bx) return;
+    const int s = bx_next % S, r = bx_next % per_chunk;
+    int it = 0;  // row tile it's column tile j
+    while ((it + 1) * (it + 2) / 2 <= r) ++it;
+    const int j = r - it * (it + 1) / 2;
+    const int row = bx_next / per_chunk * Q + j * kTile;
+    const uint32_t slot = ring + s * T::kSlot;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    lm::mbar_expect_tx(x_full + 8 * s, T::kSlot);
+    for (int b = 0; b < NB; ++b)
+      lm::tma_load_3d(slot + b * kBoxBytes, &map_b, x_full + 8 * s,
+                      b * kTile, row, grp);
+    lm::tma_load_3d(slot + T::kNBytes, &map_x, x_full + 8 * s, ps * kTile,
+                    row, bh);
+    ++bx_next;
+  };
+  if (leader) {
+    for (int s = 0; s < kCSlots; ++s) lm::mbar_init(c_full + 8 * s, 1);
+    for (int s = 0; s < S; ++s) lm::mbar_init(x_full + 8 * s, 1);
+    lm::mbar_fence_init();
+    for (int s = 0; s < kCSlots; ++s) request_c();
+    for (int s = 0; s < S; ++s) request_bx();
+  }
+  __syncthreads();
 
-  for (int i = threadIdx.x; i < g.nh * nn * ldp; i += kMmaThreads)
-    Sb[i] = __float2bfloat16_rn(0.f);
-
-  for (int c0 = 0; c0 < L; c0 += Q) {
-    // ---- log2 e times the cumsum of dt A, a warp a head, and dt where
-    // shared memory holds it (else W and the state read it from dt)
-    for (int h = warp; h < nh; h += 2 * kGroupWarps) {
-      const float av = a[bh0 + h];
-      const float* dth = dt + static_cast<size_t>(bh0 + h) * L + c0;
-      float carry = 0.f;
-      for (int t0 = 0; t0 < g.qp; t0 += 32) {
-        const int t = t0 + lane;
-        const float d = t < Q ? dth[t] : 0.f;
-        float v = d * av;
+  // S (float32, N x this slice's 64 columns of P) stays in registers over
+  // the chunks: half h holds rows 64 h + 16 warp + g4 (+ 8)
+  float sacc[NB][32];
 #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const float nb = __shfl_up_sync(0xffffffffu, v, off);
-          if (lane >= off) v += nb;
-        }
-        v += carry;
-        cum[h * g.qp + t] = t < Q ? v * kLog2e : 0.f;
-        if (g.dts) dtv[h * g.qp + t] = d;
-        carry = __shfl_sync(0xffffffffu, v, 31);
+  for (int h = 0; h < NB; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[h][i] = 0.f;
+  float yacc[32];     // y of the row tile, float32
+  float gw[32];       // G = C B^T, then W, float32
+  uint32_t pa[4][4];  // W in bfloat16, the A fragments of 4 k16 steps
+  // descriptors: C's and B's tiles K-major (rows of N values), x's tile
+  // and S's copy N-major (rows of 64 values of P: LBO steps a box, SBO 8
+  // rows); a k-step's offset is immediate
+  const uint32_t hi = lm::desc_hi_sw128(1024);
+  const uint32_t s_lo = lm::desc_lo(sb, kBoxBytes);
+  const float av = a[bh];
+  const float* dth = dt + static_cast<size_t>(bh) * L;
+  const int seg = qp / 4;  // rows of the chunk a warp scans
+  int uc = 0, ubx = 0;     // C tiles and (B, x) tiles read so far
+
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int c0 = ch * Q;
+    // ---- dt, and log2 e times its cumsum with A: each warp scans its
+    // quarter of the rows, then adds the sums of the quarters before it
+    float carry = 0.f;
+    for (int t0 = 0; t0 < seg; t0 += 32) {
+      const int t = warp * seg + t0 + lane;
+      const bool in = t0 + lane < seg;
+      const float d = in && t < Q ? dth[c0 + t] : 0.f;
+      float v = d * av;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float nb = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += nb;
       }
+      v += carry;
+      if (in) {
+        cum[t] = v;
+        dts[t] = d;
+      }
+      carry = __shfl_sync(0xffffffffu, v, 31);
+    }
+    if (lane == 0) tot[warp] = carry;
+    __syncthreads();
+    float before = 0.f;
+    for (int w = 0; w < warp; ++w) before += tot[w];
+    for (int t0 = 0; t0 < seg; t0 += 32) {
+      const int t = warp * seg + t0 + lane;
+      if (t0 + lane < seg) cum[t] = t < Q ? (cum[t] + before) * kLog2e : 0.f;
     }
     __syncthreads();
+    const float cq = cum[Q - 1];
+    for (int t = tid; t < qp; t += kFwdThreads)
+      wst[t] = ex2(cq - cum[t]) * dts[t];  // 0 past Q, where dt is
 
-    // ---- y, 64 rows of the chunk at a time
-    for (int i0 = 0; i0 < Q; i0 += kRowBlk) {
-      load_tile(Cs, ldn, cg + static_cast<size_t>(c0 + i0) * N, N, g.nk,
-                Q - i0, threadIdx.x, kMmaThreads);
-      lm::cp_async_commit();
-      lm::cp_async_wait<0>();
+    // (B w)^T's A fragments for tile j, B_j in `b_tile`: ldmatrix.trans
+    // of B's swizzled tile, times w_j, rounded to bfloat16
+    auto state_operand = [&](uint32_t(&af)[NB][4][4], uint32_t b_tile,
+                             int j) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // lane's row of B (j) and 8 columns (n) of ldmatrix's four 8 x 8
+        // matrices: a0 (j, n), a1 (j, n + 8), a2 (j + 8, n), a3 (both)
+        const int r = kk * 16 + ((lane >> 4) & 1) * 8 + (lane & 7);
+        const int cb = warp * 2 + ((lane >> 3) & 1);
+        const int jj = j * kTile + kk * 16 + 2 * t4;
+        const float w0 = wst[jj], w1 = wst[jj + 1], w8 = wst[jj + 8],
+                    w9 = wst[jj + 9];
+#pragma unroll
+        for (int h = 0; h < NB; ++h) {
+          lm::ldmatrix_x4_trans(af[h][kk], b_tile + h * kBoxBytes + r * 128 +
+                                               ((cb ^ (r & 7)) << 4));
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {  // a0, a1: j 2t4..; a2, a3: + 8
+            const float2 v = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&af[h][kk][q]));
+            af[h][kk][q] = q < 2 ? lm::pack_bf16x2(v.x * w0, v.y * w1)
+                                 : lm::pack_bf16x2(v.x * w8, v.y * w9);
+          }
+        }
+      }
+    };
+    // S += (B w)^T x_j, x_j at x_lo
+    auto issue_state = [&](uint32_t(&af)[NB][4][4], uint32_t x_lo) {
+#pragma unroll
+      for (int h = 0; h < NB; ++h)
+        static_for<4>([&](auto step) {  // the state's products
+          constexpr int kk = decltype(step)::value;
+          lm::wgmma_m64n64k16_rs_tb<kk * 2048 / 16>(sacc[h], af[h][kk], x_lo,
+                                                    hi);
+        });
+    };
+    auto fence_state = [&](uint32_t(&af)[NB][4][4]) {
+#pragma unroll
+      for (int h = 0; h < NB; ++h) {
+        lm::fence_regs(sacc[h]);
+        lm::fence_regs(af[h]);
+      }
+    };
+
+    // ---- y, a row tile of 64 at a time
+    for (int it = 0; it < nt; ++it, ++uc) {
+      const uint32_t c_lo =
+          lm::desc_lo(cs + uc % kCSlots * T::kNBytes, 16);
+      const int i_lo = it * kTile + warp * 16 + g4, i_hi = i_lo + 8;
+      // rows past the chunk: every weight 2^-inf = 0, nothing stored
+      const float cum_lo = i_lo < Q ? cum[i_lo] : -INFINITY;
+      const float cum_hi = i_hi < Q ? cum[i_hi] : -INFINITY;
+      // the last row tile reads every (B, x) tile of the chunk: it also
+      // runs the state's products, beside W x (measured faster than a walk
+      // of their own, scripts/ssd_fwd_ablate.py)
+      const bool fold = it == nt - 1;
+      lm::mbar_wait(c_full + 8 * (uc % kCSlots), (uc / kCSlots) & 1);
+      if (ch > 0) {
+        // y = 2^cum_i C_i S, S in bfloat16 from before this chunk
+        lm::fence_regs(yacc);
+        lm::wgmma_fence();
+        static_for<KN>([&](auto step) {  // C S's k-steps
+          constexpr int kk = decltype(step)::value;
+          lm::wgmma_m64n64k16_ss_tb<(kk / 4 * kBoxBytes + kk % 4 * 32) / 16,
+                                    kk * 2048 / 16>(yacc, c_lo, s_lo, hi,
+                                                    kk > 0);
+        });
+        lm::wgmma_commit();
+        lm::wgmma_wait<0>();
+        lm::fence_regs(yacc);
+        const float e_lo = ex2(cum_lo), e_hi = ex2(cum_hi);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          yacc[4 * n] *= e_lo;
+          yacc[4 * n + 1] *= e_lo;
+          yacc[4 * n + 2] *= e_hi;
+          yacc[4 * n + 3] *= e_hi;
+        }
+        if (fold) {  // S <- 2^cum_Q S, before the chunk's terms
+          const float e = ex2(cq);
+#pragma unroll
+          for (int h = 0; h < NB; ++h)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) sacc[h][i] *= e;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) yacc[i] = 0.f;
+      }
+      for (int j = 0; j <= it; ++j, ++ubx) {
+        const int s = ubx % S;
+        const uint32_t b_tile = ring + s * T::kSlot;
+        // G = C_i B_j^T, on its own: issued beside the previous tile's W x
+        // (and the state's products) ptxas serialises the wgmma, slower
+        // (scripts/ssd_fwd_ablate.py)
+        lm::mbar_wait(x_full + 8 * s, (ubx / S) & 1);
+        lm::fence_regs(gw);
+        lm::wgmma_fence();
+        const uint32_t b_lo = lm::desc_lo(b_tile, 16);
+        static_for<KN>([&](auto step) {  // G's k-steps
+          constexpr int kk = decltype(step)::value;
+          constexpr int off = (kk / 4 * kBoxBytes + kk % 4 * 32) / 16;
+          lm::wgmma_m64n64k16_ss<off, off>(gw, c_lo, b_lo, hi, kk > 0);
+        });
+        lm::wgmma_commit();
+        lm::wgmma_wait<0>();
+        lm::fence_regs(gw);
+        // W = G 2^(cum_i - cum_j) dt_j, j <= i on the diagonal tile
+        const bool diag = j == it;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jj = j * kTile + 8 * n + 2 * t4 + e;
+            const float cj = cum[jj], dj = dts[jj];
+            const float w_lo = gw[4 * n + e] * ex2(cum_lo - cj) * dj;
+            const float w_hi = gw[4 * n + 2 + e] * ex2(cum_hi - cj) * dj;
+            gw[4 * n + e] = diag && jj > i_lo ? 0.f : w_lo;
+            gw[4 * n + 2 + e] = diag && jj > i_hi ? 0.f : w_hi;
+          }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int h = 0; h < 4; ++h)
+            pa[kk][h] = lm::pack_bf16x2(gw[8 * kk + 2 * h],
+                                        gw[8 * kk + 2 * h + 1]);
+        uint32_t af[NB][4][4];
+        if (fold) state_operand(af, b_tile, j);
+        // y += W x_j, and in the last row tile the state's terms
+        lm::fence_regs(yacc);
+        lm::fence_regs(pa);
+        lm::fence_regs(gw);
+        if (fold) fence_state(af);
+        lm::wgmma_fence();
+        const uint32_t x_lo = lm::desc_lo(b_tile + T::kNBytes, kBoxBytes);
+        static_for<4>([&](auto step) {  // W x's k-steps
+          constexpr int kk = decltype(step)::value;
+          lm::wgmma_m64n64k16_rs_tb<kk * 2048 / 16>(yacc, pa[kk], x_lo, hi);
+        });
+        if (fold) issue_state(af, x_lo);
+        lm::wgmma_commit();
+        lm::wgmma_wait<0>();
+        lm::fence_regs(yacc);
+        lm::fence_regs(pa);
+        lm::fence_regs(gw);
+        if (fold) fence_state(af);
+        __syncthreads();  // every warp is done with the slot (and C's)
+        if (leader) {
+          request_bx();
+          if (diag) request_c();
+        }
+      }
+      // y through shared memory (rows of 128 bytes, swizzled as TMA's:
+      // no bank conflict either way), then 16 coalesced bytes a thread;
+      // rows past the chunk and columns past P are not stored
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = warp * 16 + g4 + 8 * hh, pc = 8 * n + 2 * t4;
+          *reinterpret_cast<uint32_t*>(ys + r * 128 +
+                                       (((pc >> 3) ^ (r & 7)) << 4) +
+                                       (pc & 7) * 2) =
+              lm::pack_bf16x2(yacc[4 * n + 2 * hh], yacc[4 * n + 2 * hh + 1]);
+        }
       __syncthreads();
-      uint32_t cf[MK][4];
-#pragma unroll
-      for (int kk = 0; kk < MK; ++kk)
-        if (kk < g.nk)
-          lm::ldmatrix_x4(cf[kk],
-                          lm::smem_u32(Cs + (gw * 16 + (lane & 15)) * ldn +
-                                       kk * 16 + (lane >> 4) * 8));
-      const int row_lo = i0 + gw * 16 + gq, row_hi = row_lo + 8;
-      const int j_end = min(i0 + kRowBlk, Q);  // causal: j <= the last row
-      float acc[2 * MK][4];
-
-      for (int js0 = 0; js0 < j_end; js0 += g.js) {
-        const int n_jt = (min(g.js, j_end - js0) + kTile - 1) / kTile;
-        const bool last_strip = js0 + g.js >= j_end;
-        // C B^T for columns [js0, js0 + 64 n_jt), once for every head:
-        // group 0 forms the tile's first 32 columns, group 1 the rest
-        bf16* Bg = rings;  // group 0's ring, shared by both groups here
-        load_tile(Bg, ldn, bg + static_cast<size_t>(c0 + js0) * N, N, g.nk,
-                  Q - js0, threadIdx.x, kMmaThreads);
-        lm::cp_async_commit();
-        for (int jt = 0; jt < n_jt; ++jt) {
-          const int st = jt & 1;
-          if (jt + 1 < n_jt)
-            load_tile(Bg + (st ^ 1) * kTile * ldn, ldn,
-                      bg + static_cast<size_t>(c0 + js0 + (jt + 1) * kTile) * N,
-                      N, g.nk, Q - js0 - (jt + 1) * kTile, threadIdx.x,
-                      kMmaThreads);
-          lm::cp_async_commit();
-          lm::cp_async_wait<1>();
-          __syncthreads();
-          const bf16* Bs = Bg + st * kTile * ldn;
-          float s[4][4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < MK; ++kk) {
-            if (kk >= g.nk) break;
-#pragma unroll
-            for (int np = 0; np < 2; ++np) {
-              uint32_t bb[4];
-              lm::ldmatrix_x4(
-                  bb, lm::smem_u32(Bs + ((2 * grp + np) * 16 +
-                                         (lane >> 4) * 8 + (lane & 7)) * ldn +
-                                   kk * 16 + ((lane >> 3) & 1) * 8));
-              lm::mma_bf16_16816(s[2 * np], cf[kk], bb[0], bb[1]);
-              lm::mma_bf16_16816(s[2 * np + 1], cf[kk], bb[2], bb[3]);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            Gw[(jt * 8 + 4 * grp + j) * 32 + lane] =
-                make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
-          __syncthreads();  // stage `st` is refilled next
-        }
-
-        // each group its heads (h = grp, grp + 2, ...): y rows += W x
-        const int my_heads = (nh - grp + 1) / 2;
-        const int n_it = my_heads * n_jt;
-        if (n_it > 0)
-          load_tile(Xt, ldp, x + (static_cast<size_t>(bh0 + grp) * L + c0 +
-                                  js0) * P,
-                    P, g.pk, Q - js0, gtid, kGroupThreads);
-        lm::cp_async_commit();
-        for (int it = 0; it < n_it; ++it) {
-          const int h = grp + 2 * (it / n_jt), jt = it % n_jt, st = it & 1;
-          if (it + 1 < n_it) {
-            const int h2 = grp + 2 * ((it + 1) / n_jt), jt2 = (it + 1) % n_jt;
-            load_tile(Xt + (st ^ 1) * kTile * ldp, ldp,
-                      x + (static_cast<size_t>(bh0 + h2) * L + c0 + js0 +
-                           jt2 * kTile) * P,
-                      P, g.pk, Q - js0 - jt2 * kTile, gtid, kGroupThreads);
-          }
-          lm::cp_async_commit();
-          const float* ch = cum + h * g.qp;
-          const float* dh =
-              g.dts ? dtv + h * g.qp : dt + static_cast<size_t>(bh0 + h) * L + c0;
-          if (jt == 0 && js0 == 0) {
-            // exp(cum_i) C_i . S (S from before this chunk; 0 at chunk 0)
-#pragma unroll
-            for (int j = 0; j < 2 * MK; ++j)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-            if (c0 > 0) {
-              const bf16* Sh = Sb + h * nn * ldp;
-#pragma unroll
-              for (int kk = 0; kk < MK; ++kk)
-                if (kk < g.nk) mma_rows<MK>(acc, cf[kk], Sh, ldp, kk, g.pk);
-              const float e_lo = row_lo < Q ? exp2f(ch[row_lo]) : 0.f;
-              const float e_hi = row_hi < Q ? exp2f(ch[row_hi]) : 0.f;
-#pragma unroll
-              for (int j = 0; j < 2 * MK; ++j) {
-                acc[j][0] *= e_lo;
-                acc[j][1] *= e_lo;
-                acc[j][2] *= e_hi;
-                acc[j][3] *= e_hi;
-              }
-            }
-          }
-          lm::cp_async_wait<1>();
-          group_sync(grp);
-          // W = (C B^T) exp(cum_i - cum_j) dt_j (j <= i), bfloat16 A
-          // fragments of W x
-          uint32_t pa[4][4];
-          const int jb = js0 + jt * kTile;
-          const float c_lo = row_lo < Q ? ch[row_lo] : 0.f;
-          const float c_hi = row_hi < Q ? ch[row_hi] : 0.f;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float4 gv = Gw[(jt * 8 + j) * 32 + lane];
-            const int j0 = jb + 8 * j + 2 * t4;
-            const float gg[4] = {gv.x, gv.y, gv.z, gv.w};
-            float w[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int i = e < 2 ? row_lo : row_hi, jj = j0 + (e & 1);
-              w[e] = jj <= i && i < Q
-                         ? gg[e] * exp2f((e < 2 ? c_lo : c_hi) - ch[jj]) *
-                               dh[jj]
-                         : 0.f;
-            }
-            pa[j >> 1][2 * (j & 1)] = lm::pack_bf16x2(w[0], w[1]);
-            pa[j >> 1][2 * (j & 1) + 1] = lm::pack_bf16x2(w[2], w[3]);
-          }
-          const bf16* Xs = Xt + st * kTile * ldp;
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            mma_rows<MK>(acc, pa[kk], Xs, ldp, kk, g.pk);
-          if (jt == n_jt - 1 && last_strip) {
-            bf16* yh = y + (static_cast<size_t>(bh0 + h) * L + c0) * P;
-#pragma unroll
-            for (int j = 0; j < 2 * MK; ++j) {
-              const int p = 8 * j + 2 * t4;
-              if (p >= P) continue;
-#pragma unroll
-              for (int hh = 0; hh < 2; ++hh) {
-                const int r = hh ? row_hi : row_lo;
-                if (r >= Q) continue;
-                bf16* dst = yh + static_cast<size_t>(r) * P + p;
-                if (P % 2 == 0) {
-                  *reinterpret_cast<uint32_t*>(dst) =
-                      lm::pack_bf16x2(acc[j][2 * hh], acc[j][2 * hh + 1]);
-                } else {
-                  dst[0] = __float2bfloat16_rn(acc[j][2 * hh]);
-                  if (p + 1 < P)
-                    dst[1] = __float2bfloat16_rn(acc[j][2 * hh + 1]);
-                }
-              }
-            }
-          }
-          group_sync(grp);  // stage `st` is refilled next
-        }
-        __syncthreads();  // the strip is read by both groups
+      bf16* yr = y + (static_cast<size_t>(bh) * L + c0 + it * kTile) * P +
+                 ps * kTile;
+      for (int k = tid; k < kTile * 8; k += kFwdThreads) {
+        const int r = k >> 3, cc = k & 7;  // P % 8 == 0: whole 16 bytes
+        if (it * kTile + r < Q && ps * kTile + 8 * cc < P)
+          *reinterpret_cast<uint4*>(yr + static_cast<size_t>(r) * P +
+                                    8 * cc) =
+              *reinterpret_cast<const uint4*>(ys + r * 128 +
+                                              ((cc ^ (r & 7)) << 4));
       }
     }
 
-    // ---- the state: S <- S exp(cum_Q) + (B w)^T x, each group its
-    // heads, a warp a unit of 16 rows of N and 64 columns of P
-    const int pq = (g.pk + 3) / 4, units = g.nk * pq, nq = g.qp / kTile;
-    const int my_heads = (nh - grp + 1) / 2;
-    for (int u0 = 0; u0 < units; u0 += kGroupWarps) {
-      const int u = u0 + gw, ns = u / pq, pg = u % pq;
-      const bool mine = u < units;
-      const int n_it = my_heads * nq;
-      if (n_it > 0) {
-        load_tile(Bt, ldn, bg + static_cast<size_t>(c0) * N, N, g.nk, Q, gtid,
-                  kGroupThreads);
-        load_tile(Xt, ldp, x + (static_cast<size_t>(bh0 + grp) * L + c0) * P,
-                  P, g.pk, Q, gtid, kGroupThreads);
-      }
-      lm::cp_async_commit();
-      float accs[8][4];
-      for (int it = 0; it < n_it; ++it) {
-        const int h = grp + 2 * (it / nq), jt = it % nq, st = it & 1;
-        if (it + 1 < n_it) {
-          const int h2 = grp + 2 * ((it + 1) / nq), jt2 = (it + 1) % nq;
-          load_tile(Bt + (st ^ 1) * kTile * ldn, ldn,
-                    bg + static_cast<size_t>(c0 + jt2 * kTile) * N, N, g.nk,
-                    Q - jt2 * kTile, gtid, kGroupThreads);
-          load_tile(Xt + (st ^ 1) * kTile * ldp, ldp,
-                    x + (static_cast<size_t>(bh0 + h2) * L + c0 +
-                         jt2 * kTile) * P,
-                    P, g.pk, Q - jt2 * kTile, gtid, kGroupThreads);
+    // S after the chunk: its bfloat16 copy for the next chunk's C S (in
+    // the swizzled layout TMA would give it), and the state saved for the
+    // backward, or after the last chunk s_final
+    const bool last = ch + 1 == chunks;
+    float* out = last ? s_final + static_cast<size_t>(bh) * N * P
+                 : states != nullptr
+                     ? states + (static_cast<size_t>(bh) * (chunks - 1) + ch) *
+                                    N * P
+                     : nullptr;
+#pragma unroll
+    for (int h = 0; h < NB; ++h)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = h * kTile + warp * 16 + g4 + 8 * hh;  // row of N
+          const int pc = 8 * n + 2 * t4, p = ps * kTile + pc;
+          const float v0 = sacc[h][4 * n + 2 * hh];
+          const float v1 = sacc[h][4 * n + 2 * hh + 1];
+          if (!last)
+            *reinterpret_cast<uint32_t*>(
+                smem_raw + (sb - base) + r * 128 +
+                (((pc >> 3) ^ (r & 7)) << 4) + (pc & 7) * 2) =
+                lm::pack_bf16x2(v0, v1);
+          if (out != nullptr && r < N && p < P)
+            *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * P + p) =
+                make_float2(v0, v1);
         }
-        lm::cp_async_commit();
-        lm::cp_async_wait<1>();
-        group_sync(grp);
-        const float* ch = cum + h * g.qp;
-        const float* dh =
-            g.dts ? dtv + h * g.qp : dt + static_cast<size_t>(bh0 + h) * L + c0;
-        const float cq = ch[Q - 1];
-        if (jt == 0) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) accs[j][e] = 0.f;
-        }
-        if (mine) {
-          const bf16* Bs = Bt + st * kTile * ldn;
-          const bf16* Xs = Xt + st * kTile * ldp;
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            // (B w)^T's A fragment: B^T by ldmatrix.trans, each value
-            // times w_j and rounded to bfloat16
-            uint32_t af[4];
-            lm::ldmatrix_x4_trans(
-                af, lm::smem_u32(Bs + (kk * 16 + ((lane >> 4) & 1) * 8 +
-                                       (lane & 7)) * ldn +
-                                 ns * 16 + ((lane >> 3) & 1) * 8));
-            const int j0 = jt * kTile + kk * 16 + 2 * t4;
-            float wj[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int jj = j0 + (e & 1) + (e >> 1) * 8;
-              wj[e] = jj < Q ? exp2f(cq - ch[jj]) * dh[jj] : 0.f;
-            }
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const float2 v = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(&af[r]));
-              const int hi = r >> 1;  // a2, a3: j + 8
-              af[r] = lm::pack_bf16x2(v.x * wj[2 * hi], v.y * wj[2 * hi + 1]);
-            }
-#pragma unroll
-            for (int dq = 0; dq < 4; ++dq) {
-              const int dp = 4 * pg + dq;
-              if (dp >= g.pk) break;
-              uint32_t bb[4];
-              lm::ldmatrix_x4_trans(
-                  bb, lm::smem_u32(Xs + (kk * 16 + ((lane >> 3) & 1) * 8 +
-                                         (lane & 7)) * ldp +
-                                   dp * 16 + (lane >> 4) * 8));
-              lm::mma_bf16_16816(accs[2 * dq], af, bb[0], bb[1]);
-              lm::mma_bf16_16816(accs[2 * dq + 1], af, bb[2], bb[3]);
-            }
-          }
-          if (jt == nq - 1) {
-            // S (float32, in s_final) <- S exp(cum_Q) + accs; its
-            // bfloat16 copy for the next chunk's C S
-            const float e = exp2f(cq);
-            float* sf = s_final + static_cast<size_t>(bh0 + h) * N * P;
-            // the state before the next chunk, saved for the backward
-            float* st = states != nullptr && c0 + Q < L
-                            ? states + (static_cast<size_t>(bh0 + h) *
-                                            (L / Q - 1) + c0 / Q) * N * P
-                            : nullptr;
-            bf16* Sh = Sb + h * nn * ldp;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const int p = 64 * pg + 8 * j + 2 * t4;
-#pragma unroll
-              for (int e2 = 0; e2 < 4; ++e2) {
-                const int n = ns * 16 + gq + (e2 >> 1) * 8, pe = p + (e2 & 1);
-                if (pe >= 16 * g.pk) continue;
-                float v = accs[j][e2];
-                const bool real = n < N && pe < P;
-                if (real) {
-                  float* dst = sf + static_cast<size_t>(n) * P + pe;
-                  if (c0 > 0) v += *dst * e;
-                  *dst = v;
-                  if (st != nullptr) st[static_cast<size_t>(n) * P + pe] = v;
-                }
-                Sh[n * ldp + pe] = __float2bfloat16_rn(real ? v : 0.f);
-              }
-            }
-          }
-        }
-        group_sync(grp);  // stage `st` is refilled next
-      }
-    }
-    __syncthreads();  // S's bfloat16 copy is complete
+    // the copy's generic writes before the next chunk's wgmma reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
   }
 }
 
-int launch_mma(const float* a, const void* x, const float* dt, const void* b,
-               const void* c, void* y, float* s_final, float* states, int bh,
-               int L, int P, int N, int Q, int rep, cudaStream_t stream) {
-  MmaGeom g{};
-  g.nk = (N + 15) / 16;
-  g.pk = (P + 15) / 16;
-  g.qp = (Q + kTile - 1) / kTile * kTile;
-  const int groups = bh / rep;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // dt in shared memory where it fits; the widest C B^T strip that fits
-  // (256 columns, fewer at large P, N or Q); heads a block: one when a
-  // row strip takes more than one pass (a head's y sums stay in registers
-  // across the passes), else the count whose blocks fill the SMs in the
-  // fewest waves of head pairs, the most heads first
-  long best = -1;
-  for (int dts = 1; dts >= 0 && best < 0; --dts) {
-    for (int js = std::min(g.qp, kStripMax); js >= kTile && best < 0;
-         js -= kTile) {
-      const int h_top = g.qp > js ? 1 : std::min(rep, 16);
-      for (int h = h_top; h >= 1; --h) {
-        MmaGeom t = g;
-        t.dts = dts;
-        t.js = js;
-        t.sets = (rep + h - 1) / h;
-        t.nh = (rep + t.sets - 1) / t.sets;
-        const size_t smem = mma_smem(t);
-        if (smem > 227 * 1024) continue;
-        const long per_sm =
-            std::min(static_cast<long>(228 * 1024 / (smem + 1024)), 2L);
-        const long waves =
-            (static_cast<long>(groups) * t.sets + sms * per_sm - 1) /
-            (sms * per_sm);
-        const long cost = waves * ((t.nh + 1) / 2);
-        if (best < 0 || cost < best) {
-          best = cost;
-          g = t;
-        }
-      }
-    }
-  }
-  if (best < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = mma_smem(g);
-  const bool wide = g.nk > 4 || g.pk > 4;
-  cudaError_t e = wide ? lm::allow_smem(ssd_fwd_mma<8>, smem)
-                       : lm::allow_smem(ssd_fwd_mma<4>, smem);
+// x (bh, L, P), b and c (bh / rep, L, N), bfloat16, P and N their row
+// widths: multiples of 8 (TMA's 16-byte row strides; the wrapper
+// zero-pads to them), 16-byte aligned; y (bh, L, P), s_final and states
+// at (N, P)
+template <int NB>
+int launch_fwd_wgmma(const float* a, const void* x, const float* dt,
+                     const void* b, const void* c, void* y, float* s_final,
+                     float* states, int bh, int L, int P, int N, int Q,
+                     int rep, cudaStream_t stream) {
+  const size_t smem = fwd_wgmma_smem(NB, Q);
+  if (P % 8 || N % 8 || smem > 227 * 1024 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16 ||
+      reinterpret_cast<uintptr_t>(c) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_b, map_c;
+  if (!lm::make_head_map(&map_x, x, P, L, bh, kTile) ||
+      !lm::make_head_map(&map_b, b, N, L, bh / rep, kTile) ||
+      !lm::make_head_map(&map_c, c, N, L, bh / rep, kTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = lm::allow_smem(ssd_fwd_wgmma<NB>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(groups * g.sets);
-  auto go = [&](auto kern) {
-    kern<<<grid, kMmaThreads, smem, stream>>>(
-        a, static_cast<const bf16*>(x), dt, static_cast<const bf16*>(b),
-        static_cast<const bf16*>(c), static_cast<bf16*>(y), s_final, states,
-        L, P, N, Q, rep, g);
-  };
-  if (wide)
-    go(ssd_fwd_mma<8>);
-  else
-    go(ssd_fwd_mma<4>);
+  const int slices = (P + kTile - 1) / kTile;
+  ssd_fwd_wgmma<NB><<<bh * slices, kFwdThreads, smem, stream>>>(
+      map_x, map_b, map_c, a, dt, static_cast<bf16*>(y), s_final, states, L,
+      P, N, Q, rep, slices);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2215,7 +2193,9 @@ int launch_bwd_mma(const float* a, const void* x, const float* dt,
 // y (bh, L, P); s_final (bh, N, P) float32; x, b, c, y all float32
 // (is_bf16 = 0) or all bfloat16; states null, or (bh, L / Q - 1, N, P)
 // float32 for the state before each chunk but the first. Needs L % Q == 0,
-// bh % rep == 0, 1 <= P, N <= 128.
+// bh % rep == 0, 1 <= P, N <= 128; in bfloat16 also P and N multiples of
+// 8, x, b and c 16-byte aligned, and Q within shared memory
+// (fwd_wgmma_smem).
 extern "C" int ssd_scan_launch(int is_bf16, const void* a, const void* x,
                                const void* dt, const void* b, const void* c,
                                void* y, void* s_final, void* states, int bh,
@@ -2230,7 +2210,10 @@ extern "C" int ssd_scan_launch(int is_bf16, const void* a, const void* x,
   float* sf = static_cast<float*>(s_final);
   float* st = static_cast<float*>(states);
   if (is_bf16)
-    return launch_mma(af, x, dtf, b, c, y, sf, st, bh, L, P, N, Q, rep, s);
+    return N > 64 ? launch_fwd_wgmma<2>(af, x, dtf, b, c, y, sf, st, bh, L,
+                                         P, N, Q, rep, s)
+                  : launch_fwd_wgmma<1>(af, x, dtf, b, c, y, sf, st, bh, L,
+                                         P, N, Q, rep, s);
   return launch<float>(af, x, dtf, b, c, y, sf, st, bh, L, P, N, Q, rep, s);
 }
 

@@ -9,9 +9,19 @@ contribution of the (N, P) state carried across the chunks in order,
 reset at chunk 0. Beside y it returns the carried state after the last
 chunk (the TPU kernel's scratch at its end), which prefill hands to
 decode. The D residual and the gating stay outside. With bfloat16
-inputs the kernel multiplies on the tensor cores, with C B^T formed once
-for the heads of a group that a block runs; with float32 inputs on the
-CUDA cores (see the source's header).
+inputs the kernel is `ssd_fwd_wgmma`, on Hopper's wgmma and TMA: one
+warpgroup a head (and a 64-column slice of P), G = C B^T formed per 64 x
+64 tile pair, W = G 2^(cum_i - cum_j) dt_j rounded to bfloat16 for W x,
+S's bfloat16 copy for C S and (B w)^T rounded to bfloat16 for the state
+update, the float32 state in registers over the chunks; with float32
+inputs the CUDA-core kernel (see the source's header). TMA takes
+16-byte row strides, so the wrapper hands the bfloat16 kernel x, B and C
+zero-padded to a multiple of 8 columns (`wgmma_operand`; no copy at the
+models' P 64, N 64 and 128) and slices y and the states back: exact,
+since zero columns add nothing and give zero outputs. It takes P, N up
+to 128 and a chunk up to what its shared memory holds (`fwd_wgmma_max_q`,
+mirroring the source's `fwd_wgmma_smem`); past that it raises
+ValueError.
 
 Layout: a (BH,), x (BH, L, P), dt (BH, L), b, c (BH // rep, L, N): row
 bh reads B and C row bh // rep, so the heads of a group share their
@@ -38,7 +48,9 @@ chunk in eager torch (any device). The wrappers take `device=None`
 (meaning "cuda"): on a CUDA device they launch the kernel on the current
 stream or raise; only for CPU tensors do they run the plain version.
 Counts on `ssd_scan`: `.launches` and `.plain_calls` (forward),
-`.bwd_launches` and `.bwd_plain_calls`; `reset_counts()` zeroes them.
+`.wgmma_launches` (the forward launches that ran `ssd_fwd_wgmma`: every
+bfloat16 one, also in `.launches`), `.bwd_launches` and
+`.bwd_plain_calls`; `reset_counts()` zeroes them.
 """
 from __future__ import annotations
 
@@ -49,6 +61,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import _build
 from repro_torch.kernels._grad import needs_grad
+from repro_torch.kernels.flash_attention import wgmma_operand
 from repro_torch.kernels.iss_stepper import _check, _on_cpu, _raise_on
 
 F32 = torch.float32
@@ -196,6 +209,35 @@ def _check_inputs(a, x, dt, b, c, dev, rep):
         _check(name, t, dev, dtype, shape)
 
 
+# the bfloat16 forward kernel (`ssd_fwd_wgmma`): rows of a tile, its
+# rings' slots (C; B and x), shared memory a block may take
+_TILE = 64
+_FWD_C_SLOTS, _FWD_STAGES = 2, 2
+_SMEM_LIMIT = 227 * 1024
+
+
+def fwd_wgmma_smem(n: int, q: int) -> int:
+    """Shared-memory bytes of a bfloat16 forward block at N = n (zero-
+    padded to a multiple of 8), chunk q: the same sum as `fwd_wgmma_smem`
+    in csrc/ssd_scan.cu (three float32 rows of the chunk, the warps'
+    sums and the barriers; 1,024 bytes to align the tiles; two C tiles,
+    the (B, x) ring, S's bfloat16 copy and y's tile, a tile 64 rows of 64
+    values a box, N in one box or two)."""
+    qp = -(-q // _TILE) * _TILE
+    box = _TILE * _TILE * 2
+    nbytes = (1 if n <= 64 else 2) * box
+    tiles = _FWD_C_SLOTS * nbytes + _FWD_STAGES * (nbytes + box) + nbytes \
+        + box
+    return 4 * (3 * qp + 4) + 8 * (_FWD_C_SLOTS + _FWD_STAGES) + 1024 \
+        + tiles
+
+
+def fwd_wgmma_max_q(n: int) -> int:
+    """The longest chunk the bfloat16 forward takes at N = n."""
+    fixed = fwd_wgmma_smem(n, 0)
+    return (_SMEM_LIMIT - fixed) // (12 * _TILE) * _TILE
+
+
 def _forward(a, x, dt, b, c, q, rep, dev, with_states):
     """(y, s_final, states or None): the kernel on the card, the plain
     version on the CPU."""
@@ -209,20 +251,33 @@ def _forward(a, x, dt, b, c, q, rep, dev, with_states):
                              return_states=with_states)
         return out if with_states else (*out, None)
     _check_inputs(a, x, dt, b, c, dev, rep)
+    wgmma = x.dtype == torch.bfloat16
+    if wgmma:
+        if q > fwd_wgmma_max_q(n):
+            raise ValueError(f"chunk q = {q} at N = {n}: the bfloat16 "
+                             f"kernel's shared memory holds "
+                             f"{fwd_wgmma_max_q(n)} steps at most")
+        x, b, c = (wgmma_operand(t) for t in (x, b, c))
+    pr, nr = x.shape[-1], b.shape[-1]
     y = torch.empty_like(x)
-    s_final = torch.empty((bh, n, p), dtype=F32, device=dev)
-    states = (torch.empty((bh, l // q - 1, n, p), dtype=F32, device=dev)
+    s_final = torch.empty((bh, nr, pr), dtype=F32, device=dev)
+    states = (torch.empty((bh, l // q - 1, nr, pr), dtype=F32, device=dev)
               if with_states else None)
     fn = getattr(_build.load("ssd_scan"), "ssd_scan_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(int(x.dtype == torch.bfloat16), a.data_ptr(), x.data_ptr(),
-                dt.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                s_final.data_ptr(),
+        rc = fn(int(wgmma), a.data_ptr(), x.data_ptr(), dt.data_ptr(),
+                b.data_ptr(), c.data_ptr(), y.data_ptr(), s_final.data_ptr(),
                 states.data_ptr() if with_states and l > q else None,
-                bh, l, p, n, q, rep, stream)
+                bh, l, pr, nr, q, rep, stream)
     _raise_on(rc, "ssd_scan launch")
     ssd_scan.launches += 1
+    ssd_scan.wgmma_launches += wgmma
+    if (pr, nr) != (p, n):          # the zero-padded columns, sliced off
+        y = y[..., :p].contiguous()
+        s_final = s_final[:, :n, :p].contiguous()
+        if states is not None:
+            states = states[:, :, :n, :p].contiguous()
     return y, s_final, states
 
 
@@ -241,10 +296,6 @@ def heads_a_block(bh: int, rep: int, sms: int) -> int:
     return best[1]
 
 
-# the bfloat16 backward kernel (`ssd_bwd_mma`): rows of a tile, shared
-# memory a block may take
-_TILE = 64
-_SMEM_LIMIT = 227 * 1024
 
 
 def bwd_mma_smem(n: int, p: int, q: int, nh: int) -> int:
@@ -377,6 +428,7 @@ def ssd_scan(a, x, dt, b, c, *, q: int = 64, rep: int = 1,
 def reset_counts() -> None:
     """Zero the wrappers' launch and plain-call counts."""
     ssd_scan.launches = 0
+    ssd_scan.wgmma_launches = 0
     ssd_scan.plain_calls = 0
     ssd_scan.bwd_launches = 0
     ssd_scan.bwd_plain_calls = 0

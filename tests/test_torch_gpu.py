@@ -544,8 +544,8 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, shape):
                                    (1, 2, 1024, 64, 64, 512, 1)])
 def test_ssd_scan_kernel_matches_plain(cuda, dtype, shape):
     """Small, ragged and odd head counts; P = N = 128 (the bfloat16
-    kernel's wide build); and a chunk past one C B^T strip (one head a
-    block, several strips a row block)."""
+    kernel's two slices of P and two boxes of N); and a chunk of 512
+    steps (eight row tiles, 36 tile pairs a chunk)."""
     _ssd_case(cuda, dtype, shape)
 
 
@@ -556,8 +556,8 @@ _MAMBA2_SHAPE = (8, 64, 512, 64, 128, 256, 1)
 
 
 def test_ssd_scan_bf16_mamba2_shape(cuda):
-    """The bfloat16 kernel at N 128 with 64 heads a group: C B^T and the
-    (N, P) state tiles twice Zamba2's N 64."""
+    """The bfloat16 kernel at N 128 with 64 heads a group: its build of
+    two 64-column boxes of N, the state in two m64 halves."""
     _ssd_case(cuda, torch.bfloat16, _MAMBA2_SHAPE)
 
 
@@ -586,9 +586,65 @@ def test_gqa_flash_attention_d128_group5(cuda, dtype):
 
 
 def test_ssd_scan_bf16_long_chunk(cuda):
-    """A 3,072-step chunk at P = N = 128: the bfloat16 kernel's C B^T
-    strips of one row block span twelve passes."""
+    """A 3,072-step chunk at P = N = 128: the bfloat16 kernel walks 48
+    row tiles and 1,176 tile pairs in one chunk, its cumsum and weights
+    12 KB each in shared memory."""
     _ssd_case(cuda, torch.bfloat16, _LONG_CHUNK)
+
+
+# (batch, heads, L, P, N, chunk, groups) of `ssd_fwd_wgmma`, the bfloat16
+# forward: Zamba2-7B's P = N = 64 with 112 heads a group (one batch);
+# Mamba2-1.3B's N 128; P = N = 128 (two 64-column slices of P, two boxes
+# of N); P 13 and N 21, not multiples of 8 (zero-padded), three chunks
+_SSD_WGMMA_CASES = [(1, 112, 512, 64, 64, 256, 1), _MAMBA2_SHAPE,
+                    (1, 4, 512, 128, 128, 256, 1), (1, 3, 150, 13, 21, 50, 1)]
+
+
+@pytest.mark.parametrize("shape", _SSD_WGMMA_CASES)
+def test_ssd_wgmma_matches_plain_and_its_model(cuda, shape):
+    """y, the final state and the states the backward reads against the
+    plain version and against the rounding model
+    (`_torch_ssd_wgmma.ssd_wgmma_emulation`); two launches give the same
+    bits, each counted as an `ssd_fwd_wgmma` launch."""
+    from _torch_ssd_wgmma import ssd_wgmma_emulation
+    from repro_torch.kernels import ssd_scan as pss
+    a, x, dt, b, c, q, rep = _ssd_inputs(cuda, torch.bfloat16, shape)
+    pss.reset_counts()
+    got = pss._forward(a, x, dt, b, c, q, rep, x.device, True)
+    again = pss._forward(a, x, dt, b, c, q, rep, x.device, True)
+    torch.cuda.synchronize()
+    assert (pss.ssd_scan.launches, pss.ssd_scan.wgmma_launches) == (2, 2)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    assert got[0].shape == x.shape and got[2].shape == (
+        x.shape[0], x.shape[1] // q - 1, b.shape[-1], x.shape[-1])
+    want = pss.ssd_scan_plain(a, x, dt, b, c, q=q, rep=rep,
+                              return_states=True)
+    model = ssd_wgmma_emulation(a, x, dt, b, c, q=q, rep=rep,
+                                return_states=True)
+    for u, v, w in zip(got, want, model):
+        _lm_close(u, v, torch.bfloat16)
+        _lm_close(u, w, torch.bfloat16)
+
+
+def test_ssd_wgmma_counts_bfloat16_only_and_refuses_past_its_chunk(cuda):
+    """A float32 forward runs the CUDA-core kernel and is not counted as
+    `ssd_fwd_wgmma`; a bfloat16 chunk past what the kernel's shared memory
+    holds (`fwd_wgmma_max_q`) raises ValueError before any launch."""
+    from repro_torch.kernels import ssd_scan as pss
+    pss.reset_counts()
+    a, x, dt, b, c, q, rep = _ssd_inputs(cuda, torch.float32,
+                                         (1, 2, 128, 32, 16, 64, 1))
+    pss.ssd_scan(a, x, dt, b, c, q=q, rep=rep, device=cuda)
+    pss.ssd_scan(a, x.bfloat16(), dt, b.bfloat16(), c.bfloat16(), q=q,
+                 rep=rep, device=cuda)
+    torch.cuda.synchronize()
+    assert (pss.ssd_scan.launches, pss.ssd_scan.wgmma_launches) == (2, 1)
+    long_q = pss.fwd_wgmma_max_q(128) + 64
+    a, x, dt, b, c, q, rep = _ssd_inputs(cuda, torch.bfloat16,
+                                         (1, 1, long_q, 64, 128, long_q, 1))
+    with pytest.raises(ValueError, match="shared memory holds"):
+        pss.ssd_scan(a, x, dt, b, c, q=q, rep=rep, device=cuda)
+    assert pss.ssd_scan.launches == 2
 
 
 def test_ssd_scan_f32_long_chunk_against_float64(cuda):

@@ -19,11 +19,12 @@ inputs.
   tolerance for bfloat16 outputs, 1e-2 times max(1, largest |output|)
   (`chip_smoke.py`'s `LM_TOL`, `tests/test_torch_gpu.py`'s `_LM_TOL`):
   one bfloat16 step is 2^-7 = 0.0078.
-- The scan kernel's bfloat16 design (per 64-row block of a chunk, C B^T
-  formed once in float32 for every head of a group; per head W = (C B^T)
-  exp(cum_i - cum_j) dt_j rounded to bfloat16 as W x's operand, C S with
-  S rounded to bfloat16, and the state update with B w rounded to
-  bfloat16; float32 sums) is emulated tile by tile here and held to
+- The scan kernel's bfloat16 design (`ssd_fwd_wgmma`: per head and
+  chunk, per 64 x 64 tile pair at or below the diagonal G = C B^T in
+  float32, W = G exp2(cum_i - cum_j) dt_j rounded to bfloat16 as W x's
+  operand, C S with S rounded to bfloat16, and the state update with B w
+  rounded to bfloat16; float32 sums and state:
+  `tests/_torch_ssd_wgmma.py`'s `ssd_wgmma_emulation`) is held to
   `ssd_scan_plain` and to the reference's TPU kernel in interpret mode (y)
   and its sequential oracle `ref.ssd_ref` (the final state) within the
   same tolerance, 1e-2 times max(1, largest |value|).
@@ -39,6 +40,7 @@ import pytest
 import torch
 
 from _torch_flash_wgmma import flash_wgmma_emulation
+from _torch_ssd_wgmma import ssd_wgmma_emulation
 from repro.kernels import ref as rref
 from repro.kernels.bitplane_matmul import bitplane_matmul as r_bitplane
 from repro.kernels.flash_attention import flash_attention as r_flash
@@ -138,77 +140,19 @@ def test_flash_bf16_design_within_the_card_tolerance(shape, causal):
 
 # ------------------------------------------------------- ssd scan
 
-SSD_ROWS = 64  # the bfloat16 scan kernel's row block
-LOG2E = 1.4426950408889634
-
-
-def ssd_mma_emulation(a, x, dt, b, c, *, q, rep, heads_per_block):
-    """The bfloat16 scan kernel's arithmetic: blocks of `heads_per_block`
-    heads of one group (the last block of a group takes the rest), per
-    chunk and 64-row block one float32 C B^T shared by the block's heads,
-    the cumsum kept times log2 e (each exponential an exp2), W rounded to
-    bfloat16 for W x, S rounded to bfloat16 for C S, B w rounded to
-    bfloat16 for the state update, float32 sums; S kept in float32.
-    Returns (y in bfloat16, final state in float32)."""
-    bh, l, p = x.shape
-    groups = bh // rep
-    sets = -(-rep // heads_per_block)
-    nh = -(-rep // sets)
-    y = torch.zeros_like(x)
-    state = torch.zeros((bh, b.shape[-1], p), dtype=F32)
-    for grp in range(groups):
-        for st in range(sets):
-            heads = [grp * rep + r
-                     for r in range(st * nh, min((st + 1) * nh, rep))]
-            sb = {h: torch.zeros_like(state[h]) for h in heads}
-            for c0 in range(0, l, q):
-                bm, cm = b[grp, c0:c0 + q].to(F32), c[grp, c0:c0 + q].to(F32)
-                cum = {h: torch.cumsum(dt[h, c0:c0 + q] * a[h], 0) * LOG2E
-                       for h in heads}
-                for i0 in range(0, q, SSD_ROWS):
-                    rows = torch.arange(i0, min(i0 + SSD_ROWS, q))
-                    j_end = min(i0 + SSD_ROWS, q)
-                    g = cm[rows] @ bm[:j_end].T          # once for the heads
-                    mask = torch.arange(j_end)[None, :] <= rows[:, None]
-                    for h in heads:
-                        ch, dh = cum[h], dt[h, c0:c0 + q]
-                        arg = torch.where(mask, ch[rows, None] - ch[None, :j_end],
-                                          0.0)
-                        w = torch.where(mask, g * torch.exp2(arg)
-                                        * dh[None, :j_end], 0.0)
-                        acc = torch.zeros((len(rows), p))
-                        if c0 > 0:
-                            acc = torch.exp2(ch[rows])[:, None] * (
-                                cm[rows] @ sb[h].to(BF16).to(F32))
-                        acc = acc + w.to(BF16).to(F32) @ x[h, c0:c0 + j_end
-                                                           ].to(F32)
-                        y[h, c0 + rows] = acc.to(x.dtype)
-                for h in heads:
-                    ch, dh = cum[h], dt[h, c0:c0 + q]
-                    wst = torch.exp2(ch[-1] - ch) * dh
-                    bw = (bm * wst[:, None]).to(BF16).to(F32)
-                    v = bw.T @ x[h, c0:c0 + q].to(F32)
-                    if c0 > 0:
-                        v = v + state[h] * torch.exp2(ch[-1])
-                    state[h] = v
-                    sb[h] = v
-    return y, state
-
-
-# (batch, heads, L, P, N, chunk, groups, heads a block): rep 1 and rep > 1;
-# two and three chunks; heads a block that do not divide the group's
-# heads; ragged P, N and a chunk under one 64-row block; the main shape's
-# P, N and chunk
-_SSD_SHAPES = [(1, 2, 128, 32, 16, 64, 2, 1),
-               (2, 4, 192, 64, 64, 64, 1, 3),
-               (1, 6, 200, 20, 40, 100, 3, 1),
-               (1, 3, 22, 16, 8, 11, 1, 2),
-               (1, 5, 512, 64, 64, 256, 1, 2)]
+# (batch, heads, L, P, N, chunk, groups): rep 1 and rep > 1; two and
+# three chunks; ragged P, N and a chunk under one 64-row tile; the main
+# shape's P, N and chunk
+_SSD_SHAPES = [(1, 2, 128, 32, 16, 64, 2),
+               (2, 4, 192, 64, 64, 64, 1),
+               (1, 6, 200, 20, 40, 100, 3),
+               (1, 3, 22, 16, 8, 11, 1),
+               (1, 5, 512, 64, 64, 256, 1)]
 
 
 @pytest.mark.parametrize("shape", _SSD_SHAPES)
 def test_ssd_bf16_design_within_the_card_tolerance(shape):
-    bt, h, l, p, n, q, groups, hpb = shape
+    bt, h, l, p, n, q, groups = shape
     rep = h // groups
     rng = np.random.default_rng([l, p, n, q])
     jx, x = _bf16_pair(rng.normal(size=(bt * h, l, p)))
@@ -218,8 +162,7 @@ def test_ssd_bf16_design_within_the_card_tolerance(shape):
     jb, b = _bf16_pair(rng.normal(size=(bt * groups, l, n)) * 0.5)
     jc, c = _bf16_pair(rng.normal(size=(bt * groups, l, n)) * 0.5)
     ta, tdt = torch.from_numpy(a), torch.from_numpy(dt)
-    got_y, got_s = ssd_mma_emulation(ta, x, tdt, b, c, q=q, rep=rep,
-                                     heads_per_block=hpb)
+    got_y, got_s = ssd_wgmma_emulation(ta, x, tdt, b, c, q=q, rep=rep)
     assert got_y.dtype == BF16 and torch.isfinite(got_y.float()).all()
     want_y, want_s = pss.ssd_scan_plain(ta, x, tdt, b, c, q=q, rep=rep)
     for got, want in ((got_y, want_y), (got_s, want_s)):
