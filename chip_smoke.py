@@ -73,12 +73,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    device time per launch, and the DMR boundary's digest, snapshot and
    rollback timed at full shape;
 13. LM kernels: the count of tensor-core instructions (HMMA, HGMMA) in
-   each LM kernel's SASS where the toolkit has `cuobjdump` (the scan's
-   backward `ssd_bwd_mma` and the bit planes' GEMM must have some; the
-   bfloat16 flash forward's four `flash_fwd_wgmma` builds, the flash
-   backward's two kernels' four builds and the bfloat16 scan forward's
-   two `ssd_fwd_wgmma` builds HGMMA and no HMMA; ptxas's registers and
-   spills of `ssd_fwd_wgmma`, none spilled);
+   each LM kernel's SASS where the toolkit has `cuobjdump` (the bit
+   planes' GEMM must have some; the bfloat16 flash forward's four
+   `flash_fwd_wgmma` builds, the flash backward's two kernels' four
+   builds, the bfloat16 scan forward's two `ssd_fwd_wgmma` builds and its
+   backward's six `ssd_bwd_wgmma` builds HGMMA and no HMMA; ptxas's
+   registers and spills of `ssd_fwd_wgmma` and `ssd_bwd_wgmma`, none
+   spilled);
    `flash_attention`, `ssd_scan` and `bitplane_matmul` against their
    plain versions in float32 and bfloat16 on small and ragged shapes (L
    11 and 200 causal and full with equal and unequal tiles, D 40
@@ -223,16 +224,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    the forward kernel's own saved chunk-entry states (held to the plain
    forward's): every gradient within `LM_TOL`, two launches the same
    bits, timed beside the plain version and the bound (the Mamba2
-   bfloat16 case also by its device time), with ptxas's registers and
-   spills; the bfloat16 build is `ssd_bwd_mma` on the tensor cores
-   (the float32 build stays `ssd_bwd` on the CUDA cores),
-   logged with its heads a block, blocks, resident blocks an SM
-   (`ssd_scan_bwd_mma_info`, its shared memory held to the host's
-   `bwd_mma_smem`) and its time beside the CUDA-core build's 10.5844
-   and 12.0281 ms; (b) Mamba2-1.3B at full width and depth (1,344,052,224
-   bfloat16 parameters from a seed), five `train_loop` AdamW steps of
+   bfloat16 cases also by their device time, the kernel and the sum of
+   the blocks' partials apart), with ptxas's registers and spills; the
+   bfloat16 build is `ssd_bwd_wgmma` on wgmma and TMA (the float32 build
+   stays `ssd_bwd` on the CUDA cores), one `bwd_wgmma_launches` count a
+   call, logged with its heads a block, blocks and resident blocks
+   (`ssd_scan_bwd_wgmma_info`, held to the host's `bwd_wgmma_smem` and
+   `bwd_wgmma_heads`) and its time beside the earlier mma.sync build's
+   0.8167 and 1.1360 ms; (b) Mamba2-1.3B at full width and depth
+   (1,344,052,224 bfloat16 parameters from a seed), five `train_loop`
+   AdamW steps of
    8 x 512 as 21(b): 96 `ssd_scan` launches (with the remat recompute)
-   and 48 `ssd_scan_bwd` a step, no plain call, then one profiled step;
+   and 48 `ssd_scan_bwd` a step, every one `ssd_fwd_wgmma` and
+   `ssd_bwd_wgmma`, no plain call, then one profiled step;
    (c) Zamba2-7B at full width with its depth cut to 27 layers (4 groups
    of 6 Mamba layers and their shared-block calls, then the 3-layer
    tail; 81 layers need about 83.5 GB for AdamW), 3 steps: 54 scans
@@ -1523,6 +1527,10 @@ EARLIER_SSD_MS = 0.4014
 # and N <= 128): its launches are counted apart
 # (`ssd_scan.wgmma_launches`), and are also ssd_scan's
 SSD_WGMMA = "ssd_fwd_wgmma"
+# its bfloat16 backward kernel (wgmma and TMA; six builds by N's and P's
+# 64-column boxes and heads a block): counted apart too
+# (`ssd_scan.bwd_wgmma_launches`), and also ssd_scan_bwd's
+SSD_BWD_WGMMA = "ssd_bwd_wgmma"
 # the main serve: Zamba2-7B, 8 requests, prompt 512, 32 generated tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 # the reference's count_params_abstract of Zamba2-7B, rounded
@@ -1624,13 +1632,13 @@ def sass_mma_counts(lib: str):
 
 
 def check_tensor_cores():
-    """Counts each LM kernel's tensor-core instructions; fails if the
-    scan's bfloat16 backward or the bit planes' GEMM has none, if one of
-    the four builds (64, 128, 192 and 256 columns) of the bfloat16 flash
-    forward (flash_fwd_wgmma) or of each of the backward's kernels
-    (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma) has no HGMMA or any HMMA
-    (Ampere's mma.sync), or if one of the two builds (N <= 64, N <= 128)
-    of the bfloat16 scan forward (ssd_fwd_wgmma) does."""
+    """Counts each LM kernel's tensor-core instructions; fails if the bit
+    planes' GEMM has none, if one of the four builds (64, 128, 192 and 256
+    columns) of the bfloat16 flash forward (flash_fwd_wgmma) or of each of
+    the backward's kernels (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma) has
+    no HGMMA or any HMMA (Ampere's mma.sync), or if one of the two builds
+    (N <= 64, N <= 128) of the bfloat16 scan forward (ssd_fwd_wgmma) or
+    of the six of its backward (ssd_bwd_wgmma) does."""
     libs = ("flash_attention", "ssd_scan", "bitplane_matmul")
     counts = {lib: sass_mma_counts(lib) for lib in libs}
     if counts[libs[0]] is None:
@@ -1640,8 +1648,7 @@ def check_tensor_cores():
     for lib, c in counts.items():
         log(f"[lm kernels] {lib} SASS: " + "; ".join(
             f"{k} {h} HMMA, {g} HGMMA" for k, (h, g) in c.items()))
-    for lib, kernel in (("ssd_scan", "ssd_bwd_mma"),
-                        ("bitplane_matmul", "bitplane_gemm")):
+    for lib, kernel in (("bitplane_matmul", "bitplane_gemm"),):
         hits = [sum(v) for k, v in counts[lib].items()
                 if k.startswith(kernel)]
         if not hits or min(hits) == 0:
@@ -1653,24 +1660,26 @@ def check_tensor_cores():
         if len(wg) != 4 or any(h or not g for h, g in wg):
             raise AssertionError(f"{kernel}: its 4 builds need HGMMA and no "
                                  f"HMMA: {wg}")
-    wg = [v for k, v in counts["ssd_scan"].items()
-          if k.startswith(SSD_WGMMA)]
-    if len(wg) != 2 or any(h or not g for h, g in wg):
-        raise AssertionError(f"{SSD_WGMMA}: its 2 builds need HGMMA and no "
-                             f"HMMA: {wg}")
+    for kernel, builds in ((SSD_WGMMA, 2), (SSD_BWD_WGMMA, 6)):
+        wg = [v for k, v in counts["ssd_scan"].items()
+              if k.startswith(kernel)]
+        if len(wg) != builds or any(h or not g for h, g in wg):
+            raise AssertionError(f"{kernel}: its {builds} builds need HGMMA "
+                                 f"and no HMMA: {wg}")
 
 
 def ssd_wgmma_registers():
     """ptxas's report for the bfloat16 scan forward's two builds
-    (ssd_fwd_wgmma<1 | 2>): '<kernel>: <registers> registers, spills
-    <st>/<ld> bytes'; raises on a spill. Empty where this process found
-    the library built."""
+    (ssd_fwd_wgmma<1 | 2>) and its backward's six (ssd_bwd_wgmma<N's
+    boxes, P's boxes, heads a block>): '<kernel>: <registers> registers,
+    spills <st>/<ld> bytes'; raises on a spill. Empty where this process
+    found the library built."""
     from repro_torch.kernels import _build
     rows = [r for r in ptxas_report(_build.build_log("ssd_scan"))
-            if r[0].startswith(SSD_WGMMA)]
+            if r[0].startswith((SSD_WGMMA, SSD_BWD_WGMMA))]
     spilled = [r for r in rows if r[3] or r[4]]
     if spilled:
-        raise AssertionError(f"{SSD_WGMMA} spills: {spilled}")
+        raise AssertionError(f"bfloat16 scan kernels spill: {spilled}")
     return [f"{k}: {regs} registers, spills {st}/{ld} bytes"
             for k, regs, _, st, ld in rows]
 
@@ -1685,6 +1694,19 @@ def check_ssd_wgmma_share(tag, cfg, launches):
         raise AssertionError(f"{tag}: {pss.ssd_scan.wgmma_launches} of "
                              f"{launches} scan forwards ran {SSD_WGMMA}, "
                              f"expected {want}")
+
+
+def check_ssd_bwd_wgmma_share(tag, cfg, launches):
+    """Every bfloat16 scan backward of `cfg` since the counts were zeroed
+    ran ssd_bwd_wgmma, and no float32 one: `ssd_scan.bwd_wgmma_launches`
+    is wgmma_share(cfg, launches), `launches` the scan backwards
+    counted."""
+    from repro_torch.kernels import ssd_scan as pss
+    want = wgmma_share(cfg, launches)
+    if pss.ssd_scan.bwd_wgmma_launches != want:
+        raise AssertionError(f"{tag}: {pss.ssd_scan.bwd_wgmma_launches} of "
+                             f"{launches} scan backwards ran "
+                             f"{SSD_BWD_WGMMA}, expected {want}")
 
 
 def flash_bound(q, tq, tk, causal, window=0):
@@ -3631,6 +3653,7 @@ def train_full(dev, cfg, steps, per_step, n_params=None, what="",
     check_wgmma_share(tag, cfg, counts)
     check_bwd_wgmma_share(tag, cfg, counts)
     check_ssd_wgmma_share(tag, cfg, counts[SSD[0]])
+    check_ssd_bwd_wgmma_share(tag, cfg, counts[SSD_BWD[0]])
     step_s = float(np.median(out["dts"][1:]))
     tokens = batch * seq
     flops = 6.0 * n * tokens
@@ -3841,9 +3864,10 @@ SSD_BWD = ("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
 # AdamW m and v need about 6.96e9 x 12 B = 83.5 GB, past the card's 80 GB)
 SSM_TRAIN_ARCH, HYBRID_TRAIN_ARCH = "mamba2-1.3b", "zamba2-7b"
 HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_STEPS = 27, 3
-# the bfloat16 backward's times before its tensor-core build (the
-# CUDA-core kernel's, ms a launch, PERF.md section 6 row 7)
-BWD_CUDA_CORE_MS = {SSM_TRAIN_ARCH: 10.5844, HYBRID_TRAIN_ARCH: 12.0281}
+# the bfloat16 backward's times before its wgmma build (the mma.sync
+# kernel's, ms a launch with torch's sum of its partials, PERF.md section
+# 6 row 7; NVIDIA H100 80GB HBM3, 700.00 W)
+EARLIER_BWD_MS = {SSM_TRAIN_ARCH: 0.8167, HYBRID_TRAIN_ARCH: 1.1360}
 
 
 def ssd_train_shape(arch):
@@ -3881,24 +3905,26 @@ def ssd_bwd_bound(a, x, dt, b, c, dy, states, ds, q):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
 
 
-def bwd_mma_launch(p, n, q, rep, hb):
+def bwd_wgmma_launch(p, n, q, rep):
     """The bfloat16 backward's launch as its library reports it
-    (`ssd_scan_bwd_mma_info`): shared memory bytes, resident blocks an
+    (`ssd_scan_bwd_wgmma_info`): shared memory bytes, resident blocks an
     SM, registers and local (spilled) bytes a thread, heads a block,
-    blocks a group; raises if the host's model of its shared memory
-    (`bwd_mma_smem`) disagrees."""
+    blocks a group; raises if the host's model (`bwd_wgmma_smem`,
+    `bwd_wgmma_heads`) disagrees."""
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as pss
     out = (ctypes.c_int * 6)()
-    rc = _build.load("ssd_scan").ssd_scan_bwd_mma_info(
-        p, n, q, rep, hb, ctypes.addressof(out))
+    rc = _build.load("ssd_scan").ssd_scan_bwd_wgmma_info(
+        p, n, q, rep, ctypes.addressof(out))
     if rc:
-        raise AssertionError(f"ssd_scan_bwd_mma_info: CUDA error {rc}")
+        raise AssertionError(f"ssd_scan_bwd_wgmma_info: CUDA error {rc}")
     info = dict(zip(("smem", "blocks_per_sm", "registers", "local_bytes",
                      "heads", "sets"), out))
-    if info["smem"] != pss.bwd_mma_smem(n, p, q, hb) or info["heads"] != hb:
-        raise AssertionError(f"bwd_mma_smem or heads disagree with the "
+    hb = pss.bwd_wgmma_heads(p, n, q, rep)
+    if (info["smem"], info["heads"]) != (pss.bwd_wgmma_smem(n, p, q, hb),
+                                         hb):
+        raise AssertionError(f"bwd_wgmma_smem or heads disagree with the "
                              f"library: {info}")
     return info
 
@@ -3910,12 +3936,13 @@ def phase_ssd_bwd(dev, rec):
     to the plain forward's first): every gradient within LM_TOL, two
     launches the same bits; timed beside the plain version and the
     bound, with ptxas's registers and spills; the bfloat16 build
-    (`ssd_bwd_mma`) also with its heads a block, blocks, resident blocks
-    an SM and its time beside the CUDA-core build's."""
+    (`ssd_bwd_wgmma`, one `bwd_wgmma_launches` count a call) also with its
+    heads a block, blocks and resident blocks, its device time by kernel
+    (the second kernel that sums the blocks' partials apart) and its time
+    beside the earlier mma.sync build's."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as pss
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = [r for r in ptxas_report(_build.build_log("ssd_scan"))
             if r[0].startswith("ssd_bwd")]
     log("[ssd bwd] ptxas: " + ("; ".join(
@@ -3949,8 +3976,16 @@ def phase_ssd_bwd(dev, rec):
             def plain():
                 return pss.ssd_scan_bwd_plain(a, x, dt, b, c, dy, st, ds,
                                               q=q, rep=rep)
+            pss.reset_counts()
             got = kern()
             torch.cuda.synchronize()
+            bf16 = dtype == torch.bfloat16
+            if (pss.ssd_scan.bwd_launches,
+                    pss.ssd_scan.bwd_wgmma_launches) != (1, int(bf16)):
+                raise AssertionError(
+                    f"ssd backward {what}: {pss.ssd_scan.bwd_launches} "
+                    f"launches, {pss.ssd_scan.bwd_wgmma_launches} of "
+                    f"{SSD_BWD_WGMMA}")
             want = plain()
             errs = [lm_err(u, v, f"ssd backward {name} {what}")
                     for name, u, v in zip(("da", "dx", "ddt", "dB", "dC"),
@@ -3963,19 +3998,31 @@ def phase_ssd_bwd(dev, rec):
             ms, plain_ms = timed(kern, 10), timed(plain, 3)
             b_bytes, b_ops = ssd_bwd_bound(a, x, dt, b, c, dy, st, ds,
                                            q)
-            if dtype == torch.bfloat16:
-                hb = pss.bwd_mma_heads(bh, rep, p, n, q, sms)
-                info = bwd_mma_launch(p, n, q, rep, hb)
-                was = BWD_CUDA_CORE_MS[arch]
-                log(f"[ssd bwd] {what}: ssd_bwd_mma, {hb} heads a block, "
-                    f"{bh // rep * info['sets']} blocks, "
-                    f"{info['blocks_per_sm']} resident an SM "
-                    f"({8 * info['blocks_per_sm']} warps), "
+            if bf16:
+                info = bwd_wgmma_launch(p, n, q, rep)
+                dev_ms = kernel_device_ms(kern, 10)
+                if dev_ms is None:
+                    dev_txt = "device time not measured (records lost)"
+                else:
+                    k_ms = sum(v for k, (v, _) in dev_ms.items()
+                               if k.startswith(SSD_BWD_WGMMA))
+                    s_ms = sum(v for k, (v, _) in dev_ms.items()
+                               if k.startswith("ssd_bwd_sum_parts"))
+                    dev_txt = (f"device {k_ms:.4f} ms in {SSD_BWD_WGMMA}, "
+                               f"{s_ms:.4f} ms in ssd_bwd_sum_parts "
+                               f"(torch.profiler; all kernels: " + "; ".join(
+                                   f"{k} {v:.4f} ms in {m}"
+                                   for k, (v, m) in dev_ms.items()) + ")")
+                was = EARLIER_BWD_MS[arch]
+                log(f"[ssd bwd] {what}: {SSD_BWD_WGMMA}, {info['heads']} "
+                    f"heads a block, {bh // rep * info['sets']} blocks "
+                    f"({info['sets']} partials a group), "
+                    f"{info['blocks_per_sm']} resident an SM, "
                     f"{info['registers']} registers and "
                     f"{info['local_bytes']} local bytes a thread, "
-                    f"{info['smem']} bytes of shared memory; {ms:.4f} ms "
-                    f"against the CUDA-core build's {was}: "
-                    f"{was / ms:.2f}x")
+                    f"{info['smem']} bytes of shared memory; events "
+                    f"{ms:.4f} ms a call, {dev_txt}; the earlier mma.sync "
+                    f"build's {was} ms: {was / ms:.2f}x")
             log(f"[ssd bwd] {what}: saved states within {es:.3g}; max "
                 f"|kernel - plain| da {errs[0]:.3g}, dx {errs[1]:.3g}, ddt "
                 f"{errs[2]:.3g}, dB {errs[3]:.3g}, dC {errs[4]:.3g} (within "
@@ -3983,12 +4030,7 @@ def phase_ssd_bwd(dev, rec):
                 f"two launches the same bits; kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.3f} ms, bound {max(b_bytes, b_ops):.4f} ms "
                 f"(bytes {b_bytes:.4f}, operations {b_ops:.4f})")
-            if dtype == torch.bfloat16 and arch == SSM_TRAIN_ARCH:
-                dev_ms = kernel_device_ms(kern, 10)
-                log("[ssd bwd] device time a call (torch.profiler): "
-                    + ("not measured (records lost)" if dev_ms is None else
-                       "; ".join(f"{k} {v:.4f} ms in {m}"
-                                 for k, (v, m) in dev_ms.items())))
+            if bf16 and arch == SSM_TRAIN_ARCH:
                 record(rec, SSD_BWD[0], ms, plain_ms, max(errs),
                        (b_bytes, b_ops), None,
                        f"{what} (the Mamba2-1.3B training path's)")

@@ -1,12 +1,21 @@
-"""Where the bfloat16 SSD scan backward kernel (`ssd_bwd_mma`) spends its
+"""Where the bfloat16 SSD scan backward kernel (`ssd_bwd_wgmma`) spends its
 time: copies of `csrc/ssd_scan.cu` with one part of the kernel switched
 off by a text edit (an edit whose text is not found exactly once stops
-the script), built side by side with nvcc into `build/kernels/ablate/`
-and launched through `ssd_scan_bwd_launch` at Mamba2-1.3B's and
-Zamba2-7B's training shapes (8 x 512 tokens) at the heads a block the
-wrapper picks. The variants compute wrong gradients: only their times
-mean anything, each the mean of 20 launches by CUDA events beside the
-unedited build's, in one process on one card. Needs a CUDA card:
+the script), built side by side with nvcc into
+`build/kernels/ablate_bwd/` and launched through
+`ssd_scan_bwd_wgmma_launch` at Mamba2-1.3B's and Zamba2-7B's training
+shapes (8 x 512 tokens) at the heads a block the wrapper picks. Each
+edit guards a part's compute with a launch argument that is never true
+(`L < 0`), so the loads, block barriers and ring phases stay and the
+compiler keeps the code it skips; the variants compute wrong
+gradients: only their times mean anything, each the mean of 20 launches
+(the kernel and the second kernel's sum of the blocks' partials of dB
+and dC) by CUDA events beside the unedited build's, in one process on
+one card. The parts: the column walk's state terms (u = B_j dS, dw_j),
+its tile pairs (G^T, dW^T, W and dG, dx_j += W^T dy_i, the summed dG's
+copy), the dB pass, the row walk (C S_c, the dS update), the dC pass,
+and the blocks' writes of their dB and dC tiles (the partials).
+Needs a CUDA card:
 
     python3 scripts/ssd_bwd_ablate.py
 """
@@ -22,46 +31,41 @@ import torch  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ssd_scan as pss  # noqa: E402
+from repro_torch.kernels.flash_attention import wgmma_operand  # noqa: E402
 
-# name -> [(text, replacement)]: each guard reads a launch argument, so
-# the compiler keeps the code it skips
+NEVER = "L < 0"
+# name -> [(text, replacement)]
 VARIANTS = {
     "all": [],
-    "no pairs": [(
-        "      const int npair = (Q - j0 + kTile - 1) / kTile;",
-        "      const int npair = L < 0 ? 1 : 0;")],
-    "no row walk": [(
-        "    if (ci > 0) {\n      for (int h = 0; h < nh; ++h) {",
-        "    if (ci > 0 && L < 0) {\n      for (int h = 0; h < nh; ++h) {")],
     "no state terms": [(
-        "      for (int h = 0; h < HM; ++h) {\n        if (h >= nh) break;\n"
-        "        const float* dSh = dS + h * nn * lds;",
-        "      for (int h = 0; h < HM; ++h) {\n        if (h >= nh || L > 0) "
-        "break;\n        const float* dSh = dS + h * nn * lds;")],
-    "no per-head pair work": [(
-        "          if (h >= nh) break;\n          const bf16* Dyh = Dyi + h * "
-        "kTile * ldp;\n          // dW^T = x_j dy_i^T",
-        "          if (h >= nh || L > 0) break;\n          const bf16* Dyh = "
-        "Dyi + h * kTile * ldp;\n          // dW^T = x_j dy_i^T")],
-    "no dB, dC products": [
-        ("        // dB_j += dG^T C_i (rows j, this half's n; K = i)\n"
-         "#pragma unroll\n        for (int kk = 0; kk < 4; ++kk) {",
-         "        // dB_j += dG^T C_i (rows j, this half's n; K = i)\n"
-         "#pragma unroll\n        for (int kk = 0; kk < 4 * (L < 0); ++kk) {"),
-        ("        // dC_i (rows i, this half's n) += dG B_j (K = j)\n"
-         "#pragma unroll\n        for (int kk = 0; kk < 4; ++kk) {",
-         "        // dC_i (rows i, this half's n) += dG B_j (K = j)\n"
-         "#pragma unroll\n"
-         "        for (int kk = 0; kk < 4 * (L < 0); ++kk) {")],
-    "no dC partial reads and writes": [
-        ("                   16 * nb0 + 8 * f, f < 2 * nbn && j0 > 0 ? Q : 0, "
-         "N);",
-         "                   16 * nb0 + 8 * f, 0, N);"),
-        ("            put_rows(dcb + static_cast<size_t>(c0) * N, dca[f],\n"
-         "                     i0 + 16 * r, 16 * nb0 + 8 * f, Q, N);",
-         "            put_rows(dcb + static_cast<size_t>(c0) * N, dca[f],\n"
-         "                     i0 + 16 * r, 16 * nb0 + 8 * f, Q * (L < 0), "
-         "N);")],
+        "      if (mine) {\n        float wj[2], ej[2];",
+        f"      if (mine && {NEVER}) {{\n        float wj[2], ej[2];")],
+    "no pairs": [
+        ("        if (mine) {\n          lm::fence_regs(dw);",
+         f"        if (mine && {NEVER}) {{\n          lm::fence_regs(dw);"),
+        ("        if (mine && sums) {\n          // L = 2^(cum_i - cum_j)",
+         f"        if (mine && sums && {NEVER}) {{\n          // L = "
+         f"2^(cum_i - cum_j)"),
+        ("        if (wg == 0) {\n          // the block's heads' dG summed",
+         f"        if (wg == 0 && {NEVER}) {{\n          // the block's heads' "
+         f"dG summed")],
+    "no dB pass": [(
+        "          if (wg < NB) {\n            if (p < 0) {",
+        f"          if (wg < NB && (kC || {NEVER})) {{\n            "
+        f"if (p < 0) {{")],
+    "no row walk": [
+        ("        if (mine && pass == 0) {",
+         f"        if (mine && pass == 0 && {NEVER}) {{"),
+        ("        if (mine && pass == 1) {",
+         f"        if (mine && pass == 1 && {NEVER}) {{")],
+    "no dC pass": [(
+        "          if (wg < NB) {\n            if (p < 0) {",
+        f"          if (wg < NB && (!kC || {NEVER})) {{\n            "
+        f"if (p < 0) {{")],
+    "no partials' writes": [(
+        "    for (int e = tid; e < kTile * w4; e += kBwdThreads) {",
+        f"    for (int e = tid; e < kTile * w4 * !({NEVER}); "
+        f"e += kBwdThreads) {{")],
 }
 SHAPES = {"mamba2-1.3b": (512, 512, 64, 128, 256, 64),
           "zamba2-7b": (896, 512, 64, 64, 256, 112)}
@@ -88,8 +92,9 @@ def build(out: pathlib.Path):
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
-        fn = ctypes.CDLL(str(so)).ssd_scan_bwd_launch
-        fn.argtypes = _build.SIGNATURES["ssd_scan"]["ssd_scan_bwd_launch"]
+        fn = ctypes.CDLL(str(so)).ssd_scan_bwd_wgmma_launch
+        fn.argtypes = _build.SIGNATURES["ssd_scan"][
+            "ssd_scan_bwd_wgmma_launch"]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -103,11 +108,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    out = _build.BUILD_DIR / "ablate"
+    out = _build.BUILD_DIR / "ablate_bwd"
     out.mkdir(parents=True, exist_ok=True)
     fns = build(out)
     dev = torch.device("cuda", 0)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for arch, (bh, l, p, n, q, rep) in SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(0)
         x = torch.randn(bh, l, p, generator=g, device=dev).bfloat16()
@@ -119,17 +123,25 @@ def main() -> int:
         dy = torch.randn(bh, l, p, generator=g, device=dev).bfloat16()
         ds = torch.randn(bh, n, p, generator=g, device=dev)
         _, _, st = pss._forward(a, x, dt, b, c, q, rep, dev, True)
-        hb = pss.bwd_mma_heads(bh, rep, p, n, q, sms)
-        outs = [torch.empty_like(x), torch.empty(bh, l, device=dev),
-                torch.empty(bh, device=dev),
-                torch.empty(bh // rep * -(-rep // hb), l, n, device=dev)]
-        outs.append(torch.empty_like(outs[-1]))
-        args = [t.data_ptr() for t in (a, x, dt, b, c, dy, st, ds, *outs)]
+        x, b, c, dy = (wgmma_operand(t) for t in (x, b, c, dy))
+        hb = pss.bwd_wgmma_heads(p, n, q, rep)
+        sets, nt = -(-rep // hb), -(-q // 64)
+        groups = bh // rep
+        scratch = [torch.empty(bh, n, p, device=dev),
+                   torch.empty(groups * sets, nt * (nt + 1) // 2, 64, 64,
+                               dtype=torch.bfloat16, device=dev),
+                   torch.empty_like(x), torch.empty(bh, l, device=dev),
+                   torch.empty(bh, device=dev),
+                   torch.empty(2, groups * sets, l, n, device=dev),
+                   torch.empty(2, groups, l, n, dtype=torch.bfloat16,
+                               device=dev)]
+        args = ([t.data_ptr() for t in (a, x, dt, b, c, dy, st, ds)]
+                + [t.data_ptr() for t in scratch])
         stream = torch.cuda.current_stream().cuda_stream
         row = {}
         for name, fn in fns.items():
             def go():
-                rc = fn(1, *args, bh, l, p, n, q, rep, hb, stream)
+                rc = fn(*args, bh, l, p, n, p, n, q, rep, hb, stream)
                 if rc:
                     raise RuntimeError(f"{name}: CUDA error {rc}")
             go()

@@ -56,8 +56,9 @@ SIGNATURES = {
         "flash_attention_bwd_launch": [_I] + [_P] * 10 + [_I] * 7
         + [_F, _P]},
     "ssd_scan": {"ssd_scan_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
-                 "ssd_scan_bwd_launch": [_I] + [_P] * 13 + [_I] * 7 + [_P],
-                 "ssd_scan_bwd_mma_info": [_I] * 5 + [_P]},
+                 "ssd_scan_bwd_launch": [_P] * 13 + [_I] * 7 + [_P],
+                 "ssd_scan_bwd_wgmma_launch": [_P] * 15 + [_I] * 9 + [_P],
+                 "ssd_scan_bwd_wgmma_info": [_I] * 4 + [_P]},
     "bitplane_matmul": {
         "bitplane_matmul_launch": [_I] + [_P] * 5 + [_I] * 4 + [_P],
         "bitplane_repack_launch": [_P, _P, _I, _I, _I, _P],

@@ -1,6 +1,6 @@
 // PTX wrappers for the LM kernels' tensor-core paths on Hopper (sm_90a):
-// cp.async with commit and wait, ldmatrix (plain and .trans), mma.sync
-// m16n8k16 bfloat16 -> float32, and Hopper's mbarrier, TMA tile loads
+// ldmatrix (plain and .trans, the A fragments ssd_scan.cu's backward
+// builds in registers), and Hopper's mbarrier, TMA tile loads
 // (2-D and 3-D, the host's tensor-map encoder and the per-head 3-D map
 // both wgmma libraries read their tiles through), 1-D bulk copies,
 // register reallocation and wgmma: m64n256k16 with both operands in
@@ -9,12 +9,14 @@
 // C S, over N 64 or 128 in k-steps), and m64n64k16, m64n128k16,
 // m64n192k16 and m64n256k16 with A from registers and B transposed
 // (flash_attention.cu's forward, flash_fwd_wgmma, at every head dim, and
-// its wide backward, flash_bwd_*_wgmma; ssd_scan.cu's forward,
-// ssd_fwd_wgmma, W x and the state update, each m64 half of N 128 a
-// product of its own). The narrow backward of flash_attention.cu and
-// ssd_scan.cu's backward use the first group.
+// its backward, flash_bwd_*_wgmma; ssd_scan.cu's forward, ssd_fwd_wgmma,
+// W x and the state update, each m64 half of N 128 a product of its own).
+// ssd_scan.cu's backward, ssd_bwd_wgmma, also takes m64n64k16 with A from
+// registers and B K-major, and with both operands in shared memory and
+// both transposed.
 //
-// Fragment layouts (lane = 4 g + t): an m16n8k16 A fragment holds
+// Fragment layouts (lane = 4 g + t), those of Ampere's m16n8k16
+// mma.sync, which wgmma's repeat: an A fragment holds
 // A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; a B
 // fragment B[2t..2t+1][g], B[2t+8..][g]; the float32 C fragment
 // C[g][2t..2t+1], C[g+8][2t..]. A C fragment's two n8 halves of a k16
@@ -39,24 +41,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// ------------------------------------------------------------ cp.async
-// 16 bytes global -> shared; with `valid` false it reads nothing and
-// writes zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // ------------------------------------------------------------ ldmatrix
 // Four 8 x 8 bfloat16 matrices; lane i gives the row address of row
 // i % 8 of matrix i / 8, and r[j] receives matrix j's fragment.
@@ -74,18 +58,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-// ------------------------------------------------------------ mma.sync
-// d += a (16 x 16, row) * b (16 x 8, col), bfloat16 in, float32 sums
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // two floats rounded to nearest even as bfloat16, `lo` in the low half
@@ -477,6 +449,43 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss_tb(float (&d)[32],
       : "r"(a_lo), "r"(b_lo), "r"(hi), "n"(OA), "n"(OB), "r"(accumulate));
 }
 
+// d (64 x 64 float32) = A (64 x 16, M-major: transposed A, its rows of
+// K) * B (16 x 64, N-major), both in shared memory, plus d where
+// `accumulate` is not 0: ssd_bwd_wgmma's dC_i += dG B_j, dG's tile stored
+// [j][i] (rows of K), a k-step 16 of its rows.
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss_ta_tb(float (&d)[32],
+                                                         uint32_t a_lo,
+                                                         uint32_t b_lo,
+                                                         uint32_t hi,
+                                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b32 al, bl;\n"
+      ".reg .b64 da, db;\n"
+      "add.s32 al, %32, %35;\n"
+      "add.s32 bl, %33, %36;\n"
+      "mov.b64 da, {al, %34};\n"
+      "mov.b64 db, {bl, %34};\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a_lo), "r"(b_lo), "r"(hi), "n"(OA), "n"(OB), "r"(accumulate));
+}
+
 // d (64 x N float32 over the warpgroup) += A (64 x 16) * B (16 x N), A
 // from registers (the m16n8k16 A fragment of each warp's 16 rows), B
 // N-major in shared memory (transposed B, as bitplane_gemm's W_q tile):
@@ -502,6 +511,38 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, db, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b_lo), "r"(hi),
+        "n"(OB), "r"(1));
+}
+// The same with B K-major in shared memory (rows of N, each 16 values of
+// K): ssd_bwd_wgmma's rb(w x) rb(dS)^T and rb(e dy) rb(S_c)^T, dS's and
+// S_c's rows of P.
+template <int OB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint32_t b_lo, uint32_t hi) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b32 bl;\n"
+      ".reg .b64 db;\n"
+      "add.s32 bl, %36, %38;\n"
+      "mov.b64 db, {bl, %37};\n"
+      "setp.ne.b32 p, %39, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),

@@ -94,7 +94,7 @@
 // >= 1, for the backward (as flash's forward saves its log-sum-exp);
 // serving passes none.
 //
-// Backward (ssd_bwd_mma for bfloat16, ssd_bwd for float32). It replaces
+// Backward (ssd_bwd_wgmma for bfloat16, ssd_bwd for float32). It replaces
 // no TPU kernel: the TPU has none, and the reference differentiates its
 // jnp ssd_chunked (src/repro/models/mamba.py:70); the port trains through
 // the forward kernel, so it needs this one. From dy and an optional
@@ -116,61 +116,87 @@
 //   then dS <- exp(cum_Q) dS + the inter part, and the cumsum's backward:
 //   d(da)_k = sum_{i >= k} dcum_i (a reverse warp scan), ddt_k += a
 //   d(da)_k, da += sum_k dt_k d(da)_k.
-// dB and dC are summed over a group's heads without float atomics: each
-// block adds its heads' rows, in order, into its own float32 partial (L,
-// N), and the wrapper sums a group's partials in order (the gradient of
-// the reference's jnp.repeat of B and C over the heads). Every sum runs
-// in a fixed order, so two launches give the same bits. The inter-chunk
-// products are skipped at chunk 0 (its state is zero and the initial
-// state's gradient is no output).
+// dB and dC are summed over a group's heads (the gradient of the
+// reference's jnp.repeat of B and C) without float atomics, and every sum
+// runs in a fixed order, so two launches give the same bits. The
+// inter-chunk products are skipped at chunk 0 (its state is zero and the
+// initial state's gradient is no output).
 //
-// bfloat16 (ssd_bwd_mma, the training path's): on the tensor cores, with
-// mma.sync m16n8k16 (lm_mma.cuh), bfloat16 operands and float32 sums. One
-// block of 8 warps runs `nh` heads of one group (the host's
-// ssd_scan.py::bwd_mma_heads picks nh, at most 2 at P <= 64 and 1 above,
-// where each head's dx_j sums stay in registers; ceil(rep / nh) blocks a
-// group, the last with the rest; one block an SM, its 255 registers a
-// thread). Warp w owns 16 rows (w % 4) of a 64-row tile and half w / 4 of
-// the tile's columns. Per chunk:
-//   - each head's cumsum, times log2 e (every exponential one exp2f);
-//   - the column walk, per 64-row tile j: B_j and each head's x_j into
-//     shared memory (cp.async); the state terms (U = B_j dS, over this
-//     half of N; V = x_j dS^T over this half's columns n, times w_j and
-//     summed over the heads into dB_j); then every tile pair (j, i >= j),
-//     C_i and the heads' dy_i in a double-buffered cp.async ring: G^T =
-//     B_j C_i^T ONCE for the block's heads, per head dW^T = x_j dy_i^T,
-//     then in float32 registers L, W, dG and the row (over i) and column
-//     (over j, warp reductions, then four row blocks in order) sums, W^T
-//     packed to bfloat16 as the A fragments of dx_j += W^T dy_i (dx_j in
-//     registers over the walk); the heads' dG summed in float32, rounded
-//     once to a bfloat16 [j][i] tile, then ONE dB_j += dG^T C_i (dB_j in
-//     registers) and ONE dC_i = dG B_j (ldmatrix.trans), stored into the
-//     block's partial at j = 0 and added after (each element by one
-//     thread); at the tile's end the two halves' dx_j and row sums meet
-//     in shared memory and dx_j, dB_j and ddt_j's share are written;
-//   - the row walk (chunks > 0), per 64-row tile i: dy_i S_c^T per head
-//     (S_c float32 from `states`), into dC_i and dcum_i; dS +=
-//     (exp(cum_i) C_i)^T dy_i in place (dS float32 in shared memory);
-//   - the cumsum's backward, a warp a head (warp reductions, fixed order).
-// The roundings the plain version lacks, each at most one bfloat16 step of
-// its value: W as the operand of W^T dy; the block's summed dG for dG B
-// and dG^T C; dS for x dS^T (dB alone). The products that reach ddt and
-// da, float32 outputs held to the float32 tolerance, take their float32
-// operand as two bfloat16 terms hi + lo (about 2^-16 of its value, two
-// mma.sync each): dS for B dS, S_c for dy S_c^T, exp(cum_i) C_i for
-// (exp(cum_i) C_i)^T dy. Rows past the chunk and columns past P, N are
-// zero-filled. P, N <= 128; Q up to what shared memory holds (bwd_mma_smem:
-// 7,360 at P 64, N 128; 10,816 at P = N = 64; 1,216 at P = N = 128).
+// bfloat16 (ssd_bwd_wgmma<NB, PB, HB>, the training path's): Hopper's
+// wgmma and TMA, no mma.sync. A block of two warpgroups (256 threads) runs
+// HB <= 2 heads of one group, warpgroup h head h (P past 64: one head,
+// each warpgroup one 64-column box of P for dx, the state terms and C
+// S_c; warpgroup 0 forms W and dG and writes W^T to shared memory for
+// warpgroup 1's box); ceil(rep / HB) blocks a group, the last with the
+// rest. Tiles of 64 rows in 64-column boxes with the 128-byte swizzle
+// come by TMA through 3-D head maps that zero-fill
+// past L and the row width: B_j and the heads' x_j for a column tile, and
+// a ring of two slots for the rest, thread 0 requesting each after the
+// block barrier that frees it. Per chunk:
+//   - each head's cumsum, times log2 e (every exponential an ex2);
+//   - the column walk, per 64-row tile j: u = B_j dS (wgmma, dS's hi and
+//     lo bfloat16 copies as transposed B) into the dx_j accumulator, dw_j
+//     = u . x_j, dx_j = w_j u; then per tile pair (j, i >= j), C_i and the
+//     heads' dy_i in the ring: G^T = B_j C_i^T ONCE for the block's heads
+//     (warpgroup 0, to shared memory as float32), per head dW^T = x_j
+//     dy_i^T, then in float32 registers L, W, dG and the row (over i,
+//     into shared rows a pair) and column (over j; four warps in order)
+//     sums, a k16 step at a time, each step's W packed to bfloat16 as the
+//     A fragments of dx_j += W^T dy_i at once; the block's heads' dG
+//     summed in float32 (head 0, then head 1), rounded ONCE to a bfloat16
+//     [j][i] tile, copied to the chunk's scratch (dg_buf) for the group
+//     passes;
+//   - the dB pass, per 64-row tile j, warpgroup c owning N's box c: the
+//     heads' state terms K-stacked into one accumulator (rb(w_j x_j)
+//     rb(dS)^T, A from registers), then dG_ij^T C_i over i >= j (the
+//     scratch's tile K-major), the tile's float32 sum over the block's
+//     heads out through a staging tile in 16-byte stores;
+//   - the row walk (chunks > 0), two passes over the 64-row tiles i (so
+//     V and the dS sums never share registers): V = C_i S_c (S_c's hi and
+//     lo copies) into dcum_i += exp(cum_i) dy_i . V; then the chunk
+//     before's dS = exp(cum_Q) dS + (exp(cum_i) C_i)^T dy_i (A from
+//     registers: ldmatrix.trans of C_i's tile, times exp(cum_i), hi + lo;
+//     float32 in registers, out through shared memory to ds_buf and the
+//     hi and lo copies);
+//   - the cumsum's backward, a warp a head (fixed order);
+//   - the dC pass, per 64-row tile i as the dB pass: rb(exp(cum_i) dy_i)
+//     rb(S_c)^T (chunks > 0), then dG_ij B_j over j <= i (the tile as a
+//     transposed A).
+// A block writes its tiles of dB and dC (its heads' sums) once: bfloat16
+// where the block holds the group's heads, else float32 into its partial,
+// which a second kernel (ssd_bwd_sum_parts) sums over a group's blocks in
+// order and rounds (the partials stay in device memory: summing a tile over
+// a cluster of a group's blocks through distributed shared memory instead
+// measured slower at every cluster size, the blocks held in lockstep; and a
+// tile's sum by the block that writes its last partial, counted by an
+// integer atomic, took twice the time: the late block stays the last, and
+// its sums run one after another). The roundings the plain version lacks,
+// each at most one bfloat16 step of its value: W for W^T dy; the block's
+// summed dG for dG B and dG^T C; w_j x_j and dS for dB's state term;
+// exp(cum_i) dy_i and S_c for dC's. The products that reach ddt and da,
+// float32 outputs held to the float32 tolerance, take their float32 operand
+// as two bfloat16 terms hi + lo (about 2^-16 of its value): dS for B dS, S_c
+// for C S_c, exp(cum_i) C_i for (exp(cum_i) C_i)^T dy. The
+// wrapper zero-pads x, dy, B and C to a multiple of 8 columns (TMA's
+// 16-byte row strides) and slices dx, dB and dC back; P, N <= 128; Q up to
+// what shared memory holds (bwd_wgmma_smem: 4,544 at P 64, N 128; 6,592
+// at P = N = 64; 1,024 at P = N = 128), two heads a block up to 768 at P
+// 64, N 128. Registers: 251-255 a thread in the six builds, no spill
+// (ptxas's serialising of wgmma beside divergent code is avoided by a
+// warp-uniform warpgroup index, a shuffle; cold values a phase derives
+// are recomputed from an empty asm's copy, opaque(), not held).
 //
 // What bounds it. At Mamba2-1.3B's training shape (BH 512, L 512, P 64,
 // N 128, Q 256, rep 64; chip_smoke.py::ssd_bwd_bound) the least work is
 // 2.2e10 operations (C B^T, dG B and dG^T C once a group, not a head;
 // 0.0222 ms at the bfloat16 peak) against 140 MB of traffic (0.0419 ms
 // at 3.35 TB/s): bytes bound it. At Zamba2-7B's (BH 896, N 64, rep 112)
-// 0.0631 ms, bytes (operations 0.0269). This design does 4.8e10 a launch
-// at Mamba2's shape (5.2e10 at Zamba2's): the group's products once a
-// block of 2 heads, not a group of 64 or 112; whole 64 x 64 tiles on the
-// diagonal; the split operands' second products.
+// 0.0631 ms, bytes (operations 0.0269). This design forms the group's
+// products once a block of two heads, on whole 64 x 64 tiles, and runs
+// the split operands' second products; it reads C, B, x and dy again in
+// its passes (from L2), and writes and reads the summed dG tiles (20 MB
+// at Mamba2's shape) and the blocks' partials of dB and dC (134 MB at
+// Mamba2's, 117 MB at Zamba2's).
 //
 // float32 (ssd_bwd): on the CUDA cores (the float32 tolerance, 1e-4,
 // rules out bfloat16 and TF32 products). A block of 256 threads runs hb
@@ -392,53 +418,6 @@ using lm::ex2;
 using lm::static_for;
 constexpr int kTile = 64;  // rows of a chunk's tile; 64 columns a TMA box
 constexpr float kLog2e = 1.4426950408889634f;
-
-// rows [0, 64) of a (., W) bfloat16 matrix at src into a [64][ld] tile,
-// the first 16 wk columns, zeros at rows >= valid and columns >= W, by
-// `nt` threads (this one is `tid`). 16-byte cp.async where rows are
-// 16-byte aligned (W % 8 == 0), else plain loads.
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          int W, int wk, int valid, int tid,
-                                          int nt) {
-  const int wp = 16 * wk;
-  if (W % 8 == 0) {
-    const int cpr = wp / 8;
-    for (int idx = tid; idx < kTile * cpr; idx += nt) {
-      const int r = idx / cpr, c = idx % cpr * 8;
-      const bool ok = r < valid && c < W;
-      lm::cp_async16(lm::smem_u32(dst + r * ld + c),
-                     ok ? src + static_cast<size_t>(r) * W + c : src, ok);
-    }
-  } else {
-    for (int idx = tid; idx < kTile * wp; idx += nt) {
-      const int r = idx / wp, c = idx % wp;
-      dst[r * ld + c] = r < valid && c < W
-                            ? src[static_cast<size_t>(r) * W + c]
-                            : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// acc (16 rows x 16 pk) += A (16 x 16) * rows [16 kk, 16 kk + 16) of a
-// [.][ld] bfloat16 tile (k-major: row k, column p), ldmatrix.trans
-template <int PK>
-__device__ __forceinline__ void mma_rows(float (&acc)[2 * PK][4],
-                                         const uint32_t (&a)[4],
-                                         const bf16* tile, int ld, int kk,
-                                         int pk) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int dp = 0; dp < PK; ++dp) {
-    if (dp >= pk) break;
-    uint32_t b[4];
-    lm::ldmatrix_x4_trans(
-        b, lm::smem_u32(tile + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                   ld +
-                        dp * 16 + (lane >> 4) * 8));
-    lm::mma_bf16_16816(acc[2 * dp], a, b[0], b[1]);
-    lm::mma_bf16_16816(acc[2 * dp + 1], a, b[2], b[3]);
-  }
-}
 
 // ssd_fwd_wgmma<NB>: the bfloat16 forward, one warpgroup a block, N in
 // NB boxes of 64 columns (1: N <= 64, 2: N <= 128), one 64-column slice
@@ -1325,51 +1304,57 @@ int launch_bwd(const float* a, const void* x, const float* dt, const void* b,
 }
 
 // ---------------------------------------------------- backward, bf16
-// ssd_bwd_mma: see the header. One block of 8 warps runs `nh` heads of
-// one group through the chunks from the last to the first. Warp w owns
-// rows 16 (w % 4) of a 64-row tile and half w / 4 of its columns: of the
-// 64 columns i of a (j, i) tile pair, or of N's 16-wide blocks.
+// ssd_bwd_wgmma<NB, PB>: see the header. N in NB and P in PB 64-column
+// boxes (1: up to 64, 2: up to 128). A block of two warpgroups runs `nh`
+// (at most hmax <= 2) heads of one group, warpgroup h head h's chains;
+// the group's products, formed once for the block, are split between
+// the warpgroups.
 constexpr int kBwdThreads = 256;
-constexpr int kDgLd = kTile + 8;  // a row of the summed dG tile, bfloat16
+constexpr uint32_t kF32Tile = kTile * kTile * 4;  // 64 x 64 float32
 
-// What a bfloat16 backward launch needs besides its arguments.
-struct BwdGeom {
-  int nh;    // heads a block (the last block of a group may have fewer)
-  int sets;  // blocks a group
-  int nk;    // N / 16, rounded up
-  int pk;    // P / 16, rounded up
-  int qp;    // Q rounded up to a tile
+// Byte offsets from a block's 1,024-aligned base, hmax heads: each head's
+// dS as bfloat16 hi (all heads), then lo ([P box][N rows][64 values of
+// P], the 128-byte swizzle TMA writes); a region the column walk (B_j,
+// the heads' x_j, G^T and the dG exchange as float32) and the group
+// passes (each head's S_c hi, then lo; the float32 staging of a dB or dC
+// tile over the lo copies) take in turn; the ring's two slots.
+struct BwdLayout {
+  uint32_t state;  // one head's dS or S_c, hi or lo
+  uint32_t bj, xh, gt, dgx, sc, stage, ring, slot, tiles;
 };
-
-__host__ __device__ inline int bwd_ldn(const BwdGeom& g) { return 16 * g.nk + 8; }
-__host__ __device__ inline int bwd_ldp(const BwdGeom& g) { return 16 * g.pk + 8; }
-// a row of a head's float32 dS (N rows of P): +4 keeps the k-pair reads
-// of B dS's fragments on 32 distinct banks
-__host__ __device__ inline int bwd_lds(const BwdGeom& g) { return 16 * g.pk + 4; }
-// a ring stage, bfloat16: C_i, then each head's dy_i
-__host__ __device__ inline int bwd_stage(const BwdGeom& g) {
-  return kTile * bwd_ldn(g) + g.nh * kTile * bwd_ldp(g);
+__host__ __device__ constexpr BwdLayout bwd_layout(int nb, int pb, int hmax) {
+  BwdLayout s{};
+  s.state = nb * pb * kBoxBytes;
+  const uint32_t u = 2 * hmax * s.state;
+  s.bj = u;
+  s.xh = s.bj + nb * kBoxBytes;
+  s.gt = s.xh + hmax * pb * kBoxBytes;
+  s.dgx = s.gt + kF32Tile;
+  s.sc = u;
+  const uint32_t his = s.sc + hmax * s.state;
+  s.stage = s.gt > his ? s.gt : his;  // 64 x 64 nb float32
+  uint32_t end = s.dgx + kF32Tile;
+  if (s.sc + 2 * hmax * s.state > end) end = s.sc + 2 * hmax * s.state;
+  if (s.stage + nb * kF32Tile > end) end = s.stage + nb * kF32Tile;
+  s.ring = end;
+  // a slot: C_i and the heads' dy_i; the heads' x_j or dy_i; C_i or B_j
+  // and a summed dG tile
+  const uint32_t cdy = (nb + hmax * pb) * kBoxBytes, gdg = (nb + 1) * kBoxBytes;
+  s.slot = cdy > gdg ? cdy : gdg;
+  s.tiles = s.ring + 2 * s.slot;
+  return s;
 }
-// bytes of the region the column walk (B_j, each head's x_j, the summed
-// dG tile, the other half's dx) and the row walk (each head's S_c as
-// bfloat16 hi and lo) take in turn
-__host__ __device__ inline int bwd_union_bytes(const BwdGeom& g) {
-  const int cols = 2 * (kTile * bwd_ldn(g) + g.nh * kTile * bwd_ldp(g) +
-                        kTile * kDgLd) +
-                   4 * kTile * bwd_lds(g);
-  const int rows = 4 * g.nh * 16 * g.nk * bwd_ldp(g);
-  return cols > rows ? cols : rows;
-}
-// floats a head: cum, dcum and w_j dw_j over the chunk; the column sums
-// of four row blocks; the row sums of two halves, three quantities; the
-// dot's eight warp partials and its sum
-__host__ __device__ inline int bwd_small_floats(const BwdGeom& g) {
-  return g.nh * (3 * g.qp + 4 * kTile + 6 * kTile + 9);
-}
-size_t bwd_mma_smem(const BwdGeom& g) {
-  return sizeof(float) * g.nh * 16 * g.nk * bwd_lds(g)  // dS, float32
-         + sizeof(bf16) * 2 * bwd_stage(g)               // the ring
-         + bwd_union_bytes(g) + sizeof(float) * bwd_small_floats(g);
+// The whole: alignment, the tiles, then float32 rows of the chunk (per
+// head log2 e times the cumsum and dt; per row of the sums, one a head or
+// two for a split head, d(cum), w_j dw_j and ddt but the cumsum's share),
+// per head the column sums of four warps, the dot's eight warp partials
+// and da over the chunks (two floats), and three mbarriers.
+size_t bwd_wgmma_smem(int nb, int pb, int hmax, int q) {
+  const size_t qp = (q + kTile - 1) / kTile * kTile;
+  const int hr = pb == 2 ? 2 : hmax;
+  return 1024 + bwd_layout(nb, pb, hmax).tiles +
+         4 * ((2 * hmax + 3 * hr) * qp + 266 * static_cast<size_t>(hmax)) +
+         3 * 8;
 }
 
 // Two floats as bfloat16 pairs hi + lo: hi their rounding, lo the
@@ -1381,748 +1366,950 @@ __device__ __forceinline__ void split_bf16x2(float v0, float v1,
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
   lo = lm::pack_bf16x2(v0 - h.x, v1 - h.y);
 }
-
-// The sum over the four lanes of a row of an mma fragment (t = lane % 4).
+__device__ __forceinline__ float2 bf2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+// The sum over the four lanes of an accumulator row (t = lane % 4).
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
-// The sum over the eight rows g = lane / 4 of a fragment's column.
+// The sum over the eight rows g = lane / 4 of an accumulator column.
 __device__ __forceinline__ float col_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 4);
   v += __shfl_xor_sync(0xffffffffu, v, 8);
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
-
-// The 16 x 16 A fragment at (m0, k0) of a row-major [m][ld] tile.
-__device__ __forceinline__ void frag_a(uint32_t (&af)[4], const bf16* t,
-                                       int ld, int m0, int k0) {
-  const int lane = threadIdx.x & 31;
-  lm::ldmatrix_x4(af, lm::smem_u32(t + (m0 + (lane & 15)) * ld + k0 +
-                                   (lane >> 4) * 8));
+// byte offset of (row r, column c) in a swizzled tile of 64-column boxes
+// `box` bytes apart
+__device__ __forceinline__ uint32_t swz(int r, int c, uint32_t box) {
+  return (c >> 6) * box + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) +
+         (c & 7) * 2;
 }
-// The same from a [k][ld] tile (the A matrix transposed in memory).
-__device__ __forceinline__ void frag_a_t(uint32_t (&af)[4], const bf16* t,
-                                         int ld, int m0, int k0) {
-  const int lane = threadIdx.x & 31;
-  lm::ldmatrix_x4_trans(
-      af, lm::smem_u32(t + (k0 + ((lane >> 4) & 1) * 8 + (lane & 7)) * ld +
-                       m0 + ((lane >> 3) & 1) * 8));
+// v through an empty asm: what derives from the copy cannot be hoisted
+// above it, so a phase inside the chunk loop recomputes its own values
+// instead of the compiler holding them (in registers) through the others
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
 }
-// acc[0], acc[1] (columns n0 .. n0 + 16) += a * B, B (k0 .. k0 + 16 by
-// n) read from an [n][ld] tile (k along a row)
-__device__ __forceinline__ void mma_nk(float (&a0)[4], float (&a1)[4],
-                                       const uint32_t (&af)[4],
-                                       const bf16* t, int ld, int n0,
-                                       int k0) {
-  const int lane = threadIdx.x & 31;
-  uint32_t bb[4];
-  lm::ldmatrix_x4(bb, lm::smem_u32(t + (n0 + (lane >> 4) * 8 + (lane & 7)) *
-                                           ld +
-                                   k0 + ((lane >> 3) & 1) * 8));
-  lm::mma_bf16_16816(a0, af, bb[0], bb[1]);
-  lm::mma_bf16_16816(a1, af, bb[2], bb[3]);
+template <typename T>
+__device__ __forceinline__ T* opaque(T* p) {
+  asm volatile("" : "+l"(p));
+  return p;
 }
-// the same with B read from a [k][ld] tile (n along a row)
-__device__ __forceinline__ void mma_kn(float (&a0)[4], float (&a1)[4],
-                                       const uint32_t (&af)[4],
-                                       const bf16* t, int ld, int n0,
-                                       int k0) {
-  const int lane = threadIdx.x & 31;
-  uint32_t bb[4];
-  lm::ldmatrix_x4_trans(
-      bb, lm::smem_u32(t + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld +
-                       n0 + (lane >> 4) * 8));
-  lm::mma_bf16_16816(a0, af, bb[0], bb[1]);
-  lm::mma_bf16_16816(a1, af, bb[2], bb[3]);
-}
-
-// rows row0 + g (+ 8) and columns n0 + 2 t (+ 1) of an n8 block of
-// an mma fragment, v, into a float32 (., N) matrix at dst (rows < rows)
-__device__ __forceinline__ void put_rows(float* dst, const float (&v)[4],
-                                         int row0, int n0, int rows, int N) {
-  const int lane = threadIdx.x & 31;
-  const int n = n0 + 2 * (lane & 3);
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + (lane >> 2) + 8 * hh;
-    if (row >= rows || n >= N) continue;
-    float* o = dst + static_cast<size_t>(row) * N + n;
-    if (N % 2 == 0) {
-      *reinterpret_cast<float2*>(o) = make_float2(v[2 * hh], v[2 * hh + 1]);
-    } else {
-      o[0] = v[2 * hh];
-      if (n + 1 < N) o[1] = v[2 * hh + 1];
-    }
-  }
-}
-// the same block read from src into v (zeros at rows >= rows, n >= N)
-__device__ __forceinline__ void get_rows(const float* src, float (&v)[4],
-                                         int row0, int n0, int rows, int N) {
-  const int lane = threadIdx.x & 31;
-  const int n = n0 + 2 * (lane & 3);
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + (lane >> 2) + 8 * hh;
-    v[2 * hh] = v[2 * hh + 1] = 0.f;
-    if (row >= rows || n >= N) continue;
-    const float* o = src + static_cast<size_t>(row) * N + n;
-    if (N % 2 == 0) {
-      const float2 u = *reinterpret_cast<const float2*>(o);
-      v[2 * hh] = u.x;
-      v[2 * hh + 1] = u.y;
-    } else {
-      v[2 * hh] = o[0];
-      if (n + 1 < N) v[2 * hh + 1] = o[1];
-    }
-  }
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
 }
 
-// NKH: N's 16-wide blocks in half of N at most (2 or 4); PKM: P's (4 or
-// 8); HM: heads a block at most (2 or 1: each head's dx_j sums stay in
-// registers over the column walk)
-template <int NKH, int PKM, int HM>
+template <int NB, int PB, int HB>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    ssd_bwd_mma(const float* __restrict__ a, const bf16* __restrict__ x,
-                const float* __restrict__ dt, const bf16* __restrict__ b,
-                const bf16* __restrict__ c, const bf16* __restrict__ dy,
-                const float* __restrict__ states,
-                const float* __restrict__ ds_final, bf16* __restrict__ dx,
-                float* __restrict__ ddt, float* __restrict__ da,
-                float* __restrict__ db_part, float* __restrict__ dc_part,
-                int L, int P, int N, int Q, int rep, BwdGeom g) {
+    ssd_bwd_wgmma(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_dy,
+                  const __grid_constant__ CUtensorMap map_b,
+                  const __grid_constant__ CUtensorMap map_c,
+                  const float* __restrict__ a, const float* __restrict__ dt,
+                  const float* __restrict__ states,
+                  const float* __restrict__ ds_final,
+                  float* __restrict__ ds_buf, bf16* __restrict__ dg_buf,
+                  bf16* __restrict__ dx, float* __restrict__ ddt,
+                  float* __restrict__ da, float* __restrict__ part,
+                  bf16* __restrict__ out, int L, int P, int N, int Pr,
+                  int Nr, int Q, int rep, int sets) {
+  // P past one box (PB 2, one head a block): both warpgroups run the
+  // block's head, warpgroup c the dx, state and V products of P's box c,
+  // each with its own row of the per-row sums; else warpgroup c runs head c
+  constexpr bool kSplit = PB == 2;
+  static_assert(!kSplit || HB == 1, "P past 64 takes one head a block");
+  constexpr int HR = kSplit ? 2 : HB;      // rows of the per-row sums
+  constexpr int KN = 4 * NB, KP = 4 * PB;  // k-steps of 16 over N, P
+  constexpr BwdLayout lay = bwd_layout(NB, PB, HB);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldn = bwd_ldn(g), ldp = bwd_ldp(g), lds = bwd_lds(g);
-  const int nn = 16 * g.nk, pp = 16 * g.pk, nc = L / Q, qp = g.qp;
-  const int stage = bwd_stage(g);
-  float* dS = reinterpret_cast<float*>(smem_raw);              // [nh][nn][lds]
-  bf16* ring = reinterpret_cast<bf16*>(dS + g.nh * nn * lds);  // [2][stage]
-  unsigned char* uni = reinterpret_cast<unsigned char*>(ring + 2 * stage);
-  bf16* Bj = reinterpret_cast<bf16*>(uni);                  // [64][ldn]
-  bf16* Xj = Bj + kTile * ldn;                              // [nh][64][ldp]
-  bf16* Dg = Xj + g.nh * kTile * ldp;                       // [64][kDgLd]
-  float* dxo = reinterpret_cast<float*>(Dg + kTile * kDgLd);  // [64][lds]
-  bf16* Sc = reinterpret_cast<bf16*>(uni);  // [nh][2 (hi, lo)][nn][ldp]
-  float* cum = reinterpret_cast<float*>(uni + bwd_union_bytes(g));  // [nh][qp]
-  float* dcum = cum + g.nh * qp;                            // [nh][qp]
-  float* wdw = dcum + g.nh * qp;                            // [nh][qp]
-  float* colsum = wdw + g.nh * qp;                          // [nh][4][64]
-  float* rowsum = colsum + g.nh * 4 * kTile;                // [nh][2][3][64]
-  float* red = rowsum + g.nh * 6 * kTile;                   // [nh][8]
-  float* dotv = red + g.nh * 8;                             // [nh]
+  const uint32_t raw = lm::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const sb = smem_raw + (base - raw);
+  auto at = [&](uint32_t addr) { return sb + (addr - base); };
+  const int qp = (Q + kTile - 1) / kTile * kTile, nt = qp / kTile;
+  float* cum = reinterpret_cast<float*>(sb + lay.tiles);  // [HB][qp]
+  float* dts = cum + HB * qp;                             // [HB][qp]
+  float* dcum = dts + HB * qp;                            // [HR][qp]
+  float* wdw = dcum + HR * qp;                            // [HR][qp]
+  float* dd = wdw + HR * qp;  // [HR][qp] ddt but the cumsum's share
+  float* colsum = dd + HR * qp;                           // [HB][4][64]
+  float* red = colsum + HB * 4 * kTile;                   // [HB][8]
+  float* dacc = red + 8 * HB;  // [HB][2] each head's da over the chunks
+  const uint32_t bar_bx = lm::smem_u32(red + 10 * HB);
+  const uint32_t bar_ring = bar_bx + 8;  // [2]
 
-  const int gb = blockIdx.x / g.sets, set = blockIdx.x % g.sets;
-  const int nh = min(g.nh, rep - set * g.nh);
-  const int bh0 = gb * rep + set * g.nh;  // the block's first head
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r = warp & 3, hc = warp >> 2;  // rows 16 r, half hc
-  const int gq = lane >> 2, t4 = lane & 3;
-  // this half's 16-wide blocks of N: [nb0, nb0 + nbn)
-  const int nkh = (g.nk + 1) / 2, nb0 = hc * nkh;
-  const int nbn = max(0, min(g.nk, nb0 + nkh) - nb0);
-  const bf16* bg = b + static_cast<size_t>(gb) * L * N;
-  const bf16* cg = c + static_cast<size_t>(gb) * L * N;
-  float* dbb = db_part + static_cast<size_t>(blockIdx.x) * L * N;
-  float* dcb = dc_part + static_cast<size_t>(blockIdx.x) * L * N;
+  const int gb = blockIdx.x / sets, set = blockIdx.x % sets;
+  const int nh = min(HB, rep - set * HB);
+  const int bh0 = gb * rep + set * HB;
+  const int nc = L / Q, npairs = nt * (nt + 1) / 2;
+  const int tid = threadIdx.x, tw = tid % 128;
+  // warp-uniform to the compiler (a shuffle), so the warpgroups' branches
+  // around wgmma are not divergent paths
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = tw / 32, lane = tid % 32, g4 = lane >> 2, t4 = lane & 3;
+  const int jr = 16 * warp + g4;  // this thread's rows of a tile: jr, jr + 8
+  const bool mine = kSplit || wg < nh;  // this warpgroup runs a head
+  const int h = kSplit ? 0 : wg, bh = bh0 + h;
+  const int ps = kSplit ? wg : 0;   // the P box of its dx, state and V
+  const int hr = kSplit ? wg : h;   // its row of the per-row sums
+  // the intra-chunk sums, the same in both warpgroups of a split head: one
+  // warpgroup's count
+  const bool sums = !kSplit || wg == 0;
+  const uint32_t hi = lm::desc_hi_sw128(1024);
+  auto ds_hi = [&](int k) { return base + k * lay.state; };
+  auto ds_lo = [&](int k) { return base + (HB + k) * lay.state; };
+  auto sc_hi = [&](int k) { return base + lay.sc + k * lay.state; };
+  auto sc_lo = [&](int k) { return base + lay.sc + (HB + k) * lay.state; };
+  auto slot_at = [&](int r) { return base + lay.ring + (r & 1) * lay.slot; };
+  auto fence_async = [] {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
 
-  for (int h = 0; h < nh; ++h) {
-    const float* src = ds_final + static_cast<size_t>(bh0 + h) * N * P;
-#pragma unroll 8
-    for (int idx = tid; idx < nn * pp; idx += kBwdThreads) {
-      const int n = idx / pp, p = idx % pp;
-      dS[(h * nn + n) * lds + p] =
-          ds_final != nullptr && n < N && p < P ? src[n * P + p] : 0.f;
+  // ---- the loads, all requested by thread 0, each after the block
+  // barrier that frees its buffer. Column tile j's B_j and the heads' x_j
+  // on bar_bx; ring step r in slot r % 2 (phase r / 2 of its barrier).
+  // (thread 0's own copies of the block's group, first head and heads,
+  // and of the maps' addresses: nothing of them held by the others)
+  auto producer = [&](int& gq, int& bq, int& nq) {
+    const int blk = opaque(static_cast<int>(blockIdx.x));
+    gq = blk / sets;
+    bq = gq * rep + blk % sets * HB;
+    nq = min(HB, rep - blk % sets * HB);
+  };
+  auto request_bx = [&](int c0, int j) {
+    int gq, bq, nq;
+    producer(gq, bq, nq);
+    fence_async();
+    lm::mbar_expect_tx(bar_bx, (NB + nq * PB) * kBoxBytes);
+    for (int b = 0; b < NB; ++b)
+      lm::tma_load_3d(base + lay.bj + b * kBoxBytes, opaque(&map_b), bar_bx,
+                      b * kTile, c0 + j * kTile, gq);
+    for (int k = 0; k < nq; ++k)
+      for (int p = 0; p < PB; ++p)
+        lm::tma_load_3d(base + lay.xh + (k * PB + p) * kBoxBytes,
+                        opaque(&map_x), bar_bx, p * kTile, c0 + j * kTile,
+                        bq + k);
+  };
+  // ring step r: the 64-row tiles named (>= 0), each into the slot's next
+  // boxes in this order: C's, the heads' dy, the heads' x, B's
+  auto request_ring = [&](int r, int c0, int c_t, int dy_t, int x_t,
+                          int b_t) {
+    int gq, bq, nq;
+    producer(gq, bq, nq);
+    const uint32_t slot = slot_at(r), bar = bar_ring + 8 * (r & 1);
+    const int boxes = (c_t >= 0 ? NB : 0) + (dy_t >= 0 ? nq * PB : 0) +
+                      (x_t >= 0 ? nq * PB : 0) + (b_t >= 0 ? NB : 0);
+    fence_async();
+    lm::mbar_expect_tx(bar, boxes * kBoxBytes);
+    uint32_t at_box = slot;
+    if (c_t >= 0)
+      for (int b = 0; b < NB; ++b, at_box += kBoxBytes)
+        lm::tma_load_3d(at_box, opaque(&map_c), bar, b * kTile,
+                        c0 + c_t * kTile, gq);
+    if (dy_t >= 0)
+      for (int k = 0; k < nq; ++k)
+        for (int p = 0; p < PB; ++p, at_box += kBoxBytes)
+          lm::tma_load_3d(at_box, opaque(&map_dy), bar, p * kTile,
+                          c0 + dy_t * kTile, bq + k);
+    if (x_t >= 0)
+      for (int k = 0; k < nq; ++k)
+        for (int p = 0; p < PB; ++p, at_box += kBoxBytes)
+          lm::tma_load_3d(at_box, opaque(&map_x), bar, p * kTile,
+                          c0 + x_t * kTile, bq + k);
+    if (b_t >= 0)
+      for (int b = 0; b < NB; ++b, at_box += kBoxBytes)
+        lm::tma_load_3d(at_box, opaque(&map_b), bar, b * kTile,
+                        c0 + b_t * kTile, gq);
+  };
+  int rk = 0, nbx = 0;  // ring steps and column tiles consumed
+  auto ring_wait = [&]() {
+    lm::mbar_wait(bar_ring + 8 * (rk & 1), (rk >> 1) & 1);
+    return slot_at(rk);
+  };
+
+  // a float32 (N, P) state (true widths; null reads as zero) into
+  // bfloat16 hi and lo copies, by all threads; returns this thread's share
+  // of its dot with `other` (same shape, null: zero)
+  auto load_state = [&](uint32_t to_hi, uint32_t to_lo, const float* src,
+                        const float* other) {
+    float dot = 0.f;
+    for (int idx = tid; idx < NB * kTile * PB * 32; idx += kBwdThreads) {
+      const int n = idx / (PB * 32), p = idx % (PB * 32) * 2;
+      float v0 = 0.f, v1 = 0.f;
+      if (src != nullptr && n < N) {
+        const size_t o = static_cast<size_t>(n) * P + p;
+        if (p < P) v0 = src[o];
+        if (p + 1 < P) v1 = src[o + 1];
+        if (other != nullptr) {
+          if (p < P) dot = fmaf(v0, other[o], dot);
+          if (p + 1 < P) dot = fmaf(v1, other[o + 1], dot);
+        }
+      }
+      uint32_t h2, l2;
+      split_bf16x2(v0, v1, h2, l2);
+      const uint32_t off = swz(n, p, NB * kBoxBytes);
+      *reinterpret_cast<uint32_t*>(at(to_hi + off)) = h2;
+      *reinterpret_cast<uint32_t*>(at(to_lo + off)) = l2;
     }
+    return dot;
+  };
+
+  // A finished 64-row tile of dB (which 0) or dC (1), rows c0 + r0.. of
+  // the group, the block's sum over its heads: each warpgroup that holds
+  // n-slices of it stages them (float32, [64][64 NB]), then the block
+  // writes it in 16-byte stores: bfloat16 where the block holds all the
+  // group's heads, else float32 into the block's partial, which
+  // ssd_bwd_sum_parts sums over the group's blocks in order.
+  auto stage = [&](int nb, const float (&v)[32]) {
+    float* st = reinterpret_cast<float*>(at(base + lay.stage));
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(st + (jr + 8 * hh) * (kTile * NB) +
+                                   kTile * nb + 8 * nn + 2 * t4) =
+            make_float2(v[4 * nn + 2 * hh], v[4 * nn + 2 * hh + 1]);
+  };
+  auto emit = [&](int which, int c0, int r0) {
+    __syncthreads();
+    constexpr int w4 = kTile * NB / 4;  // float4 a row
+    const int blk = opaque(static_cast<int>(blockIdx.x));
+    const int grp = blk / sets, groups = gridDim.x / sets;
+    const float4* st = reinterpret_cast<const float4*>(at(base + lay.stage));
+    for (int e = tid; e < kTile * w4; e += kBwdThreads) {
+      const int r = e / w4, col = e % w4 * 4, row = r0 + r;
+      if (row >= Q || col >= Nr) continue;
+      const float4 s = st[e];
+      const size_t at_row = static_cast<size_t>(c0 + row) * Nr + col;
+      if (sets == 1) {
+        bf16* o = out + (static_cast<size_t>(which) * groups + grp) * L * Nr +
+                  at_row;
+        *reinterpret_cast<uint2*>(o) =
+            make_uint2(lm::pack_bf16x2(s.x, s.y), lm::pack_bf16x2(s.z, s.w));
+      } else {
+        float* o = part + (static_cast<size_t>(which) * gridDim.x + blk) * L *
+                              Nr + at_row;
+        *reinterpret_cast<float4*>(o) = s;
+      }
+    }
+    __syncthreads();
+  };
+
+  if (tid == 0) {
+    lm::mbar_init(bar_bx, 1);
+    lm::mbar_init(bar_ring, 1);
+    lm::mbar_init(bar_ring + 8, 1);
+    lm::mbar_fence_init();
   }
-  float da_acc = 0.f;  // warp h's head h
+  // dS of the last chunk: d(s_final), or zero
+  for (int k = 0; k < nh; ++k)
+    load_state(ds_hi(k), ds_lo(k),
+               ds_final != nullptr
+                   ? ds_final + static_cast<size_t>(bh0 + k) * N * P
+                   : nullptr,
+               nullptr);
+  fence_async();
+  if (tid < HB) dacc[2 * tid] = 0.f;
 
   for (int ci = nc - 1; ci >= 0; --ci) {
     const int c0 = ci * Q;
-    // a ring stage: C_i and the heads' dy_i for rows [i0, i0 + 64)
-    auto load_stage = [&](int s, int i0) {
-      bf16* st = ring + s * stage;
-      load_tile(st, ldn, cg + static_cast<size_t>(c0 + i0) * N, N, g.nk,
-                Q - i0, tid, kBwdThreads);
-      for (int h = 0; h < nh; ++h)
-        load_tile(st + kTile * ldn + h * kTile * ldp, ldp,
-                  dy + (static_cast<size_t>(bh0 + h) * L + c0 + i0) * P, P,
-                  g.pk, Q - i0, tid, kBwdThreads);
-    };
-    __syncthreads();  // the last chunk's epilogue has read cum and dcum
+    __syncthreads();  // the last chunk's reads are done
     // ---- log2 e times the cumsum of dt a, a warp a head
-    if (warp < nh) {
-      const int h = warp;
-      const float av = a[bh0 + h];
-      const float* dth = dt + static_cast<size_t>(bh0 + h) * L + c0;
+    if (tid < 32 * nh) {
+      const int k = tid / 32;
+      const float av = a[bh0 + k];
+      const float* dth = dt + static_cast<size_t>(bh0 + k) * L + c0;
       float carry = 0.f;
-#pragma unroll 4
       for (int t0 = 0; t0 < qp; t0 += 32) {
         const int t = t0 + lane;
-        float v = t < Q ? dth[t] * av : 0.f;
+        const float d = t < Q ? dth[t] : 0.f;
+        float v = d * av;
 #pragma unroll
         for (int off = 1; off < 32; off <<= 1) {
           const float nb = __shfl_up_sync(0xffffffffu, v, off);
           if (lane >= off) v += nb;
         }
         v += carry;
-        cum[h * qp + t] = t < Q ? v * kLog2e : 0.f;
-        dcum[h * qp + t] = 0.f;
-        wdw[h * qp + t] = 0.f;
+        cum[k * qp + t] = t < Q ? v * kLog2e : 0.f;
+        dts[k * qp + t] = d;
         carry = __shfl_sync(0xffffffffu, v, 31);
       }
     }
-    // B_j, the heads' x_j and the first pair's stage of column tile j0
-    auto load_cols = [&](int j0) {
-      const int nj = min(kTile, Q - j0);
-      load_tile(Bj, ldn, bg + static_cast<size_t>(c0 + j0) * N, N, g.nk, nj,
-                tid, kBwdThreads);
-      for (int h = 0; h < nh; ++h)
-        load_tile(Xj + h * kTile * ldp, ldp,
-                  x + (static_cast<size_t>(bh0 + h) * L + c0 + j0) * P, P,
-                  g.pk, nj, tid, kBwdThreads);
-      load_stage(0, j0);
-      lm::cp_async_commit();
-    };
-    load_cols(0);
+    for (int t = tid; t < HR * qp; t += kBwdThreads) dcum[t] = wdw[t] = 0.f;
     __syncthreads();
+    const float* cu = cum + h * qp;  // read only where `mine`
+    const float cq = mine ? cu[Q - 1] : 0.f;
 
-    // ---- column tiles j: dx_j, dB_j and the pairs (j, i >= j)
-    for (int j0 = 0; j0 < Q; j0 += kTile) {
-      // this thread's rows j (jlo, jlo + 8): cum (log2), dt
-      const int jlo = j0 + 16 * r + gq;
-      float cj[HM][2], dtj[HM][2];
-      // row sums over i: ddt_j (dW G L), dcum_j (- dW W)
-      float rs[HM][2][2];
-      float dxa[HM][2 * PKM][4];
-      float dba[2 * NKH][4];
-#pragma unroll
-      for (int h = 0; h < HM; ++h)
+    // ---- the column walk: per 64-row tile j, the state terms, then the
+    // pairs (j, i >= j)
+    for (int j = 0; j < nt; ++j) {
+      const int j0 = j * kTile, npair = nt - j;
+      if (tid == 0) {
+        request_bx(c0, j);
+        for (int k = 0; k < min(2, npair); ++k)
+          request_ring(rk + k, c0, j + k, j + k, -1, -1);
+      }
+      float dxa[32];  // dx_j, this warpgroup's box of P
+      lm::mbar_wait(bar_bx, nbx & 1);
+      ++nbx;
+      const uint32_t bj_lo = lm::desc_lo(base + lay.bj, 16);
+      const uint32_t xh = base + lay.xh + h * PB * kBoxBytes;
+      if (mine) {
+        float wj[2], ej[2];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int jj = jlo + 8 * hh;
-          const bool ok = h < nh && jj < Q;
-          cj[h][hh] = ok ? cum[h * qp + jj] : 0.f;
-          dtj[h][hh] =
-              ok ? dt[static_cast<size_t>(bh0 + h) * L + c0 + jj] : 0.f;
-          rs[h][0][hh] = rs[h][1][hh] = 0.f;
+          const int jj = j0 + jr + 8 * hh;
+          const bool ok = jj < Q;
+          ej[hh] = ok ? ex2(cq - cu[jj]) : 0.f;
+          wj[hh] = ok ? ej[hh] * dts[h * qp + jj] : 0.f;
         }
-#pragma unroll
-      for (int f = 0; f < 2 * NKH; ++f)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dba[f][e] = 0.f;
-      lm::cp_async_wait<0>();
-      __syncthreads();
-
-      // the state terms: U = B_j dS (this half's share of K = N), dx_j =
-      // w_j U, dw_j = U . x_j; dB_j = sum over heads of w_j x_j dS^T
-#pragma unroll
-      for (int h = 0; h < HM; ++h) {
-        if (h >= nh) break;
-        const float* dSh = dS + h * nn * lds;
-        const bf16* Xh = Xj + h * kTile * ldp;
-        float w[2], ej[2];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const bool ok = jlo + 8 * hh < Q;
-          ej[hh] = ok ? exp2f(cum[h * qp + Q - 1] - cj[h][hh]) : 0.f;
-          w[hh] = ej[hh] * dtj[h][hh];
-        }
-#pragma unroll
-        for (int f = 0; f < 2 * PKM; ++f)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dxa[h][f][e] = 0.f;
-        for (int kb = 0; kb < nbn; ++kb) {
-          const int k0 = 16 * (nb0 + kb);
-          uint32_t af[4];
-          frag_a(af, Bj, ldn, 16 * r, k0);
-          const float* s0 = dSh + (k0 + 2 * t4) * lds + gq;
-#pragma unroll
-          for (int f = 0; f < 2 * PKM; ++f) {
-            if (f >= 2 * g.pk) break;
-            const float* s = s0 + 8 * f;
-            uint32_t b0, b1, l0, l1;  // dS as hi + lo: dw_j feeds ddt, da
-            split_bf16x2(s[0], s[lds], b0, l0);
-            split_bf16x2(s[8 * lds], s[9 * lds], b1, l1);
-            lm::mma_bf16_16816(dxa[h][f], af, b0, b1);
-            lm::mma_bf16_16816(dxa[h][f], af, l0, l1);
-          }
-        }
+        // u = B_j dS (dS as hi + lo: dw_j feeds ddt and da) into dx_j
+        zero(dxa);
+        lm::fence_regs(dxa);
+        lm::wgmma_fence();
+        const uint32_t sh =
+            lm::desc_lo(ds_hi(h) + ps * NB * kBoxBytes, kBoxBytes);
+        const uint32_t sl =
+            lm::desc_lo(ds_lo(h) + ps * NB * kBoxBytes, kBoxBytes);
+        static_for<KN>([&](auto s) {
+          constexpr int kk = decltype(s)::value;
+          lm::wgmma_m64n64k16_ss_tb<(kk / 4 * kBoxBytes + kk % 4 * 32) / 16,
+                                    kk * 2048 / 16>(dxa, bj_lo, sh, hi,
+                                                    kk > 0);
+        });
+        static_for<KN>([&](auto s) {
+          constexpr int kk = decltype(s)::value;
+          lm::wgmma_m64n64k16_ss_tb<(kk / 4 * kBoxBytes + kk % 4 * 32) / 16,
+                                    kk * 2048 / 16>(dxa, bj_lo, sl, hi, 1);
+        });
+        lm::wgmma_commit();
+        lm::wgmma_wait<0>();
+        lm::fence_regs(dxa);
+        // dw_j = u_j . x_j (this lane's share of this warpgroup's box;
+        // its quad's sum for w_j dw_j); the row sums' state shares; dx_j =
+        // w_j u_j
         float dwp[2] = {0.f, 0.f};
 #pragma unroll
-        for (int f = 0; f < 2 * PKM; ++f) {
-          if (f >= 2 * g.pk) break;
+        for (int nn = 0; nn < 8; ++nn)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
-            const float2 xv = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(
-                    Xh + (16 * r + gq + 8 * hh) * ldp + 8 * f + 2 * t4));
-            dwp[hh] = fmaf(dxa[h][f][2 * hh], xv.x, dwp[hh]);
-            dwp[hh] = fmaf(dxa[h][f][2 * hh + 1], xv.y, dwp[hh]);
+            const float2 xv = bf2(*reinterpret_cast<const uint32_t*>(at(
+                xh + swz(jr + 8 * hh, 64 * ps + 8 * nn + 2 * t4,
+                         kBoxBytes))));
+            dwp[hh] = fmaf(dxa[4 * nn + 2 * hh], xv.x, dwp[hh]);
+            dwp[hh] = fmaf(dxa[4 * nn + 2 * hh + 1], xv.y, dwp[hh]);
           }
-        }
-        // this lane's share of the row dot (the quads are summed at the
-        // tile's end); w_j dw_j is final now, into its row sum slot
+        // this warpgroup's row of the sums: ddt_j's state share (the
+        // first write of the tile's rows), dcum_j's, w_j dw_j
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          rs[h][0][hh] = ej[hh] * dwp[hh];
-          rs[h][1][hh] = -w[hh] * dwp[hh];
-          const float v = quad_sum(w[hh] * dwp[hh]);
-          if (t4 == 0)
-            rowsum[((h * 2 + hc) * 3 + 2) * kTile + 16 * r + gq + 8 * hh] = v;
-        }
-#pragma unroll
-        for (int f = 0; f < 2 * PKM; ++f)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dxa[h][f][e] *= w[e >> 1];
-        // V = x_j dS^T over this half's columns n, times w_j, into dB_j
-        float va[2 * NKH][4];
-#pragma unroll
-        for (int f = 0; f < 2 * NKH; ++f)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) va[f][e] = 0.f;
-        for (int kk = 0; kk < g.pk; ++kk) {
-          uint32_t af[4];
-          frag_a(af, Xh, ldp, 16 * r, 16 * kk);
-#pragma unroll
-          for (int nb = 0; nb < NKH; ++nb) {
-            if (nb >= nbn) break;
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const float* s =
-                  dSh + (16 * (nb0 + nb) + 8 * half + gq) * lds + 16 * kk +
-                  2 * t4;
-              const float2 v0 = *reinterpret_cast<const float2*>(s);
-              const float2 v1 = *reinterpret_cast<const float2*>(s + 8);
-              lm::mma_bf16_16816(va[2 * nb + half], af,
-                                 lm::pack_bf16x2(v0.x, v0.y),
-                                 lm::pack_bf16x2(v1.x, v1.y));
-            }
+          const int jj = j0 + jr + 8 * hh;
+          const float dw = quad_sum(dwp[hh]);
+          if (t4 == 0 && jj < Q) {
+            dd[hr * qp + jj] = ej[hh] * dw;
+            dcum[hr * qp + jj] -= wj[hh] * dw;
+            wdw[hr * qp + jj] = wj[hh] * dw;
           }
         }
 #pragma unroll
-        for (int f = 0; f < 2 * NKH; ++f)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dba[f][e] = fmaf(w[e >> 1], va[f][e], dba[f][e]);
+        for (int e = 0; e < 32; ++e) dxa[e] *= wj[(e >> 1) & 1];
       }
 
-      // ---- the pairs (j, i), i from the diagonal down, C_i and dy_i in
-      // a double-buffered ring. A pair's leading barrier is the last
-      // one's end: the next stage is loaded after it (the stage it
-      // overwrites was read by the pair before), and the Dg tile and the
-      // column sums are written after it.
-      const int npair = (Q - j0 + kTile - 1) / kTile;
-      for (int k = 0; k < npair; ++k) {
-        const int i0 = j0 + k * kTile, s = k & 1;
-        lm::cp_async_wait<0>();
-        __syncthreads();
-        if (k + 1 < npair) load_stage(s ^ 1, i0 + kTile);
-        lm::cp_async_commit();
-        const bf16* Ci = ring + s * stage;
-        const bf16* Dyi = Ci + kTile * ldn;
-        // G^T = B_j C_i^T: rows j, this half's 32 columns i; once for
-        // every head of the block
-        float gt[4][4], dgs[4][4];
+      // the pairs (j, i), i from the diagonal down, C_i and the heads'
+      // dy_i in the ring
+      for (int k = 0; k < npair; ++k, ++rk) {
+        const int i = j + k, i0 = i * kTile;
+        const uint32_t slot = ring_wait();
+        const uint32_t dy_t = slot + (NB + h * PB) * kBoxBytes;
+        float dw[32];       // dW^T, then dG
+        uint32_t pa[1][4];  // W^T in bfloat16: a k16 step's A fragments
+        float4* gts = reinterpret_cast<float4*>(at(base + lay.gt));
+        float4* dgx = reinterpret_cast<float4*>(at(base + lay.dgx));
+        if (mine) {
+          lm::fence_regs(dw);
+          lm::wgmma_fence();
+          if (wg == 0) {  // G^T = B_j C_i^T, once for the block
+            float gt[32];
+            lm::fence_regs(gt);
+            const uint32_t c_lo = lm::desc_lo(slot, 16);
+            static_for<KN>([&](auto s) {
+              constexpr int kk = decltype(s)::value;
+              constexpr int off = (kk / 4 * kBoxBytes + kk % 4 * 32) / 16;
+              lm::wgmma_m64n64k16_ss<off, off>(gt, bj_lo, c_lo, hi, kk > 0);
+            });
+            lm::wgmma_commit();
+            lm::wgmma_wait<0>();
+            lm::fence_regs(gt);
 #pragma unroll
-        for (int f = 0; f < 4; ++f)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) gt[f][e] = dgs[f][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < 2 * NKH; ++kk) {
-          if (kk >= g.nk) break;
-          uint32_t af[4];
-          frag_a(af, Bj, ldn, 16 * r, 16 * kk);
-          mma_nk(gt[0], gt[1], af, Ci, ldn, 32 * hc, 16 * kk);
-          mma_nk(gt[2], gt[3], af, Ci, ldn, 32 * hc + 16, 16 * kk);
-        }
-#pragma unroll
-        for (int h = 0; h < HM; ++h) {
-          if (h >= nh) break;
-          const bf16* Dyh = Dyi + h * kTile * ldp;
-          // dW^T = x_j dy_i^T
-          float dw[4][4];
-#pragma unroll
-          for (int f = 0; f < 4; ++f)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) dw[f][e] = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < PKM; ++kk) {
-            if (kk >= g.pk) break;
-            uint32_t af[4];
-            frag_a(af, Xj + h * kTile * ldp, ldp, 16 * r, 16 * kk);
-            mma_nk(dw[0], dw[1], af, Dyh, ldp, 32 * hc, 16 * kk);
-            mma_nk(dw[2], dw[3], af, Dyh, ldp, 32 * hc + 16, 16 * kk);
+            for (int n = 0; n < 8; ++n)
+              gts[n * 128 + tw] = make_float4(gt[4 * n], gt[4 * n + 1],
+                                              gt[4 * n + 2], gt[4 * n + 3]);
+            lm::wgmma_fence();
           }
-          // L = exp(cum_i - cum_j) (i >= j only), W = G L dt_j (to
-          // bfloat16 as W^T dy's A fragments), dG = dW L dt_j (summed
-          // over the heads), and the row and column sums
-          const float* ch = cum + h * qp;
-          uint32_t wa[2][4];
-#pragma unroll
-          for (int f = 0; f < 4; ++f) {
-            const int ib = i0 + 32 * hc + 8 * f + 2 * t4;
-            const float2 ci2 = *reinterpret_cast<const float2*>(ch + ib);
-            float wv[4], cs[2] = {0.f, 0.f};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int hh = e >> 1, ii = ib + (e & 1);
-              const bool ok = ii < Q && ii >= jlo + 8 * hh;
-              const float l =
-                  ok ? exp2f((e & 1 ? ci2.y : ci2.x) - cj[h][hh]) : 0.f;
-              const float gl = gt[f][e] * l, d = dw[f][e];
-              wv[e] = gl * dtj[h][hh];
-              dgs[f][e] = fmaf(d * l, dtj[h][hh], dgs[f][e]);
-              rs[h][0][hh] = fmaf(d, gl, rs[h][0][hh]);
-              const float ww = d * wv[e];
-              rs[h][1][hh] -= ww;
-              cs[e & 1] += ww;
-            }
-            wa[f >> 1][2 * (f & 1)] = lm::pack_bf16x2(wv[0], wv[1]);
-            wa[f >> 1][2 * (f & 1) + 1] = lm::pack_bf16x2(wv[2], wv[3]);
-            // dcum_i: the column sums over the warp's 16 rows
-#pragma unroll
-            for (int e1 = 0; e1 < 2; ++e1) {
-              const float v = col_sum(cs[e1]);
-              if (gq == 0)
-                colsum[(h * 4 + r) * kTile + 32 * hc + 8 * f + 2 * t4 + e1] =
-                    v;
-            }
-          }
-          // dx_j += W^T dy_i over this half's 32 rows i
-#pragma unroll
-          for (int kk = 0; kk < 2; ++kk)
-            mma_rows<PKM>(dxa[h], wa[kk], Dyh + 32 * hc * ldp, ldp, kk,
-                          g.pk);
-        }
-        // the heads' summed dG, rounded once, into Dg [j][i]
-#pragma unroll
-        for (int f = 0; f < 4; ++f)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-            *reinterpret_cast<uint32_t*>(
-                Dg + (16 * r + gq + 8 * hh) * kDgLd + 32 * hc + 8 * f +
-                2 * t4) = lm::pack_bf16x2(dgs[f][2 * hh], dgs[f][2 * hh + 1]);
-        __syncthreads();
-        if (tid < nh * kTile) {
-          const int h = tid / kTile, col = tid % kTile, ii = i0 + col;
-          const float* cs = colsum + h * 4 * kTile + col;
-          if (ii < Q)
-            dcum[h * qp + ii] +=
-                ((cs[0] + cs[kTile]) + cs[2 * kTile]) + cs[3 * kTile];
-        }
-        // dC_i's sums so far (none at the first column tile), loaded
-        // under dB's products
-        float dca[2 * NKH][4];
-#pragma unroll
-        for (int f = 0; f < 2 * NKH; ++f)
-          get_rows(dcb + static_cast<size_t>(c0) * N, dca[f], i0 + 16 * r,
-                   16 * nb0 + 8 * f, f < 2 * nbn && j0 > 0 ? Q : 0, N);
-        // dB_j += dG^T C_i (rows j, this half's n; K = i)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          uint32_t af[4];
-          frag_a(af, Dg, kDgLd, 16 * r, 16 * kk);
-#pragma unroll
-          for (int nb = 0; nb < NKH; ++nb) {
-            if (nb >= nbn) break;
-            mma_kn(dba[2 * nb], dba[2 * nb + 1], af, Ci, ldn,
-                   16 * (nb0 + nb), 16 * kk);
+          if (sums) {  // dW^T = x_j dy_i^T
+            const uint32_t x_lo = lm::desc_lo(xh, 16);
+            const uint32_t d_lo = lm::desc_lo(dy_t, 16);
+            static_for<KP>([&](auto s) {
+              constexpr int kk = decltype(s)::value;
+              constexpr int off = (kk / 4 * kBoxBytes + kk % 4 * 32) / 16;
+              lm::wgmma_m64n64k16_ss<off, off>(dw, x_lo, d_lo, hi, kk > 0);
+            });
+            lm::wgmma_commit();
+            lm::wgmma_wait<0>();
+            lm::fence_regs(dw);
           }
         }
-        // dC_i (rows i, this half's n) += dG B_j (K = j)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          uint32_t af[4];
-          frag_a_t(af, Dg, kDgLd, 16 * r, 16 * kk);
-#pragma unroll
-          for (int nb = 0; nb < NKH; ++nb) {
-            if (nb >= nbn) break;
-            mma_kn(dca[2 * nb], dca[2 * nb + 1], af, Bj, ldn,
-                   16 * (nb0 + nb), 16 * kk);
-          }
-        }
-#pragma unroll
-        for (int f = 0; f < 2 * NKH; ++f)
-          if (f < 2 * nbn)
-            put_rows(dcb + static_cast<size_t>(c0) * N, dca[f],
-                     i0 + 16 * r, 16 * nb0 + 8 * f, Q, N);
-      }
-      __syncthreads();  // the last pair has read B_j and the ring
-      // the next tile's loads run under this one's results
-      if (j0 + kTile < Q) load_cols(j0 + kTile);
-
-      // ---- the column tile's results: row sums (two halves), dB_j, dx_j
-#pragma unroll
-      for (int h = 0; h < HM; ++h) {
-        if (h >= nh) break;
-#pragma unroll
-        for (int qn = 0; qn < 2; ++qn)
+        __syncthreads();  // G^T in shared memory
+        // W (and dG, the sums) where a warpgroup runs a head, or by
+        // warpgroup 0 alone for a split head, which also writes W^T to the
+        // exchange's tile for warpgroup 1's box of dx
+        if (mine && sums) {
+          // L = 2^(cum_i - cum_j) (i >= j only, both in the chunk), W = G
+          // L dt_j, dG = dW L dt_j, the row sums over i (ddt_j: dW G L;
+          // dcum_j: - dW W) and the column sums over j (dcum_i: dW W); G^T
+          // four values at a time. A k16 step (two n8 tiles) at a time: its
+          // W rounded to bfloat16 as W^T's A fragments goes to dx_j += W^T
+          // dy_i at once, the next step's W computed while it runs; the
+          // pair's row sums then added to the rows' shared ones
+          float cj[2], dtj[2], rs_ddt[2] = {0.f, 0.f}, rs_dcum[2] = {0.f, 0.f};
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
-            const float v = quad_sum(rs[h][qn][hh]);
-            if (t4 == 0)
-              rowsum[((h * 2 + hc) * 3 + qn) * kTile + 16 * r + gq + 8 * hh] =
-                  v;
+            const int jj = j0 + jr + 8 * hh;
+            cj[hh] = jj < Q ? cu[jj] : 0.f;
+            dtj[hh] = jj < Q ? dts[h * qp + jj] : 0.f;
           }
-      }
+          const uint32_t db = lm::desc_lo(dy_t + ps * kBoxBytes, kBoxBytes);
+          static_for<4>([&](auto s) {
+            constexpr int kk = decltype(s)::value;
+            float wv[8];
 #pragma unroll
-      for (int f = 0; f < 2 * NKH; ++f)
-        if (f < 2 * nbn)
-          put_rows(dbb + static_cast<size_t>(c0) * N, dba[f], j0 + 16 * r,
-                   16 * nb0 + 8 * f, Q, N);
-#pragma unroll
-      for (int h = 0; h < HM; ++h) {
-        if (h >= nh) break;
-        if (hc == 1) {
-#pragma unroll
-          for (int f = 0; f < 2 * PKM; ++f) {
-            if (f >= 2 * g.pk) break;
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh)
-              *reinterpret_cast<float2*>(
-                  dxo + (16 * r + gq + 8 * hh) * lds + 8 * f + 2 * t4) =
-                  make_float2(dxa[h][f][2 * hh], dxa[h][f][2 * hh + 1]);
-          }
-        }
-        __syncthreads();
-        if (hc == 0) {
-          bf16* dxh = dx + (static_cast<size_t>(bh0 + h) * L + c0) * P;
-#pragma unroll
-          for (int f = 0; f < 2 * PKM; ++f) {
-            if (f >= 2 * g.pk) break;
-            const int p = 8 * f + 2 * t4;
-            if (p >= P) continue;
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const int row = 16 * r + gq + 8 * hh, jj = j0 + row;
-              if (jj >= Q) continue;
-              const float2 o =
-                  *reinterpret_cast<const float2*>(dxo + row * lds + p);
-              const float v0 = dxa[h][f][2 * hh] + o.x;
-              const float v1 = dxa[h][f][2 * hh + 1] + o.y;
-              bf16* dst = dxh + static_cast<size_t>(jj) * P + p;
-              if (P % 2 == 0) {
-                *reinterpret_cast<uint32_t*>(dst) = lm::pack_bf16x2(v0, v1);
-              } else {
-                dst[0] = __float2bfloat16_rn(v0);
-                if (p + 1 < P) dst[1] = __float2bfloat16_rn(v1);
-              }
-            }
-          }
-        }
-        if (h == 0 && tid < nh * kTile) {
-          // ddt_j's share but the cumsum's (final: its rows are done),
-          // dcum_j, w_j dw_j
-          const int hr = tid / kTile, row = tid % kTile, jj = j0 + row;
-          const float* rsh = rowsum + hr * 6 * kTile + row;
-          if (jj < Q) {
-            ddt[static_cast<size_t>(bh0 + hr) * L + c0 + jj] =
-                rsh[0] + rsh[3 * kTile];
-            dcum[hr * qp + jj] += rsh[kTile] + rsh[4 * kTile];
-            wdw[hr * qp + jj] = rsh[2 * kTile] + rsh[5 * kTile];
-          }
-        }
-        __syncthreads();  // dxo and rowsum are rewritten next
-      }
-    }
-
-    // ---- the row walk (not at chunk 0: its entry state is zero): dC_i
-    // += exp(cum_i) dy_i S_c^T, dcum_i += exp(cum_i) C_i . (dy_i S_c^T),
-    // and dS <- exp(cum_Q) dS + sum_i (exp(cum_i) C_i)^T dy_i
-    if (ci > 0) {
-      for (int h = 0; h < nh; ++h) {
-        const float* sch =
-            states + (static_cast<size_t>(bh0 + h) * (nc - 1) + ci - 1) * N * P;
-        const float eq = exp2f(cum[h * qp + Q - 1]);
-        bf16* Sh = Sc + 2 * h * nn * ldp;
-        float* dSh = dS + h * nn * lds;
-        float part = 0.f;
-#pragma unroll 8
-        for (int idx = tid; idx < nn * pp; idx += kBwdThreads) {
-          const int n = idx / pp, p = idx % pp;
-          const float v = n < N && p < P ? sch[static_cast<size_t>(n) * P + p]
-                                         : 0.f;
-          const bf16 hi = __float2bfloat16_rn(v);
-          Sh[n * ldp + p] = hi;
-          Sh[(nn + n) * ldp + p] = __float2bfloat16_rn(v - __bfloat162float(hi));
-          float* d = dSh + n * lds + p;
-          part = fmaf(v, *d, part);
-          *d *= eq;
-        }
-#pragma unroll
-        for (int off = 16; off >= 1; off >>= 1)
-          part += __shfl_xor_sync(0xffffffffu, part, off);
-        if (lane == 0) red[h * 8 + warp] = part;
-      }
-      load_stage(0, 0);
-      lm::cp_async_commit();
-      __syncthreads();
-      if (tid < nh) {
-        float s = 0.f;
-        for (int w = 0; w < 8; ++w) s += red[tid * 8 + w];
-        dotv[tid] = s;  // <S_c, dS>, read by the epilogue
-      }
-      const int nt = (Q + kTile - 1) / kTile, pu = (g.pk + 1) / 2;
-      for (int k = 0; k < nt; ++k) {
-        const int i0 = k * kTile, s = k & 1;
-        lm::cp_async_wait<0>();
-        __syncthreads();  // as the column walk's pairs
-        if (k + 1 < nt) load_stage(s ^ 1, i0 + kTile);
-        lm::cp_async_commit();
-        const bf16* Ci = ring + s * stage;
-        const bf16* Dyi = Ci + kTile * ldn;
-        float dca[2 * NKH][4];  // dC_i's sums so far
-#pragma unroll
-        for (int f = 0; f < 2 * NKH; ++f)
-          get_rows(dcb + static_cast<size_t>(c0) * N, dca[f], i0 + 16 * r,
-                   16 * nb0 + 8 * f, f < 2 * nbn ? Q : 0, N);
-#pragma unroll
-        for (int h = 0; h < HM; ++h) {
-          if (h >= nh) break;
-          const bf16* Dyh = Dyi + h * kTile * ldp;
-          const bf16* Sh = Sc + 2 * h * nn * ldp;  // hi, then lo
-          float tt[2 * NKH][4];
-#pragma unroll
-          for (int f = 0; f < 2 * NKH; ++f)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) tt[f][e] = 0.f;
-          for (int kk = 0; kk < g.pk; ++kk) {
-            uint32_t af[4];
-            frag_a(af, Dyh, ldp, 16 * r, 16 * kk);
-#pragma unroll
-            for (int nb = 0; nb < NKH; ++nb) {
-              if (nb >= nbn) break;
-              mma_nk(tt[2 * nb], tt[2 * nb + 1], af, Sh, ldp,
-                     16 * (nb0 + nb), 16 * kk);
-              mma_nk(tt[2 * nb], tt[2 * nb + 1], af, Sh + nn * ldp, ldp,
-                     16 * (nb0 + nb), 16 * kk);
-            }
-          }
-          float ei[2], rd[2] = {0.f, 0.f};
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int ii = i0 + 16 * r + gq + 8 * hh;
-            ei[hh] = ii < Q ? exp2f(cum[h * qp + ii]) : 0.f;
-          }
-#pragma unroll
-          for (int f = 0; f < 2 * NKH; ++f) {
-            if (f >= 2 * nbn) break;
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const float2 cv = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(
-                      Ci + (16 * r + gq + 8 * hh) * ldn + 16 * nb0 + 8 * f +
-                      2 * t4));
-              rd[hh] = fmaf(cv.x, tt[f][2 * hh], rd[hh]);
-              rd[hh] = fmaf(cv.y, tt[f][2 * hh + 1], rd[hh]);
-              dca[f][2 * hh] = fmaf(ei[hh], tt[f][2 * hh], dca[f][2 * hh]);
-              dca[f][2 * hh + 1] =
-                  fmaf(ei[hh], tt[f][2 * hh + 1], dca[f][2 * hh + 1]);
-            }
-          }
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const float v = quad_sum(rd[hh]);
-            if (t4 == 0)
-              rowsum[(h * 2 + hc) * 3 * kTile + 16 * r + gq + 8 * hh] =
-                  ei[hh] * v;
-          }
-        }
-#pragma unroll
-        for (int f = 0; f < 2 * NKH; ++f)
-          if (f < 2 * nbn)
-            put_rows(dcb + static_cast<size_t>(c0) * N, dca[f], i0 + 16 * r,
-                     16 * nb0 + 8 * f, Q, N);
-        // dS += (exp(cum_i) C_i)^T dy_i: units of 16 rows n by 32
-        // columns p, a warp a unit
-        for (int u = warp; u < g.nk * pu; u += kBwdThreads / 32) {
-          const int nu = u / pu, pv = u % pu;
-          const int nq = min(2, g.pk - 2 * pv);  // 16-wide blocks of p
-          for (int h = 0; h < nh; ++h) {
-            float* dSh = dS + h * nn * lds;
-            const float* ch = cum + h * qp;
-            float sa[4][4];
-#pragma unroll
-            for (int f = 0; f < 4; ++f)
-#pragma unroll
-              for (int hh = 0; hh < 2; ++hh) {
-                float2 v = make_float2(0.f, 0.f);
-                if (f < 2 * nq)
-                  v = *reinterpret_cast<const float2*>(
-                      dSh + (16 * nu + gq + 8 * hh) * lds + 32 * pv + 8 * f +
-                      2 * t4);
-                sa[f][2 * hh] = v.x;
-                sa[f][2 * hh + 1] = v.y;
-              }
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              uint32_t af[4];
-              frag_a_t(af, Ci, ldn, 16 * nu, 16 * kk);
-              float ek[4];
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const int nn = 2 * kk + h2;
+              const int ib = i0 + 8 * nn + 2 * t4;
+              const float2 ci2 = *reinterpret_cast<const float2*>(cu + ib);
+              const float4 g = gts[nn * 128 + tw];
+              const float gv[4] = {g.x, g.y, g.z, g.w};
+              float cs2[2] = {0.f, 0.f};
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                const int ii = i0 + 16 * kk + 2 * t4 + (e & 1) + (e >> 1) * 8;
-                ek[e] = ii < Q ? exp2f(ch[ii]) : 0.f;
+                const int hh = e >> 1, ii = ib + (e & 1);
+                const bool ok = ii < Q && j0 + jr + 8 * hh <= ii;
+                const float l =
+                    ok ? ex2((e & 1 ? ci2.y : ci2.x) - cj[hh]) : 0.f;
+                const float gl = gv[e] * l, d = dw[4 * nn + e];
+                const float w = gl * dtj[hh], ww = d * w;
+                wv[4 * h2 + e] = w;
+                rs_ddt[hh] = fmaf(d, gl, rs_ddt[hh]);
+                rs_dcum[hh] -= ww;
+                cs2[e & 1] += ww;
+                dw[4 * nn + e] = d * l * dtj[hh];
               }
-              uint32_t al[4];  // exp(cum_i) C_i as hi + lo: dS feeds
-                               // the chunk before's ddt, da
 #pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const float2 v = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(&af[q]));
-                const int hi = q >> 1;  // a2, a3: k + 8
-                split_bf16x2(v.x * ek[2 * hi], v.y * ek[2 * hi + 1], af[q],
-                             al[q]);
+              for (int e1 = 0; e1 < 2; ++e1) {
+                const float v = col_sum(cs2[e1]);
+                if (g4 == 0)
+                  colsum[(h * 4 + warp) * kTile + 8 * nn + 2 * t4 + e1] = v;
               }
-              const bf16* Dyh = Dyi + h * kTile * ldp;
-              mma_kn(sa[0], sa[1], af, Dyh, ldp, 32 * pv, 16 * kk);
-              mma_kn(sa[0], sa[1], al, Dyh, ldp, 32 * pv, 16 * kk);
-              if (nq > 1) {
-                mma_kn(sa[2], sa[3], af, Dyh, ldp, 32 * pv + 16, 16 * kk);
-                mma_kn(sa[2], sa[3], al, Dyh, ldp, 32 * pv + 16, 16 * kk);
+              if (kSplit) {  // W^T's [j][i] tile in bfloat16
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh)
+                  *reinterpret_cast<uint32_t*>(
+                      at(base + lay.dgx +
+                         swz(jr + 8 * hh, 8 * nn + 2 * t4, kBoxBytes))) =
+                      lm::pack_bf16x2(wv[4 * h2 + 2 * hh],
+                                      wv[4 * h2 + 2 * hh + 1]);
               }
             }
+            if (kk > 0) {  // the previous step has read its fragments
+              lm::wgmma_wait<0>();
+              lm::fence_regs(pa);
+            }
+            lm::fence_regs(dxa);
 #pragma unroll
-            for (int f = 0; f < 4; ++f) {
-              if (f >= 2 * nq) break;
+            for (int q = 0; q < 4; ++q)
+              pa[0][q] = lm::pack_bf16x2(wv[2 * q], wv[2 * q + 1]);
+            lm::fence_regs(pa);
+            lm::wgmma_fence();
+            lm::wgmma_m64n64k16_rs_tb<kk * 2048 / 16>(dxa, pa[0], db, hi);
+            lm::wgmma_commit();
+          });
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float s1 = quad_sum(rs_ddt[hh]), s2 = quad_sum(rs_dcum[hh]);
+            const int jj = j0 + jr + 8 * hh;
+            if (t4 == 0 && jj < Q) {
+              dd[hr * qp + jj] += s1;
+              dcum[hr * qp + jj] += s2;
+            }
+          }
+          if (!kSplit && wg == 1) {  // head 1's dG to the exchange
+#pragma unroll
+            for (int n = 0; n < 8; ++n)
+              dgx[n * 128 + tw] = make_float4(dw[4 * n], dw[4 * n + 1],
+                                              dw[4 * n + 2], dw[4 * n + 3]);
+          }
+          if (kSplit) fence_async();  // W^T's writes before wgmma's reads
+        }
+        __syncthreads();  // the column sums, the exchange, a split W^T
+        if (kSplit && wg == 1) {
+          // dx_j += W^T dy_i over box 1 of P, W^T K-major from shared memory
+          lm::fence_regs(dxa);
+          lm::wgmma_fence();
+          const uint32_t w_lo = lm::desc_lo(base + lay.dgx, 16);
+          const uint32_t db = lm::desc_lo(dy_t + kBoxBytes, kBoxBytes);
+          static_for<4>([&](auto s) {
+            constexpr int kk = decltype(s)::value;
+            lm::wgmma_m64n64k16_ss_tb<kk * 32 / 16, kk * 2048 / 16>(
+                dxa, w_lo, db, hi, 1);
+          });
+          lm::wgmma_commit();
+        }
+        if (tid < nh * kTile) {  // dcum_i: the four warps' sums in order
+          const int k2 = tid / kTile, col = tid % kTile, ii = i0 + col;
+          const float* cs4 = colsum + k2 * 4 * kTile + col;
+          if (ii < Q)
+            dcum[k2 * qp + ii] += ((cs4[0] + cs4[kTile]) + cs4[2 * kTile]) +
+                                  cs4[3 * kTile];
+        }
+        if (wg == 0) {
+          // the block's heads' dG summed in float32 (head 0, then head 1),
+          // rounded once into dG^T's [j][i] tile (the 128-byte swizzle the
+          // group passes' wgmma read) over G^T's, then copied out to the
+          // chunk's copy in 16-byte stores
+          if (nh > 1) {
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+              const float4 v = dgx[n * 128 + tw];
+              dw[4 * n] += v.x;
+              dw[4 * n + 1] += v.y;
+              dw[4 * n + 2] += v.z;
+              dw[4 * n + 3] += v.w;
+            }
+          }
+          unsigned char* dgs = at(base + lay.gt);
+#pragma unroll
+          for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              *reinterpret_cast<uint32_t*>(
+                  dgs + swz(jr + 8 * hh, 8 * nn + 2 * t4, kBoxBytes)) =
+                  lm::pack_bf16x2(dw[4 * nn + 2 * hh],
+                                  dw[4 * nn + 2 * hh + 1]);
+          lm::bar_sync(1, 128);  // warpgroup 0's writes
+          uint4* dst = reinterpret_cast<uint4*>(
+              dg_buf + (static_cast<size_t>(blockIdx.x) * npairs +
+                        i * (i + 1) / 2 + j) * kTile * kTile);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            dst[tw + 128 * q] =
+                reinterpret_cast<const uint4*>(dgs)[tw + 128 * q];
+        }
+        if (mine) {
+          lm::wgmma_wait<0>();
+          lm::fence_regs(dxa);
+          lm::fence_regs(pa);
+        }
+        __syncthreads();  // the slot, G^T and the exchange are free
+        if (tid == 0 && k + 2 < npair)
+          request_ring(rk + 2, c0, i + 2, i + 2, -1, -1);
+      }
+
+      // dx_j (this warpgroup's box of P)
+      if (mine) {
+        bf16* dxh = dx + (static_cast<size_t>(bh) * L + c0) * Pr;
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn) {
+          const int p = 64 * ps + 8 * nn + 2 * t4;  // Pr % 8 == 0
+          if (p >= Pr) continue;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int jj = j0 + jr + 8 * hh;
+            if (jj < Q)
+              *reinterpret_cast<uint32_t*>(dxh + static_cast<size_t>(jj) * Pr +
+                                           p) =
+                  lm::pack_bf16x2(dxa[4 * nn + 2 * hh],
+                                  dxa[4 * nn + 2 * hh + 1]);
+          }
+        }
+      }
+      __syncthreads();  // B_j and the heads' x_j are free
+    }
+
+    // ---- a group pass, dB (kC false) or dC (true): per 64-row tile t of
+    // the chunk, float32 over the block's heads, warpgroup c owning N's
+    // box c. First the state terms summed over the heads, K-stacked with
+    // A from registers (dB_j: rb(w_j x_j) rb(dS)^T; dC_i, chunks > 0:
+    // rb(2^cum_i dy_i) rb(S_c)^T, the hi copies K-major), then the summed
+    // dG's products from the column walk's copies (dB_j += dG_ij^T C_i
+    // over i >= j, dG^T's tile K-major; dC_i += dG_ij B_j over j <= i, the
+    // tile as a transposed A), then the block's partial (emit). A pair's dG
+    // tile reaches its slot through this thread's registers a step ahead.
+    uint4 dgr[2];
+    auto group_pass = [&](auto is_c) {
+      constexpr bool kC = decltype(is_c)::value;
+      const int extra = (!kC || ci > 0) ? 1 : 0;
+      const int tq = opaque(tid), lq = tq % 32, wq = tq / 32 % 4;
+      const int jq = 16 * wq + (lq >> 2);  // this thread's rows, jq (+ 8)
+      const bf16* dgq = dg_buf + static_cast<size_t>(opaque(
+                                     static_cast<int>(blockIdx.x))) *
+                                     npairs * kTile * kTile;
+      auto count = [&](int t) { return extra + (kC ? t + 1 : nt - t); };
+      int nsteps = 0;
+      for (int t = 0; t < nt; ++t) nsteps += count(t);
+      // step s: tile t and p < 0 (the heads' step) or the pair (i, j) =
+      // (t + p, t) for dB, (t, p) for dC
+      auto step_of = [&](int s, int& t, int& p) {
+        t = 0;
+        while (s >= count(t)) {
+          s -= count(t);
+          ++t;
+        }
+        p = s - extra;
+      };
+      const int r0 = rk;
+      auto request = [&](int s) {
+        int t, p;
+        step_of(s, t, p);
+        if (p < 0)
+          request_ring(r0 + s, c0, -1, kC ? t : -1, kC ? -1 : t, -1);
+        else if (kC)
+          request_ring(r0 + s, c0, -1, -1, -1, p);
+        else
+          request_ring(r0 + s, c0, t + p, -1, -1, -1);
+      };
+      auto dg_at = [&](int s) -> const uint4* {
+        if (s >= nsteps) return nullptr;
+        int t, p;
+        step_of(s, t, p);
+        if (p < 0) return nullptr;
+        const int i = kC ? t : t + p, jj = kC ? p : t;
+        return reinterpret_cast<const uint4*>(
+            dgq + static_cast<size_t>(i * (i + 1) / 2 + jj) * kTile * kTile);
+      };
+      auto dg_fetch = [&](int s) {
+        const uint4* src = dg_at(s);
+        if (src != nullptr) {
+          dgr[0] = src[tq];
+          dgr[1] = src[tq + kBwdThreads];
+        }
+      };
+      auto dg_put = [&](int s) {
+        if (dg_at(s) != nullptr) {
+          uint4* dst = reinterpret_cast<uint4*>(
+              at(slot_at(r0 + s) + NB * kBoxBytes));
+          dst[tq] = dgr[0];
+          dst[tq + kBwdThreads] = dgr[1];
+        }
+      };
+      if (tq == 0) {
+        request(0);
+        if (nsteps > 1) request(1);
+      }
+      dg_fetch(0);
+      dg_put(0);
+      dg_fetch(1);
+      fence_async();
+      __syncthreads();
+      for (int t = 0, s = 0; t < nt; ++t) {
+        const int t0 = t * kTile;
+        float acc[32];
+        zero(acc);
+        for (int p = -extra; p < count(t) - extra; ++p, ++s, ++rk) {
+          const uint32_t slot = ring_wait();
+          if (wg < NB) {
+            if (p < 0) {
+              for (int k = 0; k < nh; ++k) {
+                float sr[2];  // the row scale of head k at rows t0 + jq (+ 8)
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                  const int rr = t0 + jq + 8 * hh;
+                  const float* ck = cum + k * qp;
+                  sr[hh] = rr >= Q ? 0.f
+                           : kC    ? ex2(ck[rr])
+                                   : ex2(ck[Q - 1] - ck[rr]) * dts[k * qp + rr];
+                }
+                const uint32_t tk = slot + k * PB * kBoxBytes;
+                const uint32_t sk =
+                    lm::desc_lo((kC ? sc_hi(k) : ds_hi(k)) + wg * kBoxBytes,
+                                16);
+                static_for<PB>([&](auto bs) {  // a 64-column box of P at a time
+                  constexpr int pb = decltype(bs)::value;
+                  uint32_t af[4][4];
+#pragma unroll
+                  for (int kk = 0; kk < 4; ++kk) {
+                    const int r = 16 * wq + (lq & 7) + 8 * ((lq >> 3) & 1);
+                    lm::ldmatrix_x4(
+                        af[kk], tk + swz(r, 64 * pb + 16 * kk + 8 * (lq >> 4),
+                                         kBoxBytes));
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {  // a0, a2: row g; a1, a3: + 8
+                      const float2 v = bf2(af[kk][q]);
+                      af[kk][q] =
+                          lm::pack_bf16x2(v.x * sr[q & 1], v.y * sr[q & 1]);
+                    }
+                  }
+                  lm::fence_regs(af);
+                  lm::fence_regs(acc);
+                  lm::wgmma_fence();
+                  static_for<4>([&](auto st) {
+                    constexpr int kk = decltype(st)::value;
+                    lm::wgmma_m64n64k16_rs<(pb * NB * kBoxBytes + kk * 32) /
+                                           16>(acc, af[kk], sk, hi);
+                  });
+                  lm::wgmma_commit();
+                  lm::wgmma_wait<0>();
+                  lm::fence_regs(af);
+                  lm::fence_regs(acc);
+                });
+              }
+            } else {
+              lm::fence_regs(acc);
+              lm::wgmma_fence();
+              const uint32_t g_lo =
+                  lm::desc_lo(slot + NB * kBoxBytes, kC ? kBoxBytes : 16);
+              const uint32_t o_lo =
+                  lm::desc_lo(slot + wg * kBoxBytes, kBoxBytes);
+              static_for<4>([&](auto st) {
+                constexpr int kk = decltype(st)::value;
+                if constexpr (kC)
+                  lm::wgmma_m64n64k16_ss_ta_tb<kk * 2048 / 16, kk * 2048 / 16>(
+                      acc, g_lo, o_lo, hi, 1);
+                else
+                  lm::wgmma_m64n64k16_ss_tb<kk * 32 / 16, kk * 2048 / 16>(
+                      acc, g_lo, o_lo, hi, 1);
+              });
+              lm::wgmma_commit();
+              lm::wgmma_wait<0>();
+              lm::fence_regs(acc);
+            }
+          }
+          dg_put(s + 1);  // its slot held step s - 1, done
+          dg_fetch(s + 2);
+          fence_async();
+          __syncthreads();  // slot s is free; slot s + 1 has its dG
+          if (tq == 0 && s + 2 < nsteps) request(s + 2);
+        }
+        if (wg < NB) stage(wg, acc);
+        emit(kC ? 1 : 0, c0, t0);
+      }
+    };
+    group_pass(std::integral_constant<bool, false>());
+
+    // ---- the row walk (not at chunk 0: its entry state is zero and the
+    // initial state's gradient is no output), two passes over the 64-row
+    // tiles i: dcum_i += 2^cum_i dy_i . (C_i S_c) with S_c as hi + lo;
+    // then dS <- 2^cum_Q dS + (2^cum_i C_i)^T dy_i with 2^cum_i C_i as
+    // hi + lo
+    // dS before the update (this chunk's): d(s_final) at the last chunk
+    // (null: zero), after it the float32 copy the update writes
+    auto ds_old = [&](int k) -> const float* {
+      const size_t o = static_cast<size_t>(bh0 + k) * N * P;
+      return ci < nc - 1 ? ds_buf + o
+                         : (ds_final != nullptr ? ds_final + o : nullptr);
+    };
+    if (ci > 0) {
+      // S_c as hi and lo, and <S_c, dS> (each warp's share, a head's)
+      for (int k = 0; k < nh; ++k) {
+        float dot = load_state(
+            sc_hi(k), sc_lo(k),
+            states + (static_cast<size_t>(bh0 + k) * (nc - 1) + ci - 1) * N *
+                         P,
+            ds_old(k));
+#pragma unroll
+        for (int off = 16; off >= 1; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (lane == 0) red[k * 8 + tid / 32] = dot;
+      }
+      // the chunk's (2^cum_i C_i)^T dy_i, float32, this warpgroup's box of P
+      float dsa[NB][32];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) zero(dsa[nb]);
+      fence_async();
+      // this walk's own copies of the thread's indices (see opaque)
+      const int lr = opaque(lane), wr = opaque(warp);
+      const int jrr = 16 * wr + (lr >> 2), t4r = lr & 3;
+      const int hq = opaque(h), psq = opaque(ps), hrq = opaque(hr);
+      const float* cuq = cum + hq * qp;
+      // two passes over the row tiles (C_i and the heads' dy_i in the
+      // ring each time), so that V and the dS sums never share registers
+      for (int pass = 0; pass < 2; ++pass) {
+      __syncthreads();  // every slot is free
+      if (tid == 0)
+        for (int k = 0; k < min(2, nt); ++k)
+          request_ring(rk + k, c0, k, k, -1, -1);
+      for (int i = 0; i < nt; ++i, ++rk) {
+        const int i0 = i * kTile;
+        const uint32_t slot = ring_wait();
+        if (mine && pass == 0) {
+          const uint32_t c_lo = lm::desc_lo(slot, 16);
+          const uint32_t dy_t = slot + (NB + hq * PB) * kBoxBytes;
+          // V = C_i S_c (S_c as hi + lo) over this warpgroup's box of P,
+          // and this lane's share of dy_i . V
+          float rd[2] = {0.f, 0.f}, v[32];
+          zero(v);
+          lm::fence_regs(v);
+          lm::wgmma_fence();
+          const uint32_t sh =
+              lm::desc_lo(sc_hi(hq) + psq * NB * kBoxBytes, kBoxBytes);
+          const uint32_t sl =
+              lm::desc_lo(sc_lo(hq) + psq * NB * kBoxBytes, kBoxBytes);
+          static_for<KN>([&](auto st) {
+            constexpr int kk = decltype(st)::value;
+            lm::wgmma_m64n64k16_ss_tb<(kk / 4 * kBoxBytes + kk % 4 * 32) / 16,
+                                      kk * 2048 / 16>(v, c_lo, sh, hi,
+                                                      kk > 0);
+          });
+          static_for<KN>([&](auto st) {
+            constexpr int kk = decltype(st)::value;
+            lm::wgmma_m64n64k16_ss_tb<(kk / 4 * kBoxBytes + kk % 4 * 32) / 16,
+                                      kk * 2048 / 16>(v, c_lo, sl, hi, 1);
+          });
+          lm::wgmma_commit();
+          lm::wgmma_wait<0>();
+          lm::fence_regs(v);
+#pragma unroll
+          for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float2 yv = bf2(*reinterpret_cast<const uint32_t*>(at(
+                  dy_t + swz(jrr + 8 * hh, 64 * psq + 8 * nn + 2 * t4r,
+                             kBoxBytes))));
+              rd[hh] = fmaf(v[4 * nn + 2 * hh], yv.x, rd[hh]);
+              rd[hh] = fmaf(v[4 * nn + 2 * hh + 1], yv.y, rd[hh]);
+            }
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float s = quad_sum(rd[hh]);
+            const int ii = i0 + jrr + 8 * hh;
+            if (t4r == 0 && ii < Q) dcum[hrq * qp + ii] += ex2(cuq[ii]) * s;
+          }
+        }
+        if (mine && pass == 1) {
+          const uint32_t dy_t = slot + (NB + hq * PB) * kBoxBytes;
+          // dS += (2^cum_i C_i)^T dy_i, a k-step of 16 rows i and one of
+          // N's boxes at a time: ldmatrix.trans of C_i's tile, times
+          // 2^cum_i, as hi + lo
+          const uint32_t db = lm::desc_lo(dy_t + psq * kBoxBytes, kBoxBytes);
+          static_for<4>([&](auto s) {
+            constexpr int kk = decltype(s)::value;
+            const int r = kk * 16 + ((lr >> 4) & 1) * 8 + (lr & 7);
+            const int cb = wr * 2 + ((lr >> 3) & 1);
+            const int ik = i0 + kk * 16 + 2 * t4r;
+            float ek[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int ii = ik + (q & 1) + 8 * (q >> 1);
+              ek[q] = ii < Q ? ex2(cuq[ii]) : 0.f;
+            }
+            static_for<NB>([&](auto t) {
+              constexpr int nb = decltype(t)::value;
+              uint32_t ah[1][4], al[1][4];
+              lm::ldmatrix_x4_trans(ah[0], slot + nb * kBoxBytes + r * 128 +
+                                               ((cb ^ (r & 7)) << 4));
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {  // a0, a1: rows i 2t..; a2, a3: + 8
+                const float2 cv = bf2(ah[0][q]);
+                const int e0 = q < 2 ? 0 : 2;
+                split_bf16x2(cv.x * ek[e0], cv.y * ek[e0 + 1], ah[0][q],
+                             al[0][q]);
+              }
+              lm::fence_regs(ah);
+              lm::fence_regs(al);
+              lm::fence_regs(dsa[nb]);
+              lm::wgmma_fence();
+              lm::wgmma_m64n64k16_rs_tb<kk * 2048 / 16>(dsa[nb], ah[0], db,
+                                                        hi);
+              lm::wgmma_m64n64k16_rs_tb<kk * 2048 / 16>(dsa[nb], al[0], db,
+                                                        hi);
+              lm::wgmma_commit();
+              lm::wgmma_wait<0>();
+              lm::fence_regs(ah);
+              lm::fence_regs(al);
+              lm::fence_regs(dsa[nb]);
+            });
+          });
+        }
+        __syncthreads();  // the slot is free
+        if (tid == 0 && i + 2 < nt)
+          request_ring(rk + 2, c0, i + 2, i + 2, -1, -1);
+      }
+      }
+      // the chunk before's dS = 2^cum_Q dS + the chunk's sum, a warpgroup
+      // at a time through the staging tile ([64 NB rows n][64 p] float32):
+      // float32 for its update, bfloat16 hi and lo for its state terms
+      float* st = reinterpret_cast<float*>(at(base + lay.stage));
+      for (int w = 0; w < (kSplit ? 2 : nh); ++w) {
+        if (mine && wg == w) {
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+            for (int nn = 0; nn < 8; ++nn)
 #pragma unroll
               for (int hh = 0; hh < 2; ++hh)
                 *reinterpret_cast<float2*>(
-                    dSh + (16 * nu + gq + 8 * hh) * lds + 32 * pv + 8 * f +
-                    2 * t4) = make_float2(sa[f][2 * hh], sa[f][2 * hh + 1]);
-            }
-          }
+                    st + (64 * nb + jr + 8 * hh) * kTile + 8 * nn + 2 * t4) =
+                    make_float2(dsa[nb][4 * nn + 2 * hh],
+                                dsa[nb][4 * nn + 2 * hh + 1]);
         }
         __syncthreads();
-        if (tid < nh * kTile) {
-          const int h = tid / kTile, row = tid % kTile, ii = i0 + row;
-          const float* rsh = rowsum + h * 6 * kTile + row;
-          if (ii < Q) dcum[h * qp + ii] += rsh[0] + rsh[3 * kTile];
+        const int hw = kSplit ? 0 : w, pw = kSplit ? w : 0;
+        const float* src = ds_old(hw);
+        float* dst = ds_buf + static_cast<size_t>(bh0 + hw) * N * P;
+        const float eq = ex2(cum[hw * qp + Q - 1]);
+        for (int idx = tid; idx < NB * kTile * 32; idx += kBwdThreads) {
+          const int n = idx / 32, pc = idx % 32 * 2, p = 64 * pw + pc;
+          float v0 = st[n * kTile + pc], v1 = st[n * kTile + pc + 1];
+          if (n < N) {
+            const size_t o = static_cast<size_t>(n) * P + p;
+            if (p < P) {
+              if (src != nullptr) v0 = fmaf(eq, src[o], v0);
+              dst[o] = v0;
+            }
+            if (p + 1 < P) {
+              if (src != nullptr) v1 = fmaf(eq, src[o + 1], v1);
+              dst[o + 1] = v1;
+            }
+          }
+          uint32_t h2, l2;
+          split_bf16x2(v0, v1, h2, l2);
+          const uint32_t off = swz(n, p, NB * kBoxBytes);
+          *reinterpret_cast<uint32_t*>(at(ds_hi(hw) + off)) = h2;
+          *reinterpret_cast<uint32_t*>(at(ds_lo(hw) + off)) = l2;
         }
+        __syncthreads();  // the staging tile is read
       }
+      fence_async();
     }
 
-    // ---- the cumsum: d(cum_Q) gains sum_j w_j dw_j and exp(cum_Q) <S_c,
-    // dS>; d(da)_k = sum_{i >= k} dcum_i; ddt_k += a d(da)_k, da +=
-    // sum_k dt_k d(da)_k
+    // ---- the cumsum's backward: d(cum_Q) gains sum_j w_j dw_j and
+    // 2^cum_Q <S_c, dS>; d(da)_k = sum_{i >= k} dcum_i; ddt_k += a d(da)_k,
+    // da += sum_k dt_k d(da)_k (a warp a head, fixed order)
     __syncthreads();
-    if (warp < nh) {
-      const int h = warp, bh = bh0 + h;
-      const float av = a[bh];
-      float* dch = dcum + h * qp;
+    if (tid < 32 * nh) {
+      const int k = tid / 32, bk = bh0 + k;
+      const float av = a[bk];
+      // head k's row of the sums, plus the second warpgroup's of a split
+      // head
+      auto row = [&](const float* r, int t) {
+        return kSplit ? r[t] + r[qp + t] : r[k * qp + t];
+      };
       float s = 0.f;
-      for (int t = lane; t < Q; t += 32) s += wdw[h * qp + t];
+      for (int t = lane; t < Q; t += 32) s += row(wdw, t);
 #pragma unroll
       for (int off = 16; off >= 1; off >>= 1)
         s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0)
-        dch[Q - 1] += s + (ci > 0 ? exp2f(cum[h * qp + Q - 1]) * dotv[h] : 0.f);
-      __syncwarp();
-      float carry = 0.f, part = 0.f;
-#pragma unroll 4
+      float dot = 0.f;  // <S_c, dS>: the eight warps' shares in order
+      for (int w = 0; w < kBwdThreads / 32; ++w) dot += red[k * 8 + w];
+      const float tail = s + (ci > 0 ? ex2(cum[k * qp + Q - 1]) * dot : 0.f);
+      float carry = 0.f, prt = 0.f;
       for (int t1 = Q; t1 > 0; t1 -= 32) {
         const int t = t1 - 32 + lane;
-        float v = t >= 0 ? dch[t] : 0.f;
+        float v = t >= 0 ? row(dcum, t) + (t == Q - 1 ? tail : 0.f) : 0.f;
 #pragma unroll
         for (int off = 1; off < 32; off <<= 1) {
           const float nb = __shfl_down_sync(0xffffffffu, v, off);
@@ -2131,59 +2318,112 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         v += carry;
         carry = __shfl_sync(0xffffffffu, v, 0);
         if (t >= 0) {
-          float* o = ddt + static_cast<size_t>(bh) * L + c0 + t;
-          *o += av * v;
-          part = fmaf(dt[static_cast<size_t>(bh) * L + c0 + t], v, part);
+          ddt[static_cast<size_t>(bk) * L + c0 + t] = row(dd, t) + av * v;
+          prt = fmaf(dts[k * qp + t], v, prt);
         }
       }
 #pragma unroll
       for (int off = 16; off >= 1; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      da_acc += part;
+        prt += __shfl_xor_sync(0xffffffffu, prt, off);
+      if (lane == 0) dacc[2 * k] += prt;
     }
+    __syncthreads();  // the cumsum's reads of dcum
+    group_pass(std::integral_constant<bool, true>());
   }
-  if (warp < nh && lane == 0) da[bh0 + warp] = da_acc;
+  if (tid < nh) da[bh0 + tid] = dacc[2 * tid];
 }
 
-// The bfloat16 backward's geometry for `hb` heads a block (sets =
-// ceil(rep / hb) blocks a group, as the forward's); nh = 0 where the
-// kernel takes no such launch (P past 64 with two heads, or shared memory).
-BwdGeom bwd_geom(int P, int N, int Q, int rep, int hb) {
-  BwdGeom g{};
-  g.nk = (N + 15) / 16;
-  g.pk = (P + 15) / 16;
-  g.qp = (Q + kTile - 1) / kTile * kTile;
-  if (hb < 1 || hb > rep) return g;
-  g.sets = (rep + hb - 1) / hb;
-  g.nh = (rep + g.sets - 1) / g.sets;
-  if (g.nh > (g.pk > 4 ? 1 : 2) || bwd_mma_smem(g) > 227 * 1024) g.nh = 0;
-  return g;
+// The sum of each group's `parts` float32 partials of dB and dC (2,
+// groups * parts, L * Nr), one a block of the group's heads, in order,
+// into (2, groups, L * Nr) bfloat16: four values a thread.
+__global__ void ssd_bwd_sum_parts(const float* __restrict__ part,
+                                  bf16* __restrict__ out, int parts,
+                                  long long per_group, long long total) {
+  const long long n4 = 2 * total / 4;
+  for (long long q = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       q < n4; q += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long idx = 4 * q, which = idx / total, r = idx % total;
+    const long long grp = r / per_group, e = r % per_group;
+    const float* src =
+        part + which * total * parts + grp * parts * per_group + e;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < parts; ++k) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(src + k * per_group);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    *reinterpret_cast<uint2*>(out + idx) =
+        make_uint2(lm::pack_bf16x2(s.x, s.y), lm::pack_bf16x2(s.z, s.w));
+  }
 }
 
-// the build for (P, N): P past 64 keeps one head's dx_j in registers
-using BwdMmaKernel = decltype(&ssd_bwd_mma<2, 4, 2>);
-BwdMmaKernel bwd_mma_kernel(int P, int N) {
-  if (P > 64) return N > 64 ? ssd_bwd_mma<4, 8, 1> : ssd_bwd_mma<2, 8, 1>;
-  return N > 64 ? ssd_bwd_mma<4, 4, 2> : ssd_bwd_mma<2, 4, 2>;
+// The bfloat16 backward's heads a block: two where P <= 64 and a group
+// has two, and their shared memory holds the chunk, else one; 0 where
+// not even one fits.
+int bwd_wgmma_heads(int P, int N, int Q, int rep) {
+  const int nb = N > 64 ? 2 : 1, pb = P > 64 ? 2 : 1;
+  for (int hb = (P <= 64 && rep >= 2) ? 2 : 1; hb >= 1; --hb)
+    if (bwd_wgmma_smem(nb, pb, hb, Q) <= 227 * 1024) return hb;
+  return 0;
+}
+using BwdWgmmaKernel = decltype(&ssd_bwd_wgmma<1, 1, 1>);
+// the build for N's and P's boxes and the heads a block (two only where P
+// fits one box)
+BwdWgmmaKernel bwd_wgmma_kernel(int nb, int pb, int hb) {
+  if (pb == 2) return nb == 2 ? ssd_bwd_wgmma<2, 2, 1> : ssd_bwd_wgmma<1, 2, 1>;
+  if (nb == 2) return hb == 2 ? ssd_bwd_wgmma<2, 1, 2> : ssd_bwd_wgmma<2, 1, 1>;
+  return hb == 2 ? ssd_bwd_wgmma<1, 1, 2> : ssd_bwd_wgmma<1, 1, 1>;
 }
 
-int launch_bwd_mma(const float* a, const void* x, const float* dt,
-                   const void* b, const void* c, const void* dy,
-                   const float* states, const float* ds_final, void* dx,
-                   float* ddt, float* da, float* db_part, float* dc_part,
-                   int bh, int L, int P, int N, int Q, int rep, int hb,
-                   cudaStream_t stream) {
-  const BwdGeom g = bwd_geom(P, N, Q, rep, hb);
-  if (g.nh == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const BwdMmaKernel kern = bwd_mma_kernel(P, N);
-  const size_t smem = bwd_mma_smem(g);
+// x, dy (bh, L, Pr), b, c (bh / rep, L, Nr) bfloat16, Pr and Nr multiples
+// of 8 (the wrapper zero-pads to them), 16-byte aligned; states, ds_final
+// and ds_buf at the true (N, P); see ssd_scan_bwd_wgmma_launch
+int launch_bwd_wgmma(const float* a, const void* x, const float* dt,
+                     const void* b, const void* c, const void* dy,
+                     const float* states, const float* ds_final,
+                     float* ds_buf, void* dg_buf, void* dx, float* ddt,
+                     float* da, float* part, void* out, int bh, int L, int P,
+                     int N, int Pr, int Nr, int Q, int rep, int hb,
+                     cudaStream_t stream) {
+  const int nb = Nr > 64 ? 2 : 1, pb = Pr > 64 ? 2 : 1;
+  const int sets = (rep + hb - 1) / hb, groups = bh / rep;
+  const size_t smem = bwd_wgmma_smem(nb, pb, hb, Q);
+  if (Pr % 8 || Nr % 8 || Pr < P || Nr < N || hb < 1 || hb > 2 ||
+      (hb > 1 && pb > 1) || smem > 227 * 1024 ||
+      (L > Q && ds_buf == nullptr) || (sets > 1 && part == nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(dy) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16 ||
+      reinterpret_cast<uintptr_t>(c) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_dy, map_b, map_c;
+  if (!lm::make_head_map(&map_x, x, Pr, L, bh, kTile) ||
+      !lm::make_head_map(&map_dy, dy, Pr, L, bh, kTile) ||
+      !lm::make_head_map(&map_b, b, Nr, L, groups, kTile) ||
+      !lm::make_head_map(&map_c, c, Nr, L, groups, kTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdWgmmaKernel kern = bwd_wgmma_kernel(nb, pb, hb);
   cudaError_t e = lm::allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<bh / rep * g.sets, kBwdThreads, smem, stream>>>(
-      a, static_cast<const bf16*>(x), dt, static_cast<const bf16*>(b),
-      static_cast<const bf16*>(c), static_cast<const bf16*>(dy), states,
-      ds_final, static_cast<bf16*>(dx), ddt, da, db_part, dc_part, L, P, N,
-      Q, rep, g);
+  kern<<<groups * sets, kBwdThreads, smem, stream>>>(
+      map_x, map_dy, map_b, map_c, a, dt, states, ds_final, ds_buf,
+      static_cast<bf16*>(dg_buf), static_cast<bf16*>(dx), ddt, da, part,
+      static_cast<bf16*>(out), L, P, N, Pr, Nr, Q, rep, sets);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (sets > 1) {
+    const long long per_group = static_cast<long long>(L) * Nr;
+    const long long total = per_group * groups;
+    const int blocks =
+        static_cast<int>(std::min<long long>((2 * total / 4 + 255) / 256,
+                                             4096));
+    ssd_bwd_sum_parts<<<blocks, 256, 0, stream>>>(
+        part, static_cast<bf16*>(out), sets, per_group, total);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2217,15 +2457,14 @@ extern "C" int ssd_scan_launch(int is_bf16, const void* a, const void* x,
   return launch<float>(af, x, dtf, b, c, y, sf, st, bh, L, P, N, Q, rep, s);
 }
 
-// The backward of ssd_scan_launch at the same a, x, dt, b, c (and Q, rep):
-// dy (bh, L, P) in x's type; states (bh, L / Q - 1, N, P) float32 from the
+// The float32 backward of ssd_scan_launch at the same a, x, dt, b, c (and
+// Q, rep): dy (bh, L, P); states (bh, L / Q - 1, N, P) float32 from the
 // forward (null when L == Q); ds_final (bh, N, P) float32 or null (zero).
-// Writes dx (bh, L, P) in x's type, ddt (bh, L) and da (bh,) float32, and
-// dB, dC as float32 partial sums (bh / rep * sets, L, N), one a block of
-// hb heads: float32, hb divides rep and sets = rep / hb; bfloat16, 1 <= hb
-// <= rep and sets = ceil(rep / hb) (the last block of a group may run
-// fewer). The caller sums each group's `sets` partials.
-extern "C" int ssd_scan_bwd_launch(int is_bf16, const void* a, const void* x,
+// Writes dx (bh, L, P), ddt (bh, L) and da (bh,), and dB, dC as partial
+// sums (bh / rep * sets, L, N), one a block of hb heads (hb divides rep,
+// sets = rep / hb): the caller sums each group's `sets` partials. (The
+// bfloat16 backward is ssd_scan_bwd_wgmma_launch.)
+extern "C" int ssd_scan_bwd_launch(const void* a, const void* x,
                                    const void* dt, const void* b,
                                    const void* c, const void* dy,
                                    const void* states, const void* ds_final,
@@ -2234,36 +2473,61 @@ extern "C" int ssd_scan_bwd_launch(int is_bf16, const void* a, const void* x,
                                    int L, int P, int N, int Q, int rep,
                                    int hb, void* stream) {
   if (bh < 1 || L < 1 || Q < 1 || L % Q || rep < 1 || bh % rep || P < 1 ||
-      P > 128 || N < 1 || N > 128 || hb < 1 || hb > rep ||
-      (!is_bf16 && rep % hb) || (L > Q && states == nullptr))
+      P > 128 || N < 1 || N > 128 || hb < 1 || hb > rep || rep % hb ||
+      (L > Q && states == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* af = static_cast<const float*>(a);
-  const float* dtf = static_cast<const float*>(dt);
-  const float* st = static_cast<const float*>(states);
-  const float* dsf = static_cast<const float*>(ds_final);
-  float* ddtf = static_cast<float*>(ddt);
-  float* daf = static_cast<float*>(da);
-  float* dbp = static_cast<float*>(db_part);
-  float* dcp = static_cast<float*>(dc_part);
-  if (is_bf16)
-    return launch_bwd_mma(af, x, dtf, b, c, dy, st, dsf, dx, ddtf, daf, dbp,
-                          dcp, bh, L, P, N, Q, rep, hb, s);
-  return launch_bwd<float>(af, x, dtf, b, c, dy, st, dsf, dx, ddtf, daf, dbp,
-                           dcp, bh, L, P, N, Q, rep, hb, s);
+  return launch_bwd<float>(
+      static_cast<const float*>(a), x, static_cast<const float*>(dt), b, c,
+      dy, static_cast<const float*>(states),
+      static_cast<const float*>(ds_final), dx, static_cast<float*>(ddt),
+      static_cast<float*>(da), static_cast<float*>(db_part),
+      static_cast<float*>(dc_part), bh, L, P, N, Q, rep, hb,
+      static_cast<cudaStream_t>(stream));
 }
 
-// The bfloat16 backward's launch at (P, N, Q, rep, hb), into out[0..5]:
-// shared memory bytes, resident blocks an SM, registers a thread, local
+// The bfloat16 backward (ssd_bwd_wgmma) at the forward's a, x, dt, b, c
+// (and Q, rep): x, dy (bh, L, Pr) and b, c (bh / rep, L, Nr) bfloat16, Pr
+// and Nr P and N rounded up to multiples of 8 (zero-padded: TMA's 16-byte
+// row strides); states (bh, L / Q - 1, N, P) float32 from the forward
+// (null when L == Q) and ds_final (bh, N, P) float32 or null (zero), at
+// the true P, N. hb heads a block (1 or 2; 1 where P > 64), sets =
+// ceil(rep / hb) blocks a group. Scratch: ds_buf (bh, N, P) float32 (null
+// when L == Q); dg_buf (bh / rep * sets, T (T + 1) / 2, 64, 64) bfloat16, T
+// the chunk's 64-row tiles; part (2, bh / rep * sets, L, Nr) float32 where
+// sets > 1, else null. Writes dx (bh, L, Pr) bfloat16, ddt (bh, L) and da
+// (bh,) float32, and out (2, bh / rep, L, Nr) bfloat16: dB, then dC.
+extern "C" int ssd_scan_bwd_wgmma_launch(
+    const void* a, const void* x, const void* dt, const void* b,
+    const void* c, const void* dy, const void* states, const void* ds_final,
+    void* ds_buf, void* dg_buf, void* dx, void* ddt, void* da, void* part,
+    void* out, int bh, int L, int P, int N, int Pr, int Nr, int Q, int rep,
+    int hb, void* stream) {
+  if (bh < 1 || L < 1 || Q < 1 || L % Q || rep < 1 || bh % rep || P < 1 ||
+      N < 1 || Pr > 128 || Nr > 128 || hb > rep ||
+      (L > Q && states == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd_wgmma(
+      static_cast<const float*>(a), x, static_cast<const float*>(dt), b, c,
+      dy, static_cast<const float*>(states),
+      static_cast<const float*>(ds_final), static_cast<float*>(ds_buf),
+      dg_buf, dx, static_cast<float*>(ddt), static_cast<float*>(da),
+      static_cast<float*>(part), out, bh, L, P, N, Pr, Nr, Q, rep, hb,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 backward's launch at (P, N, Q, rep), into out[0..5]: shared
+// memory bytes, resident blocks an SM, registers a thread, local
 // (spilled) bytes a thread, heads a block, blocks a group. Launches
 // nothing; cudaErrorInvalidValue where the kernel takes no such launch.
-extern "C" int ssd_scan_bwd_mma_info(int P, int N, int Q, int rep, int hb,
-                                     void* out) {
-  const BwdGeom g = bwd_geom(P, N, Q, rep, hb);
-  if (P < 1 || P > 128 || N < 1 || N > 128 || Q < 1 || g.nh == 0)
+extern "C" int ssd_scan_bwd_wgmma_info(int P, int N, int Q, int rep,
+                                       void* out) {
+  if (P < 1 || P > 128 || N < 1 || N > 128 || Q < 1 || rep < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdMmaKernel kern = bwd_mma_kernel(P, N);
-  const size_t smem = bwd_mma_smem(g);
+  const int hb = bwd_wgmma_heads(P, N, Q, rep);
+  if (hb == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = N > 64 ? 2 : 1, pb = P > 64 ? 2 : 1;
+  const BwdWgmmaKernel kern = bwd_wgmma_kernel(nb, pb, hb);
+  const size_t smem = bwd_wgmma_smem(nb, pb, hb, Q);
   cudaError_t e = lm::allow_smem(kern, smem);
   cudaFuncAttributes at{};
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&at, kern);
@@ -2277,7 +2541,7 @@ extern "C" int ssd_scan_bwd_mma_info(int P, int N, int Q, int rep, int hb,
   o[1] = blocks;
   o[2] = at.numRegs;
   o[3] = static_cast<int>(at.localSizeBytes);
-  o[4] = g.nh;
-  o[5] = g.sets;
+  o[4] = hb;
+  o[5] = (rep + hb - 1) / hb;
   return 0;
 }

@@ -30,17 +30,21 @@ group's rows (with rep = 1 this is the TPU kernel's per-head layout).
 The TPU kernel has no backward: the reference trains through its jnp
 `ssd_chunked` and autodiff. The port trains through the kernel, so
 `ssd_scan_bwd` is the gradient of the function the forward computes, in
-two builds of the same source: for bfloat16 inputs `ssd_bwd_mma`, every
-product on the tensor cores with C B^T, dG B and dG^T C formed once for
-a block of a group's heads (`bwd_mma_heads` picks how many, on a model
-of its shared memory, `bwd_mma_smem`); for float32 inputs `ssd_bwd`, on
-the CUDA cores (`heads_a_block`). When a gradient is needed the forward
-also saves S_c, the float32 state before each chunk c >= 1,
-(BH, L // q - 1, N, P), and the backward walks the chunks in reverse
-from them (undoing the recurrence would divide by exp(cum_Q)).
-`SSDScan` is the autograd Function: on the card the forward kernel then
-the backward kernel, on the CPU the plain forward then
-`ssd_scan_bwd_plain`, so the CPU tests run the formula the backward
+two builds of the same source: for bfloat16 inputs `ssd_bwd_wgmma`, on
+Hopper's wgmma and TMA, two warpgroups a block of up to two heads of a
+group (`bwd_wgmma_heads`, on a model of its shared memory,
+`bwd_wgmma_smem`), G^T = B C^T, dG^T C and dG B formed once for the
+block's heads, and each block's dB, dC summed over a group's blocks in
+a fixed order by a second small kernel; for float32 inputs `ssd_bwd`,
+on the CUDA cores (`heads_a_block`). The bfloat16 build takes x, dy, B
+and C zero-padded to a multiple of 8 columns, as the forward does, and
+chunks up to `bwd_wgmma_max_q`; past that it raises ValueError. When a
+gradient is needed the forward also saves S_c, the float32 state before
+each chunk c >= 1, (BH, L // q - 1, N, P), and the backward walks the
+chunks in reverse from them (undoing the recurrence would divide by
+exp(cum_Q)). `SSDScan` is the autograd Function: on the card the
+forward kernel then the backward kernel, on the CPU the plain forward
+then `ssd_scan_bwd_plain`, so the CPU tests run the formula the backward
 kernel is held to.
 
 `ssd_scan_plain` and `ssd_scan_bwd_plain` are the arithmetic chunk by
@@ -49,8 +53,10 @@ chunk in eager torch (any device). The wrappers take `device=None`
 stream or raise; only for CPU tensors do they run the plain version.
 Counts on `ssd_scan`: `.launches` and `.plain_calls` (forward),
 `.wgmma_launches` (the forward launches that ran `ssd_fwd_wgmma`: every
-bfloat16 one, also in `.launches`), `.bwd_launches` and
-`.bwd_plain_calls`; `reset_counts()` zeroes them.
+bfloat16 one, also in `.launches`), `.bwd_launches`,
+`.bwd_wgmma_launches` (the backward launches that ran `ssd_bwd_wgmma`:
+every bfloat16 one, also in `.bwd_launches`) and `.bwd_plain_calls`;
+`reset_counts()` zeroes them.
 """
 from __future__ import annotations
 
@@ -296,49 +302,98 @@ def heads_a_block(bh: int, rep: int, sms: int) -> int:
     return best[1]
 
 
+# the bfloat16 backward kernel (`ssd_bwd_wgmma`): a 64 x 64 tile's bytes
+# in bfloat16 (a TMA box) and float32
+_BOX, _F32_TILE = _TILE * _TILE * 2, _TILE * _TILE * 4
 
 
-def bwd_mma_smem(n: int, p: int, q: int, nh: int) -> int:
+def bwd_wgmma_smem(n: int, p: int, q: int, nh: int) -> int:
     """Shared-memory bytes of a bfloat16 backward block of `nh` heads at
-    N = n, P = p, chunk q: the same sum as `bwd_mma_smem` in
-    csrc/ssd_scan.cu (each head's float32 dS, the two-stage ring of C_i
-    and the heads' dy_i, the region the column and row walks share (the
-    latter's S_c as bfloat16 hi and lo), and the per-head float32 rows of
-    the chunk)."""
-    nk, pk, qp = -(-n // 16), -(-p // 16), -(-q // _TILE) * _TILE
-    ldn, ldp, lds = 16 * nk + 8, 16 * pk + 8, 16 * pk + 4
-    stage = _TILE * ldn + nh * _TILE * ldp
-    cols = 2 * (_TILE * ldn + nh * _TILE * ldp + _TILE * (_TILE + 8)) \
-        + 4 * _TILE * lds
-    rows = 4 * nh * 16 * nk * ldp
-    small = nh * (3 * qp + 10 * _TILE + 9)
-    return 4 * nh * 16 * nk * lds + 4 * stage + max(cols, rows) + 4 * small
+    N = n, P = p (each in one 64-column box or two), chunk q: the same sum
+    as `bwd_wgmma_smem` in csrc/ssd_scan.cu (1,024 bytes to align the
+    tiles; each head's dS as bfloat16 hi and lo; the region the column
+    walk (B_j, the heads' x_j, G^T and the dG exchange in float32) and
+    the row walks (each head's S_c hi and lo, the float32 staging of a
+    dB or dC tile) share; two ring slots (C_i and the heads' dy_i, or a
+    tile and a summed dG tile); float32
+    rows of the chunk, two a head and three a row of the sums (one a head,
+    two for P past 64, whose head both warpgroups run); per head the
+    column sums, the dot's partials and da; three barriers)."""
+    nb, pb = (2 if n > 64 else 1), (2 if p > 64 else 1)
+    state = nb * pb * _BOX
+    u = 2 * nh * state
+    gt = u + nb * _BOX + nh * pb * _BOX
+    stage = max(gt, u + nh * state)
+    end = max(gt + 2 * _F32_TILE, u + 2 * nh * state,
+              stage + nb * _F32_TILE)
+    slot = max((nb + nh * pb) * _BOX, (nb + 1) * _BOX)
+    qp = -(-q // _TILE) * _TILE
+    hr = 2 if p > 64 else nh   # rows of the per-row sums
+    return 1024 + end + 2 * slot + 4 * ((2 * nh + 3 * hr) * qp + 266 * nh) \
+        + 24
 
 
-def bwd_mma_heads(bh: int, rep: int, p: int, n: int, q: int,
-                  sms: int) -> int:
-    """The bfloat16 backward's heads a block: of the counts its registers
-    take (two at P <= 64, else one) and its shared memory holds, the one
-    whose grid (one block an SM, ceil(rep / heads) blocks a group) takes
-    the fewest waves times a block's products (C B^T, dG B and dG^T C
-    once a block; dy x^T, W^T dy and the four state products once a
-    head), the most heads on a tie. Raises ValueError where none fits."""
-    nn, pp, qp = 16 * -(-n // 16), 16 * -(-p // 16), -(-q // _TILE) * _TILE
-    pairs = (qp // _TILE) * (qp // _TILE + 1) // 2
-    best = None
-    for hb in range(1, min(1 if p > 64 else 2, rep) + 1):
-        sets = -(-rep // hb)
-        if -(-rep // sets) != hb or bwd_mma_smem(n, p, q, hb) > _SMEM_LIMIT:
-            continue
-        ops = pairs * _TILE * _TILE * (3 * nn + 2 * pp * hb) \
-            + hb * 4 * qp * nn * pp
-        cost = -(-(bh // rep * sets) // sms) * ops
-        if best is None or cost <= best[0]:
-            best = (cost, hb)
-    if best is None:
-        raise ValueError(f"chunk q = {q} at P = {p}, N = {n}: past what the "
-                         f"bfloat16 backward's shared memory holds")
-    return best[1]
+def bwd_wgmma_heads(p: int, n: int, q: int, rep: int) -> int:
+    """The bfloat16 backward's heads a block: two where P <= 64, the
+    group has two and their shared memory holds the chunk, else one (the
+    same rule as the source's `bwd_wgmma_heads`). Raises ValueError past
+    the longest chunk one head's block holds (`bwd_wgmma_max_q`)."""
+    for hb in range(2 if p <= 64 and rep >= 2 else 1, 0, -1):
+        if bwd_wgmma_smem(n, p, q, hb) <= _SMEM_LIMIT:
+            return hb
+    raise ValueError(f"chunk q = {q} at P = {p}, N = {n}: the bfloat16 "
+                     f"backward's shared memory holds "
+                     f"{bwd_wgmma_max_q(n, p)} steps at most")
+
+
+def bwd_wgmma_max_q(n: int, p: int) -> int:
+    """The longest chunk the bfloat16 backward takes at N = n, P = p (one
+    head a block: each 64 steps of the chunk cost the same bytes)."""
+    fixed = bwd_wgmma_smem(n, p, 0, 1)
+    tile = bwd_wgmma_smem(n, p, _TILE, 1) - fixed
+    return (_SMEM_LIMIT - fixed) // tile * _TILE
+
+
+def _bwd_wgmma(a, x, dt, b, c, dy, states, ds_final, q, rep, dev):
+    """The bfloat16 backward kernel: (da, dx, ddt, db, dc)."""
+    bh, l, p = x.shape
+    n = b.shape[-1]
+    hb = bwd_wgmma_heads(p, n, q, rep)
+    sets = -(-rep // hb)    # blocks, and partials, a group
+    groups, nt = bh // rep, -(-q // _TILE)
+    x, b, c, dy = (wgmma_operand(t) for t in (x, b, c, dy))
+    pr, nr = x.shape[-1], b.shape[-1]
+    dx = torch.empty_like(x)
+    ddt = torch.empty((bh, l), dtype=F32, device=dev)
+    da = torch.empty((bh,), dtype=F32, device=dev)
+    # scratch: dS between chunks, each block's summed dG tiles of a chunk,
+    # the blocks' partial sums of dB and dC where a group has several
+    ds_buf = (torch.empty((bh, n, p), dtype=F32, device=dev) if l > q
+              else None)
+    dg_buf = torch.empty((groups * sets, nt * (nt + 1) // 2, _TILE, _TILE),
+                         dtype=torch.bfloat16, device=dev)
+    part = (torch.empty((2, groups * sets, l, nr), dtype=F32, device=dev)
+            if sets > 1 else None)
+    out = torch.empty((2, groups, l, nr), dtype=torch.bfloat16, device=dev)
+    fn = getattr(_build.load("ssd_scan"), "ssd_scan_bwd_wgmma_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(a.data_ptr(), x.data_ptr(), dt.data_ptr(), b.data_ptr(),
+                c.data_ptr(), dy.data_ptr(),
+                states.data_ptr() if l > q else None,
+                None if ds_final is None else ds_final.data_ptr(),
+                None if ds_buf is None else ds_buf.data_ptr(),
+                dg_buf.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                da.data_ptr(), None if part is None else part.data_ptr(),
+                out.data_ptr(), bh, l, p, n, pr, nr, q, rep, hb, stream)
+    _raise_on(rc, "ssd_scan_bwd launch")
+    ssd_scan.bwd_launches += 1
+    ssd_scan.bwd_wgmma_launches += 1
+    db, dc = out[0], out[1]
+    if (pr, nr) != (p, n):          # the zero-padded columns, sliced off
+        dx = dx[..., :p].contiguous()
+        db, dc = db[..., :n].contiguous(), dc[..., :n].contiguous()
+    return da, dx, ddt, db, dc
 
 
 def ssd_scan_bwd(a, x, dt, b, c, dy, states, ds_final=None, *, q: int = 64,
@@ -361,11 +416,11 @@ def ssd_scan_bwd(a, x, dt, b, c, dy, states, ds_final=None, *, q: int = 64,
         ssd_scan.bwd_plain_calls += 1
         return ssd_scan_bwd_plain(a, x, dt, b, c, dy, states, ds_final, q=q,
                                   rep=rep)
+    if x.dtype == torch.bfloat16:
+        return _bwd_wgmma(a, x, dt, b, c, dy, states, ds_final, q, rep, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    bf16 = x.dtype == torch.bfloat16
-    hb = (bwd_mma_heads(bh, rep, p, n, q, sms) if bf16
-          else heads_a_block(bh, rep, sms))
-    sets = -(-rep // hb)    # blocks, and partials, a group
+    hb = heads_a_block(bh, rep, sms)
+    sets = rep // hb    # blocks, and partials, a group
     dx = torch.empty_like(x)
     ddt = torch.empty((bh, l), dtype=F32, device=dev)
     da = torch.empty((bh,), dtype=F32, device=dev)
@@ -373,8 +428,8 @@ def ssd_scan_bwd(a, x, dt, b, c, dy, states, ds_final=None, *, q: int = 64,
     fn = getattr(_build.load("ssd_scan"), "ssd_scan_bwd_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(int(bf16), a.data_ptr(), x.data_ptr(),
-                dt.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
+        rc = fn(a.data_ptr(), x.data_ptr(), dt.data_ptr(), b.data_ptr(),
+                c.data_ptr(), dy.data_ptr(),
                 states.data_ptr() if l > q else None,
                 None if ds_final is None else ds_final.data_ptr(),
                 dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
@@ -384,7 +439,7 @@ def ssd_scan_bwd(a, x, dt, b, c, dy, states, ds_final=None, *, q: int = 64,
     ssd_scan.bwd_launches += 1
     # a group's partials of dB and dC summed in a fixed order: the
     # gradient of the repeat of B and C over the group's heads
-    db, dc = parts.view(2, bh // rep, sets, l, n).sum(2).to(b.dtype)
+    db, dc = parts.view(2, bh // rep, sets, l, n).sum(2)
     return da, dx, ddt, db, dc
 
 
@@ -431,6 +486,7 @@ def reset_counts() -> None:
     ssd_scan.wgmma_launches = 0
     ssd_scan.plain_calls = 0
     ssd_scan.bwd_launches = 0
+    ssd_scan.bwd_wgmma_launches = 0
     ssd_scan.bwd_plain_calls = 0
 
 

@@ -1,6 +1,6 @@
 """A rounding model of the bfloat16 SSD scan backward kernel
-(`ssd_bwd_mma` in csrc/ssd_scan.cu), in eager torch on any device, with
-no JAX: `tests/test_torch_ssd_bwd_mma.py` holds it to the plain version
+(`ssd_bwd_wgmma` in csrc/ssd_scan.cu), in eager torch on any device, with
+no JAX: `tests/test_torch_ssd_bwd_wgmma.py` holds it to the plain version
 and to the reference on the CPU, `tests/test_torch_gpu.py` holds the
 kernel to it on the card.
 """
@@ -23,20 +23,21 @@ def _split(t):
     return hi + _rb(t - hi)
 
 
-def ssd_bwd_mma_emulation(a, x, dt, b, c, dy, states, ds, q, rep,
-                          heads_per_block):
+def ssd_bwd_wgmma_emulation(a, x, dt, b, c, dy, states, ds, q, rep,
+                            heads_per_block):
     """(da, dx, ddt, db, dc) as the bfloat16 backward kernel computes
-    them: blocks of `heads_per_block` heads of one group (ceil(rep /
-    heads_per_block) blocks a group, the last taking the rest), the
-    chunks from the last to the first, the cumsum kept times log2 e (each
-    exponential an exp2), float32 everywhere but the roundings the
-    source's header lists: W as the operand of W^T dy; the block's dG
-    summed over its heads, once, for dG B and dG^T C; dS for x dS^T;
-    and, as two bfloat16 terms (hi + lo), dS for B dS, S_c for dy S_c^T
-    and exp(cum_i) C_i for (exp(cum_i) C_i)^T dy (the products that reach
-    ddt and da). dB and dC are a block's partial sums, added over a
-    group's blocks in order. Inputs as `ssd_scan_bwd`'s; `ds` may be None
-    (zero)."""
+    them. Blocks of `heads_per_block` heads of one group (ceil(rep /
+    heads_per_block) blocks a group, the last taking the rest); the chunks
+    from the last to the first; the cumsum kept times log2 e (each
+    exponential an exp2); float32 everywhere but the roundings the
+    source's header lists: W as the operand of W^T dy; the block's heads'
+    dG summed in float32 (in head order) and rounded once for dG^T C and
+    dG B; w_j x_j and dS for dB's state term; 2^cum_i dy_i and S_c for
+    dC's; and, as two bfloat16 terms (hi + lo), dS for B dS, S_c for C
+    S_c and 2^cum_i C_i for (2^cum_i C_i)^T dy (the products that reach
+    ddt and da). dB and dC are a block's sums over its heads, summed over
+    a group's blocks in order, then rounded to bfloat16. Inputs as
+    `ssd_scan_bwd`'s; `ds` may be None (zero)."""
     bh, l, p = x.shape
     groups, _, n = b.shape
     sets = -(-rep // heads_per_block)
@@ -81,7 +82,7 @@ def ssd_bwd_mma_emulation(a, x, dt, b, c, dy, states, ds, q, rep,
                     wst = ej * dts
                     u = bm @ _split(d_s[h])
                     dxc = dxc + wst[:, None] * u
-                    dbc = dbc + wst[:, None] * (xs @ _rb(d_s[h]).T)
+                    dbc = dbc + _rb(wst[:, None] * xs) @ _rb(d_s[h]).T
                     dw = (u * xs).sum(1)
                     ddtc = ddtc + ej * dw
                     dcum = dcum - wst * dw
@@ -89,9 +90,8 @@ def ssd_bwd_mma_emulation(a, x, dt, b, c, dy, states, ds, q, rep,
                     if ci:
                         sc = states[h, ci - 1].to(F32)
                         ecum = torch.exp2(cum)
-                        t = dys @ _split(sc).T
-                        dcc = dcc + ecum[:, None] * t
-                        dcum = dcum + ecum * (cm * t).sum(1)
+                        dcc = dcc + _rb(ecum[:, None] * dys) @ _rb(sc).T
+                        dcum = dcum + ecum * (dys * (cm @ _split(sc))).sum(1)
                         eq = torch.exp2(cum[-1])
                         dcum[-1] += eq * (sc * d_s[h]).sum()
                         d_s[h] = (eq * d_s[h]
@@ -104,6 +104,6 @@ def ssd_bwd_mma_emulation(a, x, dt, b, c, dy, states, ds, q, rep,
                 dgb = _rb(dgsum)                # the block's sum, rounded once
                 dbp[sl] = dbc + dgb.T @ cm
                 dcp[sl] = dcc + dgb @ bm
-            db[grp] += dbp
+            db[grp] += dbp                      # the group's blocks in order
             dc[grp] += dcp
     return da, dx.to(x.dtype), ddt, db.to(b.dtype), dc.to(c.dtype)

@@ -1160,39 +1160,103 @@ def test_ssd_scan_bwd_kernel_is_deterministic(cuda, dtype, shape):
 
 
 def test_ssd_scan_bwd_bf16_kernel_matches_its_rounding_model(cuda):
-    """The bfloat16 kernel (`ssd_bwd_mma`) against
-    `_torch_ssd_bwd_mma.ssd_bwd_mma_emulation`, the rounding model the
+    """The bfloat16 kernel (`ssd_bwd_wgmma`) against
+    `_torch_ssd_bwd_wgmma.ssd_bwd_wgmma_emulation`, the rounding model the
     CPU tests hold to the plain version and to the reference, at its
     heads a block, on the same saved states: Mamba2-1.3B's training shape
-    at batch 1 (64 heads a group, L 512, P 64, N 128, chunk 256)."""
-    from _torch_ssd_bwd_mma import ssd_bwd_mma_emulation
+    at batch 1 (64 heads a group: 32 blocks of 2, L 512, P 64, N 128,
+    chunk 256); one `bwd_wgmma_launches` count a call."""
+    from _torch_ssd_bwd_wgmma import ssd_bwd_wgmma_emulation
     from repro_torch.kernels import ssd_scan as pss
+    pss.reset_counts()
     got, _, (a, x, dt, b, c, dy, states, ds, q, rep) = _ssd_bwd_case(
         cuda, torch.bfloat16, (1, 64, 512, 64, 128, 256, 1))
-    hb = pss.bwd_mma_heads(x.shape[0], rep, x.shape[2], b.shape[2], q,
-                           torch.cuda.get_device_properties(cuda)
-                           .multi_processor_count)
-    want = ssd_bwd_mma_emulation(a, x, dt, b, c, dy, states, ds, q, rep, hb)
+    assert (pss.ssd_scan.bwd_launches, pss.ssd_scan.bwd_wgmma_launches) == (
+        1, 1)
+    hb = pss.bwd_wgmma_heads(x.shape[2], b.shape[2], q, rep)
+    want = ssd_bwd_wgmma_emulation(a, x, dt, b, c, dy, states, ds, q, rep,
+                                   hb)
     for gt, w in zip(got, want):
         assert gt.dtype == w.dtype and gt.shape == w.shape
         _lm_close(gt, w, gt.dtype)
 
 
-@pytest.mark.parametrize("shape", [s for s in _BWD_SSD_SHAPES if s[3] <= 64])
-def test_ssd_scan_bwd_bf16_two_heads_a_block(cuda, shape, monkeypatch):
-    """The bfloat16 kernel at two heads a block where the host would pick
-    one (small grids): ragged P, N and chunks, one chunk, and groups of 3
-    heads, whose last block runs one; against the plain version and the
-    rounding model at two heads a block."""
-    from _torch_ssd_bwd_mma import ssd_bwd_mma_emulation
+_BWD_HEADS_SHAPES = [s for s in _BWD_SSD_SHAPES if s[3] <= 64] + [
+    (1, 6, 64, 16, 16, 32, 1), (1, 11, 64, 8, 8, 64, 1)]
+
+
+def _bf16_heads_a_block(cuda, shape, hb, monkeypatch):
+    from _torch_ssd_bwd_wgmma import ssd_bwd_wgmma_emulation
     from repro_torch.kernels import ssd_scan as pss
-    monkeypatch.setattr(pss, "bwd_mma_heads", lambda *args: 2)
+    monkeypatch.setattr(pss, "bwd_wgmma_heads", lambda *args: hb)
     got, want, (a, x, dt, b, c, dy, states, ds, q, rep) = _ssd_bwd_case(
         cuda, torch.bfloat16, shape)
-    model = ssd_bwd_mma_emulation(a, x, dt, b, c, dy, states, ds, q, rep, 2)
+    model = ssd_bwd_wgmma_emulation(a, x, dt, b, c, dy, states, ds, q, rep,
+                                    min(hb, rep))
     for gt, w, m in zip(got, want, model):
         _lm_close(gt, w, gt.dtype)
         _lm_close(gt, m, gt.dtype)
+
+
+@pytest.mark.parametrize("shape", _BWD_HEADS_SHAPES)
+def test_ssd_scan_bwd_bf16_two_heads_a_block(cuda, shape, monkeypatch):
+    """The bfloat16 kernel at two heads a block where the host would pick
+    one (a group of one head, or a chunk past 768 steps at N 128): ragged
+    P, N and chunks, one chunk, groups of 3 heads (blocks of 2 and 1:
+    uneven heads a block), of 6 and of 11 (6 blocks, the last of one
+    head); against the plain version and the rounding model at two heads
+    a block."""
+    _bf16_heads_a_block(cuda, shape, 2, monkeypatch)
+
+
+@pytest.mark.parametrize("shape", _BWD_HEADS_SHAPES)
+def test_ssd_scan_bwd_bf16_one_head_a_block(cuda, shape, monkeypatch):
+    """The same at one head a block: the group of 11 runs 11 blocks, their
+    partials summed in order by the second kernel."""
+    _bf16_heads_a_block(cuda, shape, 1, monkeypatch)
+
+
+def test_ssd_scan_bwd_bf16_long_chunk(cuda, monkeypatch):
+    """Long chunks at P 64, N 128: 640 at two heads a block, every
+    gradient held to the plain version; then past the two-head limit
+    (768: the host switches to one head a block, chunk 832), and the
+    refusal past the kernel's own (`bwd_wgmma_max_q`, 4,544), with no
+    fallback. At 832, dx, ddt, dB and dC are held to the plain version,
+    and da to the backward evaluated in float64 on the same saved
+    states: there the plain version's own float32 da is up to 2e-4 of
+    its largest value off the float64 one (its cumsum of dt A in
+    float32, as the forward's long chunk; ROADMAP queue 3), so the
+    kernel's da may be no farther from it than the plain version's,
+    plus the float32 tolerance."""
+    from repro_torch.kernels import ssd_scan as pss
+    got, want, _ = _ssd_bwd_case(cuda, torch.bfloat16,
+                                 (1, 2, 1280, 64, 128, 640, 1))
+    assert pss.bwd_wgmma_heads(64, 128, 640, 2) == 2
+    for gt, w in zip(got, want):
+        _lm_close(gt, w, gt.dtype)
+    shape = (1, 2, 1664, 64, 128, 832, 1)
+    got, want, (a, x, dt, b, c, dy, states, ds, q, rep) = _ssd_bwd_case(
+        cuda, torch.bfloat16, shape)
+    assert pss.bwd_wgmma_heads(64, 128, 832, 2) == 1
+    for gt, w in zip(got[1:], want[1:]):
+        _lm_close(gt, w, gt.dtype)
+    monkeypatch.setattr(pss, "F32", torch.float64)
+    exact = pss.ssd_scan_bwd_plain(*(t.double() for t in (
+        a, x, dt, b, c, dy, states, ds)), q=q, rep=rep)[0]
+    scale = max(1.0, float(exact.abs().max()))
+    plain_err = float((want[0].double() - exact).abs().max())
+    err = float((got[0].double() - exact).abs().max())
+    assert err <= plain_err + _LM_TOL[torch.float32] * scale, (err,
+                                                                plain_err)
+    monkeypatch.undo()
+    q = pss.bwd_wgmma_max_q(128, 64) + 64
+    a, x, dt, b, c, _, rep = _ssd_inputs(cuda, torch.bfloat16,
+                                         (1, 2, q, 64, 128, q, 1))
+    dy = torch.zeros_like(x)
+    states = torch.zeros((2, 0, 128, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="holds 4544 steps"):
+        pss.ssd_scan_bwd(a, x, dt, b, c, dy, states, q=q, rep=rep,
+                         device=cuda)
 
 
 _TRAIN_CASES = [(1, "qwen2-1.5b"), (2, "qwen2-1.5b"), (1, "mamba2-1.3b"),
