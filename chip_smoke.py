@@ -359,6 +359,20 @@ Phases (each prints its own lines; any failure exits non-zero):
    (b)'s measured step, and the measured share of the ideal step. The
    main serve's parameter count (phase 15) is `count_params_abstract` of
    the port's config, checked against the reference's 6.957e9.
+28. tensor parallelism: two spawned ranks share the card in a gloo group
+   (NCCL refuses two ranks on one device), a (1, 2) mesh: (a)
+   Qwen2-1.5B at full width and 2 layers, float32, 3 AdamW steps from
+   step 10 and a nonzero state (norms and QKV bias drawn too) on the
+   mesh, against the same steps in one process: losses, gnorms and every
+   gathered parameter within 1e-4 of the tensor's largest magnitude, the
+   step's collectives counted; (b) Qwen2-1.5B at full size, bfloat16, 3
+   `train_loop` steps of 8 x 512 on the mesh: each rank holds
+   771,999,232 parameters, its losses within 2e-2 of 27(b)'s run
+   without a mesh, every flash call at BH 8 x 6 heads and every one
+   `flash_fwd_wgmma` / `flash_bwd_wgmma`, no plain call; step ms and
+   peak GiB beside 27(b)'s, one profiled step's device busy share a
+   rank, one all-reduce of the residual stream timed (gloo stages it
+   through the host).
 
 The CPU halves of phases 4, 11 and 18(a) (small plans on the plain
 path, single-threaded, the largest host work of the run) run in four
@@ -379,12 +393,12 @@ steps plus the quickstart's; phase 22(b) and (c)'s are added to the
 scan's and to flash's, forward and backward, and `ssd_scan_bwd`'s are
 theirs alone; phase 23(b)'s prefill and (d)'s steps, phase
 24(b)-(c)'s prefills and (d)'s steps, phases 25(b)'s and 26(b)'s
-prefills and 26(c)'s steps, and phase 27(b)'s six steps, are added to
-flash's, forward and backward; `flash_fwd_wgmma`'s are every bfloat16
+prefills and 26(c)'s steps, phase 27(b)'s six steps and both of phase
+28(b)'s ranks' three, are added to flash's, forward and backward; `flash_fwd_wgmma`'s are every bfloat16
 forward among them (all of phases 15's, 20(b)-(d)'s, 21(b)'s, 22(c)'s
-and 23-27's; each phase checks that its bfloat16 forwards all ran it);
+and 23-28's; each phase checks that its bfloat16 forwards all ran it);
 `flash_bwd_wgmma`'s are every bfloat16 backward among them (all of
-21(b)'s, 22(c)'s and 23-27's; each phase checks that its bfloat16
+21(b)'s, 22(c)'s and 23-28's; each phase checks that its bfloat16
 backwards all ran it)), the card's nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`. The fleet kernels' integer state is
@@ -5345,7 +5359,8 @@ def phase_mesh(dev, cpu_runs):
     """27 (the module docstring's list): the host mesh, data-parallel
     Qwen2-1.5B against the same steps without a mesh, elastic resume,
     the compressed all-reduce against the CPU and the roofline beside
-    the measured step. Returns the launches of (b)'s six steps."""
+    the measured step. Returns the launches of (b)'s six steps, and (b)'s
+    run without a mesh for phase 28: {"losses", "peak", "step_ms"}."""
     import gc
 
     import numpy as np
@@ -5378,7 +5393,9 @@ def phase_mesh(dev, cpu_runs):
     gc.collect()
     torch.cuda.empty_cache()
     reset_lm_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
     plain = train_loop(steps=MESH_STEPS, ckpt_dir="", device=dev, **kw)
+    plain_peak = torch.cuda.max_memory_allocated(dev)
     want = [p.detach().clone() for p in plain["params"].parameters()]
     want_losses, want_dts = plain["losses"], plain["dts"]
     del plain
@@ -5514,6 +5531,312 @@ def phase_mesh(dev, cpu_runs):
         f"{rf['bound_step_s'] * 1e3 / step_ms:.4f}; per-device memory "
         f"{cell['memory']['total_bytes'] / 2**30:.2f} GiB (parameters and "
         f"AdamW state)")
+    return counts, {"losses": want_losses, "peak": plain_peak,
+                    "step_ms": plain_ms}
+
+
+# ------------------------------------------------------------- phase 28
+# tensor parallelism over the model axis: two ranks on the one card, a
+# (1, 2) mesh over gloo (NCCL refuses two ranks on one device)
+TP_RANKS, TP_STEPS = 2, 3
+# (a): Qwen2-1.5B at full width, this many layers, float32, from this
+# step of the schedule (its learning rate at step 0 is 0), held to this
+# share of each tensor's largest magnitude
+TP_CHECK_LAYERS, TP_FIRST_STEP, TP_CHECK_TOL = 2, 10, 1e-4
+# (b): a rank's share of Qwen2-1.5B's 1,543,910,912 parameters at a model
+# axis of 2 (every tensor but the 57 norms' 87,552 values splits in
+# two), and the bfloat16 losses' bound against 27(b)'s run
+TP_RANK_PARAMS, TP_LOSS_TOL = 771_999_232, 2e-2
+
+
+def tp_inputs(cfg, dev):
+    """(a)'s starting point, the same in every process: the seed's
+    parameters with the leaves the init leaves at zero (norms, the QKV
+    bias) drawn from N(0, 0.1^2), and an AdamW state at TP_FIRST_STEP with
+    m ~ N(0, 1e-2^2) and v ~ U(0, 1e-4) (from a zero state AdamW's first
+    step turns the key bias's rounding-noise gradient into a step of
+    about lr). Returns (model, params, opt_state)."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    model = build_model(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = model.init_params(generator=g, device=dev, trainable=True)
+    opt = make_train_step(model)[0](params)
+    with torch.no_grad():
+        for p in params.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.1, generator=g)
+        for k in opt["m"]:
+            opt["m"][k].normal_(0.0, 1e-2, generator=g)
+            opt["v"][k].uniform_(0.0, 1e-4, generator=g)
+        opt["step"].fill_(TP_FIRST_STEP)
+    return model, params, opt
+
+
+def tp_steps(model, params, opt, dev, group=None):
+    """TP_STEPS steps of (a) from TP_FIRST_STEP + 1 (the global batch on
+    every rank): (losses, gnorms, params)."""
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import to_device
+    _, step_fn = make_train_step(model, group=group)
+    dcfg = DataConfig(vocab=model.cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    losses, gnorms = [], []
+    for s in range(TP_FIRST_STEP + 1, TP_FIRST_STEP + 1 + TP_STEPS):
+        params, opt, m = step_fn(params, opt, to_device(host_batch(dcfg, s),
+                                                        dev), s)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    return losses, gnorms, params
+
+
+def tp_check(rank, dev, res):
+    """28(a) on one rank: the steps on the (1, 2) mesh, their collectives
+    counted; then rank 0 takes the same steps without a mesh and holds
+    the two to TP_CHECK_TOL."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import meshctx
+    from repro_torch.distributed.sharding import place_params, place_state
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TP_CHECK_LAYERS,
+                                         dtype="float32")
+    mesh = make_host_mesh(dev, model=TP_RANKS)
+    model, params, opt = tp_inputs(cfg, dev)
+    place_params(params, cfg, mesh)
+    opt = place_state(opt, cfg, mesh)
+    with meshctx.mesh_context(mesh), CommDebugMode() as comm:
+        losses, gnorms, params = tp_steps(model, params, opt, dev,
+                                          meshctx.batch_group(mesh))
+    got = {k: meshctx.full(p).detach() for k, p in params.named_parameters()}
+    res["check"] = {"losses": losses, "gnorms": gnorms, "comm": {
+        str(k): v for k, v in comm.get_comm_counts().items()}}
+    del params, opt
+    gc.collect()
+    if rank == 0:
+        want_l, want_g, want = tp_steps(*tp_inputs(cfg, dev), dev)
+        res["check"].update(
+            want_losses=want_l, want_gnorms=want_g,
+            param_err=max(float((got[k] - p.detach()).abs().max()
+                                / p.detach().abs().max())
+                          for k, p in want.named_parameters()))
+        del want
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def tp_full(dev, res):
+    """28(b) on one rank: Qwen2-1.5B at full size, TP_STEPS `train_loop`
+    steps on the (1, 2) mesh: losses, step times, the rank's parameters,
+    peak memory, the LM kernels' launches and the heads each flash call
+    saw; then one profiled step and one timed all-reduce."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.distributed.meshctx import batch_group, mesh_context
+    from repro_torch.distributed.sharding import local
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import to_device, train_loop
+    from repro_torch.models.model import build_model
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_host_mesh(dev, model=TP_RANKS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_lm_counts()
+    seen, flash = set(), ops.flash_attention
+
+    def spy(q, *a, **kw):
+        seen.add(q.shape[0])
+        return flash(q, *a, **kw)
+    ops.flash_attention = spy
+    try:
+        out = train_loop(cfg=cfg, steps=TP_STEPS, batch=TRAIN_BATCH,
+                         seq=TRAIN_SEQ, ckpt_dir="", mesh=mesh,
+                         log=lambda *a: None)
+    finally:
+        ops.flash_attention = flash
+    torch.cuda.synchronize()
+    counts, plain = lm_counts()
+    res["full"] = {
+        "losses": out["losses"], "dts": out["dts"], "counts": counts,
+        "plain_calls": plain, "bh": sorted(seen),
+        "peak": torch.cuda.max_memory_allocated(dev),
+        "params": sum(local(p).numel() for p in out["params"].parameters())}
+    # one more step under torch.profiler, this rank's device activity
+    _, step_fn = make_train_step(build_model(cfg), group=batch_group(mesh))
+    bt = to_device(host_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH),
+        TP_STEPS), dev)
+    params, opt = out["params"], out["opt_state"]
+    with mesh_context(mesh):
+        _, pwall, busy, rows = profiled(
+            lambda: step_fn(params, opt, bt, TP_STEPS), cpu=False)
+    res["full"]["profiled"] = {
+        "wall": pwall, "busy": busy,
+        "top": [(r.key, r.self_device_time_total / 1e3) for r in rows[:6]]}
+    del out, params, opt, bt
+    # one all-reduce of the residual stream's size over the model axis
+    # (a layer's forward sums two such, its backward two more)
+    h = torch.ones(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, dtype=torch.bfloat16,
+                   device=dev)
+    group = mesh["model"].get_group()
+    dist.all_reduce(h, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        dist.all_reduce(h, group=group)
+    torch.cuda.synchronize()
+    res["full"]["allreduce_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    res["full"]["allreduce_bytes"] = h.numel() * h.element_size()
+    del h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_rank(rank, init_file, out_dir):
+    """One of phase 28's ranks (spawned): a gloo group over the ranks,
+    each on card 0; writes its results to out_dir/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=TP_RANKS)
+    try:
+        res = {}
+        t0 = time.perf_counter()
+        tp_check(rank, dev, res)
+        res["check_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tp_full(dev, res)
+        res["full_s"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(dev, plain):
+    """28 (the module docstring's list): Qwen2-1.5B tensor-parallel on a
+    (1, 2) mesh, two ranks on the card; `plain`: 27(b)'s run without a
+    mesh ({"losses", "peak", "step_ms"}). Returns the ranks' launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs.registry import get_config
+    d = os.path.join(ROOT, "build", "chip_smoke_tp")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(tp_rank, args=(os.path.join(d, "init"), d),
+                 nprocs=TP_RANKS, join=True)
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    wall = time.perf_counter() - t0
+
+    # (a)
+    c = ranks[0]["check"]
+    bad = [(x, w) for x, w in zip(c["losses"] + c["gnorms"],
+                                  c["want_losses"] + c["want_gnorms"])
+           if abs(x - w) > TP_CHECK_TOL * abs(w)]
+    if bad or c["param_err"] > TP_CHECK_TOL or \
+            ranks[1]["check"]["losses"] != c["losses"]:
+        raise AssertionError(f"[tp] (a) losses {c['losses']} vs "
+                             f"{c['want_losses']}, gnorms {c['gnorms']} vs "
+                             f"{c['want_gnorms']}, parameters' largest "
+                             f"error {c['param_err']:.3g} of the tensor's "
+                             f"largest magnitude")
+    log(f"[tp] (a) {TRAIN_ARCH} at full width, {TP_CHECK_LAYERS} layers, "
+        f"float32, {TP_STEPS} AdamW steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"from step {TP_FIRST_STEP} (a nonzero state) on the (1, 2) mesh "
+        f"against the same steps in one process: losses "
+        f"{', '.join(f'{x:.6f}' for x in c['losses'])} vs "
+        f"{', '.join(f'{x:.6f}' for x in c['want_losses'])}, gnorms "
+        f"{', '.join(f'{x:.6f}' for x in c['gnorms'])} vs "
+        f"{', '.join(f'{x:.6f}' for x in c['want_gnorms'])}; every "
+        f"gathered parameter within {c['param_err']:.3g} of its largest "
+        f"magnitude (bound {TP_CHECK_TOL}); a rank's collectives "
+        f"{c['comm']}")
+
+    # (b)
+    cfg = get_config(TRAIN_ARCH)
+    want_bh = TRAIN_BATCH * cfg.n_heads // TP_RANKS
+    layers = cfg.n_layers
+    counts = {}
+    for r, res in enumerate(ranks):
+        f = res["full"]
+        per = {FLASH[0]: 2 * layers * TP_STEPS,
+               FLASH_WGMMA[0]: 2 * layers * TP_STEPS,
+               FLASH_BWD[0]: layers * TP_STEPS,
+               FLASH_BWD_WGMMA[0]: layers * TP_STEPS}
+        diff = [abs(x - w) for x, w in zip(f["losses"], plain["losses"])]
+        if f["params"] != TP_RANK_PARAMS or f["plain_calls"] or \
+                {k: f["counts"][k] for k in per} != per or \
+                f["bh"] != [want_bh] or len(diff) != TP_STEPS or \
+                max(diff) > TP_LOSS_TOL:
+            raise AssertionError(f"[tp] (b) rank {r}: {f['params']} "
+                                 f"parameters, launches {f['counts']}, "
+                                 f"{f['plain_calls']} plain calls, flash "
+                                 f"BH {f['bh']}, losses {f['losses']} vs "
+                                 f"{plain['losses']}")
+        for k in per:
+            counts[k] = counts.get(k, 0) + f["counts"][k]
+        step_ms = float(np.median(f["dts"][1:])) * 1e3
+        log(f"[tp] (b) rank {r}: {TRAIN_ARCH} at full size, {TP_STEPS} "
+            f"`train_loop` AdamW steps of {TRAIN_BATCH} x {TRAIN_SEQ} on the "
+            f"(1, 2) mesh: {f['params']} parameters held; losses "
+            f"{', '.join(f'{x:.4f}' for x in f['losses'])} (27(b) without a "
+            f"mesh: {', '.join(f'{x:.4f}' for x in plain['losses'])}, "
+            f"largest difference {max(diff):.4f}, bound {TP_LOSS_TOL}); "
+            f"step times {', '.join(f'{x * 1e3:.1f}' for x in f['dts'])} "
+            f"ms, median of steps 2-{TP_STEPS} {step_ms:.1f} ms (27(b): "
+            f"{plain['step_ms']:.1f} ms on the whole card); "
+            f"max_memory_allocated {f['peak'] / 2**30:.2f} GiB (27(b): "
+            f"{plain['peak'] / 2**30:.2f} GiB); launches "
+            + ", ".join(f"{v} {k}" for k, v in per.items())
+            + f" (every forward flash_fwd_wgmma, every backward the wgmma "
+            f"pair), flash BH {f['bh'][0]} = {TRAIN_BATCH} x "
+            f"{want_bh // TRAIN_BATCH} heads, 0 plain calls")
+    for r, res in enumerate(ranks):
+        pr = res["full"]["profiled"]
+        busy = ("not measured (the profiler saw no device activity)"
+                if pr["busy"] is None else
+                f"{pr['busy'] * 1e3:.1f} ms = share "
+                f"{pr['busy'] / pr['wall']:.4f}")
+        log(f"[tp] (b) rank {r}: one more step under torch.profiler: "
+            f"{pr['wall'] * 1e3:.1f} ms wall, this rank's device busy "
+            f"{busy}; its kernels by device time: " + "; ".join(
+                f"{k[:60]} {ms:.1f} ms" for k, ms in pr["top"]))
+    f = ranks[0]["full"]
+    log(f"[tp] two ranks over gloo (collectives staged through the host, "
+        f"not NVLink): one all-reduce of {f['allreduce_bytes']} bytes (the "
+        f"residual stream, bfloat16) over the model axis "
+        f"{f['allreduce_ms']:.2f} ms (host clock, mean of 5) = "
+        f"{f['allreduce_bytes'] / f['allreduce_ms'] / 1e6:.3f} GB/s; "
+        f"{wall:.1f}s wall with the ranks' start; (a) "
+        f"{ranks[0]['check_s']:.1f}s, (b) {ranks[0]['full_s']:.1f}s on "
+        f"rank 0")
     return counts
 
 
@@ -5586,7 +5909,7 @@ def main() -> int:
 
 
 def run_phases(dev, smi, cpu_runs) -> int:
-    """Phases 3-27 and the closing lines; `cpu_runs`: CPU_HALVES' futures
+    """Phases 3-28 and the closing lines; `cpu_runs`: CPU_HALVES' futures
     by name, and phase 27's roofline cell's."""
     import torch
     rec = {}
@@ -5682,9 +6005,14 @@ def run_phases(dev, smi, cpu_runs) -> int:
             counts[k] = counts.get(k, 0) + v
         log(f"[{name_}] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    for k, v in phase_mesh(dev, cpu_runs).items():
+    mesh_counts, plain = phase_mesh(dev, cpu_runs)
+    for k, v in mesh_counts.items():
         counts[k] = counts.get(k, 0) + v
     log(f"[mesh] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for k, v in phase_tp(dev, plain).items():
+        counts[k] = counts.get(k, 0) + v
+    log(f"[tp] phase {time.perf_counter() - t0:.1f}s")
 
     log("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     out = []

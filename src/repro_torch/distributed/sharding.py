@@ -27,6 +27,15 @@ divides L. Caches are mapped to the reference's leaves the same way
 
 `placements` maps a spec onto a `torch.distributed` `DeviceMesh` as
 DTensor placements and `distribute` places tensors by their specs.
+
+Tensor parallelism (a model axis above 1) runs on DTensors over the
+model axis's own one-axis sub-mesh (`mesh["model"]`): the batch axes stay
+data parallelism, each rank's batch slice a plain tensor that every rank
+of its model group holds whole. `place_params` / `place_state` make every
+parameter and optimizer tensor such a DTensor, split where the rules
+split it and replicated elsewhere; `place_like` makes a constant (a RoPE
+table, a mask) a DTensor beside the activation it meets, and `local` /
+`wrap_like` step between a DTensor and its local piece.
 """
 from __future__ import annotations
 
@@ -386,27 +395,133 @@ def _sharded(spec: Spec, mesh) -> bool:
     return False
 
 
+def _own_spec(name, s, mesh) -> Spec:
+    """The spec of a tensor's own dims; raises where its stacked layer
+    index is split over an axis of size > 1."""
+    stack, spec = (s.stack, s.spec) if isinstance(s, ParamSpec) else ((), s)
+    if _sharded(stack, mesh):
+        raise NotImplementedError(
+            f"{name}: its stacked layer index is split over the mesh "
+            f"({stack}); layers placed on separate ranks need expert or "
+            f"ZeRO-1 parallelism, which the port does not run (ROADMAP.md "
+            f"item 13g)")
+    return spec
+
+
 def distribute(named: dict, specs: dict, device_mesh) -> dict:
     """{name: tensor} placed by `specs` ({name: ParamSpec or spec}) on
     `device_mesh`: a DTensor where the spec splits a dim over an axis of
     size > 1, the tensor itself where every placement replicates. Every
-    rank calls it with the same full tensors."""
+    rank calls it with the same full tensors, and keeps its piece of
+    each: no collective runs."""
     from torch.distributed.tensor import distribute_tensor
     out = {}
     for k, t in named.items():
-        s = specs[k]
-        stack, spec = (s.stack, s.spec) if isinstance(s, ParamSpec) else \
-            ((), s)
-        if _sharded(stack, device_mesh):
-            raise NotImplementedError(
-                f"{k}: its stacked layer index is split over the mesh "
-                f"({stack}); layers placed on separate ranks need tensor "
-                f"or ZeRO-1 parallelism, which the port does not run "
-                f"(ROADMAP.md item 13g)")
+        spec = _own_spec(k, specs[k], device_mesh)
         if not _sharded(spec, device_mesh):
             out[k] = t
             continue
         with torch.no_grad():
             out[k] = distribute_tensor(t, device_mesh,
-                                       placements(spec, device_mesh))
+                                       placements(spec, device_mesh),
+                                       src_data_rank=None)
     return out
+
+
+# ------------------------------------------------- tensor parallelism
+
+def place(named: dict, specs: dict, mesh) -> dict:
+    """{name: tensor} for a step on `mesh`, every rank calling it with
+    the same full tensors: with a model axis of 1 the tensors themselves;
+    above it each a DTensor on `mesh["model"]`, Shard where its spec
+    names `model`, Replicate elsewhere, this rank keeping its piece (no
+    collective runs); a scalar (AdamW's step) stays itself. A spec that
+    splits a batch axis of size > 1 (ZeRO-1) raises, as does a split
+    stacked layer index: ROADMAP.md item 13g."""
+    from torch.distributed.tensor import distribute_tensor
+    shape = mesh_shape(mesh)
+    if shape["model"] == 1:
+        return dict(named)
+    sub = mesh["model"]
+    out = {}
+    for k, t in named.items():
+        spec = _own_spec(k, specs[k], mesh)
+        if t.ndim == 0:
+            out[k] = t
+            continue
+        split = {a for e in spec for a in (e if isinstance(e, tuple) else
+                                            (e,)) if a is not None}
+        if any(shape[a] > 1 for a in split - {"model"}):
+            raise NotImplementedError(
+                f"{k}: its spec {spec} splits a batch axis of the mesh "
+                f"{shape}; ZeRO-1 is not ported (ROADMAP.md item 13g)")
+        with torch.no_grad():
+            out[k] = distribute_tensor(t.detach(), sub, placements(spec, sub),
+                                       src_data_rank=None)
+    return out
+
+
+def place_params(params, cfg, mesh):
+    """Replace each parameter of the module `params` by its `place`d
+    DTensor (`param_shardings`' rules), in place; a no-op at a model
+    axis of 1. Returns `params`."""
+    named = dict(params.named_parameters())
+    for name, t in place(named, param_shardings(params, cfg, mesh),
+                         mesh).items():
+        if t is not named[name]:
+            mod, _, leaf = name.rpartition(".")
+            setattr(params.get_submodule(mod), leaf, torch.nn.Parameter(
+                t, requires_grad=named[name].requires_grad))
+    return params
+
+
+def place_state(opt_state: dict, cfg, mesh) -> dict:
+    """The optimizer state tree with each tensor `place`d by
+    `opt_shardings`' rules."""
+    specs = opt_shardings(opt_state, cfg, mesh)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        return place({"t": tree}, {"t": spec}, mesh)["t"]
+    return walk(opt_state, specs)
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def local(t):
+    """A DTensor's local piece (the tensor itself under no_grad, so an
+    in-place update of it updates the DTensor); any other tensor as it
+    is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def wrap_like(piece: torch.Tensor, t):
+    """`piece`, this rank's part of a tensor placed as `t` is, as a
+    DTensor placed so; `piece` itself where `t` is no DTensor."""
+    if not is_dtensor(t):
+        return piece
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(piece, t.device_mesh, t.placements,
+                              run_check=False)
+
+
+def place_like(t: torch.Tensor, ref):
+    """The constant `t` (a mask, a RoPE table) for an operation with the
+    DTensor `ref`, which `t` broadcasts against from the right: a DTensor
+    on `ref`'s mesh, split as `ref` is where `t` has that dim in full,
+    replicated elsewhere, so that the operation needs no collective. `t`
+    itself where `ref` is no DTensor."""
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    off = ref.ndim - t.ndim
+    pls = []
+    for p in ref.placements:
+        d = p.dim - off if p.is_shard() else -1
+        pls.append(Shard(d) if d >= 0 and t.shape[d] == ref.shape[p.dim]
+                   else Replicate())
+    return distribute_tensor(t, ref.device_mesh, pls, src_data_rank=None)

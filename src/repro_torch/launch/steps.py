@@ -10,12 +10,19 @@ as the reference returns its new ones. Gradients come from
 zeros, as `jax.grad` gives it. Adafactor (DeepSeek-V3's config) is given
 the reference's leaves (`convert.reference_leaves`), so it factors and
 clips each of the reference's stacked leaves as the reference does.
+
+Under tensor parallelism the parameters are DTensors
+(`sharding.place_params`): each gradient is placed as its parameter is,
+the loss terms are the replicated values' local copies, and the
+data-parallel mean packs each gradient's local piece.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.convert import reference_leaves
+from repro_torch.distributed.meshctx import redistribute
+from repro_torch.distributed.sharding import is_dtensor, local, wrap_like
 from repro_torch.models.model import Model
 from repro_torch.optim import clip_by_norm, cosine_schedule, make_optimizer
 
@@ -23,31 +30,43 @@ F32 = torch.float32
 
 
 def _grads(loss, named):
+    """Each parameter's gradient, zeros where the loss does not reach it;
+    a DTensor parameter's placed as the parameter is."""
     gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
-    return {k: torch.zeros_like(p) if g is None else g
-            for (k, p), g in zip(named.items(), gs)}
+    out = {}
+    with torch.no_grad():
+        for (k, p), g in zip(named.items(), gs):
+            if g is None:
+                g = torch.zeros_like(p)
+            elif is_dtensor(p) and g.placements != p.placements:
+                g = redistribute(g, p.placements)
+            out[k] = g
+    return out
 
 
 def mean_over(group, grads: dict, metrics: dict):
     """Gradients and loss terms averaged over the ranks of `group`, in
     one float32 all-reduce (each rank's own batch slice in, the global
-    batch's mean out, in each tensor's dtype)."""
+    batch's mean out, in each tensor's dtype); a DTensor's local piece
+    goes in and comes back placed as it was."""
     import torch.distributed as dist
     n = dist.get_world_size(group)
     items = list(grads.items()) + list(metrics.items())
-    flat = torch.empty(sum(v.numel() for _, v in items), dtype=F32,
-                       device=items[0][1].device)
+    pieces = [local(v) for _, v in items]
+    flat = torch.empty(sum(v.numel() for v in pieces), dtype=F32,
+                       device=pieces[0].device)
     off = 0
-    for _, v in items:
+    for v in pieces:
         flat[off:off + v.numel()].copy_(v.reshape(-1))
         off += v.numel()
     dist.all_reduce(flat, group=group)
     if n > 1:
         flat /= n
     out, off = {}, 0
-    for k, v in items:
-        out[k] = flat[off:off + v.numel()].view(v.shape).to(v.dtype)
-        off += v.numel()
+    for (k, v), pc in zip(items, pieces):
+        out[k] = wrap_like(flat[off:off + pc.numel()].view(pc.shape).to(
+            pc.dtype), v)
+        off += pc.numel()
     return ({k: out[k] for k in grads},
             {k: out[k] for k in metrics})
 
@@ -90,7 +109,7 @@ def make_train_step(model: Model, *, grad_accum: int = 1,
                 raise ValueError(f"batch {b} does not split into "
                                  f"grad_accum = {grad_accum} micro-batches")
             per = b // grad_accum
-            grads = {k: torch.zeros(p.shape, dtype=F32, device=p.device)
+            grads = {k: torch.zeros_like(p, dtype=F32)
                      for k, p in named.items()}
             loss_sum = 0.0
             for i in range(grad_accum):
@@ -98,16 +117,16 @@ def make_train_step(model: Model, *, grad_accum: int = 1,
                 loss, _ = model.loss_fn(params, mb)
                 for k, g in _grads(loss, named).items():
                     grads[k] += g.to(F32) / grad_accum
-                loss_sum = loss_sum + loss.detach() / grad_accum
+                loss_sum = loss_sum + local(loss.detach()) / grad_accum
             metrics = {"xent": loss_sum}
         else:
             loss, metrics = model.loss_fn(params, batch)
             grads = _grads(loss, named)
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics = {k: local(v.detach()) for k, v in metrics.items()}
         if group is not None:
-            local = {k: v for k, v in metrics.items() if k != "aux"}
-            grads, local = mean_over(group, grads, local)
-            metrics = dict(metrics, **local)
+            terms = {k: v for k, v in metrics.items() if k != "aux"}
+            grads, terms = mean_over(group, grads, terms)
+            metrics = dict(metrics, **terms)
         grads, gnorm = clip_by_norm(grads, max_grad_norm)
         lr = cosine_schedule(step, **lr_kwargs)
         _, opt_state = opt_update(named, grads, opt_state, lr,

@@ -19,11 +19,19 @@ Under a mesh each rank draws the same parameters, takes its slice of
 each step's global batch over the batch axes (`host_batch(...,
 host_id=rank, n_hosts=ranks)`), and the step averages gradients and
 loss terms over the batch group in one all-reduce before the optimizer
-(`launch/steps.py`), so parameters and optimizer state stay replicated.
-Rank 0 alone writes checkpoints, and every rank waits for it. A model
-axis above 1 (tensor and expert parallelism) and ZeRO-1 (`cfg.zero1`)
-over more than one data rank raise NotImplementedError (ROADMAP.md item
-13g).
+(`launch/steps.py`). With a model axis of 1 the parameters and optimizer
+state stay whole and replicated. Above 1 the dense family (Qwen2,
+Qwen2.5, Minitron, Gemma3) runs tensor-parallel: each parameter is
+placed by the reference's rules (`sharding.place_params`: a DTensor on
+the model axis, split where the rules split it) and AdamW's moments
+mirror it, so a rank holds only its pieces; the forward places
+activations as the reference's `shard_act` calls do
+(`models/transformer.py`) and the flash kernels run on each rank's heads
+(`kernels/ops.py`). A checkpoint stays mesh-free: every rank gathers
+each tensor whole and rank 0 alone writes it, and every rank waits for
+it; a restore places each tensor again. Every other family at a model
+axis above 1, Adafactor there, and ZeRO-1 (`cfg.zero1`) over more than
+one data rank raise NotImplementedError (ROADMAP.md item 13g).
 
 Every decoder, hybrid and SSM arch trains here (`--arch
 qwen2-moe-a2.7b` among them; `--arch deepseek-v3-671b` with the
@@ -52,8 +60,10 @@ from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, host_batch
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.distributed import checkpoint as ckpt
-from repro_torch.distributed.meshctx import batch_group, mesh_context
-from repro_torch.distributed.sharding import AbstractMesh, mesh_shape
+from repro_torch.distributed.meshctx import (batch_group, full, mesh_context,
+                                             piece_of)
+from repro_torch.distributed.sharding import (AbstractMesh, is_dtensor, local,
+                                              mesh_shape, place_params)
 from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
                                      mesh_device)
 from repro_torch.launch.steps import make_train_step
@@ -79,9 +89,9 @@ class StragglerWatchdog:
         return slow
 
 
-def flat_state(params, opt_state, step: int) -> dict:
-    """The checkpoint tree: `params/<name>`, the optimizer state's leaves
-    under `opt/` joined by "/", and `step`."""
+def _state_items(params, opt_state) -> dict:
+    """{checkpoint key: tensor}: `params/<name>` and the optimizer
+    state's leaves under `opt/` joined by "/"."""
     out = {f"params/{k}": p.detach() for k, p in params.named_parameters()}
 
     def walk(prefix, tree):
@@ -91,24 +101,36 @@ def flat_state(params, opt_state, step: int) -> dict:
             else:
                 out[f"{prefix}{k}"] = v
     walk("opt/", opt_state)
+    return out
+
+
+def flat_state(params, opt_state, step: int) -> dict:
+    """The checkpoint tree: `params/<name>`, the optimizer state's leaves
+    under `opt/` joined by "/", and `step`; each DTensor gathered whole,
+    so every rank of its mesh must call it."""
+    out = {k: full(v) for k, v in _state_items(params, opt_state).items()}
     out["step"] = np.int64(step)
     return out
 
 
 def load_state(flat: dict, params, opt_state) -> None:
     """Copy a restored `flat_state` tree into the parameters and the
-    optimizer state, in place."""
+    optimizer state, in place: into a DTensor its own piece."""
     with torch.no_grad():
-        for k, p in params.named_parameters():
-            p.copy_(torch.as_tensor(flat[f"params/{k}"]))
+        for k, t in _state_items(params, opt_state).items():
+            src = torch.as_tensor(flat[k])
+            if is_dtensor(t):
+                src = piece_of(src, t.placements, t.device_mesh)
+            local(t).copy_(src)
 
-        def walk(prefix, tree):
-            for k, v in tree.items():
-                if isinstance(v, dict):
-                    walk(f"{prefix}{k}/", v)
-                else:
-                    v.copy_(torch.as_tensor(flat[f"{prefix}{k}"]))
-        walk("opt/", opt_state)
+
+def restore_into(ckpt_dir: str, params, opt_state, step=None) -> int:
+    """Restore the newest intact checkpoint (or `step`) of `ckpt_dir`
+    into the parameters and optimizer state; returns its step."""
+    keys = dict(_state_items(params, opt_state), step=None)
+    restored, got = ckpt.restore(ckpt_dir, keys, step=step)
+    load_state(restored, params, opt_state)
+    return got
 
 
 def to_device(batch: dict, dev: torch.device) -> dict:
@@ -118,7 +140,7 @@ def to_device(batch: dict, dev: torch.device) -> dict:
             for k, v in batch.items()}
 
 
-def _check_mesh(mesh, cfg) -> None:
+def check_mesh(mesh, cfg) -> None:
     """Raise for what the port cannot run on `mesh`."""
     import torch.distributed as dist
     shape = mesh_shape(mesh)
@@ -127,9 +149,14 @@ def _check_mesh(mesh, cfg) -> None:
         n = dist.get_world_size() if dist.is_initialized() else 1
         why.append(f"it needs {mesh.size} ranks, one a card, and {n} "
                    f"running (start them with torchrun)")
-    if shape["model"] > 1:
-        why.append(f"its model axis of {shape['model']} needs tensor and "
-                   f"expert parallelism, which are not ported")
+    if shape["model"] > 1 and cfg.family != "dense":
+        why.append(f"its model axis of {shape['model']} needs the "
+                   f"{cfg.family} family's tensor or expert parallelism, "
+                   f"which is not ported (the dense family's is)")
+    elif shape["model"] > 1 and cfg.optimizer != "adamw":
+        why.append(f"its model axis of {shape['model']} needs "
+                   f"{cfg.optimizer}'s state split over it, which is not "
+                   f"ported (AdamW's is)")
     if cfg.zero1 and shape["data"] * shape.get("pod", 1) > 1:
         why.append("zero1 shards the optimizer state over the data ranks, "
                    "which the port does not run")
@@ -145,8 +172,9 @@ def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt_dir: str,
     """Train `cfg` from step 0, or from the newest checkpoint in
     `ckpt_dir`, to `steps`, saving every `ckpt_every` steps and at the
     end. With `mesh` (a DeviceMesh of (data, model), or (pod, data,
-    model), the model axis 1), data-parallel over its batch axes on the
-    mesh's device; `device` is then unused. Returns {"losses", "flagged",
+    model)), data-parallel over its batch axes and, for the dense family,
+    tensor-parallel over its model axis, on the mesh's device; `device`
+    is then unused. Returns {"losses", "flagged",
     "params", "opt_state", "dts", "metrics"}: "metrics" holds
     each step's loss terms ("xent", and "aux", "mtp" where the model has
     them) as floats, global-batch means under a mesh."""
@@ -154,7 +182,7 @@ def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt_dir: str,
     group, rank, ranks = None, 0, 1
     ctx = contextlib.nullcontext()
     if mesh is not None:
-        _check_mesh(mesh, cfg)
+        check_mesh(mesh, cfg)
         dev = mesh_device(mesh)
         group = batch_group(mesh)
         rank, ranks = dist.get_rank(group), dist.get_world_size(group)
@@ -171,19 +199,21 @@ def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt_dir: str,
     params = model.init_params(
         generator=torch.Generator(device=dev).manual_seed(seed), device=dev,
         trainable=True)
+    if mesh is not None:
+        place_params(params, cfg, mesh)
     opt_state = opt_init(params)
     start_step = 0
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
-        restored, start_step = ckpt.restore(
-            ckpt_dir, flat_state(params, opt_state, 0))
-        load_state(restored, params, opt_state)
+        start_step = restore_into(ckpt_dir, params, opt_state)
         log(f"[train] resumed from step {start_step}")
 
     def save(step):
-        if rank == 0:
-            ckpt.save(ckpt_dir, step, flat_state(params, opt_state, step))
-        if group is not None:
-            dist.barrier(group)
+        tree = flat_state(params, opt_state, step)
+        if mesh is None or dist.get_rank() == 0:
+            ckpt.save(ckpt_dir, step, tree)
+        del tree
+        if mesh is not None:
+            dist.barrier()
 
     watchdog = StragglerWatchdog()
     losses, dts, terms = [], [], []

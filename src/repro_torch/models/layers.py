@@ -6,20 +6,30 @@ with its initialisation.
 A port of the reference's `models/layers.py` for the serving paths. All
 attention math accumulates in float32; parameters and activations are
 in the config's dtype. Attention avoids materialising repeated KV heads
-by computing in the grouped layout (B, Lq, Hkv, G, D). The reference's
-`shard_act` is dropped: the port runs on one device.
+by computing in the grouped layout (B, Lq, Hkv, G, D).
+
+The reference's `shard_act` calls stand where it has them (q over heads
+and k replicated in `attn_qkv`, the MLP's hidden over F), no-ops off a
+mesh. Under tensor parallelism the parameters are DTensors: each product
+contracts pieces placed alike (`meshctx.align`), the outputs of the
+head- and F-contracting products are summed into replicated activations
+(`shard_act`), and constants meet them through `sharding.place_like`.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.meshctx import align, shard_act
+from repro_torch.distributed.sharding import place_like
+
 NEG_INF = -1e30
 F32 = torch.float32
 
 
 def _neg_inf(t: torch.Tensor) -> torch.Tensor:
-    return torch.full((), NEG_INF, dtype=t.dtype, device=t.device)
+    return place_like(torch.full((), NEG_INF, dtype=t.dtype,
+                                 device=t.device), t)
 
 
 # ---------------------------------------------------------------- norms/rope
@@ -44,8 +54,8 @@ def apply_rope(x, positions, theta: float):
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)             # (d/2,)
     ang = positions[..., None].to(F32) * freqs          # (..., L, d/2)
-    cos = torch.cos(ang)[..., None, :]                  # (..., L, 1, d/2)
-    sin = torch.sin(ang)[..., None, :]
+    cos = place_like(torch.cos(ang)[..., None, :], x)   # (..., L, 1, d/2)
+    sin = place_like(torch.sin(ang)[..., None, :], x)
     x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -182,24 +192,33 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
 
 # ---------------------------------------------------------------- blocks
 
+def _project(x, w):
+    """(B, L, D) x (D, H, Dh) -> (B, L, H, Dh)."""
+    return torch.einsum("bld,dhk->blhk", align(x, w, ((-1, 0),)), w)
+
+
 def attn_qkv(p, x, positions, theta):
     """q, k, v (B, L, H or Hkv, D), q and k rotated. The QKV bias (Qwen2),
     where `p` has one, is added after the products in the activations'
     dtype, as the reference adds it."""
-    q = torch.einsum("bld,dhk->blhk", x, p["wq"])
-    k = torch.einsum("bld,dhk->blhk", x, p["wk"])
-    v = torch.einsum("bld,dhk->blhk", x, p["wv"])
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
+    q = shard_act(q, "batch", None, "model", None)
+    k = shard_act(k, "batch", None, None, None)
     return q, k, v
 
 
 def attn_out(p, o):
-    return torch.einsum("blhk,hkd->bld", o, p["wo"])
+    o = torch.einsum("blhk,hkd->bld", align(o, p["wo"], ((2, 0), (3, 1))),
+                     p["wo"])
+    return shard_act(o, "batch", None, None)
 
 
 def randn(shape, scale, dtype, generator, device) -> torch.Tensor:
@@ -221,7 +240,9 @@ def init_mlp(d_model: int, d_ff: int, dtype, generator, device):
 
 
 def mlp(p, x):
-    h = torch.einsum("bld,df->blf", x, p["wi"])
-    g = torch.einsum("bld,df->blf", x, p["wg"])
+    h = torch.einsum("bld,df->blf", align(x, p["wi"], ((-1, 0),)), p["wi"])
+    g = torch.einsum("bld,df->blf", align(x, p["wg"], ((-1, 0),)), p["wg"])
     h = F.silu(g.to(F32)).to(h.dtype) * h
-    return torch.einsum("blf,fd->bld", h, p["wo"])
+    h = shard_act(h, "batch", None, "model")
+    o = torch.einsum("blf,fd->bld", align(h, p["wo"], ((-1, 0),)), p["wo"])
+    return shard_act(o, "batch", None, None)

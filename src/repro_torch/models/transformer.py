@@ -55,6 +55,18 @@ wraps each layer: its activations are recomputed in the backward.
 `decoder_loss` adds the router aux loss (MoE) and the multi-token
 prediction loss (MTP) to the cross-entropy, as the reference's does.
 
+Tensor parallelism (the dense family on a mesh whose model axis is
+above 1, `launch/train.py`): the parameters are DTensors split by the
+reference's rules, and the forward places activations where the
+reference's `shard_act` calls do (the embedding's output, each layer's
+input, the logits over the vocabulary), and replicates each norm's
+output, so that every gradient reaching a norm is whole. The embedding
+lookup on a vocabulary-split table and the cross-entropy over
+vocabulary-split logits run on each rank's piece (`local_map`): a row
+outside a rank's piece reads zeros, and the log-sum-exp and the gold
+logit are all-reduced over the model axis, so no rank gathers the (B,
+L, V) logits.
+
 The VLM family's frontend is a stub, as in the reference: precomputed
 patch embeddings (B, P, D) are prepended to the token embeddings, in
 `decoder_forward` and `prefill`, and take positions 0 .. P - 1; the
@@ -63,14 +75,19 @@ positions after the prefill, and decode's positions count the patches.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed.meshctx import (current_mesh, mesh_context,
+                                             shard_act)
+from repro_torch.distributed.sharding import is_dtensor, place_like
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
@@ -241,22 +258,67 @@ def init_decoder(cfg: ModelConfig,
 
 def remat(cfg: ModelConfig, fn, *args):
     """fn(*args), under torch.utils.checkpoint when `cfg.remat` and
-    autograd records (the reference's per-layer `jax.checkpoint`)."""
+    autograd records (the reference's per-layer `jax.checkpoint`). The
+    recompute runs in the backward, which autograd runs in a thread of
+    its own for a CUDA tensor: it re-installs the mesh context installed
+    now, so `shard_act` places its activations as the forward did."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        mesh = current_mesh()
+        if mesh is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+            contextlib.nullcontext(), mesh_context(mesh)))
     return fn(*args)
 
 
+def _split_dim(t, dim: int):
+    """(mesh dim, this rank's first index, piece size) where the DTensor
+    `t` is split on `dim`, else (None, 0, size)."""
+    dim %= t.ndim
+    for i, p in enumerate(t.placements):
+        if p.is_shard() and p.dim == dim:
+            n = t.device_mesh.size(i)
+            return i, t.device_mesh.get_local_rank(i) * (t.shape[dim] // n), \
+                t.shape[dim] // n
+    return None, 0, t.shape[dim]
+
+
+def _lookup(w, tokens, first: int, rows: int):
+    """Rows `tokens` - `first` of `w`, this rank's `rows` rows of the
+    table; zeros for a token outside them."""
+    t = tokens - first
+    inside = (t >= 0) & (t < rows)
+    h = F.embedding(torch.where(inside, t, 0), w)
+    return torch.where(inside[..., None], h, torch.zeros((), dtype=h.dtype,
+                                                         device=h.device))
+
+
 def embed_tokens(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
-    return model.embed[tokens]
+    w = model.embed
+    if not is_dtensor(w):
+        return w[tokens]
+    from functools import partial
+
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    i, first, rows = _split_dim(w, 0)
+    out = [Partial() if j == i else Replicate()
+           for j in range(w.device_mesh.ndim)]
+    h = local_map(partial(_lookup, first=first, rows=rows),
+                  out_placements=out, in_placements=(w.placements, None),
+                  in_grad_placements=(w.placements, None),
+                  device_mesh=w.device_mesh)(w, tokens)
+    return shard_act(h, "batch", None, None)
 
 
 def logits_fn(model: nn.Module, cfg: ModelConfig, h: torch.Tensor):
     w = model.embed.T if cfg.tie_embeddings else model.lm_head
     logits = torch.einsum("bld,dv->blv", h, w)
+    logits = shard_act(logits, "batch", None, "model")
     vp = padded_vocab(cfg.vocab)
     if vp != cfg.vocab:
-        mask = torch.arange(vp, device=h.device) < cfg.vocab
+        mask = place_like(torch.arange(vp, device=h.device) < cfg.vocab,
+                          logits)
         logits = torch.where(mask, logits, L._neg_inf(logits))
     return logits
 
@@ -275,14 +337,15 @@ def _attention(p, cfg: ModelConfig, h, positions, window: int = 0):
     """The attention half of a block: (h + attention, the entries the
     cache keeps of it): GQA's {"k" (rotated), "v"}, or MLA's {"c_kv",
     "k_rope"}. `window`: the layer's sliding window (0: global)."""
-    x = L.rms_norm(h, p.ln1, cfg.rms_eps)
+    x = shard_act(L.rms_norm(h, p.ln1, cfg.rms_eps), "batch", None, None)
     if cfg.mla:
         o, (c_kv, k_rope) = MLA.mla_forward(p.attn, x, cfg.mla,
                                             cfg.rope_theta,
                                             chunk=cfg.attn_chunk)
         return h + o, {"c_kv": c_kv, "k_rope": k_rope}
     q, k, v = L.attn_qkv(p.attn, x, positions, cfg.rope_theta)
-    if cfg.attn_impl == "plain" and h.device.type == "cpu":
+    if cfg.attn_impl == "plain" and h.device.type == "cpu" and \
+            not is_dtensor(q):
         o = L.plain_attention(q, k, v, causal=True, window=window)
     else:
         # the plain form's window is exact: a tile of one key bounds
@@ -300,7 +363,7 @@ def attn_block(p, cfg: ModelConfig, h, *, positions):
 def ffn_aux(p, cfg: ModelConfig, h):
     """The FFN half of a block: (h + FFN, the router's aux loss, None
     for a dense block)."""
-    x = L.rms_norm(h, p.ln2, cfg.rms_eps)
+    x = shard_act(L.rms_norm(h, p.ln2, cfg.rms_eps), "batch", None, None)
     if isinstance(p, MoEBlock):
         o, aux = MOE.moe_ffn(p.moe, x, cfg.moe)
         return h + o, aux
@@ -318,6 +381,7 @@ def decoder_hidden(model: DecoderLM, cfg: ModelConfig, h, positions):
     MoE routers' aux losses summed over the MoE layers, 0.0 without
     one."""
     def layer(p, h, window):
+        h = shard_act(h, "batch", None, None)
         h = _attention(p, cfg, h, positions, window)[0]
         return ffn_aux(p, cfg, h)
 
@@ -344,17 +408,71 @@ def decoder_forward(model: DecoderLM, cfg: ModelConfig, tokens,
     h = embed_inputs(model, tokens, patches)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, aux = decoder_hidden(model, cfg, h, positions)
-    return L.rms_norm(h, model.final_norm, cfg.rms_eps), aux
+    return shard_act(L.rms_norm(h, model.final_norm, cfg.rms_eps), "batch",
+                     None, None), aux
+
+
+class _PieceNLL(torch.autograd.Function):
+    """lse - gold of each position from this rank's piece of the
+    vocabulary (`first` on), the max, the sum of exponentials and the
+    gold logit all-reduced over `group`."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, first, group):
+        import torch.distributed as dist
+        m = torch.amax(logits, dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        s = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+        dist.all_reduce(s, group=group)
+        lse = m + torch.log(s)
+        t = targets.long() - first
+        inside = (t >= 0) & (t < logits.shape[-1])
+        t = torch.where(inside, t, 0)
+        gold = torch.gather(logits, -1, t[..., None])[..., 0]
+        gold = torch.where(inside, gold, 0.0)
+        dist.all_reduce(gold, group=group)
+        ctx.save_for_backward(logits, lse, t, inside)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, t, inside = ctx.saved_tensors
+        d = torch.exp(logits - lse[..., None])
+        d.scatter_add_(-1, t[..., None], -inside.to(d.dtype)[..., None])
+        return d * g[..., None], None, None, None
+
+
+def _piece_nll(logits, targets):
+    """The (B, L) lse - gold of logits split over the vocabulary, on
+    every rank of their mesh."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    i, first, _ = _split_dim(logits, -1)
+    mesh = logits.device_mesh
+
+    def nll(piece, targets):
+        return _PieceNLL.apply(piece, targets, first, mesh.get_group(i))
+    return local_map(nll, out_placements=[Replicate()] * mesh.ndim,
+                     in_placements=(logits.placements, None),
+                     in_grad_placements=(logits.placements, None),
+                     device_mesh=mesh)(logits, targets)
 
 
 def softmax_xent(logits, targets, mask):
     """Mean token cross-entropy: logits (B, L, V) in float32 (log-sum-exp
     over the padded vocabulary, whose pad `logits_fn` masks), targets
-    (B, L) ints, mask (B, L) weights."""
+    (B, L) ints, mask (B, L) weights. Logits split over the vocabulary
+    (a DTensor) are reduced piece by piece (`_PieceNLL`)."""
     logits = logits.to(F32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = (lse - gold) * mask
+    if is_dtensor(logits) and _split_dim(logits, -1)[0] is not None:
+        nll = _piece_nll(logits, targets)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, place_like(targets.long(), logits)
+                            [..., None])[..., 0]
+        nll = lse - gold
+    mask = place_like(mask, nll)
+    nll = nll * mask
     return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 
 

@@ -30,6 +30,12 @@ no stacked copy of a parameter, gradient or update is made. A layer's
 vector (or scalar) is stacked: the (n, d) leaf is factored, r (n,)
 against c (d,), which couples the layers. Without `leaves` each
 parameter is its own leaf, under its name.
+
+Under tensor parallelism (DTensor parameters, `sharding.place_params`)
+AdamW's moments mirror their parameters' placements, and the update runs
+on each rank's local pieces; the clip's norm counts each split
+gradient's pieces once (summed over the model axis) and each replicated
+one once.
 """
 from __future__ import annotations
 
@@ -38,23 +44,47 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, local, wrap_like
+
 F32 = torch.float32
 Tensors = Dict[str, torch.Tensor]
 
 
 def _zeros_f32(p: torch.Tensor, shape=None) -> torch.Tensor:
-    return torch.zeros(p.shape if shape is None else shape, dtype=F32,
-                       device=p.device)
+    """Float32 zeros placed as `p` is, or of `shape` on its device."""
+    if shape is None:
+        return torch.zeros_like(p, dtype=F32)
+    return torch.zeros(shape, dtype=F32, device=p.device)
+
+
+def _sum_squares(grads: Tensors) -> torch.Tensor:
+    """The float32 sum of every gradient's squares: the split DTensors'
+    local sums all-reduced over their mesh, then the rest's added."""
+    import torch.distributed as dist
+    split = [g for g in grads.values() if is_dtensor(g)
+             and any(p.is_shard() for p in g.placements)]
+    if not split:
+        return sum(torch.sum(torch.square(local(g).to(F32)))
+                   for g in grads.values())
+    mesh = split[0].device_mesh
+    if mesh.ndim != 1 or any(g.device_mesh != mesh for g in split):
+        raise NotImplementedError("gradients split over more than one "
+                                  "mesh axis (ROADMAP.md item 13g)")
+    parts = sum(torch.sum(torch.square(local(g).to(F32))) for g in split)
+    dist.all_reduce(parts, group=mesh.get_group())
+    ids = {id(g) for g in split}
+    return parts + sum((torch.sum(torch.square(local(g).to(F32)))
+                        for g in grads.values() if id(g) not in ids),
+                       torch.zeros((), dtype=F32, device=parts.device))
 
 
 @torch.no_grad()
 def clip_by_norm(grads: Tensors, max_norm: float):
     """Scale every gradient by min(1, max_norm / global L2 norm). Returns
     (new gradient dict, float32 norm)."""
-    gsq = sum(torch.sum(torch.square(g.to(F32))) for g in grads.values())
-    gnorm = torch.sqrt(gsq)
+    gnorm = torch.sqrt(_sum_squares(grads))
     scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
-    return {k: (g.to(F32) * scale).to(g.dtype)
+    return {k: wrap_like((local(g).to(F32) * scale).to(g.dtype), g)
             for k, g in grads.items()}, gnorm
 
 
@@ -78,8 +108,8 @@ def adamw_update(params: Tensors, grads: Tensors, state: dict, lr, *,
     t = step.to(F32)
     c1, c2 = 1 - b1 ** t, 1 - b2 ** t
     for k, p in params.items():
-        g = grads[k].to(F32)
-        m, v = state["m"][k], state["v"][k]
+        p, g = local(p), local(grads[k]).to(F32)
+        m, v = local(state["m"][k]), local(state["v"][k])
         m2 = b1 * m + (1 - b1) * g
         v2 = b2 * v + (1 - b2) * g * g
         mhat = m2 / c1

@@ -2,8 +2,10 @@
 with four host devices (`--xla_force_host_platform_device_count=4`, set
 by the test before JAX starts): two `make_train_step` steps of each case
 in `ref_inputs.pkl`, from its nonzero AdamW state, jitted with the reference's shardings under an
-Auto-axis (4, 1) (data, model) mesh, from the parameters the port's ranks
-start from. Writes each step's metrics and the final parameters.
+Auto-axis (data, model) mesh, the case's "mesh" or (4, 1), from the
+parameters the port's ranks start from. Writes each step's metrics and
+the final parameters. Also the reference's side of
+`test_torch_tensor_parallel.py`.
 
 Usage: python tests/_torch_mesh_ref.py WORK_DIR
 """
@@ -30,10 +32,10 @@ def main(work):
     assert len(jax.devices()) == WORLD, jax.devices()
     with open(f"{work}/ref_inputs.pkl", "rb") as f:
         cases = pickle.load(f)
-    mesh = jax.make_mesh((WORLD, 1), ("data", "model"),
-                         axis_types=(AxisType.Auto,) * 2)
     out = {}
     for name, case in cases.items():
+        mesh = jax.make_mesh(case.get("mesh", (WORLD, 1)), ("data", "model"),
+                             axis_types=(AxisType.Auto,) * 2)
         rcfg = case["rcfg"]
         rm = build_model(rcfg)
         opt_init, step = rsteps.make_train_step(rm, lr_kwargs=LR)
